@@ -1,0 +1,39 @@
+"""The PyTorch port stands alone: no module of vnsum_tpu_torch, and not
+chip_smoke.py, imports jax or any module of the JAX package."""
+from __future__ import annotations
+
+import re
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCES = sorted((ROOT / "vnsum_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# word-bounded: "vnsum_tpu_torch" does not match "vnsum_tpu\b"
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+vnsum_tpu\b(?!_)|from\s+vnsum_tpu\b(?!_))",
+    re.MULTILINE,
+)
+
+
+def test_sources_found():
+    assert len(SOURCES) > 20
+    assert (ROOT / "vnsum_tpu_torch" / "ops" / "csrc" / "flash_prefill.cu").is_file()
+    assert (ROOT / "vnsum_tpu_torch" / "ops" / "csrc" / "flash_decode.cu").is_file()
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_vnsum_tpu_imports(path):
+    hits = FORBIDDEN.findall(path.read_text(encoding="utf-8"))
+    assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+@pytest.mark.parametrize(
+    "line,bad",
+    [("import jax", True), ("from jax import numpy", True), ("  import jax.numpy as jnp", True),
+     ("from vnsum_tpu.models import llama", True), ("import vnsum_tpu.core", True),
+     ("from vnsum_tpu_torch.models import llama", False), ("import jaxtyping", False),
+     ("# import jax in a comment", False)],
+)
+def test_pattern_is_word_bounded(line, bad):
+    assert bool(FORBIDDEN.search(line)) is bad

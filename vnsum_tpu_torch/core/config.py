@@ -1,0 +1,89 @@
+"""Typed configuration for the pipeline and strategies.
+
+Copy of ``vnsum_tpu/core/config.py`` cut to what the port runs today: the
+map-reduce approach on the one-card engine. Knob names and defaults are the
+JAX package's (themselves the reference's, run_full_evaluation_pipeline.py:
+973-1027); the knobs of approaches, meshes, long context and int8 weights
+return with the slices that port them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+
+APPROACHES: tuple[str, ...] = ("mapreduce",)
+
+
+@dataclass(frozen=True)
+class GenerationConfig:
+    """Decoding parameters for one backend.generate() call."""
+
+    # None = inherit the backend's constructor default; a config passed only
+    # to set temperature/eos must not silently override the decode budget
+    max_new_tokens: int | None = None
+    temperature: float = 0.0  # 0.0 => greedy (ref: run_summarization.py:44)
+    top_k: int = 0            # 0 => disabled
+    top_p: float = 1.0
+    eos_ids: tuple[int, ...] = ()
+    seed: int = 0
+
+    def with_(self, **kw) -> "GenerationConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class PipelineConfig:
+    """Full pipeline configuration; `approach_defaults()` applies the
+    per-approach overrides."""
+
+    approach: str = "mapreduce"
+    models: list[str] = field(default_factory=lambda: ["llama3.2-3b"])
+    max_new_tokens: int = 1024
+    docs_dir: str = "data_1/doc"
+    summary_dir: str = "data_1/summary"
+    generated_summaries_dir: str = "data_1/generated_summaries"
+    results_dir: str = "evaluation_results"
+    logs_dir: str = "logs"
+    max_samples: int | None = None
+
+    # chunking
+    chunk_size: int = 12000
+    chunk_overlap: int = 200
+    token_max: int = 10000
+
+    # failure containment: re-submit a failed document batch this many extra
+    # times before recording its documents as failed. Device errors are
+    # never retried (core/faults.py)
+    max_batch_retries: int = 1
+    retry_backoff: float = 1.0
+
+    # engine
+    batch_size: int = 8
+    # documents submitted to the strategy per round; 0 = auto (4x batch_size)
+    doc_group_size: int = 0
+    tokenizer: str = "byte"  # byte | hf:<name-or-path>
+    # prefill in slices of this many tokens (0 = whole prompt)
+    prefill_chunk_tokens: int = 0
+
+    def __post_init__(self) -> None:
+        if self.approach not in APPROACHES:
+            raise ValueError(
+                f"unknown approach {self.approach!r}; expected one of {APPROACHES}"
+            )
+        if self.chunk_overlap >= self.chunk_size:
+            raise ValueError("chunk_overlap must be smaller than chunk_size")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, ensure_ascii=False)
+
+
+def approach_defaults(approach: str) -> dict:
+    """Per-approach config overrides (run_full_evaluation_pipeline.py:
+    993-1027)."""
+    if approach == "mapreduce":
+        return {"chunk_size": 12000, "chunk_overlap": 200, "token_max": 10000}
+    raise ValueError(f"unknown approach: {approach}")

@@ -1,0 +1,413 @@
+"""Llama-3.2 family decoder in PyTorch.
+
+Counterpart of ``vnsum_tpu/models/llama.py``. The parameters keep the JAX
+package's layout — every layer weight stacked on a leading L dim, Q/K/V
+projections shaped ``[D, H, hd]`` — so a JAX parameter tree maps onto the
+port one to one (:func:`params_from_numpy`), and the decoder runs as a
+Python loop over layers that indexes the stacks (views, no copies).
+
+- GQA attention with RoPE (llama3 frequency scaling), RMSNorm, SwiGLU, and
+  Qwen3's per-head Q/K RMSNorm (``qk_norm``);
+- a preallocated stacked KV cache ``[L, B, KV, C, hd]``, bf16, or int8 with
+  per-(token, head) f32 scales. Unlike the JAX package, whose arrays are
+  immutable, the port writes each layer's new K/V into the cache IN PLACE;
+- bf16 storage and matmuls, f32 norms, softmax and logits.
+
+``forward`` takes a ``stacked_attention_fn(q, cache, layer_idx)`` that reads
+the whole stacked cache (the prefill and decode kernels); without one it runs
+dense attention over the layer's dequantized cache.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128_256
+    dim: int = 3072
+    n_layers: int = 28
+    n_heads: int = 24
+    n_kv_heads: int = 8
+    head_dim: int = 128
+    intermediate: int = 8192
+    rope_theta: float = 500_000.0
+    use_llama3_rope_scaling: bool = True
+    rope_scale_factor: float = 32.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_len: int = 8192
+    norm_eps: float = 1e-5
+    max_seq_len: int = 16_384
+    tie_embeddings: bool = True
+    # Qwen3-style per-head RMSNorm on Q/K before RoPE
+    qk_norm: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+
+def llama32_3b(**kw) -> LlamaConfig:
+    return LlamaConfig(**kw)
+
+
+def qwen3_0p6b(**kw) -> LlamaConfig:
+    base = dict(
+        vocab_size=151_936, dim=1024, n_layers=28, n_heads=16, n_kv_heads=8,
+        head_dim=128, intermediate=3072, rope_theta=1_000_000.0,
+        use_llama3_rope_scaling=False, norm_eps=1e-6, max_seq_len=32_768,
+        tie_embeddings=True, qk_norm=True,
+    )
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def tiny_llama(**kw) -> LlamaConfig:
+    """Small config for hermetic CPU tests."""
+    base = dict(
+        vocab_size=384, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        head_dim=16, intermediate=128, max_seq_len=256,
+        use_llama3_rope_scaling=False, rope_theta=10_000.0,
+        dtype=torch.float32,
+    )
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+# -- parameters -------------------------------------------------------------
+
+_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
+
+
+def _param_shapes(cfg: LlamaConfig) -> dict:
+    L, D, H, KV, hd, I = (
+        cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        cfg.intermediate,
+    )
+    layers = {
+        "attn_norm": (L, D), "wq": (L, D, H, hd), "wk": (L, D, KV, hd),
+        "wv": (L, D, KV, hd), "wo": (L, H, hd, D), "mlp_norm": (L, D),
+        "w_gate": (L, D, I), "w_up": (L, D, I), "w_down": (L, I, D),
+    }
+    if cfg.qk_norm:
+        layers["q_norm"] = (L, hd)
+        layers["k_norm"] = (L, hd)
+    shapes = {"embed": (cfg.vocab_size, D), "layers": layers, "final_norm": (D,)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (D, cfg.vocab_size)
+    return shapes
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> dict:
+    """Random init with the JAX package's scheme (normal * 0.02 for
+    matrices, ones for norms), drawn from ``generator`` on ``device``."""
+    shapes = _param_shapes(cfg)
+
+    def leaf(name, shape):
+        if name.endswith("norm"):
+            return torch.ones(shape, dtype=cfg.dtype, device=device)
+        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return (w * 0.02).to(cfg.dtype)
+
+    tree = {k: leaf(k, v) for k, v in shapes.items() if k != "layers"}
+    tree["layers"] = {k: leaf(k, v) for k, v in shapes["layers"].items()}
+    return tree
+
+
+class LlamaModel(nn.Module):
+    """The decoder. Holds the stacked parameters of :func:`init_params` or
+    :func:`params_from_numpy` (frozen: the port does inference only)."""
+
+    def __init__(self, cfg: LlamaConfig, tree: dict) -> None:
+        super().__init__()
+        self.cfg = cfg
+        shapes = _param_shapes(cfg)
+
+        def param(name, t, shape):
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+            return nn.Parameter(t.to(cfg.dtype), requires_grad=False)
+
+        self.embed = param("embed", tree["embed"], shapes["embed"])
+        self.final_norm = param("final_norm", tree["final_norm"], shapes["final_norm"])
+        self.lm_head = (
+            None if cfg.tie_embeddings
+            else param("lm_head", tree["lm_head"], shapes["lm_head"])
+        )
+        missing = set(shapes["layers"]) - set(tree["layers"])
+        if missing:
+            raise ValueError(f"layer parameters missing: {sorted(missing)}")
+        self.layers = nn.ParameterDict(
+            {k: param(k, tree["layers"][k], s) for k, s in shapes["layers"].items()}
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # hot path
+    def forward(
+        self,
+        tokens: torch.Tensor,       # [B, S] int
+        positions: torch.Tensor,    # [B, S] int (RoPE positions)
+        cache: dict,                # stacked {"k","v"[, "ks","vs"]}, written in place
+        write_index: int,           # cache slot of tokens[:, 0]
+        mask: torch.Tensor | None = None,  # [B, S, C] bool; dense attention only
+        *,
+        last_only: bool = False,
+        stacked_attention_fn=None,
+    ) -> torch.Tensor:
+        """Run the decoder; returns logits [B, S, vocab] f32 (or [B, 1,
+        vocab] with ``last_only``) and writes this call's K/V into ``cache``.
+
+        ``stacked_attention_fn(q, cache, layer_idx)`` replaces the dense
+        attention with a consumer of the whole stacked cache (the kernels);
+        without it ``mask`` is required."""
+        cfg = self.cfg
+        if stacked_attention_fn is None and mask is None:
+            raise ValueError("dense attention needs a mask")
+        x = F.embedding(tokens.long(), self.embed)
+        cos, sin = rope_cos_sin(cfg, positions)
+        for li in range(cfg.n_layers):
+            x = self._block(
+                x, li, cos, sin, mask, cache, int(write_index), stacked_attention_fn
+            )
+        if last_only:
+            x = x[:, -1:, :]
+        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+        if cfg.tie_embeddings:
+            return lm_head_logits(x, self.embed, transposed=True)
+        return lm_head_logits(x, self.lm_head, transposed=False)
+
+    def _block(self, x, li, cos, sin, mask, cache, write_index, stacked_fn):
+        cfg = self.cfg
+        p = self.layers
+        B, S, D = x.shape
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+        h = rmsnorm(x, p["attn_norm"][li], cfg.norm_eps)
+        q = torch.matmul(h, p["wq"][li].reshape(D, H * hd)).view(B, S, H, hd)
+        k = torch.matmul(h, p["wk"][li].reshape(D, KV * hd)).view(B, S, KV, hd)
+        v = torch.matmul(h, p["wv"][li].reshape(D, KV * hd)).view(B, S, KV, hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"][li], cfg.norm_eps)
+            k = rmsnorm(k, p["k_norm"][li], cfg.norm_eps)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+        kt = k.transpose(1, 2)  # [B, KV, S, hd] — cache-native
+        vt = v.transpose(1, 2)
+        # written in place; the JAX package returns an updated cache instead
+        span = slice(write_index, write_index + S)
+        if is_quantized_cache(cache):
+            k8, ks = quantize_kv(kt)
+            v8, vs = quantize_kv(vt)
+            cache["k"][li, :, :, span] = k8
+            cache["v"][li, :, :, span] = v8
+            cache["ks"][li, :, :, span] = ks
+            cache["vs"][li, :, :, span] = vs
+        else:
+            cache["k"][li, :, :, span] = kt
+            cache["v"][li, :, :, span] = vt
+
+        if stacked_fn is not None:
+            attn = stacked_fn(q, cache, li)
+        else:
+            k_c, v_c = dequantize_cache_layer(cache, li)
+            attn = attention(q, k_c.to(q.dtype), v_c.to(q.dtype), mask, cfg.q_per_kv)
+        x = x + torch.matmul(attn.reshape(B, S, H * hd), p["wo"][li].reshape(H * hd, D))
+
+        h = rmsnorm(x, p["mlp_norm"][li], cfg.norm_eps)
+        gate = torch.matmul(h, p["w_gate"][li])
+        up = torch.matmul(h, p["w_up"][li])
+        return x + torch.matmul(F.silu(gate) * up, p["w_down"][li])
+
+
+def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> LlamaModel:
+    """Build the port's model from a JAX parameter tree converted to numpy
+    (``jax.tree.map(np.asarray, params)``), leaf for leaf. Int8-quantized
+    ``{"q", "s"}`` leaves are not supported yet."""
+
+    def conv(name, a):
+        if isinstance(a, dict):
+            raise NotImplementedError(
+                f"{name}: int8-quantized weights ({{'q', 's'}} leaves) are not ported yet"
+            )
+        arr = np.asarray(a)
+        if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: go through f32, exactly
+            arr = arr.astype(np.float32)
+        # np.array copies: the model never aliases the caller's buffers
+        return torch.from_numpy(np.array(arr)).to(device=device, dtype=cfg.dtype)
+
+    out = {k: conv(k, v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: conv(k, v) for k, v in tree["layers"].items()}
+    return LlamaModel(cfg, out)
+
+
+def init_model(cfg: LlamaConfig, seed: int = 0, device="cuda") -> LlamaModel:
+    """Random-init model drawn from a generator seeded with ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return LlamaModel(cfg, init_params(cfg, gen, device))
+
+
+# -- KV cache ---------------------------------------------------------------
+
+
+def init_kv_cache(
+    cfg: LlamaConfig, batch: int, cache_len: int, *, quantized: bool = False,
+    device="cuda",
+) -> dict:
+    """Stacked cache [L, B, KV, C, hd] — KV heads before the sequence dim.
+    ``quantized=True`` stores K/V as int8 with per-(token, head) f32 scales
+    ``ks``/``vs`` [L, B, KV, C]. Zero-filled: slots not yet written must be
+    finite, since masked slots still meet a zero probability in PV."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
+    if not quantized:
+        return {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        }
+    return {
+        "k": torch.zeros(shape, dtype=torch.int8, device=device),
+        "v": torch.zeros(shape, dtype=torch.int8, device=device),
+        "ks": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        "vs": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+    }
+
+
+def is_quantized_cache(cache: dict) -> bool:
+    return "ks" in cache
+
+
+def quantize_kv(x: torch.Tensor):
+    """x [B, KV, S, hd] -> (int8 values, f32 scales [B, KV, S]): scale =
+    max(amax, 1e-8) / 127, round half to even, clip at +-127."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def dequantize_cache_layer(cache: dict, layer_idx: int):
+    """Layer ``layer_idx`` as dense float K/V [B, KV, C, hd]."""
+    k, v = cache["k"][layer_idx], cache["v"][layer_idx]
+    if not is_quantized_cache(cache):
+        return k, v
+    return (
+        k.float() * cache["ks"][layer_idx][..., None],
+        v.float() * cache["vs"][layer_idx][..., None],
+    )
+
+
+# -- building blocks --------------------------------------------------------
+
+
+def lm_head_logits(x: torch.Tensor, w: torch.Tensor, *, transposed: bool) -> torch.Tensor:
+    """Final projection with f32 logits. ``transposed``: w is [V, D] (the
+    tied embedding), else [D, V]. A bf16 model on the card multiplies in
+    bf16 with an f32 result, as the JAX package's preferred_element_type."""
+    B, S, D = x.shape
+    wm = w.t() if transposed else w
+    x2 = x.reshape(B * S, D)
+    if x.dtype == torch.float32:
+        y = torch.matmul(x2, wm.float())
+    elif x.is_cuda:
+        y = torch.mm(x2, wm, out_dtype=torch.float32)
+    else:
+        y = torch.matmul(x2.float(), wm.float())
+    return y.view(B, S, -1)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    # cast back to the model dtype BEFORE the weight multiply, as the JAX
+    # package does
+    x32 = x.float()
+    scale = torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * scale).to(x.dtype) * w
+
+
+def rope_inv_freq(cfg: LlamaConfig, device=None) -> torch.Tensor:
+    half = cfg.head_dim // 2
+    inv = 1.0 / (cfg.rope_theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+    if not cfg.use_llama3_rope_scaling:
+        return inv
+    # llama3 long-context scaling: low-frequency bands divided by `factor`,
+    # high-frequency bands kept, a smooth ramp between
+    lo_wavelen = cfg.rope_original_max_len / cfg.rope_low_freq_factor
+    hi_wavelen = cfg.rope_original_max_len / cfg.rope_high_freq_factor
+    wavelen = 2.0 * math.pi / inv
+    ramp = (cfg.rope_original_max_len / wavelen - cfg.rope_low_freq_factor) / (
+        cfg.rope_high_freq_factor - cfg.rope_low_freq_factor
+    )
+    ramp = ramp.clamp(0.0, 1.0)
+    scaled = inv / cfg.rope_scale_factor
+    smooth = (1.0 - ramp) * scaled + ramp * inv
+    out = torch.where(wavelen > lo_wavelen, scaled, inv)
+    between = (wavelen <= lo_wavelen) & (wavelen >= hi_wavelen)
+    return torch.where(between, smooth, out)
+
+
+def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor):
+    """positions [B, S] -> cos/sin [B, S, hd/2] (f32)."""
+    angles = positions[..., None].float() * rope_inv_freq(cfg, positions.device)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, hd]; rotate-half convention (pairs are [:half], [half:])."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def attention(q, k, v, mask, q_per_kv: int) -> torch.Tensor:
+    """Dense attention of q [B, S, H, hd] over one cache layer k/v
+    [B, KV, C, hd] under mask [B, S, C]. A fully masked row gets a uniform
+    average (f32 min fill), as in the JAX package's dense path."""
+    B, S, H, hd = q.shape
+    KV = k.shape[1]
+    qg = q.reshape(B, S, KV, q_per_kv, hd).permute(0, 2, 3, 1, 4)   # [B, KV, G, S, hd]
+    scores = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2))
+    scores = scores / math.sqrt(hd)
+    neg = torch.finfo(torch.float32).min
+    scores = scores.masked_fill(~mask[:, None, None, :, :], neg)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.matmul(probs, v[:, :, None])                        # [B, KV, G, S, hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+
+
+# -- mask / position helpers --------------------------------------------------
+
+
+def prefill_attention_mask(pad_lens: torch.Tensor, seq_len: int, cache_len: int):
+    """Left-padded causal mask: query i attends cache slot j iff
+    pad_b <= j <= i. [B, S, C]."""
+    i = torch.arange(seq_len, device=pad_lens.device)[None, :, None]
+    j = torch.arange(cache_len, device=pad_lens.device)[None, None, :]
+    pad = pad_lens.long()[:, None, None]
+    return (j >= pad) & (j <= i)
+
+
+def decode_attention_mask(pad_lens: torch.Tensor, fill: int, cache_len: int):
+    """Single-token step: attend j iff pad_b <= j <= fill. [B, 1, C]."""
+    j = torch.arange(cache_len, device=pad_lens.device)[None, None, :]
+    pad = pad_lens.long()[:, None, None]
+    return (j >= pad) & (j <= fill)
+
+
+def prefill_positions(pad_lens: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """RoPE positions for left-padded prompts: max(0, i - pad). [B, S]."""
+    i = torch.arange(seq_len, device=pad_lens.device)[None, :]
+    return torch.clamp(i - pad_lens.long()[:, None], min=0)

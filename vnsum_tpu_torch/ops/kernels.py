@@ -1,0 +1,99 @@
+"""Build and load the hand-written CUDA kernels of ``ops/csrc``.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled by
+``nvcc`` for Hopper (``sm_90a``) into its own shared library and loaded with
+``ctypes``: no PyTorch headers are involved, so a build takes seconds. All
+sources compile in parallel, one ``nvcc`` each, at first use. A library is
+named by a hash of its source and flags, so an edited source rebuilds and an
+unchanged one is reused. The build directory sits beside this file and is
+listed in ``.gitignore``.
+
+Nothing here runs at import time: importing the ops modules on a machine with
+no ``nvcc`` and no card (the CPU tests) never touches the compiler.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("flash_prefill", "flash_decode")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").is_file():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source whose library is missing, all in parallel.
+
+    Returns ``{name: compiler output}`` for the sources built by this call,
+    with each kernel's registers, spills and shared memory (``ptxas -v``).
+    Raises with the compiler's output when any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs: dict[str, tuple[subprocess.Popen, Path, Path]] = {}
+    for name in SOURCES:
+        lib = _library_path(name)
+        if lib.is_file():
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+            tmp,
+            lib,
+        )
+    logs: dict[str, str] = {}
+    failed: list[str] = []
+    for name, (proc, tmp, lib) in procs.items():
+        output, _ = proc.communicate()
+        logs[name] = output
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode}) ---\n{output}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = _library_path(name)
+        if not path.is_file():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        _libs[name] = lib
+    return lib

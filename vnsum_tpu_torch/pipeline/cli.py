@@ -1,0 +1,93 @@
+"""CLI entry point of the port's pipeline, flag-compatible with
+``vnsum_tpu.pipeline.cli`` for the options the port runs.
+
+    python -m vnsum_tpu_torch.pipeline.cli --approach mapreduce \\
+        --models llama3.2:3b --docs-dir data/vi_eval/doc \\
+        --summary-dir data/vi_eval/summary --max-new-tokens 128
+
+Runs on the card; ``--device cpu`` runs on the CPU. Exits 1 when any
+document or model failed.
+"""
+from __future__ import annotations
+
+import argparse
+
+from ..core.config import APPROACHES, PipelineConfig, approach_defaults
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="vnsum-torch-pipeline",
+        description="Run the summarization evaluation pipeline on the PyTorch/CUDA port",
+    )
+    p.add_argument("--approach", choices=APPROACHES, default="mapreduce")
+    p.add_argument(
+        "--models", nargs="+", default=["llama3.2:3b"],
+        help="models to evaluate (names in vnsum_tpu_torch.models.MODEL_REGISTRY)",
+    )
+    p.add_argument("--max-samples", type=int, default=None)
+    p.add_argument("--docs-dir", default="data_1/doc")
+    p.add_argument("--summary-dir", default="data_1/summary")
+    p.add_argument("--generated-summaries-dir", default="data_1/generated_summaries")
+    p.add_argument("--results-dir", default="evaluation_results")
+    p.add_argument("--logs-dir", default="logs")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--tokenizer", default="byte", help="byte or hf:<name-or-path>")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--chunk-size", type=int, default=None,
+        help="override the approach-default chunk size (tokens)",
+    )
+    p.add_argument(
+        "--token-max", type=int, default=None,
+        help="override the approach-default collapse budget (tokens)",
+    )
+    p.add_argument(
+        "--max-new-tokens", type=int, default=None,
+        help="override the approach-default generation budget",
+    )
+    p.add_argument(
+        "--prefill-chunk-tokens", type=int, default=0,
+        help="prefill in slices of this many tokens (multiple of 128; 0 = whole prompt)",
+    )
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> PipelineConfig:
+    overrides = approach_defaults(args.approach)
+    for key in ("chunk_size", "token_max", "max_new_tokens"):
+        val = getattr(args, key)
+        if val is not None:
+            overrides[key] = val
+    if args.chunk_size is not None:
+        # keep overlap a small fraction of the chunk (ref default 200/12000)
+        overrides["chunk_overlap"] = min(
+            overrides.get("chunk_overlap", 200), max(0, args.chunk_size // 10)
+        )
+    return PipelineConfig(
+        approach=args.approach,
+        models=list(args.models),
+        docs_dir=args.docs_dir,
+        summary_dir=args.summary_dir,
+        generated_summaries_dir=args.generated_summaries_dir,
+        results_dir=args.results_dir,
+        logs_dir=args.logs_dir,
+        max_samples=args.max_samples,
+        batch_size=args.batch_size,
+        tokenizer=args.tokenizer,
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
+        **overrides,
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    from .runner import PipelineRunner
+
+    runner = PipelineRunner(config_from_args(args), device=args.device)
+    runner.run()
+    return 1 if runner.failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,248 @@
+"""Batch evaluation pipeline on the port's engine.
+
+Counterpart of ``vnsum_tpu/pipeline/runner.py`` for the summarize phase,
+the ROUGE evaluation and the report: preflight → document analysis → per
+model, summarization with resume-by-file → evaluation → report → results
+JSON. Documents go to the strategy in groups, so every LLM call of a round
+shares device batches.
+
+Failure containment differs from the JAX package in one way: device errors
+(``RuntimeError``) are never retried (core/faults.py), and
+:func:`PipelineRunner.run` reports every failed document and model in
+``failures`` so the CLI can exit non-zero.
+"""
+from __future__ import annotations
+
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from ..backend.base import Backend
+from ..backend.engine import TorchBackend, resolve_device
+from ..core.config import PipelineConfig
+from ..core.faults import call_with_retries, is_retryable
+from ..core.logging import get_logger, setup_run_logging
+from ..core.results import DocumentRecord, ModelRunRecord, PipelineResults
+from ..data import DocumentDataset, analyze_documents
+from ..eval.semantic import evaluate_folders
+from ..models import MODEL_REGISTRY
+from ..strategies import get_strategy
+from ..text import clean_thinking_tokens
+
+logger = get_logger("vnsum.pipeline")
+
+
+def model_name_safe(model: str) -> str:
+    """'llama3.2:3b' -> 'llama3_2_3b' (ref :170, :326)."""
+    return model.replace(":", "_").replace(".", "_")
+
+
+class PipelineRunner:
+    def __init__(
+        self,
+        config: PipelineConfig,
+        backend_factory=None,
+        device="cuda",
+    ) -> None:
+        self.config = config
+        # a run asked to use the card raises here when none is visible
+        self.device = resolve_device(device)
+        self.backend_factory = backend_factory or self._default_backend_factory
+        self.results = PipelineResults(config=config.to_dict())
+        self.failures: list[str] = []
+        self.log_path = setup_run_logging(config.logs_dir)
+        logger.info("pipeline configured: approach=%s models=%s device=%s",
+                    config.approach, config.models, self.device)
+        if clean_thinking_tokens("<think>x</think>ok") != "ok":
+            raise RuntimeError("thinking-token cleaner self-check failed")
+
+    # -- backend -----------------------------------------------------------
+
+    def _default_backend_factory(self, model: str) -> Backend:
+        cfg = self.config
+        if model not in MODEL_REGISTRY:
+            raise ValueError(
+                f"unknown model {model!r}; have {sorted(MODEL_REGISTRY)}"
+            )
+        return TorchBackend(
+            model_config=MODEL_REGISTRY[model](),
+            tokenizer=cfg.tokenizer,
+            batch_size=cfg.batch_size,
+            max_new_tokens=cfg.max_new_tokens,
+            prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+            device=self.device,
+        )
+
+    def preflight(self, backend: Backend) -> None:
+        """Device check before any work: a run asked to use the card fails
+        here when no card is visible, instead of carrying on elsewhere."""
+        logger.info("backend: %s", backend.name)
+        if self.device.type == "cuda":
+            resolve_device(self.device)
+            logger.info("cuda device: %s", torch.cuda.get_device_name(self.device))
+
+    # -- phases ------------------------------------------------------------
+
+    def analyze(self) -> dict:
+        cfg = self.config
+        ds = DocumentDataset(cfg.docs_dir, cfg.summary_dir)
+        stats = analyze_documents(
+            ds, lambda t: len(t.split()), chunk_size=cfg.chunk_size,
+            max_samples=cfg.max_samples,
+        )
+        d = stats.to_dict()
+        d["per_document"] = d["per_document"][:1000]
+        self.results.document_stats = d
+        logger.info(
+            "analyzed %d docs: %d tokens total, ~%.0f/doc",
+            stats.total_documents, stats.total_tokens, stats.avg_tokens_per_doc,
+        )
+        return d
+
+    def _output_dir(self, model: str) -> Path:
+        # ref naming: <generated_summaries_dir>_<approach>_<model_safe> (:408)
+        return Path(
+            f"{self.config.generated_summaries_dir}_"
+            f"{self.config.approach}_{model_name_safe(model)}"
+        )
+
+    def run_summarization_for_model(self, model: str) -> ModelRunRecord:
+        cfg = self.config
+        record = ModelRunRecord(model=model, approach=cfg.approach)
+        t_start = time.time()
+
+        backend = self.backend_factory(model)
+        self.preflight(backend)
+        strategy = get_strategy(cfg.approach, backend, cfg)
+
+        ds = DocumentDataset(cfg.docs_dir, cfg.summary_dir)
+        out_dir = self._output_dir(model)
+        out_dir.mkdir(parents=True, exist_ok=True)
+
+        pending: list[str] = []
+        for name in ds.filenames(cfg.max_samples):
+            if (out_dir / name).is_file():  # resume-by-file (ref :422-431)
+                logger.info("  %s: already exists, skipping", name)
+                continue
+            if cfg.summary_dir and not ds.has_reference(name):
+                logger.warning("  %s: no reference summary, skipping", name)
+                continue
+            pending.append(name)
+        logger.info("model %s: %d docs pending", model, len(pending))
+
+        group_size = cfg.doc_group_size or 4 * max(cfg.batch_size, 1)
+        for start in range(0, len(pending), group_size):
+            group = pending[start : start + group_size]
+            batch_t0 = time.time()
+            try:
+                results = call_with_retries(
+                    lambda: list(zip(
+                        group, strategy.summarize_batch([ds.read_doc(n) for n in group])
+                    )),
+                    max_retries=cfg.max_batch_retries,
+                    backoff=cfg.retry_backoff,
+                    should_retry=is_retryable,
+                    what=f"batch of {len(group)} docs",
+                )
+            except Exception as e:
+                logger.error("batch failed (%s): %s", group, e)
+                logger.debug("%s", traceback.format_exc())
+                for name in group:
+                    record.failed += 1
+                    record.total_documents += 1
+                    record.processing_details.append(
+                        DocumentRecord(
+                            name, 0, time.time() - batch_t0, 0,
+                            status="failed", error=str(e),
+                        )
+                    )
+                    self.failures.append(f"{model}/{name}: {e}")
+                continue
+
+            batch_time = time.time() - batch_t0
+            per_doc_time = batch_time / max(len(results), 1)
+            for name, res in results:
+                summary = clean_thinking_tokens(res.summary)  # ref :560-561
+                (out_dir / name).write_text(summary, encoding="utf-8")
+                record.total_documents += 1
+                record.successful += 1
+                record.total_chunks += res.num_chunks
+                record.processing_details.append(
+                    DocumentRecord(
+                        name, res.num_chunks, per_doc_time, len(summary),
+                        llm_calls=res.llm_calls,
+                    )
+                )
+            logger.info(
+                "  batch of %d docs in %.1fs (%.1fs/doc)",
+                len(results), batch_time, per_doc_time,
+            )
+
+        record.total_time = time.time() - t_start
+        self.results.add_summarization(record)
+        stats = getattr(backend, "stats", None)
+        if stats is not None:
+            self.results.engine[model] = stats.to_dict()
+        return record
+
+    def run_evaluation_for_model(self, model: str) -> dict:
+        cfg = self.config
+        out_path = Path(cfg.results_dir) / f"{model_name_safe(model)}_results.json"
+        results = evaluate_folders(
+            self._output_dir(model), cfg.summary_dir,
+            max_samples=cfg.max_samples, output=out_path,
+        )
+        self.results.add_evaluation(model, results["summary_statistics"])
+        return results
+
+    # -- orchestration -----------------------------------------------------
+
+    def run(self) -> PipelineResults:
+        self.analyze()
+        for model in self.config.models:
+            try:
+                self.run_summarization_for_model(model)
+            except Exception as e:
+                logger.error("model %s summarization failed: %s", model, e)
+                logger.debug("%s", traceback.format_exc())
+                self.results.add_summarization(ModelRunRecord(
+                    model=model, approach=self.config.approach,
+                    status="failed", error=str(e),
+                ))
+                self.failures.append(f"{model}: summarization failed: {e}")
+                continue
+            try:
+                self.run_evaluation_for_model(model)
+            except Exception as e:
+                logger.error("model %s evaluation failed: %s", model, e)
+                self.results.add_evaluation(model, {"status": "failed", "error": str(e)})
+                self.failures.append(f"{model}: evaluation failed: {e}")
+        path = self.results.save(self.config.results_dir)
+        logger.info("results saved to %s", path)
+        self.report()
+        return self.results
+
+    def report(self) -> str:
+        lines = ["", "=" * 60, "PIPELINE SUMMARY", "=" * 60]
+        lines.append(f"approach: {self.config.approach}")
+        for model, rec in self.results.summarization.items():
+            lines.append(f"\nmodel {model}:")
+            lines.append(
+                f"  docs: {rec.get('successful', 0)} ok / {rec.get('failed', 0)} failed, "
+                f"chunks: {rec.get('total_chunks', 0)}, "
+                f"time: {rec.get('total_time', 0.0):.1f}s "
+                f"({rec.get('chunks_per_second', 0.0):.2f} chunks/s)"
+            )
+            ev = self.results.evaluation.get(model)
+            if ev and "rouge_scores" in ev:
+                rs = ev["rouge_scores"]
+                lines.append(
+                    f"  rouge1/2/L: {rs['rouge1_f1']:.4f} / "
+                    f"{rs['rouge2_f1']:.4f} / {rs['rougeL_f1']:.4f}"
+                )
+                lines.append(f"  not computed: {', '.join(ev['not_computed'])}")
+        text = "\n".join(lines)
+        logger.info("%s", text)
+        return text

@@ -1,0 +1,10 @@
+from .base import Strategy, StrategyResult, get_strategy, split_by_token_budget
+from .mapreduce import MapReduceStrategy
+
+__all__ = [
+    "Strategy",
+    "StrategyResult",
+    "get_strategy",
+    "split_by_token_budget",
+    "MapReduceStrategy",
+]
