@@ -14,33 +14,50 @@ Phases, each raising on failure (so any failure exits non-zero):
    query offsets, windows, left pads with a row that sees no key, a layer
    other than 0, a fill short of the cache; at the pipeline's own batches
    (map B=8 S=4096 C=4224, decode fills 4096 and 4223; reduce B=8 S=512
-   C=640); and the last layer of a long-bucket cache, whose offsets pass
-   2^31;
+   C=640); the verify kernel at the spec path's shape (B=8, Sq=9,
+   C=4096+128+9, ragged fills on both sides of a split boundary, a row
+   parked at the budget, a row whose pad hides every key from its first
+   queries, a window) and at the slot segment's (B=8, Sq=1, C=4224, a
+   fill per row, a free row and a row parked at limit C); and the last
+   layer of a long-bucket cache, whose offsets pass 2^31;
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
-   with one cache slot per split or tile left out, must fail phase 3, so
-   the limits are shown to be tight enough to see such a fault;
-5. timing at the map batch's shapes (Llama-3.2-3B: L=28, H=24, KV=8,
-   hd=128; prefill B=8 S=4096 C=4224, decode B=8 C=4224 fill=4200): the
-   kernel, the bound (bytes over 3.35 TB/s or FLOP over 989 TFLOP/s, from
-   this run's inputs), the plain version, and one PyTorch library call
-   computing the same function (scaled_dot_product_attention with an
-   explicit mask on a bf16 cache; timed here only, never used by the port);
-   one output of each is held against the other as in phase 3; and the
-   prefill kernel alone at the pipeline's default long bucket (S=15360,
-   C=16384);
+   with one cache slot per split or tile left out, must fail every case of
+   that kernel in phase 3, so the limits are shown to be tight enough to
+   see such a fault;
+5. timing at the main path's shapes (Llama-3.2-3B: L=28, H=24, KV=8,
+   hd=128; prefill B=8 S=4096 C=4224, decode B=8 C=4224 fill=4200; verify
+   B=8 Sq=9 C=4233 and B=8 Sq=1 C=4224): the kernel, the bound (bytes over
+   3.35 TB/s or FLOP over the peak rate of their type, from this run's
+   inputs), the plain version, and one PyTorch library call computing the
+   same function (scaled_dot_product_attention with an explicit mask on a
+   bf16 cache; timed here only, never used by the port); one output of
+   each is held against the other as in phase 3; and the prefill kernel
+   alone at the pipeline's default long bucket (S=15360, C=16384);
 6. pipeline: the port's CLI runs map-reduce over data/vi_eval with
    Llama-3.2-3B at full width and depth (random bf16 weights from a seed):
    every document must succeed, every summary be written, ROUGE be
    computed, and the kernel launch counters move by at least one launch per
    layer per prefill forward and per decode step;
-7. profile: one prefill forward and one decode step at the map batch's
+7. spec pipeline (path a): the same run through PipelineRunner with a
+   backend built with GenerationConfig(spec_k=8), so every map and reduce
+   group decodes speculatively against its references through the verify
+   kernel: 7/7 documents, ROUGE, verify launches = 28 x verify steps; then
+   the map batch again with the plain run's outputs as references, which
+   must accept drafts (multi-token steps, ragged per-row fills on the card);
+8. slot loop (path b): TorchBackend.start_slot_loop(slots=8,
+   prompt_tokens=4096, max_new_tokens=128, segment_tokens=32) fed the 7 map
+   prompts in two waves and drained, at fused_segments 1 and 4: every
+   request completes and verify launches = 28 x the decode steps run;
+9. profile: one prefill forward and one decode step at the map batch's
    shape, with their wall time, the device's busy time (torch.profiler),
    the card's clock and power draw while they run, and the kernels that
    take most of the time.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is the device record. Without a card the script exits non-zero
-and prints neither.
+Each path phase sets every launch counter to 0 just before it and reads
+them just after; a kernel of the path that was not launched fails it. The
+line before the last is a JSON object with one entry per kernel, whose
+``launches`` sums the path phases; the last line is the device record.
+Without a card the script exits non-zero and prints neither.
 """
 from __future__ import annotations
 
@@ -64,9 +81,9 @@ PEAK_BYTES = 3.35e12
 
 # TOLERANCES: the stated limits on |kernel - plain|, from each kernel's
 # sound error.
-# decode: both versions are f32 throughout and differ by summation order
-#   (~1e-6 relative) and then by at most one bf16 ulp in the final cast,
-#   where ulp(x) <= 2^-7 |x|: per element, 1e-4 + 2^-7 |plain|.
+# decode and verify: both versions are f32 throughout and differ by
+#   summation order (~1e-6 relative) and then by at most one bf16 ulp in the
+#   final cast, where ulp(x) <= 2^-7 |x|: per element, 1e-4 + 2^-7 |plain|.
 # prefill: besides, both round p to bf16 before PV, the kernel against its
 #   running max and the plain version against the row max: two roundings of
 #   up to 2^-9, which move an output by a few 2^-9 of its row's scale, on
@@ -75,14 +92,17 @@ PEAK_BYTES = 3.35e12
 DECODE_ATOL, DECODE_RTOL = 1e-4, 2.0**-7
 PREFILL_ROW_RTOL = 2e-2
 
-# phase 4's planted faults: (what it does, source, text, replacement)
+# phase 4's planted faults: (what it does, kernel, source, text, replacement)
 MUTANTS = (
-    ("decode leaves out the last slot of every 512-slot split", "flash_decode.cu",
+    ("decode leaves out the last slot of every 512-slot split", "decode", "flash_decode.cu",
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
-    ("prefill leaves out the last slot of every unmasked 64-slot tile", "flash_prefill.cu",
+    ("prefill leaves out the last slot of every unmasked 64-slot tile", "prefill",
+     "flash_prefill.cu",
      "      l_run[i] += p;\n",
      "      if (!MASKED && nt == BN / 8 - 1 && tig == 3 && (e & 1)) p = 0.f;\n"
      "      l_run[i] += p;\n"),
+    ("verify leaves out the last slot of every 512-slot split", "verify", "flash_verify.cu",
+     "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
 )
 
 KERNELS = {
@@ -97,6 +117,12 @@ KERNELS = {
         "route": "cuda",
         "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:381",
+    },
+    "verify": {
+        "name": "flash_spec_verify_attention",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_verify.cu",
+        "replaces": "vnsum_tpu/ops/decode_attention.py:510",
     },
 }
 
@@ -129,16 +155,27 @@ def phase_environment(torch) -> str:
 
 
 def phase_build() -> float:
+    """Builds every kernel and prints each kernel function's registers and
+    spills (ptxas -v) and K3's dynamic shared memory at the main path's
+    row counts."""
     from vnsum_tpu_torch.ops import kernels
+    from vnsum_tpu_torch.ops import verify_attention as va
 
     t0 = time.perf_counter()
     logs = kernels.build_all()
     seconds = time.perf_counter() - t0
     for name, out in logs.items():
+        function = "?"
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Function properties for" in line:
+                function = line.split("Function properties for")[-1].strip()
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name} {function}: {line.strip()}")
     log(f"[build] {len(logs)} kernel libraries built in {seconds:.2f}s")
+    lib = va._library()
+    for R in (3, 27):
+        log(f"[build] flash_verify dynamic shared memory at Sq*G={R}: "
+            f"int8 {lib.vnsum_flash_verify_smem(R, 1)} B, bf16 {lib.vnsum_flash_verify_smem(R, 0)} B")
     return seconds
 
 
@@ -212,14 +249,27 @@ def phase_correctness(torch) -> dict:
     from vnsum_tpu_torch.models.llama import quantize_kv
     from vnsum_tpu_torch.ops import decode_attention as da
     from vnsum_tpu_torch.ops import flash_attention as fa
+    from vnsum_tpu_torch.ops import verify_attention as va
 
     dev = torch.device("cuda")
     KV, G, hd = 8, 3, 128
     H = KV * G
-    worst = {"prefill": 0.0, "decode": 0.0}
+    worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0}
 
     def pads_of(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    def verify(case, q, cache, layer, pads_h, fills_h, window=0, blind=()):
+        """K3 against its plain version; ``blind`` lists (row, queries)
+        that see no key and must come out 0."""
+        pads, fills = pads_of(pads_h), pads_of(fills_h)
+        got = va.flash_spec_verify_attention(q, cache, layer, pads, fills, G, window)
+        want = va.flash_spec_verify_attention_ref(q, cache, layer, pads, fills, G, window)
+        compare(torch, "verify", f"verify {case}", got, want, worst)
+        for row, queries in blind:
+            if float(got[row, queries].float().abs().max()) != 0.0:
+                FAILED.append(f"verify {case}: row {row} queries {queries} see no key "
+                              "and must come out 0")
 
     def prefill(case, q, cache, layer, pads, window, q_offset, empty_row=None):
         got = fa.flash_prefill_attention(q, cache, layer, pads, G, window, q_offset)
@@ -271,6 +321,34 @@ def phase_correctness(torch) -> dict:
             del cache, q, qd
     torch.cuda.empty_cache()
 
+    # K3 at the spec path's shape: B=8, spec_k 8 (Sq=9), S=4096, 128 new
+    # tokens, C = 4096 + 128 + 9. Fills S + e: rows 0-3 put their last query
+    # on both sides of the split boundary at 4096 and 4608, row 4 is parked
+    # at e = max_new, row 5's pad hides every key from its queries 0-2, row
+    # 7 is the all-pad filler row; layer 2 of 3
+    S, Sq, C = 4096, 9, 4096 + 128 + 9
+    v_fills = [4088, 4090, 4600, 4599, 4096 + 128, 4150, 4096, 4111]
+    v_pads = [0, 37, 400, 1000, 2500, 4153, 4095, 4096]
+    for quantized in (False, True):
+        cache = make_cache(torch, 3, 8, KV, C, hd, quantized, 40 + quantized, dev)
+        for window, layer in ((0, 2), (1024, 1)):
+            q = rand_q(torch, (8, Sq, H, hd), 41 + window, dev)
+            verify(f"int8={quantized} B=8 Sq={Sq} C={C} window={window} layer={layer} "
+                   "(spec path)", q, cache, layer, v_pads, v_fills, window,
+                   blind=((5, slice(0, 3)),))
+        del cache, q
+    # K3 at the slot segment's shape: Sq=1, C = 4096 + 128, fills S + t_b
+    # all different, row 6 a free slot (pad = S), row 7 parked at limit C
+    C = 4096 + 128
+    s_fills = [4096, 4101, 4113, 4160, 4196, 4223, 4096 + 3, 4096 + 128]
+    s_pads = [0, 37, 400, 1000, 2500, 3000, 4096, 64]
+    for quantized in (False, True):
+        cache = make_cache(torch, 2, 8, KV, C, hd, quantized, 50 + quantized, dev)
+        verify(f"int8={quantized} B=8 Sq=1 C={C} layer=1 (slot segment)",
+               rand_q(torch, (8, 1, H, hd), 51, dev), cache, 1, s_pads, s_fills)
+        del cache
+    torch.cuda.empty_cache()
+
     # the pipeline's default bucket (S=15360, C=16384, B=8, L=28): the last
     # layer of the int8 cache starts past 2^31 elements, so a 32-bit offset
     # anywhere in a kernel reads the wrong layer
@@ -295,6 +373,9 @@ def phase_correctness(torch) -> dict:
     decode(f"int8=True B={B} fill={C - 1} layer={layer} of a {L}-layer C={C} cache "
            "(offsets past 2^31)", rand_q(torch, (B, 1, H, hd), 24, dev), cache, layer,
            pads, C - 1, 0)
+    verify(f"int8=True B={B} Sq=9 layer={layer} of a {L}-layer C={C} cache "
+           "(offsets past 2^31)", rand_q(torch, (B, 9, H, hd), 25, dev), cache, layer,
+           [64 * i for i in range(B)], [C - 9 - 100 * i for i in range(B)])
     del cache
     torch.cuda.empty_cache()
     raise_if_failed()
@@ -306,36 +387,44 @@ def phase_correctness(torch) -> dict:
 
 def phase_mutants() -> None:
     """Each planted fault of MUTANTS, built into a temporary copy of the
-    package, must fail phase 3 there: the limits see a kernel that leaves
-    out one cache slot in 512 (decode) or one in 64 away from the causal
-    diagonal (prefill)."""
-    for what, source, text, replacement in MUTANTS:
-        with tempfile.TemporaryDirectory() as tmp:
-            shutil.copytree(ROOT / "vnsum_tpu_torch", Path(tmp) / "vnsum_tpu_torch",
+    package, must fail every case of its kernel in phase 3 there and leave
+    the other kernels' cases passing: the limits see a kernel that leaves
+    out one cache slot in 512 (decode, verify) or one in 64 away from the
+    causal diagonal (prefill). The copies build and run in parallel."""
+    with tempfile.TemporaryDirectory() as root:
+        procs = []
+        for i, (what, kernel, source, text, replacement) in enumerate(MUTANTS):
+            tmp = Path(root) / str(i)
+            shutil.copytree(ROOT / "vnsum_tpu_torch", tmp / "vnsum_tpu_torch",
                             ignore=shutil.ignore_patterns("build", "__pycache__"))
             shutil.copy(ROOT / "chip_smoke.py", tmp)
-            cu = Path(tmp) / "vnsum_tpu_torch" / "ops" / "csrc" / source
+            cu = tmp / "vnsum_tpu_torch" / "ops" / "csrc" / source
             code = cu.read_text()
             if code.count(text) != 1:
                 raise AssertionError(f"planted fault '{what}': its text is not once in {source}")
             cu.write_text(code.replace(text, replacement))
-            proc = subprocess.run(
+            procs.append(subprocess.Popen(
                 [sys.executable, "-c", "import torch, chip_smoke as c; "
                  "c.phase_environment(torch); c.phase_build(); c.phase_correctness(torch)"],
-                cwd=tmp, env={**os.environ, "PYTHONPATH": tmp},
-                capture_output=True, text=True, timeout=600,
-            )
-        checks = [ln[len("[check] "):] for ln in proc.stdout.splitlines()
-                  if ln.startswith("[check] ")]
+                cwd=tmp, env={**os.environ, "PYTHONPATH": str(tmp)},
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        results = [p.communicate(timeout=600) + (p.returncode,) for p in procs]
+    for (what, kernel, *_), (out, err, rc) in zip(MUTANTS, results):
+        checks = [ln[len("[check] "):] for ln in out.splitlines() if ln.startswith("[check] ")]
         for line in checks:
             log(f"[mutant] {what}: {line}")
-        failed = [ln for ln in checks if ln.endswith("OVER THE LIMIT")]
-        if proc.returncode == 0 or not failed:
+        mine = [ln for ln in checks if ln.startswith(kernel + " ")]
+        caught = [ln for ln in mine if ln.endswith("OVER THE LIMIT")]
+        others = [ln for ln in checks if not ln.startswith(kernel + " ")
+                  and ln.endswith("OVER THE LIMIT")]
+        if rc == 0 or not mine or len(caught) != len(mine) or others:
             raise AssertionError(
-                f"planted fault '{what}' was not caught (exit {proc.returncode}):\n"
-                + (proc.stdout + proc.stderr)[-4000:])
-        log(f"[mutant] {what}: over the limit in {len(failed)} of {len(checks)} cases, "
-            "as it must be")
+                f"planted fault '{what}' was not caught in every {kernel} case and only "
+                f"there (exit {rc}, {len(caught)} of {len(mine)} caught, {len(others)} "
+                f"other cases over):\n" + (out + err)[-4000:])
+        log(f"[mutant] {what}: over the limit in all {len(mine)} {kernel} cases and in "
+            f"none of the other {len(checks) - len(mine)}, as it must be")
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -360,8 +449,8 @@ def time_ms(torch, fn, n: int, reps: int = 5) -> float:
 
 
 def phase_timing(torch, worst) -> dict:
-    """Times each kernel, its plain version and the library call at the map
-    batch's shapes, and holds one output of each kernel against its plain
+    """Times each kernel, its plain version and the library call at the main
+    path's shapes, and holds one output of each kernel against its plain
     version's as phase 3 does (the largest |err| goes into ``worst``)."""
     from vnsum_tpu_torch.ops import decode_attention as da
     from vnsum_tpu_torch.ops import flash_attention as fa
@@ -376,12 +465,8 @@ def phase_timing(torch, worst) -> dict:
     pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
     q = rand_q(torch, (B, S, H, hd), 5, dev)
     qd = rand_q(torch, (B, 1, H, hd), 6, dev)
-    # bf16 K/V of a few layers expanded to H heads, for the library call
     lib_layers = 4
-    k_lib = [(cache["k"][li].float() * cache["ks"][li][..., None]).to(torch.bfloat16)
-             .repeat_interleave(G, dim=1) for li in range(lib_layers)]
-    v_lib = [(cache["v"][li].float() * cache["vs"][li][..., None]).to(torch.bfloat16)
-             .repeat_interleave(G, dim=1) for li in range(lib_layers)]
+    k_lib, v_lib = library_kv(torch, cache, lib_layers, G)
     kpos = torch.arange(C, device=dev)
     qpos = torch.arange(S, device=dev)
     pre_mask = ((kpos[None, None, :] >= pads.long()[:, None, None])
@@ -422,12 +507,24 @@ def phase_timing(torch, worst) -> dict:
     compare(torch, "decode", f"decode int8=True B={B} C={C} fill={fill} layer={L - 1} "
             "(timing inputs)", da.flash_decode_attention(qd, cache, L - 1, pads, fill, G, 0),
             da.flash_decode_attention_ref(qd, cache, L - 1, pads, fill, G, 0), worst)
+
+    # verify at the slot segment's shape on the same cache (Sq=1, C=4224,
+    # fills S + t_b), then at the spec path's (Sq=9, C=4233, fills S + e_b)
+    out["verify_slot"] = time_verify(
+        torch, worst, cache, k_lib, v_lib, pads_h, [S + 16 * i for i in range(B)], 1, 31)
+    del cache, k_lib, v_lib, q
+    torch.cuda.empty_cache()
+    C = S + 128 + 9
+    cache = make_cache(torch, L, B, KV, C, hd, True, 4, dev)
+    k_lib, v_lib = library_kv(torch, cache, lib_layers, G)
+    out["verify"] = time_verify(
+        torch, worst, cache, k_lib, v_lib, pads_h, [S + 60 + 3 * i for i in range(B)], 9, 32)
     raise_if_failed()
     for name, rec in out.items():
         log(f"[time] {name}: kernel {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, "
             f"library {rec['library_ms']:.4f} ms")
-    del cache, k_lib, v_lib, q
+    del cache, k_lib, v_lib
     torch.cuda.empty_cache()
 
     # K1 alone at the pipeline's default long bucket (chunk_size 12000:
@@ -455,6 +552,54 @@ def phase_timing(torch, worst) -> dict:
     return out
 
 
+def library_kv(torch, cache, layers: int, G: int):
+    """bf16 K/V of the first ``layers`` layers of an int8 cache, expanded to
+    the query heads, for the library call."""
+    k = [(cache["k"][li].float() * cache["ks"][li][..., None]).to(torch.bfloat16)
+         .repeat_interleave(G, dim=1) for li in range(layers)]
+    v = [(cache["v"][li].float() * cache["vs"][li][..., None]).to(torch.bfloat16)
+         .repeat_interleave(G, dim=1) for li in range(layers)]
+    return k, v
+
+
+def time_verify(torch, worst, cache, k_lib, v_lib, pads_h, fills_h, Sq, seed) -> dict:
+    """K3, its plain version and the library call on one int8 cache at Sq
+    queries per row and per-row fills; one output of the kernel is held
+    against the plain version's as in phase 3. The bound counts what these
+    inputs need: each row's visible K/V slots and scales read once, q read
+    and the output written once, and 4 hd FLOP (f32) per visible (query
+    head, slot) pair."""
+    from vnsum_tpu_torch.ops import verify_attention as va
+
+    dev = cache["k"].device
+    L, B, KV, C, hd = cache["k"].shape
+    G = k_lib[0].shape[1] // KV
+    H = KV * G
+    pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
+    fills = torch.tensor(fills_h, dtype=torch.int32, device=dev)
+    q = rand_q(torch, (B, Sq, H, hd), seed, dev)
+    limit = fills.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    kpos = torch.arange(C, device=dev)
+    mask = ((kpos[None, None, :] >= pads.long()[:, None, None])
+            & (kpos[None, None, :] <= limit[:, :, None]))[:, None]
+    qt = q.transpose(1, 2)
+    pairs = sum(max(min(f + s, C - 1) - p + 1, 0)
+                for p, f in zip(pads_h, fills_h) for s in range(Sq))
+    rows = sum(max(min(f + Sq - 1, C - 1) - p + 1, 0) for p, f in zip(pads_h, fills_h))
+    flops = 4 * hd * H * pairs
+    bytes_ = 2 * q.numel() * 2 + 2 * rows * KV * (hd + 4)
+    ms = time_ms(torch, lambda i: va.flash_spec_verify_attention(
+        q, cache, i % L, pads, fills, G, 0), n=4 * L)
+    plain = time_ms(torch, lambda i: va.flash_spec_verify_attention_ref(
+        q, cache, i % L, pads, fills, G, 0), n=4)
+    library = time_ms(torch, lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qt, k_lib[i % len(k_lib)], v_lib[i % len(k_lib)], attn_mask=mask), n=4 * len(k_lib))
+    compare(torch, "verify", f"verify int8=True B={B} Sq={Sq} C={C} layer={L - 1} "
+            "(timing inputs)", va.flash_spec_verify_attention(q, cache, L - 1, pads, fills, G, 0),
+            va.flash_spec_verify_attention_ref(q, cache, L - 1, pads, fills, G, 0), worst)
+    return timing_record(ms, plain, library, flops, bytes_, PEAK_FP32_FLOPS)
+
+
 def timing_record(ms, plain, library, flops, bytes_, peak_flops) -> dict:
     t_ops = flops / peak_flops * 1e3
     t_bytes = bytes_ / PEAK_BYTES * 1e3
@@ -468,10 +613,58 @@ def timing_record(ms, plain, library, flops, bytes_, peak_flops) -> dict:
 # -- phase 6 ------------------------------------------------------------------
 
 
-def phase_pipeline(torch) -> dict:
+def agreement(texts: list, base: list) -> str:
+    """How many texts equal their base text, and the characters each shares
+    with it before the first difference (a near-tie flip shows as a long
+    shared prefix, a fault as a short one)."""
+    shared = [len(os.path.commonprefix([a, b])) for a, b in zip(texts, base)]
+    same = sum(a == b for a, b in zip(texts, base))
+    return f"{same}/{len(base)} equal, shared prefix chars {shared} of {[len(b) for b in base]}"
+
+
+def reset_launches() -> None:
+    from vnsum_tpu_torch.ops import decode_attention, flash_attention, verify_attention
+
+    flash_attention.launches = decode_attention.launches = verify_attention.launches = 0
+
+
+def read_launches() -> dict:
+    from vnsum_tpu_torch.ops import decode_attention, flash_attention, verify_attention
+
+    return {"prefill": flash_attention.launches, "decode": decode_attention.launches,
+            "verify": verify_attention.launches}
+
+
+def check_launches(path: str, launches: dict, need: dict) -> None:
+    """Each kernel of ``need`` must have launched at least as often as the
+    path needs, and at least once."""
+    for name, n in need.items():
+        if launches[name] < n or launches[name] == 0:
+            raise AssertionError(
+                f"{path}: {name} kernel launched {launches[name]} times, needs >= {n}")
+    log(f"[launches] {path}: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+
+
+def check_run(res: dict, docs, gen_dir: Path) -> tuple[dict, dict]:
+    """A pipeline run's record: every document ok, every summary written,
+    ROUGE computed. Returns (record, {doc name: summary})."""
+    rec = res["summarization"]["llama3.2:3b"]
+    if rec["successful"] != len(docs) or rec["failed"] != 0:
+        raise AssertionError(f"documents: {rec['successful']} ok, {rec['failed']} failed")
+    out_dir = Path(f"{gen_dir}_mapreduce_llama3_2_3b")
+    written = sorted(p.name for p in out_dir.glob("*.txt"))
+    if written != [d.name for d in docs]:
+        raise AssertionError(f"summaries written: {written}")
+    rouge = res["evaluation"]["llama3.2:3b"]["rouge_scores"]
+    if not all(math.isfinite(v) for v in rouge.values()):
+        raise AssertionError(f"ROUGE not computed: {rouge}")
+    return rec, {p.name: p.read_text(encoding="utf-8") for p in out_dir.glob("*.txt")}
+
+
+def phase_pipeline(torch) -> tuple[dict, dict]:
+    """The plain map-reduce run through the CLI; returns (launches,
+    summaries)."""
     from vnsum_tpu_torch.models import llama32_3b
-    from vnsum_tpu_torch.ops import decode_attention as da
-    from vnsum_tpu_torch.ops import flash_attention as fa
     from vnsum_tpu_torch.pipeline import cli
 
     n_layers = llama32_3b().n_layers
@@ -488,34 +681,20 @@ def phase_pipeline(torch) -> dict:
             "--max-new-tokens", "128", "--device", "cuda",
         ]
         torch.cuda.reset_peak_memory_stats()
-        fa.launches = 0
-        da.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         rc = cli.main(args)
         wall = time.perf_counter() - t0
-        launches = {"prefill": fa.launches, "decode": da.launches}
+        launches = read_launches()
         if rc != 0:
             raise AssertionError(f"pipeline CLI exited {rc}")
         res = json.loads(next((Path(tmp) / "results").glob("pipeline_results_*.json")).read_text())
-        rec = res["results"]["summarization"]["llama3.2:3b"]
-        if rec["successful"] != len(docs) or rec["failed"] != 0:
-            raise AssertionError(f"documents: {rec['successful']} ok, {rec['failed']} failed")
-        out_dir = Path(f"{gen_dir}_mapreduce_llama3_2_3b")
-        written = sorted(p.name for p in out_dir.glob("*.txt"))
-        if written != [d.name for d in docs]:
-            raise AssertionError(f"summaries written: {written}")
+        rec, summaries = check_run(res["results"], docs, gen_dir)
         rouge = res["results"]["evaluation"]["llama3.2:3b"]["rouge_scores"]
-        if not all(math.isfinite(v) for v in rouge.values()):
-            raise AssertionError(f"ROUGE not computed: {rouge}")
         eng = res["results"]["engine"]["llama3.2:3b"]
-        need = {"prefill": n_layers * eng["prefill_forwards"],
-                "decode": n_layers * eng["decode_steps"]}
-        for name in need:
-            if launches[name] < need[name] or launches[name] == 0:
-                raise AssertionError(
-                    f"{name} kernel launched {launches[name]} times, "
-                    f"main path needs >= {need[name]}"
-                )
+        check_launches("pipeline", launches, {
+            "prefill": n_layers * eng["prefill_forwards"],
+            "decode": n_layers * eng["decode_steps"]})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[pipeline] {rec['successful']}/{len(docs)} docs ok, {rec['failed']} failed, "
         f"chunks {rec['total_chunks']}, wall {wall:.2f}s, "
@@ -525,11 +704,158 @@ def phase_pipeline(torch) -> dict:
         f"({eng['decode_steps']} steps), generated tokens {eng['generated_tokens']}, "
         f"batches {eng['by_bucket']}, peak memory {peak_gb:.2f} GB")
     log(f"[pipeline] rouge {json.dumps(rouge)}")
-    log(f"[pipeline] launches prefill {launches['prefill']} decode {launches['decode']}")
-    return launches
+    return launches, summaries
 
 
 # -- phase 7 ------------------------------------------------------------------
+
+
+def phase_spec_pipeline(torch, plain_summaries: dict):
+    """Path (a): map-reduce through PipelineRunner with a spec_k=8 backend,
+    then the oracle run. Returns (launches, backend, map prompts, the map
+    batch's one-shot outputs)."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.core.config import GenerationConfig, PipelineConfig
+    from vnsum_tpu_torch.models import llama32_3b
+    from vnsum_tpu_torch.pipeline.runner import PipelineRunner
+    from vnsum_tpu_torch.strategies import get_strategy
+
+    n_layers = llama32_3b().n_layers
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    backends = []
+
+    def factory(_):
+        backends.append(TorchBackend(
+            llama32_3b(), generation=GenerationConfig(spec_k=8), max_new_tokens=128,
+            batch_size=8, seed=0, device="cuda"))
+        return backends[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PipelineConfig(
+            approach="mapreduce", models=["llama3.2:3b"], max_new_tokens=128,
+            docs_dir=str(ROOT / "data/vi_eval/doc"),
+            summary_dir=str(ROOT / "data/vi_eval/summary"),
+            generated_summaries_dir=str(Path(tmp) / "gen"),
+            results_dir=str(Path(tmp) / "results"), logs_dir=str(Path(tmp) / "logs"),
+        )
+        reset_launches()
+        t0 = time.perf_counter()
+        runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
+        res = runner.run()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if runner.failures:
+            raise AssertionError(f"spec pipeline failures: {runner.failures}")
+        rec, summaries = check_run(
+            {"summarization": res.summarization, "evaluation": res.evaluation},
+            docs, Path(tmp) / "gen")
+    backend = backends[0]
+    st = backend.stats
+    if st.spec_verify_steps == 0:
+        raise AssertionError("the spec pipeline ran no verify step")
+    check_launches("spec pipeline", launches, {
+        "prefill": n_layers * st.prefill_forwards, "verify": n_layers * st.spec_verify_steps})
+    names = sorted(summaries)
+    same = agreement([summaries[n] for n in names], [plain_summaries[n] for n in names])
+    log(f"[spec] pipeline {rec['successful']}/{len(docs)} docs ok, wall {wall:.2f}s, prefill "
+        f"{st.phase_seconds.get('prefill', 0.0):.3f}s ({st.prefill_forwards} forwards), spec "
+        f"decode {st.phase_seconds.get('spec_decode', 0.0):.3f}s ({st.spec_verify_steps} "
+        f"verify steps), drafted {st.spec_draft_tokens}, accepted {st.spec_accepted_tokens}, "
+        f"generated tokens {st.generated_tokens}; against the plain run's summaries: {same} "
+        "(not gated: random bf16 weights give near-ties)")
+    log(f"[spec] rouge {json.dumps(res.evaluation['llama3.2:3b']['rouge_scores'])}")
+
+    # the oracle: the map batch again, with its one-shot outputs as the
+    # references, must accept drafts
+    strategy = get_strategy("mapreduce", backend, cfg)
+    prompts = [strategy.map_prompt.format(content=c)
+               for d in docs for c in strategy.splitter.split_text(d.read_text(encoding="utf-8"))]
+    reset_launches()
+    oneshot = backend.generate(prompts)
+    steps0, acc0 = st.spec_verify_steps, st.spec_accepted_tokens
+    t0 = time.perf_counter()
+    oracle = backend.generate(prompts, references=oneshot)
+    wall = time.perf_counter() - t0
+    oracle_launches = read_launches()
+    report = backend.take_spec_report()
+    steps, accepted = st.spec_verify_steps - steps0, st.spec_accepted_tokens - acc0
+    if accepted <= 0:
+        raise AssertionError(f"the oracle run accepted no draft: {report}")
+    check_launches("oracle", oracle_launches, {
+        "prefill": 2 * n_layers, "decode": n_layers, "verify": n_layers * steps})
+    log(f"[spec] oracle: {len(prompts)} map prompts, {steps} verify steps, drafted "
+        f"{sum(r.draft_tokens for r in report)}, accepted {accepted}, per-row accepted "
+        f"{[r.accepted_tokens for r in report]}, spec wall {wall:.2f}s; against the "
+        f"one-shot outputs: {agreement(oracle, oneshot)}")
+    # control: the same one-shot generate at another batch shape, which
+    # changes no math but the GEMM tiling; its agreement with the batch-8
+    # run is what bf16 near-ties alone give
+    control = TorchBackend(model=backend.model, batch_size=4, max_new_tokens=128,
+                           device="cuda").generate(prompts)
+    log(f"[spec] control: one-shot at batch 4 against batch 8: "
+        f"{agreement(control, oneshot)}")
+    total = {k: launches[k] + oracle_launches[k] for k in launches}
+    return total, backend, prompts, oneshot
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+
+def phase_slot_loop(torch, backend, prompts: list, oneshot: list) -> dict:
+    """Path (b): the in-flight slot loop over the map prompts, fed in two
+    waves and drained, at fused_segments 1 and 4. Returns the launches."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+
+    n_layers = backend.cfg.n_layers
+    b = TorchBackend(model=backend.model, batch_size=8, max_new_tokens=128,
+                     segment_tokens=32, device="cuda")
+    total = {"prefill": 0, "decode": 0, "verify": 0}
+    texts = {}
+    for fused in (1, 4):
+        reset_launches()
+        forwards0 = b.stats.prefill_forwards
+        t0 = time.perf_counter()
+        loop = b.start_slot_loop(slots=8, prompt_tokens=4096, max_new_tokens=128,
+                                 fused_segments=fused)
+        outs: dict = {}
+        adm, rej = loop.admit([(i, prompts[i], None) for i in range(3)])
+        if rej or len(adm) != 3:
+            raise AssertionError(f"first wave: {len(adm)} admitted, {rej} rejected")
+        pending = list(range(3, len(prompts)))
+        for _ in range(64):
+            for c in loop.step().completions:
+                outs[c.key] = c.text
+            if pending and loop.free:
+                adm, rej = loop.admit([(i, prompts[i], None) for i in pending])
+                if rej:
+                    raise AssertionError(f"rejected {rej}")
+                for a in adm:
+                    pending.remove(a.key)
+            if not pending and loop.active == 0:
+                break
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if sorted(outs) != list(range(len(prompts))):
+            raise AssertionError(f"slot loop completed {sorted(outs)} of {len(prompts)}")
+        if launches["verify"] != n_layers * loop.decode_steps:
+            raise AssertionError(
+                f"verify launched {launches['verify']} times for {loop.decode_steps} steps")
+        check_launches(f"slot loop fused={fused}", launches, {
+            "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+            "verify": n_layers * loop.decode_steps})
+        texts[fused] = [outs[i] for i in range(len(prompts))]
+        log(f"[slot] fused={fused}: {len(prompts)}/{len(prompts)} requests done, "
+            f"{loop.refills} admitted, {loop.fused_dispatches} dispatches, {loop.segments} "
+            f"segments, {loop.decode_steps} decode steps, wall {wall:.2f}s; against the "
+            f"one-shot outputs: {agreement(texts[fused], oneshot)} (not gated)")
+        loop.close()
+        for k in total:
+            total[k] += launches[k]
+    log(f"[slot] fused=4 texts equal fused=1's: {texts[4] == texts[1]} (not gated)")
+    return total
+
+
+# -- phase 9 ------------------------------------------------------------------
 
 
 def phase_profile(torch) -> None:
@@ -631,7 +957,11 @@ def main() -> int:
     errs = phase_correctness(torch)
     phase_mutants()
     timing = phase_timing(torch, errs)
-    launches = phase_pipeline(torch)
+    launches, plain_summaries = phase_pipeline(torch)
+    spec_launches, backend, prompts, oneshot = phase_spec_pipeline(torch, plain_summaries)
+    slot_launches = phase_slot_loop(torch, backend, prompts, oneshot)
+    del backend
+    launches = {k: launches[k] + spec_launches[k] + slot_launches[k] for k in launches}
     phase_profile(torch)
     kernels = []
     for key, meta in KERNELS.items():

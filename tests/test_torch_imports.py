@@ -20,6 +20,10 @@ def test_sources_found():
     assert len(SOURCES) > 20
     assert (ROOT / "vnsum_tpu_torch" / "ops" / "csrc" / "flash_prefill.cu").is_file()
     assert (ROOT / "vnsum_tpu_torch" / "ops" / "csrc" / "flash_decode.cu").is_file()
+    assert (ROOT / "vnsum_tpu_torch" / "ops" / "csrc" / "flash_verify.cu").is_file()
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {"vnsum_tpu_torch/spec/drafter.py", "vnsum_tpu_torch/backend/inflight.py",
+            "vnsum_tpu_torch/ops/verify_attention.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

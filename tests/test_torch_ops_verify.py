@@ -1,0 +1,139 @@
+"""Verify attention (kernel K3) of the PyTorch port against the JAX
+package's Pallas kernel ``flash_spec_verify_attention``.
+
+On the CPU the port's wrapper takes its plain version; the JAX kernel runs
+in interpret mode. Both get the same inputs, made with numpy from a seed,
+and both compute in f32 throughout, so they differ by summation order only:
+1e-5. The cases follow tests/test_ops_decode.py's verify cases (per-row
+fills and pads, several layers, garbage beyond each row's limit, an int8
+cache, windows) plus a row parked at limit C, as the slot segment parks a
+finished row. The JAX kernel's cache length stays a multiple of its block:
+interpret mode pads a ragged last block with NaN.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vnsum_tpu.models.llama import _quantize_kv
+from vnsum_tpu.ops.decode_attention import flash_spec_verify_attention as jax_verify
+from vnsum_tpu_torch.ops import verify_attention as va
+
+from test_torch_ops_flash import one_torch_thread  # noqa: F401
+
+HD = 128
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def make_case(L, B, KV, C, Sq, H, seed, quantized=False):
+    """(q, jax cache, torch cache) from one numpy seed."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, HD)).astype(np.float32)
+    k = rng.standard_normal((L, B, KV, C, HD)).astype(np.float32)
+    v = rng.standard_normal((L, B, KV, C, HD)).astype(np.float32)
+    if quantized:
+        k8, ks = _quantize_kv(jnp.asarray(k))
+        v8, vs = _quantize_kv(jnp.asarray(v))
+        jc = {"k": k8, "v": v8, "ks": ks, "vs": vs}
+    else:
+        jc = {"k": jnp.asarray(k), "v": jnp.asarray(v)}
+    tc = {n: torch.from_numpy(np.array(a)) for n, a in jc.items()}
+    return q, jc, tc
+
+
+def both(q, jc, tc, layer, pads, fills, G, window=0, block_k=16):
+    want = jax_verify(
+        jnp.asarray(q), jc, layer, jnp.asarray(pads, jnp.int32),
+        jnp.asarray(fills, jnp.int32), G,
+        None if not window else jnp.int32(window), block_k=block_k, interpret=True,
+    )
+    before = va.launches
+    got = va.flash_spec_verify_attention(
+        torch.from_numpy(q), tc, layer, torch.tensor(pads, dtype=torch.int32),
+        torch.tensor(fills, dtype=torch.int32), G, window,
+    )
+    assert va.launches == before  # CPU tensors never reach the kernel
+    assert got.shape == q.shape and got.dtype == torch.float32
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("layer", [0, 2])
+@pytest.mark.parametrize(
+    "fills,pads", [([10, 40], [0, 5]), ([58, 12], [3, 0]), ([7, 7], [2, 2])]
+)
+def test_verify_plain_matches_jax_kernel(quantized, layer, fills, pads):
+    """Per-row fills, Sq=5 query positions per row, layers 0 and 2."""
+    L, B, KV, C, Sq, H = 3, 2, 2, 64, 5, 4
+    q, jc, tc = make_case(L, B, KV, C, Sq, H, seed=layer + fills[0], quantized=quantized)
+    got, want = both(q, jc, tc, layer, pads, fills, H // KV)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_verify_plain_ignores_beyond_limit_garbage():
+    """Slots past each row's per-query limit never leak in, including slots
+    between two rows' different fills (the rollback region)."""
+    L, B, KV, C, Sq, H = 1, 2, 1, 32, 3, 2
+    q, jc, tc = make_case(L, B, KV, C, Sq, H, seed=9)
+    fills, pads = [6, 20], [0, 0]
+    # poison row 0 beyond ITS visibility (limit 6+3-1=8) but inside row 1's
+    poisoned = {n: t.clone() for n, t in tc.items()}
+    poisoned["k"][:, 0, :, 9:, :] = 30.0
+    poisoned["v"][:, 0, :, 9:, :] = 1e9
+    jpoisoned = {n: jnp.asarray(t.numpy()) for n, t in poisoned.items()}
+    clean, want = both(q, jc, tc, 0, pads, fills, H // KV, block_k=8)
+    dirty, want_dirty = both(q, jpoisoned, poisoned, 0, pads, fills, H // KV, block_k=8)
+    np.testing.assert_array_equal(dirty[0], clean[0])
+    np.testing.assert_allclose(dirty, want_dirty, **TOL)
+
+
+@pytest.mark.parametrize("win", [4, 16])
+def test_verify_plain_windowed_matches_jax_kernel(win):
+    """Per-query window floor: k > fills_b + s - win."""
+    L, B, KV, C, Sq, H = 1, 2, 2, 64, 3, 4
+    q, jc, tc = make_case(L, B, KV, C, Sq, H, seed=5 + win)
+    got, want = both(q, jc, tc, 0, [0, 2], [20, 44], H // KV, window=win)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_verify_plain_parked_row_and_blind_queries(quantized):
+    """Row 0 is parked at limit C (its last query sits past the cache, as a
+    finished slot-segment row does at t = max_new); row 1's pad hides every
+    key from its first queries, which come out as 0; row 2 is an all-pad
+    free slot (pad = C)."""
+    L, B, KV, C, Sq, H = 2, 3, 2, 64, 4, 6
+    q, jc, tc = make_case(L, B, KV, C, Sq, H, seed=31, quantized=quantized)
+    fills, pads = [C - Sq + 1, 30, 40], [0, 32, C]
+    got, want = both(q, jc, tc, 1, pads, fills, H // KV)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[1, :2].any() and not got[2].any()
+    assert got[1, 2:].any()
+
+
+def test_verify_sq1_matches_the_decode_kernel_at_a_shared_fill():
+    """At Sq=1 and one fill for every row, K3 computes K2's function."""
+    from vnsum_tpu_torch.ops import decode_attention as da
+
+    L, B, KV, C, H = 2, 3, 2, 64, 4
+    _, _, tc = make_case(L, B, KV, C, 1, H, seed=4, quantized=True)
+    q = torch.from_numpy(np.random.default_rng(4).standard_normal((B, 1, H, HD)).astype(np.float32))
+    pads = torch.tensor([0, 9, 50], dtype=torch.int32)
+    got = va.flash_spec_verify_attention(
+        q, tc, 1, pads, torch.full((B,), 41, dtype=torch.int32), H // KV)
+    want = da.flash_decode_attention(q, tc, 1, pads, 41, H // KV)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_verify_wrapper_refuses_what_the_kernel_does_not_take():
+    """On a tensor that is neither CPU nor CUDA the wrapper raises instead of
+    falling back."""
+    q = torch.zeros((1, 2, 4, HD), device="meta")
+    cache = {"k": torch.zeros((1, 1, 2, 8, HD), device="meta"),
+             "v": torch.zeros((1, 1, 2, 8, HD), device="meta")}
+    with pytest.raises(ValueError, match="no verify attention kernel"):
+        va.flash_spec_verify_attention(
+            q, cache, 0, torch.zeros(1, dtype=torch.int32, device="meta"),
+            torch.zeros(1, dtype=torch.int32, device="meta"), 2)

@@ -27,8 +27,12 @@ class Backend(Protocol):
         *,
         max_new_tokens: int | None = None,
         config: GenerationConfig | None = None,
+        references: list[str | None] | None = None,
+        cache_hints: list[str | None] | None = None,
     ) -> list[str]:
-        """Generate one completion per prompt, order-preserving."""
+        """Generate one completion per prompt, order-preserving.
+        ``references`` (speculation sources) and ``cache_hints`` (recurring
+        prompt prefixes) align one entry per prompt and are advisory."""
         ...
 
     def count_tokens(self, text: str) -> int:

@@ -14,11 +14,23 @@ check at every step.
 
 With ``flash`` on, attention goes through the hand-written kernels
 (``ops/flash_attention.py`` for prefill, ``ops/decode_attention.py`` for
-decode) and the KV cache is int8 by default, as in the JAX engine. On the
-CPU the kernel wrappers take their plain versions.
+decode, ``ops/verify_attention.py`` for the speculative verify step and the
+slot segment) and the KV cache is int8 by default, as in the JAX engine. On
+the CPU the kernel wrappers take their plain versions.
 
-Not ported yet: the prefix cache, speculative decoding, the continuous and
-in-flight schedulers, meshes, ``score_choices``, int8 weights and W8A8.
+Two more paths run on the verify kernel:
+
+- reference-guided speculative decoding: ``generate`` with
+  ``GenerationConfig(spec_k=k)`` and per-prompt ``references`` drafts up to
+  k tokens per row from the row's reference and verifies them in one
+  forward over k + 1 positions (``_run_group_spec``);
+- the in-flight slot loop (``start_slot_loop``, ``backend/inflight.py``):
+  slots at different generation depths decode together, with per-row step
+  counters, and freed slots are refilled from new prompts.
+
+Not ported yet: the prefix cache (``cache_hints`` are accepted and unused,
+as in the JAX engine with no cache configured), the continuous scheduler,
+meshes, ``score_choices``, int8 weights and W8A8.
 """
 from __future__ import annotations
 
@@ -39,10 +51,14 @@ from ..models.llama import (
     llama32_3b,
     prefill_attention_mask,
     prefill_positions,
+    verify_attention_mask,
+    verify_positions,
 )
-from ..models.sampling import row_seed, sample_logits_rows
+from ..models.sampling import draft_acceptance_rows, row_seed, sample_logits_rows
 from ..ops.decode_attention import flash_decode_attention
 from ..ops.flash_attention import flash_prefill_attention, supports_flash
+from ..ops.verify_attention import flash_spec_verify_attention
+from ..spec import NO_TOKEN, SpecRecord, encode_references, propose_drafts
 from ..text.tokenizer import Tokenizer, get_tokenizer
 from .base import (
     fold_seed,
@@ -59,6 +75,9 @@ logger = get_logger("vnsum.engine")
 _BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 # decode steps between host reads of the all-done flag (each read syncs)
 _DONE_CHECK_INTERVAL = 16
+# tokens encoded per speculation reference (matched, never attended: a
+# longer reference only loses tail draft coverage)
+_SPEC_MAX_REF_TOKENS = 4096
 
 
 def _bucket_len(n: int, max_len: int) -> int:
@@ -70,13 +89,16 @@ def _bucket_len(n: int, max_len: int) -> int:
 
 def resolve_device(device) -> torch.device:
     """The engine's device; "cuda" with no card visible raises instead of
-    carrying on on the CPU."""
+    carrying on on the CPU. A bare "cuda" resolves to the current card's
+    index, the device tensors made there report."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but no CUDA card is visible; pass "
             "device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -90,9 +112,16 @@ class EngineStats:
     generated_tokens: int = 0
     generate_seconds: float = 0.0
     batches: int = 0
-    # forwards through the decoder: one per prefill chunk, one per decode step
+    # forwards through the decoder: one per prefill chunk, one per decode
+    # step (one-shot decode and slot segments)
     prefill_forwards: int = 0
     decode_steps: int = 0
+    # speculative decoding: batched verify forwards run, draft tokens
+    # proposed to them, and draft tokens the model kept. Every step also
+    # retires one model-own token per live row
+    spec_verify_steps: int = 0
+    spec_draft_tokens: int = 0
+    spec_accepted_tokens: int = 0
     by_bucket: dict = field(default_factory=dict)
     # "prefill" / "decode": device time, bounded by a synchronize at each
     # phase's end; host phases ("tokenize_host", "pack_host") by wall clock
@@ -122,6 +151,7 @@ class TorchBackend:
         flash: str | bool = "auto",
         quantize_kv: str | bool = "auto",
         prefill_chunk_tokens: int = 0,
+        segment_tokens: int = 128,
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
@@ -160,6 +190,9 @@ class TorchBackend:
                 "prefill_chunk_tokens must be a non-negative multiple of 128"
             )
         self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+        # decode steps per slot-loop segment (backend/inflight.py)
+        self.segment_tokens = max(int(segment_tokens), 1)
+        self._spec_report: list = []
         self.stats = EngineStats()
         self._seed = seed
         self._dispatch = 0
@@ -246,6 +279,49 @@ class TorchBackend:
 
         return stacked_fn
 
+    def _verify_stacked(self, pad_lens, fills):
+        """K3 over per-row fills (a [B] int32 tensor that stays on the
+        device); None on the dense path."""
+        if not self.use_kernels:
+            return None
+        q_per_kv = self.cfg.q_per_kv
+
+        def stacked_fn(q, cache, layer_idx):
+            return flash_spec_verify_attention(q, cache, layer_idx, pad_lens, fills, q_per_kv, 0)
+
+        return stacked_fn
+
+    def _verify_forward(self, toks, pad_lens, fills, cache, C: int):
+        """One forward over toks [B, Sq] sitting at per-row cache slots
+        fills_b .. fills_b + Sq - 1 (the spec verify step, Sq = k + 1, and
+        the slot segment, Sq = 1); writes their K/V at those slots."""
+        Sq = toks.shape[1]
+        fills = fills.to(torch.int32)
+        mask = None if self.use_kernels else verify_attention_mask(pad_lens, fills, Sq, C)
+        return self.model(
+            toks, verify_positions(pad_lens, fills, Sq), cache, fills, mask,
+            stacked_attention_fn=self._verify_stacked(pad_lens, fills),
+        )
+
+    # hot path
+    def _prefill_group(self, tokens_np, pad_np, S: int, C: int, gen, seed: int, uids):
+        """Prefill a packed left-padded batch into a fresh cache of C slots
+        and sample each row's first token, keyed on (seed, uids[row], 0).
+        The one-shot and spec paths pass the row positions as uids; a slot
+        loop's join group passes per-request uids, so a request's stream
+        does not depend on when it joined or with whom. All-pad filler rows
+        start done, else they would hold off the early exit. Returns
+        (first [B], cache, pad_lens [B] int32, done [B])."""
+        dev = self.device
+        _, vocab_limit, restrict = self._sampling_setup(gen)
+        pad_lens = torch.from_numpy(pad_np).to(dev)
+        cache = init_kv_cache(self.cfg, len(pad_np), C, quantized=self.quantize_kv, device=dev)
+        logits = self._prefill_forward(
+            torch.from_numpy(tokens_np).to(dev), pad_lens, len(pad_np), S, C, cache
+        )
+        first = self._sample(logits, seed, list(uids), 0, gen, vocab_limit, restrict)
+        return first, cache, pad_lens, pad_lens == S
+
     # hot path
     def _run_group(self, tokens_np, pad_np, B: int, S: int, max_new: int, gen, seed: int):
         """Prefill + decode of one packed batch; returns out ids [B, max_new]."""
@@ -253,16 +329,10 @@ class TorchBackend:
         C = S + max_new
         eos, vocab_limit, restrict = self._sampling_setup(gen)
         pad_id = self.tok.pad_id
-        tokens = torch.from_numpy(tokens_np).to(dev)
-        pad_lens = torch.from_numpy(pad_np).to(dev)
         uids = list(range(B))
 
         t_pre = time.time()
-        cache = init_kv_cache(self.cfg, B, C, quantized=self.quantize_kv, device=dev)
-        logits = self._prefill_forward(tokens, pad_lens, B, S, C, cache)
-        cur = self._sample(logits, seed, uids, 0, gen, vocab_limit, restrict)
-        # all-pad filler rows start done, else they would hold off the exit
-        done = pad_lens == S
+        cur, cache, pad_lens, done = self._prefill_group(tokens_np, pad_np, S, C, gen, seed, uids)
         self._sync()
         prefill_s = time.time() - t_pre
         self.stats.add_phase("prefill", prefill_s)
@@ -293,6 +363,255 @@ class TorchBackend:
         self.stats.add_phase("decode", decode_s)
         return out_h
 
+    # -- speculative decoding (reference-guided, vnsum_tpu_torch.spec) -----
+
+    def _spec_step(self, state, gen, seed: int, S: int, C: int, max_new: int):
+        """One speculative step of a packed group: draft (n-gram suffix
+        match of each row's emitted tail against its reference), verify (ONE
+        forward over k + 1 positions per row at the row's own fill, through
+        K3), accept (exact argmax prefix for greedy, rejection-style for
+        sampling), emit. Rows accept different draft counts, so fills and
+        emitted counts ``e`` are [B] tensors; rejected drafts roll back by
+        not advancing ``e``: their stale cache slots sit past every mask and
+        the next step's write at the row's true fill overwrites them.
+
+        Nothing here reads the device: ``state`` holds device tensors, and
+        the caller fetches (n_draft, accepted, done) once per step."""
+        k = gen.spec_k
+        k1 = k + 1
+        N = max(gen.spec_ngram, 1)
+        eos, vocab_limit, restrict = state["sampling"]
+        cur, done, e, out = state["cur"], state["done"], state["e"], state["out"]
+        dev = cur.device
+        B = cur.shape[0]
+
+        # draft: the last N emitted tokens (with cur) against the reference
+        if N > 1:
+            out_pad = torch.cat(
+                [torch.full((B, N - 1), NO_TOKEN, dtype=out.dtype, device=dev), out], dim=1
+            )
+            hist = torch.gather(out_pad, 1, e[:, None] + torch.arange(N - 1, device=dev)[None, :])
+            tail = torch.cat([hist, cur[:, None]], dim=1)
+        else:
+            tail = cur[:, None]
+        drafts, n_draft = propose_drafts(state["ref"], state["ref_lens"], tail, k)
+        # done rows draft nothing; live rows never draft past the budget
+        n_draft = n_draft.masked_fill(done, 0)
+        n_draft = torch.minimum(n_draft, (max_new - e - 1).clamp_min(0))
+
+        # verify: one forward over k + 1 positions per row
+        toks = torch.cat([cur[:, None], drafts], dim=1)                    # [B, k1]
+        logits = self._verify_forward(toks, state["pads"], S + e, state["cache"], C)
+        logits = restrict(logits[:, :, :vocab_limit])
+
+        # accept: position i (when reached) emits stream token e + i, so its
+        # randomness is keyed on that absolute position; the host mirrors e
+        seeds = None
+        if gen.temperature > 0:
+            seeds = [
+                [row_seed(seed, u, int(state["e_host"][u]) + i + 1) for i in range(k1)]
+                for u in range(B)
+            ]
+        m, nxt = draft_acceptance_rows(
+            logits, drafts, n_draft, seeds, gen.temperature, gen.top_k, gen.top_p
+        )
+
+        # emit cur plus the accepted drafts, cut just after a terminator
+        # (the terminator itself is emitted and detok-stripped, as in the
+        # plain decode's emit-before-done-check)
+        idx = torch.arange(k1, device=dev)[None, :]
+        is_term = torch.isin(toks, eos)
+        no_term_before = torch.cumprod(
+            torch.cat(
+                [torch.ones((B, 1), dtype=torch.long, device=dev), (~is_term[:, :-1]).long()],
+                dim=1,
+            ),
+            dim=1,
+        ).bool()
+        valid = (idx <= m[:, None]) & no_term_before & ~done[:, None]
+        emit = torch.where(valid, toks, torch.full_like(toks, self.tok.pad_id))
+        out.scatter_(1, e[:, None] + idx, emit)
+        n_emit = valid.sum(dim=1)
+        state["e"] = e + n_emit
+        state["done"] = done | (is_term & valid).any(dim=1) | (state["e"] >= max_new)
+        state["cur"] = torch.where(done, cur, nxt)
+        return n_draft, (n_emit - 1).clamp_min(0)
+
+    # hot path
+    def _run_group_spec(
+        self, group, encoded, references, max_new: int, gen, results, report, seed: int
+    ) -> None:
+        """Generate one prompt group with reference-guided speculation: the
+        shared prefill, then a host loop of spec steps. Every step retires
+        >= 1 token per live row, so the loop is bounded by max_new; rows
+        whose reference never matches retire exactly one token a step.
+
+        Cache and out geometry: C = S + max_new + k + 1 and ``out`` is
+        max_new + k + 1 wide, so a step entered at e = max_new - 1 (or a done
+        row parked at e = max_new) writes its fixed k + 1 tokens in bounds."""
+        dev = self.device
+        k1 = gen.spec_k + 1
+        tokens_np, pads_np, B, S = self._pack_group(group, encoded, max_new)
+        C = S + max_new + k1
+
+        # per-row reference buffers, R bucketed to a power of two
+        refs_group = [references[i] for i in group]
+        ref_np, ref_lens_np = encode_references(self.tok, refs_group, _SPEC_MAX_REF_TOKENS)
+        R = 64
+        while R < ref_np.shape[1]:
+            R *= 2
+        ref_full = np.full((B, R), NO_TOKEN, dtype=np.int64)
+        ref_full[: len(group), : ref_np.shape[1]] = ref_np
+        lens_full = np.zeros((B,), dtype=np.int64)
+        lens_full[: len(group)] = ref_lens_np
+
+        t_pre = time.time()
+        cur, cache, pad_lens, done = self._prefill_group(
+            tokens_np, pads_np, S, C, gen, seed, range(B)
+        )
+        prev_done = done.cpu().numpy()  # seeds the host loop's exit condition
+        self.stats.add_phase("prefill", time.time() - t_pre)
+        self.stats.batches += 1
+        self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
+
+        state = {
+            "sampling": self._sampling_setup(gen), "cur": cur, "done": done, "cache": cache, "pads": pad_lens,
+            "e": torch.zeros((B,), dtype=torch.long, device=dev),
+            "e_host": np.zeros((B,), dtype=np.int64),
+            "out": torch.full((B, max_new + k1), self.tok.pad_id, dtype=torch.long, device=dev),
+            "ref": torch.from_numpy(ref_full).to(dev),
+            "ref_lens": torch.from_numpy(lens_full).to(dev),
+        }
+        drafted = np.zeros((B,), dtype=np.int64)
+        accepted = np.zeros((B,), dtype=np.int64)
+        steps_live = np.zeros((B,), dtype=np.int64)
+        t_dec = time.time()
+        while not prev_done.all():
+            n_draft, acc = self._spec_step(state, gen, seed, S, C, max_new)
+            # ONE fetch per verify step: draft/accept counts feed the stats,
+            # done drives the loop's exit
+            nd_h, acc_h, done_h = torch.stack(
+                [n_draft, acc, state["done"].long()]
+            ).cpu().numpy()
+            live = ~prev_done
+            steps_live += live
+            drafted += nd_h
+            accepted += acc_h
+            # a live row emits its accepted drafts plus one token
+            state["e_host"] += np.where(live, acc_h + 1, 0)
+            prev_done = done_h.astype(bool)
+            self.stats.spec_verify_steps += 1
+        self.stats.add_phase("spec_decode", time.time() - t_dec)
+        self.stats.spec_draft_tokens += int(drafted[: len(group)].sum())
+        self.stats.spec_accepted_tokens += int(accepted[: len(group)].sum())
+
+        out_h = state["out"].cpu().numpy()[:, :max_new]
+        for row, i in enumerate(group):
+            results[i] = self._detok(out_h[row], tuple(gen.eos_ids))
+            report[i] = SpecRecord(
+                draft_tokens=int(drafted[row]),
+                accepted_tokens=int(accepted[row]),
+                verify_steps=int(steps_live[row]),
+            )
+
+    # -- in-flight slot programs (backend/inflight.py) ---------------------
+
+    # hot path
+    def _slot_segment(self, st, S: int, max_new: int, gen, seed: int, uids, steps: int) -> int:
+        """Advance every live slot by up to ``steps`` tokens, with PER-ROW
+        step counters ``t``: slots at different generation depths decode
+        together, so fills, positions and cache writes are per row and the
+        attention is K3 at Sq = 1. For any single row the emitted-token math
+        is the one-shot decode's.
+
+        ``st`` holds the resident device state (t, cur, cache, done, out,
+        pads), updated in place. The all-done check reads the device every
+        ``_DONE_CHECK_INTERVAL`` steps; the steps after every row is done
+        change no output (done rows freeze their t, cur and out), so where
+        the loop stops never matters. Sampled rows key step t of request uid
+        on (seed, uid, t + 1), which needs t on the host: a sampled segment
+        reads it once a step. Returns the steps run."""
+        C = S + max_new
+        eos, vocab_limit, restrict = self._sampling_setup(gen)
+        ran = 0
+        for k in range(steps):
+            if k % _DONE_CHECK_INTERVAL == 0 and bool(st["done"].all()):
+                break
+            t, cur, done, out = st["t"], st["cur"], st["done"], st["out"]
+            # emit BEFORE sampling; a done row keeps its out row (its stale
+            # cur must not clobber its last real token)
+            col = t.clamp_max(max_new - 1)[:, None]
+            out.scatter_(1, col, torch.where(done, torch.gather(out, 1, col)[:, 0], cur)[:, None])
+            done = done | torch.isin(cur, eos)
+            logits = self._verify_forward(cur[:, None], st["pads"], S + t, st["cache"], C)
+            seeds = []
+            if gen.temperature > 0:
+                seeds = [row_seed(seed, u, tt + 1) for u, tt in zip(uids, t.tolist())]
+            nxt = sample_logits_rows(
+                restrict(logits[:, -1, :vocab_limit]), seeds,
+                gen.temperature, gen.top_k, gen.top_p,
+            )
+            # done rows freeze t (their out cursor) and cur
+            t = torch.where(done, t, t + 1)
+            done = done | (t >= max_new)
+            st["t"], st["done"] = t, done
+            st["cur"] = torch.where(done, cur, nxt)
+            ran += 1
+        self.stats.decode_steps += ran
+        return ran
+
+    def _adopt(self, st, join_cache, first, done0, join_pads, slot_idx) -> None:
+        """Scatter a join group's freshly prefilled cache rows and per-row
+        state into the resident slot batch at ``slot_idx``, in place. The
+        targets are distinct free slots (the loop caps the join bucket at
+        the free-slot count), so the order of the writes never matters."""
+        idx = torch.as_tensor(slot_idx, dtype=torch.long, device=self.device)
+        for name, buf in st["cache"].items():
+            buf.index_copy_(1, idx, join_cache[name])
+        st["cur"][idx] = first
+        st["done"][idx] = done0
+        st["t"][idx] = 0
+        st["out"][idx] = self.tok.pad_id
+        st["pads"][idx] = join_pads
+
+    def start_slot_loop(
+        self,
+        slots: int | None = None,
+        *,
+        max_new_tokens: int | None = None,
+        config: GenerationConfig | None = None,
+        prompt_tokens: int = 0,
+        fused_segments: int = 1,
+    ):
+        """Open a persistent in-flight loop: a fixed batch of ``slots`` rows
+        where finished rows are harvested at every segment boundary and freed
+        slots are refilled from new prompts (prefill, then an adopt scatter
+        into the resident cache). ``prompt_tokens`` fixes the prompt bucket S
+        (0 = the full context minus the decode budget); longer prompts are
+        rejected at admit, for the caller to send through ``generate``.
+        ``fused_segments`` runs N segments per dispatch: joins and harvests
+        coarsen to that cadence, greedy outputs stay identical."""
+        from .inflight import TorchSlotLoop
+
+        n_slots = slots or self.batch_size
+        gen = config or self.gen_cfg
+        max_new = resolve_max_new(max_new_tokens, gen, self.max_new_tokens)
+        if max_new >= self.cfg.max_seq_len:
+            raise ValueError(
+                f"max_new_tokens={max_new} must be < max_seq_len={self.cfg.max_seq_len}"
+            )
+        max_input = self.cfg.max_seq_len - max_new
+        S = prompt_tokens or _bucket_len(max_input, max_input)
+        if S > max_input:
+            raise ValueError(
+                f"prompt_tokens={S} exceeds the context budget {max_input} "
+                "(max_seq_len - max_new_tokens)"
+            )
+        return TorchSlotLoop(
+            self, n_slots, S, max_new, gen, seed=self._next_seed(gen),
+            fused_segments=fused_segments,
+        )
+
     def _pack_group(self, group, encoded, max_new: int):
         """Pack one prompt group into a fixed-shape left-padded batch; the
         batch dim buckets to a power of two so a trailing partial group
@@ -320,7 +639,14 @@ class TorchBackend:
         *,
         max_new_tokens: int | None = None,
         config: GenerationConfig | None = None,
+        references: list[str | None] | None = None,
+        cache_hints: list[str | None] | None = None,
     ) -> list[str]:
+        """One completion per prompt, order-preserving. ``references``
+        aligns one source text per prompt: with ``spec_k > 0`` a group with
+        any reference decodes speculatively, drafting from it. ``cache_hints``
+        (the prefix KV cache's seam) are checked and not used: the prefix
+        cache is not ported yet."""
         gen = config or self.gen_cfg
         max_new = resolve_max_new(max_new_tokens, gen, self.max_new_tokens)
         if max_new >= self.cfg.max_seq_len:
@@ -329,6 +655,18 @@ class TorchBackend:
             )
         if not prompts:
             return []
+        if references is not None and len(references) != len(prompts):
+            raise ValueError(
+                f"references must align with prompts: got {len(references)} "
+                f"for {len(prompts)}"
+            )
+        if cache_hints is not None and len(cache_hints) != len(prompts):
+            raise ValueError(
+                f"cache_hints must align with prompts: got {len(cache_hints)} "
+                f"for {len(prompts)}"
+            )
+        spec_on = gen.spec_k > 0 and references is not None and any(references)
+        spec_report: list = [None] * len(prompts) if spec_on else []
         self.stats.calls += 1
         self.stats.prompts += len(prompts)
         max_input = self.cfg.max_seq_len - max_new
@@ -348,6 +686,14 @@ class TorchBackend:
         for start in range(0, len(order), self.batch_size):
             group = order[start : start + self.batch_size]
             seed = self._next_seed(gen)
+            # per-group routing: a group whose prompts carry no reference
+            # would pay the (k+1)-wide verify forward to retire one token a
+            # step, so it takes the plain path (same greedy output)
+            if spec_on and any(references[i] for i in group):
+                self._run_group_spec(
+                    group, encoded, references, max_new, gen, results, spec_report, seed
+                )
+                continue
             tokens, pad_lens, B, S = self._pack_group(group, encoded, max_new)
             out = self._run_group(tokens, pad_lens, B, S, max_new, gen, seed)
             self.stats.batches += 1
@@ -355,7 +701,16 @@ class TorchBackend:
             for row, i in enumerate(group):
                 results[i] = self._detok(out[row], tuple(gen.eos_ids))
         self.stats.generate_seconds += time.time() - t0
+        # rows whose group took the plain path report zeros, keeping the
+        # per-prompt alignment
+        self._spec_report = [r if r is not None else SpecRecord() for r in spec_report]
         return results  # type: ignore[return-value]
+
+    def take_spec_report(self) -> list[SpecRecord]:
+        """Per-prompt SpecRecords of the last generate call, aligned with its
+        prompt order (empty when speculation was off), cleared on read."""
+        report, self._spec_report = self._spec_report, []
+        return report
 
     def _detok(self, ids: np.ndarray, extra_eos: tuple[int, ...] = ()) -> str:
         self.stats.generated_tokens += int((ids != self.tok.pad_id).sum())

@@ -1,7 +1,7 @@
 """Typed configuration for the pipeline and strategies.
 
 Copy of ``vnsum_tpu/core/config.py`` cut to what the port runs today: the
-map-reduce approach on the one-card engine. Knob names and defaults are the
+map-reduce approach on the one-card engine, with speculative decoding. Knob names and defaults are the
 JAX package's (themselves the reference's, run_full_evaluation_pipeline.py:
 973-1027); the knobs of approaches, meshes, long context and int8 weights
 return with the slices that port them.
@@ -27,6 +27,15 @@ class GenerationConfig:
     top_p: float = 1.0
     eos_ids: tuple[int, ...] = ()
     seed: int = 0
+    # reference-guided speculative decoding (vnsum_tpu_torch.spec): propose
+    # up to spec_k continuation tokens per row by n-gram matching the
+    # emitted stream against the request's reference text (generate's
+    # per-prompt ``references``), verified in one batched forward. 0 = off,
+    # and the plain decode path is untouched. Greedy outputs are identical
+    # at any spec_k (acceptance is an exact argmax prefix match)
+    spec_k: int = 0
+    # longest emitted-stream suffix the drafter tries to match (>= 1)
+    spec_ngram: int = 3
 
     def with_(self, **kw) -> "GenerationConfig":
         return dataclasses.replace(self, **kw)

@@ -159,7 +159,7 @@ class LlamaModel(nn.Module):
         tokens: torch.Tensor,       # [B, S] int
         positions: torch.Tensor,    # [B, S] int (RoPE positions)
         cache: dict,                # stacked {"k","v"[, "ks","vs"]}, written in place
-        write_index: int,           # cache slot of tokens[:, 0]
+        write_index,                # cache slot of tokens[:, 0]: int, or [B] tensor
         mask: torch.Tensor | None = None,  # [B, S, C] bool; dense attention only
         *,
         last_only: bool = False,
@@ -167,6 +167,10 @@ class LlamaModel(nn.Module):
     ) -> torch.Tensor:
         """Run the decoder; returns logits [B, S, vocab] f32 (or [B, 1,
         vocab] with ``last_only``) and writes this call's K/V into ``cache``.
+
+        ``write_index`` is one slot for every row (prefill, decode) or a [B]
+        tensor of per-row slots (the speculative verify step and the slot
+        segment, whose rows sit at different fills); see :func:`cache_write`.
 
         ``stacked_attention_fn(q, cache, layer_idx)`` replaces the dense
         attention with a consumer of the whole stacked cache (the kernels);
@@ -176,9 +180,11 @@ class LlamaModel(nn.Module):
             raise ValueError("dense attention needs a mask")
         x = F.embedding(tokens.long(), self.embed)
         cos, sin = rope_cos_sin(cfg, positions)
+        if not torch.is_tensor(write_index):
+            write_index = int(write_index)
         for li in range(cfg.n_layers):
             x = self._block(
-                x, li, cos, sin, mask, cache, int(write_index), stacked_attention_fn
+                x, li, cos, sin, mask, cache, write_index, stacked_attention_fn
             )
         if last_only:
             x = x[:, -1:, :]
@@ -206,17 +212,14 @@ class LlamaModel(nn.Module):
         kt = k.transpose(1, 2)  # [B, KV, S, hd] — cache-native
         vt = v.transpose(1, 2)
         # written in place; the JAX package returns an updated cache instead
-        span = slice(write_index, write_index + S)
         if is_quantized_cache(cache):
             k8, ks = quantize_kv(kt)
             v8, vs = quantize_kv(vt)
-            cache["k"][li, :, :, span] = k8
-            cache["v"][li, :, :, span] = v8
-            cache["ks"][li, :, :, span] = ks
-            cache["vs"][li, :, :, span] = vs
+            for name, val in (("k", k8), ("v", v8), ("ks", ks), ("vs", vs)):
+                cache_write(cache[name][li], val, write_index)
         else:
-            cache["k"][li, :, :, span] = kt
-            cache["v"][li, :, :, span] = vt
+            cache_write(cache["k"][li], kt, write_index)
+            cache_write(cache["v"][li], vt, write_index)
 
         if stacked_fn is not None:
             attn = stacked_fn(q, cache, li)
@@ -282,6 +285,28 @@ def init_kv_cache(
         "ks": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
         "vs": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
     }
+
+
+def cache_write(buf: torch.Tensor, val: torch.Tensor, write_index) -> None:
+    """Write one layer's new K/V (or scales) into its cache IN PLACE.
+
+    ``buf`` [B, KV, C(, hd)], ``val`` [B, KV, S(, hd)]. ``write_index`` is
+    the slot of val's first token: an int shared by every row, or a [B]
+    tensor with one slot per row. A per-row start is clamped to [0, C - S],
+    as the JAX package's ``dynamic_update_slice`` clamps it: a finished row
+    of the slot segment parks at t = max_new and writes at C, which lands
+    on C - 1 instead of past the cache (on the card an out-of-bounds index
+    is a device-side assert). Clamping never moves a live row's write."""
+    S = val.shape[2]
+    if not torch.is_tensor(write_index):
+        buf[:, :, write_index : write_index + S] = val
+        return
+    B, C = buf.shape[0], buf.shape[2]
+    start = write_index.long().clamp(0, C - S)
+    slots = start[:, None] + torch.arange(S, device=buf.device)[None, :]   # [B, S]
+    rows = torch.arange(B, device=buf.device)[:, None].expand(B, S)
+    # advanced indices on dims 0 and 2: the indexed view is [B, S, KV(, hd)]
+    buf[rows, :, slots] = val.transpose(1, 2)
 
 
 def is_quantized_cache(cache: dict) -> bool:
@@ -411,3 +436,23 @@ def prefill_positions(pad_lens: torch.Tensor, seq_len: int) -> torch.Tensor:
     """RoPE positions for left-padded prompts: max(0, i - pad). [B, S]."""
     i = torch.arange(seq_len, device=pad_lens.device)[None, :]
     return torch.clamp(i - pad_lens.long()[:, None], min=0)
+
+
+def verify_attention_mask(
+    pad_lens: torch.Tensor, fills: torch.Tensor, num_q: int, cache_len: int
+):
+    """Speculative verify step: ``num_q`` query tokens per row sit at
+    per-row cache slots fills_b .. fills_b + num_q - 1; query i attends j
+    iff pad_b <= j <= fills_b + i. [B, num_q, C]."""
+    j = torch.arange(cache_len, device=pad_lens.device)[None, None, :]
+    pad = pad_lens.long()[:, None, None]
+    limit = (fills.long()[:, None] + torch.arange(num_q, device=fills.device)[None, :])
+    return (j >= pad) & (j <= limit[:, :, None])
+
+
+def verify_positions(
+    pad_lens: torch.Tensor, fills: torch.Tensor, num_q: int
+) -> torch.Tensor:
+    """RoPE positions of the verify queries: (fills_b - pad_b) + i. [B, num_q]."""
+    base = fills.long() - pad_lens.long()
+    return base[:, None] + torch.arange(num_q, device=fills.device)[None, :]

@@ -45,14 +45,37 @@ class _BatchCounter:
         self.max_new_tokens = max_new_tokens
         self.calls_by_owner: dict[int, int] = {}
 
-    def __call__(self, prompts: list[str], owners: list[int]) -> list[str]:
+    def __call__(
+        self,
+        prompts: list[str],
+        owners: list[int],
+        references: list[str | None] | None = None,
+        cache_hints: list[str | None] | None = None,
+    ) -> list[str]:
+        """``references`` optionally aligns one source text per prompt: the
+        seam reference-guided speculative decoding rides (strategies pass
+        the text being summarized). ``cache_hints`` aligns one
+        expected-to-recur prompt PREFIX per prompt: the prefix KV cache's
+        seam (strategies pass their template header). Backends without
+        either feature ignore them."""
         if not prompts:
             return []
         if len(owners) != len(prompts):
             raise ValueError("owners must tag every prompt")
+        if references is not None and len(references) != len(prompts):
+            raise ValueError("references must align with prompts")
+        if cache_hints is not None and len(cache_hints) != len(prompts):
+            raise ValueError("cache_hints must align with prompts")
         for o in owners:
             self.calls_by_owner[o] = self.calls_by_owner.get(o, 0) + 1
-        return self.backend.generate(prompts, max_new_tokens=self.max_new_tokens)
+        # keep the plain call shape for backends (and test doubles) without
+        # the advisory keywords: pass each only when it carries data
+        kw = {}
+        if references is not None and any(references):
+            kw["references"] = references
+        if cache_hints is not None and any(cache_hints):
+            kw["cache_hints"] = cache_hints
+        return self.backend.generate(prompts, max_new_tokens=self.max_new_tokens, **kw)
 
 
 def split_by_token_budget(

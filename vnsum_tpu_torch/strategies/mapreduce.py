@@ -16,7 +16,7 @@ from ..backend.base import Backend
 from ..text.splitter import RecursiveTokenSplitter
 from ..text.tokenizer import whitespace_token_count
 from .base import StrategyResult, _BatchCounter, register_strategy, split_by_token_budget
-from .prompts import MAPREDUCE_MAP, MAPREDUCE_REDUCE
+from .prompts import MAPREDUCE_MAP, MAPREDUCE_REDUCE, template_header
 
 
 @register_strategy
@@ -67,15 +67,22 @@ class MapReduceStrategy:
             StrategyResult(summary="", num_chunks=len(c)) for c in chunks_per_doc
         ]
 
-        # map: every chunk of every document in one batch
+        # map: every chunk of every document in one batch. The chunk rides
+        # along as the speculation reference (a map summary largely re-emits
+        # its chunk) and the template header as the cache hint
         flat = [
-            (di, self.map_prompt.format(content=c))
+            (di, self.map_prompt.format(content=c), c)
             for di, chunks in enumerate(chunks_per_doc)
             for c in chunks
         ]
-        outs = gen([p for _, p in flat], owners=[di for di, _ in flat])
+        outs = gen(
+            [p for _, p, _ in flat],
+            owners=[di for di, _, _ in flat],
+            references=[c for _, _, c in flat],
+            cache_hints=[template_header(self.map_prompt)] * len(flat),
+        )
         summaries: list[list[str]] = [[] for _ in docs]
-        for (di, _), out in zip(flat, outs):
+        for (di, _, _), out in zip(flat, outs):
             summaries[di].append(out)
 
         # collapse + final rounds, merged: a document whose summaries already
@@ -101,9 +108,12 @@ class MapReduceStrategy:
                 over = []
             batch: list[tuple[str, int, int]] = []
             prompts: list[str] = []
+            refs: list[str] = []
             for di in ready:
                 batch.append(("final", di, 0))
                 prompts.append(self._reduce_one(summaries[di]))
+                # reduce output re-emits spans of the summaries it merges
+                refs.append("\n\n".join(summaries[di]))
             grouped: dict[int, list[list[str]]] = {}
             for di in over:
                 groups = split_by_token_budget(summaries[di], self.token_max, self.count)
@@ -111,9 +121,13 @@ class MapReduceStrategy:
                 for gi, g in enumerate(groups):
                     batch.append(("collapse", di, gi))
                     prompts.append(self._reduce_one(g))
+                    refs.append("\n\n".join(g))
             if not prompts:
                 break
-            outs = gen(prompts, owners=[di for _, di, _ in batch])
+            outs = gen(
+                prompts, owners=[di for _, di, _ in batch], references=refs,
+                cache_hints=[template_header(self.reduce_prompt)] * len(prompts),
+            )
             for di in over:
                 summaries[di] = [None] * len(grouped[di])  # type: ignore[list-item]
             for (kind, di, gi), out in zip(batch, outs):

@@ -5,6 +5,14 @@ strategies' templates come with their ports).
 Templates are plain ``str.format`` strings; no prompt-framework layer.
 """
 
+
+def template_header(template: str) -> str:
+    """The literal prefix of ``template`` before its first ``{placeholder}``
+    — by construction a string prefix of every prompt formatted from it."""
+    i = template.find("{")
+    return template[:i] if i >= 0 else template
+
+
 # map prompt — runners/run_summarization_ollama_mapreduce.py:80-85
 MAPREDUCE_MAP = """Bạn là một chuyên gia tóm tắt nội dung.
 Vui lòng viết một bản tóm tắt chi tiết cho đoạn văn bản sau bằng **tiếng Việt**.
