@@ -18,12 +18,18 @@ Phases, each raising on failure (so any failure exits non-zero):
    C=4096+128+9, ragged fills on both sides of a split boundary, a row
    parked at the budget, a row whose pad hides every key from its first
    queries, a window) and at the slot segment's (B=8, Sq=1, C=4224, a
-   fill per row, a free row and a row parked at limit C); and the last
-   layer of a long-bucket cache, whose offsets pass 2^31;
+   fill per row, a free row and a row parked at limit C); the last layer
+   of a long-bucket cache, whose offsets pass 2^31; and the decode
+   partials (K2p) at the long path's shape (B=2, C=32768, fill C-1, bf16
+   and int8, layers 0 and 27 of 28, pads 0 and 12000 and a row whose pad
+   is C, which must come out exactly m = -1e30, l = 0, o = 0), with o, m
+   and l each held to its own limit and o / l to K2's output;
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
-   with one cache slot per split or tile left out, must fail every case of
-   that kernel in phase 3, so the limits are shown to be tight enough to
-   see such a fault;
+   with one cache slot per split or tile left out (K2p: the merge of the
+   splits leaves out the last one), must fail every case of that kernel in
+   phase 3, so the limits are shown to be tight enough to see such a
+   fault. K2 and K2p are the two modes of one source and share both its
+   passes, so a fault there may fail both: the two count as one family;
 5. timing at the main path's shapes (Llama-3.2-3B: L=28, H=24, KV=8,
    hd=128; prefill B=8 S=4096 C=4224, decode B=8 C=4224 fill=4200; verify
    B=8 Sq=9 C=4233 and B=8 Sq=1 C=4224): the kernel, the bound (bytes over
@@ -31,8 +37,12 @@ Phases, each raising on failure (so any failure exits non-zero):
    inputs), the plain version, and one PyTorch library call computing the
    same function (scaled_dot_product_attention with an explicit mask on a
    bf16 cache; timed here only, never used by the port); one output of
-   each is held against the other as in phase 3; and the prefill kernel
-   alone at the pipeline's default long bucket (S=15360, C=16384);
+   each is held against the other as in phase 3; the prefill kernel
+   alone at the pipeline's default long bucket (S=15360, C=16384); and K2p
+   at the long path's shape (B=2, C=32768, bf16 and int8), whose library
+   call is scaled_dot_product_attention on the same cache expanded to 24
+   heads, computing the normalised output (no public torch call returns
+   the partials);
 6. pipeline: the port's CLI runs map-reduce over data/vi_eval with
    Llama-3.2-3B at full width and depth (random bf16 weights from a seed):
    every document must succeed, every summary be written, ROUGE be
@@ -48,10 +58,20 @@ Phases, each raising on failure (so any failure exits non-zero):
    prompt_tokens=4096, max_new_tokens=128, segment_tokens=32) fed the 7 map
    prompts in two waves and drained, at fused_segments 1 and 4: every
    request completes and verify launches = 28 x the decode steps run;
-9. profile: one prefill forward and one decode step at the map batch's
-   shape, with their wall time, the device's busy time (torch.profiler),
-   the card's clock and power draw while they run, and the kernels that
-   take most of the time.
+9. long context (path c): PipelineRunner(approach="truncated",
+   max_context=32768, max_new_tokens=128, batch_size=2) with a factory
+   that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
+   width and depth, random bf16 weights from seed 0, byte tokenizer,
+   max_total_tokens = max_context + 1024) over two documents built from
+   data/vi_eval (~30,000 and ~20,000 bytes, past the one-card ceiling of
+   16,384 tokens): 2/2 documents, ROUGE, K1 launches = 28 per prefill
+   forward, K2p launches = 28 x decode steps, K2 and K3 not launched; then
+   the same with an int8 prefill cache; then, not gated, the one-card
+   engine with max_seq_len 40960 on the same weights and prompts;
+10. profile: one prefill forward and one decode step at the map batch's
+   shape and one long decode step at path (c)'s, with their wall time,
+   the device's busy time (torch.profiler), the card's clock and power
+   draw while they run, and the kernels that take most of the time.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after; a kernel of the path that was not launched fails it. The
@@ -89,13 +109,30 @@ PEAK_BYTES = 3.35e12
 #   up to 2^-9, which move an output by a few 2^-9 of its row's scale, on
 #   top of the final cast's 2^-7: per (query, head) row, 2e-2 times the
 #   largest |plain| of its hd elements, so a row that sees no key must be 0.
+# decode partials (K2p, f32 out, no final cast): the two versions differ by
+#   summation order only. m is a max of 128-term f32 dot products, ~1e-6
+#   off: 1e-4 + 1e-5 |m|. l sums up to C exponentials, each off by the
+#   score error and the order of the sum, ~1e-6 relative: 1e-4 l. Each
+#   element of o sums p v over the same slots, so its error is that of l
+#   times max |v|: 1e-5 + 1e-4 l max|v|. o / max(l, 1e-30) is held to K2's
+#   output on the same cache at K2's limit. A row that sees no key must be
+#   exactly m = -1e30, l = 0, o = 0.
 DECODE_ATOL, DECODE_RTOL = 1e-4, 2.0**-7
 PREFILL_ROW_RTOL = 2e-2
+PARTIALS_M_ATOL, PARTIALS_M_RTOL = 1e-4, 1e-5
+PARTIALS_L_RTOL = 1e-4
+PARTIALS_O_ATOL, PARTIALS_O_RTOL = 1e-5, 1e-4
 
-# phase 4's planted faults: (what it does, kernel, source, text, replacement)
+# phase 4's planted faults: (what it does, kernel, source, text, replacement).
+# A fault must fail every case of its kernel and no case outside its
+# kernel's family (FAMILY): K2 and K2p share both passes of flash_decode.cu.
 MUTANTS = (
     ("decode leaves out the last slot of every 512-slot split", "decode", "flash_decode.cu",
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
+    ("the merge of the splits leaves out the last split's l and o", "partials",
+     "flash_decode.cu",
+     "    float l = 0.f, o = 0.f;\n    for (int s = 0; s < n_split; ++s) {",
+     "    float l = 0.f, o = 0.f;\n    for (int s = 0; s < n_split - 1; ++s) {"),
     ("prefill leaves out the last slot of every unmasked 64-slot tile", "prefill",
      "flash_prefill.cu",
      "      l_run[i] += p;\n",
@@ -104,6 +141,7 @@ MUTANTS = (
     ("verify leaves out the last slot of every 512-slot split", "verify", "flash_verify.cu",
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
 )
+FAMILY = {"decode": ("decode", "partials"), "partials": ("decode", "partials")}
 
 KERNELS = {
     "prefill": {
@@ -123,6 +161,13 @@ KERNELS = {
         "route": "cuda",
         "source": "vnsum_tpu_torch/ops/csrc/flash_verify.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:510",
+    },
+    # the same pallas_call in its return_partials=True mode
+    "partials": {
+        "name": "flash_decode_partials",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
+        "replaces": "vnsum_tpu/ops/decode_attention.py:381",
     },
 }
 
@@ -233,6 +278,36 @@ def compare(torch, name, case, got, want, worst) -> None:
         + (" OVER THE LIMIT" if bad else ""))
 
 
+def compare_partials(torch, case, got, want, k2_out, vmax, worst) -> None:
+    """Holds K2p's (o, m, l) against its plain version's, each at its own
+    limit, and o / max(l, 1e-30) against K2's output on the same cache at
+    K2's limit; logs one line for the case with the largest err/limit of
+    the four. ``vmax`` is the largest |v| of the layer."""
+    torch.cuda.synchronize()
+    (o, m, l), (wo, wm, wl) = got, want
+    lw = wl[..., None]
+    k2 = k2_out[:, 0].float()
+    parts = {
+        "o": ((o - wo).abs(), PARTIALS_O_ATOL + PARTIALS_O_RTOL * lw * vmax),
+        "m": ((m - wm).abs(), PARTIALS_M_ATOL + PARTIALS_M_RTOL * wm.abs()),
+        "l": ((l - wl).abs(), PARTIALS_L_RTOL * wl),
+        "o/l vs K2": ((o / l.clamp_min(1e-30)[..., None] - k2).abs(),
+                      DECODE_ATOL + DECODE_RTOL * k2.abs()),
+    }
+    bad = not all(bool(torch.isfinite(t).all()) for t in got)
+    used, errs = 0.0, []
+    for name, (diff, limit) in parts.items():
+        bad = bad or bool((diff > limit).any())
+        used = max(used, float((diff / limit.clamp_min(1e-30)).max()))
+        errs.append(f"{name} {float(diff.max()):.3e}")
+    worst["partials"] = max(worst["partials"], float(parts["o"][0].max()),
+                            float(parts["m"][0].max()), float(parts["l"][0].max()))
+    if bad:
+        FAILED.append(case)
+    log(f"[check] {case}: max|err| " + ", ".join(errs) + f"; err/limit {used:.4g}"
+        + (" OVER THE LIMIT" if bad else ""))
+
+
 def raise_if_failed() -> None:
     if FAILED:
         raise AssertionError(
@@ -254,7 +329,7 @@ def phase_correctness(torch) -> dict:
     dev = torch.device("cuda")
     KV, G, hd = 8, 3, 128
     H = KV * G
-    worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0}
+    worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0, "partials": 0.0}
 
     def pads_of(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
@@ -378,8 +453,71 @@ def phase_correctness(torch) -> dict:
            [64 * i for i in range(B)], [C - 9 - 100 * i for i in range(B)])
     del cache
     torch.cuda.empty_cache()
+
+    partials_cases(torch, worst)
     raise_if_failed()
     return worst
+
+
+def partials_cases(torch, worst, dev="cuda") -> None:
+    """K2p at the long path's shape: the one-rank prefill cache of two rows
+    at S=32768, read whole (fill = C - 1), layers 0 and 27 of 28; pads 0
+    and 12000, and a row whose pad is C (it sees no key: exactly inert)."""
+    from vnsum_tpu_torch.ops import decode_attention as da
+
+    L, B, KV, G, hd, C = 28, 2, 8, 3, 128, 32768
+    H = KV * G
+    for quantized in (False, True):
+        cache = long_cache(torch, L, B, KV, C, hd, quantized, (0, L - 1), 60 + quantized, dev)
+        for layer, pads_h in ((0, [0, 12000]), (L - 1, [12000, C]), (0, [C, 0]),
+                              (L - 1, [0, 12000])):
+            q = rand_q(torch, (B, 1, H, hd), 61 + layer + pads_h[1], dev)
+            pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
+            got = da.flash_decode_partials(q, cache, layer, pads, C - 1, G)
+            want = da.flash_decode_partials_ref(q, cache, layer, pads, C - 1, G)
+            k2 = da.flash_decode_attention(q, cache, layer, pads, C - 1, G)
+            vmax = float(cache_v_amax(cache, layer))
+            case = f"partials int8={quantized} B={B} C={C} fill={C - 1} pads={pads_h} layer={layer}"
+            compare_partials(torch, case, got, want, k2, vmax, worst)
+            for row, pad in enumerate(pads_h):
+                o, m, l = (t[row] for t in got)
+                if pad >= C and not (bool((m == -1e30).all()) and not l.any() and not o.any()):
+                    FAILED.append(f"{case}: row {row} sees no key and must come out "
+                                  "exactly m = -1e30, l = 0, o = 0")
+        del cache
+        torch.cuda.empty_cache()
+
+
+def long_cache(torch, L, B, KV, C, hd, quantized, layers, seed, dev):
+    """A stacked [L, B, KV, C, hd] cache, zero but for random ``layers``
+    (bf16, or int8 with f32 scales): the long path's shape without drawing
+    every layer."""
+    from vnsum_tpu_torch.models.llama import quantize_kv
+
+    shape = (L, B, KV, C, hd)
+    dtype = torch.int8 if quantized else torch.bfloat16
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if quantized:
+        cache["ks"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        cache["vs"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+    for i, li in enumerate(layers):
+        for name in ("k", "v"):
+            vals = rand_q(torch, shape[1:], seed + 7 * i + len(name), dev)
+            if quantized:
+                cache[name][li], cache[name + "s"][li] = quantize_kv(vals)
+            else:
+                cache[name][li] = vals
+            del vals
+    return cache
+
+
+def cache_v_amax(cache, layer):
+    """The largest |v| of a cache layer, dequantized."""
+    v = cache["v"][layer]
+    if "vs" not in cache:
+        return v.abs().amax().float()
+    return (v.abs().amax(dim=-1).float() * cache["vs"][layer]).amax()
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -388,9 +526,10 @@ def phase_correctness(torch) -> dict:
 def phase_mutants() -> None:
     """Each planted fault of MUTANTS, built into a temporary copy of the
     package, must fail every case of its kernel in phase 3 there and leave
-    the other kernels' cases passing: the limits see a kernel that leaves
-    out one cache slot in 512 (decode, verify) or one in 64 away from the
-    causal diagonal (prefill). The copies build and run in parallel."""
+    the cases of kernels outside its family passing: the limits see a
+    kernel that leaves out one cache slot in 512 (decode, verify), one in
+    64 away from the causal diagonal (prefill) or the last 512-slot split
+    of 64 (decode partials). The copies build and run in parallel."""
     with tempfile.TemporaryDirectory() as root:
         procs = []
         for i, (what, kernel, source, text, replacement) in enumerate(MUTANTS):
@@ -416,15 +555,18 @@ def phase_mutants() -> None:
             log(f"[mutant] {what}: {line}")
         mine = [ln for ln in checks if ln.startswith(kernel + " ")]
         caught = [ln for ln in mine if ln.endswith("OVER THE LIMIT")]
-        others = [ln for ln in checks if not ln.startswith(kernel + " ")
+        family = FAMILY.get(kernel, (kernel,))
+        others = [ln for ln in checks if ln.split(" ", 1)[0] not in family
                   and ln.endswith("OVER THE LIMIT")]
         if rc == 0 or not mine or len(caught) != len(mine) or others:
             raise AssertionError(
                 f"planted fault '{what}' was not caught in every {kernel} case and only "
                 f"there (exit {rc}, {len(caught)} of {len(mine)} caught, {len(others)} "
                 f"other cases over):\n" + (out + err)[-4000:])
+        in_family = sum(ln.split(" ", 1)[0] in family for ln in checks) - len(mine)
         log(f"[mutant] {what}: over the limit in all {len(mine)} {kernel} cases and in "
-            f"none of the other {len(checks) - len(mine)}, as it must be")
+            f"none of the {len(checks) - len(mine) - in_family} outside its family "
+            f"{'/'.join(family)}, as it must be")
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -549,17 +691,75 @@ def phase_timing(torch, worst) -> dict:
         f"{flops / ms / 1e9:.1f} TFLOP/s of causal work")
     del cache, q
     torch.cuda.empty_cache()
+
+    # K2p at the long path's shape, bf16 (the kernels line) and int8
+    for quantized in (False, True):
+        rec = time_partials(torch, worst, quantized)
+        if not quantized:
+            out["partials"] = rec
+        log(f"[time] partials int8={quantized} B=2 C=32768: kernel {rec['ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, "
+            f"library {rec['library_ms']:.4f} ms (normalised output)")
+    raise_if_failed()
     return out
 
 
+def time_partials(torch, worst, quantized: bool) -> dict:
+    """K2p, its plain version and the library call at the long path's
+    decode: B=2, the whole one-rank prefill cache of C=32768 slots read
+    (fill = C - 1), pads 0 and 12000. The library call computes the
+    normalised output from a bf16 copy of the cache expanded to 24 heads.
+    The bound counts each row's visible K/V slots (and int8 scales) read
+    once, q read and (o, m, l) written once, and 4 hd FLOP (f32) per
+    visible (query head, slot) pair. One output is held against the plain
+    version's as in phase 3."""
+    from vnsum_tpu_torch.ops import decode_attention as da
+
+    dev = torch.device("cuda")
+    L, B, KV, G, hd, C = 4, 2, 8, 3, 128, 32768
+    H = KV * G
+    cache = long_cache(torch, L, B, KV, C, hd, quantized, range(L), 70 + quantized, dev)
+    pads_h = [0, 12000]
+    pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
+    q = rand_q(torch, (B, 1, H, hd), 71, dev)
+    visible = sum(C - p for p in pads_h)
+    elem = 1 if quantized else 2
+    flops = 4 * hd * H * visible
+    bytes_ = (q.numel() * 2 + 2 * visible * KV * (hd * elem + (4 if quantized else 0))
+              + B * H * (hd + 2) * 4)
+    ms = time_ms(torch, lambda i: da.flash_decode_partials(q, cache, i % L, pads, C - 1, G),
+                 n=4 * L)
+    plain = time_ms(torch, lambda i: da.flash_decode_partials_ref(
+        q, cache, i % L, pads, C - 1, G), n=L)
+    k_lib, v_lib = library_kv(torch, cache, L, G)
+    kpos = torch.arange(C, device=dev)
+    mask = (kpos >= pads.long()[:, None])[:, None, None, :]
+    qt = q.transpose(1, 2)
+    library = time_ms(torch, lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qt, k_lib[i % L], v_lib[i % L], attn_mask=mask), n=4 * L)
+    layer = L - 1
+    compare_partials(
+        torch, f"partials int8={quantized} B={B} C={C} pads={pads_h} layer={layer} "
+        "(timing inputs)", da.flash_decode_partials(q, cache, layer, pads, C - 1, G),
+        da.flash_decode_partials_ref(q, cache, layer, pads, C - 1, G),
+        da.flash_decode_attention(q, cache, layer, pads, C - 1, G),
+        float(cache_v_amax(cache, layer)), worst)
+    del cache, k_lib, v_lib
+    torch.cuda.empty_cache()
+    return timing_record(ms, plain, library, flops, bytes_, PEAK_FP32_FLOPS)
+
+
 def library_kv(torch, cache, layers: int, G: int):
-    """bf16 K/V of the first ``layers`` layers of an int8 cache, expanded to
-    the query heads, for the library call."""
-    k = [(cache["k"][li].float() * cache["ks"][li][..., None]).to(torch.bfloat16)
-         .repeat_interleave(G, dim=1) for li in range(layers)]
-    v = [(cache["v"][li].float() * cache["vs"][li][..., None]).to(torch.bfloat16)
-         .repeat_interleave(G, dim=1) for li in range(layers)]
-    return k, v
+    """bf16 K/V of the first ``layers`` layers of a cache (an int8 one
+    dequantized), expanded to the query heads, for the library call."""
+    def layer(name, li):
+        x = cache[name][li]
+        if name + "s" in cache:
+            x = (x.float() * cache[name + "s"][li][..., None]).to(torch.bfloat16)
+        return x.repeat_interleave(G, dim=1)
+
+    return ([layer("k", li) for li in range(layers)],
+            [layer("v", li) for li in range(layers)])
 
 
 def time_verify(torch, worst, cache, k_lib, v_lib, pads_h, fills_h, Sq, seed) -> dict:
@@ -626,13 +826,14 @@ def reset_launches() -> None:
     from vnsum_tpu_torch.ops import decode_attention, flash_attention, verify_attention
 
     flash_attention.launches = decode_attention.launches = verify_attention.launches = 0
+    decode_attention.partials_launches = 0
 
 
 def read_launches() -> dict:
     from vnsum_tpu_torch.ops import decode_attention, flash_attention, verify_attention
 
     return {"prefill": flash_attention.launches, "decode": decode_attention.launches,
-            "verify": verify_attention.launches}
+            "verify": verify_attention.launches, "partials": decode_attention.partials_launches}
 
 
 def check_launches(path: str, launches: dict, need: dict) -> None:
@@ -645,13 +846,13 @@ def check_launches(path: str, launches: dict, need: dict) -> None:
     log(f"[launches] {path}: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
 
 
-def check_run(res: dict, docs, gen_dir: Path) -> tuple[dict, dict]:
+def check_run(res: dict, docs, gen_dir: Path, approach: str = "mapreduce") -> tuple[dict, dict]:
     """A pipeline run's record: every document ok, every summary written,
     ROUGE computed. Returns (record, {doc name: summary})."""
     rec = res["summarization"]["llama3.2:3b"]
     if rec["successful"] != len(docs) or rec["failed"] != 0:
         raise AssertionError(f"documents: {rec['successful']} ok, {rec['failed']} failed")
-    out_dir = Path(f"{gen_dir}_mapreduce_llama3_2_3b")
+    out_dir = Path(f"{gen_dir}_{approach}_llama3_2_3b")
     written = sorted(p.name for p in out_dir.glob("*.txt"))
     if written != [d.name for d in docs]:
         raise AssertionError(f"summaries written: {written}")
@@ -809,7 +1010,7 @@ def phase_slot_loop(torch, backend, prompts: list, oneshot: list) -> dict:
     n_layers = backend.cfg.n_layers
     b = TorchBackend(model=backend.model, batch_size=8, max_new_tokens=128,
                      segment_tokens=32, device="cuda")
-    total = {"prefill": 0, "decode": 0, "verify": 0}
+    total = {"prefill": 0, "decode": 0, "verify": 0, "partials": 0}
     texts = {}
     for fused in (1, 4):
         reset_launches()
@@ -857,17 +1058,165 @@ def phase_slot_loop(torch, backend, prompts: list, oneshot: list) -> dict:
 
 # -- phase 9 ------------------------------------------------------------------
 
+ONE_CARD_CEILING = 16384  # Llama-3.2-3B's max_seq_len: the one-card engine's cut
+
+
+def long_corpus(root: Path) -> list:
+    """Two documents past the one-card ceiling, built from data/vi_eval:
+    the seven documents concatenated and repeated to ~30,000 bytes, and in
+    the reverse order to ~20,000 bytes; each one's reference is the
+    concatenated summaries. Returns the document paths."""
+    src = ROOT / "data/vi_eval"
+    names = sorted(p.name for p in (src / "doc").glob("*.txt"))
+    (root / "doc").mkdir(parents=True)
+    (root / "summary").mkdir()
+    docs = []
+    for name, order, size in (("dai_30k.txt", names, 30000),
+                              ("dai_20k.txt", names[::-1], 20000)):
+        one = "\n\n".join((src / "doc" / n).read_text(encoding="utf-8").strip() for n in order)
+        text = one
+        while len(text.encode()) < size:
+            text += "\n\n" + one
+        text = text.encode()[:size].decode("utf-8", "ignore")
+        ref = "\n".join((src / "summary" / n).read_text(encoding="utf-8").strip() for n in order)
+        (root / "doc" / name).write_text(text, encoding="utf-8")
+        (root / "summary" / name).write_text(ref, encoding="utf-8")
+        docs.append(root / "doc" / name)
+    return sorted(docs)
+
+
+def phase_long_context(torch) -> dict:
+    """Path (c): the truncated strategy through PipelineRunner over two
+    documents past the one-card ceiling, on TorchLongContextBackend (one
+    rank), with a bf16 and then an int8 prefill cache; then the one-card
+    engine on the same weights and prompts as a control (not gated).
+    Returns the launches of the two gated runs."""
+    import dataclasses
+
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.backend.long_context import TorchLongContextBackend
+    from vnsum_tpu_torch.core.config import PipelineConfig
+    from vnsum_tpu_torch.models.llama import LlamaModel, init_model, llama32_3b
+    from vnsum_tpu_torch.parallel import SeqGroup
+    from vnsum_tpu_torch.pipeline.runner import PipelineRunner
+    from vnsum_tpu_torch.strategies import TruncatedStrategy
+    from vnsum_tpu_torch.strategies.prompts import TRUNCATED
+    from vnsum_tpu_torch.text import clean_thinking_tokens
+
+    cfg = llama32_3b()
+    n_layers = cfg.n_layers
+    max_context, max_new = 32768, 128
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    model = init_model(cfg, 0, dev)
+    total = {"prefill": 0, "decode": 0, "verify": 0, "partials": 0}
+    texts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        docs = long_corpus(Path(tmp) / "corpus")
+        for quantize_kv in (False, True):
+            backends = []
+
+            def factory(_):
+                backends.append(TorchLongContextBackend(
+                    model=model, group=SeqGroup(), tokenizer="byte", batch_size=2,
+                    max_new_tokens=max_new, max_total_tokens=max_context + 1024,
+                    quantize_kv=quantize_kv, decode_kernel=True, device="cuda"))
+                return backends[-1]
+
+            run_dir = Path(tmp) / f"int8={quantize_kv}"
+            pcfg = PipelineConfig(
+                approach="truncated", models=["llama3.2:3b"], max_context=max_context,
+                max_new_tokens=max_new, batch_size=2,
+                docs_dir=str(Path(tmp) / "corpus/doc"),
+                summary_dir=str(Path(tmp) / "corpus/summary"),
+                generated_summaries_dir=str(run_dir / "gen"),
+                results_dir=str(run_dir / "results"), logs_dir=str(run_dir / "logs"),
+            )
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            runner = PipelineRunner(pcfg, backend_factory=factory, device="cuda")
+            res = runner.run()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if runner.failures:
+                raise AssertionError(f"long-context pipeline failures: {runner.failures}")
+            rec, summaries = check_run(
+                {"summarization": res.summarization, "evaluation": res.evaluation},
+                docs, run_dir / "gen", approach="truncated")
+            be = backends[0]
+            st = be.stats
+            # the prompts as the strategy built them: untruncated, each past
+            # the one-card ceiling
+            strategy = TruncatedStrategy(be, max_context=max_context, max_new_tokens=max_new)
+            prompts = [TRUNCATED.format(text=strategy._truncate(d.read_text(encoding="utf-8")))
+                       for d in docs]
+            lengths = [len(be.tok.encode(p_, add_bos=True)) for p_ in prompts]
+            if (sum(lengths) != st.prompt_tokens or min(lengths) <= ONE_CARD_CEILING
+                    or any(strategy._truncate(d.read_text(encoding="utf-8"))
+                           != d.read_text(encoding="utf-8") for d in docs)):
+                raise AssertionError(
+                    f"prompt lengths {lengths} (backend saw {st.prompt_tokens} tokens) must "
+                    f"each pass {ONE_CARD_CEILING}, untruncated")
+            path = f"long context int8={quantize_kv}"
+            if st.by_bucket != {(2, max_context): 1}:
+                raise AssertionError(f"{path}: batches {st.by_bucket}, expected one B=2 "
+                                     f"S={max_context} group")
+            need = {"prefill": n_layers * st.prefill_forwards, "decode": 0, "verify": 0,
+                    "partials": n_layers * st.decode_steps}
+            if st.decode_steps == 0 or launches != need:
+                raise AssertionError(f"{path}: launches {launches}, the path needs {need}")
+            log(f"[launches] {path}: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+            rouge = res.evaluation["llama3.2:3b"]["rouge_scores"]
+            log(f"[long] int8={quantize_kv}: {rec['successful']}/{len(docs)} docs ok, prompt "
+                f"tokens {lengths} (one-card ceiling {ONE_CARD_CEILING}), batches "
+                f"{st.to_dict()['by_bucket']}, wall {wall:.2f}s, prefill "
+                f"{st.phase_seconds.get('prefill', 0.0):.3f}s ({st.prefill_forwards} forward), "
+                f"decode {st.phase_seconds.get('decode', 0.0):.3f}s ({st.decode_steps} steps, "
+                f"{1e3 * st.phase_seconds.get('decode', 0.0) / st.decode_steps:.2f} ms a "
+                f"step), generated tokens {st.generated_tokens}, peak memory {peak_gb:.2f} GB")
+            log(f"[long] rouge {json.dumps(rouge)}")
+            texts[quantize_kv] = [summaries[d.name] for d in docs]
+            for k in total:
+                total[k] += launches[k]
+        log(f"[long] int8 prefill cache against bf16: {agreement(texts[True], texts[False])} "
+            "(not gated)")
+
+        # control: the one-card engine, its ceiling raised to 40960 on the
+        # same weights, bf16 cache, on the same prompts
+        big = LlamaModel(dataclasses.replace(cfg, max_seq_len=40960), {
+            "embed": model.embed.data, "final_norm": model.final_norm.data,
+            "layers": {n: p_.data for n, p_ in model.layers.items()}})
+        engine = TorchBackend(model=big, batch_size=2, max_new_tokens=max_new,
+                              quantize_kv=False, device="cuda")
+        t0 = time.perf_counter()
+        control = [clean_thinking_tokens(t) for t in engine.generate(prompts)]
+        wall = time.perf_counter() - t0
+        log(f"[long] control: one-card engine at max_seq_len 40960 (batches "
+            f"{engine.stats.to_dict()['by_bucket']}, wall {wall:.2f}s) against the long "
+            f"path's bf16 run: {agreement(control, texts[False])} (not gated: bf16 near-ties)")
+    del model, big, engine
+    torch.cuda.empty_cache()
+    return total
+
+
+# -- phase 10 -----------------------------------------------------------------
+
 
 def phase_profile(torch) -> None:
     """Where the main path's time goes, at the map batch's shape (B=8,
-    S=4096, 128 new tokens, int8 cache): for one prefill forward and one
-    decode step, the first call's time on a fresh model and cache, the
-    wall time after it (CUDA events), the device's busy time and
+    S=4096, 128 new tokens, int8 cache) for one prefill forward and one
+    decode step, and at path (c)'s (B=2, a bf16 prefill cache of 32768
+    slots, pads 0 and 12000, the decode cache at its 65th slot) for one
+    long decode step: the first call's time on a fresh model and cache,
+    the wall time after it (CUDA events), the device's busy time and
     kernel count (torch.profiler), the card's SM clock, power draw and
     clock-limit reasons (nvidia-smi) during a run, and the kernels that take
     most of the time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from vnsum_tpu_torch.backend.long_context import make_long_decode_attention
     from vnsum_tpu_torch.models.llama import (
         init_kv_cache,
         init_model,
@@ -900,8 +1249,31 @@ def phase_profile(torch) -> None:
               stacked_attention_fn=lambda q, c, li: flash_decode_attention(
                   q, c, li, pads, fill, G, 0))
 
+    long = {}
+
+    def long_setup():
+        C = 32768
+        long_pads = torch.tensor([0, 12000], dtype=torch.int32, device=dev)
+        prefill_cache = long_cache(torch, cfg.n_layers, 2, cfg.n_kv_heads, C, cfg.head_dim,
+                                   False, range(cfg.n_layers), 80, dev)
+        long["attention"] = make_long_decode_attention(prefill_cache, long_pads, G,
+                                                       decode_kernel=True)
+        long["cache"] = init_kv_cache(cfg, 2, 128, device=dev)
+        long["cur"] = tokens[:2, -1:]
+        long["pos"] = (C - long_pads.long())[:, None] + 64
+
+    def long_decode():
+        model(long["cur"], long["pos"], long["cache"], 64, None,
+              stacked_attention_fn=lambda q, c, li: long["attention"](q, c, li, 64))
+
     with torch.inference_mode():
-        for name, fn, n in (("prefill forward", prefill, 2), ("decode step", decode, 10)):
+        for name, fn, n in (("prefill forward", prefill, 2), ("decode step", decode, 10),
+                            ("long decode step", long_decode, 10)):
+            if fn is long_decode:
+                # the map batch's cache makes room for the long one
+                del cache
+                torch.cuda.empty_cache()
+                long_setup()
             # the first call on a fresh model and cache, as each pipeline
             # batch's first forward is: allocator growth, first GEMMs
             torch.cuda.synchronize()
@@ -939,7 +1311,7 @@ def phase_profile(torch) -> None:
                 f"{busy_txt}, {count} device ops; "
                 f"card (SM clock, power, limit reasons) {card}; top: "
                 + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
-    del model, cache
+    del model, long
     torch.cuda.empty_cache()
 
 
@@ -961,7 +1333,9 @@ def main() -> int:
     spec_launches, backend, prompts, oneshot = phase_spec_pipeline(torch, plain_summaries)
     slot_launches = phase_slot_loop(torch, backend, prompts, oneshot)
     del backend
-    launches = {k: launches[k] + spec_launches[k] + slot_launches[k] for k in launches}
+    long_launches = phase_long_context(torch)
+    launches = {k: launches[k] + spec_launches[k] + slot_launches[k] + long_launches[k]
+                for k in launches}
     phase_profile(torch)
     kernels = []
     for key, meta in KERNELS.items():

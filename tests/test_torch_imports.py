@@ -23,7 +23,9 @@ def test_sources_found():
     assert (ROOT / "vnsum_tpu_torch" / "ops" / "csrc" / "flash_verify.cu").is_file()
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert {"vnsum_tpu_torch/spec/drafter.py", "vnsum_tpu_torch/backend/inflight.py",
-            "vnsum_tpu_torch/ops/verify_attention.py"} <= names
+            "vnsum_tpu_torch/ops/verify_attention.py", "vnsum_tpu_torch/backend/long_context.py",
+            "vnsum_tpu_torch/parallel/seq.py", "vnsum_tpu_torch/parallel/ring.py",
+            "vnsum_tpu_torch/strategies/truncated.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,10 +1,11 @@
 """Typed configuration for the pipeline and strategies.
 
 Copy of ``vnsum_tpu/core/config.py`` cut to what the port runs today: the
-map-reduce approach on the one-card engine, with speculative decoding. Knob names and defaults are the
-JAX package's (themselves the reference's, run_full_evaluation_pipeline.py:
-973-1027); the knobs of approaches, meshes, long context and int8 weights
-return with the slices that port them.
+map-reduce and truncated approaches, with speculative decoding. Knob names
+and defaults are the JAX package's (themselves the reference's,
+run_full_evaluation_pipeline.py: 973-1027); the knobs of the other
+approaches, meshes, the long-context launch and int8 weights return with
+the slices that port them.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 
-APPROACHES: tuple[str, ...] = ("mapreduce",)
+APPROACHES: tuple[str, ...] = ("mapreduce", "truncated")
 
 
 @dataclass(frozen=True)
@@ -61,6 +62,9 @@ class PipelineConfig:
     chunk_overlap: int = 200
     token_max: int = 10000
 
+    # truncated: the context the document is cut to, max_new_tokens included
+    max_context: int = 16384
+
     # failure containment: re-submit a failed document batch this many extra
     # times before recording its documents as failed. Device errors are
     # never retried (core/faults.py)
@@ -95,4 +99,6 @@ def approach_defaults(approach: str) -> dict:
     993-1027)."""
     if approach == "mapreduce":
         return {"chunk_size": 12000, "chunk_overlap": 200, "token_max": 10000}
+    if approach == "truncated":
+        return {"max_context": 16384}
     raise ValueError(f"unknown approach: {approach}")

@@ -1,10 +1,12 @@
 // Flash decode attention over the stacked KV cache, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel vnsum_tpu/ops/decode_attention.py
-// (`_kernel`, reached through `flash_decode_attention` with
-// return_partials=False). Same function: one query token per batch row
-// attends layer `layer` of the stacked cache [L, B, KV, C, hd]; the batch
-// shares one scalar `fill`, the last valid slot, and the mask is
+// (`_kernel`, reached through `flash_decode_attention`) in both of its
+// modes: return_partials=False (K2, `vnsum_flash_decode`) and
+// return_partials=True (K2p, `vnsum_flash_decode_partials`). Same function:
+// one query token per batch row attends layer `layer` of the stacked cache
+// [L, B, KV, C, hd]; the batch shares one scalar `fill`, the last valid
+// slot, and the mask is
 //   pad_b <= k <= fill   and   (window == 0 or k > fill - window).
 // All arithmetic is f32. An int8 cache multiplies the scores by ks[k] and,
 // after l has summed the unscaled p, multiplies p by vs[k] before PV.
@@ -23,9 +25,15 @@
 // owns one of the 128 head dims for PV. It writes the unnormalised state
 // (m, l, o), the state the TPU kernel's return_partials mode defines; a
 // split that sees no slot writes m = -1e30, l = 0, o = 0. Pass 2 merges a
-// pair's splits with the log-sum-exp algebra and divides by max(l, 1e-30),
-// so a row that sees no key comes out as 0. Offsets into the cache are
-// 64-bit. Not yet done: cp.async/TMA pipelining of the tiles.
+// pair's splits with the log-sum-exp algebra. K2 then divides by
+// max(l, 1e-30), so a row that sees no key comes out as 0. K2p writes the
+// merged state (o [B, H, hd], m, l [B, H], f32) without dividing: the
+// long-context decode merges it again across the ranks of its sequence
+// group and with the decode cache. A row that sees no key (a shard wholly
+// inside its left pad) comes out exactly m = -1e30, l = 0, o = 0, inert in
+// those merges: every split is inert and exp(m_s - m) = 1 multiplies zeros.
+// Offsets into the cache are 64-bit. Not yet done: cp.async/TMA pipelining
+// of the tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,11 +257,15 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
   }
 }
 
-// pass 2: one block per (KV head, row); thread t owns head dim t
+// pass 2: one block per (KV head, row); thread t owns head dim t. K2
+// (PARTIALS false) writes o / max(l, 1e-30) as bf16 into `out`; K2p writes
+// the unnormalised f32 state into `out` (o), `m_out` and `l_out`.
+template <bool PARTIALS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restrict__ m_part,
-                          const float *__restrict__ l_part, __nv_bfloat16 *__restrict__ out,
-                          int H, int KV, int n_split) {
+                          const float *__restrict__ l_part, void *__restrict__ out,
+                          float *__restrict__ m_out, float *__restrict__ l_out, int H, int KV,
+                          int n_split) {
   const int kv = blockIdx.x;
   const int b = blockIdx.y;
   const int G = H / KV;
@@ -268,45 +280,43 @@ flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restr
       l += l_part[(pair + s) * G + g] * f;
       o += o_part[((pair + s) * G + g) * HD + t] * f;
     }
-    const size_t q_off = (static_cast<size_t>(b) * H + static_cast<size_t>(kv) * G + g) * HD;
-    out[q_off + t] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+    const size_t head = static_cast<size_t>(b) * H + static_cast<size_t>(kv) * G + g;
+    if (PARTIALS) {
+      static_cast<float *>(out)[head * HD + t] = o;
+      if (t == 0) {
+        m_out[head] = m;
+        l_out[head] = l;
+      }
+    } else {
+      static_cast<__nv_bfloat16 *>(out)[head * HD + t] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+    }
   }
 }
 
-}  // namespace
+bool bad_shape(int B, int H, int KV, int C, int head_dim, int fill) {
+  return head_dim != HD || KV <= 0 || H % KV != 0 || H / KV > MAXG || B <= 0 || fill < 0 ||
+         fill >= C;
+}
 
-// Number of pass-1 splits for a fill; the caller sizes the partials with it.
-extern "C" int vnsum_flash_decode_splits(int fill) { return fill / SPLIT + 1; }
-
-// Plain C entry point, loaded with ctypes. Launches both passes on `stream`
-// and returns cudaGetLastError() (0 = launched). `o_part`, `m_part` and
-// `l_part` are f32 scratch of [B, KV, splits, G, HD] and [B, KV, splits, G].
-extern "C" int vnsum_flash_decode(const void *q, const void *k, const void *v, const void *ks,
-                                  const void *vs, const void *pad_lens, void *out, void *o_part,
-                                  void *m_part, void *l_part, int B, int H, int KV, int C,
-                                  int head_dim, int layer, int fill, int window, int quantized,
-                                  float scale, void *stream) {
-  if (head_dim != HD || KV <= 0 || H % KV != 0 || H / KV > MAXG || B <= 0 || fill < 0 ||
-      fill >= C) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int n_split = vnsum_flash_decode_splits(fill);
+// pass 1 on `st`; the bf16 tiles need more than the 48 KB of shared memory
+// a block gets without asking, so the attribute is set once per kernel
+cudaError_t launch_split(const void *q, const void *k, const void *v, const void *ks,
+                         const void *vs, const void *pad_lens, void *o_part, void *m_part,
+                         void *l_part, int B, int H, int KV, int C, int layer, int fill,
+                         int window, int quantized, float scale, int n_split, cudaStream_t st) {
   const dim3 grid1(n_split, KV, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16 *qb = static_cast<const __nv_bfloat16 *>(q);
   const int *pads = static_cast<const int *>(pad_lens);
   float *op = static_cast<float *>(o_part);
   float *mp = static_cast<float *>(m_part);
   float *lp = static_cast<float *>(l_part);
-  // the bf16 tiles need more than the 48 KB of shared memory a block gets
-  // without asking; the attribute is set once per kernel
   static bool smem_set[2] = {false, false};
   cudaError_t err = cudaSuccess;
   if (quantized) {
     if (!smem_set[1]) {
       err = cudaFuncSetAttribute(flash_decode_split_kernel<true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<true>::SMEM);
-      if (err != cudaSuccess) return static_cast<int>(err);
+      if (err != cudaSuccess) return err;
       smem_set[1] = true;
     }
     flash_decode_split_kernel<true><<<grid1, NTHREADS, Tile<true>::SMEM, st>>>(
@@ -316,15 +326,60 @@ extern "C" int vnsum_flash_decode(const void *q, const void *k, const void *v, c
     if (!smem_set[0]) {
       err = cudaFuncSetAttribute(flash_decode_split_kernel<false>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<false>::SMEM);
-      if (err != cudaSuccess) return static_cast<int>(err);
+      if (err != cudaSuccess) return err;
       smem_set[0] = true;
     }
     flash_decode_split_kernel<false><<<grid1, NTHREADS, Tile<false>::SMEM, st>>>(
         qb, k, v, nullptr, nullptr, pads, op, mp, lp, B, H, KV, C, layer, fill, window, scale);
   }
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Number of pass-1 splits for a fill; the caller sizes the partials with it.
+extern "C" int vnsum_flash_decode_splits(int fill) { return fill / SPLIT + 1; }
+
+// Plain C entry points, loaded with ctypes. Each launches both passes on
+// `stream` and returns cudaGetLastError() (0 = launched). `o_part`,
+// `m_part` and `l_part` are f32 scratch of [B, KV, splits, G, HD] and
+// [B, KV, splits, G].
+
+// K2: `out` [B, 1, H, HD] bf16, normalised.
+extern "C" int vnsum_flash_decode(const void *q, const void *k, const void *v, const void *ks,
+                                  const void *vs, const void *pad_lens, void *out, void *o_part,
+                                  void *m_part, void *l_part, int B, int H, int KV, int C,
+                                  int head_dim, int layer, int fill, int window, int quantized,
+                                  float scale, void *stream) {
+  if (bad_shape(B, H, KV, C, head_dim, fill)) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_split = vnsum_flash_decode_splits(fill);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_split(q, k, v, ks, vs, pad_lens, o_part, m_part, l_part, B, H, KV, C,
+                                 layer, fill, window, quantized, scale, n_split, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_merge_kernel<<<dim3(KV, B), NTHREADS, 0, st>>>(
-      op, mp, lp, static_cast<__nv_bfloat16 *>(out), H, KV, n_split);
+  flash_decode_merge_kernel<false><<<dim3(KV, B), NTHREADS, 0, st>>>(
+      static_cast<const float *>(o_part), static_cast<const float *>(m_part),
+      static_cast<const float *>(l_part), out, nullptr, nullptr, H, KV, n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2p: the unnormalised state, `o_out` [B, H, HD], `m_out` and `l_out`
+// [B, H], all f32.
+extern "C" int vnsum_flash_decode_partials(const void *q, const void *k, const void *v,
+                                           const void *ks, const void *vs, const void *pad_lens,
+                                           void *o_out, void *m_out, void *l_out, void *o_part,
+                                           void *m_part, void *l_part, int B, int H, int KV,
+                                           int C, int head_dim, int layer, int fill, int window,
+                                           int quantized, float scale, void *stream) {
+  if (bad_shape(B, H, KV, C, head_dim, fill)) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_split = vnsum_flash_decode_splits(fill);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_split(q, k, v, ks, vs, pad_lens, o_part, m_part, l_part, B, H, KV, C,
+                                 layer, fill, window, quantized, scale, n_split, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_decode_merge_kernel<true><<<dim3(KV, B), NTHREADS, 0, st>>>(
+      static_cast<const float *>(o_part), static_cast<const float *>(m_part),
+      static_cast<const float *>(l_part), o_out, static_cast<float *>(m_out),
+      static_cast<float *>(l_out), H, KV, n_split);
   return static_cast<int>(cudaGetLastError());
 }

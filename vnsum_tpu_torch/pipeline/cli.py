@@ -47,6 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="override the approach-default generation budget",
     )
     p.add_argument(
+        "--max-context", type=int, default=None,
+        help="truncated approach: context budget in tokens (ref default 16384)",
+    )
+    p.add_argument(
         "--prefill-chunk-tokens", type=int, default=0,
         help="prefill in slices of this many tokens (multiple of 128; 0 = whole prompt)",
     )
@@ -55,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def config_from_args(args: argparse.Namespace) -> PipelineConfig:
     overrides = approach_defaults(args.approach)
-    for key in ("chunk_size", "token_max", "max_new_tokens"):
+    for key in ("chunk_size", "token_max", "max_new_tokens", "max_context"):
         val = getattr(args, key)
         if val is not None:
             overrides[key] = val

@@ -1,5 +1,6 @@
 from .base import Strategy, StrategyResult, get_strategy, split_by_token_budget
 from .mapreduce import MapReduceStrategy
+from .truncated import TruncatedStrategy
 
 __all__ = [
     "Strategy",
@@ -7,4 +8,5 @@ __all__ = [
     "get_strategy",
     "split_by_token_budget",
     "MapReduceStrategy",
+    "TruncatedStrategy",
 ]
