@@ -23,7 +23,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    partials (K2p) at the long path's shape (B=2, C=32768, fill C-1, bf16
    and int8, layers 0 and 27 of 28, pads 0 and 12000 and a row whose pad
    is C, which must come out exactly m = -1e30, l = 0, o = 0), with o, m
-   and l each held to its own limit and o / l to K2's output;
+   and l each held to its own limit and o / l to K2's output; and the
+   prefill kernel at path (c)'s prefill (B=2, S = C = 32768, q_offset 0,
+   bf16, the pads of its two prompts, layers 0 and 27 of 28), run over the
+   whole sequence and held to its plain version on four 512-query slices
+   (its first 512 queries see no key and must be 0);
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
    with one cache slot per split or tile left out (K2p: the merge of the
    splits leaves out the last one), must fail every case of that kernel in
@@ -67,7 +71,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    16,384 tokens): 2/2 documents, ROUGE, K1 launches = 28 per prefill
    forward, K2p launches = 28 x decode steps, K2 and K3 not launched; then
    the same with an int8 prefill cache; then, not gated, the one-card
-   engine with max_seq_len 40960 on the same weights and prompts;
+   engine with max_seq_len 40960 on the same weights and prompts; then,
+   gated, the long path's logits (the prefill's last position and the
+   first decode steps) against that engine's on the same tokens, at the
+   path's shape and a short one, each within its LONG_LOGITS_RTOL, with two
+   faults planted in the script's own calls that must exceed it at both;
 10. profile: one prefill forward and one decode step at the map batch's
    shape and one long decode step at path (c)'s, with their wall time,
    the device's busy time (torch.profiler), the card's clock and power
@@ -122,6 +130,19 @@ PREFILL_ROW_RTOL = 2e-2
 PARTIALS_M_ATOL, PARTIALS_M_RTOL = 1e-4, 1e-5
 PARTIALS_L_RTOL = 1e-4
 PARTIALS_O_ATOL, PARTIALS_O_RTOL = 1e-5, 1e-4
+# path (c) end to end: the long path's logits against the one-card engine's
+# on the same weights and tokens, as max |long - engine| over a forward's
+# rows and vocab divided by the largest |engine| logit, per shape. The two
+# paths run the same weights through different attention programs (K1 over
+# C = S against C = S + steps; K2p, the decode-cache partial and an f32 LSE
+# merge against K2). At the path's shape (S = 32768, a multiple of K2's
+# 512-slot split) the new tokens sit in a split of their own, so K2 sums the
+# same terms in the same order and the logits agree exactly (0 on an H100).
+# At the short shape (S = 256) they share K2's first split with the prompt:
+# another summation order, rounded to bf16 and carried through 28 layers
+# (up to 2.7e-2 on an H100). The planted faults read 2.5e-2 to 4.8e-2 at
+# the path's shape and 0.08 to 0.61 at the short one (PERF.md).
+LONG_LOGITS_RTOL = {"path": 1e-2, "short": 5e-2}
 
 # phase 4's planted faults: (what it does, kernel, source, text, replacement).
 # A fault must fail every case of its kernel and no case outside its
@@ -462,13 +483,16 @@ def phase_correctness(torch) -> dict:
 def partials_cases(torch, worst, dev="cuda") -> None:
     """K2p at the long path's shape: the one-rank prefill cache of two rows
     at S=32768, read whole (fill = C - 1), layers 0 and 27 of 28; pads 0
-    and 12000, and a row whose pad is C (it sees no key: exactly inert)."""
+    and 12000, and a row whose pad is C (it sees no key: exactly inert).
+    K1's cases at path (c)'s prefill share the bf16 cache."""
     from vnsum_tpu_torch.ops import decode_attention as da
 
     L, B, KV, G, hd, C = 28, 2, 8, 3, 128, 32768
     H = KV * G
     for quantized in (False, True):
         cache = long_cache(torch, L, B, KV, C, hd, quantized, (0, L - 1), 60 + quantized, dev)
+        if not quantized:
+            long_prefill_cases(torch, worst, cache, G)
         for layer, pads_h in ((0, [0, 12000]), (L - 1, [12000, C]), (0, [C, 0]),
                               (L - 1, [0, 12000])):
             q = rand_q(torch, (B, 1, H, hd), 61 + layer + pads_h[1], dev)
@@ -486,6 +510,37 @@ def partials_cases(torch, worst, dev="cuda") -> None:
                                   "exactly m = -1e30, l = 0, o = 0")
         del cache
         torch.cuda.empty_cache()
+
+
+def long_prefill_cases(torch, worst, cache, G) -> None:
+    """K1 at path (c)'s prefill: the whole causal prefill of B=2 rows at
+    S = C = 32768, q_offset 0, over the bf16 stacked cache, with the pads of
+    path (c)'s prompts (30,284 and 20,285 tokens), layers 0 and 27 of 28.
+    The kernel runs over the whole sequence; four 512-query slices of its
+    output (76-588 queries past row 0's pad, across row 1's pad, the
+    middle and the last) are held against the plain version on the same
+    cache with each slice's q_offset, so the plain version's [512, C]
+    scores fit. (Queries right after a pad meet only tiles that the pad or
+    the diagonal masks, which the planted fault leaves whole.) Both rows
+    see no key in the first 512 queries, which must come out 0."""
+    from vnsum_tpu_torch.ops import flash_attention as fa
+
+    L, B, KV, C, hd = cache["k"].shape
+    pads_h = [C - 30284, C - 20285]
+    pads = torch.tensor(pads_h, dtype=torch.int32, device=cache["k"].device)
+    q = rand_q(torch, (B, C, KV * G, hd), 65, cache["k"].device)
+    for layer in (0, L - 1):
+        got = fa.flash_prefill_attention(q, cache, layer, pads, G, 0, 0)
+        case = f"prefill bf16 B={B} S=C={C} pads={pads_h} layer={layer}"
+        if float(got[:, :512].float().abs().max()) != 0.0:
+            FAILED.append(f"{case}: queries [0, 512) see no key and must come out 0")
+        for lo in (pads_h[0] // 512 * 512 + 512, pads_h[1] // 512 * 512, C // 2, C - 512):
+            want = fa.flash_prefill_attention_ref(
+                q[:, lo : lo + 512].contiguous(), cache, layer, pads, G, 0, lo)
+            compare(torch, "prefill", f"{case} queries [{lo}, {lo + 512}) (path (c)'s "
+                    "prefill)", got[:, lo : lo + 512], want, worst)
+        del got, want
+    del q
 
 
 def long_cache(torch, L, B, KV, C, hd, quantized, layers, seed, dev):
@@ -528,8 +583,8 @@ def phase_mutants() -> None:
     package, must fail every case of its kernel in phase 3 there and leave
     the cases of kernels outside its family passing: the limits see a
     kernel that leaves out one cache slot in 512 (decode, verify), one in
-    64 away from the causal diagonal (prefill) or the last 512-slot split
-    of 64 (decode partials). The copies build and run in parallel."""
+    64 away from the causal diagonal (prefill, up to path (c)'s 32768
+    slots) or the last 512-slot split of 64 (decode partials). The copies build and run in parallel."""
     with tempfile.TemporaryDirectory() as root:
         procs = []
         for i, (what, kernel, source, text, replacement) in enumerate(MUTANTS):
@@ -1120,7 +1175,7 @@ def phase_long_context(torch) -> dict:
                 backends.append(TorchLongContextBackend(
                     model=model, group=SeqGroup(), tokenizer="byte", batch_size=2,
                     max_new_tokens=max_new, max_total_tokens=max_context + 1024,
-                    quantize_kv=quantize_kv, decode_kernel=True, device="cuda"))
+                    quantize_kv=quantize_kv, device="cuda"))
                 return backends[-1]
 
             run_dir = Path(tmp) / f"int8={quantize_kv}"
@@ -1196,9 +1251,96 @@ def phase_long_context(torch) -> dict:
         log(f"[long] control: one-card engine at max_seq_len 40960 (batches "
             f"{engine.stats.to_dict()['by_bucket']}, wall {wall:.2f}s) against the long "
             f"path's bf16 run: {agreement(control, texts[False])} (not gated: bf16 near-ties)")
+        long_logits_gate(torch, model, engine, prompts)
     del model, big, engine
     torch.cuda.empty_cache()
     return total
+
+
+def long_logits(torch, model, engine, tokens_np, pads_np, steps: int) -> dict:
+    """The long path's logits against the one-card engine's (K1 prefill
+    into one cache of S + steps slots, then K2 decode steps over it) on one
+    left-padded batch and the same weights: the prefill's last position,
+    then ``steps`` decode steps, both paths fed the engine's greedy tokens.
+    Returns {run: [per forward, max |long - engine| / max |engine|]} for
+    the long path as it is ("sound") and with two faults planted here, in
+    this function's own calls: "positions" (every decode position one too
+    far) and "no decode cache" (the decode attends the prefill cache
+    alone, K2p normalised). Its launches are not the path's."""
+    from vnsum_tpu_torch.backend.long_context import long_prefill, make_long_decode_attention
+    from vnsum_tpu_torch.models.llama import init_kv_cache
+    from vnsum_tpu_torch.ops.decode_attention import flash_decode_partials
+
+    dev = model.device
+    B, S = tokens_np.shape
+    G = model.cfg.q_per_kv
+    tokens = torch.from_numpy(tokens_np).to(dev)
+    pads = torch.from_numpy(pads_np).to(dev)
+    pos0 = S - pads.long()
+    cache = init_kv_cache(engine.cfg, B, S + steps, device=dev)
+    want = [engine._prefill_forward(tokens, pads, B, S, S + steps, cache)[:, -1]]
+    fed = []
+    for t in range(steps):
+        fed.append(want[-1].argmax(dim=-1))
+        want.append(engine.model(
+            fed[-1][:, None], (pos0 + t)[:, None], cache, S + t, None,
+            stacked_attention_fn=engine._decode_stacked(pads, S + t))[:, -1])
+    del cache
+    last, prefill_cache = long_prefill(model, tokens, pads)
+    merged = make_long_decode_attention(prefill_cache, pads, G)
+
+    def prefill_only(q, c, li, t):
+        o, _, l = flash_decode_partials(q, prefill_cache, li, pads, S - 1, G)
+        return (o / l.clamp_min(1e-30)[..., None])[:, None].to(q.dtype)
+
+    def rel(got, ref):
+        return float((got - ref).abs().amax() / ref.abs().amax())
+
+    out = {}
+    for run, attention, shift in (("sound", merged, 0), ("positions", merged, 1),
+                                  ("no decode cache", prefill_only, 0)):
+        dec = init_kv_cache(model.cfg, B, steps, device=dev)
+        errs = [rel(last, want[0])]
+        for t, cur in enumerate(fed):
+            logits = model(cur[:, None], (pos0 + t + shift)[:, None], dec, t, None,
+                           stacked_attention_fn=lambda q, c, li: attention(q, c, li, t))
+            errs.append(rel(logits[:, -1], want[t + 1]))
+        out[run] = errs
+    return out
+
+
+def long_logits_gate(torch, model, engine, prompts: list) -> None:
+    """Path (c)'s numbers against the one-card engine's (``long_logits``)
+    at the path's shape (the two prompts, B=2, S=32768, 4 decode steps) and
+    at a short one (their first 200 and 150 tokens, S=256, 16 steps, where
+    a new token's K/V is a larger share of what a step attends). At each
+    shape the sound long path must stay within its LONG_LOGITS_RTOL and
+    each planted fault must exceed it at some forward."""
+    from vnsum_tpu_torch.backend.base import left_pad_batch
+
+    tok = engine.tok
+    encoded = tok.encode_batch(prompts, add_bos=True)
+    failed = []
+    with torch.inference_mode():
+        for shape, ids, S, steps in (
+                ("path", encoded, 32768, 4),
+                ("short", [encoded[0][:200], encoded[1][:150]], 256, 16)):
+            tokens, pads = left_pad_batch(ids, len(ids), S, tok.pad_id)
+            runs = long_logits(torch, model, engine, tokens, pads, steps)
+            limit = LONG_LOGITS_RTOL[shape]
+            for run, errs in runs.items():
+                log(f"[long] logits against the one-card engine, {shape} shape (S={S}, "
+                    f"{steps} steps), {run}: prefill {errs[0]:.3e}, decode steps "
+                    f"{', '.join(f'{e:.3e}' for e in errs[1:])}; limit {limit:g}")
+                worst = max(errs)
+                if run == "sound" and worst > limit:
+                    failed.append(f"{shape} sound {worst:.3e}")
+                if run != "sound" and worst <= limit:
+                    failed.append(f"{shape} planted fault '{run}' not seen ({worst:.3e})")
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("long path logits against the one-card engine: "
+                             + "; ".join(failed))
 
 
 # -- phase 10 -----------------------------------------------------------------
@@ -1256,8 +1398,7 @@ def phase_profile(torch) -> None:
         long_pads = torch.tensor([0, 12000], dtype=torch.int32, device=dev)
         prefill_cache = long_cache(torch, cfg.n_layers, 2, cfg.n_kv_heads, C, cfg.head_dim,
                                    False, range(cfg.n_layers), 80, dev)
-        long["attention"] = make_long_decode_attention(prefill_cache, long_pads, G,
-                                                       decode_kernel=True)
+        long["attention"] = make_long_decode_attention(prefill_cache, long_pads, G)
         long["cache"] = init_kv_cache(cfg, 2, 128, device=dev)
         long["cur"] = tokens[:2, -1:]
         long["pos"] = (C - long_pads.long())[:, None] + 64

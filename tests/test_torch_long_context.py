@@ -95,9 +95,9 @@ def test_long_prefill_matches_jax(mesh, carried):
 @pytest.mark.parametrize("kernel", [True, False], ids=["kernel", "dense"])
 def test_long_decode_attention_matches_jax(mesh, carried, kernel, quantized):
     """The same frozen prefill cache, the merged attention over it and a
-    decode cache with four written slots: port (K2p's plain version, or the
-    dense partial) against JAX (its kernel in interpret mode, or its dense
-    partial). f32 on both sides -> 2e-5, as the JAX package's own check."""
+    decode cache with four written slots: the port (K2p's plain version)
+    against JAX with its kernel in interpret mode, and against JAX's dense
+    partial. f32 on both sides -> 2e-5, as the JAX package's own check."""
     jcfg, params, _ = carried
     tokens, pads = prefill_inputs(1)
     _, jcache = jlc.long_prefill(params, jcfg, jnp.asarray(tokens), jnp.asarray(pads), mesh)
@@ -114,24 +114,28 @@ def test_long_decode_attention_matches_jax(mesh, carried, kernel, quantized):
     want = jlc.make_long_decode_attention(
         mesh, jcache, jnp.asarray(pads), G, decode_kernel=kernel, interpret=kernel
     )(jnp.asarray(q), {n: jnp.asarray(a) for n, a in dec.items()}, jnp.int32(layer), t)
-    got = tlc.make_long_decode_attention(
-        tensors(jcache), torch.from_numpy(pads), G, decode_kernel=kernel
-    )(torch.from_numpy(q), tensors(dec), layer, t)
+    got = tlc.make_long_decode_attention(tensors(jcache), torch.from_numpy(pads), G)(
+        torch.from_numpy(q), tensors(dec), layer, t
+    )
     assert got.shape == (B, 1, H, hd)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("arm", ["kernel", "dense", "int8"])
 def test_greedy_generate_matches_jax_and_engine(mesh, carried, arm):
+    """The port (K2p's plain version) against JAX with its decode kernel in
+    interpret mode ("kernel"), with its dense partial ("dense"), and with an
+    int8 prefill cache ("int8")."""
     jcfg, params, model = carried
     quantize_kv = arm == "int8"
     jax_be = jlc.LongContextBackend(
         model_config=jcfg, mesh=mesh, params=params, batch_size=4,
         max_new_tokens=MAX_NEW, max_total_tokens=2048, quantize_kv=quantize_kv,
+        decode_kernel=arm == "kernel", interpret=arm == "kernel",
     )
     port = tlc.TorchLongContextBackend(
         model=model, batch_size=4, max_new_tokens=MAX_NEW, max_total_tokens=2048,
-        quantize_kv=quantize_kv, decode_kernel=arm != "dense", device="cpu",
+        quantize_kv=quantize_kv, device="cpu",
     )
     got = port.generate(PROMPTS)
     assert got == jax_be.generate(PROMPTS)
@@ -153,8 +157,7 @@ def test_prompt_past_the_one_card_ceiling(mesh):
     _, _, big = carried_weights(7, max_seq_len=2048)
     assert len(LONG_DOC.encode()) > small.cfg.max_seq_len
     port = tlc.TorchLongContextBackend(
-        model=small, max_new_tokens=12, max_total_tokens=2048, decode_kernel=True,
-        device="cpu",
+        model=small, max_new_tokens=12, max_total_tokens=2048, device="cpu"
     )
     got = port.generate([LONG_DOC])
     jax_be = jlc.LongContextBackend(
@@ -199,8 +202,6 @@ def test_budget_checks(carried):
     # the default total budget is the one-card ceiling times the ranks
     assert tlc.TorchLongContextBackend(model=model, max_new_tokens=8, device="cpu") \
         .max_total_tokens == model.cfg.max_seq_len
-    with pytest.raises(NotImplementedError, match="int8 weights"):
-        tlc.TorchLongContextBackend(model=model, quantize=True, device="cpu")
     assert be.generate([]) == []
 
 
@@ -263,7 +264,7 @@ def test_truncated_pipeline_matches_jax(tmp_path, mesh, carried):
     def factory(_):
         backends.append(tlc.TorchLongContextBackend(
             model=model, batch_size=8, max_new_tokens=MAX_NEW, max_total_tokens=1024 + 1024,
-            decode_kernel=True, device="cpu",
+            device="cpu",
         ))
         return backends[-1]
 

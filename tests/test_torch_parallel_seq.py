@@ -51,15 +51,11 @@ def _rank_main(rank: int, init_file: str, out_dir: str, payload: dict) -> None:
         out["prefill"] = tlc.long_prefill(model, payload["tokens"], pads, group)
         cache, qd, dec, t = payload["decode"]
         shard = {n: c[:, :, :, lo:hi].contiguous() for n, c in cache.items()}
-        for kernel in (True, False):
-            out[f"decode_kernel={kernel}"] = tlc.make_long_decode_attention(
-                shard, pads, G, group, decode_kernel=kernel
-            )(qd, dec, 1, t)
+        out["decode"] = tlc.make_long_decode_attention(shard, pads, G, group)(qd, dec, 1, t)
         for quantize_kv in (False, True):
             out[f"generate_int8={quantize_kv}"] = tlc.TorchLongContextBackend(
                 model=model, group=group, batch_size=4, max_new_tokens=MAX_NEW,
-                max_total_tokens=2048, quantize_kv=quantize_kv, decode_kernel=True,
-                device="cpu",
+                max_total_tokens=2048, quantize_kv=quantize_kv, device="cpu",
             ).generate(PROMPTS)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -149,13 +145,21 @@ def test_two_gloo_ranks_match_one_rank_and_jax(tmp_path):
                     rtol=2e-4, atol=2e-4,
                 )
 
-        # the merged decode attention: K2p (plain) and the dense partial
+        # the merged decode attention (K2p's plain version on each rank's
+        # shard): against one rank, and against JAX on seq=2 with its kernel
+        # in interpret mode and with its dense partial
+        want = tlc.make_long_decode_attention(cache1, pads, G, one)(qd, dec, 1, t)
+        for res in ranks:
+            torch.testing.assert_close(res["decode"], want, rtol=2e-5, atol=2e-5)
+        jcache = {n: jnp.asarray(c.numpy()) for n, c in cache1.items()}
         for kernel in (True, False):
-            want = tlc.make_long_decode_attention(cache1, pads, G, one, decode_kernel=kernel)(
-                qd, dec, 1, t)
-            for res in ranks:
-                torch.testing.assert_close(
-                    res[f"decode_kernel={kernel}"], want, rtol=2e-5, atol=2e-5)
+            want_jax = jlc.make_long_decode_attention(
+                mesh, jcache, jnp.asarray(PADS, dtype=jnp.int32), G,
+                decode_kernel=kernel, interpret=kernel,
+            )(jnp.asarray(qd.numpy()), {n: jnp.asarray(c.numpy()) for n, c in dec.items()},
+              jnp.int32(1), t)
+            np.testing.assert_allclose(
+                ranks[0]["decode"].numpy(), np.asarray(want_jax), rtol=2e-5, atol=2e-5)
 
         # greedy generation: byte-identical to one rank and to JAX on seq=2
         for quantize_kv in (False, True):
@@ -163,7 +167,7 @@ def test_two_gloo_ranks_match_one_rank_and_jax(tmp_path):
             assert texts[0] == texts[1]
             world1 = tlc.TorchLongContextBackend(
                 model=model, batch_size=4, max_new_tokens=MAX_NEW, max_total_tokens=2048,
-                quantize_kv=quantize_kv, decode_kernel=True, device="cpu",
+                quantize_kv=quantize_kv, device="cpu",
             ).generate(PROMPTS)
             jax_texts = jlc.LongContextBackend(
                 model_config=jcfg, mesh=mesh, params=params, batch_size=4,

@@ -25,7 +25,7 @@ runs the decode as an on-device ``while_loop``; here it is a host loop
 that reads the all-done flag every ``_DONE_CHECK_INTERVAL`` steps, which
 never changes an output. Every rank computes the same tokens.
 
-Not ported yet: int8 weights (``quantize=True`` raises), the ``data`` and
+Not ported yet: int8 weights (``models/quant.py``), the ``data`` and
 ``model`` mesh axes, and the pipeline CLI's multi-rank launch.
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ from ..models.llama import (
 )
 from ..models.sampling import row_seed, sample_logits_rows
 from ..ops.decode_attention import flash_decode_partials
-from ..ops.flash_attention import NEG, flash_prefill_attention, supports_flash
+from ..ops.flash_attention import NEG, flash_prefill_attention
 from ..parallel import SeqGroup, ring_attention
 from ..text.tokenizer import Tokenizer, get_tokenizer
 from .base import (
@@ -95,8 +95,10 @@ def long_prefill(
     G = cfg.q_per_kv
     positions = prefill_positions(pad_lens, S)[:, lo : lo + S_loc]
     cache = init_kv_cache(cfg, B, S_loc, device=model.device)
-    if n == 1 and (model.device.type == "cpu" or supports_flash(cfg.head_dim)):
+    if n == 1:
         # the ring at one rank: causal attention over the whole cache, K1
+        # (its plain version for CPU tensors; on the card it raises for a
+        # head dim it does not take)
         def stacked(q, c, li):
             return flash_prefill_attention(q, c, li, pad_lens, G, 0, 0)
     else:
@@ -143,40 +145,12 @@ def _merge_across(group: SeqGroup, o, m, l):
     return o_g, m_g, l_g
 
 
-def _prefill_partial_local(
-    q, k_loc, v_loc, pad_lens, k_scale=None, v_scale=None, *, q_per_kv, group
-):
-    """Dense partial over this rank's prefill-cache layer, merged across
-    the group. q [B, H, hd]; k_loc/v_loc [B, KV, S_loc, hd] (int8 when
-    k_scale/v_scale [B, KV, S_loc] are given). Returns (o [B, H, hd] f32,
-    m, l [B, H]). For head dims the kernel does not take, or
-    ``decode_kernel=False``."""
-    B, H, hd = q.shape
-    KV, S_loc = k_loc.shape[1], k_loc.shape[2]
-    qg = q.reshape(B, KV, q_per_kv, hd).float()
-    scores = torch.einsum("bkgh,bksh->bkgs", qg, k_loc.float())
-    if k_scale is not None:
-        # the per-(head, token) scale is constant over hd: it multiplies
-        # the scores, and the dequantized shard is never built
-        scores = scores * k_scale[:, :, None, :]
-    scores = scores / math.sqrt(hd)
-    k_pos = group.rank * S_loc + torch.arange(S_loc, device=q.device)
-    valid = (k_pos[None, :] >= pad_lens.long()[:, None])[:, None, None]  # [B, 1, 1, S_loc]
-    scores = scores.masked_fill(~valid, NEG)
-    m = scores.amax(dim=-1)
-    p = torch.exp(scores - m[..., None]).masked_fill(~valid, 0.0)
-    l = p.sum(dim=-1)
-    if v_scale is not None:
-        p = p * v_scale[:, :, None, :]
-    o = torch.einsum("bkgs,bksh->bkgh", p, v_loc.float())
-    return _merge_across(group, o.reshape(B, H, hd), m.reshape(B, H), l.reshape(B, H))
-
-
 def _kernel_partial_local(q, prefill_cache, pads_local, layer_idx, *, q_per_kv, group):
     """K2p over this rank's whole stacked shard (the layer chosen by index,
-    int8 dequantized in the kernel), merged across the group exactly like
-    the dense partial. q [B, 1, H, hd]; ``pads_local`` the left pads in
-    shard coordinates (a row whose pad covers the shard comes out inert)."""
+    int8 dequantized in the kernel), merged across the group. q [B, 1, H,
+    hd]; ``pads_local`` the left pads in shard coordinates (a row whose pad
+    covers the shard comes out inert). CPU tensors take K2p's plain version;
+    on the card K2p raises for inputs it does not take."""
     S_loc = prefill_cache["k"].shape[3]
     o, m, l = flash_decode_partials(
         q, prefill_cache, layer_idx, pads_local, S_loc - 1, q_per_kv
@@ -189,23 +163,13 @@ def make_long_decode_attention(
     pad_lens: torch.Tensor,
     q_per_kv: int,
     group: SeqGroup | None = None,
-    *,
-    decode_kernel: str | bool = "auto",
 ):
     """The merged attention for the decoder's ``stacked_attention_fn``
     seam: ``attention(q, cache, layer_idx, t)`` attends this group's split
-    prefill cache and the small decode cache ``cache``, valid slots 0..t.
-
-    ``decode_kernel`` "auto" runs K2p on the card for head_dim 128 and the
-    dense partial otherwise; True runs K2p (its plain version for CPU
-    tensors)."""
+    prefill cache (through K2p) and the small decode cache ``cache``, valid
+    slots 0..t."""
     group = group or SeqGroup()
-    quantized = "ks" in prefill_cache
-    k_all = prefill_cache["k"]
-    hd = k_all.shape[-1]
-    S_loc = k_all.shape[3]
-    if decode_kernel == "auto":
-        decode_kernel = k_all.device.type == "cuda" and supports_flash(hd)
+    S_loc = prefill_cache["k"].shape[3]
     # left pads in this shard's coordinates: a row whose pad lies past the
     # shard masks it out entirely
     pads_local = (
@@ -215,19 +179,9 @@ def make_long_decode_attention(
     def attention(q, cache, layer_idx, t):
         """q [B, 1, H, hd]; cache the decode cache [L, B, KV, C, hd]."""
         B, _, H, hd = q.shape
-        if decode_kernel:
-            o1, m1, l1 = _kernel_partial_local(
-                q, prefill_cache, pads_local, layer_idx, q_per_kv=q_per_kv, group=group
-            )
-        else:
-            scales = (
-                (prefill_cache["ks"][layer_idx], prefill_cache["vs"][layer_idx])
-                if quantized else (None, None)
-            )
-            o1, m1, l1 = _prefill_partial_local(
-                q[:, 0], prefill_cache["k"][layer_idx], prefill_cache["v"][layer_idx],
-                pad_lens, *scales, q_per_kv=q_per_kv, group=group,
-            )
+        o1, m1, l1 = _kernel_partial_local(
+            q, prefill_cache, pads_local, layer_idx, q_per_kv=q_per_kv, group=group
+        )
 
         # decode-cache partial (every rank holds the whole decode cache)
         k_dec, v_dec = cache["k"][layer_idx], cache["v"][layer_idx]   # [B, KV, C, hd]
@@ -273,7 +227,6 @@ def generate_long_tokens(
     quantize_kv: bool = False,
     vocab_limit: int = 0,
     vocab_allowed=None,
-    decode_kernel: str | bool = "auto",
     stats: EngineStats | None = None,
 ) -> torch.Tensor:
     """Prefill, then the decode loop; returns the emitted ids [B, max_new].
@@ -308,9 +261,7 @@ def generate_long_tokens(
         stats.add_phase("prefill", time.time() - t_pre)
 
     t_dec = time.time()
-    attention = make_long_decode_attention(
-        prefill_cache, pad_lens, cfg.q_per_kv, group, decode_kernel=decode_kernel
-    )
+    attention = make_long_decode_attention(prefill_cache, pad_lens, cfg.q_per_kv, group)
     decode_cache = init_kv_cache(cfg, B, max_new, device=dev)
     out = torch.full((B, max_new), pad_id, dtype=torch.long, device=dev)
     pad_fill = torch.full_like(cur, pad_id)
@@ -359,14 +310,10 @@ class TorchLongContextBackend:
         max_total_tokens: int | None = None,
         generation: GenerationConfig | None = None,
         seed: int = 0,
-        quantize: bool = False,
         quantize_kv: bool = False,
-        decode_kernel: str | bool = "auto",
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
-        if quantize:
-            raise NotImplementedError("int8 weights (models/quant.py) are not ported yet")
         self.cfg = model.cfg if model is not None else (model_config or llama32_3b())
         if getattr(self.cfg, "sliding_window", 0):
             raise NotImplementedError(
@@ -390,7 +337,6 @@ class TorchLongContextBackend:
         self._seed = seed
         self._dispatch = 0
         self.quantize_kv = bool(quantize_kv)
-        self.decode_kernel = decode_kernel
         self.stats = EngineStats()
         if model is None:
             model = (
@@ -467,8 +413,7 @@ class TorchLongContextBackend:
                 eos_ids=eos_ids, pad_id=self.tok.pad_id, group=self.group,
                 temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
                 seed=self._next_seed(gen), quantize_kv=self.quantize_kv,
-                vocab_limit=vocab_limit, vocab_allowed=vocab_allowed,
-                decode_kernel=self.decode_kernel, stats=self.stats,
+                vocab_limit=vocab_limit, vocab_allowed=vocab_allowed, stats=self.stats,
             ).cpu().numpy()
             logger.info(
                 "long generate: B=%d S=%d new=%d in %.1fs", B, S, max_new, time.time() - t_group
