@@ -30,15 +30,19 @@ Phases, each raising on failure (so any failure exits non-zero):
    (its first 512 queries see no key and must be 0);
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
    with one cache slot per split or tile left out (K2p: the merge of the
-   splits leaves out the last one), must fail every case of that kernel in
-   phase 3, so the limits are shown to be tight enough to see such a
-   fault. K2 and K2p are the two modes of one source and share both its
-   passes, so a fault there may fail both: the two count as one family;
+   splits leaves out the last one; K3 has a second fault, its in-block
+   merge leaving out the last warp's share of o), must fail every case of
+   that kernel in phase 3, so the limits are shown to be tight enough to
+   see such a fault. K2 and K2p are the two modes of one source and
+   share both its passes, so a fault there may fail both: the two count as
+   one family;
 5. timing at the main path's shapes (Llama-3.2-3B: L=28, H=24, KV=8,
    hd=128; prefill B=8 S=4096 C=4224, decode B=8 C=4224 fill=4200; verify
    B=8 Sq=9 C=4233 and B=8 Sq=1 C=4224): the kernel, the bound (bytes over
-   3.35 TB/s or FLOP over the peak rate of their type, from this run's
-   inputs), the plain version, and one PyTorch library call computing the
+   3.35 TB/s or FLOP over the peak rate of the unit that does them, from
+   this run's inputs; K3's products on bf16 tensor cores, PV counted twice
+   for its hi/lo halves), K3's two passes apart (torch.profiler), the
+   plain version, and one PyTorch library call computing the
    same function (scaled_dot_product_attention with an explicit mask on a
    bf16 cache; timed here only, never used by the port); one output of
    each is held against the other as in phase 3; the prefill kernel
@@ -58,6 +62,9 @@ Phases, each raising on failure (so any failure exits non-zero):
    kernel: 7/7 documents, ROUGE, verify launches = 28 x verify steps; then
    the map batch again with the plain run's outputs as references, which
    must accept drafts (multi-token steps, ragged per-row fills on the card);
+   then, gated, one verify forward of 9 tokens (K3) against 9 decode steps
+   (K2) of the same tokens on the map batch, within SPEC_LOGITS_RTOL, with
+   a fault planted in the script's own call that must exceed it;
 8. slot loop (path b): TorchBackend.start_slot_loop(slots=8,
    prompt_tokens=4096, max_new_tokens=128, segment_tokens=32) fed the 7 map
    prompts in two waves and drained, at fused_segments 1 and 4: every
@@ -76,10 +83,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    first decode steps) against that engine's on the same tokens, at the
    path's shape and a short one, each within its LONG_LOGITS_RTOL, with two
    faults planted in the script's own calls that must exceed it at both;
-10. profile: one prefill forward and one decode step at the map batch's
-   shape and one long decode step at path (c)'s, with their wall time,
-   the device's busy time (torch.profiler), the card's clock and power
-   draw while they run, and the kernels that take most of the time.
+10. profile: one prefill forward, one decode step and one verify step
+   (Sq=9) at the map batch's shape and one long decode step at path
+   (c)'s, with their wall time, the device's busy time (torch.profiler),
+   the card's clock and power draw while they run, and the kernels that
+   take most of the time.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after; a kernel of the path that was not launched fails it. The
@@ -143,6 +151,15 @@ PARTIALS_O_ATOL, PARTIALS_O_RTOL = 1e-5, 1e-4
 # (up to 2.7e-2 on an H100). The planted faults read 2.5e-2 to 4.8e-2 at
 # the path's shape and 0.08 to 0.61 at the short one (PERF.md).
 LONG_LOGITS_RTOL = {"path": 1e-2, "short": 5e-2}
+# path (a) end to end: one verify forward of 9 tokens (K3) against 9 decode
+# steps (K2) of the same tokens on the same weights, as max |verify -
+# decode| over a position's rows and vocab divided by the largest |decode|
+# logit. K3 and K2 sum a row's keys in different orders, and the
+# projections run as [8 x 9]-row GEMMs against [8 x 1]-row ones, another
+# tiling: bf16 roundings carried through 28 layers, 2.8e-2 to 4.1e-2 on an
+# H100. The planted fault (a 512-slot split dropped) reads 1.1 to 1.6
+# (PERF.md).
+SPEC_LOGITS_RTOL = 0.1
 
 # phase 4's planted faults: (what it does, kernel, source, text, replacement).
 # A fault must fail every case of its kernel and no case outside its
@@ -161,6 +178,8 @@ MUTANTS = (
      "      l_run[i] += p;\n"),
     ("verify leaves out the last slot of every 512-slot split", "verify", "flash_verify.cu",
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
+    ("verify's in-block merge leaves out the last warp's 128 slots of o", "verify",
+     "flash_verify.cu", "w < QUARTERS; ++w) acc +=", "w < QUARTERS - 1; ++w) acc +="),
 )
 FAMILY = {"decode": ("decode", "partials"), "partials": ("decode", "partials")}
 
@@ -276,6 +295,7 @@ def rand_q(torch, shape, seed, dev):
 
 
 FAILED: list[str] = []  # the cases over their limit
+CHECKED: list[str] = []  # every case held to its limit
 
 
 def compare(torch, name, case, got, want, worst) -> None:
@@ -295,6 +315,7 @@ def compare(torch, name, case, got, want, worst) -> None:
     worst[name] = max(worst[name], err)
     if bad:
         FAILED.append(case)
+    CHECKED.append(case)
     log(f"[check] {case}: max|err| {err:.3e}, err/limit {used:.4g}"
         + (" OVER THE LIMIT" if bad else ""))
 
@@ -325,6 +346,7 @@ def compare_partials(torch, case, got, want, k2_out, vmax, worst) -> None:
                             float(parts["m"][0].max()), float(parts["l"][0].max()))
     if bad:
         FAILED.append(case)
+    CHECKED.append(case)
     log(f"[check] {case}: max|err| " + ", ".join(errs) + f"; err/limit {used:.4g}"
         + (" OVER THE LIMIT" if bad else ""))
 
@@ -578,16 +600,24 @@ def cache_v_amax(cache, layer):
 # -- phase 4 ------------------------------------------------------------------
 
 
-def phase_mutants() -> None:
+def phase_mutants(n_cases: int) -> None:
     """Each planted fault of MUTANTS, built into a temporary copy of the
-    package, must fail every case of its kernel in phase 3 there and leave
-    the cases of kernels outside its family passing: the limits see a
-    kernel that leaves out one cache slot in 512 (decode, verify), one in
-    64 away from the causal diagonal (prefill, up to path (c)'s 32768
-    slots) or the last 512-slot split of 64 (decode partials). The copies build and run in parallel."""
+    package, must run all ``n_cases`` cases of phase 3 there, fail every
+    case of its kernel and leave the cases of kernels outside its family
+    passing: the limits see a kernel that leaves out one cache slot in 512
+    (decode, verify), one in 64 away from the causal diagonal (prefill, up
+    to path (c)'s 32768 slots), the last 512-slot split of 64 (decode
+    partials) or the last warp's 128 slots of a split's o (verify). The
+    copies build and run three at a time: each holds 10-15 GB of caches at
+    its peak, and with five at once one copy stopped short of its last
+    cases in one run."""
+    results = []
     with tempfile.TemporaryDirectory() as root:
         procs = []
         for i, (what, kernel, source, text, replacement) in enumerate(MUTANTS):
+            if len(procs) == 3:
+                results += [p.communicate(timeout=600) + (p.returncode,) for p in procs]
+                procs = []
             tmp = Path(root) / str(i)
             shutil.copytree(ROOT / "vnsum_tpu_torch", tmp / "vnsum_tpu_torch",
                             ignore=shutil.ignore_patterns("build", "__pycache__"))
@@ -603,7 +633,7 @@ def phase_mutants() -> None:
                 cwd=tmp, env={**os.environ, "PYTHONPATH": str(tmp)},
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             ))
-        results = [p.communicate(timeout=600) + (p.returncode,) for p in procs]
+        results += [p.communicate(timeout=600) + (p.returncode,) for p in procs]
     for (what, kernel, *_), (out, err, rc) in zip(MUTANTS, results):
         checks = [ln[len("[check] "):] for ln in out.splitlines() if ln.startswith("[check] ")]
         for line in checks:
@@ -613,11 +643,12 @@ def phase_mutants() -> None:
         family = FAMILY.get(kernel, (kernel,))
         others = [ln for ln in checks if ln.split(" ", 1)[0] not in family
                   and ln.endswith("OVER THE LIMIT")]
-        if rc == 0 or not mine or len(caught) != len(mine) or others:
+        if (rc == 0 or len(checks) != n_cases or not mine or len(caught) != len(mine)
+                or others):
             raise AssertionError(
                 f"planted fault '{what}' was not caught in every {kernel} case and only "
-                f"there (exit {rc}, {len(caught)} of {len(mine)} caught, {len(others)} "
-                f"other cases over):\n" + (out + err)[-4000:])
+                f"there (exit {rc}, {len(checks)} of {n_cases} cases run, {len(caught)} of "
+                f"{len(mine)} caught, {len(others)} other cases over):\n" + (out + err)[-4000:])
         in_family = sum(ln.split(" ", 1)[0] in family for ln in checks) - len(mine)
         log(f"[mutant] {what}: over the limit in all {len(mine)} {kernel} cases and in "
             f"none of the {len(checks) - len(mine) - in_family} outside its family "
@@ -819,11 +850,13 @@ def library_kv(torch, cache, layers: int, G: int):
 
 def time_verify(torch, worst, cache, k_lib, v_lib, pads_h, fills_h, Sq, seed) -> dict:
     """K3, its plain version and the library call on one int8 cache at Sq
-    queries per row and per-row fills; one output of the kernel is held
-    against the plain version's as in phase 3. The bound counts what these
-    inputs need: each row's visible K/V slots and scales read once, q read
-    and the output written once, and 4 hd FLOP (f32) per visible (query
-    head, slot) pair."""
+    queries per row and per-row fills, and K3's two passes apart
+    (torch.profiler); one output of the kernel is held against the plain
+    version's as in phase 3. The bound counts what these inputs need: each
+    row's visible K/V slots and scales read once, q read and the output
+    written once, and, on bf16 tensor cores, 2 hd FLOP of QK and 2 x 2 hd
+    of PV (run once with p_hi and once with p_lo) per visible (query head,
+    slot) pair."""
     from vnsum_tpu_torch.ops import verify_attention as va
 
     dev = cache["k"].device
@@ -841,10 +874,16 @@ def time_verify(torch, worst, cache, k_lib, v_lib, pads_h, fills_h, Sq, seed) ->
     pairs = sum(max(min(f + s, C - 1) - p + 1, 0)
                 for p, f in zip(pads_h, fills_h) for s in range(Sq))
     rows = sum(max(min(f + Sq - 1, C - 1) - p + 1, 0) for p, f in zip(pads_h, fills_h))
-    flops = 4 * hd * H * pairs
+    flops = 6 * hd * H * pairs
     bytes_ = 2 * q.numel() * 2 + 2 * rows * KV * (hd + 4)
     ms = time_ms(torch, lambda i: va.flash_spec_verify_attention(
         q, cache, i % L, pads, fills, G, 0), n=4 * L)
+    passes = kernel_ms(torch, lambda i: va.flash_spec_verify_attention(
+        q, cache, i % L, pads, fills, G, 0), n=4 * L)
+    split_ms = sum(v for k, v in passes.items() if "flash_verify_split_kernel" in k)
+    merge_ms = sum(v for k, v in passes.items() if "flash_verify_merge_kernel" in k)
+    log(f"[time] verify passes B={B} Sq={Sq} C={C}: pass 1 {split_ms:.4f} ms, merge "
+        f"{merge_ms:.4f} ms a call (torch.profiler; CUDA events around both: {ms:.4f} ms)")
     plain = time_ms(torch, lambda i: va.flash_spec_verify_attention_ref(
         q, cache, i % L, pads, fills, G, 0), n=4)
     library = time_ms(torch, lambda i: torch.nn.functional.scaled_dot_product_attention(
@@ -852,7 +891,25 @@ def time_verify(torch, worst, cache, k_lib, v_lib, pads_h, fills_h, Sq, seed) ->
     compare(torch, "verify", f"verify int8=True B={B} Sq={Sq} C={C} layer={L - 1} "
             "(timing inputs)", va.flash_spec_verify_attention(q, cache, L - 1, pads, fills, G, 0),
             va.flash_spec_verify_attention_ref(q, cache, L - 1, pads, fills, G, 0), worst)
-    return timing_record(ms, plain, library, flops, bytes_, PEAK_FP32_FLOPS)
+    return timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
+
+
+def kernel_ms(torch, fn, n: int) -> dict:
+    """{device kernel name: ms a call} of ``n`` calls of ``fn`` after one
+    warm-up call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    by_kernel: dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    return {k: v / n / 1e3 for k, v in by_kernel.items()}
 
 
 def timing_record(ms, plain, library, flops, bytes_, peak_flops) -> dict:
@@ -1051,7 +1108,72 @@ def phase_spec_pipeline(torch, plain_summaries: dict):
     log(f"[spec] control: one-shot at batch 4 against batch 8: "
         f"{agreement(control, oneshot)}")
     total = {k: launches[k] + oracle_launches[k] for k in launches}
+    spec_logits_gate(torch, backend, prompts)
     return total, backend, prompts, oneshot
+
+
+def spec_logits(torch, engine, tokens_np, pads_np, steps: int) -> dict:
+    """The spec path's verify forward (K3) against single-token decode
+    steps (K2) on one left-padded batch, the same weights and the same
+    tokens: an int8 cache of C = S + 128 + steps prefilled once and kept
+    aside, ``steps`` greedy decode steps on it, and one verify forward of
+    their Sq = steps tokens at fill S on a copy of the kept cache. Returns
+    {run: [per position, max |verify - decode| / max |decode|]} for the
+    verify forward as it is ("sound") and with a fault planted here, in
+    this function's own call: "split dropped" (K3 gets every row's pad 512
+    slots later, so the first 512 keys a row sees are left out)."""
+    from vnsum_tpu_torch.models.llama import init_kv_cache, verify_positions
+    from vnsum_tpu_torch.ops.verify_attention import flash_spec_verify_attention
+
+    model, dev, G = engine.model, engine.device, engine.cfg.q_per_kv
+    B, S = tokens_np.shape
+    tokens = torch.from_numpy(tokens_np).to(dev)
+    pads = torch.from_numpy(pads_np).to(dev)
+    cache = init_kv_cache(engine.cfg, B, S + 128 + steps, quantized=True, device=dev)
+    last = engine._prefill_forward(tokens, pads, B, S, S + 128 + steps, cache)[:, -1]
+    prefilled = {n: t.clone() for n, t in cache.items()}
+    fed, want = [last.argmax(dim=-1)], []
+    for t in range(steps):
+        want.append(model(fed[-1][:, None], (S - pads.long() + t)[:, None], cache, S + t, None,
+                          stacked_attention_fn=engine._decode_stacked(pads, S + t))[:, -1])
+        fed.append(want[-1].argmax(dim=-1))
+    del cache
+    toks = torch.stack(fed[:steps], dim=1)
+    fills = torch.full((B,), S, dtype=torch.int32, device=dev)
+    out = {}
+    for run, vpads in (("sound", pads), ("split dropped", pads + 512)):
+        got = model(toks, verify_positions(pads, fills, steps),
+                    {n: t.clone() for n, t in prefilled.items()}, fills, None,
+                    stacked_attention_fn=lambda q, c, li: flash_spec_verify_attention(
+                        q, c, li, vpads, fills, G, 0))
+        out[run] = [float((got[:, t] - want[t]).abs().amax() / want[t].abs().amax())
+                    for t in range(steps)]
+    return out
+
+
+def spec_logits_gate(torch, engine, prompts: list) -> None:
+    """The spec path's numbers against the plain decode path's
+    (``spec_logits``) on the map batch (the 7 map prompts and an all-pad
+    filler row, B=8, S=4096, 9 positions): the sound verify forward must
+    stay within SPEC_LOGITS_RTOL at every position, and the planted fault
+    must exceed it at some position."""
+    from vnsum_tpu_torch.backend.base import left_pad_batch
+
+    tok = engine.tok
+    tokens, pads = left_pad_batch(tok.encode_batch(prompts, add_bos=True), 8, 4096, tok.pad_id)
+    with torch.inference_mode():
+        runs = spec_logits(torch, engine, tokens, pads, 9)
+    failed = []
+    for run, errs in runs.items():
+        log(f"[spec] logits of one verify forward (K3, Sq=9) against 9 decode steps (K2), "
+            f"{run}: {', '.join(f'{e:.3e}' for e in errs)}; limit {SPEC_LOGITS_RTOL:g}")
+        if run == "sound" and max(errs) > SPEC_LOGITS_RTOL:
+            failed.append(f"sound {max(errs):.3e}")
+        if run != "sound" and max(errs) <= SPEC_LOGITS_RTOL:
+            failed.append(f"planted fault '{run}' not seen ({max(errs):.3e})")
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("verify logits against the decode path: " + "; ".join(failed))
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -1348,8 +1470,9 @@ def long_logits_gate(torch, model, engine, prompts: list) -> None:
 
 def phase_profile(torch) -> None:
     """Where the main path's time goes, at the map batch's shape (B=8,
-    S=4096, 128 new tokens, int8 cache) for one prefill forward and one
-    decode step, and at path (c)'s (B=2, a bf16 prefill cache of 32768
+    S=4096, int8 cache of the spec path's C = 4096 + 128 + 9) for one
+    prefill forward, one decode step and one verify step (Sq=9 at fill
+    4160, through K3), and at path (c)'s (B=2, a bf16 prefill cache of 32768
     slots, pads 0 and 12000, the decode cache at its 65th slot) for one
     long decode step: the first call's time on a fresh model and cache,
     the wall time after it (CUDA events), the device's busy time and
@@ -1364,9 +1487,11 @@ def phase_profile(torch) -> None:
         init_model,
         llama32_3b,
         prefill_positions,
+        verify_positions,
     )
     from vnsum_tpu_torch.ops.decode_attention import flash_decode_attention
     from vnsum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from vnsum_tpu_torch.ops.verify_attention import flash_spec_verify_attention
 
     cfg = llama32_3b()
     dev = torch.device("cuda")
@@ -1374,7 +1499,9 @@ def phase_profile(torch) -> None:
     B, S, fill = 8, 4096, 4096
     torch.cuda.empty_cache()  # start from an empty allocator, as the pipeline did
     model = init_model(cfg, 0, dev)
-    cache = init_kv_cache(cfg, B, S + 128, quantized=True, device=dev)
+    # the spec path's cache (C = S + 128 + 9) serves all three map-batch steps
+    cache = init_kv_cache(cfg, B, S + 128 + 9, quantized=True, device=dev)
+    vfills = torch.full((B,), fill + 64, dtype=torch.int32, device=dev)
     pads = torch.zeros(B, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1390,6 +1517,11 @@ def phase_profile(torch) -> None:
         model(tokens[:, -1:], positions[:, -1:] + 1, cache, fill, None,
               stacked_attention_fn=lambda q, c, li: flash_decode_attention(
                   q, c, li, pads, fill, G, 0))
+
+    def verify():
+        model(tokens[:, -9:], verify_positions(pads, vfills, 9), cache, vfills, None,
+              stacked_attention_fn=lambda q, c, li: flash_spec_verify_attention(
+                  q, c, li, pads, vfills, G, 0))
 
     long = {}
 
@@ -1409,7 +1541,7 @@ def phase_profile(torch) -> None:
 
     with torch.inference_mode():
         for name, fn, n in (("prefill forward", prefill, 2), ("decode step", decode, 10),
-                            ("long decode step", long_decode, 10)):
+                            ("verify step", verify, 10), ("long decode step", long_decode, 10)):
             if fn is long_decode:
                 # the map batch's cache makes room for the long one
                 del cache
@@ -1468,7 +1600,7 @@ def main() -> int:
     phase_environment(torch)
     phase_build()
     errs = phase_correctness(torch)
-    phase_mutants()
+    phase_mutants(len(CHECKED))
     timing = phase_timing(torch, errs)
     launches, plain_summaries = phase_pipeline(torch)
     spec_launches, backend, prompts, oneshot = phase_spec_pipeline(torch, plain_summaries)

@@ -127,6 +127,115 @@ def test_verify_sq1_matches_the_decode_kernel_at_a_shared_fill():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+LOG2E = 1.4426950408889634
+NEG = -1e30
+
+
+def bf16_exact(x):
+    """f32 values that bf16 holds exactly (numpy in, numpy out)."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def hi_lo(p):
+    """p = hi + lo + O(2^-18 p), both halves exact in bf16: the CUDA
+    kernel's PV operand."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
+def kernel_arithmetic(q, cache, layer, pads, fills, G, window=0, split=32, quarter=8, tile=4):
+    """K3's function computed the way csrc/flash_verify.cu computes it, with
+    its sizes scaled down (512-slot splits of four 128-slot warp ranges of
+    16-slot tiles on the card): per tile, QK in f32 over bf16-exact inputs,
+    scores in the log2 domain, masked per (query row, slot); an online
+    softmax per warp range; p (times vs for int8) split into bf16 hi + lo,
+    each multiplied into V; the warps' (o, m, l) merged into the split's
+    partial; the splits merged by log-sum-exp and divided by max(l, 1e-30)."""
+    B, Sq, H, hd = q.shape
+    k, v = cache["k"][layer].float(), cache["v"][layer].float()  # int8 widens exactly
+    ks = cache["ks"][layer] if "ks" in cache else None
+    vs = cache["vs"][layer] if "vs" in cache else None
+    KV, C = k.shape[1], k.shape[2]
+    R = Sq * G
+    scale_log2 = LOG2E / hd ** 0.5
+    out = torch.zeros((B, Sq, H, hd))
+
+    def merge(parts):
+        m = torch.stack([p[1] for p in parts]).amax(0)
+        f = [torch.exp2(p[1] - m) for p in parts]
+        return (sum(p[0] * fi[:, None] for p, fi in zip(parts, f)), m,
+                sum(p[2] * fi for p, fi in zip(parts, f)))
+
+    for b in range(B):
+        limit = int(fills[b]) + torch.arange(R) // G  # row r = s * G + g
+        for kv in range(KV):
+            qr = q[b, :, kv * G:(kv + 1) * G].reshape(R, hd).float()
+            splits = []
+            for s0 in range(0, C, split):
+                warps = []
+                for w0 in range(s0, min(s0 + split, C), quarter):
+                    o, m, l = torch.zeros((R, hd)), torch.full((R,), NEG), torch.zeros(R)
+                    for k0 in range(w0, min(w0 + quarter, C), tile):
+                        slots = torch.arange(k0, min(k0 + tile, w0 + quarter, C))
+                        s = qr @ k[b, kv, slots].T * scale_log2
+                        if ks is not None:
+                            s = s * ks[b, kv, slots]
+                        ok = (slots >= int(pads[b])) & (slots <= limit[:, None])
+                        if window:
+                            ok &= slots > limit[:, None] - window
+                        s = torch.where(ok, s, torch.full_like(s, NEG))
+                        m_new = torch.maximum(m, s.amax(1))
+                        corr = torch.exp2(m - m_new)
+                        p = torch.where(ok, torch.exp2(s - m_new[:, None]), torch.zeros_like(s))
+                        l = l * corr + p.sum(1)
+                        if vs is not None:
+                            p = p * vs[b, kv, slots]
+                        hi, lo = hi_lo(p)
+                        o = o * corr[:, None] + hi @ v[b, kv, slots] + lo @ v[b, kv, slots]
+                        m = m_new
+                    warps.append((o, m, l))
+                splits.append(merge(warps))
+            o, _, l = merge(splits)
+            out[b, :, kv * G:(kv + 1) * G] = (o / l.clamp_min(1e-30)[:, None]).reshape(Sq, G, hd)
+    return out
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("Sq", [9, 1])
+@pytest.mark.parametrize("window", [0, 16])
+def test_kernel_arithmetic_matches_jax_kernel(quantized, Sq, window):
+    """The CUDA kernel's arithmetic (kernel_arithmetic) against the JAX
+    kernel, on q and K/V exact in bf16, as the card's are. Row 1's pad hides
+    every key from its first queries (Sq=9); at Sq=1 row 0 is parked at
+    limit C. The two differ by summation order (1e-5) and by the hi/lo split
+    of p, which leaves each p off by at most 2^-18 of itself: an output
+    element, a p-weighted mean of v, moves by at most 2^-18 max|v|."""
+    L, B, KV, C, H = 2, 2, 2, 64, 4
+    G = H // KV
+    rng = np.random.default_rng(100 + Sq + window + quantized)
+    q = bf16_exact(rng.standard_normal((B, Sq, H, HD)).astype(np.float32))
+    k = bf16_exact(rng.standard_normal((L, B, KV, C, HD)).astype(np.float32))
+    v = bf16_exact(rng.standard_normal((L, B, KV, C, HD)).astype(np.float32))
+    if quantized:
+        k8, ks = _quantize_kv(jnp.asarray(k))
+        v8, vs = _quantize_kv(jnp.asarray(v))
+        jc = {"k": k8, "v": v8, "ks": ks, "vs": vs}
+    else:
+        jc = {"k": jnp.asarray(k), "v": jnp.asarray(v)}
+    tc = {n: torch.from_numpy(np.array(a)) for n, a in jc.items()}
+    fills, pads = ([20, 30], [0, 33]) if Sq == 9 else ([C, 17], [0, 3])
+    layer = 1
+    want = np.asarray(jax_verify(
+        jnp.asarray(q), jc, layer, jnp.asarray(pads, jnp.int32), jnp.asarray(fills, jnp.int32),
+        G, None if not window else jnp.int32(window), block_k=16, interpret=True))
+    got = kernel_arithmetic(torch.from_numpy(q), tc, layer, pads, fills, G, window).numpy()
+    vmax = float(tc["v"][layer].float().abs().amax(-1).mul(
+        tc["vs"][layer] if quantized else 1.0).amax())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 + 2.0**-18 * vmax)
+    if Sq == 9:
+        assert not got[1, :3].any() and got[1, 3:].any()
+
+
 def test_verify_wrapper_refuses_what_the_kernel_does_not_take():
     """On a tensor that is neither CPU nor CUDA the wrapper raises instead of
     falling back."""

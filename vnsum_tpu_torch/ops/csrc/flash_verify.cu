@@ -7,35 +7,48 @@
 // offset fills_b, and query (b, s) attends layer `layer` of the stacked
 // cache [L, B, KV, C, hd] under the mask
 //   pad_b <= k <= fills_b + s   and   (window == 0 or k > fills_b + s - window).
-// All arithmetic is f32. An int8 cache multiplies the scores by ks[k] and,
-// after l has summed the unscaled p, multiplies p by vs[k] before PV. A
-// (row, query) that sees no key comes out as 0. The speculative verify step
-// calls it with Sq = spec_k + 1, the in-flight slot segment with Sq = 1.
+// The reference is f32 throughout. An int8 cache multiplies the scores by
+// ks[k] and, after l has summed the unscaled p, multiplies p by vs[k] before
+// PV. A (row, query) that sees no key comes out as 0. The speculative verify
+// step calls it with Sq = spec_k + 1, the in-flight slot segment with Sq = 1.
 //
-// What bounds it on this card: a call reads each visible K and V slot once
-// for all R = Sq * G query rows of its (row, KV head) and does 4 R FLOP
-// per head dim of a slot, in f32: 2 R FLOP per byte of an int8 cache. The
-// f32 ridge is ~20 FLOP per byte (67 TFLOP/s over 3.35 TB/s), so the slot
-// segment (Sq = 1, R = 3: 6 FLOP/byte) is bound by device-memory bytes and
-// the spec verify step (Sq = 9, R = 27: 54 FLOP/byte) by f32 operations.
+// What bounds it on this card: device-memory bytes. A call reads each
+// visible K and V slot once for all R = Sq * G query rows of its (row, KV
+// head): at the spec shape (B=8, Sq=9, G=3, C=4233, int8) ~67 MB, 20 us at
+// 3.35 TB/s, against ~6 us of bf16 tensor-core work (QK, and PV twice).
 //
-// Design: K2's split-cache structure, generalised to R = Sq * G query rows
-// per block and to per-row fills. Pass 1: one block of 8 warps per (cache
-// split of SPLIT slots, KV head, batch row). The split count comes from C,
-// not from the fills, which live on the device: reading them on the host
-// would synchronise every layer. A split that lies wholly past its row's
-// last limit fills_b + Sq - 1 (clamped to C - 1), or wholly below the
-// window floor of its first query, loads nothing and writes an inert
-// partial (m = -1e30, l = 0, o = 0). Otherwise the block stages each
-// BK-slot K and V tile in shared memory with 16-byte loads, once for all R
-// rows; scores go to shared memory (thread = slot x quarter of the rows),
-// a warp per row runs the online softmax over the tile with shuffles (no
-// block-wide barrier per row), and PV runs with each thread owning one head
-// dim for half of the rows. Pass 2 merges a (row, KV head)'s splits with
-// the log-sum-exp algebra and divides by max(l, 1e-30). No slot at or past
-// C is ever read. Offsets into the cache are 64-bit: the stacked cache
-// passes 2^31 elements at the pipeline's long bucket.
-// Not yet done: cp.async/TMA pipelining, tensor cores for large Sq * G.
+// Numerics. Both products run on bf16 tensor cores (mma.sync m16n8k16, f32
+// accumulators) and stay the reference's f32 function up to summation
+// order: q is bf16 and a bf16 or int8 key is exact in bf16, so QK forms
+// every product exactly; p (times vs[k] for int8) is split into
+// p_hi = bf16(p) and p_lo = bf16(p - p_hi), and PV runs once with each
+// against the same exact bf16 V, which leaves p off by at most 2^-18 of
+// itself. int8 widens to bf16 exactly (-128..127) through an f32 magic
+// number.
+//
+// Design. The products are transposed so that cache slots fill the 16-row
+// M side of the mma and the query rows its 8-wide N side: the slot segment's
+// R = 3 rows pad to 8, not 16. S^T = K Q^T, then O^T += V^T P^T, with P^T's
+// fragments made from S^T's accumulators by movmatrix.trans. Pass 1: one
+// block per (512-slot split, KV head, batch row), as before; the split count
+// comes from C, not from the fills, which stay on the device. A split wholly
+// past its row's last limit (clamped to C - 1) or below the window floor of
+// its first query writes an inert partial (m = -1e30, l = 0, o = 0) and
+// loads nothing. Inside a block the four warps split the 512 slots (128
+// each) and each takes all R rows (up to 32; above 32 rows the block has
+// eight warps, and warps w and w + 4 take the two halves of the rows over
+// the same slots). A warp streams its own 16-slot K/V tiles (and scales)
+// through its own cp.async ring in shared memory, so the loop needs no
+// block-wide barrier, and keeps its own online softmax (log2 domain, ex2)
+// in registers on the accumulator fragments, reduced over the 8 lanes of a
+// column with shuffles. Only its visible slots are copied; the rest of a
+// tile is zero-filled, so nothing at or past C, or outside a warp's range,
+// is read. After the loop the warps' (o, m, l) merge through shared memory
+// into the block's partial. Pass 2 merges a row's splits with the
+// log-sum-exp algebra, one warp per (query row, KV head, batch row), and
+// divides by max(l, 1e-30). Offsets into the cache are 64-bit: the stacked
+// cache passes 2^31 elements at the pipeline's long bucket.
+// Not done: TMA, wgmma (64-row tiles would pad R = 27 to 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,55 +56,148 @@
 
 namespace {
 
-constexpr int HD = 128;          // head_dim the kernel takes
-constexpr int BK = 64;           // cache slots per K/V tile
-constexpr int SPLIT = 512;       // cache slots per pass-1 block
-constexpr int NTHREADS = 256;
-constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAXG = 8;          // largest GQA group the kernel takes
-constexpr int MAXR = 64;         // largest Sq * G the kernel takes
-constexpr int SCORE_GROUPS = NTHREADS / BK;           // 4 row groups score a tile
-constexpr int PV_GROUPS = NTHREADS / HD;              // 2 row groups in PV
+constexpr int HD = 128;             // head_dim the kernel takes
+constexpr int SPLIT = 512;          // cache slots per pass-1 block
+constexpr int QUARTERS = 4;         // warps that share a split's slots
+constexpr int WSLOTS = SPLIT / QUARTERS;  // slots of one warp
+constexpr int BK = 16;              // slots per tile: one m16 tile
+constexpr int MAXG = 8;             // largest GQA group the kernel takes
+constexpr int MAXR = 64;            // largest Sq * G the kernel takes
+constexpr int QROW = HD + 8;        // padded bf16 row of Q in shared memory
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Per-thread row counts for a block of at most RCAP = 8, 32 or 64 query
-// rows: the launch picks the smallest RCAP >= Sq * G, so the slot segment's
-// 3 rows do not walk the loops (and registers) of 64.
-template <int RCAP>
-struct Rows {
-  static constexpr int SCORE = RCAP / SCORE_GROUPS;           // rows per scoring thread
-  static constexpr int SOFTMAX = RCAP >= NWARPS ? RCAP / NWARPS : 1;  // rows per warp
-  static constexpr int PV = RCAP / PV_GROUPS;                 // rows per PV thread
-};
-
+// One warp's ring of K/V tiles in shared memory. Slot rows are padded by 16
+// bytes, so the fragment loads below are free of bank conflicts.
 template <bool Q8>
-struct Tile {
-  static constexpr int WORDS_PER_ROW = Q8 ? HD / 4 : HD / 2;  // one cache slot
-  // K rows padded by one 32-bit word: thread j reads row j, conflict-free
-  static constexpr int KROW = WORDS_PER_ROW + 1;
-  static constexpr int VROW = WORDS_PER_ROW;  // V rows are read across threads
-  static constexpr int KBYTES = BK * KROW * 4;
-  static constexpr int VBYTES = BK * VROW * 4;
-  // dynamic shared memory: K tile, V tile, ks/vs of the tile, then the R
-  // query rows (f32), the R x BK scores / probabilities and R corrections
-  static constexpr int FIXED = KBYTES + VBYTES + 2 * BK * 4;
-  static int smem(int R) { return FIXED + R * HD * 4 + R * BK * 4 + R * 4; }
+struct Ring {
+  static constexpr int ROW = Q8 ? HD + 16 : 2 * HD + 16;      // bytes of a slot row
+  static constexpr int STAGES = Q8 ? 3 : 2;
+  static constexpr int KV_BYTES = BK * ROW;                    // one K or V tile
+  static constexpr int STAGE = 2 * KV_BYTES + (Q8 ? 2 * BK * 4 : 0);  // K, V, ks, vs
+  static constexpr int WARP = STAGES * STAGE;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, d));
-  return v;
+// A block of NT n8 tiles of query rows per warp (ROWS = 8 NT) and HALVES
+// row halves: RCAP = ROWS * HALVES rows, QUARTERS * HALVES warps.
+template <bool Q8, int NT, int HALVES>
+struct Layout {
+  static constexpr int ROWS = NT * 8;
+  static constexpr int RCAP = ROWS * HALVES;
+  static constexpr int NWARPS = QUARTERS * HALVES;
+  static constexpr int Q_BYTES = RCAP * QROW * 2;
+  static constexpr int RING_BYTES = NWARPS * Ring<Q8>::WARP;
+  static constexpr int OBUF_BYTES = NWARPS * ROWS * HD * 4;   // the merge, over the ring
+  static constexpr int BODY = RING_BYTES > OBUF_BYTES ? RING_BYTES : OBUF_BYTES;
+  static constexpr int SMEM = Q_BYTES + BODY + 2 * NWARPS * ROWS * 4;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void *p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
-  return v;
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t *>(&v);
 }
 
-template <bool Q8, int RCAP>
-__global__ void __launch_bounds__(NTHREADS)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void *p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void *p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// the transpose of an 8x8 bf16 matrix held in the mma fragment layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+__device__ __forceinline__ uint4 lds128(const void *p) {
+  return *reinterpret_cast<const uint4 *>(p);
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (src is not read)
+__device__ __forceinline__ void cp_async16(void *dst, const void *src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void *dst, const void *src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four int8 (one word, byte 0 first) -> bf16x2 of bytes (0, 1) and of
+// bytes (2, 3), exact: 2^23 + (x + 128) is built in an f32's bits, 2^23 + 128
+// subtracted, and an integer of at most 8 bits keeps its bf16 upper half
+__device__ __forceinline__ void widen_int8x4(uint32_t w, uint32_t &lo, uint32_t &hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float magic = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - magic;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - magic;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - magic;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - magic;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// The k position (0..HD) of head dim d in QK's contraction. bf16 keys
+// take the natural order (their fragments come by ldmatrix); for an int8
+// key, lane (gid, tig) reads 32 contiguous bytes of a slot row, dims
+// 32 tig .. 32 tig + 31, and bytes (0, 1) and (2, 3) of word kk of them
+// hold the k positions (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9) of k
+// tile kk. Q is stored in shared memory in this order, so its fragments
+// come by plain ldmatrix.
+template <bool Q8>
+__device__ __forceinline__ int k_pos(int d) {
+  if (!Q8) return d;
+  const int byte = d & 3;
+  return 16 * ((d >> 2) & 7) + 2 * (d >> 5) + (byte & 1) + 8 * (byte >> 1);
+}
+
+// The head dims of O^T's accumulator rows gid (first) and gid + 8 (second)
+// in m tile mt. bf16 values come by ldmatrix.trans in the natural order; an
+// int8 lane reads 16 contiguous bytes of a slot row, dims 16 gid .. 16 gid + 15.
+template <bool Q8>
+__device__ __forceinline__ int o_dim(int mt, int gid, int second) {
+  return Q8 ? 16 * gid + 2 * mt + second : 16 * mt + gid + 8 * second;
+}
+
+template <bool Q8, int NT, int HALVES>
+__global__ void __launch_bounds__(QUARTERS * HALVES * 32)
 flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD]
                           const void *__restrict__ k_all,       // [L, B, KV, C, HD]
                           const void *__restrict__ v_all,
@@ -100,25 +206,25 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
                           const int *__restrict__ pad_lens,     // [B]
                           const int *__restrict__ fills,        // [B]
                           float *__restrict__ o_part,           // [B, KV, NS, R, HD]
-                          float *__restrict__ m_part,           // [B, KV, NS, R]
+                          float *__restrict__ m_part,           // [B, KV, NS, R] (log2 domain)
                           float *__restrict__ l_part,
                           int B, int Sq, int H, int KV, int C, int layer, int window,
-                          float scale) {
-  using T = Tile<Q8>;
-  constexpr int ROWS_SCORE = Rows<RCAP>::SCORE;
-  constexpr int ROWS_SOFTMAX = Rows<RCAP>::SOFTMAX;
-  constexpr int ROWS_PV = Rows<RCAP>::PV;
+                          float scale_log2) {
+  using RG = Ring<Q8>;
+  using LY = Layout<Q8, NT, HALVES>;
+  constexpr int ROWS = LY::ROWS;
+  constexpr int RCAP = LY::RCAP;
+  constexpr int NTHREADS = LY::NWARPS * 32;
+  constexpr int ELEM = Q8 ? 1 : 2;  // bytes of a cache element
   extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16 *qs = reinterpret_cast<__nv_bfloat16 *>(smem);   // [RCAP][QROW]
+  unsigned char *ring = smem + LY::Q_BYTES;                        // [NWARPS][Ring]
+  float *obuf = reinterpret_cast<float *>(ring);   // [NWARPS][ROWS][HD], after the loop
+  float *ms = reinterpret_cast<float *>(ring + LY::BODY);  // [NWARPS][ROWS]
+  float *ls = ms + LY::NWARPS * ROWS;
+
   const int G = H / KV;
   const int R = Sq * G;
-  uint32_t *kbuf = reinterpret_cast<uint32_t *>(smem);                    // [BK][KROW]
-  uint32_t *vbuf = reinterpret_cast<uint32_t *>(smem + T::KBYTES);        // [BK][VROW]
-  float *kss = reinterpret_cast<float *>(smem + T::KBYTES + T::VBYTES);   // [BK]
-  float *vss = kss + BK;                                                  // [BK]
-  float *qs = vss + BK;                                                   // [R][HD]
-  float *ps = qs + R * HD;                                                // [R][BK]
-  float *corr_s = ps + R * BK;                                            // [R]
-
   const int split = blockIdx.x;
   const int n_split = gridDim.x;
   const int kv = blockIdx.y;
@@ -126,12 +232,17 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
+  const int gid = lane >> 2;  // fragment row within the 8-row group
+  const int tig = lane & 3;   // thread in group: fragment column pair
+  const int quarter = warp % QUARTERS;
+  const int half = warp / QUARTERS;
 
   // the slots this block may read: its split, from the row's pad (and the
   // window floor of query 0, the lowest of the row's floors) to its last
   // limit, never at or past C
   const int fill = fills[b];
-  int lo = max(pad_lens[b], split * SPLIT);
+  const int pad = pad_lens[b];
+  int lo = max(pad, split * SPLIT);
   if (window > 0) lo = max(lo, fill - window + 1);
   const int hi = min(min(fill + Sq - 1, C - 1), split * SPLIT + SPLIT - 1);  // inclusive
   const size_t part = (static_cast<size_t>(b) * KV + kv) * n_split + split;
@@ -145,235 +256,410 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
     return;
   }
 
-  // query rows r = s * G + g (position-major), f32 in shared memory
-  for (int i = t; i < R * HD; i += NTHREADS) {
-    const int r = i / HD, d = i % HD;
-    const int s = r / G, g = r % G;
-    qs[i] = __bfloat162float(
-        q[((static_cast<size_t>(b) * Sq + s) * H + static_cast<size_t>(kv) * G + g) * HD + d]);
+  // this thread's 2 NT query rows (columns of S^T and O^T): r = half * ROWS
+  // + nt * 8 + 2 tig + e, each with its last visible slot (-1: a padding row)
+  int limit[2 * NT];
+#pragma unroll
+  for (int i = 0; i < 2 * NT; ++i) {
+    const int r = half * ROWS + (i >> 1) * 8 + 2 * tig + (i & 1);
+    limit[i] = r < R ? fill + r / G : -1;
   }
+
+  // this warp's slots: a quarter of the split, within [lo, hi]
+  const int w0 = split * SPLIT + quarter * WSLOTS;
+  const int w_lo = max(lo, w0);
+  const int w_hi = min(hi, w0 + WSLOTS - 1);
+  const int k_first = (w_lo / BK) * BK;
+  const int n_tiles = (w_lo <= w_hi && half * ROWS < R) ? (w_hi - k_first) / BK + 1 : 0;
+
   const size_t slot_base =
       ((static_cast<size_t>(layer) * B + b) * KV + kv) * static_cast<size_t>(C);
-  const uint32_t *kw = static_cast<const uint32_t *>(k_all);
-  const uint32_t *vw = static_cast<const uint32_t *>(v_all);
+  const unsigned char *kbytes = static_cast<const unsigned char *>(k_all);
+  const unsigned char *vbytes = static_cast<const unsigned char *>(v_all);
+  unsigned char *my_ring = ring + warp * RG::WARP;
 
-  // softmax state of this warp's rows (r = warp + NWARPS * i), replicated
-  // in every lane; PV accumulators of this thread's head dim and rows
-  // (r = pv_group + PV_GROUPS * i)
-  float m_run[ROWS_SOFTMAX], l_run[ROWS_SOFTMAX];
+  // one tile's K and V rows (16-byte chunks) and, for int8, its scales
+  // (lanes 0-15 ks, 16-31 vs); slots outside [w_lo, w_hi] are zero-filled
+  auto load_tile = [&](int tile) {
+    unsigned char *st = my_ring + (tile % RG::STAGES) * RG::STAGE;
+    const int k0 = k_first + tile * BK;
+    constexpr int CH = HD * ELEM / 16;  // chunks per slot row
 #pragma unroll
-  for (int i = 0; i < ROWS_SOFTMAX; ++i) {
+    for (int i = lane; i < BK * CH; i += 32) {
+      const int row = i / CH, c = i % CH;
+      const int slot = k0 + row;
+      const bool ok = slot >= w_lo && slot <= w_hi;
+      const size_t off = (slot_base + (ok ? slot : w_lo)) * (HD * ELEM) + c * 16;
+      cp_async16(st + row * RG::ROW + c * 16, kbytes + off, ok);
+      cp_async16(st + RG::KV_BYTES + row * RG::ROW + c * 16, vbytes + off, ok);
+    }
+    if (Q8) {
+      const int slot = k0 + (lane & 15);
+      const bool ok = slot >= w_lo && slot <= w_hi;
+      const float *src = (lane < 16 ? ks_all : vs_all) + slot_base + (ok ? slot : w_lo);
+      cp_async4(st + 2 * RG::KV_BYTES + lane * 4, src, ok);
+    }
+  };
+
+  // O^T [HD dims (8 m tiles) x ROWS rows]; the softmax state of this
+  // thread's rows, m replicated over the 8 lanes of a column, l partial
+  float o[HD / 16][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < HD / 16; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) o[mt][nt][0] = o[mt][nt][1] = o[mt][nt][2] = o[mt][nt][3] = 0.f;
+  float m_run[2 * NT], l_run[2 * NT];
+#pragma unroll
+  for (int i = 0; i < 2 * NT; ++i) {
     m_run[i] = NEG;
     l_run[i] = 0.f;
   }
-  const int d_pv = t % HD;
-  const int pv_group = t / HD;
-  float acc[ROWS_PV];
+
+  // ldmatrix row addresses: lane -> (matrix lane / 8, row lane % 8)
+  const int lm_mat = lane >> 3;
+  const int lm_row = lane & 7;
+
 #pragma unroll
-  for (int i = 0; i < ROWS_PV; ++i) acc[i] = 0.f;
+  for (int s = 0; s < RG::STAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    cp_async_commit();
+  }
 
-  const int j_score = t % BK;
-  const int score_group = t / BK;
+  // while the first tiles are in flight: Q rows r = s * G + g
+  // (position-major) into shared memory in QK's k order, rows past R zero,
+  // every 16-byte load issued before the first store
+  constexpr int QCH = HD / 8;                 // 16-byte chunks of a Q row
+  constexpr int QIT = RCAP * QCH / NTHREADS;  // chunks per thread
+  static_assert(RCAP * QCH % NTHREADS == 0, "whole Q chunks per thread");
+  uint4 qv[QIT];
+#pragma unroll
+  for (int x = 0; x < QIT; ++x) {
+    const int i = t + x * NTHREADS;
+    const int r = i / QCH, c = i % QCH;
+    qv[x] = make_uint4(0, 0, 0, 0);
+    if (r < R) {
+      const int s = r / G, g = r % G;
+      qv[x] = *reinterpret_cast<const uint4 *>(
+          q + ((static_cast<size_t>(b) * Sq + s) * H + static_cast<size_t>(kv) * G + g) * HD +
+          8 * c);
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < QIT; ++x) {
+    const int i = t + x * NTHREADS;
+    const int r = i / QCH, c = i % QCH;
+    const __nv_bfloat16 *e = reinterpret_cast<const __nv_bfloat16 *>(&qv[x]);
+#pragma unroll
+    for (int y = 0; y < 8; ++y) qs[r * QROW + k_pos<Q8>(8 * c + y)] = e[y];
+  }
+  __syncthreads();  // Q settled
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    // the ring's oldest buffer, freed by the __syncwarp that ended the
+    // previous tile, takes the tile STAGES - 1 ahead
+    if (tile + RG::STAGES - 1 < n_tiles) load_tile(tile + RG::STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<RG::STAGES - 1>();
+    __syncwarp();
+    const unsigned char *st = my_ring + (tile % RG::STAGES) * RG::STAGE;
+    const unsigned char *Kt = st;
+    const unsigned char *Vt = st + RG::KV_BYTES;
+    const int k0 = k_first + tile * BK;
 
-  for (int k0 = (lo / BK) * BK; k0 <= hi; k0 += BK) {
-    __syncthreads();  // the previous tile (and, first time, qs) settled
-    // stage the K and V tiles: 16-byte loads, consecutive threads on
-    // consecutive addresses; slots at or past C are zero-filled
-    constexpr int CHUNKS = BK * T::WORDS_PER_ROW / 4;  // 16-byte chunks per tile
-    for (int i = t; i < CHUNKS; i += NTHREADS) {
-      const int row = i / (T::WORDS_PER_ROW / 4);
-      const int word = (i % (T::WORDS_PER_ROW / 4)) * 4;
-      const int slot = k0 + row;
-      uint4 kr = make_uint4(0, 0, 0, 0), vr = make_uint4(0, 0, 0, 0);
-      if (slot < C) {
-        const size_t off = (slot_base + slot) * T::WORDS_PER_ROW + word;
-        kr = *reinterpret_cast<const uint4 *>(kw + off);
-        vr = *reinterpret_cast<const uint4 *>(vw + off);
+    // S^T = K Q^T: 16 slots x ROWS rows
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+    uint32_t kw[2][8];  // int8: 32 bytes of slots gid and gid + 8
+    if (Q8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 a = lds128(Kt + (gid + 8 * h) * RG::ROW + 32 * tig);
+        const uint4 c = lds128(Kt + (gid + 8 * h) * RG::ROW + 32 * tig + 16);
+        kw[h][0] = a.x; kw[h][1] = a.y; kw[h][2] = a.z; kw[h][3] = a.w;
+        kw[h][4] = c.x; kw[h][5] = c.y; kw[h][6] = c.z; kw[h][7] = c.w;
       }
-      uint32_t *kd = kbuf + row * T::KROW + word;
-      kd[0] = kr.x; kd[1] = kr.y; kd[2] = kr.z; kd[3] = kr.w;
-      *reinterpret_cast<uint4 *>(vbuf + row * T::VROW + word) = vr;
     }
-    if (t < BK) {
-      const int slot = k0 + t;
-      kss[t] = (Q8 && slot < C) ? ks_all[slot_base + slot] : 1.f;
-      vss[t] = (Q8 && slot < C) ? vs_all[slot_base + slot] : 1.f;
-    }
-    __syncthreads();
-
-    // scores: thread (score_group, j) takes slot k0 + j against rows
-    // r = score_group + SCORE_GROUPS * i; one K row read serves them all
-    {
-      float sc[ROWS_SCORE];
 #pragma unroll
-      for (int i = 0; i < ROWS_SCORE; ++i) sc[i] = 0.f;
-      const uint32_t *krow = kbuf + j_score * T::KROW;
-#pragma unroll 2
-      for (int w = 0; w < HD / 4; ++w) {
-        float k0f, k1f, k2f, k3f;
+    for (int kk2 = 0; kk2 < HD / 32; ++kk2) {
+      uint32_t ka[2][4];  // A fragments of k tiles 2 kk2 and 2 kk2 + 1
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int kk = 2 * kk2 + x;
         if (Q8) {
-          const uint32_t word = krow[w];
-          const char4 c = *reinterpret_cast<const char4 *>(&word);
-          k0f = c.x; k1f = c.y; k2f = c.z; k3f = c.w;
+          widen_int8x4(kw[0][kk], ka[x][0], ka[x][2]);
+          widen_int8x4(kw[1][kk], ka[x][1], ka[x][3]);
         } else {
-          const uint32_t w0 = krow[2 * w], w1 = krow[2 * w + 1];
-          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(&w0));
-          const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(&w1));
-          k0f = a.x; k1f = a.y; k2f = c.x; k3f = c.y;
+          ldsm_x4(ka[x], Kt + ((lm_mat & 1) * 8 + lm_row) * RG::ROW +
+                             (kk * 16 + (lm_mat >> 1) * 8) * 2);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t qb[4];  // b0, b1 of k tile 2 kk2; b0, b1 of 2 kk2 + 1
+        ldsm_x4(qb, qs + (half * ROWS + nt * 8 + lm_row) * QROW + kk2 * 32 + lm_mat * 8);
+        mma_bf16(sc[nt], ka[0], qb[0], qb[1]);
+        mma_bf16(sc[nt], ka[1], qb[2], qb[3]);
+      }
+    }
+
+    // online softmax per row (column) in the log2 domain; this lane holds
+    // slots gid (elements 0, 1) and gid + 8 (elements 2, 3). l sums the
+    // unscaled p; PV takes p * vs
+    const int slot0 = k0 + gid, slot1 = k0 + gid + 8;
+    const bool live0 = slot0 >= pad && slot0 < C;
+    const bool live1 = slot1 >= pad && slot1 < C;
+    float ks0 = 1.f, ks1 = 1.f, vs0 = 1.f, vs1 = 1.f;
+    if (Q8) {
+      const float *scl = reinterpret_cast<const float *>(st + 2 * RG::KV_BYTES);
+      ks0 = scl[gid];
+      ks1 = scl[gid + 8];
+      vs0 = scl[BK + gid];
+      vs1 = scl[BK + gid + 8];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * nt + e;
+        const int L = limit[i];
+        const bool ok0 = live0 && slot0 <= L && (window == 0 || slot0 > L - window);
+        const bool ok1 = live1 && slot1 <= L && (window == 0 || slot1 > L - window);
+        const float s0 = ok0 ? sc[nt][e] * scale_log2 * ks0 : NEG;
+        const float s1 = ok1 ? sc[nt][2 + e] * scale_log2 * ks1 : NEG;
+        float mx = fmaxf(s0, s1);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(m_run[i], mx);
+        const float corr = ex2(m_run[i] - m_new);
+        m_run[i] = m_new;
+        const float p0 = ok0 ? ex2(s0 - m_new) : 0.f;
+        const float p1 = ok1 ? ex2(s1 - m_new) : 0.f;
+        l_run[i] = l_run[i] * corr + p0 + p1;
+#pragma unroll
+        for (int mt = 0; mt < HD / 16; ++mt) {
+          o[mt][nt][e] *= corr;
+          o[mt][nt][2 + e] *= corr;
+        }
+        sc[nt][e] = Q8 ? p0 * vs0 : p0;
+        sc[nt][2 + e] = Q8 ? p1 * vs1 : p1;
+      }
+    }
+
+    // P^T fragments, hi and lo: the S^T accumulator of slots gid / gid + 8
+    // is the mma layout of an 8x8 (slot, row) matrix; its transpose is the
+    // B fragment of P^T (k = slots, n = rows)
+    uint32_t ph[NT][2], pl[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float a = sc[nt][2 * h], c = sc[nt][2 * h + 1];
+        const uint32_t hiw = pack_bf16(a, c);
+        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162 *>(&hiw);
+        const uint32_t low = pack_bf16(a - __low2float(hv), c - __high2float(hv));
+        ph[nt][h] = movmatrix_trans(hiw);
+        pl[nt][h] = movmatrix_trans(low);
+      }
+    }
+
+    // O^T += V^T P^T, once with p_hi and once with p_lo
+    if (Q8) {
+      // slots 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9: 16 bytes each, dims
+      // 16 gid .. 16 gid + 15
+      uint4 vr[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        vr[j] = lds128(Vt + (2 * tig + (j & 1) + 8 * (j >> 1)) * RG::ROW + 16 * gid);
+      }
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        // A fragments of m tiles 2 w and 2 w + 1 from byte i of word w of
+        // each slot (dim 16 gid + 4 w + i = 16 gid + 2 mt + (i & 1)): element
+        // (i & 1) + 2 h of m tile 2 w + (i >> 1), for the slot pairs h =
+        // (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9); the mma's A order is
+        // (row gid, k lo), (row gid + 8, k lo), (row gid, k hi), (row gid + 8, k hi).
+        // The two slots' bytes interleave as (d0 s0, d0 s1, d1 s0, d1 s1)
+        uint32_t va[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t x0 = (&vr[2 * h].x)[w], x1 = (&vr[2 * h + 1].x)[w];
+          uint32_t lo_, hi_;
+          widen_int8x4(__byte_perm(x0, x1, 0x5140), lo_, hi_);
+          va[0][2 * h] = lo_;
+          va[0][2 * h + 1] = hi_;
+          widen_int8x4(__byte_perm(x0, x1, 0x7362), lo_, hi_);
+          va[1][2 * h] = lo_;
+          va[1][2 * h + 1] = hi_;
         }
 #pragma unroll
-        for (int i = 0; i < ROWS_SCORE; ++i) {
-          const int r = score_group + SCORE_GROUPS * i;
-          if (r < R) {
-            const float4 qv = *reinterpret_cast<const float4 *>(qs + r * HD + 4 * w);
-            sc[i] += qv.x * k0f + qv.y * k1f + qv.z * k2f + qv.w * k3f;
+        for (int x = 0; x < 2; ++x) {
+          const uint32_t a[4] = {va[x][0], va[x][1], va[x][2], va[x][3]};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            mma_bf16(o[2 * w + x][nt], a, ph[nt][0], ph[nt][1]);
+            mma_bf16(o[2 * w + x][nt], a, pl[nt][0], pl[nt][1]);
           }
         }
       }
+    } else {
 #pragma unroll
-      for (int i = 0; i < ROWS_SCORE; ++i) {
-        const int r = score_group + SCORE_GROUPS * i;
-        if (r < R) ps[r * BK + j_score] = Q8 ? sc[i] * scale * kss[j_score] : sc[i] * scale;
+      for (int mt = 0; mt < HD / 16; ++mt) {
+        uint32_t a[4];
+        ldsm_x4_trans(a, Vt + ((lm_mat >> 1) * 8 + lm_row) * RG::ROW +
+                             (mt * 16 + (lm_mat & 1) * 8) * 2);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_bf16(o[mt][nt], a, ph[nt][0], ph[nt][1]);
+          mma_bf16(o[mt][nt], a, pl[nt][0], pl[nt][1]);
+        }
       }
     }
-    __syncthreads();
+    __syncwarp();  // every lane is done with this buffer
+  }
+  cp_async_wait<0>();
 
-    // online softmax: warp w owns rows r = w + NWARPS * i, lane l the slots
-    // k0 + l and k0 + l + 32; l sums the unscaled p, PV takes p * vs
+  // the warps' (o, m, l) -> the block's partial, through shared memory
 #pragma unroll
-    for (int i = 0; i < ROWS_SOFTMAX; ++i) {
-      const int r = warp + NWARPS * i;
-      if (r < R) {
-        const int limit = fill + r / G;  // last slot query r sees
-        const int top = min(hi, limit);
-        float sv[BK / 32];
-        bool ok[BK / 32];
-        float tmax = NEG;
+  for (int i = 0; i < 2 * NT; ++i) {
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 4);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 8);
+    l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 16);
+  }
+  __syncthreads();  // every warp is done with its ring
+  if (gid == 0) {
 #pragma unroll
-        for (int c = 0; c < BK / 32; ++c) {
-          const int j = lane + 32 * c;
-          const int slot = k0 + j;
-          ok[c] = slot >= lo && slot <= top && (window == 0 || slot > limit - window);
-          sv[c] = ok[c] ? ps[r * BK + j] : NEG;
-          tmax = fmaxf(tmax, sv[c]);
-        }
-        const float m_new = fmaxf(m_run[i], warp_max(tmax));
-        const float corr = __expf(m_run[i] - m_new);
-        float psum = 0.f;
-#pragma unroll
-        for (int c = 0; c < BK / 32; ++c) {
-          const int j = lane + 32 * c;
-          const float p = ok[c] ? __expf(sv[c] - m_new) : 0.f;
-          psum += p;
-          ps[r * BK + j] = Q8 ? p * vss[j] : p;
-        }
-        l_run[i] = l_run[i] * corr + warp_sum(psum);
-        m_run[i] = m_new;
-        if (lane == 0) corr_s[r] = corr;
-      }
-    }
-    __syncthreads();
-
-    // O = O * corr + P V: thread t owns head dim t % HD of rows
-    // r = pv_group + PV_GROUPS * i; V rows are read across threads, and
-    // each row's probabilities four slots at a time. Slots past `hi` up to
-    // the next multiple of 4 carry p = 0 and finite V (zero past C)
-    const int rows4 = (min(BK, hi + 1 - k0) + 3) & ~3;
-#pragma unroll
-    for (int i = 0; i < ROWS_PV; ++i) {
-      const int r = pv_group + PV_GROUPS * i;
-      if (r < R) acc[i] *= corr_s[r];
-    }
-    for (int j = 0; j < rows4; j += 4) {
-      float v[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (Q8) {
-          v[c] = static_cast<float>(
-              reinterpret_cast<const int8_t *>(vbuf + (j + c) * T::VROW)[d_pv]);
-        } else {
-          v[c] = __bfloat162float(
-              reinterpret_cast<const __nv_bfloat16 *>(vbuf + (j + c) * T::VROW)[d_pv]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS_PV; ++i) {
-        const int r = pv_group + PV_GROUPS * i;
-        if (r < R) {
-          const float4 p = *reinterpret_cast<const float4 *>(ps + r * BK + j);
-          acc[i] += p.x * v[0] + p.y * v[1] + p.z * v[2] + p.w * v[3];
-        }
-      }
+    for (int i = 0; i < 2 * NT; ++i) {
+      const int rl = (i >> 1) * 8 + 2 * tig + (i & 1);
+      ms[warp * ROWS + rl] = m_run[i];
+      ls[warp * ROWS + rl] = l_run[i];
     }
   }
-
+  __syncthreads();
+  float *my_o = obuf + warp * ROWS * HD;
 #pragma unroll
-  for (int i = 0; i < ROWS_PV; ++i) {
-    const int r = pv_group + PV_GROUPS * i;
-    if (r < R) o_part[(part * R + r) * HD + d_pv] = acc[i];
-  }
+  for (int i = 0; i < 2 * NT; ++i) {
+    const int nt = i >> 1, e = i & 1;
+    const int rl = nt * 8 + 2 * tig + e;
+    float M = NEG;
 #pragma unroll
-  for (int i = 0; i < ROWS_SOFTMAX; ++i) {
-    const int r = warp + NWARPS * i;
-    if (r < R && lane == 0) {
-      m_part[part * R + r] = m_run[i];
-      l_part[part * R + r] = l_run[i];
+    for (int w = 0; w < QUARTERS; ++w) M = fmaxf(M, ms[(half * QUARTERS + w) * ROWS + rl]);
+    const float f = ex2(m_run[i] - M);
+#pragma unroll
+    for (int mt = 0; mt < HD / 16; ++mt) {
+      my_o[rl * HD + o_dim<Q8>(mt, gid, 0)] = o[mt][nt][e] * f;
+      my_o[rl * HD + o_dim<Q8>(mt, gid, 1)] = o[mt][nt][2 + e] * f;
     }
+  }
+  __syncthreads();
+  for (int i = t; i < R * HD; i += NTHREADS) {
+    const int r = i / HD, d = i % HD;
+    const int h = r / ROWS, rl = r % ROWS;
+    float acc = 0.f;
+    for (int w = 0; w < QUARTERS; ++w) acc += obuf[((h * QUARTERS + w) * ROWS + rl) * HD + d];
+    o_part[part * R * HD + i] = acc;
+  }
+  for (int r = t; r < R; r += NTHREADS) {
+    const int h = r / ROWS, rl = r % ROWS;
+    float M = NEG, L = 0.f;
+    for (int w = 0; w < QUARTERS; ++w) M = fmaxf(M, ms[(h * QUARTERS + w) * ROWS + rl]);
+    for (int w = 0; w < QUARTERS; ++w) {
+      const int x = (h * QUARTERS + w) * ROWS + rl;
+      L += ls[x] * ex2(ms[x] - M);
+    }
+    m_part[part * R + r] = M;
+    l_part[part * R + r] = L;
   }
 }
 
-// pass 2: one block per (KV head, batch row); thread t owns head dim t
-__global__ void __launch_bounds__(HD)
+// pass 2: one warp per (query row, KV head, batch row); lane owns head dims
+// 4 lane .. 4 lane + 3
+__global__ void __launch_bounds__(128)
 flash_verify_merge_kernel(const float *__restrict__ o_part, const float *__restrict__ m_part,
                           const float *__restrict__ l_part, __nv_bfloat16 *__restrict__ out,
-                          int Sq, int H, int KV, int n_split) {
-  const int kv = blockIdx.x;
-  const int b = blockIdx.y;
+                          int B, int Sq, int H, int KV, int n_split) {
   const int G = H / KV;
   const int R = Sq * G;
-  const int t = threadIdx.x;
+  const int item = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (item >= B * KV * R) return;
+  const int lane = threadIdx.x & 31;
+  const int r = item % R;
+  const int kv = (item / R) % KV;
+  const int b = item / (R * KV);
   const size_t pair = (static_cast<size_t>(b) * KV + kv) * n_split;
-  for (int r = 0; r < R; ++r) {
-    float m = NEG;
-    for (int s = 0; s < n_split; ++s) m = fmaxf(m, m_part[(pair + s) * R + r]);
-    float l = 0.f, o = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float f = __expf(m_part[(pair + s) * R + r] - m);
-      l += l_part[(pair + s) * R + r] * f;
-      o += o_part[((pair + s) * R + r) * HD + t] * f;
-    }
-    const int sq = r / G, g = r % G;
-    const size_t q_off =
-        ((static_cast<size_t>(b) * Sq + sq) * H + static_cast<size_t>(kv) * G + g) * HD;
-    out[q_off + t] = __float2bfloat16(o / fmaxf(l, 1e-30f));
+  float m = NEG;
+  for (int s = 0; s < n_split; ++s) m = fmaxf(m, m_part[(pair + s) * R + r]);
+  float l = 0.f;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < n_split; ++s) {
+    const float f = ex2(m_part[(pair + s) * R + r] - m);
+    l += l_part[(pair + s) * R + r] * f;
+    const float4 v =
+        *reinterpret_cast<const float4 *>(o_part + ((pair + s) * R + r) * HD + 4 * lane);
+    o.x += v.x * f;
+    o.y += v.y * f;
+    o.z += v.z * f;
+    o.w += v.w * f;
   }
+  const float den = fmaxf(l, 1e-30f);
+  const int sq = r / G, g = r % G;
+  const size_t q_off =
+      ((static_cast<size_t>(b) * Sq + sq) * H + static_cast<size_t>(kv) * G + g) * HD;
+  uint2 packed;
+  packed.x = pack_bf16(o.x / den, o.y / den);
+  packed.y = pack_bf16(o.z / den, o.w / den);
+  *reinterpret_cast<uint2 *>(out + q_off + 4 * lane) = packed;
 }
 
 // Both passes of one call on `st`; returns cudaGetLastError() (0 = launched).
-// Blocks of up to RCAP rows need more than the 48 KB of shared memory a
-// block gets without asking; the attribute is set once per instantiation, to
-// the size its largest R takes.
-template <bool Q8, int RCAP>
+// A block takes more than the 48 KB of shared memory a block gets without
+// asking; the attribute is set once per instantiation.
+template <bool Q8, int NT, int HALVES>
 int launch(const __nv_bfloat16 *q, const void *k, const void *v, const void *ks,
            const void *vs, const int *pads, const int *fills, float *op, float *mp, float *lp,
            __nv_bfloat16 *out, int B, int Sq, int H, int KV, int C, int layer, int window,
-           float scale, int n_split, cudaStream_t st) {
+           float scale_log2, int n_split, cudaStream_t st) {
+  using LY = Layout<Q8, NT, HALVES>;
   static bool smem_set = false;
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_verify_split_kernel<Q8, RCAP>,
+    const cudaError_t err = cudaFuncSetAttribute(flash_verify_split_kernel<Q8, NT, HALVES>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 Tile<Q8>::smem(RCAP));
+                                                 LY::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  const int R = Sq * (H / KV);
-  flash_verify_split_kernel<Q8, RCAP><<<dim3(n_split, KV, B), NTHREADS, Tile<Q8>::smem(R), st>>>(
-      q, k, v, static_cast<const float *>(ks), static_cast<const float *>(vs), pads, fills, op,
-      mp, lp, B, Sq, H, KV, C, layer, window, scale);
+  flash_verify_split_kernel<Q8, NT, HALVES>
+      <<<dim3(n_split, KV, B), LY::NWARPS * 32, LY::SMEM, st>>>(
+          q, k, v, static_cast<const float *>(ks), static_cast<const float *>(vs), pads, fills,
+          op, mp, lp, B, Sq, H, KV, C, layer, window, scale_log2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_verify_merge_kernel<<<dim3(KV, B), HD, 0, st>>>(op, mp, lp, out, Sq, H, KV, n_split);
+  const int items = B * KV * Sq * (H / KV);
+  flash_verify_merge_kernel<<<(items + 3) / 4, 128, 0, st>>>(op, mp, lp, out, B, Sq, H, KV,
+                                                             n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool Q8>
+int smem_of(int R) {
+  if (R <= 8) return Layout<Q8, 1, 1>::SMEM;
+  if (R <= 32) return Layout<Q8, 4, 1>::SMEM;
+  return Layout<Q8, 4, 2>::SMEM;
+}
+
+template <bool Q8>
+int launch_for(int R, const __nv_bfloat16 *q, const void *k, const void *v, const void *ks,
+               const void *vs, const int *pads, const int *fills, float *op, float *mp,
+               float *lp, __nv_bfloat16 *out, int B, int Sq, int H, int KV, int C, int layer,
+               int window, float scale_log2, int n_split, cudaStream_t st) {
+  if (R <= 8)
+    return launch<Q8, 1, 1>(q, k, v, ks, vs, pads, fills, op, mp, lp, out, B, Sq, H, KV, C,
+                            layer, window, scale_log2, n_split, st);
+  if (R <= 32)
+    return launch<Q8, 4, 1>(q, k, v, ks, vs, pads, fills, op, mp, lp, out, B, Sq, H, KV, C,
+                            layer, window, scale_log2, n_split, st);
+  return launch<Q8, 4, 2>(q, k, v, ks, vs, pads, fills, op, mp, lp, out, B, Sq, H, KV, C, layer,
+                          window, scale_log2, n_split, st);
 }
 
 }  // namespace
@@ -384,7 +670,7 @@ extern "C" int vnsum_flash_verify_splits(int C) { return (C + SPLIT - 1) / SPLIT
 
 // Dynamic shared memory of a pass-1 block for R = Sq * G query rows.
 extern "C" int vnsum_flash_verify_smem(int R, int quantized) {
-  return quantized ? Tile<true>::smem(R) : Tile<false>::smem(R);
+  return quantized ? smem_of<true>(R) : smem_of<false>(R);
 }
 
 // Plain C entry point, loaded with ctypes. Launches both passes on `stream`
@@ -410,18 +696,11 @@ extern "C" int vnsum_flash_verify(const void *q, const void *k, const void *v, c
   float *op = static_cast<float *>(o_part);
   float *mp = static_cast<float *>(m_part);
   float *lp = static_cast<float *>(l_part);
+  const float scale_log2 = scale * LOG2E;
   if (quantized) {
-    if (R <= 8) return launch<true, 8>(qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C,
-                                       layer, window, scale, n_split, st);
-    if (R <= 32) return launch<true, 32>(qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV,
-                                         C, layer, window, scale, n_split, st);
-    return launch<true, 64>(qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C, layer,
-                            window, scale, n_split, st);
+    return launch_for<true>(R, qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C,
+                            layer, window, scale_log2, n_split, st);
   }
-  if (R <= 8) return launch<false, 8>(qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C,
-                                      layer, window, scale, n_split, st);
-  if (R <= 32) return launch<false, 32>(qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C,
-                                        layer, window, scale, n_split, st);
-  return launch<false, 64>(qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C, layer,
-                           window, scale, n_split, st);
+  return launch_for<false>(R, qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C,
+                           layer, window, scale_log2, n_split, st);
 }

@@ -7,10 +7,13 @@ at its own cache offset: query (b, s) sits at slot ``fills_b + s`` and
 attends layer ``layer_idx`` of the stacked cache under the mask
 ``pad_b <= k <= fills_b + s`` and ``window == 0 or k > fills_b + s - window``.
 The speculative verify step calls it with Sq = spec_k + 1; the in-flight
-slot segment with Sq = 1 and one fill per row. All arithmetic is f32, with
-the same int8 algebra as the prefill and decode kernels; a (row, query)
-that sees no key comes out as 0. ``fills`` stay on the device: nothing here
-reads them to the host.
+slot segment with Sq = 1 and one fill per row. The function is f32
+throughout, with the same int8 algebra as the prefill and decode kernels;
+a (row, query) that sees no key comes out as 0. The kernel runs both
+products on bf16 tensor cores and stays that function up to summation
+order: QK's products are exact, and PV takes p as bf16 hi + lo halves
+(``csrc/flash_verify.cu`` says how). ``fills`` stay on the device: nothing
+here reads them to the host.
 
 :func:`flash_spec_verify_attention` launches the CUDA kernel
 (``csrc/flash_verify.cu``) for tensors on the card and takes the plain
