@@ -23,25 +23,28 @@ Phases, each raising on failure (so any failure exits non-zero):
    partials (K2p) at the long path's shape (B=2, C=32768, fill C-1, bf16
    and int8, layers 0 and 27 of 28, pads 0 and 12000 and a row whose pad
    is C, which must come out exactly m = -1e30, l = 0, o = 0), with o, m
-   and l each held to its own limit and o / l to K2's output; and the
-   prefill kernel at path (c)'s prefill (B=2, S = C = 32768, q_offset 0,
+   and l each held to its own limit and o / l to K2's output; K2 and K2p at
+   G=2 (Qwen3-0.6B) and G=8 (the kernel's largest), and with the fill as an
+   int32 tensor on the device (one past the cache, which the kernel
+   clamps); and the prefill kernel at path (c)'s prefill (B=2, S = C = 32768, q_offset 0,
    bf16, the pads of its two prompts, layers 0 and 27 of 28), run over the
    whole sequence and held to its plain version on four 512-query slices
    (its first 512 queries see no key and must be 0);
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
-   with one cache slot per split or tile left out (K2p: the merge of the
-   splits leaves out the last one; K3 has a second fault, its in-block
-   merge leaving out the last warp's share of o), must fail every case of
-   that kernel in phase 3, so the limits are shown to be tight enough to
-   see such a fault. K2 and K2p are the two modes of one source and
-   share both its passes, so a fault there may fail both: the two count as
-   one family;
+   with one cache slot per split or tile left out (flash_decode.cu and K3
+   have two more: the merge of the splits leaving out the fill's split, and
+   the in-block merge leaving out the last warp's share of o), must fail
+   every case of that kernel in phase 3 and no other, so the limits are
+   shown to be tight enough to see such a fault. K2 and K2p are the two
+   modes of one source and share both its passes, so the two count as one
+   family, and each of its faults must fail every K2 and K2p case;
 5. timing at the main path's shapes (Llama-3.2-3B: L=28, H=24, KV=8,
    hd=128; prefill B=8 S=4096 C=4224, decode B=8 C=4224 fill=4200; verify
    B=8 Sq=9 C=4233 and B=8 Sq=1 C=4224): the kernel, the bound (bytes over
    3.35 TB/s or FLOP over the peak rate of the unit that does them, from
-   this run's inputs; K3's products on bf16 tensor cores, PV counted twice
-   for its hi/lo halves), K3's two passes apart (torch.profiler), the
+   this run's inputs; K2's, K2p's and K3's products on bf16 tensor cores,
+   PV counted twice for its hi/lo halves), the two passes of K2, K2p and
+   K3 apart (torch.profiler), the
    plain version, and one PyTorch library call computing the
    same function (scaled_dot_product_attention with an explicit mask on a
    bf16 cache; timed here only, never used by the port); one output of
@@ -112,25 +115,25 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate, HBM rate
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # TOLERANCES: the stated limits on |kernel - plain|, from each kernel's
 # sound error.
-# decode and verify: both versions are f32 throughout and differ by
-#   summation order (~1e-6 relative) and then by at most one bf16 ulp in the
-#   final cast, where ulp(x) <= 2^-7 |x|: per element, 1e-4 + 2^-7 |plain|.
+# decode and verify: the reference is f32 and the kernels differ from it by
+#   summation order (~1e-6 relative), by the bf16 hi + lo split of p before
+#   PV (at most 2^-18 of p) and then by at most one bf16 ulp in the final
+#   cast, where ulp(x) <= 2^-7 |x|: per element, 1e-4 + 2^-7 |plain|.
 # prefill: besides, both round p to bf16 before PV, the kernel against its
 #   running max and the plain version against the row max: two roundings of
 #   up to 2^-9, which move an output by a few 2^-9 of its row's scale, on
 #   top of the final cast's 2^-7: per (query, head) row, 2e-2 times the
 #   largest |plain| of its hd elements, so a row that sees no key must be 0.
 # decode partials (K2p, f32 out, no final cast): the two versions differ by
-#   summation order only. m is a max of 128-term f32 dot products, ~1e-6
-#   off: 1e-4 + 1e-5 |m|. l sums up to C exponentials, each off by the
-#   score error and the order of the sum, ~1e-6 relative: 1e-4 l. Each
-#   element of o sums p v over the same slots, so its error is that of l
-#   times max |v|: 1e-5 + 1e-4 l max|v|. o / max(l, 1e-30) is held to K2's
+#   summation order and the 2^-18 of p's hi + lo split. m is a max of
+#   128-term f32 dot products, ~1e-6 off: 1e-4 + 1e-5 |m|. l sums up to C
+#   exponentials, each off by the score error and the order of the sum,
+#   ~1e-6 relative: 1e-4 l. Each element of o sums p v over the same slots,
+#   so its error is that of l times max |v|: 1e-5 + 1e-4 l max|v|. o / max(l, 1e-30) is held to K2's
 #   output on the same cache at K2's limit. A row that sees no key must be
 #   exactly m = -1e30, l = 0, o = 0.
 DECODE_ATOL, DECODE_RTOL = 1e-4, 2.0**-7
@@ -162,15 +165,16 @@ LONG_LOGITS_RTOL = {"path": 1e-2, "short": 5e-2}
 SPEC_LOGITS_RTOL = 0.1
 
 # phase 4's planted faults: (what it does, kernel, source, text, replacement).
-# A fault must fail every case of its kernel and no case outside its
-# kernel's family (FAMILY): K2 and K2p share both passes of flash_decode.cu.
+# A fault must fail every case of its kernel's family (FAMILY) and no case
+# outside it: K2 and K2p share both passes of flash_decode.cu, so each of
+# its three faults must fail every K2 and every K2p case.
 MUTANTS = (
     ("decode leaves out the last slot of every 512-slot split", "decode", "flash_decode.cu",
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
-    ("the merge of the splits leaves out the last split's l and o", "partials",
-     "flash_decode.cu",
-     "    float l = 0.f, o = 0.f;\n    for (int s = 0; s < n_split; ++s) {",
-     "    float l = 0.f, o = 0.f;\n    for (int s = 0; s < n_split - 1; ++s) {"),
+    ("the merge of the splits leaves out the l and o of the fill's split", "partials",
+     "flash_decode.cu", "s < n_live ? ex2(", "s < n_live - 1 ? ex2("),
+    ("decode's in-block merge leaves out the last warp's 128 slots of o", "decode",
+     "flash_decode.cu", "w < NWARPS; ++w) acc +=", "w < NWARPS - 1; ++w) acc +="),
     ("prefill leaves out the last slot of every unmasked 64-slot tile", "prefill",
      "flash_prefill.cu",
      "      l_run[i] += p;\n",
@@ -241,8 +245,9 @@ def phase_environment(torch) -> str:
 
 def phase_build() -> float:
     """Builds every kernel and prints each kernel function's registers and
-    spills (ptxas -v) and K3's dynamic shared memory at the main path's
-    row counts."""
+    spills (ptxas -v), K3's dynamic shared memory at the main path's row
+    counts and K2/K2p's pass 1's."""
+    from vnsum_tpu_torch.ops import decode_attention as da
     from vnsum_tpu_torch.ops import kernels
     from vnsum_tpu_torch.ops import verify_attention as va
 
@@ -261,6 +266,9 @@ def phase_build() -> float:
     for R in (3, 27):
         log(f"[build] flash_verify dynamic shared memory at Sq*G={R}: "
             f"int8 {lib.vnsum_flash_verify_smem(R, 1)} B, bf16 {lib.vnsum_flash_verify_smem(R, 0)} B")
+    lib = da._library()
+    log(f"[build] flash_decode pass 1 dynamic shared memory: int8 "
+        f"{lib.vnsum_flash_decode_smem(1)} B, bf16 {lib.vnsum_flash_decode_smem(0)} B")
     return seconds
 
 
@@ -396,9 +404,9 @@ def phase_correctness(torch) -> dict:
         if empty_row is not None and float(got[empty_row].float().abs().max()) != 0.0:
             FAILED.append(f"prefill {case}: row {empty_row} sees no key and must come out 0")
 
-    def decode(case, q, cache, layer, pads, fill, window, empty_row=None):
-        got = da.flash_decode_attention(q, cache, layer, pads, fill, G, window)
-        want = da.flash_decode_attention_ref(q, cache, layer, pads, fill, G, window)
+    def decode(case, q, cache, layer, pads, fill, window, empty_row=None, g=G):
+        got = da.flash_decode_attention(q, cache, layer, pads, fill, g, window)
+        want = da.flash_decode_attention_ref(q, cache, layer, pads, fill, g, window)
         compare(torch, "decode", f"decode {case}", got, want, worst)
         if empty_row is not None and float(got[empty_row].float().abs().max()) != 0.0:
             FAILED.append(f"decode {case}: row {empty_row} sees no key and must come out 0")
@@ -437,6 +445,34 @@ def phase_correctness(torch) -> dict:
                 decode(f"int8={quantized} B={B} C={C} fill={fill} layer={layer} "
                        "(pipeline batch)", qd, cache, layer, pads, fill, 0)
             del cache, q, qd
+    torch.cuda.empty_cache()
+
+    # K2 and K2p at the other group sizes the kernel takes: G=2 (Qwen3-0.6B,
+    # 16 query heads on 8 KV heads) and G=8, its largest (64 on 8, as
+    # Llama-3.1-70B); row 2 sees no key
+    C = 2176
+    for g in (2, 8):
+        for quantized in (False, True):
+            cache = make_cache(torch, 2, 3, KV, C, hd, quantized, 90 + g + quantized, dev)
+            q = rand_q(torch, (3, 1, KV * g, hd), 91 + g, dev)
+            decode(f"int8={quantized} G={g} B=3 C={C} fill=2000 layer=1", q, cache, 1,
+                   pads_of([0, 37, 2001]), 2000, 0, empty_row=2, g=g)
+            check_partials(torch, worst, f"partials int8={quantized} G={g} B=3 C={C} "
+                           f"fill={C - 1} pads=[0, 1500, {C}] layer=1", q, cache, 1,
+                           pads_of([0, 1500, C]), C - 1, g, inert_rows=(2,))
+            del cache, q
+    # the fill as an int32 tensor on the device, which the kernel reads there:
+    # K2 at the map batch's shape, K2p with a fill past the cache (clamped to
+    # C - 1, as the plain version clamps it)
+    C = 4096 + 128
+    cache = make_cache(torch, 2, 8, KV, C, hd, True, 95, dev)
+    q = rand_q(torch, (8, 1, H, hd), 96, dev)
+    pads = pads_of([0, 37, 400, 1000, 2500, 3000, 4095, 4096])
+    decode(f"int8=True B=8 C={C} fill=4200 on the device layer=1", q, cache, 1, pads,
+           pads_of([4200]), 0)
+    check_partials(torch, worst, f"partials int8=True B=8 C={C} fill={C + 100} on the device "
+                   "(clamped to C - 1) layer=1", q, cache, 1, pads, pads_of([C + 100]), G)
+    del cache, q
     torch.cuda.empty_cache()
 
     # K3 at the spec path's shape: B=8, spec_k 8 (Sq=9), S=4096, 128 new
@@ -507,8 +543,6 @@ def partials_cases(torch, worst, dev="cuda") -> None:
     at S=32768, read whole (fill = C - 1), layers 0 and 27 of 28; pads 0
     and 12000, and a row whose pad is C (it sees no key: exactly inert).
     K1's cases at path (c)'s prefill share the bf16 cache."""
-    from vnsum_tpu_torch.ops import decode_attention as da
-
     L, B, KV, G, hd, C = 28, 2, 8, 3, 128, 32768
     H = KV * G
     for quantized in (False, True):
@@ -519,19 +553,29 @@ def partials_cases(torch, worst, dev="cuda") -> None:
                               (L - 1, [0, 12000])):
             q = rand_q(torch, (B, 1, H, hd), 61 + layer + pads_h[1], dev)
             pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
-            got = da.flash_decode_partials(q, cache, layer, pads, C - 1, G)
-            want = da.flash_decode_partials_ref(q, cache, layer, pads, C - 1, G)
-            k2 = da.flash_decode_attention(q, cache, layer, pads, C - 1, G)
-            vmax = float(cache_v_amax(cache, layer))
-            case = f"partials int8={quantized} B={B} C={C} fill={C - 1} pads={pads_h} layer={layer}"
-            compare_partials(torch, case, got, want, k2, vmax, worst)
-            for row, pad in enumerate(pads_h):
-                o, m, l = (t[row] for t in got)
-                if pad >= C and not (bool((m == -1e30).all()) and not l.any() and not o.any()):
-                    FAILED.append(f"{case}: row {row} sees no key and must come out "
-                                  "exactly m = -1e30, l = 0, o = 0")
+            check_partials(
+                torch, worst, f"partials int8={quantized} B={B} C={C} fill={C - 1} "
+                f"pads={pads_h} layer={layer}", q, cache, layer, pads, C - 1, G,
+                inert_rows=[row for row, pad in enumerate(pads_h) if pad >= C])
         del cache
         torch.cuda.empty_cache()
+
+
+def check_partials(torch, worst, case, q, cache, layer, pads, fill, G, inert_rows=()) -> None:
+    """K2p against its plain version, and o / l against K2, on one input
+    (``compare_partials``); each of ``inert_rows`` sees no key and must come
+    out exactly m = -1e30, l = 0, o = 0."""
+    from vnsum_tpu_torch.ops import decode_attention as da
+
+    got = da.flash_decode_partials(q, cache, layer, pads, fill, G)
+    want = da.flash_decode_partials_ref(q, cache, layer, pads, fill, G)
+    k2 = da.flash_decode_attention(q, cache, layer, pads, fill, G)
+    compare_partials(torch, case, got, want, k2, float(cache_v_amax(cache, layer)), worst)
+    for row in inert_rows:
+        o, m, l = (t[row] for t in got)
+        if not (bool((m == -1e30).all()) and not l.any() and not o.any()):
+            FAILED.append(f"{case}: row {row} sees no key and must come out "
+                          "exactly m = -1e30, l = 0, o = 0")
 
 
 def long_prefill_cases(torch, worst, cache, G) -> None:
@@ -606,8 +650,9 @@ def phase_mutants(n_cases: int) -> None:
     case of its kernel and leave the cases of kernels outside its family
     passing: the limits see a kernel that leaves out one cache slot in 512
     (decode, verify), one in 64 away from the causal diagonal (prefill, up
-    to path (c)'s 32768 slots), the last 512-slot split of 64 (decode
-    partials) or the last warp's 128 slots of a split's o (verify). The
+    to path (c)'s 32768 slots), the 512-slot split that holds the fill
+    (decode's merge, down to the fill's one slot where a row sees little
+    else) or the last warp's 128 slots of a split's o (decode, verify). The
     copies build and run three at a time: each holds 10-15 GB of caches at
     its peak, and with five at once one copy stopped short of its last
     cases in one run."""
@@ -638,21 +683,20 @@ def phase_mutants(n_cases: int) -> None:
         checks = [ln[len("[check] "):] for ln in out.splitlines() if ln.startswith("[check] ")]
         for line in checks:
             log(f"[mutant] {what}: {line}")
-        mine = [ln for ln in checks if ln.startswith(kernel + " ")]
-        caught = [ln for ln in mine if ln.endswith("OVER THE LIMIT")]
         family = FAMILY.get(kernel, (kernel,))
+        mine = [ln for ln in checks if ln.split(" ", 1)[0] in family]
+        caught = [ln for ln in mine if ln.endswith("OVER THE LIMIT")]
         others = [ln for ln in checks if ln.split(" ", 1)[0] not in family
                   and ln.endswith("OVER THE LIMIT")]
         if (rc == 0 or len(checks) != n_cases or not mine or len(caught) != len(mine)
                 or others):
             raise AssertionError(
-                f"planted fault '{what}' was not caught in every {kernel} case and only "
-                f"there (exit {rc}, {len(checks)} of {n_cases} cases run, {len(caught)} of "
-                f"{len(mine)} caught, {len(others)} other cases over):\n" + (out + err)[-4000:])
-        in_family = sum(ln.split(" ", 1)[0] in family for ln in checks) - len(mine)
-        log(f"[mutant] {what}: over the limit in all {len(mine)} {kernel} cases and in "
-            f"none of the {len(checks) - len(mine) - in_family} outside its family "
-            f"{'/'.join(family)}, as it must be")
+                f"planted fault '{what}' was not caught in every {'/'.join(family)} case "
+                f"and only there (exit {rc}, {len(checks)} of {n_cases} cases run, "
+                f"{len(caught)} of {len(mine)} caught, {len(others)} other cases over):\n"
+                + (out + err)[-4000:])
+        log(f"[mutant] {what}: over the limit in all {len(mine)} {'/'.join(family)} cases "
+            f"and in none of the {len(checks) - len(mine)} outside them, as it must be")
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -721,17 +765,21 @@ def phase_timing(torch, worst) -> dict:
     compare(torch, "prefill", f"prefill int8=True B={B} S={S} C={C} layer={L - 1} (timing inputs)",
             fa.flash_prefill_attention(q, cache, L - 1, pads, G, 0, 0),
             fa.flash_prefill_attention_ref(q, cache, L - 1, pads, G, 0, 0), worst)
-    # decode: one query per row over slots pad_b..fill
+    # decode: one query per row over slots pad_b..fill; on bf16 tensor
+    # cores, 2 hd FLOP of QK and 2 x 2 hd of PV (p_hi and p_lo) per visible
+    # (query head, slot) pair
     visible = sum(fill + 1 - p for p in pads_h)
-    flops = 4 * hd * H * visible
+    flops = 6 * hd * H * visible
     bytes_ = 2 * qd.numel() * 2 + 2 * visible * KV * hd * 1 + 2 * visible * KV * 4
     ms = time_ms(torch, lambda i: da.flash_decode_attention(
         qd, cache, i % L, pads, fill, G, 0), n=4 * L)
+    decode_passes(torch, f"decode int8=True B={B} C={C} fill={fill}", ms,
+                  lambda i: da.flash_decode_attention(qd, cache, i % L, pads, fill, G, 0), 4 * L)
     plain = time_ms(torch, lambda i: da.flash_decode_attention_ref(
         qd, cache, i % L, pads, fill, G, 0), n=L)
     library = time_ms(torch, lambda i: F.scaled_dot_product_attention(
         qdt, k_lib[i % lib_layers], v_lib[i % lib_layers], attn_mask=dec_mask), n=4 * lib_layers)
-    out["decode"] = timing_record(ms, plain, library, flops, bytes_, PEAK_FP32_FLOPS)
+    out["decode"] = timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
     compare(torch, "decode", f"decode int8=True B={B} C={C} fill={fill} layer={L - 1} "
             "(timing inputs)", da.flash_decode_attention(qd, cache, L - 1, pads, fill, G, 0),
             da.flash_decode_attention_ref(qd, cache, L - 1, pads, fill, G, 0), worst)
@@ -796,9 +844,10 @@ def time_partials(torch, worst, quantized: bool) -> dict:
     (fill = C - 1), pads 0 and 12000. The library call computes the
     normalised output from a bf16 copy of the cache expanded to 24 heads.
     The bound counts each row's visible K/V slots (and int8 scales) read
-    once, q read and (o, m, l) written once, and 4 hd FLOP (f32) per
-    visible (query head, slot) pair. One output is held against the plain
-    version's as in phase 3."""
+    once, q read and (o, m, l) written once, and, on bf16 tensor cores, 2
+    hd FLOP of QK and 2 x 2 hd of PV (p_hi and p_lo) per visible (query
+    head, slot) pair. Pass 1 and the merge are timed apart (torch.profiler).
+    One output is held against the plain version's as in phase 3."""
     from vnsum_tpu_torch.ops import decode_attention as da
 
     dev = torch.device("cuda")
@@ -810,11 +859,13 @@ def time_partials(torch, worst, quantized: bool) -> dict:
     q = rand_q(torch, (B, 1, H, hd), 71, dev)
     visible = sum(C - p for p in pads_h)
     elem = 1 if quantized else 2
-    flops = 4 * hd * H * visible
+    flops = 6 * hd * H * visible
     bytes_ = (q.numel() * 2 + 2 * visible * KV * (hd * elem + (4 if quantized else 0))
               + B * H * (hd + 2) * 4)
     ms = time_ms(torch, lambda i: da.flash_decode_partials(q, cache, i % L, pads, C - 1, G),
                  n=4 * L)
+    decode_passes(torch, f"partials int8={quantized} B={B} C={C}", ms,
+                  lambda i: da.flash_decode_partials(q, cache, i % L, pads, C - 1, G), 4 * L)
     plain = time_ms(torch, lambda i: da.flash_decode_partials_ref(
         q, cache, i % L, pads, C - 1, G), n=L)
     k_lib, v_lib = library_kv(torch, cache, L, G)
@@ -832,7 +883,17 @@ def time_partials(torch, worst, quantized: bool) -> dict:
         float(cache_v_amax(cache, layer)), worst)
     del cache, k_lib, v_lib
     torch.cuda.empty_cache()
-    return timing_record(ms, plain, library, flops, bytes_, PEAK_FP32_FLOPS)
+    return timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
+
+
+def decode_passes(torch, label: str, ms: float, fn, n: int) -> None:
+    """Logs K2's or K2p's two passes apart, device time a call
+    (torch.profiler), beside the CUDA-event time of both."""
+    passes = kernel_ms(torch, fn, n=n)
+    split_ms = sum(v for k, v in passes.items() if "flash_decode_split_kernel" in k)
+    merge_ms = sum(v for k, v in passes.items() if "flash_decode_merge_kernel" in k)
+    log(f"[time] {label} passes: pass 1 {split_ms:.4f} ms, merge {merge_ms:.4f} ms a call "
+        f"(torch.profiler; CUDA events around both: {ms:.4f} ms)")
 
 
 def library_kv(torch, cache, layers: int, G: int):

@@ -3,9 +3,11 @@
 Counterpart of ``vnsum_tpu/ops/decode_attention.py``
 (``flash_decode_attention``) in both of its modes. One query token per row
 attends layer ``layer_idx`` of the stacked cache; the batch shares one
-scalar ``fill``, the last valid slot, and the mask is ``pad_b <= k <= fill``
-and ``window == 0 or k > fill - window``. All arithmetic is f32, with the
-same int8 algebra as the prefill kernel.
+``fill``, the last valid slot, and the mask is ``pad_b <= k <= fill`` and
+``window == 0 or k > fill - window``. ``fill`` is an int, or a one-element
+int32 tensor on the query's device, which the kernel reads there (clamped
+to ``[0, C - 1]``) with no host copy. The reference is f32, with the same
+int8 algebra as the prefill kernel.
 
 - K2, :func:`flash_decode_attention` (``return_partials=False``): the
   normalised output [B, 1, H, hd] in q's dtype.
@@ -16,8 +18,9 @@ same int8 algebra as the prefill kernel.
   comes out exactly ``m = -1e30``, ``l = 0``, ``o = 0``, inert in that
   merge.
 
-Both launch the CUDA kernel (``csrc/flash_decode.cu``, which shares its
-first pass between them) for tensors on the card and take their plain
+Both launch the CUDA kernel (``csrc/flash_decode.cu``, whose two passes
+they share: bf16 tensor cores with per-warp ``cp.async`` rings, then a
+merge of the splits with one warp per query head) for tensors on the card and take their plain
 versions, :func:`flash_decode_attention_ref` and
 :func:`flash_decode_partials_ref`, only for tensors on the CPU.
 ``launches`` counts K2's kernel launches and ``partials_launches`` K2p's.
@@ -44,6 +47,14 @@ partials_launches = 0
 _lib = None
 
 
+def _host_fill(fill, C: int) -> int:
+    """The fill as an int: a tensor's clamped to [0, C - 1], as the kernel
+    clamps a fill it reads on the device."""
+    if isinstance(fill, torch.Tensor):
+        return min(max(int(fill.reshape(())), 0), C - 1)
+    return int(fill)
+
+
 def flash_decode_attention_ref(
     q, cache, layer_idx, pad_lens, fill, q_per_kv, window=None
 ):
@@ -54,7 +65,7 @@ def flash_decode_attention_ref(
     if H != q_per_kv * cache["k"].shape[2]:
         raise ValueError(f"q_per_kv={q_per_kv} inconsistent with H={H}")
     C = cache["k"].shape[3]
-    mask = visible_mask(torch.tensor([int(fill)]), pad_lens, window or 0, C)
+    mask = visible_mask(torch.tensor([_host_fill(fill, C)]), pad_lens, window or 0, C)
     k, v, ks, vs = cache_layer(cache, layer_idx)
     return attention_ref(q, k, v, ks, vs, mask, torch.float32)
 
@@ -70,7 +81,7 @@ def flash_decode_partials_ref(
     KV, C = cache["k"].shape[2], cache["k"].shape[3]
     if H != q_per_kv * KV:
         raise ValueError(f"q_per_kv={q_per_kv} inconsistent with H={H}")
-    mask = visible_mask(torch.tensor([int(fill)]), pad_lens, window or 0, C)[:, 0]  # [B, C]
+    mask = visible_mask(torch.tensor([_host_fill(fill, C)]), pad_lens, window or 0, C)[:, 0]
     k, v, ks, vs = cache_layer(cache, layer_idx)
     scale = 1.0 / (hd ** 0.5)
     o = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
@@ -99,23 +110,25 @@ def _library():
         lib = kernels.load("flash_decode")
         fn = lib.vnsum_flash_decode
         fn.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         fn = lib.vnsum_flash_decode_partials
         fn.argtypes = (
-            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-        lib.vnsum_flash_decode_splits.argtypes = [ctypes.c_int]
-        lib.vnsum_flash_decode_splits.restype = ctypes.c_int
+        for name in ("vnsum_flash_decode_splits", "vnsum_flash_decode_smem"):
+            getattr(lib, name).argtypes = [ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def _checked_launch_args(q, cache, layer_idx, pad_lens, fill, q_per_kv, window):
     """Raise unless the kernel takes these inputs; returns (quantized, win,
-    the pass-1 scratch (o, m, l) sized for ``fill``)."""
+    the device fill or None, the host fill, the pass-1 scratch (o, m, l)
+    sized for the cache)."""
     check_query(q, pad_lens)
     quantized = check_cache(q, cache, layer_idx)
     B, S, H, hd = q.shape
@@ -125,14 +138,23 @@ def _checked_launch_args(q, cache, layer_idx, pad_lens, fill, q_per_kv, window):
     if H != KV * q_per_kv or q_per_kv > 8:
         raise ValueError(f"q_per_kv={q_per_kv} with H/KV={H}/{KV} (kernel takes groups <= 8)")
     win = int(window or 0)
-    if not 0 <= int(fill) < C or win < 0:
-        raise ValueError(f"fill={fill} outside cache of {C} slots")
-    # the kernel splits the cache range across blocks; each split leaves an
-    # unnormalised (o, m, l) partial that its second pass merges
-    splits = _library().vnsum_flash_decode_splits(int(fill))
+    if win < 0:
+        raise ValueError(f"window={win} must be >= 0")
+    if isinstance(fill, torch.Tensor):
+        # read on the device, clamped there to [0, C - 1]: no host copy
+        if fill.dtype != torch.int32 or fill.numel() != 1 or fill.device != q.device:
+            raise ValueError("a tensor fill must be one int32 element on the query's device")
+        fill_dev, fill_host = fill, 0
+    else:
+        fill_dev, fill_host = None, int(fill)
+        if not 0 <= fill_host < C:
+            raise ValueError(f"fill={fill_host} outside cache of {C} slots")
+    # the kernel splits the cache across blocks, a split count from C; each
+    # split leaves an unnormalised (o, m, l) partial that its second pass merges
+    splits = _library().vnsum_flash_decode_splits(C)
     o_part = torch.empty((B, KV, splits, q_per_kv, hd), dtype=torch.float32, device=q.device)
     m_part = torch.empty((B, KV, splits, q_per_kv), dtype=torch.float32, device=q.device)
-    return quantized, win, (o_part, m_part, torch.empty_like(m_part))
+    return quantized, win, fill_dev, fill_host, (o_part, m_part, torch.empty_like(m_part))
 
 
 def _stream(q):
@@ -144,7 +166,7 @@ def flash_decode_attention(
     cache: dict,              # stacked {"k","v"[, "ks","vs"]} (models.llama.init_kv_cache)
     layer_idx: int,
     pad_lens: torch.Tensor,   # [B] int32
-    fill: int,                # last valid slot (inclusive)
+    fill: int | torch.Tensor,  # last valid slot (inclusive); or int32 [1] on the device
     q_per_kv: int,
     window: int | None = None,  # 0/None = global
 ) -> torch.Tensor:
@@ -157,7 +179,7 @@ def flash_decode_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no flash decode kernel for device {q.device}")
-    quantized, win, scratch = _checked_launch_args(
+    quantized, win, fill_dev, fill_host, scratch = _checked_launch_args(
         q, cache, layer_idx, pad_lens, fill, q_per_kv, window
     )
     B, _, H, hd = q.shape
@@ -166,8 +188,8 @@ def flash_decode_attention(
     ks = cache["ks"] if quantized else None
     vs = cache["vs"] if quantized else None
     rc = _library().vnsum_flash_decode(
-        *pointers(q, cache["k"], cache["v"], ks, vs, pad_lens, out, *scratch),
-        B, H, KV, C, hd, int(layer_idx), int(fill), win, int(quantized),
+        *pointers(q, cache["k"], cache["v"], ks, vs, pad_lens, fill_dev, out, *scratch),
+        B, H, KV, C, hd, int(layer_idx), fill_host, win, int(quantized),
         1.0 / (hd ** 0.5), _stream(q),
     )
     if rc != 0:
@@ -181,13 +203,13 @@ def flash_decode_partials(
     cache: dict,              # stacked {"k","v"[, "ks","vs"]}
     layer_idx: int,
     pad_lens: torch.Tensor,   # [B] int32
-    fill: int,                # last valid slot (inclusive)
+    fill: int | torch.Tensor,  # last valid slot (inclusive); or int32 [1] on the device
     q_per_kv: int,
     window: int | None = None,  # 0/None = global
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns the unnormalised state (o [B, H, hd], m [B, H], l [B, H]),
-    all f32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, or raise."""
+    all f32, m in natural-log units. CPU tensors take the plain version;
+    CUDA tensors launch the kernel, or raise."""
     global partials_launches
     if q.device.type == "cpu":
         return flash_decode_partials_ref(
@@ -195,7 +217,7 @@ def flash_decode_partials(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no flash decode kernel for device {q.device}")
-    quantized, win, scratch = _checked_launch_args(
+    quantized, win, fill_dev, fill_host, scratch = _checked_launch_args(
         q, cache, layer_idx, pad_lens, fill, q_per_kv, window
     )
     B, _, H, hd = q.shape
@@ -206,8 +228,8 @@ def flash_decode_partials(
     ks = cache["ks"] if quantized else None
     vs = cache["vs"] if quantized else None
     rc = _library().vnsum_flash_decode_partials(
-        *pointers(q, cache["k"], cache["v"], ks, vs, pad_lens, o, m, l, *scratch),
-        B, H, KV, C, hd, int(layer_idx), int(fill), win, int(quantized),
+        *pointers(q, cache["k"], cache["v"], ks, vs, pad_lens, fill_dev, o, m, l, *scratch),
+        B, H, KV, C, hd, int(layer_idx), fill_host, win, int(quantized),
         1.0 / (hd ** 0.5), _stream(q),
     )
     if rc != 0:
