@@ -4,10 +4,11 @@ rebuilt from torch ops, against the JAX package's Pallas decode kernel.
 The CUDA kernel runs only on the card. Here ``kernel_arithmetic`` computes
 what it computes, in its order, with its sizes scaled down (512-slot splits
 of four 128-slot warp ranges of 16-slot tiles on the card; 32, 8 and 4
-here): QK over bf16-exact inputs, scores in the log2 domain, an online
-softmax per warp range, p (times vs for int8) split into bf16 hi + lo for
-PV, the warps' states merged into each split's partial, and the splits up
-to the fill's merged by log-sum-exp. K2 then divides by max(l, 1e-30); K2p
+here; its merge's chunks of two splits are kept): QK over bf16-exact
+inputs, scores in the log2 domain, an online softmax per warp range, p
+(times vs for int8) split into bf16 hi + lo for PV, the warps' states
+merged into each split's partial, and the splits up to the fill's merged
+by log-sum-exp, in order within a chunk and chunk by chunk. K2 then divides by max(l, 1e-30); K2p
 converts m back to natural-log units, and a row that sees no key stays
 exactly m = -1e30, l = 0, o = 0. The JAX kernel runs in interpret mode on
 the same inputs, made with numpy from a seed; its cache length is a
@@ -45,16 +46,21 @@ def hi_lo(p):
     return hi, (p - hi).to(torch.bfloat16).float()
 
 
-def merge(parts):
-    """Log-sum-exp merge of (o, m, l) states in the log2 domain, in order."""
+def merge(parts, chunk=None):
+    """Log-sum-exp merge of (o, m, l) states in the log2 domain: in order,
+    or (the splits' merge) in order within chunks of ``chunk`` and chunk by
+    chunk."""
     m = torch.stack([p[1] for p in parts]).amax(0)
     f = [torch.exp2(p[1] - m) for p in parts]
-    return (sum(p[0] * fi[:, None] for p, fi in zip(parts, f)), m,
-            sum(p[2] * fi for p, fi in zip(parts, f)))
+    o = [p[0] * fi[:, None] for p, fi in zip(parts, f)]
+    l = [p[2] * fi for p, fi in zip(parts, f)]
+    step = chunk or len(parts)
+    return (sum(sum(o[c:c + step]) for c in range(0, len(parts), step)), m,
+            sum(sum(l[c:c + step]) for c in range(0, len(parts), step)))
 
 
 def kernel_arithmetic(q, cache, layer, pads, fill, G, window=0, partials=False,
-                      split=32, quarter=8, tile=4):
+                      split=32, quarter=8, tile=4, chunk=2):
     """K2's output [B, 1, H, hd], or K2p's (o [B, H, hd], m [B, H], l [B, H]),
     computed the way csrc/flash_decode.cu computes them (module docstring)."""
     B, _, H, hd = q.shape
@@ -100,7 +106,7 @@ def kernel_arithmetic(q, cache, layer, pads, fill, G, window=0, partials=False,
                         m = m_new
                     warps.append((o, m, l))
                 splits.append(merge(warps))
-            o, m, l = merge(splits)
+            o, m, l = merge(splits, chunk)
             heads = slice(kv * G, (kv + 1) * G)
             o_out[b, heads], m_out[b, heads], l_out[b, heads] = o, m, l
     if partials:

@@ -52,10 +52,12 @@
 // shared memory into the split's partial. Pass 2 merges a row's splits up
 // to the fill's with the log-sum-exp algebra, one warp per (query head, KV
 // head, batch row): lanes over splits for m and the splits' factors, lanes
-// over head dims for o, l and o summed in split order. K2 and K2p run the
-// same two passes in the same order and differ only in what pass 2 writes.
-// Offsets into the cache are 64-bit: the
-// stacked int8 cache passes 2^31 elements at the pipeline's long bucket.
+// over head dims for o, which pairs of lanes sum over chunks of two splits
+// (so a lane keeps sixteen 16-byte loads in flight), l and o summed in
+// split order within a chunk and in chunk order across chunks. K2 and K2p run
+// the same two passes in the same order and differ only in what pass 2
+// writes. Offsets into the cache are 64-bit: the stacked int8 cache passes
+// 2^31 elements at the pipeline's long bucket.
 // Not done: TMA, wgmma (64-row tiles would pad G <= 8 to 64).
 
 #include <cuda_bf16.h>
@@ -72,6 +74,7 @@ constexpr int WSLOTS = SPLIT / NWARPS;  // slots of one warp
 constexpr int BK = 16;              // slots per tile: one m16 tile
 constexpr int ROWS = 8;             // query heads of a KV head: one n8 tile
 constexpr int QROW = HD + 8;        // padded bf16 row of Q in shared memory
+constexpr int MERGE_CHUNK = 2;      // splits a merge lane group sums in order
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -528,10 +531,14 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
 }
 
 // pass 2: one warp per (query head, KV head, batch row) over the splits up
-// to the fill's; lanes over splits for m and each split's factor and l,
-// lane owns head dims 4 lane .. 4 lane + 3 of o. K2 (PARTIALS false) writes
-// o / max(l, 1e-30) as bf16 into `out`; K2p writes the unnormalised f32
-// state into `out` (o), `m_out` (natural-log units) and `l_out`.
+// to the fill's, in rounds of 32: lanes over splits for m and each split's
+// factor and weighted l; then each group of MERGE_CHUNK lanes sums a chunk
+// of MERGE_CHUNK splits in order (a lane owns HD / MERGE_CHUNK head dims:
+// that many / 4 independent 16-byte loads a split), and the lanes, each
+// owning head dims 4 lane .. 4 lane + 3, add the round's 32 / MERGE_CHUNK
+// chunks to the state in order, through shared memory. K2 (PARTIALS false) writes o / max(l, 1e-30) as bf16 into
+// `out`; K2p writes the unnormalised f32 state into `out` (o), `m_out`
+// (natural-log units) and `l_out`.
 template <bool PARTIALS>
 __global__ void __launch_bounds__(128)
 flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restrict__ m_part,
@@ -539,9 +546,15 @@ flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restr
                           float *__restrict__ m_out, float *__restrict__ l_out,
                           const int *__restrict__ fill_dev, int fill_host, int B, int H,
                           int KV, int C, int n_split) {
-  const int head = blockIdx.x * 4 + (threadIdx.x >> 5);  // b * H + kv * G + g
+  constexpr int GROUPS = 32 / MERGE_CHUNK;  // lane groups: the chunks of a round
+  constexpr int DIMS = HD / MERGE_CHUNK;    // head dims of a lane in its group
+  __shared__ float4 chunk_o[4][GROUPS][HD / 4];  // a warp's round of chunk partials
+  __shared__ float chunk_l[4][GROUPS];
+  const int warp = threadIdx.x >> 5;
+  const int head = blockIdx.x * 4 + warp;  // b * H + kv * G + g
   if (head >= B * H) return;
   const int lane = threadIdx.x & 31;
+  const int grp = lane / MERGE_CHUNK, sub = lane % MERGE_CHUNK;
   const int G = H / KV;
   const int b = head / H, kv = (head % H) / G, g = head % G;
   const int n_live = read_fill(fill_dev, fill_host, C) / SPLIT + 1;
@@ -550,29 +563,59 @@ flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restr
   for (int s = lane; s < n_live; s += 32) m = fmaxf(m, m_part[(pair + s) * G + g]);
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
-  // l and o are summed in split order, as a serial loop would: K2 over the
-  // splits up to the fill's then sums what K2p over the leading ones and a
-  // later merge of its state with further keys sum, in the same order
+  // l and o are summed in split order within a chunk and in chunk order
+  // across chunks: K2 over the splits up to the fill's then sums what K2p
+  // over the leading ones (a multiple of MERGE_CHUNK) and a later merge of
+  // its state with further keys sum, in the same order
   float l = 0.f;
   float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s0 = 0; s0 < n_live; s0 += 32) {
-    // this lane's split: its factor and its weighted l; then, in order,
-    // each split's l and o, the factor taken from the lane that holds it
+    // this lane's split: its factor and its weighted l
     const int s = s0 + lane;
     const float f = s < n_live ? ex2(m_part[(pair + s) * G + g] - m) : 0.f;
     const float lf = s < n_live ? l_part[(pair + s) * G + g] * f : 0.f;
-    const int n = min(32, n_live - s0);
-#pragma unroll 8
-    for (int j = 0; j < n; ++j) {
+    // this group's chunk, splits s0 + MERGE_CHUNK grp + i in order; the
+    // lane's dims 4 sub + 4 MERGE_CHUNK k, so the group's loads of one split
+    // are contiguous; a split past the last adds nothing
+    float4 p[DIMS / 4];
+#pragma unroll
+    for (int k = 0; k < DIMS / 4; ++k) p[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    float pl = 0.f;
+#pragma unroll
+    for (int i = 0; i < MERGE_CHUNK; ++i) {
+      const int j = MERGE_CHUNK * grp + i;
       const float fj = __shfl_sync(0xffffffffu, f, j);
-      l += __shfl_sync(0xffffffffu, lf, j);
-      const float4 v =
-          *reinterpret_cast<const float4 *>(o_part + ((pair + s0 + j) * G + g) * HD + 4 * lane);
-      o.x += v.x * fj;
-      o.y += v.y * fj;
-      o.z += v.z * fj;
-      o.w += v.w * fj;
+      pl += __shfl_sync(0xffffffffu, lf, j);
+      if (s0 + j < n_live) {
+        const float *src = o_part + ((pair + s0 + j) * G + g) * HD + 4 * sub;
+        float4 v[DIMS / 4];
+#pragma unroll
+        for (int k = 0; k < DIMS / 4; ++k) {
+          v[k] = *reinterpret_cast<const float4 *>(src + 4 * MERGE_CHUNK * k);
+        }
+#pragma unroll
+        for (int k = 0; k < DIMS / 4; ++k) {
+          p[k].x += v[k].x * fj;
+          p[k].y += v[k].y * fj;
+          p[k].z += v[k].z * fj;
+          p[k].w += v[k].w * fj;
+        }
+      }
     }
+#pragma unroll
+    for (int k = 0; k < DIMS / 4; ++k) chunk_o[warp][grp][sub + MERGE_CHUNK * k] = p[k];
+    if (sub == 0) chunk_l[warp][grp] = pl;
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < GROUPS; ++c) {
+      const float4 x = chunk_o[warp][c][lane];
+      o.x += x.x;
+      o.y += x.y;
+      o.z += x.z;
+      o.w += x.w;
+      l += chunk_l[warp][c];
+    }
+    __syncwarp();  // the round's slots are free
   }
   if (PARTIALS) {
     *reinterpret_cast<float4 *>(static_cast<float *>(out) + static_cast<size_t>(head) * HD +
