@@ -536,9 +536,9 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
 // of MERGE_CHUNK splits in order (a lane owns HD / MERGE_CHUNK head dims:
 // that many / 4 independent 16-byte loads a split), and the lanes, each
 // owning head dims 4 lane .. 4 lane + 3, add the round's 32 / MERGE_CHUNK
-// chunks to the state in order, through shared memory. K2 (PARTIALS false) writes o / max(l, 1e-30) as bf16 into
-// `out`; K2p writes the unnormalised f32 state into `out` (o), `m_out`
-// (natural-log units) and `l_out`.
+// chunks to the state in order, through shared memory. K2 (PARTIALS false)
+// writes o / max(l, 1e-30) as bf16 into `out`; K2p writes the unnormalised
+// f32 state into `out` (o), `m_out` (natural-log units) and `l_out`.
 template <bool PARTIALS>
 __global__ void __launch_bounds__(128)
 flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restrict__ m_part,
