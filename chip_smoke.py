@@ -26,10 +26,10 @@ Phases, each raising on failure (so any failure exits non-zero):
    and l each held to its own limit and o / l to K2's output; K2 and K2p at
    G=2 (Qwen3-0.6B) and G=8 (the kernel's largest), and with the fill as an
    int32 tensor on the device (one past the cache, which the kernel
-   clamps); and the prefill kernel at path (c)'s prefill (B=2, S = C = 32768, q_offset 0,
-   bf16, the pads of its two prompts, layers 0 and 27 of 28), run over the
-   whole sequence and held to its plain version on four 512-query slices
-   (its first 512 queries see no key and must be 0);
+   clamps); and the prefill kernel at path (c)'s prefill (B=2, S = C =
+   32768, q_offset 0, bf16, the pads of its two prompts, layers 0 and 27 of
+   28), run over the whole sequence and held to its plain version on four
+   512-query slices (its first 512 queries see no key and must be 0);
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
    with one cache slot per split or tile left out (flash_decode.cu and K3
    have two more: the merge of the splits leaving out the fill's split, and
@@ -44,8 +44,8 @@ Phases, each raising on failure (so any failure exits non-zero):
    3.35 TB/s or FLOP over the peak rate of the unit that does them, from
    this run's inputs; K2's, K2p's and K3's products on bf16 tensor cores,
    PV counted twice for its hi/lo halves), the two passes of K2, K2p and
-   K3 apart (torch.profiler), the
-   plain version, and one PyTorch library call computing the
+   K3 apart (torch.profiler), the plain version, and one PyTorch library
+   call computing the
    same function (scaled_dot_product_attention with an explicit mask on a
    bf16 cache; timed here only, never used by the port); one output of
    each is held against the other as in phase 3; the prefill kernel
@@ -133,9 +133,9 @@ PEAK_BYTES = 3.35e12
 #   128-term f32 dot products, ~1e-6 off: 1e-4 + 1e-5 |m|. l sums up to C
 #   exponentials, each off by the score error and the order of the sum,
 #   ~1e-6 relative: 1e-4 l. Each element of o sums p v over the same slots,
-#   so its error is that of l times max |v|: 1e-5 + 1e-4 l max|v|. o / max(l, 1e-30) is held to K2's
-#   output on the same cache at K2's limit. A row that sees no key must be
-#   exactly m = -1e30, l = 0, o = 0.
+#   so its error is that of l times max |v|: 1e-5 + 1e-4 l max|v|.
+#   o / max(l, 1e-30) is held to K2's output on the same cache at K2's
+#   limit. A row that sees no key must be exactly m = -1e30, l = 0, o = 0.
 DECODE_ATOL, DECODE_RTOL = 1e-4, 2.0**-7
 PREFILL_ROW_RTOL = 2e-2
 PARTIALS_M_ATOL, PARTIALS_M_RTOL = 1e-4, 1e-5
@@ -148,7 +148,9 @@ PARTIALS_O_ATOL, PARTIALS_O_RTOL = 1e-5, 1e-4
 # C = S against C = S + steps; K2p, the decode-cache partial and an f32 LSE
 # merge against K2). At the path's shape (S = 32768, a multiple of K2's
 # 512-slot split) the new tokens sit in a split of their own, so K2 sums the
-# same terms in the same order and the logits agree exactly (0 on an H100).
+# same terms in the same order (its merge adds chunks of two splits in
+# order, and the prompt's 64 splits are whole chunks) and the logits agree
+# exactly (0 on an H100).
 # At the short shape (S = 256) they share K2's first split with the prompt:
 # another summation order, rounded to bf16 and carried through 28 layers
 # (up to 2.7e-2 on an H100). The planted faults read 2.5e-2 to 4.8e-2 at

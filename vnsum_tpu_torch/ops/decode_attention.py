@@ -20,8 +20,8 @@ int8 algebra as the prefill kernel.
 
 Both launch the CUDA kernel (``csrc/flash_decode.cu``, whose two passes
 they share: bf16 tensor cores with per-warp ``cp.async`` rings, then a
-merge of the splits with one warp per query head) for tensors on the card and take their plain
-versions, :func:`flash_decode_attention_ref` and
+merge of the splits with one warp per query head) for tensors on the card
+and take their plain versions, :func:`flash_decode_attention_ref` and
 :func:`flash_decode_partials_ref`, only for tensors on the CPU.
 ``launches`` counts K2's kernel launches and ``partials_launches`` K2p's.
 """
