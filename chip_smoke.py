@@ -8,7 +8,8 @@ Phases, each raising on failure (so any failure exits non-zero):
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 is switched off for matmul and cuDNN;
 2. build: every kernel of ``vnsum_tpu_torch/ops/csrc`` compiled with nvcc
-   for sm_90a, timed;
+   for sm_90a, timed, with each kernel function's registers and spills
+   (ptxas) and the kernels' dynamic shared memory;
 3. correctness: each kernel against its plain PyTorch version on the card,
    at the stated limits (TOLERANCES below), over bf16 and int8 caches,
    query offsets, windows, left pads with a row that sees no key, a layer
@@ -23,17 +24,19 @@ Phases, each raising on failure (so any failure exits non-zero):
    partials (K2p) at the long path's shape (B=2, C=32768, fill C-1, bf16
    and int8, layers 0 and 27 of 28, pads 0 and 12000 and a row whose pad
    is C, which must come out exactly m = -1e30, l = 0, o = 0), with o, m
-   and l each held to its own limit and o / l to K2's output; K2 and K2p at
-   G=2 (Qwen3-0.6B) and G=8 (the kernel's largest), and with the fill as an
-   int32 tensor on the device (one past the cache, which the kernel
-   clamps); and the prefill kernel at path (c)'s prefill (B=2, S = C =
+   and l each held to its own limit and o / l to K2's output; K1, K2 and
+   K2p at G=2 (Qwen3-0.6B) and G=8 (the decode kernels' largest); K1 over
+   the spec path's int8 cache (C=4233, whose scale rows TMA cannot
+   address); K2 and K2p with the fill as an int32 tensor on the device (one
+   past the cache, which the kernel clamps); and the prefill kernel at path (c)'s prefill (B=2, S = C =
    32768, q_offset 0, bf16, the pads of its two prompts, layers 0 and 27 of
    28), run over the whole sequence and held to its plain version on four
    512-query slices (its first 512 queries see no key and must be 0);
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
    with one cache slot per split or tile left out (flash_decode.cu and K3
    have two more: the merge of the splits leaving out the fill's split, and
-   the in-block merge leaving out the last warp's share of o), must fail
+   the in-block merge leaving out the last warp's share of o; K1 one: its
+   consumers reading the ring stage that TMA did not fill), must fail
    every case of that kernel in phase 3 and no other, so the limits are
    shown to be tight enough to see such a fault. K2 and K2p are the two
    modes of one source and share both its passes, so the two count as one
@@ -169,7 +172,8 @@ SPEC_LOGITS_RTOL = 0.1
 # phase 4's planted faults: (what it does, kernel, source, text, replacement).
 # A fault must fail every case of its kernel's family (FAMILY) and no case
 # outside it: K2 and K2p share both passes of flash_decode.cu, so each of
-# its three faults must fail every K2 and every K2p case.
+# its three faults must fail every K2 and every K2p case; each K1 fault
+# must fail every K1 case.
 MUTANTS = (
     ("decode leaves out the last slot of every 512-slot split", "decode", "flash_decode.cu",
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
@@ -177,11 +181,15 @@ MUTANTS = (
      "flash_decode.cu", "s < n_live ? ex2(", "s < n_live - 1 ? ex2("),
     ("decode's in-block merge leaves out the last warp's 128 slots of o", "decode",
      "flash_decode.cu", "w < NWARPS; ++w) acc +=", "w < NWARPS - 1; ++w) acc +="),
-    ("prefill leaves out the last slot of every unmasked 64-slot tile", "prefill",
+    ("prefill leaves out the last slot of every unmasked 128-slot tile", "prefill",
      "flash_prefill.cu",
      "      l_run[i] += p;\n",
      "      if (!MASKED && nt == BN / 8 - 1 && tig == 3 && (e & 1)) p = 0.f;\n"
      "      l_run[i] += p;\n"),
+    ("prefill's consumers read K and V from the ring stage TMA did not fill for the tile",
+     "prefill", "flash_prefill.cu",
+     "k_tile = smem_u32(ring + stage * STAGE_BYTES)",
+     "k_tile = smem_u32(ring + ((stage + 1) % STAGES) * STAGE_BYTES)"),
     ("verify leaves out the last slot of every 512-slot split", "verify", "flash_verify.cu",
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
     ("verify's in-block merge leaves out the last warp's 128 slots of o", "verify",
@@ -247,8 +255,8 @@ def phase_environment(torch) -> str:
 
 def phase_build() -> float:
     """Builds every kernel and prints each kernel function's registers and
-    spills (ptxas -v), K3's dynamic shared memory at the main path's row
-    counts and K2/K2p's pass 1's."""
+    spills (ptxas -v), K1's dynamic shared memory, K3's at the main path's
+    row counts and K2/K2p's pass 1's."""
     from vnsum_tpu_torch.ops import decode_attention as da
     from vnsum_tpu_torch.ops import kernels
     from vnsum_tpu_torch.ops import verify_attention as va
@@ -264,6 +272,9 @@ def phase_build() -> float:
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {function}: {line.strip()}")
     log(f"[build] {len(logs)} kernel libraries built in {seconds:.2f}s")
+    lib = kernels.load("flash_prefill")
+    log(f"[build] flash_prefill dynamic shared memory: int8 {lib.vnsum_flash_prefill_smem(1)} B, "
+        f"bf16 {lib.vnsum_flash_prefill_smem(0)} B")
     lib = va._library()
     for R in (3, 27):
         log(f"[build] flash_verify dynamic shared memory at Sq*G={R}: "
@@ -399,9 +410,9 @@ def phase_correctness(torch) -> dict:
                 FAILED.append(f"verify {case}: row {row} queries {queries} see no key "
                               "and must come out 0")
 
-    def prefill(case, q, cache, layer, pads, window, q_offset, empty_row=None):
-        got = fa.flash_prefill_attention(q, cache, layer, pads, G, window, q_offset)
-        want = fa.flash_prefill_attention_ref(q, cache, layer, pads, G, window, q_offset)
+    def prefill(case, q, cache, layer, pads, window, q_offset, empty_row=None, g=G):
+        got = fa.flash_prefill_attention(q, cache, layer, pads, g, window, q_offset)
+        want = fa.flash_prefill_attention_ref(q, cache, layer, pads, g, window, q_offset)
         compare(torch, "prefill", f"prefill {case}", got, want, worst)
         if empty_row is not None and float(got[empty_row].float().abs().max()) != 0.0:
             FAILED.append(f"prefill {case}: row {empty_row} sees no key and must come out 0")
@@ -449,13 +460,16 @@ def phase_correctness(torch) -> dict:
             del cache, q, qd
     torch.cuda.empty_cache()
 
-    # K2 and K2p at the other group sizes the kernel takes: G=2 (Qwen3-0.6B,
-    # 16 query heads on 8 KV heads) and G=8, its largest (64 on 8, as
-    # Llama-3.1-70B); row 2 sees no key
+    # K1, K2 and K2p at the other group sizes the kernels take: G=2
+    # (Qwen3-0.6B, 16 query heads on 8 KV heads) and G=8, the decode
+    # kernels' largest (64 on 8, as Llama-3.1-70B); row 2 sees no key
     C = 2176
     for g in (2, 8):
         for quantized in (False, True):
             cache = make_cache(torch, 2, 3, KV, C, hd, quantized, 90 + g + quantized, dev)
+            prefill(f"int8={quantized} G={g} B=3 S=2048 C={C} layer=1", rand_q(
+                torch, (3, 2048, KV * g, hd), 92 + g, dev), cache, 1, pads_of([0, 37, 2048]),
+                0, 0, empty_row=2, g=g)
             q = rand_q(torch, (3, 1, KV * g, hd), 91 + g, dev)
             decode(f"int8={quantized} G={g} B=3 C={C} fill=2000 layer=1", q, cache, 1,
                    pads_of([0, 37, 2001]), 2000, 0, empty_row=2, g=g)
@@ -487,6 +501,12 @@ def phase_correctness(torch) -> dict:
     v_pads = [0, 37, 400, 1000, 2500, 4153, 4095, 4096]
     for quantized in (False, True):
         cache = make_cache(torch, 3, 8, KV, C, hd, quantized, 40 + quantized, dev)
+        if quantized:
+            # K1 prefills the spec path's cache: its scales' rows, 4 C =
+            # 16,932 bytes apart, are no multiple of 16, which TMA refuses
+            prefill(f"int8=True B=8 S={S} C={C} layer=2 (spec path)",
+                    rand_q(torch, (8, S, H, hd), 42, dev), cache, 2,
+                    pads_of([0, 37, 400, 1000, 2500, 3000, 4095, 4096]), 0, 0, empty_row=7)
         for window, layer in ((0, 2), (1024, 1)):
             q = rand_q(torch, (8, Sq, H, hd), 41 + window, dev)
             verify(f"int8={quantized} B=8 Sq={Sq} C={C} window={window} layer={layer} "
@@ -651,10 +671,11 @@ def phase_mutants(n_cases: int) -> None:
     package, must run all ``n_cases`` cases of phase 3 there, fail every
     case of its kernel and leave the cases of kernels outside its family
     passing: the limits see a kernel that leaves out one cache slot in 512
-    (decode, verify), one in 64 away from the causal diagonal (prefill, up
+    (decode, verify), one in 128 away from the causal diagonal (prefill, up
     to path (c)'s 32768 slots), the 512-slot split that holds the fill
     (decode's merge, down to the fill's one slot where a row sees little
-    else) or the last warp's 128 slots of a split's o (decode, verify). The
+    else), the last warp's 128 slots of a split's o (decode, verify) or a
+    tile read from the wrong stage of the ring (prefill). The
     copies build and run three at a time: each holds 10-15 GB of caches at
     its peak, and with five at once one copy stopped short of its last
     cases in one run."""

@@ -1,9 +1,10 @@
 // Flash prefill attention over the stacked KV cache, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel vnsum_tpu/ops/flash_attention.py
-// (`_kernel`, reached through `flash_prefill_attention`). Same function:
-// S prefill queries per row, sitting at cache slots [q_offset, q_offset+S),
-// attend layer `layer` of the stacked cache [L, B, KV, C, hd] under the mask
+// (`_kernel`, reached through `flash_prefill_attention` and its
+// `pl.pallas_call`). Same function: S prefill queries per row, sitting at
+// cache slots [q_offset, q_offset+S), attend layer `layer` of the stacked
+// cache [L, B, KV, C, hd] under the mask
 //   pad_b <= k <= q   and   (window == 0 or k > q - window),
 // with an online softmax. An int8 cache multiplies the scores by ks[k] and,
 // after l has summed the unscaled p, multiplies p by vs[k] before the PV
@@ -12,40 +13,64 @@
 //
 // What bounds it on this card: tensor-core operations. At the main path's
 // shape (B=8, S=4096, H=24, hd=128) the causal work is ~8e11 FLOP against
-// ~0.1 GB of q/out/cache bytes, far above the ~295 FLOP/byte ridge.
+// ~0.1 GB of q/out/cache bytes, far above the ~295 FLOP/byte ridge. Only
+// wgmma reaches the full tensor-core rate, and it must be fed without the
+// math warps stopping for copies.
 //
-// Design: one block of 8 warps per (128 query rows, KV head, batch row).
-// The 128 rows are (position, group head) pairs taken position-major, so
-// one K/V tile in shared memory serves every query head of the GQA group,
-// as the TPU grid did. Each warp owns 16 rows, keeps its Q fragments in
-// registers and runs bf16 mma.sync m16n8k16 with f32 accumulators; K and V
-// fragments come from shared memory through ldmatrix (.trans for V). The
-// K/V tiles are double-buffered: a bf16 cache streams the next tile with
-// cp.async while the current one is computed; an int8 cache holds the next
-// tile's bytes in registers meanwhile and widens them to bf16 (exact for
-// -127..127) into the other buffer afterwards. Only tiles that cross the
-// diagonal, the left pad or the window floor are masked element by element;
-// tiles above the diagonal, wholly below the window floor or wholly inside
-// the pad are neither loaded nor computed. Blocks with the most tiles start
-// first. The softmax runs on log2-scaled scores with ex2. Offsets into the
-// cache are 64-bit: at the pipeline's defaults one K or V cache holds more
-// than 2^31 elements.
-// Not yet done: TMA, wgmma, warp specialisation.
+// Design: one block of three warpgroups per (128 query rows, KV head,
+// batch row). The 128 rows are (position, group head) pairs taken
+// position-major, so one K/V tile in shared memory serves every query head
+// of the GQA group. Warpgroup 0 is the producer (setmaxnreg lowers its
+// registers): it keeps a ring of STAGES K/V tiles of BN = 128 slots full,
+// each stage guarded by a full and an empty mbarrier. A bf16 cache arrives
+// by TMA straight into the ring, each tile as two [BN, 64] boxes per
+// tensor in the 128-byte swizzle that wgmma reads; TMA zero-fills slots
+// past C. An int8 cache arrives by TMA into a staging buffer, which the
+// producer widens to bf16 (exact for -127..127) into the swizzled stage,
+// with ordinary loads of the f32 scales (their row stride, 4 C bytes, is no
+// multiple of 16 at odd C, which TMA refuses), and a proxy fence before it
+// marks the stage full. Warpgroups 1 and 2 (setmaxnreg raises theirs) own
+// 64 rows each: Q sits in registers as wgmma's A operand, QK is wgmma
+// m64n128k16 against the K tile (K-major), the softmax runs on the
+// accumulator fragment in the log2 domain with ex2, and PV is wgmma
+// m64n128k16 with P repacked from the accumulator into A registers and the
+// V tile as an MN-major (transposed) operand. Only tiles that cross the
+// diagonal, the left pad or the window floor are masked element by
+// element; tiles above the diagonal, wholly below the window floor or
+// wholly inside the pad are neither loaded nor computed (a warpgroup whose
+// rows see none of a loaded tile only releases it). Blocks with the most
+// tiles start first. Offsets into the cache are 64-bit: at the pipeline's
+// defaults one K or V cache holds more than 2^31 elements; TMA addresses a
+// layer through a tensor map over its [B*KV, C, hd] slab.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <tuple>
+
 namespace {
 
-constexpr int HD = 128;           // head_dim the kernel takes
-constexpr int BM = 128;           // query rows (position, group head) per block
-constexpr int BN = 64;            // cache slots per K/V tile
-constexpr int NWARPS = BM / 16;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int SROW = HD + 8;      // padded smem row: conflict-free ldmatrix
-constexpr int TILE = BN * SROW;   // elements of one K or V tile buffer
-constexpr int SMEM_BYTES = 2 * 2 * TILE * 2 + 2 * 2 * BN * 4;
+constexpr int HD = 128;                        // head_dim the kernel takes
+constexpr int BM = 128;                        // query rows per block
+constexpr int BN = 128;                        // cache slots per K/V tile
+constexpr int STAGES = 2;                      // tiles in the ring
+constexpr int NTHREADS = 3 * 128;              // producer + two consumer warpgroups
+constexpr int HALF_BYTES = BN * 64 * 2;        // a [BN, 64] bf16 box, 128-byte rows
+constexpr int TILE_BYTES = 2 * HALF_BYTES;     // a bf16 K or V tile
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;    // K then V
+constexpr int I8_TILE_BYTES = BN * HD;         // an int8 K or V tile
+constexpr int STAGING_BYTES = 2 * I8_TILE_BYTES;  // int8 K then V
+// shared memory after the 1024-byte-aligned base: the ring, then (int8)
+// two staging buffers, the scales of each stage and the barriers
+constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+constexpr int SCALE_BYTES = STAGES * 2 * BN * 4;
+constexpr int BAR_BYTES = 64;
+constexpr int smem_bytes(bool q8) {
+  return 1024 + RING_BYTES + (q8 ? 2 * STAGING_BYTES + SCALE_BYTES : 0) + BAR_BYTES;
+}
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -64,126 +89,191 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// -- mbarriers and TMA ---------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// waits for the completion of the barrier's phase of this parity (a guard
+// that trapped after a long wait cost the consumers ~50 spilled registers
+// and serialized their wgmma, so there is none)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap *map, uint32_t bar,
+                                         int c0, int c1, int c2) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void *p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+// the int8 K and V tiles of slots k0 .. k0 + BN - 1 into a staging buffer
+__device__ __forceinline__ void stage_int8(uint32_t dst, const CUtensorMap *tm_k,
+                                           const CUtensorMap *tm_v, uint32_t bar, int k0,
+                                           int slab_row) {
+  mbar_expect_tx(bar, STAGING_BYTES);
+  tma_load(dst, tm_k, bar, 0, k0, slab_row);
+  tma_load(dst + I8_TILE_BYTES, tm_v, bar, 0, k0, slab_row);
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void *p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+// generic-proxy shared-memory writes made visible to the async proxy (wgmma, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// 16 bytes global -> shared; zero-filled when !valid (src is not read)
-__device__ __forceinline__ void cp_async16(void *dst, const void *src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+// -- wgmma ---------------------------------------------------------------------
+
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-// 16 int8 values -> 16 bf16 values (two 16-byte words)
-__device__ __forceinline__ void widen_int8x16(const int4 raw, uint4 &lo, uint4 &hi) {
-  const int8_t *c = reinterpret_cast<const int8_t *>(&raw);
-  uint32_t w[8];
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses to an accumulator across wgmma,
+// or from reusing an A operand's registers while wgmma still reads them
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    w[i] = pack_bf16(static_cast<float>(c[2 * i]), static_cast<float>(c[2 * i + 1]));
-  }
-  lo = make_uint4(w[0], w[1], w[2], w[3]);
-  hi = make_uint4(w[4], w[5], w[6], w[7]);
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// int8 tile: 512 16-byte chunks each of K and V, 2 + 2 per thread, plus
-// one scale (threads 0..63: ks, 64..127: vs)
-constexpr int I8_CHUNKS = BN * HD / 16 / NTHREADS;
-// bf16 tile: 1024 16-byte chunks each of K and V, 4 + 4 per thread
-constexpr int B16_CHUNKS = BN * HD / 8 / NTHREADS;
-
-struct Int8Tile {
-  int4 k[I8_CHUNKS];
-  int4 v[I8_CHUNKS];
-  float scale;
-};
-
-__device__ __forceinline__ void fetch_int8(Int8Tile &t, const int8_t *k8, const int8_t *v8,
-                                           const float *ks, const float *vs, size_t slot_base,
-                                           int k0, int C) {
+template <int N>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < I8_CHUNKS; ++j) {
-    const int i = threadIdx.x + j * NTHREADS;
-    const int slot = k0 + i / (HD / 16);
-    t.k[j] = t.v[j] = make_int4(0, 0, 0, 0);
-    if (slot < C) {
-      const size_t off = (slot_base + slot) * HD + (i % (HD / 16)) * 16;
-      t.k[j] = *reinterpret_cast<const int4 *>(k8 + off);
-      t.v[j] = *reinterpret_cast<const int4 *>(v8 + off);
-    }
-  }
-  t.scale = 0.f;
-  if (threadIdx.x < 2 * BN) {
-    const int slot = k0 + (threadIdx.x & (BN - 1));
-    if (slot < C) t.scale = (threadIdx.x < BN ? ks : vs)[slot_base + slot];
-  }
-}
-
-__device__ __forceinline__ void store_int8(const Int8Tile &t, __nv_bfloat16 *Kb,
-                                           __nv_bfloat16 *Vb, float *ksb, float *vsb) {
+  for (int i = 0; i < N; ++i) {
 #pragma unroll
-  for (int j = 0; j < I8_CHUNKS; ++j) {
-    const int i = threadIdx.x + j * NTHREADS;
-    const int off = (i / (HD / 16)) * SROW + (i % (HD / 16)) * 16;
-    uint4 lo, hi;
-    widen_int8x16(t.k[j], lo, hi);
-    *reinterpret_cast<uint4 *>(Kb + off) = lo;
-    *reinterpret_cast<uint4 *>(Kb + off + 8) = hi;
-    widen_int8x16(t.v[j], lo, hi);
-    *reinterpret_cast<uint4 *>(Vb + off) = lo;
-    *reinterpret_cast<uint4 *>(Vb + off + 8) = hi;
-  }
-  if (threadIdx.x < 2 * BN) (threadIdx.x < BN ? ksb : vsb)[threadIdx.x & (BN - 1)] = t.scale;
-}
-
-__device__ __forceinline__ void copy_bf16(const __nv_bfloat16 *kb, const __nv_bfloat16 *vb,
-                                          size_t slot_base, int k0, int C, __nv_bfloat16 *Kb,
-                                          __nv_bfloat16 *Vb) {
-#pragma unroll
-  for (int j = 0; j < B16_CHUNKS; ++j) {
-    const int i = threadIdx.x + j * NTHREADS;
-    const int rr = i / (HD / 8);
-    const int cc = (i % (HD / 8)) * 8;
-    const int slot = k0 + rr;
-    const bool valid = slot < C;
-    const size_t off = (slot_base + (valid ? slot : 0)) * HD + cc;
-    cp_async16(Kb + rr * SROW + cc, kb + off, valid);
-    cp_async16(Vb + rr * SROW + cc, vb + off, valid);
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
   }
 }
 
-// Scales the scores of one tile into the log2 domain, masks them (MASKED
-// tiles only), updates the running max and sum, and leaves in `sc` the
-// probabilities that go into PV (times vs[k] for an int8 cache).
+// d[64 x 128] = a[64 x 16] (bf16, registers) * b[16 x 128] (bf16, shared
+// memory) + (accumulate ? d : 0); TRANS_B = 0: b stored K-major, 1: MN-major
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B),
+        "r"(accumulate));
+}
+
+// -- int8 widening -------------------------------------------------------------
+
+// 4 int8 values (one word) -> 4 exact bf16 values (two words): each byte,
+// offset to unsigned, lands in the mantissa of 2^23; subtracting 2^23 + 128
+// leaves the integer, whose float has zero low 16 bits, so its bf16 is its
+// high half
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t &lo, uint32_t &hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// one staged int8 tile [BN, 128] -> the swizzled bf16 tile (two [BN, 64]
+// halves, chunk c8 of row s at ((c8 ^ (s & 7)) * 16)), 8 chunks of 16
+// bytes per producer thread
+__device__ __forceinline__ void widen_tile(const unsigned char *src, unsigned char *dst, int pt) {
+#pragma unroll 2
+  for (int j = 0; j < I8_TILE_BYTES / 16 / 128; ++j) {
+    const int i = pt + j * 128;
+    const int s = i >> 3;        // slot in the tile
+    const int c = i & 7;         // 16 int8 values: hd 16c .. 16c + 15
+    const uint4 raw = *reinterpret_cast<const uint4 *>(src + i * 16);
+    uint4 a, b;
+    widen4(raw.x, a.x, a.y);
+    widen4(raw.y, a.z, a.w);
+    widen4(raw.z, b.x, b.y);
+    widen4(raw.w, b.z, b.w);
+    unsigned char *row = dst + (c >> 2) * HALF_BYTES + s * 128;
+    const int c8 = (c & 3) * 2;  // 8-value chunk of the half
+    *reinterpret_cast<uint4 *>(row + ((c8 ^ (s & 7)) << 4)) = a;
+    *reinterpret_cast<uint4 *>(row + (((c8 + 1) ^ (s & 7)) << 4)) = b;
+  }
+}
+
+// -- the softmax on the score fragment ------------------------------------------
+
+// Scales one tile's scores (this thread's 2 rows x 32 columns of the
+// accumulator) into the log2 domain, masks them (MASKED tiles only),
+// updates the running max and sum, and leaves in `sc` the probabilities
+// that go into PV (times vs[k] for an int8 cache).
 template <bool Q8, bool MASKED>
-__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 8][4], float (&m_run)[2],
-                                             float (&l_run)[2], float (&corr)[2],
-                                             const float *ksb, const float *vsb,
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2], float (&l_run)[2],
+                                             float (&corr)[2], const float *ksb, const float *vsb,
                                              float scale_log2, int k0, int tig,
                                              const int (&row_q)[2], const bool (&row_ok)[2],
                                              int pad, int window) {
-  uint32_t live = 0;  // bit nt*4 + e: element passes the mask
+  uint64_t live = 0;  // bit nt*4 + e: element passes the mask
   float mx[2] = {NEG, NEG};
 #pragma unroll
   for (int nt = 0; nt < BN / 8; ++nt) {
@@ -191,16 +281,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 8][4], float (&m_r
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;
       const int col = nt * 8 + tig * 2 + (e & 1);
-      float s = sc[nt][e] * scale_log2;
+      float s = sc[nt * 4 + e] * scale_log2;
       if (Q8) s *= ksb[col];
       if (MASKED) {
         const int slot = k0 + col;
         const bool ok = row_ok[i] && slot >= pad && slot <= row_q[i] &&
                         (window == 0 || slot > row_q[i] - window);
         s = ok ? s : NEG;
-        live |= static_cast<uint32_t>(ok) << (nt * 4 + e);
+        live |= static_cast<uint64_t>(ok) << (nt * 4 + e);
       }
-      sc[nt][e] = s;
+      sc[nt * 4 + e] = s;
       mx[i] = fmaxf(mx[i], s);
     }
   }
@@ -219,234 +309,339 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 8][4], float (&m_r
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;
-      float p = ex2(sc[nt][e] - m_run[i]);
-      if (MASKED && !((live >> (nt * 4 + e)) & 1u)) p = 0.f;
+      float p = ex2(sc[nt * 4 + e] - m_run[i]);
+      if (MASKED && !((live >> (nt * 4 + e)) & 1ull)) p = 0.f;
       l_run[i] += p;
       if (Q8) p *= vsb[nt * 8 + tig * 2 + (e & 1)];
-      sc[nt][e] = p;
+      sc[nt * 4 + e] = p;
     }
   }
 }
 
 template <bool Q8>
 __global__ void __launch_bounds__(NTHREADS, 1)
-flash_prefill_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, S, H, HD]
-                     const void *__restrict__ k_all,       // [L, B, KV, C, HD]
-                     const void *__restrict__ v_all,
-                     const float *__restrict__ ks_all,     // [L, B, KV, C] (int8 only)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_k,  // layer slab [B*KV, C, HD]
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __nv_bfloat16 *__restrict__ q,       // [B, S, H, HD]
+                     const float *__restrict__ ks_all,          // [L, B, KV, C] (int8 only)
                      const float *__restrict__ vs_all,
-                     const int *__restrict__ pad_lens,     // [B]
-                     __nv_bfloat16 *__restrict__ out,      // [B, S, H, HD]
+                     const int *__restrict__ pad_lens,          // [B]
+                     __nv_bfloat16 *__restrict__ out,           // [B, S, H, HD]
                      int B, int S, int H, int KV, int C, int layer, int window,
                      int q_offset, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16 *Ks = reinterpret_cast<__nv_bfloat16 *>(smem);  // [2][TILE]
-  __nv_bfloat16 *Vs = Ks + 2 * TILE;                              // [2][TILE]
-  float *kscale = reinterpret_cast<float *>(Vs + 2 * TILE);      // [2][BN]
-  float *vscale = kscale + 2 * BN;                                // [2][BN]
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 B
+  const uint32_t raw_u32 = smem_u32(smem_raw);
+  unsigned char *smem = smem_raw + (((raw_u32 + 1023) & ~1023u) - raw_u32);
+  unsigned char *ring = smem;                                   // [STAGES][K | V]
+  unsigned char *staging = ring + RING_BYTES;                   // int8: [2][K | V]
+  float *scales = reinterpret_cast<float *>(staging + (Q8 ? 2 * STAGING_BYTES : 0));
+  const uint32_t bars = smem_u32(staging + (Q8 ? 2 * STAGING_BYTES + SCALE_BYTES : 0));
+  // full[s] at bars + 8 s, empty[s] at + 8 (STAGES + s), staged[j] at + 8 (2 STAGES + j)
+  auto full_bar = [&](int s) { return bars + 8 * s; };
+  auto empty_bar = [&](int s) { return bars + 8 * (STAGES + s); };
+  auto staged_bar = [&](int j) { return bars + 8 * (2 * STAGES + j); };
 
   const int G = H / KV;
   const int kv = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;  // fragment row within the 8-row group
-  const int tig = lane & 3;   // thread in group: fragment column pair
-
   const int n_rows = S * G;
   // the last row tiles see the most slots: launch them first
   const int r0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int q_lo = q_offset + r0 / G;
   const int q_hi = q_offset + (min(r0 + BM, n_rows) - 1) / G;
   const int pad = pad_lens[b];
-
-  // this warp's 16 rows
-  const int wr0 = r0 + warp * 16;
-  const bool warp_rows = wr0 < n_rows;
-  const bool warp_full = wr0 + 15 < n_rows;
-  const int wq_lo = q_offset + wr0 / G;
-  const int wq_hi = q_offset + (min(wr0 + 15, n_rows - 1)) / G;
-
-  // this thread's two accumulator rows: gid and gid + 8 of the warp's 16
-  int row_q[2];
-  bool row_ok[2];
-  size_t row_off[2];  // element offset of the row in q / out
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = wr0 + gid + 8 * i;
-    row_ok[i] = r < n_rows;
-    const int s = row_ok[i] ? r / G : 0;
-    const int g = row_ok[i] ? r % G : 0;
-    row_q[i] = q_offset + s;
-    row_off[i] = ((static_cast<size_t>(b) * S + s) * H + static_cast<size_t>(kv) * G + g) * HD;
-  }
-
-  // Q fragments for the whole head_dim, held in registers
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = j & 1;                          // row gid (0) or gid + 8 (1)
-      const int col = kk * 16 + tig * 2 + (j >> 1) * 8;
-      qa[kk][j] = row_ok[i]
-                      ? *reinterpret_cast<const uint32_t *>(q + row_off[i] + col)
-                      : 0u;
-    }
-  }
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
-    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  }
-  float m_run[2] = {NEG, NEG};
-  float l_run[2] = {0.f, 0.f};  // partial over this thread's columns
-
   int kt_lo = pad / BN;
   if (window > 0) kt_lo = max(kt_lo, max(q_lo - window + 1, 0) / BN);
   const int kt_hi = q_hi / BN;
-  const size_t slot_base = ((static_cast<size_t>(layer) * B + b) * KV + kv) * static_cast<size_t>(C);
-  const int8_t *k8 = static_cast<const int8_t *>(k_all);
-  const int8_t *v8 = static_cast<const int8_t *>(v_all);
-  const __nv_bfloat16 *kb = static_cast<const __nv_bfloat16 *>(k_all);
-  const __nv_bfloat16 *vb = static_cast<const __nv_bfloat16 *>(v_all);
 
-  // ldmatrix row addresses: lane -> (matrix lane / 8, row lane % 8)
-  const int lm_mat = lane >> 3;
-  const int lm_row = lane & 7;
-
-  Int8Tile pre;
-  if (kt_lo <= kt_hi) {
-    if (Q8) {
-      fetch_int8(pre, k8, v8, ks_all, vs_all, slot_base, kt_lo * BN, C);
-      store_int8(pre, Ks, Vs, kscale, vscale);
-    } else {
-      copy_bf16(kb, vb, slot_base, kt_lo * BN, C, Ks, Vs);
-      cp_async_wait_all();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar(s), Q8 ? 128 : 1);
+      mbar_init(empty_bar(s), 8);  // one arrival per consumer warp
     }
+    for (int j = 0; j < 2; ++j) mbar_init(staged_bar(j), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * BN;
-    const int cur = (kt - kt_lo) & 1;
-    const bool more = kt < kt_hi;
-    __nv_bfloat16 *Kc = Ks + cur * TILE;
-    __nv_bfloat16 *Vc = Vs + cur * TILE;
-    const float *ksc = kscale + cur * BN;
-    const float *vsc = vscale + cur * BN;
-    // the next tile goes into the other buffer, which the barrier that
-    // ended the previous iteration released
-    if (more) {
-      if (Q8) {
-        fetch_int8(pre, k8, v8, ks_all, vs_all, slot_base, k0 + BN, C);
-      } else {
-        copy_bf16(kb, vb, slot_base, k0 + BN, C, Ks + (cur ^ 1) * TILE, Vs + (cur ^ 1) * TILE);
-      }
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup ----
+    if (Q8) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     }
-
-    const bool active = warp_rows && k0 <= wq_hi && k0 + BN - 1 >= pad &&
-                        (window == 0 || k0 + BN - 1 > wq_lo - window);
-    if (active) {
-      // scores S = Q K^T for this warp's 16 rows x 64 slots
-      float sc[BN / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; kk += 2) {
-          uint32_t kf[4];  // b0, b1 of kk; b0, b1 of kk + 1
-          ldsm_x4(kf, Kc + (nt * 8 + lm_row) * SROW + kk * 16 + lm_mat * 8);
-          mma_bf16(sc[nt], qa[kk], kf[0], kf[1]);
-          mma_bf16(sc[nt], qa[kk + 1], kf[2], kf[3]);
+    const int pt = threadIdx.x;
+    const int slab_row = b * KV + kv;  // row of the layer's [B*KV, C, HD] slab
+    if (!Q8) {
+      if (pt == 0) {
+        for (int kt = kt_lo, it = 0; kt <= kt_hi; ++kt, ++it) {
+          const int stage = it % STAGES;
+          mbar_wait(empty_bar(stage), ((it / STAGES) & 1) ^ 1);
+          const uint32_t dst = smem_u32(ring + stage * STAGE_BYTES);
+          const uint32_t bar = full_bar(stage);
+          mbar_expect_tx(bar, STAGE_BYTES);
+          tma_load(dst, &tm_k, bar, 0, kt * BN, slab_row);
+          tma_load(dst + HALF_BYTES, &tm_k, bar, 64, kt * BN, slab_row);
+          tma_load(dst + TILE_BYTES, &tm_v, bar, 0, kt * BN, slab_row);
+          tma_load(dst + TILE_BYTES + HALF_BYTES, &tm_v, bar, 64, kt * BN, slab_row);
         }
       }
-
-      const bool interior = warp_full && k0 >= pad && k0 + BN - 1 <= wq_lo &&
-                            (window == 0 || k0 > wq_hi - window);
-      float corr[2];
-      if (interior) {
-        softmax_tile<Q8, false>(sc, m_run, l_run, corr, ksc, vsc, scale_log2, k0, tig, row_q,
-                                row_ok, pad, window);
-      } else {
-        softmax_tile<Q8, true>(sc, m_run, l_run, corr, ksc, vsc, scale_log2, k0, tig, row_q,
-                               row_ok, pad, window);
+    } else {
+      // thread 0 keeps the next tile's int8 bytes in flight into the other
+      // staging buffer while all 128 threads widen this one into the ring
+      const size_t scale_base =
+          ((static_cast<size_t>(layer) * B + b) * KV + kv) * static_cast<size_t>(C);
+      if (pt == 0 && kt_lo <= kt_hi) {
+        stage_int8(smem_u32(staging), &tm_k, &tm_v, staged_bar(0), kt_lo * BN, slab_row);
       }
-#pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
-        o[nt][0] *= corr[0];
-        o[nt][1] *= corr[0];
-        o[nt][2] *= corr[1];
-        o[nt][3] *= corr[1];
-      }
-      // O += P V, P rounded to bf16 as the A operand
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-        pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-        pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-        pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-#pragma unroll
-        for (int nt = 0; nt < HD / 8; nt += 2) {
-          uint32_t vf[4];  // b0, b1 of nt; b0, b1 of nt + 1
-          ldsm_x4_trans(vf, Vc + (kk * 16 + (lm_mat & 1) * 8 + lm_row) * SROW + nt * 8 +
-                                (lm_mat >> 1) * 8);
-          mma_bf16(o[nt], pa, vf[0], vf[1]);
-          mma_bf16(o[nt + 1], pa, vf[2], vf[3]);
+      for (int kt = kt_lo, it = 0; kt <= kt_hi; ++kt, ++it) {
+        const int stage = it % STAGES;
+        const int j = it & 1;
+        if (pt == 0 && kt < kt_hi) {
+          stage_int8(smem_u32(staging + (j ^ 1) * STAGING_BYTES), &tm_k, &tm_v, staged_bar(j ^ 1),
+                     (kt + 1) * BN, slab_row);
         }
+        // thread pt loads slot pt's ks and vs
+        const int slot = kt * BN + pt;
+        const float kscale = slot < C ? ks_all[scale_base + slot] : 0.f;
+        const float vscale = slot < C ? vs_all[scale_base + slot] : 0.f;
+        mbar_wait(empty_bar(stage), ((it / STAGES) & 1) ^ 1);
+        mbar_wait(staged_bar(j), (it >> 1) & 1);
+        unsigned char *dst = ring + stage * STAGE_BYTES;
+        const unsigned char *src = staging + j * STAGING_BYTES;
+        widen_tile(src, dst, pt);
+        widen_tile(src + I8_TILE_BYTES, dst + TILE_BYTES, pt);
+        scales[stage * 2 * BN + pt] = kscale;
+        scales[stage * 2 * BN + BN + pt] = vscale;
+        fence_proxy_async();
+        mbar_arrive(full_bar(stage));
+        // every thread is done with staging[j] before TMA refills it
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 rows each ----
+    if (Q8) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    }
+    const int ct = threadIdx.x - 128;
+    const int wg = ct >> 7;
+    const int warp = (ct >> 5) & 3;
+    const int lane = ct & 31;
+    const int gid = lane >> 2;  // fragment row within the 8-row group
+    const int tig = lane & 3;   // thread in group: fragment column pair
+
+    // this warpgroup's 64 rows
+    const int wr0 = r0 + wg * 64;
+    const bool wg_rows = wr0 < n_rows;
+    const bool wg_full = wr0 + 63 < n_rows;
+    const int wq_lo = q_offset + min(wr0, n_rows - 1) / G;
+    const int wq_hi = q_offset + min(wr0 + 63, n_rows - 1) / G;
+
+    // this thread's two accumulator rows: gid and gid + 8 of its warp's 16
+    int row_q[2];
+    bool row_ok[2];
+    size_t row_off[2];  // element offset of the row in q / out
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wr0 + warp * 16 + gid + 8 * i;
+      row_ok[i] = r < n_rows;
+      const int s = row_ok[i] ? r / G : 0;
+      const int g = row_ok[i] ? r % G : 0;
+      row_q[i] = q_offset + s;
+      row_off[i] =
+          ((static_cast<size_t>(b) * S + s) * H + static_cast<size_t>(kv) * G + g) * HD;
+    }
+
+    // Q as wgmma's A operand for the whole head_dim, held in registers
+    uint32_t qa[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = j & 1;  // row gid (0) or gid + 8 (1)
+        const int col = kk * 16 + tig * 2 + (j >> 1) * 8;
+        qa[kk][j] = row_ok[i] ? *reinterpret_cast<const uint32_t *>(q + row_off[i] + col) : 0u;
       }
     }
 
-    if (more) {
-      if (Q8) {
-        store_int8(pre, Ks + (cur ^ 1) * TILE, Vs + (cur ^ 1) * TILE, kscale + (cur ^ 1) * BN,
-                   vscale + (cur ^ 1) * BN);
-      } else {
-        cp_async_wait_all();
-      }
-    }
-    __syncthreads();
-  }
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m_run[2] = {NEG, NEG};
+    float l_run[2] = {0.f, 0.f};  // partial over this thread's columns
 
-  // finalize: l over the row's four threads, then O / max(l, 1e-30)
-  float inv[2];
+    for (int kt = kt_lo, it = 0; kt <= kt_hi; ++kt, ++it) {
+      const int k0 = kt * BN;
+      const int stage = it % STAGES;
+      mbar_wait(full_bar(stage), (it / STAGES) & 1);
+      const bool active = wg_rows && k0 <= wq_hi && k0 + BN - 1 >= pad &&
+                          (window == 0 || k0 + BN - 1 > wq_lo - window);
+      if (active) {
+        const uint32_t k_tile = smem_u32(ring + stage * STAGE_BYTES);
+        const uint32_t v_tile = k_tile + TILE_BYTES;
+        const float *ksb = scales + stage * 2 * BN;
+        const float *vsb = ksb + BN;
+
+        // S = Q K^T: K tile K-major (slot rows of 128 B per 64-wide half),
+        // 8-row groups 1024 B apart; k16 step kk at byte 32 (kk % 4) of half kk / 4
+        float sc[64];
+        fence_acc(sc);
+        wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[i] = 1.f / fmaxf(l, 1e-30f);
-  }
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          wgmma_m64n128k16<0>(
+              sc, qa[kk], smem_desc(k_tile + (kk >> 2) * HALF_BYTES + (kk & 3) * 32, 16, 1024),
+              kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(sc);
+
+        const bool interior = wg_full && k0 >= pad && k0 + BN - 1 <= wq_lo &&
+                              (window == 0 || k0 > wq_hi - window);
+        float corr[2];
+        if (interior) {
+          softmax_tile<Q8, false>(sc, m_run, l_run, corr, ksb, vsb, scale_log2, k0, tig, row_q,
+                                  row_ok, pad, window);
+        } else {
+          softmax_tile<Q8, true>(sc, m_run, l_run, corr, ksb, vsb, scale_log2, k0, tig, row_q,
+                                 row_ok, pad, window);
+        }
 #pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
-    const int col = nt * 8 + tig * 2;
-    if (row_ok[0]) {
-      *reinterpret_cast<uint32_t *>(out + row_off[0] + col) =
-          pack_bf16(o[nt][0] * inv[0], o[nt][1] * inv[0]);
+        for (int nt = 0; nt < HD / 8; ++nt) {
+          o[nt * 4 + 0] *= corr[0];
+          o[nt * 4 + 1] *= corr[0];
+          o[nt * 4 + 2] *= corr[1];
+          o[nt * 4 + 3] *= corr[1];
+        }
+        // P as A registers: the accumulator's n8 blocks 2kk, 2kk + 1 are
+        // the k16 step kk's fragment, rounded to bf16
+        uint32_t pa[BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+        // O += P V: V tile MN-major (hd contiguous), its two 64-wide halves
+        // HALF_BYTES apart, 8-slot groups 1024 B apart; k16 step kk at
+        // slot 16 kk
+        fence_acc(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          wgmma_m64n128k16<1>(o, pa[kk], smem_desc(v_tile + kk * 16 * 128, HALF_BYTES, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(o);
+        fence_a(pa);
+      }
+      // the stage goes back to the producer once every warp is done with it
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(stage));
     }
-    if (row_ok[1]) {
-      *reinterpret_cast<uint32_t *>(out + row_off[1] + col) =
-          pack_bf16(o[nt][2] * inv[1], o[nt][3] * inv[1]);
+
+    // finalize: l over the row's four threads, then O / max(l, 1e-30)
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float l = l_run[i];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[i] = 1.f / fmaxf(l, 1e-30f);
+    }
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt) {
+      const int col = nt * 8 + tig * 2;
+      if (row_ok[0]) {
+        *reinterpret_cast<uint32_t *>(out + row_off[0] + col) =
+            pack_bf16(o[nt * 4 + 0] * inv[0], o[nt * 4 + 1] * inv[0]);
+      }
+      if (row_ok[1]) {
+        *reinterpret_cast<uint32_t *>(out + row_off[1] + col) =
+            pack_bf16(o[nt * 4 + 2] * inv[1], o[nt * 4 + 3] * inv[1]);
+      }
     }
   }
 }
 
+// -- tensor maps ---------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap *, CUtensorMapDataType, cuuint32_t, void *,
+                                const cuuint64_t *, const cuuint64_t *, const cuuint32_t *,
+                                const cuuint32_t *, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void *p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The map of one layer's [B*KV, C, HD] slab of a K or V cache: bf16 in
+// [64, BN, 1] boxes with the 128-byte swizzle, int8 in [HD, BN, 1] boxes
+// unswizzled (the producer widens those). Slots past C read as zeros.
+// Cached by (slab pointer, rows, C, dtype).
+cudaError_t slab_map(CUtensorMap *map, const void *slab, int rows, int C, bool q8) {
+  static std::map<std::tuple<const void *, int, int, bool>, CUtensorMap> cache;
+  const auto key = std::make_tuple(slab, rows, C, q8);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *map = hit->second;
+    return cudaSuccess;
+  }
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t elem = q8 ? 1 : 2;
+  const cuuint64_t dims[3] = {HD, static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {HD * elem, static_cast<cuuint64_t>(C) * HD * elem};
+  const cuuint32_t box[3] = {q8 ? static_cast<cuuint32_t>(HD) : 64u, BN, 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+      const_cast<void *>(slab), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      q8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return cudaSuccess;
+}
+
 template <bool Q8>
-cudaError_t launch(dim3 grid, cudaStream_t st, const __nv_bfloat16 *q, const void *k,
-                   const void *v, const float *ks, const float *vs, const int *pads,
+cudaError_t launch(dim3 grid, cudaStream_t st, const CUtensorMap &tm_k, const CUtensorMap &tm_v,
+                   const __nv_bfloat16 *q, const float *ks, const float *vs, const int *pads,
                    __nv_bfloat16 *out, int B, int S, int H, int KV, int C, int layer,
                    int window, int q_offset, float scale_log2) {
   static bool configured = false;  // the shared-memory opt-in, once per process
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        flash_prefill_kernel<Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(Q8));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  flash_prefill_kernel<Q8><<<grid, NTHREADS, SMEM_BYTES, st>>>(
-      q, k, v, ks, vs, pads, out, B, S, H, KV, C, layer, window, q_offset, scale_log2);
+  flash_prefill_kernel<Q8><<<grid, NTHREADS, smem_bytes(Q8), st>>>(
+      tm_k, tm_v, q, ks, vs, pads, out, B, S, H, KV, C, layer, window, q_offset, scale_log2);
   return cudaGetLastError();
 }
 
@@ -469,11 +664,23 @@ extern "C" int vnsum_flash_prefill(const void *q, const void *k, const void *v,
   __nv_bfloat16 *ob = static_cast<__nv_bfloat16 *>(out);
   const int *pads = static_cast<const int *>(pad_lens);
   const float scale_log2 = scale * LOG2E;
-  const cudaError_t err =
-      quantized ? launch<true>(grid, st, qb, k, v, static_cast<const float *>(ks),
-                               static_cast<const float *>(vs), pads, ob, B, S, H, KV, C, layer,
-                               window, q_offset, scale_log2)
-                : launch<false>(grid, st, qb, k, v, nullptr, nullptr, pads, ob, B, S, H, KV, C,
-                                layer, window, q_offset, scale_log2);
+  // the layer's slab of each cache: B*KV rows of C slots
+  const size_t slab_bytes = static_cast<size_t>(B) * KV * C * HD * (quantized ? 1 : 2);
+  const size_t offset = static_cast<size_t>(layer) * slab_bytes;
+  CUtensorMap tm_k, tm_v;
+  cudaError_t err =
+      slab_map(&tm_k, static_cast<const char *>(k) + offset, B * KV, C, quantized != 0);
+  if (err == cudaSuccess) {
+    err = slab_map(&tm_v, static_cast<const char *>(v) + offset, B * KV, C, quantized != 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = quantized ? launch<true>(grid, st, tm_k, tm_v, qb, static_cast<const float *>(ks),
+                                 static_cast<const float *>(vs), pads, ob, B, S, H, KV, C, layer,
+                                 window, q_offset, scale_log2)
+                  : launch<false>(grid, st, tm_k, tm_v, qb, nullptr, nullptr, pads, ob, B, S, H,
+                                  KV, C, layer, window, q_offset, scale_log2);
   return static_cast<int>(err);
 }
+
+// Dynamic shared memory of a launch, in bytes (quantized: int8 cache).
+extern "C" int vnsum_flash_prefill_smem(int quantized) { return smem_bytes(quantized != 0); }
