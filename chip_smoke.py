@@ -103,6 +103,7 @@ Without a card the script exits non-zero and prints neither.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -272,9 +273,9 @@ def phase_build() -> float:
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name} {function}: {line.strip()}")
     log(f"[build] {len(logs)} kernel libraries built in {seconds:.2f}s")
-    lib = kernels.load("flash_prefill")
-    log(f"[build] flash_prefill dynamic shared memory: int8 {lib.vnsum_flash_prefill_smem(1)} B, "
-        f"bf16 {lib.vnsum_flash_prefill_smem(0)} B")
+    smem = kernels.load("flash_prefill").vnsum_flash_prefill_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    log(f"[build] flash_prefill dynamic shared memory: int8 {smem(1)} B, bf16 {smem(0)} B")
     lib = va._library()
     for R in (3, 27):
         log(f"[build] flash_verify dynamic shared memory at Sq*G={R}: "

@@ -27,16 +27,8 @@ import torch
 from vnsum_tpu.models.llama import _quantize_kv
 from vnsum_tpu.ops.flash_attention import flash_prefill_attention as jax_flash
 
+from test_torch_ops_decode_arithmetic import HD, LOG2E, NEG, bf16_exact
 from test_torch_ops_flash import one_torch_thread  # noqa: F401
-
-HD = 128
-LOG2E = 1.4426950408889634
-NEG = -1e30
-
-
-def bf16_exact(x):
-    """f32 values that bf16 holds exactly (numpy in, numpy out)."""
-    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
 
 
 def kernel_arithmetic(q, cache, layer, pads, G, window=0, q_offset=0,

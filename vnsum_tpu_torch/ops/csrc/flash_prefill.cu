@@ -42,6 +42,11 @@
 // tiles start first. Offsets into the cache are 64-bit: at the pipeline's
 // defaults one K or V cache holds more than 2^31 elements; TMA addresses a
 // layer through a tensor map over its [B*KV, C, hd] slab.
+// Not done: a warpgroup overlapping one tile's softmax with the next
+// tile's QK and the last tile's PV, and the two warpgroups taking turns to
+// issue wgmma. A variant with both (and Q in shared memory, to stay clear
+// of spills) ran a bf16 cache faster and an int8 cache, the main path's,
+// no faster; what holds the int8 path back is not measured yet.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -104,9 +109,9 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// waits for the completion of the barrier's phase of this parity (a guard
-// that trapped after a long wait cost the consumers ~50 spilled registers
-// and serialized their wgmma, so there is none)
+// waits for the completion of the barrier's phase of this parity. No
+// timeout: a clock64 guard that trapped made the consumers spill and
+// serialized their wgmma.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
