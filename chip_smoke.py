@@ -58,10 +58,15 @@ Phases, each raising on failure (so any failure exits non-zero):
    heads, computing the normalised output (no public torch call returns
    the partials);
 6. pipeline: the port's CLI runs map-reduce over data/vi_eval with
-   Llama-3.2-3B at full width and depth (random bf16 weights from a seed):
-   every document must succeed, every summary be written, ROUGE be
-   computed, and the kernel launch counters move by at least one launch per
-   layer per prefill forward and per decode step;
+   Llama-3.2-3B at full width and depth (random bf16 weights from a seed),
+   its greedy decode steps replayed as captured CUDA graphs: every document
+   must succeed, every summary be written, ROUGE be computed, the kernel
+   launch counters move by at least one launch per layer per prefill
+   forward and by exactly one K2 launch per layer per decode step, replays
+   included, and the replays plus one step per captured group be all the
+   decode steps; then the same run through PipelineRunner on a backend
+   built with cuda_graphs=False (every step eager) must write
+   byte-identical summaries;
 7. spec pipeline (path a): the same run through PipelineRunner with a
    backend built with GenerationConfig(spec_k=8), so every map and reduce
    group decodes speculatively against its references through the verify
@@ -81,22 +86,29 @@ Phases, each raising on failure (so any failure exits non-zero):
    width and depth, random bf16 weights from seed 0, byte tokenizer,
    max_total_tokens = max_context + 1024) over two documents built from
    data/vi_eval (~30,000 and ~20,000 bytes, past the one-card ceiling of
-   16,384 tokens): 2/2 documents, ROUGE, K1 launches = 28 per prefill
-   forward, K2p launches = 28 x decode steps, K2 and K3 not launched; then
-   the same with an int8 prefill cache; then, not gated, the one-card
+   16,384 tokens), its greedy decode steps captured: 2/2 documents, ROUGE,
+   K1 launches = 28 per prefill forward, K2p launches = 28 x decode steps,
+   K2 and K3 not launched, steps replayed; then the same with an int8
+   prefill cache; then the bf16 run with cuda_graphs=False, whose summaries
+   must equal the captured bf16 run's byte for byte; then, not gated, the
+   one-card
    engine with max_seq_len 40960 on the same weights and prompts; then,
    gated, the long path's logits (the prefill's last position and the
    first decode steps) against that engine's on the same tokens, at the
    path's shape and a short one, each within its LONG_LOGITS_RTOL, with two
    faults planted in the script's own calls that must exceed it at both;
-10. profile: one prefill forward, one decode step and one verify step
-   (Sq=9) at the map batch's shape and one long decode step at path
-   (c)'s, with their wall time, the device's busy time (torch.profiler),
-   the card's clock and power draw while they run, and the kernels that
-   take most of the time.
+10. profile: one prefill forward, one decode step (eager and captured) and
+   one verify step (Sq=9) at the map batch's shape and one long decode step
+   (eager and captured) at path (c)'s, with their wall time, the device's
+   busy time (torch.profiler), the card's clock and power draw while they
+   run, and the kernels that take most of the time; one replay of each
+   captured step must show 28 K2 (K2p) kernels of each pass in the trace.
 
 Each path phase sets every launch counter to 0 just before it and reads
-them just after; a kernel of the path that was not launched fails it. The
+them just after; a kernel of the path that was not launched fails it. A
+replay of a captured step adds the launches its capture counted
+(``vnsum_tpu_torch/backend/capture.py``), so the counts are those of the
+steps run. The
 line before the last is a JSON object with one entry per kernel, whose
 ``launches`` sums the path phases; the last line is the device record.
 Without a card the script exits non-zero and prints neither.
@@ -1059,29 +1071,46 @@ def check_run(res: dict, docs, gen_dir: Path, approach: str = "mapreduce") -> tu
     return rec, {p.name: p.read_text(encoding="utf-8") for p in out_dir.glob("*.txt")}
 
 
+def check_captured(path: str, st: dict) -> None:
+    """A captured run's steps: each captured group ran step 0 eagerly and
+    replayed every later one, so the replays plus one per capture are all
+    the decode steps, and some steps were replays."""
+    if st["captured_steps"] <= 0 or (
+            st["captured_steps"] + st["graph_captures"] != st["decode_steps"]):
+        raise AssertionError(
+            f"{path}: {st['captured_steps']} replayed steps and {st['graph_captures']} "
+            f"captures for {st['decode_steps']} decode steps")
+
+
 def phase_pipeline(torch) -> tuple[dict, dict]:
-    """The plain map-reduce run through the CLI; returns (launches,
-    summaries)."""
+    """The plain map-reduce run through the CLI, its decode steps captured;
+    then the same run through PipelineRunner on a backend built with
+    cuda_graphs=False, whose summaries must be byte-identical. Returns
+    (launches, summaries) of the captured run."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
     from vnsum_tpu_torch.models import llama32_3b
     from vnsum_tpu_torch.pipeline import cli
+    from vnsum_tpu_torch.pipeline.runner import PipelineRunner
 
     n_layers = llama32_3b().n_layers
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
-    with tempfile.TemporaryDirectory() as tmp:
-        gen_dir = Path(tmp) / "gen"
-        args = [
+    def cli_args(out: Path) -> list:
+        return [
             "--approach", "mapreduce", "--models", "llama3.2:3b",
             "--docs-dir", str(ROOT / "data/vi_eval/doc"),
             "--summary-dir", str(ROOT / "data/vi_eval/summary"),
-            "--generated-summaries-dir", str(gen_dir),
-            "--results-dir", str(Path(tmp) / "results"),
-            "--logs-dir", str(Path(tmp) / "logs"),
+            "--generated-summaries-dir", str(out / "gen"),
+            "--results-dir", str(out / "results"),
+            "--logs-dir", str(out / "logs"),
             "--max-new-tokens", "128", "--device", "cuda",
         ]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gen_dir = Path(tmp) / "gen"
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        rc = cli.main(args)
+        rc = cli.main(cli_args(Path(tmp)))
         wall = time.perf_counter() - t0
         launches = read_launches()
         if rc != 0:
@@ -1090,17 +1119,54 @@ def phase_pipeline(torch) -> tuple[dict, dict]:
         rec, summaries = check_run(res["results"], docs, gen_dir)
         rouge = res["results"]["evaluation"]["llama3.2:3b"]["rouge_scores"]
         eng = res["results"]["engine"]["llama3.2:3b"]
+        check_captured("pipeline", eng)
+        if launches["decode"] != n_layers * eng["decode_steps"]:
+            raise AssertionError(f"pipeline: decode kernel launched {launches['decode']} "
+                                 f"times for {eng['decode_steps']} decode steps")
         check_launches("pipeline", launches, {
             "prefill": n_layers * eng["prefill_forwards"],
             "decode": n_layers * eng["decode_steps"]})
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # control: the same run with every decode step eager
+        cfg = cli.config_from_args(cli.build_parser().parse_args(cli_args(Path(tmp) / "eager")))
+        eager = []
+
+        def factory(_):
+            eager.append(TorchBackend(
+                llama32_3b(), batch_size=cfg.batch_size, max_new_tokens=cfg.max_new_tokens,
+                cuda_graphs=False, device="cuda"))
+            return eager[-1]
+
+        t0 = time.perf_counter()
+        runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
+        eager_res = runner.run()
+        eager_wall = time.perf_counter() - t0
+        if runner.failures:
+            raise AssertionError(f"eager control failures: {runner.failures}")
+        _, eager_summaries = check_run(
+            {"summarization": eager_res.summarization, "evaluation": eager_res.evaluation},
+            docs, Path(tmp) / "eager" / "gen")
+        est = eager[0].stats
+        if est.captured_steps or est.graph_captures or est.decode_steps != eng["decode_steps"]:
+            raise AssertionError(f"eager control: {est.decode_steps} decode steps, "
+                                 f"{est.captured_steps} replayed, {est.graph_captures} captures")
+        if eager_summaries != summaries:
+            raise AssertionError("pipeline summaries differ with capture on and off: "
+                                 + agreement([eager_summaries[d.name] for d in docs],
+                                             [summaries[d.name] for d in docs]))
     log(f"[pipeline] {rec['successful']}/{len(docs)} docs ok, {rec['failed']} failed, "
         f"chunks {rec['total_chunks']}, wall {wall:.2f}s, "
         f"prefill {eng['phase_seconds'].get('prefill', 0.0):.3f}s "
         f"({eng['prefill_forwards']} forwards), "
         f"decode {eng['phase_seconds'].get('decode', 0.0):.3f}s "
-        f"({eng['decode_steps']} steps), generated tokens {eng['generated_tokens']}, "
+        f"({eng['decode_steps']} steps: {eng['graph_captures']} captured groups, "
+        f"{eng['captured_steps']} replays), generated tokens {eng['generated_tokens']}, "
         f"batches {eng['by_bucket']}, peak memory {peak_gb:.2f} GB")
+    log(f"[pipeline] eager control (cuda_graphs=False): wall {eager_wall:.2f}s, decode "
+        f"{est.phase_seconds.get('decode', 0.0):.3f}s ({est.decode_steps} steps) against "
+        f"{eng['phase_seconds'].get('decode', 0.0):.3f}s captured; summaries byte-identical "
+        f"({len(docs)}/{len(docs)})")
     log(f"[pipeline] rouge {json.dumps(rouge)}")
     return launches, summaries
 
@@ -1350,9 +1416,11 @@ def long_corpus(root: Path) -> list:
 def phase_long_context(torch) -> dict:
     """Path (c): the truncated strategy through PipelineRunner over two
     documents past the one-card ceiling, on TorchLongContextBackend (one
-    rank), with a bf16 and then an int8 prefill cache; then the one-card
-    engine on the same weights and prompts as a control (not gated).
-    Returns the launches of the two gated runs."""
+    rank), its decode steps captured, with a bf16 and then an int8 prefill
+    cache; then a bf16 run with cuda_graphs=False, whose summaries must be
+    byte-identical to the captured bf16 run's; then the one-card engine on
+    the same weights and prompts as a control (not gated). Returns the
+    launches of the three gated runs."""
     import dataclasses
 
     from vnsum_tpu_torch.backend.engine import TorchBackend
@@ -1375,17 +1443,17 @@ def phase_long_context(torch) -> dict:
     texts = {}
     with tempfile.TemporaryDirectory() as tmp:
         docs = long_corpus(Path(tmp) / "corpus")
-        for quantize_kv in (False, True):
+        for quantize_kv, graphs in ((False, "auto"), (True, "auto"), (False, False)):
             backends = []
 
             def factory(_):
                 backends.append(TorchLongContextBackend(
                     model=model, group=SeqGroup(), tokenizer="byte", batch_size=2,
                     max_new_tokens=max_new, max_total_tokens=max_context + 1024,
-                    quantize_kv=quantize_kv, device="cuda"))
+                    quantize_kv=quantize_kv, cuda_graphs=graphs, device="cuda"))
                 return backends[-1]
 
-            run_dir = Path(tmp) / f"int8={quantize_kv}"
+            run_dir = Path(tmp) / f"int8={quantize_kv},graphs={graphs}"
             pcfg = PipelineConfig(
                 approach="truncated", models=["llama3.2:3b"], max_context=max_context,
                 max_new_tokens=max_new, batch_size=2,
@@ -1421,7 +1489,8 @@ def phase_long_context(torch) -> dict:
                 raise AssertionError(
                     f"prompt lengths {lengths} (backend saw {st.prompt_tokens} tokens) must "
                     f"each pass {ONE_CARD_CEILING}, untruncated")
-            path = f"long context int8={quantize_kv}"
+            label = f"int8={quantize_kv}" + ("" if graphs else ", eager")
+            path = f"long context {label}"
             if st.by_bucket != {(2, max_context): 1}:
                 raise AssertionError(f"{path}: batches {st.by_bucket}, expected one B=2 "
                                      f"S={max_context} group")
@@ -1429,21 +1498,31 @@ def phase_long_context(torch) -> dict:
                     "partials": n_layers * st.decode_steps}
             if st.decode_steps == 0 or launches != need:
                 raise AssertionError(f"{path}: launches {launches}, the path needs {need}")
+            if graphs:
+                check_captured(path, st.to_dict())
+            elif st.captured_steps or st.graph_captures:
+                raise AssertionError(f"{path}: {st.captured_steps} steps replayed")
             log(f"[launches] {path}: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
             rouge = res.evaluation["llama3.2:3b"]["rouge_scores"]
-            log(f"[long] int8={quantize_kv}: {rec['successful']}/{len(docs)} docs ok, prompt "
+            log(f"[long] {label}: {rec['successful']}/{len(docs)} docs ok, prompt "
                 f"tokens {lengths} (one-card ceiling {ONE_CARD_CEILING}), batches "
                 f"{st.to_dict()['by_bucket']}, wall {wall:.2f}s, prefill "
                 f"{st.phase_seconds.get('prefill', 0.0):.3f}s ({st.prefill_forwards} forward), "
                 f"decode {st.phase_seconds.get('decode', 0.0):.3f}s ({st.decode_steps} steps, "
+                f"{st.captured_steps} replayed, "
                 f"{1e3 * st.phase_seconds.get('decode', 0.0) / st.decode_steps:.2f} ms a "
                 f"step), generated tokens {st.generated_tokens}, peak memory {peak_gb:.2f} GB")
             log(f"[long] rouge {json.dumps(rouge)}")
-            texts[quantize_kv] = [summaries[d.name] for d in docs]
+            texts[quantize_kv, graphs] = [summaries[d.name] for d in docs]
             for k in total:
                 total[k] += launches[k]
-        log(f"[long] int8 prefill cache against bf16: {agreement(texts[True], texts[False])} "
-            "(not gated)")
+        if texts[False, False] != texts[False, "auto"]:
+            raise AssertionError("long-context summaries differ with capture on and off: "
+                                 + agreement(texts[False, False], texts[False, "auto"]))
+        log("[long] bf16 summaries with capture off equal the captured run's: 2/2 "
+            "byte-identical")
+        log(f"[long] int8 prefill cache against bf16: "
+            f"{agreement(texts[True, 'auto'], texts[False, 'auto'])} (not gated)")
 
         # control: the one-card engine, its ceiling raised to 40960 on the
         # same weights, bf16 cache, on the same prompts
@@ -1457,7 +1536,8 @@ def phase_long_context(torch) -> dict:
         wall = time.perf_counter() - t0
         log(f"[long] control: one-card engine at max_seq_len 40960 (batches "
             f"{engine.stats.to_dict()['by_bucket']}, wall {wall:.2f}s) against the long "
-            f"path's bf16 run: {agreement(control, texts[False])} (not gated: bf16 near-ties)")
+            f"path's bf16 run: {agreement(control, texts[False, 'auto'])} (not gated: bf16 "
+            "near-ties)")
         long_logits_gate(torch, model, engine, prompts)
     del model, big, engine
     torch.cuda.empty_cache()
@@ -1556,17 +1636,23 @@ def long_logits_gate(torch, model, engine, prompts: list) -> None:
 def phase_profile(torch) -> None:
     """Where the main path's time goes, at the map batch's shape (B=8,
     S=4096, int8 cache of the spec path's C = 4096 + 128 + 9) for one
-    prefill forward, one decode step and one verify step (Sq=9 at fill
-    4160, through K3), and at path (c)'s (B=2, a bf16 prefill cache of 32768
-    slots, pads 0 and 12000, the decode cache at its 65th slot) for one
-    long decode step: the first call's time on a fresh model and cache,
-    the wall time after it (CUDA events), the device's busy time and
-    kernel count (torch.profiler), the card's SM clock, power draw and
-    clock-limit reasons (nvidia-smi) during a run, and the kernels that take
-    most of the time."""
+    prefill forward, one decode step (eager, then the engine's step
+    function replayed as a captured CUDA graph, from fill 4096) and one
+    verify step (Sq=9 at fill 4160, through K3), and at path (c)'s (B=2, a
+    bf16 prefill cache of 32768 slots, pads 0 and 12000, the decode cache
+    at its 65th slot) for one long decode step, eager and captured: the
+    first call's time on a fresh model and cache, the wall time after it
+    (CUDA events), the device's busy time and kernel count
+    (torch.profiler), the card's SM clock, power draw and clock-limit
+    reasons (nvidia-smi) during a run, and the kernels that take most of
+    the time. In one replay of each captured step the trace must show
+    exactly one K2 (or K2p) kernel of each pass per layer."""
     from torch.profiler import ProfilerActivity, profile
 
-    from vnsum_tpu_torch.backend.long_context import make_long_decode_attention
+    from vnsum_tpu_torch.backend.capture import CapturedStep, decode_buffers, warm_up
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.backend.long_context import long_decode_step, make_long_decode_attention
+    from vnsum_tpu_torch.core.config import GenerationConfig
     from vnsum_tpu_torch.models.llama import (
         init_kv_cache,
         init_model,
@@ -1608,6 +1694,25 @@ def phase_profile(torch) -> None:
               stacked_attention_fn=lambda q, c, li: flash_spec_verify_attention(
                   q, c, li, pads, vfills, G, 0))
 
+    def capture(step, t0: int) -> CapturedStep:
+        """The step warmed up at t0, then recorded (its buffers: ``out``
+        holds 128 steps, the ~45 replays here fit)."""
+        warm_up(lambda: step(t0), dev)
+        return CapturedStep(lambda: step(t0 + 1))
+
+    graphs = {}
+
+    def captured_setup():
+        engine = TorchBackend(model=model, batch_size=B, max_new_tokens=128, device="cuda")
+        buffers = decode_buffers(
+            tokens[:, -1].clone(), torch.zeros(B, dtype=torch.bool, device=dev), 128, 0)
+        gen = GenerationConfig()
+        graphs["decode"] = capture(engine._decode_step(
+            buffers, cache, pads, S, S + 128 + 9, gen, 0, engine._sampling_setup(gen)), 0)
+
+    def captured_decode():
+        graphs["decode"].replay()
+
     long = {}
 
     def long_setup():
@@ -1619,16 +1724,31 @@ def phase_profile(torch) -> None:
         long["cache"] = init_kv_cache(cfg, 2, 128, device=dev)
         long["cur"] = tokens[:2, -1:]
         long["pos"] = (C - long_pads.long())[:, None] + 64
+        buffers = decode_buffers(
+            tokens[:2, -1].clone(), torch.zeros(2, dtype=torch.bool, device=dev), 128, 0)
+        buffers["t"].fill_(64)
+        graphs["long"] = capture(long_decode_step(
+            model, long["attention"], buffers, init_kv_cache(cfg, 2, 128, device=dev),
+            long_pads, C, torch.tensor([1], device=dev), 0,
+            lambda rows, _: rows.argmax(dim=-1)), 64)
 
     def long_decode():
         model(long["cur"], long["pos"], long["cache"], 64, None,
               stacked_attention_fn=lambda q, c, li: long["attention"](q, c, li, 64))
 
+    def captured_long_decode():
+        graphs["long"].replay()
+
     with torch.inference_mode():
         for name, fn, n in (("prefill forward", prefill, 2), ("decode step", decode, 10),
-                            ("verify step", verify, 10), ("long decode step", long_decode, 10)):
+                            ("captured decode step", captured_decode, 10),
+                            ("verify step", verify, 10), ("long decode step", long_decode, 10),
+                            ("captured long decode step", captured_long_decode, 10)):
+            if fn is captured_decode:
+                captured_setup()
             if fn is long_decode:
                 # the map batch's cache makes room for the long one
+                graphs.clear()
                 del cache
                 torch.cuda.empty_cache()
                 long_setup()
@@ -1656,20 +1776,28 @@ def phase_profile(torch) -> None:
                 torch.cuda.synchronize()
             by_kernel: dict[str, float] = {}
             count = 0
+            passes = {"flash_decode_split_kernel": 0, "flash_decode_merge_kernel": 0}
             for evt in prof.events():
                 if evt.device_type == torch.autograd.DeviceType.CUDA:
                     count += 1
                     us = evt.time_range.elapsed_us()
                     by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + us
+                    for k in passes:
+                        passes[k] += k in evt.name
             busy = sum(by_kernel.values()) / 1e3
             top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+            if fn in (captured_decode, captured_long_decode) and (
+                    passes != dict.fromkeys(passes, cfg.n_layers)):
+                raise AssertionError(
+                    f"{name}: one replay's trace shows {count} device ops and the decode "
+                    f"kernel's passes {passes}, expected {cfg.n_layers} of each")
             busy_txt = (f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}% of wall)"
                         if count else "device busy not measured (no device events)")
             log(f"[profile] {name}: first call {first:.3f} ms, then wall {wall:.3f} ms, "
-                f"{busy_txt}, {count} device ops; "
+                f"{busy_txt}, {count} device ops, decode kernel passes {passes}; "
                 f"card (SM clock, power, limit reasons) {card}; top: "
                 + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
-    del model, long
+    del model, long, graphs
     torch.cuda.empty_cache()
 
 

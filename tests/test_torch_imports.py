@@ -25,7 +25,7 @@ def test_sources_found():
     assert {"vnsum_tpu_torch/spec/drafter.py", "vnsum_tpu_torch/backend/inflight.py",
             "vnsum_tpu_torch/ops/verify_attention.py", "vnsum_tpu_torch/backend/long_context.py",
             "vnsum_tpu_torch/parallel/seq.py", "vnsum_tpu_torch/parallel/ring.py",
-            "vnsum_tpu_torch/strategies/truncated.py"} <= names
+            "vnsum_tpu_torch/strategies/truncated.py", "vnsum_tpu_torch/backend/capture.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

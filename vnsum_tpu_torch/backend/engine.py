@@ -6,11 +6,15 @@ left-padded [B, S] batches; each batch runs a whole or chunked prefill
 through the decoder, then a greedy (or seeded sampled) decode loop with
 per-row EOS masking and an early exit once every row is done.
 
-The JAX program runs the decode as an on-device ``while_loop``; here it is a
-Python loop over eager steps. The all-done check reads the device only
-every ``_DONE_CHECK_INTERVAL`` steps: the steps between a batch finishing
-and the next check emit pad for every row, so outputs are identical to a
-check at every step.
+The JAX program runs the decode as an on-device ``while_loop``; here a
+host loop runs one decode step function (``_decode_step``) that reads and
+writes only persistent device buffers, its step counter among them. On the
+card, for greedy generation through the kernels, the loop runs it as a
+captured CUDA graph (``backend/capture.py``): step 0 eagerly, then one
+replay a step. ``cuda_graphs=False`` keeps every step eager (the control).
+The all-done check reads the device only every ``DONE_CHECK_INTERVAL``
+steps: the steps between a batch finishing and the next check emit pad for
+every row, so outputs are identical to a check at every step.
 
 With ``flash`` on, attention goes through the hand-written kernels
 (``ops/flash_attention.py`` for prefill, ``ops/decode_attention.py`` for
@@ -69,12 +73,17 @@ from .base import (
     terminator_ids,
     trim_to_eos,
 )
+from .capture import (
+    DONE_CHECK_INTERVAL,
+    captures,
+    decode_buffers,
+    decode_loop,
+    token_step,
+)
 
 logger = get_logger("vnsum.engine")
 
 _BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
-# decode steps between host reads of the all-done flag (each read syncs)
-_DONE_CHECK_INTERVAL = 16
 # tokens encoded per speculation reference (matched, never attended: a
 # longer reference only loses tail draft coverage)
 _SPEC_MAX_REF_TOKENS = 4096
@@ -116,6 +125,10 @@ class EngineStats:
     # step (one-shot decode and slot segments)
     prefill_forwards: int = 0
     decode_steps: int = 0
+    # captured decode (backend/capture.py): CUDA graphs recorded, one per
+    # captured group, and the decode steps that ran as their replays
+    graph_captures: int = 0
+    captured_steps: int = 0
     # speculative decoding: batched verify forwards run, draft tokens
     # proposed to them, and draft tokens the model kept. Every step also
     # retires one model-own token per live row
@@ -152,6 +165,7 @@ class TorchBackend:
         quantize_kv: str | bool = "auto",
         prefill_chunk_tokens: int = 0,
         segment_tokens: int = 128,
+        cuda_graphs: str | bool = "auto",
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
@@ -174,6 +188,17 @@ class TorchBackend:
             )
         self.quantize_kv = bool(quantize_kv)
         self.use_kernels = self.flash and kernels_supported
+        # captured greedy decode steps: on by default where they apply (the
+        # card, through the kernels); True raises where they cannot
+        self._graphs_required = cuda_graphs is True
+        if cuda_graphs == "auto":
+            cuda_graphs = on_card and self.use_kernels
+        elif cuda_graphs and not (on_card and self.use_kernels):
+            raise ValueError(
+                "cuda_graphs=True needs a CUDA device and the attention kernels "
+                "(flash on, head_dim 128)"
+            )
+        self.cuda_graphs = bool(cuda_graphs)
         self.tok = get_tokenizer(tokenizer) if isinstance(tokenizer, str) else tokenizer
         self.batch_size = batch_size
         self.max_new_tokens = max_new_tokens
@@ -269,7 +294,9 @@ class TorchBackend:
             self.stats.prefill_forwards += 1
         return logits
 
-    def _decode_stacked(self, pad_lens, fill: int):
+    def _decode_stacked(self, pad_lens, fill):
+        """K2 at ``fill``: an int, or a one-element int32 tensor on the
+        device (the captured step's); None on the dense path."""
         if not self.use_kernels:
             return None
         q_per_kv = self.cfg.q_per_kv
@@ -323,43 +350,55 @@ class TorchBackend:
         return first, cache, pad_lens, pad_lens == S
 
     # hot path
+    def _decode_step(self, buffers, cache, pads, S: int, C: int, gen, seed: int, sampling):
+        """The one-token decode step of a packed group over its
+        ``capture.decode_buffers``, as ``step(t_host)``
+        (``capture.token_step``): the forward writes the cache at ``S + t``
+        for every row (``cache_write``'s tensor branch) and K2 reads its
+        fill ``S + t`` on the device, so the step also runs as a captured
+        graph. Sampled rows key step ``t_host + 1``."""
+        eos, vocab_limit, restrict = sampling
+        uids = list(range(pads.shape[0]))
+
+        def forward(cur, t):
+            fill = t + S                                                    # [1]
+            mask = None if self.use_kernels else decode_attention_mask(pads, fill, C)
+            return self.model(
+                cur[:, None], ((S - pads.long()) + t)[:, None], cache,
+                fill.expand(cur.shape[0]), mask,
+                stacked_attention_fn=self._decode_stacked(pads, fill.to(torch.int32)),
+            )
+
+        def sample(logits, step):
+            return self._sample(logits, seed, uids, step, gen, vocab_limit, restrict)
+
+        return token_step(buffers, eos, self.tok.pad_id, forward, sample)
+
+    # hot path
     def _run_group(self, tokens_np, pad_np, B: int, S: int, max_new: int, gen, seed: int):
         """Prefill + decode of one packed batch; returns out ids [B, max_new]."""
-        dev = self.device
         C = S + max_new
-        eos, vocab_limit, restrict = self._sampling_setup(gen)
-        pad_id = self.tok.pad_id
-        uids = list(range(B))
+        sampling = self._sampling_setup(gen)
 
         t_pre = time.time()
-        cur, cache, pad_lens, done = self._prefill_group(tokens_np, pad_np, S, C, gen, seed, uids)
+        cur, cache, pad_lens, done = self._prefill_group(
+            tokens_np, pad_np, S, C, gen, seed, range(B)
+        )
         self._sync()
         prefill_s = time.time() - t_pre
         self.stats.add_phase("prefill", prefill_s)
 
         t_dec = time.time()
-        out = torch.full((B, max_new), pad_id, dtype=torch.long, device=dev)
-        pad_fill = torch.full_like(cur, pad_id)
-        steps = 0
-        for t in range(max_new):
-            if t % _DONE_CHECK_INTERVAL == 0 and bool(done.all()):
-                break
-            # emit, then the done check, then forward, then sample
-            out[:, t] = torch.where(done, pad_fill, cur)
-            done = done | torch.isin(cur, eos)
-            pos = (S - pad_lens.long()) + t
-            mask = None
-            if not self.use_kernels:
-                mask = decode_attention_mask(pad_lens, S + t, C)
-            logits = self.model(
-                cur[:, None], pos[:, None], cache, S + t, mask,
-                stacked_attention_fn=self._decode_stacked(pad_lens, S + t),
-            )
-            cur = self._sample(logits, seed, uids, t + 1, gen, vocab_limit, restrict)
-            steps += 1
-        out_h = out.cpu().numpy()  # synchronizes
+        buffers = decode_buffers(cur, done, max_new, self.tok.pad_id)
+        run = decode_loop(
+            self._decode_step(buffers, cache, pad_lens, S, C, gen, seed, sampling), done,
+            max_new, capture=captures(gen, self.cuda_graphs, self._graphs_required),
+        )
+        out_h = buffers["out"].cpu().numpy()  # synchronizes
         decode_s = time.time() - t_dec
-        self.stats.decode_steps += steps
+        self.stats.decode_steps += run.steps
+        self.stats.graph_captures += run.captures
+        self.stats.captured_steps += run.replays
         self.stats.add_phase("decode", decode_s)
         return out_h
 
@@ -526,7 +565,7 @@ class TorchBackend:
 
         ``st`` holds the resident device state (t, cur, cache, done, out,
         pads), updated in place. The all-done check reads the device every
-        ``_DONE_CHECK_INTERVAL`` steps; the steps after every row is done
+        ``DONE_CHECK_INTERVAL`` steps; the steps after every row is done
         change no output (done rows freeze their t, cur and out), so where
         the loop stops never matters. Sampled rows key step t of request uid
         on (seed, uid, t + 1), which needs t on the host: a sampled segment
@@ -535,7 +574,7 @@ class TorchBackend:
         eos, vocab_limit, restrict = self._sampling_setup(gen)
         ran = 0
         for k in range(steps):
-            if k % _DONE_CHECK_INTERVAL == 0 and bool(st["done"].all()):
+            if k % DONE_CHECK_INTERVAL == 0 and bool(st["done"].all()):
                 break
             t, cur, done, out = st["t"], st["cur"], st["done"], st["out"]
             # emit BEFORE sampling; a done row keeps its out row (its stale

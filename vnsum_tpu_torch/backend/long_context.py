@@ -21,9 +21,13 @@ this backend runs whole documents past it. A :class:`SeqGroup` of N ranks
 
 The decode step reuses the decoder's ``stacked_attention_fn`` seam, so the
 cache write, RoPE and MLP are the one-card engine's code. The JAX program
-runs the decode as an on-device ``while_loop``; here it is a host loop
-that reads the all-done flag every ``_DONE_CHECK_INTERVAL`` steps, which
-never changes an output. Every rank computes the same tokens.
+runs the decode as an on-device ``while_loop``; here a host loop runs one
+step function (:func:`long_decode_step`) over persistent device buffers and
+reads the all-done flag every ``DONE_CHECK_INTERVAL`` steps, which never
+changes an output. At one rank on the card, for greedy generation, the loop
+replays the step as a captured CUDA graph (``backend/capture.py``); above
+one rank it stays eager, since the all-reduces are not captured. Every rank
+computes the same tokens.
 
 Not ported yet: int8 weights (``models/quant.py``), the ``data`` and
 ``model`` mesh axes, and the pipeline CLI's multi-rank launch.
@@ -61,7 +65,8 @@ from .base import (
     terminator_ids,
     trim_to_eos,
 )
-from .engine import _DONE_CHECK_INTERVAL, EngineStats, resolve_device
+from .capture import captures, decode_buffers, decode_loop, token_step
+from .engine import EngineStats, resolve_device
 
 logger = get_logger("vnsum.long")
 
@@ -177,7 +182,8 @@ def make_long_decode_attention(
     )
 
     def attention(q, cache, layer_idx, t):
-        """q [B, 1, H, hd]; cache the decode cache [L, B, KV, C, hd]."""
+        """q [B, 1, H, hd]; cache the decode cache [L, B, KV, C, hd]; ``t``
+        an int or a one-element tensor on the device (the captured step's)."""
         B, _, H, hd = q.shape
         o1, m1, l1 = _kernel_partial_local(
             q, prefill_cache, pads_local, layer_idx, q_per_kv=q_per_kv, group=group
@@ -211,6 +217,26 @@ def make_long_decode_attention(
 # -- full generation program -------------------------------------------------
 
 
+def long_decode_step(model: LlamaModel, attention, buffers: dict, cache: dict, pads,
+                     S: int, eos, pad_id: int, sample):
+    """The long path's one-token decode step over its
+    ``capture.decode_buffers``, as ``step(t_host)``
+    (``capture.token_step``): the decode cache ``cache`` is written and
+    attended at the device ``t``, so the step also runs as a captured graph.
+    ``attention`` is :func:`make_long_decode_attention`'s; ``sample(logits
+    [B, V], step)`` draws the next tokens."""
+
+    def forward(cur, t):
+        return model(
+            cur[:, None], ((S - pads.long()) + t)[:, None], cache, t.expand(cur.shape[0]),
+            None, stacked_attention_fn=lambda q, c, li: attention(q, c, li, t),
+        )
+
+    return token_step(
+        buffers, eos, pad_id, forward, lambda logits, step: sample(logits[:, -1], step)
+    )
+
+
 def generate_long_tokens(
     model: LlamaModel,
     tokens: torch.Tensor,     # [B, S] left-padded, S % group.world == 0
@@ -228,13 +254,16 @@ def generate_long_tokens(
     vocab_limit: int = 0,
     vocab_allowed=None,
     stats: EngineStats | None = None,
+    cuda_graphs: bool = False,
 ) -> torch.Tensor:
     """Prefill, then the decode loop; returns the emitted ids [B, max_new].
 
     Row ``b``'s sampled token at step ``t`` draws from ``row_seed(seed, b,
     t)`` (step 0 is the prefill's token). ``quantize_kv`` stores the frozen
-    prefill cache int8. ``stats`` collects the prefill and decode seconds
-    (each ended by a synchronize), forwards and steps."""
+    prefill cache int8. ``cuda_graphs`` replays the greedy decode step as a
+    captured CUDA graph (one rank on the card). ``stats`` collects the
+    prefill and decode seconds (each ended by a synchronize), forwards,
+    steps and captured steps."""
     group = group or SeqGroup()
     cfg = model.cfg
     dev = model.device
@@ -261,29 +290,24 @@ def generate_long_tokens(
         stats.add_phase("prefill", time.time() - t_pre)
 
     t_dec = time.time()
+    if cuda_graphs and (temperature > 0 or group.world > 1):
+        # sampled rows read host-seeded generators; the all-reduces of more
+        # ranks are not captured
+        raise ValueError("a captured long decode needs greedy rows and one seq rank")
     attention = make_long_decode_attention(prefill_cache, pad_lens, cfg.q_per_kv, group)
-    decode_cache = init_kv_cache(cfg, B, max_new, device=dev)
-    out = torch.full((B, max_new), pad_id, dtype=torch.long, device=dev)
-    pad_fill = torch.full_like(cur, pad_id)
-    steps = 0
-    for t in range(max_new):
-        if t % _DONE_CHECK_INTERVAL == 0 and bool(done.all()):
-            break
-        # emit, then the done check, then forward, then sample
-        out[:, t] = torch.where(done, pad_fill, cur)
-        done = done | torch.isin(cur, eos)
-        pos = (S - pad_lens.long()) + t
-        logits = model(
-            cur[:, None], pos[:, None], decode_cache, t, None,
-            stacked_attention_fn=lambda q, c, li: attention(q, c, li, t),
-        )
-        cur = sample(logits[:, -1], t + 1)
-        steps += 1
+    buffers = decode_buffers(cur, done, max_new, pad_id)
+    step = long_decode_step(
+        model, attention, buffers, init_kv_cache(cfg, B, max_new, device=dev), pad_lens,
+        S, eos, pad_id, sample,
+    )
+    run = decode_loop(step, done, max_new, capture=cuda_graphs)
     _sync(dev)
     if stats is not None:
-        stats.decode_steps += steps
+        stats.decode_steps += run.steps
+        stats.graph_captures += run.captures
+        stats.captured_steps += run.replays
         stats.add_phase("decode", time.time() - t_dec)
-    return out
+    return buffers["out"]
 
 
 class TorchLongContextBackend:
@@ -311,6 +335,7 @@ class TorchLongContextBackend:
         generation: GenerationConfig | None = None,
         seed: int = 0,
         quantize_kv: bool = False,
+        cuda_graphs: str | bool = "auto",
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
@@ -321,6 +346,14 @@ class TorchLongContextBackend:
                 "streaming); sliding-window configs are one-card-engine only"
             )
         self.group = group or SeqGroup()
+        # captured greedy decode steps: on by default at one rank on the
+        # card (the all-reduces of more ranks are not captured); True raises
+        # where they cannot apply
+        can_capture = self.device.type == "cuda" and self.group.world == 1
+        if cuda_graphs is True and not can_capture:
+            raise ValueError("cuda_graphs=True needs a CUDA device and one seq rank")
+        self._graphs_required = cuda_graphs is True
+        self.cuda_graphs = can_capture if cuda_graphs == "auto" else bool(cuda_graphs)
         self.tok = get_tokenizer(tokenizer) if isinstance(tokenizer, str) else tokenizer
         # prompts here are near the memory ceiling by definition: one row
         # at a time unless the caller's memory budget allows more
@@ -414,6 +447,7 @@ class TorchLongContextBackend:
                 temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
                 seed=self._next_seed(gen), quantize_kv=self.quantize_kv,
                 vocab_limit=vocab_limit, vocab_allowed=vocab_allowed, stats=self.stats,
+                cuda_graphs=captures(gen, self.cuda_graphs, self._graphs_required),
             ).cpu().numpy()
             logger.info(
                 "long generate: B=%d S=%d new=%d in %.1fs", B, S, max_new, time.time() - t_group

@@ -180,7 +180,10 @@ class LlamaModel(nn.Module):
             raise ValueError("dense attention needs a mask")
         x = F.embedding(tokens.long(), self.embed)
         cos, sin = rope_cos_sin(cfg, positions)
-        if not torch.is_tensor(write_index):
+        if torch.is_tensor(write_index):
+            # the per-row slots, once for every layer's K/V (and scales)
+            write_index = row_slots(write_index, cache["k"].shape[3], tokens.shape[1])
+        else:
             write_index = int(write_index)
         for li in range(cfg.n_layers):
             x = self._block(
@@ -287,24 +290,37 @@ def init_kv_cache(
     }
 
 
+def row_slots(write_index: torch.Tensor, C: int, S: int):
+    """The (rows, slots) index pair [B, S] of a [B] tensor of per-row
+    starts in a cache of C slots, for :func:`cache_write`. Each start is
+    clamped to [0, C - S], as the JAX package's ``dynamic_update_slice``
+    clamps it: a finished row of the slot segment parks at t = max_new and
+    writes at C, which lands on C - 1 instead of past the cache (on the card
+    an out-of-bounds index is a device-side assert). Clamping never moves a
+    live row's write."""
+    B = write_index.shape[0]
+    start = write_index.long().clamp(0, C - S)
+    slots = start[:, None] + torch.arange(S, device=write_index.device)[None, :]
+    return torch.arange(B, device=write_index.device)[:, None].expand(B, S), slots
+
+
 def cache_write(buf: torch.Tensor, val: torch.Tensor, write_index) -> None:
     """Write one layer's new K/V (or scales) into its cache IN PLACE.
 
     ``buf`` [B, KV, C(, hd)], ``val`` [B, KV, S(, hd)]. ``write_index`` is
-    the slot of val's first token: an int shared by every row, or a [B]
-    tensor with one slot per row. A per-row start is clamped to [0, C - S],
-    as the JAX package's ``dynamic_update_slice`` clamps it: a finished row
-    of the slot segment parks at t = max_new and writes at C, which lands
-    on C - 1 instead of past the cache (on the card an out-of-bounds index
-    is a device-side assert). Clamping never moves a live row's write."""
+    the slot of val's first token: an int shared by every row; a [B]
+    tensor with one slot per row, clamped as :func:`row_slots` says; or
+    that tensor's :func:`row_slots` pair, which the decoder computes once
+    for all its layers. The tensor forms read nothing on the host, so a
+    captured decode step writes at its device step counter."""
     S = val.shape[2]
-    if not torch.is_tensor(write_index):
+    if isinstance(write_index, tuple):
+        rows, slots = write_index
+    elif torch.is_tensor(write_index):
+        rows, slots = row_slots(write_index, buf.shape[2], S)
+    else:
         buf[:, :, write_index : write_index + S] = val
         return
-    B, C = buf.shape[0], buf.shape[2]
-    start = write_index.long().clamp(0, C - S)
-    slots = start[:, None] + torch.arange(S, device=buf.device)[None, :]   # [B, S]
-    rows = torch.arange(B, device=buf.device)[:, None].expand(B, S)
     # advanced indices on dims 0 and 2: the indexed view is [B, S, KV(, hd)]
     buf[rows, :, slots] = val.transpose(1, 2)
 
