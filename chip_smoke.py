@@ -15,7 +15,8 @@ Phases, each raising on failure (so any failure exits non-zero):
    query offsets, windows, left pads with a row that sees no key, a layer
    other than 0, a fill short of the cache; at the pipeline's own batches
    (map B=8 S=4096 C=4224, decode fills 4096 and 4223; reduce B=8 S=512
-   C=640); the verify kernel at the spec path's shape (B=8, Sq=9,
+   C=640) and K1 and K2 at one row (B=1 S=4096 C=4224, bf16 and int8: the
+   strategies' single-row rounds); the verify kernel at the spec path's shape (B=8, Sq=9,
    C=4096+128+9, ragged fills on both sides of a split boundary, a row
    parked at the budget, a row whose pad hides every key from its first
    queries, a window) and at the slot segment's (B=8, Sq=1, C=4224, a
@@ -67,7 +68,18 @@ Phases, each raising on failure (so any failure exits non-zero):
    decode steps; then the same run through PipelineRunner on a backend
    built with cuda_graphs=False (every step eager) must write
    byte-identical summaries;
-7. spec pipeline (path a): the same run through PipelineRunner with a
+7. strategies: the other four approaches (mapreduce_critique, iterative,
+   mapreduce_hierarchical at max_depth 2 over a tree JSON the phase writes,
+   skeleton), each through PipelineRunner with the CLI's configuration
+   (chunk_size 1024, 128 new tokens) on Llama-3.2-3B at full width and
+   depth (random bf16 weights from seed 0, one model for all four), batch
+   8, int8 KV cache, decode steps captured: every document ok, ROUGE
+   computed, K1 launches = 28 x prefill forwards and K2 launches = 28 x
+   decode steps exactly, K2p and K3 not launched, the replays plus one
+   step per captured group all the decode steps; then hierarchical again
+   on a backend built with cuda_graphs=False, whose summaries must be
+   byte-identical;
+8. spec pipeline (path a): the same run through PipelineRunner with a
    backend built with GenerationConfig(spec_k=8), so every map and reduce
    group decodes speculatively against its references through the verify
    kernel: 7/7 documents, ROUGE, verify launches = 28 x verify steps; then
@@ -76,11 +88,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    then, gated, one verify forward of 9 tokens (K3) against 9 decode steps
    (K2) of the same tokens on the map batch, within SPEC_LOGITS_RTOL, with
    a fault planted in the script's own call that must exceed it;
-8. slot loop (path b): TorchBackend.start_slot_loop(slots=8,
+9. slot loop (path b): TorchBackend.start_slot_loop(slots=8,
    prompt_tokens=4096, max_new_tokens=128, segment_tokens=32) fed the 7 map
    prompts in two waves and drained, at fused_segments 1 and 4: every
    request completes and verify launches = 28 x the decode steps run;
-9. long context (path c): PipelineRunner(approach="truncated",
+10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
    width and depth, random bf16 weights from seed 0, byte tokenizer,
@@ -97,7 +109,7 @@ Phases, each raising on failure (so any failure exits non-zero):
    first decode steps) against that engine's on the same tokens, at the
    path's shape and a short one, each within its LONG_LOGITS_RTOL, with two
    faults planted in the script's own calls that must exceed it at both;
-10. profile: one prefill forward, one decode step (eager and captured) and
+11. profile: one prefill forward, one decode step (eager and captured) and
    one verify step (Sq=9) at the map batch's shape and one long decode step
    (eager and captured) at path (c)'s, with their wall time, the device's
    busy time (torch.profiler), the card's clock and power draw while they
@@ -471,6 +483,17 @@ def phase_correctness(torch) -> dict:
                 decode(f"int8={quantized} B={B} C={C} fill={fill} layer={layer} "
                        "(pipeline batch)", qd, cache, layer, pads, fill, 0)
             del cache, q, qd
+    # one row, as the strategies' last iterative round and the
+    # hierarchical fallback's reduce and polish run it (bucketed to B=1)
+    S, C, pads = 4096, 4096 + 128, pads_of([37])
+    for quantized in (True, False):
+        cache = make_cache(torch, 2, 1, KV, C, hd, quantized, 60 + quantized, dev)
+        prefill(f"int8={quantized} B=1 S={S} C={C} layer=1 (one row)",
+                rand_q(torch, (1, S, H, hd), 61, dev), cache, 1, pads, 0, 0)
+        for fill in (S, C - 1):
+            decode(f"int8={quantized} B=1 C={C} fill={fill} layer=1 (one row)",
+                   rand_q(torch, (1, 1, H, hd), 62 + fill, dev), cache, 1, pads, fill, 0)
+        del cache
     torch.cuda.empty_cache()
 
     # K1, K2 and K2p at the other group sizes the kernels take: G=2
@@ -1173,6 +1196,131 @@ def phase_pipeline(torch) -> tuple[dict, dict]:
 
 # -- phase 7 ------------------------------------------------------------------
 
+STRATEGIES = ("mapreduce_critique", "iterative", "mapreduce_hierarchical", "skeleton")
+
+
+def strategy_trees(docs, path: Path) -> None:
+    """Writes the hierarchical run's tree JSON, built as its CPU test builds
+    one: a document's title line is its Document node's text and its
+    paragraphs sit under two Header nodes; every other document nests each
+    paragraph under a sub-header of its own (depth 3, the rest depth 2);
+    the last document is left out, so it takes the plain-text fallback."""
+    trees = {}
+    for i, doc in enumerate(docs[:-1]):
+        title, _, body = doc.read_text(encoding="utf-8").partition("\n")
+        paras = [p.strip() for p in body.split("\n\n") if p.strip()]
+        halves = (paras[: len(paras) // 2], paras[len(paras) // 2 :])
+
+        def leaf(k, text, nested=i % 2 == 0):
+            node = {"type": "Paragraph", "text": text}
+            return {"type": "Header", "text": f"Đoạn {k + 1}", "children": [node]} if nested else node
+
+        trees[doc.name] = {"type": "Document", "text": title.strip(), "children": [
+            {"type": "Header", "text": f"Phần {h + 1}",
+             "children": [leaf(k, text) for k, text in enumerate(half)]}
+            for h, half in enumerate(halves)]}
+    path.write_text(json.dumps(trees, ensure_ascii=False), encoding="utf-8")
+
+
+def phase_strategies(torch) -> dict:
+    """The four other approaches through PipelineRunner on one model,
+    captured, each held to K1 = 28 x prefill forwards and K2 = 28 x decode
+    steps exactly and no K2p or K3 launch; then hierarchical, whose
+    batches vary most in (B, S), on a backend built with cuda_graphs=False,
+    whose summaries must be byte-identical. Returns the launches of the
+    five runs."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models import llama32_3b
+    from vnsum_tpu_torch.models.llama import init_model
+    from vnsum_tpu_torch.pipeline import cli
+    from vnsum_tpu_torch.pipeline.runner import PipelineRunner
+
+    cfg3b = llama32_3b()
+    n_layers = cfg3b.n_layers
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    model = init_model(cfg3b, 0, torch.device("cuda"))
+    total = dict.fromkeys(("prefill", "decode", "verify", "partials"), 0)
+
+    def run(approach: str, out: Path, trees: Path, cuda_graphs="auto"):
+        argv = [
+            "--approach", approach, "--models", "llama3.2:3b",
+            "--docs-dir", str(ROOT / "data/vi_eval/doc"),
+            "--summary-dir", str(ROOT / "data/vi_eval/summary"),
+            "--generated-summaries-dir", str(out / "gen"),
+            "--results-dir", str(out / "results"), "--logs-dir", str(out / "logs"),
+            "--max-new-tokens", "128", "--chunk-size", "1024", "--device", "cuda",
+        ]
+        if approach == "mapreduce_hierarchical":
+            argv += ["--tree-json", str(trees), "--max-depth", "2"]
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        backends = []
+
+        def factory(_):
+            backends.append(TorchBackend(
+                model=model, batch_size=cfg.batch_size, max_new_tokens=cfg.max_new_tokens,
+                cuda_graphs=cuda_graphs, device="cuda"))
+            return backends[-1]
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
+        res = runner.run()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if runner.failures:
+            raise AssertionError(f"{approach}: failures {runner.failures}")
+        rec, summaries = check_run(
+            {"summarization": res.summarization, "evaluation": res.evaluation},
+            docs, out / "gen", approach)
+        st = backends[0].stats
+        path = f"{approach}{'' if cuda_graphs else ' eager control'}"
+        if (launches["prefill"] != n_layers * st.prefill_forwards
+                or launches["decode"] != n_layers * st.decode_steps
+                or launches["verify"] or launches["partials"]):
+            raise AssertionError(
+                f"{path}: launches {launches} for {st.prefill_forwards} prefill forwards "
+                f"and {st.decode_steps} decode steps")
+        check_launches(path, launches, {"prefill": n_layers, "decode": n_layers})
+        for k in total:
+            total[k] += launches[k]
+        log(f"[strategy] {path}: {rec['successful']}/{len(docs)} docs ok, chunks "
+            f"{rec['total_chunks']}, generate calls {st.calls}, prompts {st.prompts}, "
+            f"batches {st.to_dict()['by_bucket']}, prefill forwards {st.prefill_forwards}, "
+            f"decode steps {st.decode_steps} ({st.graph_captures} captures, "
+            f"{st.captured_steps} replays), prefill {st.phase_seconds.get('prefill', 0.0):.3f}s, "
+            f"decode {st.phase_seconds.get('decode', 0.0):.3f}s, wall {wall:.2f}s, "
+            f"{60 * len(docs) / wall:.2f} documents/min, generated tokens "
+            f"{st.generated_tokens}, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"[strategy] {path} rouge "
+            f"{json.dumps(res.evaluation['llama3.2:3b']['rouge_scores'])}")
+        return st, summaries
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trees = Path(tmp) / "trees.json"
+        strategy_trees(docs, trees)
+        for approach in STRATEGIES:
+            st, summaries = run(approach, Path(tmp) / approach, trees)
+            check_captured(approach, st.to_dict())
+            if approach == "mapreduce_hierarchical":
+                captured_steps, captured = st.decode_steps, summaries
+        est, eager = run("mapreduce_hierarchical", Path(tmp) / "eager", trees, cuda_graphs=False)
+    if est.captured_steps or est.graph_captures or est.decode_steps != captured_steps:
+        raise AssertionError(f"hierarchical eager control: {est.decode_steps} decode steps, "
+                             f"{est.captured_steps} replayed, {est.graph_captures} captures")
+    if eager != captured:
+        names = sorted(captured)
+        raise AssertionError("hierarchical summaries differ with capture on and off: "
+                             + agreement([eager[n] for n in names], [captured[n] for n in names]))
+    log(f"[strategy] mapreduce_hierarchical: summaries byte-identical with capture on and off "
+        f"({len(captured)}/{len(docs)})")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+# -- phase 8 ------------------------------------------------------------------
+
 
 def phase_spec_pipeline(torch, plain_summaries: dict):
     """Path (a): map-reduce through PipelineRunner with a spec_k=8 backend,
@@ -1327,7 +1475,7 @@ def spec_logits_gate(torch, engine, prompts: list) -> None:
         raise AssertionError("verify logits against the decode path: " + "; ".join(failed))
 
 
-# -- phase 8 ------------------------------------------------------------------
+# -- phase 9 ------------------------------------------------------------------
 
 
 def phase_slot_loop(torch, backend, prompts: list, oneshot: list) -> dict:
@@ -1384,7 +1532,7 @@ def phase_slot_loop(torch, backend, prompts: list, oneshot: list) -> dict:
     return total
 
 
-# -- phase 9 ------------------------------------------------------------------
+# -- phase 10 -----------------------------------------------------------------
 
 ONE_CARD_CEILING = 16384  # Llama-3.2-3B's max_seq_len: the one-card engine's cut
 
@@ -1630,7 +1778,7 @@ def long_logits_gate(torch, model, engine, prompts: list) -> None:
                              + "; ".join(failed))
 
 
-# -- phase 10 -----------------------------------------------------------------
+# -- phase 11 -----------------------------------------------------------------
 
 
 def phase_profile(torch) -> None:
@@ -1816,12 +1964,13 @@ def main() -> int:
     phase_mutants(len(CHECKED))
     timing = phase_timing(torch, errs)
     launches, plain_summaries = phase_pipeline(torch)
+    strategy_launches = phase_strategies(torch)
     spec_launches, backend, prompts, oneshot = phase_spec_pipeline(torch, plain_summaries)
     slot_launches = phase_slot_loop(torch, backend, prompts, oneshot)
     del backend
     long_launches = phase_long_context(torch)
-    launches = {k: launches[k] + spec_launches[k] + slot_launches[k] + long_launches[k]
-                for k in launches}
+    launches = {k: launches[k] + strategy_launches[k] + spec_launches[k] + slot_launches[k]
+                + long_launches[k] for k in launches}
     phase_profile(torch)
     kernels = []
     for key, meta in KERNELS.items():

@@ -25,7 +25,11 @@ def test_sources_found():
     assert {"vnsum_tpu_torch/spec/drafter.py", "vnsum_tpu_torch/backend/inflight.py",
             "vnsum_tpu_torch/ops/verify_attention.py", "vnsum_tpu_torch/backend/long_context.py",
             "vnsum_tpu_torch/parallel/seq.py", "vnsum_tpu_torch/parallel/ring.py",
-            "vnsum_tpu_torch/strategies/truncated.py", "vnsum_tpu_torch/backend/capture.py"} <= names
+            "vnsum_tpu_torch/strategies/truncated.py", "vnsum_tpu_torch/backend/capture.py",
+            "vnsum_tpu_torch/text/tree.py", "vnsum_tpu_torch/strategies/critique.py",
+            "vnsum_tpu_torch/strategies/iterative.py",
+            "vnsum_tpu_torch/strategies/hierarchical.py",
+            "vnsum_tpu_torch/strategies/skeleton.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

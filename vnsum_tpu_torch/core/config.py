@@ -1,11 +1,10 @@
 """Typed configuration for the pipeline and strategies.
 
 Copy of ``vnsum_tpu/core/config.py`` cut to what the port runs today: the
-map-reduce and truncated approaches, with speculative decoding. Knob names
-and defaults are the JAX package's (themselves the reference's,
-run_full_evaluation_pipeline.py: 973-1027); the knobs of the other
-approaches, meshes, the long-context launch and int8 weights return with
-the slices that port them.
+six approaches, with speculative decoding. Knob names and defaults are the
+JAX package's (themselves the reference's,
+run_full_evaluation_pipeline.py: 973-1027); meshes, the long-context
+launch and int8 weights return with the slices that port them.
 """
 from __future__ import annotations
 
@@ -13,7 +12,14 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 
-APPROACHES: tuple[str, ...] = ("mapreduce", "truncated")
+APPROACHES: tuple[str, ...] = (
+    "mapreduce",
+    "mapreduce_critique",
+    "iterative",
+    "truncated",
+    "mapreduce_hierarchical",
+    "skeleton",
+)
 
 
 @dataclass(frozen=True)
@@ -57,13 +63,25 @@ class PipelineConfig:
     logs_dir: str = "logs"
     max_samples: int | None = None
 
-    # chunking
+    # chunking (mapreduce / critique / hierarchical)
     chunk_size: int = 12000
     chunk_overlap: int = 200
     token_max: int = 10000
 
-    # truncated: the context the document is cut to, max_new_tokens included
+    # iterative
+    iterative_chunk_size: int = 12000
+    iterative_chunk_overlap: int = 200
+
+    # truncated and skeleton: the context the document is cut to,
+    # max_new_tokens included; hierarchical clamps its chunks to 75% of it
     max_context: int = 16384
+
+    # critique
+    max_critique_iterations: int = 2
+
+    # hierarchical
+    max_depth: int = 1
+    tree_json_path: str = "data_1/document_tree.json"
 
     # failure containment: re-submit a failed document batch this many extra
     # times before recording its documents as failed. Device errors are
@@ -86,6 +104,10 @@ class PipelineConfig:
             )
         if self.chunk_overlap >= self.chunk_size:
             raise ValueError("chunk_overlap must be smaller than chunk_size")
+        if self.iterative_chunk_overlap >= self.iterative_chunk_size:
+            raise ValueError(
+                "iterative_chunk_overlap must be smaller than iterative_chunk_size"
+            )
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -99,6 +121,22 @@ def approach_defaults(approach: str) -> dict:
     993-1027)."""
     if approach == "mapreduce":
         return {"chunk_size": 12000, "chunk_overlap": 200, "token_max": 10000}
+    if approach == "iterative":
+        return {"iterative_chunk_size": 12000, "iterative_chunk_overlap": 200}
     if approach == "truncated":
+        return {"max_context": 16384}
+    if approach == "mapreduce_critique":
+        return {
+            "chunk_size": 12000,
+            "chunk_overlap": 200,
+            "token_max": 10000,
+            "max_critique_iterations": 2,
+            "max_new_tokens": 2048,
+        }
+    if approach == "mapreduce_hierarchical":
+        return {"chunk_size": 12000, "chunk_overlap": 200, "max_depth": 1}
+    if approach == "skeleton":
+        # Skeleton-of-Thought (arXiv 2307.15337): same context contract as
+        # truncated — the outline/expand fan-out runs over what fits
         return {"max_context": 16384}
     raise ValueError(f"unknown approach: {approach}")

@@ -5,6 +5,10 @@
         --models llama3.2:3b --docs-dir data/vi_eval/doc \\
         --summary-dir data/vi_eval/summary --max-new-tokens 128
 
+``--approach`` takes every approach of ``core/config.py`` ``APPROACHES``;
+``mapreduce_hierarchical`` reads its trees from ``--tree-json`` (plain text
+where a document has none) and collapses down from ``--max-depth``.
+
 Runs on the card; ``--device cpu`` runs on the CPU. Exits 1 when any
 document or model failed.
 """
@@ -26,6 +30,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="models to evaluate (names in vnsum_tpu_torch.models.MODEL_REGISTRY)",
     )
     p.add_argument("--max-samples", type=int, default=None)
+    p.add_argument(
+        "--tree-json", default="data_1/document_tree.json",
+        help="mapreduce_hierarchical: document structure trees keyed by filename",
+    )
+    p.add_argument(
+        "--max-depth", type=int, default=1,
+        help="mapreduce_hierarchical: deepest tree level collapsed bottom-up",
+    )
     p.add_argument("--docs-dir", default="data_1/doc")
     p.add_argument("--summary-dir", default="data_1/summary")
     p.add_argument("--generated-summaries-dir", default="data_1/generated_summaries")
@@ -48,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--max-context", type=int, default=None,
-        help="truncated approach: context budget in tokens (ref default 16384)",
+        help="truncated and skeleton: context budget in tokens (ref default "
+        "16384); hierarchical clamps its chunks to 75%% of it",
     )
     p.add_argument(
         "--prefill-chunk-tokens", type=int, default=0,
@@ -68,6 +81,8 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         overrides["chunk_overlap"] = min(
             overrides.get("chunk_overlap", 200), max(0, args.chunk_size // 10)
         )
+        overrides["iterative_chunk_size"] = args.chunk_size
+        overrides["iterative_chunk_overlap"] = overrides["chunk_overlap"]
     return PipelineConfig(
         approach=args.approach,
         models=list(args.models),
@@ -80,7 +95,13 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         batch_size=args.batch_size,
         tokenizer=args.tokenizer,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
-        **overrides,
+        tree_json_path=args.tree_json,
+        max_depth=args.max_depth,
+        **{
+            k: v
+            for k, v in overrides.items()
+            if k not in ("max_depth", "tree_json_path")
+        },
     )
 
 

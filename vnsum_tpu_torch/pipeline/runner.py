@@ -29,7 +29,7 @@ from ..data import DocumentDataset, analyze_documents
 from ..eval.semantic import evaluate_folders
 from ..models import MODEL_REGISTRY
 from ..strategies import get_strategy
-from ..text import clean_thinking_tokens
+from ..text import DocumentTree, clean_thinking_tokens
 
 logger = get_logger("vnsum.pipeline")
 
@@ -121,6 +121,17 @@ class PipelineRunner:
         out_dir = self._output_dir(model)
         out_dir.mkdir(parents=True, exist_ok=True)
 
+        tree = None
+        if cfg.approach == "mapreduce_hierarchical":
+            tree_path = Path(cfg.tree_json_path)
+            if tree_path.is_file():
+                tree = DocumentTree.load(tree_path)
+            else:
+                logger.warning(
+                    "tree JSON %s missing; hierarchical will wrap plain text",
+                    tree_path,
+                )
+
         pending: list[str] = []
         for name in ds.filenames(cfg.max_samples):
             if (out_dir / name).is_file():  # resume-by-file (ref :422-431)
@@ -136,11 +147,28 @@ class PipelineRunner:
         for start in range(0, len(pending), group_size):
             group = pending[start : start + group_size]
             batch_t0 = time.time()
+
+            def run_batch():
+                if tree is None:
+                    texts = [ds.read_doc(n) for n in group]
+                    return list(zip(group, strategy.summarize_batch(texts)))
+                # hierarchical over trees: documents with a tree collapse
+                # it bottom-up; the rest wrap their plain text
+                roots = [(n, tree.get(n)) for n in group]
+                with_tree = [(n, r) for n, r in roots if r is not None]
+                fallback = [n for n, r in roots if r is None]
+                results = []
+                if with_tree:
+                    results += zip([n for n, _ in with_tree],
+                                   strategy.summarize_tree_batch([r for _, r in with_tree]))
+                if fallback:
+                    results += zip(fallback, strategy.summarize_batch(
+                        [ds.read_doc(n) for n in fallback]))
+                return results
+
             try:
                 results = call_with_retries(
-                    lambda: list(zip(
-                        group, strategy.summarize_batch([ds.read_doc(n) for n in group])
-                    )),
+                    run_batch,
                     max_retries=cfg.max_batch_retries,
                     backoff=cfg.retry_backoff,
                     should_retry=is_retryable,

@@ -7,6 +7,14 @@ from .tokenizer import (
     get_tokenizer,
     whitespace_token_count,
 )
+from .tree import (
+    DocumentTree,
+    collect_nodes_at_depth,
+    depth_first_traverse,
+    extract_descendant_paragraph_text,
+    replace_node_with_paragraph,
+    tree_depth,
+)
 
 __all__ = [
     "clean_thinking_tokens",
@@ -16,4 +24,10 @@ __all__ = [
     "Tokenizer",
     "get_tokenizer",
     "whitespace_token_count",
+    "DocumentTree",
+    "collect_nodes_at_depth",
+    "depth_first_traverse",
+    "extract_descendant_paragraph_text",
+    "replace_node_with_paragraph",
+    "tree_depth",
 ]
