@@ -15,8 +15,10 @@ Phases, each raising on failure (so any failure exits non-zero):
    query offsets, windows, left pads with a row that sees no key, a layer
    other than 0, a fill short of the cache; at the pipeline's own batches
    (map B=8 S=4096 C=4224, decode fills 4096 and 4223; reduce B=8 S=512
-   C=640) and K1 and K2 at one row (B=1 S=4096 C=4224, bf16 and int8: the
-   strategies' single-row rounds); the verify kernel at the spec path's shape (B=8, Sq=9,
+   C=640) and K1 and K2 at every other batch the strategies phase may
+   run (B = 1, 2, 4 and 8 by S = 512, 1024, 2048 and 4096, C = S + 128,
+   fills S and C-1, bf16 and int8, ragged pads and an all-pad filler
+   row: phase 7 fails on a batch outside them); the verify kernel at the spec path's shape (B=8, Sq=9,
    C=4096+128+9, ragged fills on both sides of a split boundary, a row
    parked at the budget, a row whose pad hides every key from its first
    queries, a window) and at the slot segment's (B=8, Sq=1, C=4224, a
@@ -71,12 +73,15 @@ Phases, each raising on failure (so any failure exits non-zero):
 7. strategies: the other four approaches (mapreduce_critique, iterative,
    mapreduce_hierarchical at max_depth 2 over a tree JSON the phase writes,
    skeleton), each through PipelineRunner with the CLI's configuration
-   (chunk_size 1024, 128 new tokens) on Llama-3.2-3B at full width and
-   depth (random bf16 weights from seed 0, one model for all four), batch
-   8, int8 KV cache, decode steps captured: every document ok, ROUGE
-   computed, K1 launches = 28 x prefill forwards and K2 launches = 28 x
-   decode steps exactly, K2p and K3 not launched, the replays plus one
-   step per captured group all the decode steps; then hierarchical again
+   (chunk_size 1024, 128 new tokens; critique at token_max 16, which must
+   take at least one collapse round and the token_max // 2 context pass)
+   on Llama-3.2-3B at full width and depth (random bf16 weights from seed
+   0, one model for all four), batch 8, int8 KV cache, decode steps
+   captured: every document ok, ROUGE computed, K1 launches = 28 x prefill
+   forwards and K2 launches = 28 x decode steps exactly, K2p and K3 not
+   launched, every batch at a (B, S) whose K1 and K2 phase 3 checked, the
+   replays plus one step per captured group all the decode steps, and the
+   launches logged by kernel shape; then hierarchical again
    on a backend built with cuda_graphs=False, whose summaries must be
    byte-identical;
 8. spec pipeline (path a): the same run through PipelineRunner with a
@@ -406,6 +411,12 @@ def raise_if_failed() -> None:
 
 # -- phase 3 ------------------------------------------------------------------
 
+# the (B, S) batches at C = S + 128 whose K1 and K2 phase 3 holds to their
+# plain versions: the pipeline's map and reduce batches, and STRATEGY_SHAPES
+PIPELINE_SHAPES = ((8, 4096), (8, 512))
+STRATEGY_SHAPES = tuple((B, S) for B in (1, 2, 4, 8) for S in (512, 1024, 2048, 4096)
+                        if (B, S) not in PIPELINE_SHAPES)
+
 
 def phase_correctness(torch) -> dict:
     """Every case of phase 3; returns the largest |err| of each kernel and
@@ -483,17 +494,23 @@ def phase_correctness(torch) -> dict:
                 decode(f"int8={quantized} B={B} C={C} fill={fill} layer={layer} "
                        "(pipeline batch)", qd, cache, layer, pads, fill, 0)
             del cache, q, qd
-    # one row, as the strategies' last iterative round and the
-    # hierarchical fallback's reduce and polish run it (bucketed to B=1)
-    S, C, pads = 4096, 4096 + 128, pads_of([37])
-    for quantized in (True, False):
-        cache = make_cache(torch, 2, 1, KV, C, hd, quantized, 60 + quantized, dev)
-        prefill(f"int8={quantized} B=1 S={S} C={C} layer=1 (one row)",
-                rand_q(torch, (1, S, H, hd), 61, dev), cache, 1, pads, 0, 0)
-        for fill in (S, C - 1):
-            decode(f"int8={quantized} B=1 C={C} fill={fill} layer=1 (one row)",
-                   rand_q(torch, (1, 1, H, hd), 62 + fill, dev), cache, 1, pads, fill, 0)
-        del cache
+    # the strategies' other batches: a round of fewer than 8 prompts
+    # buckets B to 1, 2 or 4, and their prompts to S = 512-4096; a partial
+    # group packs all-pad filler rows, as the last row here
+    for B, S in STRATEGY_SHAPES:
+        C, layer = S + 128, 1
+        pads_h = [37 * (2 * r + 1) for r in range(B - 1)] + [S if B > 1 else 37]
+        pads = pads_of(pads_h)
+        for quantized in (True, False):
+            cache = make_cache(torch, 2, B, KV, C, hd, quantized, 60 + B + S + quantized, dev)
+            prefill(f"int8={quantized} B={B} S={S} C={C} layer={layer} (strategies batch)",
+                    rand_q(torch, (B, S, H, hd), 61 + B + S, dev), cache, layer, pads, 0, 0,
+                    empty_row=B - 1 if B > 1 else None)
+            for fill in (S, C - 1):
+                decode(f"int8={quantized} B={B} C={C} fill={fill} layer={layer} "
+                       "(strategies batch)", rand_q(torch, (B, 1, H, hd), 62 + B + fill, dev),
+                       cache, layer, pads, fill, 0)
+            del cache
     torch.cuda.empty_cache()
 
     # K1, K2 and K2p at the other group sizes the kernels take: G=2
@@ -1185,7 +1202,8 @@ def phase_pipeline(torch) -> tuple[dict, dict]:
         f"decode {eng['phase_seconds'].get('decode', 0.0):.3f}s "
         f"({eng['decode_steps']} steps: {eng['graph_captures']} captured groups, "
         f"{eng['captured_steps']} replays), generated tokens {eng['generated_tokens']}, "
-        f"batches {eng['by_bucket']}, peak memory {peak_gb:.2f} GB")
+        f"batches {eng['by_bucket']}, decode steps by batch {eng['steps_by_bucket']}, "
+        f"peak memory {peak_gb:.2f} GB")
     log(f"[pipeline] eager control (cuda_graphs=False): wall {eager_wall:.2f}s, decode "
         f"{est.phase_seconds.get('decode', 0.0):.3f}s ({est.decode_steps} steps) against "
         f"{eng['phase_seconds'].get('decode', 0.0):.3f}s captured; summaries byte-identical "
@@ -1222,17 +1240,45 @@ def strategy_trees(docs, path: Path) -> None:
     path.write_text(json.dumps(trees, ensure_ascii=False), encoding="utf-8")
 
 
+def critique_spy(get_strategy, seen: dict):
+    """``get_strategy`` whose critique strategy counts its
+    reduce-with-critique passes (one a collapse round, one for the
+    token_max // 2 context pass, one final) into ``seen["passes"]`` and
+    appends its StrategyResults to ``seen["results"]``."""
+
+    def make(*args, **kw):
+        strategy = get_strategy(*args, **kw)
+        batch, reduce_pass = strategy.summarize_batch, strategy._reduce_with_critique_batch
+
+        def summarize_batch(docs):
+            out = batch(docs)
+            seen["results"] += out
+            return out
+
+        def counted(*a, **k):
+            seen["passes"] += 1
+            return reduce_pass(*a, **k)
+
+        strategy.summarize_batch, strategy._reduce_with_critique_batch = summarize_batch, counted
+        return strategy
+
+    return make
+
+
 def phase_strategies(torch) -> dict:
     """The four other approaches through PipelineRunner on one model,
     captured, each held to K1 = 28 x prefill forwards and K2 = 28 x decode
-    steps exactly and no K2p or K3 launch; then hierarchical, whose
-    batches vary most in (B, S), on a backend built with cuda_graphs=False,
-    whose summaries must be byte-identical. Returns the launches of the
-    five runs."""
+    steps exactly and no K2p or K3 launch, every batch at a shape phase 3
+    checked; critique at token_max 16, which must take a collapse round and
+    the context pass; then hierarchical, whose batches vary most in (B, S),
+    on a backend built with cuda_graphs=False, whose summaries must be
+    byte-identical. Logs the four captured runs' launches by kernel shape
+    and returns the launches of the five runs."""
     from vnsum_tpu_torch.backend.engine import TorchBackend
     from vnsum_tpu_torch.models import llama32_3b
     from vnsum_tpu_torch.models.llama import init_model
     from vnsum_tpu_torch.pipeline import cli
+    from vnsum_tpu_torch.pipeline import runner as runner_mod
     from vnsum_tpu_torch.pipeline.runner import PipelineRunner
 
     cfg3b = llama32_3b()
@@ -1240,6 +1286,8 @@ def phase_strategies(torch) -> dict:
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
     model = init_model(cfg3b, 0, torch.device("cuda"))
     total = dict.fromkeys(("prefill", "decode", "verify", "partials"), 0)
+    by_shape = {"prefill": {}, "decode": {}}
+    checked = set(PIPELINE_SHAPES) | set(STRATEGY_SHAPES)
 
     def run(approach: str, out: Path, trees: Path, cuda_graphs="auto"):
         argv = [
@@ -1252,6 +1300,9 @@ def phase_strategies(torch) -> dict:
         ]
         if approach == "mapreduce_hierarchical":
             argv += ["--tree-json", str(trees), "--max-depth", "2"]
+        if approach == "mapreduce_critique":
+            # the random model's summaries count ~5 whitespace tokens each
+            argv += ["--token-max", "16"]
         cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
         backends = []
 
@@ -1265,7 +1316,14 @@ def phase_strategies(torch) -> dict:
         reset_launches()
         t0 = time.perf_counter()
         runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
-        res = runner.run()
+        seen = {"passes": 0, "results": []}
+        make = runner_mod.get_strategy
+        if approach == "mapreduce_critique":
+            runner_mod.get_strategy = critique_spy(make, seen)
+        try:
+            res = runner.run()
+        finally:
+            runner_mod.get_strategy = make
         wall = time.perf_counter() - t0
         launches = read_launches()
         if runner.failures:
@@ -1282,11 +1340,34 @@ def phase_strategies(torch) -> dict:
                 f"{path}: launches {launches} for {st.prefill_forwards} prefill forwards "
                 f"and {st.decode_steps} decode steps")
         check_launches(path, launches, {"prefill": n_layers, "decode": n_layers})
+        unchecked = sorted(set(st.by_bucket) - checked)
+        if unchecked:
+            raise AssertionError(f"{path}: batches (B, S) {unchecked} are no shape phase 3 "
+                                 "held K1 and K2 to their plain versions at")
+        if approach == "mapreduce_critique":
+            rounds = [r.rounds for r in seen["results"]]
+            context = seen["passes"] - max(rounds, default=0) - 1
+            if len(rounds) != len(docs) or max(rounds) < 1 or context != 1:
+                raise AssertionError(f"{path}: collapse rounds {rounds}, context passes "
+                                     f"{context}; token_max 16 must take both")
+            log(f"[strategy] {path}: collapse rounds per document {rounds}, "
+                f"the token_max // 2 context pass ran")
         for k in total:
             total[k] += launches[k]
+        if sum(st.by_bucket.values()) != st.prefill_forwards:
+            raise AssertionError(f"{path}: {st.prefill_forwards} prefill forwards for "
+                                 f"batches {st.by_bucket}")
+        if cuda_graphs:
+            for (B, S), n in st.by_bucket.items():
+                key = f"B={B},S={S}"
+                by_shape["prefill"][key] = by_shape["prefill"].get(key, 0) + n_layers * n
+            for (B, S), n in st.steps_by_bucket.items():
+                key = f"B={B},C={S + 128}"
+                by_shape["decode"][key] = by_shape["decode"].get(key, 0) + n_layers * n
         log(f"[strategy] {path}: {rec['successful']}/{len(docs)} docs ok, chunks "
             f"{rec['total_chunks']}, generate calls {st.calls}, prompts {st.prompts}, "
-            f"batches {st.to_dict()['by_bucket']}, prefill forwards {st.prefill_forwards}, "
+            f"batches {st.to_dict()['by_bucket']}, decode steps by batch "
+            f"{st.to_dict()['steps_by_bucket']}, prefill forwards {st.prefill_forwards}, "
             f"decode steps {st.decode_steps} ({st.graph_captures} captures, "
             f"{st.captured_steps} replays), prefill {st.phase_seconds.get('prefill', 0.0):.3f}s, "
             f"decode {st.phase_seconds.get('decode', 0.0):.3f}s, wall {wall:.2f}s, "
@@ -1314,6 +1395,8 @@ def phase_strategies(torch) -> dict:
                              + agreement([eager[n] for n in names], [captured[n] for n in names]))
     log(f"[strategy] mapreduce_hierarchical: summaries byte-identical with capture on and off "
         f"({len(captured)}/{len(docs)})")
+    log(f"[strategy] launches by shape, the four captured runs: K1 {by_shape['prefill']}, "
+        f"K2 {by_shape['decode']}")
     del model
     torch.cuda.empty_cache()
     return total

@@ -33,6 +33,11 @@ def test_iterative_over_vi_eval_matches_jax(tmp_path, monkeypatch):
     # later rounds have fewer rows once the shorter document is done
     assert [len(p) for p, _ in port.calls] == [2] * 9 + [1]
     assert port.engine.stats.by_bucket[(1, 2048)] == 1
+    # the engine's decode steps, tallied by the batch shape that ran them
+    st = port.engine.stats
+    assert set(st.steps_by_bucket) == set(st.by_bucket)
+    assert sum(st.steps_by_bucket.values()) == st.decode_steps
+    assert st.to_dict()["steps_by_bucket"]["B=1,S=2048"] == st.steps_by_bucket[(1, 2048)] > 0
     # round r refines each summary with chunk r: the carried summary is
     # the document's previous output, byte for byte
     chunks = port.strategy.splitter.split_text(docs(N_DOCS)[0])

@@ -136,6 +136,9 @@ class EngineStats:
     spec_draft_tokens: int = 0
     spec_accepted_tokens: int = 0
     by_bucket: dict = field(default_factory=dict)
+    # one-shot groups' decode steps per (B, S) bucket, for launch counts
+    # per kernel shape
+    steps_by_bucket: dict = field(default_factory=dict)
     # "prefill" / "decode": device time, bounded by a synchronize at each
     # phase's end; host phases ("tokenize_host", "pack_host") by wall clock
     phase_seconds: dict = field(default_factory=dict)
@@ -144,8 +147,9 @@ class EngineStats:
         self.phase_seconds[name] = self.phase_seconds.get(name, 0.0) + seconds
 
     def to_dict(self) -> dict:
-        d = {k: v for k, v in self.__dict__.items() if k != "by_bucket"}
-        d["by_bucket"] = {f"B={b},S={s}": n for (b, s), n in self.by_bucket.items()}
+        d = {k: v for k, v in self.__dict__.items() if not k.endswith("by_bucket")}
+        for k in ("by_bucket", "steps_by_bucket"):
+            d[k] = {f"B={b},S={s}": n for (b, s), n in getattr(self, k).items()}
         return d
 
 
@@ -734,9 +738,13 @@ class TorchBackend:
                 )
                 continue
             tokens, pad_lens, B, S = self._pack_group(group, encoded, max_new)
+            steps = self.stats.decode_steps
             out = self._run_group(tokens, pad_lens, B, S, max_new, gen, seed)
             self.stats.batches += 1
             self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
+            self.stats.steps_by_bucket[(B, S)] = (
+                self.stats.steps_by_bucket.get((B, S), 0) + self.stats.decode_steps - steps
+            )
             for row, i in enumerate(group):
                 results[i] = self._detok(out[row], tuple(gen.eos_ids))
         self.stats.generate_seconds += time.time() - t0

@@ -98,9 +98,6 @@ class HierarchicalStrategy:
         )
         return reduces, [len(c) for c in chunks_per]
 
-    def summarize_tree(self, root: Node) -> StrategyResult:
-        return self.summarize_tree_batch([root])[0]
-
     def summarize_tree_batch(self, roots: list[Node]) -> list[StrategyResult]:
         gen = _BatchCounter(self.backend, self.max_new_tokens)
         results = [StrategyResult(summary="") for _ in roots]
