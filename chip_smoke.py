@@ -70,6 +70,27 @@ Phases, each raising on failure (so any failure exits non-zero):
    decode steps; then the same run through PipelineRunner on a backend
    built with cuda_graphs=False (every step eager) must write
    byte-identical summaries;
+6b. weights: the pipeline phase's own weights (init_model(llama32_3b(), 0))
+   written as an HF checkpoint (save_hf_checkpoint: 28 layers in four bf16
+   shards, the embeddings in a fifth, and an index; into the temp dir, or
+   the git-ignored chip_weights/ when the temp dir lacks room), loaded back
+   with load_hf_checkpoint onto the card: the config and every parameter
+   must equal the source's, one map-batch prefill forward (B=8, S=4096,
+   int8 cache) must give the source's logits exactly, and map-reduce over
+   data/vi_eval through PipelineRunner on TorchBackend(model=loaded,
+   tokenizer="byte") must write summaries byte-identical to the pipeline
+   phase's captured run, with K1 = 28 x prefill forwards and K2 = 28 x
+   decode steps exactly; the write and load seconds, the free space and
+   the load's peak device memory are logged, and the checkpoint is deleted
+   at the end, also on failure;
+6c. encoder: the eval encoder at minilm_like()'s full shape (6 layers, dim
+   384, 12 heads, max_len 512), random f32 weights from seed 0, on the card
+   against the same weights on the CPU: token embeddings of one [32, 512]
+   batch (the data/vi_eval summaries and documents, padded with empty
+   texts) within ENCODER_ATOL, and every text's BERTScore F1 against itself
+   within 1e-5 of 1; then those weights written under BERT names with the
+   port's safetensors writer and loaded back with load_hf_encoder: equal
+   config, parameters and scores;
 7. strategies: the other four approaches (mapreduce_critique, iterative,
    mapreduce_hierarchical at max_depth 2 over a tree JSON the phase writes,
    skeleton), each through PipelineRunner with the CLI's configuration
@@ -120,6 +141,12 @@ Phases, each raising on failure (so any failure exits non-zero):
    busy time (torch.profiler), the card's clock and power draw while they
    run, and the kernels that take most of the time; one replay of each
    captured step must show 28 K2 (K2p) kernels of each pass in the trace.
+
+Every PipelineRunner and CLI run (pipeline, eager control, weights,
+strategies, spec, long context) must report finite sentence cosine (mean,
+std, min, max) and BERTScore (P, R, F1), computed by a random-init
+minilm_like() encoder on the card; each run's evaluation wall (sentence
+embeddings + BERTScore) is logged on an ``[eval]`` line.
 
 Each path phase sets every launch counter to 0 just before it and reads
 them just after; a kernel of the path that was not launched fails it. A
@@ -198,6 +225,14 @@ LONG_LOGITS_RTOL = {"path": 1e-2, "short": 5e-2}
 # H100. The planted fault (a 512-slot split dropped) reads 1.1 to 1.6
 # (PERF.md).
 SPEC_LOGITS_RTOL = 0.1
+# phase 6c: the eval encoder's f32 token embeddings on the card against the
+# same weights on the CPU, max |card - cpu|. Every matmul is f32 on both
+# (TF32 off) and differs only in summation order, ~1e-6 relative per
+# product of up to 1536 terms; each layer ends in a LayerNorm, so outputs
+# are of unit scale and six layers keep the difference near 1e-5 (2.9e-6
+# on an H100). The limit leaves a factor of ~10 for the f32 rsqrt/tanh of
+# the two libraries.
+ENCODER_ATOL = 1e-4
 
 # phase 4's planted faults: (what it does, kernel, source, text, replacement).
 # A fault must fail every case of its kernel's family (FAMILY) and no case
@@ -1072,10 +1107,36 @@ def agreement(texts: list, base: list) -> str:
 
 
 def reset_launches() -> None:
+    """Sets every launch counter, and the evaluation timers, to 0."""
     from vnsum_tpu_torch.ops import decode_attention, flash_attention, verify_attention
 
     flash_attention.launches = decode_attention.launches = verify_attention.launches = 0
     decode_attention.partials_launches = 0
+    EVAL_SECONDS.update(embed=0.0, bertscore=0.0)
+
+
+# wall seconds of the evaluator's sentence-embedding and BERTScore calls
+# since the last reset (each ends in a host read of its result)
+EVAL_SECONDS = {"embed": 0.0, "bertscore": 0.0}
+
+
+def time_evaluation() -> None:
+    """Wraps the evaluator's two embedding passes so that each adds its
+    wall seconds to EVAL_SECONDS."""
+    from vnsum_tpu_torch.eval import embedding, semantic
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                EVAL_SECONDS[key] += time.perf_counter() - t0
+        return call
+
+    embedding.EmbeddingModel.sentence_embeddings = timed(
+        "embed", embedding.EmbeddingModel.sentence_embeddings)
+    semantic.bert_scores = timed("bertscore", semantic.bert_scores)
 
 
 def read_launches() -> dict:
@@ -1097,7 +1158,9 @@ def check_launches(path: str, launches: dict, need: dict) -> None:
 
 def check_run(res: dict, docs, gen_dir: Path, approach: str = "mapreduce") -> tuple[dict, dict]:
     """A pipeline run's record: every document ok, every summary written,
-    ROUGE computed. Returns (record, {doc name: summary})."""
+    ROUGE, the sentence cosine and BERTScore computed (logged with the
+    evaluation's wall since the last reset). Returns (record, {doc name:
+    summary})."""
     rec = res["summarization"]["llama3.2:3b"]
     if rec["successful"] != len(docs) or rec["failed"] != 0:
         raise AssertionError(f"documents: {rec['successful']} ok, {rec['failed']} failed")
@@ -1105,9 +1168,20 @@ def check_run(res: dict, docs, gen_dir: Path, approach: str = "mapreduce") -> tu
     written = sorted(p.name for p in out_dir.glob("*.txt"))
     if written != [d.name for d in docs]:
         raise AssertionError(f"summaries written: {written}")
-    rouge = res["evaluation"]["llama3.2:3b"]["rouge_scores"]
+    ev = res["evaluation"]["llama3.2:3b"]
+    rouge = ev["rouge_scores"]
     if not all(math.isfinite(v) for v in rouge.values()):
         raise AssertionError(f"ROUGE not computed: {rouge}")
+    for key, fields in (("semantic_similarity", ("mean", "std", "min", "max")),
+                        ("bert_scores", ("bert_precision", "bert_recall", "bert_f1"))):
+        got = ev.get(key, {})
+        if sorted(got) != sorted(fields) or not all(math.isfinite(got[f]) for f in fields):
+            raise AssertionError(f"{approach}: {key} not computed: {got}")
+    log(f"[eval] {approach}: evaluation wall {sum(EVAL_SECONDS.values()):.3f}s (sentence "
+        f"embeddings {EVAL_SECONDS['embed']:.3f}s, BERTScore {EVAL_SECONDS['bertscore']:.3f}s), "
+        f"semantic_similarity {json.dumps(ev['semantic_similarity'])}, "
+        f"bert_scores {json.dumps(ev['bert_scores'])}")
+    EVAL_SECONDS.update(embed=0.0, bertscore=0.0)
     return rec, {p.name: p.read_text(encoding="utf-8") for p in out_dir.glob("*.txt")}
 
 
@@ -1210,6 +1284,240 @@ def phase_pipeline(torch) -> tuple[dict, dict]:
         f"({len(docs)}/{len(docs)})")
     log(f"[pipeline] rouge {json.dumps(rouge)}")
     return launches, summaries
+
+
+# -- phase 6b -----------------------------------------------------------------
+
+
+def phase_weights(torch, plain_summaries: dict) -> dict:
+    """The pipeline phase's own weights written as an HF checkpoint and
+    loaded back: equal config and parameters, equal logits on one map-batch
+    prefill forward, and the map-reduce run on the loaded model
+    byte-identical to the pipeline phase's captured run with K1 = 28 x
+    prefill forwards and K2 = 28 x decode steps exactly. The card has no
+    ``transformers``, so the checkpoint's own ``hf:`` tokenizer cannot load
+    there: the run uses the byte tokenizer on TorchBackend(model=loaded),
+    and the CPU tests cover the runner's tokenizer rule for
+    ``--weights-dir``. The checkpoint is deleted at the end, also on
+    failure. Returns the run's launches."""
+    from vnsum_tpu_torch.backend.base import left_pad_batch
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models.convert import load_hf_checkpoint, save_hf_checkpoint
+    from vnsum_tpu_torch.models.llama import init_kv_cache, init_model, llama32_3b
+    from vnsum_tpu_torch.pipeline import cli
+    from vnsum_tpu_torch.pipeline.runner import PipelineRunner
+    from vnsum_tpu_torch.strategies import get_strategy
+
+    cfg = llama32_3b()
+    n_layers = cfg.n_layers
+    dev = torch.device("cuda")
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    source = init_model(cfg, 0, dev)
+    need = 2 * sum(p.numel() for p in source.parameters())  # bf16 bytes
+    parent = Path(tempfile.gettempdir())
+    if shutil.disk_usage(parent).free < 1.5 * need:
+        parent = ROOT / "chip_weights"  # git-ignored
+        parent.mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="vnsum_ckpt_", dir=parent))
+    try:
+        free = shutil.disk_usage(ckpt).free
+        t0 = time.perf_counter()
+        index = save_hf_checkpoint(source, cfg, str(ckpt))
+        write_s = time.perf_counter() - t0
+        shards = sorted(set(index["weight_map"].values()))
+        on_disk = sum(f.stat().st_size for f in ckpt.iterdir())
+        log(f"[weights] save_hf_checkpoint: {len(shards)} shards + index, "
+            f"{index['metadata']['total_size']} tensor bytes ({on_disk} on disk) written to "
+            f"{ckpt.parent} in {write_s:.2f}s ({on_disk / write_s / 1e9:.2f} GB/s); free space "
+            f"there before {free / 1e9:.1f} GB")
+
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lcfg, loaded = load_hf_checkpoint(str(ckpt), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[weights] load_hf_checkpoint: {load_s:.2f}s ({on_disk / load_s / 1e9:.2f} GB/s), "
+            f"peak device memory {peak / 1e9:.2f} GB, {(peak - resident) / 1e9:.2f} GB above "
+            f"the {resident / 1e9:.2f} GB resident before it (the source model)")
+        if lcfg != cfg:
+            raise AssertionError(f"loaded config {lcfg} != {cfg}")
+        src, got = source.state_dict(), loaded.state_dict()
+        unequal = sorted(k for k in src if k not in got or not torch.equal(src[k], got[k]))
+        if unequal or src.keys() != got.keys():
+            raise AssertionError(f"loaded parameters differ from the source: {unequal}")
+
+        # one map-batch prefill forward on each model, the same tokens
+        argv = [
+            "--approach", "mapreduce", "--models", "llama3.2:3b",
+            "--docs-dir", str(ROOT / "data/vi_eval/doc"),
+            "--summary-dir", str(ROOT / "data/vi_eval/summary"),
+            "--generated-summaries-dir", str(ckpt.parent / f"{ckpt.name}_gen"),
+            "--results-dir", str(ckpt.parent / f"{ckpt.name}_results"),
+            "--logs-dir", str(ckpt.parent / f"{ckpt.name}_logs"),
+            "--max-new-tokens", "128", "--device", "cuda",
+        ]
+        pcfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        engines = {name: TorchBackend(model=m, tokenizer="byte", batch_size=8,
+                                      max_new_tokens=128, device="cuda")
+                   for name, m in (("source", source), ("loaded", loaded))}
+        strategy = get_strategy("mapreduce", engines["source"], pcfg)
+        prompts = [strategy.map_prompt.format(content=c)
+                   for d in docs for c in strategy.splitter.split_text(d.read_text(encoding="utf-8"))]
+        tok = engines["source"].tok
+        tokens_np, pads_np = left_pad_batch(tok.encode_batch(prompts, add_bos=True), 8, 4096,
+                                            tok.pad_id)
+        tokens, pads = torch.from_numpy(tokens_np).to(dev), torch.from_numpy(pads_np).to(dev)
+        logits = {}
+        with torch.inference_mode():
+            for name, engine in engines.items():
+                cache = init_kv_cache(cfg, 8, 4096 + 128, quantized=True, device=dev)
+                logits[name] = engine._prefill_forward(tokens, pads, 8, 4096, 4096 + 128, cache)
+                del cache
+        if not torch.equal(logits["source"], logits["loaded"]):
+            raise AssertionError(
+                "map-batch prefill logits differ: max |loaded - source| "
+                f"{float((logits['loaded'] - logits['source']).abs().max()):.3e}")
+        log(f"[weights] map-batch prefill forward (B=8, S=4096, {len(prompts)} prompts): "
+            f"last-position logits {tuple(logits['source'].shape)} of the loaded model equal "
+            "the source's exactly")
+        del engines, logits, strategy
+        torch.cuda.empty_cache()
+
+        # the map-reduce run on the loaded model
+        backends = []
+
+        def factory(_):
+            backends.append(TorchBackend(
+                model=loaded, tokenizer="byte", batch_size=pcfg.batch_size,
+                max_new_tokens=pcfg.max_new_tokens, device="cuda"))
+            return backends[-1]
+
+        reset_launches()
+        t0 = time.perf_counter()
+        runner = PipelineRunner(pcfg, backend_factory=factory, device="cuda")
+        res = runner.run()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if runner.failures:
+            raise AssertionError(f"weights run failures: {runner.failures}")
+        rec, summaries = check_run(
+            {"summarization": res.summarization, "evaluation": res.evaluation},
+            docs, ckpt.parent / f"{ckpt.name}_gen")
+        st = backends[0].stats
+        need = {"prefill": n_layers * st.prefill_forwards, "decode": n_layers * st.decode_steps,
+                "verify": 0, "partials": 0}
+        if st.decode_steps == 0 or launches != need:
+            raise AssertionError(f"weights run: launches {launches}, the path needs {need}")
+        check_captured("weights run", st.to_dict())
+        log(f"[launches] weights run: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+        if summaries != plain_summaries:
+            names = sorted(plain_summaries)
+            raise AssertionError("summaries of the loaded model differ from the pipeline "
+                                 "phase's: " + agreement([summaries.get(n, "") for n in names],
+                                                         [plain_summaries[n] for n in names]))
+        log(f"[weights] map-reduce on the loaded model: {rec['successful']}/{len(docs)} docs "
+            f"ok, wall {wall:.2f}s, {st.prefill_forwards} prefill forwards, {st.decode_steps} "
+            f"decode steps ({st.captured_steps} replays); summaries byte-identical to the "
+            f"pipeline phase's captured run ({len(docs)}/{len(docs)})")
+    finally:
+        for path in (ckpt, *ckpt.parent.glob(f"{ckpt.name}_*")):
+            shutil.rmtree(path, ignore_errors=True)
+    del source, loaded
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 6c -----------------------------------------------------------------
+
+
+def bert_state_dict(params: dict) -> dict:
+    """The encoder's parameters under HF BertModel names, with a ``bert.``
+    prefix and a zero token-type table: the inverse of
+    convert_hf_encoder_state_dict."""
+    import torch
+
+    from vnsum_tpu_torch.models.convert_encoder import _LAYER_KEYS
+
+    sd = {
+        "embeddings.word_embeddings.weight": params["tok_embed"],
+        "embeddings.position_embeddings.weight": params["pos_embed"],
+        "embeddings.token_type_embeddings.weight": torch.zeros_like(params["tok_embed"][:2]),
+        "embeddings.LayerNorm.weight": params["embed_norm"]["w"],
+        "embeddings.LayerNorm.bias": params["embed_norm"]["b"],
+    }
+    for hf_key, ours in _LAYER_KEYS.items():
+        for li, w in enumerate(params["layers"][ours]):
+            sd[f"encoder.layer.{li}.{hf_key}"] = w.t() if ours.startswith("w") else w
+    return {f"bert.{k}": v for k, v in sd.items()}
+
+
+def phase_encoder(torch) -> None:
+    """The eval encoder at minilm_like()'s full shape on the card against
+    the same random weights on the CPU; BERTScore of each text against
+    itself; then the weights through the safetensors writer and
+    load_hf_encoder, with equal config, parameters and scores."""
+    from vnsum_tpu_torch.eval.embedding import EmbeddingModel, bert_scores
+    from vnsum_tpu_torch.models.convert import write_safetensors
+    from vnsum_tpu_torch.models.convert_encoder import load_hf_encoder
+    from vnsum_tpu_torch.models.encoder import _map, minilm_like
+
+    texts = [p.read_text(encoding="utf-8")
+             for sub in ("summary", "doc") for p in sorted((ROOT / "data/vi_eval" / sub).glob("*.txt"))]
+    card = EmbeddingModel(minilm_like(), seed=0, device="cuda")
+    host = EmbeddingModel(minilm_like(), params=_map(card.params, lambda _, t: t.cpu()),
+                          device="cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs, mask = card.token_embeddings(texts)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, want_mask = host.token_embeddings(texts)
+    host_s = time.perf_counter() - t0
+    err = float((embs.cpu() - want).abs().max())
+    if not torch.equal(mask.cpu(), want_mask) or not err <= ENCODER_ATOL:
+        raise AssertionError(f"encoder on the card against the CPU: max |diff| {err:.3e}, "
+                             f"limit {ENCODER_ATOL:g}")
+    log(f"[encoder] minilm_like (6 layers, dim 384, 12 heads) token embeddings of "
+        f"{len(texts)} texts in one [{card.batch_size}, {card.max_len}] batch "
+        f"({int(mask.sum())} tokens): card {card_s:.3f}s, CPU {host_s:.3f}s, max |card - cpu| "
+        f"{err:.3e}, limit {ENCODER_ATOL:g} (err/limit {err / ENCODER_ATOL:.3f})")
+    scores = bert_scores(card, texts, texts)
+    worst = max(abs(1.0 - s.f1) for s in scores)
+    if not worst <= 1e-5:
+        raise AssertionError(f"BERTScore F1 of a text against itself is {worst:.3e} off 1")
+    log(f"[encoder] BERTScore F1 of each of the {len(texts)} texts against itself: max "
+        f"|1 - F1| {worst:.3e}, limit 1e-5")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = card.cfg
+        (Path(tmp) / "config.json").write_text(json.dumps({
+            "architectures": ["BertModel"], "model_type": "bert",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+            "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+            "intermediate_size": cfg.intermediate, "max_position_embeddings": cfg.max_len,
+            "layer_norm_eps": cfg.norm_eps}))
+        write_safetensors(bert_state_dict(card.params), str(Path(tmp) / "model.safetensors"))
+        lcfg, lparams = load_hf_encoder(tmp, device="cuda")
+    if lcfg != cfg:
+        raise AssertionError(f"loaded encoder config {lcfg} != {cfg}")
+    flat_src, flat_got = {}, {}
+    _map(card.params, flat_src.__setitem__)
+    _map(lparams, flat_got.__setitem__)
+    unequal = sorted(k for k in flat_src if k not in flat_got
+                     or not torch.equal(flat_src[k], flat_got[k]))
+    if unequal or flat_src.keys() != flat_got.keys():
+        raise AssertionError(f"loaded encoder parameters differ: {unequal}")
+    loaded = EmbeddingModel(lcfg, params=lparams, device="cuda")
+    if bert_scores(loaded, texts, texts[::-1]) != bert_scores(card, texts, texts[::-1]):
+        raise AssertionError("BERTScore of the loaded encoder differs from the source's")
+    log(f"[encoder] written under BERT names ({len(flat_src) + 1} tensors, token-type table "
+        "zero) and loaded with load_hf_encoder: config and parameters equal, BERTScore equal")
+    del card, loaded, lparams
+    torch.cuda.empty_cache()
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -2046,14 +2354,17 @@ def main() -> int:
     errs = phase_correctness(torch)
     phase_mutants(len(CHECKED))
     timing = phase_timing(torch, errs)
+    time_evaluation()
     launches, plain_summaries = phase_pipeline(torch)
+    weights_launches = phase_weights(torch, plain_summaries)
+    phase_encoder(torch)
     strategy_launches = phase_strategies(torch)
     spec_launches, backend, prompts, oneshot = phase_spec_pipeline(torch, plain_summaries)
     slot_launches = phase_slot_loop(torch, backend, prompts, oneshot)
     del backend
     long_launches = phase_long_context(torch)
-    launches = {k: launches[k] + strategy_launches[k] + spec_launches[k] + slot_launches[k]
-                + long_launches[k] for k in launches}
+    launches = {k: launches[k] + weights_launches[k] + strategy_launches[k] + spec_launches[k]
+                + slot_launches[k] + long_launches[k] for k in launches}
     phase_profile(torch)
     kernels = []
     for key, meta in KERNELS.items():

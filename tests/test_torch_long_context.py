@@ -21,8 +21,6 @@ import torch
 
 from vnsum_tpu.backend import long_context as jlc
 from vnsum_tpu.core import PipelineConfig as JaxPipelineConfig
-from vnsum_tpu.eval import EmbeddingModel
-from vnsum_tpu.models.encoder import tiny_encoder
 from vnsum_tpu.models.llama import init_kv_cache as jax_init_kv_cache
 from vnsum_tpu.parallel.mesh import make_mesh
 from vnsum_tpu.pipeline.runner import PipelineRunner as JaxPipelineRunner
@@ -33,6 +31,11 @@ from vnsum_tpu_torch.models import llama as tl
 from vnsum_tpu_torch.pipeline.runner import PipelineRunner
 from vnsum_tpu_torch.strategies import TruncatedStrategy
 
+from test_torch_eval_embedding import (
+    assert_embedding_stats_close,
+    carried_embedders,
+    small_default_encoder,
+)
 from test_torch_models_llama import carried_weights, one_torch_thread  # noqa: F401
 
 FIXTURE = Path(__file__).resolve().parent.parent / "data" / "vi_eval"
@@ -242,6 +245,7 @@ def test_truncated_pipeline_matches_jax(tmp_path, mesh, carried):
     long-context run's, ROUGE equal. The registry's tiny model has a
     one-card ceiling of 256; every document is longer."""
     jcfg, params, model = carried
+    jax_embedder, port_embedder = carried_embedders()
     knobs = dict(max_context=1024, max_new_tokens=MAX_NEW, batch_size=8)
 
     def dirs(root):
@@ -257,7 +261,7 @@ def test_truncated_pipeline_matches_jax(tmp_path, mesh, carried):
             model_config=jcfg, mesh=mesh, params=params, batch_size=8,
             max_new_tokens=MAX_NEW, max_total_tokens=1024 + 1024,
         ),
-        embedding_model=EmbeddingModel(config=tiny_encoder(), max_len=64, batch_size=4),
+        embedding_model=jax_embedder,
     ).run()
     backends = []
 
@@ -270,7 +274,7 @@ def test_truncated_pipeline_matches_jax(tmp_path, mesh, carried):
 
     runner = PipelineRunner(
         PipelineConfig(approach="truncated", models=["tiny"], **dirs(tmp_path / "port"), **knobs),
-        backend_factory=factory, device="cpu",
+        backend_factory=factory, embedding_model=port_embedder, device="cpu",
     )
     got = runner.run()
     assert runner.failures == []
@@ -283,6 +287,7 @@ def test_truncated_pipeline_matches_jax(tmp_path, mesh, carried):
     for name in DOC_NAMES:
         assert (gen / name).read_bytes() == (jgen / name).read_bytes(), name
     assert got.evaluation["tiny"]["rouge_scores"] == want.evaluation["tiny"]["rouge_scores"]
+    assert_embedding_stats_close(got.evaluation["tiny"], want.evaluation["tiny"])
     # every document was past the one-card ceiling and the prompts were cut
     # to max_context - max_new tokens of document plus the template
     assert all(len((FIXTURE / "doc" / n).read_bytes()) > tl.tiny_llama().max_seq_len
@@ -307,12 +312,14 @@ def test_truncated_strategy_cuts_to_max_context():
     assert doc.encode()[:281].decode("utf-8", "ignore") not in res.summary
 
 
-def test_truncated_cli_on_the_one_card_engine(tmp_path):
+def test_truncated_cli_on_the_one_card_engine(tmp_path, monkeypatch):
     """The CLI's truncated approach on the one-card engine (tiny registry
     model, random weights): each document is cut to --max-context."""
     import json
 
     from vnsum_tpu_torch.pipeline import cli
+
+    small_default_encoder(monkeypatch)
 
     args = ["--approach", "truncated", "--models", "tiny", "--device", "cpu",
             "--max-context", "200", "--max-new-tokens", "8", "--max-samples", "2",

@@ -17,8 +17,6 @@ import pytest
 
 from vnsum_tpu.backend.engine import TpuBackend
 from vnsum_tpu.core import PipelineConfig as JaxPipelineConfig
-from vnsum_tpu.eval import EmbeddingModel
-from vnsum_tpu.models.encoder import tiny_encoder
 from vnsum_tpu.pipeline.runner import PipelineRunner as JaxPipelineRunner
 from vnsum_tpu_torch.backend.engine import TorchBackend
 from vnsum_tpu_torch.core.config import PipelineConfig
@@ -27,6 +25,11 @@ from vnsum_tpu_torch.eval.rouge import RougeScorer
 from vnsum_tpu_torch.pipeline import cli
 from vnsum_tpu_torch.pipeline.runner import PipelineRunner
 
+from test_torch_eval_embedding import (
+    assert_embedding_stats_close,
+    carried_embedders,
+    tiny_bert_dir,
+)
 from test_torch_models_llama import carried_weights, one_torch_thread  # noqa: F401
 
 FIXTURE = Path(__file__).resolve().parent.parent / "data" / "vi_eval"
@@ -47,6 +50,7 @@ def dirs(root: Path) -> dict:
 
 def test_mapreduce_over_vi_eval_matches_jax(tmp_path):
     jcfg, params, model = carried_weights(max_seq_len=4096)
+    jax_embedder, port_embedder = carried_embedders()
 
     jax_cfg = JaxPipelineConfig(
         approach="mapreduce", models=["tiny"], **dirs(tmp_path / "jax"), **KNOBS
@@ -57,7 +61,7 @@ def test_mapreduce_over_vi_eval_matches_jax(tmp_path):
             model_config=jcfg, params=params, flash=True, interpret=True,
             batch_size=8, max_new_tokens=MAX_NEW,
         ),
-        embedding_model=EmbeddingModel(config=tiny_encoder(), max_len=64, batch_size=4),
+        embedding_model=jax_embedder,
     )
     want = jax_runner.run()
 
@@ -70,7 +74,8 @@ def test_mapreduce_over_vi_eval_matches_jax(tmp_path):
         return engines[-1]
 
     cfg = PipelineConfig(approach="mapreduce", models=["tiny"], **dirs(tmp_path / "port"), **KNOBS)
-    runner = PipelineRunner(cfg, backend_factory=factory, device="cpu")
+    runner = PipelineRunner(cfg, backend_factory=factory, embedding_model=port_embedder,
+                            device="cpu")
     got = runner.run()
 
     assert runner.failures == []
@@ -88,19 +93,22 @@ def test_mapreduce_over_vi_eval_matches_jax(tmp_path):
 
     ev = got.evaluation["tiny"]
     assert ev["rouge_scores"] == want.evaluation["tiny"]["rouge_scores"]
-    # the embedding metrics are not ported yet: recorded absent, never zero
-    assert ev["not_computed"] == ["semantic_similarity", "bert_scores"]
-    assert "bert_scores" not in ev and "semantic_similarity" not in ev
+    # the embedding metrics, on the same encoder weights as the JAX run's
+    assert set(ev) == {"semantic_similarity", "rouge_scores", "bert_scores"}
+    assert_embedding_stats_close(ev, want.evaluation["tiny"])
     saved = json.loads(next((tmp_path / "port" / "results").glob("pipeline_results_*.json")).read_text())
     assert saved["results"]["engine"]["tiny"]["prompts"] == engines[0].stats.prompts
-    assert "rouge1/2/L" in runner.report()
+    assert "rouge1/2/L" in runner.report() and "bert F1" in runner.report()
 
 
 def test_cli_runs_on_the_cpu(tmp_path):
-    """The CLI with a registry model, random weights from a seed, on the CPU."""
+    """The CLI with a registry model, random weights from a seed, on the CPU;
+    the embedding metrics from an HF BERT checkpoint (--embedding-dir)."""
+    bert = tiny_bert_dir(tmp_path / "bert")
     args = [
         "--approach", "mapreduce", "--models", "tiny", "--device", "cpu",
         "--chunk-size", "400", "--max-new-tokens", "8", "--max-samples", "2",
+        "--embedding-dir", str(bert),
     ]
     for k, v in dirs(tmp_path).items():
         args += ["--" + k.replace("_", "-"), v]
@@ -108,8 +116,10 @@ def test_cli_runs_on_the_cpu(tmp_path):
     saved = json.loads(next((tmp_path / "results").glob("pipeline_results_*.json")).read_text())
     rec = saved["results"]["summarization"]["tiny"]
     assert rec["successful"] == 2 and rec["failed"] == 0
-    rouge = saved["results"]["evaluation"]["tiny"]["rouge_scores"]
-    assert all(math.isfinite(v) for v in rouge.values())
+    assert saved["config"]["evaluation"]["embedding_dir"] == str(bert)
+    ev = saved["results"]["evaluation"]["tiny"]
+    for key in ("rouge_scores", "semantic_similarity", "bert_scores"):
+        assert all(math.isfinite(v) for v in ev[key].values()), key
 
 
 def test_cuda_run_without_a_card_raises(tmp_path):

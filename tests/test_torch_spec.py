@@ -27,6 +27,7 @@ from vnsum_tpu_torch.core.config import GenerationConfig
 from vnsum_tpu_torch.models import sampling as ts
 from vnsum_tpu_torch.spec import NO_TOKEN, propose_drafts, propose_drafts_host
 
+from test_torch_eval_embedding import assert_embedding_stats_close, carried_embedders
 from test_torch_models_llama import carried_weights, one_torch_thread  # noqa: F401
 
 PROMPTS = [
@@ -298,8 +299,6 @@ def test_mapreduce_with_a_spec_backend_matches_jax(tmp_path):
     reduce group speculates against its references, and the summaries and
     ROUGE equal the JAX run's. max_new 120 and k 7 keep C = S + 128."""
     from vnsum_tpu.core import PipelineConfig as JaxPipelineConfig
-    from vnsum_tpu.eval import EmbeddingModel
-    from vnsum_tpu.models.encoder import tiny_encoder
     from vnsum_tpu.pipeline.runner import PipelineRunner as JaxPipelineRunner
     from vnsum_tpu_torch.core.config import PipelineConfig
     from vnsum_tpu_torch.pipeline.runner import PipelineRunner
@@ -315,13 +314,14 @@ def test_mapreduce_with_a_spec_backend_matches_jax(tmp_path):
         )
 
     jcfg, params, model = carried_weights(max_seq_len=4096)
+    jax_embedder, port_embedder = carried_embedders()
     jax_runner = JaxPipelineRunner(
         JaxPipelineConfig(approach="mapreduce", models=["tiny"], **dirs(tmp_path / "jax"), **knobs),
         backend_factory=lambda _: TpuBackend(
             model_config=jcfg, params=params, flash=True, interpret=True, batch_size=8,
             max_new_tokens=120, generation=JaxGenerationConfig(spec_k=7),
         ),
-        embedding_model=EmbeddingModel(config=tiny_encoder(), max_len=64, batch_size=4),
+        embedding_model=jax_embedder,
     )
     want = jax_runner.run()
     engines = []
@@ -335,7 +335,7 @@ def test_mapreduce_with_a_spec_backend_matches_jax(tmp_path):
 
     runner = PipelineRunner(
         PipelineConfig(approach="mapreduce", models=["tiny"], **dirs(tmp_path / "port"), **knobs),
-        backend_factory=factory, device="cpu",
+        backend_factory=factory, embedding_model=port_embedder, device="cpu",
     )
     got = runner.run()
     assert runner.failures == []
@@ -345,5 +345,6 @@ def test_mapreduce_with_a_spec_backend_matches_jax(tmp_path):
     for name in names:
         assert (gen / name).read_bytes() == (jgen / name).read_bytes(), name
     assert got.evaluation["tiny"]["rouge_scores"] == want.evaluation["tiny"]["rouge_scores"]
+    assert_embedding_stats_close(got.evaluation["tiny"], want.evaluation["tiny"])
     st = engines[0].stats
     assert st.spec_verify_steps > 0 and st.decode_steps == 0

@@ -14,12 +14,18 @@ from vnsum_tpu.core.config import PipelineConfig as JaxPipelineConfig
 from vnsum_tpu.core.config import approach_defaults as jax_approach_defaults
 from vnsum_tpu.pipeline import cli as jax_cli
 from vnsum_tpu.strategies.base import STRATEGY_REGISTRY as JAX_REGISTRY
-from vnsum_tpu_torch.core.config import APPROACHES, PipelineConfig, approach_defaults
+from vnsum_tpu_torch.core.config import (
+    APPROACHES,
+    EvalConfig,
+    PipelineConfig,
+    approach_defaults,
+)
 from vnsum_tpu_torch.pipeline import cli
 from vnsum_tpu_torch.strategies import HierarchicalStrategy
 from vnsum_tpu_torch.strategies.base import STRATEGY_REGISTRY
 
 from torch_strategy_parity import FIXTURE, dirs
+from test_torch_eval_embedding import small_default_encoder
 from test_torch_models_llama import one_torch_thread  # noqa: F401
 
 COMMON = sorted(
@@ -34,7 +40,17 @@ FLAG_SETS = {
     "tree": ["--tree-json", "trees/document_tree.json", "--max-depth", "2"],
     "budgets": ["--token-max", "1500", "--max-new-tokens", "64", "--max-context", "8192",
                 "--chunk-size", "90", "--max-samples", "3", "--batch-size", "4"],
+    "checkpoints": ["--weights-dir", "ckpt/llama", "--embedding-dir", "ckpt/minilm"],
 }
+
+
+def common(cfg) -> dict:
+    """The fields both configs have; of the nested EvalConfig, the fields
+    the port's has (the judge's wait for its port)."""
+    out = {k: getattr(cfg, k) for k in COMMON}
+    out["evaluation"] = {f.name: getattr(cfg.evaluation, f.name)
+                         for f in dataclasses.fields(EvalConfig)}
+    return out
 
 
 def test_approaches_match_jax():
@@ -51,7 +67,7 @@ def test_approach_defaults_match_jax(approach):
     assert approach_defaults(approach) == jax_approach_defaults(approach)
     cfg = PipelineConfig(approach=approach, **approach_defaults(approach))
     want = JaxPipelineConfig(approach=approach, **jax_approach_defaults(approach))
-    assert {k: getattr(cfg, k) for k in COMMON} == {k: getattr(want, k) for k in COMMON}
+    assert common(cfg) == common(want)
 
 
 def test_unknown_approach_and_bad_iterative_overlap_raise_as_in_jax():
@@ -80,7 +96,7 @@ def test_config_from_args_matches_jax(approach, flags):
     argv = ["--approach", approach, "--models", "tiny", *FLAG_SETS[flags]]
     got = cli.config_from_args(cli.build_parser().parse_args(argv))
     want = jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv))
-    assert {k: getattr(got, k) for k in COMMON} == {k: getattr(want, k) for k in COMMON}
+    assert common(got) == common(want)
 
 
 def test_cli_tree_json_takes_the_tree_branch(tmp_path, monkeypatch):
@@ -103,6 +119,7 @@ def test_cli_tree_json_takes_the_tree_branch(tmp_path, monkeypatch):
         return out
 
     monkeypatch.setattr(HierarchicalStrategy, "summarize_tree_batch", spy)
+    small_default_encoder(monkeypatch)
     argv = ["--approach", "mapreduce_hierarchical", "--models", "tiny", "--device", "cpu",
             "--tree-json", str(path), "--max-depth", "2", "--chunk-size", "400",
             "--max-new-tokens", "8", "--max-samples", "2"]

@@ -21,6 +21,8 @@ import pytest
 
 from vnsum_tpu_torch.backend.engine import TorchBackend
 from vnsum_tpu_torch.core.config import PipelineConfig
+from vnsum_tpu_torch.eval import EmbeddingModel
+from vnsum_tpu_torch.models.encoder import tiny_encoder
 from vnsum_tpu_torch.pipeline.runner import PipelineRunner
 from vnsum_tpu_torch.strategies import prompts
 from vnsum_tpu_torch.text import DocumentTree, tree_depth
@@ -101,7 +103,9 @@ def test_missing_tree_json_wraps_plain_text(tmp_path):
         approach="mapreduce_hierarchical", models=["tiny"], max_samples=1, max_new_tokens=8,
         tree_json_path=str(tmp_path / "absent.json"), **dirs(tmp_path), **KNOBS)
     runner = PipelineRunner(cfg, device="cpu", backend_factory=lambda _: TorchBackend(
-        model=model, flash=False, batch_size=8, max_new_tokens=8, device="cpu"))
+        model=model, flash=False, batch_size=8, max_new_tokens=8, device="cpu"),
+        embedding_model=EmbeddingModel(config=tiny_encoder(), max_len=64, batch_size=4,
+                                       device="cpu"))
     runner.run()
     assert runner.failures == []
     assert "hierarchical will wrap plain text" in runner.log_path.read_text(encoding="utf-8")

@@ -23,11 +23,10 @@ import vnsum_tpu.pipeline.runner as jax_runner_mod
 import vnsum_tpu_torch.pipeline.runner as port_runner_mod
 from vnsum_tpu.backend.engine import TpuBackend
 from vnsum_tpu.core import PipelineConfig as JaxPipelineConfig
-from vnsum_tpu.eval import EmbeddingModel
-from vnsum_tpu.models.encoder import tiny_encoder
 from vnsum_tpu_torch.backend.engine import TorchBackend
 from vnsum_tpu_torch.core.config import PipelineConfig
 
+from test_torch_eval_embedding import assert_embedding_stats_close, carried_embedders
 from test_torch_models_llama import carried_weights
 
 FIXTURE = Path(__file__).resolve().parent.parent / "data" / "vi_eval"
@@ -117,6 +116,7 @@ def run_pair(tmp_path: Path, monkeypatch, approach: str, knobs: dict, n_docs: in
     both sides) over the first ``n_docs`` documents; returns (jax Side,
     port Side)."""
     jcfg, params, model = carried_weights(max_seq_len=MAX_SEQ_LEN)
+    jax_embedder, port_embedder = carried_embedders()
     knobs = {"max_new_tokens": MAX_NEW, "max_samples": n_docs, **knobs}
     sides = []
     for name, config_cls, runner_mod in (
@@ -136,7 +136,7 @@ def run_pair(tmp_path: Path, monkeypatch, approach: str, knobs: dict, n_docs: in
 
             runner = runner_mod.PipelineRunner(
                 cfg, backend_factory=factory,
-                embedding_model=EmbeddingModel(config=tiny_encoder(), max_len=64, batch_size=4),
+                embedding_model=jax_embedder,
             )
         else:
             def factory(_):
@@ -145,7 +145,8 @@ def run_pair(tmp_path: Path, monkeypatch, approach: str, knobs: dict, n_docs: in
                     batch_size=8, max_new_tokens=MAX_NEW, device="cpu"))
                 return recording(engines[-1], calls)
 
-            runner = runner_mod.PipelineRunner(cfg, backend_factory=factory, device="cpu")
+            runner = runner_mod.PipelineRunner(cfg, backend_factory=factory,
+                                               embedding_model=port_embedder, device="cpu")
         results = runner.run()
         if name == "port":
             assert runner.failures == []
@@ -156,7 +157,8 @@ def run_pair(tmp_path: Path, monkeypatch, approach: str, knobs: dict, n_docs: in
 
 def assert_same(jax: Side, port: Side, n_docs: int) -> None:
     """Byte-identical summaries, the same prompts in the same calls, and
-    equal per-document chunks, calls and rounds, and ROUGE."""
+    equal per-document chunks, calls and rounds, and ROUGE; the embedding
+    metrics within EMBED_ATOL."""
     names = sorted(p.name for p in (FIXTURE / "doc").glob("*.txt"))[:n_docs]
     assert sorted(port.summaries) == names
     assert port.summaries == jax.summaries
@@ -173,6 +175,7 @@ def assert_same(jax: Side, port: Side, n_docs: int) -> None:
     rouge = port.results.evaluation["tiny"]["rouge_scores"]
     assert rouge == jax.results.evaluation["tiny"]["rouge_scores"]
     assert all(math.isfinite(v) for v in rouge.values())
+    assert_embedding_stats_close(port.results.evaluation["tiny"], jax.results.evaluation["tiny"])
     assert port.engine.stats.calls == len(port.calls)
 
 

@@ -1,3 +1,3 @@
-from .config import APPROACHES, GenerationConfig, PipelineConfig, approach_defaults
+from .config import APPROACHES, EvalConfig, GenerationConfig, PipelineConfig, approach_defaults
 
-__all__ = ["APPROACHES", "GenerationConfig", "PipelineConfig", "approach_defaults"]
+__all__ = ["APPROACHES", "EvalConfig", "GenerationConfig", "PipelineConfig", "approach_defaults"]

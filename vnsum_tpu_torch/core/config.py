@@ -1,10 +1,11 @@
 """Typed configuration for the pipeline and strategies.
 
 Copy of ``vnsum_tpu/core/config.py`` cut to what the port runs today: the
-six approaches, with speculative decoding. Knob names and defaults are the
-JAX package's (themselves the reference's,
-run_full_evaluation_pipeline.py: 973-1027); meshes, the long-context
-launch and int8 weights return with the slices that port them.
+six approaches, with speculative decoding, HF checkpoints and the
+embedding metrics. Knob names and defaults are the JAX package's
+(themselves the reference's, run_full_evaluation_pipeline.py: 973-1027);
+meshes, the long-context launch, int8 weights and the LLM judge return with
+the slices that port them.
 """
 from __future__ import annotations
 
@@ -46,6 +47,18 @@ class GenerationConfig:
 
     def with_(self, **kw) -> "GenerationConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass
+class EvalConfig:
+    """Evaluation settings (ref run_full_evaluation_pipeline.py:984-990)."""
+
+    # local HF BERT-family checkpoint dir (config.json + safetensors +
+    # tokenizer); when set, BERTScore and the sentence cosine run with its
+    # converted pretrained weights instead of a random-init encoder
+    embedding_dir: str | None = None
+    max_samples: int | None = None
+    bert_batch_size: int = 32
 
 
 @dataclass
@@ -96,6 +109,13 @@ class PipelineConfig:
     tokenizer: str = "byte"  # byte | hf:<name-or-path>
     # prefill in slices of this many tokens (0 = whole prompt)
     prefill_chunk_tokens: int = 0
+    # parameter dtype of the model (a torch dtype name)
+    dtype: str = "bfloat16"
+    # local HF checkpoint dir (config.json + safetensors + tokenizer); when
+    # set, the model is loaded from it instead of random-init
+    weights_dir: str | None = None
+
+    evaluation: EvalConfig = field(default_factory=EvalConfig)
 
     def __post_init__(self) -> None:
         if self.approach not in APPROACHES:
@@ -107,6 +127,12 @@ class PipelineConfig:
         if self.iterative_chunk_overlap >= self.iterative_chunk_size:
             raise ValueError(
                 "iterative_chunk_overlap must be smaller than iterative_chunk_size"
+            )
+        if self.weights_dir and len(self.models) > 1:
+            raise ValueError(
+                "weights_dir points at ONE checkpoint; with multiple models "
+                "every entry would silently run the same weights — run one "
+                "model per weights_dir"
             )
 
     def to_dict(self) -> dict:

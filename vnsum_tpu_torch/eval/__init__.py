@@ -1,3 +1,13 @@
+from .embedding import BertScore, EmbeddingModel, bert_scores, cosine_similarities
 from .rouge import RougeScorer
+from .semantic import SemanticEvaluator, load_summary_dir
 
-__all__ = ["RougeScorer"]
+__all__ = [
+    "BertScore",
+    "EmbeddingModel",
+    "bert_scores",
+    "cosine_similarities",
+    "RougeScorer",
+    "SemanticEvaluator",
+    "load_summary_dir",
+]

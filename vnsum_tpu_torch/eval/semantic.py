@@ -1,10 +1,9 @@
-"""Summary-folder evaluation: ROUGE per pair, in the reference's results
-JSON schema (summary_statistics + detailed_results).
+"""Semantic evaluator: per-pair sentence cosine and ROUGE, corpus
+BERTScore, in the reference's results JSON schema (summary_statistics
+{semantic_similarity, rouge_scores, bert_scores} + detailed_results).
 
-Counterpart of ``vnsum_tpu/eval/semantic.py`` without its embedding
-columns: BERTScore and the sentence cosine need the encoder, which is not
-ported yet. Their absence is recorded under ``not_computed`` — never as
-zeros.
+Counterpart of ``vnsum_tpu/eval/semantic.py``. The LLM judge (G-Eval) is
+not ported yet (ROADMAP A5b).
 """
 from __future__ import annotations
 
@@ -14,11 +13,10 @@ from pathlib import Path
 import numpy as np
 
 from ..core.logging import get_logger
+from .embedding import EmbeddingModel, bert_scores, cosine_similarities
 from .rouge import RougeScorer
 
 logger = get_logger("vnsum.eval")
-
-NOT_COMPUTED = ("semantic_similarity", "bert_scores")
 
 
 def load_summary_dir(path: str | Path) -> dict[str, str]:
@@ -49,44 +47,89 @@ def match_pairs(
     return common
 
 
-def evaluate_folders(
-    generated_dir: str | Path,
-    reference_dir: str | Path,
-    max_samples: int | None = None,
-    output: str | Path | None = None,
-    use_stemmer: bool = True,
-) -> dict:
-    generated = load_summary_dir(generated_dir)
-    references = load_summary_dir(reference_dir)
-    common = match_pairs(generated, references, max_samples)
-    scorer = RougeScorer(["rouge1", "rouge2", "rougeL"], use_stemmer)
-    detailed = []
-    r1, r2, rl = [], [], []
-    for fname in common:
-        scores = scorer.score(references[fname], generated[fname])
-        r1.append(scores["rouge1"].fmeasure)
-        r2.append(scores["rouge2"].fmeasure)
-        rl.append(scores["rougeL"].fmeasure)
-        detailed.append(
-            {
-                "rouge1_f": scores["rouge1"].fmeasure,
-                "rouge2_f": scores["rouge2"].fmeasure,
-                "rougeL_f": scores["rougeL"].fmeasure,
-                "filename": fname,
-            }
+class SemanticEvaluator:
+    def __init__(
+        self,
+        embedding_model: EmbeddingModel | None = None,
+        use_stemmer: bool = True,
+        include_llm_eval: bool = False,
+    ) -> None:
+        if include_llm_eval:
+            raise NotImplementedError(
+                "the LLM judge (G-Eval) is not ported yet (ROADMAP A5b)")
+        self.embedder = embedding_model or EmbeddingModel()
+        self.rouge = RougeScorer(["rouge1", "rouge2", "rougeL"], use_stemmer)
+
+    def evaluate_pairs(
+        self,
+        generated: dict[str, str],
+        references: dict[str, str],
+        max_samples: int | None = None,
+    ) -> dict:
+        """Evaluate matching filenames; returns the results-JSON dict."""
+        common = match_pairs(generated, references, max_samples)
+        gen_texts = [generated[f] for f in common]
+        ref_texts = [references[f] for f in common]
+
+        # one batched embedding pass per side, not one per pair
+        sims = cosine_similarities(
+            self.embedder.sentence_embeddings(gen_texts),
+            self.embedder.sentence_embeddings(ref_texts),
         )
-    stats = {
-        "rouge_scores": {
-            "rouge1_f1": float(np.mean(r1)),
-            "rouge2_f1": float(np.mean(r2)),
-            "rougeL_f1": float(np.mean(rl)),
-        },
-        "not_computed": list(NOT_COMPUTED),
-    }
-    results = {"summary_statistics": stats, "detailed_results": detailed}
-    if output:
-        Path(output).parent.mkdir(parents=True, exist_ok=True)
-        Path(output).write_text(
-            json.dumps(results, indent=2, ensure_ascii=False), encoding="utf-8"
+        bert = bert_scores(self.embedder, gen_texts, ref_texts)
+
+        detailed = []
+        r1, r2, rl = [], [], []
+        for fname, g, r, sim in zip(common, gen_texts, ref_texts, sims):
+            scores = self.rouge.score(r, g)
+            r1.append(scores["rouge1"].fmeasure)
+            r2.append(scores["rouge2"].fmeasure)
+            rl.append(scores["rougeL"].fmeasure)
+            detailed.append(
+                {
+                    "semantic_similarity": float(sim),
+                    "rouge1_f": scores["rouge1"].fmeasure,
+                    "rouge2_f": scores["rouge2"].fmeasure,
+                    "rougeL_f": scores["rougeL"].fmeasure,
+                    "filename": fname,
+                }
+            )
+
+        stats = {
+            "semantic_similarity": {
+                "mean": float(np.mean(sims)),
+                "std": float(np.std(sims)),
+                "min": float(np.min(sims)),
+                "max": float(np.max(sims)),
+            },
+            "rouge_scores": {
+                "rouge1_f1": float(np.mean(r1)),
+                "rouge2_f1": float(np.mean(r2)),
+                "rougeL_f1": float(np.mean(rl)),
+            },
+            "bert_scores": {
+                "bert_precision": float(np.mean([b.precision for b in bert])),
+                "bert_recall": float(np.mean([b.recall for b in bert])),
+                "bert_f1": float(np.mean([b.f1 for b in bert])),
+            },
+        }
+        return {"summary_statistics": stats, "detailed_results": detailed}
+
+    def evaluate_folders(
+        self,
+        generated_dir: str | Path,
+        reference_dir: str | Path,
+        max_samples: int | None = None,
+        output: str | Path | None = None,
+    ) -> dict:
+        results = self.evaluate_pairs(
+            load_summary_dir(generated_dir),
+            load_summary_dir(reference_dir),
+            max_samples=max_samples,
         )
-    return results
+        if output:
+            Path(output).parent.mkdir(parents=True, exist_ok=True)
+            Path(output).write_text(
+                json.dumps(results, indent=2, ensure_ascii=False), encoding="utf-8"
+            )
+        return results

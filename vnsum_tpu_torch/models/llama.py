@@ -43,6 +43,9 @@ class LlamaConfig:
     rope_low_freq_factor: float = 1.0
     rope_high_freq_factor: float = 4.0
     rope_original_max_len: int = 8192
+    # linear position scaling (HF rope_scaling type "linear"): positions are
+    # divided by this factor before the rotation; 0 = off
+    rope_linear_factor: float = 0.0
     norm_eps: float = 1e-5
     max_seq_len: int = 16_384
     tie_embeddings: bool = True
@@ -400,7 +403,10 @@ def rope_inv_freq(cfg: LlamaConfig, device=None) -> torch.Tensor:
 
 def rope_cos_sin(cfg: LlamaConfig, positions: torch.Tensor):
     """positions [B, S] -> cos/sin [B, S, hd/2] (f32)."""
-    angles = positions[..., None].float() * rope_inv_freq(cfg, positions.device)
+    pos = positions[..., None].float()
+    if cfg.rope_linear_factor:
+        pos = pos / cfg.rope_linear_factor
+    angles = pos * rope_inv_freq(cfg, positions.device)
     return torch.cos(angles), torch.sin(angles)
 
 

@@ -9,6 +9,11 @@
 ``mapreduce_hierarchical`` reads its trees from ``--tree-json`` (plain text
 where a document has none) and collapses down from ``--max-depth``.
 
+``--weights-dir`` loads a local HF checkpoint (and its tokenizer) in place
+of the registry's random weights; ``--embedding-dir`` scores BERTScore and
+the sentence cosine with a local HF BERT-family checkpoint in place of a
+random-init encoder.
+
 Runs on the card; ``--device cpu`` runs on the CPU. Exits 1 when any
 document or model failed.
 """
@@ -47,6 +52,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tokenizer", default="byte", help="byte or hf:<name-or-path>")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument(
+        "--weights-dir", default=None,
+        help="local HF checkpoint dir (config.json + safetensors + tokenizer), "
+        "e.g. a Llama-3.2-3B checkout; its tokenizer is used unless --tokenizer "
+        "names an hf: one",
+    )
+    p.add_argument(
+        "--embedding-dir", default=None,
+        help="local HF BERT-family checkpoint dir for the embedding metrics "
+        "(e.g. an all-MiniLM-L6-v2 checkout)",
+    )
+    p.add_argument(
         "--chunk-size", type=int, default=None,
         help="override the approach-default chunk size (tokens)",
     )
@@ -83,7 +99,7 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         )
         overrides["iterative_chunk_size"] = args.chunk_size
         overrides["iterative_chunk_overlap"] = overrides["chunk_overlap"]
-    return PipelineConfig(
+    cfg = PipelineConfig(
         approach=args.approach,
         models=list(args.models),
         docs_dir=args.docs_dir,
@@ -97,12 +113,15 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         prefill_chunk_tokens=args.prefill_chunk_tokens,
         tree_json_path=args.tree_json,
         max_depth=args.max_depth,
+        weights_dir=args.weights_dir,
         **{
             k: v
             for k, v in overrides.items()
             if k not in ("max_depth", "tree_json_path")
         },
     )
+    cfg.evaluation.embedding_dir = args.embedding_dir
+    return cfg
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,10 +1,11 @@
 """Batch evaluation pipeline on the port's engine.
 
-Counterpart of ``vnsum_tpu/pipeline/runner.py`` for the summarize phase,
-the ROUGE evaluation and the report: preflight → document analysis → per
-model, summarization with resume-by-file → evaluation → report → results
-JSON. Documents go to the strategy in groups, so every LLM call of a round
-shares device batches.
+Counterpart of ``vnsum_tpu/pipeline/runner.py``: preflight → document
+analysis → per model, summarization with resume-by-file → evaluation
+(ROUGE, sentence cosine, BERTScore) → report → results JSON. Documents go
+to the strategy in groups, so every LLM call of a round shares device
+batches. The model is a registry config with random weights, or an HF
+checkpoint (``weights_dir``); the LLM judge is not ported yet.
 
 Failure containment differs from the JAX package in one way: device errors
 (``RuntimeError``) are never retried (core/faults.py), and
@@ -26,8 +27,9 @@ from ..core.faults import call_with_retries, is_retryable
 from ..core.logging import get_logger, setup_run_logging
 from ..core.results import DocumentRecord, ModelRunRecord, PipelineResults
 from ..data import DocumentDataset, analyze_documents
-from ..eval.semantic import evaluate_folders
+from ..eval import EmbeddingModel, SemanticEvaluator
 from ..models import MODEL_REGISTRY
+from ..models.convert import load_hf_checkpoint
 from ..strategies import get_strategy
 from ..text import DocumentTree, clean_thinking_tokens
 
@@ -44,12 +46,15 @@ class PipelineRunner:
         self,
         config: PipelineConfig,
         backend_factory=None,
+        embedding_model: EmbeddingModel | None = None,
         device="cuda",
     ) -> None:
         self.config = config
         # a run asked to use the card raises here when none is visible
         self.device = resolve_device(device)
         self.backend_factory = backend_factory or self._default_backend_factory
+        # built on first use, then reused across the models of the run
+        self.embedding_model = embedding_model
         self.results = PipelineResults(config=config.to_dict())
         self.failures: list[str] = []
         self.log_path = setup_run_logging(config.logs_dir)
@@ -62,18 +67,32 @@ class PipelineRunner:
 
     def _default_backend_factory(self, model: str) -> Backend:
         cfg = self.config
-        if model not in MODEL_REGISTRY:
-            raise ValueError(
-                f"unknown model {model!r}; have {sorted(MODEL_REGISTRY)}"
-            )
         return TorchBackend(
-            model_config=MODEL_REGISTRY[model](),
-            tokenizer=cfg.tokenizer,
+            **self._resolve_model(model),
             batch_size=cfg.batch_size,
             max_new_tokens=cfg.max_new_tokens,
             prefill_chunk_tokens=cfg.prefill_chunk_tokens,
             device=self.device,
         )
+
+    def _resolve_model(self, model: str) -> dict:
+        """TorchBackend's model and tokenizer arguments. With weights_dir,
+        the checkpoint loaded onto the runner's device and its own
+        tokenizer, ``hf:<weights_dir>``, unless the config names an
+        ``hf:`` tokenizer; otherwise the registry's config, whose weights
+        the backend draws from its seed."""
+        cfg = self.config
+        if cfg.weights_dir:
+            _, loaded = load_hf_checkpoint(
+                cfg.weights_dir, dtype=getattr(torch, cfg.dtype), device=self.device)
+            tokenizer = (cfg.tokenizer if cfg.tokenizer.startswith("hf:")
+                         else f"hf:{cfg.weights_dir}")
+            return {"model": loaded, "tokenizer": tokenizer}
+        if model not in MODEL_REGISTRY:
+            raise ValueError(
+                f"unknown model {model!r}; have {sorted(MODEL_REGISTRY)}"
+            )
+        return {"model_config": MODEL_REGISTRY[model](), "tokenizer": cfg.tokenizer}
 
     def preflight(self, backend: Backend) -> None:
         """Device check before any work: a run asked to use the card fails
@@ -217,10 +236,18 @@ class PipelineRunner:
 
     def run_evaluation_for_model(self, model: str) -> dict:
         cfg = self.config
+        if self.embedding_model is None:
+            ev = cfg.evaluation
+            self.embedding_model = (
+                EmbeddingModel.from_hf(ev.embedding_dir, batch_size=ev.bert_batch_size,
+                                       device=self.device)
+                if ev.embedding_dir
+                else EmbeddingModel(batch_size=ev.bert_batch_size, device=self.device)
+            )
         out_path = Path(cfg.results_dir) / f"{model_name_safe(model)}_results.json"
-        results = evaluate_folders(
+        results = SemanticEvaluator(self.embedding_model).evaluate_folders(
             self._output_dir(model), cfg.summary_dir,
-            max_samples=cfg.max_samples, output=out_path,
+            max_samples=cfg.evaluation.max_samples or cfg.max_samples, output=out_path,
         )
         self.results.add_evaluation(model, results["summary_statistics"])
         return results
@@ -270,7 +297,10 @@ class PipelineRunner:
                     f"  rouge1/2/L: {rs['rouge1_f1']:.4f} / "
                     f"{rs['rouge2_f1']:.4f} / {rs['rougeL_f1']:.4f}"
                 )
-                lines.append(f"  not computed: {', '.join(ev['not_computed'])}")
+                lines.append(
+                    f"  bert F1: {ev['bert_scores']['bert_f1']:.4f}  "
+                    f"semsim: {ev['semantic_similarity']['mean']:.4f}"
+                )
         text = "\n".join(lines)
         logger.info("%s", text)
         return text
