@@ -35,11 +35,19 @@ Phases, each raising on failure (so any failure exits non-zero):
    32768, q_offset 0, bf16, the pads of its two prompts, layers 0 and 27 of
    28), run over the whole sequence and held to its plain version on four
    512-query slices (its first 512 queries see no key and must be 0);
+   [int8] (a): the int8-weight GEMV at every int8 matmul shape of
+   Llama-3.2-3B (wq/wo 3072 x 3072, wk/wv 1024 x 3072, w_gate/w_up 8192 x
+   3072, w_down 3072 x 8192, the tied head 128256 x 3072 in head mode) at
+   M = 1, 2, 8 and 72 rows, against its plain version and a float64
+   reckoning of the same formula (GEMV_RTOL); [int8] (b), after phase 3:
+   W8A8's s8 x s8 product (torch._int_mm) at a prefill's shape equals the
+   CPU's int32 product bit for bit;
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
    with one cache slot per split or tile left out (flash_decode.cu and K3
    have two more: the merge of the splits leaving out the fill's split, and
    the in-block merge leaving out the last warp's share of o; K1 one: its
-   consumers reading the ring stage that TMA did not fill), must fail
+   consumers reading the ring stage that TMA did not fill; the GEMV: a
+   neighbouring channel's scale, the last 16-byte K chunk dropped), must fail
    every case of that kernel in phase 3 and no other, so the limits are
    shown to be tight enough to see such a fault. K2 and K2p are the two
    modes of one source and share both its passes, so the two count as one
@@ -59,7 +67,12 @@ Phases, each raising on failure (so any failure exits non-zero):
    at the long path's shape (B=2, C=32768, bf16 and int8), whose library
    call is scaled_dot_product_attention on the same cache expanded to 24
    heads, computing the normalised output (no public torch call returns
-   the partials);
+   the partials); [int8] (e): the GEMV at each shape of a decode step on
+   the map batch (M = 8), 28 layers of weights in turn, from CUDA graph
+   replays: kernel, bound (its int8 weight and scales at 3.35 TB/s),
+   plain version and library call (torch.matmul against the same weight
+   in bf16, what the bf16 model pays); the kernels line takes one decode
+   step's 197 calls;
 6. pipeline: the port's CLI runs map-reduce over data/vi_eval with
    Llama-3.2-3B at full width and depth (random bf16 weights from a seed),
    its greedy decode steps replayed as captured CUDA graphs: every document
@@ -69,7 +82,12 @@ Phases, each raising on failure (so any failure exits non-zero):
    included, and the replays plus one step per captured group be all the
    decode steps; then the same run through PipelineRunner on a backend
    built with cuda_graphs=False (every step eager) must write
-   byte-identical summaries;
+   byte-identical summaries; [int8] (c) and (d): the same with --quantize
+   and with --quantize --quantize-act (W8A8 prefill), the weights quantized
+   on the card: K1 = 28 x prefill forwards, K2 = 28 x decode steps and GEMV
+   launches = 197 x decode steps + one per prefill forward (its head; and
+   196 more where B x S <= 128 without W8A8) exactly, K2p = K3 = 0, and
+   summaries byte-identical to an eager run;
 6b. weights: the pipeline phase's own weights (init_model(llama32_3b(), 0))
    written as an HF checkpoint (save_hf_checkpoint: 28 layers in four bf16
    shards, the embeddings in a fifth, and an index; into the temp dir, or
@@ -140,7 +158,9 @@ Phases, each raising on failure (so any failure exits non-zero):
    (eager and captured) at path (c)'s, with their wall time, the device's
    busy time (torch.profiler), the card's clock and power draw while they
    run, and the kernels that take most of the time; one replay of each
-   captured step must show 28 K2 (K2p) kernels of each pass in the trace.
+   captured step must show 28 K2 (K2p) kernels of each pass in the trace;
+   [int8] (f): the captured decode step on the same model's int8 copy, its
+   197 GEMV kernels and their device time.
 
 Every PipelineRunner and CLI run (pipeline, eager control, weights,
 strategies, spec, long context) must report finite sentence cosine (mean,
@@ -233,6 +253,23 @@ SPEC_LOGITS_RTOL = 0.1
 # on an H100). The limit leaves a factor of ~10 for the f32 rsqrt/tanh of
 # the two libraries.
 ENCODER_ATOL = 1e-4
+# [int8] the int8-weight GEMV against its plain version and a float64
+#   reckoning of the same formula. All three form every bf16 x int8 product
+#   exactly and sum K of them in different orders (the tensor cores', the
+#   f32 GEMM's with TF32 off, float64): below 1e-6 of sum_k |x q| s. The
+#   projection mode then rounds to bf16 twice (the sum, then the sum times
+#   s), and a sum within that error of a half-way point may round to the
+#   other neighbour each time: two bf16 ulps, at most 2^-6 of the output.
+#   Per element: 2^-6 |ref| + 1e-6 sum_k |x q| s; the head mode (f32 out,
+#   no rounding) 1e-6 sum_k |x q| s. The planted faults (a neighbouring
+#   channel's scale, a 16-byte K chunk dropped) move outputs by tens of
+#   percent and by ~sqrt(16 / K) of their scale.
+GEMV_RTOL, GEMV_SUM_RTOL = 2.0**-6, 1e-6
+# Llama-3.2-3B's int8 matmuls (weights [N, K]) and the rows the GEMV meets:
+# decode at B = 1, 2 and 8, and the spec verify forward's 8 x 9
+GEMV_SHAPES = {"wq/wo": (3072, 3072), "wk/wv": (1024, 3072), "w_gate/w_up": (8192, 3072),
+               "w_down": (3072, 8192), "head": (128256, 3072)}
+GEMV_ROWS = (1, 2, 8, 72)
 
 # phase 4's planted faults: (what it does, kernel, source, text, replacement).
 # A fault must fail every case of its kernel's family (FAMILY) and no case
@@ -259,6 +296,10 @@ MUTANTS = (
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
     ("verify's in-block merge leaves out the last warp's 128 slots of o", "verify",
      "flash_verify.cu", "w < QUARTERS; ++w) acc +=", "w < QUARTERS - 1; ++w) acc +="),
+    ("the GEMV scales each output channel with its neighbour's scale", "gemv",
+     "int8_gemv.cu", "const float sc = s[n];", "const float sc = s[n + 1 < N ? n + 1 : n];"),
+    ("the GEMV drops the last 16-byte K chunk of every weight row", "gemv",
+     "int8_gemv.cu", "const bool chunk = k < K;", "const bool chunk = k < K - 16;"),
 )
 FAMILY = {"decode": ("decode", "partials"), "partials": ("decode", "partials")}
 
@@ -287,6 +328,14 @@ KERNELS = {
         "route": "cuda",
         "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:381",
+    },
+    # a port-only kernel: the JAX package's int8 product is XLA's fusion in
+    # _proj (its int8 einsum's line), no pallas_call
+    "gemv": {
+        "name": "int8_gemv",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/int8_gemv.cu",
+        "replaces": "vnsum_tpu/models/llama.py:290",
     },
 }
 
@@ -464,7 +513,7 @@ def phase_correctness(torch) -> dict:
     dev = torch.device("cuda")
     KV, G, hd = 8, 3, 128
     H = KV * G
-    worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0, "partials": 0.0}
+    worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0, "partials": 0.0, "gemv": 0.0}
 
     def pads_of(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
@@ -644,8 +693,95 @@ def phase_correctness(torch) -> dict:
     torch.cuda.empty_cache()
 
     partials_cases(torch, worst)
+    gemv_cases(torch, worst)
     raise_if_failed()
     return worst
+
+
+def int8_weight(torch, N: int, K: int, seed: int, dev, layers: int = 1):
+    """Random int8 weights [layers, N, K] in the stored layout with their
+    f32 scales [layers, N], quantized as models/quant.py does from normal
+    values whose channels differ in magnitude (0.25-2), so neighbouring
+    scales differ; one layer's f32 temporaries at a time."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = torch.empty((layers, N, K), dtype=torch.int8, device=dev)
+    s = torch.empty((layers, N), dtype=torch.float32, device=dev)
+    for li in range(layers):
+        w = torch.randn((N, K), generator=g, device=dev)
+        w *= 0.25 + 1.75 * torch.rand((N, 1), generator=g, device=dev)
+        s[li] = w.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+        q[li] = torch.clamp(torch.round(w / s[li][:, None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def compare_gemv(torch, case, x, q, s, head, worst) -> None:
+    """Runs the GEMV on x [M, K], q [N, K], s [N] and holds its output
+    against its plain version's and against a float64 reckoning of the same
+    formula, bf16(f32(bf16(sum)) * s) or sum * s for the head, at the
+    stated limit (GEMV_RTOL, GEMV_SUM_RTOL); logs the case as ``compare``
+    does."""
+    from vnsum_tpu_torch.ops import int8_matmul as im
+
+    got = im.int8_gemv(x, q, s, head)
+    want = im.int8_gemv_ref(x, q, s, head)
+    q64 = q.double()
+    y = (x.double() @ q64.t()).float()
+    reckon = y * s if head else (y.to(torch.bfloat16).float() * s).to(torch.bfloat16)
+    mag = (x.double().abs() @ q64.abs().t()) * s.double()
+    del q64
+    torch.cuda.synchronize()
+    g = got.double()
+    bad = not bool(torch.isfinite(got).all())
+    used, errs = 0.0, []
+    for label, ref in (("plain", want.double()), ("float64", reckon.double())):
+        limit = GEMV_SUM_RTOL * mag + (0.0 if head else GEMV_RTOL * ref.abs())
+        diff = (g - ref).abs()
+        bad = bad or bool((diff > limit).any())
+        used = max(used, float((diff / limit.clamp_min(1e-30)).max()))
+        errs.append(f"{label} {float(diff.max()):.3e}")
+    worst["gemv"] = max(worst["gemv"], float((g - want.double()).abs().max()))
+    if bad:
+        FAILED.append(case)
+    CHECKED.append(case)
+    log(f"[check] {case}: max|err| " + ", ".join(errs) + f"; err/limit {used:.4g}"
+        + (" OVER THE LIMIT" if bad else ""))
+
+
+def gemv_cases(torch, worst) -> None:
+    """[int8] (a): the GEMV at every int8 matmul shape of Llama-3.2-3B
+    (GEMV_SHAPES; the tied head in head mode) and every row count of
+    GEMV_ROWS, against its plain version and a float64 reckoning of the
+    same formula: bf16(f32(bf16(sum)) * s), or sum * s for the head."""
+    dev = torch.device("cuda")
+    for i, (name, (N, K)) in enumerate(GEMV_SHAPES.items()):
+        q, s = int8_weight(torch, N, K, 90 + i, dev)
+        head = name == "head"
+        for M in GEMV_ROWS:
+            compare_gemv(torch, f"gemv {name} N={N} K={K} M={M} "
+                         f"{'head' if head else 'projection'}",
+                         rand_q(torch, (M, K), 100 + 7 * i + M, dev), q[0], s[0], head, worst)
+        del q, s
+        torch.cuda.empty_cache()
+
+
+def phase_w8a8(torch) -> None:
+    """[int8] (b): W8A8's s8 x s8 -> s32 product (torch._int_mm, what the
+    port's prefill runs with quantize_act) on the card at a prefill's shape
+    (the reduce batch, 8 x 512 tokens, against wk's 1024 x 3072 int8
+    weight) equals the CPU's int32 product bit for bit."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(120)
+    qx = torch.randint(-127, 128, (8 * 512, 3072), generator=g, device=dev, dtype=torch.int8)
+    q = torch.randint(-127, 128, (1024, 3072), generator=g, device=dev, dtype=torch.int8)
+    got = torch._int_mm(qx, q.t()).cpu()
+    want = torch._int_mm(qx.cpu(), q.cpu().t())
+    if got.dtype != torch.int32 or not torch.equal(got, want):
+        raise AssertionError(f"W8A8: torch._int_mm on the card differs from the CPU's int32 "
+                             f"product ({int((got != want).sum())} elements)")
+    log(f"[int8] W8A8 product [{qx.shape[0]} x {qx.shape[1]}] x [{q.shape[1]} x "
+        f"{q.shape[0]}] on the card equals the CPU's int32 product bit for bit")
 
 
 def partials_cases(torch, worst, dev="cuda") -> None:
@@ -945,8 +1081,83 @@ def phase_timing(torch, worst) -> dict:
         log(f"[time] partials int8={quantized} B=2 C=32768: kernel {rec['ms']:.4f} ms, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, "
             f"library {rec['library_ms']:.4f} ms (normalised output)")
+    out["gemv"] = time_gemv(torch, worst)
     raise_if_failed()
     return out
+
+
+def graph_ms(torch, fn, n: int, reps: int = 5) -> float:
+    """Per-call device time of ``fn(i)`` for i < n, recorded once into a
+    CUDA graph and replayed (median over ``reps`` replays, CUDA events), so
+    the host's launch time stays out, as in a captured decode step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up, as PyTorch's graph notes ask
+        for i in range(n):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    ms = time_ms(torch, lambda _: graph.replay(), n=1, reps=reps) / n
+    del graph
+    return ms
+
+
+def time_gemv(torch, worst) -> dict:
+    """[int8] (e): the GEMV at each shape of a decode step on the map batch
+    (M = 8 rows; GEMV_SHAPES), 28 layers of weights called in turn so that
+    each call finds its weight cold in L2 as a decode step does (the head,
+    394 MB, is past L2 alone), each time from one replayed CUDA graph:
+    the kernel, its plain version, and the library call the bf16 model
+    pays, ``torch.matmul`` of x against the same weight in bf16. The bound
+    of a call: its int8 weight and scales read once (and x, and the output
+    written) at 3.35 TB/s; its bf16 tensor-core work is a few percent of
+    that. The returned record is one decode step's sum: 28 x (wq, wk, wv,
+    wo, w_gate, w_up, w_down) + the head. One output at each shape is held
+    to the plain version as in phase 3."""
+    from vnsum_tpu_torch.ops import int8_matmul as im
+
+    dev = torch.device("cuda")
+    M, L = 8, 28
+    per_layer = {"wq/wo": 2, "wk/wv": 2, "w_gate/w_up": 2, "w_down": 1}
+    step = {"ms": 0.0, "plain": 0.0, "library": 0.0, "flops": 0, "bytes": 0}
+    for i, (name, (N, K)) in enumerate(GEMV_SHAPES.items()):
+        head = name == "head"
+        layers = 1 if head else L
+        q, s = int8_weight(torch, N, K, 130 + i, dev, layers)
+        wb = torch.empty((layers, N, K), dtype=torch.bfloat16, device=dev)
+        for li in range(layers):
+            wb[li] = (q[li].float() * s[li][:, None]).to(torch.bfloat16)
+        x = rand_q(torch, (M, K), 140 + i, dev)
+        n = 2 * layers
+        ms = graph_ms(torch, lambda j: im.int8_gemv(x, q[j % layers], s[j % layers], head), n)
+        plain = graph_ms(torch, lambda j: im.int8_gemv_ref(
+            x, q[j % layers], s[j % layers], head), layers)
+        library = graph_ms(torch, lambda j: torch.matmul(x, wb[j % layers].t()), n)
+        bytes_ = N * K + 4 * N + 2 * M * K + (4 if head else 2) * M * N
+        flops = 2 * M * N * K
+        rec = timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
+        compare_gemv(torch, f"gemv {name} N={N} K={K} M={M} (timing inputs)", x, q[-1],
+                     s[-1], head, worst)
+        calls = 1 if head else L * per_layer[name]
+        for key, val in (("ms", ms), ("plain", plain), ("library", library), ("flops", flops),
+                         ("bytes", bytes_)):
+            step[key] += calls * val
+        log(f"[time] gemv {name} N={N} K={K} M={M} ({calls} a decode step): kernel "
+            f"{ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{rec['bound_ms'] / ms:.1%} of it), plain {plain:.4f} ms, library (bf16 "
+            f"torch.matmul) {library:.4f} ms")
+        del q, s, wb
+        torch.cuda.empty_cache()
+    rec = timing_record(step["ms"], step["plain"], step["library"], step["flops"],
+                        step["bytes"], PEAK_BF16_FLOPS)
+    log(f"[time] gemv, one decode step's 197 calls at M={M}: kernel {rec['ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {step['bytes'] / 1e9:.3f} GB), "
+        f"plain {rec['plain_ms']:.4f} ms, library (bf16 torch.matmul) "
+        f"{rec['library_ms']:.4f} ms")
+    return rec
 
 
 def time_partials(torch, worst, quantized: bool) -> dict:
@@ -1108,10 +1319,10 @@ def agreement(texts: list, base: list) -> str:
 
 def reset_launches() -> None:
     """Sets every launch counter, and the evaluation timers, to 0."""
-    from vnsum_tpu_torch.ops import decode_attention, flash_attention, verify_attention
+    from vnsum_tpu_torch.ops import decode_attention, flash_attention, int8_matmul, verify_attention
 
     flash_attention.launches = decode_attention.launches = verify_attention.launches = 0
-    decode_attention.partials_launches = 0
+    decode_attention.partials_launches = int8_matmul.launches = 0
     EVAL_SECONDS.update(embed=0.0, bertscore=0.0)
 
 
@@ -1140,10 +1351,11 @@ def time_evaluation() -> None:
 
 
 def read_launches() -> dict:
-    from vnsum_tpu_torch.ops import decode_attention, flash_attention, verify_attention
+    from vnsum_tpu_torch.ops import decode_attention, flash_attention, int8_matmul, verify_attention
 
     return {"prefill": flash_attention.launches, "decode": decode_attention.launches,
-            "verify": verify_attention.launches, "partials": decode_attention.partials_launches}
+            "verify": verify_attention.launches, "partials": decode_attention.partials_launches,
+            "gemv": int8_matmul.launches}
 
 
 def check_launches(path: str, launches: dict, need: dict) -> None:
@@ -1286,6 +1498,122 @@ def phase_pipeline(torch) -> tuple[dict, dict]:
     return launches, summaries
 
 
+def gemv_need(eng: dict, n_layers: int, act: bool) -> int:
+    """The GEMV launches a run's engine record implies: each decode step
+    (B <= 8 rows) runs its 7 projections a layer and the head through the
+    GEMV; each prefill forward (last_only, no chunking: one a batch) its
+    head (B rows), and its projections too when B x S is within the
+    GEMV's rows, never under W8A8 (s8 x s8 products)."""
+    from vnsum_tpu_torch.ops.int8_matmul import MAX_M
+
+    need = (7 * n_layers + 1) * eng["decode_steps"]
+    for bucket, n in eng["by_bucket"].items():
+        B, S = (int(part.split("=")[1]) for part in bucket.split(","))
+        need += n * (1 + (0 if act or B * S > MAX_M else 7 * n_layers))
+    return need
+
+
+def phase_int8_pipeline(torch, act: bool) -> dict:
+    """[int8] (c), and (d) with ``act``: the CLI's map-reduce over
+    data/vi_eval with --quantize (and --quantize-act) on Llama-3.2-3B at
+    full width and depth (random bf16 weights from seed 0, quantized on the
+    card), decode steps captured: every document ok, ROUGE and the
+    embedding metrics computed, K1 = 28 x prefill forwards, K2 = 28 x
+    decode steps and GEMV launches = gemv_need exactly, K2p = K3 = 0; then
+    the same through PipelineRunner on a backend built with
+    cuda_graphs=False, byte-identical summaries. Returns the captured run's
+    launches."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models import llama32_3b
+    from vnsum_tpu_torch.pipeline import cli
+    from vnsum_tpu_torch.pipeline.runner import PipelineRunner
+
+    path = "w8a8 pipeline" if act else "int8 pipeline"
+    n_layers = llama32_3b().n_layers
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+
+    def cli_args(out: Path) -> list:
+        return [
+            "--approach", "mapreduce", "--models", "llama3.2:3b",
+            "--docs-dir", str(ROOT / "data/vi_eval/doc"),
+            "--summary-dir", str(ROOT / "data/vi_eval/summary"),
+            "--generated-summaries-dir", str(out / "gen"),
+            "--results-dir", str(out / "results"),
+            "--logs-dir", str(out / "logs"),
+            "--max-new-tokens", "128", "--device", "cuda", "--quantize",
+        ] + (["--quantize-act"] if act else [])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(cli_args(Path(tmp)))
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if rc != 0:
+            raise AssertionError(f"{path}: CLI exited {rc}")
+        res = json.loads(next((Path(tmp) / "results").glob("pipeline_results_*.json")).read_text())
+        if not (res["config"]["quantize"] and res["config"]["quantize_act"] == act):
+            raise AssertionError(f"{path}: run record {res['config']}")
+        rec, summaries = check_run(res["results"], docs, Path(tmp) / "gen")
+        rouge = res["results"]["evaluation"]["llama3.2:3b"]["rouge_scores"]
+        eng = res["results"]["engine"]["llama3.2:3b"]
+        check_captured(path, eng)
+        need = {"prefill": n_layers * eng["prefill_forwards"],
+                "decode": n_layers * eng["decode_steps"], "verify": 0, "partials": 0,
+                "gemv": gemv_need(eng, n_layers, act)}
+        if (eng["decode_steps"] == 0 or launches != need
+                or sum(eng["by_bucket"].values()) != eng["prefill_forwards"]):
+            raise AssertionError(f"{path}: launches {launches}, the engine record "
+                                 f"{eng['by_bucket']} ({eng['prefill_forwards']} prefill "
+                                 f"forwards, {eng['decode_steps']} decode steps) needs {need}")
+        log(f"[launches] {path}: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+            + " (each exactly as the engine record implies)")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        cfg = cli.config_from_args(cli.build_parser().parse_args(cli_args(Path(tmp) / "eager")))
+        eager = []
+
+        def factory(_):
+            eager.append(TorchBackend(
+                llama32_3b(), batch_size=cfg.batch_size, max_new_tokens=cfg.max_new_tokens,
+                quantize=cfg.quantize, quantize_act=cfg.quantize_act, cuda_graphs=False,
+                device="cuda"))
+            return eager[-1]
+
+        t0 = time.perf_counter()
+        runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
+        eager_res = runner.run()
+        eager_wall = time.perf_counter() - t0
+        if runner.failures:
+            raise AssertionError(f"{path} eager control failures: {runner.failures}")
+        _, eager_summaries = check_run(
+            {"summarization": eager_res.summarization, "evaluation": eager_res.evaluation},
+            docs, Path(tmp) / "eager" / "gen")
+        est = eager[0].stats
+        if (not eager[0].model.quantized or est.captured_steps or est.graph_captures
+                or est.decode_steps != eng["decode_steps"]):
+            raise AssertionError(f"{path} eager control: {est.decode_steps} decode steps, "
+                                 f"{est.captured_steps} replayed, {est.graph_captures} captures")
+        if eager_summaries != summaries:
+            raise AssertionError(f"{path} summaries differ with capture on and off: "
+                                 + agreement([eager_summaries[d.name] for d in docs],
+                                             [summaries[d.name] for d in docs]))
+    decode_s = eng["phase_seconds"].get("decode", 0.0)
+    log(f"[int8] {path}: {rec['successful']}/{len(docs)} docs ok, wall {wall:.2f}s, prefill "
+        f"{eng['phase_seconds'].get('prefill', 0.0):.3f}s ({eng['prefill_forwards']} "
+        f"forwards), decode {decode_s:.3f}s ({eng['decode_steps']} steps: "
+        f"{eng['graph_captures']} captured groups, {eng['captured_steps']} replays, "
+        f"{1e3 * decode_s / eng['decode_steps']:.2f} ms a step), generated tokens "
+        f"{eng['generated_tokens']}, batches {eng['by_bucket']}, peak memory {peak_gb:.2f} GB")
+    log(f"[int8] {path} eager control (cuda_graphs=False): wall {eager_wall:.2f}s, decode "
+        f"{est.phase_seconds.get('decode', 0.0):.3f}s ({est.decode_steps} steps); summaries "
+        f"byte-identical ({len(docs)}/{len(docs)})")
+    log(f"[int8] {path} rouge {json.dumps(rouge)}")
+    return launches
+
+
 # -- phase 6b -----------------------------------------------------------------
 
 
@@ -1408,7 +1736,7 @@ def phase_weights(torch, plain_summaries: dict) -> dict:
             docs, ckpt.parent / f"{ckpt.name}_gen")
         st = backends[0].stats
         need = {"prefill": n_layers * st.prefill_forwards, "decode": n_layers * st.decode_steps,
-                "verify": 0, "partials": 0}
+                "verify": 0, "partials": 0, "gemv": 0}
         if st.decode_steps == 0 or launches != need:
             raise AssertionError(f"weights run: launches {launches}, the path needs {need}")
         check_captured("weights run", st.to_dict())
@@ -1593,7 +1921,7 @@ def phase_strategies(torch) -> dict:
     n_layers = cfg3b.n_layers
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
     model = init_model(cfg3b, 0, torch.device("cuda"))
-    total = dict.fromkeys(("prefill", "decode", "verify", "partials"), 0)
+    total = dict.fromkeys(KERNELS, 0)
     by_shape = {"prefill": {}, "decode": {}}
     checked = set(PIPELINE_SHAPES) | set(STRATEGY_SHAPES)
 
@@ -1643,7 +1971,7 @@ def phase_strategies(torch) -> dict:
         path = f"{approach}{'' if cuda_graphs else ' eager control'}"
         if (launches["prefill"] != n_layers * st.prefill_forwards
                 or launches["decode"] != n_layers * st.decode_steps
-                or launches["verify"] or launches["partials"]):
+                or launches["verify"] or launches["partials"] or launches["gemv"]):
             raise AssertionError(
                 f"{path}: launches {launches} for {st.prefill_forwards} prefill forwards "
                 f"and {st.decode_steps} decode steps")
@@ -1877,7 +2205,7 @@ def phase_slot_loop(torch, backend, prompts: list, oneshot: list) -> dict:
     n_layers = backend.cfg.n_layers
     b = TorchBackend(model=backend.model, batch_size=8, max_new_tokens=128,
                      segment_tokens=32, device="cuda")
-    total = {"prefill": 0, "decode": 0, "verify": 0, "partials": 0}
+    total = dict.fromkeys(KERNELS, 0)
     texts = {}
     for fused in (1, 4):
         reset_launches()
@@ -1978,7 +2306,7 @@ def phase_long_context(torch) -> dict:
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     model = init_model(cfg, 0, dev)
-    total = {"prefill": 0, "decode": 0, "verify": 0, "partials": 0}
+    total = dict.fromkeys(KERNELS, 0)
     texts = {}
     with tempfile.TemporaryDirectory() as tmp:
         docs = long_corpus(Path(tmp) / "corpus")
@@ -2034,7 +2362,7 @@ def phase_long_context(torch) -> dict:
                 raise AssertionError(f"{path}: batches {st.by_bucket}, expected one B=2 "
                                      f"S={max_context} group")
             need = {"prefill": n_layers * st.prefill_forwards, "decode": 0, "verify": 0,
-                    "partials": n_layers * st.decode_steps}
+                    "partials": n_layers * st.decode_steps, "gemv": 0}
             if st.decode_steps == 0 or launches != need:
                 raise AssertionError(f"{path}: launches {launches}, the path needs {need}")
             if graphs:
@@ -2176,7 +2504,8 @@ def phase_profile(torch) -> None:
     """Where the main path's time goes, at the map batch's shape (B=8,
     S=4096, int8 cache of the spec path's C = 4096 + 128 + 9) for one
     prefill forward, one decode step (eager, then the engine's step
-    function replayed as a captured CUDA graph, from fill 4096) and one
+    function replayed as a captured CUDA graph, from fill 4096, then the
+    same captured step on the model's int8 copy, [int8] (f)) and one
     verify step (Sq=9 at fill 4160, through K3), and at path (c)'s (B=2, a
     bf16 prefill cache of 32768 slots, pads 0 and 12000, the decode cache
     at its 65th slot) for one long decode step, eager and captured: the
@@ -2185,7 +2514,9 @@ def phase_profile(torch) -> None:
     (torch.profiler), the card's SM clock, power draw and clock-limit
     reasons (nvidia-smi) during a run, and the kernels that take most of
     the time. In one replay of each captured step the trace must show
-    exactly one K2 (or K2p) kernel of each pass per layer."""
+    exactly one K2 (or K2p) kernel of each pass per layer, and the int8
+    step's 197 GEMV kernels (7 a layer and the head), whose device time it
+    logs."""
     from torch.profiler import ProfilerActivity, profile
 
     from vnsum_tpu_torch.backend.capture import CapturedStep, decode_buffers, warm_up
@@ -2199,6 +2530,7 @@ def phase_profile(torch) -> None:
         prefill_positions,
         verify_positions,
     )
+    from vnsum_tpu_torch.models.quant import quantize_model
     from vnsum_tpu_torch.ops.decode_attention import flash_decode_attention
     from vnsum_tpu_torch.ops.flash_attention import flash_prefill_attention
     from vnsum_tpu_torch.ops.verify_attention import flash_spec_verify_attention
@@ -2252,6 +2584,19 @@ def phase_profile(torch) -> None:
     def captured_decode():
         graphs["decode"].replay()
 
+    def int8_setup():
+        """[int8] (f): the same captured step on the model's int8 copy."""
+        engine = TorchBackend(model=quantize_model(model), batch_size=B, max_new_tokens=128,
+                              device="cuda")
+        buffers = decode_buffers(
+            tokens[:, -1].clone(), torch.zeros(B, dtype=torch.bool, device=dev), 128, 0)
+        gen = GenerationConfig()
+        graphs["int8"] = capture(engine._decode_step(
+            buffers, cache, pads, S, S + 128 + 9, gen, 0, engine._sampling_setup(gen)), 0)
+
+    def captured_int8_decode():
+        graphs["int8"].replay()
+
     long = {}
 
     def long_setup():
@@ -2281,10 +2626,13 @@ def phase_profile(torch) -> None:
     with torch.inference_mode():
         for name, fn, n in (("prefill forward", prefill, 2), ("decode step", decode, 10),
                             ("captured decode step", captured_decode, 10),
+                            ("captured int8 decode step", captured_int8_decode, 10),
                             ("verify step", verify, 10), ("long decode step", long_decode, 10),
                             ("captured long decode step", captured_long_decode, 10)):
             if fn is captured_decode:
                 captured_setup()
+            if fn is captured_int8_decode:
+                int8_setup()
             if fn is long_decode:
                 # the map batch's cache makes room for the long one
                 graphs.clear()
@@ -2314,7 +2662,7 @@ def phase_profile(torch) -> None:
                 fn()
                 torch.cuda.synchronize()
             by_kernel: dict[str, float] = {}
-            count = 0
+            count = gemv_count = 0
             passes = {"flash_decode_split_kernel": 0, "flash_decode_merge_kernel": 0}
             for evt in prof.events():
                 if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -2323,17 +2671,25 @@ def phase_profile(torch) -> None:
                     by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + us
                     for k in passes:
                         passes[k] += k in evt.name
+                    gemv_count += "int8_gemv_kernel" in evt.name
             busy = sum(by_kernel.values()) / 1e3
+            gemv_ms = sum(v for k, v in by_kernel.items() if "int8_gemv_kernel" in k) / 1e3
             top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-            if fn in (captured_decode, captured_long_decode) and (
+            if fn in (captured_decode, captured_int8_decode, captured_long_decode) and (
                     passes != dict.fromkeys(passes, cfg.n_layers)):
                 raise AssertionError(
                     f"{name}: one replay's trace shows {count} device ops and the decode "
                     f"kernel's passes {passes}, expected {cfg.n_layers} of each")
+            want_gemv = 7 * cfg.n_layers + 1 if fn is captured_int8_decode else 0
+            if gemv_count != want_gemv:
+                raise AssertionError(f"{name}: the trace shows {gemv_count} int8 GEMV "
+                                     f"kernels, expected {want_gemv}")
             busy_txt = (f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}% of wall)"
                         if count else "device busy not measured (no device events)")
+            gemv_txt = (f", int8 GEMV {gemv_count} kernels {gemv_ms:.3f} ms of device time"
+                        if gemv_count else "")
             log(f"[profile] {name}: first call {first:.3f} ms, then wall {wall:.3f} ms, "
-                f"{busy_txt}, {count} device ops, decode kernel passes {passes}; "
+                f"{busy_txt}, {count} device ops, decode kernel passes {passes}{gemv_txt}; "
                 f"card (SM clock, power, limit reasons) {card}; top: "
                 + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
     del model, long, graphs
@@ -2352,10 +2708,13 @@ def main() -> int:
     phase_environment(torch)
     phase_build()
     errs = phase_correctness(torch)
+    phase_w8a8(torch)
     phase_mutants(len(CHECKED))
     timing = phase_timing(torch, errs)
     time_evaluation()
     launches, plain_summaries = phase_pipeline(torch)
+    int8_launches = phase_int8_pipeline(torch, act=False)
+    w8a8_launches = phase_int8_pipeline(torch, act=True)
     weights_launches = phase_weights(torch, plain_summaries)
     phase_encoder(torch)
     strategy_launches = phase_strategies(torch)
@@ -2363,8 +2722,9 @@ def main() -> int:
     slot_launches = phase_slot_loop(torch, backend, prompts, oneshot)
     del backend
     long_launches = phase_long_context(torch)
-    launches = {k: launches[k] + weights_launches[k] + strategy_launches[k] + spec_launches[k]
-                + slot_launches[k] + long_launches[k] for k in launches}
+    launches = {k: launches[k] + int8_launches[k] + w8a8_launches[k] + weights_launches[k]
+                + strategy_launches[k] + spec_launches[k] + slot_launches[k] + long_launches[k]
+                for k in launches}
     phase_profile(torch)
     kernels = []
     for key, meta in KERNELS.items():

@@ -32,7 +32,7 @@ from vnsum_tpu_torch.backend import long_context as tlc
 from vnsum_tpu_torch.backend.engine import TorchBackend
 from vnsum_tpu_torch.core.config import GenerationConfig
 from vnsum_tpu_torch.models import llama as tl
-from vnsum_tpu_torch.ops import decode_attention, flash_attention, verify_attention
+from vnsum_tpu_torch.ops import decode_attention, flash_attention, int8_matmul, verify_attention
 
 from test_torch_engine import PROMPTS, record_ids
 from test_torch_models_llama import carried_weights, one_torch_thread  # noqa: F401
@@ -246,11 +246,12 @@ def test_long_attention_device_t_matches_host_t(quantized):
 @pytest.fixture
 def counters(monkeypatch):
     """Launch counters at known values, put back after the test."""
-    start = {"prefill": 5, "decode": 100, "partials": 7, "verify": 3}
+    start = {"prefill": 5, "decode": 100, "partials": 7, "verify": 3, "gemv": 11}
     monkeypatch.setattr(flash_attention, "launches", start["prefill"])
     monkeypatch.setattr(decode_attention, "launches", start["decode"])
     monkeypatch.setattr(decode_attention, "partials_launches", start["partials"])
     monkeypatch.setattr(verify_attention, "launches", start["verify"])
+    monkeypatch.setattr(int8_matmul, "launches", start["gemv"])
     return start
 
 
@@ -261,6 +262,7 @@ def test_captured_step_moves_the_counters_once_per_replay(monkeypatch, counters)
     def fake_step():  # counts as the wrappers do when Python calls them
         decode_attention.launches += 28
         verify_attention.launches += 1
+        int8_matmul.launches += 197
 
     def record(step):
         step()
@@ -268,12 +270,14 @@ def test_captured_step_moves_the_counters_once_per_replay(monkeypatch, counters)
 
     monkeypatch.setattr(capture, "record_cuda_graph", record)
     graph = capture.CapturedStep(fake_step)
-    assert graph.launches == {"prefill": 0, "decode": 28, "partials": 0, "verify": 1}
+    assert graph.launches == {"prefill": 0, "decode": 28, "partials": 0, "verify": 1,
+                              "gemv": 197}
     assert capture.read_launches() == counters
     for _ in range(3):
         graph.replay()
     assert len(replays) == graph.replays == 3
-    assert capture.read_launches() == {**counters, "decode": 100 + 3 * 28, "verify": 3 + 3}
+    assert capture.read_launches() == {**counters, "decode": 100 + 3 * 28, "verify": 3 + 3,
+                                       "gemv": 11 + 3 * 197}
 
 
 # (max_new, the step after which every row is done) -> steps the loop runs

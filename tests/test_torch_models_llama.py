@@ -154,12 +154,23 @@ def test_configs_and_rope_frequencies_match(factory):
 
 
 def test_params_from_numpy_refuses_int8_weights():
+    """What params_from_numpy still refuses of an int8 tree: a {'q', 's'}
+    leaf whose scales do not match its output channels, and an int8 leaf
+    on a norm weight (tests/test_torch_models_quant.py holds the trees it
+    accepts)."""
     jcfg = jl.tiny_llama()
     qtree = jax.tree.map(
         np.asarray, quantize_params(jl.init_params(jax.random.key(0), jcfg))
     )
-    with pytest.raises(NotImplementedError, match="int8"):
-        tl.params_from_numpy(qtree, tl.tiny_llama(), device="cpu")
+    wrong_scales = {**qtree, "layers": {**qtree["layers"], "wq": {
+        "q": qtree["layers"]["wq"]["q"], "s": qtree["layers"]["wq"]["s"][:, :, :-1]}}}
+    with pytest.raises(ValueError, match="output channels"):
+        tl.params_from_numpy(wrong_scales, tl.tiny_llama(), device="cpu")
+    norm = qtree["layers"]["attn_norm"]
+    int8_norm = {**qtree, "layers": {**qtree["layers"], "attn_norm": {
+        "q": np.ones(norm.shape, np.int8), "s": np.ones(norm.shape[:1], np.float32)}}}
+    with pytest.raises(ValueError, match="only matmul weights"):
+        tl.params_from_numpy(int8_norm, tl.tiny_llama(), device="cpu")
 
 
 def test_init_model_is_seeded():

@@ -41,6 +41,7 @@ FLAG_SETS = {
     "budgets": ["--token-max", "1500", "--max-new-tokens", "64", "--max-context", "8192",
                 "--chunk-size", "90", "--max-samples", "3", "--batch-size", "4"],
     "checkpoints": ["--weights-dir", "ckpt/llama", "--embedding-dir", "ckpt/minilm"],
+    "quantize": ["--quantize", "--quantize-act"],
 }
 
 
@@ -57,9 +58,9 @@ def test_approaches_match_jax():
     assert APPROACHES == JAX_APPROACHES
     assert set(STRATEGY_REGISTRY) == set(JAX_REGISTRY) == set(APPROACHES)
     assert {f.name for f in dataclasses.fields(JaxPipelineConfig)} - set(COMMON) >= {
-        "backend", "mesh_shape", "quantize"}
+        "backend", "mesh_shape"}
     assert {"iterative_chunk_size", "iterative_chunk_overlap", "max_critique_iterations",
-            "max_depth", "tree_json_path"} <= set(COMMON)
+            "max_depth", "tree_json_path", "quantize", "quantize_act"} <= set(COMMON)
 
 
 @pytest.mark.parametrize("approach", JAX_APPROACHES)

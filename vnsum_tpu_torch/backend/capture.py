@@ -28,7 +28,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..ops import decode_attention, flash_attention, verify_attention
+from ..ops import decode_attention, flash_attention, int8_matmul, verify_attention
 
 # decode steps between host reads of the all-done flag (each read syncs)
 DONE_CHECK_INTERVAL = 16
@@ -39,6 +39,7 @@ _COUNTERS = {
     "decode": (decode_attention, "launches"),
     "partials": (decode_attention, "partials_launches"),
     "verify": (verify_attention, "launches"),
+    "gemv": (int8_matmul, "launches"),
 }
 
 

@@ -32,12 +32,19 @@ Two more paths run on the verify kernel:
   slots at different generation depths decode together, with per-row step
   counters, and freed slots are refilled from new prompts.
 
+``quantize=True`` runs int8 weights (``models/quant.py``): every
+projection and the LM head of a forward with at most 128 rows (decode, the
+verify forward, the slot segment, a ``last_only`` head) goes through the
+int8-weight GEMV kernel (``ops/int8_matmul.py``), a prefill through a
+dequantized ``torch.matmul``; ``quantize_act=True`` adds W8A8 prefill.
+
 Not ported yet: the prefix cache (``cache_hints`` are accepted and unused,
 as in the JAX engine with no cache configured), the continuous scheduler,
-meshes, ``score_choices``, int8 weights and W8A8.
+meshes and ``score_choices``.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
 
@@ -58,6 +65,7 @@ from ..models.llama import (
     verify_attention_mask,
     verify_positions,
 )
+from ..models.quant import quantize_model
 from ..models.sampling import draft_acceptance_rows, row_seed, sample_logits_rows
 from ..ops.decode_attention import flash_decode_attention
 from ..ops.flash_attention import flash_prefill_attention, supports_flash
@@ -166,6 +174,8 @@ class TorchBackend:
         generation: GenerationConfig | None = None,
         seed: int = 0,
         flash: str | bool = "auto",
+        quantize: bool = False,
+        quantize_act: bool = False,
         quantize_kv: str | bool = "auto",
         prefill_chunk_tokens: int = 0,
         segment_tokens: int = 128,
@@ -174,6 +184,16 @@ class TorchBackend:
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = model.cfg if model is not None else (model_config or llama32_3b())
+        if quantize_act:
+            # W8A8 prefill (models/llama.py): s8 x s8 products on multi-token
+            # forwards. Lossy (per-token activation rounding) and meaningless
+            # without int8 weights
+            if not quantize:
+                raise ValueError(
+                    "quantize_act (W8A8 prefill) requires quantize=True — "
+                    "without int8 weights there is no s8xs8 matmul to run"
+                )
+            self.cfg = dataclasses.replace(self.cfg, w8a8_prefill=True)
         on_card = self.device.type == "cuda"
         # the kernels: on by default on the card; CPU callers pass
         # flash=True explicitly and get the kernels' plain versions
@@ -231,6 +251,14 @@ class TorchBackend:
             logger.info("initialized random params in %.1fs", time.time() - t0)
         elif model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
+        # int8 weights before any CUDA graph is recorded, so the graphs hold
+        # the int8 buffers; a model given already quantized is kept
+        if quantize and not model.quantized:
+            t0 = time.time()
+            model = quantize_model(model, self.cfg)
+            logger.info("int8-quantized params in %.1fs", time.time() - t0)
+        elif model.cfg != self.cfg:
+            model = LlamaModel(self.cfg, model.tree())
         self.model = model
 
     # -- pieces of one generation batch -----------------------------------

@@ -29,8 +29,13 @@ replays the step as a captured CUDA graph (``backend/capture.py``); above
 one rank it stays eager, since the all-reduces are not captured. Every rank
 computes the same tokens.
 
-Not ported yet: int8 weights (``models/quant.py``), the ``data`` and
-``model`` mesh axes, and the pipeline CLI's multi-rank launch.
+``quantize=True`` runs int8 weights (``models/quant.py``), as the JAX
+backend does: the long decode's projections and LM head (B rows) go through
+the int8-weight GEMV kernel, the prefill's through a dequantized
+``torch.matmul``.
+
+Not ported yet: the ``data`` and ``model`` mesh axes, and the pipeline
+CLI's multi-rank launch.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from ..models.llama import (
     prefill_positions,
     quantize_kv,
 )
+from ..models.quant import quantize_model
 from ..models.sampling import row_seed, sample_logits_rows
 from ..ops.decode_attention import flash_decode_partials
 from ..ops.flash_attention import NEG, flash_prefill_attention
@@ -334,6 +340,7 @@ class TorchLongContextBackend:
         max_total_tokens: int | None = None,
         generation: GenerationConfig | None = None,
         seed: int = 0,
+        quantize: bool = False,
         quantize_kv: bool = False,
         cuda_graphs: str | bool = "auto",
         device="cuda",
@@ -378,6 +385,8 @@ class TorchLongContextBackend:
             )
         elif model.device != self.device:
             raise ValueError(f"model lives on {model.device}, backend on {self.device}")
+        if quantize and not model.quantized:
+            model = quantize_model(model)
         self.model = model
 
     def _bucket(self, n: int) -> int:

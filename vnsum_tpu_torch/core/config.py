@@ -1,11 +1,11 @@
 """Typed configuration for the pipeline and strategies.
 
 Copy of ``vnsum_tpu/core/config.py`` cut to what the port runs today: the
-six approaches, with speculative decoding, HF checkpoints and the
-embedding metrics. Knob names and defaults are the JAX package's
-(themselves the reference's, run_full_evaluation_pipeline.py: 973-1027);
-meshes, the long-context launch, int8 weights and the LLM judge return with
-the slices that port them.
+six approaches, with speculative decoding, HF checkpoints, int8 weights
+(and W8A8 prefill) and the embedding metrics. Knob names and defaults are
+the JAX package's (themselves the reference's,
+run_full_evaluation_pipeline.py: 973-1027); meshes, the long-context launch
+and the LLM judge return with the slices that port them.
 """
 from __future__ import annotations
 
@@ -109,6 +109,14 @@ class PipelineConfig:
     tokenizer: str = "byte"  # byte | hf:<name-or-path>
     # prefill in slices of this many tokens (0 = whole prompt)
     prefill_chunk_tokens: int = 0
+    # int8 weight-only quantization (per-output-channel scales, exact with
+    # respect to the int8 weights; models/quant.py). The decode step reads
+    # every weight once, so this halves its weight bytes
+    quantize: bool = False
+    # W8A8 prefill: ALSO int8-quantize activations (per-token absmax) into
+    # the prefill matmuls, s8 x s8 products. Lossy (activation rounding
+    # ~1/127 per matmul input), so off by default. Requires quantize=True
+    quantize_act: bool = False
     # parameter dtype of the model (a torch dtype name)
     dtype: str = "bfloat16"
     # local HF checkpoint dir (config.json + safetensors + tokenizer); when
@@ -133,6 +141,11 @@ class PipelineConfig:
                 "weights_dir points at ONE checkpoint; with multiple models "
                 "every entry would silently run the same weights — run one "
                 "model per weights_dir"
+            )
+        if self.quantize_act and not self.quantize:
+            raise ValueError(
+                "quantize_act (W8A8 prefill) requires quantize=True — "
+                "without int8 weights there is no s8xs8 matmul to run"
             )
 
     def to_dict(self) -> dict:

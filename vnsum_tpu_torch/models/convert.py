@@ -313,7 +313,11 @@ def save_hf_checkpoint(
     :func:`load_hf_checkpoint`: ``config.json``, one bf16 safetensors shard
     per ``shard_layers`` layers plus one for the embeddings and norms, and
     ``model.safetensors.index.json``. Returns the index it wrote. Each
-    shard is made on the host one layer group at a time."""
+    shard is made on the host one layer group at a time. An int8 model
+    raises: HF checkpoints hold the float weights."""
+    if model.quantized:
+        raise ValueError("save_hf_checkpoint writes float weights; this model holds int8 "
+                         "ones (save the model it was quantized from)")
     if cfg.qk_norm:
         arch, mtype = ["Qwen3ForCausalLM"], "qwen3"
     else:

@@ -11,7 +11,12 @@ Python loop over layers that indexes the stacks (views, no copies).
 - a preallocated stacked KV cache ``[L, B, KV, C, hd]``, bf16, or int8 with
   per-(token, head) f32 scales. Unlike the JAX package, whose arrays are
   immutable, the port writes each layer's new K/V into the cache IN PLACE;
-- bf16 storage and matmuls, f32 norms, softmax and logits.
+- bf16 storage and matmuls, f32 norms, softmax and logits;
+- int8 matmul weights with per-output-channel f32 scales (``models/quant.py``,
+  built by ``quantize_model`` or carried from a JAX ``quantize_params``
+  tree by :func:`params_from_numpy`), held in the stored layout ``[L, N, K]``
+  and multiplied by ``ops/int8_matmul.py``: the int8-weight GEMV kernel on
+  small-M forwards, W8A8 prefill with ``w8a8_prefill``.
 
 ``forward`` takes a ``stacked_attention_fn(q, cache, layer_idx)`` that reads
 the whole stacked cache (the prefill and decode kernels); without one it runs
@@ -26,6 +31,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.int8_matmul import int8_head, int8_linear
+from .quant import _CONTRACT_AXES, stored_shapes, to_stored
 
 
 @dataclass(frozen=True)
@@ -52,6 +60,9 @@ class LlamaConfig:
     # Qwen3-style per-head RMSNorm on Q/K before RoPE
     qk_norm: bool = False
     dtype: torch.dtype = torch.bfloat16
+    # W8A8 prefill (int8 weights only): multi-token forwards at one write
+    # slot also quantize activations per token into an s8 x s8 product
+    w8a8_prefill: bool = False
 
     @property
     def q_per_kv(self) -> int:
@@ -127,14 +138,33 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> 
 
 class LlamaModel(nn.Module):
     """The decoder. Holds the stacked parameters of :func:`init_params` or
-    :func:`params_from_numpy` (frozen: the port does inference only)."""
+    :func:`params_from_numpy` (frozen: the port does inference only).
+
+    A matmul weight may instead be an int8 ``{"q", "s"}`` leaf in the
+    stored layout of ``models/quant.py``: ``q`` is kept as int8 and ``s``
+    as f32 (in ``scales``, under the weight's name), never cast to the
+    model dtype."""
 
     def __init__(self, cfg: LlamaConfig, tree: dict) -> None:
         super().__init__()
         self.cfg = cfg
         shapes = _param_shapes(cfg)
+        self.scales = nn.ParameterDict()
 
         def param(name, t, shape):
+            if isinstance(t, dict):
+                if name not in _CONTRACT_AXES and name not in ("embed", "lm_head"):
+                    raise ValueError(f"{name}: only matmul weights may be int8")
+                q_shape, s_shape = stored_shapes(name, shape)
+                q, s = t["q"], t["s"]
+                if q.dtype != torch.int8 or tuple(q.shape) != q_shape:
+                    raise ValueError(f"{name}: int8 values {q.dtype} {tuple(q.shape)}, "
+                                     f"expected int8 {q_shape}")
+                if s.dtype != torch.float32 or tuple(s.shape) != s_shape:
+                    raise ValueError(f"{name}: scales {s.dtype} {tuple(s.shape)}, "
+                                     f"expected float32 {s_shape}")
+                self.scales[name] = nn.Parameter(s, requires_grad=False)
+                return nn.Parameter(q, requires_grad=False)
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
             return nn.Parameter(t.to(cfg.dtype), requires_grad=False)
@@ -155,6 +185,23 @@ class LlamaModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def quantized(self) -> bool:
+        return "embed" in self.scales
+
+    def tree(self) -> dict:
+        """The parameters as a tree that builds this model again (int8
+        leaves as stored-layout ``{"q", "s"}``), sharing the tensors."""
+
+        def leaf(name, t):
+            return {"q": t.data, "s": self.scales[name].data} if name in self.scales else t.data
+
+        out = {"embed": leaf("embed", self.embed), "final_norm": self.final_norm.data,
+               "layers": {k: leaf(k, v) for k, v in self.layers.items()}}
+        if self.lm_head is not None:
+            out["lm_head"] = leaf("lm_head", self.lm_head)
+        return out
 
     # hot path
     def forward(
@@ -181,7 +228,7 @@ class LlamaModel(nn.Module):
         cfg = self.cfg
         if stacked_attention_fn is None and mask is None:
             raise ValueError("dense attention needs a mask")
-        x = F.embedding(tokens.long(), self.embed)
+        x = embed_lookup(self.embed, self.scales.get("embed"), tokens, cfg.dtype)
         cos, sin = rope_cos_sin(cfg, positions)
         if torch.is_tensor(write_index):
             # the per-row slots, once for every layer's K/V (and scales)
@@ -195,20 +242,30 @@ class LlamaModel(nn.Module):
         if last_only:
             x = x[:, -1:, :]
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
-        if cfg.tie_embeddings:
-            return lm_head_logits(x, self.embed, transposed=True)
-        return lm_head_logits(x, self.lm_head, transposed=False)
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        return lm_head_logits(x, getattr(self, name), transposed=cfg.tie_embeddings,
+                              scale=self.scales.get(name))
 
     def _block(self, x, li, cos, sin, mask, cache, write_index, stacked_fn):
         cfg = self.cfg
         p = self.layers
         B, S, D = x.shape
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        # W8A8 only on multi-token forwards at one write slot (prefill): a
+        # decode step, the spec verify forward and the slot segment (per-row
+        # slots) stay on the exact int8-weight path, as in the JAX package
+        aq = cfg.w8a8_prefill and S > 1 and not isinstance(write_index, tuple)
+
+        def proj(t, name):
+            s = self.scales.get(name)
+            if s is None:  # [K, ...] bf16 in the JAX layout
+                return torch.matmul(t, p[name][li].reshape(t.shape[-1], -1))
+            return int8_linear(t, p[name][li], s[li], aq)
 
         h = rmsnorm(x, p["attn_norm"][li], cfg.norm_eps)
-        q = torch.matmul(h, p["wq"][li].reshape(D, H * hd)).view(B, S, H, hd)
-        k = torch.matmul(h, p["wk"][li].reshape(D, KV * hd)).view(B, S, KV, hd)
-        v = torch.matmul(h, p["wv"][li].reshape(D, KV * hd)).view(B, S, KV, hd)
+        q = proj(h, "wq").view(B, S, H, hd)
+        k = proj(h, "wk").view(B, S, KV, hd)
+        v = proj(h, "wv").view(B, S, KV, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, p["q_norm"][li], cfg.norm_eps)
             k = rmsnorm(k, p["k_norm"][li], cfg.norm_eps)
@@ -232,29 +289,50 @@ class LlamaModel(nn.Module):
         else:
             k_c, v_c = dequantize_cache_layer(cache, li)
             attn = attention(q, k_c.to(q.dtype), v_c.to(q.dtype), mask, cfg.q_per_kv)
-        x = x + torch.matmul(attn.reshape(B, S, H * hd), p["wo"][li].reshape(H * hd, D))
+        x = x + proj(attn.reshape(B, S, H * hd), "wo")
 
         h = rmsnorm(x, p["mlp_norm"][li], cfg.norm_eps)
-        gate = torch.matmul(h, p["w_gate"][li])
-        up = torch.matmul(h, p["w_up"][li])
-        return x + torch.matmul(F.silu(gate) * up, p["w_down"][li])
+        gate = proj(h, "w_gate")
+        up = proj(h, "w_up")
+        return x + proj(F.silu(gate) * up, "w_down")
 
 
 def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> LlamaModel:
     """Build the port's model from a JAX parameter tree converted to numpy
-    (``jax.tree.map(np.asarray, params)``), leaf for leaf. Int8-quantized
-    ``{"q", "s"}`` leaves are not supported yet."""
+    (``jax.tree.map(np.asarray, params)``), leaf for leaf. Int8 ``{"q",
+    "s"}`` leaves of the JAX package's ``quantize_params`` go into the
+    stored layout (``models/quant.py``), their values int8 and their scales
+    f32; a malformed one (an int8 norm, values that are not int8, scales
+    that do not match the weight's output channels) raises ValueError."""
+    shapes = _param_shapes(cfg)
+    shapes.update(shapes["layers"])
 
-    def conv(name, a):
-        if isinstance(a, dict):
-            raise NotImplementedError(
-                f"{name}: int8-quantized weights ({{'q', 's'}} leaves) are not ported yet"
-            )
+    def array(a):
         arr = np.asarray(a)
         if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: go through f32, exactly
             arr = arr.astype(np.float32)
         # np.array copies: the model never aliases the caller's buffers
-        return torch.from_numpy(np.array(arr)).to(device=device, dtype=cfg.dtype)
+        return torch.from_numpy(np.array(arr)).to(device=device)
+
+    def conv(name, a):
+        if not isinstance(a, dict):
+            return array(a).to(cfg.dtype)
+        if name not in _CONTRACT_AXES and name not in ("embed", "lm_head"):
+            raise ValueError(f"{name}: an int8 {{'q', 's'}} leaf, but only matmul weights "
+                             "are quantized")
+        if set(a) != {"q", "s"}:
+            raise ValueError(f"{name}: an int8 leaf has keys {sorted(a)}, expected ['q', 's']")
+        q, s = np.asarray(a["q"]), np.asarray(a["s"])
+        want = tuple(shapes.get(name, q.shape))
+        axes = (1,) if name == "embed" else (0,) if name == "lm_head" else tuple(
+            ax + 1 for ax in _CONTRACT_AXES[name])
+        channels = tuple(d for i, d in enumerate(want) if i not in axes)
+        if q.dtype != np.int8 or q.shape != want:
+            raise ValueError(f"{name}: int8 values {q.dtype} {q.shape}, expected int8 {want}")
+        if s.shape != channels:
+            raise ValueError(f"{name}: scales of shape {s.shape} do not match its output "
+                             f"channels {channels}")
+        return to_stored(name, {"q": array(q), "s": array(s).float()})
 
     out = {k: conv(k, v) for k, v in tree.items() if k != "layers"}
     out["layers"] = {k: conv(k, v) for k, v in tree["layers"].items()}
@@ -356,13 +434,27 @@ def dequantize_cache_layer(cache: dict, layer_idx: int):
 # -- building blocks --------------------------------------------------------
 
 
-def lm_head_logits(x: torch.Tensor, w: torch.Tensor, *, transposed: bool) -> torch.Tensor:
+def embed_lookup(embed: torch.Tensor, scale, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows of the embedding; an int8 one (``scale`` [V]) gathers rows and
+    scales, multiplies them in f32 and casts to ``dtype``."""
+    if scale is None:
+        return F.embedding(tokens.long(), embed)
+    idx = tokens.long()
+    return (embed[idx].float() * scale[idx][..., None]).to(dtype)
+
+
+def lm_head_logits(x: torch.Tensor, w: torch.Tensor, *, transposed: bool,
+                   scale: torch.Tensor | None = None) -> torch.Tensor:
     """Final projection with f32 logits. ``transposed``: w is [V, D] (the
     tied embedding), else [D, V]. A bf16 model on the card multiplies in
-    bf16 with an f32 result, as the JAX package's preferred_element_type."""
+    bf16 with an f32 result, as the JAX package's preferred_element_type.
+    An int8 head (``scale`` [V]) is stored [V, D] either way: the f32
+    product times the scale (``ops/int8_matmul.int8_head``)."""
     B, S, D = x.shape
-    wm = w.t() if transposed else w
     x2 = x.reshape(B * S, D)
+    if scale is not None:
+        return int8_head(x2, w, scale).view(B, S, -1)
+    wm = w.t() if transposed else w
     if x.dtype == torch.float32:
         y = torch.matmul(x2, wm.float())
     elif x.is_cuda:

@@ -9,6 +9,9 @@
 ``mapreduce_hierarchical`` reads its trees from ``--tree-json`` (plain text
 where a document has none) and collapses down from ``--max-depth``.
 
+``--quantize`` runs int8 weights (the int8-weight GEMV kernel on every
+small-batch forward); ``--quantize-act`` adds W8A8 prefill.
+
 ``--weights-dir`` loads a local HF checkpoint (and its tokenizer) in place
 of the registry's random weights; ``--embedding-dir`` scores BERTScore and
 the sentence cosine with a local HF BERT-family checkpoint in place of a
@@ -51,6 +54,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--tokenizer", default="byte", help="byte or hf:<name-or-path>")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--quantize", action="store_true",
+        help="int8 weight-only quantization (halves the decode step's weight "
+        "bytes); the KV cache quantizes whenever the attention kernels run, "
+        "independent of this flag",
+    )
+    p.add_argument(
+        "--quantize-act", action="store_true",
+        help="W8A8 prefill: int8-quantize activations (per-token absmax) into "
+        "the int8-weight prefill matmuls. LOSSY (activation rounding); A/B "
+        "against --quantize alone for quality runs. Requires --quantize",
+    )
     p.add_argument(
         "--weights-dir", default=None,
         help="local HF checkpoint dir (config.json + safetensors + tokenizer), "
@@ -114,6 +129,8 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         tree_json_path=args.tree_json,
         max_depth=args.max_depth,
         weights_dir=args.weights_dir,
+        quantize=args.quantize,
+        quantize_act=args.quantize_act,
         **{
             k: v
             for k, v in overrides.items()

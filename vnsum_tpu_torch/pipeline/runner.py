@@ -5,7 +5,8 @@ analysis → per model, summarization with resume-by-file → evaluation
 (ROUGE, sentence cosine, BERTScore) → report → results JSON. Documents go
 to the strategy in groups, so every LLM call of a round shares device
 batches. The model is a registry config with random weights, or an HF
-checkpoint (``weights_dir``); the LLM judge is not ported yet.
+checkpoint (``weights_dir``), either with int8 weights (``quantize``, and
+W8A8 prefill with ``quantize_act``); the LLM judge is not ported yet.
 
 Failure containment differs from the JAX package in one way: device errors
 (``RuntimeError``) are never retried (core/faults.py), and
@@ -72,6 +73,8 @@ class PipelineRunner:
             batch_size=cfg.batch_size,
             max_new_tokens=cfg.max_new_tokens,
             prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+            quantize=cfg.quantize,
+            quantize_act=cfg.quantize_act,
             device=self.device,
         )
 
