@@ -37,9 +37,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    512-query slices (its first 512 queries see no key and must be 0);
    [int8] (a): the int8-weight GEMV at every int8 matmul shape of
    Llama-3.2-3B (wq/wo 3072 x 3072, wk/wv 1024 x 3072, w_gate/w_up 8192 x
-   3072, w_down 3072 x 8192, the tied head 128256 x 3072 in head mode) at
-   M = 1, 2, 8 and 72 rows, against its plain version and a float64
-   reckoning of the same formula (GEMV_RTOL); [int8] (b), after phase 3:
+   3072, w_down 3072 x 8192, the tied head 128256 x 3072 in head mode) and
+   at its two grouped launches (q/k/v: 3072 + 1024 + 1024 channels;
+   gate/up: 8192 + 8192) at M = 1, 2, 8 and 72 rows, against its plain
+   version and a float64 reckoning of the same formula (GEMV_RTOL), and
+   one case run twice that must give the same bits; [int8] (b), after phase 3:
    W8A8's s8 x s8 product (torch._int_mm) at a prefill's shape equals the
    CPU's int32 product bit for bit;
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
@@ -47,7 +49,8 @@ Phases, each raising on failure (so any failure exits non-zero):
    have two more: the merge of the splits leaving out the fill's split, and
    the in-block merge leaving out the last warp's share of o; K1 one: its
    consumers reading the ring stage that TMA did not fill; the GEMV: a
-   neighbouring channel's scale, the last 16-byte K chunk dropped), must fail
+   neighbouring channel's scale, the last 16 bytes of K dropped, its
+   consumers reading the next stage of the ring), must fail
    every case of that kernel in phase 3 and no other, so the limits are
    shown to be tight enough to see such a fault. K2 and K2p are the two
    modes of one source and share both its passes, so the two count as one
@@ -67,12 +70,14 @@ Phases, each raising on failure (so any failure exits non-zero):
    at the long path's shape (B=2, C=32768, bf16 and int8), whose library
    call is scaled_dot_product_attention on the same cache expanded to 24
    heads, computing the normalised output (no public torch call returns
-   the partials); [int8] (e): the GEMV at each shape of a decode step on
-   the map batch (M = 8), 28 layers of weights in turn, from CUDA graph
-   replays: kernel, bound (its int8 weight and scales at 3.35 TB/s),
-   plain version and library call (torch.matmul against the same weight
-   in bf16, what the bf16 model pays); the kernels line takes one decode
-   step's 197 calls;
+   the partials); [int8] (e): the GEMV at each shape of phase 3 (the
+   single weights and the two grouped launches) at M = 1, 2, 8 and 72, 28
+   layers of weights in turn, from CUDA graph replays: kernel, bound (its
+   int8 weights and scales at 3.35 TB/s), the library calls
+   (torch.matmul against the same weights in bf16, what the bf16 model
+   pays, and torch._weight_int8pack_mm where the installed torch runs it
+   on the card) and, at M = 8, the plain version; the kernels line takes
+   one decode step's 113 calls at M = 8;
 6. pipeline: the port's CLI runs map-reduce over data/vi_eval with
    Llama-3.2-3B at full width and depth (random bf16 weights from a seed),
    its greedy decode steps replayed as captured CUDA graphs: every document
@@ -85,8 +90,9 @@ Phases, each raising on failure (so any failure exits non-zero):
    byte-identical summaries; [int8] (c) and (d): the same with --quantize
    and with --quantize --quantize-act (W8A8 prefill), the weights quantized
    on the card: K1 = 28 x prefill forwards, K2 = 28 x decode steps and GEMV
-   launches = 197 x decode steps + one per prefill forward (its head; and
-   196 more where B x S <= 128 without W8A8) exactly, K2p = K3 = 0, and
+   launches = 113 x decode steps (q/k/v, wo, gate/up and w_down a layer,
+   and the head) + one per prefill forward (its head; and 112 more where
+   B x S <= 128 without W8A8) exactly, K2p = K3 = 0, and
    summaries byte-identical to an eager run;
 6b. weights: the pipeline phase's own weights (init_model(llama32_3b(), 0))
    written as an HF checkpoint (save_hf_checkpoint: 28 layers in four bf16
@@ -160,7 +166,7 @@ Phases, each raising on failure (so any failure exits non-zero):
    run, and the kernels that take most of the time; one replay of each
    captured step must show 28 K2 (K2p) kernels of each pass in the trace;
    [int8] (f): the captured decode step on the same model's int8 copy, its
-   197 GEMV kernels and their device time.
+   113 GEMV kernels and their device time.
 
 Every PipelineRunner and CLI run (pipeline, eager control, weights,
 strategies, spec, long context) must report finite sentence cosine (mean,
@@ -262,14 +268,18 @@ ENCODER_ATOL = 1e-4
 #   other neighbour each time: two bf16 ulps, at most 2^-6 of the output.
 #   Per element: 2^-6 |ref| + 1e-6 sum_k |x q| s; the head mode (f32 out,
 #   no rounding) 1e-6 sum_k |x q| s. The planted faults (a neighbouring
-#   channel's scale, a 16-byte K chunk dropped) move outputs by tens of
-#   percent and by ~sqrt(16 / K) of their scale.
+#   channel's scale, the last 16 k dropped, a ring stage read in place of
+#   another) move outputs by tens of percent, by ~sqrt(16 / K) of their
+#   scale, and by their whole scale.
 GEMV_RTOL, GEMV_SUM_RTOL = 2.0**-6, 1e-6
 # Llama-3.2-3B's int8 matmuls (weights [N, K]) and the rows the GEMV meets:
 # decode at B = 1, 2 and 8, and the spec verify forward's 8 x 9
 GEMV_SHAPES = {"wq/wo": (3072, 3072), "wk/wv": (1024, 3072), "w_gate/w_up": (8192, 3072),
                "w_down": (3072, 8192), "head": (128256, 3072)}
 GEMV_ROWS = (1, 2, 8, 72)
+# the projections that share their input, one grouped launch each:
+# (channels of each member, K)
+GEMV_GROUPS = {"q/k/v": ((3072, 1024, 1024), 3072), "gate/up": ((8192, 8192), 3072)}
 
 # phase 4's planted faults: (what it does, kernel, source, text, replacement).
 # A fault must fail every case of its kernel's family (FAMILY) and no case
@@ -297,9 +307,14 @@ MUTANTS = (
     ("verify's in-block merge leaves out the last warp's 128 slots of o", "verify",
      "flash_verify.cu", "w < QUARTERS; ++w) acc +=", "w < QUARTERS - 1; ++w) acc +="),
     ("the GEMV scales each output channel with its neighbour's scale", "gemv",
-     "int8_gemv.cu", "const float sc = s[n];", "const float sc = s[n + 1 < N ? n + 1 : n];"),
-    ("the GEMV drops the last 16-byte K chunk of every weight row", "gemv",
-     "int8_gemv.cu", "const bool chunk = k < K;", "const bool chunk = k < K - 16;"),
+     "int8_gemv.cu", "const float sc = mb.s[n];",
+     "const float sc = mb.s[n + 1 < N ? n + 1 : n];"),
+    ("the GEMV drops the last 16 bytes of K of every row of q and x", "gemv",
+     "int8_gemv.cu", "const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),",
+     "const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K - 16),"),
+    ("the GEMV's consumers read the ring stage after the one that is full", "gemv",
+     "int8_gemv.cu", "const uint8_t *buf = ring + stage * STAGE;",
+     "const uint8_t *buf = ring + ((stage + 1) % STAGES) * STAGE;"),
 )
 FAMILY = {"decode": ("decode", "partials"), "partials": ("decode", "partials")}
 
@@ -715,44 +730,59 @@ def int8_weight(torch, N: int, K: int, seed: int, dev, layers: int = 1):
     return q, s
 
 
-def compare_gemv(torch, case, x, q, s, head, worst) -> None:
-    """Runs the GEMV on x [M, K], q [N, K], s [N] and holds its output
-    against its plain version's and against a float64 reckoning of the same
-    formula, bf16(f32(bf16(sum)) * s) or sum * s for the head, at the
-    stated limit (GEMV_RTOL, GEMV_SUM_RTOL); logs the case as ``compare``
-    does."""
+def compare_gemv(torch, case, x, members, head, worst, repeat=False) -> None:
+    """Runs the GEMV on x [M, K] and ``members`` [(q [N, K], s [N]), ...]
+    (one weight through int8_gemv, more through one int8_gemv_group
+    launch) and holds each output against its plain version's and against
+    a float64 reckoning of the same formula, bf16(f32(bf16(sum)) * s) or
+    sum * s for the head, at the stated limit (GEMV_RTOL, GEMV_SUM_RTOL);
+    with ``repeat`` the launch runs again and must give the same bits; logs
+    the case as ``compare`` does."""
     from vnsum_tpu_torch.ops import int8_matmul as im
 
-    got = im.int8_gemv(x, q, s, head)
-    want = im.int8_gemv_ref(x, q, s, head)
-    q64 = q.double()
-    y = (x.double() @ q64.t()).float()
-    reckon = y * s if head else (y.to(torch.bfloat16).float() * s).to(torch.bfloat16)
-    mag = (x.double().abs() @ q64.abs().t()) * s.double()
-    del q64
-    torch.cuda.synchronize()
-    g = got.double()
-    bad = not bool(torch.isfinite(got).all())
-    used, errs = 0.0, []
-    for label, ref in (("plain", want.double()), ("float64", reckon.double())):
-        limit = GEMV_SUM_RTOL * mag + (0.0 if head else GEMV_RTOL * ref.abs())
-        diff = (g - ref).abs()
-        bad = bad or bool((diff > limit).any())
-        used = max(used, float((diff / limit.clamp_min(1e-30)).max()))
-        errs.append(f"{label} {float(diff.max()):.3e}")
-    worst["gemv"] = max(worst["gemv"], float((g - want.double()).abs().max()))
+    def run():
+        if len(members) == 1:
+            return [im.int8_gemv(x, *members[0], head)]
+        return im.int8_gemv_group(x, members, head)
+
+    outs = run()
+    again = run() if repeat else outs
+    bad, used, errs = False, 0.0, []
+    for got, (q, s) in zip(outs, members):
+        want = im.int8_gemv_ref(x, q, s, head)
+        q64 = q.double()
+        y = (x.double() @ q64.t()).float()
+        reckon = y * s if head else (y.to(torch.bfloat16).float() * s).to(torch.bfloat16)
+        mag = (x.double().abs() @ q64.abs().t()) * s.double()
+        del q64
+        torch.cuda.synchronize()
+        g = got.double()
+        bad = bad or not bool(torch.isfinite(got).all())
+        for label, ref in (("plain", want.double()), ("float64", reckon.double())):
+            limit = GEMV_SUM_RTOL * mag + (0.0 if head else GEMV_RTOL * ref.abs())
+            diff = (g - ref).abs()
+            bad = bad or bool((diff > limit).any())
+            used = max(used, float((diff / limit.clamp_min(1e-30)).max()))
+            errs.append(f"{label} {float(diff.max()):.3e}")
+        worst["gemv"] = max(worst["gemv"], float((g - want.double()).abs().max()))
+    same = all(torch.equal(a, b) for a, b in zip(outs, again))
+    bad = bad or not same
     if bad:
         FAILED.append(case)
     CHECKED.append(case)
     log(f"[check] {case}: max|err| " + ", ".join(errs) + f"; err/limit {used:.4g}"
+        + ("; two runs bit-identical" if repeat and same else "")
+        + ("; two runs DIFFER" if not same else "")
         + (" OVER THE LIMIT" if bad else ""))
 
 
 def gemv_cases(torch, worst) -> None:
     """[int8] (a): the GEMV at every int8 matmul shape of Llama-3.2-3B
-    (GEMV_SHAPES; the tied head in head mode) and every row count of
-    GEMV_ROWS, against its plain version and a float64 reckoning of the
-    same formula: bf16(f32(bf16(sum)) * s), or sum * s for the head."""
+    (GEMV_SHAPES; the tied head in head mode) and at its two grouped
+    launches (GEMV_GROUPS), at every row count of GEMV_ROWS, against its
+    plain version and a float64 reckoning of the same formula:
+    bf16(f32(bf16(sum)) * s), or sum * s for the head; then the grouped
+    q/k/v launch at M = 8 twice, which must give the same bits."""
     dev = torch.device("cuda")
     for i, (name, (N, K)) in enumerate(GEMV_SHAPES.items()):
         q, s = int8_weight(torch, N, K, 90 + i, dev)
@@ -760,8 +790,21 @@ def gemv_cases(torch, worst) -> None:
         for M in GEMV_ROWS:
             compare_gemv(torch, f"gemv {name} N={N} K={K} M={M} "
                          f"{'head' if head else 'projection'}",
-                         rand_q(torch, (M, K), 100 + 7 * i + M, dev), q[0], s[0], head, worst)
+                         rand_q(torch, (M, K), 100 + 7 * i + M, dev), [(q[0], s[0])], head, worst)
         del q, s
+        torch.cuda.empty_cache()
+    for i, (name, (ns, K)) in enumerate(GEMV_GROUPS.items()):
+        members = [tuple(t[0] for t in int8_weight(torch, N, K, 150 + 3 * i + j, dev))
+                   for j, N in enumerate(ns)]
+        for M in GEMV_ROWS:
+            compare_gemv(torch, f"gemv {name} grouped N={'+'.join(map(str, ns))} K={K} M={M} "
+                         "projection", rand_q(torch, (M, K), 160 + 7 * i + M, dev), members,
+                         False, worst)
+        if name == "q/k/v":
+            compare_gemv(torch, f"gemv {name} grouped N={'+'.join(map(str, ns))} K={K} M=8 "
+                         "projection, run twice", rand_q(torch, (8, K), 170, dev), members,
+                         False, worst, repeat=True)
+        del members
         torch.cuda.empty_cache()
 
 
@@ -1105,58 +1148,111 @@ def graph_ms(torch, fn, n: int, reps: int = 5) -> float:
     return ms
 
 
+def int8pack_call(torch):
+    """torch._weight_int8pack_mm(x, q, s) (bf16 x [M, K], int8 q [N, K],
+    per-channel scales in x's dtype: (x q^T) s rounded once), the one public
+    PyTorch call near the GEMV's function, where the installed torch runs it
+    on the card; else None, with the reason logged. Timed only, never used
+    by the port."""
+    dev = torch.device("cuda")
+    x = rand_q(torch, (8, 256), 180, dev)
+    q, s = int8_weight(torch, 64, 256, 181, dev)
+    try:
+        got = torch._weight_int8pack_mm(x, q[0], s[0].to(torch.bfloat16))
+        torch.cuda.synchronize()
+    except (AttributeError, NotImplementedError, RuntimeError) as err:
+        log(f"[int8] torch._weight_int8pack_mm does not run on the card: "
+            f"{type(err).__name__}: {str(err).splitlines()[0][:200]}")
+        return None
+    want = (x.float() @ q[0].float().t()) * s[0]
+    err = float((got.float() - want).abs().max() / want.abs().max())
+    log(f"[int8] torch._weight_int8pack_mm runs on the card: {tuple(got.shape)} "
+        f"{got.dtype}, max|err| {err:.3e} of the largest output against the f32 product")
+    return torch._weight_int8pack_mm
+
+
 def time_gemv(torch, worst) -> dict:
-    """[int8] (e): the GEMV at each shape of a decode step on the map batch
-    (M = 8 rows; GEMV_SHAPES), 28 layers of weights called in turn so that
-    each call finds its weight cold in L2 as a decode step does (the head,
-    394 MB, is past L2 alone), each time from one replayed CUDA graph:
-    the kernel, its plain version, and the library call the bf16 model
-    pays, ``torch.matmul`` of x against the same weight in bf16. The bound
-    of a call: its int8 weight and scales read once (and x, and the output
-    written) at 3.35 TB/s; its bf16 tensor-core work is a few percent of
-    that. The returned record is one decode step's sum: 28 x (wq, wk, wv,
-    wo, w_gate, w_up, w_down) + the head. One output at each shape is held
-    to the plain version as in phase 3."""
+    """[int8] (e): the GEMV at each shape of phase 3, the single weights
+    (GEMV_SHAPES) and the grouped launches (GEMV_GROUPS), at each row count
+    of GEMV_ROWS, 28 layers of weights called in turn so that each call
+    finds its weights cold in L2 as a decode step does (the head, 394 MB,
+    is past L2 alone), each time from one replayed CUDA graph: the kernel,
+    the library calls, ``torch.matmul`` of x against the same weights in
+    bf16 (what the bf16 model pays) and torch._weight_int8pack_mm where it
+    runs (int8pack_call), one call over the members' weights side by side,
+    and at M = 8 the plain version. The bound of a call: its int8 weights
+    and scales read once (and x, and the outputs written) at 3.35 TB/s; its
+    bf16 tensor-core work is a few percent of that. The returned record is
+    one decode step's sum at M = 8: 28 x (q/k/v grouped, wo, gate/up
+    grouped, w_down) + the head, 113 calls; its library time is
+    _weight_int8pack_mm's where it runs, else bf16 torch.matmul's. One
+    output at each shape is held to the plain version as in phase 3."""
     from vnsum_tpu_torch.ops import int8_matmul as im
 
     dev = torch.device("cuda")
-    M, L = 8, 28
-    per_layer = {"wq/wo": 2, "wk/wv": 2, "w_gate/w_up": 2, "w_down": 1}
-    step = {"ms": 0.0, "plain": 0.0, "library": 0.0, "flops": 0, "bytes": 0}
-    for i, (name, (N, K)) in enumerate(GEMV_SHAPES.items()):
+    L, step_m = 28, 8
+    int8pack = int8pack_call(torch)
+    shapes = {name: ((N,), K) for name, (N, K) in GEMV_SHAPES.items()}
+    shapes.update(GEMV_GROUPS)
+    in_step = {"q/k/v": L, "wq/wo": L, "gate/up": L, "w_down": L, "head": 1}
+    step = {"ms": 0.0, "plain": 0.0, "library": 0.0, "bf16": 0.0, "flops": 0, "bytes": 0}
+    for i, (name, (ns, K)) in enumerate(shapes.items()):
         head = name == "head"
         layers = 1 if head else L
-        q, s = int8_weight(torch, N, K, 130 + i, dev, layers)
-        wb = torch.empty((layers, N, K), dtype=torch.bfloat16, device=dev)
+        offs = [sum(ns[:j]) for j in range(len(ns))]
+        qcat, scat = int8_weight(torch, sum(ns), K, 130 + i, dev, layers)
+        wb = torch.empty(qcat.shape, dtype=torch.bfloat16, device=dev)
         for li in range(layers):
-            wb[li] = (q[li].float() * s[li][:, None]).to(torch.bfloat16)
-        x = rand_q(torch, (M, K), 140 + i, dev)
-        n = 2 * layers
-        ms = graph_ms(torch, lambda j: im.int8_gemv(x, q[j % layers], s[j % layers], head), n)
-        plain = graph_ms(torch, lambda j: im.int8_gemv_ref(
-            x, q[j % layers], s[j % layers], head), layers)
-        library = graph_ms(torch, lambda j: torch.matmul(x, wb[j % layers].t()), n)
-        bytes_ = N * K + 4 * N + 2 * M * K + (4 if head else 2) * M * N
-        flops = 2 * M * N * K
-        rec = timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
-        compare_gemv(torch, f"gemv {name} N={N} K={K} M={M} (timing inputs)", x, q[-1],
-                     s[-1], head, worst)
-        calls = 1 if head else L * per_layer[name]
-        for key, val in (("ms", ms), ("plain", plain), ("library", library), ("flops", flops),
-                         ("bytes", bytes_)):
-            step[key] += calls * val
-        log(f"[time] gemv {name} N={N} K={K} M={M} ({calls} a decode step): kernel "
-            f"{ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
-            f"{rec['bound_ms'] / ms:.1%} of it), plain {plain:.4f} ms, library (bf16 "
-            f"torch.matmul) {library:.4f} ms")
-        del q, s, wb
+            wb[li] = (qcat[li].float() * scat[li][:, None]).to(torch.bfloat16)
+        s16 = scat.to(torch.bfloat16)
+
+        def members(li):
+            return [(qcat[li, o:o + N], scat[li, o:o + N]) for o, N in zip(offs, ns)]
+
+        def kernel(x, li):
+            if len(ns) == 1:
+                return im.int8_gemv(x, *members(li)[0], head)
+            return im.int8_gemv_group(x, members(li), head)
+
+        for M in GEMV_ROWS:
+            x = rand_q(torch, (M, K), 140 + 7 * i + M, dev)
+            n = 2 * layers
+            ms = graph_ms(torch, lambda j: kernel(x, j % layers), n)
+            bf16 = graph_ms(torch, lambda j: torch.matmul(x, wb[j % layers].t()), n)
+            pack = (graph_ms(torch, lambda j: int8pack(x, qcat[j % layers], s16[j % layers]), n)
+                    if int8pack else None)
+            plain = (graph_ms(torch, lambda j: [im.int8_gemv_ref(x, q, s, head)
+                                                for q, s in members(j % layers)], layers)
+                     if M == step_m else None)
+            N = sum(ns)
+            bytes_ = N * K + 4 * N + 2 * M * K + (4 if head else 2) * M * N
+            flops = 2 * M * N * K
+            rec = timing_record(ms, plain, pack if pack else bf16, flops, bytes_,
+                                PEAK_BF16_FLOPS)
+            calls = in_step.get(name, 0) if M == step_m else 0
+            if M == step_m:
+                compare_gemv(torch, f"gemv {name} N={'+'.join(map(str, ns))} K={K} M={M} "
+                             "(timing inputs)", x, members(layers - 1), head, worst)
+                for key, val in (("ms", ms), ("plain", plain), ("library", rec["library_ms"]),
+                                 ("bf16", bf16), ("flops", flops), ("bytes", bytes_)):
+                    step[key] += calls * val
+            log(f"[time] gemv {name} N={'+'.join(map(str, ns))} K={K} M={M}"
+                + (f" ({calls} a decode step)" if M == step_m else "")
+                + f": kernel {ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+                f"{rec['bound_ms'] / ms:.1%} of it), library bf16 torch.matmul {bf16:.4f} ms, "
+                + (f"_weight_int8pack_mm {pack:.4f} ms" if pack else "_weight_int8pack_mm "
+                   "not run")
+                + (f", plain {plain:.4f} ms" if plain is not None else ""))
+        del qcat, scat, wb, s16
         torch.cuda.empty_cache()
     rec = timing_record(step["ms"], step["plain"], step["library"], step["flops"],
                         step["bytes"], PEAK_BF16_FLOPS)
-    log(f"[time] gemv, one decode step's 197 calls at M={M}: kernel {rec['ms']:.4f} ms, "
-        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {step['bytes'] / 1e9:.3f} GB), "
-        f"plain {rec['plain_ms']:.4f} ms, library (bf16 torch.matmul) "
-        f"{rec['library_ms']:.4f} ms")
+    log(f"[time] gemv, one decode step's {sum(in_step.values())} calls at M={step_m}: kernel "
+        f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+        f"{step['bytes'] / 1e9:.3f} GB, {rec['bound_ms'] / rec['ms']:.1%} of it), plain "
+        f"{rec['plain_ms']:.4f} ms, library "
+        + (f"_weight_int8pack_mm {rec['library_ms']:.4f} ms, " if int8pack else "")
+        + f"bf16 torch.matmul {step['bf16']:.4f} ms")
     return rec
 
 
@@ -1500,16 +1596,17 @@ def phase_pipeline(torch) -> tuple[dict, dict]:
 
 def gemv_need(eng: dict, n_layers: int, act: bool) -> int:
     """The GEMV launches a run's engine record implies: each decode step
-    (B <= 8 rows) runs its 7 projections a layer and the head through the
-    GEMV; each prefill forward (last_only, no chunking: one a batch) its
-    head (B rows), and its projections too when B x S is within the
-    GEMV's rows, never under W8A8 (s8 x s8 products)."""
+    (B <= 8 rows) runs 4 a layer (q/k/v grouped, wo, gate/up grouped,
+    w_down) and the head through the GEMV; each prefill forward (last_only,
+    no chunking: one a batch) its head (B rows), and its projections too
+    when B x S is within the GEMV's rows, never under W8A8 (s8 x s8
+    products)."""
     from vnsum_tpu_torch.ops.int8_matmul import MAX_M
 
-    need = (7 * n_layers + 1) * eng["decode_steps"]
+    need = (4 * n_layers + 1) * eng["decode_steps"]
     for bucket, n in eng["by_bucket"].items():
         B, S = (int(part.split("=")[1]) for part in bucket.split(","))
-        need += n * (1 + (0 if act or B * S > MAX_M else 7 * n_layers))
+        need += n * (1 + (0 if act or B * S > MAX_M else 4 * n_layers))
     return need
 
 
@@ -2515,7 +2612,7 @@ def phase_profile(torch) -> None:
     reasons (nvidia-smi) during a run, and the kernels that take most of
     the time. In one replay of each captured step the trace must show
     exactly one K2 (or K2p) kernel of each pass per layer, and the int8
-    step's 197 GEMV kernels (7 a layer and the head), whose device time it
+    step's 113 GEMV kernels (4 a layer and the head), whose device time it
     logs."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2680,7 +2777,7 @@ def phase_profile(torch) -> None:
                 raise AssertionError(
                     f"{name}: one replay's trace shows {count} device ops and the decode "
                     f"kernel's passes {passes}, expected {cfg.n_layers} of each")
-            want_gemv = 7 * cfg.n_layers + 1 if fn is captured_int8_decode else 0
+            want_gemv = 4 * cfg.n_layers + 1 if fn is captured_int8_decode else 0
             if gemv_count != want_gemv:
                 raise AssertionError(f"{name}: the trace shows {gemv_count} int8 GEMV "
                                      f"kernels, expected {want_gemv}")

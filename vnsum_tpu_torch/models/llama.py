@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.int8_matmul import int8_head, int8_linear
+from ..ops.int8_matmul import int8_head, int8_linear, int8_linear_group
 from .quant import _CONTRACT_AXES, stored_shapes, to_stored
 
 
@@ -262,10 +262,18 @@ class LlamaModel(nn.Module):
                 return torch.matmul(t, p[name][li].reshape(t.shape[-1], -1))
             return int8_linear(t, p[name][li], s[li], aq)
 
+        def projs(t, names):
+            # projections of one input: int8 leaves share one GEMV launch
+            if any(self.scales.get(name) is None for name in names):
+                return [proj(t, name) for name in names]
+            return int8_linear_group(
+                t, [(p[name][li], self.scales[name][li]) for name in names], aq)
+
         h = rmsnorm(x, p["attn_norm"][li], cfg.norm_eps)
-        q = proj(h, "wq").view(B, S, H, hd)
-        k = proj(h, "wk").view(B, S, KV, hd)
-        v = proj(h, "wv").view(B, S, KV, hd)
+        q, k, v = projs(h, ("wq", "wk", "wv"))
+        q = q.view(B, S, H, hd)
+        k = k.view(B, S, KV, hd)
+        v = v.view(B, S, KV, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, p["q_norm"][li], cfg.norm_eps)
             k = rmsnorm(k, p["k_norm"][li], cfg.norm_eps)
@@ -292,8 +300,7 @@ class LlamaModel(nn.Module):
         x = x + proj(attn.reshape(B, S, H * hd), "wo")
 
         h = rmsnorm(x, p["mlp_norm"][li], cfg.norm_eps)
-        gate = proj(h, "w_gate")
-        up = proj(h, "w_up")
+        gate, up = projs(h, ("w_gate", "w_up"))
         return x + proj(F.silu(gate) * up, "w_down")
 
 
