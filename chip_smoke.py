@@ -18,7 +18,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    C=640) and K1 and K2 at every other batch the strategies phase may
    run (B = 1, 2, 4 and 8 by S = 512, 1024, 2048 and 4096, C = S + 128,
    fills S and C-1, bf16 and int8, ragged pads and an all-pad filler
-   row: phase 7 fails on a batch outside them); the verify kernel at the spec path's shape (B=8, Sq=9,
+   row: phase 7 fails on a batch outside them); K1 and K2 at the G-Eval
+   judge's batches (B = 2 and 8 by S = 1024 and 2048, JUDGE_SHAPES): K1 at
+   C = S for score_choices, K1 and K2 (fills S and C-1) at C = S + 256 for
+   the free-decode judge, bf16 and int8, ragged pads, two all-pad filler
+   rows at B = 8 (phase 7b fails on a batch outside them); the verify kernel at the spec path's shape (B=8, Sq=9,
    C=4096+128+9, ragged fills on both sides of a split boundary, a row
    parked at the budget, a row whose pad hides every key from its first
    queries, a window) and at the slot segment's (B=8, Sq=1, C=4224, a
@@ -129,6 +133,29 @@ Phases, each raising on failure (so any failure exits non-zero):
    launches logged by kernel shape; then hierarchical again
    on a backend built with cuda_graphs=False, whose summaries must be
    byte-identical;
+7b. judge: the G-Eval judge on Llama-3.2-3B at full width and depth
+   (random bf16 weights from seed 0, byte tokenizer, int8 KV cache, batch
+   8) over the 14 judge prompts of data/vi_eval (each file's correctness
+   and coherence prompt, built from the pipeline phase's summaries and
+   ending in the forced prefix '\n{"score": '). (a) score_choices in one
+   call and in 7 calls of two: K1 = 28 x prefill forwards exactly, K2 =
+   K2p = K3 = GEMV = 0, every batch a JUDGE_SHAPES shape; the five gathered
+   logits within JUDGE_LOGITS_RTOL of the largest |logit| of an
+   independent dense control (flash=False, bf16 cache, B = 1, no pad), the
+   picks of both runs equal to the control's wherever its top-two margin
+   exceeds that limit (picks inside it counted and logged), and the choice
+   ids shifted by one in the script's own call must exceed it; then the
+   same on the model's int8 copy, whose GEMV launches are one head a
+   prefill forward. (b) PipelineRunner(llm_judge=LLMJudge(engine,
+   constrained=True)) over data/vi_eval: 7/7 successful, 0 failed, finite
+   means, its summaries the pipeline phase's and its judge prompts (a)'s,
+   launches exact. (c) the CLI with --judge-backend torch:llama3.2-3b (a
+   second random 3B model, free decode of up to 256 new tokens, captured):
+   7 cases processed, K1 and K2 launches exactly 28 x the two engines'
+   prefill forwards and decode steps, summaries the pipeline phase's.
+   ``[judge]`` lines log the score_choices wall a call and a prompt token,
+   the prefill seconds, the wall a judged file, the peak device memory with
+   the second model and the margin counts;
 8. spec pipeline (path a): the same run through PipelineRunner with a
    backend built with GenerationConfig(spec_k=8), so every map and reduce
    group decodes speculatively against its references through the verify
@@ -515,6 +542,18 @@ def raise_if_failed() -> None:
 PIPELINE_SHAPES = ((8, 4096), (8, 512))
 STRATEGY_SHAPES = tuple((B, S) for B in (1, 2, 4, 8) for S in (512, 1024, 2048, 4096)
                         if (B, S) not in PIPELINE_SHAPES)
+# the G-Eval judge's batches (phase 7b). Its prompts are the criteria
+# template and one or two summaries: 685-1762 bytes with the pipeline's
+# summaries of up to 128 new tokens (up to 384 bytes where the byte
+# tokenizer's decode replaces invalid bytes), so S = 1024 or 2048. One file's
+# two prompts make B = 2, a call of all 14 two groups at B = 8 (the second
+# of 6 prompts and two all-pad filler rows). score_choices prefills at
+# C = S (no decode budget), the free-decode judge at C = S + 256: the
+# runner builds its engine with max_new_tokens=64, but LLMJudge passes its
+# own max_new_tokens (256) to every generate call, which overrides it, in
+# the JAX package as here
+JUDGE_SHAPES = tuple((B, S) for B in (2, 8) for S in (1024, 2048))
+JUDGE_NEW_TOKENS = 256
 
 
 def phase_correctness(torch) -> dict:
@@ -610,6 +649,25 @@ def phase_correctness(torch) -> dict:
                        "(strategies batch)", rand_q(torch, (B, 1, H, hd), 62 + B + fill, dev),
                        cache, layer, pads, fill, 0)
             del cache
+    # the judge's batches: K1 at C = S (score_choices) and K1 and K2 at
+    # C = S + 256 (the free-decode judge); a B = 8 group of 6 prompts packs
+    # two all-pad filler rows, as the last two rows here
+    for B, S in JUDGE_SHAPES:
+        layer = 1
+        pads_h = [37, 411] if B == 2 else [37 * (2 * r + 1) for r in range(B - 2)] + [S, S]
+        pads = pads_of(pads_h)
+        for quantized in (True, False):
+            for C in (S, S + JUDGE_NEW_TOKENS):
+                cache = make_cache(torch, 2, B, KV, C, hd, quantized, 70 + B + C + quantized, dev)
+                prefill(f"int8={quantized} B={B} S={S} C={C} layer={layer} (judge batch)",
+                        rand_q(torch, (B, S, H, hd), 71 + B + C, dev), cache, layer, pads, 0, 0,
+                        empty_row=B - 1 if B == 8 else None)
+                if C > S:
+                    for fill in (S, C - 1):
+                        decode(f"int8={quantized} B={B} C={C} fill={fill} layer={layer} "
+                               "(judge batch)", rand_q(torch, (B, 1, H, hd), 72 + B + fill, dev),
+                               cache, layer, pads, fill, 0)
+                del cache
     torch.cuda.empty_cache()
 
     # K1, K2 and K2p at the other group sizes the kernels take: G=2
@@ -2135,6 +2193,392 @@ def phase_strategies(torch) -> dict:
     return total
 
 
+# -- phase 7b -----------------------------------------------------------------
+
+CHOICE_DIGITS = ["1", "2", "3", "4", "5"]
+# phase 7b: score_choices' five gathered logits against an independent
+# dense control on the same weights (flash=False: the dense attention over a
+# bf16 cache, B = 1, no pad), as max |kernel - control| over a prompt's five
+# logits divided by the largest |logit| of the control's whole row. The two
+# paths differ by the int8 cache's rounding (per (position, head), up to
+# 2^-8 of a row's absmax an element) against bf16's, K1's summation order
+# and its p rounded to bf16 against the running max, and the projections
+# run as [B x S]-row GEMMs at B = 8 or 2 against B = 1: bf16 roundings
+# carried through 28 layers, like SPEC_LOGITS_RTOL's. The planted fault (the
+# choice ids shifted by one, so the kernel path's logits are those of "2" to
+# "6") moves them by the spread of a random model's logits, of the order of
+# the largest one. Picks are gated only where the control's top-two margin
+# among the five exceeds the limit: inside it, bf16 near-ties decide, and
+# such picks are counted and logged.
+JUDGE_LOGITS_RTOL = 0.1
+
+
+def judge_prompts(summaries: dict) -> list:
+    """The 14 judge prompts of data/vi_eval, as LLMJudge(constrained=True)
+    sends them: per file (sorted), its correctness prompt (the summary and
+    the reference) and its coherence prompt, each ending in the forced
+    prefix."""
+    from vnsum_tpu_torch.eval.geval import (
+        COHERENCE_CRITERIA,
+        CORRECTNESS_CRITERIA,
+        _JUDGE_TEMPLATE,
+        LLMJudge,
+    )
+
+    prompts = []
+    for name in sorted(summaries):
+        gen = summaries[name]
+        ref = (ROOT / "data/vi_eval/summary" / name).read_text(encoding="utf-8")
+        prompts.append(_JUDGE_TEMPLATE.format(
+            criteria=CORRECTNESS_CRITERIA,
+            body=f"Generated summary:\n{gen}\n\nReference summary:\n{ref}") + LLMJudge._FORCED_PREFIX)
+        prompts.append(_JUDGE_TEMPLATE.format(
+            criteria=COHERENCE_CRITERIA, body=f"Generated summary:\n{gen}") + LLMJudge._FORCED_PREFIX)
+    return prompts
+
+
+def recording_choices(engine) -> list:
+    """Wraps ``engine._choice_logits`` so that every group score_choices
+    dispatches appends (tokens, pads, S, gathered logits on the device):
+    no host read beyond the engine's own."""
+    groups = []
+    inner = engine._choice_logits
+
+    def spy(tokens, pads, S, ids):
+        out = inner(tokens, pads, S, ids)
+        groups.append((tokens, pads, S, out))
+        return out
+
+    engine._choice_logits = spy
+    return groups
+
+
+def logits_by_prompt(torch, engine, groups: list, prompts: list, out=None):
+    """([prompts, 5] f32 gathered logits, [prompts] (B, S)) from recorded
+    groups, each row matched to its prompt by its tokens (to every prompt
+    with those tokens); with ``out``, the groups' rows overwrite a copy of
+    it."""
+    index = {}
+    for i, ids in enumerate(engine.tok.encode_batch(prompts, add_bos=True)):
+        index.setdefault(tuple(ids), []).append(i)
+    out = (torch.full((len(prompts), len(CHOICE_DIGITS)), float("nan")) if out is None
+           else out.clone())
+    shapes = [None] * len(prompts)
+    for tokens, pads, S, logits in groups:
+        rows = logits.float().cpu()
+        for r in range(len(pads)):
+            if pads[r] < S:
+                for i in index[tuple(tokens[r, pads[r]:].tolist())]:
+                    out[i], shapes[i] = rows[r], (len(pads), S)
+    if bool(out.isnan().any()):
+        raise AssertionError("a judge prompt was scored in no group")
+    return out, shapes
+
+
+def control_rows(torch, engine, prompts: list):
+    """The dense control: each prompt alone (B = 1, S = its length, no pad)
+    through ``engine`` (flash=False), the last position's whole logits row:
+    [prompts, vocab] f32 on the host."""
+    import numpy as np
+
+    every = torch.arange(engine.cfg.vocab_size, device=engine.device)
+    rows = []
+    with torch.inference_mode():
+        for ids in engine.tok.encode_batch(prompts, add_bos=True):
+            tokens = np.asarray([ids], dtype=np.int32)
+            rows.append(engine._choice_logits(tokens, np.zeros(1, np.int32), len(ids), every)
+                        .float().cpu()[0])
+    return torch.stack(rows)
+
+
+def judge_gate(torch, label: str, runs: dict, control, ids: list) -> dict:
+    """Holds each run's [prompts, 5] logits to the control's: within
+    JUDGE_LOGITS_RTOL of the control row's largest |logit|, and the same
+    pick wherever the control's top-two margin exceeds that limit; the run
+    "shifted ids" (the planted fault) must exceed it. Returns the counts
+    of picks inside the margin."""
+    want = control[:, ids]
+    scale = control.abs().amax(dim=-1)
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) / scale > JUDGE_LOGITS_RTOL
+    ref_picks = want.argmax(dim=-1)
+    failed, inside = [], {}
+    for run, got in runs.items():
+        err = ((got - want).abs().amax(dim=-1) / scale)
+        picks = got.argmax(dim=-1)
+        differ = (picks != ref_picks) & decided
+        inside[run] = int((~decided).sum())
+        log(f"[judge] {label} {run}: logits against the dense control, max |err| / max |logit| "
+            f"per prompt {', '.join(f'{e:.3e}' for e in err.tolist())}; limit "
+            f"{JUDGE_LOGITS_RTOL:g}; picks {picks.tolist()} (control {ref_picks.tolist()}), "
+            f"{int(decided.sum())} decided beyond the margin, {inside[run]} inside it")
+        if run == "shifted ids":
+            if float(err.max()) <= JUDGE_LOGITS_RTOL:
+                failed.append(f"planted fault '{run}' not seen ({float(err.max()):.3e})")
+        elif float(err.max()) > JUDGE_LOGITS_RTOL or bool(differ.any()):
+            failed.append(f"{run}: max {float(err.max()):.3e}, {int(differ.sum())} decided "
+                          "picks differ")
+    if failed:
+        raise AssertionError(f"{label} against the dense control: " + "; ".join(failed))
+    return inside
+
+
+def choices_path(torch, label: str, engine, control_engine, prompts: list, n_layers: int) -> dict:
+    """(a) on one engine: score_choices on the 14 prompts in one call and in
+    7 calls of two, launch counts exact (K1 = 28 x prefill forwards, GEMV =
+    one head a prefill forward on an int8 model, nothing else), every batch
+    a JUDGE_SHAPES shape, the picks of the two runs equal beyond the margin,
+    both held to the dense control with the fault planted in the script's
+    own call. Returns the launches."""
+    groups = recording_choices(engine)
+    st = engine.stats
+    fwd0, phase0 = st.prefill_forwards, st.phase_seconds.get("choice", 0.0)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    one = engine.score_choices(prompts, CHOICE_DIGITS)
+    t1 = time.perf_counter()
+    n_one = len(groups)
+    pairs = []
+    for i in range(0, len(prompts), 2):
+        pairs += engine.score_choices(prompts[i:i + 2], CHOICE_DIGITS)
+    t2 = time.perf_counter()
+    launches = read_launches()
+    forwards = st.prefill_forwards - fwd0
+    need = {"prefill": n_layers * forwards, "decode": 0, "verify": 0, "partials": 0,
+            "gemv": forwards if engine.model.quantized else 0}
+    if launches != need or forwards != len(groups):
+        raise AssertionError(f"{label}: launches {launches} for {forwards} prefill forwards "
+                             f"({len(groups)} groups) need {need}")
+    log(f"[launches] {label}: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + " (each exactly as the forwards imply)")
+    logits_one, shapes_one = logits_by_prompt(torch, engine, groups[:n_one], prompts)
+    logits_pairs, shapes_pairs = logits_by_prompt(torch, engine, groups[n_one:], prompts)
+    outside = sorted({s for s in shapes_one + shapes_pairs} - set(JUDGE_SHAPES))
+    if outside:
+        raise AssertionError(f"{label}: batches (B, S) {outside} are no shape phase 3 held K1 "
+                             "to its plain version at")
+    del engine._choice_logits
+    ids = [engine.tok.encode(c)[0] for c in CHOICE_DIGITS]
+    # the planted fault: one group of the one-call run again, with the
+    # choice ids shifted by one, in this script's own call
+    tokens, pads, S, _ = groups[0]
+    with torch.inference_mode():
+        shifted = engine._choice_logits(tokens, pads, S,
+                                        torch.tensor(ids, device=engine.device) + 1)
+    logits_shifted, _ = logits_by_prompt(torch, engine, [(tokens, pads, S, shifted)], prompts,
+                                         out=logits_one)
+    control = control_rows(torch, control_engine, prompts)
+    inside = judge_gate(torch, label, {"one call": logits_one, "7 calls of two": logits_pairs,
+                                       "shifted ids": logits_shifted}, control, ids)
+    scale = control.abs().amax(dim=-1)
+    top2 = logits_one.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) / scale > JUDGE_LOGITS_RTOL
+    differ = [i for i in range(len(prompts)) if one[i] != pairs[i] and bool(decided[i])]
+    runs_err = float(((logits_one - logits_pairs).abs().amax(dim=-1) / scale).max())
+    log(f"[judge] {label}: one call of {len(prompts)} against 7 calls of two: picks "
+        f"{sum(a == b for a, b in zip(one, pairs))}/{len(prompts)} equal, logits max |diff| / "
+        f"max |logit| {runs_err:.3e}, {int(decided.sum())} picks beyond the margin, "
+        f"{len(prompts) - int(decided.sum())} inside it")
+    if differ:
+        raise AssertionError(f"{label}: the one-call and paired picks differ beyond the margin "
+                             f"at prompts {differ}")
+    tokens_total = sum(len(t) for t in engine.tok.encode_batch(prompts, add_bos=True))
+    choice_s = st.phase_seconds.get("choice", 0.0) - phase0
+    log(f"[judge] {label}: score_choices wall {1e3 * (t1 - t0):.1f} ms for one call of "
+        f"{len(prompts)} prompts ({n_one} groups at "
+        f"{sorted({(B, S) for (_, p, S, _) in groups[:n_one] for B in [len(p)]})}), "
+        f"{1e3 * (t2 - t1) / 7:.1f} ms a call of two; "
+        f"{1e6 * (t1 - t0) / tokens_total:.2f} us a prompt token in one call, "
+        f"{1e6 * (t2 - t1) / tokens_total:.2f} in pairs; prefill (the choice phase) "
+        f"{choice_s:.3f}s over {forwards} forwards; picks inside the margin {inside}")
+    return launches
+
+
+def phase_judge(torch, plain_summaries: dict) -> dict:
+    """Phase 7b, the G-Eval judge on Llama-3.2-3B at full width and depth
+    (random bf16 weights from seed 0, the pipeline phase's; byte tokenizer,
+    int8 cache, batch 8): (a) score_choices on the 14 judge prompts, bf16
+    and on the model's int8 copy (choices_path); (b) the constrained judge
+    end to end through PipelineRunner over data/vi_eval; (c) the CLI's own
+    judge, --judge-backend torch:llama3.2-3b, free decode of up to 256 new
+    tokens (LLMJudge's budget), captured. Returns the launches of (a)-(c)."""
+    import gc
+
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.eval import LLMJudge
+    from vnsum_tpu_torch.models import llama32_3b
+    from vnsum_tpu_torch.models.llama import init_model
+    from vnsum_tpu_torch.models.quant import quantize_model
+    from vnsum_tpu_torch.pipeline import cli
+    from vnsum_tpu_torch.pipeline import runner as runner_mod
+    from vnsum_tpu_torch.pipeline.runner import PipelineRunner
+
+    cfg3b = llama32_3b()
+    n_layers = cfg3b.n_layers
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    prompts = judge_prompts(plain_summaries)
+    lengths = [len(p.encode("utf-8")) + 1 for p in prompts]
+    log(f"[judge] {len(prompts)} prompts of {min(lengths)}-{max(lengths)} tokens (byte "
+        "tokenizer, BOS included)")
+    total = dict.fromkeys(KERNELS, 0)
+
+    # (a) bf16 weights, then the int8 copy
+    model = init_model(cfg3b, 0, torch.device("cuda"))
+    engine = TorchBackend(model=model, batch_size=8, device="cuda")
+    control = TorchBackend(model=model, flash=False, device="cuda")
+    if not (engine.use_kernels and engine.quantize_kv) or control.use_kernels:
+        raise AssertionError("the judge engine must run K1 over an int8 cache, the control not")
+    for k, v in choices_path(torch, "score_choices bf16", engine, control, prompts,
+                             n_layers).items():
+        total[k] += v
+    qmodel = quantize_model(model)
+    qengine = TorchBackend(model=qmodel, batch_size=8, device="cuda")
+    qcontrol = TorchBackend(model=qmodel, flash=False, device="cuda")
+    for k, v in choices_path(torch, "score_choices int8", qengine, qcontrol, prompts,
+                             n_layers).items():
+        total[k] += v
+    del qengine, qcontrol, qmodel, control
+    torch.cuda.empty_cache()
+
+    def cli_args(out: Path) -> list:
+        return [
+            "--approach", "mapreduce", "--models", "llama3.2:3b",
+            "--docs-dir", str(ROOT / "data/vi_eval/doc"),
+            "--summary-dir", str(ROOT / "data/vi_eval/summary"),
+            "--generated-summaries-dir", str(out / "gen"),
+            "--results-dir", str(out / "results"), "--logs-dir", str(out / "logs"),
+            "--max-new-tokens", "128", "--device", "cuda",
+        ]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the constrained judge end to end, on the summarizer's engine
+        cfg = cli.config_from_args(cli.build_parser().parse_args(cli_args(Path(tmp) / "b")))
+        cfg.evaluation.include_llm_eval = True
+        judge = LLMJudge(engine, constrained=True)
+        seen, evaluate = [], judge.evaluate
+        score = engine.score_choices
+
+        def scoring(ps, choices):
+            seen.extend(ps)
+            return score(ps, choices)
+
+        engine.score_choices = scoring
+        judge_wall = []
+
+        def timed_evaluate(generated, references):
+            t0 = time.perf_counter()
+            try:
+                return evaluate(generated, references)
+            finally:
+                judge_wall.append(time.perf_counter() - t0)
+
+        judge.evaluate = timed_evaluate
+        st = engine.stats
+        fwd0, steps0 = st.prefill_forwards, st.decode_steps
+        reset_launches()
+        t0 = time.perf_counter()
+        runner = PipelineRunner(cfg, backend_factory=lambda _: engine, llm_judge=judge,
+                                device="cuda")
+        res = runner.run()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        del engine.score_choices
+        if runner.failures:
+            raise AssertionError(f"constrained judge run: failures {runner.failures}")
+        _, summaries = check_run({"summarization": res.summarization,
+                                  "evaluation": res.evaluation}, docs, Path(tmp) / "b" / "gen")
+        scores = res.evaluation["llama3.2:3b"]["llm_scores"]
+        need = {"prefill": n_layers * (st.prefill_forwards - fwd0),
+                "decode": n_layers * (st.decode_steps - steps0), "verify": 0, "partials": 0,
+                "gemv": 0}
+        if launches != need:
+            raise AssertionError(f"constrained judge run: launches {launches} need {need}")
+        means = [scores["llm_correctness_mean"], scores["llm_coherence_mean"]]
+        if (scores["llm_successful_cases"] != len(docs) or scores["llm_failed_cases"] != 0
+                or not all(math.isfinite(m) for m in means)):
+            raise AssertionError(f"constrained judge: {scores}")
+        if summaries != plain_summaries or seen != prompts:
+            raise AssertionError("constrained judge run: its summaries or judge prompts differ "
+                                 "from the pipeline phase's")
+        for k in total:
+            total[k] += launches[k]
+        log(f"[launches] constrained judge run: " + ", ".join(f"{k} {v}" for k, v in
+                                                              launches.items())
+            + " (each exactly as the engine record implies)")
+        log(f"[judge] constrained judge (b): {scores['llm_successful_cases']}/{len(docs)} "
+            f"successful, {scores['llm_failed_cases']} failed, correctness mean "
+            f"{scores['llm_correctness_mean']:.4f}, coherence mean "
+            f"{scores['llm_coherence_mean']:.4f}; summaries and prompts equal the pipeline "
+            f"phase's; judge wall {judge_wall[0]:.3f}s, {1e3 * judge_wall[0] / len(docs):.1f} ms "
+            f"a judged file; run wall {wall:.2f}s")
+        del runner, judge, engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the CLI's own judge: a second random 3B model, free decode
+        made, get_backend = [], runner_mod.get_backend
+
+        def recording_backend(spec, **kw):
+            made.append(get_backend(spec, **kw))
+            return made[-1]
+
+        runner_mod.get_backend = recording_backend
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(cli_args(Path(tmp) / "c") + ["--judge-backend", "torch:llama3.2-3b"])
+        finally:
+            runner_mod.get_backend = get_backend
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if rc != 0:
+            raise AssertionError(f"CLI judge run exited {rc}")
+        saved = json.loads(next((Path(tmp) / "c" / "results").glob(
+            "pipeline_results_*.json")).read_text())
+        _, summaries = check_run(saved["results"], docs, Path(tmp) / "c" / "gen")
+        scores = saved["results"]["evaluation"]["llama3.2:3b"]["llm_scores"]
+        summarizer = saved["results"]["engine"]["llama3.2:3b"]
+        (jst,) = [b.stats for b in made]
+        jdict = jst.to_dict()
+        check_captured("CLI judge", jdict)
+        need = {"prefill": n_layers * (summarizer["prefill_forwards"] + jst.prefill_forwards),
+                "decode": n_layers * (summarizer["decode_steps"] + jst.decode_steps),
+                "verify": 0, "partials": 0, "gemv": 0}
+        steps = {b: n / jst.by_bucket[b] for b, n in jst.steps_by_bucket.items()}
+        if (launches != need or made[0].max_new_tokens != 64
+                or any(n > JUDGE_NEW_TOKENS for n in steps.values())):
+            raise AssertionError(f"CLI judge run: launches {launches} need {need}, decode steps "
+                                 f"a group {steps} (at most {JUDGE_NEW_TOKENS})")
+        outside = sorted(set(jst.by_bucket) - set(JUDGE_SHAPES))
+        if outside:
+            raise AssertionError(f"CLI judge: batches {outside} are no shape phase 3 checked")
+        processed = scores["llm_successful_cases"] + scores["llm_failed_cases"]
+        if scores["llm_total_cases_processed"] != len(docs) or processed != len(docs):
+            raise AssertionError(f"CLI judge: {scores}")
+        if summaries != plain_summaries:
+            raise AssertionError("CLI judge run: its summaries differ from the pipeline phase's")
+        for k in total:
+            total[k] += launches[k]
+    log(f"[launches] CLI judge run: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + " (each exactly as the two engine records imply)")
+    log(f"[judge] CLI judge (c) --judge-backend torch:llama3.2-3b: "
+        f"{scores['llm_successful_cases']} successful, {scores['llm_failed_cases']} failed of "
+        f"{len(docs)}; judge generate calls {jst.calls}, batches {jdict['by_bucket']}, decode "
+        f"steps {jst.decode_steps} ({jst.graph_captures} captures, {jst.captured_steps} "
+        f"replays), prefill {jst.phase_seconds.get('prefill', 0.0):.3f}s, decode "
+        f"{jst.phase_seconds.get('decode', 0.0):.3f}s, judge wall {jst.generate_seconds:.3f}s "
+        f"({1e3 * jst.generate_seconds / len(docs):.1f} ms a judged file), generated tokens "
+        f"{jst.generated_tokens}; run wall {wall:.2f}s; peak device memory with the second "
+        f"model {peak_gb:.2f} GB; summaries equal the pipeline phase's")
+    del made
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 # -- phase 8 ------------------------------------------------------------------
 
 
@@ -2815,12 +3259,14 @@ def main() -> int:
     weights_launches = phase_weights(torch, plain_summaries)
     phase_encoder(torch)
     strategy_launches = phase_strategies(torch)
+    judge_launches = phase_judge(torch, plain_summaries)
     spec_launches, backend, prompts, oneshot = phase_spec_pipeline(torch, plain_summaries)
     slot_launches = phase_slot_loop(torch, backend, prompts, oneshot)
     del backend
     long_launches = phase_long_context(torch)
     launches = {k: launches[k] + int8_launches[k] + w8a8_launches[k] + weights_launches[k]
-                + strategy_launches[k] + spec_launches[k] + slot_launches[k] + long_launches[k]
+                + strategy_launches[k] + judge_launches[k] + spec_launches[k] + slot_launches[k]
+                + long_launches[k]
                 for k in launches}
     phase_profile(torch)
     kernels = []

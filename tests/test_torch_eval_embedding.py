@@ -29,7 +29,8 @@ from vnsum_tpu.models import encoder as je
 from vnsum_tpu.models.convert_encoder import load_hf_encoder as jax_load_hf_encoder
 from vnsum_tpu.models.fixtures import make_tiny_hf_encoder_checkpoint
 from vnsum_tpu.utils import evaluate_summaries as jax_evaluate
-from vnsum_tpu_torch.eval import EmbeddingModel, SemanticEvaluator
+from vnsum_tpu_torch.backend.fake import FakeBackend
+from vnsum_tpu_torch.eval import EmbeddingModel, LLMJudge, SemanticEvaluator
 from vnsum_tpu_torch.eval.embedding import bert_scores, cosine_similarities
 from vnsum_tpu_torch.models import encoder as te
 from vnsum_tpu_torch.models.convert_encoder import load_hf_encoder
@@ -231,14 +232,21 @@ def test_evaluate_summaries_cli_matches_jax(tmp_path, monkeypatch, capsys, embed
 
 
 def test_cuda_without_a_card_raises_and_the_judge_waits():
+    """What still raises without a card: the encoder (also the evaluator's
+    default one) and its loader. The judge no longer waits: an evaluator
+    with it builds, given an encoder on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         EmbeddingModel(config=te.tiny_encoder())
     with pytest.raises(RuntimeError, match="no CUDA card"):
         load_hf_encoder("does-not-matter")
-    with pytest.raises(NotImplementedError, match="A5b"):
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         SemanticEvaluator(include_llm_eval=True)
+    judge = LLMJudge(backend=FakeBackend(responses=['{"score": 5}', "3"]))
+    ev = SemanticEvaluator(EmbeddingModel(config=te.tiny_encoder(), max_len=32, device="cpu"),
+                           include_llm_eval=True, llm_judge=judge)
+    assert ev.include_llm_eval and ev.llm_judge is judge
 
 
 def test_init_follows_the_jax_scheme():

@@ -28,9 +28,12 @@ from torch_strategy_parity import FIXTURE, dirs
 from test_torch_eval_embedding import small_default_encoder
 from test_torch_models_llama import one_torch_thread  # noqa: F401
 
+# the fields both configs have, but ``backend``: both have it, with the
+# default of each package's own engine ("torch" here, "tpu" there)
 COMMON = sorted(
     {f.name for f in dataclasses.fields(PipelineConfig)}
     & {f.name for f in dataclasses.fields(JaxPipelineConfig)}
+    - {"backend"}
 )
 # flags both CLIs take; the port's own (--device, --logs-dir,
 # --prefill-chunk-tokens) are left at their defaults
@@ -42,12 +45,13 @@ FLAG_SETS = {
                 "--chunk-size", "90", "--max-samples", "3", "--batch-size", "4"],
     "checkpoints": ["--weights-dir", "ckpt/llama", "--embedding-dir", "ckpt/minilm"],
     "quantize": ["--quantize", "--quantize-act"],
+    "judge": ["--judge-backend", "ollama:qwen3:8b", "--ollama-url", "http://h:1"],
+    "llm_eval": ["--include-llm-eval", "--backend", "fake"],
 }
 
 
 def common(cfg) -> dict:
-    """The fields both configs have; of the nested EvalConfig, the fields
-    the port's has (the judge's wait for its port)."""
+    """The fields both configs have (COMMON), and the nested EvalConfig's."""
     out = {k: getattr(cfg, k) for k in COMMON}
     out["evaluation"] = {f.name: getattr(cfg.evaluation, f.name)
                          for f in dataclasses.fields(EvalConfig)}

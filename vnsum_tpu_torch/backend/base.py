@@ -145,3 +145,25 @@ def resolve_max_new(
     if config is not None and config.max_new_tokens is not None:
         return config.max_new_tokens
     return backend_default
+
+
+def get_backend(spec: str, **kwargs) -> Backend:
+    """Factory: "torch", "ollama" or "fake". The JAX package's "hf"
+    (``HFBackend``, a ``transformers`` wrapper) is not ported yet (ROADMAP
+    A5c)."""
+    if spec == "fake":
+        from .fake import FakeBackend
+
+        return FakeBackend(**kwargs)
+    if spec == "ollama":
+        from .ollama import OllamaBackend
+
+        return OllamaBackend(**kwargs)
+    if spec == "torch":
+        from .engine import TorchBackend
+
+        return TorchBackend(**kwargs)
+    if spec == "hf":
+        raise NotImplementedError(
+            "the hf backend (HFBackend) is not ported yet (ROADMAP A5c)")
+    raise ValueError(f"unknown backend {spec!r} (use torch|ollama|fake)")

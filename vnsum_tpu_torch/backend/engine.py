@@ -32,6 +32,11 @@ Two more paths run on the verify kernel:
   slots at different generation depths decode together, with per-row step
   counters, and freed slots are refilled from new prompts.
 
+``score_choices`` is the constrained choice scorer of the G-Eval judge
+(``eval/geval.py``): one prefill with no decode budget (C = S) through K1,
+and the next-token logits of the last position gathered at the choices'
+first ids, the argmax taken on the device.
+
 ``quantize=True`` runs int8 weights (``models/quant.py``): every
 projection and the LM head of a forward with at most 128 rows (decode, the
 verify forward, the slot segment, a ``last_only`` head) goes through the
@@ -39,8 +44,8 @@ int8-weight GEMV kernel (``ops/int8_matmul.py``), a prefill through a
 dequantized ``torch.matmul``; ``quantize_act=True`` adds W8A8 prefill.
 
 Not ported yet: the prefix cache (``cache_hints`` are accepted and unused,
-as in the JAX engine with no cache configured), the continuous scheduler,
-meshes and ``score_choices``.
+as in the JAX engine with no cache configured), the continuous scheduler
+and meshes.
 """
 from __future__ import annotations
 
@@ -780,6 +785,69 @@ class TorchBackend:
         # per-prompt alignment
         self._spec_report = [r if r is not None else SpecRecord() for r in spec_report]
         return results  # type: ignore[return-value]
+
+    # -- constrained choice scoring ------------------------------------------
+
+    def _choice_logits(self, tokens_np, pad_np, S: int, choice_ids: torch.Tensor):
+        """One prefill of a packed batch into a cache of C = S slots (no
+        decode budget: the cache only serves the forward), then the last
+        position's logits gathered at ``choice_ids``: [B, K] f32."""
+        dev = self.device
+        B = len(pad_np)
+        cache = init_kv_cache(self.cfg, B, S, quantized=self.quantize_kv, device=dev)
+        logits = self._prefill_forward(
+            torch.from_numpy(tokens_np).to(dev), torch.from_numpy(pad_np).to(dev), B, S, S, cache
+        )
+        return logits[:, -1, :].index_select(-1, choice_ids)
+
+    # hot path
+    @torch.inference_mode()
+    def score_choices(self, prompts: list[str], choices: list[str]) -> list[int]:
+        """For each prompt, the index of the choice whose FIRST token has the
+        highest next-token logit after prefilling the prompt.
+
+        Prompts longer than the context are cut from the LEFT, keeping BOS:
+        the tail is where a forced template ends, so it must survive.
+        Choices must differ in their first token id (the G-Eval judge uses
+        the digits "1".."5", one byte each)."""
+        ids = []
+        for c in choices:
+            enc = self.tok.encode(c, add_bos=False)
+            if not enc:
+                raise ValueError(f"choice {c!r} encodes to no tokens")
+            ids.append(enc[0])
+        if len(set(ids)) != len(ids):
+            raise ValueError("choices must differ in their first token")
+        choice_dev = torch.tensor(ids, dtype=torch.long, device=self.device)
+
+        self.stats.calls += 1
+        self.stats.prompts += len(prompts)
+        max_input = self.cfg.max_seq_len
+        encoded: list[list[int]] = []
+        t_enc = time.time()
+        for tok_ids in self.tok.encode_batch(prompts, add_bos=True):
+            if len(tok_ids) > max_input:
+                tok_ids = [tok_ids[0]] + tok_ids[-(max_input - 1):]
+            encoded.append(tok_ids)
+            self.stats.prompt_tokens += len(tok_ids)
+        self.stats.add_phase("tokenize_host", time.time() - t_enc)
+
+        order = sorted(range(len(encoded)), key=lambda i: len(encoded[i]))
+        results: list[int] = [0] * len(encoded)
+        for start in range(0, len(order), self.batch_size):
+            group = order[start : start + self.batch_size]
+            # no decode budget: the whole context is prompt space; the
+            # bucketing and padding rules are generate()'s
+            tokens, pad_lens, B, S = self._pack_group(group, encoded, 0)
+            t_disp = time.time()
+            idx = self._choice_logits(tokens, pad_lens, S, choice_dev).argmax(dim=-1)
+            idx_h = idx.cpu().numpy()  # the group's one host read
+            self.stats.add_phase("choice", time.time() - t_disp)
+            self.stats.batches += 1
+            self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
+            for row, i in enumerate(group):
+                results[i] = int(idx_h[row])
+        return results
 
     def take_spec_report(self) -> list[SpecRecord]:
         """Per-prompt SpecRecords of the last generate call, aligned with its

@@ -2,10 +2,12 @@
 
 Copy of ``vnsum_tpu/core/config.py`` cut to what the port runs today: the
 six approaches, with speculative decoding, HF checkpoints, int8 weights
-(and W8A8 prefill) and the embedding metrics. Knob names and defaults are
-the JAX package's (themselves the reference's,
-run_full_evaluation_pipeline.py: 973-1027); meshes, the long-context launch
-and the LLM judge return with the slices that port them.
+(and W8A8 prefill), the embedding metrics, the G-Eval judge and the
+backend choice (``torch``, ``ollama``, ``fake``). Knob names and defaults
+are the JAX package's (themselves the reference's,
+run_full_evaluation_pipeline.py: 973-1027), except ``backend``, whose
+default is the port's engine, ``"torch"``; meshes and the long-context
+launch return with the slices that port them.
 """
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ APPROACHES: tuple[str, ...] = (
     "mapreduce_hierarchical",
     "skeleton",
 )
+
+# the pipeline's backends (the CLI's --backend choices): the port's engine,
+# a local Ollama server over HTTP, the deterministic test double
+BACKENDS: tuple[str, ...] = ("torch", "ollama", "fake")
 
 
 @dataclass(frozen=True)
@@ -53,10 +59,19 @@ class GenerationConfig:
 class EvalConfig:
     """Evaluation settings (ref run_full_evaluation_pipeline.py:984-990)."""
 
+    embedding_model: str = "all-MiniLM-L6-v2"
     # local HF BERT-family checkpoint dir (config.json + safetensors +
     # tokenizer); when set, BERTScore and the sentence cosine run with its
     # converted pretrained weights instead of a random-init encoder
     embedding_dir: str | None = None
+    include_llm_eval: bool = False
+    use_openrouter: bool = True
+    llm_model: str = "openai/gpt-4o-mini"
+    # local judge: run G-Eval through the Backend protocol instead of an
+    # HTTP endpoint, the offline path. Forms: "fake" (CI),
+    # "ollama:<model>", "torch:<registry-name>" (random weights: plumbing
+    # and containment only). Takes precedence over API keys.
+    judge_backend: str | None = None
     max_samples: int | None = None
     bert_batch_size: int = 32
 
@@ -68,6 +83,8 @@ class PipelineConfig:
 
     approach: str = "mapreduce"
     models: list[str] = field(default_factory=lambda: ["llama3.2-3b"])
+    backend: str = "torch"  # torch | ollama | fake
+    ollama_url: str = "http://localhost:11434"
     max_new_tokens: int = 1024
     docs_dir: str = "data_1/doc"
     summary_dir: str = "data_1/summary"
@@ -141,6 +158,18 @@ class PipelineConfig:
                 "weights_dir points at ONE checkpoint; with multiple models "
                 "every entry would silently run the same weights — run one "
                 "model per weights_dir"
+            )
+        if self.weights_dir and self.backend != "torch":
+            raise ValueError(
+                f"weights_dir requires backend='torch' (got {self.backend!r}); "
+                "other backends would silently ignore the checkpoint and "
+                "evaluate a different model"
+            )
+        if self.quantize and self.backend != "torch":
+            raise ValueError(
+                f"quantize requires backend='torch' (got {self.backend!r}); "
+                "other backends would silently run full-precision while the "
+                "run record claims int8"
             )
         if self.quantize_act and not self.quantize:
             raise ValueError(

@@ -1,4 +1,5 @@
 from .embedding import BertScore, EmbeddingModel, bert_scores, cosine_similarities
+from .geval import LLMJudge
 from .rouge import RougeScorer
 from .semantic import SemanticEvaluator, load_summary_dir
 
@@ -7,6 +8,7 @@ __all__ = [
     "EmbeddingModel",
     "bert_scores",
     "cosine_similarities",
+    "LLMJudge",
     "RougeScorer",
     "SemanticEvaluator",
     "load_summary_dir",

@@ -1,9 +1,9 @@
 """Semantic evaluator: per-pair sentence cosine and ROUGE, corpus
-BERTScore, in the reference's results JSON schema (summary_statistics
-{semantic_similarity, rouge_scores, bert_scores} + detailed_results).
+BERTScore and, optionally, the LLM judge's G-Eval, in the reference's
+results JSON schema (summary_statistics {semantic_similarity, rouge_scores,
+bert_scores, llm_scores} + detailed_results).
 
-Counterpart of ``vnsum_tpu/eval/semantic.py``. The LLM judge (G-Eval) is
-not ported yet (ROADMAP A5b).
+Counterpart of ``vnsum_tpu/eval/semantic.py``.
 """
 from __future__ import annotations
 
@@ -53,12 +53,13 @@ class SemanticEvaluator:
         embedding_model: EmbeddingModel | None = None,
         use_stemmer: bool = True,
         include_llm_eval: bool = False,
+        llm_judge=None,
     ) -> None:
-        if include_llm_eval:
-            raise NotImplementedError(
-                "the LLM judge (G-Eval) is not ported yet (ROADMAP A5b)")
         self.embedder = embedding_model or EmbeddingModel()
         self.rouge = RougeScorer(["rouge1", "rouge2", "rougeL"], use_stemmer)
+        self.include_llm_eval = include_llm_eval
+        # an eval.LLMJudge; the llm_scores block needs both
+        self.llm_judge = llm_judge
 
     def evaluate_pairs(
         self,
@@ -113,6 +114,11 @@ class SemanticEvaluator:
                 "bert_f1": float(np.mean([b.f1 for b in bert])),
             },
         }
+        if self.include_llm_eval and self.llm_judge is not None:
+            stats["llm_scores"] = self.llm_judge.evaluate(
+                {f: generated[f] for f in common},
+                {f: references[f] for f in common},
+            )
         return {"summary_statistics": stats, "detailed_results": detailed}
 
     def evaluate_folders(

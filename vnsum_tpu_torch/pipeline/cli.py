@@ -12,6 +12,13 @@ where a document has none) and collapses down from ``--max-depth``.
 ``--quantize`` runs int8 weights (the int8-weight GEMV kernel on every
 small-batch forward); ``--quantize-act`` adds W8A8 prefill.
 
+``--backend`` picks the summarizer: ``torch`` (the port's engine, the
+default), ``ollama`` (a local server at ``--ollama-url``) or ``fake`` (the
+test double). ``--include-llm-eval`` adds the G-Eval judge's scores;
+``--judge-backend`` (``fake``, ``ollama:<model>`` or
+``torch:<registry-name>``, the last with random weights) judges offline
+and implies it.
+
 ``--weights-dir`` loads a local HF checkpoint (and its tokenizer) in place
 of the registry's random weights; ``--embedding-dir`` scores BERTScore and
 the sentence cosine with a local HF BERT-family checkpoint in place of a
@@ -24,7 +31,7 @@ from __future__ import annotations
 
 import argparse
 
-from ..core.config import APPROACHES, PipelineConfig, approach_defaults
+from ..core.config import APPROACHES, BACKENDS, PipelineConfig, approach_defaults
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,6 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--max-depth", type=int, default=1,
         help="mapreduce_hierarchical: deepest tree level collapsed bottom-up",
     )
+    p.add_argument("--backend", choices=BACKENDS, default="torch")
+    p.add_argument("--ollama-url", default="http://localhost:11434")
     p.add_argument("--docs-dir", default="data_1/doc")
     p.add_argument("--summary-dir", default="data_1/summary")
     p.add_argument("--generated-summaries-dir", default="data_1/generated_summaries")
@@ -98,6 +107,18 @@ def build_parser() -> argparse.ArgumentParser:
         "--prefill-chunk-tokens", type=int, default=0,
         help="prefill in slices of this many tokens (multiple of 128; 0 = whole prompt)",
     )
+    p.add_argument(
+        "--include-llm-eval", action="store_true",
+        help="run the G-Eval correctness/coherence column (reference "
+        "include_llm_eval); needs OPENROUTER_API_KEY/OPENAI_API_KEY or "
+        "--judge-backend",
+    )
+    p.add_argument(
+        "--judge-backend", default=None,
+        help="offline G-Eval judge over the Backend protocol: 'fake' (CI), "
+        "'ollama:<model>', or 'torch:<registry-name>' (random weights); "
+        "implies --include-llm-eval",
+    )
     return p
 
 
@@ -117,6 +138,8 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
     cfg = PipelineConfig(
         approach=args.approach,
         models=list(args.models),
+        backend=args.backend,
+        ollama_url=args.ollama_url,
         docs_dir=args.docs_dir,
         summary_dir=args.summary_dir,
         generated_summaries_dir=args.generated_summaries_dir,
@@ -138,6 +161,11 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         },
     )
     cfg.evaluation.embedding_dir = args.embedding_dir
+    if args.include_llm_eval:
+        cfg.evaluation.include_llm_eval = True
+    if args.judge_backend:
+        cfg.evaluation.include_llm_eval = True
+        cfg.evaluation.judge_backend = args.judge_backend
     return cfg
 
 

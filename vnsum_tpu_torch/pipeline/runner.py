@@ -2,11 +2,14 @@
 
 Counterpart of ``vnsum_tpu/pipeline/runner.py``: preflight → document
 analysis → per model, summarization with resume-by-file → evaluation
-(ROUGE, sentence cosine, BERTScore) → report → results JSON. Documents go
-to the strategy in groups, so every LLM call of a round shares device
-batches. The model is a registry config with random weights, or an HF
-checkpoint (``weights_dir``), either with int8 weights (``quantize``, and
-W8A8 prefill with ``quantize_act``); the LLM judge is not ported yet.
+(ROUGE, sentence cosine, BERTScore and, with ``include_llm_eval``, the
+G-Eval judge) → report → results JSON. Documents go to the strategy in
+groups, so every LLM call of a round shares device batches.
+``PipelineConfig.backend`` picks the summarizer: ``torch`` (the port's
+engine; the model is a registry config with random weights, or an HF
+checkpoint, ``weights_dir``, either with int8 weights, ``quantize``, and
+W8A8 prefill with ``quantize_act``), ``ollama`` (a local server) or
+``fake`` (the test double).
 
 Failure containment differs from the JAX package in one way: device errors
 (``RuntimeError``) are never retried (core/faults.py), and
@@ -15,20 +18,21 @@ Failure containment differs from the JAX package in one way: device errors
 """
 from __future__ import annotations
 
+import os
 import time
 import traceback
 from pathlib import Path
 
 import torch
 
-from ..backend.base import Backend
+from ..backend.base import Backend, get_backend
 from ..backend.engine import TorchBackend, resolve_device
 from ..core.config import PipelineConfig
 from ..core.faults import call_with_retries, is_retryable
 from ..core.logging import get_logger, setup_run_logging
 from ..core.results import DocumentRecord, ModelRunRecord, PipelineResults
 from ..data import DocumentDataset, analyze_documents
-from ..eval import EmbeddingModel, SemanticEvaluator
+from ..eval import EmbeddingModel, LLMJudge, SemanticEvaluator
 from ..models import MODEL_REGISTRY
 from ..models.convert import load_hf_checkpoint
 from ..strategies import get_strategy
@@ -48,6 +52,7 @@ class PipelineRunner:
         config: PipelineConfig,
         backend_factory=None,
         embedding_model: EmbeddingModel | None = None,
+        llm_judge: LLMJudge | None = None,
         device="cuda",
     ) -> None:
         self.config = config
@@ -56,11 +61,14 @@ class PipelineRunner:
         self.backend_factory = backend_factory or self._default_backend_factory
         # built on first use, then reused across the models of the run
         self.embedding_model = embedding_model
+        # a prebuilt judge (tests, the card check); None = resolved from
+        # EvalConfig by _build_llm_judge
+        self.llm_judge = llm_judge
         self.results = PipelineResults(config=config.to_dict())
         self.failures: list[str] = []
         self.log_path = setup_run_logging(config.logs_dir)
-        logger.info("pipeline configured: approach=%s models=%s device=%s",
-                    config.approach, config.models, self.device)
+        logger.info("pipeline configured: approach=%s backend=%s models=%s device=%s",
+                    config.approach, config.backend, config.models, self.device)
         if clean_thinking_tokens("<think>x</think>ok") != "ok":
             raise RuntimeError("thinking-token cleaner self-check failed")
 
@@ -68,15 +76,24 @@ class PipelineRunner:
 
     def _default_backend_factory(self, model: str) -> Backend:
         cfg = self.config
-        return TorchBackend(
-            **self._resolve_model(model),
-            batch_size=cfg.batch_size,
-            max_new_tokens=cfg.max_new_tokens,
-            prefill_chunk_tokens=cfg.prefill_chunk_tokens,
-            quantize=cfg.quantize,
-            quantize_act=cfg.quantize_act,
-            device=self.device,
-        )
+        if cfg.backend == "ollama":
+            return get_backend(
+                "ollama", model=model, url=cfg.ollama_url,
+                max_new_tokens=cfg.max_new_tokens,
+            )
+        if cfg.backend == "fake":
+            return get_backend("fake")
+        if cfg.backend == "torch":
+            return TorchBackend(
+                **self._resolve_model(model),
+                batch_size=cfg.batch_size,
+                max_new_tokens=cfg.max_new_tokens,
+                prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+                quantize=cfg.quantize,
+                quantize_act=cfg.quantize_act,
+                device=self.device,
+            )
+        raise ValueError(f"unknown backend {cfg.backend!r}")
 
     def _resolve_model(self, model: str) -> dict:
         """TorchBackend's model and tokenizer arguments. With weights_dir,
@@ -247,13 +264,73 @@ class PipelineRunner:
                 if ev.embedding_dir
                 else EmbeddingModel(batch_size=ev.bert_batch_size, device=self.device)
             )
+        judge = self._build_llm_judge() if cfg.evaluation.include_llm_eval else None
+        evaluator = SemanticEvaluator(
+            self.embedding_model, include_llm_eval=judge is not None, llm_judge=judge)
         out_path = Path(cfg.results_dir) / f"{model_name_safe(model)}_results.json"
-        results = SemanticEvaluator(self.embedding_model).evaluate_folders(
+        results = evaluator.evaluate_folders(
             self._output_dir(model), cfg.summary_dir,
             max_samples=cfg.evaluation.max_samples or cfg.max_samples, output=out_path,
         )
         self.results.add_evaluation(model, results["summary_statistics"])
         return results
+
+    def _build_llm_judge(self) -> LLMJudge | None:
+        """The G-Eval judge: an injected judge wins, then a local
+        Backend-protocol judge (EvalConfig.judge_backend, the offline path),
+        then an OpenRouter-compatible endpoint when an API key is set;
+        otherwise None, with a warning: never a hard failure."""
+        cfg = self.config.evaluation
+        if self.llm_judge is not None:
+            return self.llm_judge
+        if cfg.judge_backend:
+            return LLMJudge(backend=self._judge_backend(cfg.judge_backend))
+        api_key = os.environ.get("OPENROUTER_API_KEY") or os.environ.get("OPENAI_API_KEY")
+        if not api_key:
+            logger.warning(
+                "include_llm_eval=True but no OPENROUTER_API_KEY/OPENAI_API_KEY "
+                "set; skipping G-Eval"
+            )
+            return None
+        base = (
+            "https://openrouter.ai/api/v1"
+            if cfg.use_openrouter
+            else "https://api.openai.com/v1"
+        )
+        return LLMJudge(api_base=base, api_key=api_key, model=cfg.llm_model)
+
+    def _judge_backend(self, spec: str) -> Backend:
+        """EvalConfig.judge_backend as a judge Backend: "fake" (CI),
+        "ollama:<model>" (a local server) or "torch:<registry-name>" (the
+        port's engine on the runner's device with RANDOM weights, 64 new
+        tokens: plumbing and containment runs only)."""
+        name, _, arg = spec.partition(":")
+        if name == "fake":
+            return get_backend("fake")
+        if name == "ollama":
+            if not arg:
+                raise ValueError(
+                    "judge_backend='ollama:<model>' needs the model tag"
+                )
+            return get_backend("ollama", model=arg, url=self.config.ollama_url)
+        if name == "torch":
+            if arg not in MODEL_REGISTRY:
+                raise ValueError(
+                    "judge_backend='torch:<model>' needs a registry model "
+                    f"name (have {sorted(MODEL_REGISTRY)}); a bare 'torch' "
+                    "would silently judge with an unspecified model"
+                )
+            logger.warning(
+                "torch judge %r runs RANDOM-INIT weights on this host — "
+                "scores will mostly fail to parse; use an HTTP judge or "
+                "inject PipelineRunner(llm_judge=...) for real judging",
+                arg,
+            )
+            return get_backend(
+                "torch", model_config=MODEL_REGISTRY[arg](), max_new_tokens=64,
+                device=self.device,
+            )
+        raise ValueError(f"unknown judge_backend spec {spec!r}")
 
     # -- orchestration -----------------------------------------------------
 
