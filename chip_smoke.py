@@ -32,7 +32,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    and int8, layers 0 and 27 of 28, pads 0 and 12000 and a row whose pad
    is C, which must come out exactly m = -1e30, l = 0, o = 0), with o, m
    and l each held to its own limit and o / l to K2's output; K1, K2 and
-   K2p at G=2 (Qwen3-0.6B) and G=8 (the decode kernels' largest); K1 over
+   K2p at G=2 (Qwen3-0.6B) and G=8 (the decode kernels' largest); K1 and K2
+   at head_dim 256 (Gemma3-4B: KV=4, G=2) at the Gemma3 phase's batches
+   (GEMMA_SHAPES: map B=8 S=4096 and reduce B=8 S=512, C = S + 128), window
+   0 and 1024, bf16 and int8, K2 at fills whose window floor falls inside a
+   512-slot split (S, C - 1, 1500; 1500's inside a K1 tile too); K1 over
    the spec path's int8 cache (C=4233, whose scale rows TMA cannot
    address); K2 and K2p with the fill as an int32 tensor on the device (one
    past the cache, which the kernel clamps); and the prefill kernel at path (c)'s prefill (B=2, S = C =
@@ -58,7 +62,9 @@ Phases, each raising on failure (so any failure exits non-zero):
    every case of that kernel in phase 3 and no other, so the limits are
    shown to be tight enough to see such a fault. K2 and K2p are the two
    modes of one source and share both its passes, so the two count as one
-   family, and each of its faults must fail every K2 and K2p case;
+   family, and each of its faults must fail every K2 and K2p case; every K1
+   and K2 fault sits in code the head_dim-256 kernels run too, and must
+   fail their cases as well;
 5. timing at the main path's shapes (Llama-3.2-3B: L=28, H=24, KV=8,
    hd=128; prefill B=8 S=4096 C=4224, decode B=8 C=4224 fill=4200; verify
    B=8 Sq=9 C=4233 and B=8 Sq=1 C=4224): the kernel, the bound (bytes over
@@ -81,7 +87,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    (torch.matmul against the same weights in bf16, what the bf16 model
    pays, and torch._weight_int8pack_mm where the installed torch runs it
    on the card) and, at M = 8, the plain version; the kernels line takes
-   one decode step's 113 calls at M = 8;
+   one decode step's 113 calls at M = 8; K1 and K2 at head_dim 256 at
+   Gemma3-4B's map batch (B=8, S=4096, C=4224, KV=4, G=2, int8 cache of 34
+   layers, K2 at fill 4200) on a global layer and a sliding one (window
+   1024): kernel, bound, plain version and the library call on a bf16
+   copy with the windowed mask, K/V expanded to 8 heads;
 6. pipeline: the port's CLI runs map-reduce over data/vi_eval with
    Llama-3.2-3B at full width and depth (random bf16 weights from a seed),
    its greedy decode steps replayed as captured CUDA graphs: every document
@@ -98,6 +108,21 @@ Phases, each raising on failure (so any failure exits non-zero):
    and the head) + one per prefill forward (its head; and 112 more where
    B x S <= 128 without W8A8) exactly, K2p = K3 = 0, and
    summaries byte-identical to an eager run;
+6a. gemma3: the CLI's map-reduce over data/vi_eval with --models gemma3-4b
+   (Gemma3-4B at its published width and depth: 34 layers, dim 2560, 8/4
+   heads, head_dim 256, vocab 262,208, tied head, a 1024-slot window on the
+   layers where (i + 1) % 6 != 0; random bf16 weights from seed 0, byte
+   tokenizer, int8 KV cache, greedy), decode steps captured: every document
+   ok, ROUGE and the embedding metrics computed, K1 = 34 x prefill
+   forwards and K2 = 34 x decode steps exactly, K2p = K3 = GEMV = 0, every
+   batch one of phase 3's GEMMA_SHAPES; an eager control through
+   PipelineRunner byte-identical; then the map batch's last-position logits
+   through K1 (int8 and bf16 cache) against the dense windowed forward on a
+   bf16 cache within GEMMA_LOGITS_RTOL of the largest |logit|, with every
+   layer run global as a planted fault that must exceed it; K2p, K3, the
+   spec path and the slot loop must raise NotImplementedError naming
+   ROADMAP B4 at head_dim 256, launching nothing; wall, prefill and decode
+   seconds and steps, peak memory on ``[gemma3]`` lines;
 6b. weights: the pipeline phase's own weights (init_model(llama32_3b(), 0))
    written as an HF checkpoint (save_hf_checkpoint: 28 layers in four bf16
    shards, the embeddings in a fifth, and an index; into the temp dir, or
@@ -206,8 +231,10 @@ them just after; a kernel of the path that was not launched fails it. A
 replay of a captured step adds the launches its capture counted
 (``vnsum_tpu_torch/backend/capture.py``), so the counts are those of the
 steps run. The
-line before the last is a JSON object with one entry per kernel, whose
-``launches`` sums the path phases; the last line is the device record.
+line before the last is a JSON object with one entry per kernel (K1 and K2
+at head_dim 256 entries of their own), whose ``launches`` sums the path
+phases (the head_dim-256 entries: the Gemma3 phase's); the last line is the
+device record.
 Without a card the script exits non-zero and prints neither.
 """
 from __future__ import annotations
@@ -312,7 +339,10 @@ GEMV_GROUPS = {"q/k/v": ((3072, 1024, 1024), 3072), "gate/up": ((8192, 8192), 30
 # A fault must fail every case of its kernel's family (FAMILY) and no case
 # outside it: K2 and K2p share both passes of flash_decode.cu, so each of
 # its three faults must fail every K2 and every K2p case; each K1 fault
-# must fail every K1 case.
+# must fail every K1 case. Each sits in code that both head_dims run (K2's
+# templated passes, K1's shared softmax_tile and stage_addr), so it must
+# fail the head_dim-256 cases ("prefill hd=256 ...", "decode hd=256 ...")
+# as well.
 MUTANTS = (
     ("decode leaves out the last slot of every 512-slot split", "decode", "flash_decode.cu",
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
@@ -320,15 +350,15 @@ MUTANTS = (
      "flash_decode.cu", "s < n_live ? ex2(", "s < n_live - 1 ? ex2("),
     ("decode's in-block merge leaves out the last warp's 128 slots of o", "decode",
      "flash_decode.cu", "w < NWARPS; ++w) acc +=", "w < NWARPS - 1; ++w) acc +="),
-    ("prefill leaves out the last slot of every unmasked 128-slot tile", "prefill",
-     "flash_prefill.cu",
+    ("prefill leaves out the last slot of every unmasked tile (128 slots; 64 at head_dim 256)",
+     "prefill", "flash_prefill.cu",
      "      l_run[i] += p;\n",
-     "      if (!MASKED && nt == BN / 8 - 1 && tig == 3 && (e & 1)) p = 0.f;\n"
+     "      if (!MASKED && nt == TN / 8 - 1 && tig == 3 && (e & 1)) p = 0.f;\n"
      "      l_run[i] += p;\n"),
     ("prefill's consumers read K and V from the ring stage TMA did not fill for the tile",
      "prefill", "flash_prefill.cu",
-     "k_tile = smem_u32(ring + stage * STAGE_BYTES)",
-     "k_tile = smem_u32(ring + ((stage + 1) % STAGES) * STAGE_BYTES)"),
+     "return smem_u32(ring + stage * STAGE_BYTES_);",
+     "return smem_u32(ring + ((stage + 1) % STAGES) * STAGE_BYTES_);"),
     ("verify leaves out the last slot of every 512-slot split", "verify", "flash_verify.cu",
      "split * SPLIT + SPLIT - 1", "split * SPLIT + SPLIT - 2"),
     ("verify's in-block merge leaves out the last warp's 128 slots of o", "verify",
@@ -367,6 +397,22 @@ KERNELS = {
     # the same pallas_call in its return_partials=True mode
     "partials": {
         "name": "flash_decode_partials",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
+        "replaces": "vnsum_tpu/ops/decode_attention.py:381",
+    },
+    # K1 and K2 at head_dim 256 (Gemma3), kept apart in the kernels line: a
+    # kernel of its own in flash_prefill.cu, an instantiation of its own in
+    # flash_decode.cu; times at the map batch on a sliding layer (window
+    # 1024, 29 of Gemma3-4B's 34), launches those of the Gemma3 phase
+    "prefill_hd256": {
+        "name": "flash_prefill_attention (head_dim 256)",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_prefill.cu",
+        "replaces": "vnsum_tpu/ops/flash_attention.py:313",
+    },
+    "decode_hd256": {
+        "name": "flash_decode_attention (head_dim 256)",
         "route": "cuda",
         "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:381",
@@ -429,15 +475,18 @@ def phase_build() -> float:
                 log(f"[build] {name} {function}: {line.strip()}")
     log(f"[build] {len(logs)} kernel libraries built in {seconds:.2f}s")
     smem = kernels.load("flash_prefill").vnsum_flash_prefill_smem
-    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    log(f"[build] flash_prefill dynamic shared memory: int8 {smem(1)} B, bf16 {smem(0)} B")
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for hd in (128, 256):
+        log(f"[build] flash_prefill dynamic shared memory at head_dim {hd}: "
+            f"int8 {smem(1, hd)} B, bf16 {smem(0, hd)} B")
     lib = va._library()
     for R in (3, 27):
         log(f"[build] flash_verify dynamic shared memory at Sq*G={R}: "
             f"int8 {lib.vnsum_flash_verify_smem(R, 1)} B, bf16 {lib.vnsum_flash_verify_smem(R, 0)} B")
     lib = da._library()
-    log(f"[build] flash_decode pass 1 dynamic shared memory: int8 "
-        f"{lib.vnsum_flash_decode_smem(1)} B, bf16 {lib.vnsum_flash_decode_smem(0)} B")
+    for hd in (128, 256):
+        log(f"[build] flash_decode pass 1 dynamic shared memory at head_dim {hd}: int8 "
+            f"{lib.vnsum_flash_decode_smem(1, hd)} B, bf16 {lib.vnsum_flash_decode_smem(0, hd)} B")
     return seconds
 
 
@@ -482,7 +531,7 @@ def compare(torch, name, case, got, want, worst) -> None:
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    if name == "prefill":
+    if name.startswith("prefill"):
         limit = PREFILL_ROW_RTOL * want.abs().amax(dim=-1, keepdim=True)
     else:
         limit = DECODE_ATOL + DECODE_RTOL * want.abs()
@@ -554,6 +603,12 @@ STRATEGY_SHAPES = tuple((B, S) for B in (1, 2, 4, 8) for S in (512, 1024, 2048, 
 # the JAX package as here
 JUDGE_SHAPES = tuple((B, S) for B in (2, 8) for S in (1024, 2048))
 JUDGE_NEW_TOKENS = 256
+# the Gemma3 phase's batches: its map and reduce batches (the byte
+# tokenizer's, as the pipeline phase's), with their pads: 7 documents and an
+# all-pad filler row
+GEMMA_SHAPES = {4096: [0, 37, 400, 1000, 2500, 3000, 4095, 4096],
+                512: [0, 5, 60, 128, 200, 300, 511, 512]}
+GEMMA_KV, GEMMA_G, GEMMA_HD, GEMMA_WINDOW = 4, 2, 256, 1024
 
 
 def phase_correctness(torch) -> dict:
@@ -567,7 +622,8 @@ def phase_correctness(torch) -> dict:
     dev = torch.device("cuda")
     KV, G, hd = 8, 3, 128
     H = KV * G
-    worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0, "partials": 0.0, "gemv": 0.0}
+    worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0, "partials": 0.0, "gemv": 0.0,
+             "prefill_hd256": 0.0, "decode_hd256": 0.0}
 
     def pads_of(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
@@ -584,17 +640,18 @@ def phase_correctness(torch) -> dict:
                 FAILED.append(f"verify {case}: row {row} queries {queries} see no key "
                               "and must come out 0")
 
-    def prefill(case, q, cache, layer, pads, window, q_offset, empty_row=None, g=G):
+    def prefill(case, q, cache, layer, pads, window, q_offset, empty_row=None, g=G,
+                key="prefill"):
         got = fa.flash_prefill_attention(q, cache, layer, pads, g, window, q_offset)
         want = fa.flash_prefill_attention_ref(q, cache, layer, pads, g, window, q_offset)
-        compare(torch, "prefill", f"prefill {case}", got, want, worst)
+        compare(torch, key, f"prefill {case}", got, want, worst)
         if empty_row is not None and float(got[empty_row].float().abs().max()) != 0.0:
             FAILED.append(f"prefill {case}: row {empty_row} sees no key and must come out 0")
 
-    def decode(case, q, cache, layer, pads, fill, window, empty_row=None, g=G):
+    def decode(case, q, cache, layer, pads, fill, window, empty_row=None, g=G, key="decode"):
         got = da.flash_decode_attention(q, cache, layer, pads, fill, g, window)
         want = da.flash_decode_attention_ref(q, cache, layer, pads, fill, g, window)
-        compare(torch, "decode", f"decode {case}", got, want, worst)
+        compare(torch, key, f"decode {case}", got, want, worst)
         if empty_row is not None and float(got[empty_row].float().abs().max()) != 0.0:
             FAILED.append(f"decode {case}: row {empty_row} sees no key and must come out 0")
 
@@ -668,6 +725,33 @@ def phase_correctness(torch) -> dict:
                                "(judge batch)", rand_q(torch, (B, 1, H, hd), 72 + B + fill, dev),
                                cache, layer, pads, fill, 0)
                 del cache
+    torch.cuda.empty_cache()
+
+    # Gemma3-4B's K1 and K2 at head_dim 256 (KV=4, G=2) at the Gemma3
+    # phase's batches (C = S + 128), on a global layer (window 0) and a
+    # sliding one (1024), bf16 and int8. K2's fills put the window floor
+    # inside a 512-slot split (fill S: floor 3073 or, at S=512, none; C - 1:
+    # 3200; 1500: 477, inside K1's 64-slot tile 448-511 too); K1's floor,
+    # q - 1023 for a block's first query 32 k, falls inside a tile in every
+    # block, and rows whose pad passes the fill see no key
+    for S, pads_h in GEMMA_SHAPES.items():
+        B, C, layer = len(pads_h), S + 128, 1
+        pads = pads_of(pads_h)
+        for quantized in (True, False):
+            cache = make_cache(torch, 2, B, GEMMA_KV, C, GEMMA_HD, quantized, 80 + S + quantized,
+                               dev)
+            for window in (0, GEMMA_WINDOW):
+                q = rand_q(torch, (B, S, GEMMA_KV * GEMMA_G, GEMMA_HD), 81 + S + window, dev)
+                prefill(f"hd=256 int8={quantized} B={B} S={S} C={C} window={window} "
+                        f"layer={layer} (gemma3 batch)", q, cache, layer, pads, window, 0,
+                        empty_row=B - 1, g=GEMMA_G, key="prefill_hd256")
+                for fill in (S, C - 1) + ((1500,) if S == 4096 and window else ()):
+                    decode(f"hd=256 int8={quantized} B={B} C={C} fill={fill} window={window} "
+                           f"layer={layer} (gemma3 batch)",
+                           rand_q(torch, (B, 1, GEMMA_KV * GEMMA_G, GEMMA_HD), 82 + fill, dev),
+                           cache, layer, pads, fill, window, g=GEMMA_G, key="decode_hd256")
+                del q
+            del cache
     torch.cuda.empty_cache()
 
     # K1, K2 and K2p at the other group sizes the kernels take: G=2
@@ -1072,71 +1156,26 @@ def phase_timing(torch, worst) -> dict:
     """Times each kernel, its plain version and the library call at the main
     path's shapes, and holds one output of each kernel against its plain
     version's as phase 3 does (the largest |err| goes into ``worst``)."""
-    from vnsum_tpu_torch.ops import decode_attention as da
     from vnsum_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    F = torch.nn.functional
     L, B, KV, G, hd = 28, 8, 8, 3, 128
     H = KV * G
     S, C, fill = 4096, 4096 + 128, 4200
     cache = make_cache(torch, L, B, KV, C, hd, True, 3, dev)
     pads_h = [64 * i for i in range(B)]
-    pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
-    q = rand_q(torch, (B, S, H, hd), 5, dev)
-    qd = rand_q(torch, (B, 1, H, hd), 6, dev)
     lib_layers = 4
     k_lib, v_lib = library_kv(torch, cache, lib_layers, G)
-    kpos = torch.arange(C, device=dev)
-    qpos = torch.arange(S, device=dev)
-    pre_mask = ((kpos[None, None, :] >= pads.long()[:, None, None])
-                & (kpos[None, None, :] <= qpos[None, :, None]))[:, None]
-    dec_mask = ((kpos >= pads.long()[:, None]) & (kpos <= fill))[:, None, None, :]
-    qt = q.transpose(1, 2)
-    qdt = qd.transpose(1, 2)
-
     out = {}
-    # prefill: causal pairs this input needs, per row (S - pad)(S - pad + 1)/2
-    pairs = sum((S - p) * (S - p + 1) // 2 for p in pads_h)
-    flops = 4 * hd * H * pairs
-    visible = sum(S - p for p in pads_h)  # cache slots the prefill reads per head
-    bytes_ = (2 * q.numel() * 2                     # q in, out
-              + 2 * visible * KV * hd * 1          # int8 K and V of the layer
-              + 2 * visible * KV * 4)              # their f32 scales
-    ms = time_ms(torch, lambda i: fa.flash_prefill_attention(
-        q, cache, i % L, pads, G, 0, 0), n=2 * L)
-    plain = time_ms(torch, lambda i: fa.flash_prefill_attention_ref(
-        q, cache, i % L, pads, G, 0, 0), n=1, reps=3)
-    library = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qt, k_lib[i % lib_layers], v_lib[i % lib_layers], attn_mask=pre_mask), n=2 * lib_layers)
-    out["prefill"] = timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
-    compare(torch, "prefill", f"prefill int8=True B={B} S={S} C={C} layer={L - 1} (timing inputs)",
-            fa.flash_prefill_attention(q, cache, L - 1, pads, G, 0, 0),
-            fa.flash_prefill_attention_ref(q, cache, L - 1, pads, G, 0, 0), worst)
-    # decode: one query per row over slots pad_b..fill; on bf16 tensor
-    # cores, 2 hd FLOP of QK and 2 x 2 hd of PV (p_hi and p_lo) per visible
-    # (query head, slot) pair
-    visible = sum(fill + 1 - p for p in pads_h)
-    flops = 6 * hd * H * visible
-    bytes_ = 2 * qd.numel() * 2 + 2 * visible * KV * hd * 1 + 2 * visible * KV * 4
-    ms = time_ms(torch, lambda i: da.flash_decode_attention(
-        qd, cache, i % L, pads, fill, G, 0), n=4 * L)
-    decode_passes(torch, f"decode int8=True B={B} C={C} fill={fill}", ms,
-                  lambda i: da.flash_decode_attention(qd, cache, i % L, pads, fill, G, 0), 4 * L)
-    plain = time_ms(torch, lambda i: da.flash_decode_attention_ref(
-        qd, cache, i % L, pads, fill, G, 0), n=L)
-    library = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qdt, k_lib[i % lib_layers], v_lib[i % lib_layers], attn_mask=dec_mask), n=4 * lib_layers)
-    out["decode"] = timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
-    compare(torch, "decode", f"decode int8=True B={B} C={C} fill={fill} layer={L - 1} "
-            "(timing inputs)", da.flash_decode_attention(qd, cache, L - 1, pads, fill, G, 0),
-            da.flash_decode_attention_ref(qd, cache, L - 1, pads, fill, G, 0), worst)
+    out["prefill"], out["decode"] = time_prefill_decode(
+        torch, worst, "", cache, (k_lib, v_lib), rand_q(torch, (B, S, H, hd), 5, dev),
+        rand_q(torch, (B, 1, H, hd), 6, dev), pads_h, fill, G, 0)
 
     # verify at the slot segment's shape on the same cache (Sq=1, C=4224,
     # fills S + t_b), then at the spec path's (Sq=9, C=4233, fills S + e_b)
     out["verify_slot"] = time_verify(
         torch, worst, cache, k_lib, v_lib, pads_h, [S + 16 * i for i in range(B)], 1, 31)
-    del cache, k_lib, v_lib, q
+    del cache, k_lib, v_lib
     torch.cuda.empty_cache()
     C = S + 128 + 9
     cache = make_cache(torch, L, B, KV, C, hd, True, 4, dev)
@@ -1183,7 +1222,105 @@ def phase_timing(torch, worst) -> dict:
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, "
             f"library {rec['library_ms']:.4f} ms (normalised output)")
     out["gemv"] = time_gemv(torch, worst)
+    out.update(time_gemma_kernels(torch, worst))
     raise_if_failed()
+    return out
+
+
+def time_prefill_decode(torch, worst, tag: str, cache, lib, q, qd, pads_h, fill, G,
+                        window) -> tuple[dict, dict]:
+    """K1 and K2 on one int8 cache (its layers called in turn) at ``window``:
+    the kernel, its plain version and the library call
+    (scaled_dot_product_attention with the (windowed) mask on the bf16
+    copy ``lib`` of the cache's first layers, K/V expanded to the query
+    heads), and the bound of what these inputs need: each visible K/V slot
+    and scale read once per KV head (a windowed prefill still reads every
+    slot from the pad on, once), q read and the output written once; K1's 4
+    hd FLOP per visible (query head, slot) pair, K2's 6 hd (PV run twice, on
+    p_hi and p_lo); K2's two passes apart (decode_passes). One output of
+    each is held against its plain version as in phase 3 (``worst`` keys
+    ``prefill`` and ``decode`` + ``tag``). Returns the two records."""
+    from vnsum_tpu_torch.ops import decode_attention as da
+    from vnsum_tpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    L, B, KV, C, hd = cache["k"].shape
+    S, H = q.shape[1], q.shape[2]
+    dev = q.device
+    k_lib, v_lib = lib
+    pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
+    kpos, qpos = torch.arange(C, device=dev), torch.arange(S, device=dev)
+    pre_mask = ((kpos[None, None, :] >= pads.long()[:, None, None])
+                & (kpos[None, None, :] <= qpos[None, :, None]))
+    dec_mask = (kpos >= pads.long()[:, None]) & (kpos <= fill)
+    if window:
+        pre_mask = pre_mask & (kpos[None, None, :] > qpos[None, :, None] - window)
+        dec_mask = dec_mask & (kpos > fill - window)
+    pre_mask, dec_mask = pre_mask[:, None], dec_mask[:, None, None, :]
+    qt, qdt = q.transpose(1, 2), qd.transpose(1, 2)
+    case = (f"{tag.replace('_hd', 'hd=') + ' ' if tag else ''}int8=True B={B}"
+            + (f" window={window}" if window else ""))
+    # prefill: query q of row b sees min(q - pad_b + 1, window) slots
+    pairs = sum(min(qq - p + 1, window or S) for p in pads_h for qq in range(p, S))
+    flops = 4 * hd * H * pairs
+    bytes_ = 2 * q.numel() * 2 + 2 * sum(S - p for p in pads_h) * KV * (hd + 4)
+    ms = time_ms(torch, lambda i: fa.flash_prefill_attention(
+        q, cache, i % L, pads, G, window, 0), n=2 * L)
+    plain = time_ms(torch, lambda i: fa.flash_prefill_attention_ref(
+        q, cache, i % L, pads, G, window, 0), n=1, reps=3)
+    library = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, k_lib[i % len(k_lib)], v_lib[i % len(k_lib)], attn_mask=pre_mask),
+        n=2 * len(k_lib))
+    pre = timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
+    compare(torch, "prefill" + tag, f"prefill {case} S={S} C={C} layer={L - 1} (timing inputs)",
+            fa.flash_prefill_attention(q, cache, L - 1, pads, G, window, 0),
+            fa.flash_prefill_attention_ref(q, cache, L - 1, pads, G, window, 0), worst)
+    # decode: one query per row over slots max(pad_b, fill - window + 1)..fill
+    visible = sum(fill + 1 - max(p, fill - window + 1 if window else 0) for p in pads_h)
+    flops = 6 * hd * H * visible
+    bytes_ = 2 * qd.numel() * 2 + 2 * visible * KV * (hd + 4)
+    ms = time_ms(torch, lambda i: da.flash_decode_attention(
+        qd, cache, i % L, pads, fill, G, window), n=4 * L)
+    decode_passes(torch, f"decode {case} C={C} fill={fill}", ms,
+                  lambda i: da.flash_decode_attention(qd, cache, i % L, pads, fill, G, window),
+                  4 * L)
+    plain = time_ms(torch, lambda i: da.flash_decode_attention_ref(
+        qd, cache, i % L, pads, fill, G, window), n=L)
+    library = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qdt, k_lib[i % len(k_lib)], v_lib[i % len(k_lib)], attn_mask=dec_mask),
+        n=4 * len(k_lib))
+    dec = timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
+    compare(torch, "decode" + tag, f"decode {case} C={C} fill={fill} layer={L - 1} "
+            "(timing inputs)", da.flash_decode_attention(qd, cache, L - 1, pads, fill, G, window),
+            da.flash_decode_attention_ref(qd, cache, L - 1, pads, fill, G, window), worst)
+    return pre, dec
+
+
+def time_gemma_kernels(torch, worst) -> dict:
+    """K1 and K2 at head_dim 256 at Gemma3-4B's map batch (B=8, S=4096,
+    C=4224, KV=4, G=2, an int8 cache of 8 layers, 69 MB of K/V a layer, so
+    each call finds its layer cold in L2; pads 64 b, K2 at fill 4200) on a
+    global layer (window 0) and a sliding one (1024), through
+    time_prefill_decode. Returns the sliding layer's records."""
+    dev = torch.device("cuda")
+    L, B, KV, G, hd = 8, 8, GEMMA_KV, GEMMA_G, GEMMA_HD
+    S, C, fill = 4096, 4096 + 128, 4200
+    cache = make_cache(torch, L, B, KV, C, hd, True, 13, dev)
+    lib = library_kv(torch, cache, 4, G)
+    q = rand_q(torch, (B, S, KV * G, hd), 14, dev)
+    qd = rand_q(torch, (B, 1, KV * G, hd), 15, dev)
+    out = {}
+    for window in (0, GEMMA_WINDOW):
+        kind = "sliding" if window else "global"
+        pre, dec = time_prefill_decode(torch, worst, "_hd256", cache, lib, q, qd,
+                                       [64 * i for i in range(B)], fill, G, window)
+        for name, rec in (("prefill", pre), ("decode", dec)):
+            log(f"[time] {name} hd=256 {kind} (window {window}): kernel {rec['ms']:.4f} ms, "
+                f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+                f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms")
+        out["prefill_hd256"], out["decode_hd256"] = pre, dec  # the sliding layer's last
+    del cache, lib, q, qd
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1504,6 +1641,10 @@ def time_evaluation() -> None:
     semantic.bert_scores = timed("bertscore", semantic.bert_scores)
 
 
+# the kernel wrappers' launch counters, as read_launches names them
+COUNTERS = ("prefill", "decode", "verify", "partials", "gemv")
+
+
 def read_launches() -> dict:
     from vnsum_tpu_torch.ops import decode_attention, flash_attention, int8_matmul, verify_attention
 
@@ -1522,19 +1663,20 @@ def check_launches(path: str, launches: dict, need: dict) -> None:
     log(f"[launches] {path}: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
 
 
-def check_run(res: dict, docs, gen_dir: Path, approach: str = "mapreduce") -> tuple[dict, dict]:
+def check_run(res: dict, docs, gen_dir: Path, approach: str = "mapreduce",
+              model: str = "llama3.2:3b") -> tuple[dict, dict]:
     """A pipeline run's record: every document ok, every summary written,
     ROUGE, the sentence cosine and BERTScore computed (logged with the
     evaluation's wall since the last reset). Returns (record, {doc name:
     summary})."""
-    rec = res["summarization"]["llama3.2:3b"]
+    rec = res["summarization"][model]
     if rec["successful"] != len(docs) or rec["failed"] != 0:
         raise AssertionError(f"documents: {rec['successful']} ok, {rec['failed']} failed")
-    out_dir = Path(f"{gen_dir}_{approach}_llama3_2_3b")
+    out_dir = Path(f"{gen_dir}_{approach}_{model.replace(':', '_').replace('.', '_')}")
     written = sorted(p.name for p in out_dir.glob("*.txt"))
     if written != [d.name for d in docs]:
         raise AssertionError(f"summaries written: {written}")
-    ev = res["evaluation"]["llama3.2:3b"]
+    ev = res["evaluation"][model]
     rouge = ev["rouge_scores"]
     if not all(math.isfinite(v) for v in rouge.values()):
         raise AssertionError(f"ROUGE not computed: {rouge}")
@@ -1562,21 +1704,27 @@ def check_captured(path: str, st: dict) -> None:
             f"captures for {st['decode_steps']} decode steps")
 
 
-def phase_pipeline(torch) -> tuple[dict, dict]:
-    """The plain map-reduce run through the CLI, its decode steps captured;
-    then the same run through PipelineRunner on a backend built with
-    cuda_graphs=False, whose summaries must be byte-identical. Returns
-    (launches, summaries) of the captured run."""
+def captured_and_eager(torch, name: str, config_fn, label: str) -> dict:
+    """The CLI's map-reduce over data/vi_eval with --models ``name`` (128
+    new tokens, int8 cache, greedy), its decode steps captured; then the
+    same run through PipelineRunner on a backend of ``config_fn()`` built
+    with cuda_graphs=False (every step eager). Each run: every document
+    ok, every summary written, ROUGE and the embedding metrics computed;
+    the captured run's replays plus one step a capture all its steps; the
+    eager run the same decode steps, none replayed; the two runs' summaries
+    byte-identical and their generated id rows (each run's detokenized
+    rows, in order) equal. Logs both on ``[label]`` lines; returns the
+    captured run's launches, record, engine stats, summaries, id rows and
+    peak memory, and the eager run's backend."""
     from vnsum_tpu_torch.backend.engine import TorchBackend
-    from vnsum_tpu_torch.models import llama32_3b
     from vnsum_tpu_torch.pipeline import cli
     from vnsum_tpu_torch.pipeline.runner import PipelineRunner
 
-    n_layers = llama32_3b().n_layers
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+
     def cli_args(out: Path) -> list:
         return [
-            "--approach", "mapreduce", "--models", "llama3.2:3b",
+            "--approach", "mapreduce", "--models", name,
             "--docs-dir", str(ROOT / "data/vi_eval/doc"),
             "--summary-dir", str(ROOT / "data/vi_eval/summary"),
             "--generated-summaries-dir", str(out / "gen"),
@@ -1585,71 +1733,235 @@ def phase_pipeline(torch) -> tuple[dict, dict]:
             "--max-new-tokens", "128", "--device", "cuda",
         ]
 
+    rows: dict[str, list] = {"captured": [], "eager": []}
+    detok = TorchBackend._detok
+
+    def recording(run):
+        def call(self, ids, extra_eos=()):
+            rows[run].append(ids.tolist())
+            return detok(self, ids, extra_eos)
+        return call
+
     with tempfile.TemporaryDirectory() as tmp:
-        gen_dir = Path(tmp) / "gen"
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        rc = cli.main(cli_args(Path(tmp)))
+        TorchBackend._detok = recording("captured")
+        try:
+            rc = cli.main(cli_args(Path(tmp)))
+        finally:
+            TorchBackend._detok = detok
         wall = time.perf_counter() - t0
         launches = read_launches()
         if rc != 0:
-            raise AssertionError(f"pipeline CLI exited {rc}")
-        res = json.loads(next((Path(tmp) / "results").glob("pipeline_results_*.json")).read_text())
-        rec, summaries = check_run(res["results"], docs, gen_dir)
-        rouge = res["results"]["evaluation"]["llama3.2:3b"]["rouge_scores"]
-        eng = res["results"]["engine"]["llama3.2:3b"]
-        check_captured("pipeline", eng)
-        if launches["decode"] != n_layers * eng["decode_steps"]:
-            raise AssertionError(f"pipeline: decode kernel launched {launches['decode']} "
-                                 f"times for {eng['decode_steps']} decode steps")
-        check_launches("pipeline", launches, {
-            "prefill": n_layers * eng["prefill_forwards"],
-            "decode": n_layers * eng["decode_steps"]})
+            raise AssertionError(f"{label} CLI exited {rc}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        res = json.loads(next((Path(tmp) / "results").glob("pipeline_results_*.json")).read_text())
+        rec, summaries = check_run(res["results"], docs, Path(tmp) / "gen", model=name)
+        rouge = res["results"]["evaluation"][name]["rouge_scores"]
+        eng = res["results"]["engine"][name]
+        check_captured(label, eng)
 
-        # control: the same run with every decode step eager
         cfg = cli.config_from_args(cli.build_parser().parse_args(cli_args(Path(tmp) / "eager")))
         eager = []
 
         def factory(_):
             eager.append(TorchBackend(
-                llama32_3b(), batch_size=cfg.batch_size, max_new_tokens=cfg.max_new_tokens,
+                config_fn(), batch_size=cfg.batch_size, max_new_tokens=cfg.max_new_tokens,
                 cuda_graphs=False, device="cuda"))
             return eager[-1]
 
         t0 = time.perf_counter()
         runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
-        eager_res = runner.run()
+        TorchBackend._detok = recording("eager")
+        try:
+            eager_res = runner.run()
+        finally:
+            TorchBackend._detok = detok
         eager_wall = time.perf_counter() - t0
         if runner.failures:
-            raise AssertionError(f"eager control failures: {runner.failures}")
+            raise AssertionError(f"{label} eager control failures: {runner.failures}")
         _, eager_summaries = check_run(
             {"summarization": eager_res.summarization, "evaluation": eager_res.evaluation},
-            docs, Path(tmp) / "eager" / "gen")
-        est = eager[0].stats
-        if est.captured_steps or est.graph_captures or est.decode_steps != eng["decode_steps"]:
-            raise AssertionError(f"eager control: {est.decode_steps} decode steps, "
-                                 f"{est.captured_steps} replayed, {est.graph_captures} captures")
-        if eager_summaries != summaries:
-            raise AssertionError("pipeline summaries differ with capture on and off: "
-                                 + agreement([eager_summaries[d.name] for d in docs],
-                                             [summaries[d.name] for d in docs]))
-    log(f"[pipeline] {rec['successful']}/{len(docs)} docs ok, {rec['failed']} failed, "
+            docs, Path(tmp) / "eager" / "gen", model=name)
+    est = eager[0].stats
+    if est.captured_steps or est.graph_captures or est.decode_steps != eng["decode_steps"]:
+        raise AssertionError(f"{label} eager control: {est.decode_steps} decode steps, "
+                             f"{est.captured_steps} replayed, {est.graph_captures} captures")
+    if eager_summaries != summaries:
+        raise AssertionError(f"{label} summaries differ with capture on and off: "
+                             + agreement([eager_summaries[d.name] for d in docs],
+                                         [summaries[d.name] for d in docs]))
+    if rows["eager"] != rows["captured"] or not rows["captured"]:
+        raise AssertionError(f"{label} generated ids differ with capture on and off")
+    decode_s = eng["phase_seconds"].get("decode", 0.0)
+    ids = [t for r in rows["captured"] for t in r if t != eager[0].tok.pad_id]
+    log(f"[{label}] {rec['successful']}/{len(docs)} docs ok, {rec['failed']} failed, "
         f"chunks {rec['total_chunks']}, wall {wall:.2f}s, "
         f"prefill {eng['phase_seconds'].get('prefill', 0.0):.3f}s "
-        f"({eng['prefill_forwards']} forwards), "
-        f"decode {eng['phase_seconds'].get('decode', 0.0):.3f}s "
-        f"({eng['decode_steps']} steps: {eng['graph_captures']} captured groups, "
-        f"{eng['captured_steps']} replays), generated tokens {eng['generated_tokens']}, "
-        f"batches {eng['by_bucket']}, decode steps by batch {eng['steps_by_bucket']}, "
-        f"peak memory {peak_gb:.2f} GB")
-    log(f"[pipeline] eager control (cuda_graphs=False): wall {eager_wall:.2f}s, decode "
+        f"({eng['prefill_forwards']} forwards), decode {decode_s:.3f}s ({eng['decode_steps']} "
+        f"steps: {eng['graph_captures']} captured groups, {eng['captured_steps']} replays; "
+        f"{1e3 * decode_s / max(eng['decode_steps'], 1):.2f} ms a step), generated tokens "
+        f"{eng['generated_tokens']}, batches {eng['by_bucket']}, decode steps by batch "
+        f"{eng['steps_by_bucket']}, peak memory {peak_gb:.2f} GB")
+    log(f"[{label}] eager control (cuda_graphs=False): wall {eager_wall:.2f}s, decode "
         f"{est.phase_seconds.get('decode', 0.0):.3f}s ({est.decode_steps} steps) against "
-        f"{eng['phase_seconds'].get('decode', 0.0):.3f}s captured; summaries byte-identical "
-        f"({len(docs)}/{len(docs)})")
-    log(f"[pipeline] rouge {json.dumps(rouge)}")
-    return launches, summaries
+        f"{decode_s:.3f}s captured; summaries byte-identical ({len(docs)}/{len(docs)}, "
+        f"{sum(map(len, summaries.values()))} bytes) and generated ids equal ({len(ids)} "
+        f"non-pad ids in {len(rows['captured'])} rows, {len(set(ids))} distinct)")
+    log(f"[{label}] rouge {json.dumps(rouge)}")
+    return {"launches": launches, "rec": rec, "eng": eng, "summaries": summaries,
+            "rows": rows["captured"], "peak_gb": peak_gb, "eager": eager[0]}
+
+
+def phase_pipeline(torch) -> tuple[dict, dict]:
+    """The plain map-reduce run on Llama-3.2-3B through the CLI and its
+    eager control (captured_and_eager); K1 at least once a layer a prefill
+    forward, K2 exactly once a layer a decode step. Returns (launches,
+    summaries) of the captured run."""
+    from vnsum_tpu_torch.models import llama32_3b
+
+    n_layers = llama32_3b().n_layers
+    run = captured_and_eager(torch, "llama3.2:3b", llama32_3b, "pipeline")
+    launches, eng = run["launches"], run["eng"]
+    if launches["decode"] != n_layers * eng["decode_steps"]:
+        raise AssertionError(f"pipeline: decode kernel launched {launches['decode']} "
+                             f"times for {eng['decode_steps']} decode steps")
+    check_launches("pipeline", launches, {
+        "prefill": n_layers * eng["prefill_forwards"],
+        "decode": n_layers * eng["decode_steps"]})
+    return launches, run["summaries"]
+
+
+# the Gemma3 phase's dense logits gate: the map batch's last-position
+# logits through K1 (the engine's prefill, int8 cache; and a bf16 cache)
+# against the model's dense windowed forward on a bf16 cache, as max |K1 -
+# dense| over the 7 document rows and the vocab divided by the largest
+# |dense| logit. Both run the same bf16 weights; K1 rounds p to bf16
+# against its running max and the dense path rounds the softmax, and the
+# int8 cache rounds each K and V row to 1/254 of its largest value: bf16
+# and int8 roundings carried through 34 layers, of which the sandwich norms
+# rescale every layer's attention output to unit size. The limit is the
+# spec gate's. The planted fault (K1 at window 0 on every layer: the
+# sliding window lost) must exceed it.
+GEMMA_LOGITS_RTOL = 0.1
+
+
+def gemma_logits_gate(torch, engine, docs) -> None:
+    from vnsum_tpu_torch.backend.base import left_pad_batch
+    from vnsum_tpu_torch.models.llama import (
+        init_kv_cache,
+        prefill_attention_mask,
+        prefill_positions,
+    )
+
+    dev = torch.device("cuda")
+    tok, model, cfg = engine.tok, engine.model, engine.cfg
+    ids = tok.encode_batch([d.read_text(encoding="utf-8") for d in docs], add_bos=True)
+    B, S = 8, 4096
+    tokens_np, pads_np = left_pad_batch(ids, B, S, tok.pad_id)
+    tokens = torch.from_numpy(tokens_np).to(dev)
+    pads = torch.from_numpy(pads_np).to(dev)
+    rows = len(docs)  # the filler row sees no key: K1 gives 0, dense a uniform average
+    with torch.inference_mode():
+        dense = model(tokens, prefill_positions(pads, S), init_kv_cache(cfg, B, S, device=dev),
+                      0, prefill_attention_mask(pads, S, S), last_only=True)[:rows, -1].float()
+        scale = float(dense.abs().amax())
+        windows = engine.windows
+        out = {}
+        for run, quantized, fault in (("int8 cache", True, False), ("bf16 cache", False, False),
+                                      ("every layer global (planted)", True, True)):
+            engine.windows = [0] * cfg.n_layers if fault else windows
+            try:
+                got = engine._prefill_forward(
+                    tokens, pads, B, S, S,
+                    init_kv_cache(cfg, B, S, quantized=quantized, device=dev))
+            finally:
+                engine.windows = windows
+            out[run] = float((got[:rows, -1].float() - dense).abs().amax()) / scale
+    log(f"[gemma3] map batch's last-position logits through K1 against the dense windowed "
+        f"forward (bf16 cache), share of the largest |logit| {scale:.3f}: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in out.items()) + f"; limit {GEMMA_LOGITS_RTOL:g}")
+    bad = [k for k, v in out.items() if (v > GEMMA_LOGITS_RTOL) != ("planted" in k)]
+    if bad:
+        raise AssertionError(f"gemma3 logits gate: {bad} on the wrong side of the limit: {out}")
+    torch.cuda.empty_cache()
+
+
+def gemma_b4_raises(torch, engine) -> None:
+    """What waits for ROADMAP B4 refuses on the card, before any launch:
+    K2p and K3 at head_dim 256, and the spec path and the slot loop of a
+    Gemma3 engine, which run K3. None may carry on through dense attention
+    or a plain version."""
+    from vnsum_tpu_torch.core.config import GenerationConfig
+    from vnsum_tpu_torch.ops.decode_attention import flash_decode_partials
+    from vnsum_tpu_torch.ops.verify_attention import flash_spec_verify_attention
+
+    dev = torch.device("cuda")
+    cache = make_cache(torch, 1, 2, GEMMA_KV, 256, GEMMA_HD, True, 5, dev)
+    pads = torch.zeros(2, dtype=torch.int32, device=dev)
+    q = rand_q(torch, (2, 1, GEMMA_KV * GEMMA_G, GEMMA_HD), 6, dev)
+    before = read_launches()
+    calls = {
+        "K2p": lambda: flash_decode_partials(q, cache, 0, pads, 100, GEMMA_G),
+        "K3": lambda: flash_spec_verify_attention(q, cache, 0, pads, pads + 100, GEMMA_G),
+        "spec path": lambda: engine.generate(["a b c"], config=GenerationConfig(spec_k=8),
+                                             references=["a b c"]),
+        "slot loop": lambda: engine.start_slot_loop(8),
+    }
+    for what, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as err:
+            if "B4" not in str(err):
+                raise AssertionError(f"gemma3 {what}: raised without naming B4: {err}")
+        else:
+            raise AssertionError(f"gemma3 {what} at head_dim 256 ran; it must raise (B4)")
+    if read_launches() != before:
+        raise AssertionError("gemma3: a refused call launched a kernel")
+    log("[gemma3] K2p, K3, the spec path and the slot loop raise NotImplementedError naming "
+        "ROADMAP B4 at head_dim 256, with no launch")
+
+
+def phase_gemma(torch) -> dict:
+    """Gemma3-4B at its published width and depth (34 layers, dim 2560, 8/4
+    heads, head_dim 256, intermediate 10240, vocab 262,208, tied head, a
+    1024-slot window on the layers where (i + 1) % 6 != 0), random bf16
+    weights from seed 0, byte tokenizer: map-reduce through the CLI and its
+    eager control (captured_and_eager), K1 = 34 x prefill forwards and K2 =
+    34 x decode steps exactly, K2p = K3 = GEMV = 0, every batch a
+    GEMMA_SHAPES batch that phase 3 checked; then the dense logits gate
+    (gemma_logits_gate) on the control's model, and what waits for B4
+    refused (gemma_b4_raises). Random Gemma3 weights repeat
+    a prompt's last token (the embedding, scaled by sqrt(dim), outweighs
+    the layers' sum), whitespace after the reduce prompts, so the summaries
+    strip to empty and the generated ids carry the comparison. Returns the
+    captured run's launches."""
+    from vnsum_tpu_torch.models import gemma3_4b
+
+    n_layers = gemma3_4b().n_layers
+    run = captured_and_eager(torch, "gemma3-4b", gemma3_4b, "gemma3")
+    launches, eng = run["launches"], run["eng"]
+    need = {"prefill": n_layers * eng["prefill_forwards"],
+            "decode": n_layers * eng["decode_steps"], "partials": 0, "verify": 0, "gemv": 0}
+    if any(launches[k] != n for k, n in need.items()):
+        raise AssertionError(f"gemma3: launches {launches}, the engine record implies {need}")
+    batches = {tuple(int(part.split("=")[1]) for part in b.split(",")) for b in eng["by_bucket"]}
+    if not batches <= {(8, S) for S in GEMMA_SHAPES}:
+        raise AssertionError(f"gemma3: batches {sorted(batches)} outside phase 3's "
+                             f"{sorted(GEMMA_SHAPES)} at B=8")
+    log(f"[launches] gemma3: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f" (K1 = {n_layers} x {eng['prefill_forwards']} prefill forwards, K2 = {n_layers} "
+        f"x {eng['decode_steps']} decode steps, exactly); generated row 0 begins "
+        f"{run['rows'][0][:8]}")
+    t0 = time.perf_counter()
+    gemma_logits_gate(torch, run["eager"], sorted((ROOT / "data/vi_eval/doc").glob("*.txt")))
+    log(f"[gemma3] logits gate {time.perf_counter() - t0:.2f}s")
+    gemma_b4_raises(torch, run["eager"])
+    del run
+    torch.cuda.empty_cache()
+    return launches
 
 
 def gemv_need(eng: dict, n_layers: int, act: bool) -> int:
@@ -2076,7 +2388,7 @@ def phase_strategies(torch) -> dict:
     n_layers = cfg3b.n_layers
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
     model = init_model(cfg3b, 0, torch.device("cuda"))
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(COUNTERS, 0)
     by_shape = {"prefill": {}, "decode": {}}
     checked = set(PIPELINE_SHAPES) | set(STRATEGY_SHAPES)
 
@@ -2421,7 +2733,7 @@ def phase_judge(torch, plain_summaries: dict) -> dict:
     lengths = [len(p.encode("utf-8")) + 1 for p in prompts]
     log(f"[judge] {len(prompts)} prompts of {min(lengths)}-{max(lengths)} tokens (byte "
         "tokenizer, BOS included)")
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(COUNTERS, 0)
 
     # (a) bf16 weights, then the int8 copy
     model = init_model(cfg3b, 0, torch.device("cuda"))
@@ -2746,7 +3058,7 @@ def phase_slot_loop(torch, backend, prompts: list, oneshot: list) -> dict:
     n_layers = backend.cfg.n_layers
     b = TorchBackend(model=backend.model, batch_size=8, max_new_tokens=128,
                      segment_tokens=32, device="cuda")
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(COUNTERS, 0)
     texts = {}
     for fused in (1, 4):
         reset_launches()
@@ -2847,7 +3159,7 @@ def phase_long_context(torch) -> dict:
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     model = init_model(cfg, 0, dev)
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(COUNTERS, 0)
     texts = {}
     with tempfile.TemporaryDirectory() as tmp:
         docs = long_corpus(Path(tmp) / "corpus")
@@ -3254,6 +3566,7 @@ def main() -> int:
     timing = phase_timing(torch, errs)
     time_evaluation()
     launches, plain_summaries = phase_pipeline(torch)
+    gemma_launches = phase_gemma(torch)
     int8_launches = phase_int8_pipeline(torch, act=False)
     w8a8_launches = phase_int8_pipeline(torch, act=True)
     weights_launches = phase_weights(torch, plain_summaries)
@@ -3271,9 +3584,9 @@ def main() -> int:
     phase_profile(torch)
     kernels = []
     for key, meta in KERNELS.items():
-        kernels.append({
-            **meta, "launches": launches[key], "max_abs_err": errs[key], **timing[key],
-        })
+        # the head_dim-256 entries count the Gemma3 phase's launches
+        n = gemma_launches[key[:-6]] if key.endswith("_hd256") else launches[key]
+        kernels.append({**meta, "launches": n, "max_abs_err": errs[key], **timing[key]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -233,8 +233,23 @@ def test_config_from_hf_matches_jax(hf):
     {**LINEAR, "model_type": "phi3"},
 ], ids=["gemma3", "gemma3_multimodal", "phi3"])
 def test_other_families_wait_for_their_port(hf):
-    with pytest.raises(NotImplementedError, match="A1, item 4"):
-        tc.config_from_hf(hf)
+    """Gemma3 (text, and a multimodal config's text_config) loads now, equal
+    to the JAX package's config field by field; Phi-3/Phi-4 still waits for
+    its fused layout (ROADMAP A1)."""
+    if hf.get("model_type") == "phi3":
+        with pytest.raises(NotImplementedError, match="A1"):
+            tc.config_from_hf(hf)
+        return
+    got, want = tc.config_from_hf(hf), jc.config_from_hf(hf)
+    for field in tl.LlamaConfig.__dataclass_fields__:
+        if field != "dtype":
+            assert getattr(got, field) == getattr(want, field), field
+    # the multimodal case's text_config names no model_type: JAX and the
+    # port both read it as the wrapper's text decoder, unwrapped
+    assert got.dim == LINEAR["hidden_size"]
+    if hf.get("model_type") == "gemma3_text":
+        assert got.sandwich_norms and got.norm_plus_one and got.qk_norm
+        assert got.act == "gelu_tanh"
 
 
 def test_unknown_rope_scaling_raises():
@@ -357,3 +372,122 @@ def test_weights_dir_pipeline_matches_jax(hf_dir, tmp_path):
     ev, jev = got.evaluation["tiny-ckpt"], want.evaluation["tiny-ckpt"]
     assert ev["rouge_scores"] == jev["rouge_scores"]
     assert_embedding_stats_close(ev, jev)
+
+
+# -- Gemma3 --------------------------------------------------------------------
+
+# tests/test_model_gemma.py's tiny HF Gemma3: layers 0, 1, 3 sliding
+# (window 8), 2 global, a local RoPE base of its own
+GEMMA_HF = dict(
+    vocab_size=384, hidden_size=64, intermediate_size=128, num_hidden_layers=4,
+    num_attention_heads=4, num_key_value_heads=2, head_dim=16, max_position_embeddings=256,
+    rope_theta=10000.0, rope_local_base_freq=5000.0, rms_norm_eps=1e-6,
+    tie_word_embeddings=True, query_pre_attn_scalar=32, sliding_window=8,
+    layer_types=["sliding_attention", "sliding_attention", "full_attention",
+                 "sliding_attention"],
+)
+# f32 on both sides, transformers' eager attention against the port's:
+# the JAX package's own tolerance for this model (tests/test_model_gemma.py)
+GEMMA_ATOL, GEMMA_RTOL = 3e-4, 3e-3
+
+
+@pytest.fixture(scope="module")
+def gemma_dirs(tmp_path_factory):
+    """(text dir, multimodal dir) of one random tiny HF Gemma3, f32: the
+    text one as transformers writes it, the multimodal one with its config
+    under text_config and its tensors under language_model."""
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    hf = transformers.Gemma3ForCausalLM(transformers.Gemma3TextConfig(**GEMMA_HF)).eval()
+    with torch.no_grad():  # norms away from zero, so 1 + w scales
+        for name, w in hf.named_parameters():
+            if name.endswith("norm.weight"):
+                w.copy_(torch.randn_like(w) * 0.2)
+    text = tmp_path_factory.mktemp("gemma_text")
+    hf.save_pretrained(str(text), safe_serialization=True)
+    mm = tmp_path_factory.mktemp("gemma_mm")
+    inner = json.loads((text / "config.json").read_text())
+    (mm / "config.json").write_text(json.dumps(
+        {"architectures": ["Gemma3ForConditionalGeneration"], "model_type": "gemma3",
+         "text_config": inner}))
+    tensors = {}
+    for f in shard_files(text):
+        tensors.update(load_file(str(f)))
+    save_file({f"language_model.{k}": v.contiguous() for k, v in tensors.items()},
+              str(mm / "model.safetensors"))
+    return text, mm, hf
+
+
+@pytest.mark.parametrize("layout", ["text", "multimodal"])
+def test_gemma3_checkpoint_loads_as_jax(gemma_dirs, layout):
+    """The port's loader against the JAX package's: equal config, every
+    parameter equal (sandwich, plus-one and Q/K norms among them)."""
+    d = gemma_dirs[0] if layout == "text" else gemma_dirs[1]
+    cfg, model = tc.load_hf_checkpoint(str(d), dtype=torch.float32, device="cpu")
+    jcfg, jparams = jc.load_hf_checkpoint(str(d), dtype=jnp.float32)
+    assert cfg.layer_is_global == jcfg.layer_is_global == (False, False, True, False)
+    assert (cfg.sliding_window, cfg.rope_local_theta, cfg.query_scale) == (8, 5000.0, 32.0)
+    for field in tl.LlamaConfig.__dataclass_fields__:
+        if field != "dtype":
+            assert getattr(cfg, field) == getattr(jcfg, field), field
+    got = model.tree()
+    assert sorted(got["layers"]) == sorted(jparams["layers"])
+    for name, want in jparams["layers"].items():
+        np.testing.assert_array_equal(got["layers"][name].numpy(), np.asarray(want), name)
+    np.testing.assert_array_equal(got["embed"].numpy(), np.asarray(jparams["embed"]))
+    np.testing.assert_array_equal(got["final_norm"].numpy(), np.asarray(jparams["final_norm"]))
+
+
+def test_gemma3_logits_match_transformers(gemma_dirs):
+    """Prefill logits of 24 tokens (past the window of 8) and three decode
+    steps against transformers' Gemma3ForCausalLM on the same checkpoint."""
+    text, _, hf = gemma_dirs
+    cfg, model = tc.load_hf_checkpoint(str(text), dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(2)
+    S, T = 24, 3
+    seq = rng.integers(0, cfg.vocab_size, (2, S + T))
+    with torch.no_grad():
+        want = hf(torch.from_numpy(seq)).logits.float().numpy()
+    pads = torch.zeros(2, dtype=torch.int32)
+    C = S + T
+    cache = tl.init_kv_cache(cfg, 2, C, device="cpu")
+    with torch.inference_mode():
+        got = model(torch.from_numpy(seq[:, :S]), tl.prefill_positions(pads, S), cache, 0,
+                    tl.prefill_attention_mask(pads, S, C)).numpy()
+        np.testing.assert_allclose(got, want[:, :S], atol=GEMMA_ATOL, rtol=GEMMA_RTOL)
+        for t in range(T):
+            step = model(torch.from_numpy(seq[:, S + t:S + t + 1]),
+                         torch.full((2, 1), S + t), cache, S + t,
+                         tl.decode_attention_mask(pads, S + t, C)).numpy()
+            np.testing.assert_allclose(step[:, 0], want[:, S + t], atol=GEMMA_ATOL,
+                                       rtol=GEMMA_RTOL)
+    assert np.abs(got).max() > 0.1
+
+
+def test_gemma3_save_load_round_trip(gemma_dirs, tmp_path):
+    """save_hf_checkpoint writes Gemma3ForCausalLM / gemma3_text; the port
+    and the JAX package load it back equal to the (bf16-rounded) source,
+    with equal logits."""
+    cfg, model = tc.load_hf_checkpoint(str(gemma_dirs[0]), dtype=torch.float32, device="cpu")
+    out = tmp_path / "export"
+    tc.save_hf_checkpoint(model, cfg, str(out), shard_layers=2)
+    written = json.loads((out / "config.json").read_text())
+    assert written["architectures"] == ["Gemma3ForCausalLM"]
+    assert written["model_type"] == "gemma3_text"
+    cfg2, model2 = tc.load_hf_checkpoint(str(out), dtype=torch.float32, device="cpu")
+    assert cfg2 == cfg
+    jcfg2, jparams2 = jc.load_hf_checkpoint(str(out), dtype=jnp.float32)
+    src = model.tree()
+    for name, t in model2.tree()["layers"].items():
+        assert torch.equal(t, src["layers"][name].to(torch.bfloat16).float()), name
+        np.testing.assert_array_equal(t.numpy(), np.asarray(jparams2["layers"][name]), name)
+    S = 16
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, S)))
+    pads = torch.zeros(1, dtype=torch.int32)
+    rounded = tl.LlamaModel(cfg, {
+        "embed": src["embed"].to(torch.bfloat16).float(),
+        "final_norm": src["final_norm"].to(torch.bfloat16).float(),
+        "layers": {k: t.to(torch.bfloat16).float() for k, t in src["layers"].items()}})
+    logits = [m(toks, tl.prefill_positions(pads, S), tl.init_kv_cache(cfg, 1, S, device="cpu"),
+                0, tl.prefill_attention_mask(pads, S, S)) for m in (model2, rounded)]
+    assert torch.equal(logits[0], logits[1]) and logits[0].abs().max() > 0.1

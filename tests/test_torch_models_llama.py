@@ -42,6 +42,13 @@ def carried_weights(seed: int = 0, **cfg_kw):
     tree["embed"] = tree["embed"] * 50.0
     for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
         tree["layers"][name] = tree["layers"][name] * 8.0
+    if jcfg.norm_plus_one:
+        # plus-one norms start at zero: give 1 + w something to scale
+        rng = np.random.default_rng(seed)
+        for leaves in (tree, tree["layers"]):
+            for name in [n for n in leaves if n.endswith("norm")]:
+                w = rng.standard_normal(leaves[name].shape) * 0.2
+                leaves[name] = w.astype(leaves[name].dtype)
     model = tl.params_from_numpy(tree, tl.tiny_llama(**cfg_kw), device="cpu")
     return jcfg, jax.tree.map(jnp.asarray, tree), model
 

@@ -87,3 +87,36 @@ def test_decode_is_single_token():
         da.flash_decode_attention(
             torch.from_numpy(q), tc, 0, torch.zeros((1,), dtype=torch.int32), 3, G
         )
+
+
+# head_dim 256 (Gemma3: G = 2); (fill, window): a window floor inside the
+# cache, none, and a fill short of a 128-slot block of the JAX kernel
+HD256_CASES = [(255, 0), (255, 100), (130, 40), (60, 0)]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("fill,window", HD256_CASES)
+def test_decode_plain_matches_jax_kernel_hd256(quantized, fill, window):
+    """The plain version at head_dim 256 (the card's yardstick for K2 there)
+    against the JAX kernel; f32 on both sides -> 1e-5. C = 256: a multiple
+    of the JAX kernel's 128-slot block."""
+    from vnsum_tpu.models.llama import _quantize_kv
+
+    B, kv, g, hd, C = 3, 2, 2, 256, 256
+    rng = np.random.default_rng(fill + window)
+    q = rng.standard_normal((B, 1, kv * g, hd)).astype(np.float32)
+    k = rng.standard_normal((2, B, kv, C, hd)).astype(np.float32)
+    v = rng.standard_normal((2, B, kv, C, hd)).astype(np.float32)
+    if quantized:
+        k8, ks = _quantize_kv(jnp.asarray(k))
+        v8, vs = _quantize_kv(jnp.asarray(v))
+        jc = {"k": k8, "v": v8, "ks": ks, "vs": vs}
+    else:
+        jc = {"k": jnp.asarray(k), "v": jnp.asarray(v)}
+    tc = {n: torch.from_numpy(np.array(a)) for n, a in jc.items()}
+    pads = np.array([0, 6, fill + 1], np.int32)
+    want = jax_decode(jnp.asarray(q), jc, 1, jnp.asarray(pads), fill, g, window, interpret=True)
+    got = da.flash_decode_attention(torch.from_numpy(q), tc, 1, torch.from_numpy(pads), fill,
+                                    g, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert not got[2].any()

@@ -156,5 +156,44 @@ def test_kernel_input_checks_raise(bad):
 
 
 def test_kernels_supported_rule():
-    assert fa.supports_flash(128)
-    assert not any(fa.supports_flash(hd) for hd in (16, 64, 256))
+    """K1 and K2 take head_dim 128 and 256 (Gemma3); 16 and 64 run dense
+    attention on the card, as in the JAX package. K2p and K3 take 128 only,
+    and refuse 256 naming ROADMAP B4."""
+    assert fa.supports_flash(128) and fa.supports_flash(256)
+    assert not any(fa.supports_flash(hd) for hd in (16, 64))
+    assert fa.supports_verify(128) and not fa.supports_verify(256)
+    fa.require_head_dim("K3", 128)
+    fa.require_head_dim("K3", 64)  # not a kernel head_dim at all: dense
+    with pytest.raises(NotImplementedError, match="B4"):
+        fa.require_head_dim("K3", 256)
+
+
+# head_dim 256 (Gemma3: G = 2), cache lengths a multiple of 128
+HD256_CASES = [(150, 256, 0, 0), (150, 256, 0, 40), (100, 256, 90, 0), (100, 256, 90, 40)]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("S,C,q_offset,window", HD256_CASES)
+def test_prefill_plain_matches_jax_kernel_hd256(quantized, S, C, q_offset, window):
+    """The plain version at head_dim 256 (the card's yardstick for K1 there)
+    against the JAX kernel, with a window and chunked-prefill offsets;
+    f32 queries: 1e-5, and a row that sees no key is 0 on both sides."""
+    B, kv, g, hd = 3, 2, 2, 256
+    rng = np.random.default_rng(S + window + q_offset)
+    q = rng.standard_normal((B, S, kv * g, hd)).astype(np.float32)
+    k = rng.standard_normal((2, B, kv, C, hd)).astype(np.float32)
+    v = rng.standard_normal((2, B, kv, C, hd)).astype(np.float32)
+    if quantized:
+        k8, ks = _quantize_kv(jnp.asarray(k))
+        v8, vs = _quantize_kv(jnp.asarray(v))
+        jc = {"k": k8, "v": v8, "ks": ks, "vs": vs}
+    else:
+        jc = {"k": jnp.asarray(k), "v": jnp.asarray(v)}
+    tc = {n: torch.from_numpy(np.array(a)) for n, a in jc.items()}
+    pads = np.array([0, 7, q_offset + S], np.int32)
+    want = jax_flash(jnp.asarray(q), jc, 1, jnp.asarray(pads), g, window, q_offset,
+                     interpret=True)
+    got = fa.flash_prefill_attention(torch.from_numpy(q), tc, 1, torch.from_numpy(pads), g,
+                                     window, q_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert not got[2].any() and not np.asarray(want)[2].any()

@@ -16,6 +16,11 @@ the same inputs, made with numpy from a seed, with its K block set to the
 same tile, so both round p against the same running max; its cache length
 is a multiple of that block, since interpret mode pads a ragged block with
 NaN.
+
+At head_dim 256 the kernel is another tiling (``flash_prefill_wide_kernel``:
+blocks of 64 rows in ONE consumer warpgroup, 64-slot tiles); its arithmetic
+is the same function of those sizes, rebuilt at blocks of 16 rows in one
+warpgroup of 16 over 16-slot tiles.
 """
 from __future__ import annotations
 
@@ -98,12 +103,12 @@ def kernel_arithmetic(q, cache, layer, pads, G, window=0, q_offset=0,
     return out
 
 
-def make_case(B, KV, G, S, C, seed, quantized, L=2):
+def make_case(B, KV, G, S, C, seed, quantized, L=2, hd=HD):
     """(q, jax cache, torch cache): q and K/V exact in bf16, as the card's are."""
     rng = np.random.default_rng(seed)
-    q = bf16_exact(rng.standard_normal((B, S, KV * G, HD)).astype(np.float32))
-    k = bf16_exact(rng.standard_normal((L, B, KV, C, HD)).astype(np.float32))
-    v = bf16_exact(rng.standard_normal((L, B, KV, C, HD)).astype(np.float32))
+    q = bf16_exact(rng.standard_normal((B, S, KV * G, hd)).astype(np.float32))
+    k = bf16_exact(rng.standard_normal((L, B, KV, C, hd)).astype(np.float32))
+    v = bf16_exact(rng.standard_normal((L, B, KV, C, hd)).astype(np.float32))
     if quantized:
         k8, ks = _quantize_kv(jnp.asarray(k))
         v8, vs = _quantize_kv(jnp.asarray(v))
@@ -113,6 +118,36 @@ def make_case(B, KV, G, S, C, seed, quantized, L=2):
     tc = {n: torch.from_numpy(np.array(a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a))
           for n, a in jc.items()}
     return q, jc, tc
+
+
+def check_against_jax(G, quantized, window, q_offset, hd, rows, wg_rows, tile):
+    """Three rows (pad 0, 9, and past the last query) of S=40 queries at
+    q_offset of a C=96 cache through ``kernel_arithmetic`` at these sizes,
+    against the JAX kernel with block_k = ``tile`` (limits: the test below)."""
+    B, KV, S, C, layer = 3, 2, 40, 96, 1
+    q, jc, tc = make_case(B, KV, G, S, C, 300 + 7 * G + window + q_offset + quantized,
+                          quantized, hd=hd)
+    pads = np.array([0, 9, q_offset + S], np.int32)
+    want = jax_flash(jnp.asarray(q, jnp.bfloat16), jc, layer, jnp.asarray(pads), G, window,
+                     q_offset, block_k=tile, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    got = kernel_arithmetic(torch.from_numpy(q), tc, layer, pads, G, window, q_offset,
+                            rows=rows, wg_rows=wg_rows, tile=tile).numpy()
+    v = tc["v"][layer].abs()
+    vmax = float((v.amax(-1) * tc["vs"][layer]).amax() if quantized else v.amax())
+    np.testing.assert_allclose(got, want, rtol=2.0**-7, atol=2.0**-9 * vmax)
+    blind = q_offset + np.arange(S)[None, :] < pads[:, None]
+    for out in (got, want):
+        assert not out[blind].any() and np.abs(out[~blind]).max(-1).min() > 0
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("q_offset", [0, 37])
+def test_kernel_arithmetic_wide_matches_jax_kernel(quantized, window, q_offset):
+    """The head_dim-256 kernel's tiling (one warpgroup a block, scaled to 16
+    rows over 16-slot tiles) at Gemma3's G = 2, held as the test below."""
+    check_against_jax(2, quantized, window, q_offset, hd=256, rows=16, wg_rows=16, tile=16)
 
 
 @pytest.mark.parametrize("G", [2, 3])

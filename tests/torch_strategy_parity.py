@@ -111,11 +111,13 @@ class Side:
                 for d in self.record()["processing_details"]]
 
 
-def run_pair(tmp_path: Path, monkeypatch, approach: str, knobs: dict, n_docs: int):
+def run_pair(tmp_path: Path, monkeypatch, approach: str, knobs: dict, n_docs: int,
+             cfg_kw: dict | None = None):
     """Runs ``approach`` with ``knobs`` (PipelineConfig fields, the same on
-    both sides) over the first ``n_docs`` documents; returns (jax Side,
-    port Side)."""
-    jcfg, params, model = carried_weights(max_seq_len=MAX_SEQ_LEN)
+    both sides) over the first ``n_docs`` documents, on ``carried_weights``
+    of a tiny config with ``cfg_kw`` (default: tiny_llama's); returns (jax
+    Side, port Side)."""
+    jcfg, params, model = carried_weights(max_seq_len=MAX_SEQ_LEN, **(cfg_kw or {}))
     jax_embedder, port_embedder = carried_embedders()
     knobs = {"max_new_tokens": MAX_NEW, "max_samples": n_docs, **knobs}
     sides = []

@@ -64,6 +64,7 @@ from ..models.llama import (
     decode_attention_mask,
     init_kv_cache,
     init_model,
+    layer_windows,
     llama32_3b,
     prefill_attention_mask,
     prefill_positions,
@@ -73,7 +74,7 @@ from ..models.llama import (
 from ..models.quant import quantize_model
 from ..models.sampling import draft_acceptance_rows, row_seed, sample_logits_rows
 from ..ops.decode_attention import flash_decode_attention
-from ..ops.flash_attention import flash_prefill_attention, supports_flash
+from ..ops.flash_attention import B4, flash_prefill_attention, supports_flash, supports_verify
 from ..ops.verify_attention import flash_spec_verify_attention
 from ..spec import NO_TOKEN, SpecRecord, encode_references, propose_drafts
 from ..text.tokenizer import Tokenizer, get_tokenizer
@@ -122,6 +123,17 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def kernel_gates(head_dim: int, flash: bool, on_card: bool) -> tuple[bool, bool]:
+    """(use_kernels, verify_missing): each path asks for the kernel it
+    launches. The one-shot path's K1 and K2 take head_dim 128 and 256 on
+    the card (head_dim 64 runs dense attention there, as in the JAX
+    package); the spec path's and the slot loop's K3 takes 128 only, so at
+    256 on the card those paths raise (ROADMAP B4) and never fall back. The
+    plain versions, the CPU's, take any head_dim."""
+    use_kernels = flash and (supports_flash(head_dim) or not on_card)
+    return use_kernels, use_kernels and on_card and not supports_verify(head_dim)
 
 
 @dataclass
@@ -205,18 +217,19 @@ class TorchBackend:
         if flash == "auto":
             flash = on_card
         self.flash = bool(flash)
-        # the card's kernels take head_dim 128; their plain versions any
-        kernels_supported = supports_flash(self.cfg.head_dim) or not on_card
+        self.use_kernels, self.verify_missing = kernel_gates(
+            self.cfg.head_dim, self.flash, on_card)
+        # each layer's window for the kernels: 0 on global layers
+        self.windows = layer_windows(self.cfg)
         if quantize_kv == "auto":
-            quantize_kv = self.flash and kernels_supported
-        elif quantize_kv and not (self.flash and kernels_supported):
+            quantize_kv = self.use_kernels
+        elif quantize_kv and not self.use_kernels:
             raise ValueError(
                 "quantize_kv=True needs the attention kernels (flash=True and, "
-                "on the card, head_dim 128); the dense path "
+                "on the card, head_dim 128 or 256); the dense path "
                 "would dequantize the whole cache per step"
             )
         self.quantize_kv = bool(quantize_kv)
-        self.use_kernels = self.flash and kernels_supported
         # captured greedy decode steps: on by default where they apply (the
         # card, through the kernels); True raises where they cannot
         self._graphs_required = cuda_graphs is True
@@ -225,7 +238,7 @@ class TorchBackend:
         elif cuda_graphs and not (on_card and self.use_kernels):
             raise ValueError(
                 "cuda_graphs=True needs a CUDA device and the attention kernels "
-                "(flash on, head_dim 128)"
+                "(flash on, head_dim 128 or 256)"
             )
         self.cuda_graphs = bool(cuda_graphs)
         self.tok = get_tokenizer(tokenizer) if isinstance(tokenizer, str) else tokenizer
@@ -300,13 +313,15 @@ class TorchBackend:
         )
 
     def _prefill_stacked(self, pad_lens, q_offset: int):
+        """K1 for queries from cache slot ``q_offset``, at each layer's
+        window; None on the dense path."""
         if not self.use_kernels:
             return None
-        q_per_kv = self.cfg.q_per_kv
+        q_per_kv, windows = self.cfg.q_per_kv, self.windows
 
         def stacked_fn(q, cache, layer_idx):
             return flash_prefill_attention(
-                q, cache, layer_idx, pad_lens, q_per_kv, 0, q_offset
+                q, cache, layer_idx, pad_lens, q_per_kv, windows[layer_idx], q_offset
             )
 
         return stacked_fn
@@ -333,25 +348,39 @@ class TorchBackend:
 
     def _decode_stacked(self, pad_lens, fill):
         """K2 at ``fill``: an int, or a one-element int32 tensor on the
-        device (the captured step's); None on the dense path."""
+        device (the captured step's); each layer's window is a host int,
+        fixed in a captured step. None on the dense path."""
         if not self.use_kernels:
             return None
-        q_per_kv = self.cfg.q_per_kv
+        q_per_kv, windows = self.cfg.q_per_kv, self.windows
 
         def stacked_fn(q, cache, layer_idx):
-            return flash_decode_attention(q, cache, layer_idx, pad_lens, fill, q_per_kv, 0)
+            return flash_decode_attention(
+                q, cache, layer_idx, pad_lens, fill, q_per_kv, windows[layer_idx]
+            )
 
         return stacked_fn
 
+    def _require_verify_kernel(self, path: str) -> None:
+        """Raise where ``path`` would launch K3 at a head_dim it does not
+        take yet: it never carries on through dense attention."""
+        if self.verify_missing:
+            raise NotImplementedError(
+                f"{path} runs K3 (flash_spec_verify_attention), which takes head_dim 128 "
+                f"on the card, not {self.cfg.head_dim}: {B4}"
+            )
+
     def _verify_stacked(self, pad_lens, fills):
         """K3 over per-row fills (a [B] int32 tensor that stays on the
-        device); None on the dense path."""
+        device), at each layer's window; None on the dense path."""
         if not self.use_kernels:
             return None
-        q_per_kv = self.cfg.q_per_kv
+        q_per_kv, windows = self.cfg.q_per_kv, self.windows
 
         def stacked_fn(q, cache, layer_idx):
-            return flash_spec_verify_attention(q, cache, layer_idx, pad_lens, fills, q_per_kv, 0)
+            return flash_spec_verify_attention(
+                q, cache, layer_idx, pad_lens, fills, q_per_kv, windows[layer_idx]
+            )
 
         return stacked_fn
 
@@ -525,6 +554,7 @@ class TorchBackend:
         Cache and out geometry: C = S + max_new + k + 1 and ``out`` is
         max_new + k + 1 wide, so a step entered at e = max_new - 1 (or a done
         row parked at e = max_new) writes its fixed k + 1 tokens in bounds."""
+        self._require_verify_kernel("the spec path")
         dev = self.device
         k1 = gen.spec_k + 1
         tokens_np, pads_np, B, S = self._pack_group(group, encoded, max_new)
@@ -669,6 +699,7 @@ class TorchBackend:
         coarsen to that cadence, greedy outputs stay identical."""
         from .inflight import TorchSlotLoop
 
+        self._require_verify_kernel("the slot loop")
         n_slots = slots or self.batch_size
         gen = config or self.gen_cfg
         max_new = resolve_max_new(max_new_tokens, gen, self.max_new_tokens)

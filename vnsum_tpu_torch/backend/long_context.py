@@ -347,7 +347,7 @@ class TorchLongContextBackend:
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = model.cfg if model is not None else (model_config or llama32_3b())
-        if getattr(self.cfg, "sliding_window", 0):
+        if self.cfg.sliding_window:
             raise NotImplementedError(
                 "TorchLongContextBackend runs ring attention (global K/V "
                 "streaming); sliding-window configs are one-card-engine only"

@@ -21,8 +21,11 @@ Conversion notes, as in the JAX package:
 - Per-layer weights are stacked on a leading ``L`` dim. The stacks are
   filled one layer at a time, so host memory stays near one tensor.
 
-Llama-3.x and Qwen3 (``qk_norm``) load. Gemma3 and Phi-3/Phi-4 raise until
-their model families are ported (ROADMAP A1, item 4).
+Llama-3.x, Qwen3 (``qk_norm``) and Gemma3 load, Gemma3 as a text
+checkpoint (``Gemma3ForCausalLM``) or from a multimodal one, whose decoder
+config sits under ``text_config`` and its tensors under
+``language_model.``. Phi-3/Phi-4 raise until their fused layout is ported
+(ROADMAP A1).
 """
 from __future__ import annotations
 
@@ -161,26 +164,46 @@ _LAYER_KEYS: dict[str, str] = {
     "input_layernorm.weight": "attn_norm",
     "post_attention_layernorm.weight": "mlp_norm",
 }
-# Qwen3's per-head Q/K RMSNorms
+# Qwen3's (and Gemma3's) per-head Q/K RMSNorms
 _QK_NORM_KEYS: dict[str, str] = {
     "self_attn.q_norm.weight": "q_norm",
     "self_attn.k_norm.weight": "k_norm",
 }
-_FAMILY_LATER = "(ROADMAP A1, item 4: the other model families)"
+# Gemma3's sandwich norms: post_attention_layernorm is the norm after
+# attention there (Llama gives that name to the norm before the MLP), and
+# the MLP's pre-norm is pre_feedforward_layernorm
+_GEMMA_NORM_KEYS: dict[str, str] = {
+    "input_layernorm.weight": "attn_norm",
+    "post_attention_layernorm.weight": "post_attn_norm",
+    "pre_feedforward_layernorm.weight": "mlp_norm",
+    "post_feedforward_layernorm.weight": "post_ffw_norm",
+}
+# a multimodal checkpoint's decoder tensors sit under this prefix
+_MULTIMODAL_PREFIX = "language_model."
+_FAMILY_LATER = "(ROADMAP A1: the other model families)"
 
 
 def _layer_keys(cfg: LlamaConfig) -> dict[str, str]:
-    return {**_LAYER_KEYS, **(_QK_NORM_KEYS if cfg.qk_norm else {})}
+    keys = dict(_LAYER_KEYS)
+    if cfg.sandwich_norms:
+        keys.update(_GEMMA_NORM_KEYS)  # remaps the two shared HF norm names
+    if cfg.qk_norm:
+        keys.update(_QK_NORM_KEYS)
+    return keys
 
 
 def config_from_hf(hf: Mapping[str, Any], **overrides) -> LlamaConfig:
-    """A :class:`LlamaConfig` from a parsed HF ``config.json`` (Llama or
-    Qwen3, with llama3 or linear RoPE scaling)."""
+    """A :class:`LlamaConfig` from a parsed HF ``config.json``: Llama,
+    Qwen3 or Gemma3 (a multimodal one's ``text_config``), with llama3 or
+    linear RoPE scaling."""
+    if "text_config" in hf:
+        # a multimodal wrapper (Gemma3ForConditionalGeneration): the decoder
+        # lives in text_config
+        inner = dict(hf["text_config"])
+        inner.setdefault("model_type", hf.get("model_type", "llama"))
+        hf = inner
     model_type = hf.get("model_type", "llama")
-    if "text_config" in hf or model_type.startswith("gemma3"):
-        raise NotImplementedError(
-            f"Gemma3 checkpoints (model_type {model_type!r}) load once the Gemma3 "
-            f"family is ported {_FAMILY_LATER}")
+    gemma = model_type.startswith("gemma3")
     if model_type.startswith("phi3"):
         raise NotImplementedError(
             "Phi-3/Phi-4 checkpoints (fused qkv_proj and gate_up_proj) load once the "
@@ -188,7 +211,7 @@ def config_from_hf(hf: Mapping[str, Any], **overrides) -> LlamaConfig:
     rope_scaling = hf.get("rope_scaling") or {}
     rope_type = rope_scaling.get("rope_type", rope_scaling.get("type"))
     kw: dict[str, Any] = dict(
-        qk_norm=model_type.startswith("qwen3"),
+        qk_norm=model_type.startswith("qwen3") or gemma,
         vocab_size=hf["vocab_size"],
         dim=hf["hidden_size"],
         n_layers=hf["num_hidden_layers"],
@@ -217,6 +240,25 @@ def config_from_hf(hf: Mapping[str, Any], **overrides) -> LlamaConfig:
         # and give subtly wrong logits
         raise NotImplementedError(
             f"rope_scaling type {rope_type!r} is not supported (have: llama3, linear)")
+    if gemma:
+        layer_types = hf.get("layer_types")
+        if layer_types:
+            is_global = tuple(t == "full_attention" for t in layer_types)
+        else:
+            pattern = hf.get("sliding_window_pattern", 6)
+            is_global = tuple((i + 1) % pattern == 0 for i in range(hf["num_hidden_layers"]))
+        kw.update(
+            act="gelu_tanh",
+            sandwich_norms=True,
+            norm_plus_one=True,
+            embed_scale=True,
+            query_scale=float(hf.get("query_pre_attn_scalar") or 0.0),
+            sliding_window=int(hf.get("sliding_window") or 0),
+            layer_is_global=is_global,
+            rope_local_theta=float(hf.get("rope_local_base_freq", 10_000.0)),
+            # Gemma ties its embeddings unless the config says otherwise
+            tie_embeddings=hf.get("tie_word_embeddings", True),
+        )
     kw.update(overrides)
     return LlamaConfig(**kw)
 
@@ -297,9 +339,20 @@ def load_hf_checkpoint(
     with open(config_path) as f:
         cfg = config_from_hf(json.load(f), **config_overrides)
     get = safetensors_getter(model_dir)
-    if not get.has("model.embed_tokens.weight"):
-        raise KeyError(f"'model.embed_tokens.weight' is in no shard of {model_dir}: not a "
-                       "Llama/Qwen3 checkpoint layout")
+    probe = "model.embed_tokens.weight"
+    if not get.has(probe):
+        if not get.has(_MULTIMODAL_PREFIX + probe):
+            raise KeyError(f"neither {probe!r} nor {_MULTIMODAL_PREFIX + probe!r} is in a shard "
+                           f"of {model_dir}: not a Llama/Qwen3/Gemma3 text or multimodal "
+                           "checkpoint layout")
+        # a multimodal checkpoint: the decoder's tensors under the prefix
+        # (the vision tower's are never asked for)
+        inner = get
+
+        def get(name: str) -> torch.Tensor:  # noqa: F811
+            return inner(_MULTIMODAL_PREFIX + name)
+
+        get.has = lambda name: inner.has(_MULTIMODAL_PREFIX + name)
     if get.has("model.layers.0.self_attn.qkv_proj.weight"):
         raise NotImplementedError(f"{model_dir} has fused qkv_proj weights (the Phi layout), "
                                   f"which load once the Phi family is ported {_FAMILY_LATER}")
@@ -309,7 +362,7 @@ def load_hf_checkpoint(
 def save_hf_checkpoint(
     model: LlamaModel, cfg: LlamaConfig, out_dir: str, shard_layers: int = 8
 ) -> dict:
-    """Write ``model`` in HF Llama format, the exact inverse of
+    """Write ``model`` in HF Llama format (Qwen3's, Gemma3's), the exact inverse of
     :func:`load_hf_checkpoint`: ``config.json``, one bf16 safetensors shard
     per ``shard_layers`` layers plus one for the embeddings and norms, and
     ``model.safetensors.index.json``. Returns the index it wrote. Each
@@ -318,7 +371,9 @@ def save_hf_checkpoint(
     if model.quantized:
         raise ValueError("save_hf_checkpoint writes float weights; this model holds int8 "
                          "ones (save the model it was quantized from)")
-    if cfg.qk_norm:
+    if cfg.sandwich_norms:
+        arch, mtype = ["Gemma3ForCausalLM"], "gemma3_text"
+    elif cfg.qk_norm:
         arch, mtype = ["Qwen3ForCausalLM"], "qwen3"
     else:
         arch, mtype = ["LlamaForCausalLM"], "llama"
@@ -348,6 +403,15 @@ def save_hf_checkpoint(
         }
     elif cfg.rope_linear_factor:
         hf_cfg["rope_scaling"] = {"rope_type": "linear", "factor": cfg.rope_linear_factor}
+    if cfg.sandwich_norms:
+        hf_cfg.update(
+            hidden_activation="gelu_pytorch_tanh",
+            query_pre_attn_scalar=cfg.query_scale or cfg.head_dim,
+            sliding_window=cfg.sliding_window,
+            layer_types=["full_attention" if g else "sliding_attention"
+                         for g in (cfg.layer_is_global or [True] * cfg.n_layers)],
+            rope_local_base_freq=cfg.rope_local_theta,
+        )
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(hf_cfg, f, indent=2)

@@ -8,6 +8,10 @@ Python loop over layers that indexes the stacks (views, no copies).
 
 - GQA attention with RoPE (llama3 frequency scaling), RMSNorm, SwiGLU, and
   Qwen3's per-head Q/K RMSNorm (``qk_norm``);
+- Gemma3's deltas, each off by default: GeGLU (``act="gelu_tanh"``),
+  sandwich norms, plus-one norms, the embedding scaled by sqrt(dim), a
+  query scale folded into q, and sliding-window layers with a local RoPE
+  base beside the global ones (``layer_windows``);
 - a preallocated stacked KV cache ``[L, B, KV, C, hd]``, bf16, or int8 with
   per-(token, head) f32 scales. Unlike the JAX package, whose arrays are
   immutable, the port writes each layer's new K/V into the cache IN PLACE;
@@ -24,6 +28,7 @@ dense attention over the layer's dequantized cache.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -59,6 +64,16 @@ class LlamaConfig:
     tie_embeddings: bool = True
     # Qwen3-style per-head RMSNorm on Q/K before RoPE
     qk_norm: bool = False
+    # --- Gemma3 deltas, all off by default ---
+    act: str = "silu"              # "silu" | "gelu_tanh" (GeGLU)
+    sandwich_norms: bool = False   # post-attention and post-FFW norms
+    norm_plus_one: bool = False    # RMSNorm scale is (1 + w), zero-init w
+    embed_scale: bool = False      # hidden states scaled by sqrt(dim)
+    query_scale: float = 0.0       # 0 => 1/sqrt(head_dim); else 1/sqrt(this)
+    sliding_window: int = 0        # 0 => every layer attends globally
+    # per layer when sliding_window > 0: True = global (Gemma3: 5 sliding : 1)
+    layer_is_global: tuple = ()
+    rope_local_theta: float = 10_000.0  # RoPE base of the sliding layers
     dtype: torch.dtype = torch.bfloat16
     # W8A8 prefill (int8 weights only): multi-token forwards at one write
     # slot also quantize activations per token into an s8 x s8 product
@@ -71,6 +86,45 @@ class LlamaConfig:
 
 def llama32_3b(**kw) -> LlamaConfig:
     return LlamaConfig(**kw)
+
+
+def llama32_1b(**kw) -> LlamaConfig:
+    base = dict(
+        dim=2048, n_layers=16, n_heads=32, n_kv_heads=8, head_dim=64,
+        intermediate=8192,
+    )
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def qwen3_8b(**kw) -> LlamaConfig:
+    base = dict(
+        vocab_size=151_936, dim=4096, n_layers=36, n_heads=32, n_kv_heads=8,
+        head_dim=128, intermediate=12_288, rope_theta=1_000_000.0,
+        use_llama3_rope_scaling=False, norm_eps=1e-6, max_seq_len=32_768,
+        tie_embeddings=False, qk_norm=True,
+    )
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+def gemma3_4b(**kw) -> LlamaConfig:
+    """Gemma3-4B text decoder: head_dim 256, a 1024-slot window on five
+    layers of six."""
+    n_layers = 34
+    base = dict(
+        vocab_size=262_208, dim=2560, n_layers=n_layers, n_heads=8,
+        n_kv_heads=4, head_dim=256, intermediate=10_240,
+        rope_theta=1_000_000.0, use_llama3_rope_scaling=False,
+        rope_linear_factor=8.0, norm_eps=1e-6, max_seq_len=32_768,
+        tie_embeddings=True, qk_norm=True, act="gelu_tanh",
+        sandwich_norms=True, norm_plus_one=True, embed_scale=True,
+        query_scale=256.0, sliding_window=1024,
+        layer_is_global=tuple((i + 1) % 6 == 0 for i in range(n_layers)),
+        rope_local_theta=10_000.0,
+    )
+    base.update(kw)
+    return LlamaConfig(**base)
 
 
 def qwen3_0p6b(**kw) -> LlamaConfig:
@@ -114,6 +168,9 @@ def _param_shapes(cfg: LlamaConfig) -> dict:
     if cfg.qk_norm:
         layers["q_norm"] = (L, hd)
         layers["k_norm"] = (L, hd)
+    if cfg.sandwich_norms:
+        layers["post_attn_norm"] = (L, D)
+        layers["post_ffw_norm"] = (L, D)
     shapes = {"embed": (cfg.vocab_size, D), "layers": layers, "final_norm": (D,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (D, cfg.vocab_size)
@@ -122,12 +179,14 @@ def _param_shapes(cfg: LlamaConfig) -> dict:
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random init with the JAX package's scheme (normal * 0.02 for
-    matrices, ones for norms), drawn from ``generator`` on ``device``."""
+    matrices; ones for norms, zeros for plus-one norms), drawn from
+    ``generator`` on ``device``."""
     shapes = _param_shapes(cfg)
+    norm_init = torch.zeros if cfg.norm_plus_one else torch.ones
 
     def leaf(name, shape):
         if name.endswith("norm"):
-            return torch.ones(shape, dtype=cfg.dtype, device=device)
+            return norm_init(shape, dtype=cfg.dtype, device=device)
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
         return (w * 0.02).to(cfg.dtype)
 
@@ -229,19 +288,34 @@ class LlamaModel(nn.Module):
         if stacked_attention_fn is None and mask is None:
             raise ValueError("dense attention needs a mask")
         x = embed_lookup(self.embed, self.scales.get("embed"), tokens, cfg.dtype)
-        cos, sin = rope_cos_sin(cfg, positions)
+        if cfg.embed_scale:
+            # sqrt(dim) rounded through the model dtype, as the JAX package
+            x = x * dtype_scalar(cfg.dim ** 0.5, cfg.dtype)
+        windows = layer_windows(cfg)
+        # each layer's RoPE table: the global one, or the local one (its own
+        # base, no scaling) on sliding layers
+        ropes = {0: rope_cos_sin(cfg, positions)}
+        if cfg.sliding_window:
+            ropes[cfg.sliding_window] = rope_cos_sin(local_rope_config(cfg), positions)
+        # the dense path's sliding mask: query slot - window < k
+        masks = {0: mask, cfg.sliding_window: mask}
+        if mask is not None and cfg.sliding_window:
+            masks[cfg.sliding_window] = mask & window_mask(
+                write_index, tokens.shape[1], mask.shape[-1], cfg.sliding_window, mask.device
+            )
         if torch.is_tensor(write_index):
             # the per-row slots, once for every layer's K/V (and scales)
             write_index = row_slots(write_index, cache["k"].shape[3], tokens.shape[1])
         else:
             write_index = int(write_index)
         for li in range(cfg.n_layers):
+            cos, sin = ropes[windows[li]]
             x = self._block(
-                x, li, cos, sin, mask, cache, write_index, stacked_attention_fn
+                x, li, cos, sin, masks[windows[li]], cache, write_index, stacked_attention_fn
             )
         if last_only:
             x = x[:, -1:, :]
-        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+        x = rmsnorm(x, self.final_norm, cfg.norm_eps, cfg.norm_plus_one)
         name = "embed" if cfg.tie_embeddings else "lm_head"
         return lm_head_logits(x, getattr(self, name), transposed=cfg.tie_embeddings,
                               scale=self.scales.get(name))
@@ -269,14 +343,19 @@ class LlamaModel(nn.Module):
             return int8_linear_group(
                 t, [(p[name][li], self.scales[name][li]) for name in names], aq)
 
-        h = rmsnorm(x, p["attn_norm"][li], cfg.norm_eps)
+        P1 = cfg.norm_plus_one
+        h = rmsnorm(x, p["attn_norm"][li], cfg.norm_eps, P1)
         q, k, v = projs(h, ("wq", "wk", "wv"))
         q = q.view(B, S, H, hd)
         k = k.view(B, S, KV, hd)
         v = v.view(B, S, KV, hd)
         if cfg.qk_norm:
-            q = rmsnorm(q, p["q_norm"][li], cfg.norm_eps)
-            k = rmsnorm(k, p["k_norm"][li], cfg.norm_eps)
+            q = rmsnorm(q, p["q_norm"][li], cfg.norm_eps, P1)
+            k = rmsnorm(k, p["k_norm"][li], cfg.norm_eps, P1)
+        if cfg.query_scale:
+            # a non-default score scale folded into q, so every attention
+            # (dense, kernels) keeps its 1/sqrt(head_dim)
+            q = q * dtype_scalar((hd ** 0.5) / (cfg.query_scale ** 0.5), q.dtype)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -297,11 +376,17 @@ class LlamaModel(nn.Module):
         else:
             k_c, v_c = dequantize_cache_layer(cache, li)
             attn = attention(q, k_c.to(q.dtype), v_c.to(q.dtype), mask, cfg.q_per_kv)
-        x = x + proj(attn.reshape(B, S, H * hd), "wo")
+        attn_out = proj(attn.reshape(B, S, H * hd), "wo")
+        if cfg.sandwich_norms:
+            attn_out = rmsnorm(attn_out, p["post_attn_norm"][li], cfg.norm_eps, P1)
+        x = x + attn_out
 
-        h = rmsnorm(x, p["mlp_norm"][li], cfg.norm_eps)
+        h = rmsnorm(x, p["mlp_norm"][li], cfg.norm_eps, P1)
         gate, up = projs(h, ("w_gate", "w_up"))
-        return x + proj(F.silu(gate) * up, "w_down")
+        mlp_out = proj(mlp_act(gate, cfg.act) * up, "w_down")
+        if cfg.sandwich_norms:
+            mlp_out = rmsnorm(mlp_out, p["post_ffw_norm"][li], cfg.norm_eps, P1)
+        return x + mlp_out
 
 
 def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> LlamaModel:
@@ -471,12 +556,69 @@ def lm_head_logits(x: torch.Tensor, w: torch.Tensor, *, transposed: bool,
     return y.view(B, S, -1)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    # cast back to the model dtype BEFORE the weight multiply, as the JAX
-    # package does
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float, plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm as the JAX package computes it: cast back to the model dtype
+    BEFORE the weight multiply; a plus-one (Gemma) norm scales by 1 + w in
+    f32 and casts last."""
     x32 = x.float()
     scale = torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + eps)
+    if plus_one:
+        return ((x32 * scale) * (1.0 + w.float())).to(x.dtype)
     return (x32 * scale).to(x.dtype) * w
+
+
+def dtype_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: a tensor times it
+    rounds once, as the JAX package's product with ``jnp.asarray(value,
+    dtype)`` does, and no host-to-device copy is made (a captured decode
+    step may make none)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def mlp_act(x: torch.Tensor, act: str) -> torch.Tensor:
+    """The gate's activation: SiLU, or GELU with the tanh approximation."""
+    if act == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def layer_windows(cfg: LlamaConfig) -> list[int]:
+    """Each layer's attention window: 0 on global layers, the config's
+    window on sliding ones. With a window and no ``layer_is_global`` every
+    layer slides (Mistral-style); a ``layer_is_global`` of the wrong length
+    raises."""
+    if not cfg.sliding_window:
+        return [0] * cfg.n_layers
+    if not cfg.layer_is_global:
+        return [cfg.sliding_window] * cfg.n_layers
+    if len(cfg.layer_is_global) != cfg.n_layers:
+        raise ValueError(
+            f"layer_is_global has {len(cfg.layer_is_global)} entries "
+            f"for {cfg.n_layers} layers"
+        )
+    return [0 if g else cfg.sliding_window for g in cfg.layer_is_global]
+
+
+def local_rope_config(cfg: LlamaConfig) -> LlamaConfig:
+    """The sliding layers' RoPE: base ``rope_local_theta``, no scaling."""
+    return dataclasses.replace(
+        cfg, rope_theta=cfg.rope_local_theta, use_llama3_rope_scaling=False,
+        rope_linear_factor=0.0,
+    )
+
+
+def window_mask(write_index, seq_len: int, cache_len: int, window: int, device) -> torch.Tensor:
+    """The sliding layers' extra mask on ``device``: the query at cache slot
+    q sees slot k iff k > q - window. Queries sit at ``write_index + s``:
+    one start for every row (an int: [1, S, C]) or one per row (a [B]
+    tensor: [B, S, C])."""
+    s = torch.arange(seq_len, device=device)[None, :]
+    if torch.is_tensor(write_index):
+        q_slot = write_index.long()[:, None] + s
+    else:
+        q_slot = int(write_index) + s
+    k = torch.arange(cache_len, device=device)
+    return k[None, None, :] > q_slot[:, :, None] - window
 
 
 def rope_inv_freq(cfg: LlamaConfig, device=None) -> torch.Tensor:

@@ -66,14 +66,14 @@
 
 namespace {
 
-constexpr int HD = 128;             // head_dim the kernel takes
+// head_dim is a template parameter HD: 128 or 256 (the entry points refuse
+// any other; K2p takes 128 only)
 constexpr int SPLIT = 512;          // cache slots per pass-1 block
 constexpr int NWARPS = 4;           // warps that share a split's slots
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int WSLOTS = SPLIT / NWARPS;  // slots of one warp
 constexpr int BK = 16;              // slots per tile: one m16 tile
 constexpr int ROWS = 8;             // query heads of a KV head: one n8 tile
-constexpr int QROW = HD + 8;        // padded bf16 row of Q in shared memory
 constexpr int MERGE_CHUNK = 2;      // splits a merge lane group sums in order
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -81,7 +81,7 @@ constexpr float LN2 = 0.6931471805599453f;
 
 // One warp's ring of K/V tiles in shared memory. Slot rows are padded by 16
 // bytes, so the fragment loads below are free of bank conflicts.
-template <bool Q8>
+template <int HD, bool Q8>
 struct Ring {
   static constexpr int ROW = Q8 ? HD + 16 : 2 * HD + 16;      // bytes of a slot row
   static constexpr int STAGES = Q8 ? 3 : 2;
@@ -90,12 +90,14 @@ struct Ring {
   static constexpr int WARP = STAGES * STAGE;
 };
 
-// Dynamic shared memory of a pass-1 block: Q, the rings (after the loop,
-// the warps' o), the warps' m and l.
-template <bool Q8>
+// Dynamic shared memory of a pass-1 block: Q (rows of QROW bf16, padded),
+// the rings (after the loop, the warps' o), the warps' m and l. At HD = 256
+// a bf16 block takes ~137 KB, so one block a SM.
+template <int HD, bool Q8>
 struct Layout {
+  static constexpr int QROW = HD + 8;
   static constexpr int Q_BYTES = ROWS * QROW * 2;
-  static constexpr int RING_BYTES = NWARPS * Ring<Q8>::WARP;
+  static constexpr int RING_BYTES = NWARPS * Ring<HD, Q8>::WARP;
   static constexpr int OBUF_BYTES = NWARPS * ROWS * HD * 4;
   static constexpr int BODY = RING_BYTES > OBUF_BYTES ? RING_BYTES : OBUF_BYTES;
   static constexpr int SMEM = Q_BYTES + BODY + 2 * NWARPS * ROWS * 4;
@@ -185,24 +187,25 @@ __device__ __forceinline__ void widen_int8x4(uint32_t w, uint32_t &lo, uint32_t 
 
 // The k position (0..HD) of head dim d in QK's contraction. bf16 keys
 // take the natural order (their fragments come by ldmatrix); for an int8
-// key, lane (gid, tig) reads 32 contiguous bytes of a slot row, dims
-// 32 tig .. 32 tig + 31, and bytes (0, 1) and (2, 3) of word kk of them
-// hold the k positions (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9) of k
-// tile kk. Q is stored in shared memory in this order, so its fragments
-// come by plain ldmatrix.
-template <bool Q8>
+// key, lane (gid, tig) reads HD / 4 contiguous bytes of a slot row, dims
+// HD / 4 tig .. HD / 4 (tig + 1) - 1, and bytes (0, 1) and (2, 3) of word kk
+// of them hold the k positions (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9)
+// of k tile kk. Q is stored in shared memory in this order, so its
+// fragments come by plain ldmatrix.
+template <int HD, bool Q8>
 __device__ __forceinline__ int k_pos(int d) {
   if (!Q8) return d;
   const int byte = d & 3;
-  return 16 * ((d >> 2) & 7) + 2 * (d >> 5) + (byte & 1) + 8 * (byte >> 1);
+  return 16 * ((d >> 2) % (HD / 16)) + 2 * (d / (HD / 4)) + (byte & 1) + 8 * (byte >> 1);
 }
 
 // The head dims of O^T's accumulator rows gid (first) and gid + 8 (second)
 // in m tile mt. bf16 values come by ldmatrix.trans in the natural order; an
-// int8 lane reads 16 contiguous bytes of a slot row, dims 16 gid .. 16 gid + 15.
-template <bool Q8>
+// int8 lane reads HD / 8 contiguous bytes of a slot row, dims HD / 8 gid ..
+// HD / 8 (gid + 1) - 1.
+template <int HD, bool Q8>
 __device__ __forceinline__ int o_dim(int mt, int gid, int second) {
-  return Q8 ? 16 * gid + 2 * mt + second : 16 * mt + gid + 8 * second;
+  return Q8 ? HD / 8 * gid + 2 * mt + second : 16 * mt + gid + 8 * second;
 }
 
 // the batch's last valid slot: the device's, clamped to [0, C - 1], or the host's
@@ -210,7 +213,7 @@ __device__ __forceinline__ int read_fill(const int *fill_dev, int fill_host, int
   return fill_dev ? min(max(*fill_dev, 0), C - 1) : fill_host;
 }
 
-template <bool Q8>
+template <int HD, bool Q8>
 __global__ void __launch_bounds__(NTHREADS)
 flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
                           const void *__restrict__ k_all,       // [L, B, KV, C, HD]
@@ -224,8 +227,9 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
                           float *__restrict__ l_part,
                           int B, int H, int KV, int C, int layer, int fill_host, int window,
                           float scale_log2) {
-  using RG = Ring<Q8>;
-  using LY = Layout<Q8>;
+  using RG = Ring<HD, Q8>;
+  using LY = Layout<HD, Q8>;
+  constexpr int QROW = LY::QROW;
   constexpr int ELEM = Q8 ? 1 : 2;  // bytes of a cache element
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16 *qs = reinterpret_cast<__nv_bfloat16 *>(smem);   // [ROWS][QROW]
@@ -304,7 +308,7 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
     }
   };
 
-  // O^T [HD dims (8 m tiles) x 8 heads]; the softmax state of this
+  // O^T [HD dims (HD / 16 m tiles) x 8 heads]; the softmax state of this
   // thread's two heads, m replicated over the 8 lanes of a column, l partial
   float o[HD / 16][4];
 #pragma unroll
@@ -322,12 +326,11 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
   }
 
   // while the first tiles are in flight: the G query heads into shared
-  // memory in QK's k order, rows past G zero; one 16-byte chunk a thread,
-  // loaded before it is stored
+  // memory in QK's k order, rows past G zero; 16-byte chunks, each loaded
+  // before it is stored
   constexpr int QCH = HD / 8;  // 16-byte chunks of a Q row
-  static_assert(ROWS * QCH == NTHREADS, "one Q chunk per thread");
-  {
-    const int r = t / QCH, c = t % QCH;
+  for (int i = t; i < ROWS * QCH; i += NTHREADS) {
+    const int r = i / QCH, c = i % QCH;
     uint4 qv = make_uint4(0, 0, 0, 0);
     if (r < G) {
       qv = *reinterpret_cast<const uint4 *>(
@@ -335,7 +338,7 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
     }
     const __nv_bfloat16 *e = reinterpret_cast<const __nv_bfloat16 *>(&qv);
 #pragma unroll
-    for (int y = 0; y < 8; ++y) qs[r * QROW + k_pos<Q8>(8 * c + y)] = e[y];
+    for (int y = 0; y < 8; ++y) qs[r * QROW + k_pos<HD, Q8>(8 * c + y)] = e[y];
   }
   __syncthreads();  // Q settled
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -352,14 +355,16 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
 
     // S^T = K Q^T: 16 slots x 8 heads
     float sc[4] = {0.f, 0.f, 0.f, 0.f};
-    uint32_t kw[2][8];  // int8: 32 bytes of slots gid and gid + 8
+    uint32_t kw[2][HD / 16];  // int8: HD / 4 bytes of slots gid and gid + 8
     if (Q8) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const uint4 a = lds128(Kt + (gid + 8 * h) * RG::ROW + 32 * tig);
-        const uint4 c = lds128(Kt + (gid + 8 * h) * RG::ROW + 32 * tig + 16);
-        kw[h][0] = a.x; kw[h][1] = a.y; kw[h][2] = a.z; kw[h][3] = a.w;
-        kw[h][4] = c.x; kw[h][5] = c.y; kw[h][6] = c.z; kw[h][7] = c.w;
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          const uint4 a = lds128(Kt + (gid + 8 * h) * RG::ROW + HD / 4 * tig + 16 * c);
+          kw[h][4 * c] = a.x; kw[h][4 * c + 1] = a.y; kw[h][4 * c + 2] = a.z;
+          kw[h][4 * c + 3] = a.w;
+        }
       }
     }
 #pragma unroll
@@ -437,17 +442,21 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
 
     // O^T += V^T P^T, once with p_hi and once with p_lo
     if (Q8) {
-      // slots 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9: 16 bytes each, dims
-      // 16 gid .. 16 gid + 15
-      uint4 vr[4];
+      // slots 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9: HD / 8 bytes each,
+      // dims HD / 8 gid .. HD / 8 (gid + 1) - 1, in 16-byte chunks
+      uint4 vr[4][HD / 128];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        vr[j] = lds128(Vt + (2 * tig + (j & 1) + 8 * (j >> 1)) * RG::ROW + 16 * gid);
+#pragma unroll
+        for (int c = 0; c < HD / 128; ++c) {
+          vr[j][c] = lds128(Vt + (2 * tig + (j & 1) + 8 * (j >> 1)) * RG::ROW + HD / 8 * gid +
+                            16 * c);
+        }
       }
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
+      for (int w = 0; w < HD / 32; ++w) {
         // A fragments of m tiles 2 w and 2 w + 1 from byte i of word w of
-        // each slot (dim 16 gid + 4 w + i = 16 gid + 2 mt + (i & 1)): element
+        // each slot (dim HD / 8 gid + 4 w + i = HD / 8 gid + 2 mt + (i & 1)): element
         // (i & 1) + 2 h of m tile 2 w + (i >> 1), for the slot pairs h =
         // (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9); the mma's A order is
         // (row gid, k lo), (row gid + 8, k lo), (row gid, k hi), (row gid + 8, k hi).
@@ -455,7 +464,8 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
         uint32_t va[2][4];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const uint32_t x0 = (&vr[2 * h].x)[w], x1 = (&vr[2 * h + 1].x)[w];
+          const uint32_t x0 = (&vr[2 * h][w / 4].x)[w % 4];
+          const uint32_t x1 = (&vr[2 * h + 1][w / 4].x)[w % 4];
           uint32_t lo_, hi_;
           widen_int8x4(__byte_perm(x0, x1, 0x5140), lo_, hi_);
           va[0][2 * h] = lo_;
@@ -511,8 +521,8 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
     const float f = ex2(m_run[e] - M);
 #pragma unroll
     for (int mt = 0; mt < HD / 16; ++mt) {
-      my_o[h * HD + o_dim<Q8>(mt, gid, 0)] = o[mt][e] * f;
-      my_o[h * HD + o_dim<Q8>(mt, gid, 1)] = o[mt][2 + e] * f;
+      my_o[h * HD + o_dim<HD, Q8>(mt, gid, 0)] = o[mt][e] * f;
+      my_o[h * HD + o_dim<HD, Q8>(mt, gid, 1)] = o[mt][2 + e] * f;
     }
   }
   __syncthreads();
@@ -530,29 +540,33 @@ flash_decode_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, 1, H, HD]
   }
 }
 
-// pass 2: one warp per (query head, KV head, batch row) over the splits up
-// to the fill's, in rounds of 32: lanes over splits for m and each split's
-// factor and weighted l; then each group of MERGE_CHUNK lanes sums a chunk
-// of MERGE_CHUNK splits in order (a lane owns HD / MERGE_CHUNK head dims:
-// that many / 4 independent 16-byte loads a split), and the lanes, each
-// owning head dims 4 lane .. 4 lane + 3, add the round's 32 / MERGE_CHUNK
-// chunks to the state in order, through shared memory. K2 (PARTIALS false)
-// writes o / max(l, 1e-30) as bf16 into `out`; K2p writes the unnormalised
-// f32 state into `out` (o), `m_out` (natural-log units) and `l_out`.
-template <bool PARTIALS>
+// pass 2: one warp per (query head, KV head, batch row) and 128 of its head
+// dims (HD / 128 warps a head), over the splits up to the fill's, in rounds
+// of 32: lanes over splits for m and each split's factor and weighted l;
+// then each group of MERGE_CHUNK lanes sums a chunk of MERGE_CHUNK splits in
+// order (a lane owns 128 / MERGE_CHUNK head dims: that many / 4 independent
+// 16-byte loads a split), and the lanes, each owning head dims 4 lane .. 4
+// lane + 3 of the warp's 128, add the round's 32 / MERGE_CHUNK chunks to the
+// state in order, through shared memory. K2 (PARTIALS false) writes o /
+// max(l, 1e-30) as bf16 into `out`; K2p writes the unnormalised f32 state
+// into `out` (o), `m_out` (natural-log units) and `l_out`.
+template <int HD, bool PARTIALS>
 __global__ void __launch_bounds__(128)
 flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restrict__ m_part,
                           const float *__restrict__ l_part, void *__restrict__ out,
                           float *__restrict__ m_out, float *__restrict__ l_out,
                           const int *__restrict__ fill_dev, int fill_host, int B, int H,
                           int KV, int C, int n_split) {
+  constexpr int WD = 128;                   // head dims of a warp
   constexpr int GROUPS = 32 / MERGE_CHUNK;  // lane groups: the chunks of a round
-  constexpr int DIMS = HD / MERGE_CHUNK;    // head dims of a lane in its group
-  __shared__ float4 chunk_o[4][GROUPS][HD / 4];  // a warp's round of chunk partials
+  constexpr int DIMS = WD / MERGE_CHUNK;    // head dims of a lane in its group
+  __shared__ float4 chunk_o[4][GROUPS][WD / 4];  // a warp's round of chunk partials
   __shared__ float chunk_l[4][GROUPS];
   const int warp = threadIdx.x >> 5;
-  const int head = blockIdx.x * 4 + warp;  // b * H + kv * G + g
-  if (head >= B * H) return;
+  const int unit = blockIdx.x * 4 + warp;
+  if (unit >= B * H * (HD / WD)) return;
+  const int head = unit / (HD / WD);       // b * H + kv * G + g
+  const int d0 = unit % (HD / WD) * WD;    // the warp's first head dim
   const int lane = threadIdx.x & 31;
   const int grp = lane / MERGE_CHUNK, sub = lane % MERGE_CHUNK;
   const int G = H / KV;
@@ -587,7 +601,7 @@ flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restr
       const float fj = __shfl_sync(0xffffffffu, f, j);
       pl += __shfl_sync(0xffffffffu, lf, j);
       if (s0 + j < n_live) {
-        const float *src = o_part + ((pair + s0 + j) * G + g) * HD + 4 * sub;
+        const float *src = o_part + ((pair + s0 + j) * G + g) * HD + d0 + 4 * sub;
         float4 v[DIMS / 4];
 #pragma unroll
         for (int k = 0; k < DIMS / 4; ++k) {
@@ -618,9 +632,9 @@ flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restr
     __syncwarp();  // the round's slots are free
   }
   if (PARTIALS) {
-    *reinterpret_cast<float4 *>(static_cast<float *>(out) + static_cast<size_t>(head) * HD +
+    *reinterpret_cast<float4 *>(static_cast<float *>(out) + static_cast<size_t>(head) * HD + d0 +
                                 4 * lane) = o;
-    if (lane == 0) {
+    if (lane == 0 && d0 == 0) {
       m_out[head] = m == NEG ? NEG : m * LN2;  // an inert row stays exactly -1e30
       l_out[head] = l;
     }
@@ -630,19 +644,19 @@ flash_decode_merge_kernel(const float *__restrict__ o_part, const float *__restr
     packed.x = pack_bf16(o.x / den, o.y / den);
     packed.y = pack_bf16(o.z / den, o.w / den);
     *reinterpret_cast<uint2 *>(static_cast<__nv_bfloat16 *>(out) +
-                               static_cast<size_t>(head) * HD + 4 * lane) = packed;
+                               static_cast<size_t>(head) * HD + d0 + 4 * lane) = packed;
   }
 }
 
-bool bad_shape(int B, int H, int KV, int C, int head_dim, int fill, int window) {
-  return head_dim != HD || KV <= 0 || H % KV != 0 || H / KV > ROWS || B <= 0 || C <= 0 ||
-         fill < 0 || fill >= C || window < 0;
+bool bad_shape(int B, int H, int KV, int C, int fill, int window) {
+  return KV <= 0 || H % KV != 0 || H / KV > ROWS || B <= 0 || C <= 0 || fill < 0 ||
+         fill >= C || window < 0;
 }
 
 // Both passes of one call on `st`; returns cudaGetLastError() (0 = launched).
 // A block takes more than the 48 KB of shared memory a block gets without
 // asking; the attribute is set once per instantiation.
-template <bool Q8, bool PARTIALS>
+template <int HD, bool Q8, bool PARTIALS>
 int launch(const void *q, const void *k, const void *v, const void *ks, const void *vs,
            const void *pad_lens, const void *fill_dev, void *out, void *m_out, void *l_out,
            void *o_part, void *m_part, void *l_part, int B, int H, int KV, int C, int layer,
@@ -650,8 +664,8 @@ int launch(const void *q, const void *k, const void *v, const void *ks, const vo
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_split_kernel<Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Layout<Q8>::SMEM);
+        flash_decode_split_kernel<HD, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Layout<HD, Q8>::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
@@ -660,13 +674,14 @@ int launch(const void *q, const void *k, const void *v, const void *ks, const vo
   float *op = static_cast<float *>(o_part);
   float *mp = static_cast<float *>(m_part);
   float *lp = static_cast<float *>(l_part);
-  flash_decode_split_kernel<Q8><<<dim3(n_split, KV, B), NTHREADS, Layout<Q8>::SMEM, st>>>(
+  flash_decode_split_kernel<HD, Q8>
+      <<<dim3(n_split, KV, B), NTHREADS, Layout<HD, Q8>::SMEM, st>>>(
       static_cast<const __nv_bfloat16 *>(q), k, v, static_cast<const float *>(ks),
       static_cast<const float *>(vs), static_cast<const int *>(pad_lens), fd, op, mp, lp, B, H,
       KV, C, layer, fill, window, scale * LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_merge_kernel<PARTIALS><<<(B * H + 3) / 4, 128, 0, st>>>(
+  flash_decode_merge_kernel<HD, PARTIALS><<<(B * H * (HD / 128) + 3) / 4, 128, 0, st>>>(
       op, mp, lp, out, static_cast<float *>(m_out), static_cast<float *>(l_out), fd, fill, B, H,
       KV, C, n_split);
   return static_cast<int>(cudaGetLastError());
@@ -678,19 +693,22 @@ int launch_for(int quantized, const void *q, const void *k, const void *v, const
                void *m_out, void *l_out, void *o_part, void *m_part, void *l_part, int B, int H,
                int KV, int C, int head_dim, int layer, int fill, int window, float scale,
                void *stream) {
-  // a fill on the device is clamped there; the host's must lie in the cache
-  if (bad_shape(B, H, KV, C, head_dim, fill_dev ? 0 : fill, window)) {
+  // a fill on the device is clamped there; the host's must lie in the cache.
+  // K2 takes head_dim 128 and 256, K2p 128 only
+  if (bad_shape(B, H, KV, C, fill_dev ? 0 : fill, window) ||
+      !(head_dim == 128 || (head_dim == 256 && !PARTIALS))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (quantized) {
-    return launch<true, PARTIALS>(q, k, v, ks, vs, pad_lens, fill_dev, out, m_out, l_out,
-                                  o_part, m_part, l_part, B, H, KV, C, layer, fill, window,
-                                  scale, st);
+#define VNSUM_DECODE_LAUNCH(HD_, Q8_)                                                          \
+  launch<HD_, Q8_, PARTIALS>(q, k, v, Q8_ ? ks : nullptr, Q8_ ? vs : nullptr, pad_lens,       \
+                             fill_dev, out, m_out, l_out, o_part, m_part, l_part, B, H, KV, C, \
+                             layer, fill, window, scale, st)
+  if (head_dim == 256) {
+    return quantized ? VNSUM_DECODE_LAUNCH(256, true) : VNSUM_DECODE_LAUNCH(256, false);
   }
-  return launch<false, PARTIALS>(q, k, v, nullptr, nullptr, pad_lens, fill_dev, out, m_out,
-                                 l_out, o_part, m_part, l_part, B, H, KV, C, layer, fill,
-                                 window, scale, st);
+  return quantized ? VNSUM_DECODE_LAUNCH(128, true) : VNSUM_DECODE_LAUNCH(128, false);
+#undef VNSUM_DECODE_LAUNCH
 }
 
 }  // namespace
@@ -699,9 +717,10 @@ int launch_for(int quantized, const void *q, const void *k, const void *v, const
 // partials with it.
 extern "C" int vnsum_flash_decode_splits(int C) { return (C + SPLIT - 1) / SPLIT; }
 
-// Dynamic shared memory of a pass-1 block.
-extern "C" int vnsum_flash_decode_smem(int quantized) {
-  return quantized ? Layout<true>::SMEM : Layout<false>::SMEM;
+// Dynamic shared memory of a pass-1 block at head_dim 128 or 256.
+extern "C" int vnsum_flash_decode_smem(int quantized, int head_dim) {
+  if (head_dim == 256) return quantized ? Layout<256, true>::SMEM : Layout<256, false>::SMEM;
+  return quantized ? Layout<128, true>::SMEM : Layout<128, false>::SMEM;
 }
 
 // Plain C entry points, loaded with ctypes. Each launches both passes on

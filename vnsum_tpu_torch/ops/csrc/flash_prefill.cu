@@ -47,6 +47,10 @@
 // issue wgmma. A variant with both (and Q in shared memory, to stay clear
 // of spills) ran a bf16 cache faster and an int8 cache, the main path's,
 // no faster; what holds the int8 path back is not measured yet.
+//
+// head_dim 256 (Gemma3) takes a kernel of its own, flash_prefill_wide_kernel
+// below: one consumer warpgroup of 64 rows over 64-slot tiles, with Q in
+// shared memory; it says why.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -146,6 +150,12 @@ __device__ __forceinline__ void stage_int8(uint32_t dst, const CUtensorMap *tm_k
   tma_load(dst + I8_TILE_BYTES, tm_v, bar, 0, k0, slab_row);
 }
 
+// the ring stage that holds the current tile, as a shared-memory address
+template <int STAGE_BYTES_>
+__device__ __forceinline__ uint32_t stage_addr(const unsigned char *ring, int stage) {
+  return smem_u32(ring + stage * STAGE_BYTES_);
+}
+
 // generic-proxy shared-memory writes made visible to the async proxy (wgmma, TMA)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -174,9 +184,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
 
 // keeps the compiler from moving accesses to an accumulator across wgmma,
 // or from reusing an A operand's registers while wgmma still reads them
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 template <int N>
@@ -228,6 +239,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
         "r"(accumulate));
 }
 
+// d[64 x 64] = a[64 x 16] * b[16 x 64] + (accumulate ? d : 0), both bf16
+// operands in shared memory, stored K-major
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // -- int8 widening -------------------------------------------------------------
 
 // 4 int8 values (one word) -> 4 exact bf16 values (two words): each byte,
@@ -244,23 +281,24 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t &lo, uint32_t &hi) {
   hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
-// one staged int8 tile [BN, 128] -> the swizzled bf16 tile (two [BN, 64]
-// halves, chunk c8 of row s at ((c8 ^ (s & 7)) * 16)), 8 chunks of 16
-// bytes per producer thread
+// one staged int8 tile [TN, HD_] -> the swizzled bf16 tile (HD_ / 64 boxes
+// [TN, 64], chunk c8 of row s at ((c8 ^ (s & 7)) * 16)), TN HD_ / 2048
+// chunks of 16 bytes per producer thread
+template <int HD_, int TN>
 __device__ __forceinline__ void widen_tile(const unsigned char *src, unsigned char *dst, int pt) {
 #pragma unroll 2
-  for (int j = 0; j < I8_TILE_BYTES / 16 / 128; ++j) {
+  for (int j = 0; j < TN * HD_ / 16 / 128; ++j) {
     const int i = pt + j * 128;
-    const int s = i >> 3;        // slot in the tile
-    const int c = i & 7;         // 16 int8 values: hd 16c .. 16c + 15
+    const int s = i / (HD_ / 16);  // slot in the tile
+    const int c = i % (HD_ / 16);  // 16 int8 values: hd 16c .. 16c + 15
     const uint4 raw = *reinterpret_cast<const uint4 *>(src + i * 16);
     uint4 a, b;
     widen4(raw.x, a.x, a.y);
     widen4(raw.y, a.z, a.w);
     widen4(raw.z, b.x, b.y);
     widen4(raw.w, b.z, b.w);
-    unsigned char *row = dst + (c >> 2) * HALF_BYTES + s * 128;
-    const int c8 = (c & 3) * 2;  // 8-value chunk of the half
+    unsigned char *row = dst + (c >> 2) * (TN * 128) + s * 128;
+    const int c8 = (c & 3) * 2;  // 8-value chunk of the box
     *reinterpret_cast<uint4 *>(row + ((c8 ^ (s & 7)) << 4)) = a;
     *reinterpret_cast<uint4 *>(row + (((c8 + 1) ^ (s & 7)) << 4)) = b;
   }
@@ -268,12 +306,12 @@ __device__ __forceinline__ void widen_tile(const unsigned char *src, unsigned ch
 
 // -- the softmax on the score fragment ------------------------------------------
 
-// Scales one tile's scores (this thread's 2 rows x 32 columns of the
-// accumulator) into the log2 domain, masks them (MASKED tiles only),
-// updates the running max and sum, and leaves in `sc` the probabilities
-// that go into PV (times vs[k] for an int8 cache).
-template <bool Q8, bool MASKED>
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2], float (&l_run)[2],
+// Scales one tile's scores (this thread's 2 rows x TN / 4 columns of the
+// accumulator of a TN-slot tile) into the log2 domain, masks them (MASKED
+// tiles only), updates the running max and sum, and leaves in `sc` the
+// probabilities that go into PV (times vs[k] for an int8 cache).
+template <int TN, bool Q8, bool MASKED>
+__device__ __forceinline__ void softmax_tile(float (&sc)[TN / 2], float (&m_run)[2], float (&l_run)[2],
                                              float (&corr)[2], const float *ksb, const float *vsb,
                                              float scale_log2, int k0, int tig,
                                              const int (&row_q)[2], const bool (&row_ok)[2],
@@ -281,7 +319,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2],
   uint64_t live = 0;  // bit nt*4 + e: element passes the mask
   float mx[2] = {NEG, NEG};
 #pragma unroll
-  for (int nt = 0; nt < BN / 8; ++nt) {
+  for (int nt = 0; nt < TN / 8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;
@@ -310,7 +348,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2],
   }
   // p = 2^(s - m); l sums the unscaled p, PV takes p * vs
 #pragma unroll
-  for (int nt = 0; nt < BN / 8; ++nt) {
+  for (int nt = 0; nt < TN / 8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;
@@ -416,8 +454,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_k,  // layer slab [B
         mbar_wait(staged_bar(j), (it >> 1) & 1);
         unsigned char *dst = ring + stage * STAGE_BYTES;
         const unsigned char *src = staging + j * STAGING_BYTES;
-        widen_tile(src, dst, pt);
-        widen_tile(src + I8_TILE_BYTES, dst + TILE_BYTES, pt);
+        widen_tile<HD, BN>(src, dst, pt);
+        widen_tile<HD, BN>(src + I8_TILE_BYTES, dst + TILE_BYTES, pt);
         scales[stage * 2 * BN + pt] = kscale;
         scales[stage * 2 * BN + BN + pt] = vscale;
         fence_proxy_async();
@@ -487,7 +525,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_k,  // layer slab [B
       const bool active = wg_rows && k0 <= wq_hi && k0 + BN - 1 >= pad &&
                           (window == 0 || k0 + BN - 1 > wq_lo - window);
       if (active) {
-        const uint32_t k_tile = smem_u32(ring + stage * STAGE_BYTES);
+        const uint32_t k_tile = stage_addr<STAGE_BYTES>(ring, stage);
         const uint32_t v_tile = k_tile + TILE_BYTES;
         const float *ksb = scales + stage * 2 * BN;
         const float *vsb = ksb + BN;
@@ -511,10 +549,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_k,  // layer slab [B
                               (window == 0 || k0 > wq_hi - window);
         float corr[2];
         if (interior) {
-          softmax_tile<Q8, false>(sc, m_run, l_run, corr, ksb, vsb, scale_log2, k0, tig, row_q,
+          softmax_tile<BN, Q8, false>(sc, m_run, l_run, corr, ksb, vsb, scale_log2, k0, tig, row_q,
                                   row_ok, pad, window);
         } else {
-          softmax_tile<Q8, true>(sc, m_run, l_run, corr, ksb, vsb, scale_log2, k0, tig, row_q,
+          softmax_tile<BN, Q8, true>(sc, m_run, l_run, corr, ksb, vsb, scale_log2, k0, tig, row_q,
                                  row_ok, pad, window);
         }
 #pragma unroll
@@ -577,6 +615,300 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_k,  // layer slab [B
   }
 }
 
+// -- head_dim 256 ----------------------------------------------------------------
+//
+// At head_dim 256 the tiling above does not fit: its ring alone would take
+// 256 KB, and a consumer's O accumulator (64 x 256 f32, 128 registers a
+// thread) beside Q held as A fragments (64 more) leaves no room for S and
+// P. So a block here is two warpgroups, a producer and one consumer of
+// BM = 64 rows, over tiles of BN = 64 slots: Q sits in shared memory (four
+// [64, 64] boxes in the 128-byte swizzle) and QK is wgmma m64n64k16 with
+// both operands in shared memory; PV is two wgmma m64n128k16 a k step, one
+// per 128-dim half of O, with P from registers as above. The ring holds
+// STAGES tiles of K and V, each four [BN, 64] boxes; an int8 cache is
+// staged and widened by the producer exactly as above. Everything else (the
+// row order, the tile skipping, the masks, the log2-domain softmax, p
+// rounded to bf16 against the running max, zero output for a row that sees
+// no key) is the kernel above's. Shared memory: 1024 alignment + Q 32 KB +
+// ring 128 KB (+ int8 staging 64 KB + scales 1 KB) + barriers = 226 KB, one
+// block a SM. No setmaxnreg: two warpgroups may hold 255 registers each.
+struct Wide {
+  static constexpr int HD = 256;
+  static constexpr int BM = 64;                     // query rows per block
+  static constexpr int BN = 64;                     // cache slots per K/V tile
+  static constexpr int NTHREADS = 2 * 128;          // producer + one consumer warpgroup
+  static constexpr int BOX_BYTES = BN * 128;        // a [BN, 64] bf16 box
+  static constexpr int TILE_BYTES = 4 * BOX_BYTES;  // a bf16 K or V tile
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int Q_BOX_BYTES = BM * 128;      // a [BM, 64] bf16 box of Q
+  static constexpr int Q_BYTES = 4 * Q_BOX_BYTES;
+  static constexpr int I8_TILE_BYTES = BN * HD;
+  static constexpr int STAGING_BYTES = 2 * I8_TILE_BYTES;
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int SCALE_BYTES = STAGES * 2 * BN * 4;
+  static constexpr int smem_bytes(bool q8) {
+    return 1024 + Q_BYTES + RING_BYTES + (q8 ? 2 * STAGING_BYTES + SCALE_BYTES : 0) +
+           BAR_BYTES;
+  }
+};
+static_assert(Wide::smem_bytes(true) <= 232448, "head_dim 256 block over 227 KB");
+
+template <bool Q8>
+__global__ void __launch_bounds__(Wide::NTHREADS, 1)
+flash_prefill_wide_kernel(const __grid_constant__ CUtensorMap tm_k,  // layer slab [B*KV, C, 256]
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __nv_bfloat16 *__restrict__ q,       // [B, S, H, 256]
+                          const float *__restrict__ ks_all,          // [L, B, KV, C] (int8 only)
+                          const float *__restrict__ vs_all,
+                          const int *__restrict__ pad_lens,          // [B]
+                          __nv_bfloat16 *__restrict__ out,           // [B, S, H, 256]
+                          int B, int S, int H, int KV, int C, int layer, int window,
+                          int q_offset, float scale_log2) {
+  using W = Wide;
+  constexpr int HD_ = W::HD, BM_ = W::BM, BN_ = W::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_u32 = smem_u32(smem_raw);
+  unsigned char *smem = smem_raw + (((raw_u32 + 1023) & ~1023u) - raw_u32);
+  unsigned char *q_s = smem;                                   // Q: four [BM, 64] boxes
+  unsigned char *ring = q_s + W::Q_BYTES;                      // [STAGES][K | V]
+  unsigned char *staging = ring + W::RING_BYTES;               // int8: [2][K | V]
+  float *scales = reinterpret_cast<float *>(staging + (Q8 ? 2 * W::STAGING_BYTES : 0));
+  const uint32_t bars = smem_u32(staging + (Q8 ? 2 * W::STAGING_BYTES + W::SCALE_BYTES : 0));
+  auto full_bar = [&](int s) { return bars + 8 * s; };
+  auto empty_bar = [&](int s) { return bars + 8 * (STAGES + s); };
+  auto staged_bar = [&](int j) { return bars + 8 * (2 * STAGES + j); };
+
+  const int G = H / KV;
+  const int kv = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_rows = S * G;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BM_;  // the most slots first
+  const int q_lo = q_offset + r0 / G;
+  const int q_hi = q_offset + (min(r0 + BM_, n_rows) - 1) / G;
+  const int pad = pad_lens[b];
+  int kt_lo = pad / BN_;
+  if (window > 0) kt_lo = max(kt_lo, max(q_lo - window + 1, 0) / BN_);
+  const int kt_hi = q_hi / BN_;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar(s), Q8 ? 128 : 1);
+      mbar_init(empty_bar(s), 4);  // one arrival per consumer warp
+    }
+    for (int j = 0; j < 2; ++j) mbar_init(staged_bar(j), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup ----
+    const int pt = threadIdx.x;
+    const int slab_row = b * KV + kv;
+    if (!Q8) {
+      if (pt == 0) {
+        for (int kt = kt_lo, it = 0; kt <= kt_hi; ++kt, ++it) {
+          const int stage = it % STAGES;
+          mbar_wait(empty_bar(stage), ((it / STAGES) & 1) ^ 1);
+          const uint32_t dst = smem_u32(ring + stage * W::STAGE_BYTES);
+          const uint32_t bar = full_bar(stage);
+          mbar_expect_tx(bar, W::STAGE_BYTES);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            tma_load(dst + c * W::BOX_BYTES, &tm_k, bar, 64 * c, kt * BN_, slab_row);
+            tma_load(dst + W::TILE_BYTES + c * W::BOX_BYTES, &tm_v, bar, 64 * c, kt * BN_,
+                     slab_row);
+          }
+        }
+      }
+    } else {
+      const size_t scale_base =
+          ((static_cast<size_t>(layer) * B + b) * KV + kv) * static_cast<size_t>(C);
+      auto stage_tile = [&](int j, int kt) {
+        const uint32_t dst = smem_u32(staging + j * W::STAGING_BYTES);
+        mbar_expect_tx(staged_bar(j), W::STAGING_BYTES);
+        tma_load(dst, &tm_k, staged_bar(j), 0, kt * BN_, slab_row);
+        tma_load(dst + W::I8_TILE_BYTES, &tm_v, staged_bar(j), 0, kt * BN_, slab_row);
+      };
+      if (pt == 0 && kt_lo <= kt_hi) stage_tile(0, kt_lo);
+      for (int kt = kt_lo, it = 0; kt <= kt_hi; ++kt, ++it) {
+        const int stage = it % STAGES;
+        const int j = it & 1;
+        if (pt == 0 && kt < kt_hi) stage_tile(j ^ 1, kt + 1);
+        // threads 0 .. BN - 1 load slot pt's ks and vs
+        const int slot = kt * BN_ + pt;
+        const float kscale = pt < BN_ && slot < C ? ks_all[scale_base + slot] : 0.f;
+        const float vscale = pt < BN_ && slot < C ? vs_all[scale_base + slot] : 0.f;
+        mbar_wait(empty_bar(stage), ((it / STAGES) & 1) ^ 1);
+        mbar_wait(staged_bar(j), (it >> 1) & 1);
+        unsigned char *dst = ring + stage * W::STAGE_BYTES;
+        const unsigned char *src = staging + j * W::STAGING_BYTES;
+        widen_tile<HD_, BN_>(src, dst, pt);
+        widen_tile<HD_, BN_>(src + W::I8_TILE_BYTES, dst + W::TILE_BYTES, pt);
+        if (pt < BN_) {
+          scales[stage * 2 * BN_ + pt] = kscale;
+          scales[stage * 2 * BN_ + BN_ + pt] = vscale;
+        }
+        fence_proxy_async();
+        mbar_arrive(full_bar(stage));
+        // every thread is done with staging[j] before TMA refills it
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      }
+    }
+  } else {
+    // ---- consumer warpgroup: BM = 64 rows ----
+    const int ct = threadIdx.x - 128;
+    const int warp = ct >> 5;
+    const int lane = ct & 31;
+    const int gid = lane >> 2;
+    const int tig = lane & 3;
+    const bool rows_full = r0 + BM_ - 1 < n_rows;
+
+    int row_q[2];
+    bool row_ok[2];
+    size_t row_off[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + warp * 16 + gid + 8 * i;
+      row_ok[i] = r < n_rows;
+      const int s = row_ok[i] ? r / G : 0;
+      const int g = row_ok[i] ? r % G : 0;
+      row_q[i] = q_offset + s;
+      row_off[i] =
+          ((static_cast<size_t>(b) * S + s) * H + static_cast<size_t>(kv) * G + g) * HD_;
+    }
+
+    // Q into shared memory in wgmma's swizzled K-major layout: chunk c (16
+    // bytes, dims 8c .. 8c + 7) of row r in box c / 8 at row r, 16-byte
+    // slot (c % 8) ^ (r % 8); rows past the last are zero
+    for (int i = ct; i < BM_ * (HD_ / 8); i += 128) {
+      const int r = i / (HD_ / 8), c = i % (HD_ / 8);
+      const int rr = r0 + r;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (rr < n_rows) {
+        v = *reinterpret_cast<const uint4 *>(
+            q + ((static_cast<size_t>(b) * S + rr / G) * H + static_cast<size_t>(kv) * G +
+                 rr % G) * HD_ + 8 * c);
+      }
+      *reinterpret_cast<uint4 *>(q_s + (c >> 3) * W::Q_BOX_BYTES + r * 128 +
+                                 (((c & 7) ^ (r & 7)) << 4)) = v;
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");  // Q settled, for every consumer warp
+    const uint32_t q_tile = smem_u32(q_s);
+
+    float o[2][64];  // O's two 128-dim halves
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
+    }
+    float m_run[2] = {NEG, NEG};
+    float l_run[2] = {0.f, 0.f};
+
+    for (int kt = kt_lo, it = 0; kt <= kt_hi; ++kt, ++it) {
+      const int k0 = kt * BN_;
+      const int stage = it % STAGES;
+      mbar_wait(full_bar(stage), (it / STAGES) & 1);
+      const bool active = k0 <= q_hi && k0 + BN_ - 1 >= pad &&
+                          (window == 0 || k0 + BN_ - 1 > q_lo - window);
+      if (active) {
+        const uint32_t k_tile = stage_addr<W::STAGE_BYTES>(ring, stage);
+        const uint32_t v_tile = k_tile + W::TILE_BYTES;
+        const float *ksb = scales + stage * 2 * BN_;
+        const float *vsb = ksb + BN_;
+
+        // S = Q K^T: both K-major, k16 step kk at byte 32 (kk % 4) of box kk / 4
+        float sc[32];
+        fence_acc(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD_ / 16; ++kk) {
+          wgmma_m64n64k16_ss(
+              sc, smem_desc(q_tile + (kk >> 2) * W::Q_BOX_BYTES + (kk & 3) * 32, 16, 1024),
+              smem_desc(k_tile + (kk >> 2) * W::BOX_BYTES + (kk & 3) * 32, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(sc);
+
+        const bool interior = rows_full && k0 >= pad && k0 + BN_ - 1 <= q_lo &&
+                              (window == 0 || k0 > q_hi - window);
+        float corr[2];
+        if (interior) {
+          softmax_tile<BN_, Q8, false>(sc, m_run, l_run, corr, ksb, vsb, scale_log2, k0, tig,
+                                       row_q, row_ok, pad, window);
+        } else {
+          softmax_tile<BN_, Q8, true>(sc, m_run, l_run, corr, ksb, vsb, scale_log2, k0, tig,
+                                      row_q, row_ok, pad, window);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt) {
+            o[h][nt * 4 + 0] *= corr[0];
+            o[h][nt * 4 + 1] *= corr[0];
+            o[h][nt * 4 + 2] *= corr[1];
+            o[h][nt * 4 + 3] *= corr[1];
+          }
+        }
+        uint32_t pa[BN_ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN_ / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+        // O += P V: V MN-major, half h's two 64-wide boxes BOX_BYTES apart,
+        // 8-slot groups 1024 B apart; k16 step kk at slot 16 kk
+        fence_acc(o[0]);
+        fence_acc(o[1]);
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int kk = 0; kk < BN_ / 16; ++kk) {
+            wgmma_m64n128k16<1>(
+                o[h], pa[kk],
+                smem_desc(v_tile + 2 * h * W::BOX_BYTES + kk * 16 * 128, W::BOX_BYTES, 1024), 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(o[0]);
+        fence_acc(o[1]);
+        fence_a(pa);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(stage));
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float l = l_run[i];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[i] = 1.f / fmaxf(l, 1e-30f);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const int col = 128 * h + nt * 8 + tig * 2;
+        if (row_ok[0]) {
+          *reinterpret_cast<uint32_t *>(out + row_off[0] + col) =
+              pack_bf16(o[h][nt * 4 + 0] * inv[0], o[h][nt * 4 + 1] * inv[0]);
+        }
+        if (row_ok[1]) {
+          *reinterpret_cast<uint32_t *>(out + row_off[1] + col) =
+              pack_bf16(o[h][nt * 4 + 2] * inv[1], o[h][nt * 4 + 3] * inv[1]);
+        }
+      }
+    }
+  }
+}
+
 // -- tensor maps ---------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap *, CUtensorMapDataType, cuuint32_t, void *,
@@ -603,13 +935,14 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// The map of one layer's [B*KV, C, HD] slab of a K or V cache: bf16 in
-// [64, BN, 1] boxes with the 128-byte swizzle, int8 in [HD, BN, 1] boxes
+// The map of one layer's [B*KV, C, hd] slab of a K or V cache: bf16 in
+// [64, bn, 1] boxes with the 128-byte swizzle, int8 in [hd, bn, 1] boxes
 // unswizzled (the producer widens those). Slots past C read as zeros.
-// Cached by (slab pointer, rows, C, dtype).
-cudaError_t slab_map(CUtensorMap *map, const void *slab, int rows, int C, bool q8) {
-  static std::map<std::tuple<const void *, int, int, bool>, CUtensorMap> cache;
-  const auto key = std::make_tuple(slab, rows, C, q8);
+// Cached by (slab pointer, rows, C, dtype, hd).
+cudaError_t slab_map(CUtensorMap *map, const void *slab, int rows, int C, bool q8, int hd,
+                     int bn) {
+  static std::map<std::tuple<const void *, int, int, bool, int>, CUtensorMap> cache;
+  const auto key = std::make_tuple(slab, rows, C, q8, hd);
   const auto hit = cache.find(key);
   if (hit != cache.end()) {
     *map = hit->second;
@@ -618,9 +951,11 @@ cudaError_t slab_map(CUtensorMap *map, const void *slab, int rows, int C, bool q
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t elem = q8 ? 1 : 2;
-  const cuuint64_t dims[3] = {HD, static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {HD * elem, static_cast<cuuint64_t>(C) * HD * elem};
-  const cuuint32_t box[3] = {q8 ? static_cast<cuuint32_t>(HD) : 64u, BN, 1};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {hd * elem, static_cast<cuuint64_t>(C) * hd * elem};
+  const cuuint32_t box[3] = {q8 ? static_cast<cuuint32_t>(hd) : 64u,
+                             static_cast<cuuint32_t>(bn), 1};
   const cuuint32_t steps[3] = {1, 1, 1};
   const CUresult res = encode(
       map, q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
@@ -633,59 +968,77 @@ cudaError_t slab_map(CUtensorMap *map, const void *slab, int rows, int C, bool q
   return cudaSuccess;
 }
 
-template <bool Q8>
+// WIDE: the head_dim-256 kernel
+template <bool WIDE, bool Q8>
 cudaError_t launch(dim3 grid, cudaStream_t st, const CUtensorMap &tm_k, const CUtensorMap &tm_v,
                    const __nv_bfloat16 *q, const float *ks, const float *vs, const int *pads,
                    __nv_bfloat16 *out, int B, int S, int H, int KV, int C, int layer,
                    int window, int q_offset, float scale_log2) {
+  const auto kernel = WIDE ? flash_prefill_wide_kernel<Q8> : flash_prefill_kernel<Q8>;
+  const int threads = WIDE ? Wide::NTHREADS : NTHREADS;
+  const int smem = WIDE ? Wide::smem_bytes(Q8) : smem_bytes(Q8);
   static bool configured = false;  // the shared-memory opt-in, once per process
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(Q8));
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  flash_prefill_kernel<Q8><<<grid, NTHREADS, smem_bytes(Q8), st>>>(
-      tm_k, tm_v, q, ks, vs, pads, out, B, S, H, KV, C, layer, window, q_offset, scale_log2);
+  kernel<<<grid, threads, smem, st>>>(tm_k, tm_v, q, ks, vs, pads, out, B, S, H, KV, C, layer,
+                                      window, q_offset, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// Plain C entry point, loaded with ctypes: head_dim 128 or 256. Launches on
+// `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int vnsum_flash_prefill(const void *q, const void *k, const void *v,
                                    const void *ks, const void *vs, const void *pad_lens,
                                    void *out, int B, int S, int H, int KV, int C, int head_dim,
                                    int layer, int window, int q_offset, int quantized,
                                    float scale, void *stream) {
-  if (head_dim != HD || KV <= 0 || H % KV != 0 || S <= 0 || B <= 0) {
+  if ((head_dim != HD && head_dim != Wide::HD) || KV <= 0 || H % KV != 0 || S <= 0 || B <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool wide = head_dim == Wide::HD;
   const int G = H / KV;
-  const dim3 grid((S * G + BM - 1) / BM, KV, B);
+  const int bm = wide ? Wide::BM : BM;
+  const int bn = wide ? Wide::BN : BN;
+  const dim3 grid((S * G + bm - 1) / bm, KV, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16 *qb = static_cast<const __nv_bfloat16 *>(q);
   __nv_bfloat16 *ob = static_cast<__nv_bfloat16 *>(out);
   const int *pads = static_cast<const int *>(pad_lens);
   const float scale_log2 = scale * LOG2E;
   // the layer's slab of each cache: B*KV rows of C slots
-  const size_t slab_bytes = static_cast<size_t>(B) * KV * C * HD * (quantized ? 1 : 2);
+  const size_t slab_bytes =
+      static_cast<size_t>(B) * KV * C * head_dim * (quantized ? 1 : 2);
   const size_t offset = static_cast<size_t>(layer) * slab_bytes;
   CUtensorMap tm_k, tm_v;
-  cudaError_t err =
-      slab_map(&tm_k, static_cast<const char *>(k) + offset, B * KV, C, quantized != 0);
+  cudaError_t err = slab_map(&tm_k, static_cast<const char *>(k) + offset, B * KV, C,
+                             quantized != 0, head_dim, bn);
   if (err == cudaSuccess) {
-    err = slab_map(&tm_v, static_cast<const char *>(v) + offset, B * KV, C, quantized != 0);
+    err = slab_map(&tm_v, static_cast<const char *>(v) + offset, B * KV, C, quantized != 0,
+                   head_dim, bn);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = quantized ? launch<true>(grid, st, tm_k, tm_v, qb, static_cast<const float *>(ks),
-                                 static_cast<const float *>(vs), pads, ob, B, S, H, KV, C, layer,
-                                 window, q_offset, scale_log2)
-                  : launch<false>(grid, st, tm_k, tm_v, qb, nullptr, nullptr, pads, ob, B, S, H,
-                                  KV, C, layer, window, q_offset, scale_log2);
+  const float *ksf = quantized ? static_cast<const float *>(ks) : nullptr;
+  const float *vsf = quantized ? static_cast<const float *>(vs) : nullptr;
+#define VNSUM_PREFILL_LAUNCH(WIDE_, Q8_)                                                     \
+  launch<WIDE_, Q8_>(grid, st, tm_k, tm_v, qb, ksf, vsf, pads, ob, B, S, H, KV, C, layer, \
+                     window, q_offset, scale_log2)
+  if (wide) {
+    err = quantized ? VNSUM_PREFILL_LAUNCH(true, true) : VNSUM_PREFILL_LAUNCH(true, false);
+  } else {
+    err = quantized ? VNSUM_PREFILL_LAUNCH(false, true) : VNSUM_PREFILL_LAUNCH(false, false);
+  }
+#undef VNSUM_PREFILL_LAUNCH
   return static_cast<int>(err);
 }
 
-// Dynamic shared memory of a launch, in bytes (quantized: int8 cache).
-extern "C" int vnsum_flash_prefill_smem(int quantized) { return smem_bytes(quantized != 0); }
+// Dynamic shared memory of a launch at head_dim 128 or 256, in bytes
+// (quantized: int8 cache).
+extern "C" int vnsum_flash_prefill_smem(int quantized, int head_dim) {
+  return head_dim == Wide::HD ? Wide::smem_bytes(quantized != 0) : smem_bytes(quantized != 0);
+}

@@ -24,6 +24,7 @@ merge of the splits with one warp per query head) for tensors on the card
 and take their plain versions, :func:`flash_decode_attention_ref` and
 :func:`flash_decode_partials_ref`, only for tensors on the CPU.
 ``launches`` counts K2's kernel launches and ``partials_launches`` K2p's.
+K2 takes head_dim 128 and 256 (Gemma3), K2p 128 only (ROADMAP B4).
 """
 from __future__ import annotations
 
@@ -33,12 +34,15 @@ import torch
 
 from . import kernels
 from .flash_attention import (
+    HEAD_DIM,
+    HEAD_DIMS,
     NEG,
     cache_layer,
     attention_ref,
     check_cache,
     check_query,
     pointers,
+    require_head_dim,
     visible_mask,
 )
 
@@ -118,18 +122,19 @@ def _library():
             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        lib.vnsum_flash_decode_splits.argtypes = [ctypes.c_int]
+        lib.vnsum_flash_decode_smem.argtypes = [ctypes.c_int, ctypes.c_int]
         for name in ("vnsum_flash_decode_splits", "vnsum_flash_decode_smem"):
-            getattr(lib, name).argtypes = [ctypes.c_int]
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _checked_launch_args(q, cache, layer_idx, pad_lens, fill, q_per_kv, window):
-    """Raise unless the kernel takes these inputs; returns (quantized, win,
-    the device fill or None, the host fill, the pass-1 scratch (o, m, l)
-    sized for the cache)."""
-    check_query(q, pad_lens)
+def _checked_launch_args(q, cache, layer_idx, pad_lens, fill, q_per_kv, window, head_dims):
+    """Raise unless the kernel takes these inputs (a head_dim of
+    ``head_dims``); returns (quantized, win, the device fill or None, the
+    host fill, the pass-1 scratch (o, m, l) sized for the cache)."""
+    check_query(q, pad_lens, head_dims)
     quantized = check_cache(q, cache, layer_idx)
     B, S, H, hd = q.shape
     KV, C = cache["k"].shape[2], cache["k"].shape[3]
@@ -180,7 +185,7 @@ def flash_decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"no flash decode kernel for device {q.device}")
     quantized, win, fill_dev, fill_host, scratch = _checked_launch_args(
-        q, cache, layer_idx, pad_lens, fill, q_per_kv, window
+        q, cache, layer_idx, pad_lens, fill, q_per_kv, window, HEAD_DIMS
     )
     B, _, H, hd = q.shape
     KV, C = cache["k"].shape[2], cache["k"].shape[3]
@@ -217,8 +222,9 @@ def flash_decode_partials(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no flash decode kernel for device {q.device}")
+    require_head_dim("K2p (flash_decode_partials)", q.shape[-1])
     quantized, win, fill_dev, fill_host, scratch = _checked_launch_args(
-        q, cache, layer_idx, pad_lens, fill, q_per_kv, window
+        q, cache, layer_idx, pad_lens, fill, q_per_kv, window, (HEAD_DIM,)
     )
     B, _, H, hd = q.shape
     KV, C = cache["k"].shape[2], cache["k"].shape[3]

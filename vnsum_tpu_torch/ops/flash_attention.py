@@ -12,7 +12,8 @@ rows) comes out as 0 — the dense path would give a uniform average instead.
 :func:`flash_prefill_attention` launches the CUDA kernel
 (``csrc/flash_prefill.cu``) for tensors on the card and takes the plain
 version, :func:`flash_prefill_attention_ref`, only for tensors on the CPU.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches. The kernel takes head_dim 128 and 256
+(Gemma3, with each layer's window passed at run time).
 """
 from __future__ import annotations
 
@@ -23,16 +24,32 @@ import torch
 from . import kernels
 
 NEG = -1e30
-HEAD_DIM = 128  # the head_dim the CUDA kernels take
+HEAD_DIM = 128  # the head_dim every CUDA kernel takes
+# the head_dims K1 and K2 take (256: Gemma3); K2p and K3 take HEAD_DIM only
+HEAD_DIMS = (128, 256)
+B4 = "ROADMAP B4: K2p and K3 at head_dim 256 are not written yet"
 
 launches = 0
 _lib = None
 
 
 def supports_flash(head_dim: int) -> bool:
-    """Whether the CUDA kernels take this head_dim (head_dim 64 and 256 are
-    not written yet; those models take dense attention on the card)."""
+    """Whether K1 and K2 take this head_dim on the card. The JAX kernels
+    take any multiple of 128; head_dim 64 (Llama-3.2-1B) runs dense
+    attention there and here."""
+    return head_dim in HEAD_DIMS
+
+
+def supports_verify(head_dim: int) -> bool:
+    """Whether K2p and K3 take this head_dim on the card."""
     return head_dim == HEAD_DIM
+
+
+def require_head_dim(kernel: str, head_dim: int, dims=(HEAD_DIM,)) -> None:
+    """Raise NotImplementedError, naming ROADMAP B4, for a head_dim of the
+    JAX kernels' (a multiple of 128) that ``kernel`` does not take yet."""
+    if head_dim % 128 == 0 and head_dim not in dims:
+        raise NotImplementedError(f"{kernel} at head_dim {head_dim}: {B4}")
 
 
 def visible_mask(q_slots, pad_lens, window, cache_len: int):
@@ -98,10 +115,11 @@ def flash_prefill_attention_ref(
 
 
 def check_cache(q, cache: dict, layer_idx: int) -> bool:
-    """Raise unless the kernels take this cache; returns whether it is int8."""
+    """Raise unless the kernels take this cache (its head_dim q's); returns
+    whether it is int8."""
     k, v = cache["k"], cache["v"]
-    if k.dim() != 5 or k.shape != v.shape or k.shape[-1] != HEAD_DIM:
-        raise ValueError(f"cache must be [L, B, KV, C, {HEAD_DIM}], got {tuple(k.shape)}")
+    if k.dim() != 5 or k.shape != v.shape or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"cache must be [L, B, KV, C, {q.shape[-1]}], got {tuple(k.shape)}")
     if k.shape[1] != q.shape[0]:
         raise ValueError(f"cache batch {k.shape[1]} != query batch {q.shape[0]}")
     if not 0 <= layer_idx < k.shape[0]:
@@ -121,10 +139,12 @@ def check_cache(q, cache: dict, layer_idx: int) -> bool:
     return quantized
 
 
-def check_query(q, pad_lens) -> None:
-    """Raise unless the kernels take this query and these pads."""
-    if q.dtype != torch.bfloat16 or q.dim() != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"q must be bf16 [B, S, H, {HEAD_DIM}], got {q.dtype} {tuple(q.shape)}")
+def check_query(q, pad_lens, head_dims=HEAD_DIMS) -> None:
+    """Raise unless the kernels take this query (a head_dim of
+    ``head_dims``) and these pads."""
+    if q.dtype != torch.bfloat16 or q.dim() != 4 or q.shape[-1] not in head_dims:
+        raise ValueError(f"q must be bf16 [B, S, H, hd] with hd in {head_dims}, "
+                         f"got {q.dtype} {tuple(q.shape)}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     if (

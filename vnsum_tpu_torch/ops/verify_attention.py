@@ -28,7 +28,15 @@ import torch
 
 from ..models.llama import verify_attention_mask
 from . import kernels
-from .flash_attention import attention_ref, cache_layer, check_cache, check_query, pointers
+from .flash_attention import (
+    HEAD_DIM,
+    attention_ref,
+    cache_layer,
+    check_cache,
+    check_query,
+    pointers,
+    require_head_dim,
+)
 
 MAX_ROWS = 64  # largest Sq * q_per_kv the kernel takes
 MAX_GROUP = 8  # largest q_per_kv the kernel takes
@@ -89,7 +97,8 @@ def flash_spec_verify_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no verify attention kernel for device {q.device}")
-    check_query(q, pad_lens)
+    require_head_dim("K3 (flash_spec_verify_attention)", q.shape[-1])
+    check_query(q, pad_lens, (HEAD_DIM,))
     quantized = check_cache(q, cache, layer_idx)
     B, Sq, H, hd = q.shape
     L, _, KV, C, _ = cache["k"].shape
