@@ -36,7 +36,16 @@ Phases, each raising on failure (so any failure exits non-zero):
    at head_dim 256 (Gemma3-4B: KV=4, G=2) at the Gemma3 phase's batches
    (GEMMA_SHAPES: map B=8 S=4096 and reduce B=8 S=512, C = S + 128), window
    0 and 1024, bf16 and int8, K2 at fills whose window floor falls inside a
-   512-slot split (S, C - 1, 1500; 1500's inside a K1 tile too); K1 over
+   512-slot split (S, C - 1, 1500; 1500's inside a K1 tile too); K3 at
+   head_dim 256 at every shape Gemma3's spec path and slot loop send
+   (gemma_verify_cases: the spec step's map and reduce batches, Sq=9,
+   C = S + 73; the slot segment, Sq=1, C = 4160), window 0 and 1024,
+   bf16 and int8 (the reduce batch's int8 only), window floors inside a
+   512-slot split and on its boundary, a parked row, a row whose pad hides
+   every key from its first queries and an all-pad filler row; K1 at 256
+   over those spec caches, at the slot loop's join groups (B = 1, 2, 4
+   at S = 4096, C = 4160) and, with K2, at the spec backend's one-shot
+   batches (B = 8, C = S + 64, int8); K1 over
    the spec path's int8 cache (C=4233, whose scale rows TMA cannot
    address); K2 and K2p with the fill as an int32 tensor on the device (one
    past the cache, which the kernel clamps); and the prefill kernel at path (c)'s prefill (B=2, S = C =
@@ -62,8 +71,8 @@ Phases, each raising on failure (so any failure exits non-zero):
    every case of that kernel in phase 3 and no other, so the limits are
    shown to be tight enough to see such a fault. K2 and K2p are the two
    modes of one source and share both its passes, so the two count as one
-   family, and each of its faults must fail every K2 and K2p case; every K1
-   and K2 fault sits in code the head_dim-256 kernels run too, and must
+   family, and each of its faults must fail every K2 and K2p case; every K1,
+   K2 and K3 fault sits in code the head_dim-256 kernels run too, and must
    fail their cases as well;
 5. timing at the main path's shapes (Llama-3.2-3B: L=28, H=24, KV=8,
    hd=128; prefill B=8 S=4096 C=4224, decode B=8 C=4224 fill=4200; verify
@@ -91,7 +100,10 @@ Phases, each raising on failure (so any failure exits non-zero):
    Gemma3-4B's map batch (B=8, S=4096, C=4224, KV=4, G=2, int8 cache of 34
    layers, K2 at fill 4200) on a global layer and a sliding one (window
    1024): kernel, bound, plain version and the library call on a bf16
-   copy with the windowed mask, K/V expanded to 8 heads;
+   copy with the windowed mask, K/V expanded to 8 heads; K3 at head_dim 256
+   at Gemma3-4B's slot segment (B=8, Sq=1, C=4160) and spec step (B=8,
+   Sq=9, C=4169), each on a global and a sliding layer, the same four
+   numbers;
 6. pipeline: the port's CLI runs map-reduce over data/vi_eval with
    Llama-3.2-3B at full width and depth (random bf16 weights from a seed),
    its greedy decode steps replayed as captured CUDA graphs: every document
@@ -119,10 +131,18 @@ Phases, each raising on failure (so any failure exits non-zero):
    PipelineRunner byte-identical; then the map batch's last-position logits
    through K1 (int8 and bf16 cache) against the dense windowed forward on a
    bf16 cache within GEMMA_LOGITS_RTOL of the largest |logit|, with every
-   layer run global as a planted fault that must exceed it; K2p, K3, the
-   spec path and the slot loop must raise NotImplementedError naming
-   ROADMAP B4 at head_dim 256, launching nothing; wall, prefill and decode
-   seconds and steps, peak memory on ``[gemma3]`` lines;
+   layer run global as a planted fault that must exceed it; K2p must raise
+   NotImplementedError naming ROADMAP B4 at head_dim 256, launching
+   nothing; then on the same model path (a) (map-reduce through
+   PipelineRunner with spec_k=8 and the oracle run, whose references are
+   the one-shot's generated ids decoded unstripped, which must accept
+   drafts), the one-step K3-against-K2 gate (STEP_KERNEL_RTOL) and path
+   (b) (the slot loop over the map prompts in two waves at fused_segments
+   4), at GEMMA_PATH_NEW new tokens, each with K1, K2 and K3 launches
+   exactly 34 x the engine record's prefill forwards, decode steps and
+   verify steps; wall, prefill and decode seconds and steps, peak memory
+   on ``[gemma3]`` lines, the paths on ``[gemma3 spec]`` and ``[gemma3
+   slot]`` lines;
 6b. weights: the pipeline phase's own weights (init_model(llama32_3b(), 0))
    written as an HF checkpoint (save_hf_checkpoint: 28 layers in four bf16
    shards, the embeddings in a fifth, and an index; into the temp dir, or
@@ -184,16 +204,21 @@ Phases, each raising on failure (so any failure exits non-zero):
 8. spec pipeline (path a): the same run through PipelineRunner with a
    backend built with GenerationConfig(spec_k=8), so every map and reduce
    group decodes speculatively against its references through the verify
-   kernel: 7/7 documents, ROUGE, verify launches = 28 x verify steps; then
-   the map batch again with the plain run's outputs as references, which
-   must accept drafts (multi-token steps, ragged per-row fills on the card);
+   kernel: 7/7 documents, ROUGE, launches exactly 28 x the engine record's
+   prefill forwards, verify steps and one-shot decode steps; then
+   the map batch again with the one-shot run's generated ids as references,
+   which must accept drafts (multi-token steps, ragged per-row fills on the
+   card);
    then, gated, one verify forward of 9 tokens (K3) against 9 decode steps
    (K2) of the same tokens on the map batch, within SPEC_LOGITS_RTOL, with
-   a fault planted in the script's own call that must exceed it;
+   a fault planted in the script's own call that must exceed it; and one
+   decode step through K3 at Sq=1 against K2 with the same GEMMs, within
+   STEP_KERNEL_RTOL, with its own planted fault;
 9. slot loop (path b): TorchBackend.start_slot_loop(slots=8,
    prompt_tokens=4096, max_new_tokens=128, segment_tokens=32) fed the 7 map
    prompts in two waves and drained, at fused_segments 1 and 4: every
-   request completes and verify launches = 28 x the decode steps run;
+   request completes, K1 and K3 launches exactly 28 x the join groups'
+   prefill forwards and x the decode steps run;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -231,14 +256,16 @@ them just after; a kernel of the path that was not launched fails it. A
 replay of a captured step adds the launches its capture counted
 (``vnsum_tpu_torch/backend/capture.py``), so the counts are those of the
 steps run. The
-line before the last is a JSON object with one entry per kernel (K1 and K2
-at head_dim 256 entries of their own), whose ``launches`` sums the path
-phases (the head_dim-256 entries: the Gemma3 phase's); the last line is the
-device record.
+line before the last is a JSON object with one entry per kernel (K1, K2
+and K3 at head_dim 256 entries of their own), whose ``launches`` sums the
+path phases (the head_dim-256 entries: the Gemma3 phase's); the last line
+is the device record. A ``[phase]`` line after each phase gives its
+seconds and the run's so far.
 Without a card the script exits non-zero and prints neither.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -305,6 +332,18 @@ LONG_LOGITS_RTOL = {"path": 1e-2, "short": 5e-2}
 # H100. The planted fault (a 512-slot split dropped) reads 1.1 to 1.6
 # (PERF.md).
 SPEC_LOGITS_RTOL = 0.1
+# paths (a) and (b) against the one-shot path, the attention kernel alone:
+# one greedy decode step's logits through K3 at Sq=1 (every row's fill S,
+# as the slot segment runs it) against K2 (a shared fill S), from two
+# copies of one prefilled cache with the same [8 x 1]-row GEMMs, as max
+# |K3 - K2| over the rows and vocab divided by the largest |K2| logit. The
+# two kernels run the same pass 1 on the same tiles and differ in the order
+# their second pass sums a row's splits (K2 in chunks of two, K3 one by
+# one): ~1e-7 of an f32 output, then a bf16 output near a rounding point
+# rounds the other way (2^-8 of it), and such flips carry through the
+# layers as the spec gate's do. The limit is the spec gate's; the planted
+# fault (a 512-slot split dropped) must exceed it.
+STEP_KERNEL_RTOL = 0.1
 # phase 6c: the eval encoder's f32 token embeddings on the card against the
 # same weights on the CPU, max |card - cpu|. Every matmul is f32 on both
 # (TF32 off) and differs only in summation order, ~1e-6 relative per
@@ -401,10 +440,11 @@ KERNELS = {
         "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:381",
     },
-    # K1 and K2 at head_dim 256 (Gemma3), kept apart in the kernels line: a
-    # kernel of its own in flash_prefill.cu, an instantiation of its own in
-    # flash_decode.cu; times at the map batch on a sliding layer (window
-    # 1024, 29 of Gemma3-4B's 34), launches those of the Gemma3 phase
+    # K1, K2 and K3 at head_dim 256 (Gemma3), kept apart in the kernels
+    # line: a kernel of its own in flash_prefill.cu, an instantiation of its
+    # own in flash_decode.cu; times at the map batch on a sliding layer
+    # (window 1024, 29 of Gemma3-4B's 34), launches those of the Gemma3
+    # phase
     "prefill_hd256": {
         "name": "flash_prefill_attention (head_dim 256)",
         "route": "cuda",
@@ -416,6 +456,15 @@ KERNELS = {
         "route": "cuda",
         "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:381",
+    },
+    # K3 at head_dim 256: an instantiation of its own in flash_verify.cu
+    # (two warps a ring, each accumulating 128 head dims of o); times at
+    # the spec step's shape on a sliding layer
+    "verify_hd256": {
+        "name": "flash_spec_verify_attention (head_dim 256)",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_verify.cu",
+        "replaces": "vnsum_tpu/ops/decode_attention.py:510",
     },
     # a port-only kernel: the JAX package's int8 product is XLA's fusion in
     # _proj (its int8 einsum's line), no pallas_call
@@ -458,7 +507,7 @@ def phase_environment(torch) -> str:
 def phase_build() -> float:
     """Builds every kernel and prints each kernel function's registers and
     spills (ptxas -v), K1's dynamic shared memory, K3's at the main path's
-    row counts and K2/K2p's pass 1's."""
+    row counts (Llama-3.2-3B's and Gemma3-4B's) and K2/K2p's pass 1's."""
     from vnsum_tpu_torch.ops import decode_attention as da
     from vnsum_tpu_torch.ops import kernels
     from vnsum_tpu_torch.ops import verify_attention as va
@@ -480,9 +529,11 @@ def phase_build() -> float:
         log(f"[build] flash_prefill dynamic shared memory at head_dim {hd}: "
             f"int8 {smem(1, hd)} B, bf16 {smem(0, hd)} B")
     lib = va._library()
-    for R in (3, 27):
-        log(f"[build] flash_verify dynamic shared memory at Sq*G={R}: "
-            f"int8 {lib.vnsum_flash_verify_smem(R, 1)} B, bf16 {lib.vnsum_flash_verify_smem(R, 0)} B")
+    for hd, rows in ((128, (3, 27)), (256, (2, 18))):
+        for R in rows:
+            log(f"[build] flash_verify dynamic shared memory at head_dim {hd} Sq*G={R}: "
+                f"int8 {lib.vnsum_flash_verify_smem(R, 1, hd)} B, "
+                f"bf16 {lib.vnsum_flash_verify_smem(R, 0, hd)} B")
     lib = da._library()
     for hd in (128, 256):
         log(f"[build] flash_decode pass 1 dynamic shared memory at head_dim {hd}: int8 "
@@ -609,6 +660,40 @@ JUDGE_NEW_TOKENS = 256
 GEMMA_SHAPES = {4096: [0, 37, 400, 1000, 2500, 3000, 4095, 4096],
                 512: [0, 5, 60, 128, 200, 300, 511, 512]}
 GEMMA_KV, GEMMA_G, GEMMA_HD, GEMMA_WINDOW = 4, 2, 256, 1024
+# Gemma3's spec path and slot loop (phase 6a): new tokens a request, so the
+# spec path's caches are C = S + GEMMA_PATH_NEW + 9 (spec_k 8), its one-shot
+# groups' (the oracle's control) C = S + GEMMA_PATH_NEW, and the slot loop's
+# C = 4096 + GEMMA_PATH_NEW; its join groups prefill B = 1, 2 or 4 prompts
+# at S = 4096. 64, not the CLI's 128: at 128 the whole run came within
+# 8 s of the 600 s it must stay under (PERF.md)
+GEMMA_PATH_NEW = 64
+GEMMA_SPEC_K = 8
+GEMMA_JOIN_BATCHES = (1, 2, 4)
+
+
+def gemma_verify_cases() -> list:
+    """K3's head_dim-256 cases: (what, S, Sq, C, fills, pads) at every
+    (B, Sq, C) Gemma3's spec path and slot loop send. The spec step's map
+    batch (S = 4096, Sq = 9): row 0's last query crosses the split boundary
+    at 4096 and its window floor (fill - 1023 for query 0) falls inside a
+    split, row 1's floor on one (3072), row 4 is parked at e = max_new,
+    row 5's pad hides every key from its queries 0-2, row 7 is the all-pad
+    filler row (pad = S). Its reduce batch (S = 512): the same kinds of
+    rows. The slot segment (Sq = 1, C = 4096 + new): fills 4096 + t_b, row
+    6 a free slot (pad = S), row 7 parked at limit C; new = GEMMA_PATH_NEW."""
+    new = GEMMA_PATH_NEW
+    cases = []
+    for S, fills, pads in (
+            (4096, [4088, 4095, 4100, 4150, 4096 + new, 4150, 4096, 4111],
+             [0, 37, 400, 1000, 2500, 4153, 4095, 4096]),
+            (512, [505, 511, 512, 560, 512 + new, 530, 512, 520],
+             [0, 5, 60, 128, 200, 533, 511, 512])):
+        cases.append((f"spec S={S}", S, GEMMA_SPEC_K + 1, S + new + GEMMA_SPEC_K + 1, fills, pads))
+    C = 4096 + new
+    cases.append(("slot segment", 4096, 1, C,
+                  [4096, 4101, 4113, 4160, 4096 + new - 1, 4096 + new // 2, 4099, C],
+                  [0, 37, 400, 1000, 2500, 3000, 4096, 64]))
+    return cases
 
 
 def phase_correctness(torch) -> dict:
@@ -623,18 +708,18 @@ def phase_correctness(torch) -> dict:
     KV, G, hd = 8, 3, 128
     H = KV * G
     worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0, "partials": 0.0, "gemv": 0.0,
-             "prefill_hd256": 0.0, "decode_hd256": 0.0}
+             "prefill_hd256": 0.0, "decode_hd256": 0.0, "verify_hd256": 0.0}
 
     def pads_of(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
 
-    def verify(case, q, cache, layer, pads_h, fills_h, window=0, blind=()):
+    def verify(case, q, cache, layer, pads_h, fills_h, window=0, blind=(), g=G, key="verify"):
         """K3 against its plain version; ``blind`` lists (row, queries)
         that see no key and must come out 0."""
         pads, fills = pads_of(pads_h), pads_of(fills_h)
-        got = va.flash_spec_verify_attention(q, cache, layer, pads, fills, G, window)
-        want = va.flash_spec_verify_attention_ref(q, cache, layer, pads, fills, G, window)
-        compare(torch, "verify", f"verify {case}", got, want, worst)
+        got = va.flash_spec_verify_attention(q, cache, layer, pads, fills, g, window)
+        want = va.flash_spec_verify_attention_ref(q, cache, layer, pads, fills, g, window)
+        compare(torch, key, f"verify {case}", got, want, worst)
         for row, queries in blind:
             if float(got[row, queries].float().abs().max()) != 0.0:
                 FAILED.append(f"verify {case}: row {row} queries {queries} see no key "
@@ -752,6 +837,57 @@ def phase_correctness(torch) -> dict:
                            cache, layer, pads, fill, window, g=GEMMA_G, key="decode_hd256")
                 del q
             del cache
+    torch.cuda.empty_cache()
+
+    # Gemma3's spec path and slot loop at head_dim 256 (gemma_verify_cases):
+    # K3 at every shape they send, global and sliding, bf16 and int8 (the
+    # reduce batch's int8 only); K1 over the spec path's int8 caches (C =
+    # S + GEMMA_PATH_NEW + 9: scale rows no multiple of 16 bytes apart) and
+    # the slot loop's join groups (B = 1, 2, 4 at S = 4096); K1 and K2 at
+    # the one-shot batches of the spec backend (the oracle's control, and
+    # a reduce group whose references are empty), C = S + GEMMA_PATH_NEW
+    HG = GEMMA_KV * GEMMA_G
+    for what, S, Sq, C, fills_h, pads_h in gemma_verify_cases():
+        B = len(fills_h)
+        for quantized in (True, False) if S == 4096 else (True,):
+            cache = make_cache(torch, 2, B, GEMMA_KV, C, GEMMA_HD, quantized, 100 + C + quantized,
+                               dev)
+            for window in (0, GEMMA_WINDOW):
+                if quantized and Sq > 1:
+                    prefill(f"hd=256 int8=True B={B} S={S} C={C} window={window} layer=1 "
+                            f"(gemma3 {what})", rand_q(torch, (B, S, HG, GEMMA_HD), 101 + S, dev),
+                            cache, 1, pads_of(GEMMA_SHAPES[S]), window, 0, empty_row=B - 1,
+                            g=GEMMA_G, key="prefill_hd256")
+                q = rand_q(torch, (B, Sq, HG, GEMMA_HD), 102 + C + window, dev)
+                verify(f"hd=256 int8={quantized} B={B} Sq={Sq} C={C} window={window} layer=1 "
+                       f"(gemma3 {what})", q, cache, 1, pads_h, fills_h, window,
+                       blind=((5, slice(0, 3)),) if Sq > 1 else (), g=GEMMA_G,
+                       key="verify_hd256")
+                del q
+            del cache
+    for S, pads_h in GEMMA_SHAPES.items():
+        B, C = len(pads_h), S + GEMMA_PATH_NEW
+        cache = make_cache(torch, 2, B, GEMMA_KV, C, GEMMA_HD, True, 120 + S, dev)
+        for window in (0, GEMMA_WINDOW):
+            prefill(f"hd=256 int8=True B={B} S={S} C={C} window={window} layer=1 (gemma3 "
+                    "spec backend's one-shot)", rand_q(torch, (B, S, HG, GEMMA_HD), 121 + S, dev),
+                    cache, 1, pads_of(pads_h), window, 0, empty_row=B - 1, g=GEMMA_G,
+                    key="prefill_hd256")
+            for fill in (S, C - 1):
+                decode(f"hd=256 int8=True B={B} C={C} fill={fill} window={window} layer=1 "
+                       "(gemma3 spec backend's one-shot)",
+                       rand_q(torch, (B, 1, HG, GEMMA_HD), 122 + fill, dev), cache, 1,
+                       pads_of(pads_h), fill, window, g=GEMMA_G, key="decode_hd256")
+        del cache
+    S, C = 4096, 4096 + GEMMA_PATH_NEW
+    for B in GEMMA_JOIN_BATCHES:
+        pads_h = [37 * (2 * r + 1) for r in range(B)]
+        cache = make_cache(torch, 2, B, GEMMA_KV, C, GEMMA_HD, True, 110 + B, dev)
+        for window in (0, GEMMA_WINDOW):
+            prefill(f"hd=256 int8=True B={B} S={S} C={C} window={window} layer=1 (gemma3 slot "
+                    "join group)", rand_q(torch, (B, S, HG, GEMMA_HD), 111 + B, dev), cache, 1,
+                    pads_of(pads_h), window, 0, g=GEMMA_G, key="prefill_hd256")
+        del cache
     torch.cuda.empty_cache()
 
     # K1, K2 and K2p at the other group sizes the kernels take: G=2
@@ -1085,19 +1221,20 @@ def phase_mutants(n_cases: int) -> None:
     (decode's merge, down to the fill's one slot where a row sees little
     else), the last warp's 128 slots of a split's o (decode, verify) or a
     tile read from the wrong stage of the ring (prefill). The
-    copies build and run three at a time: each holds 10-15 GB of caches at
+    copies build and run four at a time: each holds 10-15 GB of caches at
     its peak, and with five at once one copy stopped short of its last
-    cases in one run."""
+    cases in one run. Each copy starts from the kernels phase 2 built, so
+    it compiles only the source its fault is planted in."""
     results = []
     with tempfile.TemporaryDirectory() as root:
         procs = []
         for i, (what, kernel, source, text, replacement) in enumerate(MUTANTS):
-            if len(procs) == 3:
+            if len(procs) == 4:
                 results += [p.communicate(timeout=600) + (p.returncode,) for p in procs]
                 procs = []
             tmp = Path(root) / str(i)
             shutil.copytree(ROOT / "vnsum_tpu_torch", tmp / "vnsum_tpu_torch",
-                            ignore=shutil.ignore_patterns("build", "__pycache__"))
+                            ignore=shutil.ignore_patterns("*.tmp", "__pycache__"))
             shutil.copy(ROOT / "chip_smoke.py", tmp)
             cu = tmp / "vnsum_tpu_torch" / "ops" / "csrc" / source
             code = cu.read_text()
@@ -1301,7 +1438,11 @@ def time_gemma_kernels(torch, worst) -> dict:
     C=4224, KV=4, G=2, an int8 cache of 8 layers, 69 MB of K/V a layer, so
     each call finds its layer cold in L2; pads 64 b, K2 at fill 4200) on a
     global layer (window 0) and a sliding one (1024), through
-    time_prefill_decode. Returns the sliding layer's records."""
+    time_prefill_decode; then K3 at head_dim 256 through time_verify at the
+    Gemma3 slot loop's shape (Sq=1, C = S + GEMMA_PATH_NEW, fills S + 3 b)
+    and its spec step's (Sq=9, C = S + GEMMA_PATH_NEW + 9, fills S + 30 +
+    3 b), each on a global and a sliding layer. Returns the sliding layer's
+    records (K3's at the spec step's shape)."""
     dev = torch.device("cuda")
     L, B, KV, G, hd = 8, 8, GEMMA_KV, GEMMA_G, GEMMA_HD
     S, C, fill = 4096, 4096 + 128, 4200
@@ -1321,6 +1462,22 @@ def time_gemma_kernels(torch, worst) -> dict:
         out["prefill_hd256"], out["decode_hd256"] = pre, dec  # the sliding layer's last
     del cache, lib, q, qd
     torch.cuda.empty_cache()
+    pads_h = [64 * i for i in range(B)]
+    for what, Sq, fills_h in (("slot", 1, [S + 3 * i for i in range(B)]),
+                              ("spec", GEMMA_SPEC_K + 1, [S + 30 + 3 * i for i in range(B)])):
+        C = S + GEMMA_PATH_NEW + (Sq if Sq > 1 else 0)
+        cache = make_cache(torch, L, B, KV, C, hd, True, 16 + Sq, dev)
+        lib = library_kv(torch, cache, 4, G)
+        for window in (0, GEMMA_WINDOW):
+            rec = time_verify(torch, worst, cache, *lib, pads_h, fills_h, Sq, 17 + Sq + window,
+                              window, "verify_hd256")
+            log(f"[time] verify hd=256 {what} B={B} Sq={Sq} C={C} "
+                f"{'sliding' if window else 'global'} (window {window}): kernel "
+                f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+                f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms")
+        out["verify_hd256"] = rec  # the spec step's, sliding
+        del cache, lib
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1522,15 +1679,16 @@ def library_kv(torch, cache, layers: int, G: int):
             [layer("v", li) for li in range(layers)])
 
 
-def time_verify(torch, worst, cache, k_lib, v_lib, pads_h, fills_h, Sq, seed) -> dict:
+def time_verify(torch, worst, cache, k_lib, v_lib, pads_h, fills_h, Sq, seed, window=0,
+                key="verify") -> dict:
     """K3, its plain version and the library call on one int8 cache at Sq
-    queries per row and per-row fills, and K3's two passes apart
+    queries per row, per-row fills and ``window``, and K3's two passes apart
     (torch.profiler); one output of the kernel is held against the plain
-    version's as in phase 3. The bound counts what these inputs need: each
-    row's visible K/V slots and scales read once, q read and the output
-    written once, and, on bf16 tensor cores, 2 hd FLOP of QK and 2 x 2 hd
-    of PV (run once with p_hi and once with p_lo) per visible (query head,
-    slot) pair."""
+    version's as in phase 3 (``worst[key]``). The bound counts what these
+    inputs need: each row's visible K/V slots and scales read once (from
+    its first query's window floor), q read and the output written once,
+    and, on bf16 tensor cores, 2 hd FLOP of QK and 2 x 2 hd of PV (run once
+    with p_hi and once with p_lo) per visible (query head, slot) pair."""
     from vnsum_tpu_torch.ops import verify_attention as va
 
     dev = cache["k"].device
@@ -1543,28 +1701,39 @@ def time_verify(torch, worst, cache, k_lib, v_lib, pads_h, fills_h, Sq, seed) ->
     limit = fills.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
     kpos = torch.arange(C, device=dev)
     mask = ((kpos[None, None, :] >= pads.long()[:, None, None])
-            & (kpos[None, None, :] <= limit[:, :, None]))[:, None]
+            & (kpos[None, None, :] <= limit[:, :, None]))
+    if window:
+        mask = mask & (kpos[None, None, :] > limit[:, :, None] - window)
+    mask = mask[:, None]
     qt = q.transpose(1, 2)
-    pairs = sum(max(min(f + s, C - 1) - p + 1, 0)
+
+    def first(p, f, s):  # the first slot query s of a row sees
+        return max(p, f + s - window + 1) if window else p
+
+    pairs = sum(max(min(f + s, C - 1) - first(p, f, s) + 1, 0)
                 for p, f in zip(pads_h, fills_h) for s in range(Sq))
-    rows = sum(max(min(f + Sq - 1, C - 1) - p + 1, 0) for p, f in zip(pads_h, fills_h))
+    rows = sum(max(min(f + Sq - 1, C - 1) - first(p, f, 0) + 1, 0)
+               for p, f in zip(pads_h, fills_h))
     flops = 6 * hd * H * pairs
     bytes_ = 2 * q.numel() * 2 + 2 * rows * KV * (hd + 4)
     ms = time_ms(torch, lambda i: va.flash_spec_verify_attention(
-        q, cache, i % L, pads, fills, G, 0), n=4 * L)
+        q, cache, i % L, pads, fills, G, window), n=4 * L)
     passes = kernel_ms(torch, lambda i: va.flash_spec_verify_attention(
-        q, cache, i % L, pads, fills, G, 0), n=4 * L)
+        q, cache, i % L, pads, fills, G, window), n=4 * L)
     split_ms = sum(v for k, v in passes.items() if "flash_verify_split_kernel" in k)
     merge_ms = sum(v for k, v in passes.items() if "flash_verify_merge_kernel" in k)
-    log(f"[time] verify passes B={B} Sq={Sq} C={C}: pass 1 {split_ms:.4f} ms, merge "
+    tag = f"hd={hd} " if hd != 128 else ""
+    tag += f"window={window} " if window else ""
+    log(f"[time] verify passes {tag}B={B} Sq={Sq} C={C}: pass 1 {split_ms:.4f} ms, merge "
         f"{merge_ms:.4f} ms a call (torch.profiler; CUDA events around both: {ms:.4f} ms)")
     plain = time_ms(torch, lambda i: va.flash_spec_verify_attention_ref(
-        q, cache, i % L, pads, fills, G, 0), n=4)
+        q, cache, i % L, pads, fills, G, window), n=4)
     library = time_ms(torch, lambda i: torch.nn.functional.scaled_dot_product_attention(
         qt, k_lib[i % len(k_lib)], v_lib[i % len(k_lib)], attn_mask=mask), n=4 * len(k_lib))
-    compare(torch, "verify", f"verify int8=True B={B} Sq={Sq} C={C} layer={L - 1} "
-            "(timing inputs)", va.flash_spec_verify_attention(q, cache, L - 1, pads, fills, G, 0),
-            va.flash_spec_verify_attention_ref(q, cache, L - 1, pads, fills, G, 0), worst)
+    compare(torch, key, f"verify {tag}int8=True B={B} Sq={Sq} C={C} layer={L - 1} "
+            "(timing inputs)",
+            va.flash_spec_verify_attention(q, cache, L - 1, pads, fills, G, window),
+            va.flash_spec_verify_attention_ref(q, cache, L - 1, pads, fills, G, window), worst)
     return timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
 
 
@@ -1653,14 +1822,36 @@ def read_launches() -> dict:
             "gemv": int8_matmul.launches}
 
 
-def check_launches(path: str, launches: dict, need: dict) -> None:
-    """Each kernel of ``need`` must have launched at least as often as the
-    path needs, and at least once."""
-    for name, n in need.items():
-        if launches[name] < n or launches[name] == 0:
-            raise AssertionError(
-                f"{path}: {name} kernel launched {launches[name]} times, needs >= {n}")
-    log(f"[launches] {path}: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+def check_exact(path: str, launches: dict, need: dict,
+                path_kernels=("prefill", "verify")) -> None:
+    """Each kernel launched exactly as often as ``need`` says (a counter it
+    leaves out: never), and each of ``path_kernels`` at least once."""
+    want = {k: need.get(k, 0) for k in COUNTERS}
+    if launches != want or not all(want[k] for k in path_kernels):
+        raise AssertionError(f"{path}: launches {launches}, the engine record implies {want}")
+    log(f"[launches] {path}: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + " (exactly the engine record's)")
+
+
+@contextlib.contextmanager
+def recorded_rows():
+    """Collects the id rows TorchBackend detokenizes while it is open, each
+    as a list, in the order generate detokenizes them: its length-sorted
+    groups, not the prompts' order."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+
+    rows: list = []
+    detok = TorchBackend._detok
+
+    def call(self, ids, extra_eos=()):
+        rows.append(ids.tolist())
+        return detok(self, ids, extra_eos)
+
+    TorchBackend._detok = call
+    try:
+        yield rows
+    finally:
+        TorchBackend._detok = detok
 
 
 def check_run(res: dict, docs, gen_dir: Path, approach: str = "mapreduce",
@@ -1733,25 +1924,14 @@ def captured_and_eager(torch, name: str, config_fn, label: str) -> dict:
             "--max-new-tokens", "128", "--device", "cuda",
         ]
 
-    rows: dict[str, list] = {"captured": [], "eager": []}
-    detok = TorchBackend._detok
-
-    def recording(run):
-        def call(self, ids, extra_eos=()):
-            rows[run].append(ids.tolist())
-            return detok(self, ids, extra_eos)
-        return call
-
+    rows: dict[str, list] = {}
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        TorchBackend._detok = recording("captured")
-        try:
+        with recorded_rows() as rows["captured"]:
             rc = cli.main(cli_args(Path(tmp)))
-        finally:
-            TorchBackend._detok = detok
         wall = time.perf_counter() - t0
         launches = read_launches()
         if rc != 0:
@@ -1774,11 +1954,8 @@ def captured_and_eager(torch, name: str, config_fn, label: str) -> dict:
 
         t0 = time.perf_counter()
         runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
-        TorchBackend._detok = recording("eager")
-        try:
+        with recorded_rows() as rows["eager"]:
             eager_res = runner.run()
-        finally:
-            TorchBackend._detok = detok
         eager_wall = time.perf_counter() - t0
         if runner.failures:
             raise AssertionError(f"{label} eager control failures: {runner.failures}")
@@ -1825,12 +2002,9 @@ def phase_pipeline(torch) -> tuple[dict, dict]:
     n_layers = llama32_3b().n_layers
     run = captured_and_eager(torch, "llama3.2:3b", llama32_3b, "pipeline")
     launches, eng = run["launches"], run["eng"]
-    if launches["decode"] != n_layers * eng["decode_steps"]:
-        raise AssertionError(f"pipeline: decode kernel launched {launches['decode']} "
-                             f"times for {eng['decode_steps']} decode steps")
-    check_launches("pipeline", launches, {
+    check_exact("pipeline", launches, {
         "prefill": n_layers * eng["prefill_forwards"],
-        "decode": n_layers * eng["decode_steps"]})
+        "decode": n_layers * eng["decode_steps"]}, ("prefill", "decode"))
     return launches, run["summaries"]
 
 
@@ -1889,39 +2063,27 @@ def gemma_logits_gate(torch, engine, docs) -> None:
     torch.cuda.empty_cache()
 
 
-def gemma_b4_raises(torch, engine) -> None:
-    """What waits for ROADMAP B4 refuses on the card, before any launch:
-    K2p and K3 at head_dim 256, and the spec path and the slot loop of a
-    Gemma3 engine, which run K3. None may carry on through dense attention
-    or a plain version."""
-    from vnsum_tpu_torch.core.config import GenerationConfig
+def gemma_k2p_raises(torch) -> None:
+    """K2p at head_dim 256, which waits for ROADMAP B4, refuses on the
+    card before any launch: it never carries on through its plain version."""
     from vnsum_tpu_torch.ops.decode_attention import flash_decode_partials
-    from vnsum_tpu_torch.ops.verify_attention import flash_spec_verify_attention
 
     dev = torch.device("cuda")
     cache = make_cache(torch, 1, 2, GEMMA_KV, 256, GEMMA_HD, True, 5, dev)
     pads = torch.zeros(2, dtype=torch.int32, device=dev)
     q = rand_q(torch, (2, 1, GEMMA_KV * GEMMA_G, GEMMA_HD), 6, dev)
     before = read_launches()
-    calls = {
-        "K2p": lambda: flash_decode_partials(q, cache, 0, pads, 100, GEMMA_G),
-        "K3": lambda: flash_spec_verify_attention(q, cache, 0, pads, pads + 100, GEMMA_G),
-        "spec path": lambda: engine.generate(["a b c"], config=GenerationConfig(spec_k=8),
-                                             references=["a b c"]),
-        "slot loop": lambda: engine.start_slot_loop(8),
-    }
-    for what, call in calls.items():
-        try:
-            call()
-        except NotImplementedError as err:
-            if "B4" not in str(err):
-                raise AssertionError(f"gemma3 {what}: raised without naming B4: {err}")
-        else:
-            raise AssertionError(f"gemma3 {what} at head_dim 256 ran; it must raise (B4)")
+    try:
+        flash_decode_partials(q, cache, 0, pads, 100, GEMMA_G)
+    except NotImplementedError as err:
+        if "B4" not in str(err):
+            raise AssertionError(f"gemma3 K2p: raised without naming B4: {err}")
+    else:
+        raise AssertionError("gemma3 K2p at head_dim 256 ran; it must raise (B4)")
     if read_launches() != before:
-        raise AssertionError("gemma3: a refused call launched a kernel")
-    log("[gemma3] K2p, K3, the spec path and the slot loop raise NotImplementedError naming "
-        "ROADMAP B4 at head_dim 256, with no launch")
+        raise AssertionError("gemma3: the refused K2p call launched a kernel")
+    log("[gemma3] K2p raises NotImplementedError naming ROADMAP B4 at head_dim 256, with no "
+        "launch")
 
 
 def phase_gemma(torch) -> dict:
@@ -1932,36 +2094,52 @@ def phase_gemma(torch) -> dict:
     eager control (captured_and_eager), K1 = 34 x prefill forwards and K2 =
     34 x decode steps exactly, K2p = K3 = GEMV = 0, every batch a
     GEMMA_SHAPES batch that phase 3 checked; then the dense logits gate
-    (gemma_logits_gate) on the control's model, and what waits for B4
-    refused (gemma_b4_raises). Random Gemma3 weights repeat
-    a prompt's last token (the embedding, scaled by sqrt(dim), outweighs
-    the layers' sum), whitespace after the reduce prompts, so the summaries
-    strip to empty and the generated ids carry the comparison. Returns the
-    captured run's launches."""
+    (gemma_logits_gate) on the control's model and K2p refused at head_dim
+    256 (gemma_k2p_raises, B4); then, on the same model, path (a)
+    (spec_path: the spec pipeline and its oracle, whose references are the
+    one-shot's generated ids decoded unstripped), the one-step K3-against-K2
+    gate (step_kernel_gate) and path (b) (slot_loop at fused_segments=4),
+    all at GEMMA_PATH_NEW new tokens, each with exact launch counts. Random
+    Gemma3 weights repeat a prompt's last token (the embedding, scaled by
+    sqrt(dim), outweighs the layers' sum), whitespace after the reduce
+    prompts, so the summaries strip to empty and the generated ids carry the
+    comparison. Returns the launches of the captured CLI run, the spec path
+    and the slot loop."""
     from vnsum_tpu_torch.models import gemma3_4b
 
     n_layers = gemma3_4b().n_layers
     run = captured_and_eager(torch, "gemma3-4b", gemma3_4b, "gemma3")
     launches, eng = run["launches"], run["eng"]
-    need = {"prefill": n_layers * eng["prefill_forwards"],
-            "decode": n_layers * eng["decode_steps"], "partials": 0, "verify": 0, "gemv": 0}
-    if any(launches[k] != n for k, n in need.items()):
-        raise AssertionError(f"gemma3: launches {launches}, the engine record implies {need}")
+    check_exact("gemma3", launches, {"prefill": n_layers * eng["prefill_forwards"],
+                                     "decode": n_layers * eng["decode_steps"]},
+                ("prefill", "decode"))
     batches = {tuple(int(part.split("=")[1]) for part in b.split(",")) for b in eng["by_bucket"]}
     if not batches <= {(8, S) for S in GEMMA_SHAPES}:
         raise AssertionError(f"gemma3: batches {sorted(batches)} outside phase 3's "
                              f"{sorted(GEMMA_SHAPES)} at B=8")
-    log(f"[launches] gemma3: " + ", ".join(f"{k} {v}" for k, v in launches.items())
-        + f" (K1 = {n_layers} x {eng['prefill_forwards']} prefill forwards, K2 = {n_layers} "
-        f"x {eng['decode_steps']} decode steps, exactly); generated row 0 begins "
-        f"{run['rows'][0][:8]}")
+    log(f"[gemma3] {eng['prefill_forwards']} prefill forwards, {eng['decode_steps']} decode "
+        f"steps; generated row 0 begins {run['rows'][0][:8]}")
     t0 = time.perf_counter()
     gemma_logits_gate(torch, run["eager"], sorted((ROOT / "data/vi_eval/doc").glob("*.txt")))
     log(f"[gemma3] logits gate {time.perf_counter() - t0:.2f}s")
-    gemma_b4_raises(torch, run["eager"])
+    gemma_k2p_raises(torch)
+    model, summaries = run["eager"].model, run["summaries"]
     del run
     torch.cuda.empty_cache()
-    return launches
+    # the spec path and the slot loop on the same model, through K3 at
+    # head_dim 256 with each layer's window
+    t0 = time.perf_counter()
+    spec, backend, prompts, oneshot = spec_path(
+        torch, "gemma3 spec", "gemma3-4b", {"model": model}, GEMMA_PATH_NEW, summaries)
+    step_kernel_gate(torch, backend, prompts, "gemma3 spec")
+    log(f"[gemma3] spec path, oracle and step gate {time.perf_counter() - t0:.2f}s")
+    del backend
+    t0 = time.perf_counter()
+    slot = slot_loop(torch, model, prompts, oneshot, "gemma3 slot", GEMMA_PATH_NEW, (4,))
+    log(f"[gemma3] slot loop {time.perf_counter() - t0:.2f}s")
+    del model
+    torch.cuda.empty_cache()
+    return {k: launches[k] + spec[k] + slot[k] for k in COUNTERS}
 
 
 def gemv_need(eng: dict, n_layers: int, act: bool) -> int:
@@ -2436,13 +2614,8 @@ def phase_strategies(torch) -> dict:
             docs, out / "gen", approach)
         st = backends[0].stats
         path = f"{approach}{'' if cuda_graphs else ' eager control'}"
-        if (launches["prefill"] != n_layers * st.prefill_forwards
-                or launches["decode"] != n_layers * st.decode_steps
-                or launches["verify"] or launches["partials"] or launches["gemv"]):
-            raise AssertionError(
-                f"{path}: launches {launches} for {st.prefill_forwards} prefill forwards "
-                f"and {st.decode_steps} decode steps")
-        check_launches(path, launches, {"prefill": n_layers, "decode": n_layers})
+        check_exact(path, launches, {"prefill": n_layers * st.prefill_forwards,
+                                     "decode": n_layers * st.decode_steps}, ("prefill", "decode"))
         unchecked = sorted(set(st.by_bucket) - checked)
         if unchecked:
             raise AssertionError(f"{path}: batches (B, S) {unchecked} are no shape phase 3 "
@@ -2894,29 +3067,38 @@ def phase_judge(torch, plain_summaries: dict) -> dict:
 # -- phase 8 ------------------------------------------------------------------
 
 
-def phase_spec_pipeline(torch, plain_summaries: dict):
-    """Path (a): map-reduce through PipelineRunner with a spec_k=8 backend,
-    then the oracle run. Returns (launches, backend, map prompts, the map
-    batch's one-shot outputs)."""
+def spec_path(torch, label: str, name: str, backend_kw: dict, max_new: int, base: dict):
+    """Path (a) on model ``name``: map-reduce over data/vi_eval through
+    PipelineRunner with TorchBackend(**backend_kw) at spec_k=8 and
+    ``max_new`` new tokens, every group with references decoding
+    speculatively through the verify kernel: every document ok, ROUGE and
+    the embedding metrics computed; launches exactly n_layers x the engine
+    record's prefill forwards (K1), verify steps (K3) and decode steps (K2:
+    a group whose references are all empty decodes one-shot), K2p = GEMV =
+    0. Then the oracle: the map batch one-shot, then again with the
+    one-shot's generated ids, decoded without stripping, as references,
+    which must accept drafts (multi-token steps, ragged per-row fills on the
+    card), launches exact. Agreement with ``base`` (summaries by file) and
+    with the one-shot outputs is logged, not gated: random bf16 weights give
+    near-ties. Returns (launches, backend, map prompts, one-shot texts)."""
+    from vnsum_tpu_torch.backend.base import trim_to_eos
     from vnsum_tpu_torch.backend.engine import TorchBackend
     from vnsum_tpu_torch.core.config import GenerationConfig, PipelineConfig
-    from vnsum_tpu_torch.models import llama32_3b
     from vnsum_tpu_torch.pipeline.runner import PipelineRunner
     from vnsum_tpu_torch.strategies import get_strategy
 
-    n_layers = llama32_3b().n_layers
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
     backends = []
 
     def factory(_):
         backends.append(TorchBackend(
-            llama32_3b(), generation=GenerationConfig(spec_k=8), max_new_tokens=128,
+            **backend_kw, generation=GenerationConfig(spec_k=8), max_new_tokens=max_new,
             batch_size=8, seed=0, device="cuda"))
         return backends[-1]
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg = PipelineConfig(
-            approach="mapreduce", models=["llama3.2:3b"], max_new_tokens=128,
+            approach="mapreduce", models=[name], max_new_tokens=max_new,
             docs_dir=str(ROOT / "data/vi_eval/doc"),
             summary_dir=str(ROOT / "data/vi_eval/summary"),
             generated_summaries_dir=str(Path(tmp) / "gen"),
@@ -2929,25 +3111,29 @@ def phase_spec_pipeline(torch, plain_summaries: dict):
         wall = time.perf_counter() - t0
         launches = read_launches()
         if runner.failures:
-            raise AssertionError(f"spec pipeline failures: {runner.failures}")
+            raise AssertionError(f"{label} pipeline failures: {runner.failures}")
         rec, summaries = check_run(
             {"summarization": res.summarization, "evaluation": res.evaluation},
-            docs, Path(tmp) / "gen")
+            docs, Path(tmp) / "gen", model=name)
     backend = backends[0]
     st = backend.stats
+    n_layers = backend.cfg.n_layers
     if st.spec_verify_steps == 0:
-        raise AssertionError("the spec pipeline ran no verify step")
-    check_launches("spec pipeline", launches, {
-        "prefill": n_layers * st.prefill_forwards, "verify": n_layers * st.spec_verify_steps})
+        raise AssertionError(f"{label}: the pipeline ran no verify step")
+    check_exact(f"{label} pipeline", launches, {
+        "prefill": n_layers * st.prefill_forwards, "verify": n_layers * st.spec_verify_steps,
+        "decode": n_layers * st.decode_steps})
     names = sorted(summaries)
-    same = agreement([summaries[n] for n in names], [plain_summaries[n] for n in names])
-    log(f"[spec] pipeline {rec['successful']}/{len(docs)} docs ok, wall {wall:.2f}s, prefill "
+    same = agreement([summaries[n] for n in names], [base[n] for n in names])
+    log(f"[{label}] pipeline {rec['successful']}/{len(docs)} docs ok, wall {wall:.2f}s, prefill "
         f"{st.phase_seconds.get('prefill', 0.0):.3f}s ({st.prefill_forwards} forwards), spec "
         f"decode {st.phase_seconds.get('spec_decode', 0.0):.3f}s ({st.spec_verify_steps} "
-        f"verify steps), drafted {st.spec_draft_tokens}, accepted {st.spec_accepted_tokens}, "
-        f"generated tokens {st.generated_tokens}; against the plain run's summaries: {same} "
-        "(not gated: random bf16 weights give near-ties)")
-    log(f"[spec] rouge {json.dumps(res.evaluation['llama3.2:3b']['rouge_scores'])}")
+        f"verify steps, {1e3 * st.phase_seconds.get('spec_decode', 0.0) / st.spec_verify_steps:.1f}"
+        f" ms a step), one-shot decode steps {st.decode_steps}, drafted "
+        f"{st.spec_draft_tokens}, accepted {st.spec_accepted_tokens}, generated tokens "
+        f"{st.generated_tokens}; against the plain run's summaries: {same} (not gated: random "
+        "bf16 weights give near-ties)")
+    log(f"[{label}] rouge {json.dumps(res.evaluation[name]['rouge_scores'])}")
 
     # the oracle: the map batch again, with its one-shot outputs as the
     # references, must accept drafts
@@ -2955,22 +3141,57 @@ def phase_spec_pipeline(torch, plain_summaries: dict):
     prompts = [strategy.map_prompt.format(content=c)
                for d in docs for c in strategy.splitter.split_text(d.read_text(encoding="utf-8"))]
     reset_launches()
-    oneshot = backend.generate(prompts)
+    forwards0, decode0 = st.prefill_forwards, st.decode_steps
     steps0, acc0 = st.spec_verify_steps, st.spec_accepted_tokens
+    with recorded_rows() as rows:
+        oneshot = backend.generate(prompts)
+    if len(rows) != len(prompts):
+        raise AssertionError(f"{label} oracle: {len(rows)} generated rows for {len(prompts)} "
+                             "prompts")
+    # generate detokenizes its groups in its own order (prompts sorted by
+    # length, cut to the input budget): rebuild it to put each row back at
+    # its prompt, then hold each row's text to the one-shot output there
+    max_input = backend.cfg.max_seq_len - max_new
+    lengths = [min(len(ids), max_input) for ids in backend.tok.encode_batch(prompts, add_bos=True)]
+    order = sorted(range(len(prompts)), key=lengths.__getitem__)
+    by_prompt = dict(zip(order, rows))
+    eos = tuple(backend.gen_cfg.eos_ids)
+    refs = [backend.tok.decode(trim_to_eos(by_prompt[i], backend.tok.eos_id, backend.tok.pad_id,
+                                           eos)) for i in range(len(prompts))]
+    misplaced = [i for i, (r, o) in enumerate(zip(refs, oneshot)) if r.strip() != o]
+    if misplaced:
+        raise AssertionError(f"{label} oracle: the generated rows of prompts {misplaced} do "
+                             "not decode to their one-shot outputs")
     t0 = time.perf_counter()
-    oracle = backend.generate(prompts, references=oneshot)
+    oracle = backend.generate(prompts, references=refs)
     wall = time.perf_counter() - t0
     oracle_launches = read_launches()
     report = backend.take_spec_report()
     steps, accepted = st.spec_verify_steps - steps0, st.spec_accepted_tokens - acc0
     if accepted <= 0:
-        raise AssertionError(f"the oracle run accepted no draft: {report}")
-    check_launches("oracle", oracle_launches, {
-        "prefill": 2 * n_layers, "decode": n_layers, "verify": n_layers * steps})
-    log(f"[spec] oracle: {len(prompts)} map prompts, {steps} verify steps, drafted "
+        raise AssertionError(f"{label}: the oracle run accepted no draft: {report}")
+    check_exact(f"{label} oracle", oracle_launches, {
+        "prefill": n_layers * (st.prefill_forwards - forwards0), "verify": n_layers * steps,
+        "decode": n_layers * (st.decode_steps - decode0)})
+    log(f"[{label}] oracle: {len(prompts)} map prompts, {steps} verify steps, drafted "
         f"{sum(r.draft_tokens for r in report)}, accepted {accepted}, per-row accepted "
         f"{[r.accepted_tokens for r in report]}, spec wall {wall:.2f}s; against the "
         f"one-shot outputs: {agreement(oracle, oneshot)}")
+    total = {k: launches[k] + oracle_launches[k] for k in launches}
+    return total, backend, prompts, oneshot
+
+
+def phase_spec_pipeline(torch, plain_summaries: dict):
+    """Path (a) on Llama-3.2-3B (spec_path, 128 new tokens), a one-shot
+    control at batch 4, then the gates on one verify forward against
+    decode steps (spec_logits_gate) and on one decode step through K3
+    against K2 (step_kernel_gate). Returns (launches, backend, map prompts,
+    the map batch's one-shot outputs)."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models import llama32_3b
+
+    total, backend, prompts, oneshot = spec_path(
+        torch, "spec", "llama3.2:3b", {"model_config": llama32_3b()}, 128, plain_summaries)
     # control: the same one-shot generate at another batch shape, which
     # changes no math but the GEMM tiling; its agreement with the batch-8
     # run is what bf16 near-ties alone give
@@ -2978,8 +3199,8 @@ def phase_spec_pipeline(torch, plain_summaries: dict):
                            device="cuda").generate(prompts)
     log(f"[spec] control: one-shot at batch 4 against batch 8: "
         f"{agreement(control, oneshot)}")
-    total = {k: launches[k] + oracle_launches[k] for k in launches}
     spec_logits_gate(torch, backend, prompts)
+    step_kernel_gate(torch, backend, prompts, "spec")
     return total, backend, prompts, oneshot
 
 
@@ -2997,6 +3218,7 @@ def spec_logits(torch, engine, tokens_np, pads_np, steps: int) -> dict:
     from vnsum_tpu_torch.ops.verify_attention import flash_spec_verify_attention
 
     model, dev, G = engine.model, engine.device, engine.cfg.q_per_kv
+    windows = engine.windows
     B, S = tokens_np.shape
     tokens = torch.from_numpy(tokens_np).to(dev)
     pads = torch.from_numpy(pads_np).to(dev)
@@ -3016,7 +3238,7 @@ def spec_logits(torch, engine, tokens_np, pads_np, steps: int) -> dict:
         got = model(toks, verify_positions(pads, fills, steps),
                     {n: t.clone() for n, t in prefilled.items()}, fills, None,
                     stacked_attention_fn=lambda q, c, li: flash_spec_verify_attention(
-                        q, c, li, vpads, fills, G, 0))
+                        q, c, li, vpads, fills, G, windows[li]))
         out[run] = [float((got[:, t] - want[t]).abs().amax() / want[t].abs().amax())
                     for t in range(steps)]
     return out
@@ -3047,24 +3269,82 @@ def spec_logits_gate(torch, engine, prompts: list) -> None:
         raise AssertionError("verify logits against the decode path: " + "; ".join(failed))
 
 
+def step_kernel_gate(torch, engine, prompts: list, label: str) -> None:
+    """One greedy decode step on the map batch (the map prompts and an
+    all-pad filler row, B=8, S=4096, an int8 cache of C = S + 128 prefilled
+    once), run from two copies of the cache with the same [8 x 1]-row
+    GEMMs: once through K2 at the shared fill S (``_decode_stacked``, the
+    one-shot path's), once through K3 at Sq=1 with every row's fill S
+    (``_verify_stacked``, the slot segment's), each layer at its window.
+    The logits differ by the attention kernel alone; max |K3 - K2| over the
+    rows and vocab over the largest |K2| logit must stay within
+    STEP_KERNEL_RTOL, and K3 with every row's pad 512 slots later (a split
+    dropped, planted in this function's own call) must exceed it."""
+    from vnsum_tpu_torch.backend.base import left_pad_batch
+    from vnsum_tpu_torch.models.llama import init_kv_cache, verify_positions
+    from vnsum_tpu_torch.ops.verify_attention import flash_spec_verify_attention
+
+    model, dev, cfg, tok = engine.model, engine.device, engine.cfg, engine.tok
+    B, S = 8, 4096
+    C = S + 128
+    tokens_np, pads_np = left_pad_batch(tok.encode_batch(prompts, add_bos=True), B, S,
+                                        tok.pad_id)
+    tokens = torch.from_numpy(tokens_np).to(dev)
+    pads = torch.from_numpy(pads_np).to(dev)
+    fills = torch.full((B,), S, dtype=torch.int32, device=dev)
+    positions = verify_positions(pads, fills, 1)
+    windows, G = engine.windows, cfg.q_per_kv
+    out = {}
+    with torch.inference_mode():
+        cache = init_kv_cache(cfg, B, C, quantized=True, device=dev)
+        nxt = engine._prefill_forward(tokens, pads, B, S, C, cache)[:, -1].argmax(dim=-1)[:, None]
+        k2 = model(nxt, positions, {n: t.clone() for n, t in cache.items()}, S, None,
+                   stacked_attention_fn=engine._decode_stacked(pads, S))[:, -1].float()
+        scale = float(k2.abs().amax())
+        for run, fn in (("sound", engine._verify_stacked(pads, fills)),
+                        ("split dropped (planted)", lambda q, c, li: flash_spec_verify_attention(
+                            q, c, li, pads + 512, fills, G, windows[li]))):
+            got = model(nxt, positions, {n: t.clone() for n, t in cache.items()}, fills, None,
+                        stacked_attention_fn=fn)[:, -1].float()
+            out[run] = float((got - k2).abs().amax()) / scale
+            if run == "sound":
+                out["argmax rows equal"] = int((got.argmax(-1) == k2.argmax(-1)).sum())
+        del cache
+    torch.cuda.empty_cache()
+    log(f"[{label}] one decode step's logits through K3 (Sq=1, every fill {S}) against K2 "
+        f"(fill {S}), the same GEMMs, {cfg.n_layers} layers, share of the largest |logit| "
+        f"{scale:.3f}: sound {out['sound']:.3e} ({out['argmax rows equal']}/{B} argmax rows "
+        f"equal), split dropped (planted) {out['split dropped (planted)']:.3e}; limit "
+        f"{STEP_KERNEL_RTOL:g}")
+    if out["sound"] > STEP_KERNEL_RTOL or out["split dropped (planted)"] <= STEP_KERNEL_RTOL:
+        raise AssertionError(f"{label}: K3 against K2 in one decode step on the wrong side of "
+                             f"the limit: {out}")
+
+
 # -- phase 9 ------------------------------------------------------------------
 
 
-def phase_slot_loop(torch, backend, prompts: list, oneshot: list) -> dict:
-    """Path (b): the in-flight slot loop over the map prompts, fed in two
-    waves and drained, at fused_segments 1 and 4. Returns the launches."""
+def slot_loop(torch, model, prompts: list, oneshot: list, label: str, max_new: int,
+              fused_runs=(1, 4)) -> dict:
+    """Path (b) on ``model``: TorchBackend.start_slot_loop(slots=8,
+    prompt_tokens=4096, max_new_tokens=max_new, segment_tokens=32) fed the
+    map prompts in two waves and drained, at each of ``fused_runs``: every
+    request completes, launches exactly n_layers x the join groups' prefill
+    forwards (K1) and x the decode steps run (K3), no other kernel.
+    Agreement with ``oneshot`` is logged, not gated. Returns the
+    launches."""
     from vnsum_tpu_torch.backend.engine import TorchBackend
 
-    n_layers = backend.cfg.n_layers
-    b = TorchBackend(model=backend.model, batch_size=8, max_new_tokens=128,
-                     segment_tokens=32, device="cuda")
+    n_layers = model.cfg.n_layers
+    b = TorchBackend(model=model, batch_size=8, max_new_tokens=max_new, segment_tokens=32,
+                     device="cuda")
     total = dict.fromkeys(COUNTERS, 0)
     texts = {}
-    for fused in (1, 4):
+    for fused in fused_runs:
         reset_launches()
         forwards0 = b.stats.prefill_forwards
         t0 = time.perf_counter()
-        loop = b.start_slot_loop(slots=8, prompt_tokens=4096, max_new_tokens=128,
+        loop = b.start_slot_loop(slots=8, prompt_tokens=4096, max_new_tokens=max_new,
                                  fused_segments=fused)
         outs: dict = {}
         adm, rej = loop.admit([(i, prompts[i], None) for i in range(3)])
@@ -3085,22 +3365,22 @@ def phase_slot_loop(torch, backend, prompts: list, oneshot: list) -> dict:
         wall = time.perf_counter() - t0
         launches = read_launches()
         if sorted(outs) != list(range(len(prompts))):
-            raise AssertionError(f"slot loop completed {sorted(outs)} of {len(prompts)}")
-        if launches["verify"] != n_layers * loop.decode_steps:
-            raise AssertionError(
-                f"verify launched {launches['verify']} times for {loop.decode_steps} steps")
-        check_launches(f"slot loop fused={fused}", launches, {
+            raise AssertionError(f"{label}: completed {sorted(outs)} of {len(prompts)}")
+        check_exact(f"{label} loop fused={fused}", launches, {
             "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
             "verify": n_layers * loop.decode_steps})
         texts[fused] = [outs[i] for i in range(len(prompts))]
-        log(f"[slot] fused={fused}: {len(prompts)}/{len(prompts)} requests done, "
+        log(f"[{label}] fused={fused}: {len(prompts)}/{len(prompts)} requests done, "
             f"{loop.refills} admitted, {loop.fused_dispatches} dispatches, {loop.segments} "
-            f"segments, {loop.decode_steps} decode steps, wall {wall:.2f}s; against the "
-            f"one-shot outputs: {agreement(texts[fused], oneshot)} (not gated)")
+            f"segments, {loop.decode_steps} decode steps, wall {wall:.2f}s "
+            f"({1e3 * wall / max(loop.decode_steps, 1):.1f} ms a step with the joins); against "
+            f"the one-shot outputs: {agreement(texts[fused], oneshot)} (not gated)")
         loop.close()
         for k in total:
             total[k] += launches[k]
-    log(f"[slot] fused=4 texts equal fused=1's: {texts[4] == texts[1]} (not gated)")
+    if len(texts) > 1:
+        log(f"[{label}] fused={fused_runs[-1]} texts equal fused={fused_runs[0]}'s: "
+            f"{texts[fused_runs[-1]] == texts[fused_runs[0]]} (not gated)")
     return total
 
 
@@ -3558,30 +3838,40 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA card visible: chip_smoke.py runs on the card only", file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        now = time.perf_counter()
+        log(f"[phase] {name}: {now - t0:.1f}s (run {now - t_run:.1f}s)")
+        return out
+
     phase_environment(torch)
-    phase_build()
-    errs = phase_correctness(torch)
+    timed("build", phase_build)
+    errs = timed("correctness", phase_correctness, torch)
     phase_w8a8(torch)
-    phase_mutants(len(CHECKED))
-    timing = phase_timing(torch, errs)
+    timed("planted faults", phase_mutants, len(CHECKED))
+    timing = timed("timing", phase_timing, torch, errs)
     time_evaluation()
-    launches, plain_summaries = phase_pipeline(torch)
-    gemma_launches = phase_gemma(torch)
-    int8_launches = phase_int8_pipeline(torch, act=False)
-    w8a8_launches = phase_int8_pipeline(torch, act=True)
-    weights_launches = phase_weights(torch, plain_summaries)
-    phase_encoder(torch)
-    strategy_launches = phase_strategies(torch)
-    judge_launches = phase_judge(torch, plain_summaries)
-    spec_launches, backend, prompts, oneshot = phase_spec_pipeline(torch, plain_summaries)
-    slot_launches = phase_slot_loop(torch, backend, prompts, oneshot)
+    launches, plain_summaries = timed("pipeline", phase_pipeline, torch)
+    gemma_launches = timed("gemma3", phase_gemma, torch)
+    int8_launches = timed("int8 pipeline", phase_int8_pipeline, torch, False)
+    w8a8_launches = timed("w8a8 pipeline", phase_int8_pipeline, torch, True)
+    weights_launches = timed("weights", phase_weights, torch, plain_summaries)
+    timed("encoder", phase_encoder, torch)
+    strategy_launches = timed("strategies", phase_strategies, torch)
+    judge_launches = timed("judge", phase_judge, torch, plain_summaries)
+    spec_launches, backend, prompts, oneshot = timed(
+        "spec", phase_spec_pipeline, torch, plain_summaries)
+    slot_launches = timed("slot", slot_loop, torch, backend.model, prompts, oneshot, "slot", 128)
     del backend
-    long_launches = phase_long_context(torch)
+    long_launches = timed("long context", phase_long_context, torch)
     launches = {k: launches[k] + int8_launches[k] + w8a8_launches[k] + weights_launches[k]
                 + strategy_launches[k] + judge_launches[k] + spec_launches[k] + slot_launches[k]
                 + long_launches[k]
                 for k in launches}
-    phase_profile(torch)
+    timed("profile", phase_profile, torch)
     kernels = []
     for key, meta in KERNELS.items():
         # the head_dim-256 entries count the Gemma3 phase's launches

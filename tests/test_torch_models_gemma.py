@@ -245,10 +245,11 @@ def test_spec_path_and_slot_loop_run_on_the_cpu():
 
 @pytest.mark.parametrize("head_dim,flash,on_card,want", [
     (128, True, True, (True, False)),
-    (256, True, True, (True, True)),    # K1/K2 on the card; K3 not yet (B4)
+    (256, True, True, (True, False)),   # K1, K2 and K3 on the card (Gemma3)
     (64, True, True, (False, False)),   # Llama-3.2-1B: dense, as in JAX
     (256, True, False, (True, False)),  # the CPU: plain versions, any head_dim
     (256, False, True, (False, False)),
+    (384, True, True, (False, False)),  # no kernel takes it: dense, no K3 either
 ])
 def test_kernel_gates(head_dim, flash, on_card, want):
     """Each path asks for the kernel it launches: (use K1 and K2, the spec
@@ -257,11 +258,13 @@ def test_kernel_gates(head_dim, flash, on_card, want):
 
 
 def test_spec_and_slot_paths_raise_naming_b4():
-    """Where K3 is missing (head_dim 256 on the card: ``verify_missing``,
-    set here on a CPU engine as the card's gate sets it), the spec path and
-    the slot loop raise NotImplementedError naming ROADMAP B4 before any
-    work, and never carry on through dense attention; plain decode still
-    runs."""
+    """Where K1 and K2 run and K3 does not take the head_dim
+    (``verify_missing``, set here on a CPU engine as the card's gate would
+    set it), the spec path and the slot loop raise NotImplementedError
+    naming ROADMAP B4 before any work, and never carry on through dense
+    attention; plain decode still runs. No head_dim is such on the card
+    since K3 takes 256 (test_kernel_gates); the gate stays for the next
+    head_dim K1 and K2 take first."""
     _, _, model = gemma("hd256", max_seq_len=128)
     tb = TorchBackend(model=model, flash=True, batch_size=4, max_new_tokens=8, device="cpu")
     tb.verify_missing = True

@@ -156,16 +156,21 @@ def test_kernel_input_checks_raise(bad):
 
 
 def test_kernels_supported_rule():
-    """K1 and K2 take head_dim 128 and 256 (Gemma3); 16 and 64 run dense
-    attention on the card, as in the JAX package. K2p and K3 take 128 only,
-    and refuse 256 naming ROADMAP B4."""
+    """K1, K2 and K3 take head_dim 128 and 256 (Gemma3); 16 and 64 run
+    dense attention on the card, as in the JAX package. K2p takes 128 only
+    and refuses 256 naming ROADMAP B4; every kernel refuses 384, a head_dim
+    the JAX kernels take and no registry model has, naming B4 too."""
     assert fa.supports_flash(128) and fa.supports_flash(256)
-    assert not any(fa.supports_flash(hd) for hd in (16, 64))
-    assert fa.supports_verify(128) and not fa.supports_verify(256)
-    fa.require_head_dim("K3", 128)
-    fa.require_head_dim("K3", 64)  # not a kernel head_dim at all: dense
+    assert not any(fa.supports_flash(hd) for hd in (16, 64, 384))
+    assert fa.supports_verify(128) and fa.supports_verify(256)
+    assert not any(fa.supports_verify(hd) for hd in (16, 64, 384))
+    fa.require_head_dim("K2p", 128)
+    fa.require_head_dim("K2p", 64)  # not a kernel head_dim at all: dense
     with pytest.raises(NotImplementedError, match="B4"):
-        fa.require_head_dim("K3", 256)
+        fa.require_head_dim("K2p", 256)
+    fa.require_head_dim("K3", 256, fa.HEAD_DIMS)
+    with pytest.raises(NotImplementedError, match="B4"):
+        fa.require_head_dim("K3", 384, fa.HEAD_DIMS)
 
 
 # head_dim 256 (Gemma3: G = 2), cache lengths a multiple of 128

@@ -129,8 +129,10 @@ def kernel_gates(head_dim: int, flash: bool, on_card: bool) -> tuple[bool, bool]
     """(use_kernels, verify_missing): each path asks for the kernel it
     launches. The one-shot path's K1 and K2 take head_dim 128 and 256 on
     the card (head_dim 64 runs dense attention there, as in the JAX
-    package); the spec path's and the slot loop's K3 takes 128 only, so at
-    256 on the card those paths raise (ROADMAP B4) and never fall back. The
+    package), and so does the spec path's and the slot loop's K3. Where K1
+    and K2 run and K3 does not take the head_dim, those two paths raise
+    (ROADMAP B4) and never fall back; while the three take the same
+    head_dims (today: 128 and 256), ``verify_missing`` is never set. The
     plain versions, the CPU's, take any head_dim."""
     use_kernels = flash and (supports_flash(head_dim) or not on_card)
     return use_kernels, use_kernels and on_card and not supports_verify(head_dim)
@@ -363,11 +365,13 @@ class TorchBackend:
 
     def _require_verify_kernel(self, path: str) -> None:
         """Raise where ``path`` would launch K3 at a head_dim it does not
-        take yet: it never carries on through dense attention."""
+        take yet: it never carries on through dense attention. It guards
+        the day K1 and K2 take a head_dim before K3 does; no head_dim
+        reaches it today (kernel_gates)."""
         if self.verify_missing:
             raise NotImplementedError(
-                f"{path} runs K3 (flash_spec_verify_attention), which takes head_dim 128 "
-                f"on the card, not {self.cfg.head_dim}: {B4}"
+                f"{path} runs K3 (flash_spec_verify_attention), which does not take "
+                f"head_dim {self.cfg.head_dim} on the card: {B4}"
             )
 
     def _verify_stacked(self, pad_lens, fills):

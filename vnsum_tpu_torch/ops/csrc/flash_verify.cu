@@ -15,7 +15,9 @@
 // What bounds it on this card: device-memory bytes. A call reads each
 // visible K and V slot once for all R = Sq * G query rows of its (row, KV
 // head): at the spec shape (B=8, Sq=9, G=3, C=4233, int8) ~67 MB, 20 us at
-// 3.35 TB/s, against ~6 us of bf16 tensor-core work (QK, and PV twice).
+// 3.35 TB/s, against ~6 us of bf16 tensor-core work (QK, and PV twice);
+// at Gemma3-4B's (head_dim 256, KV=4, G=2) ~70 MB on a global layer and
+// ~17 MB on a sliding one (window 1024).
 //
 // Numerics. Both products run on bf16 tensor cores (mma.sync m16n8k16, f32
 // accumulators) and stay the reference's f32 function up to summation
@@ -48,6 +50,18 @@
 // log-sum-exp algebra, one warp per (query row, KV head, batch row), and
 // divides by max(l, 1e-30). Offsets into the cache are 64-bit: the stacked
 // cache passes 2^31 elements at the pipeline's long bucket.
+//
+// head_dim is a template parameter HD, 128 or 256 (Gemma3); a warp
+// accumulates O over OD = 128 head dims. At 256 a warp's whole O^T would
+// take 32 NT registers more, and eight warps with a ring each would pass a
+// block's shared memory, so each ring is shared by the two warps that
+// cover the same slots (w and w + 4): both copy half of each tile, meet at
+// a named barrier (bar.sync, 64 threads) where a warp alone would
+// __syncwarp, both form S over all 256 dims and run the same softmax, and
+// each accumulates PV over its own 128 dims. QK's second pass costs
+// little: the kernel is bound by bytes. At 256 a block takes up to
+// Sq * G = 24 rows, in one or three n8 tiles (Gemma3's spec step: 18; its
+// slot segment: 2); the merge's warp covers both 128-dim halves.
 // Not done: TMA, wgmma (64-row tiles would pad R = 27 to 64).
 
 #include <cuda_bf16.h>
@@ -56,40 +70,46 @@
 
 namespace {
 
-constexpr int HD = 128;             // head_dim the kernel takes
+constexpr int OD = 128;             // head dims of O one warp accumulates
 constexpr int SPLIT = 512;          // cache slots per pass-1 block
 constexpr int QUARTERS = 4;         // warps that share a split's slots
 constexpr int WSLOTS = SPLIT / QUARTERS;  // slots of one warp
 constexpr int BK = 16;              // slots per tile: one m16 tile
 constexpr int MAXG = 8;             // largest GQA group the kernel takes
-constexpr int MAXR = 64;            // largest Sq * G the kernel takes
-constexpr int QROW = HD + 8;        // padded bf16 row of Q in shared memory
+constexpr int MAXR = 64;            // largest Sq * G the kernel takes at head_dim 128
+constexpr int MAXR_WIDE = 24;       // ... and at head_dim 256
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// One warp's ring of K/V tiles in shared memory. Slot rows are padded by 16
+// One ring of K/V tiles in shared memory. Slot rows are padded by 16
 // bytes, so the fragment loads below are free of bank conflicts.
-template <bool Q8>
+template <int HD, bool Q8>
 struct Ring {
   static constexpr int ROW = Q8 ? HD + 16 : 2 * HD + 16;      // bytes of a slot row
   static constexpr int STAGES = Q8 ? 3 : 2;
   static constexpr int KV_BYTES = BK * ROW;                    // one K or V tile
   static constexpr int STAGE = 2 * KV_BYTES + (Q8 ? 2 * BK * 4 : 0);  // K, V, ks, vs
-  static constexpr int WARP = STAGES * STAGE;
+  static constexpr int SIZE = STAGES * STAGE;
 };
 
-// A block of NT n8 tiles of query rows per warp (ROWS = 8 NT) and HALVES
-// row halves: RCAP = ROWS * HALVES rows, QUARTERS * HALVES warps.
-template <bool Q8, int NT, int HALVES>
+// A block of NT n8 tiles of query rows per warp (ROWS = 8 NT), HALVES row
+// halves and DPARTS = HD / OD head-dim parts: RCAP = ROWS * HALVES rows,
+// RINGS = QUARTERS * HALVES rings, each read by the DPARTS warps that cover
+// its slots and rows, RINGS * DPARTS warps. At head_dim 128 every warp has
+// a ring of its own (DPARTS = 1); at 256 HALVES = 1 and two warps share one.
+template <int HD, bool Q8, int NT, int HALVES>
 struct Layout {
+  static constexpr int DPARTS = HD / OD;
+  static constexpr int QROW = HD + 8;           // padded bf16 row of Q in shared memory
   static constexpr int ROWS = NT * 8;
   static constexpr int RCAP = ROWS * HALVES;
-  static constexpr int NWARPS = QUARTERS * HALVES;
+  static constexpr int RINGS = QUARTERS * HALVES;
+  static constexpr int NWARPS = RINGS * DPARTS;
   static constexpr int Q_BYTES = RCAP * QROW * 2;
-  static constexpr int RING_BYTES = NWARPS * Ring<Q8>::WARP;
-  static constexpr int OBUF_BYTES = NWARPS * ROWS * HD * 4;   // the merge, over the ring
+  static constexpr int RING_BYTES = RINGS * Ring<HD, Q8>::SIZE;
+  static constexpr int OBUF_BYTES = RINGS * ROWS * HD * 4;    // the merge, over the rings
   static constexpr int BODY = RING_BYTES > OBUF_BYTES ? RING_BYTES : OBUF_BYTES;
-  static constexpr int SMEM = Q_BYTES + BODY + 2 * NWARPS * ROWS * 4;
+  static constexpr int SMEM = Q_BYTES + BODY + 2 * RINGS * ROWS * 4;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void *p) {
@@ -160,6 +180,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// the warps that read one ring meet: a warp alone at __syncwarp, the
+// DPARTS warps of a shared ring at named barrier 1 + ring (0 is
+// __syncthreads'), which also makes each warp's cp.async copies, waited
+// for, visible to the other
+template <int DPARTS>
+__device__ __forceinline__ void ring_sync(int ring_id) {
+  if constexpr (DPARTS == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(1 + ring_id), "n"(DPARTS * 32) : "memory");
+  }
+}
+
 // four int8 (one word, byte 0 first) -> bf16x2 of bytes (0, 1) and of
 // bytes (2, 3), exact: 2^23 + (x + 128) is built in an f32's bits, 2^23 + 128
 // subtracted, and an integer of at most 8 bits keeps its bf16 upper half
@@ -176,28 +209,30 @@ __device__ __forceinline__ void widen_int8x4(uint32_t w, uint32_t &lo, uint32_t 
 
 // The k position (0..HD) of head dim d in QK's contraction. bf16 keys
 // take the natural order (their fragments come by ldmatrix); for an int8
-// key, lane (gid, tig) reads 32 contiguous bytes of a slot row, dims
-// 32 tig .. 32 tig + 31, and bytes (0, 1) and (2, 3) of word kk of them
-// hold the k positions (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9) of k
-// tile kk. Q is stored in shared memory in this order, so its fragments
-// come by plain ldmatrix.
-template <bool Q8>
+// key, lane (gid, tig) reads HD / 4 contiguous bytes of a slot row, dims
+// HD / 4 tig .. HD / 4 (tig + 1) - 1, and bytes (0, 1) and (2, 3) of word kk
+// of them hold the k positions (2 tig, 2 tig + 1) and (2 tig + 8, 2 tig + 9)
+// of k tile kk. Q is stored in shared memory in this order, so its
+// fragments come by plain ldmatrix.
+template <int HD, bool Q8>
 __device__ __forceinline__ int k_pos(int d) {
   if (!Q8) return d;
+  const unsigned u = d;  // unsigned: the divisions below are shifts
   const int byte = d & 3;
-  return 16 * ((d >> 2) & 7) + 2 * (d >> 5) + (byte & 1) + 8 * (byte >> 1);
+  return 16 * ((u >> 2) % (HD / 16)) + 2 * (u / (HD / 4)) + (byte & 1) + 8 * (byte >> 1);
 }
 
-// The head dims of O^T's accumulator rows gid (first) and gid + 8 (second)
-// in m tile mt. bf16 values come by ldmatrix.trans in the natural order; an
-// int8 lane reads 16 contiguous bytes of a slot row, dims 16 gid .. 16 gid + 15.
+// The head dims, within a warp's OD, of O^T's accumulator rows gid (first)
+// and gid + 8 (second) in m tile mt. bf16 values come by ldmatrix.trans in
+// the natural order; an int8 lane reads 16 contiguous bytes of a slot row,
+// dims 16 gid .. 16 gid + 15 of the warp's part.
 template <bool Q8>
 __device__ __forceinline__ int o_dim(int mt, int gid, int second) {
   return Q8 ? 16 * gid + 2 * mt + second : 16 * mt + gid + 8 * second;
 }
 
-template <bool Q8, int NT, int HALVES>
-__global__ void __launch_bounds__(QUARTERS * HALVES * 32)
+template <int HD, bool Q8, int NT, int HALVES>
+__global__ void __launch_bounds__(Layout<HD, Q8, NT, HALVES>::NWARPS * 32)
 flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD]
                           const void *__restrict__ k_all,       // [L, B, KV, C, HD]
                           const void *__restrict__ v_all,
@@ -210,18 +245,20 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
                           float *__restrict__ l_part,
                           int B, int Sq, int H, int KV, int C, int layer, int window,
                           float scale_log2) {
-  using RG = Ring<Q8>;
-  using LY = Layout<Q8, NT, HALVES>;
+  using RG = Ring<HD, Q8>;
+  using LY = Layout<HD, Q8, NT, HALVES>;
   constexpr int ROWS = LY::ROWS;
   constexpr int RCAP = LY::RCAP;
+  constexpr int QROW = LY::QROW;
+  constexpr int DPARTS = LY::DPARTS;
   constexpr int NTHREADS = LY::NWARPS * 32;
   constexpr int ELEM = Q8 ? 1 : 2;  // bytes of a cache element
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16 *qs = reinterpret_cast<__nv_bfloat16 *>(smem);   // [RCAP][QROW]
-  unsigned char *ring = smem + LY::Q_BYTES;                        // [NWARPS][Ring]
-  float *obuf = reinterpret_cast<float *>(ring);   // [NWARPS][ROWS][HD], after the loop
-  float *ms = reinterpret_cast<float *>(ring + LY::BODY);  // [NWARPS][ROWS]
-  float *ls = ms + LY::NWARPS * ROWS;
+  unsigned char *ring = smem + LY::Q_BYTES;                        // [RINGS][Ring]
+  float *obuf = reinterpret_cast<float *>(ring);   // [RINGS][ROWS][HD], after the loop
+  float *ms = reinterpret_cast<float *>(ring + LY::BODY);  // [RINGS][ROWS]
+  float *ls = ms + LY::RINGS * ROWS;
 
   const int G = H / KV;
   const int R = Sq * G;
@@ -234,8 +271,12 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
   const int warp = t >> 5;
   const int gid = lane >> 2;  // fragment row within the 8-row group
   const int tig = lane & 3;   // thread in group: fragment column pair
-  const int quarter = warp % QUARTERS;
-  const int half = warp / QUARTERS;
+  // this warp's ring (its slots and rows) and its OD head dims of O; with
+  // one warp a ring both are known to the compiler
+  const int ring_id = DPARTS == 1 ? warp : warp % LY::RINGS;
+  const int dpart = DPARTS == 1 ? 0 : warp / LY::RINGS;
+  const int quarter = ring_id % QUARTERS;
+  const int half = ring_id / QUARTERS;
 
   // the slots this block may read: its split, from the row's pad (and the
   // window floor of query 0, the lowest of the row's floors) to its last
@@ -276,16 +317,17 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
       ((static_cast<size_t>(layer) * B + b) * KV + kv) * static_cast<size_t>(C);
   const unsigned char *kbytes = static_cast<const unsigned char *>(k_all);
   const unsigned char *vbytes = static_cast<const unsigned char *>(v_all);
-  unsigned char *my_ring = ring + warp * RG::WARP;
+  unsigned char *my_ring = ring + ring_id * RG::SIZE;
 
-  // one tile's K and V rows (16-byte chunks) and, for int8, its scales
-  // (lanes 0-15 ks, 16-31 vs); slots outside [w_lo, w_hi] are zero-filled
+  // one tile's K and V rows (16-byte chunks, shared out over the lanes of
+  // the ring's DPARTS warps) and, for int8, its scales (the first warp's
+  // lanes 0-15 ks, 16-31 vs); slots outside [w_lo, w_hi] are zero-filled
   auto load_tile = [&](int tile) {
     unsigned char *st = my_ring + (tile % RG::STAGES) * RG::STAGE;
     const int k0 = k_first + tile * BK;
     constexpr int CH = HD * ELEM / 16;  // chunks per slot row
 #pragma unroll
-    for (int i = lane; i < BK * CH; i += 32) {
+    for (int i = dpart * 32 + lane; i < BK * CH; i += DPARTS * 32) {
       const int row = i / CH, c = i % CH;
       const int slot = k0 + row;
       const bool ok = slot >= w_lo && slot <= w_hi;
@@ -293,7 +335,7 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
       cp_async16(st + row * RG::ROW + c * 16, kbytes + off, ok);
       cp_async16(st + RG::KV_BYTES + row * RG::ROW + c * 16, vbytes + off, ok);
     }
-    if (Q8) {
+    if (Q8 && dpart == 0) {
       const int slot = k0 + (lane & 15);
       const bool ok = slot >= w_lo && slot <= w_hi;
       const float *src = (lane < 16 ? ks_all : vs_all) + slot_base + (ok ? slot : w_lo);
@@ -301,11 +343,12 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
     }
   };
 
-  // O^T [HD dims (8 m tiles) x ROWS rows]; the softmax state of this
-  // thread's rows, m replicated over the 8 lanes of a column, l partial
-  float o[HD / 16][NT][4];
+  // O^T [this warp's OD head dims (8 m tiles) x ROWS rows]; the softmax
+  // state of this thread's rows, m replicated over the 8 lanes of a column,
+  // l partial
+  float o[OD / 16][NT][4];
 #pragma unroll
-  for (int mt = 0; mt < HD / 16; ++mt)
+  for (int mt = 0; mt < OD / 16; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) o[mt][nt][0] = o[mt][nt][1] = o[mt][nt][2] = o[mt][nt][3] = 0.f;
   float m_run[2 * NT], l_run[2 * NT];
@@ -350,33 +393,35 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
     const int r = i / QCH, c = i % QCH;
     const __nv_bfloat16 *e = reinterpret_cast<const __nv_bfloat16 *>(&qv[x]);
 #pragma unroll
-    for (int y = 0; y < 8; ++y) qs[r * QROW + k_pos<Q8>(8 * c + y)] = e[y];
+    for (int y = 0; y < 8; ++y) qs[r * QROW + k_pos<HD, Q8>(8 * c + y)] = e[y];
   }
   __syncthreads();  // Q settled
   for (int tile = 0; tile < n_tiles; ++tile) {
-    // the ring's oldest buffer, freed by the __syncwarp that ended the
+    // the ring's oldest buffer, freed by the ring_sync that ended the
     // previous tile, takes the tile STAGES - 1 ahead
     if (tile + RG::STAGES - 1 < n_tiles) load_tile(tile + RG::STAGES - 1);
     cp_async_commit();
     cp_async_wait<RG::STAGES - 1>();
-    __syncwarp();
+    ring_sync<DPARTS>(ring_id);
     const unsigned char *st = my_ring + (tile % RG::STAGES) * RG::STAGE;
     const unsigned char *Kt = st;
     const unsigned char *Vt = st + RG::KV_BYTES;
     const int k0 = k_first + tile * BK;
 
-    // S^T = K Q^T: 16 slots x ROWS rows
+    // S^T = K Q^T over all HD dims: 16 slots x ROWS rows
     float sc[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-    uint32_t kw[2][8];  // int8: 32 bytes of slots gid and gid + 8
+    uint32_t kw[2][HD / 16];  // int8: HD / 4 bytes of slots gid and gid + 8
     if (Q8) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const uint4 a = lds128(Kt + (gid + 8 * h) * RG::ROW + 32 * tig);
-        const uint4 c = lds128(Kt + (gid + 8 * h) * RG::ROW + 32 * tig + 16);
-        kw[h][0] = a.x; kw[h][1] = a.y; kw[h][2] = a.z; kw[h][3] = a.w;
-        kw[h][4] = c.x; kw[h][5] = c.y; kw[h][6] = c.z; kw[h][7] = c.w;
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c) {
+          const uint4 a = lds128(Kt + (gid + 8 * h) * RG::ROW + HD / 4 * tig + 16 * c);
+          kw[h][4 * c] = a.x; kw[h][4 * c + 1] = a.y; kw[h][4 * c + 2] = a.z;
+          kw[h][4 * c + 3] = a.w;
+        }
       }
     }
 #pragma unroll
@@ -437,7 +482,7 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
         const float p1 = ok1 ? ex2(s1 - m_new) : 0.f;
         l_run[i] = l_run[i] * corr + p0 + p1;
 #pragma unroll
-        for (int mt = 0; mt < HD / 16; ++mt) {
+        for (int mt = 0; mt < OD / 16; ++mt) {
           o[mt][nt][e] *= corr;
           o[mt][nt][2 + e] *= corr;
         }
@@ -463,14 +508,16 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
       }
     }
 
-    // O^T += V^T P^T, once with p_hi and once with p_lo
+    // O^T += V^T P^T over this warp's OD head dims, once with p_hi and
+    // once with p_lo
     if (Q8) {
       // slots 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9: 16 bytes each, dims
-      // 16 gid .. 16 gid + 15
+      // 16 gid .. 16 gid + 15 of the warp's part
       uint4 vr[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        vr[j] = lds128(Vt + (2 * tig + (j & 1) + 8 * (j >> 1)) * RG::ROW + 16 * gid);
+        vr[j] = lds128(Vt + (2 * tig + (j & 1) + 8 * (j >> 1)) * RG::ROW + dpart * OD +
+                       16 * gid);
       }
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
@@ -504,10 +551,10 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
       }
     } else {
 #pragma unroll
-      for (int mt = 0; mt < HD / 16; ++mt) {
+      for (int mt = 0; mt < OD / 16; ++mt) {
         uint32_t a[4];
         ldsm_x4_trans(a, Vt + ((lm_mat >> 1) * 8 + lm_row) * RG::ROW +
-                             (mt * 16 + (lm_mat & 1) * 8) * 2);
+                             (dpart * OD + mt * 16 + (lm_mat & 1) * 8) * 2);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           mma_bf16(o[mt][nt], a, ph[nt][0], ph[nt][1]);
@@ -515,7 +562,7 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
         }
       }
     }
-    __syncwarp();  // every lane is done with this buffer
+    ring_sync<DPARTS>(ring_id);  // every lane of the ring is done with this buffer
   }
   cp_async_wait<0>();
 
@@ -527,16 +574,17 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
     l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 16);
   }
   __syncthreads();  // every warp is done with its ring
-  if (gid == 0) {
+  // the DPARTS warps of a ring ran the same softmax: the first writes it
+  if (gid == 0 && dpart == 0) {
 #pragma unroll
     for (int i = 0; i < 2 * NT; ++i) {
       const int rl = (i >> 1) * 8 + 2 * tig + (i & 1);
-      ms[warp * ROWS + rl] = m_run[i];
-      ls[warp * ROWS + rl] = l_run[i];
+      ms[ring_id * ROWS + rl] = m_run[i];
+      ls[ring_id * ROWS + rl] = l_run[i];
     }
   }
   __syncthreads();
-  float *my_o = obuf + warp * ROWS * HD;
+  float *my_o = obuf + ring_id * ROWS * HD + dpart * OD;
 #pragma unroll
   for (int i = 0; i < 2 * NT; ++i) {
     const int nt = i >> 1, e = i & 1;
@@ -546,7 +594,7 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
     for (int w = 0; w < QUARTERS; ++w) M = fmaxf(M, ms[(half * QUARTERS + w) * ROWS + rl]);
     const float f = ex2(m_run[i] - M);
 #pragma unroll
-    for (int mt = 0; mt < HD / 16; ++mt) {
+    for (int mt = 0; mt < OD / 16; ++mt) {
       my_o[rl * HD + o_dim<Q8>(mt, gid, 0)] = o[mt][nt][e] * f;
       my_o[rl * HD + o_dim<Q8>(mt, gid, 1)] = o[mt][nt][2 + e] * f;
     }
@@ -573,7 +621,8 @@ flash_verify_split_kernel(const __nv_bfloat16 *__restrict__ q,  // [B, Sq, H, HD
 }
 
 // pass 2: one warp per (query row, KV head, batch row); lane owns head dims
-// 4 lane .. 4 lane + 3
+// 4 lane .. 4 lane + 3 of each 128
+template <int HD>
 __global__ void __launch_bounds__(128)
 flash_verify_merge_kernel(const float *__restrict__ o_part, const float *__restrict__ m_part,
                           const float *__restrict__ l_part, __nv_bfloat16 *__restrict__ out,
@@ -590,76 +639,99 @@ flash_verify_merge_kernel(const float *__restrict__ o_part, const float *__restr
   float m = NEG;
   for (int s = 0; s < n_split; ++s) m = fmaxf(m, m_part[(pair + s) * R + r]);
   float l = 0.f;
-  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 o[HD / 128];
+#pragma unroll
+  for (int c = 0; c < HD / 128; ++c) o[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s = 0; s < n_split; ++s) {
     const float f = ex2(m_part[(pair + s) * R + r] - m);
     l += l_part[(pair + s) * R + r] * f;
-    const float4 v =
-        *reinterpret_cast<const float4 *>(o_part + ((pair + s) * R + r) * HD + 4 * lane);
-    o.x += v.x * f;
-    o.y += v.y * f;
-    o.z += v.z * f;
-    o.w += v.w * f;
+#pragma unroll
+    for (int c = 0; c < HD / 128; ++c) {
+      const float4 v = *reinterpret_cast<const float4 *>(o_part + ((pair + s) * R + r) * HD +
+                                                         128 * c + 4 * lane);
+      o[c].x += v.x * f;
+      o[c].y += v.y * f;
+      o[c].z += v.z * f;
+      o[c].w += v.w * f;
+    }
   }
   const float den = fmaxf(l, 1e-30f);
   const int sq = r / G, g = r % G;
   const size_t q_off =
       ((static_cast<size_t>(b) * Sq + sq) * H + static_cast<size_t>(kv) * G + g) * HD;
-  uint2 packed;
-  packed.x = pack_bf16(o.x / den, o.y / den);
-  packed.y = pack_bf16(o.z / den, o.w / den);
-  *reinterpret_cast<uint2 *>(out + q_off + 4 * lane) = packed;
+#pragma unroll
+  for (int c = 0; c < HD / 128; ++c) {
+    uint2 packed;
+    packed.x = pack_bf16(o[c].x / den, o[c].y / den);
+    packed.y = pack_bf16(o[c].z / den, o[c].w / den);
+    *reinterpret_cast<uint2 *>(out + q_off + 128 * c + 4 * lane) = packed;
+  }
 }
 
 // Both passes of one call on `st`; returns cudaGetLastError() (0 = launched).
 // A block takes more than the 48 KB of shared memory a block gets without
 // asking; the attribute is set once per instantiation.
-template <bool Q8, int NT, int HALVES>
+template <int HD, bool Q8, int NT, int HALVES>
 int launch(const __nv_bfloat16 *q, const void *k, const void *v, const void *ks,
            const void *vs, const int *pads, const int *fills, float *op, float *mp, float *lp,
            __nv_bfloat16 *out, int B, int Sq, int H, int KV, int C, int layer, int window,
            float scale_log2, int n_split, cudaStream_t st) {
-  using LY = Layout<Q8, NT, HALVES>;
+  using LY = Layout<HD, Q8, NT, HALVES>;
   static bool smem_set = false;
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_verify_split_kernel<Q8, NT, HALVES>,
+    const cudaError_t err = cudaFuncSetAttribute(flash_verify_split_kernel<HD, Q8, NT, HALVES>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  LY::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  flash_verify_split_kernel<Q8, NT, HALVES>
+  flash_verify_split_kernel<HD, Q8, NT, HALVES>
       <<<dim3(n_split, KV, B), LY::NWARPS * 32, LY::SMEM, st>>>(
           q, k, v, static_cast<const float *>(ks), static_cast<const float *>(vs), pads, fills,
           op, mp, lp, B, Sq, H, KV, C, layer, window, scale_log2);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int items = B * KV * Sq * (H / KV);
-  flash_verify_merge_kernel<<<(items + 3) / 4, 128, 0, st>>>(op, mp, lp, out, B, Sq, H, KV,
-                                                             n_split);
+  flash_verify_merge_kernel<HD><<<(items + 3) / 4, 128, 0, st>>>(op, mp, lp, out, B, Sq, H, KV,
+                                                                 n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool Q8>
+// The block for R = Sq * G rows: at head_dim 128 one n8 tile of rows
+// (R <= 8), four, or four in each of two row halves; at 256 one or three.
+template <int HD, bool Q8>
 int smem_of(int R) {
-  if (R <= 8) return Layout<Q8, 1, 1>::SMEM;
-  if (R <= 32) return Layout<Q8, 4, 1>::SMEM;
-  return Layout<Q8, 4, 2>::SMEM;
+  if constexpr (HD == 256) {
+    return R <= 8 ? Layout<HD, Q8, 1, 1>::SMEM : Layout<HD, Q8, 3, 1>::SMEM;
+  } else {
+    if (R <= 8) return Layout<HD, Q8, 1, 1>::SMEM;
+    if (R <= 32) return Layout<HD, Q8, 4, 1>::SMEM;
+    return Layout<HD, Q8, 4, 2>::SMEM;
+  }
 }
 
-template <bool Q8>
+template <int HD, bool Q8>
 int launch_for(int R, const __nv_bfloat16 *q, const void *k, const void *v, const void *ks,
                const void *vs, const int *pads, const int *fills, float *op, float *mp,
                float *lp, __nv_bfloat16 *out, int B, int Sq, int H, int KV, int C, int layer,
                int window, float scale_log2, int n_split, cudaStream_t st) {
-  if (R <= 8)
-    return launch<Q8, 1, 1>(q, k, v, ks, vs, pads, fills, op, mp, lp, out, B, Sq, H, KV, C,
-                            layer, window, scale_log2, n_split, st);
-  if (R <= 32)
-    return launch<Q8, 4, 1>(q, k, v, ks, vs, pads, fills, op, mp, lp, out, B, Sq, H, KV, C,
-                            layer, window, scale_log2, n_split, st);
-  return launch<Q8, 4, 2>(q, k, v, ks, vs, pads, fills, op, mp, lp, out, B, Sq, H, KV, C, layer,
-                          window, scale_log2, n_split, st);
+#define VNSUM_VERIFY_LAUNCH(NT_, HALVES_)                                                     \
+  launch<HD, Q8, NT_, HALVES_>(q, k, v, ks, vs, pads, fills, op, mp, lp, out, B, Sq, H, KV, C, \
+                               layer, window, scale_log2, n_split, st)
+  if constexpr (HD == 256) {
+    return R <= 8 ? VNSUM_VERIFY_LAUNCH(1, 1) : VNSUM_VERIFY_LAUNCH(3, 1);
+  } else {
+    if (R <= 8) return VNSUM_VERIFY_LAUNCH(1, 1);
+    if (R <= 32) return VNSUM_VERIFY_LAUNCH(4, 1);
+    return VNSUM_VERIFY_LAUNCH(4, 2);
+  }
+#undef VNSUM_VERIFY_LAUNCH
+}
+
+// the largest Sq * G the kernel takes at this head_dim; 0 for one it does
+// not take
+int max_rows(int head_dim) {
+  return head_dim == 128 ? MAXR : head_dim == 256 ? MAXR_WIDE : 0;
 }
 
 }  // namespace
@@ -668,9 +740,11 @@ int launch_for(int R, const __nv_bfloat16 *q, const void *k, const void *v, cons
 // partials with it.
 extern "C" int vnsum_flash_verify_splits(int C) { return (C + SPLIT - 1) / SPLIT; }
 
-// Dynamic shared memory of a pass-1 block for R = Sq * G query rows.
-extern "C" int vnsum_flash_verify_smem(int R, int quantized) {
-  return quantized ? smem_of<true>(R) : smem_of<false>(R);
+// Dynamic shared memory of a pass-1 block for R = Sq * G query rows at
+// head_dim 128 or 256.
+extern "C" int vnsum_flash_verify_smem(int R, int quantized, int head_dim) {
+  if (head_dim == 256) return quantized ? smem_of<256, true>(R) : smem_of<256, false>(R);
+  return quantized ? smem_of<128, true>(R) : smem_of<128, false>(R);
 }
 
 // Plain C entry point, loaded with ctypes. Launches both passes on `stream`
@@ -682,8 +756,8 @@ extern "C" int vnsum_flash_verify(const void *q, const void *k, const void *v, c
                                   void *out, void *o_part, void *m_part, void *l_part, int B,
                                   int Sq, int H, int KV, int C, int head_dim, int layer,
                                   int window, int quantized, float scale, void *stream) {
-  if (head_dim != HD || KV <= 0 || H % KV != 0 || H / KV > MAXG || Sq <= 0 ||
-      Sq * (H / KV) > MAXR || B <= 0 || C <= 0 || window < 0) {
+  if (max_rows(head_dim) == 0 || KV <= 0 || H % KV != 0 || H / KV > MAXG || Sq <= 0 ||
+      Sq * (H / KV) > max_rows(head_dim) || B <= 0 || C <= 0 || window < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int R = Sq * (H / KV);
@@ -697,10 +771,12 @@ extern "C" int vnsum_flash_verify(const void *q, const void *k, const void *v, c
   float *mp = static_cast<float *>(m_part);
   float *lp = static_cast<float *>(l_part);
   const float scale_log2 = scale * LOG2E;
-  if (quantized) {
-    return launch_for<true>(R, qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C,
-                            layer, window, scale_log2, n_split, st);
+#define VNSUM_VERIFY_FOR(HD_, Q8_)                                                            \
+  launch_for<HD_, Q8_>(R, qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C, layer, \
+                       window, scale_log2, n_split, st)
+  if (head_dim == 256) {
+    return quantized ? VNSUM_VERIFY_FOR(256, true) : VNSUM_VERIFY_FOR(256, false);
   }
-  return launch_for<false>(R, qb, k, v, ks, vs, pads, fl, op, mp, lp, ob, B, Sq, H, KV, C,
-                           layer, window, scale_log2, n_split, st);
+  return quantized ? VNSUM_VERIFY_FOR(128, true) : VNSUM_VERIFY_FOR(128, false);
+#undef VNSUM_VERIFY_FOR
 }

@@ -24,10 +24,11 @@ import torch
 from . import kernels
 
 NEG = -1e30
-HEAD_DIM = 128  # the head_dim every CUDA kernel takes
-# the head_dims K1 and K2 take (256: Gemma3); K2p and K3 take HEAD_DIM only
+HEAD_DIM = 128  # the head_dim every CUDA kernel takes, and the only one K2p takes
+# the head_dims K1, K2 and K3 take (256: Gemma3); K2p takes HEAD_DIM only
 HEAD_DIMS = (128, 256)
-B4 = "ROADMAP B4: K2p and K3 at head_dim 256 are not written yet"
+B4 = ("ROADMAP B4: K2p at head_dim 256, and every kernel at a head_dim above 256 "
+      "(no registry model has one), are not written yet")
 
 launches = 0
 _lib = None
@@ -41,8 +42,9 @@ def supports_flash(head_dim: int) -> bool:
 
 
 def supports_verify(head_dim: int) -> bool:
-    """Whether K2p and K3 take this head_dim on the card."""
-    return head_dim == HEAD_DIM
+    """Whether K3, the spec path's and the slot loop's kernel, takes this
+    head_dim on the card (the JAX kernel takes any multiple of 128)."""
+    return head_dim in HEAD_DIMS
 
 
 def require_head_dim(kernel: str, head_dim: int, dims=(HEAD_DIM,)) -> None:

@@ -13,7 +13,11 @@ a (row, query) that sees no key comes out as 0. The kernel runs both
 products on bf16 tensor cores and stays that function up to summation
 order: QK's products are exact, and PV takes p as bf16 hi + lo halves
 (``csrc/flash_verify.cu`` says how). ``fills`` stay on the device: nothing
-here reads them to the host.
+here reads them to the host. The kernel takes head_dim 128 and 256
+(Gemma3, each layer's window passed at run time), groups of up to
+``MAX_GROUP`` query heads and up to ``MAX_ROWS[head_dim]`` rows of
+Sq * q_per_kv: Llama-3.2-3B's spec step sends 27, Gemma3-4B's 18, and
+their slot segments 3 and 2.
 
 :func:`flash_spec_verify_attention` launches the CUDA kernel
 (``csrc/flash_verify.cu``) for tensors on the card and takes the plain
@@ -29,7 +33,7 @@ import torch
 from ..models.llama import verify_attention_mask
 from . import kernels
 from .flash_attention import (
-    HEAD_DIM,
+    HEAD_DIMS,
     attention_ref,
     cache_layer,
     check_cache,
@@ -38,7 +42,7 @@ from .flash_attention import (
     require_head_dim,
 )
 
-MAX_ROWS = 64  # largest Sq * q_per_kv the kernel takes
+MAX_ROWS = {128: 64, 256: 24}  # largest Sq * q_per_kv the kernel takes, by head_dim
 MAX_GROUP = 8  # largest q_per_kv the kernel takes
 
 launches = 0
@@ -62,6 +66,32 @@ def flash_spec_verify_attention_ref(
     return attention_ref(q, k, v, ks, vs, mask, torch.float32)
 
 
+def check_verify(q, cache, layer_idx, pad_lens, fills, q_per_kv, window):
+    """Raise unless the kernel takes these arguments: NotImplementedError
+    (ROADMAP B4) for a head_dim of the JAX kernel's that it does not take,
+    ValueError for anything else. Returns (whether the cache is int8, the
+    window as an int)."""
+    require_head_dim("K3 (flash_spec_verify_attention)", q.shape[-1], HEAD_DIMS)
+    check_query(q, pad_lens)
+    quantized = check_cache(q, cache, layer_idx)
+    B, Sq, H, hd = q.shape
+    KV = cache["k"].shape[2]
+    if (
+        fills.dtype != torch.int32 or fills.shape != (B,)
+        or fills.device != q.device or not fills.is_contiguous()
+    ):
+        raise ValueError("fills must be a contiguous int32 [B] tensor on q's device")
+    if H != KV * q_per_kv or q_per_kv > MAX_GROUP or Sq * q_per_kv > MAX_ROWS[hd]:
+        raise ValueError(
+            f"q_per_kv={q_per_kv}, Sq={Sq} with H/KV={H}/{KV} (kernel takes groups "
+            f"<= {MAX_GROUP} and Sq * group <= {MAX_ROWS[hd]} at head_dim {hd})"
+        )
+    win = int(window or 0)
+    if win < 0:
+        raise ValueError(f"window={win} must be >= 0")
+    return quantized, win
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -73,7 +103,7 @@ def _library():
         fn.restype = ctypes.c_int
         lib.vnsum_flash_verify_splits.argtypes = [ctypes.c_int]
         lib.vnsum_flash_verify_splits.restype = ctypes.c_int
-        lib.vnsum_flash_verify_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.vnsum_flash_verify_smem.argtypes = [ctypes.c_int] * 3
         lib.vnsum_flash_verify_smem.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -97,24 +127,9 @@ def flash_spec_verify_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no verify attention kernel for device {q.device}")
-    require_head_dim("K3 (flash_spec_verify_attention)", q.shape[-1])
-    check_query(q, pad_lens, (HEAD_DIM,))
-    quantized = check_cache(q, cache, layer_idx)
+    quantized, win = check_verify(q, cache, layer_idx, pad_lens, fills, q_per_kv, window)
     B, Sq, H, hd = q.shape
     L, _, KV, C, _ = cache["k"].shape
-    if (
-        fills.dtype != torch.int32 or fills.shape != (B,)
-        or fills.device != q.device or not fills.is_contiguous()
-    ):
-        raise ValueError("fills must be a contiguous int32 [B] tensor on q's device")
-    if H != KV * q_per_kv or q_per_kv > MAX_GROUP or Sq * q_per_kv > MAX_ROWS:
-        raise ValueError(
-            f"q_per_kv={q_per_kv}, Sq={Sq} with H/KV={H}/{KV} (kernel takes groups "
-            f"<= {MAX_GROUP} and Sq * group <= {MAX_ROWS})"
-        )
-    win = int(window or 0)
-    if win < 0:
-        raise ValueError(f"window={win} must be >= 0")
     lib = _library()
     out = torch.empty_like(q)
     # the kernel splits the cache range across blocks; each split leaves an
