@@ -58,7 +58,18 @@ Phases, each raising on failure (so any failure exits non-zero):
    at its two grouped launches (q/k/v: 3072 + 1024 + 1024 channels;
    gate/up: 8192 + 8192) at M = 1, 2, 8 and 72 rows, against its plain
    version and a float64 reckoning of the same formula (GEMV_RTOL), and
-   one case run twice that must give the same bits; [int8] (b), after phase 3:
+   one case run twice that must give the same bits; at GQA group 4 (phases
+   6b and 6c): K1 and K2 at Phi-4-14B's (KV=10) and Qwen3-8B's (KV=8) map
+   and reduce batches (GEMMA_SHAPES at C = S + FAMILY_NEW, int8, and bf16
+   for Phi-4, the pipeline's pads and an all-pad filler row), K3 at every
+   shape Phi-4's spec path and one-step gate send (phi4_verify_cases: Sq=9,
+   36 rows a block in two row halves, fills across a split boundary, a
+   parked row, a row whose pad hides every key from its first queries and
+   the filler row; Sq=1, 4 rows) with K1 over the same int8 caches, and the
+   GEMV at every Phi-4-14B shape (PHI4_GEMV_SHAPES: wo 5120 x 5120, w_down
+   5120 x 17920, the untied head 100352 x 5120; PHI4_GEMV_GROUPS: q/k/v
+   5120 + 1280 + 1280, gate/up 17920 + 17920) at the same four row counts;
+   [int8] (b), after phase 3:
    W8A8's s8 x s8 product (torch._int_mm) at a prefill's shape equals the
    CPU's int32 product bit for bit;
 4. planted faults: each kernel rebuilt, in a temporary copy of the package,
@@ -103,7 +114,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    copy with the windowed mask, K/V expanded to 8 heads; K3 at head_dim 256
    at Gemma3-4B's slot segment (B=8, Sq=1, C=4160) and spec step (B=8,
    Sq=9, C=4169), each on a global and a sliding layer, the same four
-   numbers;
+   numbers; at GQA group 4, the same four numbers for K1 and K2 at Phi-4's
+   map batch (B=8, S=4096, C=4160, KV=10, int8 cache of 8 layers) and K3 at
+   its spec step (Sq=9: 36 rows, C=4169) and its one-step gate's shape
+   (Sq=1: 4 rows, C=4224), and the GEMV at Phi-4's shapes at M = 8 (8
+   layers of weights in turn), summed over a decode step's 161 launches;
 6. pipeline: the port's CLI runs map-reduce over data/vi_eval with
    Llama-3.2-3B at full width and depth (random bf16 weights from a seed),
    its greedy decode steps replayed as captured CUDA graphs: every document
@@ -130,7 +145,7 @@ Phases, each raising on failure (so any failure exits non-zero):
    batch one of phase 3's GEMMA_SHAPES; an eager control through
    PipelineRunner byte-identical; then the map batch's last-position logits
    through K1 (int8 and bf16 cache) against the dense windowed forward on a
-   bf16 cache within GEMMA_LOGITS_RTOL of the largest |logit|, with every
+   bf16 cache within LOGITS_GATE_RTOL of the largest |logit|, with every
    layer run global as a planted fault that must exceed it; K2p must raise
    NotImplementedError naming ROADMAP B4 at head_dim 256, launching
    nothing; then on the same model path (a) (map-reduce through
@@ -143,7 +158,32 @@ Phases, each raising on failure (so any failure exits non-zero):
    verify steps; wall, prefill and decode seconds and steps, peak memory
    on ``[gemma3]`` lines, the paths on ``[gemma3 spec]`` and ``[gemma3
    slot]`` lines;
-6b. weights: the pipeline phase's own weights (init_model(llama32_3b(), 0))
+6b. phi4: Phi-4-14B at its published width and depth (40 layers, dim 5120,
+   40/10 heads: GQA group 4, head_dim 128, intermediate 17,920, vocab
+   100,352, untied head; random bf16 weights from seed 0, byte tokenizer,
+   FAMILY_NEW = 64 new tokens): the CLI's map-reduce with --models
+   phi4:14b, decode steps captured, and an eager control byte-identical to
+   it, K1 = 40 x prefill forwards and K2 = 40 x decode steps exactly, K2p
+   = K3 = GEMV = 0, every batch one phase 3 checked; the dense logits gate
+   (a row at a time) within LOGITS_GATE_RTOL, its planted fault (every
+   row's first 512 keys left out) over it; one captured decode step
+   profiled; path (a) on the same model (spec_path and its oracle, K3 at
+   36 rows on every layer, counts exact) and the one-step K3-against-K2
+   gate; then, with that model freed, the CLI's map-reduce with
+   --quantize (the engine quantizes its bf16 init, as the JAX engine
+   does), GEMV launches = gemv_need exactly, every document ok; then a
+   2-layer Phi-4 at full width written in the fused Phi-3 layout
+   (write_phi_checkpoint: qkv_proj, gate_up_proj, model_type phi3) and
+   loaded with load_hf_checkpoint, its parameters and map-batch logits
+   equal to the source model's bit for bit, the load's peak device and
+   host memory logged;
+6c. qwen3: Qwen3-8B at its published width and depth (36 layers, dim
+   4096, 32/8 heads: GQA group 4, head_dim 128, QK norm, intermediate
+   12,288, vocab 151,936; random bf16 weights, FAMILY_NEW new tokens): the
+   CLI's map-reduce captured, K1 = 36 x prefill forwards and K2 = 36 x
+   decode steps exactly, every batch one phase 3 checked, and the dense
+   logits gate;
+6d. weights: the pipeline phase's own weights (init_model(llama32_3b(), 0))
    written as an HF checkpoint (save_hf_checkpoint: 28 layers in four bf16
    shards, the embeddings in a fifth, and an index; into the temp dir, or
    the git-ignored chip_weights/ when the temp dir lacks room), loaded back
@@ -156,7 +196,7 @@ Phases, each raising on failure (so any failure exits non-zero):
    decode steps exactly; the write and load seconds, the free space and
    the load's peak device memory are logged, and the checkpoint is deleted
    at the end, also on failure;
-6c. encoder: the eval encoder at minilm_like()'s full shape (6 layers, dim
+6e. encoder: the eval encoder at minilm_like()'s full shape (6 layers, dim
    384, 12 heads, max_len 512), random f32 weights from seed 0, on the card
    against the same weights on the CPU: token embeddings of one [32, 512]
    batch (the data/vi_eval summaries and documents, padded with empty
@@ -169,10 +209,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    skeleton), each through PipelineRunner with the CLI's configuration
    (chunk_size 1024, 128 new tokens; critique at token_max 16, which must
    take at least one collapse round and the token_max // 2 context pass)
-   on Llama-3.2-3B at full width and depth (random bf16 weights from seed
-   0, one model for all four), batch 8, int8 KV cache, decode steps
-   captured: every document ok, ROUGE computed, K1 launches = 28 x prefill
-   forwards and K2 launches = 28 x decode steps exactly, K2p and K3 not
+   on Llama-3.2-3B at full width and depth, hierarchical at full width and
+   14 of its 28 layers (HIERARCHICAL_LAYERS; random bf16 weights from seed
+   0), batch 8, int8 KV cache, decode steps captured: every document ok,
+   ROUGE computed, K1 launches = n_layers x prefill forwards and K2
+   launches = n_layers x decode steps exactly, K2p and K3 not
    launched, every batch at a (B, S) whose K1 and K2 phase 3 checked, the
    replays plus one step per captured group all the decode steps, and the
    launches logged by kernel shape; then hierarchical again
@@ -257,8 +298,10 @@ replay of a captured step adds the launches its capture counted
 (``vnsum_tpu_torch/backend/capture.py``), so the counts are those of the
 steps run. The
 line before the last is a JSON object with one entry per kernel (K1, K2
-and K3 at head_dim 256 entries of their own), whose ``launches`` sums the
-path phases (the head_dim-256 entries: the Gemma3 phase's); the last line
+and K3 at head_dim 256 and at GQA group 4, and the GEMV at Phi-4's
+widths, entries of their own), whose ``launches`` sums the path phases
+(the head_dim-256 entries: the Gemma3 phase's; the group-4 and Phi-4
+ones: the Phi-4 and Qwen3-8B phases'); the last line
 is the device record. A ``[phase]`` line after each phase gives its
 seconds and the run's so far.
 Without a card the script exits non-zero and prints neither.
@@ -267,6 +310,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -344,7 +388,7 @@ SPEC_LOGITS_RTOL = 0.1
 # layers as the spec gate's do. The limit is the spec gate's; the planted
 # fault (a 512-slot split dropped) must exceed it.
 STEP_KERNEL_RTOL = 0.1
-# phase 6c: the eval encoder's f32 token embeddings on the card against the
+# phase 6e: the eval encoder's f32 token embeddings on the card against the
 # same weights on the CPU, max |card - cpu|. Every matmul is f32 on both
 # (TF32 off) and differs only in summation order, ~1e-6 relative per
 # product of up to 1536 terms; each layer ends in a LayerNorm, so outputs
@@ -373,6 +417,11 @@ GEMV_ROWS = (1, 2, 8, 72)
 # the projections that share their input, one grouped launch each:
 # (channels of each member, K)
 GEMV_GROUPS = {"q/k/v": ((3072, 1024, 1024), 3072), "gate/up": ((8192, 8192), 3072)}
+# Phi-4-14B's (phase 6b with --quantize): wo, w_down (K = 17920), the untied
+# head (100,352 rows, no power of two) and the grouped q/k/v (40 + 10 + 10
+# heads) and gate/up launches, at the same rows
+PHI4_GEMV_SHAPES = {"wo": (5120, 5120), "w_down": (5120, 17920), "head": (100352, 5120)}
+PHI4_GEMV_GROUPS = {"q/k/v": ((5120, 1280, 1280), 5120), "gate/up": ((17920, 17920), 5120)}
 
 # phase 4's planted faults: (what it does, kernel, source, text, replacement).
 # A fault must fail every case of its kernel's family (FAMILY) and no case
@@ -466,10 +515,40 @@ KERNELS = {
         "source": "vnsum_tpu_torch/ops/csrc/flash_verify.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:510",
     },
+    # K1, K2 and K3 at GQA group 4 (Phi-4-14B: 40 query heads on 10 KV
+    # heads; Qwen3-8B: 32 on 8), the same kernels at other shapes: times at
+    # Phi-4's map batch and spec step (Sq * G = 36 rows), launches those of
+    # the Phi-4 and Qwen3-8B phases
+    "prefill_g4": {
+        "name": "flash_prefill_attention (GQA group 4)",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_prefill.cu",
+        "replaces": "vnsum_tpu/ops/flash_attention.py:313",
+    },
+    "decode_g4": {
+        "name": "flash_decode_attention (GQA group 4)",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
+        "replaces": "vnsum_tpu/ops/decode_attention.py:381",
+    },
+    "verify_g4": {
+        "name": "flash_spec_verify_attention (GQA group 4)",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_verify.cu",
+        "replaces": "vnsum_tpu/ops/decode_attention.py:510",
+    },
     # a port-only kernel: the JAX package's int8 product is XLA's fusion in
     # _proj (its int8 einsum's line), no pallas_call
     "gemv": {
         "name": "int8_gemv",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/int8_gemv.cu",
+        "replaces": "vnsum_tpu/models/llama.py:290",
+    },
+    # the GEMV at Phi-4-14B's widths (K = 5120 and 17920, a 100,352-row
+    # head): a decode step's 161 launches, launches those of its int8 run
+    "gemv_phi4": {
+        "name": "int8_gemv (Phi-4-14B)",
         "route": "cuda",
         "source": "vnsum_tpu_torch/ops/csrc/int8_gemv.cu",
         "replaces": "vnsum_tpu/models/llama.py:290",
@@ -507,7 +586,8 @@ def phase_environment(torch) -> str:
 def phase_build() -> float:
     """Builds every kernel and prints each kernel function's registers and
     spills (ptxas -v), K1's dynamic shared memory, K3's at the main path's
-    row counts (Llama-3.2-3B's and Gemma3-4B's) and K2/K2p's pass 1's."""
+    row counts (Llama-3.2-3B's, Phi-4-14B's and Gemma3-4B's) and K2/K2p's
+    pass 1's."""
     from vnsum_tpu_torch.ops import decode_attention as da
     from vnsum_tpu_torch.ops import kernels
     from vnsum_tpu_torch.ops import verify_attention as va
@@ -529,7 +609,7 @@ def phase_build() -> float:
         log(f"[build] flash_prefill dynamic shared memory at head_dim {hd}: "
             f"int8 {smem(1, hd)} B, bf16 {smem(0, hd)} B")
     lib = va._library()
-    for hd, rows in ((128, (3, 27)), (256, (2, 18))):
+    for hd, rows in ((128, (3, 4, 27, 36)), (256, (2, 18))):
         for R in rows:
             log(f"[build] flash_verify dynamic shared memory at head_dim {hd} Sq*G={R}: "
                 f"int8 {lib.vnsum_flash_verify_smem(R, 1, hd)} B, "
@@ -671,6 +751,38 @@ GEMMA_SPEC_K = 8
 GEMMA_JOIN_BATCHES = (1, 2, 4)
 
 
+# Phi-4-14B's and Qwen3-8B's phases (6b, 6c): GQA group 4 (40 query heads
+# on 10 KV heads; 32 on 8) at head_dim 128, the map and reduce batches of
+# GEMMA_SHAPES (the byte tokenizer's, as every CLI run's) at FAMILY_NEW new
+# tokens, so C = S + FAMILY_NEW; Phi-4's spec path at spec_k 8 (Sq * G = 36
+# verify rows: K3's layout of two row halves) and the one-step gate's Sq = 1
+# (4 rows) at C = S + 128. 64 new tokens as GEMMA_PATH_NEW, for the time
+# budget
+PHI4_KV, QWEN3_KV, G4 = 10, 8, 4
+FAMILY_NEW = 64
+FAMILY_SPEC_K = 8
+
+
+def phi4_verify_cases() -> list:
+    """K3's group-4 cases: (what, S, Sq, C, fills, pads) at every (B, Sq, C)
+    Phi-4's spec path and its one-step gate send. The spec step's map batch
+    (S = 4096, Sq = 9, C = S + 64 + 9): rows 0-1 put their queries on both
+    sides of the 512-slot split boundary at 4096, row 4 is parked at e =
+    max_new, row 5's pad hides every key from its queries 0-2, row 7 is the
+    all-pad filler row; its reduce batch (S = 512) the same kinds of rows;
+    the one-step gate (Sq = 1, C = S + 128, every fill S) with a free row
+    (pad = S)."""
+    new, k1 = FAMILY_NEW, FAMILY_SPEC_K + 1
+    return [
+        ("spec S=4096", 4096, k1, 4096 + new + k1,
+         [4088, 4095, 4100, 4150, 4096 + new, 4150, 4096, 4111],
+         [0, 37, 400, 1000, 2500, 4153, 4095, 4096]),
+        ("spec S=512", 512, k1, 512 + new + k1, [505, 511, 512, 560, 512 + new, 530, 512, 520],
+         [0, 5, 60, 128, 200, 533, 511, 512]),
+        ("step gate", 4096, 1, 4096 + 128, [4096] * 8, [0, 37, 400, 1000, 2500, 3000, 4095, 4096]),
+    ]
+
+
 def gemma_verify_cases() -> list:
     """K3's head_dim-256 cases: (what, S, Sq, C, fills, pads) at every
     (B, Sq, C) Gemma3's spec path and slot loop send. The spec step's map
@@ -708,7 +820,8 @@ def phase_correctness(torch) -> dict:
     KV, G, hd = 8, 3, 128
     H = KV * G
     worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0, "partials": 0.0, "gemv": 0.0,
-             "prefill_hd256": 0.0, "decode_hd256": 0.0, "verify_hd256": 0.0}
+             "prefill_hd256": 0.0, "decode_hd256": 0.0, "verify_hd256": 0.0,
+             "prefill_g4": 0.0, "decode_g4": 0.0, "verify_g4": 0.0, "gemv_phi4": 0.0}
 
     def pads_of(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
@@ -955,6 +1068,45 @@ def phase_correctness(torch) -> dict:
         del cache
     torch.cuda.empty_cache()
 
+    # GQA group 4 (phases 6b and 6c): K1 and K2 at Phi-4-14B's (KV=10) and
+    # Qwen3-8B's (KV=8) map and reduce batches at C = S + FAMILY_NEW, the
+    # pipeline's pads and an all-pad filler row, int8 (the path's) and, for
+    # Phi-4, bf16; decode at the first and the last step
+    for family, kv in (("phi4", PHI4_KV), ("qwen3", QWEN3_KV)):
+        for S, pads_h in GEMMA_SHAPES.items():
+            B, C, layer = len(pads_h), S + FAMILY_NEW, 1
+            for quantized in (True, False) if family == "phi4" else (True,):
+                cache = make_cache(torch, 2, B, kv, C, hd, quantized, 130 + S + kv + quantized,
+                                   dev)
+                prefill(f"G=4 KV={kv} int8={quantized} B={B} S={S} C={C} layer={layer} "
+                        f"({family} batch)", rand_q(torch, (B, S, kv * G4, hd), 131 + S + kv, dev),
+                        cache, layer, pads_of(pads_h), 0, 0, empty_row=B - 1, g=G4,
+                        key="prefill_g4")
+                for fill in (S, C - 1):
+                    decode(f"G=4 KV={kv} int8={quantized} B={B} C={C} fill={fill} layer={layer} "
+                           f"({family} batch)", rand_q(torch, (B, 1, kv * G4, hd), 132 + fill, dev),
+                           cache, layer, pads_of(pads_h), fill, 0, g=G4, key="decode_g4")
+                del cache
+    torch.cuda.empty_cache()
+    # Phi-4's spec path and one-step gate (phi4_verify_cases): K3 at Sq * G
+    # = 36 and 4 rows, int8 and (the map batch's) bf16; K1 over the same
+    # int8 caches (C = S + 73 and S + 128: scale rows no multiple of 16
+    # bytes apart at 73)
+    for what, S, Sq, C, fills_h, pads_h in phi4_verify_cases():
+        B = len(fills_h)
+        for quantized in (True, False) if S == 4096 else (True,):
+            cache = make_cache(torch, 2, B, PHI4_KV, C, hd, quantized, 140 + C + quantized, dev)
+            if quantized:
+                prefill(f"G=4 KV={PHI4_KV} int8=True B={B} S={S} C={C} layer=1 (phi4 {what})",
+                        rand_q(torch, (B, S, PHI4_KV * G4, hd), 141 + S, dev), cache, 1,
+                        pads_of(GEMMA_SHAPES[S]), 0, 0, empty_row=B - 1, g=G4, key="prefill_g4")
+            verify(f"G=4 KV={PHI4_KV} int8={quantized} B={B} Sq={Sq} C={C} layer=1 "
+                   f"(phi4 {what})", rand_q(torch, (B, Sq, PHI4_KV * G4, hd), 142 + C, dev),
+                   cache, 1, pads_h, fills_h, blind=((5, slice(0, 3)),) if Sq > 1 else (),
+                   g=G4, key="verify_g4")
+            del cache
+    torch.cuda.empty_cache()
+
     # the pipeline's default bucket (S=15360, C=16384, B=8, L=28): the last
     # layer of the int8 cache starts past 2^31 elements, so a 32-bit offset
     # anywhere in a kernel reads the wrong layer
@@ -987,6 +1139,7 @@ def phase_correctness(torch) -> dict:
 
     partials_cases(torch, worst)
     gemv_cases(torch, worst)
+    gemv_cases(torch, worst, PHI4_GEMV_SHAPES, PHI4_GEMV_GROUPS, "gemv_phi4", seed=500)
     raise_if_failed()
     return worst
 
@@ -1008,14 +1161,14 @@ def int8_weight(torch, N: int, K: int, seed: int, dev, layers: int = 1):
     return q, s
 
 
-def compare_gemv(torch, case, x, members, head, worst, repeat=False) -> None:
+def compare_gemv(torch, case, x, members, head, worst, repeat=False, key="gemv") -> None:
     """Runs the GEMV on x [M, K] and ``members`` [(q [N, K], s [N]), ...]
     (one weight through int8_gemv, more through one int8_gemv_group
     launch) and holds each output against its plain version's and against
     a float64 reckoning of the same formula, bf16(f32(bf16(sum)) * s) or
     sum * s for the head, at the stated limit (GEMV_RTOL, GEMV_SUM_RTOL);
     with ``repeat`` the launch runs again and must give the same bits; logs
-    the case as ``compare`` does."""
+    the case as ``compare`` does (its largest |err| in ``worst[key]``)."""
     from vnsum_tpu_torch.ops import int8_matmul as im
 
     def run():
@@ -1042,7 +1195,7 @@ def compare_gemv(torch, case, x, members, head, worst, repeat=False) -> None:
             bad = bad or bool((diff > limit).any())
             used = max(used, float((diff / limit.clamp_min(1e-30)).max()))
             errs.append(f"{label} {float(diff.max()):.3e}")
-        worst["gemv"] = max(worst["gemv"], float((g - want.double()).abs().max()))
+        worst[key] = max(worst[key], float((g - want.double()).abs().max()))
     same = all(torch.equal(a, b) for a, b in zip(outs, again))
     bad = bad or not same
     if bad:
@@ -1054,34 +1207,36 @@ def compare_gemv(torch, case, x, members, head, worst, repeat=False) -> None:
         + (" OVER THE LIMIT" if bad else ""))
 
 
-def gemv_cases(torch, worst) -> None:
-    """[int8] (a): the GEMV at every int8 matmul shape of Llama-3.2-3B
-    (GEMV_SHAPES; the tied head in head mode) and at its two grouped
-    launches (GEMV_GROUPS), at every row count of GEMV_ROWS, against its
-    plain version and a float64 reckoning of the same formula:
+def gemv_cases(torch, worst, shapes=GEMV_SHAPES, groups=GEMV_GROUPS, key="gemv",
+               seed=0) -> None:
+    """[int8] (a): the GEMV at every int8 matmul shape of a model (``shapes``,
+    the head in head mode; Llama-3.2-3B's tied head by default) and at its
+    two grouped launches (``groups``), at every row count of GEMV_ROWS,
+    against its plain version and a float64 reckoning of the same formula:
     bf16(f32(bf16(sum)) * s), or sum * s for the head; then the grouped
     q/k/v launch at M = 8 twice, which must give the same bits."""
     dev = torch.device("cuda")
-    for i, (name, (N, K)) in enumerate(GEMV_SHAPES.items()):
-        q, s = int8_weight(torch, N, K, 90 + i, dev)
+    for i, (name, (N, K)) in enumerate(shapes.items()):
+        q, s = int8_weight(torch, N, K, seed + 90 + i, dev)
         head = name == "head"
         for M in GEMV_ROWS:
             compare_gemv(torch, f"gemv {name} N={N} K={K} M={M} "
                          f"{'head' if head else 'projection'}",
-                         rand_q(torch, (M, K), 100 + 7 * i + M, dev), [(q[0], s[0])], head, worst)
+                         rand_q(torch, (M, K), seed + 100 + 7 * i + M, dev), [(q[0], s[0])],
+                         head, worst, key=key)
         del q, s
         torch.cuda.empty_cache()
-    for i, (name, (ns, K)) in enumerate(GEMV_GROUPS.items()):
-        members = [tuple(t[0] for t in int8_weight(torch, N, K, 150 + 3 * i + j, dev))
+    for i, (name, (ns, K)) in enumerate(groups.items()):
+        members = [tuple(t[0] for t in int8_weight(torch, N, K, seed + 150 + 3 * i + j, dev))
                    for j, N in enumerate(ns)]
         for M in GEMV_ROWS:
             compare_gemv(torch, f"gemv {name} grouped N={'+'.join(map(str, ns))} K={K} M={M} "
-                         "projection", rand_q(torch, (M, K), 160 + 7 * i + M, dev), members,
-                         False, worst)
+                         "projection", rand_q(torch, (M, K), seed + 160 + 7 * i + M, dev),
+                         members, False, worst, key=key)
         if name == "q/k/v":
             compare_gemv(torch, f"gemv {name} grouped N={'+'.join(map(str, ns))} K={K} M=8 "
-                         "projection, run twice", rand_q(torch, (8, K), 170, dev), members,
-                         False, worst, repeat=True)
+                         "projection, run twice", rand_q(torch, (8, K), seed + 170, dev),
+                         members, False, worst, repeat=True, key=key)
         del members
         torch.cuda.empty_cache()
 
@@ -1360,6 +1515,13 @@ def phase_timing(torch, worst) -> dict:
             f"library {rec['library_ms']:.4f} ms (normalised output)")
     out["gemv"] = time_gemv(torch, worst)
     out.update(time_gemma_kernels(torch, worst))
+    out.update(time_group4_kernels(torch, worst))
+    # a Phi-4-14B decode step's launches: 40 x (q/k/v grouped, wo, gate/up
+    # grouped, w_down) + the head; 8 layers of weights in turn keep each
+    # call cold in L2
+    out["gemv_phi4"] = time_gemv(
+        torch, worst, PHI4_GEMV_SHAPES, PHI4_GEMV_GROUPS, layers=8, rows=(8,),
+        in_step={"q/k/v": 40, "wo": 40, "gate/up": 40, "w_down": 40, "head": 1}, key="gemv_phi4")
     raise_if_failed()
     return out
 
@@ -1395,7 +1557,7 @@ def time_prefill_decode(torch, worst, tag: str, cache, lib, q, qd, pads_h, fill,
         dec_mask = dec_mask & (kpos > fill - window)
     pre_mask, dec_mask = pre_mask[:, None], dec_mask[:, None, None, :]
     qt, qdt = q.transpose(1, 2), qd.transpose(1, 2)
-    case = (f"{tag.replace('_hd', 'hd=') + ' ' if tag else ''}int8=True B={B}"
+    case = (f"{tag.replace('_hd', 'hd=').replace('_g', 'G=') + ' ' if tag else ''}int8=True B={B}"
             + (f" window={window}" if window else ""))
     # prefill: query q of row b sees min(q - pad_b + 1, window) slots
     pairs = sum(min(qq - p + 1, window or S) for p in pads_h for qq in range(p, S))
@@ -1481,6 +1643,47 @@ def time_gemma_kernels(torch, worst) -> dict:
     return out
 
 
+def time_group4_kernels(torch, worst) -> dict:
+    """GQA group 4 at Phi-4-14B's shapes (KV=10, G=4, head_dim 128): K1 and
+    K2 at its map batch (B=8, S=4096, C = S + FAMILY_NEW = 4160, an int8
+    cache of 8 layers, 85 MB of K/V a layer, so each call finds its layer
+    cold in L2; pads 64 b, K2 at fill S + 32) through time_prefill_decode;
+    K3 through time_verify at its spec step (Sq=9: 36 rows, C = S + 64 + 9,
+    fills S + 30 + 3 b) and at the one-step gate's shape (Sq=1: 4 rows, C =
+    S + 128, fills S + 16 b). Returns the records of K1, K2 and K3 at the
+    spec step."""
+    dev = torch.device("cuda")
+    L, B, KV, G, hd, S = 8, 8, PHI4_KV, G4, 128, 4096
+    pads_h = [64 * i for i in range(B)]
+    cache = make_cache(torch, L, B, KV, S + FAMILY_NEW, hd, True, 19, dev)
+    lib = library_kv(torch, cache, 4, G)
+    pre, dec = time_prefill_decode(
+        torch, worst, "_g4", cache, lib, rand_q(torch, (B, S, KV * G, hd), 20, dev),
+        rand_q(torch, (B, 1, KV * G, hd), 21, dev), pads_h, S + 32, G, 0)
+    for name, rec in (("prefill", pre), ("decode", dec)):
+        log(f"[time] {name} G=4 (Phi-4 map batch, C={S + FAMILY_NEW}): kernel "
+            f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+            f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms")
+    del cache, lib
+    torch.cuda.empty_cache()
+    out = {"prefill_g4": pre, "decode_g4": dec}
+    for what, Sq, C, fills_h in (
+            ("spec", FAMILY_SPEC_K + 1, S + FAMILY_NEW + FAMILY_SPEC_K + 1,
+             [S + 30 + 3 * i for i in range(B)]),
+            ("slot", 1, S + 128, [S + 16 * i for i in range(B)])):
+        cache = make_cache(torch, L, B, KV, C, hd, True, 22 + Sq, dev)
+        lib = library_kv(torch, cache, 4, G)
+        rec = time_verify(torch, worst, cache, *lib, pads_h, fills_h, Sq, 23 + Sq, 0, "verify_g4")
+        log(f"[time] verify G=4 {what} B={B} Sq={Sq} (Sq*G={Sq * G}) C={C}: kernel "
+            f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+            f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms")
+        if what == "spec":
+            out["verify_g4"] = rec
+        del cache, lib
+        torch.cuda.empty_cache()
+    return out
+
+
 def graph_ms(torch, fn, n: int, reps: int = 5) -> float:
     """Per-call device time of ``fn(i)`` for i < n, recorded once into a
     CUDA graph and replayed (median over ``reps`` replays, CUDA events), so
@@ -1523,30 +1726,34 @@ def int8pack_call(torch):
     return torch._weight_int8pack_mm
 
 
-def time_gemv(torch, worst) -> dict:
+def time_gemv(torch, worst, shapes=GEMV_SHAPES, groups=GEMV_GROUPS, layers=28,
+              rows=GEMV_ROWS, in_step=None, key="gemv") -> dict:
     """[int8] (e): the GEMV at each shape of phase 3, the single weights
-    (GEMV_SHAPES) and the grouped launches (GEMV_GROUPS), at each row count
-    of GEMV_ROWS, 28 layers of weights called in turn so that each call
-    finds its weights cold in L2 as a decode step does (the head, 394 MB,
-    is past L2 alone), each time from one replayed CUDA graph: the kernel,
+    (``shapes``, Llama-3.2-3B's GEMV_SHAPES by default) and the grouped
+    launches (``groups``), at each row count of ``rows``, ``layers`` layers
+    of weights called in turn so that each call finds its weights cold in
+    L2 as a decode step does (the head, 394 MB at Llama's widths, is past
+    L2 alone), each time from one replayed CUDA graph: the kernel,
     the library calls, ``torch.matmul`` of x against the same weights in
     bf16 (what the bf16 model pays) and torch._weight_int8pack_mm where it
     runs (int8pack_call), one call over the members' weights side by side,
     and at M = 8 the plain version. The bound of a call: its int8 weights
     and scales read once (and x, and the outputs written) at 3.35 TB/s; its
     bf16 tensor-core work is a few percent of that. The returned record is
-    one decode step's sum at M = 8: 28 x (q/k/v grouped, wo, gate/up
-    grouped, w_down) + the head, 113 calls; its library time is
+    one decode step's sum at M = 8 over ``in_step`` (launches a step by
+    shape; by default Llama-3.2-3B's 28 x (q/k/v grouped, wo, gate/up
+    grouped, w_down) + the head, 113 calls); its library time is
     _weight_int8pack_mm's where it runs, else bf16 torch.matmul's. One
-    output at each shape is held to the plain version as in phase 3."""
+    output at each shape is held to the plain version as in phase 3
+    (``worst[key]``)."""
     from vnsum_tpu_torch.ops import int8_matmul as im
 
     dev = torch.device("cuda")
-    L, step_m = 28, 8
+    L, step_m = layers, 8
     int8pack = int8pack_call(torch)
-    shapes = {name: ((N,), K) for name, (N, K) in GEMV_SHAPES.items()}
-    shapes.update(GEMV_GROUPS)
-    in_step = {"q/k/v": L, "wq/wo": L, "gate/up": L, "w_down": L, "head": 1}
+    in_step = in_step or {"q/k/v": 28, "wq/wo": 28, "gate/up": 28, "w_down": 28, "head": 1}
+    shapes = {name: ((N,), K) for name, (N, K) in shapes.items()}
+    shapes.update(groups)
     step = {"ms": 0.0, "plain": 0.0, "library": 0.0, "bf16": 0.0, "flops": 0, "bytes": 0}
     for i, (name, (ns, K)) in enumerate(shapes.items()):
         head = name == "head"
@@ -1566,7 +1773,7 @@ def time_gemv(torch, worst) -> dict:
                 return im.int8_gemv(x, *members(li)[0], head)
             return im.int8_gemv_group(x, members(li), head)
 
-        for M in GEMV_ROWS:
+        for M in rows:
             x = rand_q(torch, (M, K), 140 + 7 * i + M, dev)
             n = 2 * layers
             ms = graph_ms(torch, lambda j: kernel(x, j % layers), n)
@@ -1584,10 +1791,10 @@ def time_gemv(torch, worst) -> dict:
             calls = in_step.get(name, 0) if M == step_m else 0
             if M == step_m:
                 compare_gemv(torch, f"gemv {name} N={'+'.join(map(str, ns))} K={K} M={M} "
-                             "(timing inputs)", x, members(layers - 1), head, worst)
-                for key, val in (("ms", ms), ("plain", plain), ("library", rec["library_ms"]),
-                                 ("bf16", bf16), ("flops", flops), ("bytes", bytes_)):
-                    step[key] += calls * val
+                             "(timing inputs)", x, members(layers - 1), head, worst, key=key)
+                for part, val in (("ms", ms), ("plain", plain), ("library", rec["library_ms"]),
+                                  ("bf16", bf16), ("flops", flops), ("bytes", bytes_)):
+                    step[part] += calls * val
             log(f"[time] gemv {name} N={'+'.join(map(str, ns))} K={K} M={M}"
                 + (f" ({calls} a decode step)" if M == step_m else "")
                 + f": kernel {ms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
@@ -1723,6 +1930,7 @@ def time_verify(torch, worst, cache, k_lib, v_lib, pads_h, fills_h, Sq, seed, wi
     split_ms = sum(v for k, v in passes.items() if "flash_verify_split_kernel" in k)
     merge_ms = sum(v for k, v in passes.items() if "flash_verify_merge_kernel" in k)
     tag = f"hd={hd} " if hd != 128 else ""
+    tag += f"G={G} " if G == G4 else ""
     tag += f"window={window} " if window else ""
     log(f"[time] verify passes {tag}B={B} Sq={Sq} C={C}: pass 1 {split_ms:.4f} ms, merge "
         f"{merge_ms:.4f} ms a call (torch.profiler; CUDA events around both: {ms:.4f} ms)")
@@ -1895,18 +2103,20 @@ def check_captured(path: str, st: dict) -> None:
             f"captures for {st['decode_steps']} decode steps")
 
 
-def captured_and_eager(torch, name: str, config_fn, label: str) -> dict:
-    """The CLI's map-reduce over data/vi_eval with --models ``name`` (128
-    new tokens, int8 cache, greedy), its decode steps captured; then the
-    same run through PipelineRunner on a backend of ``config_fn()`` built
-    with cuda_graphs=False (every step eager). Each run: every document
-    ok, every summary written, ROUGE and the embedding metrics computed;
-    the captured run's replays plus one step a capture all its steps; the
-    eager run the same decode steps, none replayed; the two runs' summaries
+def captured_and_eager(torch, name: str, config_fn, label: str, max_new: int = 128,
+                       eager: bool = True) -> dict:
+    """The CLI's map-reduce over data/vi_eval with --models ``name``
+    (``max_new`` new tokens, int8 cache, greedy), its decode steps
+    captured; then, with ``eager``, the same run through PipelineRunner on
+    a backend of ``config_fn()`` built with cuda_graphs=False (every step
+    eager), once the CLI's model is freed. Each run: every document ok,
+    every summary written, ROUGE and the embedding metrics computed; the
+    captured run's replays plus one step a capture all its steps; the eager
+    run the same decode steps, none replayed; the two runs' summaries
     byte-identical and their generated id rows (each run's detokenized
     rows, in order) equal. Logs both on ``[label]`` lines; returns the
     captured run's launches, record, engine stats, summaries, id rows and
-    peak memory, and the eager run's backend."""
+    peak memory, and the eager run's backend (None without ``eager``)."""
     from vnsum_tpu_torch.backend.engine import TorchBackend
     from vnsum_tpu_torch.pipeline import cli
     from vnsum_tpu_torch.pipeline.runner import PipelineRunner
@@ -1921,7 +2131,7 @@ def captured_and_eager(torch, name: str, config_fn, label: str) -> dict:
             "--generated-summaries-dir", str(out / "gen"),
             "--results-dir", str(out / "results"),
             "--logs-dir", str(out / "logs"),
-            "--max-new-tokens", "128", "--device", "cuda",
+            "--max-new-tokens", str(max_new), "--device", "cuda",
         ]
 
     rows: dict[str, list] = {}
@@ -1942,15 +2152,34 @@ def captured_and_eager(torch, name: str, config_fn, label: str) -> dict:
         rouge = res["results"]["evaluation"][name]["rouge_scores"]
         eng = res["results"]["engine"][name]
         check_captured(label, eng)
+        decode_s = eng["phase_seconds"].get("decode", 0.0)
+        log(f"[{label}] {rec['successful']}/{len(docs)} docs ok, {rec['failed']} failed, "
+            f"chunks {rec['total_chunks']}, wall {wall:.2f}s, "
+            f"prefill {eng['phase_seconds'].get('prefill', 0.0):.3f}s "
+            f"({eng['prefill_forwards']} forwards), decode {decode_s:.3f}s ({eng['decode_steps']} "
+            f"steps: {eng['graph_captures']} captured groups, {eng['captured_steps']} replays; "
+            f"{1e3 * decode_s / max(eng['decode_steps'], 1):.2f} ms a step), generated tokens "
+            f"{eng['generated_tokens']}, batches {eng['by_bucket']}, decode steps by batch "
+            f"{eng['steps_by_bucket']}, peak memory {peak_gb:.2f} GB")
+        log(f"[{label}] rouge {json.dumps(rouge)}")
+        run = {"launches": launches, "rec": rec, "eng": eng, "summaries": summaries,
+               "rows": rows["captured"], "peak_gb": peak_gb, "eager": None}
+        if not eager:
+            return run
+        # the CLI's engine is unreachable once its run returns; collect it
+        # before the control builds its own model (Phi-4's bf16 weights are
+        # 29.3 GB)
+        gc.collect()
+        torch.cuda.empty_cache()
 
         cfg = cli.config_from_args(cli.build_parser().parse_args(cli_args(Path(tmp) / "eager")))
-        eager = []
+        controls = []
 
         def factory(_):
-            eager.append(TorchBackend(
+            controls.append(TorchBackend(
                 config_fn(), batch_size=cfg.batch_size, max_new_tokens=cfg.max_new_tokens,
                 cuda_graphs=False, device="cuda"))
-            return eager[-1]
+            return controls[-1]
 
         t0 = time.perf_counter()
         runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
@@ -1962,7 +2191,7 @@ def captured_and_eager(torch, name: str, config_fn, label: str) -> dict:
         _, eager_summaries = check_run(
             {"summarization": eager_res.summarization, "evaluation": eager_res.evaluation},
             docs, Path(tmp) / "eager" / "gen", model=name)
-    est = eager[0].stats
+    est = controls[0].stats
     if est.captured_steps or est.graph_captures or est.decode_steps != eng["decode_steps"]:
         raise AssertionError(f"{label} eager control: {est.decode_steps} decode steps, "
                              f"{est.captured_steps} replayed, {est.graph_captures} captures")
@@ -1972,24 +2201,13 @@ def captured_and_eager(torch, name: str, config_fn, label: str) -> dict:
                                          [summaries[d.name] for d in docs]))
     if rows["eager"] != rows["captured"] or not rows["captured"]:
         raise AssertionError(f"{label} generated ids differ with capture on and off")
-    decode_s = eng["phase_seconds"].get("decode", 0.0)
-    ids = [t for r in rows["captured"] for t in r if t != eager[0].tok.pad_id]
-    log(f"[{label}] {rec['successful']}/{len(docs)} docs ok, {rec['failed']} failed, "
-        f"chunks {rec['total_chunks']}, wall {wall:.2f}s, "
-        f"prefill {eng['phase_seconds'].get('prefill', 0.0):.3f}s "
-        f"({eng['prefill_forwards']} forwards), decode {decode_s:.3f}s ({eng['decode_steps']} "
-        f"steps: {eng['graph_captures']} captured groups, {eng['captured_steps']} replays; "
-        f"{1e3 * decode_s / max(eng['decode_steps'], 1):.2f} ms a step), generated tokens "
-        f"{eng['generated_tokens']}, batches {eng['by_bucket']}, decode steps by batch "
-        f"{eng['steps_by_bucket']}, peak memory {peak_gb:.2f} GB")
+    ids = [t for r in rows["captured"] for t in r if t != controls[0].tok.pad_id]
     log(f"[{label}] eager control (cuda_graphs=False): wall {eager_wall:.2f}s, decode "
         f"{est.phase_seconds.get('decode', 0.0):.3f}s ({est.decode_steps} steps) against "
         f"{decode_s:.3f}s captured; summaries byte-identical ({len(docs)}/{len(docs)}, "
         f"{sum(map(len, summaries.values()))} bytes) and generated ids equal ({len(ids)} "
         f"non-pad ids in {len(rows['captured'])} rows, {len(set(ids))} distinct)")
-    log(f"[{label}] rouge {json.dumps(rouge)}")
-    return {"launches": launches, "rec": rec, "eng": eng, "summaries": summaries,
-            "rows": rows["captured"], "peak_gb": peak_gb, "eager": eager[0]}
+    return {**run, "eager": controls[0]}
 
 
 def phase_pipeline(torch) -> tuple[dict, dict]:
@@ -2008,21 +2226,26 @@ def phase_pipeline(torch) -> tuple[dict, dict]:
     return launches, run["summaries"]
 
 
-# the Gemma3 phase's dense logits gate: the map batch's last-position
-# logits through K1 (the engine's prefill, int8 cache; and a bf16 cache)
-# against the model's dense windowed forward on a bf16 cache, as max |K1 -
-# dense| over the 7 document rows and the vocab divided by the largest
-# |dense| logit. Both run the same bf16 weights; K1 rounds p to bf16
-# against its running max and the dense path rounds the softmax, and the
-# int8 cache rounds each K and V row to 1/254 of its largest value: bf16
-# and int8 roundings carried through 34 layers, of which the sandwich norms
-# rescale every layer's attention output to unit size. The limit is the
-# spec gate's. The planted fault (K1 at window 0 on every layer: the
-# sliding window lost) must exceed it.
-GEMMA_LOGITS_RTOL = 0.1
+# the dense logits gate of the Gemma3, Phi-4 and Qwen3-8B phases: the map
+# batch's last-position logits through K1 (the engine's prefill, int8
+# cache; and a bf16 cache) against the model's dense (windowed) forward on
+# a bf16 cache, as max |K1 - dense| over the 7 document rows and the vocab
+# divided by the largest |dense| logit. Both run the same bf16 weights; K1
+# rounds p to bf16 against its running max and the dense path rounds the
+# softmax, and the int8 cache rounds each K and V row to 1/254 of its
+# largest value: bf16 and int8 roundings carried through 34-40 layers
+# (Gemma3's sandwich norms rescale every layer's attention output to unit
+# size). The limit is the spec gate's. The planted fault must exceed it:
+# K1 at window 0 on every layer (the sliding window lost) where the config
+# has one, else K1 with every row's pad 512 slots later (its first 512
+# keys left out).
+LOGITS_GATE_RTOL = 0.1
 
 
-def gemma_logits_gate(torch, engine, docs) -> None:
+def logits_gate(torch, engine, docs, label: str) -> None:
+    """The dense logits gate (LOGITS_GATE_RTOL) on ``engine``'s model. The
+    dense forward runs a row at a time: its f32 scores of a row are [H, S,
+    S], 2.7 GB at Phi-4's 40 heads, beside 29.3 GB of weights."""
     from vnsum_tpu_torch.backend.base import left_pad_batch
     from vnsum_tpu_torch.models.llama import (
         init_kv_cache,
@@ -2038,28 +2261,41 @@ def gemma_logits_gate(torch, engine, docs) -> None:
     tokens = torch.from_numpy(tokens_np).to(dev)
     pads = torch.from_numpy(pads_np).to(dev)
     rows = len(docs)  # the filler row sees no key: K1 gives 0, dense a uniform average
+    if cfg.sliding_window:
+        fault = "every layer global (planted)"
+    else:
+        fault = "every row's first 512 keys left out (planted)"
     with torch.inference_mode():
-        dense = model(tokens, prefill_positions(pads, S), init_kv_cache(cfg, B, S, device=dev),
-                      0, prefill_attention_mask(pads, S, S), last_only=True)[:rows, -1].float()
+        dense = torch.cat([
+            model(tokens[r:r + 1], prefill_positions(pads[r:r + 1], S),
+                  init_kv_cache(cfg, 1, S, device=dev), 0,
+                  prefill_attention_mask(pads[r:r + 1], S, S), last_only=True)[:, -1].float()
+            for r in range(rows)])
         scale = float(dense.abs().amax())
         windows = engine.windows
         out = {}
-        for run, quantized, fault in (("int8 cache", True, False), ("bf16 cache", False, False),
-                                      ("every layer global (planted)", True, True)):
-            engine.windows = [0] * cfg.n_layers if fault else windows
-            try:
-                got = engine._prefill_forward(
-                    tokens, pads, B, S, S,
-                    init_kv_cache(cfg, B, S, quantized=quantized, device=dev))
-            finally:
-                engine.windows = windows
+        for run, quantized in (("int8 cache", True), ("bf16 cache", False), (fault, True)):
+            cache = init_kv_cache(cfg, B, S, quantized=quantized, device=dev)
+            if run == fault and not cfg.sliding_window:
+                got = model(tokens, prefill_positions(pads, S), cache, 0, None, last_only=True,
+                            stacked_attention_fn=engine._prefill_stacked(
+                                torch.clamp(pads + 512, max=S), 0))
+            else:
+                engine.windows = [0] * cfg.n_layers if run == fault else windows
+                try:
+                    got = engine._prefill_forward(tokens, pads, B, S, S, cache)
+                finally:
+                    engine.windows = windows
             out[run] = float((got[:rows, -1].float() - dense).abs().amax()) / scale
-    log(f"[gemma3] map batch's last-position logits through K1 against the dense windowed "
-        f"forward (bf16 cache), share of the largest |logit| {scale:.3f}: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in out.items()) + f"; limit {GEMMA_LOGITS_RTOL:g}")
-    bad = [k for k, v in out.items() if (v > GEMMA_LOGITS_RTOL) != ("planted" in k)]
+            del cache
+    log(f"[{label}] map batch's last-position logits through K1 against the dense "
+        f"{'windowed ' if cfg.sliding_window else ''}forward (bf16 cache, a row a "
+        f"forward), share of the largest |logit| "
+        f"{scale:.3f}: " + ", ".join(f"{k} {v:.3e}" for k, v in out.items())
+        + f"; limit {LOGITS_GATE_RTOL:g}")
+    bad = [k for k, v in out.items() if (v > LOGITS_GATE_RTOL) != ("planted" in k)]
     if bad:
-        raise AssertionError(f"gemma3 logits gate: {bad} on the wrong side of the limit: {out}")
+        raise AssertionError(f"{label} logits gate: {bad} on the wrong side of the limit: {out}")
     torch.cuda.empty_cache()
 
 
@@ -2094,7 +2330,7 @@ def phase_gemma(torch) -> dict:
     eager control (captured_and_eager), K1 = 34 x prefill forwards and K2 =
     34 x decode steps exactly, K2p = K3 = GEMV = 0, every batch a
     GEMMA_SHAPES batch that phase 3 checked; then the dense logits gate
-    (gemma_logits_gate) on the control's model and K2p refused at head_dim
+    (logits_gate) on the control's model and K2p refused at head_dim
     256 (gemma_k2p_raises, B4); then, on the same model, path (a)
     (spec_path: the spec pipeline and its oracle, whose references are the
     one-shot's generated ids decoded unstripped), the one-step K3-against-K2
@@ -2113,14 +2349,11 @@ def phase_gemma(torch) -> dict:
     check_exact("gemma3", launches, {"prefill": n_layers * eng["prefill_forwards"],
                                      "decode": n_layers * eng["decode_steps"]},
                 ("prefill", "decode"))
-    batches = {tuple(int(part.split("=")[1]) for part in b.split(",")) for b in eng["by_bucket"]}
-    if not batches <= {(8, S) for S in GEMMA_SHAPES}:
-        raise AssertionError(f"gemma3: batches {sorted(batches)} outside phase 3's "
-                             f"{sorted(GEMMA_SHAPES)} at B=8")
+    check_batches("gemma3", eng)
     log(f"[gemma3] {eng['prefill_forwards']} prefill forwards, {eng['decode_steps']} decode "
         f"steps; generated row 0 begins {run['rows'][0][:8]}")
     t0 = time.perf_counter()
-    gemma_logits_gate(torch, run["eager"], sorted((ROOT / "data/vi_eval/doc").glob("*.txt")))
+    logits_gate(torch, run["eager"], sorted((ROOT / "data/vi_eval/doc").glob("*.txt")), "gemma3")
     log(f"[gemma3] logits gate {time.perf_counter() - t0:.2f}s")
     gemma_k2p_raises(torch)
     model, summaries = run["eager"].model, run["summaries"]
@@ -2142,6 +2375,299 @@ def phase_gemma(torch) -> dict:
     return {k: launches[k] + spec[k] + slot[k] for k in COUNTERS}
 
 
+def check_batches(label: str, eng: dict) -> None:
+    """Every batch of a CLI run's engine record is a (B=8, S) of
+    GEMMA_SHAPES, whose K1 and K2 phase 3 checked for the family."""
+    batches = {tuple(int(part.split("=")[1]) for part in b.split(",")) for b in eng["by_bucket"]}
+    if not batches <= {(8, S) for S in GEMMA_SHAPES}:
+        raise AssertionError(f"{label}: batches {sorted(batches)} outside phase 3's "
+                             f"{sorted(GEMMA_SHAPES)} at B=8")
+
+
+def profile_captured_step(torch, engine, label: str) -> None:
+    """One decode step of ``engine`` (its model, the one-shot path's step
+    function) at the map batch's shape (B=8, from fill 4096, an int8 cache
+    of C = S + 128), recorded as a CUDA graph and replayed, through
+    profile_call: wall, device busy time and the kernels that take it, one
+    K2 kernel of each pass per layer in the replay's trace."""
+    from vnsum_tpu_torch.backend.capture import CapturedStep, decode_buffers, warm_up
+    from vnsum_tpu_torch.core.config import GenerationConfig
+    from vnsum_tpu_torch.models.llama import init_kv_cache
+
+    dev, cfg = engine.device, engine.cfg
+    B, S = 8, 4096
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cur = torch.randint(0, 256, (B,), generator=gen, device=dev)
+    cache = init_kv_cache(cfg, B, S + 128, quantized=True, device=dev)
+    pads = torch.zeros(B, dtype=torch.int32, device=dev)
+    # the buffers hold 128 steps; profile_call's ~45 replays fit
+    buffers = decode_buffers(cur, torch.zeros(B, dtype=torch.bool, device=dev), 128, 0)
+    gcfg = GenerationConfig()
+    with torch.inference_mode():
+        step = engine._decode_step(buffers, cache, pads, S, S + 128, gcfg, 0,
+                                   engine._sampling_setup(gcfg))
+        warm_up(lambda: step(0), dev)
+        graph = CapturedStep(lambda: step(1))
+        profile_call(torch, f"{label} captured decode step (B=8, from fill {S})", graph.replay,
+                     10, cfg.n_layers, True, 0)
+    del graph, step, cache, buffers
+    torch.cuda.empty_cache()
+
+
+def host_memory() -> str:
+    """This process's host memory in GB: resident and the file-backed or
+    shared part of it (a memory-mapped checkpoint's pages), from
+    /proc/self/statm where the kernel reports it, and the process's peak
+    resident (getrusage)."""
+    import resource
+
+    try:
+        pages = Path("/proc/self/statm").read_text().split()
+        size = os.sysconf("SC_PAGE_SIZE") / 1e9
+        now = f"resident {int(pages[1]) * size:.2f} GB ({int(pages[2]) * size:.2f} file-backed)"
+    except (OSError, IndexError, ValueError):
+        now = "resident not reported"
+    return f"{now}, peak {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.2f} GB"
+
+
+def write_phi_checkpoint(torch, model, cfg, out_dir: str) -> dict:
+    """``model`` (float weights) written as a Phi-3/Phi-4 HF checkpoint:
+    ``config.json`` of model_type phi3 and bf16 safetensors, one shard a
+    layer and one for the embeddings, norm and head, with an index. Each
+    layer's q/k/v rows go into ONE ``qkv_proj`` [(H + 2 KV) hd, D] and its
+    gate/up rows into ``gate_up_proj`` [2 I, D], in that order, as
+    Phi3ForCausalLM stores them. The JAX package has no writer of the fused
+    layout, so it lives here. Returns the index it wrote."""
+    from vnsum_tpu_torch.models.convert import INDEX_FILE, _to_hf, write_safetensors
+
+    if model.quantized or cfg.dim != cfg.n_heads * cfg.head_dim or cfg.tie_embeddings or (
+            cfg.qk_norm or cfg.sandwich_norms or cfg.sliding_window
+            or cfg.use_llama3_rope_scaling or cfg.rope_linear_factor):
+        raise ValueError("write_phi_checkpoint takes a float Phi-3 config: plain Llama math, "
+                         "dim = n_heads * head_dim, an untied head")
+    hf_cfg = {
+        "architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.dim,
+        "intermediate_size": cfg.intermediate, "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+        "max_position_embeddings": cfg.max_seq_len,
+        "original_max_position_embeddings": cfg.max_seq_len, "rms_norm_eps": cfg.norm_eps,
+        "rope_theta": cfg.rope_theta, "rope_scaling": None, "hidden_act": "silu",
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        "pad_token_id": 0, "bos_token_id": 1, "eos_token_id": 2,
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+
+    def bf16(t):
+        return t.detach().to(torch.bfloat16).contiguous().cpu()
+
+    p = model.layers
+    shards = []
+    for li in range(cfg.n_layers):
+        pre = f"model.layers.{li}."
+        shards.append({
+            pre + "self_attn.qkv_proj.weight": bf16(torch.cat(
+                [_to_hf(n, p[n][li], cfg) for n in ("wq", "wk", "wv")])),
+            pre + "self_attn.o_proj.weight": bf16(_to_hf("wo", p["wo"][li], cfg)),
+            pre + "mlp.gate_up_proj.weight": bf16(torch.cat(
+                [_to_hf(n, p[n][li], cfg) for n in ("w_gate", "w_up")])),
+            pre + "mlp.down_proj.weight": bf16(_to_hf("w_down", p["w_down"][li], cfg)),
+            pre + "input_layernorm.weight": bf16(p["attn_norm"][li]),
+            pre + "post_attention_layernorm.weight": bf16(p["mlp_norm"][li]),
+        })
+        if li < cfg.n_layers - 1:
+            continue
+        shards.append({"model.embed_tokens.weight": bf16(model.embed),
+                       "model.norm.weight": bf16(model.final_norm),
+                       "lm_head.weight": bf16(model.lm_head.t())})
+    weight_map, total = {}, 0
+    for i, tensors in enumerate(shards):
+        name = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += write_safetensors(tensors, os.path.join(out_dir, name))
+        weight_map.update(dict.fromkeys(tensors, name))
+    index = {"metadata": {"total_size": total}, "weight_map": weight_map}
+    with open(os.path.join(out_dir, INDEX_FILE), "w") as f:
+        json.dump(index, f)
+    return index
+
+
+def phi_checkpoint(torch, prompts: list) -> None:
+    """Phase 6b (5): Phi-4-14B at full width and 2 layers (random bf16
+    weights from seed 0) written in the fused Phi layout
+    (write_phi_checkpoint) and loaded with load_hf_checkpoint onto the
+    card: the config equal to phi4_14b(n_layers=2), every parameter equal,
+    and one map-batch prefill forward (the map ``prompts`` and an all-pad
+    filler row, B=8, S=4096, int8 cache) giving the source model's logits
+    exactly. Logs the write and load seconds, the load's peak device memory
+    and the host's resident memory around it (the fused tensors are
+    sliced as views of the memory-mapped shards: file pages, not copies).
+    The checkpoint is deleted at the end, also on failure."""
+    from vnsum_tpu_torch.backend.base import left_pad_batch
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models.convert import load_hf_checkpoint
+    from vnsum_tpu_torch.models.llama import init_kv_cache, init_model, phi4_14b
+
+    cfg = phi4_14b(n_layers=2)
+    dev = torch.device("cuda")
+    source = init_model(cfg, 0, dev)
+    need = 2 * sum(t.numel() for t in source.parameters())  # bf16 bytes
+    parent = Path(tempfile.gettempdir())
+    if shutil.disk_usage(parent).free < 1.5 * need:
+        parent = ROOT / "chip_weights"  # git-ignored
+        parent.mkdir(exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="vnsum_phi_", dir=parent))
+    try:
+        t0 = time.perf_counter()
+        index = write_phi_checkpoint(torch, source, cfg, str(ckpt))
+        write_s = time.perf_counter() - t0
+        names = index["weight_map"]
+        fused = [k for k in names if k.endswith(("qkv_proj.weight", "gate_up_proj.weight"))]
+        if len(fused) != 2 * cfg.n_layers or any(k.endswith(("q_proj.weight", "up_proj.weight"))
+                                                 and k not in fused for k in names):
+            raise AssertionError(f"phi4 checkpoint: not the fused layout: {sorted(names)}")
+        on_disk = sum(f.stat().st_size for f in ckpt.iterdir())
+        log(f"[phi4 checkpoint] write_phi_checkpoint: {cfg.n_layers} layers at full width, "
+            f"{len(set(names.values()))} shards + index, {index['metadata']['total_size']} "
+            f"tensor bytes ({on_disk} on disk) written to {ckpt.parent} in {write_s:.2f}s "
+            f"({on_disk / write_s / 1e9:.2f} GB/s)")
+
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        host0 = host_memory()
+        t0 = time.perf_counter()
+        lcfg, loaded = load_hf_checkpoint(str(ckpt), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        host1 = host_memory()
+        peak = torch.cuda.max_memory_allocated()
+        largest = max(2 * cfg.intermediate, cfg.vocab_size) * cfg.dim * 2  # bytes
+        log(f"[phi4 checkpoint] load_hf_checkpoint: {load_s:.2f}s ({on_disk / load_s / 1e9:.2f} "
+            f"GB/s), peak device memory {peak / 1e9:.2f} GB, {(peak - resident) / 1e9:.2f} GB "
+            f"above the {resident / 1e9:.2f} GB resident before it (the source model); host "
+            f"memory before it {host0}, after it {host1} (the largest tensor "
+            f"{largest / 1e9:.2f} GB)")
+        if lcfg != cfg:
+            raise AssertionError(f"phi4 checkpoint: loaded config {lcfg} != {cfg}")
+        src, got = source.state_dict(), loaded.state_dict()
+        unequal = sorted(k for k in src if k not in got or not torch.equal(src[k], got[k]))
+        if unequal or src.keys() != got.keys():
+            raise AssertionError(f"phi4 checkpoint: parameters differ from the source: {unequal}")
+
+        B, S, C = 8, 4096, 4096 + FAMILY_NEW
+        logits = {}
+        with torch.inference_mode():
+            for name, m in (("source", source), ("loaded", loaded)):
+                engine = TorchBackend(model=m, tokenizer="byte", batch_size=B,
+                                      max_new_tokens=FAMILY_NEW, device="cuda")
+                tok = engine.tok
+                tokens_np, pads_np = left_pad_batch(tok.encode_batch(prompts, add_bos=True), B,
+                                                    S, tok.pad_id)
+                cache = init_kv_cache(cfg, B, C, quantized=True, device=dev)
+                logits[name] = engine._prefill_forward(
+                    torch.from_numpy(tokens_np).to(dev), torch.from_numpy(pads_np).to(dev), B, S,
+                    C, cache)
+                del engine, cache
+        if not torch.equal(logits["source"], logits["loaded"]):
+            raise AssertionError(
+                "phi4 checkpoint: map-batch prefill logits differ: max |loaded - source| "
+                f"{float((logits['loaded'] - logits['source']).abs().max()):.3e}")
+        log(f"[phi4 checkpoint] config and all {len(src)} parameters equal the source's; "
+            f"map-batch prefill forward (B={B}, S={S}, {len(prompts)} prompts): last-position "
+            f"logits {tuple(logits['source'].shape)} of the loaded model equal the source's "
+            "exactly")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del source, loaded, logits
+    torch.cuda.empty_cache()
+
+
+def phase_phi4(torch) -> dict:
+    """Phi-4-14B at its published width and depth (40 layers, dim 5120,
+    40/10 heads: GQA group 4, head_dim 128, intermediate 17,920, vocab
+    100,352, untied head), random bf16 weights from seed 0, byte tokenizer,
+    FAMILY_NEW new tokens: (1) map-reduce through the CLI and its eager
+    control (captured_and_eager), K1 = 40 x prefill forwards and K2 = 40 x
+    decode steps exactly, K2p = K3 = GEMV = 0, every batch a GEMMA_SHAPES
+    batch that phase 3 checked at group 4; (2) the dense logits gate
+    (logits_gate, a row at a time) on the control's model, and one captured
+    decode step profiled; (3) on the same model path (a) (spec_path: the
+    spec pipeline and its oracle; K3 at Sq * G = 36 rows on every layer)
+    and the one-step K3-against-K2 gate (step_kernel_gate), launches exact;
+    (4) with that model freed, the CLI's map-reduce with --quantize
+    (phase_int8_pipeline: the engine quantizes its bf16 init, as the JAX
+    engine does; GEMV launches = gemv_need exactly), every document ok; (5)
+    the fused checkpoint at 2 layers (phi_checkpoint). Returns the launches
+    of (1), (3) and (4)."""
+    from vnsum_tpu_torch.models import phi4_14b
+
+    n_layers = phi4_14b().n_layers
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    run = captured_and_eager(torch, "phi4:14b", phi4_14b, "phi4", FAMILY_NEW)
+    launches, eng = run["launches"], run["eng"]
+    check_exact("phi4", launches, {"prefill": n_layers * eng["prefill_forwards"],
+                                   "decode": n_layers * eng["decode_steps"]},
+                ("prefill", "decode"))
+    check_batches("phi4", eng)
+    t0 = time.perf_counter()
+    logits_gate(torch, run["eager"], docs, "phi4")
+    profile_captured_step(torch, run["eager"], "phi4")
+    log(f"[phi4] logits gate and profile {time.perf_counter() - t0:.2f}s")
+    model, summaries = run["eager"].model, run["summaries"]
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec, backend, prompts, _ = spec_path(
+        torch, "phi4 spec", "phi4:14b", {"model": model}, FAMILY_NEW, summaries)
+    step_kernel_gate(torch, backend, prompts, "phi4 spec")
+    log(f"[phi4] spec path, oracle and step gate {time.perf_counter() - t0:.2f}s")
+    # no bf16 Phi-4 may stay resident while the int8 run builds its own
+    del backend, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = phase_int8_pipeline(torch, False, "phi4:14b", FAMILY_NEW, eager=False,
+                               path="phi4 int8 pipeline")
+    t0 = time.perf_counter()
+    phi_checkpoint(torch, prompts)
+    log(f"[phi4] fused checkpoint {time.perf_counter() - t0:.2f}s")
+    return {k: launches[k] + spec[k] + int8[k] for k in COUNTERS}
+
+
+def phase_qwen3(torch) -> dict:
+    """Qwen3-8B at its published width and depth (36 layers, dim 4096,
+    32/8 heads: GQA group 4, head_dim 128, QK norm, intermediate 12,288,
+    vocab 151,936, untied head), random bf16 weights from seed 0, byte
+    tokenizer, FAMILY_NEW new tokens: the CLI's map-reduce, decode steps
+    captured (captured_and_eager without the control: its capture and K3
+    shapes are what Llama's and Phi-4's phases check), K1 = 36 x prefill
+    forwards and K2 = 36 x decode steps exactly, every batch a GEMMA_SHAPES
+    batch; then the dense logits gate (a row at a time) on the same seed's
+    model. Returns the CLI run's launches."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models import qwen3_8b
+
+    n_layers = qwen3_8b().n_layers
+    run = captured_and_eager(torch, "qwen3:8b", qwen3_8b, "qwen3", FAMILY_NEW, eager=False)
+    launches, eng = run["launches"], run["eng"]
+    check_exact("qwen3", launches, {"prefill": n_layers * eng["prefill_forwards"],
+                                    "decode": n_layers * eng["decode_steps"]},
+                ("prefill", "decode"))
+    check_batches("qwen3", eng)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = TorchBackend(qwen3_8b(), batch_size=8, max_new_tokens=FAMILY_NEW, device="cuda")
+    logits_gate(torch, engine, sorted((ROOT / "data/vi_eval/doc").glob("*.txt")), "qwen3")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def gemv_need(eng: dict, n_layers: int, act: bool) -> int:
     """The GEMV launches a run's engine record implies: each decode step
     (B <= 8 rows) runs 4 a layer (q/k/v grouped, wo, gate/up grouped,
@@ -2158,34 +2684,36 @@ def gemv_need(eng: dict, n_layers: int, act: bool) -> int:
     return need
 
 
-def phase_int8_pipeline(torch, act: bool) -> dict:
+def phase_int8_pipeline(torch, act: bool, name: str = "llama3.2:3b", max_new: int = 128,
+                        eager: bool = True, path: str = "") -> dict:
     """[int8] (c), and (d) with ``act``: the CLI's map-reduce over
-    data/vi_eval with --quantize (and --quantize-act) on Llama-3.2-3B at
-    full width and depth (random bf16 weights from seed 0, quantized on the
-    card), decode steps captured: every document ok, ROUGE and the
-    embedding metrics computed, K1 = 28 x prefill forwards, K2 = 28 x
-    decode steps and GEMV launches = gemv_need exactly, K2p = K3 = 0; then
-    the same through PipelineRunner on a backend built with
-    cuda_graphs=False, byte-identical summaries. Returns the captured run's
-    launches."""
+    data/vi_eval with --quantize (and --quantize-act) on model ``name``
+    (Llama-3.2-3B) at full width and depth (random bf16 weights from seed 0,
+    quantized on the card, as the JAX engine quantizes its bf16 init),
+    ``max_new`` new tokens, decode steps captured: every document ok, ROUGE
+    and the embedding metrics computed, K1 = n_layers x prefill forwards,
+    K2 = n_layers x decode steps and GEMV launches = gemv_need exactly, K2p
+    = K3 = 0; then, with ``eager``, the same through PipelineRunner on a
+    backend built with cuda_graphs=False, byte-identical summaries. Returns
+    the captured run's launches."""
     from vnsum_tpu_torch.backend.engine import TorchBackend
-    from vnsum_tpu_torch.models import llama32_3b
+    from vnsum_tpu_torch.models import MODEL_REGISTRY
     from vnsum_tpu_torch.pipeline import cli
     from vnsum_tpu_torch.pipeline.runner import PipelineRunner
 
-    path = "w8a8 pipeline" if act else "int8 pipeline"
-    n_layers = llama32_3b().n_layers
+    path = path or ("w8a8 pipeline" if act else "int8 pipeline")
+    n_layers = MODEL_REGISTRY[name]().n_layers
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
 
     def cli_args(out: Path) -> list:
         return [
-            "--approach", "mapreduce", "--models", "llama3.2:3b",
+            "--approach", "mapreduce", "--models", name,
             "--docs-dir", str(ROOT / "data/vi_eval/doc"),
             "--summary-dir", str(ROOT / "data/vi_eval/summary"),
             "--generated-summaries-dir", str(out / "gen"),
             "--results-dir", str(out / "results"),
             "--logs-dir", str(out / "logs"),
-            "--max-new-tokens", "128", "--device", "cuda", "--quantize",
+            "--max-new-tokens", str(max_new), "--device", "cuda", "--quantize",
         ] + (["--quantize-act"] if act else [])
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2201,9 +2729,9 @@ def phase_int8_pipeline(torch, act: bool) -> dict:
         res = json.loads(next((Path(tmp) / "results").glob("pipeline_results_*.json")).read_text())
         if not (res["config"]["quantize"] and res["config"]["quantize_act"] == act):
             raise AssertionError(f"{path}: run record {res['config']}")
-        rec, summaries = check_run(res["results"], docs, Path(tmp) / "gen")
-        rouge = res["results"]["evaluation"]["llama3.2:3b"]["rouge_scores"]
-        eng = res["results"]["engine"]["llama3.2:3b"]
+        rec, summaries = check_run(res["results"], docs, Path(tmp) / "gen", model=name)
+        rouge = res["results"]["evaluation"][name]["rouge_scores"]
+        eng = res["results"]["engine"][name]
         check_captured(path, eng)
         need = {"prefill": n_layers * eng["prefill_forwards"],
                 "decode": n_layers * eng["decode_steps"], "verify": 0, "partials": 0,
@@ -2216,16 +2744,29 @@ def phase_int8_pipeline(torch, act: bool) -> dict:
         log(f"[launches] {path}: " + ", ".join(f"{k} {v}" for k, v in launches.items())
             + " (each exactly as the engine record implies)")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        decode_s = eng["phase_seconds"].get("decode", 0.0)
+        log(f"[int8] {path}: {rec['successful']}/{len(docs)} docs ok, wall {wall:.2f}s, "
+            f"prefill {eng['phase_seconds'].get('prefill', 0.0):.3f}s "
+            f"({eng['prefill_forwards']} forwards), decode {decode_s:.3f}s "
+            f"({eng['decode_steps']} steps: {eng['graph_captures']} captured groups, "
+            f"{eng['captured_steps']} replays, {1e3 * decode_s / eng['decode_steps']:.2f} ms a "
+            f"step), generated tokens {eng['generated_tokens']}, batches {eng['by_bucket']}, "
+            f"peak memory {peak_gb:.2f} GB")
+        log(f"[int8] {path} rouge {json.dumps(rouge)}")
+        if not eager:
+            return launches
+        gc.collect()  # the CLI's engine, before the control builds its own
+        torch.cuda.empty_cache()
 
         cfg = cli.config_from_args(cli.build_parser().parse_args(cli_args(Path(tmp) / "eager")))
-        eager = []
+        controls = []
 
         def factory(_):
-            eager.append(TorchBackend(
-                llama32_3b(), batch_size=cfg.batch_size, max_new_tokens=cfg.max_new_tokens,
-                quantize=cfg.quantize, quantize_act=cfg.quantize_act, cuda_graphs=False,
-                device="cuda"))
-            return eager[-1]
+            controls.append(TorchBackend(
+                MODEL_REGISTRY[name](), batch_size=cfg.batch_size,
+                max_new_tokens=cfg.max_new_tokens, quantize=cfg.quantize,
+                quantize_act=cfg.quantize_act, cuda_graphs=False, device="cuda"))
+            return controls[-1]
 
         t0 = time.perf_counter()
         runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
@@ -2235,9 +2776,9 @@ def phase_int8_pipeline(torch, act: bool) -> dict:
             raise AssertionError(f"{path} eager control failures: {runner.failures}")
         _, eager_summaries = check_run(
             {"summarization": eager_res.summarization, "evaluation": eager_res.evaluation},
-            docs, Path(tmp) / "eager" / "gen")
-        est = eager[0].stats
-        if (not eager[0].model.quantized or est.captured_steps or est.graph_captures
+            docs, Path(tmp) / "eager" / "gen", model=name)
+        est = controls[0].stats
+        if (not controls[0].model.quantized or est.captured_steps or est.graph_captures
                 or est.decode_steps != eng["decode_steps"]):
             raise AssertionError(f"{path} eager control: {est.decode_steps} decode steps, "
                                  f"{est.captured_steps} replayed, {est.graph_captures} captures")
@@ -2245,21 +2786,13 @@ def phase_int8_pipeline(torch, act: bool) -> dict:
             raise AssertionError(f"{path} summaries differ with capture on and off: "
                                  + agreement([eager_summaries[d.name] for d in docs],
                                              [summaries[d.name] for d in docs]))
-    decode_s = eng["phase_seconds"].get("decode", 0.0)
-    log(f"[int8] {path}: {rec['successful']}/{len(docs)} docs ok, wall {wall:.2f}s, prefill "
-        f"{eng['phase_seconds'].get('prefill', 0.0):.3f}s ({eng['prefill_forwards']} "
-        f"forwards), decode {decode_s:.3f}s ({eng['decode_steps']} steps: "
-        f"{eng['graph_captures']} captured groups, {eng['captured_steps']} replays, "
-        f"{1e3 * decode_s / eng['decode_steps']:.2f} ms a step), generated tokens "
-        f"{eng['generated_tokens']}, batches {eng['by_bucket']}, peak memory {peak_gb:.2f} GB")
     log(f"[int8] {path} eager control (cuda_graphs=False): wall {eager_wall:.2f}s, decode "
         f"{est.phase_seconds.get('decode', 0.0):.3f}s ({est.decode_steps} steps); summaries "
         f"byte-identical ({len(docs)}/{len(docs)})")
-    log(f"[int8] {path} rouge {json.dumps(rouge)}")
     return launches
 
 
-# -- phase 6b -----------------------------------------------------------------
+# -- phase 6d -----------------------------------------------------------------
 
 
 def phase_weights(torch, plain_summaries: dict) -> dict:
@@ -2403,7 +2936,7 @@ def phase_weights(torch, plain_summaries: dict) -> dict:
     return launches
 
 
-# -- phase 6c -----------------------------------------------------------------
+# -- phase 6e -----------------------------------------------------------------
 
 
 def bert_state_dict(params: dict) -> dict:
@@ -2546,11 +3079,22 @@ def critique_spy(get_strategy, seen: dict):
     return make
 
 
+# the hierarchical runs' model: Llama-3.2-3B at full width and 14 of its
+# 28 layers. At full depth the eager control alone took ~88 s of the run
+# (1808 host-bound steps); the cut keeps the whole run under half its time
+# limit with Phi-4-14B's and Qwen3-8B's phases in it. The other three runs
+# keep full depth: at 14 layers the random model's summaries are too short
+# for critique's collapse round
+HIERARCHICAL_LAYERS = 14
+
+
 def phase_strategies(torch) -> dict:
-    """The four other approaches through PipelineRunner on one model,
-    captured, each held to K1 = 28 x prefill forwards and K2 = 28 x decode
-    steps exactly and no K2p or K3 launch, every batch at a shape phase 3
-    checked; critique at token_max 16, which must take a collapse round and
+    """The four other approaches through PipelineRunner (Llama-3.2-3B;
+    hierarchical on its own model cut to HIERARCHICAL_LAYERS layers),
+    captured, each held to K1 = n_layers x prefill forwards and K2 =
+    n_layers x decode steps exactly and no K2p or K3 launch, every batch at
+    a shape phase 3 checked; critique at token_max 16, which must take a
+    collapse round and
     the context pass; then hierarchical, whose batches vary most in (B, S),
     on a backend built with cuda_graphs=False, whose summaries must be
     byte-identical. Logs the four captured runs' launches by kernel shape
@@ -2562,15 +3106,17 @@ def phase_strategies(torch) -> dict:
     from vnsum_tpu_torch.pipeline import runner as runner_mod
     from vnsum_tpu_torch.pipeline.runner import PipelineRunner
 
-    cfg3b = llama32_3b()
-    n_layers = cfg3b.n_layers
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
-    model = init_model(cfg3b, 0, torch.device("cuda"))
+    dev = torch.device("cuda")
+    models = {"full": init_model(llama32_3b(), 0, dev),
+              "hierarchical": init_model(llama32_3b(n_layers=HIERARCHICAL_LAYERS), 0, dev)}
     total = dict.fromkeys(COUNTERS, 0)
     by_shape = {"prefill": {}, "decode": {}}
     checked = set(PIPELINE_SHAPES) | set(STRATEGY_SHAPES)
 
     def run(approach: str, out: Path, trees: Path, cuda_graphs="auto"):
+        model = models["hierarchical" if approach == "mapreduce_hierarchical" else "full"]
+        n_layers = model.cfg.n_layers
         argv = [
             "--approach", approach, "--models", "llama3.2:3b",
             "--docs-dir", str(ROOT / "data/vi_eval/doc"),
@@ -2673,7 +3219,7 @@ def phase_strategies(torch) -> dict:
         f"({len(captured)}/{len(docs)})")
     log(f"[strategy] launches by shape, the four captured runs: K1 {by_shape['prefill']}, "
         f"K2 {by_shape['decode']}")
-    del model
+    del models
     torch.cuda.empty_cache()
     return total
 
@@ -3633,6 +4179,70 @@ def long_logits_gate(torch, model, engine, prompts: list) -> None:
 # -- phase 11 -----------------------------------------------------------------
 
 
+def profile_call(torch, name: str, fn, n: int, n_layers: int, captured: bool,
+                 want_gemv: int) -> None:
+    """One ``[profile]`` line for ``fn``: its first call's time, then its
+    wall a call (CUDA events over ``n`` calls), the card's SM clock, power
+    draw and clock-limit reasons (nvidia-smi) while it runs ``n`` more, and
+    from one traced call (torch.profiler) the device's busy time, its
+    kernel count and the kernels that take most of the time. A ``captured``
+    step's trace must show exactly one K2 (or K2p) kernel of each pass per
+    layer, and every trace ``want_gemv`` int8 GEMV kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # the first call on a fresh model and cache, as each pipeline
+    # batch's first forward is: allocator growth, first GEMMs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    wall = time_ms(torch, lambda i: fn(), n=n, reps=3)
+    # the card's clock, power draw and clock-limit reasons, sampled
+    # while it runs n more calls (a power-capped card clocks down)
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks_throttle_reasons.active",
+         "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    card = smi.communicate(timeout=60)[0].strip()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel: dict[str, float] = {}
+    count = gemv_count = 0
+    passes = {"flash_decode_split_kernel": 0, "flash_decode_merge_kernel": 0}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            count += 1
+            us = evt.time_range.elapsed_us()
+            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + us
+            for k in passes:
+                passes[k] += k in evt.name
+            gemv_count += "int8_gemv_kernel" in evt.name
+    busy = sum(by_kernel.values()) / 1e3
+    gemv_ms = sum(v for k, v in by_kernel.items() if "int8_gemv_kernel" in k) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    if captured and passes != dict.fromkeys(passes, n_layers):
+        raise AssertionError(
+            f"{name}: one replay's trace shows {count} device ops and the decode "
+            f"kernel's passes {passes}, expected {n_layers} of each")
+    if gemv_count != want_gemv:
+        raise AssertionError(f"{name}: the trace shows {gemv_count} int8 GEMV "
+                             f"kernels, expected {want_gemv}")
+    busy_txt = (f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}% of wall)"
+                if count else "device busy not measured (no device events)")
+    gemv_txt = (f", int8 GEMV {gemv_count} kernels {gemv_ms:.3f} ms of device time"
+                if gemv_count else "")
+    log(f"[profile] {name}: first call {first:.3f} ms, then wall {wall:.3f} ms, "
+        f"{busy_txt}, {count} device ops, decode kernel passes {passes}{gemv_txt}; "
+        f"card (SM clock, power, limit reasons) {card}; top: "
+        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+
+
 def phase_profile(torch) -> None:
     """Where the main path's time goes, at the map batch's shape (B=8,
     S=4096, int8 cache of the spec path's C = 4096 + 128 + 9) for one
@@ -3649,9 +4259,7 @@ def phase_profile(torch) -> None:
     the time. In one replay of each captured step the trace must show
     exactly one K2 (or K2p) kernel of each pass per layer, and the int8
     step's 113 GEMV kernels (4 a layer and the head), whose device time it
-    logs."""
-    from torch.profiler import ProfilerActivity, profile
-
+    logs (profile_call)."""
     from vnsum_tpu_torch.backend.capture import CapturedStep, decode_buffers, warm_up
     from vnsum_tpu_torch.backend.engine import TorchBackend
     from vnsum_tpu_torch.backend.long_context import long_decode_step, make_long_decode_attention
@@ -3772,59 +4380,9 @@ def phase_profile(torch) -> None:
                 del cache
                 torch.cuda.empty_cache()
                 long_setup()
-            # the first call on a fresh model and cache, as each pipeline
-            # batch's first forward is: allocator growth, first GEMMs
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            first = (time.perf_counter() - t0) * 1e3
-            wall = time_ms(torch, lambda i: fn(), n=n, reps=3)
-            # the card's clock, power draw and clock-limit reasons, sampled
-            # while it runs n more calls (a power-capped card clocks down)
-            smi = subprocess.Popen(
-                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks_throttle_reasons.active",
-                 "--format=csv,noheader"],
-                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
-            )
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            card = smi.communicate(timeout=60)[0].strip()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            by_kernel: dict[str, float] = {}
-            count = gemv_count = 0
-            passes = {"flash_decode_split_kernel": 0, "flash_decode_merge_kernel": 0}
-            for evt in prof.events():
-                if evt.device_type == torch.autograd.DeviceType.CUDA:
-                    count += 1
-                    us = evt.time_range.elapsed_us()
-                    by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + us
-                    for k in passes:
-                        passes[k] += k in evt.name
-                    gemv_count += "int8_gemv_kernel" in evt.name
-            busy = sum(by_kernel.values()) / 1e3
-            gemv_ms = sum(v for k, v in by_kernel.items() if "int8_gemv_kernel" in k) / 1e3
-            top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-            if fn in (captured_decode, captured_int8_decode, captured_long_decode) and (
-                    passes != dict.fromkeys(passes, cfg.n_layers)):
-                raise AssertionError(
-                    f"{name}: one replay's trace shows {count} device ops and the decode "
-                    f"kernel's passes {passes}, expected {cfg.n_layers} of each")
-            want_gemv = 4 * cfg.n_layers + 1 if fn is captured_int8_decode else 0
-            if gemv_count != want_gemv:
-                raise AssertionError(f"{name}: the trace shows {gemv_count} int8 GEMV "
-                                     f"kernels, expected {want_gemv}")
-            busy_txt = (f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}% of wall)"
-                        if count else "device busy not measured (no device events)")
-            gemv_txt = (f", int8 GEMV {gemv_count} kernels {gemv_ms:.3f} ms of device time"
-                        if gemv_count else "")
-            log(f"[profile] {name}: first call {first:.3f} ms, then wall {wall:.3f} ms, "
-                f"{busy_txt}, {count} device ops, decode kernel passes {passes}{gemv_txt}; "
-                f"card (SM clock, power, limit reasons) {card}; top: "
-                + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+            profile_call(torch, name, fn, n, cfg.n_layers,
+                         fn in (captured_decode, captured_int8_decode, captured_long_decode),
+                         4 * cfg.n_layers + 1 if fn is captured_int8_decode else 0)
     del model, long, graphs
     torch.cuda.empty_cache()
 
@@ -3856,6 +4414,10 @@ def main() -> int:
     time_evaluation()
     launches, plain_summaries = timed("pipeline", phase_pipeline, torch)
     gemma_launches = timed("gemma3", phase_gemma, torch)
+    phi4_launches = timed("phi4", phase_phi4, torch)
+    qwen3_launches = timed("qwen3", phase_qwen3, torch)
+    # the group-4 entries count the Phi-4 and Qwen3-8B phases
+    group4_launches = {k: phi4_launches[k] + qwen3_launches[k] for k in COUNTERS}
     int8_launches = timed("int8 pipeline", phase_int8_pipeline, torch, False)
     w8a8_launches = timed("w8a8 pipeline", phase_int8_pipeline, torch, True)
     weights_launches = timed("weights", phase_weights, torch, plain_summaries)
@@ -3874,8 +4436,14 @@ def main() -> int:
     timed("profile", phase_profile, torch)
     kernels = []
     for key, meta in KERNELS.items():
-        # the head_dim-256 entries count the Gemma3 phase's launches
-        n = gemma_launches[key[:-6]] if key.endswith("_hd256") else launches[key]
+        # the head_dim-256 entries count the Gemma3 phase's launches, the
+        # group-4 ones the Phi-4 and Qwen3-8B phases'
+        if key.endswith("_hd256"):
+            n = gemma_launches[key[:-6]]
+        elif key.endswith(("_g4", "_phi4")):
+            n = group4_launches[key.rsplit("_", 1)[0]]
+        else:
+            n = launches[key]
         kernels.append({**meta, "launches": n, "max_abs_err": errs[key], **timing[key]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

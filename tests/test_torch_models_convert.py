@@ -233,13 +233,9 @@ def test_config_from_hf_matches_jax(hf):
     {**LINEAR, "model_type": "phi3"},
 ], ids=["gemma3", "gemma3_multimodal", "phi3"])
 def test_other_families_wait_for_their_port(hf):
-    """Gemma3 (text, and a multimodal config's text_config) loads now, equal
-    to the JAX package's config field by field; Phi-3/Phi-4 still waits for
-    its fused layout (ROADMAP A1)."""
-    if hf.get("model_type") == "phi3":
-        with pytest.raises(NotImplementedError, match="A1"):
-            tc.config_from_hf(hf)
-        return
+    """The families that came after Llama and Qwen3: Gemma3 (text, and a
+    multimodal config's text_config) and Phi-3/Phi-4 load, each equal to
+    the JAX package's config field by field."""
     got, want = tc.config_from_hf(hf), jc.config_from_hf(hf)
     for field in tl.LlamaConfig.__dataclass_fields__:
         if field != "dtype":
@@ -250,6 +246,9 @@ def test_other_families_wait_for_their_port(hf):
     if hf.get("model_type") == "gemma3_text":
         assert got.sandwich_norms and got.norm_plus_one and got.qk_norm
         assert got.act == "gelu_tanh"
+    if hf.get("model_type") == "phi3":  # Llama math: its layout is in the loader alone
+        assert not (got.qk_norm or got.sandwich_norms or got.norm_plus_one or got.sliding_window)
+        assert got.rope_linear_factor == 4.0
 
 
 def test_unknown_rope_scaling_raises():

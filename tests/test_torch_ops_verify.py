@@ -13,6 +13,8 @@ of its block: interpret mode pads a ragged last block with NaN.
 """
 from __future__ import annotations
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,7 +147,7 @@ def hi_lo(p):
 
 
 def kernel_arithmetic(q, cache, layer, pads, fills, G, window=0, split=32, quarter=8, tile=4,
-                      od=128):
+                      od=128, rows=32):
     """K3's function computed the way csrc/flash_verify.cu computes it, with
     its sizes scaled down (512-slot splits of four 128-slot warp ranges of
     16-slot tiles on the card): per tile, QK in f32 over bf16-exact inputs
@@ -155,7 +157,10 @@ def kernel_arithmetic(q, cache, layer, pads, fills, G, window=0, split=32, quart
     ``od`` (at head_dim 256 two warps share a warp range, each with the
     same p and its own 128 dims of o); the warp ranges' (o, m, l) merged
     into the split's partial; the splits merged by log-sum-exp and divided
-    by max(l, 1e-30)."""
+    by max(l, 1e-30). A warp takes at most ``rows`` of the R = Sq * G query
+    rows (row r = s * G + g): above that (R = 36 at GQA group 4) the rows
+    split into halves, each run by its own warps over the same slots and
+    written back to its own rows."""
     B, Sq, H, hd = q.shape
     k, v = cache["k"][layer].float(), cache["v"][layer].float()  # int8 widens exactly
     ks = cache["ks"][layer] if "ks" in cache else None
@@ -171,39 +176,40 @@ def kernel_arithmetic(q, cache, layer, pads, fills, G, window=0, split=32, quart
         return (sum(p[0] * fi[:, None] for p, fi in zip(parts, f)), m,
                 sum(p[2] * fi for p, fi in zip(parts, f)))
 
-    for b in range(B):
-        limit = int(fills[b]) + torch.arange(R) // G  # row r = s * G + g
-        for kv in range(KV):
-            qr = q[b, :, kv * G:(kv + 1) * G].reshape(R, hd).float()
-            splits = []
-            for s0 in range(0, C, split):
-                warps = []
-                for w0 in range(s0, min(s0 + split, C), quarter):
-                    o, m, l = torch.zeros((R, hd)), torch.full((R,), NEG), torch.zeros(R)
-                    for k0 in range(w0, min(w0 + quarter, C), tile):
-                        slots = torch.arange(k0, min(k0 + tile, w0 + quarter, C))
-                        s = qr @ k[b, kv, slots].T * scale_log2
-                        if ks is not None:
-                            s = s * ks[b, kv, slots]
-                        ok = (slots >= int(pads[b])) & (slots <= limit[:, None])
-                        if window:
-                            ok &= slots > limit[:, None] - window
-                        s = torch.where(ok, s, torch.full_like(s, NEG))
-                        m_new = torch.maximum(m, s.amax(1))
-                        corr = torch.exp2(m - m_new)
-                        p = torch.where(ok, torch.exp2(s - m_new[:, None]), torch.zeros_like(s))
-                        l = l * corr + p.sum(1)
-                        if vs is not None:
-                            p = p * vs[b, kv, slots]
-                        hi, lo = hi_lo(p)
-                        o = o * corr[:, None] + torch.cat(
-                            [hi @ v[b, kv, slots, d0:d0 + od] + lo @ v[b, kv, slots, d0:d0 + od]
-                             for d0 in range(0, hd, od)], dim=1)
-                        m = m_new
-                    warps.append((o, m, l))
-                splits.append(merge(warps))
-            o, _, l = merge(splits)
-            out[b, :, kv * G:(kv + 1) * G] = (o / l.clamp_min(1e-30)[:, None]).reshape(Sq, G, hd)
+    for b, kv, r0 in itertools.product(range(B), range(KV), range(0, R, rows)):
+        half = torch.arange(r0, min(R, r0 + rows))  # the rows of one warp (w or w + 4)
+        limit = int(fills[b]) + half // G  # row r = s * G + g
+        qr = q[b, :, kv * G:(kv + 1) * G].reshape(R, hd).float()[half]
+        splits = []
+        for s0 in range(0, C, split):
+            warps = []
+            for w0 in range(s0, min(s0 + split, C), quarter):
+                n = len(half)
+                o, m, l = torch.zeros((n, hd)), torch.full((n,), NEG), torch.zeros(n)
+                for k0 in range(w0, min(w0 + quarter, C), tile):
+                    slots = torch.arange(k0, min(k0 + tile, w0 + quarter, C))
+                    s = qr @ k[b, kv, slots].T * scale_log2
+                    if ks is not None:
+                        s = s * ks[b, kv, slots]
+                    ok = (slots >= int(pads[b])) & (slots <= limit[:, None])
+                    if window:
+                        ok &= slots > limit[:, None] - window
+                    s = torch.where(ok, s, torch.full_like(s, NEG))
+                    m_new = torch.maximum(m, s.amax(1))
+                    corr = torch.exp2(m - m_new)
+                    p = torch.where(ok, torch.exp2(s - m_new[:, None]), torch.zeros_like(s))
+                    l = l * corr + p.sum(1)
+                    if vs is not None:
+                        p = p * vs[b, kv, slots]
+                    hi, lo = hi_lo(p)
+                    o = o * corr[:, None] + torch.cat(
+                        [hi @ v[b, kv, slots, d0:d0 + od] + lo @ v[b, kv, slots, d0:d0 + od]
+                         for d0 in range(0, hd, od)], dim=1)
+                    m = m_new
+                warps.append((o, m, l))
+            splits.append(merge(warps))
+        o, _, l = merge(splits)
+        out[b, half // G, kv * G + half % G] = o / l.clamp_min(1e-30)[:, None]
     return out
 
 
@@ -241,6 +247,48 @@ def test_kernel_arithmetic_matches_jax_kernel(quantized, Sq, window):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 + 2.0**-18 * vmax)
     if Sq == 9:
         assert not got[1, :3].any() and got[1, 3:].any()
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [0, 16])
+def test_kernel_arithmetic_matches_jax_kernel_group4(quantized, window):
+    """Phi-4-14B's spec step at GQA group 4: Sq = 9 queries of 4 heads make
+    R = 36 rows, past one warp's 32, so the kernel's block runs the rows in
+    two halves (warps w and w + 4 over the same slots; kernel_arithmetic's
+    ``rows``). The arithmetic against the JAX kernel as in
+    test_kernel_arithmetic_matches_jax_kernel, at the same limit. The first
+    half holds rows 0-31 (queries 0-7), the second rows 32-35 (query 8);
+    row 1's pad hides every key from its first 3 queries (rows 0-11),
+    which must come out 0."""
+    L, B, KV, C, G, Sq = 2, 2, 2, 64, 4, 9
+    H = KV * G
+    rng = np.random.default_rng(300 + window + quantized)
+    q = bf16_exact(rng.standard_normal((B, Sq, H, HD)).astype(np.float32))
+    k = bf16_exact(rng.standard_normal((L, B, KV, C, HD)).astype(np.float32))
+    v = bf16_exact(rng.standard_normal((L, B, KV, C, HD)).astype(np.float32))
+    if quantized:
+        k8, ks = _quantize_kv(jnp.asarray(k))
+        v8, vs = _quantize_kv(jnp.asarray(v))
+        jc = {"k": k8, "v": v8, "ks": ks, "vs": vs}
+    else:
+        jc = {"k": jnp.asarray(k), "v": jnp.asarray(v)}
+    tc = {n: torch.from_numpy(np.array(a)) for n, a in jc.items()}
+    fills, pads, layer = [20, 30], [0, 33], 1
+    want = np.asarray(jax_verify(
+        jnp.asarray(q), jc, layer, jnp.asarray(pads, jnp.int32), jnp.asarray(fills, jnp.int32),
+        G, None if not window else jnp.int32(window), block_k=16, interpret=True))
+    qt = torch.from_numpy(q)
+    got = kernel_arithmetic(qt, tc, layer, pads, fills, G, window).numpy()
+    vmax = float(tc["v"][layer].float().abs().amax(-1).mul(
+        tc["vs"][layer] if quantized else 1.0).amax())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 + 2.0**-18 * vmax)
+    assert not got[1, :3].any() and got[1, 3:].any()
+    # the halves change no row's arithmetic: one warp over all 36 rows gives
+    # the same values, up to the CPU product's summation order over a 36-
+    # row matrix against a 32- and a 4-row one (~1e-6 here), inside the
+    # limit above
+    whole = kernel_arithmetic(qt, tc, layer, pads, fills, G, window, rows=Sq * G).numpy()
+    np.testing.assert_allclose(got, whole, rtol=0, atol=1e-5)
 
 
 def test_verify_wrapper_refuses_what_the_kernel_does_not_take():

@@ -4,13 +4,13 @@ from .llama import (
     gemma3_4b,
     llama32_1b,
     llama32_3b,
+    phi4_14b,
     qwen3_0p6b,
     qwen3_8b,
     tiny_llama,
 )
 
-# model name -> config factory (names match the JAX package's registry;
-# Phi-4 joins with its fused checkpoint layout, ROADMAP A1)
+# model name -> config factory (names match the JAX package's registry)
 MODEL_REGISTRY = {
     "llama3.2:3b": llama32_3b,
     "llama3.2-3b": llama32_3b,
@@ -22,6 +22,8 @@ MODEL_REGISTRY = {
     "qwen3-0.6b": qwen3_0p6b,
     "gemma3:4b": gemma3_4b,
     "gemma3-4b": gemma3_4b,
+    "phi4:14b": phi4_14b,
+    "phi4-14b": phi4_14b,
     "tiny": tiny_llama,
 }
 
@@ -32,6 +34,7 @@ __all__ = [
     "gemma3_4b",
     "llama32_1b",
     "llama32_3b",
+    "phi4_14b",
     "qwen3_0p6b",
     "qwen3_8b",
     "tiny_llama",

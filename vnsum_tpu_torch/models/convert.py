@@ -21,11 +21,11 @@ Conversion notes, as in the JAX package:
 - Per-layer weights are stacked on a leading ``L`` dim. The stacks are
   filled one layer at a time, so host memory stays near one tensor.
 
-Llama-3.x, Qwen3 (``qk_norm``) and Gemma3 load, Gemma3 as a text
-checkpoint (``Gemma3ForCausalLM``) or from a multimodal one, whose decoder
-config sits under ``text_config`` and its tensors under
-``language_model.``. Phi-3/Phi-4 raise until their fused layout is ported
-(ROADMAP A1).
+Llama-3.x, Qwen3 (``qk_norm``), Gemma3 and Phi-3/Phi-4 load: Gemma3 as a
+text checkpoint (``Gemma3ForCausalLM``) or from a multimodal one, whose
+decoder config sits under ``text_config`` and its tensors under
+``language_model.``; Phi-3/Phi-4 with q/k/v fused into one ``qkv_proj``
+and gate/up into one ``gate_up_proj`` (:func:`phi_fused_getter`).
 """
 from __future__ import annotations
 
@@ -180,7 +180,6 @@ _GEMMA_NORM_KEYS: dict[str, str] = {
 }
 # a multimodal checkpoint's decoder tensors sit under this prefix
 _MULTIMODAL_PREFIX = "language_model."
-_FAMILY_LATER = "(ROADMAP A1: the other model families)"
 
 
 def _layer_keys(cfg: LlamaConfig) -> dict[str, str]:
@@ -194,8 +193,8 @@ def _layer_keys(cfg: LlamaConfig) -> dict[str, str]:
 
 def config_from_hf(hf: Mapping[str, Any], **overrides) -> LlamaConfig:
     """A :class:`LlamaConfig` from a parsed HF ``config.json``: Llama,
-    Qwen3 or Gemma3 (a multimodal one's ``text_config``), with llama3 or
-    linear RoPE scaling."""
+    Qwen3, Gemma3 (a multimodal one's ``text_config``) or Phi-3/Phi-4 with
+    its full rotary dim, with llama3 or linear RoPE scaling."""
     if "text_config" in hf:
         # a multimodal wrapper (Gemma3ForConditionalGeneration): the decoder
         # lives in text_config
@@ -204,10 +203,10 @@ def config_from_hf(hf: Mapping[str, Any], **overrides) -> LlamaConfig:
         hf = inner
     model_type = hf.get("model_type", "llama")
     gemma = model_type.startswith("gemma3")
-    if model_type.startswith("phi3"):
+    if model_type.startswith("phi3") and (hf.get("partial_rotary_factor") or 1.0) != 1.0:
         raise NotImplementedError(
-            "Phi-3/Phi-4 checkpoints (fused qkv_proj and gate_up_proj) load once the "
-            f"Phi family is ported {_FAMILY_LATER}")
+            "partial rotary (phi3-small style) is not supported; Phi-4 uses the full "
+            "rotary dim")
     rope_scaling = hf.get("rope_scaling") or {}
     rope_type = rope_scaling.get("rope_type", rope_scaling.get("type"))
     kw: dict[str, Any] = dict(
@@ -291,6 +290,37 @@ def _to_hf(ours: str, w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return w
 
 
+def phi_fused_getter(get, cfg: LlamaConfig):
+    """Phi-3/Phi-4 checkpoints hold attention as ONE fused ``qkv_proj``
+    [(H + 2 KV) hd, D] (rows q, then k, then v) and the MLP as
+    ``gate_up_proj`` [2 I, D] (gate, then up). The returned getter serves
+    the split q/k/v and gate/up names :func:`convert_hf_state_dict` asks
+    for as row slices of the fused tensors: views of what ``get`` returns
+    (a memory-mapped shard), so no fused tensor is copied whole."""
+    H, KV, hd, I = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.intermediate
+    q_rows, kv_rows = H * hd, KV * hd
+    qkv = {"q_proj": (0, q_rows), "k_proj": (q_rows, q_rows + kv_rows),
+           "v_proj": (q_rows + kv_rows, q_rows + 2 * kv_rows)}
+
+    def fused(name: str) -> torch.Tensor:
+        stem, _, tail = name.rpartition(".")  # "...self_attn.q_proj", "weight"
+        base, _, part = stem.rpartition(".")
+        if base.endswith(".self_attn") and part in qkv:
+            fused_name, rows, (lo, hi) = f"{base}.qkv_proj.{tail}", q_rows + 2 * kv_rows, qkv[part]
+        elif base.endswith(".mlp") and part in ("gate_proj", "up_proj"):
+            fused_name, rows = f"{base}.gate_up_proj.{tail}", 2 * I
+            lo, hi = (0, I) if part == "gate_proj" else (I, 2 * I)
+        else:
+            return get(name)
+        w = get(fused_name)
+        if w.shape[0] != rows:  # a slice of the wrong tensor would load and mislead
+            raise ValueError(f"{fused_name}: {w.shape[0]} rows, the config needs {rows}")
+        return w[lo:hi]
+
+    fused.has = get.has
+    return fused
+
+
 def convert_hf_state_dict(get, cfg: LlamaConfig, device="cuda") -> dict:
     """HF-named tensors (``get(name)``) -> the port's stacked parameters
     at ``cfg.dtype`` on ``device``, in the layout of
@@ -343,7 +373,7 @@ def load_hf_checkpoint(
     if not get.has(probe):
         if not get.has(_MULTIMODAL_PREFIX + probe):
             raise KeyError(f"neither {probe!r} nor {_MULTIMODAL_PREFIX + probe!r} is in a shard "
-                           f"of {model_dir}: not a Llama/Qwen3/Gemma3 text or multimodal "
+                           f"of {model_dir}: not a Llama/Qwen3/Gemma3/Phi text or multimodal "
                            "checkpoint layout")
         # a multimodal checkpoint: the decoder's tensors under the prefix
         # (the vision tower's are never asked for)
@@ -354,8 +384,7 @@ def load_hf_checkpoint(
 
         get.has = lambda name: inner.has(_MULTIMODAL_PREFIX + name)
     if get.has("model.layers.0.self_attn.qkv_proj.weight"):
-        raise NotImplementedError(f"{model_dir} has fused qkv_proj weights (the Phi layout), "
-                                  f"which load once the Phi family is ported {_FAMILY_LATER}")
+        get = phi_fused_getter(get, cfg)  # the Phi-3/Phi-4 layout
     return cfg, LlamaModel(cfg, convert_hf_state_dict(get, cfg, device))
 
 

@@ -127,6 +127,19 @@ def gemma3_4b(**kw) -> LlamaConfig:
     return LlamaConfig(**base)
 
 
+def phi4_14b(**kw) -> LlamaConfig:
+    """Phi-4 decoder: Llama math (no QK norm, no window, untied head);
+    its checkpoints fuse q/k/v and gate/up (``models/convert.py``)."""
+    base = dict(
+        vocab_size=100_352, dim=5120, n_layers=40, n_heads=40,
+        n_kv_heads=10, head_dim=128, intermediate=17_920,
+        rope_theta=250_000.0, use_llama3_rope_scaling=False,
+        norm_eps=1e-5, max_seq_len=16_384, tie_embeddings=False,
+    )
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
 def qwen3_0p6b(**kw) -> LlamaConfig:
     base = dict(
         vocab_size=151_936, dim=1024, n_layers=28, n_heads=16, n_kv_heads=8,
@@ -187,8 +200,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> 
     def leaf(name, shape):
         if name.endswith("norm"):
             return norm_init(shape, dtype=cfg.dtype, device=device)
+        # scaled in place: at Phi-4's widths one f32 leaf is 14.7 GB
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-        return (w * 0.02).to(cfg.dtype)
+        return w.mul_(0.02).to(cfg.dtype)
 
     tree = {k: leaf(k, v) for k, v in shapes.items() if k != "layers"}
     tree["layers"] = {k: leaf(k, v) for k, v in shapes["layers"].items()}

@@ -24,6 +24,7 @@ import torch
 from . import kernels
 
 NEG = -1e30
+REF_TEMP_BYTES = 2**31  # the plain version's largest f32 score temporary
 HEAD_DIM = 128  # the head_dim every CUDA kernel takes, and the only one K2p takes
 # the head_dims K1, K2 and K3 take (256: Gemma3); K2p takes HEAD_DIM only
 HEAD_DIMS = (128, 256)
@@ -76,21 +77,29 @@ def attention_ref(q, k, v, ks, vs, mask, p_dtype):
     G = H // KV
     scale = 1.0 / (hd ** 0.5)
     out = torch.empty_like(q)
+    # one row at a time, and of a row as many KV heads as keep each f32
+    # [heads, G, S, C] temporary within REF_TEMP_BYTES (a map-batch row of
+    # Phi-4, 40 query heads, is 2.7 GB); heads never mix, so this is the
+    # same function
+    step = max(1, min(KV, REF_TEMP_BYTES // (G * S * C * 4)))
     for b in range(B):
-        qg = q[b].float().reshape(S, KV, G, hd).permute(1, 2, 0, 3)    # [KV, G, S, hd]
-        s = torch.matmul(qg, k[b].float()[:, None].transpose(-1, -2)) * scale
-        if ks is not None:
-            s = s * ks[b][:, None, None, :]
-        live = mask[b][None, None]                                     # [1, 1, S, C]
-        s = torch.where(live, s, torch.full_like(s, NEG))
-        m = s.amax(dim=-1, keepdim=True)
-        p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
-        l = p.sum(dim=-1, keepdim=True)
-        if vs is not None:
-            p = p * vs[b][:, None, None, :]
-        p = p.to(p_dtype).float()
-        o = torch.matmul(p, v[b].float()[:, None]) / l.clamp_min(1e-30)  # [KV, G, S, hd]
-        out[b] = o.permute(2, 0, 1, 3).reshape(S, H, hd).to(q.dtype)
+        for h0 in range(0, KV, step):
+            h = slice(h0, min(KV, h0 + step))
+            qg = q[b].float().reshape(S, KV, G, hd)[:, h].permute(1, 2, 0, 3)  # [kv, G, S, hd]
+            s = torch.matmul(qg, k[b, h].float()[:, None].transpose(-1, -2)) * scale
+            if ks is not None:
+                s = s * ks[b, h][:, None, None, :]
+            live = mask[b][None, None]                                     # [1, 1, S, C]
+            s = torch.where(live, s, torch.full_like(s, NEG))
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.where(live, torch.exp(s - m), torch.zeros_like(s))
+            l = p.sum(dim=-1, keepdim=True)
+            if vs is not None:
+                p = p * vs[b, h][:, None, None, :]
+            p = p.to(p_dtype).float()
+            o = torch.matmul(p, v[b, h].float()[:, None]) / l.clamp_min(1e-30)  # [kv, G, S, hd]
+            out[b, :, h.start * G : h.stop * G] = (
+                o.permute(2, 0, 1, 3).reshape(S, -1, hd).to(q.dtype))
     return out
 
 
