@@ -22,7 +22,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    judge's batches (B = 2 and 8 by S = 1024 and 2048, JUDGE_SHAPES): K1 at
    C = S for score_choices, K1 and K2 (fills S and C-1) at C = S + 256 for
    the free-decode judge, bf16 and int8, ragged pads, two all-pad filler
-   rows at B = 8 (phase 7b fails on a batch outside them); the verify kernel at the spec path's shape (B=8, Sq=9,
+   rows at B = 8 (phase 7b fails on a batch outside them); K1 at the
+   prefix cache's resume shapes (B=8, S=4096, C=4224, Sq = S - K queries at
+   q_offset K = 512, 2048 and 3584 over seeded slots [0, K), bf16 and
+   int8, rows starting before and after K and an all-pad filler row; and at
+   head_dim 256 with Gemma3's window at K = 3584); the verify kernel at the spec path's shape (B=8, Sq=9,
    C=4096+128+9, ragged fills on both sides of a split boundary, a row
    parked at the budget, a row whose pad hides every key from its first
    queries, a window) and at the slot segment's (B=8, Sq=1, C=4224, a
@@ -87,7 +91,8 @@ Phases, each raising on failure (so any failure exits non-zero):
    fail their cases as well;
 5. timing at the main path's shapes (Llama-3.2-3B: L=28, H=24, KV=8,
    hd=128; prefill B=8 S=4096 C=4224, decode B=8 C=4224 fill=4200; verify
-   B=8 Sq=9 C=4233 and B=8 Sq=1 C=4224): the kernel, the bound (bytes over
+   B=8 Sq=9 C=4233 and B=8 Sq=1 C=4224; K1 at the prefix cache's resume
+   shape, Sq=512 at q_offset 3584, C=4224): the kernel, the bound (bytes over
    3.35 TB/s or FLOP over the peak rate of the unit that does them, from
    this run's inputs; K2's, K2p's and K3's products on bf16 tensor cores,
    PV counted twice for its hi/lo halves), the two passes of K2, K2p and
@@ -210,7 +215,7 @@ Phases, each raising on failure (so any failure exits non-zero):
    (chunk_size 1024, 128 new tokens; critique at token_max 16, which must
    take at least one collapse round and the token_max // 2 context pass)
    on Llama-3.2-3B at full width and depth, hierarchical at full width and
-   14 of its 28 layers (HIERARCHICAL_LAYERS; random bf16 weights from seed
+   4 of its 28 layers (HIERARCHICAL_LAYERS; random bf16 weights from seed
    0), batch 8, int8 KV cache, decode steps captured: every document ok,
    ROUGE computed, K1 launches = n_layers x prefill forwards and K2
    launches = n_layers x decode steps exactly, K2p and K3 not
@@ -260,6 +265,26 @@ Phases, each raising on failure (so any failure exits non-zero):
    prompts in two waves and drained, at fused_segments 1 and 4: every
    request completes, K1 and K3 launches exactly 28 x the join groups'
    prefill forwards and x the decode steps run;
+9b. prefix cache (ROADMAP A8): TorchBackend(cache_blocks=...) on the same
+   model, the map batch's prompts (built as the pipeline builds them), the
+   arms of the JAX package's A/B: uncached (the cache off), cold (an empty
+   512-block pool), warm (the same call: every row resumes at K = 3584, K1
+   at q_offset 3584 over the gathered blocks), hinted (a fresh pool, the map
+   template's header as the hint, twice), post-eviction (a 64-block pool,
+   cold then warm: evictions), pipeline (map-reduce through PipelineRunner
+   on the warm backend, the strategies' own hints: every document ok, the
+   map call resumes). Each call's launches exactly 28 x its prefill
+   forwards (K1) and decode steps (K2, captured), K2p = K3 = GEMV = 0; its
+   per-prompt report, hit and miss counters and pool stats consistent, no
+   pin left; the warm call's gathered slots [pad_r, K) equal the cold
+   call's cache bit for bit; its last-position logits within
+   RESUME_LOGITS_RTOL of the cold call's, and the resume over an unseeded
+   cache (planted in the script's own call) beyond it. Then the slot loop with a
+   512-block pool: 3 map prompts, drained, then the same 3, whose join
+   resumes (cached tokens > 0 at K = 3584), K1 and K3 launches exact.
+   ``[cache]`` lines log each arm's hit and miss tokens, prefill, gather
+   and insert seconds, the pool's bytes and peak memory; agreement with the
+   uncached arm is logged, not gated;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -298,10 +323,11 @@ replay of a captured step adds the launches its capture counted
 (``vnsum_tpu_torch/backend/capture.py``), so the counts are those of the
 steps run. The
 line before the last is a JSON object with one entry per kernel (K1, K2
-and K3 at head_dim 256 and at GQA group 4, and the GEMV at Phi-4's
-widths, entries of their own), whose ``launches`` sums the path phases
-(the head_dim-256 entries: the Gemma3 phase's; the group-4 and Phi-4
-ones: the Phi-4 and Qwen3-8B phases'); the last line
+and K3 at head_dim 256 and at GQA group 4, K1 at the prefix cache's
+resume shape, and the GEMV at Phi-4's widths, entries of their own), whose
+``launches`` sums the path phases (the head_dim-256 entries: the Gemma3
+phase's; the group-4 and Phi-4 ones: the Phi-4 and Qwen3-8B phases'; the
+resume entry: K1's launches in phase 9b's resumed prefill forwards); the last line
 is the device record. A ``[phase]`` line after each phase gives its
 seconds and the run's so far.
 Without a card the script exits non-zero and prints neither.
@@ -537,6 +563,15 @@ KERNELS = {
         "source": "vnsum_tpu_torch/ops/csrc/flash_verify.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:510",
     },
+    # K1 at the prefix cache's resume shape (B=8, Sq=512 at q_offset 3584,
+    # C=4224, int8): the kernel of the "prefill" entry at another shape;
+    # launches those of the resumed prefill forwards (phase 9b)
+    "prefill_resume": {
+        "name": "flash_prefill_attention (prefix-cache resume, q_offset 3584)",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_prefill.cu",
+        "replaces": "vnsum_tpu/ops/flash_attention.py:313",
+    },
     # a port-only kernel: the JAX package's int8 product is XLA's fusion in
     # _proj (its int8 einsum's line), no pallas_call
     "gemv": {
@@ -734,6 +769,10 @@ STRATEGY_SHAPES = tuple((B, S) for B in (1, 2, 4, 8) for S in (512, 1024, 2048, 
 # the JAX package as here
 JUDGE_SHAPES = tuple((B, S) for B in (2, 8) for S in (1024, 2048))
 JUDGE_NEW_TOKENS = 256
+# the prefix cache's resumed prefill (phase 9b): the query offsets K at
+# which a map batch (S = 4096, C = 4224) resumes, on the grid's 512-slot
+# steps, the last a warm call's (RESUME_K); S - K queries a row
+RESUME_OFFSETS = (512, 2048, 3584)
 # the Gemma3 phase's batches: its map and reduce batches (the byte
 # tokenizer's, as the pipeline phase's), with their pads: 7 documents and an
 # all-pad filler row
@@ -821,6 +860,7 @@ def phase_correctness(torch) -> dict:
     H = KV * G
     worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0, "partials": 0.0, "gemv": 0.0,
              "prefill_hd256": 0.0, "decode_hd256": 0.0, "verify_hd256": 0.0,
+             "prefill_resume": 0.0,
              "prefill_g4": 0.0, "decode_g4": 0.0, "verify_g4": 0.0, "gemv_phi4": 0.0}
 
     def pads_of(values):
@@ -887,6 +927,33 @@ def phase_correctness(torch) -> dict:
                 decode(f"int8={quantized} B={B} C={C} fill={fill} layer={layer} "
                        "(pipeline batch)", qd, cache, layer, pads, fill, 0)
             del cache, q, qd
+    # the prefix cache's resumed prefill (phase 9b): the map batch's S - K
+    # queries at q_offset K over a cache whose slots [0, K) hold seeded
+    # values (the gathered blocks), at each of RESUME_OFFSETS, bf16 and
+    # int8; rows 0-3 start before K (row 3 one slot before it), rows 4-6
+    # after it (no blocks: the whole prompt in [K, S); row 4's first query
+    # sees no key), row 7 is the all-pad filler. Then K1 at head_dim 256 at
+    # the warm K with Gemma3's window, whose floor (q - 1023) falls inside
+    # the gathered span for the first 1023 queries
+    S, C = 4096, 4096 + 128
+    for K in RESUME_OFFSETS:
+        pads_h = [0, 37, K - 300, K - 1, K + 1, K + 200, S - 1, S]
+        for quantized in (True, False):
+            cache = make_cache(torch, 2, 8, KV, C, hd, quantized, 150 + K + quantized, dev)
+            prefill(f"int8={quantized} B=8 S={S} C={C} q_offset={K} layer=1 (prefix-cache "
+                    "resume)", rand_q(torch, (8, S - K, H, hd), 151 + K, dev), cache, 1,
+                    pads_of(pads_h), 0, K, empty_row=7, key="prefill_resume")
+            del cache
+    K = RESUME_OFFSETS[-1]
+    for quantized in (True, False):
+        cache = make_cache(torch, 2, 8, GEMMA_KV, C, GEMMA_HD, quantized, 160 + quantized, dev)
+        prefill(f"hd=256 int8={quantized} B=8 S={S} C={C} q_offset={K} window={GEMMA_WINDOW} "
+                "layer=1 (gemma3 prefix-cache resume)",
+                rand_q(torch, (8, S - K, GEMMA_KV * GEMMA_G, GEMMA_HD), 161, dev), cache, 1,
+                pads_of([0, 37, K - 300, K - 1, K + 1, K + 200, S - 1, S]), GEMMA_WINDOW, K,
+                empty_row=7, g=GEMMA_G, key="prefill_hd256")
+        del cache
+    torch.cuda.empty_cache()
     # the strategies' other batches: a round of fewer than 8 prompts
     # buckets B to 1, 2 or 4, and their prompts to S = 512-4096; a partial
     # group packs all-pad filler rows, as the last row here
@@ -1379,14 +1446,12 @@ def phase_mutants(n_cases: int) -> None:
     copies build and run four at a time: each holds 10-15 GB of caches at
     its peak, and with five at once one copy stopped short of its last
     cases in one run. Each copy starts from the kernels phase 2 built, so
-    it compiles only the source its fault is planted in."""
+    it compiles only the source its fault is planted in; all copies compile
+    at once (nvcc alone, no card) before the first runs."""
     results = []
     with tempfile.TemporaryDirectory() as root:
-        procs = []
+        copies = []
         for i, (what, kernel, source, text, replacement) in enumerate(MUTANTS):
-            if len(procs) == 4:
-                results += [p.communicate(timeout=600) + (p.returncode,) for p in procs]
-                procs = []
             tmp = Path(root) / str(i)
             shutil.copytree(ROOT / "vnsum_tpu_torch", tmp / "vnsum_tpu_torch",
                             ignore=shutil.ignore_patterns("*.tmp", "__pycache__"))
@@ -1396,6 +1461,20 @@ def phase_mutants(n_cases: int) -> None:
             if code.count(text) != 1:
                 raise AssertionError(f"planted fault '{what}': its text is not once in {source}")
             cu.write_text(code.replace(text, replacement))
+            copies.append(tmp)
+        builds = [subprocess.Popen(
+            [sys.executable, "-c", "from vnsum_tpu_torch.ops import kernels; kernels.build_all()"],
+            cwd=tmp, env={**os.environ, "PYTHONPATH": str(tmp)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for tmp in copies]
+        for (what, *_), p in zip(MUTANTS, builds):
+            out = p.communicate(timeout=600)[0]
+            if p.returncode != 0:
+                raise AssertionError(f"planted fault '{what}' did not build:\n{out[-4000:]}")
+        procs = []
+        for tmp in copies:
+            if len(procs) == 4:
+                results += [p.communicate(timeout=600) + (p.returncode,) for p in procs]
+                procs = []
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", "import torch, chip_smoke as c; "
                  "c.phase_environment(torch); c.phase_build(); c.phase_correctness(torch)"],
@@ -1462,6 +1541,9 @@ def phase_timing(torch, worst) -> dict:
     out["prefill"], out["decode"] = time_prefill_decode(
         torch, worst, "", cache, (k_lib, v_lib), rand_q(torch, (B, S, H, hd), 5, dev),
         rand_q(torch, (B, 1, H, hd), 6, dev), pads_h, fill, G, 0)
+    # K1 at the prefix cache's resume shape on the same cache
+    out["prefill_resume"] = time_resume_prefill(torch, worst, cache, (k_lib, v_lib), pads_h, G,
+                                                RESUME_OFFSETS[-1])
 
     # verify at the slot segment's shape on the same cache (Sq=1, C=4224,
     # fills S + t_b), then at the spec path's (Sq=9, C=4233, fills S + e_b)
@@ -1593,6 +1675,43 @@ def time_prefill_decode(torch, worst, tag: str, cache, lib, q, qd, pads_h, fill,
             "(timing inputs)", da.flash_decode_attention(qd, cache, L - 1, pads, fill, G, window),
             da.flash_decode_attention_ref(qd, cache, L - 1, pads, fill, G, window), worst)
     return pre, dec
+
+
+def time_resume_prefill(torch, worst, cache, lib, pads_h, G, K: int) -> dict:
+    """K1 at the prefix cache's resume shape: the map batch's last S - K
+    queries a row at q_offset K (B=8, S=4096, Sq=512 at K=3584, C=4224, the
+    int8 cache's layers in turn): the kernel, its plain version, the
+    library call (scaled_dot_product_attention with the explicit mask on
+    the bf16 copy ``lib``, K/V expanded to the query heads) and the bound
+    of what these inputs need (each visible K/V slot and scale read once per
+    KV head, from the pad on; q read and the output written once; K1's 4 hd
+    FLOP per visible (query head, slot) pair). One output is held against
+    the plain version as in phase 3 (``worst["prefill_resume"]``)."""
+    from vnsum_tpu_torch.ops import flash_attention as fa
+
+    L, B, KV, C, hd = cache["k"].shape
+    S, H, dev = 4096, KV * G, cache["k"].device
+    q = rand_q(torch, (B, S - K, H, hd), 12, dev)
+    pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
+    kpos, qpos = torch.arange(C, device=dev), K + torch.arange(S - K, device=dev)
+    mask = ((kpos[None, None, :] >= pads.long()[:, None, None])
+            & (kpos[None, None, :] <= qpos[None, :, None]))[:, None]
+    pairs = sum(qq - p + 1 for p in pads_h for qq in range(max(p, K), S))
+    flops = 4 * hd * H * pairs
+    bytes_ = 2 * q.numel() * 2 + 2 * sum(S - p for p in pads_h) * KV * (hd + 4)
+    k_lib, v_lib = lib
+    qt = q.transpose(1, 2)
+    ms = time_ms(torch, lambda i: fa.flash_prefill_attention(q, cache, i % L, pads, G, 0, K),
+                 n=2 * L)
+    plain = time_ms(torch, lambda i: fa.flash_prefill_attention_ref(
+        q, cache, i % L, pads, G, 0, K), n=1, reps=3)
+    library = time_ms(torch, lambda i: torch.nn.functional.scaled_dot_product_attention(
+        qt, k_lib[i % len(k_lib)], v_lib[i % len(k_lib)], attn_mask=mask), n=2 * len(k_lib))
+    compare(torch, "prefill_resume", f"prefill int8=True B={B} S={S} C={C} q_offset={K} "
+            f"layer={L - 1} (prefix-cache resume, timing inputs)",
+            fa.flash_prefill_attention(q, cache, L - 1, pads, G, 0, K),
+            fa.flash_prefill_attention_ref(q, cache, L - 1, pads, G, 0, K), worst)
+    return timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
 
 
 def time_gemma_kernels(torch, worst) -> dict:
@@ -3079,13 +3198,14 @@ def critique_spy(get_strategy, seen: dict):
     return make
 
 
-# the hierarchical runs' model: Llama-3.2-3B at full width and 14 of its
+# the hierarchical runs' model: Llama-3.2-3B at full width and 4 of its
 # 28 layers. At full depth the eager control alone took ~88 s of the run
-# (1808 host-bound steps); the cut keeps the whole run under half its time
-# limit with Phi-4-14B's and Qwen3-8B's phases in it. The other three runs
-# keep full depth: at 14 layers the random model's summaries are too short
-# for critique's collapse round
-HIERARCHICAL_LAYERS = 14
+# (1808 host-bound steps), at 14 layers 49.5 s; the cut keeps the whole run
+# under half its time limit with Phi-4-14B's, Qwen3-8B's and the prefix
+# cache's phases in it (646 s of command with 14 layers, PERF.md). The
+# other three runs keep full depth: at 14 layers the random model's
+# summaries are too short for critique's collapse round
+HIERARCHICAL_LAYERS = 4
 
 
 def phase_strategies(torch) -> dict:
@@ -3930,6 +4050,420 @@ def slot_loop(torch, model, prompts: list, oneshot: list, label: str, max_new: i
     return total
 
 
+# -- phase 9b -----------------------------------------------------------------
+
+# the prefix cache phase (ROADMAP A8): the arms' pool sizes and block width.
+# 512 blocks hold the map batch's 321 cold blocks (1.94 GB at Llama-3.2-3B's
+# int8 cache); 64 force evictions
+CACHE_BLOCKS, CACHE_EVICT_BLOCKS, CACHE_BLOCK_TOKENS = 512, 64, 64
+# a warm map batch's resume boundary: S = 4096 takes the grid's 512-slot
+# steps, and a warm row's uncovered suffix is at most one 64-token block
+RESUME_K = RESUME_OFFSETS[-1]
+# the resume gate: the warm call's last-position logits (K1 at q_offset K
+# over the gathered blocks; the [K, S) forward's GEMMs at [8 x 512] rows)
+# against the cold call's (the whole prompt; [8 x 4096] rows), as max
+# |warm - cold| over the document rows and the vocab divided by the largest
+# |cold| logit. The prefix K/V are the same bits (the gathered-prefix
+# gate); the forwards differ in the GEMMs' tiling: bf16 roundings carried
+# through 28 layers (2.3e-2 on an H100), as in the spec gates, whose limit
+# this is. The planted fault, the resume forward over a cache the gather
+# never seeded (what a stale cache object would give), must exceed it; a
+# gather one block late read 6.3e-2 on an H100, inside the limit: shifted
+# positions and one zeroed block move random weights' logits little
+# (PERF.md).
+RESUME_LOGITS_RTOL = 0.1
+
+
+def map_batch(backend) -> tuple[list, str]:
+    """The map batch's prompts over data/vi_eval, built as the pipeline
+    builds them (mapreduce's splitter and map template, on ``backend``'s
+    tokenizer), and the template's header: the strategy's cache hint."""
+    from vnsum_tpu_torch.core.config import PipelineConfig
+    from vnsum_tpu_torch.strategies import get_strategy
+    from vnsum_tpu_torch.strategies.prompts import template_header
+
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    cfg = PipelineConfig(approach="mapreduce", models=["llama3.2:3b"], max_new_tokens=128)
+    strategy = get_strategy("mapreduce", backend, cfg)
+    prompts = [strategy.map_prompt.format(content=c)
+               for d in docs for c in strategy.splitter.split_text(d.read_text(encoding="utf-8"))]
+    return prompts, template_header(strategy.map_prompt)
+
+
+def spy_cache(torch, b) -> dict:
+    """Hooks ``b``'s resume, group, prefill and pool-write steps; returns
+    the record they fill: each group's prompt order and resume boundary K,
+    each prefill's last-position logits by prompt and the K1 launches of
+    resumed forwards. With ``state["keep"]``, each group's final cache rows
+    by prompt ({prompt: (cache row, pad)}) and the row and slot each new
+    pool block was copied from. With a kept call's record as
+    ``state["reference"]`` (rows, writers), a resumed group checks its
+    gathered slots: every block a row gathers, at slots pad_r + j * BLK,
+    must equal bit for bit the reference call's cache where that block was
+    copied from (the row that inserted it: a block shared by several
+    prompts, as the template header's, is written once). Each resumed
+    group appends (rows checked, rows whose slots [pad_r, K) also equal
+    their own reference row's, blocks checked, blocks unequal)."""
+    from vnsum_tpu_torch.ops import flash_attention
+
+    state = {"groups": [], "K": [], "gathered": [], "logits": [], "caches": [],
+             "writers": {}, "resume_launches": 0, "reference": None, "keep": False}
+    prepare, run_group, forward = b._prepare_resume, b._run_group, b._prefill_forward
+    store = b.prefix_cache.store if b.prefix_cache else None
+
+    def spy_prepare(group, encoded, matches, pad_lens, B, S, max_new):
+        res = prepare(group, encoded, matches, pad_lens, B, S, max_new)
+        state["groups"].append(list(group))
+        state["K"].append(res[0] if res else 0)
+        if res is not None and state["reference"] is not None:
+            K, cache = res[:2]
+            rows, writers = state["reference"]
+            BLK = store.block_tokens
+            checked = own = blocks = bad = 0
+            for r, i in enumerate(group):
+                pad = int(pad_lens[r])
+                if pad >= K:
+                    continue
+                checked += 1
+                own += all(torch.equal(cache[n][:, r, :, pad:K], rows[i][0][n][:, :, pad:K])
+                           for n in cache)
+                for j, block in enumerate(matches[i].blocks[: -(-(K - pad) // BLK)]):
+                    src, slot = writers[block]
+                    lo = pad + j * BLK
+                    blocks += 1
+                    bad += not all(torch.equal(cache[n][:, r, :, lo:lo + BLK],
+                                               rows[src][0][n][:, :, slot:slot + BLK])
+                                   for n in cache)
+            state["gathered"].append((checked, own, blocks, bad))
+        return res
+
+    def spy_run(*args, **kw):
+        out, cache = run_group(*args, **kw)
+        if state["keep"]:
+            group = state["groups"][-1]
+            state["caches"].append({i: ({n: t[:, r].clone() for n, t in cache.items()},
+                                        int(args[1][r])) for r, i in enumerate(group)})
+        return out, cache
+
+    def spy_forward(tokens, pad_lens, B, S, C, cache, start=0):
+        n0 = flash_attention.launches
+        logits = forward(tokens, pad_lens, B, S, C, cache, start)
+        if start:
+            state["resume_launches"] += flash_attention.launches - n0
+        if state["groups"]:
+            state["logits"].append({i: logits[r, -1].float().clone()
+                                    for r, i in enumerate(state["groups"][-1])})
+        return logits
+
+    b._prepare_resume, b._run_group, b._prefill_forward = spy_prepare, spy_run, spy_forward
+    if store is not None:
+        write_blocks = store.write_blocks
+
+        def spy_write(cache, rows, slots, block_ids):
+            if state["keep"]:
+                group = state["groups"][-1]
+                state["writers"].update({blk: (group[r], s)
+                                         for r, s, blk in zip(rows, slots, block_ids)})
+            return write_blocks(cache, rows, slots, block_ids)
+
+        store.write_blocks = spy_write
+    return state
+
+
+def cache_arm(torch, b, label: str, prompts: list, hints, spy) -> dict:
+    """One generate call of ``prompts`` on ``b``: launches exactly
+    n_layers x the call's prefill forwards (K1) and decode steps (K2), no
+    other kernel; its decode steps captured; with the prefix cache on, the
+    per-prompt report, the hit and miss counters and the index's stats
+    consistent with one another, no pin left. Logs hits, misses, prefill,
+    gather and insert seconds, the pool's bytes, peak memory and K."""
+    st, n_layers = b.stats, b.cfg.n_layers
+    before = {k: getattr(st, k) for k in (
+        "prefill_forwards", "decode_steps", "captured_steps", "graph_captures",
+        "cache_hit_tokens", "cache_miss_tokens", "prompt_tokens")}
+    phases = dict(st.phase_seconds)
+    pc = b.prefix_cache
+    lookups0 = pc.index.stats.lookups if pc else 0
+    n_groups = len(spy["K"]) if spy else 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    texts = b.generate(prompts, cache_hints=None if hints is None else [hints] * len(prompts))
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    report = b.take_cache_report()
+    d = {k: getattr(st, k) - v for k, v in before.items()}
+    check_exact(f"prefix cache {label}", launches, {
+        "prefill": n_layers * d["prefill_forwards"], "decode": n_layers * d["decode_steps"]},
+        ("prefill", "decode"))
+    check_captured(f"prefix cache {label}", {"captured_steps": d["captured_steps"],
+                                             "graph_captures": d["graph_captures"],
+                                             "decode_steps": d["decode_steps"]})
+    secs = {k: st.phase_seconds.get(k, 0.0) - phases.get(k, 0.0)
+            for k in ("prefill", "decode", "cache_gather", "cache_insert")}
+    K = spy["K"][n_groups:] if spy else []
+    stats = pc.stats_dict() if pc else None
+    if pc is not None and (
+            len(report) != len(prompts) or sum(report) != d["cache_hit_tokens"]
+            or d["cache_hit_tokens"] + d["cache_miss_tokens"] != d["prompt_tokens"]
+            or pc.index.stats.lookups - lookups0 != len(prompts) or stats["pinned_blocks"]):
+        raise AssertionError(f"prefix cache {label}: report {report}, counters {d}, "
+                             f"index {stats}")
+    log(f"[cache] {label}: wall {wall:.2f}s, hit tokens {d['cache_hit_tokens']}, miss tokens "
+        f"{d['cache_miss_tokens']}, per prompt {report}, K by group {K}, prefill "
+        f"{secs['prefill']:.3f}s ({d['prefill_forwards']} forwards), gather "
+        f"{secs['cache_gather']:.4f}s, insert {secs['cache_insert']:.4f}s, decode "
+        f"{secs['decode']:.3f}s ({d['decode_steps']} steps, {d['captured_steps']} replays), "
+        f"pool {json.dumps(stats)}, peak memory {peak_gb:.2f} GB")
+    return {"texts": texts, "report": report, "launches": launches, "K": K, "stats": stats,
+            "d": d}
+
+
+def resume_logits_gate(torch, b, prompts: list, cold: dict, warm: dict) -> None:
+    """The warm call's last-position logits against the cold call's, by
+    prompt, within RESUME_LOGITS_RTOL of the largest |cold| logit; then one
+    resumed prefill of the same prompts outside generate over a cache its
+    gather left unseeded (planted here), which must exceed it."""
+    pc = b.prefix_cache
+    rows = sorted(cold)
+    scale = max(float(cold[i].abs().max()) for i in rows)
+
+    def share(got):
+        return max(float((got[i] - cold[i]).abs().max()) for i in rows) / scale
+
+    sound = share(warm)
+    encoded = b.tok.encode_batch(prompts, add_bos=True)
+    matches = [pc.match(ids, max_tokens=len(ids) - 1) for ids in encoded]
+    gather = pc.store.gather
+    try:
+        group = sorted(range(len(encoded)),
+                       key=lambda i: (len(encoded[i]) - matches[i].tokens, len(encoded[i])))
+        tokens_np, pads_np, B, S = b._pack_group(group, encoded, b.max_new_tokens)
+        pc.store.gather = lambda cache, ids, starts: cache
+        # the class's methods: the spy's hooks count nothing of this call
+        K, cache, _ = type(b)._prepare_resume(b, group, encoded, matches, pads_np, B, S,
+                                              b.max_new_tokens)
+        with torch.inference_mode():
+            logits = type(b)._prefill_forward(b, 
+                torch.from_numpy(tokens_np).to(b.device), torch.from_numpy(pads_np).to(b.device),
+                B, S, S + b.max_new_tokens, cache, K)
+        planted = share({i: logits[r, -1].float() for r, i in enumerate(group)})
+        del cache, logits
+    finally:
+        pc.store.gather = gather
+        for m in matches:
+            pc.release(m)
+    log(f"[cache] resume gate: the warm call's last-position logits against the cold call's, "
+        f"{len(rows)} document rows, share of the largest |logit| {scale:.3f}: sound "
+        f"{sound:.3e}, the gather dropped (planted, K={K}) {planted:.3e}; limit "
+        f"{RESUME_LOGITS_RTOL:g}")
+    if sound > RESUME_LOGITS_RTOL or planted <= RESUME_LOGITS_RTOL:
+        raise AssertionError(f"resume gate on the wrong side of the limit: sound {sound}, "
+                             f"planted {planted}")
+
+
+def phase_prefix_cache(torch, model, plain_summaries: dict) -> tuple[dict, int]:
+    """The prefix KV cache on Llama-3.2-3B at full width and depth (``model``:
+    random bf16 weights from seed 0), byte tokenizer, int8 cache, 128 new
+    tokens, over the map batch's prompts, the arms of the JAX package's A/B
+    (scripts/bench_prefix_cache_ab.py): uncached (the cache off), cold (an
+    empty 512-block pool, no hints), warm (the same call again: every row
+    resumes at K = RESUME_K), hinted (a fresh pool, the map template's
+    header as each prompt's hint, twice), post-eviction (a 64-block pool,
+    cold then warm) and pipeline (map-reduce through PipelineRunner on the
+    warm backend, the strategies' own hints). Gates: every arm's launches
+    exact (cache_arm); every block the warm call gathers equals the cold
+    call's cache where it was copied from, bit for bit; the resume logits
+    gate (resume_logits_gate); hits only where
+    the pool holds the prompts, evictions in the 64-block arm; every
+    document of the pipeline arm ok. Then the slot loop with the cache
+    (slot_cache_loop). Agreement with the uncached arm is logged, not
+    gated. Returns (the phase's launches, K1 launches of resumed
+    forwards)."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.core.config import PipelineConfig
+    from vnsum_tpu_torch.pipeline.runner import PipelineRunner
+
+    def backend(blocks):
+        return TorchBackend(model=model, batch_size=8, max_new_tokens=128, seed=0,
+                            cache_blocks=blocks, cache_block_tokens=CACHE_BLOCK_TOKENS,
+                            device="cuda")
+
+    total = dict.fromkeys(COUNTERS, 0)
+
+    def add(arm):
+        for k in total:
+            total[k] += arm["launches"][k]
+        return arm
+
+    uncached_b = backend(0)
+    prompts, header = map_batch(uncached_b)
+    lengths = [len(ids) for ids in uncached_b.tok.encode_batch(prompts, add_bos=True)]
+    uncached = add(cache_arm(torch, uncached_b, "uncached", prompts, None, None))
+    del uncached_b
+
+    b = backend(CACHE_BLOCKS)
+    spy = spy_cache(torch, b)
+    spy["keep"] = True
+    cold = add(cache_arm(torch, b, "cold", prompts, None, spy))
+    spy["keep"] = False
+    spy["reference"] = (spy["caches"][-1], spy["writers"])
+    cold_logits = spy["logits"][-1]
+    warm = add(cache_arm(torch, b, "warm", prompts, None, spy))
+    warm_logits = spy["logits"][-1]
+    spy["reference"] = None
+    spy["caches"].clear()
+    S, BLK = 4096, CACHE_BLOCK_TOKENS
+    # distinct block-aligned prefixes: prompts share the template header's
+    encoded = b.tok.encode_batch(prompts, add_bos=True)
+    want_cold_blocks = len({tuple(ids[: (j + 1) * BLK]) for ids in encoded
+                            for j in range((len(ids) - 1) // BLK)})
+    want_warm = [max(RESUME_K - (S - n), 0) for n in lengths]
+    problems = []
+    if cold["report"] != [0] * len(prompts) or cold["stats"]["inserted_blocks"] != want_cold_blocks:
+        problems.append(f"cold: report {cold['report']}, inserted "
+                        f"{cold['stats']['inserted_blocks']} of {want_cold_blocks} blocks")
+    if warm["K"] != [RESUME_K] or warm["report"] != want_warm or not sum(want_warm):
+        problems.append(f"warm: K {warm['K']}, report {warm['report']} against {want_warm}")
+    ((checked, own, blocks, bad),) = spy["gathered"] or [(0, 0, 0, -1)]
+    if (checked != sum(1 for n in lengths if S - n < RESUME_K) or bad or not blocks
+            or warm["stats"]["inserted_blocks"] != want_cold_blocks):
+        problems.append(f"warm: {bad} of {blocks} gathered blocks differ from the cold cache "
+                        f"where they were copied from ({checked} rows checked), inserted "
+                        f"{warm['stats']['inserted_blocks']}")
+    if problems:
+        raise AssertionError("prefix cache: " + "; ".join(problems))
+    log(f"[cache] gathered prefix: every block the warm call gathered ({blocks} in {checked} "
+        f"rows) equals the cold call's cache where it was copied from, bit for bit (k, v, ks, "
+        f"vs); {own} of {checked} rows equal their own cold row at slots [pad_r, {RESUME_K}) "
+        f"(a block several prompts share, as the template header's, comes from the row that "
+        f"inserted it); {sum(want_warm)} prompt tokens skipped of {sum(lengths)}")
+    resume_logits_gate(torch, b, prompts, cold_logits, warm_logits)
+
+    # the pipeline arm on the warm backend: its map call resumes
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PipelineConfig(
+            approach="mapreduce", models=["llama3.2:3b"], max_new_tokens=128,
+            docs_dir=str(ROOT / "data/vi_eval/doc"),
+            summary_dir=str(ROOT / "data/vi_eval/summary"),
+            generated_summaries_dir=str(Path(tmp) / "gen"),
+            results_dir=str(Path(tmp) / "results"), logs_dir=str(Path(tmp) / "logs"))
+        st = b.stats
+        forwards0, steps0, hits0 = st.prefill_forwards, st.decode_steps, st.cache_hit_tokens
+        K0 = len(spy["K"])
+        reset_launches()
+        t0 = time.perf_counter()
+        runner = PipelineRunner(cfg, backend_factory=lambda _: b, device="cuda")
+        res = runner.run()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if runner.failures:
+            raise AssertionError(f"prefix cache pipeline failures: {runner.failures}")
+        _, summaries = check_run({"summarization": res.summarization,
+                                  "evaluation": res.evaluation}, docs, Path(tmp) / "gen")
+    check_exact("prefix cache pipeline", launches, {
+        "prefill": b.cfg.n_layers * (st.prefill_forwards - forwards0),
+        "decode": b.cfg.n_layers * (st.decode_steps - steps0)}, ("prefill", "decode"))
+    add({"launches": launches})
+    pipe_hits = st.cache_hit_tokens - hits0
+    if pipe_hits <= 0 or b.prefix_cache.index.pinned_blocks:
+        raise AssertionError(f"prefix cache pipeline: {pipe_hits} hit tokens, "
+                             f"{b.prefix_cache.index.pinned_blocks} blocks left pinned")
+    names = sorted(summaries)
+    log(f"[cache] pipeline: {len(docs)}/{len(docs)} docs ok, wall {wall:.2f}s, hit tokens "
+        f"{pipe_hits}, K by group {spy['K'][K0:]}, pool {json.dumps(b.prefix_cache_stats())}; "
+        f"against the plain pipeline's summaries: "
+        f"{agreement([summaries[n] for n in names], [plain_summaries[n] for n in names])} "
+        "(not gated)")
+    resumed = spy["resume_launches"]
+    del b, spy
+    gc.collect()
+
+    hb = backend(CACHE_BLOCKS)
+    hspy = spy_cache(torch, hb)
+    hinted = [add(cache_arm(torch, hb, f"hinted {n}", prompts, header, hspy)) for n in (1, 2)]
+    resumed += hspy["resume_launches"]
+    log(f"[cache] hinted: the header's {len(hb.tok.encode(header, add_bos=True))} tokens, "
+        f"{hinted[0]['stats']['inserted_blocks']} blocks inserted, K of the second call "
+        f"{hinted[1]['K']} (0: the longest suffix leaves no 128-aligned skip)")
+    del hb, hspy
+
+    eb = backend(CACHE_EVICT_BLOCKS)
+    espy = spy_cache(torch, eb)
+    evicted = [add(cache_arm(torch, eb, f"post-eviction {arm}", prompts, None, espy))
+               for arm in ("cold", "warm")]
+    resumed += espy["resume_launches"]
+    if evicted[-1]["stats"]["evictions"] <= 0 or (
+            evicted[-1]["stats"]["blocks_used"] > CACHE_EVICT_BLOCKS):
+        raise AssertionError(f"post-eviction: {evicted[-1]['stats']}")
+    del eb, espy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    base = uncached["texts"]
+    log(f"[cache] agreement with the uncached arm (not gated: bf16 GEMM tiling across [8 x 512] "
+        f"and [8 x 4096] rows can flip near-ties): cold {agreement(cold['texts'], base)}; warm "
+        f"{agreement(warm['texts'], base)}; hinted {agreement(hinted[1]['texts'], base)}; "
+        f"post-eviction warm {agreement(evicted[-1]['texts'], base)}")
+    slot, slot_resumed = slot_cache_loop(torch, model, prompts, base[:3])
+    for k in total:
+        total[k] += slot[k]
+    return total, resumed + slot_resumed
+
+
+def slot_cache_loop(torch, model, prompts: list, oneshot: list) -> tuple[dict, int]:
+    """The slot loop with the prefix cache (``slot_loop``'s pattern on a
+    backend with a 512-block pool): one wave of 3 map prompts admitted and
+    drained, then the same 3 admitted again, whose join group must resume
+    (cached tokens > 0 at K = RESUME_K); launches exactly n_layers x the
+    join groups' prefill forwards (K1) and x the decode steps (K3), no
+    other kernel. Agreement with ``oneshot`` (the uncached arm's first 3
+    outputs) is logged. Returns (launches, K1 launches of resumed
+    forwards)."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+
+    n_layers = model.cfg.n_layers
+    b = TorchBackend(model=model, batch_size=8, max_new_tokens=128, segment_tokens=32,
+                     cache_blocks=CACHE_BLOCKS, cache_block_tokens=CACHE_BLOCK_TOKENS,
+                     device="cuda")
+    spy = spy_cache(torch, b)
+    reset_launches()
+    t0 = time.perf_counter()
+    loop = b.start_slot_loop(slots=8, prompt_tokens=4096, max_new_tokens=128)
+    texts, cached = {}, {}
+    for wave in (0, 1):
+        adm, rej = loop.admit([((wave, i), prompts[i], None) for i in range(3)])
+        if rej or len(adm) != 3:
+            raise AssertionError(f"slot cache wave {wave}: {len(adm)} admitted, {rej} rejected")
+        cached[wave] = [a.cached_tokens for a in adm]
+        for _ in range(64):
+            for c in loop.step().completions:
+                texts[c.key] = c.text
+            if loop.active == 0:
+                break
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = b.stats
+    check_exact("slot loop with the prefix cache", launches, {
+        "prefill": n_layers * st.prefill_forwards, "verify": n_layers * loop.decode_steps})
+    if len(texts) != 6 or sum(cached[0]) or not all(cached[1]) or spy["K"][-1] != RESUME_K:
+        raise AssertionError(f"slot loop with the prefix cache: {len(texts)} of 6 done, cached "
+                             f"tokens {cached}, K by join {spy['K']}")
+    waves = [[texts[(w, i)] for i in range(3)] for w in (0, 1)]
+    log(f"[cache] slot loop: 2 waves of 3, cached tokens by join {cached}, K by join "
+        f"{spy['K']}, hit tokens {st.cache_hit_tokens}, miss {st.cache_miss_tokens}, "
+        f"{loop.decode_steps} decode steps, wall {wall:.2f}s, gather "
+        f"{st.phase_seconds.get('cache_gather', 0.0):.4f}s, insert "
+        f"{st.phase_seconds.get('cache_insert', 0.0):.4f}s; the resumed wave against the "
+        f"first: {agreement(waves[1], waves[0])}; against the one-shot outputs: "
+        f"{agreement(waves[1], oneshot)} (not gated)")
+    loop.close()
+    return launches, spy["resume_launches"]
+
+
 # -- phase 10 -----------------------------------------------------------------
 
 ONE_CARD_CEILING = 16384  # Llama-3.2-3B's max_seq_len: the one-card engine's cut
@@ -4427,11 +4961,13 @@ def main() -> int:
     spec_launches, backend, prompts, oneshot = timed(
         "spec", phase_spec_pipeline, torch, plain_summaries)
     slot_launches = timed("slot", slot_loop, torch, backend.model, prompts, oneshot, "slot", 128)
+    cache_launches, resume_launches = timed(
+        "prefix cache", phase_prefix_cache, torch, backend.model, plain_summaries)
     del backend
     long_launches = timed("long context", phase_long_context, torch)
     launches = {k: launches[k] + int8_launches[k] + w8a8_launches[k] + weights_launches[k]
                 + strategy_launches[k] + judge_launches[k] + spec_launches[k] + slot_launches[k]
-                + long_launches[k]
+                + cache_launches[k] + long_launches[k]
                 for k in launches}
     timed("profile", phase_profile, torch)
     kernels = []
@@ -4442,6 +4978,8 @@ def main() -> int:
             n = gemma_launches[key[:-6]]
         elif key.endswith(("_g4", "_phi4")):
             n = group4_launches[key.rsplit("_", 1)[0]]
+        elif key == "prefill_resume":
+            n = resume_launches
         else:
             n = launches[key]
         kernels.append({**meta, "launches": n, "max_abs_err": errs[key], **timing[key]})

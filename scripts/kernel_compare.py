@@ -6,6 +6,8 @@ source, in one process on one card:
     python3 scripts/kernel_compare.py gemv chip_archive/parent_gemv.cu
     git show <commit>:vnsum_tpu_torch/ops/csrc/flash_verify.cu > chip_archive/parent_verify.cu
     python3 scripts/kernel_compare.py verify chip_archive/parent_verify.cu
+    git show <commit>:vnsum_tpu_torch/ops/csrc/flash_prefill.cu > chip_archive/parent_prefill.cu
+    python3 scripts/kernel_compare.py prefill chip_archive/parent_prefill.cu
 
 The earlier source is built with the same nvcc flags as the tree's kernels
 into a temporary directory. Every output is held to the plain version at
@@ -35,6 +37,14 @@ for the wrapper's library. Each shape runs chip_smoke.py's ``time_verify``
 (an int8 cache of 28 layers called in turn, pads 64 b, its ``[time] verify
 passes`` line giving pass 1 and the merge in device time) in the order
 tree, earlier, earlier, tree, and prints each run's CUDA-event time a call.
+
+``prefill``: K1 at head_dim 128 on an int8 cache of 28 layers called in
+turn (pads 64 b), at Llama-3.2-3B's map batch (B=8, S=4096, C=4224,
+q_offset 0) and at the prefix cache's resume shape (the same batch's last
+512 queries a row at q_offset 3584, through chip_smoke.py's
+``time_resume_prefill``). The earlier source must export
+``vnsum_flash_prefill`` with the tree's signature; it is swapped in for the
+wrapper's library, in the order tree, earlier, earlier, tree.
 """
 from __future__ import annotations
 
@@ -164,10 +174,46 @@ def compare_verify(torch, lib: ctypes.CDLL, smi: str) -> None:
     va._lib = libs["tree"]
 
 
+def compare_prefill(torch, lib: ctypes.CDLL, smi: str) -> None:
+    from vnsum_tpu_torch.ops import flash_attention as fa
+
+    lib.vnsum_flash_prefill.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    lib.vnsum_flash_prefill.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    B, KV, G, hd, S = 8, 8, 3, 128, 4096
+    C = S + 128
+    pads_h = [64 * i for i in range(B)]
+    pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
+    cache = c.make_cache(torch, L, B, KV, C, hd, True, 3, dev)
+    lib_kv = c.library_kv(torch, cache, 4, G)
+    q = c.rand_q(torch, (B, S, KV * G, hd), 5, dev)
+    worst = {"prefill": 0.0, "prefill_resume": 0.0}
+    libs = {"tree": fa._library(), "earlier": lib}
+    for what in ("map batch", "resume"):
+        times = {"tree": [], "earlier": []}
+        for label in ("tree", "earlier", "earlier", "tree"):
+            fa._lib = libs[label]
+            if what == "resume":
+                ms = c.time_resume_prefill(torch, worst, cache, lib_kv, pads_h, G,
+                                           c.RESUME_OFFSETS[-1])["ms"]
+            else:
+                ms = c.time_ms(torch, lambda i: fa.flash_prefill_attention(
+                    q, cache, i % L, pads, G, 0, 0), n=2 * L)
+                c.compare(torch, "prefill", f"prefill {label} B={B} S={S} C={C} layer={L - 1}",
+                          fa.flash_prefill_attention(q, cache, L - 1, pads, G, 0, 0),
+                          fa.flash_prefill_attention_ref(q, cache, L - 1, pads, G, 0, 0), worst)
+            times[label].append(ms)
+            print(f"[compare] prefill {what} {label}: kernel {ms:.4f} ms", flush=True)
+        print(f"[compare] prefill {what}: tree {times['tree']}, earlier {times['earlier']} "
+              f"(CUDA events, ms a call; {smi})", flush=True)
+    fa._lib = libs["tree"]
+
+
 def main() -> int:
     import torch
 
-    kernels = {"gemv": compare_gemv, "verify": compare_verify}
+    kernels = {"gemv": compare_gemv, "verify": compare_verify, "prefill": compare_prefill}
     if len(sys.argv) != 3 or sys.argv[1] not in kernels or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2

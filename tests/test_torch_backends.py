@@ -92,8 +92,13 @@ def test_fake_latency_model(monkeypatch):
 
 
 def test_fake_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A8"):
-        FakeBackend(prefix_cache_blocks=16)
+    # the prefix-cache mirror is ported: the radix index over words
+    cached = FakeBackend(prefix_cache_blocks=16)
+    prompts = ["mot tieu de chung dai hon tam tu " * 2 + f"so {i}" for i in range(2)]
+    cached.generate(prompts)
+    cached.generate(prompts)
+    assert cached.take_cache_report() == [16, 16]
+    assert cached.prefix_cache_stats()["blocks_total"] == 16
     be = FakeBackend()
     for call in (be.start_slot_loop, lambda: be.set_cancel_poll(None), be.request_drain):
         with pytest.raises(NotImplementedError, match="A15"):

@@ -35,7 +35,8 @@ def test_sources_found():
             "vnsum_tpu_torch/strategies/skeleton.py", "vnsum_tpu_torch/models/convert.py",
             "vnsum_tpu_torch/models/encoder.py", "vnsum_tpu_torch/models/convert_encoder.py",
             "vnsum_tpu_torch/eval/embedding.py",
-            "vnsum_tpu_torch/utils/evaluate_summaries.py"} <= names
+            "vnsum_tpu_torch/utils/evaluate_summaries.py", "vnsum_tpu_torch/cache/__init__.py",
+            "vnsum_tpu_torch/cache/radix.py", "vnsum_tpu_torch/cache/store.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

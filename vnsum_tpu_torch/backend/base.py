@@ -5,6 +5,16 @@ takes a list of prompts so strategies submit every LLM call of a round as
 one unit — plus the packing, seed, stop-token and sampling-vocabulary rules
 the engine's greedy parity with the JAX package depends on.
 ``mask_unsampleable`` is written for torch tensors.
+
+Optional prefix-cache contract (``vnsum_tpu_torch.cache``): a backend with
+a prefix KV cache also exposes ``cached_prefix_tokens(text,
+cache_hint=None)`` (a read-only probe, safe from other threads: how many of
+a prompt's tokens the cache would serve), ``take_cache_report()``
+(per-prompt cached token counts of the last generate, cleared on read) and
+``prefix_cache_stats()`` (pool and index counters; None with the cache
+off). Callers find them through getattr, so plain backends need none.
+TorchBackend implements the real thing; FakeBackend mirrors it (the radix
+index over whitespace words, no device pool).
 """
 from __future__ import annotations
 

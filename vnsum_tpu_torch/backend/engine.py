@@ -43,9 +43,16 @@ verify forward, the slot segment, a ``last_only`` head) goes through the
 int8-weight GEMV kernel (``ops/int8_matmul.py``), a prefill through a
 dequantized ``torch.matmul``; ``quantize_act=True`` adds W8A8 prefill.
 
-Not ported yet: the prefix cache (``cache_hints`` are accepted and unused,
-as in the JAX engine with no cache configured), the continuous scheduler
-and meshes.
+``cache_blocks > 0`` turns on the radix prefix KV cache (``cache/``, the
+JAX engine's ``cache_blocks``): ``generate`` matches every prompt against
+the radix index up front, orders its rows by uncovered suffix, gathers a
+group's matched blocks into a fresh cache and resumes its prefill at a
+shared boundary K (K1 at q_offset = K over the gathered slots), then
+copies the group's new prefix blocks into the pool. ``cache_hints`` bound
+that insertion to the hinted prefix. The slot loop's joins resume the same
+way (``backend/inflight.py``); spec calls bypass the cache.
+
+Not ported yet: the continuous scheduler and meshes.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..cache import PrefixCache
 from ..core.config import GenerationConfig
 from ..core.logging import get_logger
 from ..models.llama import (
@@ -162,12 +170,17 @@ class EngineStats:
     spec_verify_steps: int = 0
     spec_draft_tokens: int = 0
     spec_accepted_tokens: int = 0
+    # prefix KV cache: prompt tokens whose prefill was skipped by resuming
+    # from cached prefix blocks, and tokens prefilled from scratch
+    cache_hit_tokens: int = 0
+    cache_miss_tokens: int = 0
     by_bucket: dict = field(default_factory=dict)
     # one-shot groups' decode steps per (B, S) bucket, for launch counts
     # per kernel shape
     steps_by_bucket: dict = field(default_factory=dict)
-    # "prefill" / "decode": device time, bounded by a synchronize at each
-    # phase's end; host phases ("tokenize_host", "pack_host") by wall clock
+    # "prefill" / "decode" (and the prefix cache's "cache_gather" /
+    # "cache_insert"): device time, bounded by a synchronize at each phase's
+    # end; host phases ("tokenize_host", "pack_host") by wall clock
     phase_seconds: dict = field(default_factory=dict)
 
     def add_phase(self, name: str, seconds: float) -> None:
@@ -199,6 +212,8 @@ class TorchBackend:
         prefill_chunk_tokens: int = 0,
         segment_tokens: int = 128,
         cuda_graphs: str | bool = "auto",
+        cache_blocks: int = 0,
+        cache_block_tokens: int = 64,
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
@@ -280,6 +295,30 @@ class TorchBackend:
         elif model.cfg != self.cfg:
             model = LlamaModel(self.cfg, model.tree())
         self.model = model
+        # radix prefix KV cache: cache_blocks > 0 keeps prefix KV blocks on
+        # the device after prefill, and later groups resume prefill from
+        # the matched prefix, computing only the suffix
+        self.prefix_cache = None
+        self._cache_report: list = []
+        self._hint_ids_cache: dict[str, list[int]] = {}
+        # False stops pool insertion and eviction churn while matched
+        # prefixes keep serving hits
+        self.cache_inserts_enabled = True
+        if cache_blocks:
+            if not 1 <= cache_block_tokens <= 128:
+                # the resume boundary K is 128-aligned, and the padded-gather
+                # safety argument (scratch writes land inside the recomputed
+                # [K, S) span) needs blocks no wider than that alignment
+                raise ValueError("cache_block_tokens must be in [1, 128]")
+            self.prefix_cache = PrefixCache(
+                cache_blocks, cache_block_tokens, n_layers=self.cfg.n_layers,
+                n_kv_heads=self.cfg.n_kv_heads, head_dim=self.cfg.head_dim,
+                dtype=self.cfg.dtype, quantized=self.quantize_kv, device=self.device,
+            )
+            logger.info(
+                "prefix KV cache: %d blocks x %d tokens (%.1f MB)",
+                cache_blocks, cache_block_tokens, self.prefix_cache.store.hbm_bytes / 1e6,
+            )
 
     # -- pieces of one generation batch -----------------------------------
 
@@ -328,16 +367,23 @@ class TorchBackend:
 
         return stacked_fn
 
-    def _prefill_forward(self, tokens, pad_lens, B: int, S: int, C: int, cache):
+    def _prefill_forward(self, tokens, pad_lens, B: int, S: int, C: int, cache,
+                         start: int = 0):
         """Whole- or chunked-prompt prefill into ``cache``; returns the
         last-position logits. Chunk c runs the queries at cache slots
-        [lo, hi) with the kernel's q_offset = lo."""
+        [lo, hi) with the kernel's q_offset = lo.
+
+        ``start`` > 0 is the prefix cache's resume boundary K: ``cache``
+        arrives seeded with gathered prefix KV for slots < K, and the
+        forward runs over [K, S) only, chunk by chunk from K, as chunked
+        prefill's later chunks run."""
         positions = prefill_positions(pad_lens, S)
         mask = None if self.use_kernels else prefill_attention_mask(pad_lens, S, C)
         CL = self.prefill_chunk_tokens
-        step = CL if CL and S > CL else S
+        span = S - start
+        step = CL if CL and span > CL else span
         logits = None
-        for lo in range(0, S, step):
+        for lo in range(start, S, step):
             hi = min(S, lo + step)
             logits = self.model(
                 tokens[:, lo:hi], positions[:, lo:hi], cache, lo,
@@ -401,20 +447,28 @@ class TorchBackend:
         )
 
     # hot path
-    def _prefill_group(self, tokens_np, pad_np, S: int, C: int, gen, seed: int, uids):
+    def _prefill_group(self, tokens_np, pad_np, S: int, C: int, gen, seed: int, uids,
+                       resume=None):
         """Prefill a packed left-padded batch into a fresh cache of C slots
         and sample each row's first token, keyed on (seed, uids[row], 0).
         The one-shot and spec paths pass the row positions as uids; a slot
         loop's join group passes per-request uids, so a request's stream
         does not depend on when it joined or with whom. All-pad filler rows
-        start done, else they would hold off the early exit. Returns
-        (first [B], cache, pad_lens [B] int32, done [B])."""
+        start done, else they would hold off the early exit. ``resume`` =
+        (K, seeded cache of C slots) from ``_prepare_resume`` runs the
+        forward over slots [K, S) of that cache only. Returns (first [B],
+        cache, pad_lens [B] int32, done [B])."""
         dev = self.device
         _, vocab_limit, restrict = self._sampling_setup(gen)
         pad_lens = torch.from_numpy(pad_np).to(dev)
-        cache = init_kv_cache(self.cfg, len(pad_np), C, quantized=self.quantize_kv, device=dev)
+        if resume is None:
+            start = 0
+            cache = init_kv_cache(self.cfg, len(pad_np), C, quantized=self.quantize_kv,
+                                  device=dev)
+        else:
+            start, cache = resume
         logits = self._prefill_forward(
-            torch.from_numpy(tokens_np).to(dev), pad_lens, len(pad_np), S, C, cache
+            torch.from_numpy(tokens_np).to(dev), pad_lens, len(pad_np), S, C, cache, start
         )
         first = self._sample(logits, seed, list(uids), 0, gen, vocab_limit, restrict)
         return first, cache, pad_lens, pad_lens == S
@@ -445,14 +499,18 @@ class TorchBackend:
         return token_step(buffers, eos, self.tok.pad_id, forward, sample)
 
     # hot path
-    def _run_group(self, tokens_np, pad_np, B: int, S: int, max_new: int, gen, seed: int):
-        """Prefill + decode of one packed batch; returns out ids [B, max_new]."""
+    def _run_group(self, tokens_np, pad_np, B: int, S: int, max_new: int, gen, seed: int,
+                   resume=None):
+        """Prefill (resumed from ``resume``'s seeded cache, when given) +
+        decode of one packed batch; returns (out ids [B, max_new], cache).
+        Decode writes only slots >= S, so the returned cache holds the
+        prompt's prefix KV as the prefill wrote it."""
         C = S + max_new
         sampling = self._sampling_setup(gen)
 
         t_pre = time.time()
         cur, cache, pad_lens, done = self._prefill_group(
-            tokens_np, pad_np, S, C, gen, seed, range(B)
+            tokens_np, pad_np, S, C, gen, seed, range(B), resume
         )
         self._sync()
         prefill_s = time.time() - t_pre
@@ -470,7 +528,7 @@ class TorchBackend:
         self.stats.graph_captures += run.captures
         self.stats.captured_steps += run.replays
         self.stats.add_phase("decode", decode_s)
-        return out_h
+        return out_h, cache
 
     # -- speculative decoding (reference-guided, vnsum_tpu_torch.spec) -----
 
@@ -740,6 +798,132 @@ class TorchBackend:
         self.stats.add_phase("pack_host", time.time() - t_pack)
         return tokens, pad_lens, B, S
 
+    # -- prefix KV cache (vnsum_tpu_torch.cache) ---------------------------
+
+    def _prepare_resume(self, group, encoded, matches, pad_lens, B: int, S: int,
+                        max_new: int):
+        """The skip boundary K for one packed group, and a fresh cache of
+        S + max_new slots seeded with the group's matched prefix blocks.
+
+        Slot arithmetic (left-padded rows; pad_r = S - len_r):
+
+        - K = the floor, on a coarse grid, of S minus the longest uncovered
+          suffix: for every row, slots [pad_r, K) are covered by matched
+          blocks, so ONE boundary serves the whole batch; rows whose prompt
+          starts at or after K (pad_r >= K) need no blocks;
+        - row r gathers ceil((K - pad_r) / BLK) blocks at slots
+          pad_r + i * BLK; ragged rows pad with the scratch block, whose
+          writes land at slots >= K (clamped to at most C - BLK, which
+          K <= C - BLK keeps >= K), inside the span the resume prefill
+          (slots [K, S)) or decode (slots >= S, each written before it is
+          attended) overwrites, so padding never corrupts a live row.
+
+        The grid (steps of max(128, S / 8)) is the JAX engine's, where each
+        K compiles a program of its own; here it keeps the per-prompt cache
+        reports equal to that engine's. Returns (K, seeded cache, skipped
+        tokens a row), or None when the group has no usable coverage."""
+        pc = self.prefix_cache
+        BLK = pc.block_tokens
+        max_suffix = max(len(encoded[i]) - matches[i].tokens for i in group)
+        step = max(128, S // 8 // 128 * 128)
+        K = min(S - max_suffix, S + max_new - BLK) // step * step
+        if K < 128:
+            return None
+        ids_rows: list[list[int]] = []
+        for row, i in enumerate(group):
+            need = K - int(pad_lens[row])
+            n = -(-need // BLK) if need > 0 else 0
+            ids_rows.append(matches[i].blocks[:n])
+        nb_max = max(len(blocks) for blocks in ids_rows)
+        if nb_max == 0:
+            return None
+        t0 = time.time()
+        ids = np.full((B, nb_max), pc.store.scratch_id, dtype=np.int64)
+        for row, blocks in enumerate(ids_rows):
+            ids[row, : len(blocks)] = blocks
+        cache = init_kv_cache(self.cfg, B, S + max_new, quantized=self.quantize_kv,
+                              device=self.device)
+        pc.gather(cache, ids, pad_lens)
+        self._sync()
+        self.stats.add_phase("cache_gather", time.time() - t0)
+        skipped = [max(K - int(pad_lens[row]), 0) for row in range(len(group))]
+        return K, cache, skipped
+
+    def _cache_insert(self, cache, group, encoded, matches, hints, pad_lens) -> int:
+        """Index the freshly prefilled prompts and copy their new prefix
+        blocks into the pool. A cache_hint bounds a prompt's insertion to
+        its hint-covered prefix (template headers, carried-forward
+        summaries) so unique content tails do not churn the pool; without
+        one the whole prompt (minus its last token) is insertable and LRU
+        manages it. Returns the number of new blocks."""
+        pc = self.prefix_cache
+        if not self.cache_inserts_enabled:
+            return 0
+        BLK = pc.block_tokens
+        t0 = time.time()
+        rows = []
+        for row, i in enumerate(group):
+            ids = encoded[i]
+            target = len(ids) - 1
+            hint = hints[i] if hints else None
+            if hint:
+                target = min(self._hint_prefix_len(hint, ids), target)
+            upto = target // BLK * BLK
+            if upto > matches[i].tokens:
+                rows.append((row, int(pad_lens[row]), ids, upto))
+        new_blocks = pc.insert_rows(cache, rows)
+        self._sync()
+        self.stats.add_phase("cache_insert", time.time() - t0)
+        return new_blocks
+
+    def _hint_prefix_len(self, hint: str, ids: list[int]) -> int:
+        """Token-aligned hint boundary: the longest common prefix of the
+        hint's own encoding and the prompt's. Exact when tokenization is
+        prefix-stable; safely shorter when a merge crosses the boundary."""
+        hint_ids = self._hint_ids_cache.get(hint)
+        if hint_ids is None:
+            if len(self._hint_ids_cache) >= 256:
+                self._hint_ids_cache.clear()
+            hint_ids = self.tok.encode(hint, add_bos=True)
+            self._hint_ids_cache[hint] = hint_ids
+        n = min(len(hint_ids), len(ids))
+        k = 0
+        while k < n and hint_ids[k] == ids[k]:
+            k += 1
+        return k
+
+    def set_prefix_cache_inserts(self, enabled: bool) -> None:
+        """Gate prefix-cache insertion while hits keep serving. Engine
+        thread only, like every generate call."""
+        self.cache_inserts_enabled = bool(enabled)
+
+    def cached_prefix_tokens(self, text: str, cache_hint: str | None = None) -> int:
+        """Read-only probe, safe from other threads: how many prompt tokens
+        the prefix cache would serve now. An estimate: the usable skip also
+        depends on the batch (the grid-aligned K)."""
+        if self.prefix_cache is None:
+            return 0
+        ids = self.tok.encode(text, add_bos=True)
+        # generate's truncation for the default decode budget, so the
+        # estimate never exceeds what a call could reuse
+        max_input = self.cfg.max_seq_len - self.max_new_tokens
+        if len(ids) > max_input:
+            ids = ids[:max_input]
+        return self.prefix_cache.probe(ids, max_tokens=len(ids) - 1)
+
+    def prefix_cache_stats(self) -> dict | None:
+        """Pool and index counters (None: the cache is off)."""
+        if self.prefix_cache is None:
+            return None
+        return self.prefix_cache.stats_dict()
+
+    def take_cache_report(self) -> list[int]:
+        """Per-prompt prefill tokens served from the prefix cache on the
+        last generate call (empty when the cache was off), cleared on
+        read."""
+        report, self._cache_report = self._cache_report, []
+        return report
+
     # -- public API --------------------------------------------------------
 
     # hot path
@@ -755,9 +939,9 @@ class TorchBackend:
     ) -> list[str]:
         """One completion per prompt, order-preserving. ``references``
         aligns one source text per prompt: with ``spec_k > 0`` a group with
-        any reference decodes speculatively, drafting from it. ``cache_hints``
-        (the prefix KV cache's seam) are checked and not used: the prefix
-        cache is not ported yet."""
+        any reference decodes speculatively, drafting from it. With the
+        prefix cache on, ``cache_hints`` (one per prompt) bound each
+        prompt's insertion into the pool to its hinted prefix."""
         gen = config or self.gen_cfg
         max_new = resolve_max_new(max_new_tokens, gen, self.max_new_tokens)
         if max_new >= self.cfg.max_seq_len:
@@ -780,6 +964,9 @@ class TorchBackend:
         spec_report: list = [None] * len(prompts) if spec_on else []
         self.stats.calls += 1
         self.stats.prompts += len(prompts)
+        # cleared up front: a call that errors mid-loop leaves no previous
+        # call's attribution behind
+        self._cache_report = []
         max_input = self.cfg.max_seq_len - max_new
         encoded: list[list[int]] = []
         t_enc = time.time()
@@ -790,32 +977,67 @@ class TorchBackend:
             self.stats.prompt_tokens += len(ids)
         self.stats.add_phase("tokenize_host", time.time() - t_enc)
 
-        # group indices by length, then emit fixed-shape batches
-        order = sorted(range(len(encoded)), key=lambda i: len(encoded[i]))
+        # prefix KV cache: match every prompt (pinning the matched blocks
+        # for the call) and order rows by UNCOVERED suffix: a group's skip K
+        # is S minus its longest suffix, so one cold row in a warm group
+        # would zero everyone's reuse. Spec calls bypass the cache: the
+        # verify path's per-row fills do not share one resume boundary
+        pc = self.prefix_cache
+        use_cache = pc is not None and not spec_on
+        matches = None
+        cache_report = [0] * len(encoded)
+        if use_cache:
+            matches = [pc.match(ids, max_tokens=len(ids) - 1) for ids in encoded]
+            order = sorted(range(len(encoded)),
+                           key=lambda i: (len(encoded[i]) - matches[i].tokens, len(encoded[i])))
+        else:
+            # group indices by length, then emit fixed-shape batches
+            order = sorted(range(len(encoded)), key=lambda i: len(encoded[i]))
         results: list[str | None] = [None] * len(encoded)
         t0 = time.time()
-        for start in range(0, len(order), self.batch_size):
-            group = order[start : start + self.batch_size]
-            seed = self._next_seed(gen)
-            # per-group routing: a group whose prompts carry no reference
-            # would pay the (k+1)-wide verify forward to retire one token a
-            # step, so it takes the plain path (same greedy output)
-            if spec_on and any(references[i] for i in group):
-                self._run_group_spec(
-                    group, encoded, references, max_new, gen, results, spec_report, seed
+        try:
+            for start in range(0, len(order), self.batch_size):
+                group = order[start : start + self.batch_size]
+                seed = self._next_seed(gen)
+                # per-group routing: a group whose prompts carry no reference
+                # would pay the (k+1)-wide verify forward to retire one token
+                # a step, so it takes the plain path (same greedy output)
+                if spec_on and any(references[i] for i in group):
+                    self._run_group_spec(
+                        group, encoded, references, max_new, gen, results, spec_report, seed
+                    )
+                    continue
+                tokens, pad_lens, B, S = self._pack_group(group, encoded, max_new)
+                resume = None
+                if use_cache:
+                    resume = self._prepare_resume(group, encoded, matches, pad_lens, B, S,
+                                                  max_new)
+                    if resume is not None:
+                        for row, i in enumerate(group):
+                            cache_report[i] = resume[2][row]
+                steps = self.stats.decode_steps
+                out, cache = self._run_group(tokens, pad_lens, B, S, max_new, gen, seed,
+                                             resume and resume[:2])
+                self.stats.batches += 1
+                self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
+                self.stats.steps_by_bucket[(B, S)] = (
+                    self.stats.steps_by_bucket.get((B, S), 0) + self.stats.decode_steps - steps
                 )
-                continue
-            tokens, pad_lens, B, S = self._pack_group(group, encoded, max_new)
-            steps = self.stats.decode_steps
-            out = self._run_group(tokens, pad_lens, B, S, max_new, gen, seed)
-            self.stats.batches += 1
-            self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
-            self.stats.steps_by_bucket[(B, S)] = (
-                self.stats.steps_by_bucket.get((B, S), 0) + self.stats.decode_steps - steps
-            )
-            for row, i in enumerate(group):
-                results[i] = self._detok(out[row], tuple(gen.eos_ids))
+                if use_cache:
+                    self._cache_insert(cache, group, encoded, matches, cache_hints, pad_lens)
+                del cache  # freed before the next group allocates its own
+                for row, i in enumerate(group):
+                    results[i] = self._detok(out[row], tuple(gen.eos_ids))
+        finally:
+            if matches is not None:
+                for m in matches:
+                    pc.release(m)
         self.stats.generate_seconds += time.time() - t0
+        if use_cache:
+            hit = sum(cache_report)
+            self.stats.cache_hit_tokens += hit
+            self.stats.cache_miss_tokens += sum(len(e) for e in encoded) - hit
+        self._cache_report = cache_report if use_cache else []
         # rows whose group took the plain path report zeros, keeping the
         # per-prompt alignment
         self._spec_report = [r if r is not None else SpecRecord() for r in spec_report]

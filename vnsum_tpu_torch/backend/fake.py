@@ -9,8 +9,8 @@ Copy of ``vnsum_tpu/backend/fake.py`` for what the port runs. Two modes:
   verdicts).
 
 An optional latency model (``batch_overhead_s`` + ``per_token_s`` per
-prompt word, ``per_prompt_s`` a row, ``per_step_s`` a decode step of the
-longest row, the per-row terms divided over ``dp_replicas``) makes a
+uncached prompt word, ``per_prompt_s`` a row, ``per_step_s`` a decode step
+of the longest row, the per-row terms divided over ``dp_replicas``) makes a
 generate() call sleep like a device dispatch; it defaults off.
 ``batch_sizes`` records the prompt count of each call, ``calls`` the
 prompts, ``references_seen`` and ``cache_hints_seen`` the per-prompt
@@ -21,15 +21,23 @@ the constructor's ``spec_k``) > 0 each prompt gets a deterministic
 SpecRecord at the ``spec_acceptance`` rate, retrievable once through
 ``take_spec_report()``, the contract TorchBackend exposes.
 
-Not ported yet, and refused when asked for: the prefix-cache mirror
-(``prefix_cache_blocks``, ROADMAP A8) and the serving hooks (the slot loop,
-cancel and drain, ROADMAP A15).
+The prefix KV cache (``vnsum_tpu_torch.cache``) is mirrored the same way:
+``prefix_cache_blocks > 0`` runs the port's radix index (cache/radix.py)
+over whitespace words (block matching, ref-counted pins, LRU eviction) with
+no device pool behind it. ``cache_hints`` bound insertion as in the
+engine, hit counts flow through ``take_cache_report()``,
+``cached_prefix_tokens()`` and ``prefix_cache_stats()``, and
+``per_token_s`` bills only uncached words.
+
+Not ported yet, and refused when asked for: the serving hooks (the slot
+loop, cancel and drain, ROADMAP A15).
 """
 from __future__ import annotations
 
 import re
 import time
 
+from ..cache.radix import RadixIndex
 from ..core.config import GenerationConfig
 from ..spec import SpecRecord
 from ..text.tokenizer import whitespace_token_count
@@ -54,12 +62,10 @@ class FakeBackend:
         spec_k: int = 0,
         spec_acceptance: float = 0.5,
         prefix_cache_blocks: int = 0,
+        cache_block_tokens: int = 8,
         per_step_s: float = 0.0,
         dp_replicas: int = 1,
     ) -> None:
-        if prefix_cache_blocks:
-            raise NotImplementedError(
-                "FakeBackend's prefix-cache mirror is not ported yet (ROADMAP A8)")
         self._responses = list(responses) if responses else None
         self.summary_words = summary_words
         self.prefix = prefix
@@ -74,11 +80,20 @@ class FakeBackend:
         # per-row costs divide over data-parallel replicas, per-dispatch and
         # per-step costs do not
         self.dp_replicas = max(int(dp_replicas), 1)
+        # the prefix cache's mirror: the radix index over whitespace words
+        # (tokens here are words, as count_tokens counts them)
+        self.prefix_index = None
+        if prefix_cache_blocks:
+            self.prefix_index = RadixIndex(prefix_cache_blocks, cache_block_tokens)
+        # False stops index insertion while hits keep serving, as
+        # TorchBackend.set_prefix_cache_inserts
+        self.cache_inserts_enabled = True
         self.calls: list[str] = []
         self.batch_sizes: list[int] = []
         self.references_seen: list[str | None] = []
         self.cache_hints_seen: list[str | None] = []
         self._spec_report: list[SpecRecord] = []
+        self._cache_report: list[int] = []
 
     def _one(self, prompt: str) -> str:
         if self._responses is not None:
@@ -89,6 +104,37 @@ class FakeBackend:
         source = max(blocks, key=len) if blocks else prompt
         words = source.split()
         return self.prefix + " ".join(words[: self.summary_words])
+
+    def _cache_pass(self, prompts: list[str], cache_hints: list[str | None] | None) -> int:
+        """Match then insert, in the engine's per-call order: ALL prompts
+        match up front (pinned), insertion follows, so duplicates within
+        one call miss together as in one engine batch. Returns the total
+        UNCACHED words for the latency model; fills ``_cache_report`` with
+        per-prompt hit counts."""
+        idx = self.prefix_index
+        words_per = [p.split() for p in prompts]
+        matches = [idx.match(w, max_tokens=len(w) - 1) for w in words_per]
+        # pins released on every path: a leaked pin would make its blocks
+        # unevictable for good
+        try:
+            if self.cache_inserts_enabled:
+                for i, w in enumerate(words_per):
+                    hint = cache_hints[i] if cache_hints else None
+                    if hint:
+                        # the engine's _hint_prefix_len: the hint bounds
+                        # insertion to its common prefix with the prompt
+                        hw = hint.split()
+                        upto = 0
+                        while upto < min(len(hw), len(w)) and hw[upto] == w[upto]:
+                            upto += 1
+                    else:
+                        upto = len(w) - 1
+                    idx.insert(w, min(upto, len(w) - 1))
+        finally:
+            for m in matches:
+                idx.release(m)
+        self._cache_report = [m.tokens for m in matches]
+        return sum(len(w) - m.tokens for w, m in zip(words_per, matches))
 
     def generate(
         self,
@@ -107,7 +153,11 @@ class FakeBackend:
         self.cache_hints_seen.extend(
             cache_hints if cache_hints is not None else [None] * len(prompts)
         )
-        uncached = sum(len(p.split()) for p in prompts)
+        if self.prefix_index is not None:
+            uncached = self._cache_pass(prompts, cache_hints)
+        else:
+            uncached = sum(len(p.split()) for p in prompts)
+            self._cache_report = []
         outs_early = None
         rep = self.dp_replicas
         prefill_s = self.batch_overhead_s + self.per_token_s * -(-uncached // rep)
@@ -148,6 +198,28 @@ class FakeBackend:
         speculation was off), cleared on read."""
         report, self._spec_report = self._spec_report, []
         return report
+
+    def take_cache_report(self) -> list[int]:
+        """Per-prompt prefix-cache hit words of the last generate call
+        (empty when the cache is off), cleared on read."""
+        report, self._cache_report = self._cache_report, []
+        return report
+
+    def set_prefix_cache_inserts(self, enabled: bool) -> None:
+        """Gate index insertion (hits still serve)."""
+        self.cache_inserts_enabled = bool(enabled)
+
+    def cached_prefix_tokens(self, text: str, cache_hint: str | None = None) -> int:
+        """Read-only probe in whitespace words (as count_tokens counts)."""
+        if self.prefix_index is None:
+            return 0
+        words = text.split()
+        return self.prefix_index.probe(words, max_tokens=len(words) - 1)
+
+    def prefix_cache_stats(self) -> dict | None:
+        if self.prefix_index is None:
+            return None
+        return self.prefix_index.stats_dict()
 
     def count_tokens(self, text: str) -> int:
         return whitespace_token_count(text)

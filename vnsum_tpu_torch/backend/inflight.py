@@ -7,17 +7,17 @@ Counterpart of ``vnsum_tpu/backend/inflight.py`` (``TpuSlotLoop``):
   slot-indexed, so rows at different generation depths coexist
   (``TorchBackend._slot_segment``'s per-row steps, attention through K3);
 - at every segment boundary finished rows are harvested, and freed slots
-  are REFILLED from waiting prompts: joiners are prefilled into a small
-  join batch, then ``TorchBackend._adopt`` scatters their cache rows and
-  state into the resident batch, and they decode with the residents.
+  are REFILLED from waiting prompts: joiners are prefilled (resumed from
+  the radix prefix cache when the backend has one) into a small join
+  batch, then ``TorchBackend._adopt`` scatters their cache rows and state
+  into the resident batch, and they decode with the residents.
 
 Greedy per-request outputs are identical to the one-shot path's. Sampled
 streams key on (loop seed, request uid, row-local step), so a request's
 randomness does not depend on its slot, its join segment or its companions.
 
-The loop is driven from ONE thread; nothing here locks. Not ported: the
-prefix-cache branches (admission resumes, eviction pins), fault injection
-and the transfer guard, which come with their own slices.
+The loop is driven from ONE thread; nothing here locks. Not ported: fault
+injection and the transfer guard, which come with their own slices.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ class SlotAdmission:
     admitted_at: float          # time.monotonic() at admit entry
     prefill_end: float          # time.monotonic() after the prefill sync
     prompt_tokens: int = 0
-    cached_tokens: int = 0      # prompt tokens resumed from a prefix cache (none yet)
+    cached_tokens: int = 0      # prompt tokens resumed from the prefix cache
     occupancy: int = 0          # busy slots right after this admit
 
 
@@ -68,9 +68,11 @@ class SegmentResult:
 
 @dataclass
 class SlotEviction:
-    """One request preempted out of its decode slot. ``pin`` holds a prefix
-    cache pin in the JAX package; the port has no prefix cache yet, so it is
-    always None."""
+    """One request preempted out of its decode slot. ``pin`` is a
+    ``(cache, match)`` pair the loop took on the request's prompt prefix at
+    eviction: the blocks stay pinned against LRU until the caller releases
+    them (``cache.release(match)``), so a restarted prefill resumes warm.
+    None when the backend has no prefix cache or ``evict(pin=False)``."""
 
     key: object
     slot: int
@@ -112,9 +114,11 @@ class TorchSlotLoop:
             "out": torch.full((B, max_new), b.tok.pad_id, dtype=torch.long, device=dev),
             "pads": torch.full((B,), S, dtype=torch.int32, device=dev),
         }
-        # host-side slot table: caller key per busy slot (None = free),
-        # per-request RNG uid, last fetched per-row t
+        # host-side slot table: caller key per busy slot (None = free), its
+        # prompt (an eviction pins the prompt's cached prefix), per-request
+        # RNG uid, last fetched per-row t
         self._keys: list = [None] * B
+        self._prompts: list[str | None] = [None] * B
         self._uids: list[int] = [0] * B
         self._admissions: dict[int, SlotAdmission] = {}
         self._t_host = np.zeros((B,), np.int64)
@@ -145,13 +149,16 @@ class TorchSlotLoop:
     # hot path
     def admit(self, items) -> tuple[list[SlotAdmission], list]:
         """Admit up to the free-slot budget from ``items`` (an iterable of
-        ``(key, prompt, cache_hint)``; the hint is unused until the prefix
-        cache is ported). Returns (admissions, rejected_keys): rejected keys
-        had prompts longer than the loop's S budget and must go through the
-        one-shot path; items beyond the admitted count are not consumed
-        (the caller retries at the next boundary). The join group buckets to
-        a power of two capped at the free-slot count, so every scatter
-        target, all-pad filler rows included, is a distinct free slot."""
+        ``(key, prompt, cache_hint)``). Returns (admissions, rejected_keys):
+        rejected keys had prompts longer than the loop's S budget and must
+        go through the one-shot path; items beyond the admitted count are
+        not consumed (the caller retries at the next boundary). The join
+        group buckets to a power of two capped at the free-slot count, so
+        every scatter target, all-pad filler rows included, is a distinct
+        free slot. With the backend's prefix cache on, the join group is
+        ordered by uncovered suffix, its prefill resumes from the matched
+        blocks, and its new prefix blocks (bounded by each cache_hint) are
+        inserted before the adopt."""
         if self._closed:
             raise RuntimeError("slot loop is closed")
         b = self.backend
@@ -161,6 +168,7 @@ class TorchSlotLoop:
             return [], []
         keys = [it[0] for it in items]
         prompts = [it[1] for it in items]
+        hints = [it[2] for it in items]
         encoded = b.tok.encode_batch(prompts, add_bos=True)
         rejected = [keys[i] for i in range(len(items)) if len(encoded[i]) > self.S]
         ok = [i for i in range(len(items)) if len(encoded[i]) <= self.S]
@@ -177,31 +185,58 @@ class TorchSlotLoop:
             n = Bj = _pow2_floor(len(free_slots))
         take = ok[:n]
 
-        group_ids = [encoded[i] for i in take]
-        tokens, pad_lens = left_pad_batch(group_ids, Bj, self.S, b.tok.pad_id)
-        uids = [self._uid_next + j for j in range(len(take))]
-        self._uid_next += len(take)
-        uids_row = uids + [0] * (Bj - len(take))
-        first, join_cache, join_pads, done0 = b._prefill_group(
-            tokens, pad_lens, self.S, self.S + self.max_new, self.gen, self.seed, uids_row
-        )
-        # the joiners' first token is their TTFT: bound the prefill with the
-        # cheapest output so the anchor is honest
-        done0.cpu()
-        prefill_end = time.monotonic()
-        b._adopt(self._st, join_cache, first, done0, join_pads, free_slots[:Bj])
+        pc = b.prefix_cache
+        matches = None
+        if pc is not None:
+            matches = {i: pc.match(encoded[i], max_tokens=len(encoded[i]) - 1) for i in take}
+            # order the join group by UNCOVERED suffix so its shared resume
+            # boundary K is as deep as the coldest row allows (generate's
+            # cache ordering)
+            take.sort(key=lambda i: (len(encoded[i]) - matches[i].tokens, len(encoded[i])))
+        try:
+            group_ids = [encoded[i] for i in take]
+            tokens, pad_lens = left_pad_batch(group_ids, Bj, self.S, b.tok.pad_id)
+            resume = None
+            if matches is not None:
+                group_matches = [matches[i] for i in take]
+                resume = b._prepare_resume(list(range(len(take))), group_ids, group_matches,
+                                           pad_lens, Bj, self.S, self.max_new)
+            uids = [self._uid_next + j for j in range(len(take))]
+            self._uid_next += len(take)
+            uids_row = uids + [0] * (Bj - len(take))
+            first, join_cache, join_pads, done0 = b._prefill_group(
+                tokens, pad_lens, self.S, self.S + self.max_new, self.gen, self.seed, uids_row,
+                resume and resume[:2],
+            )
+            if pc is not None:
+                # insertion reads the join cache's prefix slots before the
+                # adopt scatters it into the resident batch
+                b._cache_insert(join_cache, list(range(len(take))), group_ids, group_matches,
+                                [hints[i] for i in take], pad_lens)
+            # the joiners' first token is their TTFT: bound the prefill with
+            # the cheapest output so the anchor is honest
+            done0.cpu()
+            prefill_end = time.monotonic()
+            b._adopt(self._st, join_cache, first, done0, join_pads, free_slots[:Bj])
+        finally:
+            if matches is not None:
+                for m in matches.values():
+                    pc.release(m)
         # the adopt scatter rewrote out rows: any boundary snapshot is stale
         self._out_snap = None
+        skipped = resume[2] if resume else [0] * len(take)
         admissions: list[SlotAdmission] = []
         occupancy = self.active + len(take)
         for j, i in enumerate(take):
             slot = free_slots[j]
             self._keys[slot] = keys[i]
+            self._prompts[slot] = prompts[i]
             self._uids[slot] = uids[j]
             self._t_host[slot] = 0
             adm = SlotAdmission(
                 key=keys[i], slot=slot, admitted_at=t_admit, prefill_end=prefill_end,
-                prompt_tokens=len(encoded[i]), occupancy=occupancy,
+                prompt_tokens=len(encoded[i]), cached_tokens=int(skipped[j]),
+                occupancy=occupancy,
             )
             self._admissions[slot] = adm
             admissions.append(adm)
@@ -211,6 +246,10 @@ class TorchSlotLoop:
         st.prompts += len(take)
         st.prompt_tokens += sum(len(g) for g in group_ids)
         st.by_bucket[(Bj, self.S)] = st.by_bucket.get((Bj, self.S), 0) + 1
+        if pc is not None:
+            hit = sum(skipped)
+            st.cache_hit_tokens += hit
+            st.cache_miss_tokens += sum(len(g) for g in group_ids) - hit
         return admissions, rejected
 
     # -- one decode segment ----------------------------------------------
@@ -278,6 +317,7 @@ class TorchSlotLoop:
                 key=self._keys[s], text=text, slot=s, gen_tokens=int(t_h[s]),
             ))
             self._keys[s] = None
+            self._prompts[s] = None
             self._admissions.pop(s, None)
         self.segments += res.device_segments
         self.fused_dispatches += 1
@@ -285,20 +325,32 @@ class TorchSlotLoop:
 
     # -- preemption / streaming ------------------------------------------
 
-    def evict(self, keys) -> list[SlotEviction]:
+    def evict(self, keys, pin: bool = True) -> list[SlotEviction]:
         """Free the slots of ``keys`` mid-decode (preemption, cancellation):
         their done flags flip on the device so the next segment skips them,
-        and their host rows clear. The evictee's decode state is dropped; a
-        re-admit restarts it from its prompt (greedy restarts are identical)."""
+        and their host rows clear. With the backend's prefix cache on and
+        ``pin`` True, each evictee's prompt prefix is matched and left
+        PINNED (the returned ``SlotEviction.pin``), so its cached blocks
+        survive LRU until the caller releases them; ``pin=False`` is the
+        cancel path, which has no restart to keep warm. The evictee's decode
+        state is dropped either way; a re-admit restarts it from its prompt
+        (greedy restarts are identical)."""
+        b = self.backend
         targets = {id(k) for k in keys}
         slots = [s for s, k in enumerate(self._keys) if k is not None and id(k) in targets]
         if not slots:
             return []
-        self._st["done"][torch.tensor(slots, device=self.backend.device)] = True
+        self._st["done"][torch.tensor(slots, device=b.device)] = True
         out: list[SlotEviction] = []
+        pc = b.prefix_cache if pin else None
         for s in slots:
-            out.append(SlotEviction(key=self._keys[s], slot=s))
+            ev_pin = None
+            if pc is not None:
+                ids = b.tok.encode_batch([self._prompts[s]], add_bos=True)[0]
+                ev_pin = (pc, pc.match(ids, max_tokens=len(ids) - 1))
+            out.append(SlotEviction(key=self._keys[s], slot=s, pin=ev_pin))
             self._keys[s] = None
+            self._prompts[s] = None
             self._admissions.pop(s, None)
         return out
 
