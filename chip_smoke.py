@@ -135,18 +135,20 @@ Phases, each raising on failure (so any failure exits non-zero):
    built with cuda_graphs=False (every step eager) must write
    byte-identical summaries; [int8] (c) and (d): the same with --quantize
    and with --quantize --quantize-act (W8A8 prefill), the weights quantized
-   on the card: K1 = 28 x prefill forwards, K2 = 28 x decode steps and GEMV
-   launches = 113 x decode steps (q/k/v, wo, gate/up and w_down a layer,
-   and the head) + one per prefill forward (its head; and 112 more where
-   B x S <= 128 without W8A8) exactly, K2p = K3 = 0, and
+   on the card, the model cut to INT8_LAYERS = 7 of its 28 layers: K1 = 7 x
+   prefill forwards, K2 = 7 x decode steps and GEMV launches = 29 x decode
+   steps (q/k/v, wo, gate/up and w_down a layer, and the head) + one per
+   prefill forward (its head; and 28 more where B x S <= 128 without
+   W8A8) exactly, K2p = K3 = 0, and
    summaries byte-identical to an eager run;
 6a. gemma3: the CLI's map-reduce over data/vi_eval with --models gemma3-4b
-   (Gemma3-4B at its published width and depth: 34 layers, dim 2560, 8/4
-   heads, head_dim 256, vocab 262,208, tied head, a 1024-slot window on the
-   layers where (i + 1) % 6 != 0; random bf16 weights from seed 0, byte
+   (Gemma3-4B at its published width, cut to GEMMA_LAYERS = 12 of its 34
+   layers (its globals at 5 and 11) to keep the run under 600 s: dim 2560,
+   8/4 heads, head_dim 256, vocab 262,208, tied head, a 1024-slot window on
+   the layers where (i + 1) % 6 != 0; random bf16 weights from seed 0, byte
    tokenizer, int8 KV cache, greedy), decode steps captured: every document
-   ok, ROUGE and the embedding metrics computed, K1 = 34 x prefill
-   forwards and K2 = 34 x decode steps exactly, K2p = K3 = GEMV = 0, every
+   ok, ROUGE and the embedding metrics computed, K1 = 12 x prefill
+   forwards and K2 = 12 x decode steps exactly, K2p = K3 = GEMV = 0, every
    batch one of phase 3's GEMMA_SHAPES; an eager control through
    PipelineRunner byte-identical; then the map batch's last-position logits
    through K1 (int8 and bf16 cache) against the dense windowed forward on a
@@ -159,7 +161,7 @@ Phases, each raising on failure (so any failure exits non-zero):
    drafts), the one-step K3-against-K2 gate (STEP_KERNEL_RTOL) and path
    (b) (the slot loop over the map prompts in two waves at fused_segments
    4), at GEMMA_PATH_NEW new tokens, each with K1, K2 and K3 launches
-   exactly 34 x the engine record's prefill forwards, decode steps and
+   exactly 12 x the engine record's prefill forwards, decode steps and
    verify steps; wall, prefill and decode seconds and steps, peak memory
    on ``[gemma3]`` lines, the paths on ``[gemma3 spec]`` and ``[gemma3
    slot]`` lines;
@@ -285,6 +287,28 @@ Phases, each raising on failure (so any failure exits non-zero):
    ``[cache]`` lines log each arm's hit and miss tokens, prefill, gather
    and insert seconds, the pool's bytes and peak memory; agreement with the
    uncached arm is logged, not gated;
+9c. serve (ROADMAP A15): the port's HTTP server (``ServeState`` behind
+   ``make_server`` on 127.0.0.1, real requests through urllib) over
+   TorchBackend on the same model at 64 new tokens (SERVE_NEW), in four
+   arms, each with every launch counter set to 0 before it: (a) batch
+   dispatch, no cache: one POST /v1/generate of the 7 map prompts, whose
+   texts must equal a direct TorchBackend.generate of them on a control
+   backend byte for byte, K1 = 28 x prefill forwards and K2 = 28 x decode
+   steps exactly, K3 = 0; (b) in flight (slots 8, slot_prompt_tokens 4096,
+   no cache): the 7 prompts as 7 concurrent requests plus one
+   ``"stream": true`` request, all 200, K1 and K3 exactly 28 x the loops'
+   join prefill forwards and decode steps, K2 = 0, the stream's deltas
+   concatenating to its done text, /debug/trace holding the engine's
+   prefill and decode_seg spans (agreement with (a) logged, not gated);
+   (c) in flight with a 512-block prefix cache: two waves of the 7
+   prompts, every second-wave join resuming at K = 3584 (K1 at that
+   q_offset), cache_hit_tokens > 0 on /metrics; (d) one POST /v1/summarize
+   of a data/vi_eval document (mapreduce) answering 200 with a summary, K1
+   = 28 x prefill forwards and K2 = 28 x decode steps exactly, K3 = 0, and
+   /healthz, /readyz and /metrics in their schemas. Each server's close()
+   drains within its budget and leaves no scheduler or watchdog thread;
+   ``[serve]`` lines give each arm's wall, TTFT and end-to-end p50/p99 from
+   the server's own histograms, requests/s, segments and peak memory;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -327,7 +351,8 @@ and K3 at head_dim 256 and at GQA group 4, K1 at the prefix cache's
 resume shape, and the GEMV at Phi-4's widths, entries of their own), whose
 ``launches`` sums the path phases (the head_dim-256 entries: the Gemma3
 phase's; the group-4 and Phi-4 ones: the Phi-4 and Qwen3-8B phases'; the
-resume entry: K1's launches in phase 9b's resumed prefill forwards); the last line
+resume entry: K1's launches in the resumed prefill forwards of phases
+9b and 9c); the last line
 is the device record. A ``[phase]`` line after each phase gives its
 seconds and the run's so far.
 Without a card the script exits non-zero and prints neither.
@@ -2441,13 +2466,51 @@ def gemma_k2p_raises(torch) -> None:
         "launch")
 
 
+# depth cuts of the Gemma3 phase and the int8 and W8A8 pipelines (at full
+# width), which keep the whole run near 600 s, half its limit, on the slower
+# card machines: with the serve phase the run took 554 s on one machine and
+# 649-659 s on others; the cuts saved 27 s and 22 s of host-bound eager
+# controls and captured runs (PERF.md §4)
+GEMMA_LAYERS = 12
+INT8_LAYERS = 7
+
+
+def llama_int8_cut():
+    from vnsum_tpu_torch.models import llama32_3b
+
+    return llama32_3b(n_layers=INT8_LAYERS)
+
+
+def gemma3_cut():
+    """Gemma3-4B's config at GEMMA_LAYERS layers, every sixth global."""
+    from vnsum_tpu_torch.models import gemma3_4b
+
+    return gemma3_4b(n_layers=GEMMA_LAYERS,
+                     layer_is_global=tuple((i + 1) % 6 == 0 for i in range(GEMMA_LAYERS)))
+
+
+@contextlib.contextmanager
+def registry_depth(factory, *names):
+    """While open, the model registry's ``names`` build ``factory``'s
+    config, so the CLI and PipelineRunner run the cut model."""
+    from vnsum_tpu_torch.models import MODEL_REGISTRY
+
+    saved = {n: MODEL_REGISTRY[n] for n in names}
+    MODEL_REGISTRY.update(dict.fromkeys(names, factory))
+    try:
+        yield
+    finally:
+        MODEL_REGISTRY.update(saved)
+
+
 def phase_gemma(torch) -> dict:
-    """Gemma3-4B at its published width and depth (34 layers, dim 2560, 8/4
+    """Gemma3-4B at its published width, cut to GEMMA_LAYERS of its 34 layers
+    (registry_depth; dim 2560, 8/4
     heads, head_dim 256, intermediate 10240, vocab 262,208, tied head, a
     1024-slot window on the layers where (i + 1) % 6 != 0), random bf16
     weights from seed 0, byte tokenizer: map-reduce through the CLI and its
-    eager control (captured_and_eager), K1 = 34 x prefill forwards and K2 =
-    34 x decode steps exactly, K2p = K3 = GEMV = 0, every batch a
+    eager control (captured_and_eager), K1 = n_layers x prefill forwards and
+    K2 = n_layers x decode steps exactly, K2p = K3 = GEMV = 0, every batch a
     GEMMA_SHAPES batch that phase 3 checked; then the dense logits gate
     (logits_gate) on the control's model and K2p refused at head_dim
     256 (gemma_k2p_raises, B4); then, on the same model, path (a)
@@ -2460,10 +2523,9 @@ def phase_gemma(torch) -> dict:
     prompts, so the summaries strip to empty and the generated ids carry the
     comparison. Returns the launches of the captured CLI run, the spec path
     and the slot loop."""
-    from vnsum_tpu_torch.models import gemma3_4b
-
-    n_layers = gemma3_4b().n_layers
-    run = captured_and_eager(torch, "gemma3-4b", gemma3_4b, "gemma3")
+    n_layers = GEMMA_LAYERS
+    with registry_depth(gemma3_cut, "gemma3-4b", "gemma3:4b"):
+        run = captured_and_eager(torch, "gemma3-4b", gemma3_cut, "gemma3")
     launches, eng = run["launches"], run["eng"]
     check_exact("gemma3", launches, {"prefill": n_layers * eng["prefill_forwards"],
                                      "decode": n_layers * eng["decode_steps"]},
@@ -2807,7 +2869,8 @@ def phase_int8_pipeline(torch, act: bool, name: str = "llama3.2:3b", max_new: in
                         eager: bool = True, path: str = "") -> dict:
     """[int8] (c), and (d) with ``act``: the CLI's map-reduce over
     data/vi_eval with --quantize (and --quantize-act) on model ``name``
-    (Llama-3.2-3B) at full width and depth (random bf16 weights from seed 0,
+    (Llama-3.2-3B at full width, main() cutting it to INT8_LAYERS layers
+    through registry_depth; random bf16 weights from seed 0,
     quantized on the card, as the JAX engine quantizes its bf16 init),
     ``max_new`` new tokens, decode steps captured: every document ok, ROUGE
     and the embedding metrics computed, K1 = n_layers x prefill forwards,
@@ -4111,8 +4174,8 @@ def spy_cache(torch, b) -> dict:
     prepare, run_group, forward = b._prepare_resume, b._run_group, b._prefill_forward
     store = b.prefix_cache.store if b.prefix_cache else None
 
-    def spy_prepare(group, encoded, matches, pad_lens, B, S, max_new):
-        res = prepare(group, encoded, matches, pad_lens, B, S, max_new)
+    def spy_prepare(group, encoded, matches, pad_lens, B, S, max_new, *rest):
+        res = prepare(group, encoded, matches, pad_lens, B, S, max_new, *rest)
         state["groups"].append(list(group))
         state["K"].append(res[0] if res else 0)
         if res is not None and state["reference"] is not None:
@@ -4462,6 +4525,300 @@ def slot_cache_loop(torch, model, prompts: list, oneshot: list) -> tuple[dict, i
         f"{agreement(waves[1], oneshot)} (not gated)")
     loop.close()
     return launches, spy["resume_launches"]
+
+
+# -- phase 9c -----------------------------------------------------------------
+
+# the serving phase's decode budget and its server's coalescing window: the
+# batch arm's 7 prompts arrive as one request, and the window holds the
+# head for its company so they ride ONE engine batch, as the control does
+SERVE_NEW = 64
+SERVE_WAIT_S = 1.0
+# /healthz fields probes parse (the JAX server's schema)
+HEALTHZ_KEYS = {"status", "backend", "version", "started_at", "uptime_s", "queue_depth",
+                "closed", "watchdog"}
+
+
+def serve_request(method: str, url: str, payload=None, timeout: float = 600.0):
+    """(status, decoded JSON or raw text) of one HTTP exchange; an HTTP
+    error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode(errors="replace")
+
+
+def sse_events(raw: str) -> list:
+    """(event, data) pairs of an SSE body."""
+    events = []
+    for frame in raw.split("\n\n"):
+        name = data = None
+        for line in frame.splitlines():
+            if line.startswith("event: "):
+                name = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = json.loads(line[len("data: "):])
+        if name:
+            events.append((name, data))
+    return events
+
+
+@contextlib.contextmanager
+def serving(backend, **kw):
+    """A ServeState over ``backend`` behind the port's own make_server on
+    127.0.0.1 (an ephemeral port), its base URL yielded with the state;
+    on exit the server stops and the state drains (within 60 s, which is
+    gated), and no scheduler or watchdog thread may be left alive."""
+    import threading
+
+    from vnsum_tpu_torch.serve.server import ServeState, make_server
+
+    state = ServeState(backend, max_batch=8, **kw)
+    server = make_server(state, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}", state
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        t0 = time.perf_counter()
+        state.close(drain_timeout_s=60)
+        closed_s = time.perf_counter() - t0
+        left = [t.name for t in threading.enumerate()
+                if t.name in ("vnsum-serve-scheduler", "vnsum-serve-watchdog") and t.is_alive()]
+        if left or closed_s > 60 or thread.is_alive():
+            raise AssertionError(f"serve close: {closed_s:.2f}s, threads left {left}")
+        log(f"[serve] close: drained in {closed_s:.3f}s, no serving thread left")
+
+
+def spy_loops(b) -> list:
+    """Every slot loop ``b.start_slot_loop`` opens, in order."""
+    loops = []
+    start = b.start_slot_loop
+
+    def spy(*args, **kw):
+        loops.append(start(*args, **kw))
+        return loops[-1]
+
+    b.start_slot_loop = spy
+    return loops
+
+
+def serve_line(torch, arm: str, state, n: int, wall: float) -> None:
+    """The arm's ``[serve]`` line: wall, TTFT and end-to-end quantiles from
+    the server's own histograms, requests/s, segments and peak memory."""
+    h = state.metrics.histograms_snapshot()
+    snap = state.metrics.snapshot()
+    q = {name: (h[name]["count"], h[name]["p50"], h[name]["p99"],
+                h[name]["sum"] / max(h[name]["count"], 1))
+         for name in ("ttft_seconds", "e2e_seconds")}
+    log(f"[serve] {arm}: {n} requests in {wall:.3f}s ({n / wall:.2f} requests/s), TTFT "
+        f"p50 {q['ttft_seconds'][1]:.4f}s p99 {q['ttft_seconds'][2]:.4f}s mean "
+        f"{q['ttft_seconds'][3]:.4f}s ({q['ttft_seconds'][0]} anchored), e2e p50 "
+        f"{q['e2e_seconds'][1]:.4f}s p99 {q['e2e_seconds'][2]:.4f}s mean "
+        f"{q['e2e_seconds'][3]:.4f}s (bucket-derived quantiles), {snap.batches} engine batches, {snap.segments} "
+        f"segments, {snap.refills} refills, cache hit tokens {snap.cache_hit_tokens}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def concurrent_generate(base: str, payloads: list) -> list:
+    """POST each payload to /v1/generate from its own thread, all at once;
+    returns the (status, body) replies in payload order."""
+    import threading
+
+    replies = [None] * len(payloads)
+
+    def run(i):
+        replies[i] = serve_request("POST", base + "/v1/generate", payloads[i])
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve: a client thread never got its reply")
+    return replies
+
+
+def phase_serve(torch, model) -> tuple[dict, int]:
+    """The serving slice on Llama-3.2-3B (``model``: the spec phase's, full
+    width and depth, random bf16 weights, int8 cache): arms (a)-(d) of the
+    module docstring's 9c. Returns (the phase's launches, K1 launches of
+    resumed forwards)."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.serve.metrics import metric_names
+
+    n_layers = model.cfg.n_layers
+    total = dict.fromkeys(COUNTERS, 0)
+
+    def backend(**kw):
+        return TorchBackend(model=model, batch_size=8, max_new_tokens=SERVE_NEW,
+                            segment_tokens=32, device="cuda", **kw)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    control = backend()
+    prompts, _hint = map_batch(control)
+    oneshot = control.generate(prompts)
+    del control
+
+    # (a) batch dispatch: one request of the 7 prompts, one engine batch
+    b = backend()
+    with serving(b, max_wait_s=SERVE_WAIT_S) as (base, state):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        forwards0, steps0 = b.stats.prefill_forwards, b.stats.decode_steps
+        t0 = time.perf_counter()
+        status, body = serve_request("POST", base + "/v1/generate",
+                                     {"prompts": prompts, "max_new_tokens": SERVE_NEW})
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if status != 200:
+            raise AssertionError(f"serve (a): HTTP {status}: {body}")
+        texts = [c["text"] for c in body["completions"]]
+        if texts != oneshot:
+            raise AssertionError(f"serve (a): texts differ from the direct generate: "
+                                 f"{agreement(texts, oneshot)}")
+        check_exact("serve (a) batch dispatch", launches, {
+            "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+            "decode": n_layers * (b.stats.decode_steps - steps0)},
+            path_kernels=("prefill", "decode"))
+        add(launches)
+        log(f"[serve] (a) batch: {len(texts)} texts byte-identical to the direct "
+            f"generate, {state.metrics.snapshot().batches} engine batch(es)")
+        serve_line(torch, "(a) batch", state, 1, wall)
+        # (d) on the same server: a summarize request and the probe routes
+        doc = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))[0]
+        reset_launches()
+        forwards0, steps0 = b.stats.prefill_forwards, b.stats.decode_steps
+        t0 = time.perf_counter()
+        status, body = serve_request("POST", base + "/v1/summarize", {
+            "text": doc.read_text(encoding="utf-8"), "approach": "mapreduce",
+            "max_new_tokens": SERVE_NEW})
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if status != 200 or not isinstance(body.get("summary"), str) or not body["llm_calls"]:
+            raise AssertionError(f"serve (d): HTTP {status}: {body}")
+        check_exact("serve (d) summarize", launches, {
+            "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+            "decode": n_layers * (b.stats.decode_steps - steps0)},
+            path_kernels=("prefill", "decode"))
+        add(launches)
+        log(f"[serve] (d) summarize {doc.name}: 200, {body['num_chunks']} chunks, "
+            f"{body['llm_calls']} LLM calls, summary {len(body['summary'])} chars, wall "
+            f"{wall:.3f}s")
+        status, health = serve_request("GET", base + "/healthz")
+        ready = serve_request("GET", base + "/readyz")
+        status_m, text = serve_request("GET", base + "/metrics")
+        names = {line.split("{")[0].split(" ")[0] for line in text.splitlines()
+                 if line and not line.startswith("#")}
+        need = {"vnsum_serve_requests_total", "vnsum_serve_ttft_seconds_count",
+                "vnsum_serve_e2e_seconds_count", "vnsum_serve_queue_depth"}
+        if (status != 200 or not HEALTHZ_KEYS <= set(health) or health["backend"] != "torch"
+                or ready != (200, {"status": "ready"}) or status_m != 200
+                or not need <= names or not names <= {
+                    f"{n}{suffix}" for n in metric_names()
+                    for suffix in ("", "_bucket", "_sum", "_count")}):
+            raise AssertionError(f"serve (d) probes: healthz {status} {sorted(health)}, "
+                                 f"readyz {ready}, metrics {status_m} {sorted(need - names)}")
+        log(f"[serve] (d) probes: /healthz {len(health)} keys, /readyz ready, /metrics "
+            f"{len(names)} series, all registered")
+    del b
+
+    # (b) in flight: 7 concurrent requests and one stream
+    b = backend()
+    loops = spy_loops(b)
+    with serving(b, max_wait_s=0.01, inflight=True, slots=8,
+                 slot_prompt_tokens=4096) as (base, state):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        forwards0 = b.stats.prefill_forwards
+        t0 = time.perf_counter()
+        payloads = [{"prompt": p, "max_new_tokens": SERVE_NEW, "request_id": f"b-{i}"}
+                    for i, p in enumerate(prompts)]
+        payloads.append({"prompt": prompts[0], "max_new_tokens": SERVE_NEW,
+                         "stream": True, "request_id": "b-stream"})
+        replies = concurrent_generate(base, payloads)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if [s for s, _ in replies] != [200] * len(payloads):
+            raise AssertionError(f"serve (b): statuses {[s for s, _ in replies]}")
+        texts = [body["completions"][0]["text"] for _, body in replies[:-1]]
+        events = sse_events(replies[-1][1])
+        deltas = "".join(d["text"] for n, d in events if n == "delta")
+        done = [d for n, d in events if n == "done"]
+        if not done or deltas != done[0]["completions"][0]["text"]:
+            raise AssertionError(f"serve (b): stream deltas {deltas!r} against done {done}")
+        check_exact("serve (b) in flight", launches, {
+            "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+            "verify": n_layers * sum(loop.decode_steps for loop in loops)})
+        add(launches)
+        status, trace = serve_request("GET", base + "/debug/trace")
+        spans = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+        if not {"prefill", "decode_seg"} <= spans:
+            raise AssertionError(f"serve (b): /debug/trace spans {sorted(spans)}")
+        log(f"[serve] (b) in flight: {len(payloads)}/{len(payloads)} 200, {len(loops)} slot "
+            f"loop(s), {sum(loop.decode_steps for loop in loops)} decode steps, the stream's "
+            f"{sum(n == 'delta' for n, _ in events)} deltas equal its done text, trace spans "
+            f"{sorted(spans)}; against (a): {agreement(texts, oneshot)} (not gated)")
+        serve_line(torch, "(b) in flight", state, len(payloads), wall)
+    del b, loops
+
+    # (c) in flight with the prefix cache: two waves of the same 7 prompts
+    b = backend(cache_blocks=CACHE_BLOCKS, cache_block_tokens=CACHE_BLOCK_TOKENS)
+    loops = spy_loops(b)
+    spy = spy_cache(torch, b)
+    with serving(b, max_wait_s=0.01, inflight=True, slots=8,
+                 slot_prompt_tokens=4096) as (base, state):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        waves, joins = [], []
+        for wave in (0, 1):
+            k0 = len(spy["K"])
+            replies = concurrent_generate(base, [
+                {"prompt": p, "max_new_tokens": SERVE_NEW, "request_id": f"c{wave}-{i}"}
+                for i, p in enumerate(prompts)])
+            if [s for s, _ in replies] != [200] * len(prompts):
+                raise AssertionError(f"serve (c) wave {wave}: {[s for s, _ in replies]}")
+            waves.append([body["completions"][0]["text"] for _, body in replies])
+            joins.append(spy["K"][k0:])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        st = b.stats
+        check_exact("serve (c) in flight, prefix cache", launches, {
+            "prefill": n_layers * st.prefill_forwards,
+            "verify": n_layers * sum(loop.decode_steps for loop in loops)})
+        add(launches)
+        _, text = serve_request("GET", base + "/metrics")
+        hits = [float(line.split()[-1]) for line in text.splitlines()
+                if line.startswith("vnsum_serve_cache_hit_tokens_total")]
+        if (not joins[1] or any(K != RESUME_K for K in joins[1]) or not hits or hits[0] <= 0
+                or not spy["resume_launches"]):
+            raise AssertionError(f"serve (c): K by join {joins}, /metrics hits {hits}, "
+                                 f"resumed K1 launches {spy['resume_launches']}")
+        log(f"[serve] (c) prefix cache: K by join {joins}, /metrics cache hit tokens "
+            f"{hits[0]:.0f}, K1 launches at the resume shape {spy['resume_launches']}, hit "
+            f"{st.cache_hit_tokens} miss {st.cache_miss_tokens} tokens; the second wave "
+            f"against the first: {agreement(waves[1], waves[0])} (not gated)")
+        serve_line(torch, "(c) prefix cache", state, 2 * len(prompts), wall)
+    return total, spy["resume_launches"]
 
 
 # -- phase 10 -----------------------------------------------------------------
@@ -4952,8 +5309,9 @@ def main() -> int:
     qwen3_launches = timed("qwen3", phase_qwen3, torch)
     # the group-4 entries count the Phi-4 and Qwen3-8B phases
     group4_launches = {k: phi4_launches[k] + qwen3_launches[k] for k in COUNTERS}
-    int8_launches = timed("int8 pipeline", phase_int8_pipeline, torch, False)
-    w8a8_launches = timed("w8a8 pipeline", phase_int8_pipeline, torch, True)
+    with registry_depth(llama_int8_cut, "llama3.2:3b"):
+        int8_launches = timed("int8 pipeline", phase_int8_pipeline, torch, False)
+        w8a8_launches = timed("w8a8 pipeline", phase_int8_pipeline, torch, True)
     weights_launches = timed("weights", phase_weights, torch, plain_summaries)
     timed("encoder", phase_encoder, torch)
     strategy_launches = timed("strategies", phase_strategies, torch)
@@ -4963,11 +5321,13 @@ def main() -> int:
     slot_launches = timed("slot", slot_loop, torch, backend.model, prompts, oneshot, "slot", 128)
     cache_launches, resume_launches = timed(
         "prefix cache", phase_prefix_cache, torch, backend.model, plain_summaries)
+    serve_launches, serve_resume = timed("serve", phase_serve, torch, backend.model)
+    resume_launches += serve_resume
     del backend
     long_launches = timed("long context", phase_long_context, torch)
     launches = {k: launches[k] + int8_launches[k] + w8a8_launches[k] + weights_launches[k]
                 + strategy_launches[k] + judge_launches[k] + spec_launches[k] + slot_launches[k]
-                + cache_launches[k] + long_launches[k]
+                + cache_launches[k] + serve_launches[k] + long_launches[k]
                 for k in launches}
     timed("profile", phase_profile, torch)
     kernels = []

@@ -75,9 +75,11 @@ def test_fake_spec_reports_match_jax(spec_k, from_config):
 def test_fake_latency_model(monkeypatch):
     """One sleep a call: batch_overhead_s + per_token_s per prompt word and
     per_prompt_s a row (rows divided over dp_replicas, rounded up), plus
-    per_step_s for the longest row's output words, as JAX's reckons it."""
+    per_step_s for the longest row's output words, as JAX's reckons it.
+    The sleep is the cancellable one (``_sleep_cancellable``, sliced so a
+    cancel poll or a drain cuts it short)."""
     slept = []
-    monkeypatch.setattr("time.sleep", slept.append)
+    monkeypatch.setattr(FakeBackend, "_sleep_cancellable", lambda self, s: slept.append(s))
     be = FakeBackend(summary_words=3, batch_overhead_s=0.5, per_token_s=0.01,
                      per_prompt_s=0.1, per_step_s=0.02, dp_replicas=2)
     outs = be.generate(["a b c d e", "f g", "h"])
@@ -91,7 +93,7 @@ def test_fake_latency_model(monkeypatch):
     assert slept == []
 
 
-def test_fake_refuses_what_is_not_ported():
+def test_fake_refuses_what_is_not_ported(capsys):
     # the prefix-cache mirror is ported: the radix index over words
     cached = FakeBackend(prefix_cache_blocks=16)
     prompts = ["mot tieu de chung dai hon tam tu " * 2 + f"so {i}" for i in range(2)]
@@ -100,9 +102,22 @@ def test_fake_refuses_what_is_not_ported():
     assert cached.take_cache_report() == [16, 16]
     assert cached.prefix_cache_stats()["blocks_total"] == 16
     be = FakeBackend()
-    for call in (be.start_slot_loop, lambda: be.set_cancel_poll(None), be.request_drain):
-        with pytest.raises(NotImplementedError, match="A15"):
-            call()
+    # the serving hooks are ported (FakeSlotLoop, cancel and drain); what
+    # stays unported refuses by its ROADMAP item
+    loop = be.start_slot_loop(2)
+    assert loop.admit([("k", "mot hai ba", None)])[0][0].slot == 0
+    be.set_cancel_poll(None)
+    be.request_drain()
+    be.reset_drain()
+    with pytest.raises(NotImplementedError, match="A5c"):
+        get_backend("hf")
+    from vnsum_tpu_torch.serve.server import ServeState, main
+
+    with pytest.raises(NotImplementedError, match="A15b"):
+        ServeState(be, journal_dir="unused")
+    with pytest.raises(SystemExit):
+        main(["--backend", "fake", "--mesh", "data=2"])
+    assert "--mesh: multi-card serving is ROADMAP A10" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="ran out of scripted responses"):
         FakeBackend(responses=["one"]).generate(["a", "b"])
     assert be.count_tokens("xin chào  bạn") == 3 == JaxFakeBackend().count_tokens("xin chào  bạn")

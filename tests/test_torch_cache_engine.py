@@ -258,7 +258,8 @@ def test_cache_off_hooks(carried):
 def fake_pair(monkeypatch, **kw):
     """(port, JAX) FakeBackends, each recording the seconds it bills."""
     slept = {"port": [], "jax": []}
-    monkeypatch.setattr("vnsum_tpu_torch.backend.fake.time.sleep", slept["port"].append)
+    monkeypatch.setattr(FakeBackend, "_sleep_cancellable",
+                        lambda self, s: slept["port"].append(s) or False)
     monkeypatch.setattr(JaxFakeBackend, "_sleep_cancellable",
                         lambda self, s: slept["jax"].append(s) or False)
     return FakeBackend(**kw), JaxFakeBackend(**kw), slept

@@ -36,7 +36,11 @@ def test_sources_found():
             "vnsum_tpu_torch/models/encoder.py", "vnsum_tpu_torch/models/convert_encoder.py",
             "vnsum_tpu_torch/eval/embedding.py",
             "vnsum_tpu_torch/utils/evaluate_summaries.py", "vnsum_tpu_torch/cache/__init__.py",
-            "vnsum_tpu_torch/cache/radix.py", "vnsum_tpu_torch/cache/store.py"} <= names
+            "vnsum_tpu_torch/cache/radix.py", "vnsum_tpu_torch/cache/store.py",
+            "vnsum_tpu_torch/serve/server.py", "vnsum_tpu_torch/serve/scheduler.py",
+            "vnsum_tpu_torch/serve/inflight.py", "vnsum_tpu_torch/serve/watchdog.py",
+            "vnsum_tpu_torch/obs/trace.py", "vnsum_tpu_torch/testing/faults.py",
+            "vnsum_tpu_torch/analysis/sanitizers.py", "vnsum_tpu_torch/core/profiling.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -117,9 +117,9 @@ def test_cli_tree_json_takes_the_tree_branch(tmp_path, monkeypatch):
     seen = []
     inner = HierarchicalStrategy.summarize_tree_batch
 
-    def spy(self, roots):
+    def spy(self, roots, **kw):
         seen.append([r.get("text") for r in roots])
-        out = inner(self, roots)
+        out = inner(self, roots, **kw)
         seen[-1].append([r.rounds for r in out])
         return out
 

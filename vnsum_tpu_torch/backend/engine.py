@@ -52,6 +52,14 @@ copies the group's new prefix blocks into the pool. ``cache_hints`` bound
 that insertion to the hinted prefix. The slot loop's joins resume the same
 way (``backend/inflight.py``); spec calls bypass the cache.
 
+With a trace collector installed (``obs/trace.py``, the serving
+scheduler's BatchTrace) ``generate`` and the slot loop emit the JAX
+engine's spans (``tokenize``, ``cache_lookup``, ``cache_gather``,
+``prefill``, ``decode_seg``, ``dispatch``, ``cache_insert``,
+``detokenize``, ``spec_prefill``, ``spec_step``); each span that times
+device work ends at a sync the path already pays, and with no collector
+nothing is timed or read.
+
 Not ported yet: the continuous scheduler and meshes.
 """
 from __future__ import annotations
@@ -81,6 +89,7 @@ from ..models.llama import (
 )
 from ..models.quant import quantize_model
 from ..models.sampling import draft_acceptance_rows, row_seed, sample_logits_rows
+from ..obs.trace import current_collector, emit
 from ..ops.decode_attention import flash_decode_attention
 from ..ops.flash_attention import B4, flash_prefill_attention, supports_flash, supports_verify
 from ..ops.verify_attention import flash_spec_verify_attention
@@ -500,23 +509,29 @@ class TorchBackend:
 
     # hot path
     def _run_group(self, tokens_np, pad_np, B: int, S: int, max_new: int, gen, seed: int,
-                   resume=None):
+                   resume=None, occupancy: int = 0, tracing: bool = False):
         """Prefill (resumed from ``resume``'s seeded cache, when given) +
         decode of one packed batch; returns (out ids [B, max_new], cache).
         Decode writes only slots >= S, so the returned cache holds the
-        prompt's prefix KV as the prefill wrote it."""
+        prompt's prefix KV as the prefill wrote it. With ``tracing`` the
+        ``prefill`` and ``decode_seg`` spans end at the syncs the group
+        already pays (the prefill sync is the batch's TTFT anchor)."""
         C = S + max_new
         sampling = self._sampling_setup(gen)
 
         t_pre = time.time()
+        t_pre_m = time.monotonic()
         cur, cache, pad_lens, done = self._prefill_group(
             tokens_np, pad_np, S, C, gen, seed, range(B), resume
         )
         self._sync()
         prefill_s = time.time() - t_pre
         self.stats.add_phase("prefill", prefill_s)
+        if tracing:
+            emit("prefill", t_pre_m, prefill_s, B=B, S=S, occupancy=occupancy, synced=True)
 
         t_dec = time.time()
+        t_dec_m = time.monotonic()
         buffers = decode_buffers(cur, done, max_new, self.tok.pad_id)
         run = decode_loop(
             self._decode_step(buffers, cache, pad_lens, S, C, gen, seed, sampling), done,
@@ -524,6 +539,13 @@ class TorchBackend:
         )
         out_h = buffers["out"].cpu().numpy()  # synchronizes
         decode_s = time.time() - t_dec
+        if tracing:
+            # the out fetch above synced: a true device time. One span for
+            # the group's decode loop (the JAX engine's continuous path
+            # emits one a segment)
+            emit("decode_seg", t_dec_m, decode_s, B=B, S=S, steps=run.steps,
+                 live=int((~buffers["done"]).sum()),
+                 kv_frac=round((S + run.steps) / (S + max_new), 4))
         self.stats.decode_steps += run.steps
         self.stats.graph_captures += run.captures
         self.stats.captured_steps += run.replays
@@ -606,7 +628,8 @@ class TorchBackend:
 
     # hot path
     def _run_group_spec(
-        self, group, encoded, references, max_new: int, gen, results, report, seed: int
+        self, group, encoded, references, max_new: int, gen, results, report, seed: int,
+        tracing: bool = False,
     ) -> None:
         """Generate one prompt group with reference-guided speculation: the
         shared prefill, then a host loop of spec steps. Every step retires
@@ -634,11 +657,15 @@ class TorchBackend:
         lens_full[: len(group)] = ref_lens_np
 
         t_pre = time.time()
+        t_pre_m = time.monotonic()
         cur, cache, pad_lens, done = self._prefill_group(
             tokens_np, pads_np, S, C, gen, seed, range(B)
         )
         prev_done = done.cpu().numpy()  # seeds the host loop's exit condition
         self.stats.add_phase("prefill", time.time() - t_pre)
+        if tracing:
+            emit("spec_prefill", t_pre_m, time.time() - t_pre, B=B, S=S,
+                 occupancy=len(group), synced=True)
         self.stats.batches += 1
         self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
 
@@ -655,6 +682,7 @@ class TorchBackend:
         steps_live = np.zeros((B,), dtype=np.int64)
         t_dec = time.time()
         while not prev_done.all():
+            t_step = time.monotonic() if tracing else 0.0
             n_draft, acc = self._spec_step(state, gen, seed, S, C, max_new)
             # ONE fetch per verify step: draft/accept counts feed the stats,
             # done drives the loop's exit
@@ -669,6 +697,11 @@ class TorchBackend:
             state["e_host"] += np.where(live, acc_h + 1, 0)
             prev_done = done_h.astype(bool)
             self.stats.spec_verify_steps += 1
+            if tracing:
+                # the nd/acc/done fetch above is the sync the loop already pays
+                emit("spec_step", t_step, time.monotonic() - t_step, B=B,
+                     k=gen.spec_k, live=int((~prev_done).sum()),
+                     drafted=int(nd_h.sum()), accepted=int(acc_h.sum()))
         self.stats.add_phase("spec_decode", time.time() - t_dec)
         self.stats.spec_draft_tokens += int(drafted[: len(group)].sum())
         self.stats.spec_accepted_tokens += int(accepted[: len(group)].sum())
@@ -801,7 +834,7 @@ class TorchBackend:
     # -- prefix KV cache (vnsum_tpu_torch.cache) ---------------------------
 
     def _prepare_resume(self, group, encoded, matches, pad_lens, B: int, S: int,
-                        max_new: int):
+                        max_new: int, tracing: bool = False):
         """The skip boundary K for one packed group, and a fresh cache of
         S + max_new slots seeded with the group's matched prefix blocks.
 
@@ -838,6 +871,7 @@ class TorchBackend:
         if nb_max == 0:
             return None
         t0 = time.time()
+        t0_m = time.monotonic()
         ids = np.full((B, nb_max), pc.store.scratch_id, dtype=np.int64)
         for row, blocks in enumerate(ids_rows):
             ids[row, : len(blocks)] = blocks
@@ -847,9 +881,13 @@ class TorchBackend:
         self._sync()
         self.stats.add_phase("cache_gather", time.time() - t0)
         skipped = [max(K - int(pad_lens[row]), 0) for row in range(len(group))]
+        if tracing:
+            emit("cache_gather", t0_m, time.time() - t0, B=B, K=K,
+                 blocks=int((ids != pc.store.scratch_id).sum()), hit_tokens=sum(skipped))
         return K, cache, skipped
 
-    def _cache_insert(self, cache, group, encoded, matches, hints, pad_lens) -> int:
+    def _cache_insert(self, cache, group, encoded, matches, hints, pad_lens,
+                      tracing: bool = False) -> int:
         """Index the freshly prefilled prompts and copy their new prefix
         blocks into the pool. A cache_hint bounds a prompt's insertion to
         its hint-covered prefix (template headers, carried-forward
@@ -861,6 +899,8 @@ class TorchBackend:
             return 0
         BLK = pc.block_tokens
         t0 = time.time()
+        t0_m = time.monotonic()
+        evict0 = pc.index.stats.evictions
         rows = []
         for row, i in enumerate(group):
             ids = encoded[i]
@@ -874,6 +914,9 @@ class TorchBackend:
         new_blocks = pc.insert_rows(cache, rows)
         self._sync()
         self.stats.add_phase("cache_insert", time.time() - t0)
+        if tracing and (new_blocks or pc.index.stats.evictions != evict0):
+            emit("cache_insert", t0_m, time.time() - t0, blocks=new_blocks,
+                 evictions=pc.index.stats.evictions - evict0)
         return new_blocks
 
     def _hint_prefix_len(self, hint: str, ids: list[int]) -> int:
@@ -967,15 +1010,21 @@ class TorchBackend:
         # cleared up front: a call that errors mid-loop leaves no previous
         # call's attribution behind
         self._cache_report = []
+        # telemetry gate (obs/trace.py), resolved once per call: untraced
+        # runs skip every span's timestamps and host reads
+        tracing = current_collector() is not None
         max_input = self.cfg.max_seq_len - max_new
         encoded: list[list[int]] = []
         t_enc = time.time()
+        t_enc_m = time.monotonic()
         for ids in self.tok.encode_batch(prompts, add_bos=True):
             if len(ids) > max_input:
                 ids = ids[:max_input]
             encoded.append(ids)
             self.stats.prompt_tokens += len(ids)
         self.stats.add_phase("tokenize_host", time.time() - t_enc)
+        if tracing:
+            emit("tokenize", t_enc_m, time.time() - t_enc, prompts=len(prompts))
 
         # prefix KV cache: match every prompt (pinning the matched blocks
         # for the call) and order rows by UNCOVERED suffix: a group's skip K
@@ -987,7 +1036,12 @@ class TorchBackend:
         matches = None
         cache_report = [0] * len(encoded)
         if use_cache:
+            t_cl = time.time()
+            t_cl_m = time.monotonic() if tracing else 0.0
             matches = [pc.match(ids, max_tokens=len(ids) - 1) for ids in encoded]
+            if tracing:
+                emit("cache_lookup", t_cl_m, time.time() - t_cl, prompts=len(encoded),
+                     hit_tokens=sum(m.tokens for m in matches))
             order = sorted(range(len(encoded)),
                            key=lambda i: (len(encoded[i]) - matches[i].tokens, len(encoded[i])))
         else:
@@ -1004,30 +1058,40 @@ class TorchBackend:
                 # a step, so it takes the plain path (same greedy output)
                 if spec_on and any(references[i] for i in group):
                     self._run_group_spec(
-                        group, encoded, references, max_new, gen, results, spec_report, seed
+                        group, encoded, references, max_new, gen, results, spec_report, seed,
+                        tracing,
                     )
                     continue
                 tokens, pad_lens, B, S = self._pack_group(group, encoded, max_new)
                 resume = None
                 if use_cache:
                     resume = self._prepare_resume(group, encoded, matches, pad_lens, B, S,
-                                                  max_new)
+                                                  max_new, tracing)
                     if resume is not None:
                         for row, i in enumerate(group):
                             cache_report[i] = resume[2][row]
                 steps = self.stats.decode_steps
+                t_disp = time.monotonic() if tracing else 0.0
                 out, cache = self._run_group(tokens, pad_lens, B, S, max_new, gen, seed,
-                                             resume and resume[:2])
+                                             resume and resume[:2], len(group), tracing)
+                if tracing:
+                    # the group's whole device call, its result fetched
+                    emit("dispatch", t_disp, time.monotonic() - t_disp, B=B, S=S,
+                         occupancy=len(group), max_new=max_new)
                 self.stats.batches += 1
                 self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
                 self.stats.steps_by_bucket[(B, S)] = (
                     self.stats.steps_by_bucket.get((B, S), 0) + self.stats.decode_steps - steps
                 )
                 if use_cache:
-                    self._cache_insert(cache, group, encoded, matches, cache_hints, pad_lens)
+                    self._cache_insert(cache, group, encoded, matches, cache_hints, pad_lens,
+                                       tracing)
                 del cache  # freed before the next group allocates its own
+                t_detok = time.monotonic() if tracing else 0.0
                 for row, i in enumerate(group):
                     results[i] = self._detok(out[row], tuple(gen.eos_ids))
+                if tracing:
+                    emit("detokenize", t_detok, time.monotonic() - t_detok, rows=len(group))
         finally:
             if matches is not None:
                 for m in matches:

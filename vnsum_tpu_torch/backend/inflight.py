@@ -16,8 +16,11 @@ Greedy per-request outputs are identical to the one-shot path's. Sampled
 streams key on (loop seed, request uid, row-local step), so a request's
 randomness does not depend on its slot, its join segment or its companions.
 
-The loop is driven from ONE thread; nothing here locks. Not ported: fault
-injection and the transfer guard, which come with their own slices.
+The loop is driven from ONE thread; nothing here locks. With a trace
+collector installed (``obs/trace.py``) each join emits a ``prefill`` span
+and each dispatch a ``decode_seg`` span, both ending at syncs the loop
+already pays. Not ported: the engine's fault sites and the transfer guard
+(ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..obs.trace import current_collector, emit
 from .base import left_pad_batch
 
 
@@ -163,6 +167,7 @@ class TorchSlotLoop:
             raise RuntimeError("slot loop is closed")
         b = self.backend
         t_admit = time.monotonic()
+        tracing = current_collector() is not None
         items = list(items)
         if not items or not self.free:
             return [], []
@@ -200,10 +205,11 @@ class TorchSlotLoop:
             if matches is not None:
                 group_matches = [matches[i] for i in take]
                 resume = b._prepare_resume(list(range(len(take))), group_ids, group_matches,
-                                           pad_lens, Bj, self.S, self.max_new)
+                                           pad_lens, Bj, self.S, self.max_new, tracing)
             uids = [self._uid_next + j for j in range(len(take))]
             self._uid_next += len(take)
             uids_row = uids + [0] * (Bj - len(take))
+            t_pre = time.monotonic()
             first, join_cache, join_pads, done0 = b._prefill_group(
                 tokens, pad_lens, self.S, self.S + self.max_new, self.gen, self.seed, uids_row,
                 resume and resume[:2],
@@ -212,7 +218,7 @@ class TorchSlotLoop:
                 # insertion reads the join cache's prefix slots before the
                 # adopt scatters it into the resident batch
                 b._cache_insert(join_cache, list(range(len(take))), group_ids, group_matches,
-                                [hints[i] for i in take], pad_lens)
+                                [hints[i] for i in take], pad_lens, tracing)
             # the joiners' first token is their TTFT: bound the prefill with
             # the cheapest output so the anchor is honest
             done0.cpu()
@@ -250,6 +256,9 @@ class TorchSlotLoop:
             hit = sum(skipped)
             st.cache_hit_tokens += hit
             st.cache_miss_tokens += sum(len(g) for g in group_ids) - hit
+        if tracing:
+            emit("prefill", t_pre, prefill_end - t_pre, B=Bj, S=self.S,
+                 occupancy=len(take), synced=True)
         return admissions, rejected
 
     # -- one decode segment ----------------------------------------------
@@ -287,6 +296,7 @@ class TorchSlotLoop:
         if not res.live:
             return res
         b = self.backend
+        tracing = current_collector() is not None
         t0 = time.monotonic()
         self._out_snap = None
         st = self._st
@@ -321,6 +331,9 @@ class TorchSlotLoop:
             self._admissions.pop(s, None)
         self.segments += res.device_segments
         self.fused_dispatches += 1
+        if tracing:
+            emit("decode_seg", t0, res.seconds, B=self.slots, S=self.S, live=res.live,
+                 refill=True, fused=res.device_segments)
         return res
 
     # -- preemption / streaming ------------------------------------------

@@ -46,6 +46,23 @@ def model_name_safe(model: str) -> str:
     return model.replace(":", "_").replace(".", "_")
 
 
+def torch_model_args(model: str, weights_dir: str | None, tokenizer: str, dtype: str,
+                     device) -> dict:
+    """TorchBackend's model and tokenizer arguments. With ``weights_dir``,
+    the checkpoint loaded onto ``device`` and its own tokenizer,
+    ``hf:<weights_dir>``, unless ``tokenizer`` names an ``hf:`` one;
+    otherwise the registry's config for ``model``, whose weights the
+    backend draws from its seed. The pipeline runner and the server build
+    their engines through this."""
+    if weights_dir:
+        _, loaded = load_hf_checkpoint(weights_dir, dtype=getattr(torch, dtype), device=device)
+        tok = tokenizer if tokenizer.startswith("hf:") else f"hf:{weights_dir}"
+        return {"model": loaded, "tokenizer": tok}
+    if model not in MODEL_REGISTRY:
+        raise ValueError(f"unknown model {model!r}; have {sorted(MODEL_REGISTRY)}")
+    return {"model_config": MODEL_REGISTRY[model](), "tokenizer": tokenizer}
+
+
 class PipelineRunner:
     def __init__(
         self,
@@ -96,23 +113,8 @@ class PipelineRunner:
         raise ValueError(f"unknown backend {cfg.backend!r}")
 
     def _resolve_model(self, model: str) -> dict:
-        """TorchBackend's model and tokenizer arguments. With weights_dir,
-        the checkpoint loaded onto the runner's device and its own
-        tokenizer, ``hf:<weights_dir>``, unless the config names an
-        ``hf:`` tokenizer; otherwise the registry's config, whose weights
-        the backend draws from its seed."""
         cfg = self.config
-        if cfg.weights_dir:
-            _, loaded = load_hf_checkpoint(
-                cfg.weights_dir, dtype=getattr(torch, cfg.dtype), device=self.device)
-            tokenizer = (cfg.tokenizer if cfg.tokenizer.startswith("hf:")
-                         else f"hf:{cfg.weights_dir}")
-            return {"model": loaded, "tokenizer": tokenizer}
-        if model not in MODEL_REGISTRY:
-            raise ValueError(
-                f"unknown model {model!r}; have {sorted(MODEL_REGISTRY)}"
-            )
-        return {"model_config": MODEL_REGISTRY[model](), "tokenizer": cfg.tokenizer}
+        return torch_model_args(model, cfg.weights_dir, cfg.tokenizer, cfg.dtype, self.device)
 
     def preflight(self, backend: Backend) -> None:
         """Device check before any work: a run asked to use the card fails

@@ -23,14 +23,23 @@ class StrategyResult:
 
 
 class Strategy(Protocol):
-    """A strategy instance holds only configuration; every run's mutable
-    state is local to the summarize_batch call."""
+    """Re-entrancy contract (the serving layer depends on it): a strategy
+    instance holds only configuration, every run's mutable state is local
+    to the summarize_batch call, so ONE instance may serve concurrent calls
+    from many threads. The optional ``backend`` override lets each call
+    submit its rounds through a different Backend (the server passes a
+    per-request, deadline-bound QueuedBackend into a shared strategy
+    instance); token counting stays on the construction-time backend."""
 
     name: str
 
-    def summarize_batch(self, docs: list[str]) -> list[StrategyResult]: ...
+    def summarize_batch(
+        self, docs: list[str], *, backend: Backend | None = None
+    ) -> list[StrategyResult]: ...
 
-    def summarize(self, doc: str) -> StrategyResult: ...
+    def summarize(
+        self, doc: str, *, backend: Backend | None = None
+    ) -> StrategyResult: ...
 
 
 class _BatchCounter:

@@ -123,8 +123,10 @@ class MapReduceCritiqueStrategy:
             summaries[i] = refined
         return summaries
 
-    def summarize_batch(self, docs: list[str]) -> list[StrategyResult]:
-        gen = _BatchCounter(self.backend, self.max_new_tokens)
+    def summarize_batch(
+        self, docs: list[str], *, backend: Backend | None = None
+    ) -> list[StrategyResult]:
+        gen = _BatchCounter(backend or self.backend, self.max_new_tokens)
 
         chunks_per_doc = [self.splitter.split_text(d) or [d] for d in docs]
         results = [
@@ -205,5 +207,5 @@ class MapReduceCritiqueStrategy:
             results[di].llm_calls = gen.calls_by_owner.get(di, 0)
         return results
 
-    def summarize(self, doc: str) -> StrategyResult:
-        return self.summarize_batch([doc])[0]
+    def summarize(self, doc: str, *, backend: Backend | None = None) -> StrategyResult:
+        return self.summarize_batch([doc], backend=backend)[0]

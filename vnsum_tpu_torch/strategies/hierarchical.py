@@ -98,8 +98,10 @@ class HierarchicalStrategy:
         )
         return reduces, [len(c) for c in chunks_per]
 
-    def summarize_tree_batch(self, roots: list[Node]) -> list[StrategyResult]:
-        gen = _BatchCounter(self.backend, self.max_new_tokens)
+    def summarize_tree_batch(
+        self, roots: list[Node], *, backend: Backend | None = None
+    ) -> list[StrategyResult]:
+        gen = _BatchCounter(backend or self.backend, self.max_new_tokens)
         results = [StrategyResult(summary="") for _ in roots]
         targets = [min(self.max_depth, tree_depth(r)) for r in roots]
         total_chunks = [0] * len(roots)
@@ -147,7 +149,9 @@ class HierarchicalStrategy:
         return results
 
     # plain-text entry: treat the whole document as a single Document node
-    def summarize_batch(self, docs: list[str]) -> list[StrategyResult]:
+    def summarize_batch(
+        self, docs: list[str], *, backend: Backend | None = None
+    ) -> list[StrategyResult]:
         roots = [
             {
                 "type": "Document",
@@ -156,7 +160,7 @@ class HierarchicalStrategy:
             }
             for d in docs
         ]
-        return self.summarize_tree_batch(roots)
+        return self.summarize_tree_batch(roots, backend=backend)
 
-    def summarize(self, doc: str) -> StrategyResult:
-        return self.summarize_batch([doc])[0]
+    def summarize(self, doc: str, *, backend: Backend | None = None) -> StrategyResult:
+        return self.summarize_batch([doc], backend=backend)[0]

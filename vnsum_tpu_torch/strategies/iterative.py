@@ -44,8 +44,10 @@ class IterativeStrategy:
         )
         return cls(backend, splitter, max_new_tokens=config.max_new_tokens, **kw)
 
-    def summarize_batch(self, docs: list[str]) -> list[StrategyResult]:
-        gen = _BatchCounter(self.backend, self.max_new_tokens)
+    def summarize_batch(
+        self, docs: list[str], *, backend: Backend | None = None
+    ) -> list[StrategyResult]:
+        gen = _BatchCounter(backend or self.backend, self.max_new_tokens)
         chunks_per_doc = [self.splitter.split_text(d) or [d] for d in docs]
         summaries = [""] * len(docs)
         max_rounds = max(len(c) for c in chunks_per_doc) if docs else 0
@@ -95,5 +97,5 @@ class IterativeStrategy:
             for di in range(len(docs))
         ]
 
-    def summarize(self, doc: str) -> StrategyResult:
-        return self.summarize_batch([doc])[0]
+    def summarize(self, doc: str, *, backend: Backend | None = None) -> StrategyResult:
+        return self.summarize_batch([doc], backend=backend)[0]

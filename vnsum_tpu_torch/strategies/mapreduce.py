@@ -59,8 +59,10 @@ class MapReduceStrategy:
     def _reduce_one(self, texts: list[str]) -> str:
         return self.reduce_prompt.format(docs="\n\n".join(texts))
 
-    def summarize_batch(self, docs: list[str]) -> list[StrategyResult]:
-        gen = _BatchCounter(self.backend, self.max_new_tokens)
+    def summarize_batch(
+        self, docs: list[str], *, backend: Backend | None = None
+    ) -> list[StrategyResult]:
+        gen = _BatchCounter(backend or self.backend, self.max_new_tokens)
 
         chunks_per_doc = [self.splitter.split_text(d) or [d] for d in docs]
         results = [
@@ -143,5 +145,5 @@ class MapReduceStrategy:
             r.llm_calls = gen.calls_by_owner.get(di, 0)
         return results
 
-    def summarize(self, doc: str) -> StrategyResult:
-        return self.summarize_batch([doc])[0]
+    def summarize(self, doc: str, *, backend: Backend | None = None) -> StrategyResult:
+        return self.summarize_batch([doc], backend=backend)[0]

@@ -76,8 +76,10 @@ class SkeletonStrategy:
             points = [stripped] if stripped else ["Tóm tắt nội dung chính."]
         return points[: self.max_points]
 
-    def summarize_batch(self, docs: list[str]) -> list[StrategyResult]:
-        gen = _BatchCounter(self.backend, self.max_new_tokens)
+    def summarize_batch(
+        self, docs: list[str], *, backend: Backend | None = None
+    ) -> list[StrategyResult]:
+        gen = _BatchCounter(backend or self.backend, self.max_new_tokens)
         truncated = [self._truncate(d) for d in docs]
 
         outlines = gen(
@@ -117,5 +119,5 @@ class SkeletonStrategy:
             for di in range(len(docs))
         ]
 
-    def summarize(self, doc: str) -> StrategyResult:
-        return self.summarize_batch([doc])[0]
+    def summarize(self, doc: str, *, backend: Backend | None = None) -> StrategyResult:
+        return self.summarize_batch([doc], backend=backend)[0]
