@@ -56,6 +56,13 @@ Phases, each raising on failure (so any failure exits non-zero):
    32768, q_offset 0, bf16, the pads of its two prompts, layers 0 and 27 of
    28), run over the whole sequence and held to its plain version on four
    512-query slices (its first 512 queries see no key and must be 0);
+   the fixture phase's shape (FIXTURE_KV = 1, FIXTURE_G = 2, head_dim 128):
+   K1 and K2 at its map and reduce batches (FIXTURE_SHAPES, C = S + 128),
+   bf16 and int8, K3 at its spec step (Sq = 9: 18 rows, C = S + 137) and
+   slot segment (Sq = 1: 2 rows, C = 2048) with K1 over the spec caches, K1
+   at the slot loop's join groups (B = 1, 2, 4) and at the warm resume
+   (Sq = 128 at q_offset 1792), bf16 and int8, and at one row of the
+   margin rule's recompute (B = 1, S = C = 1280-1664, int8);
    [int8] (a): the int8-weight GEMV at every int8 matmul shape of
    Llama-3.2-3B (wq/wo 3072 x 3072, wk/wv 1024 x 3072, w_gate/w_up 8192 x
    3072, w_down 3072 x 8192, the tied head 128256 x 3072 in head mode) and
@@ -72,7 +79,9 @@ Phases, each raising on failure (so any failure exits non-zero):
    the filler row; Sq=1, 4 rows) with K1 over the same int8 caches, and the
    GEMV at every Phi-4-14B shape (PHI4_GEMV_SHAPES: wo 5120 x 5120, w_down
    5120 x 17920, the untied head 100352 x 5120; PHI4_GEMV_GROUPS: q/k/v
-   5120 + 1280 + 1280, gate/up 17920 + 17920) at the same four row counts;
+   5120 + 1280 + 1280, gate/up 17920 + 17920) at the same four row counts,
+   and at the fixture's (FIXTURE_GEMV_SHAPES, FIXTURE_GEMV_GROUPS: K = 256
+   and 512, the cluster split of w_down's 512 leaving 256 a block);
    [int8] (b), after phase 3:
    W8A8's s8 x s8 product (torch._int_mm) at a prefill's shape equals the
    CPU's int32 product bit for bit;
@@ -309,6 +318,30 @@ Phases, each raising on failure (so any failure exits non-zero):
    drains within its budget and leaves no scheduler or watchdog thread;
    ``[serve]`` lines give each arm's wall, TTFT and end-to-end p50/p99 from
    the server's own histograms, requests/s, segments and peak memory;
+9d. fixture (ROADMAP A2b): the committed trained fixture
+   data/fixtures/llama_k128 (scripts/make_torch_fixture.py: 2 layers,
+   hidden 256, 2 query heads on 1 KV head at head_dim 128, bf16, trained on
+   data/vi_eval) with its own byte-level BPE tokenizer, read by text/bpe.py
+   with no transformers, at 128 new tokens, every batch one of phase 3's
+   FIXTURE_SHAPES: (a) the CLI's map-reduce with --weights-dir, int8 cache,
+   decode captured, K1 and K2 exactly 2 x the record's forwards and steps,
+   ROUGE-1/2/L, the rows that stop at EOS and the mean output tokens
+   logged; (b) the arms of scripts/make_quality_lossy_ab.py on the map
+   prompts (the f32 dense oracle, no kernel launched; bf16 through the
+   kernels over a bf16 cache; the int8 cache; --quantize, the GEMV at K =
+   256 and 512; W8A8), each arm's launches exact and its string agreement
+   and ROUGE-L against the oracle logged; (c) the spec path through
+   PipelineRunner (spec_k 8, K3 at 18 rows) and, on its backend, the map
+   prompts with their chunks and the oracle as references, drafts and
+   acceptances logged, the oracle accepting; (d) the slot loop (S = 1920,
+   fused 4); (e) the map prompts cold then warm through a 256-block prefix
+   cache, the warm call resuming at K = 1792 (K1 at q_offset 1792). Every
+   arm's launches exact. The margin rule (FIXTURE_MARGIN_RTOL): every row
+   whose ids differ from its reference arm's (the oracle for (b), the
+   int8-cache arm's one-shot run for (c) and (d), the cold call for (e))
+   logs its first differing step and the reference's top-1 - top-2 logit
+   margin there over its largest |logit|, and one above the path's limit
+   fails the run; agreement rates are logged, not gated;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -352,7 +385,8 @@ resume shape, and the GEMV at Phi-4's widths, entries of their own), whose
 ``launches`` sums the path phases (the head_dim-256 entries: the Gemma3
 phase's; the group-4 and Phi-4 ones: the Phi-4 and Qwen3-8B phases'; the
 resume entry: K1's launches in the resumed prefill forwards of phases
-9b and 9c); the last line
+9b and 9c; K1, K2, K3 and the GEMV entries also count phase 9d's at the
+fixture's shape); the last line
 is the device record. A ``[phase]`` line after each phase gives its
 seconds and the run's so far.
 Without a card the script exits non-zero and prints neither.
@@ -439,6 +473,26 @@ SPEC_LOGITS_RTOL = 0.1
 # layers as the spec gate's do. The limit is the spec gate's; the planted
 # fault (a 512-slot split dropped) must exceed it.
 STEP_KERNEL_RTOL = 0.1
+# the fixture phase (9d, trained weights): the margin rule. A row whose
+# greedy ids differ from its reference arm's logs its first differing step
+# t and the reference's top-1 - top-2 logit margin at t over its largest
+# |logit|, recomputed through the reference arm's own prefill (K1 over its
+# cache type, or its dense forward) over the prompt and the reference's
+# first t tokens. Where the arm and its reference run the same weights and
+# cache type and differ by summation order and tiling alone, the limit is
+# the gate that bounds those differences, the most they were shown to move
+# a logit (relative to the largest): a token whose margin is larger cannot
+# flip by rounding, so a first difference above it is a fault. The spec
+# path against the one-shot run: the spec gate's; the slot loop: the
+# one-step K3/K2 gate's; a warm resume against the cold call: the resume
+# gate's (RESUME_LOGITS_RTOL, 0.1). The lossy arms against the f32 dense
+# oracle change the arithmetic itself (bf16 weights' products, the int8
+# cache's 1/254 steps, int8 weights, W8A8), which no gate bounds: on this
+# trained model the int8 cache flips a token at a margin of 0.19, through
+# the kernels on the card as through their plain versions on the CPU.
+# Their margins are logged, not gated (None)
+FIXTURE_MARGIN_RTOL = {"lossy": None, "spec": SPEC_LOGITS_RTOL, "slot": STEP_KERNEL_RTOL,
+                       "resume": 0.1}
 # phase 6e: the eval encoder's f32 token embeddings on the card against the
 # same weights on the CPU, max |card - cpu|. Every matmul is f32 on both
 # (TF32 off) and differs only in summation order, ~1e-6 relative per
@@ -1229,9 +1283,69 @@ def phase_correctness(torch) -> dict:
     del cache
     torch.cuda.empty_cache()
 
+    # the fixture phase (9d): the trained fixture's shape, GQA group 2 on
+    # one KV head at head_dim 128, at every batch its paths send. K1 and K2
+    # at the map and reduce batches (FIXTURE_SHAPES, C = S + 128), bf16 (a
+    # lossy arm's cache) and int8, decode at the first and the last step;
+    # K3 at fixture_verify_cases (the spec step's 18 rows, the slot
+    # segment's 2), bf16 and int8 at the map batch, with K1 over the spec
+    # path's int8 caches (C = S + 137); K1 at the slot loop's join groups
+    # and at the warm resume (Sq = 128 at q_offset FIXTURE_RESUME_K)
+    FH = FIXTURE_KV * FIXTURE_G
+    for S, pads_h in FIXTURE_SHAPES.items():
+        B, C = len(pads_h), S + FIXTURE_NEW
+        for quantized in (True, False):
+            cache = make_cache(torch, 2, B, FIXTURE_KV, C, hd, quantized, 170 + S + quantized, dev)
+            prefill(f"fixture int8={quantized} B={B} S={S} C={C} layer=1 (fixture batch)",
+                    rand_q(torch, (B, S, FH, hd), 171 + S, dev), cache, 1, pads_of(pads_h), 0,
+                    0, empty_row=B - 1, g=FIXTURE_G)
+            for fill in (S, C - 1):
+                decode(f"fixture int8={quantized} B={B} C={C} fill={fill} layer=1 (fixture "
+                       "batch)", rand_q(torch, (B, 1, FH, hd), 172 + fill, dev), cache, 1,
+                       pads_of(pads_h), fill, 0, g=FIXTURE_G)
+            del cache
+    for what, S, Sq, C, fills_h, pads_h in fixture_verify_cases():
+        B = len(fills_h)
+        for quantized in (True, False) if S == max(FIXTURE_SHAPES) else (True,):
+            cache = make_cache(torch, 2, B, FIXTURE_KV, C, hd, quantized, 180 + C + quantized,
+                               dev)
+            if quantized and Sq > 1:
+                prefill(f"fixture int8=True B={B} S={S} C={C} layer=1 (fixture {what})",
+                        rand_q(torch, (B, S, FH, hd), 181 + S, dev), cache, 1,
+                        pads_of(FIXTURE_SHAPES[S]), 0, 0, empty_row=B - 1, g=FIXTURE_G)
+            verify(f"fixture int8={quantized} B={B} Sq={Sq} C={C} layer=1 (fixture {what})",
+                   rand_q(torch, (B, Sq, FH, hd), 182 + C, dev), cache, 1, pads_h, fills_h,
+                   blind=((5, slice(0, 3)),) if Sq > 1 else (), g=FIXTURE_G)
+            del cache
+    S = max(FIXTURE_SHAPES)
+    C, K = S + FIXTURE_NEW, FIXTURE_RESUME_K
+    for B in FIXTURE_JOIN_BATCHES:
+        cache = make_cache(torch, 2, B, FIXTURE_KV, C, hd, True, 190 + B, dev)
+        prefill(f"fixture int8=True B={B} S={S} C={C} layer=1 (fixture slot join group)",
+                rand_q(torch, (B, S, FH, hd), 191 + B, dev), cache, 1,
+                pads_of([450 + 37 * r for r in range(B)]), 0, 0, g=FIXTURE_G)
+        del cache
+    for quantized in (True, False):
+        cache = make_cache(torch, 2, 8, FIXTURE_KV, C, hd, quantized, 195 + quantized, dev)
+        prefill(f"fixture int8={quantized} B=8 S={S} C={C} q_offset={K} layer=1 (fixture "
+                "prefix-cache resume)", rand_q(torch, (8, S - K, FH, hd), 196, dev), cache, 1,
+                pads_of([0, 37, K - 300, K - 1, K + 1, K + 60, S - 1, S]), 0, K, empty_row=7,
+                g=FIXTURE_G)
+        del cache
+    # the margin rule's recompute: one row, left-padded to a multiple of 128
+    # slots, C = S, through the one-shot run's int8 cache
+    for S in FIXTURE_MARGIN_S:
+        cache = make_cache(torch, 2, 1, FIXTURE_KV, S, hd, True, 197 + S, dev)
+        prefill(f"fixture int8=True B=1 S=C={S} layer=1 (fixture margin rule)",
+                rand_q(torch, (1, S, FH, hd), 198 + S, dev), cache, 1, pads_of([100]), 0, 0,
+                g=FIXTURE_G)
+        del cache
+    torch.cuda.empty_cache()
+
     partials_cases(torch, worst)
     gemv_cases(torch, worst)
     gemv_cases(torch, worst, PHI4_GEMV_SHAPES, PHI4_GEMV_GROUPS, "gemv_phi4", seed=500)
+    gemv_cases(torch, worst, FIXTURE_GEMV_SHAPES, FIXTURE_GEMV_GROUPS, seed=700)
     raise_if_failed()
     return worst
 
@@ -2982,12 +3096,11 @@ def phase_weights(torch, plain_summaries: dict) -> dict:
     loaded back: equal config and parameters, equal logits on one map-batch
     prefill forward, and the map-reduce run on the loaded model
     byte-identical to the pipeline phase's captured run with K1 = 28 x
-    prefill forwards and K2 = 28 x decode steps exactly. The card has no
-    ``transformers``, so the checkpoint's own ``hf:`` tokenizer cannot load
-    there: the run uses the byte tokenizer on TorchBackend(model=loaded),
-    and the CPU tests cover the runner's tokenizer rule for
-    ``--weights-dir``. The checkpoint is deleted at the end, also on
-    failure. Returns the run's launches."""
+    prefill forwards and K2 = 28 x decode steps exactly. The checkpoint
+    written here holds no tokenizer: the run uses the byte tokenizer on
+    TorchBackend(model=loaded), as the pipeline phase did (phase 9d runs
+    ``--weights-dir`` with a checkpoint's own tokenizer). The checkpoint is
+    deleted at the end, also on failure. Returns the run's launches."""
     from vnsum_tpu_torch.backend.base import left_pad_batch
     from vnsum_tpu_torch.backend.engine import TorchBackend
     from vnsum_tpu_torch.models.convert import load_hf_checkpoint, save_hf_checkpoint
@@ -4054,35 +4167,46 @@ def step_kernel_gate(torch, engine, prompts: list, label: str) -> None:
 
 
 def slot_loop(torch, model, prompts: list, oneshot: list, label: str, max_new: int,
-              fused_runs=(1, 4)) -> dict:
+              fused_runs=(1, 4), prompt_tokens: int = 4096, tokenizer: str = "byte",
+              rows: dict | None = None) -> dict:
     """Path (b) on ``model``: TorchBackend.start_slot_loop(slots=8,
-    prompt_tokens=4096, max_new_tokens=max_new, segment_tokens=32) fed the
-    map prompts in two waves and drained, at each of ``fused_runs``: every
-    request completes, launches exactly n_layers x the join groups' prefill
-    forwards (K1) and x the decode steps run (K3), no other kernel.
-    Agreement with ``oneshot`` is logged, not gated. Returns the
-    launches."""
+    prompt_tokens=``prompt_tokens``, max_new_tokens=max_new,
+    segment_tokens=32) fed the map prompts in two waves and drained, at each
+    of ``fused_runs``: every request completes, launches exactly n_layers x
+    the join groups' prefill forwards (K1) and x the decode steps run (K3),
+    no other kernel. Agreement with ``oneshot`` is logged, not gated. With
+    ``rows``, each run's generated id rows by prompt index go into
+    ``rows[fused]``. Returns the launches."""
     from vnsum_tpu_torch.backend.engine import TorchBackend
 
     n_layers = model.cfg.n_layers
-    b = TorchBackend(model=model, batch_size=8, max_new_tokens=max_new, segment_tokens=32,
-                     device="cuda")
+    b = TorchBackend(model=model, tokenizer=tokenizer, batch_size=8, max_new_tokens=max_new,
+                     segment_tokens=32, device="cuda")
+    detokenized: list = []
+    if rows is not None:
+        detok = b._detok
+        b._detok = lambda ids, extra_eos=(): detokenized.append(ids) or detok(ids, extra_eos)
     total = dict.fromkeys(COUNTERS, 0)
     texts = {}
     for fused in fused_runs:
         reset_launches()
         forwards0 = b.stats.prefill_forwards
         t0 = time.perf_counter()
-        loop = b.start_slot_loop(slots=8, prompt_tokens=4096, max_new_tokens=max_new,
+        loop = b.start_slot_loop(slots=8, prompt_tokens=prompt_tokens, max_new_tokens=max_new,
                                  fused_segments=fused)
         outs: dict = {}
+        ids: dict = {}
         adm, rej = loop.admit([(i, prompts[i], None) for i in range(3)])
         if rej or len(adm) != 3:
             raise AssertionError(f"first wave: {len(adm)} admitted, {rej} rejected")
         pending = list(range(3, len(prompts)))
         for _ in range(64):
-            for c in loop.step().completions:
+            n0 = len(detokenized)
+            # a step detokenizes its completions in their order
+            for j, c in enumerate(loop.step().completions):
                 outs[c.key] = c.text
+                if rows is not None:
+                    ids[c.key] = detokenized[n0 + j]
             if pending and loop.free:
                 adm, rej = loop.admit([(i, prompts[i], None) for i in pending])
                 if rej:
@@ -4099,6 +4223,8 @@ def slot_loop(torch, model, prompts: list, oneshot: list, label: str, max_new: i
             "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
             "verify": n_layers * loop.decode_steps})
         texts[fused] = [outs[i] for i in range(len(prompts))]
+        if rows is not None:
+            rows[fused] = {i: trimmed_ids(b, ids[i]) for i in ids}
         log(f"[{label}] fused={fused}: {len(prompts)}/{len(prompts)} requests done, "
             f"{loop.refills} admitted, {loop.fused_dispatches} dispatches, {loop.segments} "
             f"segments, {loop.decode_steps} decode steps, wall {wall:.2f}s "
@@ -4233,13 +4359,14 @@ def spy_cache(torch, b) -> dict:
     return state
 
 
-def cache_arm(torch, b, label: str, prompts: list, hints, spy) -> dict:
+def cache_arm(torch, b, label: str, prompts: list, hints, spy, rows: dict | None = None) -> dict:
     """One generate call of ``prompts`` on ``b``: launches exactly
     n_layers x the call's prefill forwards (K1) and decode steps (K2), no
     other kernel; its decode steps captured; with the prefix cache on, the
     per-prompt report, the hit and miss counters and the index's stats
     consistent with one another, no pin left. Logs hits, misses, prefill,
-    gather and insert seconds, the pool's bytes, peak memory and K."""
+    gather and insert seconds, the pool's bytes, peak memory and K. With
+    ``rows``, the call's generated id rows by prompt index go into it."""
     st, n_layers = b.stats, b.cfg.n_layers
     before = {k: getattr(st, k) for k in (
         "prefill_forwards", "decode_steps", "captured_steps", "graph_captures",
@@ -4252,7 +4379,12 @@ def cache_arm(torch, b, label: str, prompts: list, hints, spy) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    texts = b.generate(prompts, cache_hints=None if hints is None else [hints] * len(prompts))
+    kw = {"cache_hints": None if hints is None else [hints] * len(prompts)}
+    if rows is None:
+        texts = b.generate(prompts, **kw)
+    else:
+        texts, got = generate_rows(b, prompts, **kw)
+        rows.update(got)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4821,6 +4953,466 @@ def phase_serve(torch, model) -> tuple[dict, int]:
     return total, spy["resume_launches"]
 
 
+# -- phase 9d -----------------------------------------------------------------
+
+# the fixture phase: the committed trained fixture (data/fixtures/llama_k128,
+# built by scripts/make_torch_fixture.py: 2 layers, hidden 256, GQA group 2
+# on one KV head at head_dim 128, max_seq_len 2048, trained on data/vi_eval)
+# through --weights-dir, its own byte-level BPE tokenizer read by
+# text/bpe.py. At 128 new tokens the map prompts (1,194-1,482 tokens) take
+# S = 2048 - 128 = 1920 (the bucket fallback), C = 2048; the reduce prompts
+# (the template's 138 tokens and one map summary) S = 512. The spec path's
+# caches are C = S + 137; the slot loop's S = 1920, its joins B = 1-4; a warm
+# map batch resumes at K = 1792 (S less a row's uncovered last block, at
+# most 64 tokens, floored to the 128-slot grid): Sq = 128 queries. Phase 3
+# checks K1, K2 and K3 at each (FIXTURE_SHAPES: the batches' pads, an
+# all-pad filler row last), and the phase fails on a batch outside them
+FIXTURE_DIR = ROOT / "data" / "fixtures" / "llama_k128"
+FIXTURE_NAME = "llama_k128"
+FIXTURE_NEW, FIXTURE_SPEC_K = 128, 8
+FIXTURE_KV, FIXTURE_G = 1, 2
+FIXTURE_SHAPES = {1920: [0, 37, 450, 520, 650, 700, 726, 1920],
+                  512: [0, 5, 60, 128, 200, 240, 250, 512]}
+FIXTURE_RESUME_K = 1792
+FIXTURE_JOIN_BATCHES = (1, 2, 4)
+FIXTURE_CACHE_BLOCKS = 256
+# the margin rule's recompute of a reference's logits: one row of a map
+# prompt (1,195-1,483 tokens with BOS) and up to 127 generated tokens,
+# left-padded to a multiple of 128 slots
+FIXTURE_MARGIN_S = (1280, 1408, 1536, 1664)
+# the fixture's int8 matmuls (weights [N, K]) and its two grouped launches
+FIXTURE_GEMV_SHAPES = {"wo": (256, 256), "w_down": (256, 512), "head": (384, 256)}
+FIXTURE_GEMV_GROUPS = {"q/k/v": ((256, 128, 128), 256), "gate/up": ((512, 512), 256)}
+
+
+def fixture_verify_cases() -> list:
+    """K3's cases at the fixture's shape: (what, S, Sq, C, fills, pads).
+    The spec step's map batch (S = 1920, Sq = 9, C = S + 137: 18 rows, the
+    <4,1> layout): rows 2-3 put their queries on both sides of the 512-slot
+    split boundary at 2048, row 4 is parked at e = max_new, row 5's pad
+    hides every key from its queries 0-2, row 7 is the all-pad filler; its
+    reduce batch (S = 512) the same kinds of rows; the slot segment (Sq = 1:
+    2 rows, C = 2048): fills S + t_b, row 6 a free slot (pad = S), row 7
+    parked at limit C."""
+    new, k1 = FIXTURE_NEW, FIXTURE_SPEC_K + 1
+    return [
+        ("spec S=1920", 1920, k1, 1920 + new + k1,
+         [1920, 1925, 2040, 2045, 1920 + new, 1990, 1920, 1931],
+         [0, 37, 450, 520, 650, 1993, 726, 1920]),
+        ("spec S=512", 512, k1, 512 + new + k1, [512, 517, 560, 600, 512 + new, 530, 512, 520],
+         [0, 5, 60, 128, 200, 533, 250, 512]),
+        ("slot segment", 1920, 1, 1920 + new,
+         [1920, 1925, 1937, 1984, 2020, 2047, 1923, 1920 + new],
+         [0, 37, 450, 520, 650, 700, 1920, 64]),
+    ]
+
+
+def trimmed_ids(backend, row) -> list:
+    """A generated id row cut at its first EOS or pad, as ints."""
+    from vnsum_tpu_torch.backend.base import trim_to_eos
+
+    return trim_to_eos([int(t) for t in row], backend.tok.eos_id, backend.tok.pad_id,
+                       tuple(backend.gen_cfg.eos_ids))
+
+
+def generate_rows(backend, prompts: list, **kw) -> tuple[list, dict]:
+    """``backend.generate(prompts, **kw)`` and its generated id rows by
+    prompt index, each cut at its EOS. generate packs its groups (plain and
+    speculative) through ``_pack_group`` and detokenizes their rows in
+    group order: the two hooked on the instance line rows up with
+    prompts."""
+    groups, rows = [], []
+    pack, detok = backend._pack_group, backend._detok
+
+    def pack_spy(group, *args, **kwargs):
+        groups.append(list(group))
+        return pack(group, *args, **kwargs)
+
+    backend._pack_group = pack_spy
+    backend._detok = lambda ids, extra_eos=(): rows.append(ids) or detok(ids, extra_eos)
+    try:
+        texts = backend.generate(prompts, **kw)
+    finally:
+        del backend._pack_group, backend._detok
+    order = [i for g in groups for i in g]
+    if sorted(order) != list(range(len(prompts))) or len(rows) != len(prompts):
+        raise AssertionError(f"{len(rows)} rows in groups {groups} for {len(prompts)} prompts")
+    return texts, {i: trimmed_ids(backend, r) for i, r in zip(order, rows)}
+
+
+def check_fixture_batches(label: str, batches) -> None:
+    """Every (B, S) a fixture run prefilled at is one FIXTURE_SHAPES holds
+    (B = 8), whose K1 and K2 phase 3 checked."""
+    got = {tuple(b) for b in batches}
+    if not got <= {(8, S) for S in FIXTURE_SHAPES}:
+        raise AssertionError(f"{label}: batches {sorted(got)} outside phase 3's "
+                             f"{sorted(FIXTURE_SHAPES)} at B=8")
+
+
+def first_difference(a: list, b: list):
+    """The first step at which two id rows differ (one ending before the
+    other included); None if they are equal."""
+    for t, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return t
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def reference_logits(torch, engine, ids: list):
+    """The last-position logits of ``engine`` (a reference arm's backend)
+    over one token row, through its own prefill arithmetic: K1 over its
+    cache type (int8 or bf16) where it runs the kernels, the dense masked
+    forward where it does not; the row left-padded to a multiple of 128
+    slots, as the engine's buckets are. Touches no engine counter."""
+    from vnsum_tpu_torch.backend.base import left_pad_batch
+    from vnsum_tpu_torch.models.llama import (
+        init_kv_cache,
+        prefill_attention_mask,
+        prefill_positions,
+    )
+
+    S = -(-len(ids) // 128) * 128
+    if engine.use_kernels and S not in FIXTURE_MARGIN_S:
+        raise AssertionError(f"the margin rule's K1 at S={S}, outside phase 3's "
+                             f"{FIXTURE_MARGIN_S}")
+    tokens_np, pads_np = left_pad_batch([ids], 1, S, engine.tok.pad_id)
+    tokens = torch.from_numpy(tokens_np).to(engine.device)
+    pads = torch.from_numpy(pads_np).to(engine.device)
+    cache = init_kv_cache(engine.cfg, 1, S, quantized=engine.quantize_kv, device=engine.device)
+    with torch.inference_mode():
+        return engine.model(
+            tokens, prefill_positions(pads, S), cache, 0,
+            None if engine.use_kernels else prefill_attention_mask(pads, S, S), last_only=True,
+            stacked_attention_fn=engine._prefill_stacked(pads, 0))[0, -1].float()
+
+
+def margin_rule(torch, label: str, ref_engine, prompts: list, texts: list, ref_texts: list,
+                rows: dict, ref_rows: dict, limit: float | None) -> None:
+    """The margin rule (FIXTURE_MARGIN_RTOL) for one arm against its
+    reference arm, run on ``ref_engine``: agreement logged; each row whose
+    ids differ from the reference's logs its first differing step t and the
+    reference's top-1 - top-2 logit margin at t over its largest |logit|
+    (``reference_logits`` over the prompt and the reference's first t ids;
+    "top-1 moved" where that forward's top-1 is not the reference's token).
+    With a ``limit``, a margin above it raises."""
+    tok = ref_engine.tok
+    encoded = tok.encode_batch(prompts, add_bos=True)
+    found, over = [], []
+    for i in sorted(ref_rows):
+        t = first_difference(rows[i], ref_rows[i])
+        if t is None:
+            continue
+        logits = reference_logits(torch, ref_engine, encoded[i] + ref_rows[i][:t])
+        top = logits.topk(2)
+        margin = float(top.values[0] - top.values[1]) / float(logits.abs().max())
+        want = ref_rows[i][t] if t < len(ref_rows[i]) else tok.eos_id
+        found.append(f"row {i}: step {t}, margin {margin:.3e}"
+                     + ("" if int(top.indices[0]) == want else " (top-1 moved)"))
+        if limit is not None and margin > limit:
+            over.append(found[-1])
+    log(f"[fixture] {label}: {agreement(texts, ref_texts)}; rows whose ids differ "
+        f"{len(found)}/{len(ref_rows)}" + (": " + "; ".join(found) if found else "")
+        + (f"; margin limit {limit:g}" if limit is not None else "; not gated"))
+    if over:
+        raise AssertionError(f"fixture {label}: a first difference at a margin above "
+                             f"{limit:g}, more than rounding can flip: {over}")
+
+
+def fixture_prompts(backend) -> tuple[list, list]:
+    """The map batch's prompts and their chunks (each one's speculation
+    reference), as the pipeline builds them on ``backend``'s tokenizer."""
+    from vnsum_tpu_torch.core.config import PipelineConfig
+    from vnsum_tpu_torch.strategies import get_strategy
+
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    cfg = PipelineConfig(approach="mapreduce", models=[FIXTURE_NAME],
+                         max_new_tokens=FIXTURE_NEW)
+    strategy = get_strategy("mapreduce", backend, cfg)
+    chunks = [c for d in docs for c in strategy.splitter.split_text(d.read_text(encoding="utf-8"))]
+    return [strategy.map_prompt.format(content=c) for c in chunks], chunks
+
+
+def fixture_pipeline(torch, tok) -> tuple[dict, dict]:
+    """(a) the CLI's map-reduce over data/vi_eval with --weights-dir on the
+    fixture (its own tokenizer), 128 new tokens, int8 cache, decode steps
+    captured: every document ok, K1 = n_layers x prefill forwards and K2 =
+    n_layers x decode steps exactly; logs ROUGE-1/2/L against the
+    references, the rows that stop at EOS and the mean output tokens.
+    Returns (launches, summaries)."""
+    from vnsum_tpu_torch.backend.base import trim_to_eos
+    from vnsum_tpu_torch.pipeline import cli
+
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    n_layers = json.loads((FIXTURE_DIR / "config.json").read_text())["num_hidden_layers"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        reset_launches()
+        t0 = time.perf_counter()
+        with recorded_rows() as rows:
+            rc = cli.main([
+                "--approach", "mapreduce", "--models", FIXTURE_NAME,
+                "--weights-dir", str(FIXTURE_DIR),
+                "--docs-dir", str(ROOT / "data/vi_eval/doc"),
+                "--summary-dir", str(ROOT / "data/vi_eval/summary"),
+                "--generated-summaries-dir", str(out / "gen"),
+                "--results-dir", str(out / "results"), "--logs-dir", str(out / "logs"),
+                "--max-new-tokens", str(FIXTURE_NEW), "--device", "cuda",
+            ])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if rc != 0:
+            raise AssertionError(f"fixture CLI exited {rc}")
+        res = json.loads(next((out / "results").glob("pipeline_results_*.json")).read_text())
+        rec, summaries = check_run(res["results"], docs, out / "gen", model=FIXTURE_NAME)
+    if res["config"]["weights_dir"] != str(FIXTURE_DIR):
+        raise AssertionError(f"fixture CLI: run record {res['config']}")
+    eng = res["results"]["engine"][FIXTURE_NAME]
+    check_captured("fixture pipeline", eng)
+    check_fixture_batches("fixture pipeline", (
+        tuple(int(part.split("=")[1]) for part in b.split(",")) for b in eng["by_bucket"]))
+    check_exact("fixture pipeline", launches, {
+        "prefill": n_layers * eng["prefill_forwards"],
+        "decode": n_layers * eng["decode_steps"]}, ("prefill", "decode"))
+    cut = [trim_to_eos(r, tok.eos_id, tok.pad_id) for r in rows]
+    stopped = sum(len(c) < len(r) and r[len(c)] == tok.eos_id for c, r in zip(cut, rows))
+    rouge = res["results"]["evaluation"][FIXTURE_NAME]["rouge_scores"]
+    log(f"[fixture] pipeline (CLI, --weights-dir {FIXTURE_DIR.relative_to(ROOT)}, "
+        f"{type(tok).__name__} {tok.vocab_size} tokens): {rec['successful']}/{len(docs)} docs "
+        f"ok, chunks {rec['total_chunks']}, wall {wall:.2f}s, batches {eng['by_bucket']}, "
+        f"prefill {eng['phase_seconds'].get('prefill', 0.0):.3f}s, decode "
+        f"{eng['phase_seconds'].get('decode', 0.0):.3f}s ({eng['decode_steps']} steps, "
+        f"{eng['captured_steps']} replays); rows that stop at EOS {stopped}/{len(rows)}, mean "
+        f"output tokens {sum(map(len, cut)) / len(cut):.1f} of {FIXTURE_NEW}")
+    log(f"[fixture] rouge against data/vi_eval/summary (the fixture trained on them): "
+        f"{json.dumps(rouge)}")
+    return launches, summaries
+
+
+# (b) the arms of scripts/make_quality_lossy_ab.py on the map prompts: the
+# f32 dense oracle (no kernels), then bf16 weights through the kernels over
+# a bf16 cache, over the int8 cache (the default), int8 weights
+# (--quantize) and W8A8 prefill (--quantize --quantize-act)
+FIXTURE_ARMS = (
+    ("f32 dense (oracle)", "f32", {"flash": False}),
+    ("bf16 kernels, bf16 cache", "bf16", {"quantize_kv": False}),
+    ("int8 cache", "bf16", {}),
+    ("--quantize", "bf16", {"quantize": True}),
+    ("W8A8", "bf16", {"quantize": True, "quantize_act": True}),
+)
+
+
+def fixture_arms(torch, models: dict, spec: str, prompts: list) -> tuple[dict, dict]:
+    """(b): each arm of FIXTURE_ARMS generates the map prompts (128 new
+    tokens) on a backend of its own: launches exact (none for the oracle;
+    K1, K2 and, with int8 weights, the GEMV as the engine record implies);
+    each later arm's string agreement and ROUGE-L against the oracle, and
+    its first differences' margins against it (logged, not gated:
+    FIXTURE_MARGIN_RTOL). Returns (launches, {arm: (texts, rows, backend)})."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.eval.rouge import RougeScorer
+
+    scorer = RougeScorer(["rougeL"])
+    total = dict.fromkeys(COUNTERS, 0)
+    outs = {}
+    for label, dtype, kw in FIXTURE_ARMS:
+        model = models[dtype]
+        b = TorchBackend(model=model, tokenizer=spec, batch_size=8, max_new_tokens=FIXTURE_NEW,
+                         device="cuda", **kw)
+        n_layers = b.cfg.n_layers
+        reset_launches()
+        t0 = time.perf_counter()
+        texts, rows = generate_rows(b, prompts)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        st = b.stats
+        if b.use_kernels:
+            check_fixture_batches(f"fixture {label}", st.by_bucket)
+            check_exact(f"fixture {label}", launches, {
+                "prefill": n_layers * st.prefill_forwards, "decode": n_layers * st.decode_steps,
+                "gemv": gemv_need(st.to_dict(), n_layers, b.cfg.w8a8_prefill)
+                if b.model.quantized else 0}, ("prefill", "decode"))
+        else:
+            check_exact(f"fixture {label}", launches, {}, ())
+        for k in total:
+            total[k] += launches[k]
+        outs[label] = (texts, rows, b)
+        line = (f"[fixture] arm {label}: wall {wall:.2f}s, {st.decode_steps} decode steps, "
+                f"mean output tokens {sum(map(len, rows.values())) / len(rows):.1f}")
+        if label != FIXTURE_ARMS[0][0]:
+            oracle = outs[FIXTURE_ARMS[0][0]][0]
+            rl = [scorer.score(a, o)["rougeL"].fmeasure for a, o in zip(texts, oracle)]
+            line += (f", string agreement with the oracle {sum(a == o for a, o in zip(texts, oracle))}"
+                     f"/{len(texts)}, ROUGE-L against it {sum(rl) / len(rl):.4f}")
+        log(line)
+    oracle_texts, oracle_rows, oracle = outs[FIXTURE_ARMS[0][0]]
+    for label, _, _ in FIXTURE_ARMS[1:]:
+        margin_rule(torch, f"arm {label} against the oracle", oracle, prompts, outs[label][0],
+                    oracle_texts, outs[label][1], oracle_rows, FIXTURE_MARGIN_RTOL["lossy"])
+    return total, outs
+
+
+def fixture_spec(torch, model, spec: str, prompts: list, chunks: list, oneshot: tuple,
+                 plain_summaries: dict) -> dict:
+    """(c): the reference-guided spec path through PipelineRunner (spec_k
+    8: every map and reduce group with references decodes through K3),
+    launches exact, drafts proposed and accepted, agreement with (a)'s
+    summaries; then on the same backend the map prompts with their chunks
+    as references, and the oracle (the one-shot rows decoded, unstripped,
+    as references), which must accept drafts: each against the one-shot
+    run ``oneshot`` (the int8-cache arm's texts, rows and backend) under
+    the margin rule (FIXTURE_MARGIN_RTOL["spec"]). Returns the launches."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.core.config import GenerationConfig, PipelineConfig
+    from vnsum_tpu_torch.pipeline.runner import PipelineRunner
+
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    backends = []
+
+    def factory(_):
+        backends.append(TorchBackend(
+            model=model, tokenizer=spec, generation=GenerationConfig(spec_k=FIXTURE_SPEC_K),
+            max_new_tokens=FIXTURE_NEW, batch_size=8, device="cuda"))
+        return backends[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PipelineConfig(
+            approach="mapreduce", models=[FIXTURE_NAME], max_new_tokens=FIXTURE_NEW,
+            docs_dir=str(ROOT / "data/vi_eval/doc"),
+            summary_dir=str(ROOT / "data/vi_eval/summary"),
+            generated_summaries_dir=str(Path(tmp) / "gen"),
+            results_dir=str(Path(tmp) / "results"), logs_dir=str(Path(tmp) / "logs"))
+        reset_launches()
+        t0 = time.perf_counter()
+        runner = PipelineRunner(cfg, backend_factory=factory, device="cuda")
+        res = runner.run()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if runner.failures:
+            raise AssertionError(f"fixture spec pipeline failures: {runner.failures}")
+        _, summaries = check_run({"summarization": res.summarization,
+                                  "evaluation": res.evaluation},
+                                 docs, Path(tmp) / "gen", model=FIXTURE_NAME)
+    b = backends[0]
+    st, n_layers = b.stats, b.cfg.n_layers
+    if st.spec_verify_steps == 0:
+        raise AssertionError("fixture spec pipeline: no verify step ran")
+    check_fixture_batches("fixture spec pipeline", st.by_bucket)
+    check_exact("fixture spec pipeline", launches, {
+        "prefill": n_layers * st.prefill_forwards, "verify": n_layers * st.spec_verify_steps,
+        "decode": n_layers * st.decode_steps})
+    names = sorted(plain_summaries)
+    log(f"[fixture] spec pipeline: wall {wall:.2f}s, {st.spec_verify_steps} verify steps "
+        f"({1e3 * st.phase_seconds.get('spec_decode', 0.0) / st.spec_verify_steps:.1f} ms a "
+        f"step), drafted {st.spec_draft_tokens}, accepted {st.spec_accepted_tokens}, one-shot "
+        f"decode steps {st.decode_steps}; against (a)'s summaries: "
+        f"{agreement([summaries[n] for n in names], [plain_summaries[n] for n in names])}; "
+        f"rouge {json.dumps(res.evaluation[FIXTURE_NAME]['rouge_scores'])}")
+    total = dict(launches)
+    base_texts, base_rows, base = oneshot
+    oracle_refs = [b.tok.decode(base_rows[i]) for i in range(len(prompts))]
+    for run, refs in (("chunks as references", chunks), ("oracle", oracle_refs)):
+        reset_launches()
+        forwards0, decode0 = st.prefill_forwards, st.decode_steps
+        steps0, drafted0, acc0 = st.spec_verify_steps, st.spec_draft_tokens, st.spec_accepted_tokens
+        texts, rows = generate_rows(b, prompts, references=refs)
+        launches = read_launches()
+        steps = st.spec_verify_steps - steps0
+        accepted = st.spec_accepted_tokens - acc0
+        check_exact(f"fixture spec {run}", launches, {
+            "prefill": n_layers * (st.prefill_forwards - forwards0),
+            "verify": n_layers * steps, "decode": n_layers * (st.decode_steps - decode0)})
+        if run == "oracle" and accepted <= 0:
+            raise AssertionError("fixture spec oracle: no draft accepted")
+        log(f"[fixture] spec {run}: {steps} verify steps, drafted "
+            f"{st.spec_draft_tokens - drafted0}, accepted {accepted}")
+        margin_rule(torch, f"spec {run} against the one-shot run", base, prompts, texts,
+                    base_texts, rows, base_rows, FIXTURE_MARGIN_RTOL["spec"])
+        for k in total:
+            total[k] += launches[k]
+    return total
+
+
+def fixture_resume(torch, model, spec: str, prompts: list, oneshot: tuple) -> dict:
+    """(e): the map prompts through a fresh FIXTURE_CACHE_BLOCKS-block
+    prefix cache, cold then warm (cache_arm: launches exact, counters
+    consistent): every warm group resumes at FIXTURE_RESUME_K, the prompt
+    tokens it skips logged; the warm call against the cold one under the
+    margin rule (FIXTURE_MARGIN_RTOL["resume"]), both against the uncached
+    one-shot run logged. Returns the launches."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+
+    b = TorchBackend(model=model, tokenizer=spec, batch_size=8, max_new_tokens=FIXTURE_NEW,
+                     cache_blocks=FIXTURE_CACHE_BLOCKS, cache_block_tokens=64, device="cuda")
+    spy = spy_cache(torch, b)
+    rows = {"cold": {}, "warm": {}}
+    arms = {run: cache_arm(torch, b, f"fixture {run}", prompts, None, spy, rows[run])
+            for run in ("cold", "warm")}
+    check_fixture_batches("fixture prefix cache", b.stats.by_bucket)
+    warm = arms["warm"]
+    if warm["d"]["cache_hit_tokens"] <= 0 or set(warm["K"]) != {FIXTURE_RESUME_K}:
+        raise AssertionError(f"fixture warm call: hit tokens {warm['d']['cache_hit_tokens']}, "
+                             f"K by group {warm['K']} (phase 3 checked K1 at "
+                             f"q_offset {FIXTURE_RESUME_K})")
+    log(f"[fixture] warm resume: K {warm['K']}, prompt tokens skipped "
+        f"{warm['d']['cache_hit_tokens']} of {warm['d']['prompt_tokens']}; cold against the "
+        f"uncached one-shot run: {agreement(arms['cold']['texts'], oneshot[0])}")
+    margin_rule(torch, "warm resume against the cold call", b, prompts, warm["texts"],
+                arms["cold"]["texts"], rows["warm"], rows["cold"], FIXTURE_MARGIN_RTOL["resume"])
+    return {k: arms["cold"]["launches"][k] + warm["launches"][k] for k in COUNTERS}
+
+
+def phase_fixture(torch) -> dict:
+    """Phase 9d: the committed trained fixture with its own tokenizer
+    (text/bpe.py, no transformers), every one-card path through K1, K2 and
+    K3 at its shape: (a) the CLI's map-reduce with --weights-dir, (b) the
+    lossy arms against the f32 oracle, (c) the spec path, (d) the slot loop,
+    (e) a warm prefix-cache resume; the margin rule on every arm against
+    its reference. Returns the phase's launches."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models.convert import load_hf_checkpoint
+    from vnsum_tpu_torch.text.bpe import BPETokenizer
+    from vnsum_tpu_torch.text.tokenizer import get_tokenizer
+
+    spec = f"hf:{FIXTURE_DIR}"
+    tok = get_tokenizer(spec)
+    if not isinstance(tok, BPETokenizer):
+        raise AssertionError(f"{spec} loads {type(tok).__name__}, not the BPE reader")
+    total = dict.fromkeys(COUNTERS, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    launches, summaries = fixture_pipeline(torch, tok)
+    add(launches)
+    models = {"bf16": load_hf_checkpoint(str(FIXTURE_DIR), device="cuda")[1],
+              "f32": load_hf_checkpoint(str(FIXTURE_DIR), dtype=torch.float32,
+                                        device="cuda")[1]}
+    if (models["bf16"].cfg.n_heads, models["bf16"].cfg.n_kv_heads,
+            models["bf16"].cfg.head_dim) != (FIXTURE_KV * FIXTURE_G, FIXTURE_KV, 128):
+        raise AssertionError(f"fixture config {models['bf16'].cfg}")
+    prompts, chunks = fixture_prompts(TorchBackend(model=models["bf16"], tokenizer=spec,
+                                                   max_new_tokens=FIXTURE_NEW, device="cuda"))
+    lengths = tok.count_batch(prompts)
+    log(f"[fixture] map prompts: {len(prompts)}, {min(lengths)}-{max(lengths)} tokens "
+        f"(trained on 64-token windows: later positions extrapolate)")
+    launches, outs = fixture_arms(torch, models, spec, prompts)
+    add(launches)
+    oneshot = outs["int8 cache"]
+    add(fixture_spec(torch, models["bf16"], spec, prompts, chunks, oneshot, summaries))
+    slot_rows: dict = {}
+    add(slot_loop(torch, models["bf16"], prompts, oneshot[0], "fixture slot", FIXTURE_NEW, (4,),
+                  prompt_tokens=max(FIXTURE_SHAPES), tokenizer=spec, rows=slot_rows))
+    margin_rule(torch, "slot loop against the one-shot run", oneshot[2], prompts,
+                [tok.decode(slot_rows[4][i]).strip() for i in range(len(prompts))],
+                oneshot[0], slot_rows[4], oneshot[1], FIXTURE_MARGIN_RTOL["slot"])
+    add(fixture_resume(torch, models["bf16"], spec, prompts, oneshot))
+    log("[launches] fixture phase: " + ", ".join(f"{k} {v}" for k, v in total.items()))
+    del models, outs, oneshot
+    torch.cuda.empty_cache()
+    return total
+
+
 # -- phase 10 -----------------------------------------------------------------
 
 ONE_CARD_CEILING = 16384  # Llama-3.2-3B's max_seq_len: the one-card engine's cut
@@ -5324,11 +5916,12 @@ def main() -> int:
     serve_launches, serve_resume = timed("serve", phase_serve, torch, backend.model)
     resume_launches += serve_resume
     del backend
+    fixture_launches = timed("fixture", phase_fixture, torch)
     long_launches = timed("long context", phase_long_context, torch)
     launches = {k: launches[k] + int8_launches[k] + w8a8_launches[k] + weights_launches[k]
                 + strategy_launches[k] + judge_launches[k] + spec_launches[k] + slot_launches[k]
-                + cache_launches[k] + serve_launches[k] + long_launches[k]
-                for k in launches}
+                + cache_launches[k] + serve_launches[k] + fixture_launches[k]
+                + long_launches[k] for k in launches}
     timed("profile", phase_profile, torch)
     kernels = []
     for key, meta in KERNELS.items():

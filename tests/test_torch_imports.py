@@ -59,3 +59,21 @@ def test_no_jax_and_no_vnsum_tpu_imports(path):
 )
 def test_pattern_is_word_bounded(line, bad):
     assert bool(FORBIDDEN.search(line)) is bad
+
+
+def test_bpe_reader_imports_only_the_standard_library():
+    """text/bpe.py reads a checkpoint's tokenizer on the card, which has no
+    transformers, tokenizers or regex: every module it imports, at its top
+    or inside a function, is in the standard library."""
+    import ast
+    import sys
+
+    tree = ast.parse((ROOT / "vnsum_tpu_torch" / "text" / "bpe.py").read_text(encoding="utf-8"))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "text/bpe.py imports nothing of the package"
+            names.add(node.module.split(".")[0])
+    assert names and names <= set(sys.stdlib_module_names), names - set(sys.stdlib_module_names)

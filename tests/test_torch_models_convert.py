@@ -33,7 +33,7 @@ from vnsum_tpu_torch.core.config import PipelineConfig
 from vnsum_tpu_torch.models import convert as tc
 from vnsum_tpu_torch.models import llama as tl
 from vnsum_tpu_torch.pipeline.runner import PipelineRunner
-from vnsum_tpu_torch.text.tokenizer import HFTokenizer
+from vnsum_tpu_torch.text.bpe import BPETokenizer
 
 from test_torch_eval_embedding import assert_embedding_stats_close, carried_embedders
 from test_torch_models_llama import carried_weights
@@ -340,7 +340,9 @@ def test_weights_dir_tokenizer_rule(hf_dir, tmp_path):
 def test_weights_dir_pipeline_matches_jax(hf_dir, tmp_path):
     """--weights-dir through both PipelineRunners over two documents, f32,
     the JAX engine dense (it takes no kernel on the CPU): byte-identical
-    summaries, equal ROUGE, embedding metrics within EMBED_ATOL."""
+    summaries, equal ROUGE, embedding metrics within EMBED_ATOL. The port
+    reads the checkpoint's byte-level BPE tokenizer.json with its own
+    reader (text/bpe.py), the JAX package through transformers."""
     jm, pm = carried_embedders()
     knobs = dict(approach="mapreduce", models=["tiny-ckpt"], weights_dir=str(hf_dir),
                  dtype="float32", chunk_size=300, chunk_overlap=30, token_max=400,
@@ -361,7 +363,7 @@ def test_weights_dir_pipeline_matches_jax(hf_dir, tmp_path):
     runner.backend_factory = lambda m: engines.append(factory(m)) or engines[-1]
     got = runner.run()
     assert runner.failures == []
-    assert isinstance(engines[0].tok, HFTokenizer)
+    assert isinstance(engines[0].tok, BPETokenizer)
     gen = {p.name: p.read_bytes() for p in (tmp_path / "port" / "gen_mapreduce_tiny-ckpt").glob("*")}
     jgen = {p.name: p.read_bytes() for p in (tmp_path / "jax" / "gen_mapreduce_tiny-ckpt").glob("*")}
     assert len(gen) == 2 and gen == jgen

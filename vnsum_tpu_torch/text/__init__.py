@@ -1,3 +1,4 @@
+from .bpe import BPETokenizer
 from .cleaning import clean_thinking_tokens
 from .splitter import RecursiveTokenSplitter
 from .tokenizer import (
@@ -17,6 +18,7 @@ from .tree import (
 )
 
 __all__ = [
+    "BPETokenizer",
     "clean_thinking_tokens",
     "RecursiveTokenSplitter",
     "ByteTokenizer",

@@ -10,12 +10,18 @@ the framework uses ONE tokenizer consistently (SURVEY.md §7.2) and keeps
 Because pretrained vocabularies may not be present on an air-gapped TPU host,
 the default is a self-contained byte-level tokenizer (lossless UTF-8 round
 trip, zero downloads); `HFTokenizer` wraps any locally available HuggingFace
-tokenizer for exact reference parity when its files exist.
+tokenizer for exact reference parity when its files exist, and
+`text/bpe.py`'s `BPETokenizer` reads a byte-level BPE checkpoint's own
+tokenizer.json with the standard library alone, where `transformers` is
+missing.
 """
 from __future__ import annotations
 
 from functools import lru_cache
+from pathlib import Path
 from typing import Protocol, Sequence
+
+from .bpe import BPETokenizer, unsupported_field
 
 
 class Tokenizer(Protocol):
@@ -153,9 +159,16 @@ class HFTokenizer:
 
 @lru_cache(maxsize=8)
 def get_tokenizer(spec: str = "byte") -> Tokenizer:
-    """Factory: "byte" or "hf:<name-or-path>"."""
+    """Factory: "byte" or "hf:<name-or-path>". A local directory whose
+    tokenizer.json is a byte-level BPE that ``text/bpe.py`` implements (its
+    files say so) loads with that reader, which needs no ``transformers``,
+    so a checkpoint's own tokenizer runs on every machine; any other name
+    or directory loads with ``HFTokenizer``."""
     if spec == "byte":
         return ByteTokenizer()
     if spec.startswith("hf:"):
-        return HFTokenizer(spec[3:])
+        path = spec[3:]
+        if Path(path).is_dir() and unsupported_field(path) is None:
+            return BPETokenizer(path)
+        return HFTokenizer(path)
     raise ValueError(f"unknown tokenizer spec {spec!r} (use 'byte' or 'hf:<path>')")
