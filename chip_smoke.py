@@ -298,7 +298,7 @@ Phases, each raising on failure (so any failure exits non-zero):
    uncached arm is logged, not gated;
 9c. serve (ROADMAP A15): the port's HTTP server (``ServeState`` behind
    ``make_server`` on 127.0.0.1, real requests through urllib) over
-   TorchBackend on the same model at 64 new tokens (SERVE_NEW), in four
+   TorchBackend on the same model at 64 new tokens (SERVE_NEW), in six
    arms, each with every launch counter set to 0 before it: (a) batch
    dispatch, no cache: one POST /v1/generate of the 7 map prompts, whose
    texts must equal a direct TorchBackend.generate of them on a control
@@ -314,10 +314,28 @@ Phases, each raising on failure (so any failure exits non-zero):
    q_offset), cache_hit_tokens > 0 on /metrics; (d) one POST /v1/summarize
    of a data/vi_eval document (mapreduce) answering 200 with a summary, K1
    = 28 x prefill forwards and K2 = 28 x decode steps exactly, K3 = 0, and
-   /healthz, /readyz and /metrics in their schemas. Each server's close()
-   drains within its budget and leaves no scheduler or watchdog thread;
-   ``[serve]`` lines give each arm's wall, TTFT and end-to-end p50/p99 from
-   the server's own histograms, requests/s, segments and peak memory;
+   /healthz, /readyz and /metrics in their schemas; (e) durable serving
+   (serve/journal.py, ROADMAP A15b-1): a journaled server answers the 7
+   prompts and GET /v1/requests/<id> gives back each text byte for byte;
+   a journal holding the 7 ACCEPTs and no terminal record (a life that
+   died before dispatch) is replayed by a fresh ServeState: /readyz
+   pre_replay before, replay_journal() 7 then 0, every entry complete
+   with the direct generate's text byte for byte, journal_replayed_total
+   7, K1/K2 exact, K3 = 0; a copy replays through the in-flight scheduler
+   (K1/K3 exact, K2 = 0, agreement logged); (f) the strategies' streaming
+   rounds: POST /v1/summarize (mapreduce, served at chunk size 1024,
+   SERVE_CHUNK, through ServeState(pipeline_overrides=...)) of a 4-chunk
+   data/vi_eval document, the reduce
+   submitted from harvest (QueuedBackend's calls recorded: the map round,
+   its harvests, the reduce; no barrier generate), the poll surface's
+   gang phases map and reduce, the summary byte-identical to
+   summarize_batch on a plain TorchBackend, K1/K2 exact; then two
+   documents as two concurrent requests (both 200, K1/K2 exact, agreement
+   logged). Each server's close() drains within its budget and leaves no
+   scheduler or watchdog thread; ``[serve]`` lines give each arm's wall,
+   TTFT and end-to-end p50/p99 from the server's own histograms,
+   requests/s, segments and peak memory, and for (e) and (f) the replay
+   seconds, journal records, bytes and fsyncs;
 9d. fixture (ROADMAP A2b): the committed trained fixture
    data/fixtures/llama_k128 (scripts/make_torch_fixture.py: 2 layers,
    hidden 256, 2 query heads on 1 KV head at head_dim 128, bf16, trained on
@@ -4786,9 +4804,306 @@ def concurrent_generate(base: str, payloads: list) -> list:
     return replies
 
 
+def journal_line(torch, arm: str, state, wall: float, replay_s: float) -> None:
+    """The durable and streaming arms' ``[serve]`` line: wall, the journal's
+    re-enqueue seconds, records, bytes and fsyncs, and peak memory."""
+    js = state.journal.stats_dict()
+    replay = (f", replay {replay_s:.3f}s to drain ({js['replay_seconds']:.6f}s to re-enqueue "
+              f"{js['replayed']})" if js["replayed"] else "")
+    log(f"[serve] {arm}: wall {wall:.3f}s{replay}, journal {js['records']} records, "
+        f"{js['appended_bytes']} bytes, {js['fsyncs']} fsyncs, pending {js['pending']}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def metric_value(text: str, name: str):
+    """The value of an unlabelled series in a /metrics text, or None."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[-1])
+    return None
+
+
+def wait_pending(state, timeout_s: float = 600.0) -> float:
+    """Seconds until the state's journal owes nothing; raises past the limit."""
+    t0 = time.perf_counter()
+    while state.journal.pending():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"serve: journal still pending {state.journal.pending()}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def write_unfinished(directory: Path, prompts: list, prefix: str) -> None:
+    """A journal left by a life that accepted ``prompts`` and died before
+    its scheduler dispatched them: the ACCEPTs, no terminal record, no
+    seal."""
+    from vnsum_tpu_torch.serve.journal import RequestJournal
+    from vnsum_tpu_torch.serve.queue import ServeRequest
+
+    j = RequestJournal(directory)
+    for i, prompt in enumerate(prompts):
+        j.accept(ServeRequest(prompt=prompt, max_new_tokens=SERVE_NEW, trace_id=f"{prefix}-{i}"))
+    j.close()
+
+
+def serve_durable(torch, backend, prompts: list, oneshot: list, n_layers: int, add) -> None:
+    """Arm (e) of 9c: durable serving. Life 1 journals and answers the 7 map
+    prompts, its poll surface giving back each text; a journal left with
+    the 7 ACCEPTs unfinished is replayed by a fresh ServeState through the
+    micro-batch scheduler (one engine batch in journal order, every text
+    equal to the direct generate, K1/K2 exact, a second replay enqueues
+    nothing) and, from a copy, through the in-flight scheduler."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # life 1: journaled serving and the poll surface
+        b = backend()
+        with serving(b, max_wait_s=SERVE_WAIT_S, journal_dir=str(tmp / "life1")) as (base, state):
+            state.replay_journal()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            forwards0, steps0 = b.stats.prefill_forwards, b.stats.decode_steps
+            t0 = time.perf_counter()
+            status, body = serve_request("POST", base + "/v1/generate", {
+                "prompts": prompts, "max_new_tokens": SERVE_NEW, "request_id": "e-life1"})
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            if status != 200:
+                raise AssertionError(f"serve (e) life 1: HTTP {status}: {body}")
+            status, poll = serve_request("GET", base + "/v1/requests/e-life1")
+            texts = [e.get("text") for e in poll.get("entries", [])] if status == 200 else []
+            if status != 200 or poll["status"] != "completed" or texts != oneshot:
+                raise AssertionError(f"serve (e) life 1: poll {status} "
+                                     f"{poll if status != 200 else poll['status']}, "
+                                     f"{agreement(texts, oneshot)}")
+            _, text = serve_request("GET", base + "/metrics")
+            records = metric_value(text, "vnsum_serve_journal_records_total")
+            if not records or metric_value(text, "vnsum_serve_journal_pending") != 0:
+                raise AssertionError(f"serve (e) life 1: /metrics journal records {records}, "
+                                     f"pending {metric_value(text, 'vnsum_serve_journal_pending')}")
+            check_exact("serve (e) durable, life 1", launches, {
+                "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+                "decode": n_layers * (b.stats.decode_steps - steps0)},
+                path_kernels=("prefill", "decode"))
+            add(launches)
+            log(f"[serve] (e) life 1: GET /v1/requests/e-life1 {poll['status']}, "
+                f"{len(texts)} texts byte-identical to the direct generate, /metrics journal "
+                f"records {records:.0f}, pending 0")
+            journal_line(torch, "(e) life 1", state, wall, 0.0)
+        del b
+        # the journal a crash before dispatch leaves, twice (one per replay)
+        write_unfinished(tmp / "crashed", prompts, "e-replay")
+        shutil.copytree(tmp / "crashed", tmp / "crashed_inflight")
+        unfinished_bytes = sum(f.stat().st_size for f in (tmp / "crashed").iterdir())
+        # life 2: replay through the micro-batch scheduler
+        b = backend()
+        with serving(b, max_wait_s=SERVE_WAIT_S, journal_dir=str(tmp / "crashed")) as (
+                base, state):
+            ready = serve_request("GET", base + "/readyz")
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            forwards0, steps0 = b.stats.prefill_forwards, b.stats.decode_steps
+            t0 = time.perf_counter()
+            n = state.replay_journal()
+            replay_s = wait_pending(state)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            again = state.replay_journal()
+            entries = [state.journal.lookup(f"e-replay-{i}") for i in range(len(prompts))]
+            texts = [e[0].text if len(e) == 1 else None for e in entries]
+            statuses = {e[0].status for e in entries if e}
+            _, text = serve_request("GET", base + "/metrics")
+            replayed = metric_value(text, "vnsum_serve_journal_replayed_total")
+            if (ready[0] != 503 or ready[1].get("reason") != "pre_replay" or n != len(prompts)
+                    or again != 0 or statuses != {"complete"} or replayed != len(prompts)):
+                raise AssertionError(f"serve (e) replay: readyz before replay {ready}, "
+                                     f"replayed {n} then {again}, statuses {statuses}, "
+                                     f"/metrics replayed {replayed}")
+            if texts != oneshot:
+                raise AssertionError(f"serve (e) replay: texts differ from the direct generate "
+                                     f"({state.metrics.snapshot().batches} engine batches): "
+                                     f"{agreement(texts, oneshot)}")
+            check_exact("serve (e) durable, replay", launches, {
+                "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+                "decode": n_layers * (b.stats.decode_steps - steps0)},
+                path_kernels=("prefill", "decode"))
+            add(launches)
+            log(f"[serve] (e) replay: /readyz {ready[1]['reason']} before replay, "
+                f"replay_journal() {n} then {again}, {len(texts)} texts byte-identical to the "
+                f"direct generate in {state.metrics.snapshot().batches} engine batch(es), "
+                f"/metrics journal_replayed_total {replayed:.0f}, unfinished journal "
+                f"{unfinished_bytes} bytes")
+            journal_line(torch, "(e) replay", state, wall, replay_s)
+        del b
+        # the same unfinished journal through the in-flight scheduler
+        b = backend()
+        loops = spy_loops(b)
+        with serving(b, max_wait_s=0.01, inflight=True, slots=8, slot_prompt_tokens=4096,
+                     journal_dir=str(tmp / "crashed_inflight")) as (base, state):
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            forwards0 = b.stats.prefill_forwards
+            t0 = time.perf_counter()
+            n = state.replay_journal()
+            replay_s = wait_pending(state)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            entries = [state.journal.lookup(f"e-replay-{i}") for i in range(len(prompts))]
+            statuses = {e[0].status for e in entries if e}
+            if n != len(prompts) or statuses != {"complete"}:
+                raise AssertionError(f"serve (e) in-flight replay: replayed {n}, statuses "
+                                     f"{statuses}")
+            check_exact("serve (e) durable, in-flight replay", launches, {
+                "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+                "verify": n_layers * sum(loop.decode_steps for loop in loops)})
+            add(launches)
+            texts = [e[0].text for e in entries]
+            log(f"[serve] (e) in-flight replay: {n} entries complete through {len(loops)} slot "
+                f"loop(s), {sum(loop.decode_steps for loop in loops)} decode steps; against "
+                f"the direct generate: {agreement(texts, oneshot)} (not gated)")
+            journal_line(torch, "(e) in-flight replay", state, wall, replay_s)
+
+
+# the streaming arm's chunk size: a data/vi_eval document splits into 4-5
+# map chunks of 646-1272 tokens (map prompts of S = 2048 at B = 4, or B = 8
+# for two documents; the reduce at S <= 1024), shapes phase 3 checks
+SERVE_CHUNK = 1024
+
+
+def spy_rounds(events: list):
+    """QueuedBackend's submit_round, harvest and generate, recording each
+    call in ``events`` in order; returns the undo."""
+    from vnsum_tpu_torch.serve.scheduler import QueuedBackend
+
+    saved = {name: getattr(QueuedBackend, name) for name in ("submit_round", "harvest", "generate")}
+
+    def submit_round(self, prompts, *, phase="map", **kw):
+        events.append(("submit", phase, len(prompts)))
+        return saved["submit_round"](self, prompts, phase=phase, **kw)
+
+    def harvest(self, fut, **kw):
+        out = saved["harvest"](self, fut, **kw)
+        events.append(("harvest",))
+        return out
+
+    def generate(self, prompts, **kw):
+        events.append(("generate", len(prompts)))
+        return saved["generate"](self, prompts, **kw)
+
+    QueuedBackend.submit_round, QueuedBackend.harvest = submit_round, harvest
+    QueuedBackend.generate = generate
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(QueuedBackend, name, fn)
+
+    return undo
+
+
+def serve_streaming(torch, backend, n_layers: int, add) -> None:
+    """Arm (f) of 9c: POST /v1/summarize (mapreduce) of a data/vi_eval
+    document that splits into 4 chunks at SERVE_CHUNK tokens. The
+    strategy's rounds stream over the QueuedBackend: the reduce is
+    submitted from harvest as the last map child lands (the recorded call
+    order; no barrier generate), and the journal's GANG records give the
+    poll surface its map and reduce phases. The summary equals the barrier
+    route's (summarize_batch on a plain TorchBackend) byte for byte: with one
+    document, the map round and the reduce round are the same engine
+    batches on both routes. Then two documents as two concurrent requests.
+    The server serves mapreduce at SERVE_CHUNK through its own setting,
+    ServeState(pipeline_overrides=...), and the barrier route runs the
+    strategy the server built."""
+    import threading
+
+    paths = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))[:2]
+    docs = [p.read_text(encoding="utf-8") for p in paths]
+    b = backend()
+    with tempfile.TemporaryDirectory() as tmp, serving(
+            b, max_wait_s=SERVE_WAIT_S, journal_dir=tmp,
+            pipeline_overrides={"chunk_size": SERVE_CHUNK,
+                                "max_new_tokens": SERVE_NEW}) as (base, state):
+        state.replay_journal()
+        strategy = state.strategy_for("mapreduce")
+        chunks = [len(strategy.splitter.split_text(d)) for d in docs]
+        if min(chunks) < 3:
+            raise AssertionError(f"serve (f): chunks per document {chunks}, want >= 3")
+        plain = backend()
+        barrier = [strategy.summarize_batch([d], backend=plain)[0].summary for d in docs]
+        del plain
+        events: list = []
+        undo = spy_rounds(events)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            forwards0, steps0 = b.stats.prefill_forwards, b.stats.decode_steps
+            t0 = time.perf_counter()
+            status, body = serve_request("POST", base + "/v1/summarize", {
+                "text": docs[0], "approach": "mapreduce", "request_id": "f-one"})
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            undo()
+        if status != 200 or body.get("summary") is None:
+            raise AssertionError(f"serve (f): HTTP {status}: {body}")
+        n_maps = chunks[0]
+        want = ([("submit", "map", n_maps)] + [("harvest",)] * n_maps
+                + [("submit", "reduce", 1), ("harvest",)])
+        if events != want:
+            raise AssertionError(f"serve (f): rounds {events}, want {want}")
+        status, poll = serve_request("GET", base + "/v1/requests/f-one")
+        phases = (poll.get("gang") or {}).get("phases", {}) if status == 200 else {}
+        if (status != 200 or poll["status"] != "completed"
+                or {k: v["done"] for k, v in phases.items()} != {"map": n_maps, "reduce": 1}):
+            raise AssertionError(f"serve (f): poll {status} {poll}")
+        if body["summary"] != barrier[0]:
+            raise AssertionError(f"serve (f): the streamed summary differs from the barrier "
+                                 f"route's: {agreement([body['summary']], barrier[:1])}")
+        check_exact("serve (f) streaming summarize", launches, {
+            "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+            "decode": n_layers * (b.stats.decode_steps - steps0)},
+            path_kernels=("prefill", "decode"))
+        add(launches)
+        log(f"[serve] (f) streaming summarize {paths[0].name}: 200, {body['num_chunks']} "
+            f"chunks, {body['llm_calls']} LLM calls, rounds {events[0]} then "
+            f"{n_maps} harvests then {events[n_maps + 1]} from harvest, no barrier generate; "
+            f"poll phases {phases}; summary ({len(body['summary'])} chars) byte-identical "
+            f"to the barrier route's")
+        journal_line(torch, "(f) streaming summarize", state, wall, 0.0)
+        # two documents, two concurrent requests
+        replies = [None, None]
+
+        def run(i):
+            replies[i] = serve_request("POST", base + "/v1/summarize", {
+                "text": docs[i], "approach": "mapreduce", "request_id": f"f-pair-{i}"})
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        forwards0, steps0 = b.stats.prefill_forwards, b.stats.decode_steps
+        batches0 = state.metrics.snapshot().batches
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if any(t.is_alive() for t in threads) or [r[0] for r in replies] != [200, 200]:
+            raise AssertionError(f"serve (f) pair: replies {[r and r[0] for r in replies]}")
+        check_exact("serve (f) two concurrent summarizes", launches, {
+            "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+            "decode": n_layers * (b.stats.decode_steps - steps0)},
+            path_kernels=("prefill", "decode"))
+        add(launches)
+        summaries = [r[1]["summary"] for r in replies]
+        log(f"[serve] (f) pair: 2/2 200 in {state.metrics.snapshot().batches - batches0} "
+            f"engine batches, chunks {chunks}; against the barrier route: "
+            f"{agreement(summaries, barrier)} (not gated)")
+        journal_line(torch, "(f) pair", state, wall, 0.0)
+
+
 def phase_serve(torch, model) -> tuple[dict, int]:
     """The serving slice on Llama-3.2-3B (``model``: the spec phase's, full
-    width and depth, random bf16 weights, int8 cache): arms (a)-(d) of the
+    width and depth, random bf16 weights, int8 cache): arms (a)-(f) of the
     module docstring's 9c. Returns (the phase's launches, K1 launches of
     resumed forwards)."""
     from vnsum_tpu_torch.backend.engine import TorchBackend
@@ -4950,6 +5265,9 @@ def phase_serve(torch, model) -> tuple[dict, int]:
             f"{st.cache_hit_tokens} miss {st.cache_miss_tokens} tokens; the second wave "
             f"against the first: {agreement(waves[1], waves[0])} (not gated)")
         serve_line(torch, "(c) prefix cache", state, 2 * len(prompts), wall)
+    del b, loops
+    serve_durable(torch, backend, prompts, oneshot, n_layers, add)
+    serve_streaming(torch, backend, n_layers, add)
     return total, spy["resume_launches"]
 
 

@@ -113,8 +113,9 @@ def test_fake_refuses_what_is_not_ported(capsys):
         get_backend("hf")
     from vnsum_tpu_torch.serve.server import ServeState, main
 
+    # durable serving is ported (a journal_dir arms it); tenants are not
     with pytest.raises(NotImplementedError, match="A15b"):
-        ServeState(be, journal_dir="unused")
+        ServeState(be, tenants=object())
     with pytest.raises(SystemExit):
         main(["--backend", "fake", "--mesh", "data=2"])
     assert "--mesh: multi-card serving is ROADMAP A10" in capsys.readouterr().err

@@ -40,7 +40,8 @@ def test_sources_found():
             "vnsum_tpu_torch/serve/server.py", "vnsum_tpu_torch/serve/scheduler.py",
             "vnsum_tpu_torch/serve/inflight.py", "vnsum_tpu_torch/serve/watchdog.py",
             "vnsum_tpu_torch/obs/trace.py", "vnsum_tpu_torch/testing/faults.py",
-            "vnsum_tpu_torch/analysis/sanitizers.py", "vnsum_tpu_torch/core/profiling.py"} <= names
+            "vnsum_tpu_torch/analysis/sanitizers.py", "vnsum_tpu_torch/core/profiling.py",
+            "vnsum_tpu_torch/serve/journal.py", "vnsum_tpu_torch/testing/chaos.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,8 +1,9 @@
 """End-to-end request cancellation on the port's serving layer (the cases
-of tests/test_serve_cancel.py that need no journal and no tenants): DELETE
-semantics across every lifecycle stage, slot reclamation without requeue,
-the cooperative one-shot flag, disconnect-triggered cancels, heartbeats,
-and Last-Event-ID resume."""
+of tests/test_serve_cancel.py that need no tenants): DELETE semantics
+across every lifecycle stage, slot reclamation without requeue, the
+cooperative one-shot flag, the journal's typed CANCELLED record and its
+survival of compaction (replay never resurrects a cancelled request),
+disconnect-triggered cancels, heartbeats, and Last-Event-ID resume."""
 from __future__ import annotations
 
 import http.client
@@ -15,6 +16,7 @@ import pytest
 
 from vnsum_tpu_torch.backend.fake import FakeBackend
 from vnsum_tpu_torch.serve import InflightScheduler, MicroBatchScheduler
+from vnsum_tpu_torch.serve.journal import RequestJournal
 from vnsum_tpu_torch.serve.queue import RequestCancelled
 from vnsum_tpu_torch.serve.server import ServeState, make_server
 
@@ -129,11 +131,97 @@ def test_cancel_dispatched_one_shot_cooperative_abort():
         sched.close()
 
 
+# -- the journal's typed CANCELLED record -------------------------------------
+
+
+def test_cancel_resident_slot_journals_cancelled(tmp_path):
+    journal = RequestJournal(tmp_path / "j")
+    backend = FakeBackend(segment_words=2, segment_overhead_s=0.02,
+                          prefix_cache_blocks=64, cache_block_tokens=4)
+    sched = InflightScheduler(backend, slots=2, max_wait_s=0.001,
+                              journal=journal)
+    try:
+        fut = sched.submit("van ban dai can tom tat " * 12, trace_id="r-1")
+        # resident: segments are being dispatched for it
+        assert wait_for(lambda: sched.metrics.snapshot().segments >= 2)
+        sched.cancel("r-1")
+        with pytest.raises(RequestCancelled) as exc:
+            fut.result(timeout=10)
+        assert exc.value.stage == "resident"
+        snap = sched.metrics.snapshot()
+        assert snap.cancelled.get("resident") == 1
+        assert snap.requeues == 0 and snap.preemptions == 0  # NOT a preempt
+        # the slot is free again and no prefix pins leaked
+        assert wait_for(lambda: sched.slot_state()[1] == 0)
+        assert backend.prefix_cache_stats()["pinned_blocks"] == 0
+    finally:
+        sched.close()
+        journal.close()
+    entries, _sealed, _torn = RequestJournal.read_state(tmp_path / "j")
+    assert entries["r-1"].status == "cancelled"
+
+
+def test_cancel_dispatched_one_shot_journals_cancelled(tmp_path):
+    """A cancelled one-shot batch stops burning (simulated) device time at
+    the next segment boundary instead of decoding to completion, and the
+    outcome is typed CANCELLED — never COMPLETE."""
+    journal = RequestJournal(tmp_path / "j")
+    # ~40-word extractive output x 60ms/step = ~2.4s of decode if not cut
+    backend = FakeBackend(per_step_s=0.06, segment_words=1)
+    sched = MicroBatchScheduler(backend, max_batch=4, max_wait_s=0.001,
+                                journal=journal)
+    try:
+        t0 = time.monotonic()
+        fut = sched.submit("noi dung rat dai se bi huy giua chung " * 8,
+                           trace_id="d-1")
+        assert wait_for(lambda: backend.batch_sizes)  # dispatch entered
+        sched.cancel("d-1")
+        with pytest.raises(RequestCancelled) as exc:
+            fut.result(timeout=10)
+        assert exc.value.stage in ("dispatched", "queued")
+        assert time.monotonic() - t0 < 2.0  # aborted well before full decode
+        assert backend.cancel_aborts >= 1
+        assert sched.metrics.snapshot().cancelled
+    finally:
+        sched.close()
+        journal.close()
+    entries, _sealed, _torn = RequestJournal.read_state(tmp_path / "j")
+    assert entries["d-1"].status == "cancelled"
+
+
+def test_cancelled_request_never_resurrected_by_replay(tmp_path):
+    journal = RequestJournal(tmp_path / "j")
+    backend = FakeBackend(batch_overhead_s=0.15)
+    sched = MicroBatchScheduler(backend, max_batch=1, max_wait_s=0.001,
+                                journal=journal)
+    try:
+        sched.submit("giu dong co " * 8, trace_id="busy-r")
+        assert wait_for(lambda: backend.batch_sizes)
+        fut = sched.submit("se bi huy truoc khi chay " * 8, trace_id="z-1")
+        sched.cancel("z-1")
+        with pytest.raises(RequestCancelled):
+            fut.result(timeout=10)
+    finally:
+        sched.close()
+        journal.close()
+    # a reopen COMPACTS the journal: CANCELLED must survive compaction and
+    # stay out of the replay set
+    reopened = RequestJournal(tmp_path / "j")
+    try:
+        unfinished = reopened.take_unfinished()
+        assert [e.rid for e in unfinished] == []
+        assert "z-1" not in {e.rid for e in unfinished}
+    finally:
+        reopened.close()
+    entries, _sealed, _torn = RequestJournal.read_state(tmp_path / "j")
+    assert entries["z-1"].status == "cancelled"
+
+
 # -- HTTP surface -------------------------------------------------------------
 
 
 @pytest.fixture()
-def cancel_server():
+def cancel_server(tmp_path):
     # ~30ms/segment x 20 segments = ~600ms decode per request: long enough
     # that a disconnect at the second event plus the 0.3s idle window lands
     # MID-decode (the cancel must reclaim a live slot, not observe a finish)
@@ -142,6 +230,7 @@ def cancel_server():
                     batch_overhead_s=0.005, prefix_cache_blocks=64,
                     cache_block_tokens=4),
         max_batch=4, max_wait_s=0.005, inflight=True, slots=4,
+        journal_dir=str(tmp_path / "journal"),
         stream_heartbeat_s=0.05, stream_idle_timeout_s=0.3,
     )
     server = make_server(state, "127.0.0.1", 0)
@@ -179,15 +268,17 @@ def test_delete_unknown_id_is_typed_404_and_get_regression(cancel_server):
 
 
 def test_delete_completed_request_is_idempotent(cancel_server):
-    """With no journal a finished request is forgotten: DELETE answers the
-    unknown id's typed 404, the same both times."""
+    """The journal remembers a finished request: DELETE answers its
+    terminal status, the same both times, and cancels nothing."""
     base, _state = cancel_server
     status, _ = _req(base, "POST", "/v1/generate",
                      {"prompt": "ngan gon", "request_id": "done-1"})
     assert status == 200
     for _ in range(2):  # idempotent: same answer both times
         status, body = _req(base, "DELETE", "/v1/requests/done-1")
-        assert status == 404 and "error" in body
+        assert status == 200
+        assert body["status"] == "completed"
+        assert body["cancelled_queued"] == 0
 
 
 def test_delete_gang_cancels_summarize_fanout(cancel_server):
@@ -223,6 +314,14 @@ def test_delete_gang_cancels_summarize_fanout(cancel_server):
     # the fan-out children were cancelled, and their slots reclaimed
     assert state.scheduler.metrics.snapshot().cancelled
     assert wait_for(lambda: state.scheduler.slot_state()[1] == 0)
+    # the poll surface aggregates cancelled across the fan-out children
+    assert wait_for(
+        lambda: _req(base, "GET", "/v1/requests/gang-1")[1]["status"]
+        == "cancelled", timeout_s=15,
+    )
+    entries = state.journal.lookup("gang-1")
+    assert all(e.status in ("cancelled", "complete") for e in entries)
+    assert any(e.status == "cancelled" for e in entries)
 
 
 def _read_sse_partial(base, payload, n_events: int, headers=None):
@@ -266,6 +365,9 @@ def test_disconnect_mid_stream_cancels_after_idle_window(cancel_server):
         timeout_s=10,
     )
     assert wait_for(lambda: state.scheduler.slot_state()[1] == 0)
+    assert wait_for(
+        lambda: state.journal.lookup("dis-1")[0].status == "cancelled"
+    )
     snap = state.scheduler.metrics.snapshot()
     assert snap.cancelled  # a stage counter moved
     assert snap.requeues == 0

@@ -1,7 +1,8 @@
 """The port's serving entry point, ``python -m vnsum_tpu_torch.serve.server``:
 a real process on a free port answers /healthz and /v1/generate and exits 0
-on SIGTERM after draining; the CLI refuses what is not ported by name, and
-``--backend torch`` never lands on the CPU unless ``--device cpu`` asks."""
+on SIGTERM after draining; the CLI takes --journal-dir and refuses what is
+not ported by name, and ``--backend torch`` never lands on the CPU unless
+``--device cpu`` asks."""
 from __future__ import annotations
 
 import json
@@ -89,10 +90,19 @@ def test_server_process_serves_and_drains_on_sigterm():
 ])
 def test_cli_refuses_unported_features_by_name(argv, item, capsys):
     args = argv if "--backend" in argv else ["--backend", "fake", *argv]
+    journal = argv[0].startswith("--journal")
+    if journal:
+        # durable serving is ported: its flags are accepted, so the run
+        # ends at the refusal of an unported flag given after them
+        args = [*args, "--slo", "ttft_p99=0.5"]
     with pytest.raises(SystemExit) as exc:
         main(args)
     assert exc.value.code == 2
-    assert item in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert item in err
+    if journal:
+        last = err.strip().splitlines()[-1]
+        assert "--slo: SLOs are ROADMAP A15b" in last and "--journal" not in last
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-card refusal")

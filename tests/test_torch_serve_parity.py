@@ -194,9 +194,8 @@ def test_healthz_keys_equal(pair):
 
 
 # families of the JAX modules not ported yet: the serving mesh (ROADMAP A10);
-# the journal, tenant quotas and tier preemption, SLOs and the fleet (A15b)
-UNPORTED_PREFIXES = ("mesh_", "journal_", "slo_", "router_", "federation_",
-                     "fleet_")
+# tenant quotas and tier preemption, SLOs (A15b-2) and the fleet (A15b-3)
+UNPORTED_PREFIXES = ("mesh_", "slo_", "router_", "federation_", "fleet_")
 UNPORTED_NAMES = {"qos_tenants", "qos_requests_total", "qos_quota_sheds_total",
                   "qos_bucket_tokens", "gang_preemptions_total"}
 

@@ -164,6 +164,42 @@ def test_summarize_max_new_tokens_override(serve_url):
     assert state.strategy_for("mapreduce").max_new_tokens != 77
 
 
+def test_pipeline_overrides_shape_every_served_strategy():
+    """ServeState(pipeline_overrides=...) is the public way to serve an
+    approach off its defaults: both the cached strategy and a per-request
+    max_new_tokens one carry it, and the served summary equals the same
+    config's strategy run directly."""
+    from vnsum_tpu_torch.core.config import PipelineConfig, approach_defaults
+    from vnsum_tpu_torch.strategies import get_strategy
+
+    state = ServeState(FakeBackend(), max_batch=8, max_wait_s=0.005,
+                       pipeline_overrides={"chunk_size": 300, "chunk_overlap": 20})
+    server = make_server(state, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        status, d = _post(base + "/v1/summarize", {"text": DOC, "approach": "mapreduce"})
+        assert state.strategy_for("mapreduce").splitter.chunk_size == 300
+        assert state.strategy_for("mapreduce", 77).splitter.chunk_size == 300
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.close()
+    cfg = PipelineConfig(approach="mapreduce",
+                         **{**approach_defaults("mapreduce"), "chunk_size": 300,
+                            "chunk_overlap": 20})
+    direct = get_strategy("mapreduce", FakeBackend(), cfg).summarize(DOC)
+    assert status == 200 and d["num_chunks"] == direct.num_chunks >= 3
+    assert d["summary"] == direct.summary
+
+
+@pytest.mark.parametrize("key", ["approach", "no_such_field"])
+def test_pipeline_overrides_refuse_what_the_server_may_not_set(key):
+    with pytest.raises(ValueError, match=key):
+        ServeState(FakeBackend(), pipeline_overrides={key: 1})
+
+
 def test_summarize_validation(serve_url):
     base, _ = serve_url
     with pytest.raises(urllib.error.HTTPError) as exc:
@@ -378,6 +414,30 @@ def test_readyz_brownout_is_typed_503(serve_url):
         state.supervisor = saved
 
 
+def test_readyz_pre_replay_until_journal_replayed(tmp_path):
+    """A journal-armed server is NOT routable until startup replay has
+    re-enqueued its unfinished ACCEPTs — fresh traffic must not race
+    crash recovery. The standalone CLI replays before binding the port;
+    this pins the state machine the router's probe loop observes."""
+    state = ServeState(FakeBackend(), max_batch=4, max_wait_s=0.005,
+                       journal_dir=str(tmp_path))
+    server = make_server(state, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, body = _get_readyz(base)
+        assert status == 503 and body["reason"] == "pre_replay"
+        assert body["retry_after_s"] == 1.0
+        state.replay_journal()
+        status, body = _get_readyz(base)
+        assert status == 200 and body["status"] == "ready"
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.close()
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"journal_dir": "j"}, "A15b"),
     ({"tenants": object()}, "A15b"),
@@ -385,11 +445,20 @@ def test_readyz_brownout_is_typed_503(serve_url):
     ({"mesh": {"data": 2, "model": 2}}, "A10"),
 ])
 def test_unported_serving_features_refuse_by_name(kw, item, tmp_path):
-    """Durable serving, tenants, SLOs and the mesh are not ported yet:
-    ServeState refuses each with its ROADMAP item, before any thread or
-    file exists."""
+    """Tenants, SLOs and the mesh are not ported yet: ServeState refuses
+    each with its ROADMAP item, before any thread or file exists. Durable
+    serving (A15b-1) is ported: a journal_dir arms the journal instead,
+    and the server is not routable until its startup replay ran."""
     if "journal_dir" in kw:
-        kw = {"journal_dir": str(tmp_path / "j")}
+        state = ServeState(FakeBackend(), journal_dir=str(tmp_path / "j"))
+        try:
+            assert state.journal is not None and (tmp_path / "j").is_dir()
+            assert state.readiness() == (False, "pre_replay")
+            assert state.replay_journal() == 0
+            assert state.readiness() == (True, "ready")
+        finally:
+            state.close()
+        return
     with pytest.raises(NotImplementedError, match=item):
-        ServeState(FakeBackend(), **kw)
+        ServeState(FakeBackend(), journal_dir=None, **kw)
     assert not (tmp_path / "j").exists()

@@ -412,3 +412,35 @@ def test_stream_lifecycle_and_metrics(inflight_server):
     assert "vnsum_serve_stream_events_total" in text
     assert "vnsum_serve_stream_active 0" in text
 
+
+def test_streaming_request_journals_streaming_state(tmp_path):
+    """The STREAMING lifecycle event lands in the ledger at first delta and
+    the entry still terminates COMPLETE."""
+    state = ServeState(
+        FakeBackend(segment_words=4, segment_overhead_s=0.002),
+        max_batch=4, max_wait_s=0.005, inflight=True, slots=4,
+        journal_dir=str(tmp_path / "journal"),
+    )
+    server = make_server(state, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        events = sse_post(
+            base, "/v1/generate",
+            {"prompt": "ghi so cai dong su kien " * 8, "stream": True,
+             "request_id": "stream-led-1"},
+        )
+        assert events[-1][0] == "done"
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.close()
+    from vnsum_tpu_torch.serve.journal import RequestJournal
+
+    entries, _sealed, torn = RequestJournal.read_state(tmp_path / "journal")
+    assert torn == 0
+    assert entries["stream-led-1"].status == "complete"
+    raw = b"".join(
+        p.read_bytes() for p in sorted((tmp_path / "journal").glob("*.jsonl"))
+    )
+    assert b'"e":"streaming"' in raw

@@ -24,6 +24,7 @@ from vnsum_tpu_torch.serve import (
     RequestFailed,
     Watchdog,
 )
+from vnsum_tpu_torch.serve.journal import RequestJournal
 from vnsum_tpu_torch.serve.supervisor import EngineSupervisor, RetryPolicy
 from vnsum_tpu_torch.serve.watchdog import Stall, snapshot_stacks
 from vnsum_tpu_torch.testing.faults import FaultPlan, FaultSpec, injected
@@ -288,6 +289,35 @@ def test_close_waits_for_a_fenced_successor_thread():
     assert not successor.is_alive()
 
 
+@pytest.mark.parametrize("round_", range(2))
+def test_hung_dispatch_journals_typed_failed(round_, tmp_path):
+    """The riders of a hung dispatch end typed FAILED (reason "hung") in
+    the ledger, and close() after it returns cleanly (it waits for the
+    fenced successor's start, then seals nothing: the state is not
+    closed here). Repeated: close races recovery."""
+    wd = Watchdog(interval_s=0.03, loop_deadline_s=5.0, dispatch_base_s=0.25,
+                  dispatch_per_token_s=0.0)
+    wd.start()
+    journal = RequestJournal(tmp_path)
+    sched = MicroBatchScheduler(FakeBackend(), max_batch=2, max_wait_s=0.01,
+                                journal=journal, watchdog=wd)
+    plan = FaultPlan([FaultSpec(site="fake.dispatch", kind="hang",
+                                on_call=1, delay_s=0.0)])
+    try:
+        with injected(plan):
+            fut = sched.submit("ket trong dong co", trace_id=f"hung-{round_}")
+            with pytest.raises(RequestFailed):
+                fut.result(timeout=10)
+        entries = journal.lookup(f"hung-{round_}")
+        assert entries and entries[0].status == "failed"
+        assert entries[0].reason == "hung"
+    finally:
+        plan.release_hangs()
+        sched.close(timeout=5)
+        journal.close()
+        wd.close()
+
+
 # -- recovery: hung slot loop -> teardown + requeue + byte-identity ----------
 
 
@@ -401,6 +431,88 @@ def test_helper_stall_escalation_fires_on_escalate():
     for s in wd.tick():
         pass
     assert escalated.is_set()
+
+
+def test_helper_stall_escalation_seals_journal(tmp_path):
+    clock = FakeClock()
+    sealed = threading.Event()
+    journal = RequestJournal(tmp_path)
+
+    def escalate(stall):
+        # what the HTTP server wires (minus os._exit): seal so restart
+        # replay starts from a marked ledger
+        assert stall.kind == "helper"
+        journal.seal()
+        sealed.set()
+
+    wd = Watchdog(loop_deadline_s=5.0, helper_deadline_s=10.0, clock=clock,
+                  on_escalate=escalate)
+    wd.register("journal-fsync", kind="helper")
+    clock.advance(11.0)
+    for s in wd.tick():
+        pass
+    assert sealed.is_set()
+    journal.close()
+    _entries, is_sealed, _torn = RequestJournal.read_state(tmp_path)
+    assert is_sealed
+
+
+def test_mid_fsync_hang_classifies_as_lock_stall():
+    """A hang inside the journal's group-commit fsync wedges the scheduler
+    thread OUTSIDE any dispatch ticket — the watchdog must classify it as
+    a lock stall (escalation territory: a replacement thread would
+    deadlock on the held journal lock), never as a dispatch."""
+    import tempfile
+
+    escalations = []
+    wd = Watchdog(interval_s=0.05, loop_deadline_s=0.4,
+                  dispatch_base_s=30.0,
+                  on_escalate=lambda s: escalations.append(s))
+    wd.start()
+    with tempfile.TemporaryDirectory() as d:
+        journal = RequestJournal(d, fsync_interval_s=0.0)
+        sched = MicroBatchScheduler(FakeBackend(), max_batch=2,
+                                    max_wait_s=0.01, journal=journal,
+                                    watchdog=wd)
+        plan = FaultPlan([FaultSpec(site="journal.fsync", kind="hang",
+                                    on_call=1, delay_s=1.2)])
+        try:
+            with injected(plan):
+                fut = sched.submit("ket trong fsync mot hai ba")
+                # the hang self-releases after 1.2s; the request then
+                # completes — liveness was lost and found
+                fut.result(timeout=10)
+            deadline = time.monotonic() + 5
+            while not escalations and time.monotonic() < deadline:
+                time.sleep(0.02)
+            assert escalations and escalations[0].kind == "lock"
+            assert escalations[0].name == "scheduler"
+        finally:
+            plan.release_hangs()
+            sched.close(timeout=5)
+            journal.close()
+            wd.close()
+
+
+def test_serve_state_escalation_seals_its_journal(tmp_path):
+    """The server's escalation hook (exit disabled, as an embedding caller
+    runs it) seals the journal on a side thread before it would exit: a
+    restart reads a sealed ledger."""
+    from vnsum_tpu_torch.serve.server import ServeState
+
+    state = ServeState(FakeBackend(), max_batch=2, max_wait_s=0.005,
+                       journal_dir=str(tmp_path), watchdog_exit_on_escalate=False)
+    try:
+        state.replay_journal()
+        fut = state.scheduler.submit("truoc khi niem phong", trace_id="esc-1")
+        assert fut.result(timeout=10).text
+        state._watchdog_escalate(Stall(kind="lock", name="scheduler",
+                                       stalled_for_s=1.0, limit_s=0.5))
+        assert state._watchdog_escalations == 1
+        entries, sealed, torn = RequestJournal.read_state(tmp_path)
+        assert sealed and torn == 0 and entries["esc-1"].status == "complete"
+    finally:
+        state.close()
 
 
 # -- drain beats an in-flight sleep (the latent-gap fix) ---------------------

@@ -18,11 +18,18 @@ same paths, over ``TorchBackend`` (or the fake and Ollama backends).
                 finished rows are harvested and freed slots refilled from
                 the queue at every segment boundary, TTFT anchored at each
                 joiner's own prefill
+- journal.py    durability: write-ahead request journal (CRC-checked JSONL
+                segments, group-commit fsync, compaction on reopen); every
+                accepted request is journaled before engine work, outcomes
+                append COMPLETE/FAILED/CANCELLED, and restart replays the
+                unfinished remainder byte-identically (--journal-dir); the
+                record format is the JAX package's byte for byte
 - supervisor.py engine supervision: failure classification (transient /
                 resource-exhausted / poison / fatal / hung), bounded
                 jittered retry, batch bisection that quarantines poison
                 requests, and the graceful-degradation ladder
-- gang.py       structured jobs: fan-out groups admitted in one pass
+- gang.py       structured jobs: fan-out groups admitted in one pass,
+                their membership journaled once per round (GANG records)
 - stream.py     per-request SSE emit channel (bounded, coalescing,
                 Last-Event-ID resumes); cancellation rides the schedulers
                 (DELETE /v1/requests/<id> + the disconnect sweep)
@@ -35,10 +42,9 @@ same paths, over ``TorchBackend`` (or the fake and Ollama backends).
 - server.py     stdlib HTTP front-end
                 (python -m vnsum_tpu_torch.serve.server)
 
-Not ported yet (ROADMAP A15b): durable serving (journal.py), tenants
-(qos.py), SLOs (slo.py), the fleet (router, federation, worker) and the
-strategies' streaming rounds. This package carries no hooks for them;
-``ServeState`` and the CLI refuse their arguments by name.
+Not ported yet: tenants (qos.py) and SLOs (slo.py) (ROADMAP A15b-2), the
+fleet (router, federation, worker; A15b-3). This package carries no hooks
+for them; ``ServeState`` and the CLI refuse their arguments by name.
 
 ONE scheduler thread owns all backend.generate calls (the engine's CUDA
 graphs, prefix cache and stats are not thread-safe), and concurrency lives
@@ -53,6 +59,7 @@ from .queue import (
 )
 from .scheduler import MicroBatchScheduler, QueuedBackend
 from .inflight import InflightScheduler
+from .journal import JournalEntry, RequestJournal
 from .metrics import ServeMetrics
 from .stream import StreamChannel, StreamDetached, StreamRegistry
 from .usage import TenantLabelRegistry, UsageLedger
@@ -71,10 +78,12 @@ __all__ = [
     "FailureClass",
     "FatalEngineError",
     "InflightScheduler",
+    "JournalEntry",
     "MicroBatchScheduler",
     "QueuedBackend",
     "RequestCancelled",
     "RequestFailed",
+    "RequestJournal",
     "RequestQueue",
     "RequestShed",
     "RetryPolicy",

@@ -246,6 +246,7 @@ class InflightScheduler(MicroBatchScheduler):
             self._fr("failed", rid=r.trace_id, reason="error")
             self._trace_request(r, t0, max(now - t0, 0.0), None, "error")
             self._release_preempt_pins(r)
+            self._journal_fail(r, "error", str(e))
             if not r.future.done():
                 r.future.set_exception(e)
 
@@ -371,16 +372,20 @@ class InflightScheduler(MicroBatchScheduler):
 
     def _requeue_eviction(self, ev) -> None:
         """THE eviction -> requeue bookkeeping of watchdog hang recovery:
-        eviction count, pin carry, metrics, flight-recorder events, and the
-        trace span."""
+        eviction count, pin carry, typed PREEMPTED/REQUEUED journal events,
+        metrics, flight-recorder events, and the trace span."""
         r: ServeRequest = ev.key
         r.preemptions += 1
         if ev.pin is not None:
             r.preempt_pins.append(ev.pin)
+        if self.journal is not None and r.journal_rid is not None:
+            self.journal.preempt(r.journal_rid)
         self.metrics.observe_preemption()
         self._fr("preempt", rid=r.trace_id, preemptions=r.preemptions)
         self._trace_fault(r, "preempt", None, 0.0)
         self.queue.requeue(r)
+        if self.journal is not None and r.journal_rid is not None:
+            self.journal.requeue(r.journal_rid)
         self.metrics.observe_requeue()
         self._fr("requeue", rid=r.trace_id)
 
@@ -450,6 +455,11 @@ class InflightScheduler(MicroBatchScheduler):
         for adm in admissions:
             r: ServeRequest = adm.key
             r.inflight_admission = adm  # read back at harvest
+            if self.journal is not None and r.journal_rid is not None:
+                # slot admission IS this request's engine start: its own
+                # prefill ran (the one-shot path journals START per batch
+                # dispatch in _dispatch instead)
+                self.journal.start(r.journal_rid)
         if admissions:
             prefill_s = admissions[0].prefill_end - admissions[0].admitted_at
             self.metrics.observe_batch(len(admissions), prefill_s)
@@ -567,6 +577,10 @@ class InflightScheduler(MicroBatchScheduler):
                 # concatenated deltas == the completion text, BEFORE the
                 # future resolves (the handler drains after done)
                 r.stream.push_text(c.text)
+            if self.journal is not None and r.journal_rid is not None:
+                # ledger before future, same ordering rationale as the
+                # one-shot path in scheduler._dispatch
+                self.journal.complete(r.journal_rid, c.text, c.gen_tokens)
             if not r.future.done():
                 r.future.set_result(_Completion(c.text, rec))
 
@@ -574,7 +588,8 @@ class InflightScheduler(MicroBatchScheduler):
         """Per-segment streaming harvest: fetch the decoded-so-far text of
         every STREAMING resident (one host fetch per segment, only when
         streaming requests are actually resident) and push the suffix
-        deltas into their channels."""
+        deltas into their channels. The first delta journals the STREAMING
+        lifecycle event."""
         streams = [
             r for r in loop.outstanding()
             if getattr(r, "stream", None) is not None
@@ -584,5 +599,7 @@ class InflightScheduler(MicroBatchScheduler):
         partials = loop.partial_outputs(streams)  # keyed by id(request)
         for r in streams:
             text = partials.get(id(r))
-            if text:
-                r.stream.push_text(text)
+            if text and r.stream.push_text(text) and not r.stream_journaled:
+                r.stream_journaled = True
+                if self.journal is not None and r.journal_rid is not None:
+                    self.journal.streaming(r.journal_rid)

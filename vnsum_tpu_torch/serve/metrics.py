@@ -16,7 +16,7 @@ Metric registry: every exported metric is declared ONCE in the `_reg(...)`
 block below — rendering takes its HELP/TYPE text from the registry, and
 `metric_names()` lists them (the port's tests hold the list equal to the
 JAX package's, less the families of the modules not ported yet: the mesh
-(ROADMAP A10), the journal, tenant quotas, SLOs and the fleet (A15b)).
+(ROADMAP A10), tenant quotas and SLOs (A15b-2) and the fleet (A15b-3)).
 
 Emission sites for the registry entries: request/shed/batch counters and all
 histograms are observed by `serve/scheduler.py` (observe_submit via the
@@ -157,6 +157,22 @@ _reg("stream_heartbeats_total", "counter",
 _reg("cache_pinned_blocks", "gauge",
      "prefix-cache blocks pinned by live matches at scrape (leak probe: "
      "returns to 0 when no batch is in flight)")
+_reg("journal_records_total", "counter",
+     "write-ahead journal records appended (accept/start/complete/failed)")
+_reg("journal_appended_bytes_total", "counter",
+     "bytes appended to the write-ahead journal")
+_reg("journal_fsyncs_total", "counter",
+     "group-commit fsyncs issued by the journal")
+_reg("journal_rotations_total", "counter",
+     "journal segment rotations (size-triggered)")
+_reg("journal_torn_records_total", "counter",
+     "CRC-rejected torn/corrupt records dropped at recovery")
+_reg("journal_replayed_total", "counter",
+     "journaled requests re-enqueued by startup replay")
+_reg("journal_replay_seconds_total", "counter",
+     "wall-clock seconds spent re-enqueueing journaled requests")
+_reg("journal_pending", "gauge",
+     "journaled requests not yet COMPLETE or typed FAILED (scrape-time)")
 # -- per-tenant usage ledger (serve/usage.py): labels pass through the
 # capped TenantLabelRegistry, so cardinality is bounded by construction
 _reg("usage_requests_total", "counter", "requests admitted, by tenant")
@@ -530,6 +546,7 @@ class ServeMetrics:
                           cache_stats: dict | None = None,
                           slot_state: tuple[int, int] | None = None,
                           degraded_rung: int | None = None,
+                          journal_stats: dict | None = None,
                           gang_state: dict | None = None,
                           recorder_stats: dict | None = None,
                           watchdog_stats: dict | None = None,
@@ -537,7 +554,8 @@ class ServeMetrics:
         """``cache_stats`` is the backend's prefix_cache_stats() snapshot
         (evictions / blocks_used / blocks_total), read at scrape time like
         the queue gauges — the serving layer never mirrors pool state.
-        ``recorder_stats`` is the FlightRecorder's stats_dict (absent
+        ``journal_stats`` is RequestJournal.stats_dict() (absent without
+        --journal-dir). ``recorder_stats`` is the FlightRecorder's stats_dict (absent
         without a recorder).
         ``exemplars=True`` suffixes the latency buckets with OpenMetrics
         exemplars — callers must only set it for scrapes that NEGOTIATED
@@ -752,6 +770,22 @@ class ServeMetrics:
             # like the queue gauges — the metrics layer never mirrors it
             simple("slots_total", slot_state[0])
             simple("slots_busy", slot_state[1])
+        if journal_stats is not None:
+            # read from the live RequestJournal at scrape time, like the
+            # queue gauges — the metrics layer never mirrors ledger state
+            simple("journal_records_total", journal_stats.get("records", 0))
+            simple("journal_appended_bytes_total",
+                   journal_stats.get("appended_bytes", 0))
+            simple("journal_fsyncs_total", journal_stats.get("fsyncs", 0))
+            simple("journal_rotations_total",
+                   journal_stats.get("rotations", 0))
+            simple("journal_torn_records_total",
+                   journal_stats.get("torn_records", 0))
+            simple("journal_replayed_total",
+                   journal_stats.get("replayed", 0))
+            simple("journal_replay_seconds_total",
+                   journal_stats.get("replay_seconds", 0.0))
+            simple("journal_pending", journal_stats.get("pending", 0))
         if cache_stats is not None:
             simple("cache_evictions_total", cache_stats.get("evictions", 0))
             simple("cache_blocks_used", cache_stats.get("blocks_used", 0))

@@ -125,16 +125,29 @@ class ServeRequest:
     # engine dispatches this request has been part of; the supervisor's
     # per-request retry budget caps it
     attempts: int = 0
+    # durable-serving id (serve/journal.py): assigned by the journal's
+    # ACCEPT record at admission (trace_id, or trace_id#N for fan-out
+    # siblings); preset by startup replay so a re-enqueued request keeps
+    # its ledger identity instead of journaling a second ACCEPT. None =
+    # journaling off, or shed before admission (never accepted)
+    journal_rid: str | None = None
     # structured jobs (serve/gang.py): the gang this row belongs to ("" =
     # ungrouped). Fan-out siblings of one summarize/skeleton request share
     # it; the queue's take paths cluster same-gang rows into one slot
     # generation (so they share the template-header prefix in the radix
     # cache). Per-ROW metadata, never part of batch_key
     gang_id: str = ""
+    # which phase of the structured job this row serves ("map" / "reduce" /
+    # "outline" / "expand" / "" for ungrouped) — journal + /v1/requests
+    # per-phase progress metadata only, never scheduling policy
+    gang_phase: str = ""
     # streaming (serve/stream.py): the per-request emit channel the
     # scheduler pushes decode-progress text into (None = non-streaming).
     # Never compared/printed — it carries a live Queue
     stream: object | None = field(default=None, repr=False, compare=False)
+    # True once the journal's STREAMING lifecycle event was appended (the
+    # first delta emits it; scheduler-thread-only state)
+    stream_journaled: bool = False
     # watchdog recovery (serve/inflight.py): how many times this request
     # was evicted mid-decode and requeued, and the prefix-cache pins taken
     # at eviction so its cached blocks survive LRU until it terminally
@@ -477,7 +490,7 @@ class RequestQueue:
         """Remove every queued request matching ``pred`` and release its
         token bill — the queue half of request cancellation. Deliberately
         resolution-free: the SCHEDULER owns the terminal bookkeeping
-        (metrics, the future), so
+        (journal CANCELLED, metrics, the future), so
         this only mutates queue state, symmetric with the take paths.
         ``pred`` runs under the queue lock — it must be cheap and must not
         take other serve locks except leaves (the stream idle probe)."""
@@ -495,7 +508,7 @@ class RequestQueue:
     def requeue(self, req: ServeRequest) -> None:
         """Re-admit an EVICTED request (watchdog recovery, serve/inflight.py
         and serve/scheduler.py): no admission checks, no on_admit hook — it
-        was already admitted and counted in its first life, and its future
+        was already admitted, journaled and counted in its first life, and its future
         is still the one the caller holds. Its token bill re-enters the
         queue budget (the slots it vacated stopped billing at take).
         Appended even after close(): a drain must finish evicted work, not

@@ -96,6 +96,7 @@ class MicroBatchScheduler:
         supervisor=None,
         recorder=None,
         watchdog=None,
+        journal=None,
     ) -> None:
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -115,6 +116,12 @@ class MicroBatchScheduler:
         # tuple-cheap event and anomalies (brownout entry, fatal failure,
         # quarantine, drain) snapshot the ring to disk
         self.recorder = recorder
+        # durability (serve/journal.py): None = volatile serving (the
+        # pre-journal contract). With a RequestJournal, every admission
+        # writes an ACCEPT record before any engine work and every outcome
+        # appends COMPLETE or a typed FAILED — the at-least-once ledger a
+        # crash-restart replays
+        self.journal = journal
         # fault tolerance (serve/supervisor.py): None = pre-supervision
         # contract — an engine failure resolves every rider with the raw
         # error, no retries (what the direct-API tests pin). With a
@@ -149,12 +156,12 @@ class MicroBatchScheduler:
         self.queue.on_admit = self._on_admit
         self.queue.on_take = self._on_take
         # structured jobs (serve/gang.py): gang admission, membership
-        # counts, and degraded-result marking. Always constructed —
+        # journaling, and degraded-result marking. Always constructed —
         # gang bookkeeping is part of the serving contract; the bench A/B
         # toggles only queue.gang_affinity
         from .gang import GangRegistry
 
-        self.gangs = GangRegistry(metrics=self.metrics)
+        self.gangs = GangRegistry(journal=journal, metrics=self.metrics)
         if supervisor is not None:
             # brownout gate: at the ladder's bottom rung new EXTERNAL
             # admissions shed with a typed 503 + Retry-After; the gate call
@@ -218,7 +225,9 @@ class MicroBatchScheduler:
         trace_id: str | None = None,
         trace_owned: bool = False,
         stream=None,
+        journal_rid: str | None = None,
         gang: str = "",
+        gang_phase: str = "",
     ):
         """Admit one prompt; returns a Future resolving to a _Completion.
         Raises RequestShed synchronously when admission control rejects.
@@ -248,9 +257,15 @@ class MicroBatchScheduler:
         ``stream`` is a serve/stream.StreamChannel the scheduler pushes
         decode-progress text into (the HTTP layer's SSE source).
 
-        ``gang`` marks this prompt a member of a structured job
-        (serve/gang.py): the queue's take paths cluster same-gang rows into
-        one slot generation."""
+        ``journal_rid`` presets the durable-serving ledger id
+        (serve/journal.py) — ONLY the startup replay path sets it, so a
+        re-enqueued request keeps its original ACCEPT record instead of
+        journaling a duplicate.
+
+        ``gang``/``gang_phase`` mark this prompt a member of a structured
+        job (serve/gang.py): the queue's take paths cluster same-gang rows
+        into one slot generation, and the member joins its gang's journal
+        record at the next round flush."""
         req = ServeRequest(
             prompt=prompt,
             max_new_tokens=max_new_tokens,
@@ -261,7 +276,9 @@ class MicroBatchScheduler:
             est_tokens=self.backend.count_tokens(prompt),
             trace_id=trace_id or "",
             stream=stream,
+            journal_rid=journal_rid,
             gang_id=gang,
+            gang_phase=gang_phase,
         )
         # admission discount: only probed when a token budget exists — the
         # probe re-tokenizes the prompt (a second pass on top of
@@ -285,8 +302,10 @@ class MicroBatchScheduler:
         # lock, so metrics can never show a completion before its submit
         fut = self.queue.submit(req, force=internal)  # raises RequestShed
         if gang:
-            # AFTER admission: a shed prompt never joins its gang
-            self.gangs.note_member(gang)
+            # AFTER admission: the queue's on_admit hook just assigned the
+            # ledger id (journal.accept), so the membership note carries it;
+            # a shed prompt never joins its gang
+            self.gangs.note_member(gang, req.journal_rid, gang_phase)
         return fut
 
     def check_admission(self, est_tokens: int = 0) -> None:
@@ -331,7 +350,8 @@ class MicroBatchScheduler:
 
     # -- cancellation -----------------------------------------------------
 
-    def cancel(self, rid: str, *, reason: str = "api") -> dict:
+    def cancel(self, rid: str, *, reason: str = "api",
+               force_mark: bool = False) -> dict:
         """Gang-cancel every live request whose trace_id is ``rid`` —
         fan-out children share the parent's trace_id, so one DELETE
         reclaims the whole gang. Queued requests are removed and resolved
@@ -342,7 +362,11 @@ class MicroBatchScheduler:
         single-threaded by contract — only its thread may touch slots).
 
         Idempotent: a rid already marked (or already terminal) re-answers
-        with zero counts. Returns {"cancelled_queued", "cancel_pending", "known"}."""
+        with zero counts. ``force_mark`` marks even when nothing live
+        matches — the server uses it when the JOURNAL still holds a
+        non-terminal entry for ``rid`` (a handoff window this thread
+        cannot see into), so the mark is guaranteed to be observed.
+        Returns {"cancelled_queued", "cancel_pending", "known"}."""
         with self._cancel_lock:
             already = rid in self._cancelled_ids
         removed = self.queue.cancel_where(lambda r: r.trace_id == rid)
@@ -353,7 +377,7 @@ class MicroBatchScheduler:
             r for r in self._stranded_snapshot() if r.trace_id == rid
         ]
         known = bool(removed or pending or already)
-        if known:
+        if known or force_mark:
             with self._cancel_lock:
                 self._cancelled_ids[rid] = reason
                 self._cancelled_ids.move_to_end(rid)
@@ -411,13 +435,15 @@ class MicroBatchScheduler:
                            reason: str = "api") -> None:
         """Terminal cancellation bookkeeping — the one funnel every cancel
         path ends in: metrics (stage-labeled; disconnect-triggered ones
-        counted separately), preempt-pin release, the owned-trace
-        finalization, the stream close, and the future."""
+        counted separately), preempt-pin release, the typed CANCELLED
+        ledger record, the owned-trace finalization, the stream close, and
+        the future."""
         self.metrics.observe_cancel(stage)
         if reason == "disconnect":
             self.metrics.observe_cancel_disconnect()
         self._fr("cancel", rid=r.trace_id, stage=stage, reason=reason)
         self._release_preempt_pins(r)
+        self._journal_cancel(r, reason)
         if r.own_trace and r.trace is not None and self.obs is not None:
             self.obs.finish_request(r.trace, f"cancelled:{reason}")
             r.trace = None
@@ -432,6 +458,10 @@ class MicroBatchScheduler:
             # lint-allow[swallowed-exception]: losing the done()-check race means the scheduler thread resolved this future first — it is already answered, and the cancel sweep must keep going for the rest
             except InvalidStateError:
                 pass
+
+    def _journal_cancel(self, r: ServeRequest, reason: str) -> None:
+        if self.journal is not None and r.journal_rid is not None:
+            self.journal.cancel(r.journal_rid, reason)
 
     def submit_many(self, prompts, references=None, cache_hints=None, **kw):
         """Admit a round of prompts atomically-ish: if any prompt is shed at
@@ -463,13 +493,14 @@ class MicroBatchScheduler:
         trace_id: str | None = None,
         trace_owned: bool = False,
         gang: str = "",
+        gang_phase: str = "",
     ) -> list[_Completion]:
         futs = self.submit_many(
             prompts, references=references, cache_hints=cache_hints,
             max_new_tokens=max_new_tokens,
             config=config, deadline=deadline, internal=internal,
             trace=trace, trace_id=trace_id, trace_owned=trace_owned,
-            gang=gang,
+            gang=gang, gang_phase=gang_phase,
         )
         # lint-allow[unbounded-blocking-wait]: externally bounded — these are request futures EVERY scheduler path resolves (success, typed failure, shed; drain-overrun sheds cover even a wedged engine, and the watchdog resolves hung dispatches typed)
         return [f.result() for f in futs]
@@ -496,16 +527,30 @@ class MicroBatchScheduler:
 
     def _on_admit(self, req: ServeRequest) -> None:
         """Queue on_admit hook (runs under the queue lock): count the
-        submit BEFORE the scheduler can take the request."""
+        submit and, when durable serving is on, write the ACCEPT record —
+        BEFORE the scheduler can take the request, so no engine work ever
+        happens on an unjournaled request."""
         self.metrics.observe_submit()
         if req.stream is not None:
             self.metrics.observe_stream_request()
+        if self.journal is not None:
+            self.journal.accept(req)
         self._fr("admit", rid=req.trace_id, tokens=req.est_tokens)
+
+    def _journal_fail(self, req: ServeRequest, reason: str,
+                      detail: str = "") -> None:
+        """Typed-FAILED ledger append for every terminal non-success path.
+        journal_rid is None for requests shed AT admission (they were never
+        accepted, so the ledger owes them nothing) and when journaling is
+        off."""
+        if self.journal is not None and req.journal_rid is not None:
+            self.journal.fail(req.journal_rid, reason, detail)
 
     def _on_shed(self, req: ServeRequest, reason: ShedReason) -> None:
         self.metrics.observe_shed(reason)
         self._fr("shed", rid=req.trace_id, reason=reason.value)
         self._release_preempt_pins(req)
+        self._journal_fail(req, f"shed:{reason.value}")
         # scheduler-owned traces must not leak open on the shed path; the
         # hub lock is independent of the queue lock this hook runs under
         if req.own_trace and req.trace is not None and self.obs is not None:
@@ -577,6 +622,7 @@ class MicroBatchScheduler:
                 # and /healthz would keep reporting ok
                 logger.exception("batch post-processing failed")
                 for r in batch:
+                    self._journal_fail(r, "error", str(e))
                     if not r.future.done():
                         r.future.set_exception(e)
 
@@ -628,6 +674,13 @@ class MicroBatchScheduler:
             self.recorder.record("dispatch", rid=head.trace_id,
                                  occupancy=len(batch),
                                  rids=[r.trace_id for r in batch[1:]])
+        if self.journal is not None:
+            # START marks "engine work began" — replay after a crash here
+            # recomputes from the ACCEPT payload (deterministic greedy), so
+            # START is bookkeeping for operators, not a correctness gate
+            for r in batch:
+                if r.journal_rid is not None:
+                    self.journal.start(r.journal_rid)
         # batch telemetry (vnsum_tpu_torch.obs): the BatchTrace is installed as the
         # contextvar collector for the duration of backend.generate, so the
         # engine's prefill/decode/spec-step emits land on THIS batch's track
@@ -752,6 +805,11 @@ class MicroBatchScheduler:
                 # boundary: the whole text leaves as one delta, BEFORE the
                 # future resolves so the handler's drain-after-done sees it
                 r.stream.push_text(out)
+            if self.journal is not None and r.journal_rid is not None:
+                # journal COMPLETE before resolving the future: a success
+                # the client saw is always in the ledger (a crash between
+                # replays the request and re-completes it identically)
+                self.journal.complete(r.journal_rid, out, n_out)
             if not r.future.done():
                 r.future.set_result(_Completion(out, rec))
 
@@ -1027,6 +1085,7 @@ class MicroBatchScheduler:
         self.metrics.observe_shed(reason)
         self._fr("shed", rid=r.trace_id, reason=reason.value)
         self._release_preempt_pins(r)
+        self._journal_fail(r, f"shed:{reason.value}")
         if r.own_trace and r.trace is not None and self.obs is not None:
             self.obs.finish_request(r.trace, f"shed:{reason.value}")
             r.trace = None
@@ -1091,6 +1150,7 @@ class MicroBatchScheduler:
             self._fr("failed", rid=r.trace_id, reason=reason)
             self._trace_request(r, t0, engine_s, bt, "error")
             self._release_preempt_pins(r)
+            self._journal_fail(r, reason, str(e))
             if not r.future.done():
                 r.future.set_exception(e)
 
@@ -1287,8 +1347,12 @@ class QueuedBackend:
             deadline=self.deadline, internal=True, references=references,
             cache_hints=cache_hints,
             trace=self.trace, trace_id=self.trace_id, trace_owned=True,
+            # phase unlabeled: a barrier-mode generate() has no phase
+            # knowledge (strategies that do label use submit_round)
             gang=self.gang_id,
         )
+        if self.gang_id:
+            self.scheduler.gangs.flush(self.gang_id)
         with self._lock:
             self.records.extend(c.record for c in completions)
             done = len(self.records)
@@ -1302,6 +1366,7 @@ class QueuedBackend:
         self,
         prompts: list[str],
         *,
+        phase: str = "map",
         max_new_tokens: int | None = None,
         config: GenerationConfig | None = None,
         references: list[str | None] | None = None,
@@ -1309,7 +1374,10 @@ class QueuedBackend:
     ) -> list:
         """Submit one fan-out round WITHOUT blocking: returns the futures
         aligned with ``prompts`` for ``harvest`` to drain in completion
-        order."""
+        order. ``phase`` labels the members in the gang's journal record
+        ("map" / "reduce" / "outline" / "expand") — the per-phase progress
+        the poll surface reports. The gang's membership is flushed as one
+        typed GANG record right after the round's admissions."""
         if not prompts:
             return []
         futs = self.scheduler.submit_many(
@@ -1317,15 +1385,17 @@ class QueuedBackend:
             max_new_tokens=max_new_tokens, config=config,
             deadline=self.deadline, internal=True,
             trace=self.trace, trace_id=self.trace_id, trace_owned=True,
-            gang=self.gang_id,
+            gang=self.gang_id, gang_phase=phase if self.gang_id else "",
         )
+        if self.gang_id:
+            self.scheduler.gangs.flush(self.gang_id)
         return futs
 
     def harvest(self, fut, *, tolerate_poison: bool = False) -> str | None:
         """Resolve ONE submit_round future: the text on success (progress
         fires per completion — the streaming client's per-child progress
         events), or None when ``tolerate_poison`` and the member failed
-        typed POISON — the gang is marked ``partial`` and the
+        typed POISON — the gang is marked ``partial`` (journaled) and the
         caller's reduce proceeds over the survivors. Every other failure
         (transient-out-of-budget, fatal, shed, cancelled) re-raises: a
         degraded summary is a poison-only contract, infrastructure

@@ -8,11 +8,12 @@ Counterpart of ``vnsum_tpu/serve/server.py`` on the port's engine:
     python -m vnsum_tpu_torch.serve.server --backend fake --port 8901
 
 ``--backend torch`` runs on the card; ``--device cpu`` is the only way
-onto the CPU. Not ported yet, and refused by name: ``--journal-dir``,
-``--journal-fsync-ms``, ``--tenants``, ``--preempt-budget``, ``--slo``,
-``--slo-burn-fast`` and ``--slo-burn-slow`` (ROADMAP A15b), ``--mesh``
-(A10) and ``--backend hf`` (A5c). ``GET /v1/requests/<id>`` therefore
-answers a typed 404 (no journal), and ``/debug/slo`` reports SLOs off.
+onto the CPU. ``--journal-dir D`` arms durable serving (serve/journal.py):
+every accepted request is journaled before engine work, and a restart on
+the same D replays the unfinished ones before taking traffic. Not ported
+yet, and refused by name: ``--tenants``, ``--preempt-budget``, ``--slo``,
+``--slo-burn-fast`` and ``--slo-burn-slow`` (ROADMAP A15b-2), ``--mesh``
+(A10) and ``--backend hf`` (A5c); ``/debug/slo`` reports SLOs off.
 
 Endpoints:
     POST /v1/summarize  {"text": ..., "approach": "mapreduce",
@@ -33,13 +34,16 @@ Endpoints:
         ``stream`` too (``progress`` events per strategy round + the same
         ``done`` payload).
     GET /healthz        liveness + queue depth
-    GET /v1/requests/<id>  the durable-serving poll surface: a typed 404
-                        until the journal is ported (ROADMAP A15b)
+    GET /v1/requests/<id>  durable-serving poll surface (--journal-dir):
+                        status + result of a journaled request — the
+                        reconnect path after a server crash mid-request
     DELETE /v1/requests/<id>  first-class cancellation: idempotent,
                         gang-cancels <id>#N fan-out children; queued
                         requests resolve immediately, slot residents are
                         evicted (without requeue) at the next segment
-                        boundary. Streaming requests also cancel
+                        boundary, and a typed CANCELLED terminal event
+                        rides the journal so replay never resurrects a
+                        cancelled request. Streaming requests also cancel
                         automatically on client disconnect once the
                         bounded resume window (--stream-idle-timeout-s)
                         expires; within it, a reconnect with Last-Event-ID
@@ -85,6 +89,7 @@ state is local to summarize_batch; see strategies/base.py).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -108,7 +113,11 @@ logger = get_logger("vnsum.serve.http")
 
 class ServeState:
     """Everything the handler needs: the scheduler (which owns the engine)
-    plus a lazily-built per-approach strategy cache."""
+    plus a lazily-built per-approach strategy cache.
+
+    ``pipeline_overrides`` maps PipelineConfig fields (``chunk_size``,
+    ``max_new_tokens``, ...) laid over every approach's defaults when the
+    server builds a strategy; None serves each approach at its defaults."""
 
     def __init__(
         self,
@@ -130,6 +139,7 @@ class ServeState:
         supervisor=None,
         supervise: bool = True,
         journal_dir: str | None = None,
+        journal_fsync_s: float = 0.05,
         mesh=None,
         tenants=None,
         stream_heartbeat_s: float = 15.0,
@@ -145,18 +155,40 @@ class ServeState:
         watchdog_dispatch_base_s: float = 30.0,
         watchdog_dispatch_per_token_s: float = 0.01,
         watchdog_exit_on_escalate: bool = True,
+        pipeline_overrides: dict | None = None,
     ) -> None:
         self.backend = backend
+        self.pipeline_overrides = dict(pipeline_overrides or {})
+        settable = {f.name for f in dataclasses.fields(PipelineConfig)} - {"approach"}
+        unknown = sorted(set(self.pipeline_overrides) - settable)
+        if unknown:
+            raise ValueError(f"pipeline_overrides: {unknown} are not PipelineConfig "
+                             f"fields the server may set")
         # not ported yet: each refuses by name rather than serving without
         # the guarantee it stands for
         for arg, value, what in (
-            ("journal_dir", journal_dir, "durable serving (serve/journal.py) is ROADMAP A15b"),
             ("tenants", tenants, "multi-tenant QoS (serve/qos.py) is ROADMAP A15b"),
             ("slo", slo, "SLOs (serve/slo.py) are ROADMAP A15b"),
             ("mesh", mesh, "multi-card serving is ROADMAP A10"),
         ):
             if value:
                 raise NotImplementedError(f"ServeState({arg}=...): {what}, not ported yet")
+        # durability (serve/journal.py): a --journal-dir arms the
+        # write-ahead request journal — ACCEPT/START/COMPLETE/FAILED per
+        # request, replayed by replay_journal() after a restart. None =
+        # volatile serving, the pre-journal contract
+        self.journal = None
+        if journal_dir:
+            from .journal import RequestJournal
+
+            self.journal = RequestJournal(
+                journal_dir, fsync_interval_s=journal_fsync_s
+            )
+        # /readyz gate: a journal-armed server is not routable until
+        # startup replay has re-enqueued (or deadline-expired) every
+        # unfinished ACCEPT — a router must not send fresh traffic ahead
+        # of crash recovery. Journal-less servers are ready at birth
+        self._replay_done = self.journal is None
         # uptime anchors for /healthz (monotonic for the math, wall clock
         # for the human-readable start stamp)
         self.started_monotonic = time.monotonic()
@@ -220,10 +252,11 @@ class ServeState:
         # watchdog=False is the bench A/B's off arm, never an operator
         # flag (--no-watchdog exists for debugging a misbehaving detector,
         # not for production). Escalation (lock/helper stalls, where a
-        # replacement thread would deadlock too) is a supervised exit:
-        # WATCHDOG_EXIT_CODE tells the process manager to restart.
+        # replacement thread would deadlock too) is a supervised
+        # journal-seal-and-exit: WATCHDOG_EXIT_CODE tells the process
+        # manager to restart, and journal replay restores state.
         # watchdog_exit_on_escalate=False (tests/benches embedding a
-        # ServeState in-process) records but keeps the process
+        # ServeState in-process) records + seals but keeps the process
         self.watchdog = None
         self._watchdog_escalations = 0
         if watchdog:
@@ -251,6 +284,7 @@ class ServeState:
             supervisor=supervisor,
             recorder=self.recorder,
             watchdog=self.watchdog,
+            journal=self.journal,
         )
         if inflight:
             # in-flight batching (serve/inflight.py): slot-feeding over the
@@ -289,32 +323,104 @@ class ServeState:
         while token counting does not. A per-request max_new_tokens
         override bypasses the cache (the budget is baked in at
         construction)."""
+        base = {**approach_defaults(approach), **self.pipeline_overrides}
         if max_new_tokens is not None:
             cfg = PipelineConfig(
                 approach=approach,
-                **{**approach_defaults(approach),
-                   "max_new_tokens": int(max_new_tokens)},
+                **{**base, "max_new_tokens": int(max_new_tokens)},
             )
             return get_strategy(approach, self.backend, cfg)
         with self._strategies_lock:
             strat = self._strategies.get(approach)
             if strat is None:
-                cfg = PipelineConfig(
-                    approach=approach, **approach_defaults(approach)
-                )
+                cfg = PipelineConfig(approach=approach, **base)
                 strat = get_strategy(approach, self.backend, cfg)
                 self._strategies[approach] = strat
             return strat
 
+    def replay_journal(self) -> int:
+        """Re-enqueue every journaled ACCEPT that never reached a terminal
+        outcome, through the normal supervised path. Greedy replays are
+        byte-identical to an uninterrupted run (the ACCEPT record carries
+        the full payload incl. the sampling seed; the engine is
+        deterministic per payload). Entries whose wall-clock deadline
+        already passed fail typed (``shed:deadline``) without burning
+        engine time. Idempotent: the journal hands each unfinished entry
+        out at most once per process, so calling this twice enqueues
+        once."""
+        if self.journal is None:
+            return 0
+        t0 = time.monotonic()
+        n = 0
+        # rebuild live gang groups FIRST: replayed members must rejoin
+        # their structured job (membership and partiality come from the
+        # journal's typed GANG records, not from re-deriving trace prefixes)
+        restored = self.scheduler.gangs.restore(
+            self.journal.gangs_unfinished()
+        )
+        if restored:
+            logger.info("journal replay: restored %d live gang(s)", restored)
+        for entry in self.journal.take_unfinished():
+            p = entry.payload
+            deadline_unix = p.get("deadline_unix")
+            if deadline_unix is not None and time.time() >= deadline_unix:
+                self.journal.fail(
+                    entry.rid, "shed:deadline", "expired before replay"
+                )
+                continue
+            deadline = (
+                time.monotonic() + (deadline_unix - time.time())
+                if deadline_unix is not None else None
+            )
+            cfg = None
+            if p.get("config") is not None:
+                c = dict(p["config"])
+                c["eos_ids"] = tuple(c.get("eos_ids") or ())
+                cfg = GenerationConfig(**c)
+            try:
+                # internal=True: admission was already granted (and
+                # journaled) in the previous life of this server — replay
+                # must not shed against the depth budget of an empty queue
+                self.scheduler.submit(
+                    p.get("prompt", ""),
+                    max_new_tokens=p.get("max_new_tokens"),
+                    config=cfg,
+                    deadline=deadline,
+                    internal=True,
+                    reference=p.get("reference"),
+                    cache_hint=p.get("cache_hint"),
+                    trace_id=p.get("trace_id") or entry.rid,
+                    trace_owned=True,
+                    journal_rid=entry.rid,
+                    gang=p.get("gang", ""),
+                    gang_phase=p.get("gang_phase", ""),
+                )
+            # lint-allow[swallowed-exception]: a shutdown shed at replay is already journaled typed-FAILED by the queue's on_shed hook — the ledger entry is resolved
+            except RequestShed:
+                continue
+            n += 1
+        self.journal.note_replay(n, time.monotonic() - t0)
+        if self.recorder is not None:
+            self.recorder.record("journal_replay", replayed=n,
+                                 seconds=round(time.monotonic() - t0, 6))
+        if n:
+            logger.info("journal replay: re-enqueued %d request(s)", n)
+        self._replay_done = True
+        return n
+
     def readiness(self) -> tuple[bool, str]:
         """The ``/readyz`` verdict: (routable, reason). Distinct from
-        ``/healthz`` liveness — a draining or browned-out server is alive (healthz answers) but must not receive fresh
+        ``/healthz`` liveness — a draining, browned-out, or pre-replay
+        server is alive (healthz answers) but must not receive fresh
         traffic, and the router's probe loop keys off exactly this split.
         Reasons are typed: ``draining`` (shutdown drain underway, never
-        coming back), ``brownout`` (supervisor ladder bottomed out — route
-        again once the rung recovers)."""
+        coming back), ``pre_replay`` (journal recovery still re-enqueuing
+        — route after replay), ``brownout`` (supervisor ladder bottomed
+        out — route again once the rung recovers)."""
         if self.scheduler.closed:
             return False, "draining"
+        if not self._replay_done:
+            return False, "pre_replay"
         if self.supervisor is not None:
             from .supervisor import Rung
 
@@ -383,44 +489,85 @@ class ServeState:
         """``DELETE /v1/requests/<id>`` — gang-cancel ``rid`` and its
         ``rid#N`` fan-out children everywhere in the lifecycle. Returns the
         response payload, or None for a wholly unknown id (typed 404
-        upstream). Idempotent: re-DELETEs answer with zero counts."""
-        res = self.scheduler.cancel(rid)
-        if not res["known"]:
+        upstream). Idempotent: re-DELETEs answer with zero counts and the
+        ledger's terminal status. With the journal on, a non-terminal
+        ledger entry forces the scheduler mark even when no live request is
+        visible (handoff windows), and entries the scheduler can no longer
+        see (queued in a previous process life, not yet replayed — replay
+        runs before traffic, so only a race can leave one) are closed
+        directly so restart replay can never resurrect them."""
+        entries = self.journal.lookup(rid) if self.journal is not None else []
+        nonterminal = [e for e in entries if not e.terminal]
+        res = self.scheduler.cancel(rid, force_mark=bool(nonterminal))
+        if not res["known"] and not entries:
             return None
-        return {
+        if self.journal is not None and nonterminal and not res["cancel_pending"]:
+            # belt and braces for ledger entries with no live request: the
+            # scheduler mark covers every handoff, this closes the record
+            # (idempotent — the journal no-ops on terminal entries, and a
+            # live request resolving later no-ops against this)
+            for e in nonterminal:
+                self.journal.cancel(e.rid, "api")
+        payload: dict = {
             "request_id": rid,
             "cancelled_queued": res["cancelled_queued"],
             "cancel_pending": res["cancel_pending"],
-            "status": "cancelling" if res["cancel_pending"] else "cancelled",
         }
+        if self.journal is not None:
+            from .journal import aggregate_status
+
+            entries = self.journal.lookup(rid)
+            if entries:
+                payload["status"] = aggregate_status(entries)
+        if "status" not in payload:
+            payload["status"] = (
+                "cancelling" if res["cancel_pending"] else "cancelled"
+            )
+        return payload
 
     def _watchdog_escalate(self, stall) -> None:
         """Lock/helper-stall escalation (serve/watchdog.py): the big
-        hammer. A thread wedged in a LOCK wait cannot be replaced — the
-        successor would deadlock on the same lock — so the supervised
-        answer is dump-and-exit: dump the flight ring and exit with
-        WATCHDOG_EXIT_CODE so the process manager restarts us. Runs on the
-        watchdog thread."""
+        hammer. A thread wedged in a LOCK wait (e.g. mid-fsync inside the
+        journal lock) cannot be replaced — the successor would deadlock on
+        the same lock — so the supervised answer is seal-and-exit: dump the
+        flight ring, best-effort seal the journal on a side thread (the
+        wedged thread may HOLD the journal lock, so the seal gets a bounded
+        wait, and an unsealed journal replays fine — that is the normal
+        crash path), and exit with WATCHDOG_EXIT_CODE so the process
+        manager restarts us and journal replay restores every accepted
+        request. Runs on the watchdog thread."""
+        import threading as _threading
+
         from .watchdog import WATCHDOG_EXIT_CODE
 
         self._watchdog_escalations += 1
         logger.critical(
             "watchdog escalation: %s stall on %r (%.2fs past %.2fs) — "
-            "exiting %d for a supervised restart",
+            "sealing the journal and exiting %d for a supervised restart",
             stall.kind, stall.name, stall.stalled_for_s, stall.limit_s,
             WATCHDOG_EXIT_CODE,
         )
         self.recorder.dump("watchdog_escalate")
+        if self.journal is not None:
+            t = _threading.Thread(target=self.journal.seal, daemon=True)
+            t.start()
+            t.join(timeout=2.0)
         if not self._watchdog_exit:
             return  # embedded/test mode: the verdict is recorded, we live
         os._exit(WATCHDOG_EXIT_CODE)
 
     def close(self, drain_timeout_s: float = 30.0) -> None:
         if self.watchdog is not None:
-            # the monitor stops FIRST: a slow final dispatch must never be
-            # declared a stall mid-exit
+            # the monitor stops FIRST: a drain parked in journal seal or a
+            # slow final dispatch must never be declared a stall mid-exit
             self.watchdog.close()
         self.scheduler.close(drain=True, timeout=drain_timeout_s)
+        if self.journal is not None:
+            # drain first so every completion is journaled, then mark the
+            # shutdown clean; drain-overrun sheds are typed FAILED records,
+            # so the seal is honest either way
+            self.journal.seal()
+            self.journal.close()
         # SIGTERM-drain dump: the recorder's last act — the full drain
         # (including any overrun sheds) is in the ring it writes out
         self.recorder.dump("drain")
@@ -667,6 +814,10 @@ def make_handler(state: ServeState):
                             int(state.supervisor.rung)
                             if state.supervisor is not None else None
                         ),
+                        journal_stats=(
+                            state.journal.stats_dict()
+                            if state.journal is not None else None
+                        ),
                         gang_state=state.scheduler.gangs.stats(),
                         recorder_stats=state.recorder.stats_dict(),
                         watchdog_stats=(
@@ -722,11 +873,71 @@ def make_handler(state: ServeState):
 
         def _request_status(self, raw_rid: str) -> None:
             """``GET /v1/requests/<id>`` — the reconnect-and-poll surface
-            of durable serving, a typed 404 until the journal is ported
-            (ROADMAP A15b)."""
-            self._json(
-                {"error": "journaling disabled (--journal-dir unset)"}, 404
-            )
+            of durable serving: a client whose connection died in a crash
+            polls the id it submitted (journaled request ids are echoed on
+            every response) and reads the replayed outcome, including the
+            COMPLETE result text."""
+            import urllib.parse
+
+            rid = urllib.parse.unquote(raw_rid)
+            if state.journal is None:
+                self._json(
+                    {"error": "journaling disabled (--journal-dir unset)"},
+                    404,
+                )
+                return
+            entries = state.journal.lookup(rid)
+            if not entries:
+                # typed 404, never a 500 — unknown/expired ids are a
+                # client-visible state, not a server fault
+                self._json(
+                    {"error": f"unknown or expired request id {rid!r}"}, 404
+                )
+                return
+            # retry/fan-out aggregation (incl. the cancelled and partial
+            # states) is the ONE shared fold in serve/journal.py — the
+            # DELETE surface uses the same one, so the two can never
+            # disagree
+            from .journal import EV_COMPLETE, EV_STREAM, aggregate_status
+
+            payload = {
+                "request_id": rid,
+                "status": aggregate_status(entries),
+                "entries": [e.to_dict() for e in entries],
+            }
+            # structured jobs: the typed GANG records turn the flat entry
+            # list into PER-PHASE progress (map 12/40 done, reduce started)
+            # — a polling client of a long fan-out sees where it is, not
+            # just a state fold
+            ginfo = (state.journal.gang_info(rid)
+                     or state.scheduler.gangs.lookup(rid))
+            if ginfo and ginfo.get("members"):
+                by_rid = {e.rid: e for e in entries}
+                phases: dict[str, dict] = {}
+                for mrid, phase in ginfo["members"].items():
+                    ph = phases.setdefault(
+                        phase or "unphased",
+                        {"total": 0, "done": 0, "failed": 0, "running": 0,
+                         "streaming": 0},
+                    )
+                    ph["total"] += 1
+                    e = by_rid.get(mrid)
+                    if e is None:
+                        ph["running"] += 1
+                    elif e.status == EV_COMPLETE:
+                        ph["done"] += 1
+                    elif e.terminal:
+                        ph["failed"] += 1
+                    else:
+                        ph["running"] += 1
+                        if e.status == EV_STREAM:
+                            ph["streaming"] += 1
+                payload["gang"] = {
+                    "members": len(ginfo["members"]),
+                    "partial": bool(ginfo.get("partial")),
+                    "phases": phases,
+                }
+            self._json(payload)
 
         # request bodies beyond this are refused outright: a huge (or
         # negative, which would read to EOF and wedge the handler thread)
@@ -1273,8 +1484,12 @@ def make_handler(state: ServeState):
                     },
                 }
                 # degraded fan-out (a POISON member was dropped from the
-                # reduce): say so on the reply
-                ginfo = state.scheduler.gangs.lookup(self._rid)
+                # reduce): say so on the reply, not just in the journal
+                ginfo = (
+                    state.scheduler.gangs.lookup(self._rid)
+                    or (state.journal.gang_info(self._rid)
+                        if state.journal is not None else None)
+                )
                 if ginfo and ginfo.get("partial"):
                     payload["partial"] = True
                 return payload
@@ -1339,11 +1554,12 @@ def make_handler(state: ServeState):
                 return
             else:
                 # build the reply while the live group still exists — the
-                # partial flag lives on it
+                # partial flag must survive even with journaling off
                 reply = payload_from(result)
             finally:
-                # the structured job terminally resolved either way: drop
-                # the live group
+                # the structured job terminally resolved either way: flush
+                # any unflushed membership and drop the live group (the
+                # journal keeps the durable record)
                 gang.finish()
             if state.obs is not None:
                 state.obs.finish_request(trace, "ok")
@@ -1540,9 +1756,16 @@ def main(argv: list[str] | None = None) -> int:
                         "(VNSUM_PROFILE_DIR) so the first engine batch "
                         "captures a torch.profiler device trace alongside")
     p.add_argument("--journal-dir", default=None,
-                   help="durable serving: not ported yet (ROADMAP A15b)")
-    p.add_argument("--journal-fsync-ms", type=float, default=None,
-                   help="durable serving: not ported yet (ROADMAP A15b)")
+                   help="durable serving: write-ahead request journal "
+                        "directory (serve/journal.py). Every accepted "
+                        "request is journaled before engine work; on "
+                        "startup unfinished requests replay through the "
+                        "supervised path and finished ones answer "
+                        "GET /v1/requests/<id>")
+    p.add_argument("--journal-fsync-ms", type=float, default=50.0,
+                   help="group-commit fsync interval; every record is "
+                        "flushed to the kernel regardless (SIGKILL-safe), "
+                        "this only bounds the power-loss window")
     p.add_argument("--tenants", default=None,
                    help="multi-tenant QoS: not ported yet (ROADMAP A15b)")
     p.add_argument("--preempt-budget", type=int, default=None,
@@ -1645,9 +1868,6 @@ def main(argv: list[str] | None = None) -> int:
     cache_blocks = 0 if args.no_prefix_cache else args.cache_blocks
     # not ported yet: refused by name, never served without them
     for flag, value, item in (
-        ("--journal-dir", args.journal_dir, "durable serving is ROADMAP A15b"),
-        ("--journal-fsync-ms", args.journal_fsync_ms,
-         "durable serving is ROADMAP A15b"),
         ("--tenants", args.tenants, "multi-tenant QoS is ROADMAP A15b"),
         ("--preempt-budget", args.preempt_budget,
          "multi-tenant QoS is ROADMAP A15b"),
@@ -1723,6 +1943,8 @@ def main(argv: list[str] | None = None) -> int:
         fused_segments=args.fused_segments,
         stream_heartbeat_s=args.stream_heartbeat_s,
         stream_idle_timeout_s=args.stream_idle_timeout_s,
+        journal_dir=args.journal_dir,
+        journal_fsync_s=args.journal_fsync_ms / 1000.0,
         slo_fast_s=args.slo_fast_s,
         slo_slow_s=args.slo_slow_s,
         flight_dir=args.flight_dir,
@@ -1737,17 +1959,24 @@ def main(argv: list[str] | None = None) -> int:
     )
     if args.no_gang_affinity:
         state.scheduler.queue.gang_affinity = False
+    # crash recovery BEFORE accepting new traffic: unfinished journaled
+    # requests re-enqueue (the scheduler thread is already live, so replay
+    # dispatch overlaps server bring-up)
+    replayed = state.replay_journal()
+    if replayed:
+        logger.info("replaying %d journaled request(s) from %s",
+                    replayed, args.journal_dir)
     server = make_server(state, args.host, args.port)
 
-    # SIGTERM/SIGINT: drain, exit 0 — an interrupted server must not die
-    # mid-batch with its requests unanswered. The handler runs ON the main
+    # SIGTERM/SIGINT: drain, seal, exit 0 — an interrupted server must not
+    # die mid-batch with the journal unsealed. The handler runs ON the main
     # thread inside serve_forever's poll loop, and shutdown() BLOCKS until
     # that loop exits — calling it inline would deadlock, so it runs on a
     # helper thread and the handler returns immediately.
     import signal
 
     def _graceful(signum, frame):
-        logger.info("signal %d: draining", signum)
+        logger.info("signal %d: draining and sealing the journal", signum)
         import threading
 
         threading.Thread(target=server.shutdown, daemon=True).start()
@@ -1803,7 +2032,8 @@ def main(argv: list[str] | None = None) -> int:
         pass
     finally:
         server.server_close()
-        # drain within the budget (overrun sheds typed)
+        # drain within the budget (overrun sheds typed), then seal+close
+        # the journal so the next start sees a clean ledger
         state.close(drain_timeout_s=args.drain_timeout_s)
         if state.obs is not None and args.trace_dir:
             p = save_timestamped_trace(

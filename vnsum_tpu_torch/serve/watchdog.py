@@ -1,7 +1,7 @@
 """Watchdog: hang/stall detection and wedged-dispatch recovery.
 
-The supervisor (serve/supervisor.py) recovers from engine *exceptions* —
-but a dispatch that simply
+The supervisor (serve/supervisor.py) recovers from engine *exceptions* and
+the journal (serve/journal.py) from *crashes* — but a dispatch that simply
 never RETURNS (a stuck device op, a pathological compile, a lock wait, a
 wedged helper thread) freezes the scheduler silently: no exception fires,
 ``/healthz`` keeps reporting ok, and every client rides out its own
@@ -35,11 +35,12 @@ On a stall the monitor thread:
 (c) **recovers**: dispatch stalls invoke ``on_hung_dispatch`` — the
     scheduler's recovery hook (riders of a hung one-shot dispatch resolve
     typed ``RequestFailed(HUNG)``; a hung slot loop is torn down and its
-    residents requeued — and the scheduler thread is REPLACED, the
+    residents requeued through the journal's replayable ACCEPT — and the
+    scheduler thread is REPLACED, the
     abandoned one fenced off by a stale-thread check at every boundary);
     lock and helper stalls invoke ``on_escalate`` — the HTTP server wires
-    a supervised exit (``WATCHDOG_EXIT_CODE``) so an outer process manager
-    restarts it. A
+    a supervised journal-seal-and-exit (``WATCHDOG_EXIT_CODE``) so an
+    outer process manager restarts and journal replay restores state. A
     recovery also charges the degradation ladder a resource strike via the
     scheduler hook: a host that hangs dispatches is a host running too hot.
 
@@ -48,14 +49,13 @@ is ONE attribute store (no lock; the monitor's racy read is a float, and a
 stale read delays detection by one interval, never corrupts), tickets take
 the ``serve.watchdog`` lock briefly. The monitor holds the lock only to
 COLLECT stalls; dumps, recorder appends, and recovery callbacks all run
-outside it (recovery acquires queue/radix locks, so the watchdog
+outside it (recovery acquires queue/journal/radix locks, so the watchdog
 lock must stay leaf-like for the lock-order sanitizer). Detection math is
 clock-injectable (``clock=``) so tests drive it synthetically without
 sleeping.
 
 Copy of ``vnsum_tpu/serve/watchdog.py``; only the imports, the names of the
-device and its engine, and the comments on the journal (not ported yet,
-ROADMAP A15b) differ.
+device and its engine, and the SLO monitor (ROADMAP A15b-2) differ.
 """
 from __future__ import annotations
 
@@ -73,7 +73,8 @@ from ..core.logging import get_logger
 
 logger = get_logger("vnsum.serve.watchdog")
 
-# the supervised-escalation exit status: distinct from crash (-9) and clean drain (0) so a
+# the supervised-escalation exit status (journal sealed best-effort, state
+# restorable by replay): distinct from crash (-9) and clean drain (0) so a
 # process manager / the chaos harness can tell "the watchdog gave up on
 # this process" from everything else
 WATCHDOG_EXIT_CODE = 86
@@ -189,12 +190,12 @@ class Watchdog:
         # dispatch stalls: the scheduler registers its recovery here
         # (riders typed HUNG / slot-loop teardown + requeue + respawn).
         # lock/helper stalls: on_escalate — the server wires a supervised
-        # exit; None (library/test default) just dumps
+        # journal-seal-and-exit; None (library/test default) just dumps
         self.on_hung_dispatch = None
         self.on_escalate = on_escalate
         # leaf-like by contract: held only for registry/ticket bookkeeping
         # and stall COLLECTION — never while dumping, recording, or
-        # recovering (those take queue/radix locks)
+        # recovering (those take queue/journal/radix locks)
         self._lock = make_lock("serve.watchdog")
         self._beats: dict[str, Heartbeat] = {}        # guarded by: _lock
         self._tickets: dict[str, DispatchTicket] = {}  # guarded by: _lock

@@ -1,5 +1,6 @@
-"""Hierarchical tree-collapse strategy (copy of the batch path of
-``vnsum_tpu/strategies/hierarchical.py``).
+"""Hierarchical tree-collapse strategy (copy of
+``vnsum_tpu/strategies/hierarchical.py`` without ``summarize_tree``, which
+nothing in the port calls).
 
 Semantics follow runners/run_summarization_ollama_mapreduce_hierarchical.py:
 bottom-up over the document structure tree — for depth target..1, every
@@ -10,8 +11,9 @@ pass. Chunk sizes are clamped to 75% of the model context (:178-179).
 
 The reference's per-node mini map-reduce is a sequential loop (:125-154);
 here every node at a level maps its chunks in one backend batch, and the
-per-node reduces batch as well. (The JAX package's streaming path for the
-serving layer is not ported.)
+per-node reduces batch as well. Over a backend with the serving layer's
+``submit_round``/``harvest`` pair each text's reduce is submitted as soon
+as its own map chunks have landed (``_mapreduce_texts_streaming``).
 """
 from __future__ import annotations
 
@@ -77,7 +79,18 @@ class HierarchicalStrategy:
         all texts in one batch, then one reduce per text (single round, like
         the reference's simple graph :125-154). ``owners`` maps each text to
         its tree for per-doc call accounting. Returns (summaries, per-text
-        chunk counts)."""
+        chunk counts).
+
+        When the backend exposes the serving layer's submit_round/harvest
+        pair, the map->reduce join is per TEXT instead of a global barrier:
+        a node's reduce overlaps its siblings' still-running maps (same
+        prompt contents, pure scheduling — the tree mutation between levels
+        stays the inherent level barrier)."""
+        be = gen.backend
+        if callable(getattr(be, "submit_round", None)) and callable(
+            getattr(be, "harvest", None)
+        ):
+            return self._mapreduce_texts_streaming(be, gen, texts, owners)
         chunks_per = [self.splitter.split_text(t) or [t] for t in texts]
         flat = [
             (ti, HIERARCHICAL_MAP.format(content=c))
@@ -96,6 +109,72 @@ class HierarchicalStrategy:
             owners=owners,
             cache_hints=[template_header(HIERARCHICAL_REDUCE)] * len(per_text),
         )
+        return reduces, [len(c) for c in chunks_per]
+
+    def _mapreduce_texts_streaming(
+        self, be, gen: _BatchCounter, texts: list[str], owners: list[int]
+    ) -> tuple[list[str], list[int]]:
+        """Streaming variant of :meth:`_mapreduce_texts_batch`: each text's
+        reduce is submitted the moment its LAST map chunk completes. A map
+        chunk failing typed POISON is dropped from its text's reduce
+        (harvest marks the gang partial); a reduce failure still fails the
+        call."""
+        from concurrent.futures import FIRST_COMPLETED, wait
+
+        chunks_per = [self.splitter.split_text(t) or [t] for t in texts]
+        per_text: list[list[str | None]] = [
+            [None] * len(c) for c in chunks_per
+        ]
+        maps_left = [len(c) for c in chunks_per]
+        reduces: list[str | None] = [None] * len(texts)
+        pending: dict = {}  # future -> ("map"|"reduce", ti, ci)
+
+        def count(ti: int) -> None:
+            o = owners[ti]
+            gen.calls_by_owner[o] = gen.calls_by_owner.get(o, 0) + 1
+
+        futs = be.submit_round(
+            [
+                HIERARCHICAL_MAP.format(content=c)
+                for chunks in chunks_per
+                for c in chunks
+            ],
+            phase="map",
+            max_new_tokens=self.max_new_tokens,
+            cache_hints=[template_header(HIERARCHICAL_MAP)]
+            * sum(len(c) for c in chunks_per),
+        )
+        tags = [
+            ("map", ti, ci)
+            for ti, chunks in enumerate(chunks_per)
+            for ci in range(len(chunks))
+        ]
+        for tag, fut in zip(tags, futs):
+            pending[fut] = tag
+            count(tag[1])
+
+        while pending:
+            done, _ = wait(list(pending), return_when=FIRST_COMPLETED)
+            for fut in done:
+                kind, ti, ci = pending.pop(fut)
+                out = be.harvest(fut, tolerate_poison=(kind == "map"))
+                if kind == "reduce":
+                    reduces[ti] = out
+                    continue
+                per_text[ti][ci] = out
+                maps_left[ti] -= 1
+                if maps_left[ti] == 0:
+                    survivors = [s for s in per_text[ti] if s is not None]
+                    (rfut,) = be.submit_round(
+                        [HIERARCHICAL_REDUCE.format(
+                            docs="\n\n".join(survivors))],
+                        phase="reduce",
+                        max_new_tokens=self.max_new_tokens,
+                        cache_hints=[template_header(HIERARCHICAL_REDUCE)],
+                    )
+                    pending[rfut] = ("reduce", ti, 0)
+                    count(ti)
+
         return reduces, [len(c) for c in chunks_per]
 
     def summarize_tree_batch(

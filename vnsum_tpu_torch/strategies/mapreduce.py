@@ -1,12 +1,13 @@
-"""Map-reduce strategy (copy of the batch path of
-``vnsum_tpu/strategies/mapreduce.py``).
+"""Map-reduce strategy (copy of ``vnsum_tpu/strategies/mapreduce.py``).
 
 Semantics follow runners/run_summarization_ollama_mapreduce.py:75-201: split →
 map each chunk → collapse groups while the whitespace-token total exceeds
 token_max → one final reduce. The map step for a batch of documents is one
 backend.generate call, and each collapse round batches every group of every
-document still collapsing. (The JAX package's streaming path for the
-serving layer is not ported.)
+document still collapsing. Over a backend with the serving layer's
+``submit_round``/``harvest`` pair (serve/scheduler.py QueuedBackend) the
+map->reduce barrier dissolves: each document's reduce is submitted as soon
+as its own map children have landed (``_summarize_batch_streaming``).
 """
 from __future__ import annotations
 
@@ -62,7 +63,15 @@ class MapReduceStrategy:
     def summarize_batch(
         self, docs: list[str], *, backend: Backend | None = None
     ) -> list[StrategyResult]:
-        gen = _BatchCounter(backend or self.backend, self.max_new_tokens)
+        be = backend or self.backend
+        if callable(getattr(be, "submit_round", None)) and callable(
+            getattr(be, "harvest", None)
+        ):
+            # serving path: the backend exposes the non-blocking half of
+            # generate, so the map->reduce barrier dissolves into an
+            # ordered completion stream
+            return self._summarize_batch_streaming(docs, be)
+        gen = _BatchCounter(be, self.max_new_tokens)
 
         chunks_per_doc = [self.splitter.split_text(d) or [d] for d in docs]
         results = [
@@ -143,6 +152,121 @@ class MapReduceStrategy:
         for di, r in enumerate(results):
             r.summary = final_texts[di]
             r.llm_calls = gen.calls_by_owner.get(di, 0)
+        return results
+
+    def _summarize_batch_streaming(
+        self, docs: list[str], be: Backend
+    ) -> list[StrategyResult]:
+        """Streaming map->reduce over a submit_round/harvest backend (the
+        serving layer's QueuedBackend): a document's collapse/final reduce
+        is submitted the moment its LAST map child completes, overlapping
+        other documents' still-running maps instead of waiting out a global
+        barrier. Prompt contents are byte-identical to the barrier
+        formulation — each doc's reduce runs over exactly the summaries it
+        would have ended with — and greedy decode is prompt-deterministic,
+        so this is a pure scheduling change (tests/test_torch_strategies_streaming.py
+        pins byte-identity against the barrier path).
+
+        Degraded results: a MAP child failing typed POISON is dropped from
+        its document's reduce (harvest marks the gang partial, so the
+        parent aggregate folds to ``partial``); a REDUCE failure still
+        fails the whole call — there is no summary to degrade to."""
+        from concurrent.futures import FIRST_COMPLETED, wait
+
+        chunks_per_doc = [self.splitter.split_text(d) or [d] for d in docs]
+        results = [
+            StrategyResult(summary="", num_chunks=len(c)) for c in chunks_per_doc
+        ]
+        calls = [0] * len(docs)
+        pending: dict = {}  # future -> ("map"|"collapse"|"final", di, idx)
+        map_hint = template_header(self.map_prompt)
+        reduce_hint = template_header(self.reduce_prompt)
+
+        def submit(entries, phase, hint):
+            futs = be.submit_round(
+                [p for _, p, _ in entries],
+                phase=phase,
+                max_new_tokens=self.max_new_tokens,
+                references=[r for _, _, r in entries],
+                cache_hints=[hint] * len(entries),
+            )
+            for (tag, _, _), fut in zip(entries, futs):
+                pending[fut] = tag
+                calls[tag[1]] += 1
+
+        # map: still ONE fan-out round across all docs (one gang-record
+        # flush; affinity co-schedules the siblings) — only the JOIN is
+        # per-document now
+        summaries: list[list[str | None]] = [
+            [None] * len(c) for c in chunks_per_doc
+        ]
+        maps_left = [len(c) for c in chunks_per_doc]
+        parts_left = [0] * len(docs)
+        rounds_done = [0] * len(docs)
+        final_texts: dict[int, str] = {}
+        submit(
+            [
+                (("map", di, ci), self.map_prompt.format(content=c), c)
+                for di, chunks in enumerate(chunks_per_doc)
+                for ci, c in enumerate(chunks)
+            ],
+            "map",
+            map_hint,
+        )
+
+        def advance(di: int) -> None:
+            # this doc's maps (or its current collapse round) all landed:
+            # submit the next reduce stage immediately
+            texts = [s for s in summaries[di] if s is not None]
+            if (
+                sum(self.count(x) for x in texts) <= self.token_max
+                or rounds_done[di] >= self.max_collapse_rounds
+            ):
+                submit(
+                    [(("final", di, 0), self._reduce_one(texts),
+                      "\n\n".join(texts))],
+                    "reduce", reduce_hint,
+                )
+                return
+            groups = split_by_token_budget(texts, self.token_max, self.count)
+            summaries[di] = [None] * len(groups)
+            parts_left[di] = len(groups)
+            submit(
+                [
+                    (("collapse", di, gi), self._reduce_one(g), "\n\n".join(g))
+                    for gi, g in enumerate(groups)
+                ],
+                "reduce", reduce_hint,
+            )
+
+        while pending:
+            done, _ = wait(list(pending), return_when=FIRST_COMPLETED)
+            for fut in done:
+                kind, di, idx = pending.pop(fut)
+                out = be.harvest(fut, tolerate_poison=(kind == "map"))
+                if kind == "map":
+                    maps_left[di] -= 1
+                    if out is None:
+                        results[di].meta["dropped_chunks"] = (
+                            results[di].meta.get("dropped_chunks", 0) + 1
+                        )
+                    else:
+                        summaries[di][idx] = out
+                    if maps_left[di] == 0:
+                        advance(di)
+                elif kind == "collapse":
+                    summaries[di][idx] = out
+                    parts_left[di] -= 1
+                    if parts_left[di] == 0:
+                        rounds_done[di] += 1
+                        results[di].rounds += 1
+                        advance(di)
+                else:
+                    final_texts[di] = out
+
+        for di, r in enumerate(results):
+            r.summary = final_texts[di]
+            r.llm_calls = calls[di]
         return results
 
     def summarize(self, doc: str, *, backend: Backend | None = None) -> StrategyResult:

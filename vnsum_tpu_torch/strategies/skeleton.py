@@ -1,4 +1,4 @@
-"""Skeleton-of-Thought strategy (arXiv 2307.15337; copy of the batch path of
+"""Skeleton-of-Thought strategy (arXiv 2307.15337; copy of
 ``vnsum_tpu/strategies/skeleton.py``).
 
 SoT decodes an answer in two stages: a short OUTLINE call produces a
@@ -11,8 +11,10 @@ call.
 
 The document is truncated to the model context first (same contract as
 TruncatedStrategy: SoT trades the map-reduce strategies' full-document
-coverage for intra-request parallelism on what fits). (The JAX package's
-streaming path for the serving layer is not ported.)
+coverage for intra-request parallelism on what fits). Over a backend with
+the serving layer's ``submit_round``/``harvest`` pair a document's
+expansions launch as soon as its own outline lands
+(``_summarize_batch_streaming``).
 """
 from __future__ import annotations
 
@@ -79,7 +81,12 @@ class SkeletonStrategy:
     def summarize_batch(
         self, docs: list[str], *, backend: Backend | None = None
     ) -> list[StrategyResult]:
-        gen = _BatchCounter(backend or self.backend, self.max_new_tokens)
+        be = backend or self.backend
+        if callable(getattr(be, "submit_round", None)) and callable(
+            getattr(be, "harvest", None)
+        ):
+            return self._summarize_batch_streaming(docs, be)
+        gen = _BatchCounter(be, self.max_new_tokens)
         truncated = [self._truncate(d) for d in docs]
 
         outlines = gen(
@@ -118,6 +125,85 @@ class SkeletonStrategy:
             )
             for di in range(len(docs))
         ]
+
+    def summarize(self, doc: str, *, backend: Backend | None = None) -> StrategyResult:
+        return self.summarize_batch([doc], backend=backend)[0]
+
+    def _summarize_batch_streaming(
+        self, docs: list[str], be: Backend
+    ) -> list[StrategyResult]:
+        """Streaming SoT over a submit_round/harvest backend: a document's
+        expansion fan-out launches the moment ITS outline lands,
+        overlapping other documents' still-running outlines, and the stitch
+        is an ordered join as expansions complete. An EXPANSION failing
+        typed POISON is dropped from the stitch (the gang is marked partial
+        so the parent aggregate reports a degraded summary); an outline
+        failure still fails the call — there is no skeleton to degrade to."""
+        from concurrent.futures import FIRST_COMPLETED, wait
+
+        truncated = [self._truncate(d) for d in docs]
+        results = [StrategyResult(summary="") for _ in docs]
+        calls = [0] * len(docs)
+        pending: dict = {}  # future -> ("outline"|"expand", di, pi)
+        expansions: list[list[str | None]] = [[] for _ in docs]
+        expands_left = [0] * len(docs)
+        points_per: list[list[str]] = [[] for _ in docs]
+
+        futs = be.submit_round(
+            [SKELETON_OUTLINE.format(content=t) for t in truncated],
+            phase="outline",
+            max_new_tokens=self.max_new_tokens,
+            references=truncated,
+            cache_hints=[template_header(SKELETON_OUTLINE)] * len(docs),
+        )
+        for di, fut in enumerate(futs):
+            pending[fut] = ("outline", di, 0)
+            calls[di] += 1
+
+        while pending:
+            done, _ = wait(list(pending), return_when=FIRST_COMPLETED)
+            for fut in done:
+                kind, di, pi = pending.pop(fut)
+                out = be.harvest(fut, tolerate_poison=(kind == "expand"))
+                if kind == "outline":
+                    points = self._parse_points(out)
+                    points_per[di] = points
+                    expansions[di] = [None] * len(points)
+                    expands_left[di] = len(points)
+                    efuts = be.submit_round(
+                        [
+                            SKELETON_EXPAND.format(
+                                point=p, content=truncated[di])
+                            for p in points
+                        ],
+                        phase="expand",
+                        max_new_tokens=self.max_new_tokens,
+                        references=[truncated[di]] * len(points),
+                        cache_hints=[template_header(SKELETON_EXPAND)]
+                        * len(points),
+                    )
+                    for epi, efut in enumerate(efuts):
+                        pending[efut] = ("expand", di, epi)
+                        calls[di] += 1
+                    continue
+                if out is None:
+                    results[di].meta["dropped_points"] = (
+                        results[di].meta.get("dropped_points", 0) + 1
+                    )
+                else:
+                    expansions[di][pi] = out
+                expands_left[di] -= 1
+                if expands_left[di] == 0:
+                    results[di].summary = "\n\n".join(
+                        e for e in expansions[di] if e is not None
+                    )
+
+        for di, r in enumerate(results):
+            r.num_chunks = len(points_per[di])
+            r.llm_calls = calls[di]
+            r.rounds = 2
+            r.meta["points"] = len(points_per[di])
+        return results
 
     def summarize(self, doc: str, *, backend: Backend | None = None) -> StrategyResult:
         return self.summarize_batch([doc], backend=backend)[0]

@@ -17,6 +17,9 @@ site                  fires
                       held — the pin-leak-on-crash site
 ``fake.slot_admit``   FakeSlotLoop.admit entry (in-flight join)
 ``fake.slot_step``    FakeSlotLoop.step entry (in-flight decode segment)
+``journal.fsync``     RequestJournal group-commit fsync — fires INSIDE the
+                      journal lock on the scheduler thread (the mid-fsync
+                      wedge the watchdog classifies as a lock stall)
 ====================  ======================================================
 
 Fault kinds map one-to-one onto the supervisor's failure classes:
