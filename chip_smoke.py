@@ -174,12 +174,13 @@ Phases, each raising on failure (so any failure exits non-zero):
    verify steps; wall, prefill and decode seconds and steps, peak memory
    on ``[gemma3]`` lines, the paths on ``[gemma3 spec]`` and ``[gemma3
    slot]`` lines;
-6b. phi4: Phi-4-14B at its published width and depth (40 layers, dim 5120,
-   40/10 heads: GQA group 4, head_dim 128, intermediate 17,920, vocab
-   100,352, untied head; random bf16 weights from seed 0, byte tokenizer,
-   FAMILY_NEW = 64 new tokens): the CLI's map-reduce with --models
-   phi4:14b, decode steps captured, and an eager control byte-identical to
-   it, K1 = 40 x prefill forwards and K2 = 40 x decode steps exactly, K2p
+6b. phi4: Phi-4-14B at its published width (dim 5120, 40/10 heads: GQA
+   group 4, head_dim 128, intermediate 17,920, vocab 100,352, untied head),
+   cut to PHI4_LAYERS = 12 of its 40 layers (registry_depth); random bf16
+   weights from seed 0, byte tokenizer, FAMILY_NEW = 64 new tokens: the
+   CLI's map-reduce with --models phi4:14b, decode steps captured, and an
+   eager control byte-identical to it, K1 = 12 x prefill forwards and K2 =
+   12 x decode steps exactly, K2p
    = K3 = GEMV = 0, every batch one phase 3 checked; the dense logits gate
    (a row at a time) within LOGITS_GATE_RTOL, its planted fault (every
    row's first 512 keys left out) over it; one captured decode step
@@ -331,8 +332,29 @@ Phases, each raising on failure (so any failure exits non-zero):
    gang phases map and reduce, the summary byte-identical to
    summarize_batch on a plain TorchBackend, K1/K2 exact; then two
    documents as two concurrent requests (both 200, K1/K2 exact, agreement
-   logged). Each server's close() drains within its budget and leaves no
-   scheduler or watchdog thread; ``[serve]`` lines give each arm's wall,
+   logged); (g) tenants and SLOs (serve/qos.py, serve/slo.py, ROADMAP
+   A15b-2; QOS_TENANTS ui:4:0 and bulk:1:0:batch): (g1) on the micro-batch
+   scheduler a primer of its own batch key, then 8 bulk and 4 ui requests
+   queued in its window, in that order: the engine's batch of 8 is
+   exactly what TenantTable.select picks from the 12 (reckoned on the host
+   with the port's own table: the 4 ui rows first), the tail the other 4
+   bulk rows, every text byte-identical to the direct generate of its
+   batch, K1/K2 exact; (g3) on the same server, host-only: a metered
+   tenant's drained bucket sheds 429 quota with retry_after_s inside the
+   refill arithmetic and an integral Retry-After, an unknown X-Tenant a
+   typed 400, --slo e2e_p99=600,ttft_p99=0.001 shows e2e_p99 compliant
+   and ttft_p99 breaching on both windows, one slo_breach in the flight
+   recorder and its dump on disk, the /healthz SLO line and the
+   vnsum_serve_slo_* gauges; (g2) in flight (8 slots, 64 new tokens in
+   8-step segments, the 512-block prefix cache, --preempt-budget 4, a
+   journal): 8 tagged bulk requests fill the slots, then 2 ui requests
+   evict exactly 2 of them at the next segment boundary (pinned,
+   qos_preemptions_total and qos_requeues_total 2, PREEMPTED and REQUEUED
+   journal records for exactly those two), both re-join warm at K = 3584
+   (K1 at that q_offset), the ui rows' first tokens before the last bulk
+   reply, every request 200, K1/K3 exact against the loops' record; the
+   evictees against a one-shot run logged. Each server's close() drains
+   within its budget and leaves no scheduler or watchdog thread; ``[serve]`` lines give each arm's wall,
    TTFT and end-to-end p50/p99 from the server's own histograms,
    requests/s, segments and peak memory, and for (e) and (f) the replay
    seconds, journal records, bytes and fsyncs;
@@ -353,12 +375,18 @@ Phases, each raising on failure (so any failure exits non-zero):
    prompts with their chunks and the oracle as references, drafts and
    acceptances logged, the oracle accepting; (d) the slot loop (S = 1920,
    fused 4); (e) the map prompts cold then warm through a 256-block prefix
-   cache, the warm call resuming at K = 1792 (K1 at q_offset 1792). Every
-   arm's launches exact. The margin rule (FIXTURE_MARGIN_RTOL): every row
+   cache, the warm call resuming at K = 1792 (K1 at q_offset 1792); (f)
+   tier preemption: InflightScheduler with QOS_TENANTS over a 256-block
+   cache, 8 tagged batch-tier rows (the map prompts and the first again)
+   fill the 8 slots, two interactive rows evict some at the next boundary,
+   and every evictee re-joins warm at K = 1792, its text held to the
+   one-shot run of the same prompts under the margin rule. Every arm's
+   launches exact. The margin rule (FIXTURE_MARGIN_RTOL): every row
    whose ids differ from its reference arm's (the oracle for (b), the
    int8-cache arm's one-shot run for (c) and (d), the cold call for (e))
    logs its first differing step and the reference's top-1 - top-2 logit
-   margin there over its largest |logit|, and one above the path's limit
+   margin there over its largest |logit| (for (f) the int8-cache arm's
+   one-shot run of its tagged prompts), and one above the path's limit
    fails the run; agreement rates are logged, not gated;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
@@ -503,14 +531,16 @@ STEP_KERNEL_RTOL = 0.1
 # flip by rounding, so a first difference above it is a fault. The spec
 # path against the one-shot run: the spec gate's; the slot loop: the
 # one-step K3/K2 gate's; a warm resume against the cold call: the resume
-# gate's (RESUME_LOGITS_RTOL, 0.1). The lossy arms against the f32 dense
+# gate's (RESUME_LOGITS_RTOL, 0.1); a preemption evictee (a slot-loop
+# decode whose second life resumes warm) against the one-shot run: the
+# larger of the slot loop's and the resume's. The lossy arms against the f32 dense
 # oracle change the arithmetic itself (bf16 weights' products, the int8
 # cache's 1/254 steps, int8 weights, W8A8), which no gate bounds: on this
 # trained model the int8 cache flips a token at a margin of 0.19, through
 # the kernels on the card as through their plain versions on the CPU.
 # Their margins are logged, not gated (None)
 FIXTURE_MARGIN_RTOL = {"lossy": None, "spec": SPEC_LOGITS_RTOL, "slot": STEP_KERNEL_RTOL,
-                       "resume": 0.1}
+                       "resume": 0.1, "preempt": max(STEP_KERNEL_RTOL, 0.1)}
 # phase 6e: the eval encoder's f32 token embeddings on the card against the
 # same weights on the CPU, max |card - cpu|. Every matmul is f32 on both
 # (TF32 off) and differs only in summation order, ~1e-6 relative per
@@ -870,6 +900,9 @@ JUDGE_NEW_TOKENS = 256
 # which a map batch (S = 4096, C = 4224) resumes, on the grid's 512-slot
 # steps, the last a warm call's (RESUME_K); S - K queries a row
 RESUME_OFFSETS = (512, 2048, 3584)
+# tier preemption (phase 9c arm g2, phase 9d's preemption arm): evictees
+# re-join one or two at a boundary, resuming warm at the map batch's K
+QOS_REJOIN_BATCHES = (1, 2)
 # the Gemma3 phase's batches: its map and reduce batches (the byte
 # tokenizer's, as the pipeline phase's), with their pads: 7 documents and an
 # all-pad filler row
@@ -1041,7 +1074,16 @@ def phase_correctness(torch) -> dict:
                     "resume)", rand_q(torch, (8, S - K, H, hd), 151 + K, dev), cache, 1,
                     pads_of(pads_h), 0, K, empty_row=7, key="prefill_resume")
             del cache
-    K = RESUME_OFFSETS[-1]
+    # the serve phase's tier preemption (arm g2, C = S + QOS_NEW): an
+    # evictee's warm re-join prefills one or two rows at the warm K, int8,
+    # rows starting before K
+    K, Cq = RESUME_OFFSETS[-1], S + QOS_NEW
+    for B in QOS_REJOIN_BATCHES:
+        cache = make_cache(torch, 2, B, KV, Cq, hd, True, 155 + B, dev)
+        prefill(f"int8=True B={B} S={S} C={Cq} q_offset={K} layer=1 (tier preemption's warm "
+                "re-join)", rand_q(torch, (B, S - K, H, hd), 156 + B, dev), cache, 1,
+                pads_of([37, K - 300][:B]), 0, K, key="prefill_resume")
+        del cache
     for quantized in (True, False):
         cache = make_cache(torch, 2, 8, GEMMA_KV, C, GEMMA_HD, quantized, 160 + quantized, dev)
         prefill(f"hd=256 int8={quantized} B=8 S={S} C={C} q_offset={K} window={GEMMA_WINDOW} "
@@ -1349,6 +1391,12 @@ def phase_correctness(torch) -> dict:
                 "prefix-cache resume)", rand_q(torch, (8, S - K, FH, hd), 196, dev), cache, 1,
                 pads_of([0, 37, K - 300, K - 1, K + 1, K + 60, S - 1, S]), 0, K, empty_row=7,
                 g=FIXTURE_G)
+        del cache
+    for B in QOS_REJOIN_BATCHES:
+        cache = make_cache(torch, 2, B, FIXTURE_KV, C, hd, True, 192 + B, dev)
+        prefill(f"fixture int8=True B={B} S={S} C={C} q_offset={K} layer=1 (fixture tier "
+                "preemption's warm re-join)", rand_q(torch, (B, S - K, FH, hd), 193 + B, dev),
+                cache, 1, pads_of([450, 726][:B]), 0, K, g=FIXTURE_G)
         del cache
     # the margin rule's recompute: one row, left-padded to a multiple of 128
     # slots, C = S, through the one-shot run's int8 cache
@@ -2605,6 +2653,9 @@ def gemma_k2p_raises(torch) -> None:
 # controls and captured runs (PERF.md §4)
 GEMMA_LAYERS = 12
 INT8_LAYERS = 7
+# and of the Phi-4-14B phase (6b), whose 40 layers took 60-69 s of a run
+# that the serve phase's tenant arms took past 600 s on a slower machine
+PHI4_LAYERS = 12
 
 
 def llama_int8_cut():
@@ -2619,6 +2670,12 @@ def gemma3_cut():
 
     return gemma3_4b(n_layers=GEMMA_LAYERS,
                      layer_is_global=tuple((i + 1) % 6 == 0 for i in range(GEMMA_LAYERS)))
+
+
+def phi4_cut():
+    from vnsum_tpu_torch.models import phi4_14b
+
+    return phi4_14b(n_layers=PHI4_LAYERS)
 
 
 @contextlib.contextmanager
@@ -2899,13 +2956,14 @@ def phi_checkpoint(torch, prompts: list) -> None:
 
 
 def phase_phi4(torch) -> dict:
-    """Phi-4-14B at its published width and depth (40 layers, dim 5120,
-    40/10 heads: GQA group 4, head_dim 128, intermediate 17,920, vocab
-    100,352, untied head), random bf16 weights from seed 0, byte tokenizer,
-    FAMILY_NEW new tokens: (1) map-reduce through the CLI and its eager
-    control (captured_and_eager), K1 = 40 x prefill forwards and K2 = 40 x
-    decode steps exactly, K2p = K3 = GEMV = 0, every batch a GEMMA_SHAPES
-    batch that phase 3 checked at group 4; (2) the dense logits gate
+    """Phi-4-14B at its published width (dim 5120, 40/10 heads: GQA group
+    4, head_dim 128, intermediate 17,920, vocab 100,352, untied head), cut
+    to PHI4_LAYERS of its 40 layers (registry_depth), random bf16 weights
+    from seed 0, byte tokenizer, FAMILY_NEW new tokens: (1) map-reduce
+    through the CLI and its eager control (captured_and_eager), K1 =
+    PHI4_LAYERS x prefill forwards and K2 = PHI4_LAYERS x decode steps
+    exactly, K2p = K3 = GEMV = 0, every batch a GEMMA_SHAPES batch that
+    phase 3 checked at group 4; (2) the dense logits gate
     (logits_gate, a row at a time) on the control's model, and one captured
     decode step profiled; (3) on the same model path (a) (spec_path: the
     spec pipeline and its oracle; K3 at Sq * G = 36 rows on every layer)
@@ -2915,11 +2973,14 @@ def phase_phi4(torch) -> dict:
     engine does; GEMV launches = gemv_need exactly), every document ok; (5)
     the fused checkpoint at 2 layers (phi_checkpoint). Returns the launches
     of (1), (3) and (4)."""
-    from vnsum_tpu_torch.models import phi4_14b
+    with registry_depth(phi4_cut, "phi4:14b", "phi4-14b"):
+        return phi4_paths(torch)
 
-    n_layers = phi4_14b().n_layers
+
+def phi4_paths(torch) -> dict:
+    n_layers = PHI4_LAYERS
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
-    run = captured_and_eager(torch, "phi4:14b", phi4_14b, "phi4", FAMILY_NEW)
+    run = captured_and_eager(torch, "phi4:14b", phi4_cut, "phi4", FAMILY_NEW)
     launches, eng = run["launches"], run["eng"]
     check_exact("phi4", launches, {"prefill": n_layers * eng["prefill_forwards"],
                                    "decode": n_layers * eng["decode_steps"]},
@@ -4689,20 +4750,26 @@ HEALTHZ_KEYS = {"status", "backend", "version", "started_at", "uptime_s", "queue
                 "closed", "watchdog"}
 
 
-def serve_request(method: str, url: str, payload=None, timeout: float = 600.0):
+def serve_request(method: str, url: str, payload=None, timeout: float = 600.0,
+                  headers: dict | None = None, response_headers: list | None = None):
     """(status, decoded JSON or raw text) of one HTTP exchange; an HTTP
-    error status is returned, not raised."""
+    error status is returned, not raised. ``headers`` are added to the
+    request's; with ``response_headers``, the response's headers are
+    appended to it."""
     import urllib.error
     import urllib.request
 
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(url, data=data, method=method,
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
-            status, raw = resp.status, resp.read()
+            status, raw, got = resp.status, resp.read(), resp.headers
     except urllib.error.HTTPError as e:
-        status, raw = e.code, e.read()
+        status, raw, got = e.code, e.read(), e.headers
+    if response_headers is not None:
+        response_headers.append(dict(got))
     try:
         return status, json.loads(raw)
     except ValueError:
@@ -4787,20 +4854,8 @@ def serve_line(torch, arm: str, state, n: int, wall: float) -> None:
 def concurrent_generate(base: str, payloads: list) -> list:
     """POST each payload to /v1/generate from its own thread, all at once;
     returns the (status, body) replies in payload order."""
-    import threading
-
-    replies = [None] * len(payloads)
-
-    def run(i):
-        replies[i] = serve_request("POST", base + "/v1/generate", payloads[i])
-
-    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(len(payloads))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=900)
-    if any(t.is_alive() for t in threads):
-        raise AssertionError("serve: a client thread never got its reply")
+    threads, replies, _ = post_in_order(base, payloads)
+    join_posts(threads)
     return replies
 
 
@@ -5101,6 +5156,325 @@ def serve_streaming(torch, backend, n_layers: int, add) -> None:
         journal_line(torch, "(f) pair", state, wall, 0.0)
 
 
+# arm (g) of 9c, tenants and SLOs (ROADMAP A15b-2). Every server of the arm
+# declares QOS_TENANTS: an interactive tenant of weight 4 and a batch-tier
+# one of weight 1, neither rate-limited. (g3)'s quota shed is the metered
+# tenant's (10 tokens/s, a burst of 20) and its SLO spec holds a loose
+# objective and one no request meets. (g2) runs at the serve phase's 64 new
+# tokens (QOS_NEW, C = S + 64 as arms (b), (c) and (e)) and phase 9d's
+# preemption arm at the fixture's 128, both in 8-step segments
+# (QOS_SEGMENT_TOKENS): the in-flight scheduler takes what is queued when
+# its loop is empty, so 8 requests arriving together join over up to four
+# boundaries (1, then 4, 2, 1 of them), and a row must outlive those and
+# the interactive requests' arrival (at 32-step segments and 64 tokens the
+# first joiner would be done before the last joined). Each of their batch-tier
+# prompts starts with its own tag (QOS_TAG), so no join resumes over
+# another row's blocks: a join is cold (K1 at q_offset 0) unless it is an
+# evictee's. (g1)'s primer is a request of another batch key (fewer new
+# tokens) whose coalescing window (QOS_WINDOW_S) the 12 requests arrive in,
+# so the engine's first batch of them is a pick from all 12
+QOS_TENANTS = "ui:4:0,bulk:1:0:batch"
+QOS_METERED = "metered:1:10"
+QOS_SLO = "e2e_p99=600,ttft_p99=0.001"
+QOS_PREEMPT_BUDGET = 4
+QOS_NEW = SERVE_NEW
+QOS_SEGMENT_TOKENS = 8
+QOS_TAG = "Yêu cầu số {}.\n"
+QOS_PRIMER_NEW = 32
+QOS_WINDOW_S = 0.5
+
+
+def post_in_order(base: str, payloads: list, tenants: list | None = None,
+                  state=None) -> tuple:
+    """POST each payload to /v1/generate from its own thread, with its
+    X-Tenant header when ``tenants`` names one; with ``state``, each is
+    started once the one before it is queued (the queue's depth has grown
+    by one). Returns (threads, replies, the perf_counter second each reply
+    ended)."""
+    import threading
+
+    replies, ends = [None] * len(payloads), [None] * len(payloads)
+
+    def run(i):
+        replies[i] = serve_request("POST", base + "/v1/generate", payloads[i],
+                                   headers={"X-Tenant": tenants[i]} if tenants else None)
+        ends[i] = time.perf_counter()
+
+    threads = []
+    depth0 = state.scheduler.queue.depth if state is not None else 0
+    for i in range(len(payloads)):
+        threads.append(threading.Thread(target=run, args=(i,), daemon=True))
+        threads[-1].start()
+        t_end = time.perf_counter() + 10
+        while state is not None and state.scheduler.queue.depth < depth0 + i + 1:
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"serve: request {i} not queued within 10 s")
+            time.sleep(0.001)
+    return threads, replies, ends
+
+
+def join_posts(threads: list) -> None:
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve: a client thread never got its reply")
+
+
+def spy_admissions(b) -> list:
+    """Every admission of every slot loop ``b.start_slot_loop`` opens, in
+    order, as (request id, prompt tokens the join skipped)."""
+    admissions = []
+    start = b.start_slot_loop
+
+    def spy(*args, **kw):
+        loop = start(*args, **kw)
+        admit = loop.admit
+
+        def admit_spy(items):
+            adm, rej = admit(items)
+            admissions.extend((a.key.trace_id, a.cached_tokens) for a in adm)
+            return adm, rej
+
+        loop.admit = admit_spy
+        return loop
+
+    b.start_slot_loop = spy
+    return admissions
+
+
+def journal_events(directory: str, kinds: tuple) -> dict:
+    """{kind: [rid, ...]} of a journal's records of ``kinds``, in order."""
+    out = {k: [] for k in kinds}
+    for seg in sorted(Path(directory).glob("journal.*.jsonl")):
+        for line in seg.read_bytes().splitlines():
+            rec = json.loads(line[9:])
+            if rec.get("e") in out:
+                out[rec["e"]].append(rec["rid"])
+    return out
+
+
+def serve_tenants(torch, model, prompts: list, n_layers: int, add) -> int:
+    """Arm (g) of 9c: tenants and SLOs. Returns the K1 launches of its
+    resumed forwards."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.serve.qos import TenantTable, parse_tenant_specs
+    from vnsum_tpu_torch.serve.queue import ServeRequest
+
+    spec = f"{QOS_TENANTS},{QOS_METERED}"
+    # (g1) the weighted-fair pick on the micro-batch scheduler: a primer,
+    # then 8 bulk and 4 ui requests queued in its window, in that order
+    b = TorchBackend(model=model, batch_size=8, max_new_tokens=SERVE_NEW, segment_tokens=32,
+                     device="cuda")
+    rows = [(f"g1-bulk-{i}", "bulk", "batch", prompts[i % len(prompts)]) for i in range(8)]
+    rows += [(f"g1-ui-{j}", "ui", "interactive", prompts[i])
+             for j, i in enumerate((1, 3, 5, 6))]
+    cands = [ServeRequest(prompt=p, tenant=t, tier=tier, est_tokens=b.count_tokens(p),
+                          trace_id=rid) for rid, t, tier, p in rows]
+    want = [r.trace_id for r in TenantTable(parse_tenant_specs(spec)).select(cands, 8)]
+    want = [["g1-primer"], want, [rid for rid, *_ in rows if rid not in want]]
+    prompt_of = {rid: p for rid, _, _, p in rows}
+    prompt_of["g1-primer"] = prompts[0]
+    with tempfile.TemporaryDirectory() as flight, serving(
+            b, max_wait_s=QOS_WINDOW_S, tenants=TenantTable(parse_tenant_specs(spec)),
+            slo=QOS_SLO, flight_dir=flight) as (base, state):
+        takes = []
+        on_take = state.scheduler.queue.on_take
+
+        def spy_take(batch):
+            # runs under the queue lock: the depth it leaves, read unlocked
+            takes.append(([r.trace_id for r in batch], len(state.scheduler.queue._items)))
+            on_take(batch)
+
+        state.scheduler.queue.on_take = spy_take
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        forwards0, steps0 = b.stats.prefill_forwards, b.stats.decode_steps
+        t0 = time.perf_counter()
+        payloads = [{"prompt": prompts[0], "max_new_tokens": QOS_PRIMER_NEW,
+                     "request_id": "g1-primer"}]
+        payloads += [{"prompt": p, "max_new_tokens": SERVE_NEW, "request_id": rid}
+                     for rid, _, _, p in rows]
+        threads, replies, _ = post_in_order(base, payloads, ["ui"] + [r[1] for r in rows], state)
+        join_posts(threads)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if [s for s, _ in replies] != [200] * len(payloads):
+            raise AssertionError(f"serve (g1): statuses {[s for s, _ in replies]}")
+        if [t for t, _ in takes] != want or takes[0][1] != len(rows):
+            raise AssertionError(f"serve (g1): engine batches {takes}, TenantTable.select "
+                                 f"over the 12 queued gives {want}")
+        check_exact("serve (g1) weighted-fair pick", launches, {
+            "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+            "decode": n_layers * (b.stats.decode_steps - steps0)},
+            path_kernels=("prefill", "decode"))
+        add(launches)
+        served = {p["request_id"]: r[1]["completions"][0]["text"]
+                  for p, r in zip(payloads, replies)}
+        serve_line(torch, "(g1) weighted-fair pick", state, len(payloads), wall)
+
+        # (g3) on the same server, host-only: a quota shed, an unknown
+        # tenant, the SLO engine's verdict and its breach dump
+        metered = state.tenants.resolve("metered")
+        t_drain = time.perf_counter()
+        if state.tenants.admit("metered", metered.burst) is not None:
+            raise AssertionError("serve (g3): the metered bucket did not start full")
+        got = []
+        status, body = serve_request("POST", base + "/v1/generate",
+                                     {"prompt": prompts[0], "max_new_tokens": SERVE_NEW},
+                                     headers={"X-Tenant": "metered"}, response_headers=got)
+        elapsed = time.perf_counter() - t_drain
+        exact = min(b.count_tokens(prompts[0]), metered.burst) / metered.token_rate
+        retry = body.get("retry_after_s", -1.0) if isinstance(body, dict) else -1.0
+        if (status != 429 or body.get("reason") != "quota"
+                or not exact - elapsed <= retry <= exact
+                or got[0].get("Retry-After") != str(max(1, int(round(retry))))):
+            raise AssertionError(f"serve (g3) quota: {status} {body}, Retry-After "
+                                 f"{got[0].get('Retry-After')}, the refill arithmetic gives "
+                                 f"{exact:.3f} s less at most {elapsed:.3f} s refilled")
+        status_u, body_u = serve_request("POST", base + "/v1/generate", {"prompt": "ai đó"},
+                                         headers={"X-Tenant": "khong-co"})
+        if status_u != 400 or not str(body_u.get("error", "")).startswith("unknown tenant"):
+            raise AssertionError(f"serve (g3) unknown tenant: {status_u} {body_u}")
+        t_end = time.perf_counter() + 10
+        while True:
+            _, slo = serve_request("GET", base + "/debug/slo")
+            dumps = sorted(Path(flight).glob("flight_slo_fast_burn_*.json"))
+            if dumps or time.perf_counter() > t_end:
+                break
+            time.sleep(0.05)
+        _, fr = serve_request("GET", base + "/debug/flightrecorder")
+        _, health = serve_request("GET", base + "/healthz")
+        _, text = serve_request("GET", base + "/metrics")
+        loose, tight = slo["objectives"]["e2e_p99"], slo["objectives"]["ttft_p99"]
+        breaches = [e for e in fr["events"] if e["kind"] == "slo_breach"]
+        dumped = json.loads(dumps[0].read_text()) if dumps else {}
+        if (loose["compliance"] != 1.0 or loose["breaching"] or not tight["breaching"]
+                or tight["burn_fast"] < slo["config"]["breach_fast_burn"]
+                or tight["burn_slow"] < slo["config"]["breach_slow_burn"]
+                or [e.get("objective") for e in breaches] != ["ttft_p99"] or len(dumps) != 1
+                or not any(e["kind"] == "slo_breach" for e in dumped.get("events", []))
+                or not str(health.get("slo", "")).startswith("BREACH ttft_p99")
+                or metric_value(text, "vnsum_serve_slo_breached") != 1
+                or 'vnsum_serve_slo_burn_rate{objective="ttft_p99",window="fast"}' not in text
+                or 'vnsum_serve_qos_quota_sheds_total{tenant="metered"} 1' not in text):
+            raise AssertionError(f"serve (g3) SLOs: /debug/slo {slo}, slo_breach events "
+                                 f"{breaches}, dumps {[d.name for d in dumps]}, /healthz slo "
+                                 f"{health.get('slo')}")
+        log(f"[serve] (g3) quota: 429 quota, Retry-After {got[0]['Retry-After']} "
+            f"(retry_after_s {retry:.4f}, refill arithmetic {exact:.4f} s less at most "
+            f"{elapsed:.4f} s), unknown tenant 400; SLOs: e2e_p99 compliance "
+            f"{loose['compliance']:.3f}, ttft_p99 burn fast {tight['burn_fast']:.1f} slow "
+            f"{tight['burn_slow']:.1f}, one slo_breach, dump {dumps[0].name}, /healthz "
+            f"{health['slo']!r}")
+    # the direct generate of each engine batch's rows, on the idle backend
+    for batch in want:
+        new = QOS_PRIMER_NEW if batch == ["g1-primer"] else SERVE_NEW
+        direct = b.generate([prompt_of[rid] for rid in batch], max_new_tokens=new)
+        if [served[rid] for rid in batch] != direct:
+            raise AssertionError(f"serve (g1): batch {batch} differs from the direct generate: "
+                                 f"{agreement([served[rid] for rid in batch], direct)}")
+    log(f"[serve] (g1) weighted-fair pick: engine batches {[t for t, _ in takes]} (the "
+        f"first taken with {takes[0][1]} queued), each equal to TenantTable.select's pick, "
+        f"every text byte-identical to the direct generate of its batch")
+    del b
+
+    # (g2) in-flight tier preemption over the prefix cache
+    b = TorchBackend(model=model, batch_size=8, max_new_tokens=QOS_NEW,
+                     segment_tokens=QOS_SEGMENT_TOKENS, device="cuda", cache_blocks=CACHE_BLOCKS,
+                     cache_block_tokens=CACHE_BLOCK_TOKENS)
+    loops = spy_loops(b)
+    spy = spy_cache(torch, b)
+    admissions = spy_admissions(b)
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    bulk = [(f"g2-bulk-{i}", QOS_TAG.format(i) + p) for i, p in enumerate(prompts + prompts[:1])]
+    ui = [(f"g2-ui-{j}", "Trả lời ngắn gọn: " + d.read_text(encoding="utf-8")[:600])
+          for j, d in enumerate(docs[:2])]
+    with tempfile.TemporaryDirectory() as jdir, serving(
+            b, max_wait_s=SERVE_WAIT_S, inflight=True, slots=8, slot_prompt_tokens=4096,
+            tenants=TenantTable(parse_tenant_specs(QOS_TENANTS)),
+            journal_dir=jdir) as (base, state):
+        state.replay_journal()
+        state.scheduler.preempt_budget = QOS_PREEMPT_BUDGET
+        evictions = []
+        requeue = state.scheduler._requeue_eviction
+
+        def spy_requeue(ev):
+            evictions.append((ev.key.trace_id, loops[-1].segments, ev.pin is not None))
+            requeue(ev)
+
+        state.scheduler._requeue_eviction = spy_requeue
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        forwards0 = b.stats.prefill_forwards
+        t0 = time.perf_counter()
+        b_threads, b_replies, b_ends = post_in_order(base, [
+            {"prompt": p, "max_new_tokens": QOS_NEW, "request_id": rid} for rid, p in bulk],
+            ["bulk"] * len(bulk))
+        t_end = time.perf_counter() + 300
+        while (state.scheduler.slot_state() or (0, 0))[1] < len(bulk):
+            if time.perf_counter() > t_end or not all(t.is_alive() for t in b_threads):
+                raise AssertionError(f"serve (g2): slots {state.scheduler.slot_state()}")
+            time.sleep(0.001)
+        seg_at_ui = loops[-1].segments
+        u_threads, u_replies, u_ends = post_in_order(base, [
+            {"prompt": p, "max_new_tokens": QOS_NEW, "request_id": rid} for rid, p in ui],
+            ["ui"] * len(ui))
+        join_posts(b_threads + u_threads)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        statuses = [s for s, _ in b_replies + u_replies]
+        evictees = [rid for rid, _, _ in evictions]
+        snap = state.metrics.snapshot()
+        _, text = serve_request("GET", base + "/metrics")
+        wait_pending(state)
+        events = journal_events(jdir, ("preempted", "requeued"))
+        rejoins = [(rid, cached) for rid, cached in admissions if rid in evictees]
+        resumed_K = sorted({K for K in spy["K"] if K})
+        ui_first = [u_ends[j] - (r[1]["completions"][0]["record"]["total_s"]
+                                 - r[1]["completions"][0]["record"]["ttft_s"])
+                    for j, r in enumerate(u_replies)]
+        if (statuses != [200] * len(statuses) or len(set(evictees)) != 2
+                or (snap.preemptions, snap.requeues) != (2, 2)
+                or metric_value(text, "vnsum_serve_qos_preemptions_total") != 2
+                or metric_value(text, "vnsum_serve_qos_requeues_total") != 2
+                or not all(pinned and 0 <= seg - seg_at_ui <= 1
+                           for _, seg, pinned in evictions)
+                or sorted(events["preempted"]) != sorted(evictees)
+                or sorted(events["requeued"]) != sorted(evictees)
+                or len(rejoins) != 4 or not all(cached > 0 for _, cached in rejoins[2:])
+                or not resumed_K or not set(resumed_K) <= set(RESUME_OFFSETS)
+                or not spy["resume_launches"] or max(ui_first) >= max(b_ends)):
+            raise AssertionError(
+                f"serve (g2): statuses {statuses}, evictions (rid, loop segments, pinned) "
+                f"{evictions} against {seg_at_ui} segments when ui arrived, preemptions / "
+                f"requeues {snap.preemptions} / {snap.requeues}, journal {events}, "
+                f"evictee admissions {rejoins}, resumed K {resumed_K}, K1 resumed launches "
+                f"{spy['resume_launches']}, ui first tokens {ui_first} against the last bulk "
+                f"reply {max(b_ends)}")
+        check_exact("serve (g2) tier preemption", launches, {
+            "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+            "verify": n_layers * sum(loop.decode_steps for loop in loops)})
+        add(launches)
+        texts = {r[1]["completions"][0]["record"]["trace_id"]: r[1]["completions"][0]["text"]
+                 for r in b_replies}
+        log(f"[serve] (g2) tier preemption: 8 bulk residents, ui arrived at {seg_at_ui} "
+            f"segments, evicted {evictees} at {[seg for _, seg, _ in evictions]} (pinned), "
+            f"journal PREEMPTED {events['preempted']} REQUEUED {events['requeued']}, re-joins "
+            f"{rejoins[2:]} prompt tokens skipped at K {resumed_K}, K1 launches at the resume "
+            f"shape {spy['resume_launches']}, ui first tokens "
+            f"{[round(t - t0, 3) for t in ui_first]} s before the last bulk reply at "
+            f"{max(b_ends) - t0:.3f} s")
+        serve_line(torch, "(g2) tier preemption", state, len(bulk) + len(ui), wall)
+    resume_launches = spy["resume_launches"]
+    del b, loops, spy
+    control = TorchBackend(model=model, batch_size=8, max_new_tokens=QOS_NEW, device="cuda")
+    by_rid = dict(bulk)
+    oneshot = control.generate([by_rid[rid] for rid in evictees])
+    log(f"[serve] (g2) evictees against the one-shot run: "
+        f"{agreement([texts[rid] for rid in evictees], oneshot)} (not gated)")
+    return resume_launches
+
+
 def phase_serve(torch, model) -> tuple[dict, int]:
     """The serving slice on Llama-3.2-3B (``model``: the spec phase's, full
     width and depth, random bf16 weights, int8 cache): arms (a)-(f) of the
@@ -5268,7 +5642,8 @@ def phase_serve(torch, model) -> tuple[dict, int]:
     del b, loops
     serve_durable(torch, backend, prompts, oneshot, n_layers, add)
     serve_streaming(torch, backend, n_layers, add)
-    return total, spy["resume_launches"]
+    qos_resume = serve_tenants(torch, model, prompts, n_layers, add)
+    return total, spy["resume_launches"] + qos_resume
 
 
 # -- phase 9d -----------------------------------------------------------------
@@ -5679,6 +6054,111 @@ def fixture_resume(torch, model, spec: str, prompts: list, oneshot: tuple) -> di
     return {k: arms["cold"]["launches"][k] + warm["launches"][k] for k in COUNTERS}
 
 
+def fixture_preempt(torch, model, spec: str, prompts: list, oneshot: tuple) -> dict:
+    """(f): tier preemption on the fixture. InflightScheduler (8 slots, S =
+    1920, QOS_SEGMENT_TOKENS-step segments, a FIXTURE_CACHE_BLOCKS-block
+    prefix cache, QOS_TENANTS) fed 8 batch-tier rows (the 7 map prompts and
+    the first again, each behind its QOS_TAG), which fill the 8 slots in
+    cold joins of 1, 2 or 4; then two interactive rows, cold, which evict
+    batch rows at the next boundary. Every evictee re-joins warm at
+    FIXTURE_RESUME_K (K1 at that q_offset, B = 1 or 2), its text held to
+    the one-shot run of the same 8 prompts on the int8-cache arm's backend
+    under the margin rule (FIXTURE_MARGIN_RTOL["preempt"]); launches
+    exact. Returns the launches."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.serve import InflightScheduler, TenantTable, parse_tenant_specs
+
+    n_layers = model.cfg.n_layers
+    rows = [QOS_TAG.format(n) + p for n, p in enumerate(prompts + prompts[:1])]
+    ref_texts, ref_rows = generate_rows(oneshot[2], rows)
+    b = TorchBackend(model=model, tokenizer=spec, batch_size=8, max_new_tokens=FIXTURE_NEW,
+                     segment_tokens=QOS_SEGMENT_TOKENS, cache_blocks=FIXTURE_CACHE_BLOCKS,
+                     cache_block_tokens=64, device="cuda")
+    loops = spy_loops(b)
+    spy = spy_cache(torch, b)
+    admissions = spy_admissions(b)
+    # a step detokenizes its completions in their order: the id rows by rid
+    detokenized, ids = [], {}
+    detok = b._detok
+    b._detok = lambda row, extra_eos=(): detokenized.append(row) or detok(row, extra_eos)
+    start = b.start_slot_loop
+
+    def start_spy(*args, **kw):
+        loop = start(*args, **kw)
+        step = loop.step
+
+        def step_spy():
+            n0 = len(detokenized)
+            res = step()
+            for j, c in enumerate(res.completions):
+                ids[c.key.trace_id] = trimmed_ids(b, detokenized[n0 + j])
+            return res
+
+        loop.step = step_spy
+        return loop
+
+    b.start_slot_loop = start_spy
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    ui = ["Trả lời ngắn gọn: " + d.read_text(encoding="utf-8")[:600] for d in docs[:2]]
+    sched = InflightScheduler(b, slots=len(rows), slot_prompt_tokens=max(FIXTURE_SHAPES),
+                              max_wait_s=SERVE_WAIT_S,
+                              tenants=TenantTable(parse_tenant_specs(QOS_TENANTS)))
+    evictees = []
+    requeue = sched._requeue_eviction
+
+    def spy_requeue(ev):
+        evictees.append(ev.key.trace_id)
+        requeue(ev)
+
+    sched._requeue_eviction = spy_requeue
+    try:
+        reset_launches()
+        forwards0 = b.stats.prefill_forwards
+        t0 = time.perf_counter()
+        futs = {f"fx-bulk-{n}": sched.submit(p, max_new_tokens=FIXTURE_NEW, tenant="bulk",
+                                             tier="batch", trace_id=f"fx-bulk-{n}")
+                for n, p in enumerate(rows)}
+        t_end = time.perf_counter() + 300
+        while sched.slot_state()[1] < len(rows):
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"fixture preemption: slots {sched.slot_state()}")
+            time.sleep(0.001)
+        ui_futs = [sched.submit(q, max_new_tokens=FIXTURE_NEW, tenant="ui", trace_id=f"fx-ui-{j}")
+                   for j, q in enumerate(ui)]
+        done = {rid: f.result(timeout=600) for rid, f in futs.items()}
+        ui_done = [f.result(timeout=600) for f in ui_futs]
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        snap = sched.metrics.snapshot()
+    finally:
+        sched.close()
+    rejoins = [(rid, cached) for rid, cached in admissions if rid in evictees]
+    resumed_K = sorted({K for K in spy["K"] if K})
+    joins = sorted(b.stats.by_bucket)
+    if (not evictees or len(set(evictees)) != len(evictees) or snap.preemptions != len(evictees)
+            or any(c.record.status != "ok" for c in [*done.values(), *ui_done])
+            or len(rejoins) != 2 * len(evictees)
+            or not all(cached > 0 for _, cached in rejoins[len(evictees):])
+            or resumed_K != [FIXTURE_RESUME_K]
+            or not {B for B, _ in joins} <= {8, *FIXTURE_JOIN_BATCHES}
+            or {S for _, S in joins} != {max(FIXTURE_SHAPES)}):
+        raise AssertionError(f"fixture preemption: evictees {evictees}, preemptions "
+                             f"{snap.preemptions}, evictee admissions {rejoins}, resumed K "
+                             f"{resumed_K}, join batches {joins}")
+    check_exact("fixture tier preemption", launches, {
+        "prefill": n_layers * (b.stats.prefill_forwards - forwards0),
+        "verify": n_layers * sum(loop.decode_steps for loop in loops)})
+    log(f"[fixture] tier preemption: {len(evictees)} evicted ({evictees}), re-joined warm "
+        f"{rejoins[len(evictees):]} at K {resumed_K}, join batches {joins}, "
+        f"{snap.segments} segments, wall {wall:.2f}s")
+    ev_rows = [int(rid.rsplit("-", 1)[1]) for rid in evictees]
+    margin_rule(torch, "preemption evictees against the one-shot run", oneshot[2],
+                [rows[n] for n in ev_rows], [done[rid].text for rid in evictees],
+                [ref_texts[n] for n in ev_rows], {k: ids[rid] for k, rid in enumerate(evictees)},
+                {k: ref_rows[n] for k, n in enumerate(ev_rows)}, FIXTURE_MARGIN_RTOL["preempt"])
+    return launches
+
+
 def phase_fixture(torch) -> dict:
     """Phase 9d: the committed trained fixture with its own tokenizer
     (text/bpe.py, no transformers), every one-card path through K1, K2 and
@@ -5725,6 +6205,7 @@ def phase_fixture(torch) -> dict:
                 [tok.decode(slot_rows[4][i]).strip() for i in range(len(prompts))],
                 oneshot[0], slot_rows[4], oneshot[1], FIXTURE_MARGIN_RTOL["slot"])
     add(fixture_resume(torch, models["bf16"], spec, prompts, oneshot))
+    add(fixture_preempt(torch, models["bf16"], spec, prompts, oneshot))
     log("[launches] fixture phase: " + ", ".join(f"{k} {v}" for k, v in total.items()))
     del models, outs, oneshot
     torch.cuda.empty_cache()

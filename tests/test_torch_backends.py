@@ -113,9 +113,17 @@ def test_fake_refuses_what_is_not_ported(capsys):
         get_backend("hf")
     from vnsum_tpu_torch.serve.server import ServeState, main
 
-    # durable serving is ported (a journal_dir arms it); tenants are not
-    with pytest.raises(NotImplementedError, match="A15b"):
-        ServeState(be, tenants=object())
+    # durable serving and tenants are ported (a tenant table arms the
+    # queue's pick); the serving mesh is not
+    from vnsum_tpu_torch.serve.qos import TenantTable, parse_tenant_specs
+
+    state = ServeState(be, tenants=TenantTable(parse_tenant_specs("ui:2:0")))
+    try:
+        assert state.scheduler.queue.tenants is state.tenants
+    finally:
+        state.close()
+    with pytest.raises(NotImplementedError, match="A10"):
+        ServeState(be, mesh={"data": 2})
     with pytest.raises(SystemExit):
         main(["--backend", "fake", "--mesh", "data=2"])
     assert "--mesh: multi-card serving is ROADMAP A10" in capsys.readouterr().err

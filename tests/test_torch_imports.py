@@ -41,7 +41,8 @@ def test_sources_found():
             "vnsum_tpu_torch/serve/inflight.py", "vnsum_tpu_torch/serve/watchdog.py",
             "vnsum_tpu_torch/obs/trace.py", "vnsum_tpu_torch/testing/faults.py",
             "vnsum_tpu_torch/analysis/sanitizers.py", "vnsum_tpu_torch/core/profiling.py",
-            "vnsum_tpu_torch/serve/journal.py", "vnsum_tpu_torch/testing/chaos.py"} <= names
+            "vnsum_tpu_torch/serve/journal.py", "vnsum_tpu_torch/testing/chaos.py",
+            "vnsum_tpu_torch/serve/qos.py", "vnsum_tpu_torch/serve/slo.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -1,8 +1,8 @@
 """End-to-end request cancellation on the port's serving layer (the cases
-of tests/test_serve_cancel.py that need no tenants): DELETE semantics
-across every lifecycle stage, slot reclamation without requeue, the
-cooperative one-shot flag, the journal's typed CANCELLED record and its
-survival of compaction (replay never resurrects a cancelled request),
+of tests/test_serve_cancel.py): DELETE semantics across every lifecycle
+stage, the tenant token bucket's refund of a cancelled queued request,
+slot reclamation without requeue, the cooperative one-shot flag, the
+journal's typed CANCELLED record and its survival of compaction (replay never resurrects a cancelled request),
 disconnect-triggered cancels, heartbeats, and Last-Event-ID resume."""
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import pytest
 from vnsum_tpu_torch.backend.fake import FakeBackend
 from vnsum_tpu_torch.serve import InflightScheduler, MicroBatchScheduler
 from vnsum_tpu_torch.serve.journal import RequestJournal
+from vnsum_tpu_torch.serve.qos import TenantTable, parse_tenant_specs
 from vnsum_tpu_torch.serve.queue import RequestCancelled
 from vnsum_tpu_torch.serve.server import ServeState, make_server
 
@@ -53,6 +54,34 @@ def test_cancel_queued_request_resolves_typed():
         # idempotent: a second cancel of the same id answers known, 0 new
         res2 = sched.cancel("c-1")
         assert res2["known"] and res2["cancelled_queued"] == 0
+    finally:
+        sched.close()
+
+
+def test_cancel_queued_refunds_tenant_token_bucket():
+    tenants = TenantTable(parse_tenant_specs(
+        "paid:4:1000"))  # rate 1000 tok/s, burst 2000
+    backend = FakeBackend(batch_overhead_s=0.2)
+    sched = MicroBatchScheduler(backend, max_batch=1, max_wait_s=0.001,
+                                tenants=tenants)
+    try:
+        sched.submit("giu dong co " * 10, trace_id="busy-t")
+        assert wait_for(lambda: backend.batch_sizes)
+        prompt = "muoi tu trong cau nay de tinh phi dung khong nhi " * 5  # 50
+        tokens = backend.count_tokens(prompt)
+        before = tenants.stats()["paid"]["bucket_tokens"]
+        sched.submit(prompt, trace_id="c-t", tenant="paid")
+        after_admit = tenants.stats()["paid"]["bucket_tokens"]
+        # the admission billed: the bucket is down by the bill minus
+        # whatever refilled while submit ran (1000 tok/s — allow 25ms of
+        # elapsed wall clock; a loaded host can stall this thread for
+        # several ms between the bill and this read)
+        assert after_admit <= before - tokens + 25
+        sched.cancel("c-t")
+        refunded = tenants.stats()["paid"]["bucket_tokens"]
+        # the bill came back (refill noise over the test's ms timescale is
+        # positive, so >= the pre-admit level minus a rounding hair)
+        assert refunded >= before - 1
     finally:
         sched.close()
 

@@ -1,7 +1,7 @@
 """The port's serving entry point, ``python -m vnsum_tpu_torch.serve.server``:
 a real process on a free port answers /healthz and /v1/generate and exits 0
-on SIGTERM after draining; the CLI takes --journal-dir and refuses what is
-not ported by name, and ``--backend torch`` never lands on the CPU unless
+on SIGTERM after draining; the CLI takes --journal-dir, --tenants and
+--slo and refuses what is not ported by name, and ``--backend torch`` never lands on the CPU unless
 ``--device cpu`` asks."""
 from __future__ import annotations
 
@@ -88,21 +88,55 @@ def test_server_process_serves_and_drains_on_sigterm():
     (["--mesh", "data=2"], "A10"),
     (["--backend", "hf"], "A5c"),
 ])
-def test_cli_refuses_unported_features_by_name(argv, item, capsys):
+def test_cli_refuses_unported_features_by_name(argv, item, capsys, monkeypatch):
+    """The mesh (A10) and the hf backend (A5c) refuse by name. Durable
+    serving and tenants and SLOs (A15b) are ported: their flags are
+    accepted (a journal run ends at the refusal of --mesh given after them),
+    and a tenant or SLO flag arms what it names on the served state."""
     args = argv if "--backend" in argv else ["--backend", "fake", *argv]
     journal = argv[0].startswith("--journal")
+    if item == "A15b" and not journal:
+        built = {}
+        real = make_server
+
+        def spy(state, host, port):
+            built["state"] = state
+            return real(state, host, port)
+
+        monkeypatch.setattr("vnsum_tpu_torch.serve.server.make_server", spy)
+        monkeypatch.setattr("vnsum_tpu_torch.serve.server.ThreadingHTTPServer.serve_forever",
+                            lambda self: None)
+        extra = {"--preempt-budget": ["--inflight"],
+                 "--slo-burn-fast": ["--slo", "e2e_p99=30"],
+                 "--slo-burn-slow": ["--slo", "e2e_p99=30"]}.get(argv[0], [])
+        assert main([*args, *extra, "--port", "0", "--no-watchdog"]) == 0
+        state = built["state"]
+        if argv[0] == "--tenants":
+            assert set(state.tenants.stats()) == {"a", "default"}
+            assert state.scheduler.queue.tenants is state.tenants
+        elif argv[0] == "--preempt-budget":
+            assert state.scheduler.preempt_budget == 4
+        elif argv[0] == "--slo":
+            assert set(state.slo.objectives) == {"ttft_p99"}
+        elif argv[0] == "--slo-burn-fast":
+            assert state.slo.breach_fast_burn == 2.0
+        else:
+            assert state.slo.breach_slow_burn == 1.0
+        assert state.scheduler.closed
+        return
     if journal:
         # durable serving is ported: its flags are accepted, so the run
         # ends at the refusal of an unported flag given after them
-        args = [*args, "--slo", "ttft_p99=0.5"]
+        args = [*args, "--mesh", "data=2"]
     with pytest.raises(SystemExit) as exc:
         main(args)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert item in err
     if journal:
         last = err.strip().splitlines()[-1]
-        assert "--slo: SLOs are ROADMAP A15b" in last and "--journal" not in last
+        assert "--mesh: multi-card serving is ROADMAP A10" in last and "--journal" not in last
+    else:
+        assert item in err
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-card refusal")

@@ -1,11 +1,10 @@
 """Structured jobs (serve/gang.py) on the port's serving layer, the cases
-of tests/test_serve_gang.py that need no tenants: gang admission, the
+of tests/test_serve_gang.py: gang admission, the
 registry's lifecycle and its journal roundtrip, the queue's gang-affinity
 pick, the summarize fan-out's gang counters, per-phase progress on the
 poll surface, the POISON-degraded partial result of the strategies'
-streaming rounds, gang-cancel mid-reduce (journaled and not), and journal
-replay of a half-finished gang. Whole-gang tier preemption waits for
-tenants (ROADMAP A15b-2)."""
+streaming rounds, gang-cancel mid-reduce (journaled and not), journal
+replay of a half-finished gang, and whole-gang tier preemption."""
 from __future__ import annotations
 
 import http.client
@@ -17,7 +16,14 @@ import urllib.parse
 import pytest
 
 from vnsum_tpu_torch.backend.fake import FakeBackend
-from vnsum_tpu_torch.serve import EngineSupervisor, MicroBatchScheduler, RetryPolicy
+from vnsum_tpu_torch.serve import (
+    EngineSupervisor,
+    InflightScheduler,
+    MicroBatchScheduler,
+    RetryPolicy,
+    TenantTable,
+    parse_tenant_specs,
+)
 from vnsum_tpu_torch.serve.gang import GangRegistry
 from vnsum_tpu_torch.serve.journal import RequestJournal, aggregate_status
 from vnsum_tpu_torch.serve.queue import RequestCancelled, RequestQueue, ServeRequest
@@ -437,3 +443,42 @@ def test_replay_restores_half_finished_gang(tmp_path):
         server.shutdown()
         server.server_close()
         state.close()
+
+
+# -- whole-gang preemption ----------------------------------------------------
+
+
+def test_preemption_evicts_whole_gang_byte_identical():
+    """One interactive arrival needs ONE slot, but the resident fan-out is
+    a gang: eviction takes the WHOLE group (never strands a half-finished
+    fan-out holding pins), both members requeue, and their final outputs
+    stay byte-identical to an unpreempted run."""
+    tenants = TenantTable(parse_tenant_specs("interactive:4:0,batch:1:0:batch"))
+    backend = FakeBackend(segment_words=4, segment_overhead_s=0.005,
+                          batch_overhead_s=0.01)
+    sched = InflightScheduler(backend, slots=2, max_wait_s=0.01,
+                              tenants=tenants)
+    try:
+        handle = sched.admit_gang("gp-1", tenant="batch")
+        prompts = ["phan tich chuyen sau noi dung " * 12 + f" so {i}"
+                   for i in range(2)]
+        futs = [
+            sched.submit(p, tenant="batch", tier="batch", gang="gp-1",
+                         gang_phase="map")
+            for p in prompts
+        ]
+        time.sleep(0.03)  # both gang members resident, a few segments deep
+        i_c = sched.submit("ngan gon", tenant="interactive").result(timeout=30)
+        assert i_c.record.status == "ok"
+        texts = [f.result(timeout=30).text for f in futs]
+        handle.finish()
+        snap = sched.metrics.snapshot()
+        # demand was ONE slot; the gang granularity evicted BOTH members
+        # together and counted one whole-gang preemption
+        assert snap.gang_preemptions >= 1
+        assert snap.preemptions >= 2 and snap.preemptions % 2 == 0
+        assert snap.requeues == snap.preemptions  # nobody stranded
+        for p, text in zip(prompts, texts):
+            assert text == FakeBackend().generate([p])[0]
+    finally:
+        sched.close()

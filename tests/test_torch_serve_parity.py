@@ -1,8 +1,8 @@
 """The port's serving layer against the JAX package's, on their FakeBackends:
 the same request sequences through both HTTP servers give equal texts,
 status codes and shed reasons, equal /healthz keys and /metrics metric
-names; the metric registries (less the families of modules not ported
-yet), the histogram ladders and the quantiles of the same observations are
+names; the metric registries (less the families of the mesh and the fleet,
+not ported yet), the histogram ladders and the quantiles of the same observations are
 equal."""
 from __future__ import annotations
 
@@ -193,16 +193,13 @@ def test_healthz_keys_equal(pair):
     assert bp["status"] == bj["status"] == "ok"
 
 
-# families of the JAX modules not ported yet: the serving mesh (ROADMAP A10);
-# tenant quotas and tier preemption, SLOs (A15b-2) and the fleet (A15b-3)
-UNPORTED_PREFIXES = ("mesh_", "slo_", "router_", "federation_", "fleet_")
-UNPORTED_NAMES = {"qos_tenants", "qos_requests_total", "qos_quota_sheds_total",
-                  "qos_bucket_tokens", "gang_preemptions_total"}
+# families of the JAX modules not ported yet: the serving mesh (ROADMAP A10)
+# and the fleet (A15b-3)
+UNPORTED_PREFIXES = ("mesh_", "router_", "federation_", "fleet_")
 
 
 def _unported(name: str) -> bool:
-    base = name.removeprefix("vnsum_serve_")
-    return base.startswith(UNPORTED_PREFIXES) or base in UNPORTED_NAMES
+    return name.removeprefix("vnsum_serve_").startswith(UNPORTED_PREFIXES)
 
 
 def _metric_names(text: str) -> set[str]:
@@ -225,9 +222,13 @@ def test_metrics_names_equal_after_traffic(pair):
 def test_metric_registry_equal(full):
     jax_names = jax_metrics.metric_names(full)
     assert metrics.metric_names(full) == [n for n in jax_names if not _unported(n)]
-    # the exclusions name only families the JAX registry really has
-    assert all(any(_unported(n) and n.endswith(u) for n in jax_names)
-               for u in UNPORTED_NAMES)
+    # the exclusions name only families the JAX registry really has, and
+    # the tenant, SLO and whole-gang families are the port's too
+    prefix = "vnsum_serve_" if full else ""
+    assert all(any(n.startswith(prefix + u) for n in jax_names)
+               for u in UNPORTED_PREFIXES)
+    assert {prefix + n for n in ("qos_tenants", "qos_bucket_tokens", "gang_preemptions_total",
+                                 "slo_burn_rate")} <= set(metrics.metric_names(full))
 
 
 @pytest.mark.parametrize("ladder", [

@@ -440,15 +440,18 @@ def test_readyz_pre_replay_until_journal_replayed(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [
     ({"journal_dir": "j"}, "A15b"),
-    ({"tenants": object()}, "A15b"),
+    ({"tenants": "ui:4:0,bulk:1:0:batch"}, "A15b"),
     ({"slo": "ttft_p99=0.5"}, "A15b"),
     ({"mesh": {"data": 2, "model": 2}}, "A10"),
 ])
 def test_unported_serving_features_refuse_by_name(kw, item, tmp_path):
-    """Tenants, SLOs and the mesh are not ported yet: ServeState refuses
-    each with its ROADMAP item, before any thread or file exists. Durable
-    serving (A15b-1) is ported: a journal_dir arms the journal instead,
-    and the server is not routable until its startup replay ran."""
+    """The mesh is not ported yet: ServeState refuses it with its ROADMAP
+    item, before any thread or file exists. Durable serving, tenants and
+    SLOs (A15b) are ported: a journal_dir arms the journal (the server is
+    not routable until its startup replay ran), a tenant table arms the
+    queue's quota and pick, an SLO spec the SLO engine and its monitor."""
+    from vnsum_tpu_torch.serve.qos import TenantTable, parse_tenant_specs
+
     if "journal_dir" in kw:
         state = ServeState(FakeBackend(), journal_dir=str(tmp_path / "j"))
         try:
@@ -458,6 +461,26 @@ def test_unported_serving_features_refuse_by_name(kw, item, tmp_path):
             assert state.readiness() == (True, "ready")
         finally:
             state.close()
+        return
+    if "tenants" in kw:
+        table = TenantTable(parse_tenant_specs(kw["tenants"]))
+        state = ServeState(FakeBackend(), tenants=table, inflight=True, slots=2)
+        try:
+            assert state.scheduler.tenants is table is state.scheduler.queue.tenants
+            assert state.scheduler.preempt_budget == 16
+            assert set(state.metrics.tenant_labels.tracked()) >= {"ui", "bulk", "default"}
+        finally:
+            state.close()
+        return
+    if "slo" in kw:
+        state = ServeState(FakeBackend(), **kw)
+        try:
+            assert set(state.slo.objectives) == {"ttft_p99"}
+            assert state.slo.status_line().startswith("ok (1 objectives")
+            assert "slo-monitor" in state.watchdog.stats_dict()["heartbeat_ages"]
+        finally:
+            state.close()
+        assert not state.slo._thread.is_alive()
         return
     with pytest.raises(NotImplementedError, match=item):
         ServeState(FakeBackend(), journal_dir=None, **kw)

@@ -1,0 +1,662 @@
+"""SLO engine + usage ledger + flight recorder on the port's serving layer:
+the cases of tests/test_serve_slo.py, then the port against the JAX
+package.
+
+Unit level: spec parsing, burn-rate math over a synthetic clock,
+edge-triggered breaches firing the recorder, the capped tenant-label
+registry, and the per-tenant ledger. HTTP level: /debug/slo,
+/debug/flightrecorder, /v1/usage, the /healthz SLO line, the
+vnsum_serve_slo_*/usage_*/recorder_*/scrape_seconds metrics, and
+OpenMetrics-style exemplars on the latency buckets.
+
+Acceptance scenario: seeded resource-fault injection drives the
+degradation ladder to brownout on a live journaled server — the brownout
+entry dumps the flight recorder, the dump's typed event sequence matches
+the journal's records per request, and /debug/slo reports the burn-rate
+breach with an exemplar trace_id resolvable via /debug/trace.
+
+The port's metrics always keep their rolling windows and its server
+always keeps its flight recorder (the JAX package's all-off bench levers,
+``windowed=False`` and ``flight_recorder=False``, are not ported): the two
+JAX cases about them hold the port to the always-on contract instead.
+Against the JAX package: the same windowed observations give the same
+evaluations and /debug/slo payloads, and a FakeBackend server of each
+package with --tenants and --slo the same /debug/slo keys, /metrics names
+and /v1/usage keys."""
+from __future__ import annotations
+
+import json
+import threading
+import time
+import urllib.error
+import urllib.request
+
+import pytest
+
+from vnsum_tpu_torch.backend.fake import FakeBackend
+from vnsum_tpu_torch.core.results import ServeRequestRecord
+from vnsum_tpu_torch.obs.recorder import FlightRecorder
+from vnsum_tpu_torch.serve.metrics import ServeMetrics
+from vnsum_tpu_torch.serve.queue import ShedReason
+from vnsum_tpu_torch.serve.slo import SloEngine, parse_slo_spec
+from vnsum_tpu_torch.serve.usage import OTHER_LABEL, TenantLabelRegistry
+
+# -- spec parsing -------------------------------------------------------------
+
+
+def test_parse_slo_spec_full_form():
+    objs = parse_slo_spec(
+        "ttft_p99=0.5,e2e_p99=30,error_rate=0.01,availability=0.999"
+    )
+    assert set(objs) == {"ttft_p99", "e2e_p99", "error_rate", "availability"}
+    assert objs["ttft_p99"].kind == "latency"
+    assert objs["ttft_p99"].allowed == pytest.approx(0.01)
+    assert objs["ttft_p99"].metric == "ttft_seconds"
+    assert objs["e2e_p99"].threshold == 30.0
+    assert objs["error_rate"].allowed == 0.01
+    assert objs["availability"].allowed == pytest.approx(0.001)
+    # three-digit quantiles parse too
+    assert parse_slo_spec("e2e_p999=60")["e2e_p999"].allowed == pytest.approx(
+        0.001
+    )
+    assert parse_slo_spec("queue_wait_p95=0.1")[
+        "queue_wait_p95"
+    ].metric == "queue_wait_seconds"
+
+
+@pytest.mark.parametrize("bad", [
+    "", "ttft_p99", "nope_p99=1", "ttft_p99=fast", "ttft_p99=0",
+    "error_rate=1.5", "availability=0", "ttft_p99=1,ttft_p99=2",
+    # p100 must be rejected loudly, not silently misparsed as p10
+    "ttft_p100=0.5",
+])
+def test_parse_slo_spec_rejects_malformed(bad):
+    with pytest.raises(ValueError):
+        parse_slo_spec(bad)
+
+
+# -- engine math over a synthetic clock ---------------------------------------
+
+
+class Clock:
+    def __init__(self, t: float = 1000.0) -> None:
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def rec_ok(i: int, ttft: float, e2e: float) -> ServeRequestRecord:
+    return ServeRequestRecord(
+        request_id=i, status="ok", trace_id=f"r{i}", ttft_s=ttft,
+        ttft_anchored=True, total_s=e2e,
+    )
+
+
+def test_burn_rates_budget_and_edge_triggered_breach(tmp_path):
+    clk = Clock()
+    m = ServeMetrics(horizon_s=600.0, sub_windows=60, clock=clk)
+    recorder = FlightRecorder(directory=tmp_path)
+    eng = SloEngine(
+        parse_slo_spec("ttft_p99=0.5,error_rate=0.01"), m,
+        fast_window_s=60.0, slow_window_s=600.0,
+        recorder=recorder, interval_s=0,
+    )
+    for i in range(100):
+        m.observe_request(rec_ok(i, 0.05, 0.1))
+    st = eng.evaluate(now=clk.t)
+    assert st["windowed"] and not st["breached"]
+    obj = st["objectives"]["ttft_p99"]
+    assert obj["burn_fast"] == 0.0 and obj["burn_slow"] == 0.0
+    assert obj["compliance"] == 1.0 and obj["budget_remaining"] == 1.0
+    # a slow burst: 50 of 150 miss the 0.5s target -> burn ~= 33x budget
+    for i in range(50):
+        m.observe_request(rec_ok(100 + i, 2.0, 2.5))
+    st = eng.evaluate(now=clk.t)
+    obj = st["objectives"]["ttft_p99"]
+    assert obj["burn_fast"] == pytest.approx(100 / 3, rel=1e-6)
+    assert obj["compliance"] == pytest.approx(2 / 3, rel=1e-6)
+    assert obj["budget_remaining"] == 0.0
+    assert obj["breaching"] and st["breached"]
+    assert st["breaches_total"] == 1
+    # the exemplar names a VIOLATING request (one of the 2.0s ones)
+    assert int(obj["exemplar_trace_id"][1:]) >= 100
+    assert st["last_breach"]["objectives"] == ["ttft_p99"]
+    # the breach fired the recorder: a typed slo_breach event + one dump
+    # (written on a throwaway thread so probe handlers never block on
+    # fsync — poll briefly)
+    deadline = time.monotonic() + 5.0
+    while (time.monotonic() < deadline
+           and not list(tmp_path.glob("flight_slo_fast_burn_*.json"))):
+        time.sleep(0.01)
+    dumps = list(tmp_path.glob("flight_slo_fast_burn_*.json"))
+    assert len(dumps) == 1
+    kinds = [e["kind"] for e in recorder.snapshot()["events"]]
+    assert "slo_breach" in kinds
+    # edge-triggered: still breaching, no second count, no second dump
+    st = eng.evaluate(now=clk.t)
+    assert st["breaches_total"] == 1
+    time.sleep(0.05)
+    assert len(list(tmp_path.glob("flight_slo_fast_burn_*.json"))) == 1
+    # recovery: fresh compliant traffic after the fast window rolls past
+    clk.t += 120.0
+    for i in range(50):
+        m.observe_request(rec_ok(200 + i, 0.05, 0.1))
+    st = eng.evaluate(now=clk.t)
+    assert not st["breached"]
+    assert st["objectives"]["ttft_p99"]["burn_fast"] == 0.0
+
+
+def test_error_rate_and_availability_objectives():
+    clk = Clock()
+    m = ServeMetrics(horizon_s=600.0, sub_windows=60, clock=clk)
+    eng = SloEngine(
+        parse_slo_spec("error_rate=0.1,availability=0.9"), m,
+        fast_window_s=60.0, slow_window_s=600.0, interval_s=0,
+    )
+    # empty windows are vacuously compliant — an idle server is not failing
+    st = eng.evaluate(now=clk.t)
+    assert all(o["burn_fast"] == 0.0 for o in st["objectives"].values())
+    for i in range(8):
+        m.observe_request(rec_ok(i, 0.01, 0.05))
+    m.observe_request(ServeRequestRecord(request_id=8, status="error"))
+    m.observe_shed(ShedReason.QUEUE_FULL)
+    st = eng.evaluate(now=clk.t)
+    # error_rate: 1 error / 9 resolved = 0.111 over a 0.1 budget
+    assert st["objectives"]["error_rate"]["burn_fast"] == pytest.approx(
+        (1 / 9) / 0.1
+    )
+    # availability counts the shed too: 2 bad / 10 outcomes over 0.1
+    assert st["objectives"]["availability"]["burn_fast"] == pytest.approx(
+        (2 / 10) / 0.1
+    )
+
+
+def test_engine_without_windows_reports_unwindowed():
+    """The port's metrics always keep windows: an engine over fresh metrics
+    reports windowed, every objective vacuously compliant, as the JAX
+    engine over windowed metrics does."""
+    m = ServeMetrics()
+    eng = SloEngine(parse_slo_spec("error_rate=0.01"), m, interval_s=0)
+    st = eng.evaluate()
+    assert st["windowed"] and not st["breached"] and st["breaches_total"] == 0
+    assert st["objectives"]["error_rate"]["burn_fast"] == 0.0
+    assert st["objectives"]["error_rate"]["budget_remaining"] == 1.0
+    assert eng.status_line() == "ok (1 objectives, budget remaining >= 1.000)"
+
+
+# -- tenant label registry + usage ledger ------------------------------------
+
+
+def test_label_registry_caps_and_overflows():
+    reg = TenantLabelRegistry(cap=2, seed=["alpha"])
+    assert reg.canonical("alpha") == "alpha"
+    assert reg.canonical("beta") == "beta"
+    # cap reached: every new name collapses into the overflow label
+    assert reg.canonical("gamma") == OTHER_LABEL
+    assert reg.canonical("delta") == OTHER_LABEL
+    assert reg.canonical("gamma") == OTHER_LABEL  # counted once
+    assert reg.overflowed == 2
+    # the overflow label itself is idempotent and never counts as an
+    # overflowed tenant (render paths re-feed canonical ledger keys)
+    assert reg.canonical(OTHER_LABEL) == OTHER_LABEL
+    assert reg.overflowed == 2
+    # tracked names never merge retroactively
+    assert reg.canonical("alpha") == "alpha"
+    assert set(reg.tracked()) == {"alpha", "beta"}
+    # hostile charset sanitizes instead of corrupting the exposition
+    assert '"' not in reg.canonical('evil"name\n')
+
+
+def test_usage_ledger_tracks_per_tenant_counters_and_latency():
+    clk = Clock()
+    m = ServeMetrics(clock=clk)
+    m.observe_submit(tenant="team-a")
+    m.observe_submit(tenant="team-b")
+    rec = rec_ok(1, 0.05, 0.2)
+    rec.prompt_tokens, rec.generated_tokens = 100, 40
+    rec.cached_prompt_tokens = 30
+    m.observe_request(rec, tenant="team-a")
+    m.observe_request(ServeRequestRecord(request_id=2, status="error"),
+                      tenant="team-b")
+    m.observe_shed(ShedReason.QUOTA, tenant="team-b")
+    m.observe_cancel("queued", tenant="team-b")
+    m.observe_preemption(tenant="team-b")
+    m.observe_requeue(tenant="team-b")
+    usage = m.usage_snapshot()
+    a, b = usage["team-a"], usage["team-b"]
+    assert a["requests"] == 1 and a["completed"] == 1
+    assert a["prompt_tokens"] == 100 and a["generated_tokens"] == 40
+    assert a["cached_tokens_saved"] == 30
+    assert a["ttft"]["count"] == 1 and a["ttft"]["p99_s"] <= 0.1
+    assert a["e2e"]["count"] == 1
+    assert b["errors"] == 1 and b["sheds"] == 1 and b["cancels"] == 1
+    assert b["preemptions"] == 1 and b["requeues"] == 1
+    assert b["ttft"]["count"] == 0
+    # the empty-tenant default lands on "default"
+    m.observe_submit()
+    assert m.usage_snapshot()["default"]["requests"] == 1
+
+
+def test_flight_recorder_ring_bounds_and_dump_throttle(tmp_path):
+    r = FlightRecorder(capacity=16, directory=tmp_path,
+                       min_dump_interval_s=60.0)
+    for i in range(40):
+        r.record("admit", rid=f"t{i}")
+    snap = r.snapshot()
+    assert len(snap["events"]) == 16
+    assert snap["events_recorded"] == 40 and snap["events_dropped"] == 24
+    # seqs are monotone and the ring keeps the NEWEST events
+    seqs = [e["seq"] for e in snap["events"]]
+    assert seqs == sorted(seqs) and seqs[-1] == 40
+    p = r.dump("test")
+    assert p is not None and json.loads(p.read_text())["reason"] == "test"
+    # throttled: a second dump for the same reason inside the interval
+    assert r.dump("test") is None
+    assert r.dump("other") is not None
+    assert r.stats_dict()["dumps"] == 2
+    # no directory = ring only, dump no-ops
+    assert FlightRecorder().dump("x") is None
+
+
+# -- HTTP surfaces ------------------------------------------------------------
+
+
+def _get(url, headers=None):
+    req = urllib.request.Request(url, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        return resp.status, resp.read()
+
+
+def _post(url, payload, headers=None):
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})},
+        method="POST",
+    )
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+@pytest.fixture()
+def slo_server(tmp_path):
+    from vnsum_tpu_torch.serve.qos import TenantTable, parse_tenant_specs
+    from vnsum_tpu_torch.serve.server import ServeState, make_server
+
+    state = ServeState(
+        FakeBackend(), max_batch=8, max_wait_s=0.005,
+        trace_sample=1.0,
+        tenants=TenantTable(parse_tenant_specs("team-a:4:0,team-b:1:0")),
+        slo="ttft_p99=5,e2e_p99=30,error_rate=0.5,availability=0.5",
+        slo_fast_s=30.0, slo_slow_s=300.0,
+        flight_dir=str(tmp_path / "flight"),
+    )
+    server = make_server(state, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    yield f"http://127.0.0.1:{server.server_address[1]}", state
+    server.shutdown()
+    server.server_close()
+    state.close()
+
+
+def test_http_slo_usage_recorder_surfaces(slo_server):
+    base, state = slo_server
+    for i in range(3):
+        status, _ = _post(base + "/v1/generate",
+                          {"prompt": f"xin chao {i} " * 6},
+                          headers={"X-Tenant": "team-a"})
+        assert status == 200
+    _post(base + "/v1/generate", {"prompt": "mot cau hoi " * 4},
+          headers={"X-Tenant": "team-b"})
+
+    # /healthz: schema satellite (uptime, start stamp, version, SLO line)
+    _, body = _get(base + "/healthz")
+    h = json.loads(body)
+    assert h["uptime_s"] >= 0 and "started_at" in h and h["version"]
+    assert h["slo"].startswith("ok (4 objectives")
+
+    # /debug/slo: full objective detail, nothing breaching
+    _, body = _get(base + "/debug/slo")
+    d = json.loads(body)
+    assert set(d["objectives"]) == {"ttft_p99", "e2e_p99", "error_rate",
+                                    "availability"}
+    assert not d["breached"]
+    assert d["config"]["fast_window_s"] == 30.0
+
+    # /v1/usage: both tenants with counters + windowed latency
+    _, body = _get(base + "/v1/usage")
+    u = json.loads(body)["tenants"]
+    assert u["team-a"]["requests"] == 3 and u["team-a"]["completed"] == 3
+    assert u["team-b"]["requests"] == 1
+    assert u["team-a"]["e2e"]["count"] == 3
+    _, body = _get(base + "/v1/usage?tenant=team-b")
+    assert list(json.loads(body)["tenants"]) == ["team-b"]
+    with pytest.raises(urllib.error.HTTPError) as exc:
+        _get(base + "/v1/usage?tenant=ghost")
+    assert exc.value.code == 404
+
+    # /debug/flightrecorder: admit/dispatch/complete events with rids
+    _, body = _get(base + "/debug/flightrecorder")
+    fr = json.loads(body)
+    kinds = {e["kind"] for e in fr["events"]}
+    assert {"admit", "dispatch", "complete"} <= kinds
+    assert any(e.get("tenant") == "team-a" for e in fr["events"]
+               if e["kind"] == "admit")
+
+    # /metrics: slo gauges, usage series (registry-canonical labels),
+    # recorder counters, the scrape self-metric, and exemplars
+    _, body = _get(base + "/metrics")
+    text = body.decode()
+    assert 'vnsum_serve_slo_compliance{objective="ttft_p99"}' in text
+    assert 'vnsum_serve_slo_burn_rate{objective="e2e_p99",window="fast"}' in text
+    assert "vnsum_serve_slo_breached 0" in text
+    assert 'vnsum_serve_usage_requests_total{tenant="team-a"} 3' in text
+    assert 'vnsum_serve_usage_e2e_p99_seconds{tenant="team-a"}' in text
+    assert "vnsum_serve_recorder_events_total" in text
+    assert "vnsum_serve_scrape_seconds_count" in text
+    # a classic text-format scrape (no negotiation) carries NO exemplars —
+    # the 0.0.4 parser rejects a trailing `# {...}` and drops the scrape
+    assert '# {trace_id="' not in text
+    # an OpenMetrics-negotiated scrape gets the exemplars + the EOF marker
+    _, body = _get(base + "/metrics",
+                   headers={"Accept": "application/openmetrics-text"})
+    om = body.decode()
+    assert '# {trace_id="' in om
+    assert om.endswith("# EOF\n")
+    # second scrape: the first ones' cost has landed in scrape_seconds
+    _, body = _get(base + "/metrics")
+    for line in body.decode().splitlines():
+        if line.startswith("vnsum_serve_scrape_seconds_count"):
+            assert int(line.rsplit(" ", 1)[1]) >= 1
+
+
+def test_slo_endpoints_404_when_unconfigured():
+    """Without --slo, /debug/slo is a typed 404 and no slo series renders;
+    the flight recorder and the usage ledger are always on in the port."""
+    from vnsum_tpu_torch.serve.server import ServeState, make_server
+
+    state = ServeState(FakeBackend(), max_batch=4, max_wait_s=0.005)
+    server = make_server(state, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            _get(base + "/debug/slo")
+        assert exc.value.code == 404
+        assert "--slo unset" in json.loads(exc.value.read())["error"]
+        for path in ("/debug/flightrecorder", "/v1/usage"):
+            status, _ = _get(base + path)
+            assert status == 200
+        _, body = _get(base + "/metrics")
+        text = body.decode()
+        assert "vnsum_serve_slo_" not in text
+        assert "vnsum_serve_usage_tenants_overflowed" in text
+        assert "vnsum_serve_recorder_events_total" in text
+        _, body = _get(base + "/healthz")
+        assert "slo" not in json.loads(body)
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.close()
+
+
+# -- the acceptance scenario --------------------------------------------------
+
+
+def test_seeded_degradation_produces_matching_dump_and_breach(tmp_path):
+    """Fault injection drives the ladder to brownout: the brownout entry
+    dumps the flight recorder, the dump's typed event sequence matches the
+    journal's records, and /debug/slo reports the breach with an exemplar
+    trace_id resolvable via /debug/trace."""
+    from vnsum_tpu_torch.serve.server import ServeState, make_server
+    from vnsum_tpu_torch.serve.supervisor import EngineSupervisor, RetryPolicy, Rung
+    from vnsum_tpu_torch.testing.faults import FaultPlan, FaultSpec, injected
+
+    flight = tmp_path / "flight"
+    state = ServeState(
+        FakeBackend(batch_overhead_s=0.003),
+        max_batch=4, max_wait_s=0.005,
+        trace_sample=1.0,
+        supervisor=EngineSupervisor(
+            RetryPolicy(max_attempts=2, backoff_base_s=0.001,
+                        backoff_max_s=0.002, jitter=0.0),
+            resource_strikes_per_step=1, probe_interval_s=120.0,
+        ),
+        journal_dir=str(tmp_path / "journal"),
+        # e2e target far below any real latency: every SUCCESSFUL request
+        # burns the latency budget, so the breach carries a latency
+        # exemplar; the error storm burns error_rate alongside
+        slo="e2e_p99=0.0001,error_rate=0.05",
+        slo_fast_s=5.0, slo_slow_s=50.0,
+        flight_dir=str(flight),
+    )
+    server = make_server(state, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    good = [f"good-{i}" for i in range(3)]
+    bad = [f"bad-{i}" for i in range(6)]
+    try:
+        for rid in good:
+            status, _ = _post(base + "/v1/generate",
+                              {"prompt": "lanh manh " * 5,
+                               "request_id": rid})
+            assert status == 200
+        plan = FaultPlan([FaultSpec(site="fake.dispatch", kind="resource",
+                                    every_n=1)])
+        with injected(plan):
+            for rid in bad:
+                try:
+                    _post(base + "/v1/generate",
+                          {"prompt": "su co " * 5, "request_id": rid})
+                except urllib.error.HTTPError as e:
+                    assert e.code in (500, 503)
+                if state.supervisor.rung >= Rung.BROWNOUT:
+                    break
+        deadline = time.monotonic() + 10.0
+        while (time.monotonic() < deadline
+               and not list(flight.glob("flight_brownout_*.json"))):
+            time.sleep(0.05)
+        assert state.supervisor.rung >= Rung.BROWNOUT
+
+        # (1) the brownout dump exists and is well-formed
+        dumps = list(flight.glob("flight_brownout_*.json"))
+        assert len(dumps) == 1
+        dump = json.loads(dumps[0].read_text())
+        assert dump["reason"] == "brownout" and dump["events"]
+        rungs = [e for e in dump["events"] if e["kind"] == "rung_change"]
+        assert rungs and rungs[-1]["to_rung"] == int(Rung.BROWNOUT)
+        assert [e["to_rung"] for e in rungs] == sorted(
+            e["to_rung"] for e in rungs
+        )
+
+        # (2) the recorder's event sequence matches the journal's typed
+        # records: every journaled request admits before its terminal
+        # event, and the terminal kinds agree
+        events = state.recorder.snapshot()["events"]
+        terminal_kind = {"complete": "complete", "failed": "failed"}
+        for rid in good + bad:
+            entries = state.journal.lookup(rid)
+            if not entries:
+                continue  # shed at admission (post-brownout): never accepted
+            [entry] = entries
+            mine = [e for e in events if e.get("rid") == rid]
+            assert mine and mine[0]["kind"] == "admit", rid
+            if entry.status in terminal_kind:
+                assert mine[-1]["kind"] == terminal_kind[entry.status], rid
+                assert mine[-1]["seq"] > mine[0]["seq"]
+        assert all(state.journal.lookup(r)[0].status == "complete"
+                   for r in good)
+        journaled_bad = [r for r in bad if state.journal.lookup(r)]
+        assert journaled_bad
+        assert all(state.journal.lookup(r)[0].status == "failed"
+                   for r in journaled_bad)
+        # the fault storm itself is on the tape
+        kinds = {e["kind"] for e in events}
+        assert "fault" in kinds
+
+        # (3) /debug/slo reports the breach, with a latency exemplar
+        # resolvable via /debug/trace
+        _, body = _get(base + "/debug/slo")
+        d = json.loads(body)
+        assert d["breached"]
+        obj = d["objectives"]["e2e_p99"]
+        assert obj["breaching"] and obj["burn_fast"] >= 10.0
+        ex = obj["exemplar_trace_id"]
+        assert ex in good  # only successful requests observe e2e
+        _, body = _get(base + "/debug/trace")
+        assert f"request {ex}" in body.decode()
+        # the breach's dump runs on a detached daemon thread (a probe
+        # handler must never block on fsync) — poll for the file
+        deadline = time.monotonic() + 10.0
+        while (time.monotonic() < deadline
+               and not list(flight.glob("flight_slo_fast_burn_*.json"))):
+            time.sleep(0.05)
+        assert list(flight.glob("flight_slo_fast_burn_*.json"))
+
+        # /healthz carries the breach verdict
+        _, body = _get(base + "/healthz")
+        assert json.loads(body)["slo"].startswith("BREACH")
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.close()
+    # SIGTERM-drain satellite: close() dumped the full tape too
+    assert list(flight.glob("flight_drain_*.json"))
+
+
+# -- the port against the JAX package ------------------------------------------
+
+
+def _observe_same(seed: int, metrics_objs, clock):
+    """Seeded traffic into each metrics object: ok records with latencies
+    spread over the buckets (some past the top), errors, sheds, across
+    several sub-windows of the synthetic clock."""
+    import random
+
+    from vnsum_tpu.core.results import ServeRequestRecord as JaxRecord
+    from vnsum_tpu.serve.queue import ShedReason as JaxShedReason
+
+    rng = random.Random(seed)
+    for i in range(400):
+        clock.t += rng.choice([0.0, 0.2, 1.5, 7.0])
+        kind = rng.choices(["ok", "error", "shed"], weights=[20, 2, 1])[0]
+        ttft, e2e = rng.lognormvariate(-2.5, 1.2), rng.lognormvariate(0.5, 1.3)
+        wait = rng.lognormvariate(-4, 1.5)
+        anchored = rng.random() < 0.9
+        for m in metrics_objs:
+            jax = m.__class__.__module__.startswith("vnsum_tpu.")
+            rec_cls = JaxRecord if jax else ServeRequestRecord
+            if kind == "shed":
+                m.observe_shed((JaxShedReason if jax else ShedReason).QUEUE_FULL)
+            else:
+                m.observe_request(rec_cls(
+                    request_id=i, status=kind, trace_id=f"r{i}", ttft_s=ttft,
+                    ttft_anchored=anchored, total_s=e2e,
+                    queue_wait_s=wait))
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("spec", [
+    "ttft_p99=0.5,e2e_p99=30,error_rate=0.01,availability=0.999",
+    "e2e_p95=2,queue_wait_p999=0.05,error_rate=0.2",
+])
+def test_evaluate_and_debug_payload_equal_jax(seed, spec):
+    """The same windowed observations on the same clock: every evaluation
+    (compliance, burn rates, budgets, exemplars, breach latch) and the
+    /debug/slo payload are equal to the JAX engine's."""
+    from vnsum_tpu.serve.metrics import ServeMetrics as JaxServeMetrics
+    from vnsum_tpu.serve.slo import SloEngine as JaxSloEngine
+    from vnsum_tpu.serve.slo import parse_slo_spec as jax_parse
+
+    clk = Clock()
+    kw = dict(horizon_s=600.0, sub_windows=60, clock=clk)
+    pm, jm = ServeMetrics(**kw), JaxServeMetrics(**kw)
+    ekw = dict(fast_window_s=60.0, slow_window_s=600.0, breach_fast_burn=2.0,
+               breach_slow_burn=1.0, interval_s=0)
+    pe = SloEngine(parse_slo_spec(spec), pm, **ekw)
+    je = JaxSloEngine(jax_parse(spec), jm, **ekw)
+    assert {k: vars(o) for k, o in pe.objectives.items()} == \
+        {k: vars(o) for k, o in je.objectives.items()}
+
+    def strip(d):
+        d = dict(d)
+        if d.get("last_breach"):
+            d["last_breach"] = {k: v for k, v in d["last_breach"].items() if k != "t_wall"}
+        return d
+
+    for step in range(5):
+        _observe_same(seed * 10 + step, [pm, jm], clk)
+        assert strip(pe.evaluate(now=clk.t)) == strip(je.evaluate(now=clk.t))
+        assert strip(pe.debug_payload()) == strip(je.debug_payload())
+        assert pe.status_line() == je.status_line()
+        assert pm.render_prometheus(slo_state=pe.export_state()).count("slo_") == \
+            jm.render_prometheus(slo_state=je.export_state()).count("slo_")
+    assert pe.breaches_total == je.breaches_total
+
+
+def test_slo_server_pair_equal_jax(tmp_path):
+    """A FakeBackend server of each package with the same --tenants and
+    --slo: /debug/slo, /healthz, /metrics and /v1/usage agree in keys and
+    names, and both judge the loose objective compliant and the impossible
+    one burning."""
+    from vnsum_tpu.backend.fake import FakeBackend as JaxFakeBackend
+    from vnsum_tpu.serve.qos import TenantTable as JaxTenantTable
+    from vnsum_tpu.serve.qos import parse_tenant_specs as jax_parse
+    from vnsum_tpu.serve.server import ServeState as JaxServeState
+    from vnsum_tpu.serve.server import make_server as jax_make_server
+    from vnsum_tpu_torch.serve.qos import TenantTable, parse_tenant_specs
+    from vnsum_tpu_torch.serve.server import ServeState, make_server
+
+    spec, slo = "ui:4:0,bulk:1:0:batch", "e2e_p99=600,ttft_p99=0.000001"
+    servers = []
+    for state_cls, server_fn, backend, table, d in (
+        (ServeState, make_server, FakeBackend(), TenantTable(parse_tenant_specs(spec)),
+         "port"),
+        (JaxServeState, jax_make_server, JaxFakeBackend(), JaxTenantTable(jax_parse(spec)),
+         "jax"),
+    ):
+        state = state_cls(backend, max_batch=4, max_wait_s=0.005, tenants=table, slo=slo,
+                          slo_fast_s=5.0, slo_slow_s=50.0, slo_burn_fast=2.0,
+                          slo_burn_slow=1.0, flight_dir=str(tmp_path / d))
+        server = server_fn(state, "127.0.0.1", 0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        servers.append((f"http://127.0.0.1:{server.server_address[1]}", state, server))
+    try:
+        got = []
+        for base, _, _ in servers:
+            for i in range(3):
+                for tenant in ("ui", "bulk"):
+                    status, _ = _post(base + "/v1/generate", {"prompt": f"yêu cầu {i} " * 4},
+                                      headers={"X-Tenant": tenant})
+                    assert status == 200
+            views = {}
+            for path in ("/debug/slo", "/healthz", "/v1/usage"):
+                views[path] = json.loads(_get(base + path)[1])
+            text = _get(base + "/metrics")[1].decode()
+            views["/metrics"] = {line.split("{")[0].split(" ")[0] for line in text.splitlines()
+                                 if line and not line.startswith("#")}
+            got.append(views)
+        port, jax = got
+        for path in ("/debug/slo", "/healthz", "/v1/usage"):
+            assert _keys(port[path]) == _keys(jax[path]), path
+        assert port["/metrics"] == {n for n in jax["/metrics"] if "mesh_" not in n}
+        for views in got:
+            objs = views["/debug/slo"]["objectives"]
+            assert objs["e2e_p99"]["compliance"] == 1.0 and not objs["e2e_p99"]["breaching"]
+            assert objs["ttft_p99"]["burn_fast"] >= 2.0 and objs["ttft_p99"]["breaching"]
+            assert views["/healthz"]["slo"].startswith("BREACH ttft_p99")
+        assert port["/debug/slo"]["config"] == jax["/debug/slo"]["config"]
+    finally:
+        for _, state, server in servers:
+            server.shutdown()
+            server.server_close()
+            state.close()
+
+
+def _keys(d, prefix=""):
+    out = set()
+    for k, v in d.items():
+        out.add(prefix + k)
+        if isinstance(v, dict) and k not in ("watchdog", "last_breach"):
+            out |= _keys(v, prefix + k + ".")
+    return out

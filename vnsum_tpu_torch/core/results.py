@@ -168,10 +168,14 @@ class ServingStats:
     backoff_seconds: float = 0.0
     degraded_steps: int = 0
     degraded_recoveries: int = 0
-    # watchdog recovery (serve/inflight.py): slot residents evicted from a
-    # hung loop, and their matching requeues
+    # multi-tenant QoS (serve/qos.py): slot evictions (batch-tier
+    # preemption for interactive work, watchdog recovery of a hung loop),
+    # their matching requeues, per-tenant admitted requests, and
+    # per-tenant token-rate quota sheds
     preemptions: int = 0
     requeues: int = 0
+    tenant_requests: dict[str, int] = field(default_factory=dict)
+    quota_sheds: dict[str, int] = field(default_factory=dict)
     # SSE streaming (serve/stream.py): streamed requests admitted, SSE
     # events written, and streams open right now (the scrape-time gauge)
     stream_requests: int = 0
@@ -191,11 +195,12 @@ class ServingStats:
     stream_heartbeats: int = 0
     # structured jobs (serve/gang.py): gangs admitted through the one-pass
     # request-level gate, fan-out children recorded into groups, take-path
-    # batches where the affinity pick co-scheduled siblings, and gangs
-    # degraded to a partial result
+    # batches where the affinity pick co-scheduled siblings, whole-gang
+    # slot evictions, and gangs degraded to a partial result
     gang_admitted: int = 0
     gang_members: int = 0
     gang_affinity_picks: int = 0
+    gang_preemptions: int = 0
     gang_partials: int = 0
 
     @property

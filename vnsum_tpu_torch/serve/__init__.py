@@ -33,18 +33,27 @@ same paths, over ``TorchBackend`` (or the fake and Ollama backends).
 - stream.py     per-request SSE emit channel (bounded, coalescing,
                 Last-Event-ID resumes); cancellation rides the schedulers
                 (DELETE /v1/requests/<id> + the disconnect sweep)
+- qos.py        multi-tenant QoS: tenant specs (--tenants), token-bucket
+                rate quotas (typed 429 QUOTA + refill-derived Retry-After),
+                and the deficit-round-robin weighted-fair pick the queue's
+                take paths schedule with — interactive tier first, batch
+                tier preemptible in in-flight mode
 - metrics.py    counters, rolling gauges and fixed-bucket histograms in
                 Prometheus text, plus rolling windows (obs/window.py)
-- usage.py      usage ledger behind the capped label registry (one
-                tenant, "default", until tenants are ported)
+                feeding the SLO engine and the per-tenant ledger
+- slo.py        declarative SLOs over the rolling windows (--slo):
+                latency-quantile / error-rate / availability objectives,
+                fast+slow burn rates, edge-triggered breaches that fire
+                the flight recorder; /debug/slo + vnsum_serve_slo_* gauges
+- usage.py      per-tenant usage ledger behind the capped label registry
 - watchdog.py   liveness: heartbeats, the bounded-dispatch contract, stall
                 classification and wedged-dispatch recovery
 - server.py     stdlib HTTP front-end
                 (python -m vnsum_tpu_torch.serve.server)
 
-Not ported yet: tenants (qos.py) and SLOs (slo.py) (ROADMAP A15b-2), the
-fleet (router, federation, worker; A15b-3). This package carries no hooks
-for them; ``ServeState`` and the CLI refuse their arguments by name.
+Not ported yet: the fleet (router, federation, worker; ROADMAP A15b-3) and
+the serving mesh (A10). This package carries no hooks for them;
+``ServeState`` and the CLI refuse the mesh by name.
 
 ONE scheduler thread owns all backend.generate calls (the engine's CUDA
 graphs, prefix cache and stats are not thread-safe), and concurrency lives
@@ -61,6 +70,8 @@ from .scheduler import MicroBatchScheduler, QueuedBackend
 from .inflight import InflightScheduler
 from .journal import JournalEntry, RequestJournal
 from .metrics import ServeMetrics
+from .qos import TenantSpec, TenantTable, TokenBucket, parse_tenant_specs
+from .slo import Objective, SloEngine, parse_slo_spec
 from .stream import StreamChannel, StreamDetached, StreamRegistry
 from .usage import TenantLabelRegistry, UsageLedger
 from .watchdog import WATCHDOG_EXIT_CODE, Watchdog, snapshot_stacks
@@ -80,6 +91,7 @@ __all__ = [
     "InflightScheduler",
     "JournalEntry",
     "MicroBatchScheduler",
+    "Objective",
     "QueuedBackend",
     "RequestCancelled",
     "RequestFailed",
@@ -91,12 +103,18 @@ __all__ = [
     "ServeMetrics",
     "ServeRequest",
     "ShedReason",
+    "SloEngine",
     "StreamChannel",
     "StreamDetached",
     "StreamRegistry",
     "TenantLabelRegistry",
+    "TenantSpec",
+    "TenantTable",
+    "TokenBucket",
     "UsageLedger",
     "WATCHDOG_EXIT_CODE",
     "Watchdog",
+    "parse_slo_spec",
+    "parse_tenant_specs",
     "snapshot_stacks",
 ]

@@ -7,9 +7,10 @@ object:
 
 - **Gang admission** — :meth:`MicroBatchScheduler.admit_gang` opens a
   :class:`GangHandle` after ONE pass through the existing request-level
-  admission gate (depth / token budget / brownout), and every internal
-  submit that rides the handle's gang id is admission-exempt
-  (``force=True``), exactly the contract the summarize path always had.
+  admission gate (depth / token budget / quota / brownout): the tenant is
+  billed once for the whole fan-out, and every internal submit that rides
+  the handle's gang id is admission-exempt (``force=True``), exactly the
+  contract the summarize path always had.
 - **Membership journal** — each fan-out round flushes ONE typed ``GANG``
   record listing the (child_rid, phase) pairs admitted since the last
   flush (serve/journal.py::gang), so restart replay reconstructs group
@@ -25,14 +26,18 @@ object:
   is journaled ``partial``, and the parent aggregate folds to a terminal
   ``partial`` state so clients can tell a degraded summary from a complete
   one (journal.py::aggregate_status).
+- **Group-aware QoS** — the in-flight preemption path evicts whole gangs
+  (never strands a half-finished fan-out holding pins) and the preempt
+  budget is effectively billed per gang: a whole-gang eviction increments
+  every member's count together (serve/inflight.py::_maybe_preempt).
 
 Threading: one internal lock (``make_lock("serve.gang")``) guarding the
 group table. It is held only around table mutations — journal and metrics
 appends happen OUTSIDE it, so the lock-order graph gains exactly one edge
 (callers -> serve.gang) and the journal lock stays innermost.
 
-Counterpart of ``vnsum_tpu/serve/gang.py`` without its tenant and
-whole-gang tier preemption, which come with tenants (ROADMAP A15b-2).
+Copy of ``vnsum_tpu/serve/gang.py``; ``mark_partial`` journals after its
+metrics count.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ class _Gang:
     """One live structured job's group state."""
 
     gang_id: str
+    tenant: str = ""
     # every member rid this gang ever admitted -> its phase ("map" /
     # "reduce" / "outline" / "expand")
     members: dict = field(default_factory=dict)
@@ -57,6 +63,10 @@ class _Gang:
     # journal-less members (no rid to record) still count toward metrics
     member_count: int = 0
     partial: bool = False
+    # whole-gang evictions suffered (metrics; the eviction BUDGET rides the
+    # members' own preemption counters, which move in lockstep under
+    # whole-gang eviction)
+    preemptions: int = 0
 
 
 class GangHandle:
@@ -99,14 +109,14 @@ class GangRegistry:
 
     # -- lifecycle --------------------------------------------------------
 
-    def open(self, gang_id: str) -> GangHandle:
+    def open(self, gang_id: str, tenant: str = "") -> GangHandle:
         """Register a newly admitted structured job. Idempotent per id (a
         client retrying a request id mid-flight rejoins the live group
         rather than forking a second one)."""
         created = False
         with self._lock:
             if gang_id not in self._gangs:
-                self._gangs[gang_id] = _Gang(gang_id=gang_id)
+                self._gangs[gang_id] = _Gang(gang_id=gang_id, tenant=tenant)
                 created = True
         if created and self.metrics is not None:
             self.metrics.observe_gang_admitted()
@@ -163,6 +173,16 @@ class GangRegistry:
             self.metrics.observe_gang_partial()
         if self.journal is not None:
             self.journal.gang_partial(gang_id, reason)
+
+    def note_preemption(self, gang_id: str) -> None:
+        """One whole-gang slot eviction (metrics only — the budget rides
+        the members' own preemption counters)."""
+        with self._lock:
+            gang = self._gangs.get(gang_id)
+            if gang is not None:
+                gang.preemptions += 1
+        if self.metrics is not None:
+            self.metrics.observe_gang_preemption()
 
     def finish(self, gang_id: str) -> None:
         """The structured job terminally resolved (completed, failed,

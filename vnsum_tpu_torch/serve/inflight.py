@@ -49,6 +49,7 @@ around its loop.
 """
 from __future__ import annotations
 
+import os
 import time
 
 from ..backend.base import Backend
@@ -70,6 +71,7 @@ class InflightScheduler(MicroBatchScheduler):
         slot_prompt_tokens: int = 0,
         switch_grace_s: float = 0.5,
         fused_segments: int = 1,
+        preempt_budget: int = 16,
         **kw,
     ) -> None:
         if not callable(getattr(backend, "start_slot_loop", None)):
@@ -83,10 +85,22 @@ class InflightScheduler(MicroBatchScheduler):
         self.slot_prompt_tokens = slot_prompt_tokens
         self.switch_grace_s = switch_grace_s
         # fused multi-step decode: the loop dispatches N on-device segments
-        # per host round-trip, so joins, cancel polls, and stream
+        # per host round-trip, so joins, cancel/preempt polls, and stream
         # deltas run at the FUSED cadence — the TTFT/goodput trade knob
         # (--fused-segments)
         self.fused_segments = max(int(fused_segments), 1)
+        # preemption cap per request: a batch-tier request evicted this
+        # many times becomes non-evictable — bounded interference instead
+        # of starvation-by-interactive-pressure (it keeps its slot from
+        # then on and finishes)
+        self.preempt_budget = max(int(preempt_budget), 1)
+        # chaos kill window (testing/chaos.py KillSchedule(qos=True)): sleep
+        # this long between slot eviction and the PREEMPTED journal append
+        # so an out-of-process SIGKILL can land exactly in the gap the
+        # ledger invariant must survive. 0 (the default) adds nothing
+        self._preempt_gap_s = (
+            float(os.environ.get("VNSUM_CHAOS_PREEMPT_GAP_MS", "0")) / 1000.0
+        )
         # live loop reference for scrape-time gauges (written only by the
         # scheduler thread; racy reads yield a stale gauge, never a crash)
         self._live_loop = None
@@ -127,6 +141,8 @@ class InflightScheduler(MicroBatchScheduler):
                 self._hb.beat()
             try:
                 self._cancel_sweep_inflight(loop)
+                if not draining and self.tenants is not None:
+                    self._maybe_preempt(loop, loop_key)
                 active = loop.active if loop is not None else 0
                 if not draining and not self._pending:
                     taken = self._take(loop, loop_key, active)
@@ -242,7 +258,7 @@ class InflightScheduler(MicroBatchScheduler):
                 total_s=max(now - r.enqueued_at, 0.0),
                 prompt_tokens=r.est_tokens,
             )
-            self.metrics.observe_request(rec)
+            self.metrics.observe_request(rec, tenant=r.tenant)
             self._fr("failed", rid=r.trace_id, reason="error")
             self._trace_request(r, t0, max(now - t0, 0.0), None, "error")
             self._release_preempt_pins(r)
@@ -255,14 +271,16 @@ class InflightScheduler(MicroBatchScheduler):
         the scheduler thread is parked inside the hung ``admit``/``step``.
 
         One-shot tickets (the oversized-prompt fallback) take the base
-        policy: riders fail typed HUNG. Slot kinds evict and requeue
-        instead: the hang is the LOOP's fault, not the riders' — so the
-        loop is torn down (evict all residents, prefix blocks PINNED so the
-        restart prefill resumes warm, pins released at terminal
-        resolution), every resident and taken-but-unadmitted request is
-        requeued, and the replacement thread rebuilds a fresh loop and
-        completes them byte-identically (greedy; a sampled resident redraws
-        its slot uid). The parked thread is
+        policy: riders fail typed HUNG. Slot kinds take the preemption
+        machinery instead: the hang is the LOOP's fault, not the riders',
+        and their journaled ACCEPT payload is replayable — so the loop is
+        torn down (evict all residents, prefix blocks PINNED so the restart
+        prefill resumes warm, pins released at terminal resolution like
+        any preemption), every resident and taken-but-unadmitted request is
+        requeued, typed PREEMPTED/REQUEUED rides the journal, and the
+        replacement thread rebuilds a fresh loop and completes them
+        byte-identically (greedy; a sampled resident redraws its slot uid —
+        the same caveat class as crash recovery). The parked thread is
         fenced by ``_stale_thread()``: its late return out of the closed
         loop touches nothing."""
         if ticket.kind == "one_shot":
@@ -290,7 +308,7 @@ class InflightScheduler(MicroBatchScheduler):
             self._requeue_eviction(ev)
         for r in stranded:
             # taken off the queue but never slot-admitted: back it goes,
-            # verbatim (no engine state to unwind)
+            # verbatim (no engine state to unwind, no preempt event owed)
             self.queue.requeue(r)
         self._note_hang_strike()
         self._start_replacement(successor)
@@ -328,14 +346,14 @@ class InflightScheduler(MicroBatchScheduler):
     def _cancel_sweep_inflight(self, loop) -> None:
         """Cancellation at the segment boundary — the in-flight half of the
         cancel contract: queued matches leave through the base sweep,
-        taken-but-unadmitted ones resolve here, and cancelled RESIDENTS are
-        evicted through the same slot machinery hang recovery uses — but
-        WITHOUT requeue and WITHOUT pinning their prefix
-        (``evict(pin=False)``): a cancelled request is terminal, so warming
-        its restart would pin blocks nobody will ever resume. Freed slots
-        refill from the queue at this very boundary, which is what makes
-        cancelling a saturating request hand the engine back within one
-        segment."""
+        taken-but-unadmitted ones resolve here (their DRR charge is
+        credited back), and cancelled RESIDENTS are evicted through the
+        same slot machinery preemption uses — but WITHOUT requeue and
+        WITHOUT pinning their prefix (``evict(pin=False)``): a cancelled
+        request is terminal, so warming its restart would pin blocks
+        nobody will ever resume. Freed slots refill from the queue at this
+        very boundary, which is what makes cancelling a saturating tenant
+        hand the engine back within one segment."""
         if not self.cancellation_enabled:
             return
         if not self._cancelled_ids and self.stream_idle_timeout_s is None:
@@ -345,7 +363,7 @@ class InflightScheduler(MicroBatchScheduler):
         for r in self._pending:
             reason = self._cancel_reason_for(r)
             if reason is not None:
-                self._resolve_cancelled(r, "queued", reason)
+                self._resolve_cancelled(r, "queued", reason, taken=True)
             else:
                 live.append(r)
         self._pending = live
@@ -370,24 +388,141 @@ class InflightScheduler(MicroBatchScheduler):
                 len(evictions),
             )
 
+    def _maybe_preempt(self, loop, loop_key) -> None:
+        """Priority-tier preemption (serve/qos.py): when interactive work
+        waits and the loop is saturated, evict batch-tier residents —
+        release their slots, pin their prefix-cache blocks so the restart
+        prefill resumes warm, journal a typed PREEMPTED, and requeue them
+        through the journal's still-replayable ACCEPT state. The freed
+        slots refill from the queue at this very segment boundary, and the
+        WFQ pick hands them to the interactive tier first — an interactive
+        burst reclaims the engine within one segment.
+
+        Two demand signals: (a) queued interactive requests COMPATIBLE with
+        the resident key — evict at least that many (bounded by the victims
+        available); (b) an INCOMPATIBLE interactive head older than
+        switch_grace_s — evict every batch resident so the loop drains and
+        rebuilds for the new key instead of making the head wait out a
+        long batch decode. Victims are chosen youngest-first (least decode
+        work lost), each capped at ``preempt_budget`` lifetime evictions so
+        sustained interactive pressure delays batch work but never starves
+        it.
+
+        Gang granularity (serve/gang.py): residents of one structured job
+        are evicted WHOLE or not at all — a half-evicted fan-out strands
+        the survivors' reduce behind a requeued sibling while the evictees
+        hold prefix pins, the worst of both. Whole-gang eviction also bills
+        the preempt budget per GANG: every member's counter moves in
+        lockstep, and a gang with ANY member at budget is wholly
+        non-evictable (the budget's starvation bound holds for the group
+        exactly as it does for a lone request). Demand may be exceeded by
+        gang granularity — deliberately. Ungrouped residents behave exactly
+        as before."""
+        if loop is None or not loop.active or self.queue.tenants is None:
+            return
+
+        def evictable(r: ServeRequest) -> bool:
+            # greedy only: a restart recomputes byte-identically, which is
+            # the losslessness contract. A SAMPLED row's stream keys on its
+            # slot-admission uid — re-admission would draw a different
+            # stream, so sampled batch requests keep their slots
+            return r.preemptions < self.preempt_budget and (
+                r.config is None
+                or getattr(r.config, "temperature", 0.0) == 0.0
+            )
+
+        # group batch-tier residents by gang (ungrouped rows are their own
+        # singleton group); a group is evictable only when EVERY member is
+        groups: dict[str, list[ServeRequest]] = {}
+        for i, r in enumerate(loop.outstanding()):
+            if getattr(r, "tier", "") != "batch":
+                continue
+            gid = getattr(r, "gang_id", "") or f"solo#{i}"
+            groups.setdefault(gid, []).append(r)
+        evictable_groups = [
+            (gid, members) for gid, members in groups.items()
+            if all(evictable(r) for r in members)
+        ]
+        if not evictable_groups:
+            return
+        n_victims = sum(len(m) for _, m in evictable_groups)
+        demand = 0
+        if not loop.free:
+            demand = self.queue.waiting_interactive(loop_key)
+        head = self.queue.head_info()
+        if (
+            head is not None
+            and head[0] != loop_key
+            and head[2] != "batch"
+            and time.monotonic() - head[1] > self.switch_grace_s
+        ):
+            # incompatible interactive head past grace: full drain — every
+            # batch resident goes, the loop rebuilds for the new key
+            demand = n_victims
+        if demand <= 0:
+            return
+
+        # youngest-first: outstanding() is slot order; admission order is
+        # tracked per-slot, so sort by admit time (newest residents lose
+        # the least completed decode work). A GROUP's age is its youngest
+        # member's — evicting the gang that joined last loses the least
+        def admitted_at(r):
+            adm = getattr(r, "inflight_admission", None)
+            return adm.admitted_at if adm is not None else 0.0
+
+        evictable_groups.sort(
+            key=lambda g: max(admitted_at(r) for r in g[1]), reverse=True,
+        )
+        chosen: list[ServeRequest] = []
+        gang_ids: list[str] = []
+        for gid, members in evictable_groups:
+            if len(chosen) >= demand:
+                break
+            chosen.extend(
+                sorted(members, key=admitted_at, reverse=True)
+            )
+            if not gid.startswith("solo#"):
+                gang_ids.append(gid)
+        evictions = loop.evict(chosen)
+        if not evictions:
+            return
+        if self._preempt_gap_s:
+            # chaos kill window: eviction happened, PREEMPTED not yet
+            # journaled — the crash point the soak's ledger audit covers
+            time.sleep(self._preempt_gap_s)
+        for ev in evictions:
+            self._requeue_eviction(ev)
+        for gid in gang_ids:
+            self.gangs.note_preemption(gid)
+        logger.info(
+            "preempted %d batch-tier resident(s) for interactive demand"
+            "%s",
+            len(evictions),
+            f" ({len(gang_ids)} whole gang(s))" if gang_ids else "",
+        )
+
     def _requeue_eviction(self, ev) -> None:
-        """THE eviction -> requeue bookkeeping of watchdog hang recovery:
-        eviction count, pin carry, typed PREEMPTED/REQUEUED journal events,
-        metrics, flight-recorder events, and the trace span."""
+        """THE eviction -> requeue bookkeeping, shared by tier preemption
+        (_maybe_preempt) and watchdog hang recovery so the two can never
+        drift: preemption count (it bills the preempt_budget starvation
+        bound either way — a request repeatedly displaced by hang recovery
+        is just as starved), pin carry, typed PREEMPTED/REQUEUED journal
+        events, metrics, flight-recorder events, and the trace span."""
         r: ServeRequest = ev.key
         r.preemptions += 1
         if ev.pin is not None:
             r.preempt_pins.append(ev.pin)
         if self.journal is not None and r.journal_rid is not None:
             self.journal.preempt(r.journal_rid)
-        self.metrics.observe_preemption()
-        self._fr("preempt", rid=r.trace_id, preemptions=r.preemptions)
+        self.metrics.observe_preemption(tenant=r.tenant)
+        self._fr("preempt", rid=r.trace_id, tenant=r.tenant,
+                 preemptions=r.preemptions)
         self._trace_fault(r, "preempt", None, 0.0)
         self.queue.requeue(r)
         if self.journal is not None and r.journal_rid is not None:
             self.journal.requeue(r.journal_rid)
-        self.metrics.observe_requeue()
-        self._fr("requeue", rid=r.trace_id)
+        self.metrics.observe_requeue(tenant=r.tenant)
+        self._fr("requeue", rid=r.trace_id, tenant=r.tenant)
 
     def _make_loop(self, head: ServeRequest):
         loop = self.backend.start_slot_loop(
@@ -424,7 +559,7 @@ class InflightScheduler(MicroBatchScheduler):
             if reason is not None:
                 # cancelled between take and slot admission: resolve before
                 # any prefill work, crediting the DRR charge the take made
-                self._resolve_cancelled(r, "queued", reason)
+                self._resolve_cancelled(r, "queued", reason, taken=True)
             elif r.expired(now):
                 # the queue sheds expired requests it still holds; taken-but
                 # -unadmitted ones are this scheduler's to shed — including
@@ -567,7 +702,7 @@ class InflightScheduler(MicroBatchScheduler):
             rec.cached_prompt_tokens = (
                 adm.cached_tokens if adm is not None else 0
             )
-            self.metrics.observe_request(rec)
+            self.metrics.observe_request(rec, tenant=r.tenant)
             self._fr("complete", rid=r.trace_id, gen_tokens=c.gen_tokens)
             self._trace_request(r, t_admit, engine_s, None, "ok")
             self._release_preempt_pins(r)

@@ -45,11 +45,10 @@ lock may be held while appending (the admission hook), so the journal lock
 is always innermost — consistent with the lock-order sanitizer's graph.
 
 Copy of ``vnsum_tpu/serve/journal.py``; only the imports, the CLI's program
-name, the QoS fields and this paragraph differ. The record format is the JAX package's byte
-for byte (same ``_encode``, same field order), so a journal either package
-writes reads in the other. The JAX package writes an ACCEPT payload's QoS
-fields (``tenant``, ``tier``) only when they are not the default; the port
-serves one tenant (ROADMAP A15b-2) and writes neither.
+name and this paragraph differ. The record format is the JAX package's byte
+for byte (same ``_encode``, same field order, the QoS class ``tenant`` /
+``tier`` written only when it is not the default), so a journal either
+package writes replays in the other with its QoS class intact.
 """
 from __future__ import annotations
 
@@ -178,9 +177,13 @@ def request_payload(req) -> dict:
         "trace_id": req.trace_id,
         "deadline_unix": deadline_unix,
     }
-    # the JAX package adds the QoS class here (tenant, tier) when it is not
-    # the default; the port serves one tenant (ROADMAP A15b-2), so its
-    # payloads are the JAX package's single-tenant ones
+    # QoS class survives restart: a replayed batch-tier request must stay
+    # evictable and keep billing its tenant (omitted when default so old
+    # journals and the common single-tenant case stay byte-compatible)
+    if req.tenant:
+        payload["tenant"] = req.tenant
+    if req.tier != "interactive":
+        payload["tier"] = req.tier
     # structured-job membership survives restart: a replayed gang member
     # must rejoin its group (affinity pick, whole-gang preemption, per-phase
     # progress) instead of replaying as an unrelated request (omitted when

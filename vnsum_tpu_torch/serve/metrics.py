@@ -16,7 +16,7 @@ Metric registry: every exported metric is declared ONCE in the `_reg(...)`
 block below — rendering takes its HELP/TYPE text from the registry, and
 `metric_names()` lists them (the port's tests hold the list equal to the
 JAX package's, less the families of the modules not ported yet: the mesh
-(ROADMAP A10), tenant quotas and SLOs (A15b-2) and the fleet (A15b-3)).
+(ROADMAP A10) and the fleet (A15b-3)).
 
 Emission sites for the registry entries: request/shed/batch counters and all
 histograms are observed by `serve/scheduler.py` (observe_submit via the
@@ -24,7 +24,10 @@ queue's on_admit hook, observe_shed, observe_batch, observe_request);
 queue_depth/queued_tokens gauges are read from the live RequestQueue at
 scrape time by `serve/server.py`.
 
-Counterpart of ``vnsum_tpu/serve/metrics.py`` without those families.
+Counterpart of ``vnsum_tpu/serve/metrics.py`` without those families. The
+rolling windows are always on (the JAX package's ``windowed=False`` bench
+lever is not ported), so ``window_view`` and ``usage_snapshot`` never
+return None.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from ..obs.histogram import (
     WAIT_BUCKETS_S,
 )
 from ..obs.telemetry import Rolling
-from ..obs.window import WindowedHistogram
+from ..obs.window import WindowedCounter, WindowedHistogram
 from .queue import ShedReason
 from .usage import TenantLabelRegistry, UsageLedger
 
@@ -118,8 +121,17 @@ _reg("degraded_steps_total", "counter",
      "degradation-ladder step-downs (resource-failure strikes)")
 _reg("degraded_recoveries_total", "counter",
      "degradation-ladder step-ups (recovery probes that passed)")
+_reg("qos_tenants", "gauge",
+     "tenants declared in the QoS table (scrape-time; absent = no table)")
+_reg("qos_requests_total", "counter",
+     "requests admitted, by tenant (QoS table mode only)")
+_reg("qos_quota_sheds_total", "counter",
+     "typed QUOTA sheds (token-rate bucket dry), by tenant")
+_reg("qos_bucket_tokens", "gauge",
+     "token-rate bucket level at scrape, by tenant (rate-limited tenants)")
 _reg("qos_preemptions_total", "counter",
-     "slot residents evicted mid-decode (watchdog hang recovery)")
+     "slot residents evicted mid-decode (batch-tier preemption for "
+     "interactive work, watchdog hang recovery)")
 _reg("qos_requeues_total", "counter",
      "evicted requests re-admitted through the queue")
 # -- structured jobs (serve/gang.py): gang-scheduled fan-out
@@ -131,6 +143,9 @@ _reg("gang_members_total", "counter",
 _reg("gang_affinity_picks_total", "counter",
      "take-path batches where the gang-affinity pick co-scheduled two or "
      "more siblings of one gang into the same generation")
+_reg("gang_preemptions_total", "counter",
+     "whole-gang slot evictions (group-granular QoS preemption — a gang "
+     "is never half-evicted)")
 _reg("gang_partial_total", "counter",
      "gangs degraded to a partial result (a POISON member was dropped "
      "from the reduce)")
@@ -173,6 +188,22 @@ _reg("journal_replay_seconds_total", "counter",
      "wall-clock seconds spent re-enqueueing journaled requests")
 _reg("journal_pending", "gauge",
      "journaled requests not yet COMPLETE or typed FAILED (scrape-time)")
+# -- SLO engine (serve/slo.py): declarative objectives over the rolling
+# windows, evaluated per objective with fast/slow burn rates
+_reg("slo_compliance", "gauge",
+     "fraction of the objective's window meeting its target, by objective")
+_reg("slo_error_budget_remaining", "gauge",
+     "unburned fraction of the objective's error budget over the slow "
+     "window (0 = fully burned), by objective")
+_reg("slo_burn_rate", "gauge",
+     "error-budget burn rate (1.0 = burning exactly the budget), by "
+     "objective and window (fast/slow)")
+_reg("slo_breached", "gauge",
+     "1 while any objective's fast AND slow burn rates exceed the breach "
+     "thresholds, else 0")
+_reg("slo_breaches_total", "counter",
+     "objective breach transitions (edge-triggered; each fires the flight "
+     "recorder)")
 # -- per-tenant usage ledger (serve/usage.py): labels pass through the
 # capped TenantLabelRegistry, so cardinality is bounded by construction
 _reg("usage_requests_total", "counter", "requests admitted, by tenant")
@@ -278,10 +309,11 @@ class ServeMetrics:
         self._rolling_accept = Rolling(256)     # guarded by: _lock
         self._rolling_tps = Rolling(256)        # guarded by: _lock
         # the capped label funnel every tenant-labeled series routes
-        # through (one tenant, "default", until tenants are ported)
+        # through. Seed it with declared tenants via seed_tenants() so a
+        # table tenant can never lose its label to earlier hostile names
         self.tenant_labels = TenantLabelRegistry()
-        # rolling windows (obs/window.py): the exemplar source of the
-        # latency buckets and the usage ledger's substrate
+        # rolling windows (obs/window.py): the SLO engine's and the usage
+        # ledger's substrate, and the exemplar source of the latency buckets
         kw = dict(horizon_s=horizon_s, sub_windows=sub_windows,
                   clock=self._clock)
         self._win = {                           # guarded by: _lock
@@ -289,6 +321,7 @@ class ServeMetrics:
             "ttft_seconds": WindowedHistogram(TTFT_BUCKETS_S, **kw),
             "e2e_seconds": WindowedHistogram(E2E_BUCKETS_S, **kw),
         }
+        self._win_counts = WindowedCounter(**kw)  # guarded by: _lock
         self.usage = UsageLedger(registry=self.tenant_labels,  # guarded by: _lock
                                  horizon_s=horizon_s, sub_windows=sub_windows,
                                  clock=self._clock)
@@ -296,22 +329,32 @@ class ServeMetrics:
         # here AFTER releasing the lock for the render proper, so a scrape
         # reports the distribution up to and including the previous one
         self._scrape_hist = Histogram(SCRAPE_BUCKETS_S)  # guarded by: _lock
-        # window the per-tenant latency gauges report over (ServeState
-        # aligns it with --slo-fast-s)
+        # window the per-tenant latency gauges report over (the SLO fast
+        # window; ServeState aligns it with --slo-fast-s)
         self.usage_window_s = 60.0
+
+    def seed_tenants(self, names) -> None:
+        """Reserve registry labels for declared tenants (the --tenants
+        table) ahead of any traffic — unconditionally (`track`), so a
+        declared tenant's series can never collapse into `other`."""
+        with self._lock:
+            for name in names:
+                self.tenant_labels.track(name)
 
     # -- observation hooks ----------------------------------------------
 
-    def observe_submit(self, n: int = 1) -> None:
+    def observe_submit(self, n: int = 1, tenant: str = "") -> None:
         with self._lock:
             self._stats.submitted += n
-            self.usage.observe_submit("", n)
+            self.usage.observe_submit(tenant, n)
 
-    def observe_shed(self, reason: ShedReason, n: int = 1) -> None:
+    def observe_shed(self, reason: ShedReason, n: int = 1,
+                     tenant: str = "") -> None:
         with self._lock:
             key = reason.value
             self._stats.shed[key] = self._stats.shed.get(key, 0) + n
-            self.usage.observe_shed("", n)
+            self._win_counts.add("shed", n)
+            self.usage.observe_shed(tenant, n)
 
     def observe_batch(self, occupancy: int, engine_s: float,
                       gen_tokens: int = 0) -> None:
@@ -372,17 +415,27 @@ class ServeMetrics:
         with self._lock:
             self._stats.backoff_seconds += seconds
 
-    # -- eviction / streaming hooks (serve/inflight.py + serve/stream.py) --
+    # -- QoS / streaming hooks (serve/qos.py + serve/stream.py) -----------
 
-    def observe_preemption(self, n: int = 1) -> None:
+    def observe_tenant_request(self, tenant: str, n: int = 1) -> None:
+        with self._lock:
+            t = self._stats.tenant_requests
+            t[tenant] = t.get(tenant, 0) + n
+
+    def observe_quota_shed(self, tenant: str, n: int = 1) -> None:
+        with self._lock:
+            q = self._stats.quota_sheds
+            q[tenant] = q.get(tenant, 0) + n
+
+    def observe_preemption(self, n: int = 1, tenant: str = "") -> None:
         with self._lock:
             self._stats.preemptions += n
-            self.usage.observe_preemption("", n)
+            self.usage.observe_preemption(tenant, n)
 
-    def observe_requeue(self, n: int = 1) -> None:
+    def observe_requeue(self, n: int = 1, tenant: str = "") -> None:
         with self._lock:
             self._stats.requeues += n
-            self.usage.observe_requeue("", n)
+            self.usage.observe_requeue(tenant, n)
 
     # -- structured jobs (serve/gang.py) ----------------------------------
 
@@ -399,6 +452,10 @@ class ServeMetrics:
         siblings of a gang (counted once per gang per batch)."""
         with self._lock:
             self._stats.gang_affinity_picks += n
+
+    def observe_gang_preemption(self, n: int = 1) -> None:
+        with self._lock:
+            self._stats.gang_preemptions += n
 
     def observe_gang_partial(self, n: int = 1) -> None:
         with self._lock:
@@ -422,14 +479,15 @@ class ServeMetrics:
 
     # -- cancellation / stream-hardening hooks ----------------------------
 
-    def observe_cancel(self, stage: str, n: int = 1) -> None:
+    def observe_cancel(self, stage: str, n: int = 1,
+                       tenant: str = "") -> None:
         """One terminal cancellation, keyed by the lifecycle stage it
         landed in: queued (never dispatched), dispatched (one-shot batch in
         the engine), resident (evicted from a decode slot)."""
         with self._lock:
             c = self._stats.cancelled
             c[stage] = c.get(stage, 0) + n
-            self.usage.observe_cancel("", n)
+            self.usage.observe_cancel(tenant, n)
 
     def observe_cancel_disconnect(self, n: int = 1) -> None:
         with self._lock:
@@ -458,7 +516,8 @@ class ServeMetrics:
             else:
                 self._stats.degraded_recoveries += 1
 
-    def observe_request(self, rec: ServeRequestRecord) -> None:
+    def observe_request(self, rec: ServeRequestRecord,
+                        tenant: str = "") -> None:
         with self._lock:
             if rec.status == "ok":
                 self._stats.completed += 1
@@ -484,13 +543,15 @@ class ServeMetrics:
                 self._hists["spec_accepted_per_step"].observe(
                     rec.accepted_tokens / rec.spec_steps
                 )
-            # rolling windows + usage ledger: same honesty rules as the
-            # cumulative histograms, plus the trace_id as the per-bucket
-            # exemplar so a bad windowed p99 links straight to /debug/trace
+            # rolling windows + usage ledger (the SLO/usage substrate):
+            # same honesty rules as the cumulative histograms, plus the
+            # trace_id as the per-bucket exemplar so a bad windowed p99
+            # links straight to /debug/trace
             self._win["queue_wait_seconds"].observe(
                 rec.queue_wait_s, exemplar=rec.trace_id
             )
             if rec.status == "ok":
+                self._win_counts.add("completed")
                 if rec.ttft_anchored:
                     self._win["ttft_seconds"].observe(
                         rec.ttft_s, exemplar=rec.trace_id
@@ -498,7 +559,9 @@ class ServeMetrics:
                 self._win["e2e_seconds"].observe(
                     rec.total_s, exemplar=rec.trace_id
                 )
-            self.usage.observe_request("", rec)
+            elif rec.status == "error":
+                self._win_counts.add("errors")
+            self.usage.observe_request(tenant, rec)
 
     # -- export ----------------------------------------------------------
 
@@ -535,6 +598,36 @@ class ServeMetrics:
                 },
             }
 
+    def now(self) -> float:
+        """The metrics' own clock — callers taking multiple window views
+        that must agree (the SLO engine's fast+slow reads) resolve ONE
+        moment here and pass it to each."""
+        return self._clock()
+
+    def window_view(self, window_s: float | None = None,
+                    now: float | None = None) -> dict:
+        """Merged rolling-window state for the SLO engine (serve/slo.py):
+        {"hists": {name: Histogram}, "counts": {...}, "exemplars": {...}}
+        over the most recent ``window_s``. One lock hold AND one resolved
+        ``now`` for the whole view, so a burn-rate evaluation never mixes
+        two moments (a sub-window boundary between two merges would
+        otherwise give the latency hists and the error counts different
+        window sets)."""
+        with self._lock:
+            if now is None:
+                now = self._clock()
+            return {
+                "hists": {
+                    k: wh.merged(window_s, now)
+                    for k, wh in self._win.items()
+                },
+                "counts": self._win_counts.totals(window_s, now),
+                "exemplars": {
+                    k: wh.exemplars(window_s, now)
+                    for k, wh in self._win.items()
+                },
+            }
+
     def usage_snapshot(self, window_s: float | None = None) -> dict:
         """Per-tenant ledger for ``GET /v1/usage``. Latency quantiles cover
         ``window_s`` (default: the whole horizon)."""
@@ -548,6 +641,8 @@ class ServeMetrics:
                           degraded_rung: int | None = None,
                           journal_stats: dict | None = None,
                           gang_state: dict | None = None,
+                          qos_state: dict | None = None,
+                          slo_state: dict | None = None,
                           recorder_stats: dict | None = None,
                           watchdog_stats: dict | None = None,
                           exemplars: bool = False) -> str:
@@ -555,8 +650,12 @@ class ServeMetrics:
         (evictions / blocks_used / blocks_total), read at scrape time like
         the queue gauges — the serving layer never mirrors pool state.
         ``journal_stats`` is RequestJournal.stats_dict() (absent without
-        --journal-dir). ``recorder_stats`` is the FlightRecorder's stats_dict (absent
-        without a recorder).
+        --journal-dir). ``qos_state`` is TenantTable.stats() (per-tenant
+        config + bucket levels), read from the live table at scrape time —
+        absent entirely on servers without a tenant table. ``slo_state``
+        is SloEngine.export_state() (absent without --slo);
+        ``recorder_stats`` the FlightRecorder's stats_dict (absent without
+        a recorder).
         ``exemplars=True`` suffixes the latency buckets with OpenMetrics
         exemplars — callers must only set it for scrapes that NEGOTIATED
         the OpenMetrics format (the classic text-format parser rejects a
@@ -651,6 +750,7 @@ class ServeMetrics:
         simple("gang_admitted_total", s.gang_admitted)
         simple("gang_members_total", s.gang_members)
         simple("gang_affinity_picks_total", s.gang_affinity_picks)
+        simple("gang_preemptions_total", s.gang_preemptions)
         simple("gang_partial_total", s.gang_partials)
         if gang_state is not None:
             # read from the live GangRegistry at scrape time, like the
@@ -694,6 +794,26 @@ class ServeMetrics:
                 f'{value}'
             )
 
+        if qos_state is not None:
+            # per-tenant series, read from the live TenantTable at scrape
+            # time like the queue gauges — the metrics layer never mirrors
+            # bucket state. Label sets are the DECLARED tenants, so
+            # dashboards see every series from the first scrape. Loops are
+            # FAMILY-outer, tenant-inner: OpenMetrics requires one family's
+            # samples to be contiguous (a tenant-outer loop interleaves
+            # families and a strict OM parser drops the whole scrape)
+            simple("qos_tenants", len(qos_state))
+            qos_tenants = sorted(qos_state)
+            for tenant in qos_tenants:
+                labeled("qos_requests_total", tenant,
+                        s.tenant_requests.get(tenant, 0))
+            for tenant in qos_tenants:
+                labeled("qos_quota_sheds_total", tenant,
+                        s.quota_sheds.get(tenant, 0))
+            for tenant in qos_tenants:
+                if qos_state[tenant].get("bucket_tokens") is not None:
+                    labeled("qos_bucket_tokens", tenant,
+                            qos_state[tenant]["bucket_tokens"])
         # the per-tenant usage ledger (serve/usage.py): keys are already
         # canonical (the ledger itself is registry-keyed), counters are
         # monotone, latency gauges cover the fast window. Family-outer,
@@ -720,6 +840,41 @@ class ServeMetrics:
         ):
             for tenant in sorted(usage_rows):
                 labeled(family, tenant, value_of(usage_rows[tenant]))
+        if slo_state is not None:
+            # SLO engine gauges (serve/slo.py), computed from the rolling
+            # windows at evaluation time and handed in at scrape time like
+            # every other live-subsystem state
+            simple("slo_breached", 1 if slo_state.get("breached") else 0)
+            simple("slo_breaches_total", slo_state.get("breaches_total", 0))
+
+            def slo_labeled(metric, objective, value, extra=""):
+                typ, help_ = _METRICS[metric]
+                if metric not in headered:
+                    headered.add(metric)
+                    lines.append(f"# HELP {_PREFIX}{metric} {help_}")
+                    lines.append(f"# TYPE {_PREFIX}{metric} {typ}")
+                # lint-allow[metric-label-cardinality]: objective names are parse-time-validated --slo spec tokens — a bounded, operator-declared set, not request-derived
+                lines.append(f'{_PREFIX}{metric}{{objective="{objective}"'
+                             f'{extra}}} {value}')
+
+            # family-outer like the tenant blocks (OM sample contiguity);
+            # both burn windows share one family, so they ride one loop
+            objective_names = sorted(slo_state.get("objectives", {}))
+            for name in objective_names:
+                slo_labeled("slo_compliance", name,
+                            round(slo_state["objectives"][name]["compliance"],
+                                  6))
+            for name in objective_names:
+                slo_labeled(
+                    "slo_error_budget_remaining", name,
+                    round(slo_state["objectives"][name]["budget_remaining"],
+                          6))
+            for name in objective_names:
+                obj = slo_state["objectives"][name]
+                slo_labeled("slo_burn_rate", name,
+                            round(obj["burn_fast"], 6), ',window="fast"')
+                slo_labeled("slo_burn_rate", name,
+                            round(obj["burn_slow"], 6), ',window="slow"')
         if recorder_stats is not None:
             simple("recorder_events_total", recorder_stats.get("events", 0))
             simple("recorder_events_dropped_total",
@@ -758,7 +913,7 @@ class ServeMetrics:
                 for name in sorted(ages):
                     lines.append(
                         f'{_PREFIX}watchdog_heartbeat_age_seconds'
-                        # lint-allow[metric-label-cardinality]: thread labels are registration-time code literals ("scheduler") — a bounded, operator-invisible set, never request-derived
+                        # lint-allow[metric-label-cardinality]: thread labels are registration-time code literals ("scheduler", "slo-monitor") — a bounded, operator-invisible set, never request-derived
                         f'{{thread="{name}"}} {ages[name]}'
                     )
         if degraded_rung is not None:

@@ -1,4 +1,4 @@
-"""Bounded request queue with deadline-aware admission control.
+"""Bounded request queue with deadline- and quota-aware admission control.
 
 Admission is decided at submit time against two budgets — queue depth and
 total queued prompt tokens — and rejection is a TYPED result (RequestShed
@@ -36,6 +36,9 @@ class ShedReason(str, Enum):
     TOKEN_BUDGET = "token_budget"
     DEADLINE = "deadline"
     SHUTDOWN = "shutdown"
+    # per-tenant token-rate quota (serve/qos.py): the tenant's bucket is
+    # dry — 429 with a refill-derived Retry-After
+    QUOTA = "quota"
     # graceful-degradation ladder bottom rung (serve/supervisor.py): the
     # supervisor browned the server out after repeated resource-class
     # failures — mapped to HTTP 503 + Retry-After, not 429
@@ -131,11 +134,20 @@ class ServeRequest:
     # its ledger identity instead of journaling a second ACCEPT. None =
     # journaling off, or shed before admission (never accepted)
     journal_rid: str | None = None
+    # multi-tenant QoS (serve/qos.py): the declared tenant this request
+    # bills against ("" = no tenant table / default) and its priority tier
+    # — per-ROW metadata, never part of batch_key. tier "batch" marks the
+    # request evictable: the in-flight scheduler may preempt its slot for
+    # interactive work and requeue it through the journal's replayable
+    # ACCEPT state
+    tenant: str = ""
+    tier: str = "interactive"
     # structured jobs (serve/gang.py): the gang this row belongs to ("" =
     # ungrouped). Fan-out siblings of one summarize/skeleton request share
     # it; the queue's take paths cluster same-gang rows into one slot
     # generation (so they share the template-header prefix in the radix
-    # cache). Per-ROW metadata, never part of batch_key
+    # cache) and the in-flight preemption path evicts whole gangs. Per-ROW
+    # metadata, never part of batch_key
     gang_id: str = ""
     # which phase of the structured job this row serves ("map" / "reduce" /
     # "outline" / "expand" / "" for ungrouped) — journal + /v1/requests
@@ -148,9 +160,10 @@ class ServeRequest:
     # True once the journal's STREAMING lifecycle event was appended (the
     # first delta emits it; scheduler-thread-only state)
     stream_journaled: bool = False
-    # watchdog recovery (serve/inflight.py): how many times this request
-    # was evicted mid-decode and requeued, and the prefix-cache pins taken
-    # at eviction so its cached blocks survive LRU until it terminally
+    # preemption bookkeeping (serve/inflight.py: tier preemption and
+    # watchdog recovery): how many times this request was evicted
+    # mid-decode, and the prefix-cache pins taken at eviction so its cached
+    # blocks survive LRU until it terminally
     # resolves — released by the scheduler's resolution paths
     preemptions: int = 0
     preempt_pins: list = field(default_factory=list, repr=False,
@@ -192,9 +205,16 @@ class RequestQueue:
     cached template headers don't consume admission budget the engine will
     never spend prefilling."""
 
-    def __init__(self, max_depth: int = 256, max_queued_tokens: int = 0) -> None:
+    def __init__(self, max_depth: int = 256, max_queued_tokens: int = 0,
+                 tenants=None) -> None:
         self.max_depth = max_depth
         self.max_queued_tokens = max_queued_tokens
+        # multi-tenant QoS (serve/qos.py): a TenantTable arms per-tenant
+        # token-rate quotas in the admission predicate and routes the take
+        # paths' candidate sets through its deficit-round-robin pick. None
+        # (and single-tenant candidate sets) = the pre-QoS FIFO, byte for
+        # byte
+        self.tenants = tenants
         # _cond wraps _lock (one underlying mutex, two names); the
         # guarded-by annotations list both so either entry form satisfies
         # the lint. make_lock = lock-order-sanitizer hook (analysis pkg):
@@ -253,7 +273,9 @@ class RequestQueue:
                 # now with a fresh deadline", not a server back-off
                 self._shed_locked(req, ShedReason.DEADLINE, retry_after_s=1.0)
             if not force:
-                shed = self._admission_reason_locked(req.billable_tokens)
+                shed = self._admission_reason_locked(
+                    req.billable_tokens, req.tenant
+                )
                 if shed is not None:
                     self._shed_locked(req, shed[0], retry_after_s=shed[1])
             self._items.append(req)
@@ -264,9 +286,9 @@ class RequestQueue:
         return req.future
 
     def _admission_reason_locked(
-        self, est_tokens: int
+        self, est_tokens: int, tenant: str = ""
     ) -> tuple[ShedReason, float | None] | None:
-        """The ONE depth/token-budget/brownout admission predicate —
+        """The ONE depth/token-budget/quota/brownout admission predicate —
         submit() and check_admission() must never diverge on policy.
         Returns (reason, retry_after_s) or None. The degraded gate is
         evaluated exactly ONCE per decision: it doubles as the supervisor's
@@ -275,7 +297,9 @@ class RequestQueue:
 
         Every 429-class reason carries a derived Retry-After: queue_full
         and token_budget scale with backlog (a deeper queue needs a longer
-        back-off than a barely-full one)."""
+        back-off than a barely-full one), quota is the tenant bucket's
+        exact refill time. The quota bucket is consulted LAST so a request
+        that would shed on depth/budget anyway never burns quota tokens."""
         if self.degraded is not None:
             retry_after = self.degraded()
             if retry_after is not None:
@@ -288,6 +312,10 @@ class RequestQueue:
             and self._queued_tokens + est_tokens > self.max_queued_tokens
         ):
             return ShedReason.TOKEN_BUDGET, self._backlog_retry_after_locked()
+        if self.tenants is not None:
+            retry_after = self.tenants.admit(tenant, est_tokens)
+            if retry_after is not None:
+                return ShedReason.QUOTA, retry_after
         return None
 
     def _backlog_retry_after_locked(self) -> float:
@@ -298,15 +326,16 @@ class RequestQueue:
         signal, not a latency forecast."""
         return min(30.0, max(1.0, 0.05 * len(self._items)))
 
-    def check_admission(self, est_tokens: int = 0) -> None:
+    def check_admission(self, est_tokens: int = 0, tenant: str = "") -> None:
         """Request-level admission probe without enqueueing: raises the same
         typed RequestShed a submit would. Entry points whose work fans out
         through force-submits (the summarize path) call this ONCE up front
-        so admission control still applies per request."""
+        so admission control — including the tenant quota bill for the
+        whole request — still applies per request."""
         with self._lock:
             if self._closed:
                 raise RequestShed(ShedReason.SHUTDOWN)
-            shed = self._admission_reason_locked(est_tokens)
+            shed = self._admission_reason_locked(est_tokens, tenant)
             if shed is not None:
                 raise RequestShed(shed[0], retry_after_s=shed[1])
 
@@ -346,12 +375,18 @@ class RequestQueue:
         is preserved within each part, and nothing reorders when the take
         drains everyone anyway. The ONE compatibility/clustering policy for
         take_batch and take_upto — the two paths must never diverge.
+        (The multi-tenant WFQ pick lives in ``_take_locked``, not here:
+        this method also runs speculatively from the wait loops, and the
+        deficit-round-robin state must only be charged for requests that
+        are actually taken.)
 
         Gang affinity (serve/gang.py) outranks cache-hint clustering when
         the head row belongs to a gang: siblings of one structured job
         share the SAME template-header hint by construction, so keeping
         the gang together is the strictly stronger form of the same
-        cache argument. Ungrouped heads fall through to the pre-gang behavior byte for byte."""
+        cache argument — and it additionally keeps the whole fan-out in
+        one slot generation for group-aware preemption. Ungrouped heads
+        fall through to the pre-gang behavior byte for byte."""
         compat = [r for r in self._items if r.batch_key() == key]
         if len(compat) <= max_take:
             return compat
@@ -373,8 +408,24 @@ class RequestQueue:
                      max_take: int) -> list[ServeRequest]:
         """Remove up to ``max_take`` of ``compat`` from the queue and
         release their token bill — the ONE removal/billing block shared by
-        both take paths."""
-        batch = compat[:max_take]
+        both take paths.
+
+        Multi-tenant QoS (serve/qos.py): when a tenant table is configured
+        AND the compatible set spans more than one (tenant, tier), the
+        deficit-round-robin pick replaces the FIFO prefix — interactive
+        tier before batch, token-weighted fair share within a tier, FIFO
+        within a tenant. The pick runs HERE (the commit point) so DRR
+        deficits are charged exactly once per request actually taken. A
+        single-tenant set falls through to the byte-identical pre-QoS
+        FIFO/clustering order (the contract tests/test_serve_qos.py pins)."""
+        if (
+            self.tenants is not None
+            and len(compat) > 1
+            and self.tenants.multi_tenant(compat)
+        ):
+            batch = self.tenants.select(compat, max_take)
+        else:
+            batch = compat[:max_take]
         taken = set(id(r) for r in batch)
         self._items = [r for r in self._items if id(r) not in taken]
         for r in batch:
@@ -490,7 +541,7 @@ class RequestQueue:
         """Remove every queued request matching ``pred`` and release its
         token bill — the queue half of request cancellation. Deliberately
         resolution-free: the SCHEDULER owns the terminal bookkeeping
-        (journal CANCELLED, metrics, the future), so
+        (journal CANCELLED, metrics, tenant-bucket refund, the future), so
         this only mutates queue state, symmetric with the take paths.
         ``pred`` runs under the queue lock — it must be cheap and must not
         take other serve locks except leaves (the stream idle probe)."""
@@ -506,28 +557,47 @@ class RequestQueue:
             return out
 
     def requeue(self, req: ServeRequest) -> None:
-        """Re-admit an EVICTED request (watchdog recovery, serve/inflight.py
-        and serve/scheduler.py): no admission checks, no on_admit hook — it
-        was already admitted, journaled and counted in its first life, and its future
-        is still the one the caller holds. Its token bill re-enters the
-        queue budget (the slots it vacated stopped billing at take).
-        Appended even after close(): a drain must finish evicted work, not
-        strand it; the drain's take paths serve everything still queued
-        before exiting."""
+        """Re-admit a PREEMPTED request (tier preemption or watchdog
+        recovery, serve/inflight.py and serve/scheduler.py): no admission
+        checks, no on_admit hook — it was already admitted, journaled, and
+        counted in its first life, and its future is still the one the
+        caller holds. Its token bill re-enters the queue budget (the slots
+        it vacated stopped billing at take). Appended even after close():
+        a drain must finish preempted work, not strand it; the drain's
+        take paths serve everything still queued before exiting."""
         with self._cond:
             self._items.append(req)
             self._queued_tokens += req.billable_tokens
             self._cond.notify_all()
 
-    def head_snapshot(self) -> tuple[tuple, float] | None:
-        """(batch_key, enqueued_at) of the head-of-line request, or None —
-        the in-flight scheduler's fairness rule (a head whose key can't
-        ride the resident loop eventually forces a drain) reads it."""
+    def waiting_interactive(self, key: tuple) -> int:
+        """Queued interactive-tier requests compatible with ``key`` — the
+        in-flight scheduler's preemption-demand probe: how many waiting
+        requests could ride the resident loop right now if batch-tier
+        residents were evicted."""
+        with self._lock:
+            return sum(
+                1 for r in self._items
+                if r.tier != "batch" and r.batch_key() == key
+            )
+
+    def head_info(self) -> tuple[tuple, float, str] | None:
+        """(batch_key, enqueued_at, tier) of the head-of-line request —
+        the ONE head-of-line probe: the in-flight scheduler's fairness
+        rule (a head whose key can't ride the resident loop eventually
+        forces a drain) and its preemption rule (an incompatible
+        INTERACTIVE head past grace evicts batch residents) both read it."""
         with self._lock:
             if not self._items:
                 return None
             head = self._items[0]
-            return head.batch_key(), head.enqueued_at
+            return head.batch_key(), head.enqueued_at, head.tier
+
+    def head_snapshot(self) -> tuple[tuple, float] | None:
+        """(batch_key, enqueued_at) of the head-of-line request, or None —
+        head_info without the tier, kept for callers that predate QoS."""
+        info = self.head_info()
+        return None if info is None else info[:2]
 
     @property
     def depth(self) -> int:

@@ -97,6 +97,7 @@ class MicroBatchScheduler:
         recorder=None,
         watchdog=None,
         journal=None,
+        tenants=None,
     ) -> None:
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -114,7 +115,7 @@ class MicroBatchScheduler:
         # lifecycle paths then pay only `is None` checks (the bench A/B's
         # all-off arm). With one, every typed transition appends a
         # tuple-cheap event and anomalies (brownout entry, fatal failure,
-        # quarantine, drain) snapshot the ring to disk
+        # quarantine, SLO fast-burn, drain) snapshot the ring to disk
         self.recorder = recorder
         # durability (serve/journal.py): None = volatile serving (the
         # pre-journal contract). With a RequestJournal, every admission
@@ -149,8 +150,13 @@ class MicroBatchScheduler:
         # is one-shot, never per batch
         self._trace_dir = trace_dir
         self._profile_pending = trace_dir is not None
+        # multi-tenant QoS (serve/qos.py): the TenantTable arms per-tenant
+        # quotas + the weighted-fair pick inside the queue; None = the
+        # pre-QoS single-class contract
+        self.tenants = tenants
         self.queue = RequestQueue(
             max_depth=max_queue_depth, max_queued_tokens=max_queued_tokens,
+            tenants=tenants,
         )
         self.queue.on_shed = self._on_shed
         self.queue.on_admit = self._on_admit
@@ -226,6 +232,8 @@ class MicroBatchScheduler:
         trace_owned: bool = False,
         stream=None,
         journal_rid: str | None = None,
+        tenant: str = "",
+        tier: str = "interactive",
         gang: str = "",
         gang_phase: str = "",
     ):
@@ -254,6 +262,9 @@ class MicroBatchScheduler:
         ``trace_id`` overrides the queue-derived correlation id either
         way.
 
+        ``tenant``/``tier`` are the QoS class (serve/qos.py): the tenant
+        bills the token-rate quota and shares via the weighted-fair pick;
+        tier "batch" marks the request preemptible in in-flight mode.
         ``stream`` is a serve/stream.StreamChannel the scheduler pushes
         decode-progress text into (the HTTP layer's SSE source).
 
@@ -264,8 +275,9 @@ class MicroBatchScheduler:
 
         ``gang``/``gang_phase`` mark this prompt a member of a structured
         job (serve/gang.py): the queue's take paths cluster same-gang rows
-        into one slot generation, and the member joins its gang's journal
-        record at the next round flush."""
+        into one slot generation, the preemption path evicts the group
+        whole, and the member joins its gang's journal record at the next
+        round flush."""
         req = ServeRequest(
             prompt=prompt,
             max_new_tokens=max_new_tokens,
@@ -277,6 +289,8 @@ class MicroBatchScheduler:
             trace_id=trace_id or "",
             stream=stream,
             journal_rid=journal_rid,
+            tenant=tenant,
+            tier=tier,
             gang_id=gang,
             gang_phase=gang_phase,
         )
@@ -308,26 +322,31 @@ class MicroBatchScheduler:
             self.gangs.note_member(gang, req.journal_rid, gang_phase)
         return fut
 
-    def check_admission(self, est_tokens: int = 0) -> None:
+    def check_admission(self, est_tokens: int = 0, tenant: str = "") -> None:
         """Request-level admission gate for entry points that fan out via
-        internal submits; sheds are counted in metrics like any other."""
+        internal submits; sheds are counted in metrics like any other.
+        ``tenant`` bills the whole request's tokens against its quota
+        bucket here, once — the fan-out's internal submits bill nothing."""
         try:
-            self.queue.check_admission(est_tokens)
+            self.queue.check_admission(est_tokens, tenant)
         except RequestShed as e:
-            self.metrics.observe_shed(e.reason)
-            self._fr("shed", reason=e.reason.value)
+            self.metrics.observe_shed(e.reason, tenant=tenant)
+            if e.reason is ShedReason.QUOTA:
+                self.metrics.observe_quota_shed(tenant or "default")
+            self._fr("shed", reason=e.reason.value, tenant=tenant)
             raise
 
-    def admit_gang(self, gang_id: str, est_tokens: int = 0):
+    def admit_gang(self, gang_id: str, est_tokens: int = 0,
+                   tenant: str = ""):
         """Gang admission (serve/gang.py): ONE pass through the
-        request-level admission gate admits the whole fan-out, and every
-        internal submit riding the returned handle's gang id is
-        admission-exempt. Raises the typed RequestShed on rejection
-        (counted like any other shed); on success the caller owns the
-        handle and must finish() it when the request terminally
-        resolves."""
-        self.check_admission(est_tokens)  # raises RequestShed
-        return self.gangs.open(gang_id)
+        request-level admission gate admits the whole fan-out — the tenant
+        is billed ``est_tokens`` once, and every internal submit riding the
+        returned handle's gang id is admission-exempt. Raises the typed
+        RequestShed on rejection (counted like any other shed); on success
+        the caller owns the handle and must finish() it when the request
+        terminally resolves."""
+        self.check_admission(est_tokens, tenant)  # raises RequestShed
+        return self.gangs.open(gang_id, tenant=tenant)
 
     def _on_take(self, batch: list[ServeRequest]) -> None:
         """Queue on_take hook (runs under the queue lock at the take commit
@@ -432,16 +451,24 @@ class MicroBatchScheduler:
             )
 
     def _resolve_cancelled(self, r: ServeRequest, stage: str,
-                           reason: str = "api") -> None:
+                           reason: str = "api", *,
+                           taken: bool = False) -> None:
         """Terminal cancellation bookkeeping — the one funnel every cancel
         path ends in: metrics (stage-labeled; disconnect-triggered ones
-        counted separately), preempt-pin release, the typed CANCELLED
-        ledger record, the owned-trace finalization, the stream close, and
-        the future."""
-        self.metrics.observe_cancel(stage)
+        counted separately), QoS unwind for work the engine never ran
+        (token bucket back-fill; DRR deficit too when ``taken`` — the take
+        commit point had charged it), preempt-pin release, the typed
+        CANCELLED ledger record, the owned-trace finalization, the stream
+        close, and the future."""
+        self.metrics.observe_cancel(stage, tenant=r.tenant)
         if reason == "disconnect":
             self.metrics.observe_cancel_disconnect()
         self._fr("cancel", rid=r.trace_id, stage=stage, reason=reason)
+        if self.tenants is not None and stage == "queued":
+            # never dispatched: the admission bill buys nothing — return it
+            # (queue-resident requests never charged DRR, so deficit credit
+            # only applies to taken-but-undispatched ones)
+            self.tenants.refund(r.tenant, r.billable_tokens, deficit=taken)
         self._release_preempt_pins(r)
         self._journal_cancel(r, reason)
         if r.own_trace and r.trace is not None and self.obs is not None:
@@ -492,6 +519,8 @@ class MicroBatchScheduler:
         trace: RequestTrace | None = None,
         trace_id: str | None = None,
         trace_owned: bool = False,
+        tenant: str = "",
+        tier: str = "interactive",
         gang: str = "",
         gang_phase: str = "",
     ) -> list[_Completion]:
@@ -500,7 +529,7 @@ class MicroBatchScheduler:
             max_new_tokens=max_new_tokens,
             config=config, deadline=deadline, internal=internal,
             trace=trace, trace_id=trace_id, trace_owned=trace_owned,
-            gang=gang, gang_phase=gang_phase,
+            tenant=tenant, tier=tier, gang=gang, gang_phase=gang_phase,
         )
         # lint-allow[unbounded-blocking-wait]: externally bounded — these are request futures EVERY scheduler path resolves (success, typed failure, shed; drain-overrun sheds cover even a wedged engine, and the watchdog resolves hung dispatches typed)
         return [f.result() for f in futs]
@@ -510,18 +539,23 @@ class MicroBatchScheduler:
         deadline: float | None = None,
         trace: RequestTrace | None = None,
         trace_id: str | None = None,
+        tenant: str = "",
+        tier: str = "interactive",
         gang: str = "",
     ) -> "QueuedBackend":
         """A Backend-protocol view whose generate() routes through this
         scheduler — hand it to a strategy to make its rounds coalesce with
         everyone else's. A ``trace`` makes every round's prompt record its
         spans on that ONE request timeline (per-prompt sub-tracks).
-        ``gang`` (serve/gang.py) stamps
+        ``tenant``/``tier`` stamp every fanned-out prompt with the
+        request's QoS class, so a batch-tier summarize's map round stays
+        preemptible and WFQ-scheduled. ``gang`` (serve/gang.py) stamps
         every fanned-out prompt with the request's structured-job id AND
         unlocks the view's streaming submit_round/harvest protocol for
         strategies that overlap their reduce with the map fan-out."""
         return QueuedBackend(self, deadline=deadline, trace=trace,
-                             trace_id=trace_id, gang=gang)
+                             trace_id=trace_id, tenant=tenant, tier=tier,
+                             gang=gang)
 
     # -- scheduler thread ------------------------------------------------
 
@@ -530,12 +564,15 @@ class MicroBatchScheduler:
         submit and, when durable serving is on, write the ACCEPT record —
         BEFORE the scheduler can take the request, so no engine work ever
         happens on an unjournaled request."""
-        self.metrics.observe_submit()
+        self.metrics.observe_submit(tenant=req.tenant)
+        if self.tenants is not None:
+            self.metrics.observe_tenant_request(req.tenant or "default")
         if req.stream is not None:
             self.metrics.observe_stream_request()
         if self.journal is not None:
             self.journal.accept(req)
-        self._fr("admit", rid=req.trace_id, tokens=req.est_tokens)
+        self._fr("admit", rid=req.trace_id, tenant=req.tenant,
+                 tokens=req.est_tokens)
 
     def _journal_fail(self, req: ServeRequest, reason: str,
                       detail: str = "") -> None:
@@ -547,8 +584,11 @@ class MicroBatchScheduler:
             self.journal.fail(req.journal_rid, reason, detail)
 
     def _on_shed(self, req: ServeRequest, reason: ShedReason) -> None:
-        self.metrics.observe_shed(reason)
-        self._fr("shed", rid=req.trace_id, reason=reason.value)
+        self.metrics.observe_shed(reason, tenant=req.tenant)
+        if reason is ShedReason.QUOTA:
+            self.metrics.observe_quota_shed(req.tenant or "default")
+        self._fr("shed", rid=req.trace_id, reason=reason.value,
+                 tenant=req.tenant)
         self._release_preempt_pins(req)
         self._journal_fail(req, f"shed:{reason.value}")
         # scheduler-owned traces must not leak open on the shed path; the
@@ -655,12 +695,13 @@ class MicroBatchScheduler:
         """One engine dispatch: resolves every future on success; on failure
         records the attempt's batch metrics/trace, stashes (t0, engine_s,
         bt) in ``_attempt_ctx`` for the resolvers, and raises."""
-        # cancelled riders leave BEFORE engine work
+        # cancelled riders leave BEFORE engine work: they were taken off the
+        # queue (DRR charged), so the queued-stage resolution credits it back
         live = []
         for r in batch:
             reason = self._cancel_reason_for(r)
             if reason is not None:
-                self._resolve_cancelled(r, "queued", reason)
+                self._resolve_cancelled(r, "queued", reason, taken=True)
             else:
                 live.append(r)
         batch[:] = live
@@ -796,7 +837,7 @@ class MicroBatchScheduler:
                 rec.accepted_tokens = spec.accepted_tokens
                 rec.spec_steps = spec.verify_steps
             rec.cached_prompt_tokens = int(cached)
-            self.metrics.observe_request(rec)
+            self.metrics.observe_request(rec, tenant=r.tenant)
             self._fr("complete", rid=r.trace_id, gen_tokens=n_out)
             self._trace_request(r, t0, engine_s, bt, "ok")
             self._release_preempt_pins(r)
@@ -1082,8 +1123,9 @@ class MicroBatchScheduler:
         """Typed shed for a request already taken off the queue (deadline
         expiry at retry, drain overrun): metrics + owned-trace finalization
         + the future, mirroring the queue-side shed hook."""
-        self.metrics.observe_shed(reason)
-        self._fr("shed", rid=r.trace_id, reason=reason.value)
+        self.metrics.observe_shed(reason, tenant=r.tenant)
+        self._fr("shed", rid=r.trace_id, reason=reason.value,
+                 tenant=r.tenant)
         self._release_preempt_pins(r)
         self._journal_fail(r, f"shed:{reason.value}")
         if r.own_trace and r.trace is not None and self.obs is not None:
@@ -1146,7 +1188,7 @@ class MicroBatchScheduler:
         )
         for r in batch:
             rec = self._record(r, "error", t0, engine_s, len(batch), 0, bt)
-            self.metrics.observe_request(rec)
+            self.metrics.observe_request(rec, tenant=r.tenant)
             self._fr("failed", rid=r.trace_id, reason=reason)
             self._trace_request(r, t0, engine_s, bt, "error")
             self._release_preempt_pins(r)
@@ -1307,6 +1349,7 @@ class QueuedBackend:
                  deadline: float | None = None,
                  trace: RequestTrace | None = None,
                  trace_id: str | None = None,
+                 tenant: str = "", tier: str = "interactive",
                  gang: str = "") -> None:
         self.scheduler = scheduler
         self.deadline = deadline
@@ -1315,6 +1358,9 @@ class QueuedBackend:
         # as one process with its map/collapse fan-out side by side
         self.trace = trace
         self.trace_id = trace_id
+        # QoS class every fanned-out prompt inherits (serve/qos.py)
+        self.tenant = tenant
+        self.tier = tier
         # structured-job id every fanned-out prompt inherits (serve/gang.py);
         # "" = ungrouped (the raw /v1/generate path)
         self.gang_id = gang
@@ -1347,6 +1393,7 @@ class QueuedBackend:
             deadline=self.deadline, internal=True, references=references,
             cache_hints=cache_hints,
             trace=self.trace, trace_id=self.trace_id, trace_owned=True,
+            tenant=self.tenant, tier=self.tier,
             # phase unlabeled: a barrier-mode generate() has no phase
             # knowledge (strategies that do label use submit_round)
             gang=self.gang_id,
@@ -1385,6 +1432,7 @@ class QueuedBackend:
             max_new_tokens=max_new_tokens, config=config,
             deadline=self.deadline, internal=True,
             trace=self.trace, trace_id=self.trace_id, trace_owned=True,
+            tenant=self.tenant, tier=self.tier,
             gang=self.gang_id, gang_phase=phase if self.gang_id else "",
         )
         if self.gang_id:

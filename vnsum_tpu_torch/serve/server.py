@@ -11,9 +11,14 @@ Counterpart of ``vnsum_tpu/serve/server.py`` on the port's engine:
 onto the CPU. ``--journal-dir D`` arms durable serving (serve/journal.py):
 every accepted request is journaled before engine work, and a restart on
 the same D replays the unfinished ones before taking traffic. Not ported
-yet, and refused by name: ``--tenants``, ``--preempt-budget``, ``--slo``,
-``--slo-burn-fast`` and ``--slo-burn-slow`` (ROADMAP A15b-2), ``--mesh``
-(A10) and ``--backend hf`` (A5c); ``/debug/slo`` reports SLOs off.
+yet, and refused by name: ``--mesh`` (ROADMAP A10) and ``--backend hf``
+(A5c).
+
+    Multi-tenant QoS (--tenants, serve/qos.py): requests carry an X-Tenant
+    header; tenants share the engine by weighted-fair (deficit-round-robin)
+    scheduling, token-rate quotas shed typed 429 QUOTA with a refill-derived
+    Retry-After, and batch-tier requests are preemptible in --inflight mode
+    (typed PREEMPTED/REQUEUED journal lifecycle, byte-identical completion).
 
 Endpoints:
     POST /v1/summarize  {"text": ..., "approach": "mapreduce",
@@ -49,13 +54,16 @@ Endpoints:
                         expires; within it, a reconnect with Last-Event-ID
                         resumes via one full-text snapshot event
     GET /metrics        Prometheus text (serve/metrics.py): counters plus
-                        queue-wait/TTFT/e2e/occupancy/spec histograms,
-                        usage series, and OpenMetrics-style trace_id
-                        exemplars on the latency buckets
-    GET /v1/usage       usage ledger (serve/usage.py): token/outcome
-                        counters + windowed latency quantiles, under the
-                        one tenant "default"; ?tenant= filters one tenant
-    GET /debug/slo      a typed 404 until SLOs are ported (ROADMAP A15b)
+                        queue-wait/TTFT/e2e/occupancy/spec histograms;
+                        with --slo also the vnsum_serve_slo_* burn-rate
+                        gauges, per-tenant usage series, and OpenMetrics-
+                        style trace_id exemplars on the latency buckets
+    GET /v1/usage       per-tenant usage ledger (serve/usage.py): token/
+                        outcome counters + windowed latency quantiles;
+                        ?tenant= filters one tenant
+    GET /debug/slo      SLO engine detail (--slo, serve/slo.py): per-
+                        objective compliance, fast/slow burn rates, error
+                        budget remaining, breach state, exemplar trace ids
     GET /debug/flightrecorder
                         the flight recorder's typed-event ring
                         (obs/recorder.py); anomalies also dump it to
@@ -147,6 +155,8 @@ class ServeState:
         slo: str | None = None,
         slo_fast_s: float = 60.0,
         slo_slow_s: float = 600.0,
+        slo_burn_fast: float = 10.0,
+        slo_burn_slow: float = 1.0,
         flight_dir: str | None = None,
         flight_events: int = 4096,
         watchdog: bool = True,
@@ -164,15 +174,17 @@ class ServeState:
         if unknown:
             raise ValueError(f"pipeline_overrides: {unknown} are not PipelineConfig "
                              f"fields the server may set")
-        # not ported yet: each refuses by name rather than serving without
-        # the guarantee it stands for
-        for arg, value, what in (
-            ("tenants", tenants, "multi-tenant QoS (serve/qos.py) is ROADMAP A15b"),
-            ("slo", slo, "SLOs (serve/slo.py) are ROADMAP A15b"),
-            ("mesh", mesh, "multi-card serving is ROADMAP A10"),
-        ):
-            if value:
-                raise NotImplementedError(f"ServeState({arg}=...): {what}, not ported yet")
+        # not ported yet: refused by name rather than serving without the
+        # guarantee it stands for
+        if mesh:
+            raise NotImplementedError(
+                "ServeState(mesh=...): multi-card serving is ROADMAP A10, not ported yet")
+        # multi-tenant QoS (serve/qos.py): a TenantTable arms per-tenant
+        # weighted-fair scheduling + token-rate quotas in the queue and
+        # the X-Tenant header on the HTTP surface; batch-tier tenants'
+        # requests become preemptible in in-flight mode. None = every
+        # caller is one class, the pre-QoS contract
+        self.tenants = tenants
         # durability (serve/journal.py): a --journal-dir arms the
         # write-ahead request journal — ACCEPT/START/COMPLETE/FAILED per
         # request, replayed by replay_journal() after a restart. None =
@@ -231,10 +243,11 @@ class ServeState:
             # device_profile() call in this process now lands its torch.profiler trace
             # next to the Chrome dumps written here
             os.environ.setdefault("VNSUM_PROFILE_DIR", trace_dir)
-        # production observability: rolling-window metrics + usage ledger
-        # (serve/metrics.py over obs/window.py, the windows spanning
-        # --slo-slow-s, the usage gauges --slo-fast-s) and the flight
-        # recorder (obs/recorder.py), always on
+        # production observability: rolling-window metrics + per-tenant
+        # usage ledger (serve/metrics.py over obs/window.py, the windows
+        # spanning --slo-slow-s, the usage gauges --slo-fast-s) and the
+        # flight recorder (obs/recorder.py), always on; the SLO engine
+        # (serve/slo.py, --slo) judges those windows below
         from .metrics import ServeMetrics
 
         self.metrics = ServeMetrics(
@@ -242,6 +255,10 @@ class ServeState:
             sub_windows=60,
         )
         self.metrics.usage_window_s = slo_fast_s
+        if tenants is not None:
+            # declared tenants get their labels ahead of any traffic: a
+            # hostile name burst can never evict a table tenant's series
+            self.metrics.seed_tenants(tenants.stats().keys())
         from ..obs.recorder import FlightRecorder
 
         self.recorder = FlightRecorder(capacity=flight_events,
@@ -285,6 +302,7 @@ class ServeState:
             recorder=self.recorder,
             watchdog=self.watchdog,
             journal=self.journal,
+            tenants=tenants,
         )
         if inflight:
             # in-flight batching (serve/inflight.py): slot-feeding over the
@@ -303,6 +321,28 @@ class ServeState:
             # arm the scheduler's idle-consumer sweep: abandoned streams
             # (disconnect, no resume) cancel after this window
             self.scheduler.stream_idle_timeout_s = self.stream_idle_timeout_s
+        # SLO engine (--slo): declarative objectives judged over the
+        # rolling windows; sustained fast burn fires the flight recorder.
+        # Surfaced (healthz/metrics/debug), never coupled into the ladder
+        self.slo = None
+        if slo:
+            from .slo import SloEngine, parse_slo_spec
+
+            self.slo = SloEngine(
+                parse_slo_spec(slo) if isinstance(slo, str) else slo,
+                self.metrics,
+                fast_window_s=slo_fast_s,
+                slow_window_s=slo_slow_s,
+                breach_fast_burn=slo_burn_fast,
+                breach_slow_burn=slo_burn_slow,
+                recorder=self.recorder,
+                # helper-kind heartbeat: a wedged SLO evaluation is a
+                # detected stall, not a silent end of judgement
+                heartbeat=(
+                    self.watchdog.register("slo-monitor", kind="helper")
+                    if self.watchdog is not None else None
+                ),
+            )
         if self.watchdog is not None:
             # monitor thread starts LAST: every heartbeat is registered
             # (and freshly beaten) before the first detection pass
@@ -392,6 +432,11 @@ class ServeState:
                     trace_id=p.get("trace_id") or entry.rid,
                     trace_owned=True,
                     journal_rid=entry.rid,
+                    # the QoS class rides the ACCEPT payload: a replayed
+                    # batch-tier request stays preemptible and keeps
+                    # billing its tenant
+                    tenant=p.get("tenant", ""),
+                    tier=p.get("tier", "interactive"),
                     gang=p.get("gang", ""),
                     gang_phase=p.get("gang_phase", ""),
                 )
@@ -448,6 +493,23 @@ class ServeState:
         }
         if self.supervisor is not None:
             payload["degraded_rung"] = int(self.supervisor.rung)
+        if self.slo is not None:
+            slo = self.slo.evaluate()
+            objectives = slo.get("objectives", {})
+            payload["slo"] = {
+                "breached": bool(slo.get("breached")),
+                "burn_fast_max": max(
+                    (o["burn_fast"] for o in objectives.values()),
+                    default=0.0,
+                ),
+                "objectives": {
+                    name: {k: o[k] for k in ("kind", "compliance",
+                                             "burn_fast", "burn_slow",
+                                             "budget_remaining",
+                                             "breaching")}
+                    for name, o in objectives.items()
+                },
+            }
         payload["usage"] = self.metrics.usage_snapshot(
             self.metrics.usage_window_s)
         payload["usage_window_s"] = self.metrics.usage_window_s
@@ -561,6 +623,8 @@ class ServeState:
             # the monitor stops FIRST: a drain parked in journal seal or a
             # slow final dispatch must never be declared a stall mid-exit
             self.watchdog.close()
+        if self.slo is not None:
+            self.slo.close()
         self.scheduler.close(drain=True, timeout=drain_timeout_s)
         if self.journal is not None:
             # drain first so every completion is journaled, then mark the
@@ -668,11 +732,12 @@ def make_handler(state: ServeState):
             self.wfile.write(body)
 
         def _shed_response(self, e: RequestShed) -> None:
-            """The typed shed contract: admission/deadline sheds are 429, a
-            supervisor BROWNOUT is 503 — and EVERY shed carries a
+            """The typed shed contract: admission/deadline/quota sheds are
+            429, a supervisor BROWNOUT is 503 — and EVERY shed carries a
             Retry-After header, derived where the shed was decided (queue
-            depth for queue_full/token_budget, 1s for an expired client
-            deadline) — the machine-readable back-off signal."""
+            depth for queue_full/token_budget, the tenant bucket's exact
+            refill for quota, 1s for an expired client deadline) — the
+            machine-readable back-off signal."""
             payload: dict = {"error": "shed", "reason": e.reason.value}
             status = 503 if e.reason is ShedReason.BROWNOUT else 429
             retry_after = e.retry_after_s or 1.0
@@ -715,11 +780,15 @@ def make_handler(state: ServeState):
                 self.wfile.write(body)
             elif path == "/debug/obs/snapshot":
                 # the federation scrape surface: counters + raw histogram
-                # state + usage/readyz/watchdog views + raw request spans,
-                # one JSON document (read by the fleet router, A15b)
+                # state + slo/usage/readyz/watchdog views + raw request
+                # spans, one JSON document (read by the fleet router, A15b)
                 self._json(state.obs_snapshot())
             elif path == "/debug/slo":
-                self._json({"error": "no SLOs configured (--slo unset)"}, 404)
+                if state.slo is None:
+                    self._json({"error": "no SLOs configured (--slo unset)"},
+                               404)
+                    return
+                self._json(state.slo.debug_payload())
             elif path == "/debug/flightrecorder":
                 self._json(state.recorder.snapshot())
             elif path == "/debug/stacks":
@@ -774,12 +843,24 @@ def make_handler(state: ServeState):
                     "queued_tokens": state.scheduler.queue.queued_tokens,
                     "closed": state.scheduler.closed,
                 }
+                if state.slo is not None:
+                    # the one-line SLO verdict: probes and humans read the
+                    # same judgement the gauges and /debug/slo render
+                    payload["slo"] = state.slo.status_line()
                 if state.watchdog is not None:
                     # liveness verdict: last-beat age per registered thread
                     # plus the stall/recovery counters — a probe reading
                     # /healthz sees a wedged loop as a growing age, then a
                     # counted stall, without waiting for client timeouts
                     payload["watchdog"] = state.watchdog.health_dict()
+                if state.tenants is not None:
+                    # echo the QoS table (name -> weight/rate/tier) so
+                    # operators can verify what a replica actually enforces
+                    payload["tenants"] = {
+                        name: {k: t[k]
+                               for k in ("weight", "token_rate", "tier")}
+                        for name, t in state.tenants.stats().items()
+                    }
                 if sup is not None:
                     # the degradation ladder is health surface: "ok" only
                     # at HEALTHY, "degraded" on any lower rung so probes
@@ -819,6 +900,14 @@ def make_handler(state: ServeState):
                             if state.journal is not None else None
                         ),
                         gang_state=state.scheduler.gangs.stats(),
+                        qos_state=(
+                            state.tenants.stats()
+                            if state.tenants is not None else None
+                        ),
+                        slo_state=(
+                            state.slo.export_state()
+                            if state.slo is not None else None
+                        ),
                         recorder_stats=state.recorder.stats_dict(),
                         watchdog_stats=(
                             state.watchdog.stats_dict()
@@ -1000,6 +1089,22 @@ def make_handler(state: ServeState):
             "text", "approach", "max_new_tokens", "deadline_ms", "request_id",
             "stream",
         })
+
+        def _qos_class(self) -> tuple[str, str] | None:
+            """(tenant, tier) from the X-Tenant header against the QoS
+            table; no table -> the single-class default. An unknown tenant
+            is a typed 400 (never a silent default bucket) — returns None
+            after responding."""
+            if state.tenants is None:
+                return "", "interactive"
+            from .qos import UnknownTenant
+
+            try:
+                spec = state.tenants.resolve(self.headers.get("X-Tenant"))
+            except UnknownTenant as e:
+                self._json({"error": str(e)}, 400)
+                return None
+            return spec.name, spec.tier
 
         def _stream_requested(self, req: dict) -> bool:
             return bool(req.get("stream"))
@@ -1238,6 +1343,10 @@ def make_handler(state: ServeState):
             except _BadRequest as e:
                 self._json({"error": str(e)}, 400)
                 return
+            qos = self._qos_class()
+            if qos is None:
+                return
+            tenant, tier = qos
             if self._stream_requested(req):
                 if len(prompts) != 1:
                     self._json(
@@ -1248,6 +1357,7 @@ def make_handler(state: ServeState):
                     prompts[0], max_new_tokens, config, deadline,
                     references[0] if references else None,
                     cache_hints[0] if cache_hints else None,
+                    tenant, tier,
                 )
                 return
             # one RequestTrace for the whole HTTP request: multi-prompt
@@ -1270,6 +1380,8 @@ def make_handler(state: ServeState):
                     # this handler made the sampling decision (trace may be
                     # None = sampled out) — the scheduler must not re-draw
                     trace_owned=True,
+                    tenant=tenant,
+                    tier=tier,
                 )
             except RequestShed as e:
                 if state.obs is not None:
@@ -1312,7 +1424,7 @@ def make_handler(state: ServeState):
             )
 
         def _generate_stream(self, prompt, max_new_tokens, config, deadline,
-                             reference, cache_hint) -> None:
+                             reference, cache_hint, tenant, tier) -> None:
             """Streamed /v1/generate: the request rides the scheduler like
             any other, plus a StreamChannel the in-flight harvest pushes
             decode-progress deltas into at every segment boundary (the
@@ -1355,6 +1467,8 @@ def make_handler(state: ServeState):
                     # this handler made the sampling decision (trace may be
                     # None = sampled out) — the scheduler must not re-draw
                     trace_owned=True,
+                    tenant=tenant,
+                    tier=tier,
                     stream=channel,
                 )
             except RequestShed as e:
@@ -1453,6 +1567,10 @@ def make_handler(state: ServeState):
             except _BadRequest as e:
                 self._json({"error": str(e)}, 400)
                 return
+            qos = self._qos_class()
+            if qos is None:
+                return
+            tenant, tier = qos
             # the trace survives every strategy round: all the request's
             # fanned-out prompts record onto it through the QueuedBackend
             trace = (
@@ -1462,7 +1580,7 @@ def make_handler(state: ServeState):
             )
             qbackend = state.scheduler.backend_view(
                 deadline=deadline, trace=trace, trace_id=self._rid,
-                gang=self._rid,
+                tenant=tenant, tier=tier, gang=self._rid,
             )
             t0 = time.monotonic()
 
@@ -1498,18 +1616,22 @@ def make_handler(state: ServeState):
                 # request-level admission: the strategy's rounds fan out as
                 # INTERNAL submits that bypass the depth budget (a wide map
                 # round must not shed itself on an idle server), so the
-                # queue/token gate applies here, once, per request. The
+                # queue/token gate applies here, once, per request — and it
+                # bills the whole document against the tenant's quota. The
                 # full-document tokenization is only worth paying when a
-                # token budget is actually configured
+                # token budget or a tenant table is actually configured
                 est_tokens = (
                     state.backend.count_tokens(text)
                     if state.scheduler.queue.max_queued_tokens
+                    or state.tenants is not None
                     else 0
                 )
                 # gang admission: ONE pass through the gate admits the
                 # whole fan-out (billed once) and opens the structured-job
                 # group every internal submit below joins
-                gang = state.scheduler.admit_gang(self._rid, est_tokens)
+                gang = state.scheduler.admit_gang(
+                    self._rid, est_tokens, tenant=tenant
+                )
             except RequestShed as e:
                 if state.obs is not None:
                     state.obs.finish_request(trace, f"shed:{e.reason.value}")
@@ -1767,16 +1889,26 @@ def main(argv: list[str] | None = None) -> int:
                         "flushed to the kernel regardless (SIGKILL-safe), "
                         "this only bounds the power-loss window")
     p.add_argument("--tenants", default=None,
-                   help="multi-tenant QoS: not ported yet (ROADMAP A15b)")
-    p.add_argument("--preempt-budget", type=int, default=None,
-                   help="tier preemption under multi-tenant QoS: not "
-                        "ported yet (ROADMAP A15b)")
+                   help="multi-tenant QoS (serve/qos.py): comma-separated "
+                        "name:weight:token_rate[:tier] declarations, e.g. "
+                        "'interactive:8:0,batch:1:500:batch'. Requests pick "
+                        "their tenant via the X-Tenant header (missing = "
+                        "'default', unknown = typed 400). Arms weighted-"
+                        "fair scheduling, token-rate quotas (typed 429 "
+                        "QUOTA + Retry-After), and — with --inflight — "
+                        "preemption of batch-tier slots for interactive "
+                        "work")
+    p.add_argument("--preempt-budget", type=int, default=16,
+                   help="max lifetime preemptions per batch-tier request "
+                        "before it becomes non-evictable (starvation bound; "
+                        "billed per GANG for structured jobs — any member "
+                        "at budget makes the whole group non-evictable)")
     p.add_argument("--no-gang-affinity", action="store_true",
                    help="disable the queue's gang-affinity pick (siblings "
                         "of one structured job no longer cluster into the "
-                        "same slot generation; gang admission and counts "
-                        "stay on — this is the bench A/B lever, not a gang "
-                        "kill-switch)")
+                        "same slot generation; admission, membership "
+                        "journaling, and whole-gang QoS stay on — this is "
+                        "the bench A/B lever, not a gang kill-switch)")
     p.add_argument("--stream-heartbeat-s", type=float, default=15.0,
                    help="SSE keepalive: emit ': heartbeat' comment frames "
                         "after this much quiet so idle proxies keep the "
@@ -1789,23 +1921,29 @@ def main(argv: list[str] | None = None) -> int:
                         "reclaimed (0 = cancel immediately on disconnect, "
                         "no resume window)")
     p.add_argument("--slo", default=None,
-                   help="declarative SLOs: not ported yet (ROADMAP A15b)")
+                   help="declarative SLOs over rolling windows "
+                        "(serve/slo.py): comma-separated name=value "
+                        "objectives, e.g. 'ttft_p99=0.5,e2e_p99=30,"
+                        "error_rate=0.01,availability=0.999'. Evaluated "
+                        "with fast/slow burn rates; breaches render on "
+                        "/healthz, /debug/slo, and the vnsum_serve_slo_* "
+                        "gauges, and fire the flight recorder")
     p.add_argument("--slo-fast-s", type=float, default=60.0,
-                   help="fast window: the per-tenant usage latency gauges' "
-                        "window (and the SLO fast burn window, A15b)")
+                   help="SLO fast burn window (also the window of the "
+                        "per-tenant usage latency gauges)")
     p.add_argument("--slo-slow-s", type=float, default=600.0,
-                   help="the rolling-metrics horizon (and the SLO slow "
-                        "burn window, A15b)")
-    p.add_argument("--slo-burn-fast", type=float, default=None,
-                   help="SLO fast burn threshold: not ported yet "
-                        "(ROADMAP A15b)")
-    p.add_argument("--slo-burn-slow", type=float, default=None,
-                   help="SLO slow burn threshold: not ported yet "
-                        "(ROADMAP A15b)")
+                   help="SLO slow burn window (also the rolling-metrics "
+                        "horizon)")
+    p.add_argument("--slo-burn-fast", type=float, default=10.0,
+                   help="fast-window burn rate at/above which an objective "
+                        "breaches (with the slow threshold also met)")
+    p.add_argument("--slo-burn-slow", type=float, default=1.0,
+                   help="slow-window burn rate the fast breach must be "
+                        "sustained at (multi-window alert discipline)")
     p.add_argument("--flight-dir", default=None,
                    help="flight recorder (obs/recorder.py) dump directory: "
                         "anomalies (brownout entry, fatal failure, poison "
-                        "quarantine, SIGTERM drain) write "
+                        "quarantine, SLO fast-burn, SIGTERM drain) write "
                         "the typed-event ring here as "
                         "flight_<reason>_<utc-ms>_<n>.json. Unset = ring + "
                         "/debug/flightrecorder only, no dumps")
@@ -1866,18 +2004,9 @@ def main(argv: list[str] | None = None) -> int:
         p.error("--fused-segments > 1 requires --inflight (it is the slot "
                 "loop's dispatch-fusing knob)")
     cache_blocks = 0 if args.no_prefix_cache else args.cache_blocks
-    # not ported yet: refused by name, never served without them
-    for flag, value, item in (
-        ("--tenants", args.tenants, "multi-tenant QoS is ROADMAP A15b"),
-        ("--preempt-budget", args.preempt_budget,
-         "multi-tenant QoS is ROADMAP A15b"),
-        ("--slo", args.slo, "SLOs are ROADMAP A15b"),
-        ("--slo-burn-fast", args.slo_burn_fast, "SLOs are ROADMAP A15b"),
-        ("--slo-burn-slow", args.slo_burn_slow, "SLOs are ROADMAP A15b"),
-        ("--mesh", args.mesh, "multi-card serving is ROADMAP A10"),
-    ):
-        if value is not None:
-            p.error(f"{flag}: {item}, not ported yet")
+    # not ported yet: refused by name, never served without it
+    if args.mesh is not None:
+        p.error("--mesh: multi-card serving is ROADMAP A10, not ported yet")
     if args.backend == "hf":
         p.error("--backend hf: the hf backend is ROADMAP A5c, not ported yet")
     if args.backend == "torch":
@@ -1913,6 +2042,32 @@ def main(argv: list[str] | None = None) -> int:
             segment_words=args.fake_segment_words,
         )
 
+    tenants = None
+    if args.tenants:
+        from .qos import TenantTable, parse_tenant_specs
+
+        try:
+            tenants = TenantTable(parse_tenant_specs(args.tenants))
+        # lint-allow[swallowed-exception]: p.error raises SystemExit(2) — the CLI-error path, nothing to resolve
+        except ValueError as e:
+            p.error(f"--tenants {args.tenants!r}: {e}")
+
+    if args.slo:
+        from .slo import parse_slo_spec
+
+        try:
+            parse_slo_spec(args.slo)  # validate at the CLI boundary
+        # lint-allow[swallowed-exception]: p.error raises SystemExit(2) — the CLI-error path, nothing to resolve
+        except ValueError as e:
+            p.error(f"--slo {args.slo!r}: {e}")
+        if args.slo_fast_s >= args.slo_slow_s:
+            # the engine would raise the same complaint inside ServeState
+            # construction — surface it as a clean CLI error instead
+            p.error(
+                f"--slo-fast-s {args.slo_fast_s} must be shorter than "
+                f"--slo-slow-s {args.slo_slow_s}"
+            )
+
     supervisor = None
     if not args.no_supervise:
         from .supervisor import EngineSupervisor, RetryPolicy
@@ -1945,8 +2100,12 @@ def main(argv: list[str] | None = None) -> int:
         stream_idle_timeout_s=args.stream_idle_timeout_s,
         journal_dir=args.journal_dir,
         journal_fsync_s=args.journal_fsync_ms / 1000.0,
+        tenants=tenants,
+        slo=args.slo,
         slo_fast_s=args.slo_fast_s,
         slo_slow_s=args.slo_slow_s,
+        slo_burn_fast=args.slo_burn_fast,
+        slo_burn_slow=args.slo_burn_slow,
         flight_dir=args.flight_dir,
         flight_events=args.flight_events,
         watchdog=not args.no_watchdog,
@@ -1959,6 +2118,8 @@ def main(argv: list[str] | None = None) -> int:
     )
     if args.no_gang_affinity:
         state.scheduler.queue.gang_affinity = False
+    if args.inflight:
+        state.scheduler.preempt_budget = max(args.preempt_budget, 1)
     # crash recovery BEFORE accepting new traffic: unfinished journaled
     # requests re-enqueue (the scheduler thread is already live, so replay
     # dispatch overlaps server bring-up)

@@ -10,7 +10,8 @@ deadline. This module is the liveness layer closing that gap, in two parts:
 **Heartbeat registry.** Every long-lived serving thread registers a named
 :class:`Heartbeat` with a per-thread deadline and beats it once per loop
 iteration (the scheduler loop beats from inside the queue's wait loops, so
-an idle server still ticks). A heartbeat older than its deadline is a STALL.
+an idle server still ticks; the SLO monitor beats per evaluation). A
+heartbeat older than its deadline is a STALL.
 
 **Bounded-dispatch contract.** Each engine dispatch is stamped with a
 :class:`DispatchTicket` carrying a wall-clock budget derived from its token
@@ -35,8 +36,8 @@ On a stall the monitor thread:
 (c) **recovers**: dispatch stalls invoke ``on_hung_dispatch`` — the
     scheduler's recovery hook (riders of a hung one-shot dispatch resolve
     typed ``RequestFailed(HUNG)``; a hung slot loop is torn down and its
-    residents requeued through the journal's replayable ACCEPT — and the
-    scheduler thread is REPLACED, the
+    residents requeued through the journal's replayable ACCEPT, the
+    preemption machinery — and the scheduler thread is REPLACED, the
     abandoned one fenced off by a stale-thread check at every boundary);
     lock and helper stalls invoke ``on_escalate`` — the HTTP server wires
     a supervised journal-seal-and-exit (``WATCHDOG_EXIT_CODE``) so an
@@ -54,8 +55,8 @@ lock must stay leaf-like for the lock-order sanitizer). Detection math is
 clock-injectable (``clock=``) so tests drive it synthetically without
 sleeping.
 
-Copy of ``vnsum_tpu/serve/watchdog.py``; only the imports, the names of the
-device and its engine, and the SLO monitor (ROADMAP A15b-2) differ.
+Copy of ``vnsum_tpu/serve/watchdog.py``; only the imports and the names of
+the device and its engine differ.
 """
 from __future__ import annotations
 

@@ -22,9 +22,7 @@ layer — the server under test lives in its own process.
 
 Copy of ``vnsum_tpu/testing/chaos.py`` without ``RouterProcess``, the
 fleet router's subprocess handle, which comes with the fleet (ROADMAP
-A15b-3), and without what only the QoS soak uses (the ``mid_preempt``
-kill kind and per-request headers), which come with tenants (ROADMAP
-A15b-2). ``ServerProcess`` starts the port's server (``--backend fake``
+A15b-3). ``ServerProcess`` starts the port's server (``--backend fake``
 unless ``extra_args`` names another backend).
 """
 from __future__ import annotations
@@ -53,13 +51,16 @@ def free_port() -> int:
 
 
 def http_json(method: str, host: str, port: int, path: str,
-              payload: dict | None = None, timeout: float = 30.0):
-    """One HTTP round trip -> (status, parsed JSON body | None)."""
+              payload: dict | None = None, timeout: float = 30.0,
+              headers: dict | None = None):
+    """One HTTP round trip -> (status, parsed JSON body | None).
+    ``headers`` adds/overrides request headers (the QoS soak's X-Tenant)."""
     conn = http.client.HTTPConnection(host, port, timeout=timeout)
     try:
         body = json.dumps(payload) if payload is not None else None
         conn.request(method, path, body=body,
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
         resp = conn.getresponse()
         raw = resp.read()
         try:
@@ -99,6 +100,7 @@ def parse_sse(raw: str) -> list[tuple[str | None, dict | None]]:
 
 def sse_stream(host: str, port: int, path: str, payload: dict,
                abandon_after: int | None = None,
+               headers: dict | None = None,
                timeout: float = 60.0):
     """Drive one SSE request -> (status, events). ``abandon_after=N`` reads
     about N frames and then DROPS the connection without finishing — the
@@ -108,7 +110,8 @@ def sse_stream(host: str, port: int, path: str, payload: dict,
     resp = None
     try:
         conn.request("POST", path, body=json.dumps(payload),
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
         resp = conn.getresponse()
         if resp.status != 200:
             raw = resp.read()
@@ -221,16 +224,25 @@ class KillSchedule:
     the three regimes the acceptance criteria name: an early kill (load
     just started — requests are mid-prefill), a late kill (the batch is
     deep in decode), and a drain kill (SIGTERM received, drain underway,
-    then SIGKILL). The same seed draws the same schedule as the JAX
-    package's non-QoS schedules."""
+    then SIGKILL). With ``qos=True`` the shape swaps one mid_load for a
+    ``mid_preempt`` kill: same SIGKILL-under-load mechanics, but the server
+    runs with a widened eviction->PREEMPTED-journal gap
+    (VNSUM_CHAOS_PREEMPT_GAP_MS) so the kill lands inside the preemption
+    window the ledger invariant must survive. Non-qos schedules are
+    bit-identical to their pre-QoS draws (same seed -> same soak)."""
 
     def __init__(self, seed: int, kills: int = 3,
-                 load_window_s: float = 1.5) -> None:
+                 load_window_s: float = 1.5, qos: bool = False) -> None:
         self.seed = seed
         rng = random.Random(seed)
-        kinds = ["mid_load", "mid_load", "mid_drain"]
+        kinds = (
+            ["mid_preempt", "mid_load", "mid_drain"] if qos
+            else ["mid_load", "mid_load", "mid_drain"]
+        )
         while len(kinds) < kills:
-            kinds.append(rng.choice(["mid_load", "mid_drain"]))
+            kinds.append(rng.choice(
+                ["mid_load", "mid_drain"] + (["mid_preempt"] if qos else [])
+            ))
         rng.shuffle(kinds)
         self.points = [
             KillPoint(
