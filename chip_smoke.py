@@ -56,6 +56,8 @@ Phases, each raising on failure (so any failure exits non-zero):
    32768, q_offset 0, bf16, the pads of its two prompts, layers 0 and 27 of
    28), run over the whole sequence and held to its plain version on four
    512-query slices (its first 512 queries see no key and must be 0);
+   K1 and K2 at the fleet phase's batches (Llama's map batch and one map
+   prompt a request at C = S + 64, int8);
    the fixture phase's shape (FIXTURE_KV = 1, FIXTURE_G = 2, head_dim 128):
    K1 and K2 at its map and reduce batches (FIXTURE_SHAPES, C = S + 128),
    bf16 and int8, K3 at its spec step (Sq = 9: 18 rows, C = S + 137) and
@@ -194,12 +196,12 @@ Phases, each raising on failure (so any failure exits non-zero):
    loaded with load_hf_checkpoint, its parameters and map-batch logits
    equal to the source model's bit for bit, the load's peak device and
    host memory logged;
-6c. qwen3: Qwen3-8B at its published width and depth (36 layers, dim
-   4096, 32/8 heads: GQA group 4, head_dim 128, QK norm, intermediate
-   12,288, vocab 151,936; random bf16 weights, FAMILY_NEW new tokens): the
-   CLI's map-reduce captured, K1 = 36 x prefill forwards and K2 = 36 x
-   decode steps exactly, every batch one phase 3 checked, and the dense
-   logits gate;
+6c. qwen3: Qwen3-8B at its published width (dim 4096, 32/8 heads: GQA
+   group 4, head_dim 128, QK norm, intermediate 12,288, vocab 151,936),
+   cut to QWEN3_LAYERS = 12 of its 36 layers (registry_depth); random bf16
+   weights, FAMILY_NEW new tokens): the CLI's map-reduce captured, K1 = 12
+   x prefill forwards and K2 = 12 x decode steps exactly, every batch one
+   phase 3 checked, and the dense logits gate;
 6d. weights: the pipeline phase's own weights (init_model(llama32_3b(), 0))
    written as an HF checkpoint (save_hf_checkpoint: 28 layers in four bf16
    shards, the embeddings in a fifth, and an index; into the temp dir, or
@@ -388,6 +390,34 @@ Phases, each raising on failure (so any failure exits non-zero):
    margin there over its largest |logit| (for (f) the int8-cache arm's
    one-shot run of its tagged prompts), and one above the path's limit
    fails the run; agreement rates are logged, not gated;
+9e. fleet (ROADMAP A15b-3): the port's router in front of worker
+   processes of the port's server, every process the phase starts
+   stopped and gated gone at its end, no kernel library built or
+   rewritten by a worker. Fleet A: ``python -m
+   vnsum_tpu_torch.serve.router --spawn-workers 2 --backend torch`` (run
+   through testing/chaos.py's RouterProcess) over two Llama-3.2-3B
+   workers at full width and depth from seed 0, int8 cache, no prefix
+   cache, 64 new tokens; their memory on the card (nvidia-smi's compute
+   apps and the card's free memory) at least their weights each; (h1) the
+   7 map prompts as one request, byte-identical to phase 9c's direct
+   generate, then 8 single requests pinned by cache_hint, each on the
+   worker the crc32 rendezvous ranking names (the router's flight
+   recorder), 4 on each, and a stream answered a typed 501; (h4) the
+   router's vnsum_serve_fleet_requests_total equal to the sum of the
+   workers' requests_total, /debug/trace stitching the batch's router
+   and worker spans in one process, and SIGUSR1 writing one incident
+   bundle with both workers' rings, folded in wall order; SIGTERM: router
+   rc 0, its journal sealed. Fleet B: a RouterState in this process over
+   two build_fleet handles of the trained fixture, in flight (8 slots, S
+   = 1920, 128 new tokens, no prefix cache): (h2) 7 requests pinned to
+   worker-0, which is SIGKILLed once its journal holds their ACCEPTs:
+   every client answered 200, byte-identical to an uninterrupted run of
+   the same 7, the router journal completing each, failovers counted,
+   worker-0 respawned and back in rotation; (h3) POST
+   /admin/rolling-restart answered 202 under a request every 100 ms, every
+   one answered 200, each worker drained (rc 0, journal sealed), restarted
+   one generation on and back in rotation, its seconds out of rotation
+   logged. The workers' launches are counted in their own processes;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -1083,6 +1113,22 @@ def phase_correctness(torch) -> dict:
         prefill(f"int8=True B={B} S={S} C={Cq} q_offset={K} layer=1 (tier preemption's warm "
                 "re-join)", rand_q(torch, (B, S - K, H, hd), 156 + B, dev), cache, 1,
                 pads_of([37, K - 300][:B]), 0, K, key="prefill_resume")
+        del cache
+    # the fleet phase's batches (9e, fleet A; 9c's arms (a), (d) and (e)
+    # too): the map batch and one map prompt a request at S = 4096,
+    # C = S + SERVE_NEW, the workers' int8 cache
+    Cf = S + SERVE_NEW
+    for pads_h, what in (([0, 37, 400, 1000, 2500, 3000, 4095, 4096], "map batch"),
+                         ([1246], "single request")):
+        B = len(pads_h)
+        cache = make_cache(torch, 2, B, KV, Cf, hd, True, 157 + B, dev)
+        prefill(f"int8=True B={B} S={S} C={Cf} layer=1 (fleet {what})",
+                rand_q(torch, (B, S, H, hd), 158 + B, dev), cache, 1, pads_of(pads_h), 0, 0,
+                empty_row=B - 1 if B > 1 else None)
+        for fill in (S, Cf - 1):
+            decode(f"int8=True B={B} C={Cf} fill={fill} layer=1 (fleet {what})",
+                   rand_q(torch, (B, 1, H, hd), 159 + B + fill, dev), cache, 1,
+                   pads_of(pads_h), fill, 0)
         del cache
     for quantized in (True, False):
         cache = make_cache(torch, 2, 8, GEMMA_KV, C, GEMMA_HD, quantized, 160 + quantized, dev)
@@ -2656,6 +2702,9 @@ INT8_LAYERS = 7
 # and of the Phi-4-14B phase (6b), whose 40 layers took 60-69 s of a run
 # that the serve phase's tenant arms took past 600 s on a slower machine
 PHI4_LAYERS = 12
+# and of the Qwen3-8B phase (6c), 11.2 s at its 36 layers, when the fleet
+# phase (9e, ~97 s) took the run past 600 s again
+QWEN3_LAYERS = 12
 
 
 def llama_int8_cut():
@@ -2676,6 +2725,12 @@ def phi4_cut():
     from vnsum_tpu_torch.models import phi4_14b
 
     return phi4_14b(n_layers=PHI4_LAYERS)
+
+
+def qwen3_cut():
+    from vnsum_tpu_torch.models import qwen3_8b
+
+    return qwen3_8b(n_layers=QWEN3_LAYERS)
 
 
 @contextlib.contextmanager
@@ -3012,20 +3067,25 @@ def phi4_paths(torch) -> dict:
 
 
 def phase_qwen3(torch) -> dict:
-    """Qwen3-8B at its published width and depth (36 layers, dim 4096,
-    32/8 heads: GQA group 4, head_dim 128, QK norm, intermediate 12,288,
-    vocab 151,936, untied head), random bf16 weights from seed 0, byte
-    tokenizer, FAMILY_NEW new tokens: the CLI's map-reduce, decode steps
-    captured (captured_and_eager without the control: its capture and K3
-    shapes are what Llama's and Phi-4's phases check), K1 = 36 x prefill
-    forwards and K2 = 36 x decode steps exactly, every batch a GEMMA_SHAPES
-    batch; then the dense logits gate (a row at a time) on the same seed's
-    model. Returns the CLI run's launches."""
-    from vnsum_tpu_torch.backend.engine import TorchBackend
-    from vnsum_tpu_torch.models import qwen3_8b
+    """Qwen3-8B at its published width (dim 4096, 32/8 heads: GQA group
+    4, head_dim 128, QK norm, intermediate 12,288, vocab 151,936, untied
+    head), cut to QWEN3_LAYERS of its 36 layers (registry_depth), random
+    bf16 weights from seed 0, byte tokenizer, FAMILY_NEW new tokens: the
+    CLI's map-reduce, decode steps captured (captured_and_eager without the
+    control: its capture and K3 shapes are what Llama's and Phi-4's phases
+    check), K1 = QWEN3_LAYERS x prefill forwards and K2 = QWEN3_LAYERS x
+    decode steps exactly, every batch a GEMMA_SHAPES batch; then the dense
+    logits gate (a row at a time) on the same seed's model. Returns the CLI
+    run's launches."""
+    with registry_depth(qwen3_cut, "qwen3:8b", "qwen3-8b"):
+        return qwen3_paths(torch)
 
-    n_layers = qwen3_8b().n_layers
-    run = captured_and_eager(torch, "qwen3:8b", qwen3_8b, "qwen3", FAMILY_NEW, eager=False)
+
+def qwen3_paths(torch) -> dict:
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+
+    n_layers = QWEN3_LAYERS
+    run = captured_and_eager(torch, "qwen3:8b", qwen3_cut, "qwen3", FAMILY_NEW, eager=False)
     launches, eng = run["launches"], run["eng"]
     check_exact("qwen3", launches, {"prefill": n_layers * eng["prefill_forwards"],
                                     "decode": n_layers * eng["decode_steps"]},
@@ -3034,7 +3094,7 @@ def phase_qwen3(torch) -> dict:
     del run
     gc.collect()
     torch.cuda.empty_cache()
-    engine = TorchBackend(qwen3_8b(), batch_size=8, max_new_tokens=FAMILY_NEW, device="cuda")
+    engine = TorchBackend(qwen3_cut(), batch_size=8, max_new_tokens=FAMILY_NEW, device="cuda")
     logits_gate(torch, engine, sorted((ROOT / "data/vi_eval/doc").glob("*.txt")), "qwen3")
     del engine
     gc.collect()
@@ -5475,11 +5535,12 @@ def serve_tenants(torch, model, prompts: list, n_layers: int, add) -> int:
     return resume_launches
 
 
-def phase_serve(torch, model) -> tuple[dict, int]:
+def phase_serve(torch, model) -> tuple[dict, int, tuple]:
     """The serving slice on Llama-3.2-3B (``model``: the spec phase's, full
-    width and depth, random bf16 weights, int8 cache): arms (a)-(f) of the
+    width and depth, random bf16 weights, int8 cache): arms (a)-(g) of the
     module docstring's 9c. Returns (the phase's launches, K1 launches of
-    resumed forwards)."""
+    resumed forwards, (the map prompts, their direct generate's texts): the
+    fleet phase's reference)."""
     from vnsum_tpu_torch.backend.engine import TorchBackend
     from vnsum_tpu_torch.serve.metrics import metric_names
 
@@ -5643,7 +5704,7 @@ def phase_serve(torch, model) -> tuple[dict, int]:
     serve_durable(torch, backend, prompts, oneshot, n_layers, add)
     serve_streaming(torch, backend, n_layers, add)
     qos_resume = serve_tenants(torch, model, prompts, n_layers, add)
-    return total, spy["resume_launches"] + qos_resume
+    return total, spy["resume_launches"] + qos_resume, (prompts, oneshot)
 
 
 # -- phase 9d -----------------------------------------------------------------
@@ -6212,6 +6273,594 @@ def phase_fixture(torch) -> dict:
     return total
 
 
+# -- phase 9e -----------------------------------------------------------------
+
+# the replica fleet (ROADMAP A15b-3): the port's router (serve/router.py) in
+# front of worker processes (serve/worker.py) that run the port's engine on
+# this card. Fleet A: `python -m vnsum_tpu_torch.serve.router --spawn-workers
+# 2 --backend torch`, two micro-batch workers of Llama-3.2-3B at full width
+# and depth drawn from seed 0 (the spec phase's weights, so phase 9c's
+# direct generate is their reference), no prefix cache (9c's control has
+# none), a coalescing window of FLEET_WAIT_MS (one fan-out request's 7
+# prompts are one engine batch). Fleet B: a RouterState in this process over
+# two build_fleet handles of the trained fixture with --inflight --slots 8
+# (its greedy tokens have no near-ties across batch shapes: phase 9d), S = 1920
+# as phase 9d's slot loop. The workers' kernel launches are counted in their
+# own processes, which this process's counters cannot see.
+FLEET_WAIT_MS = 250
+# a worker's start-up budget here (import torch, a CUDA context, 3.2 B
+# weights drawn on the card, the libraries loaded); the router's and the
+# handles' own defaults (30 s and 60 s, the JAX package's) stay as they are
+FLEET_READY_S = 180.0
+FLEET_MODEL, FLEET_DEVICE = "llama3.2:3b", "cuda"
+FLEET_SINGLES = 8
+FLEET_RESTART_EVERY_S = 0.1
+
+
+def fleet_env() -> dict:
+    """The environment of every process the phase starts: this checkout's
+    package first on the path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    return env
+
+
+def gpu_apps() -> dict:
+    """{pid: MiB} of the card's compute apps as nvidia-smi lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout
+    apps = {}
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = float(parts[1].split()[0]) if parts[1][:1].isdigit() else 0.0
+    return apps
+
+
+def proc_alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie holds nothing and counts as gone)."""
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return stat.rsplit(")", 1)[1].split()[0] != "Z"
+
+
+def stop_pids(pids) -> None:
+    """SIGTERM every pid still running, then SIGKILL what is left 30 s on."""
+    import signal
+
+    live = [p for p in pids if proc_alive(p)]
+    for pid in live:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline and any(proc_alive(p) for p in live):
+        time.sleep(0.1)
+    for pid in live:
+        if proc_alive(pid):
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline and any(proc_alive(p) for p in live):
+        time.sleep(0.1)
+
+
+def rendezvous(key: str, names) -> str:
+    """The worker the router's rendezvous hash ranks first for ``key``
+    (serve/router.py ``_pick_locked``: the largest crc32 of key|name)."""
+    import zlib
+
+    return max(names, key=lambda n: zlib.crc32(f"{key}|{n}".encode()))
+
+
+def hints_for(names, per_worker: int, prefix: str) -> list:
+    """(hint, worker) pairs, ``per_worker`` for each worker, in turn."""
+    by = {n: [] for n in names}
+    i = 0
+    while any(len(v) < per_worker for v in by.values()):
+        hint = f"{prefix}-{i}"
+        w = rendezvous(hint, names)
+        if len(by[w]) < per_worker:
+            by[w].append(hint)
+        i += 1
+    return [(by[n][j], n) for j in range(per_worker) for n in names]
+
+
+def library_mtimes() -> dict:
+    from vnsum_tpu_torch.ops import kernels
+
+    return {p.name: p.stat().st_mtime_ns for p in kernels.BUILD_DIR.glob("*.so")}
+
+
+def worker_rows(base: str) -> dict:
+    status, health = serve_request("GET", base + "/healthz", timeout=30)
+    if status != 200:
+        raise AssertionError(f"fleet: router /healthz {status}: {health}")
+    return {w["name"]: w for w in health["workers"]}
+
+
+def wait_fleet_up(base: str, names, started: set, t0: float, alive) -> dict:
+    """Seconds from ``t0`` until each worker is up on the router's
+    /healthz; every worker pid seen joins ``started``. A worker that exits
+    before it is up (a respawn, or a reason ``exit:*``) fails the phase, as
+    does the router's own exit (``alive()`` false)."""
+    up: dict = {}
+    deadline = time.monotonic() + FLEET_READY_S
+    while len(up) < len(names):
+        if not alive():
+            raise AssertionError("fleet: the router exited while its workers started")
+        try:
+            rows = worker_rows(base)
+        except OSError:
+            rows = {}
+        for name, row in rows.items():
+            if row.get("pid"):
+                started.add(row["pid"])
+            if name not in up and (row["restarts"] or str(row["reason"]).startswith("exit:")):
+                raise AssertionError(f"fleet: {name} exited at start-up ({row['reason']}, "
+                                     f"{row['restarts']} restart(s))")
+            if name not in up and row["up"]:
+                up[name] = time.perf_counter() - t0
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: workers up {sorted(up)} of {names} after "
+                                 f"{FLEET_READY_S:.0f}s")
+        time.sleep(0.1)
+    return up
+
+
+def worker_startup_trace(argv: list) -> str:
+    """The last lines a worker with ``argv`` prints when run by hand (the
+    router's workers write nowhere), for a start-up failure's report."""
+    from vnsum_tpu_torch.testing.chaos import free_port
+
+    cmd = [sys.executable, "-m", "vnsum_tpu_torch.serve.worker", "--port", str(free_port()),
+           *argv]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=fleet_env(), cwd=ROOT)
+    try:
+        out, _ = proc.communicate(timeout=FLEET_READY_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    return "\n".join(out.splitlines()[-40:])
+
+
+def fleet_memory(torch, pids: list, free0: int, apps0: dict, weight_bytes: int) -> str:
+    """The workers' memory on the card: nvidia-smi's compute apps (by pid
+    where this process sees the card's pid namespace; a sandbox may list
+    all its processes as one pid, so else their total's rise since the
+    fleet started) and the card's free memory against ``free0``. Each must
+    show every worker holding its weights."""
+    apps = gpu_apps()
+    rise = free0 - torch.cuda.mem_get_info()[0]
+    mine = {pid: apps[pid] for pid in pids if pid in apps}
+    listed = (sum(apps.values()) - sum(apps0.values())) * 2**20
+    need = len(pids) * weight_bytes
+    if len(mine) == len(pids):
+        ok = all(mib * 2**20 >= weight_bytes for mib in mine.values())
+        how = "by pid: " + ", ".join(f"{pid} {mib:.0f} MiB" for pid, mib in sorted(mine.items()))
+    else:
+        ok = listed >= need
+        how = (f"as {sorted(apps)} (not the workers' pids {pids}: another pid namespace), "
+               f"{listed / 2**20:.0f} MiB more than before the fleet")
+    if not ok or rise < need:
+        raise AssertionError(f"fleet: compute apps {apps} (before {apps0}), worker pids {pids}, "
+                             f"free memory fell {rise / 1e9:.2f} GB, weights {need / 1e9:.2f} GB")
+    return (f"nvidia-smi lists the compute apps {how}; the card's free memory fell "
+            f"{rise / 1e9:.2f} GB ({rise / len(pids) / 1e9:.2f} GB a worker; weights "
+            f"{weight_bytes / 0.9 / 1e9:.2f} GB each)")
+
+
+def fleet_a(torch, serve_ref: tuple, started: set) -> None:
+    """Fleet A through the router's CLI, at Llama-3.2-3B's full width and
+    depth: (h1) routing, (h4) federation, then a graceful stop."""
+    import signal
+
+    from vnsum_tpu_torch.models import MODEL_REGISTRY, llama32_3b
+    from vnsum_tpu_torch.serve.federation import fold_incident_bundle
+    from vnsum_tpu_torch.serve.journal import RequestJournal
+    from vnsum_tpu_torch.testing.chaos import RouterProcess, free_port
+
+    prompts, oneshot = serve_ref
+    cfg = MODEL_REGISTRY[FLEET_MODEL]()
+    if FLEET_MODEL == "llama3.2:3b" and cfg != llama32_3b():
+        raise AssertionError(f"fleet: the registry's {FLEET_MODEL} is not the spec phase's config")
+    weight_bytes = int(0.9 * 2 * (cfg.vocab_size * cfg.dim * (1 if cfg.tie_embeddings else 2)
+                                  + cfg.n_layers * cfg.dim * (
+                                      (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+                                      + cfg.n_heads * cfg.head_dim + 3 * cfg.intermediate)))
+    worker_args = [
+        "--model", FLEET_MODEL, "--device", FLEET_DEVICE, "--seed", "0",
+        "--max-new-tokens", str(SERVE_NEW), "--max-batch", "8",
+        "--max-wait-ms", str(FLEET_WAIT_MS), "--no-prefix-cache"]
+    names = ["worker-0", "worker-1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0, apps0 = torch.cuda.mem_get_info()[0], gpu_apps()
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet_dir = Path(tmp) / "fleet"
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        rp = RouterProcess(port, fleet_dir=str(fleet_dir), spawn_workers=len(names),
+                           extra_args=["--backend", "torch", "--worker-args",
+                                       " ".join(worker_args)], env=fleet_env())
+        t0 = time.perf_counter()
+        rp.start()
+        started.add(rp.proc.pid)
+        try:
+            try:
+                up = wait_fleet_up(base, names, started, t0, lambda: rp.alive)
+            except AssertionError:
+                log("[fleet] A: a worker run by hand with the same flags prints:\n"
+                    + worker_startup_trace(["--backend", "torch", *worker_args]))
+                raise
+            rows = worker_rows(base)
+            pids = [rows[n]["pid"] for n in names]
+            log(f"[fleet] A up: router :{port} over {names} (pids {pids}), --backend torch "
+                f"{' '.join(worker_args)}; up after "
+                + ", ".join(f"{n} {up[n]:.1f}s" for n in names)
+                + "; " + fleet_memory(torch, pids, free0, apps0, weight_bytes))
+
+            # (h1) routing: the 7 map prompts as one request, byte for byte
+            # phase 9c's direct generate
+            t1 = time.perf_counter()
+            status, body = serve_request("POST", base + "/v1/generate", {
+                "prompts": prompts, "max_new_tokens": SERVE_NEW, "request_id": "fleet-batch"})
+            batch_s = time.perf_counter() - t1
+            if status != 200:
+                raise AssertionError(f"fleet (h1): batch HTTP {status}: {body}")
+            texts = [c["text"] for c in body["completions"]]
+            if texts != oneshot:
+                raise AssertionError(f"fleet (h1): texts differ from phase 9c's direct "
+                                     f"generate: {agreement(texts, oneshot)}")
+            # singles pinned by cache_hint, FLEET_SINGLES // 2 a worker: each
+            # on the worker the rendezvous ranking names
+            pinned = hints_for(names, FLEET_SINGLES // 2, "fleet")
+            before = {n: r["requests"] for n, r in worker_rows(base).items()}
+            single_s, single_texts = [], []
+            for i, (hint, _want) in enumerate(pinned):
+                t1 = time.perf_counter()
+                status, body = serve_request("POST", base + "/v1/generate", {
+                    "prompt": prompts[i % len(prompts)], "max_new_tokens": SERVE_NEW,
+                    "cache_hint": hint, "request_id": f"fleet-single-{i}"})
+                single_s.append(time.perf_counter() - t1)
+                if status != 200:
+                    raise AssertionError(f"fleet (h1): single {i} HTTP {status}: {body}")
+                single_texts.append(body["completions"][0]["text"])
+            _, ring = serve_request("GET", base + "/debug/flightrecorder")
+            routed = {e["rid"]: e["worker"] for e in ring["events"] if e["kind"] == "route"}
+            went = [routed.get(f"fleet-single-{i}") for i in range(len(pinned))]
+            if went != [w for _h, w in pinned]:
+                raise AssertionError(f"fleet (h1): singles went to {went}, the rendezvous "
+                                     f"ranking names {[w for _h, w in pinned]}")
+            rows = worker_rows(base)
+            served = {n: rows[n]["requests"] - before[n] for n in names}
+            if served != {n: FLEET_SINGLES // 2 for n in names}:
+                raise AssertionError(f"fleet (h1): /healthz requests by worker {served}")
+            status, body = serve_request("POST", base + "/v1/generate",
+                                         {"prompt": prompts[0], "stream": True})
+            if status != 501 or body.get("error") != "stream_unsupported":
+                raise AssertionError(f"fleet (h1): a stream answered {status}: {body}")
+            log(f"[fleet] A (h1) routing: 7 map prompts in one request on "
+                f"{routed.get('fleet-batch')}, byte-identical to phase 9c's direct generate, "
+                f"{batch_s:.3f}s; {len(pinned)} singles on the workers the crc32 rendezvous "
+                f"names ({served}), {min(single_s):.3f}-{max(single_s):.3f}s each, against the "
+                f"batch {agreement(single_texts, [oneshot[i % len(oneshot)] for i in range(len(pinned))])} "
+                f"(B = 1 against 8, not gated); a stream: typed 501")
+
+            # (h4) federation: a fresh sweep (/debug/trace scrapes), then the
+            # fleet rollup against each worker's own counters
+            status, trace = serve_request("GET", base + "/debug/trace")
+            procs: dict = {}
+            for e in trace["traceEvents"]:
+                if e.get("ph") == "M" and e.get("name") == "process_name":
+                    procs[e["pid"]] = {"name": e["args"]["name"], "spans": []}
+            for e in trace["traceEvents"]:
+                if e.get("ph") == "X" and e["pid"] in procs:
+                    procs[e["pid"]]["spans"].append(e)
+            req = next((p for p in procs.values() if p["name"] == "request fleet-batch"), None)
+            sources = {sp["args"].get("source") for sp in req["spans"]} if req else set()
+            engine = sorted({sp["name"] for sp in req["spans"]
+                             if sp["args"].get("source") in names}) if req else []
+            if (status != 200 or "router" not in sources or not sources & set(names)
+                    or not {"engine", "prefill"} & set(engine)):
+                raise AssertionError(f"fleet (h4): /debug/trace {status}, fleet-batch's spans "
+                                     f"from {sources}: {engine}")
+            _, mtext = serve_request("GET", base + "/metrics")
+            fleet_total = metric_value(mtext, "vnsum_serve_fleet_requests_total")
+            per_worker = {}
+            for n in names:
+                _, wtext = serve_request("GET", f"http://{rows[n]['host']}:{rows[n]['port']}"
+                                                "/metrics")
+                per_worker[n] = {k: metric_value(wtext, f"vnsum_serve_{k}") for k in (
+                    "requests_total", "batches_total", "generated_tokens_total")}
+            if fleet_total != sum(v["requests_total"] for v in per_worker.values()):
+                raise AssertionError(f"fleet (h4): vnsum_serve_fleet_requests_total "
+                                     f"{fleet_total}, the workers' {per_worker}")
+            incidents = fleet_dir / "incidents"
+            before_inc = set(incidents.glob("inc_*")) if incidents.exists() else set()
+            t1 = time.perf_counter()
+            os.kill(rp.proc.pid, signal.SIGUSR1)
+            bundle = None
+            while time.perf_counter() - t1 < 60:
+                new = set(incidents.glob("inc_*")) - before_inc if incidents.exists() else set()
+                if new and all((b / "manifest.json").exists() for b in new):
+                    bundle = sorted(new)
+                    break
+                time.sleep(0.05)
+            if bundle is None or len(bundle) != 1:
+                raise AssertionError(f"fleet (h4): SIGUSR1 wrote bundles {bundle}")
+            manifest = json.loads((bundle[0] / "manifest.json").read_text())
+            report = fold_incident_bundle(bundle[0])
+            walls = [e["wall"] for e in report["events"]]
+            if (manifest["reason"] != "operator" or manifest["workers_collected"] != 2
+                    or set(report["sources"]) != {"router", *names}
+                    or not all(report["sources"][s]["events"] for s in names)
+                    or walls != sorted(walls)):
+                raise AssertionError(f"fleet (h4): bundle {manifest}, sources "
+                                     f"{report['sources']}")
+            log(f"[fleet] A (h4) federation: vnsum_serve_fleet_requests_total {fleet_total:.0f} "
+                f"= the workers' requests_total {[v['requests_total'] for v in per_worker.values()]}"
+                f" (batches {[v['batches_total'] for v in per_worker.values()]}, generated "
+                f"tokens {[v['generated_tokens_total'] for v in per_worker.values()]}); "
+                f"/debug/trace stitches fleet-batch's spans from {sorted(sources)} (the "
+                f"worker's {engine}); SIGUSR1: bundle {bundle[0].name} in "
+                f"{time.perf_counter() - t1:.2f}s, {len(report['events'])} events folded from "
+                + ", ".join(f"{k} {v['events']}" for k, v in sorted(report["sources"].items()))
+                + ", in wall order; the workers' K1/K2 launches are counted in their own "
+                  "processes, not this one's")
+        finally:
+            t1 = time.perf_counter()
+            rp.sigterm()
+            rc = rp.wait_exit(120)
+            stop_s = time.perf_counter() - t1
+        entries, sealed, _ = RequestJournal.read_state(fleet_dir / "router")
+        left = [pid for pid in started if proc_alive(pid)]
+        if rc != 0 or not sealed or any(not e.terminal for e in entries.values()) or left:
+            raise AssertionError(f"fleet A stop: router rc {rc}, journal sealed {sealed}, "
+                                 f"pids left {left}")
+        log(f"[fleet] A stop: SIGTERM, router rc 0 in {stop_s:.2f}s, its journal sealed with "
+            f"{len(entries)} entries all terminal, no worker left; wall "
+            f"{time.perf_counter() - t0:.1f}s")
+
+
+def fleet_b(torch, started: set) -> None:
+    """Fleet B on the trained fixture, in flight: (h2) a SIGKILLed worker's
+    accepted requests fail over byte-identically, (h3) a rolling restart
+    answers every request."""
+    import signal
+    import threading
+
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models.convert import load_hf_checkpoint
+    from vnsum_tpu_torch.serve.journal import RequestJournal, aggregate_status
+    from vnsum_tpu_torch.serve.router import RouterState, Worker, make_router_server
+    from vnsum_tpu_torch.serve.worker import build_fleet
+
+    spec = f"hf:{FIXTURE_DIR}"
+    model = load_hf_checkpoint(str(FIXTURE_DIR), device=FLEET_DEVICE)[1]
+    prompts, _chunks = fixture_prompts(TorchBackend(model=model, tokenizer=spec,
+                                                    max_new_tokens=FIXTURE_NEW,
+                                                    device=FLEET_DEVICE))
+    del model
+    names = ["worker-0", "worker-1"]
+    args = ["--backend", "torch", "--weights-dir", str(FIXTURE_DIR), "--device", FLEET_DEVICE,
+            "--inflight", "--slots", "8", "--slot-prompt-tokens", str(max(FIXTURE_SHAPES)),
+            "--max-new-tokens", str(FIXTURE_NEW), "--max-batch", "8", "--no-prefix-cache"]
+    with tempfile.TemporaryDirectory() as tmp:
+        handles = build_fleet(len(names), f"{tmp}/fleet", extra_args=args, env=fleet_env())
+        spied: dict = {h.name: {"drains": [], "starts": []} for h in handles}
+        for h in handles:
+            def start(h=h, real=h.start):
+                real()
+                started.add(h.pid)
+                spied[h.name]["starts"].append((time.perf_counter(), h.pid, h.generation))
+
+            def drain(timeout_s=30.0, h=h, real=h.drain):
+                t_drain = time.perf_counter()
+                rc = real(timeout_s)
+                sealed = RequestJournal.read_state(h.journal_dir)[1]
+                spied[h.name]["drains"].append((t_drain, rc, sealed, h.generation))
+                return rc
+
+            h.start, h.drain = start, drain
+        workers = [Worker(h.name, h.host, h.port, handle=h) for h in handles]
+        state = RouterState(workers, journal_dir=f"{tmp}/fleet/router",
+                            incident_dir=f"{tmp}/fleet/incidents")
+        server = make_router_server(state, "127.0.0.1", 0)
+        serve_thread = threading.Thread(target=server.serve_forever, daemon=True)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        t0 = time.perf_counter()
+        try:
+            for h in handles:
+                h.start()
+            state.start()
+            serve_thread.start()
+            up = wait_fleet_up(base, names, started, t0, lambda: True)
+            log(f"[fleet] B up: RouterState over build_fleet({len(names)}) of "
+                f"{FIXTURE_DIR.name}, {' '.join(args[2:])}; up after "
+                + ", ".join(f"{n} {up[n]:.1f}s" for n in names))
+
+            def run(tag: str, hint) -> tuple:
+                replies: dict = {}
+
+                def post(i):
+                    payload = {"prompt": prompts[i], "max_new_tokens": FIXTURE_NEW,
+                               "request_id": f"{tag}-{i}"}
+                    if hint:
+                        payload["cache_hint"] = hint
+                    replies[i] = serve_request("POST", base + "/v1/generate", payload)
+
+                threads = [threading.Thread(target=post, args=(i,), daemon=True)
+                           for i in range(len(prompts))]
+                for t in threads:
+                    t.start()
+                return threads, replies
+
+            hint = hints_for(names, 1, "fixture")[0][0]
+            # the uninterrupted run: the 7 requests on worker-0
+            t1 = time.perf_counter()
+            threads, replies = run("b-ref", hint)
+            join_posts(threads)
+            ref_s = time.perf_counter() - t1
+            if [replies[i][0] for i in range(len(prompts))] != [200] * len(prompts):
+                raise AssertionError(f"fleet (h2): the uninterrupted run {replies}")
+            ref = [replies[i][1]["completions"][0]["text"] for i in range(len(prompts))]
+
+            # (h2) the same 7 on worker-0 again, SIGKILLed once its journal
+            # holds their ACCEPTs
+            rids = [f"b-kill-{i}" for i in range(len(prompts))]
+            wdir = Path(handles[0].journal_dir)
+            t1 = time.perf_counter()
+            threads, replies = run("b-kill", hint)
+            while time.perf_counter() - t1 < 60:
+                entries = RequestJournal.read_state(wdir)[0] if wdir.exists() else {}
+                if set(rids) <= set(entries):
+                    break
+                time.sleep(0.005)
+            else:
+                raise AssertionError(f"fleet (h2): worker-0's journal holds {sorted(entries)}")
+            done_before = sum(entries[r].terminal for r in rids)
+            victim = worker_rows(base)["worker-0"]["pid"]
+            os.kill(victim, signal.SIGKILL)
+            t_kill = time.perf_counter()
+            join_posts(threads)
+            answered_s = time.perf_counter() - t_kill
+            statuses = [replies[i][0] for i in range(len(prompts))]
+            texts = [replies[i][1]["completions"][0]["text"] if replies[i][0] == 200
+                     else None for i in range(len(prompts))]
+            ledger = [aggregate_status(state.journal.lookup(r)) for r in rids]
+            _, mtext = serve_request("GET", base + "/metrics")
+            failovers = sum(float(line.split()[-1]) for line in mtext.splitlines()
+                            if line.startswith("vnsum_serve_router_failovers_total{"))
+            if (statuses != [200] * len(prompts) or texts != ref
+                    or ledger != ["completed"] * len(prompts) or failovers < 1):
+                raise AssertionError(f"fleet (h2): statuses {statuses}, ledger {ledger}, "
+                                     f"failovers {failovers}, {agreement(texts, ref)}")
+            while True:
+                row = worker_rows(base)["worker-0"]
+                if row["up"] and row["pid"] != victim:
+                    break
+                if time.perf_counter() - t_kill > FLEET_READY_S:
+                    raise AssertionError(f"fleet (h2): worker-0 not back: {row}")
+                time.sleep(0.05)
+            back_s = time.perf_counter() - t_kill
+            log(f"[fleet] B (h2) failover: the uninterrupted run {ref_s:.3f}s; worker-0 "
+                f"(pid {victim}) SIGKILLed with {len(rids) - done_before} of {len(rids)} "
+                f"accepted requests unfinished: 7/7 answered 200 {answered_s:.3f}s after the "
+                f"kill, byte-identical to the uninterrupted run, completed in the router "
+                f"journal, router_failovers_total {failovers:.0f}; worker-0 respawned (pid "
+                f"{row['pid']}, generation {handles[0].generation}, restarts {row['restarts']}) "
+                f"and back in rotation {back_s:.1f}s after the kill")
+
+            # (h3) rolling restart under a request every FLEET_RESTART_EVERY_S
+            while not all(w.up for w in state.workers):
+                if time.perf_counter() - t_kill > FLEET_READY_S:
+                    raise AssertionError("fleet (h3): workers not up before the restart")
+                time.sleep(0.05)
+            gens = {h.name: h.generation for h in handles}
+            out: dict = {n: [] for n in names}
+            stop = threading.Event()
+
+            def watch():
+                prev = {n: True for n in names}
+                while not stop.is_set():
+                    now = time.perf_counter()
+                    for w in state.workers:
+                        ok = w.up and not w.draining
+                        if ok != prev[w.name]:
+                            if ok:
+                                out[w.name][-1][1] = now
+                            else:
+                                out[w.name].append([now, None])
+                            prev[w.name] = ok
+                    time.sleep(0.01)
+
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+            t1 = time.perf_counter()
+            status, body = serve_request("POST", base + "/admin/rolling-restart", {})
+            if status != 202:
+                raise AssertionError(f"fleet (h3): /admin/rolling-restart {status}: {body}")
+            posts, replies, i = [], {}, 0
+            seen_rolling = False
+            while time.perf_counter() - t1 < 2 * FLEET_READY_S:
+                rolling = state._rolling
+                seen_rolling = seen_rolling or rolling
+                if seen_rolling and not rolling:
+                    break
+
+                def post(i=i):
+                    replies[i] = serve_request("POST", base + "/v1/generate", {
+                        "prompt": prompts[i % len(prompts)], "max_new_tokens": 16,
+                        "request_id": f"b-roll-{i}"})
+
+                posts.append(threading.Thread(target=post, daemon=True))
+                posts[-1].start()
+                i += 1
+                time.sleep(FLEET_RESTART_EVERY_S)
+            join_posts(posts)
+            roll_s = time.perf_counter() - t1
+            stop.set()
+            watcher.join(timeout=5)
+            bad = {k: v for k, v in replies.items() if v[0] != 200}
+            drains = {n: spied[n]["drains"][-1] if spied[n]["drains"] else None for n in names}
+            if (not seen_rolling or bad or len(replies) != i
+                    or any(d is None or d[1] != 0 or not d[2] for d in drains.values())
+                    or {h.name: h.generation for h in handles}
+                    != {n: g + 1 for n, g in gens.items()}
+                    or not all(w.up for w in state.workers)
+                    or any(not iv or iv[-1][1] is None for iv in out.values())):
+                raise AssertionError(f"fleet (h3): failed replies {bad} of {i}, drains "
+                                     f"{drains}, generations {gens} -> "
+                                     f"{ {h.name: h.generation for h in handles} }, out of "
+                                     f"rotation {out}")
+            log(f"[fleet] B (h3) rolling restart: 202, then {i} requests every "
+                f"{FLEET_RESTART_EVERY_S * 1000:.0f} ms through it, all 200; "
+                + "; ".join(f"{n} drained rc {drains[n][1]} with its journal sealed, "
+                            f"generation {gens[n]} -> {gens[n] + 1}, out of rotation "
+                            f"{sum(b - a for a, b in out[n]):.1f}s" for n in names)
+                + f"; {roll_s:.1f}s in all")
+        finally:
+            server.shutdown()
+            server.server_close()
+            t1 = time.perf_counter()
+            state.close(drain_timeout_s=60)
+            stop_s = time.perf_counter() - t1
+        rcs = {h.name: h.last_rc for h in handles}
+        left = [pid for pid in started if proc_alive(pid)]
+        if set(rcs.values()) != {0} or left:
+            raise AssertionError(f"fleet B stop: worker rcs {rcs}, pids left {left}")
+        log(f"[fleet] B stop: the router drained both workers (rc 0) in {stop_s:.2f}s; wall "
+            f"{time.perf_counter() - t0:.1f}s")
+
+
+def phase_fleet(torch, serve_ref: tuple) -> None:
+    """Phase 9e: fleet A then fleet B; every process the phase started is
+    stopped, and gated gone, however it ends; no kernel library is built
+    or rewritten by a worker."""
+    libs = library_mtimes()
+    started: set = set()
+    cwd = Path.cwd()
+    os.chdir(ROOT)  # the workers' `-m` imports this checkout's package
+    try:
+        fleet_a(torch, serve_ref, started)
+        fleet_b(torch, started)
+    finally:
+        stop_pids(started)
+        os.chdir(cwd)
+    left = [pid for pid in started if proc_alive(pid)]
+    if left:
+        raise AssertionError(f"fleet: processes left {left}")
+    if library_mtimes() != libs:
+        raise AssertionError("fleet: a worker built or rewrote a kernel library")
+    log(f"[fleet] {len(started)} processes started and none left; the {len(libs)} kernel "
+        f"libraries unchanged (the workers loaded phase 2's builds)")
+
+
 # -- phase 10 -----------------------------------------------------------------
 
 ONE_CARD_CEILING = 16384  # Llama-3.2-3B's max_seq_len: the one-card engine's cut
@@ -6712,10 +7361,12 @@ def main() -> int:
     slot_launches = timed("slot", slot_loop, torch, backend.model, prompts, oneshot, "slot", 128)
     cache_launches, resume_launches = timed(
         "prefix cache", phase_prefix_cache, torch, backend.model, plain_summaries)
-    serve_launches, serve_resume = timed("serve", phase_serve, torch, backend.model)
+    serve_launches, serve_resume, serve_ref = timed("serve", phase_serve, torch, backend.model)
     resume_launches += serve_resume
     del backend
     fixture_launches = timed("fixture", phase_fixture, torch)
+    # the fleet's launches are its workers', counted in their processes
+    timed("fleet", phase_fleet, torch, serve_ref)
     long_launches = timed("long context", phase_long_context, torch)
     launches = {k: launches[k] + int8_launches[k] + w8a8_launches[k] + weights_launches[k]
                 + strategy_launches[k] + judge_launches[k] + spec_launches[k] + slot_launches[k]

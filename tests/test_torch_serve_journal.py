@@ -8,8 +8,10 @@ packages' ``_encode`` give equal bytes, a journal either package writes
 reads equally in the other) and a SIGKILLed server process whose
 unfinished requests replay byte-identically after a restart.
 
-The JAX file's cross-process handoff case needs the fleet router's
-``request_body_from_payload`` and waits for it (ROADMAP A15b-3)."""
+The JAX file's cross-process handoff case runs on the port's
+``request_body_from_payload`` (serve/router.py): a SIGKILLed server's
+unfinished ACCEPTs re-dispatched by hand onto a second server complete
+byte-identically."""
 from __future__ import annotations
 
 import json
@@ -512,6 +514,79 @@ def test_journal_cli_subprocess_and_bad_dir(tmp_path):
     # last stderr line: runpy may prepend a sys.modules RuntimeWarning
     err = json.loads(proc.stderr.strip().splitlines()[-1])
     assert "not a directory" in err["error"]
+
+
+
+def test_cross_process_handoff_completes_byte_identically(tmp_path):
+    """The fleet failover invariant, minus the router: SIGKILL worker A
+    mid-flight, read its journal from the outside, re-dispatch every
+    unfinished ACCEPT onto an unrelated worker B over plain HTTP, and the
+    completions byte-match an uninterrupted run. This is exactly what
+    RouterState._handoff does — pinned here as a two-process protocol
+    test so a journal/payload schema drift fails loudly."""
+    from vnsum_tpu_torch.serve.router import request_body_from_payload
+    from vnsum_tpu_torch.testing.chaos import ServerProcess, http_json
+
+    dir_a = tmp_path / "worker-a"
+    dir_b = tmp_path / "worker-b"
+    a = ServerProcess(free_port(), journal_dir=str(dir_a),
+                      extra_args=["--fake-batch-overhead-ms", "3000"])
+    a.start()
+    prompts = [f"bản tin bị bỏ dở số {i} " * 4 for i in range(3)]
+    try:
+        a.wait_healthy(60.0)
+
+        def post(i, p):
+            try:
+                http_json("POST", "127.0.0.1", a.port, "/v1/generate",
+                          {"prompt": p, "request_id": f"handoff-{i}",
+                           "max_new_tokens": 16}, timeout=30.0)
+            # lint-allow[swallowed-exception]: the kill below cuts this connection; the ledger, not the reply, is under test
+            except OSError:
+                pass
+
+        for i, p in enumerate(prompts):
+            threading.Thread(target=post, args=(i, p), daemon=True).start()
+        # let the ACCEPTs hit A's journal while the 3s batch overhead
+        # keeps every request non-terminal
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline:
+            entries, _, _ = RequestJournal.read_state(dir_a)
+            if len(entries) == len(prompts):
+                break
+            time.sleep(0.05)
+    finally:
+        a.sigkill()  # the crash under test: no drain, no seal
+
+    entries, sealed, _ = RequestJournal.read_state(dir_a)
+    assert sealed is False
+    unfinished = [e for e in entries.values() if not e.terminal]
+    assert len(unfinished) == len(prompts)
+
+    b = ServerProcess(free_port(), journal_dir=str(dir_b))
+    b.start()
+    try:
+        b.wait_healthy(60.0)
+        for e in unfinished:
+            path, body, headers = request_body_from_payload(e.rid, e.payload)
+            assert (path, headers) == ("/v1/generate", {"X-Request-Id": e.rid})
+            status, resp = http_json("POST", "127.0.0.1", b.port, path,
+                                     body, timeout=30.0)
+            assert status == 200, resp
+            text = resp["completions"][0]["text"]
+            # byte-identity against an uninterrupted in-process run of
+            # the SAME journaled payload
+            assert text == FakeBackend().generate(
+                [e.payload["prompt"]],
+                max_new_tokens=e.payload.get("max_new_tokens"),
+            )[0]
+        b.sigterm()
+        assert b.wait_exit(30.0) == 0  # graceful: drain + seal
+    finally:
+        if b.alive:
+            b.sigkill()
+    _, sealed_b, _ = RequestJournal.read_state(dir_b)
+    assert sealed_b is True
 
 
 # -- cross-package format: the JAX package's journal and the port's ---------

@@ -1,9 +1,9 @@
 """The port's serving layer against the JAX package's, on their FakeBackends:
 the same request sequences through both HTTP servers give equal texts,
 status codes and shed reasons, equal /healthz keys and /metrics metric
-names; the metric registries (less the families of the mesh and the fleet,
-not ported yet), the histogram ladders and the quantiles of the same observations are
-equal."""
+names; the metric registries (less the mesh's families, not ported yet;
+the fleet's router, federation and fleet families included), the histogram
+ladders and the quantiles of the same observations are equal."""
 from __future__ import annotations
 
 import http.client
@@ -194,8 +194,7 @@ def test_healthz_keys_equal(pair):
 
 
 # families of the JAX modules not ported yet: the serving mesh (ROADMAP A10)
-# and the fleet (A15b-3)
-UNPORTED_PREFIXES = ("mesh_", "router_", "federation_", "fleet_")
+UNPORTED_PREFIXES = ("mesh_",)
 
 
 def _unported(name: str) -> bool:
@@ -223,12 +222,14 @@ def test_metric_registry_equal(full):
     jax_names = jax_metrics.metric_names(full)
     assert metrics.metric_names(full) == [n for n in jax_names if not _unported(n)]
     # the exclusions name only families the JAX registry really has, and
-    # the tenant, SLO and whole-gang families are the port's too
+    # the tenant, SLO, whole-gang and fleet families are the port's too
     prefix = "vnsum_serve_" if full else ""
     assert all(any(n.startswith(prefix + u) for n in jax_names)
                for u in UNPORTED_PREFIXES)
     assert {prefix + n for n in ("qos_tenants", "qos_bucket_tokens", "gang_preemptions_total",
-                                 "slo_burn_rate")} <= set(metrics.metric_names(full))
+                                 "slo_burn_rate", "router_failovers_total",
+                                 "federation_scrapes_total", "fleet_requests_total",
+                                 "fleet_incidents_total")} <= set(metrics.metric_names(full))
 
 
 @pytest.mark.parametrize("ladder", [

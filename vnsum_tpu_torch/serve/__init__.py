@@ -50,10 +50,22 @@ same paths, over ``TorchBackend`` (or the fake and Ollama backends).
                 classification and wedged-dispatch recovery
 - server.py     stdlib HTTP front-end
                 (python -m vnsum_tpu_torch.serve.server)
+- worker.py     the replica fleet's engine-worker process: the server under
+                a name, spawned, probed, drained and restarted by a
+                WorkerHandle (python -m vnsum_tpu_torch.serve.worker)
+- router.py     the fleet's front door: admission, per-tenant accounting
+                and a global journal, rendezvous routing on cache_hint or
+                tenant over N workers, probe-loop mark-down, journal-
+                handoff failover and rolling restarts
+                (python -m vnsum_tpu_torch.serve.router; workers run
+                --backend torch unless the caller names another)
+- federation.py the router's scrape loop over the workers' snapshots:
+                fleet rollups, SLO and usage views, the stitched trace,
+                and correlated incident bundles
 
-Not ported yet: the fleet (router, federation, worker; ROADMAP A15b-3) and
-the serving mesh (A10). This package carries no hooks for them;
-``ServeState`` and the CLI refuse the mesh by name.
+Not ported yet: the serving mesh (ROADMAP A10); ``ServeState`` and the CLI
+refuse it by name. As in the JAX package, the fleet's classes are imported
+from their modules, not from this package.
 
 ONE scheduler thread owns all backend.generate calls (the engine's CUDA
 graphs, prefix cache and stats are not thread-safe), and concurrency lives

@@ -15,8 +15,8 @@ Three consumption surfaces off one locked data structure:
 Metric registry: every exported metric is declared ONCE in the `_reg(...)`
 block below — rendering takes its HELP/TYPE text from the registry, and
 `metric_names()` lists them (the port's tests hold the list equal to the
-JAX package's, less the families of the modules not ported yet: the mesh
-(ROADMAP A10) and the fleet (A15b-3)).
+JAX package's, less the family of the module not ported yet: the mesh
+(ROADMAP A10)).
 
 Emission sites for the registry entries: request/shed/batch counters and all
 histograms are observed by `serve/scheduler.py` (observe_submit via the
@@ -24,7 +24,7 @@ queue's on_admit hook, observe_shed, observe_batch, observe_request);
 queue_depth/queued_tokens gauges are read from the live RequestQueue at
 scrape time by `serve/server.py`.
 
-Counterpart of ``vnsum_tpu/serve/metrics.py`` without those families. The
+Counterpart of ``vnsum_tpu/serve/metrics.py`` without the mesh family. The
 rolling windows are always on (the JAX package's ``windowed=False`` bench
 lever is not ported), so ``window_view`` and ``usage_snapshot`` never
 return None.
@@ -273,6 +273,81 @@ _reg("slot_occupancy", "histogram",
      "busy slots per in-flight decode segment")
 _reg("spec_accepted_per_step", "histogram",
      "accepted draft tokens per verify step, per request")
+# -- replica-fleet router (serve/router.py): the front-door process that
+# fans requests out to N engine workers. Rendered by RouterState.render_metrics
+# from the same registry
+_reg("router_workers", "gauge",
+     "engine workers configured behind the router")
+_reg("router_workers_up", "gauge",
+     "workers currently marked up (routable) by the probe loop")
+_reg("router_requests_total", "counter",
+     "requests proxied to each worker, by worker")
+_reg("router_failovers_total", "counter",
+     "journaled requests replayed onto survivors after a worker died or "
+     "sealed (exit 86), by source worker")
+_reg("router_markdowns_total", "counter",
+     "worker mark-down transitions (probe-failure / SLO-burn hysteresis), "
+     "by worker")
+_reg("router_markups_total", "counter",
+     "worker mark-up transitions (probes recovered), by worker")
+_reg("router_restarts_total", "counter",
+     "worker process restarts performed by the router (crash recovery + "
+     "rolling deploys), by worker")
+_reg("router_probe_seconds", "gauge",
+     "latency of the most recent readiness probe, by worker")
+_reg("router_sheds_total", "counter",
+     "requests shed at the router front door, by reason")
+# -- metrics/SLO federation (serve/federation.py): the router scrapes each
+# worker's JSON snapshot on a cadence and re-exports fleet rollups —
+# counters summed, histograms merged via Histogram.merge_from, gauges kept
+# per worker under the bounded worker label
+_reg("federation_scrapes_total", "counter",
+     "worker snapshot scrapes completed by the router's federation loop, "
+     "by worker")
+_reg("federation_scrape_errors_total", "counter",
+     "worker snapshot scrapes that failed (unreachable worker, bad "
+     "payload, mismatched histogram ladder), by worker")
+_reg("federation_scrape_seconds", "histogram",
+     "wall-clock cost of one worker snapshot scrape (HTTP round trip + "
+     "parse + fold)")
+_reg("federation_staleness_seconds", "gauge",
+     "age of the freshest good snapshot held for each worker, by worker "
+     "(grows while a worker is unreachable)")
+_reg("federation_clock_offset_seconds", "gauge",
+     "estimated worker-monotonic minus router-monotonic clock offset "
+     "(probe RTT midpoint method), by worker — the correction the merged "
+     "/debug/trace applies")
+_reg("fleet_requests_total", "counter",
+     "requests admitted across the fleet (workers' requests_total summed "
+     "at the last federation scrape)")
+_reg("fleet_requests_completed_total", "counter",
+     "requests answered across the fleet (summed rollup)")
+_reg("fleet_requests_errored_total", "counter",
+     "requests failed in engines across the fleet (summed rollup)")
+_reg("fleet_generated_tokens_total", "counter",
+     "tokens generated across the fleet (summed rollup)")
+_reg("fleet_e2e_seconds", "histogram",
+     "end-to-end request latency across the fleet (worker histograms "
+     "merged bucket-wise at the last federation scrape)")
+_reg("fleet_ttft_seconds", "histogram",
+     "time to first token across the fleet (merged rollup; anchored "
+     "observations only, same honesty rule as the worker series)")
+_reg("fleet_queue_depth", "gauge",
+     "requests queued on each worker at its last snapshot, by worker")
+_reg("fleet_worker_up", "gauge",
+     "1 while the router's probe loop marks the worker routable, else 0, "
+     "by worker")
+_reg("fleet_degraded_rung", "gauge",
+     "each worker's degradation-ladder rung at its last snapshot, by "
+     "worker")
+_reg("fleet_slo_burn_fast", "gauge",
+     "each worker's worst fast-window SLO burn rate at its last snapshot, "
+     "by worker (the per-worker burn attribution behind fleet /debug/slo)")
+_reg("fleet_slo_breached", "gauge",
+     "1 while the worker's own SLO engine reports a breach, else 0, by "
+     "worker")
+_reg("fleet_incidents_total", "counter",
+     "correlated incident bundles minted by the router, by trigger reason")
 
 
 def metric_names(full: bool = True) -> list[str]:

@@ -1,0 +1,1721 @@
+"""Replica-fleet front door: one router process over N engine workers.
+
+Everything below the fleet — in-flight batching, QoS, journal
+durability, watchdog liveness — lives in ONE process: one Python
+runtime, one GIL, one blast radius. This module is the process half of
+the scale-out story: a thin HTTP front door that owns **admission**,
+**per-tenant accounting**, and the **journal** globally, and fans
+``/v1/*`` requests out to N worker processes (serve/worker.py — each a
+full single-process engine: TorchBackend on the card by default,
+FakeBackend when the caller asks for it) over the exact HTTP surface
+that already exists. The fleet
+layer adds topology; it does not fork the protocol.
+
+Routing — tenant-sticky with cache affinity::
+
+    key = cache_hint or tenant        # rendezvous (HRW) hash over UP workers
+    fallback = least-loaded           # no key -> min in-flight
+
+Rendezvous hashing ranks every worker per key, so a mark-down remaps only
+the dead worker's keys — the radix-cache hit rates that justify
+``cache_hint`` routing survive both the split across workers and a
+failover.
+
+Health — probe loop with mark-down/mark-up hysteresis: every worker is
+probed on ``/readyz`` (routability: draining / browned-out / pre-replay
+answer typed 503) plus the ``/healthz`` SLO verdict (a page-level burn
+counts as a failed probe, so a worker burning its error budget browns out
+of rotation before clients feel it). ``down_after`` consecutive failures
+mark a worker down, ``up_after`` successes mark it back up; a dead
+process (``poll() != None``) or connect refusal is an immediate strike.
+
+Failover — journal handoff: the router journals every admitted request
+(ACCEPT with the full replayable payload) *before* dispatch. When a
+worker dies or seals (exit 86 = watchdog seal-and-exit), its non-terminal
+rids replay onto survivors — inline while the client connection is still
+attached (the proxy thread re-dispatches and the client never sees the
+death), or from the probe loop for anything left behind. The same
+machinery replays the router's OWN journal after a router restart. No
+accepted request is lost; greedy replays are byte-identical
+(``testing.chaos.RouterProcess`` SIGKILLs a worker mid-load to prove it).
+
+Deploys — rolling drain-one-restart-one (``POST /admin/rolling-restart``):
+each spawned worker is taken out of rotation, drained (SIGTERM -> queue
+drain -> journal seal -> exit 0), restarted, and only returns to rotation
+once its ``/readyz`` probes pass.
+
+Streaming is the one surface the front door does not proxy yet
+(``stream=true`` answers a typed 501): SSE pass-through needs chunked
+relay plumbing, and a client that wants streams can speak to a worker
+directly. Everything else — generate, summarize, poll, cancel, health,
+metrics — routes.
+
+Threading: one router lock (``make_lock("serve.router")``) guards the
+worker table and admission counters; the journal keeps its own innermost
+lock. Proxy I/O, probes, and handoffs all run outside the router lock —
+the lock scopes bookkeeping, never a network round trip.
+
+Copy of ``vnsum_tpu/serve/router.py``; the imports' package and two
+things differ. ``--backend`` forwards ``torch`` to spawned workers unless
+the caller names another backend (the JAX router forwards ``fake``), so a
+fleet runs the port's engine on the card, and with no card its workers
+exit at startup (the router reports it; it never falls back to CPU or fake
+workers on its own). And the probe loop's handoff leaves the rids whose
+client is still attached to the inline failover (``_handoff``), so such a
+client gets its 200 however the probe beat falls.
+``--mesh`` is not a router flag in either package; a ``--mesh`` in
+``--worker-args`` is refused by the port's server.
+"""
+from __future__ import annotations
+
+import argparse
+import http.client
+import json
+import shlex
+import signal
+import threading
+import time
+import zlib
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+
+from ..analysis.sanitizers import make_lock
+from ..core.logging import get_logger
+from ..obs.recorder import FlightRecorder
+from ..obs.trace import ObsHub
+from .federation import FleetFederation, IncidentManager
+from .journal import RequestJournal, aggregate_status
+from .metrics import _METRICS, _PREFIX
+from .server import (
+    _BadRequest,
+    _deadline_from,
+    _gen_config_from,
+    _number,
+    _request_id,
+)
+from .usage import TenantLabelRegistry
+from .watchdog import WATCHDOG_EXIT_CODE
+
+logger = get_logger("vnsum.serve.router")
+
+# front-door shed reasons (the router's own, rendered as
+# vnsum_serve_router_sheds_total{reason=...}): queue_full mirrors the
+# worker-side ShedReason value; shutdown is the draining front door;
+# no_worker means zero routable workers; stream_unsupported is the typed
+# 501 for SSE pass-through
+_SHED_REASONS = ("queue_full", "shutdown", "no_worker", "stream_unsupported")
+
+
+@dataclass
+class _RouterRequest:
+    """The journal-facing shape of one admitted prompt: just enough
+    attribute surface for :func:`journal.request_payload` to build the
+    same replayable ACCEPT record a worker would."""
+
+    trace_id: str
+    prompt: str
+    max_new_tokens: int | None = None
+    config: object | None = None
+    reference: str | None = None
+    cache_hint: str | None = None
+    deadline: float | None = None
+    tenant: str = ""
+    tier: str = "interactive"
+    approach: str | None = None
+    journal_rid: str | None = None
+
+
+class Worker:
+    """One engine worker as the router sees it: endpoint + routing state.
+
+    This is a record, not an actor: every mutable field below is written
+    and read under the owning :class:`RouterState`'s lock (the worker
+    itself holds none). ``handle`` is a
+    :class:`~vnsum_tpu_torch.serve.worker.WorkerHandle` when the router owns the
+    process (--spawn-workers / rolling restarts), None for an external
+    endpoint the router only routes to.
+    """
+
+    def __init__(self, name: str, host: str, port: int,
+                 handle=None) -> None:
+        self.name = name
+        self.host = host
+        self.port = port
+        self.handle = handle
+        # -- routing state (router-lock scope) --
+        self.up = False
+        self.draining = False
+        self.inflight = 0
+        self.fail_streak = 0
+        self.ok_streak = 0
+        self.last_probe_s = 0.0
+        self.last_reason = "unprobed"
+        self.last_markdown_reason = ""  # why the LAST mark-down happened
+        self.last_restart = 0.0
+        self.handed_off = False  # one monitor handoff per down transition
+        # -- counters (router-lock scope; /metrics reads them) --
+        self.requests = 0
+        self.failovers = 0
+        self.markdowns = 0
+        self.markups = 0
+        self.restarts = 0
+
+    def row(self) -> dict:
+        """The /healthz projection (caller holds the router lock)."""
+        return {
+            "name": self.name, "host": self.host, "port": self.port,
+            "up": self.up, "draining": self.draining,
+            "reason": self.last_reason, "inflight": self.inflight,
+            "last_markdown_reason": self.last_markdown_reason,
+            "requests": self.requests, "failovers": self.failovers,
+            "markdowns": self.markdowns, "markups": self.markups,
+            "restarts": self.restarts,
+            "probe_s": round(self.last_probe_s, 6),
+            "pid": self.handle.pid if self.handle is not None else None,
+            "spawned": self.handle is not None,
+        }
+
+
+def request_body_from_payload(rid: str, payload: dict) -> tuple[str, dict, dict]:
+    """Journal ACCEPT payload -> ``(path, body, headers)`` for re-dispatch
+    over the worker ``/v1/*`` surface — the inverse of
+    :func:`journal.request_payload` for everything HTTP can carry.
+    ``eos_ids``/``spec_ngram`` never differ from engine defaults for
+    HTTP-admitted requests, and the wall-clock deadline converts back to
+    the *remaining* ``deadline_ms`` budget (the caller checks expiry
+    first). Summarize payloads (marked by ``approach``) re-dispatch
+    through ``/v1/summarize``; everything else through ``/v1/generate``."""
+    body: dict = {"request_id": rid}
+    if payload.get("max_new_tokens") is not None:
+        body["max_new_tokens"] = payload["max_new_tokens"]
+    deadline_unix = payload.get("deadline_unix")
+    if deadline_unix is not None:
+        body["deadline_ms"] = max(
+            1, int((deadline_unix - time.time()) * 1000.0)
+        )
+    headers = {"X-Request-Id": rid}
+    if payload.get("tenant"):
+        headers["X-Tenant"] = payload["tenant"]
+    approach = payload.get("approach")
+    if approach:
+        body["text"] = payload.get("prompt", "")
+        body["approach"] = approach
+        return "/v1/summarize", body, headers
+    body["prompt"] = payload.get("prompt", "")
+    cfg = payload.get("config") or {}
+    for key in ("temperature", "top_k", "top_p", "seed", "spec_k"):
+        if cfg.get(key) is not None:
+            body[key] = cfg[key]
+    if payload.get("reference") is not None:
+        body["reference"] = payload["reference"]
+    if payload.get("cache_hint") is not None:
+        body["cache_hint"] = payload["cache_hint"]
+    return "/v1/generate", body, headers
+
+
+class _WorkerConns(threading.local):
+    """Per-thread keep-alive sockets to workers (handler threads and the
+    failover threads each keep their own, so no lock and no sharing)."""
+
+    def __init__(self) -> None:
+        self.conns: dict[tuple[str, int], http.client.HTTPConnection] = {}
+
+
+class RouterState:
+    """Front-door state: the worker table, probe loop, global journal,
+    admission counters, and the failover machinery."""
+
+    def __init__(
+        self,
+        workers: list[Worker],
+        *,
+        journal_dir: str | Path | None = None,
+        journal_fsync_s: float = 0.05,
+        probe_interval_s: float = 0.25,
+        probe_timeout_s: float = 2.0,
+        down_after: int = 2,
+        up_after: int = 1,
+        max_inflight: int = 256,
+        proxy_timeout_s: float = 120.0,
+        default_deadline_s: float | None = None,
+        tenants: dict[str, str] | None = None,
+        restart_crashed: bool = True,
+        restart_backoff_s: float = 1.0,
+        probe_slo_burn: bool = True,
+        federate: bool = True,
+        federation_interval_s: float = 1.0,
+        incident_dir: str | Path | None = None,
+        incident_min_interval_s: float = 30.0,
+        trace_ring: int = 256,
+    ) -> None:
+        self.workers = list(workers)
+        self.probe_interval_s = float(probe_interval_s)
+        self.probe_timeout_s = float(probe_timeout_s)
+        self.down_after = int(down_after)
+        self.up_after = int(up_after)
+        self.max_inflight = int(max_inflight)
+        self.proxy_timeout_s = float(proxy_timeout_s)
+        self.default_deadline_s = default_deadline_s
+        self.tenants = tenants  # name -> tier; None = single-class
+        self.restart_crashed = bool(restart_crashed)
+        self.restart_backoff_s = float(restart_backoff_s)
+        self.probe_slo_burn = bool(probe_slo_burn)
+        self.started_wall = time.time()
+        self.started_monotonic = time.monotonic()
+        # the GLOBAL request ledger: ACCEPT before dispatch, terminal from
+        # the worker's answer — the handoff source for worker deaths AND
+        # the replay source for router restarts. None = volatile routing
+        self.journal: RequestJournal | None = None
+        if journal_dir:
+            self.journal = RequestJournal(
+                journal_dir, fsync_interval_s=journal_fsync_s
+            )
+        # bounded worker-label registry: the fleet roster, seeded at
+        # construction — every worker= label the router's /metrics emits
+        # passes through canonical(), so an off-roster name can never mint
+        # a new series (the metric-label-cardinality contract)
+        self.worker_labels = TenantLabelRegistry(
+            cap=max(64, 2 * len(self.workers) + 8),
+            seed=[w.name for w in self.workers],
+        )
+        # the routing-decision ring: route / markdown / markup / failover /
+        # handoff_replay / worker_restart / incident events — the router's
+        # half of every incident bundle
+        self.recorder = FlightRecorder(capacity=4096,
+                                       directory=incident_dir)
+        # router-side spans for every proxied request — the root of the
+        # stitched fleet trace. sample=1.0: the proxy hop is a worker HTTP
+        # round trip; a handful of span appends is noise against it
+        self.obs = ObsHub(sample=1.0, ring=int(trace_ring))
+        self.federation = (
+            FleetFederation(self, interval_s=federation_interval_s)
+            if federate else None
+        )
+        self.incidents = IncidentManager(
+            self, self.federation, incident_dir,
+            min_interval_s=incident_min_interval_s,
+        )
+        if self.federation is not None:
+            self.federation.fast_burn_cb = (
+                lambda detail: self.incidents.trigger("slo_fast_burn",
+                                                      detail)
+            )
+        # lock-order: this lock is OUTER to the journal's (journal stays
+        # innermost fleet-wide, same as under the queue lock in-process);
+        # in practice every journal call here runs outside the router lock
+        self._lock = make_lock("serve.router")
+        self._inflight = 0                      # guarded by: _lock
+        self._assigned: dict[str, str] = {}     # rid -> worker name  # guarded by: _lock
+        self._claimed: set[str] = set()         # rids a failover path owns  # guarded by: _lock
+        self._attached: set[str] = set()        # rids a client still waits on  # guarded by: _lock
+        self._sheds: dict[str, int] = {}        # reason -> count  # guarded by: _lock
+        self._tenant_requests: dict[str, int] = {}  # guarded by: _lock
+        self._draining = False                  # guarded by: _lock
+        self._rolling = False                   # guarded by: _lock
+        self._replay_started = self.journal is None  # guarded by: _lock
+        self._replay_done = self.journal is None     # guarded by: _lock
+        self._stop = threading.Event()
+        self._probe_thread: threading.Thread | None = None
+        self._conns = _WorkerConns()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> None:
+        """Start the probe loop (and, journal permitting, arm the startup
+        replay — it fires from the probe loop once a worker is up)."""
+        self._probe_thread = threading.Thread(
+            target=self._probe_loop, name="router-probe", daemon=True
+        )
+        self._probe_thread.start()
+        if self.federation is not None:
+            self.federation.start()
+
+    def close(self, drain_timeout_s: float = 30.0) -> None:
+        """Graceful shutdown: stop admitting (typed 503), drain in-flight
+        proxies (bounded), stop probing, drain every spawned worker
+        (SIGTERM -> exit 0), seal + close the journal."""
+        with self._lock:
+            self._draining = True
+        t_end = time.monotonic() + drain_timeout_s
+        while time.monotonic() < t_end:
+            with self._lock:
+                busy = self._inflight
+            if busy == 0:
+                break
+            time.sleep(0.02)
+        self._stop.set()
+        if self.federation is not None:
+            self.federation.close()
+        if self._probe_thread is not None:
+            self._probe_thread.join(timeout=10.0)
+        for w in self.workers:
+            if w.handle is not None and w.handle.alive:
+                w.handle.sigterm()
+        for w in self.workers:
+            if w.handle is not None and w.handle.proc is not None:
+                try:
+                    rc = w.handle.wait_exit(drain_timeout_s)
+                    logger.info("worker %s exited rc=%s", w.name, rc)
+                # lint-allow[swallowed-exception]: a drain-timeout escalates to SIGKILL right below — the worker ends either way and shutdown proceeds
+                except Exception:
+                    logger.warning(
+                        "worker %s ignored SIGTERM at router shutdown — "
+                        "killing", w.name,
+                    )
+                    w.handle.sigkill()
+                    w.handle.wait_exit(10.0)
+        if self.journal is not None:
+            self.journal.seal()
+            self.journal.close()
+
+    def readiness(self) -> tuple[bool, str]:
+        """The router's own ``/readyz`` verdict, same typed contract as
+        the worker's: draining / pre_replay / no_worker are "alive but do
+        not route"."""
+        with self._lock:
+            if self._draining:
+                return False, "draining"
+            if not self._replay_done:
+                return False, "pre_replay"
+            if not any(w.up and not w.draining for w in self.workers):
+                return False, "no_worker"
+        return True, "ready"
+
+    def wait_ready(self, timeout_s: float = 30.0) -> None:
+        t_end = time.monotonic() + timeout_s
+        while time.monotonic() < t_end:
+            ready, _ = self.readiness()
+            if ready:
+                return
+            time.sleep(0.02)
+        raise TimeoutError("router never became ready "
+                           f"({self.readiness()[1]})")
+
+    # -- routing -----------------------------------------------------------
+
+    def _pick_locked(self, affinity: str | None,
+                     exclude: set[str] | None = None) -> Worker | None:
+        up = [w for w in self.workers if w.up and not w.draining]
+        if exclude:
+            spared = [w for w in up if w.name not in exclude]
+            # only honor the exclusion when an alternative exists — with
+            # one worker left, retrying it beats shedding outright
+            if spared:
+                up = spared
+        if not up:
+            return None
+        if affinity:
+            # rendezvous (highest-random-weight) hashing: every key ranks
+            # every worker; a mark-down remaps only the lost worker's keys,
+            # so cache affinity survives failovers
+            return max(up, key=lambda w: zlib.crc32(
+                f"{affinity}|{w.name}".encode()
+            ))
+        # least-loaded, tie-broken by lifetime count so idle-fleet traffic
+        # round-robins instead of piling onto the first worker
+        return min(up, key=lambda w: (w.inflight, w.requests))
+
+    def pick(self, affinity: str | None = None,
+             exclude: set[str] | None = None) -> Worker | None:
+        with self._lock:
+            return self._pick_locked(affinity, exclude)
+
+    def shed(self, reason: str) -> None:
+        with self._lock:
+            self._sheds[reason] = self._sheds.get(reason, 0) + 1
+
+    # -- health probing ----------------------------------------------------
+
+    def _probe_loop(self) -> None:
+        while not self._stop.wait(self.probe_interval_s):
+            for w in list(self.workers):
+                self._probe_one(w)
+            self._maybe_startup_replay()
+
+    def _maybe_startup_replay(self) -> None:
+        """Router-restart recovery: once any worker is routable, replay
+        the router journal's unfinished ACCEPTs (claimed exactly once —
+        take_unfinished is at-most-once per process)."""
+        with self._lock:
+            if self._replay_started:
+                return
+            if not any(w.up and not w.draining for w in self.workers):
+                return
+            self._replay_started = True
+        threading.Thread(target=self._startup_replay,
+                         name="router-replay", daemon=True).start()
+
+    def _startup_replay(self) -> None:
+        t0 = time.monotonic()
+        entries = self.journal.take_unfinished()
+        n = 0
+        for entry in entries:
+            n += self._redispatch(entry, exclude=None, source=None)
+        self.journal.note_replay(n, time.monotonic() - t0)
+        if entries:
+            logger.info("router journal replay: re-dispatched %d of %d "
+                        "unfinished request(s)", n, len(entries))
+        with self._lock:
+            self._replay_done = True
+
+    def _probe_one(self, w: Worker) -> None:
+        # a dead PROCESS is an immediate verdict — no hysteresis, the exit
+        # code says whether the journal was sealed (0 / 86) or torn
+        if w.handle is not None and w.handle.proc is not None:
+            rc = w.handle.poll()
+            if rc is not None:
+                self._note_death(w, rc)
+                return
+        t0 = time.monotonic()
+        ok = False
+        reason = "unreachable"
+        try:
+            status, body = self._worker_http(
+                w, "GET", "/readyz", timeout=self.probe_timeout_s
+            )
+            ok = status == 200
+            if not ok:
+                reason = (body or {}).get("reason", f"http:{status}")
+            elif self.probe_slo_burn:
+                fed = (self.federation.fresh_payload(w.name)
+                       if self.federation is not None else None)
+                if fed is not None:
+                    # federation-fed markdown policy: the scrape loop
+                    # already holds this worker's windowed SLO verdict —
+                    # no second HTTP round trip per probe beat
+                    if (fed.get("slo") or {}).get("breached"):
+                        ok = False
+                        reason = "slo_burn"
+                else:
+                    # no fresh federation sample (loop off, or the worker
+                    # just joined): fall back to the /healthz verdict
+                    hstatus, hbody = self._worker_http(
+                        w, "GET", "/healthz", timeout=self.probe_timeout_s
+                    )
+                    slo = ((hbody or {}).get("slo")
+                           if hstatus == 200 else None)
+                    if isinstance(slo, str) and slo.startswith("BREACH"):
+                        # the worker's own SLO verdict (slo.status_line()):
+                        # a page-level burn browns the worker out of
+                        # rotation before clients feel the tail
+                        ok = False
+                        reason = "slo_burn"
+        # lint-allow[swallowed-exception]: ok stays False and the hysteresis below IS the resolution — a refused probe is a strike, not an error
+        except OSError:
+            pass
+        dt = time.monotonic() - t0
+        marked_down = marked_up = False
+        with self._lock:
+            w.last_probe_s = dt
+            w.last_reason = reason if not ok else "ready"
+            if ok:
+                w.fail_streak = 0
+                w.ok_streak += 1
+                if not w.up and w.ok_streak >= self.up_after:
+                    w.up = True
+                    w.markups += 1
+                    w.handed_off = False
+                    marked_up = True
+                    logger.info("worker %s marked UP", w.name)
+            else:
+                w.ok_streak = 0
+                w.fail_streak += 1
+                if w.up and w.fail_streak >= self.down_after:
+                    w.up = False
+                    w.markdowns += 1
+                    w.last_markdown_reason = reason
+                    marked_down = True
+                    logger.warning("worker %s marked DOWN (%s)",
+                                   w.name, reason)
+        if marked_up:
+            self.recorder.record("markup", worker=w.name)
+        if marked_down:
+            self.recorder.record("markdown", worker=w.name, reason=reason)
+            self.incidents.trigger("markdown", detail=f"{w.name}: {reason}")
+            self._spawn_handoff(w, reason)
+
+    def _note_death(self, w: Worker, rc: int) -> None:
+        reason = "sealed" if rc == WATCHDOG_EXIT_CODE else f"exit:{rc}"
+        respawn = False
+        with self._lock:
+            was_up = w.up
+            w.up = False
+            w.ok_streak = 0
+            w.fail_streak += 1
+            w.last_reason = reason
+            if was_up:
+                w.markdowns += 1
+                w.last_markdown_reason = reason
+            need_handoff = not w.handed_off
+            w.handed_off = True
+            if (
+                self.restart_crashed
+                and not self._draining
+                and not w.draining
+                and time.monotonic() - w.last_restart
+                > self.restart_backoff_s
+            ):
+                w.last_restart = time.monotonic()
+                w.restarts += 1
+                respawn = True
+        if was_up:
+            logger.warning("worker %s died (%s) — marked DOWN",
+                           w.name, reason)
+            self.recorder.record("markdown", worker=w.name, reason=reason)
+            self.incidents.trigger("markdown", detail=f"{w.name}: {reason}")
+        if need_handoff:
+            self._spawn_handoff(w, reason)
+        if respawn:
+            # the respawned worker replays ITS journal before /readyz says
+            # 200 (pre_replay), so it re-enters rotation fully recovered
+            logger.info("respawning worker %s after %s", w.name, reason)
+            self.recorder.record("worker_restart", worker=w.name,
+                                 reason=reason)
+            w.handle.start()
+
+    # -- journal-handoff failover ------------------------------------------
+
+    def _spawn_handoff(self, w: Worker, reason: str) -> None:
+        if self.journal is None:
+            return
+        threading.Thread(
+            target=self._handoff, args=(w, reason),
+            name=f"handoff-{w.name}", daemon=True,
+        ).start()
+
+    def _handoff(self, worker: Worker, reason: str) -> int:
+        """Replay every non-terminal rid assigned to a dead/sealed worker
+        onto survivors. Claims under the lock so the inline proxy-thread
+        failover and this sweep never double-dispatch one rid.
+
+        Rids whose client is still attached to a proxy thread are left to
+        that thread's inline failover, which answers the client 200 once
+        its round trip to the worker fails (at once for a dead process,
+        at ``proxy_timeout_s`` for a hung one). The JAX router claims them
+        here too, so a probe beat landing between a worker's death and the
+        proxy thread's wake-up answers those clients a typed 503
+        ``failover_in_progress`` instead."""
+        with self._lock:
+            rids = [
+                rid for rid, wn in self._assigned.items()
+                if wn == worker.name and rid not in self._claimed
+                and rid not in self._attached
+            ]
+            self._claimed.update(rids)
+        if rids:
+            self.recorder.record("failover", worker=worker.name,
+                                 reason=reason, rids=len(rids))
+            self.incidents.trigger("failover",
+                                   detail=f"{worker.name}: {reason} "
+                                          f"({len(rids)} rid(s))")
+        n = 0
+        for rid in rids:
+            entry = None
+            for e in self.journal.lookup(rid):
+                if e.rid == rid:
+                    entry = e
+                    break
+            if entry is None or entry.terminal:
+                with self._lock:
+                    self._assigned.pop(rid, None)
+                    self._claimed.discard(rid)
+                continue
+            n += self._redispatch(entry, exclude={worker.name},
+                                  source=worker)
+        if n:
+            logger.info("handoff from %s (%s): %d request(s) replayed "
+                        "onto survivors", worker.name, reason, n)
+        return n
+
+    def _redispatch(self, entry, exclude: set[str] | None,
+                    source: Worker | None) -> int:
+        """Re-POST one journaled ACCEPT onto a survivor; terminal-izes the
+        ledger entry whatever happens (complete, typed shed, or typed
+        failover failure). Returns 1 if the entry COMPLETEd."""
+        rid = entry.rid
+        payload = entry.payload
+        deadline_unix = payload.get("deadline_unix")
+        if deadline_unix is not None and time.time() >= deadline_unix:
+            self.journal.fail(rid, "shed:deadline",
+                              "expired before failover replay")
+            self._release(rid)
+            return 0
+        path, body, headers = request_body_from_payload(rid, payload)
+        # cross-process trace context on the replay hop, same as the
+        # inline proxy's
+        headers["X-Parent-Span"] = f"router:{rid}"
+        mode = "handoff_replay" if source is not None else "journal_replay"
+        # the POST-failover half of the stitched fleet trace: a NEW
+        # router-side trace under the SAME base trace id as the original
+        # dispatch, so the merged /debug/trace shows both halves of a
+        # handed-off request inside one process group
+        trace = (self.obs.start_request(rid.partition("#")[0])
+                 if self.obs is not None else None)
+        outcome = "error"
+        try:
+            affinity = (payload.get("cache_hint") or payload.get("tenant")
+                        or None)
+            tried = set(exclude or ())
+            attempts = max(3, len(self.workers) + 1)
+            last_detail = "no routable worker"
+            for attempt in range(attempts):
+                if (deadline_unix is not None
+                        and time.time() >= deadline_unix):
+                    last_detail = "deadline expired during failover"
+                    break
+                w = self.pick(affinity, exclude=tried)
+                if w is None:
+                    time.sleep(min(0.2, self.probe_interval_s))
+                    continue
+                with self._lock:
+                    self._assigned[rid] = w.name
+                    w.inflight += 1
+                    w.requests += 1
+                    if source is not None:
+                        source.failovers += 1
+                if source is not None:
+                    source = None  # count the failover once, not per attempt
+                self.recorder.record(mode, rid=rid, worker=w.name)
+                self.journal.start(rid)
+                t_req = time.monotonic()
+                try:
+                    status, resp = self._worker_http(
+                        w, "POST", path, body=body, headers=headers,
+                        timeout=self.proxy_timeout_s,
+                    )
+                # lint-allow[swallowed-exception]: resolved by the retry loop — the next attempt picks a survivor, and exhaustion terminal-izes the rid as failover:exhausted below
+                except OSError as e:
+                    if trace is not None:
+                        trace.add(mode, t_req, time.monotonic() - t_req,
+                                  worker=w.name, outcome="unreachable")
+                    with self._lock:
+                        w.inflight -= 1
+                    tried.add(w.name)
+                    last_detail = f"{w.name}: {e}"
+                    continue
+                if trace is not None:
+                    trace.add(mode, t_req, time.monotonic() - t_req,
+                              worker=w.name, status=status)
+                with self._lock:
+                    w.inflight -= 1
+                if status == 200:
+                    self._journal_success(rid, path, resp)
+                    self._release(rid)
+                    outcome = "ok"
+                    return 1
+                if status in (429, 503):
+                    # a typed worker shed: back off and retry a (possibly
+                    # different) survivor until attempts run out
+                    tried = set(exclude or ())
+                    last_detail = f"{w.name}: shed {status}"
+                    time.sleep(min(0.2, self.probe_interval_s))
+                    continue
+                detail = (json.dumps(resp)[:200] if resp
+                          else f"http {status}")
+                self.journal.fail(rid, f"failover:http_{status}", detail)
+                self._release(rid)
+                return 0
+            self.journal.fail(rid, "failover:exhausted", last_detail)
+            self._release(rid)
+            return 0
+        finally:
+            if self.obs is not None:
+                self.obs.finish_request(trace, outcome)
+
+    def _journal_success(self, rid: str, path: str, resp: dict | None) -> None:
+        """Fold a worker 200 into the ledger for ONE single-prompt
+        re-dispatch (the proxy path handles fan-out itself)."""
+        if path == "/v1/summarize":
+            text = (resp or {}).get("summary", "")
+            gen = ((resp or {}).get("serving") or {}).get(
+                "generated_tokens", 0
+            )
+            self.journal.complete(rid, text, gen)
+            return
+        comps = (resp or {}).get("completions") or []
+        first = comps[0] if comps else {}
+        self.journal.complete(
+            rid, first.get("text", ""),
+            (first.get("record") or {}).get("generated_tokens", 0),
+        )
+
+    def _release(self, rid: str) -> None:
+        with self._lock:
+            self._assigned.pop(rid, None)
+            self._claimed.discard(rid)
+
+    # -- worker I/O --------------------------------------------------------
+
+    def _worker_http(self, w: Worker, method: str, path: str,
+                     body: dict | None = None,
+                     headers: dict | None = None,
+                     timeout: float = 30.0):
+        """One round trip to a worker over this thread's keep-alive
+        socket -> (status, parsed-JSON-or-None). A stale keep-alive (the
+        worker restarted between requests) gets ONE fresh-socket retry;
+        a genuinely dead worker raises OSError to the caller's failover
+        logic. Duplicate execution on the retry is safe: requests are
+        rid-keyed and the engine is deterministic per payload."""
+        key = (w.host, w.port)
+        raw_body = json.dumps(body).encode() if body is not None else None
+        hdrs = {"Content-Type": "application/json", **(headers or {})}
+        for fresh in (False, True):
+            conn = None if fresh else self._conns.conns.get(key)
+            if conn is None:
+                conn = http.client.HTTPConnection(
+                    w.host, w.port, timeout=timeout
+                )
+                self._conns.conns[key] = conn
+            try:
+                conn.timeout = timeout
+                conn.request(method, path, body=raw_body, headers=hdrs)
+                resp = conn.getresponse()
+                raw = resp.read()
+                try:
+                    return resp.status, json.loads(raw) if raw else None
+                # lint-allow[swallowed-exception]: a non-JSON body relays as None — callers branch on status
+                except ValueError:
+                    return resp.status, None
+            except OSError:
+                conn.close()
+                self._conns.conns.pop(key, None)
+                if fresh:
+                    raise
+        raise OSError("unreachable")  # pragma: no cover — loop always returns/raises
+
+    # -- admission + accounting --------------------------------------------
+
+    def admit(self, tenant: str) -> str | None:
+        """Front-door admission: returns a typed shed reason, or None when
+        admitted (caller MUST pair with :meth:`release_admission`)."""
+        with self._lock:
+            if self._draining:
+                return "shutdown"
+            if self._inflight >= self.max_inflight:
+                return "queue_full"
+            self._inflight += 1
+            key = tenant or ""
+            self._tenant_requests[key] = self._tenant_requests.get(key, 0) + 1
+        return None
+
+    def release_admission(self) -> None:
+        with self._lock:
+            self._inflight -= 1
+
+    def assign(self, rids: list[str], w: Worker) -> None:
+        with self._lock:
+            for rid in rids:
+                self._assigned[rid] = w.name
+            w.inflight += 1
+            w.requests += 1
+
+    def unassign(self, rids: list[str], w: Worker) -> None:
+        with self._lock:
+            for rid in rids:
+                self._assigned.pop(rid, None)
+                self._claimed.discard(rid)
+            w.inflight -= 1
+
+    def assigned_worker(self, rid: str) -> Worker | None:
+        """The worker currently holding ``rid`` (or any of its fan-out
+        children) — the cancel-forwarding target."""
+        prefix = rid + "#"
+        with self._lock:
+            name = self._assigned.get(rid)
+            if name is None:
+                for r, wn in self._assigned.items():
+                    if r.startswith(prefix):
+                        name = wn
+                        break
+            if name is None:
+                return None
+            for w in self.workers:
+                if w.name == name:
+                    return w
+        return None
+
+    # -- rolling deploy ----------------------------------------------------
+
+    def rolling_restart(self, drain_timeout_s: float = 30.0,
+                        ready_timeout_s: float = 60.0) -> dict:
+        """Drain-one-restart-one behind the front door: for each spawned
+        worker — out of rotation, wait for ITS router-side in-flight to
+        hit zero, SIGTERM (drain + seal + exit 0), restart, back in
+        rotation only once the probe loop marks it up. Runs on the
+        caller's thread (the HTTP surface spawns one)."""
+        with self._lock:
+            if self._rolling or self._draining:
+                return {"status": "already_rolling_or_draining"}
+            self._rolling = True
+        restarted, skipped = [], []
+        try:
+            for w in self.workers:
+                if w.handle is None:
+                    skipped.append(w.name)
+                    continue
+                with self._lock:
+                    w.draining = True
+                t_end = time.monotonic() + drain_timeout_s
+                while time.monotonic() < t_end:
+                    with self._lock:
+                        busy = w.inflight
+                    if busy == 0:
+                        break
+                    time.sleep(0.02)
+                rc = w.handle.drain(drain_timeout_s)
+                with self._lock:
+                    w.up = False
+                    w.ok_streak = 0
+                    w.fail_streak = 0
+                    w.restarts += 1
+                    w.last_restart = time.monotonic()
+                    w.handed_off = True  # sealed drain owes no handoff
+                w.handle.start()
+                t_end = time.monotonic() + ready_timeout_s
+                while time.monotonic() < t_end:
+                    with self._lock:
+                        back = w.up
+                    if back:
+                        break
+                    time.sleep(self.probe_interval_s / 2)
+                with self._lock:
+                    w.draining = False
+                    w.handed_off = False
+                restarted.append({"name": w.name, "drain_rc": rc})
+                logger.info("rolling restart: %s drained (rc=%s) and "
+                            "rejoined", w.name, rc)
+        finally:
+            with self._lock:
+                self._rolling = False
+        return {"status": "done", "restarted": restarted,
+                "skipped": skipped}
+
+    # -- introspection -----------------------------------------------------
+
+    def health_payload(self) -> dict:
+        from .. import __version__
+
+        with self._lock:
+            rows = [w.row() for w in self.workers]
+            payload = {
+                "status": "ok",
+                "role": "router",
+                "version": __version__,
+                "started_at": time.strftime(
+                    "%Y-%m-%dT%H:%M:%SZ", time.gmtime(self.started_wall)
+                ),
+                "uptime_s": round(
+                    time.monotonic() - self.started_monotonic, 3
+                ),
+                "workers": rows,
+                "workers_up": sum(1 for r in rows if r["up"]),
+                "inflight": self._inflight,
+                "draining": self._draining,
+                "rolling": self._rolling,
+                "sheds": dict(self._sheds),
+                "tenant_requests": dict(self._tenant_requests),
+            }
+        if self.journal is not None:
+            payload["journal"] = self.journal.stats_dict()
+        # per-worker operator summary (outside the router lock — the
+        # federation sample table carries its own leaf lock): the at-a-
+        # glance block an operator reads before anything else. Fields come
+        # from the worker's own snapshot when federation has one; the
+        # probe-loop view covers the rest
+        fed = self.federation
+        for r in payload["workers"]:
+            s = fed.sample(r["name"]) if fed is not None else None
+            p = s.payload if s is not None else None
+            wd = (p.get("watchdog") or {}) if p else {}
+            r["summary"] = {
+                "ready": bool(p.get("ready")) if p else r["up"],
+                "readyz": p.get("readyz_reason") if p else r["reason"],
+                "rung": p.get("degraded_rung", 0) if p else None,
+                "inflight": r["inflight"],
+                "watchdog_max_heartbeat_age_s": wd.get(
+                    "max_heartbeat_age_s"
+                ),
+                "last_markdown_reason": r["last_markdown_reason"],
+                "sample_age_s": (round(s.age_s(), 3)
+                                 if s is not None else None),
+            }
+        if fed is not None:
+            payload["federation"] = fed.stats_dict()
+        payload["incidents"] = self.incidents.counts_snapshot()
+        if not payload["workers_up"]:
+            payload["status"] = "degraded"
+        return payload
+
+    def render_metrics(self) -> str:
+        """The router's /metrics: vnsum_serve_router_* from the SAME
+        registry the worker metrics use (one doc-lint surface), plus the
+        vnsum_serve_journal_* gauges for the global ledger — so fleet
+        soaks scrape `journal_pending` off the router exactly like the
+        single-process soaks scrape the server."""
+        with self._lock:
+            rows = [w.row() for w in self.workers]
+            sheds = dict(self._sheds)
+        reg = self.worker_labels
+        lines: list[str] = []
+
+        def meta(name: str) -> None:
+            typ, help_ = _METRICS[name]  # KeyError = unregistered metric
+            lines.append(f"# HELP {_PREFIX}{name} {help_}")
+            lines.append(f"# TYPE {_PREFIX}{name} {typ}")
+
+        def simple(name: str, value) -> None:
+            meta(name)
+            lines.append(f"{_PREFIX}{name} {value}")
+
+        simple("router_workers", len(rows))
+        simple("router_workers_up", sum(1 for r in rows if r["up"]))
+        for metric, key in (
+            ("router_requests_total", "requests"),
+            ("router_failovers_total", "failovers"),
+            ("router_markdowns_total", "markdowns"),
+            ("router_markups_total", "markups"),
+            ("router_restarts_total", "restarts"),
+            ("router_probe_seconds", "probe_s"),
+        ):
+            meta(metric)
+            for r in rows:
+                name = r["name"]
+                # worker= values pass through the bounded roster registry:
+                # canonical() collapses anything off-roster into "other",
+                # which is what the metric-label-cardinality rule checks
+                lines.append(
+                    f'{_PREFIX}{metric}'
+                    f'{{worker="{reg.canonical(name, touch=False)}"}}'
+                    f" {r[key]}"
+                )
+        meta("router_sheds_total")
+        for reason in _SHED_REASONS:
+            lines.append(
+                # lint-allow[metric-label-cardinality]: reason iterates the _SHED_REASONS module constant — four literal front-door shed classes, nothing request-derived
+                f'{_PREFIX}router_sheds_total{{reason="{reason}"}} '
+                f"{sheds.get(reason, 0)}"
+            )
+        if self.journal is not None:
+            js = self.journal.stats_dict()
+            simple("journal_records_total", js.get("records", 0))
+            simple("journal_appended_bytes_total",
+                   js.get("appended_bytes", 0))
+            simple("journal_fsyncs_total", js.get("fsyncs", 0))
+            simple("journal_rotations_total", js.get("rotations", 0))
+            simple("journal_torn_records_total", js.get("torn_records", 0))
+            simple("journal_replayed_total", js.get("replayed", 0))
+            simple("journal_replay_seconds_total",
+                   js.get("replay_seconds", 0.0))
+            simple("journal_pending", js.get("pending", 0))
+        # fleet federation rollups + per-worker gauges (the scrape loop's
+        # re-export) and the incident counter, by typed trigger reason
+        if self.federation is not None:
+            lines.extend(self.federation.metrics_lines(reg))
+        inc = self.incidents.counts_snapshot()
+        meta("fleet_incidents_total")
+        for reason in ("slo_fast_burn", "markdown", "failover",
+                       "operator"):
+            lines.append(
+                f'{_PREFIX}fleet_incidents_total{{reason="{reason}"}} '
+                f"{inc.get(reason, 0)}"
+            )
+        return "\n".join(lines) + "\n"
+
+
+# -- HTTP surface -------------------------------------------------------------
+
+
+def make_router_handler(state: RouterState):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        MAX_BODY_BYTES = 16 * 1024 * 1024
+
+        _rid: str | None = None
+        _trace_status: str = "ok"
+
+        # -- plumbing (same response contract as serve/server.py) ---------
+
+        def _json(self, payload: dict, status: int = 200,
+                  headers: dict | None = None) -> None:
+            if self._rid is not None:
+                payload = {"request_id": self._rid, **payload}
+            body = json.dumps(payload, ensure_ascii=False).encode()
+            self.send_response(status)
+            self.send_header("Content-Type",
+                             "application/json; charset=utf-8")
+            if self._rid is not None:
+                self.send_header("X-Request-Id", self._rid)
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _shed(self, reason: str, status: int,
+                  retry_after_s: float = 1.0) -> None:
+            state.shed(reason)
+            self._json(
+                {"error": "shed", "reason": reason,
+                 "retry_after_s": retry_after_s},
+                status,
+                {"Retry-After": str(max(1, int(round(retry_after_s))))},
+            )
+
+        def _read_json(self) -> dict | None:
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+            # lint-allow[swallowed-exception]: a garbled header becomes length=-1, answered with a typed 400 below
+            except ValueError:
+                length = -1
+            if length < 0 or length > self.MAX_BODY_BYTES:
+                self.close_connection = True
+                if length < 0:
+                    self._json({"error": "bad Content-Length"}, 400)
+                else:
+                    self._json({"error": "request body too large"}, 413)
+                return None
+            try:
+                req = json.loads(self.rfile.read(length) or b"{}")
+            except json.JSONDecodeError:
+                self._json({"error": "invalid JSON"}, 400)
+                return None
+            except UnicodeDecodeError:
+                self._json({"error": "request body is not valid UTF-8"},
+                           400)
+                return None
+            if not isinstance(req, dict):
+                self._json({"error": "malformed request"}, 400)
+                return None
+            return req
+
+        def _tenant(self) -> tuple[str, str] | None:
+            """(tenant, tier) against the router's table; unknown names
+            are a typed 400 like the worker's — the front door owns
+            admission, so it owns the rejection too."""
+            name = self.headers.get("X-Tenant")
+            if state.tenants is None or name is None:
+                return (name or "", "interactive")
+            if name not in state.tenants:
+                self._json(
+                    {"error": f"unknown tenant {name!r}",
+                     "tenants": sorted(state.tenants)}, 400,
+                )
+                return None
+            return name, state.tenants[name]
+
+        # -- verbs --------------------------------------------------------
+
+        def do_GET(self) -> None:  # noqa: N802 (stdlib API)
+            self._rid = None
+            path, _, _query = self.path.partition("?")
+            if path == "/healthz":
+                self._json(state.health_payload())
+            elif path == "/readyz":
+                ready, reason = state.readiness()
+                if ready:
+                    self._json({"status": "ready", "role": "router"})
+                else:
+                    self._json(
+                        {"error": "not_ready", "reason": reason,
+                         "retry_after_s": 1.0},
+                        503, {"Retry-After": "1"},
+                    )
+            elif path == "/metrics":
+                body = state.render_metrics().encode()
+                self.send_response(200)
+                self.send_header(
+                    "Content-Type", "text/plain; version=0.0.4; "
+                    "charset=utf-8"
+                )
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif path == "/debug/trace":
+                self._debug_trace()
+            elif path == "/debug/slo":
+                if state.federation is None:
+                    self._json({"error": "federation disabled "
+                                         "(--no-federation)"}, 404)
+                else:
+                    self._json(state.federation.fleet_slo())
+            elif path == "/v1/usage":
+                if state.federation is None:
+                    self._json({"error": "federation disabled "
+                                         "(--no-federation)"}, 404)
+                else:
+                    self._json(state.federation.fleet_usage())
+            elif path == "/debug/flightrecorder":
+                # the routing-decision ring: the router's half of every
+                # incident bundle, readable without minting one
+                self._json(state.recorder.snapshot())
+            elif path.startswith("/v1/requests/"):
+                self._request_status(path[len("/v1/requests/"):])
+            else:
+                self._json({"error": f"unknown path {path}"}, 404)
+
+        def _debug_trace(self) -> None:
+            """ONE merged Chrome trace for the whole fleet: a fresh
+            federation sweep pulls every worker's span ring (and its
+            clock offset from the scrape RTT midpoint), the router's own
+            proxy spans join as the reference-clock group, and traces
+            sharing an id — including the pre-/post-failover halves of a
+            handed-off request — land in one Perfetto process."""
+            from ..obs.export import merged_chrome_trace, trace_state_payload
+
+            groups = [{
+                "source": "router",
+                "clock_offset_s": 0.0,
+                "traces": trace_state_payload(state.obs.snapshot()[0]),
+            }]
+            if state.federation is not None:
+                state.federation.scrape_all()
+                groups.extend(state.federation.trace_groups())
+            self._json(merged_chrome_trace(groups))
+
+        def do_POST(self) -> None:  # noqa: N802 (stdlib API)
+            self._rid = None
+            path, _, _query = self.path.partition("?")
+            if path in ("/v1/generate", "/v1/summarize"):
+                self._proxy(path)
+            elif path == "/admin/rolling-restart":
+                threading.Thread(
+                    target=state.rolling_restart,
+                    name="rolling-restart", daemon=True,
+                ).start()
+                self._json({"status": "rolling"}, 202)
+            else:
+                self._json({"error": f"unknown path {path}"}, 404)
+
+        def do_DELETE(self) -> None:  # noqa: N802 (stdlib API)
+            self._rid = None
+            path, _, _query = self.path.partition("?")
+            if not path.startswith("/v1/requests/"):
+                self._json({"error": f"unknown path {path}"}, 404)
+                return
+            self._cancel(path[len("/v1/requests/"):])
+
+        # -- the proxy hot path -------------------------------------------
+
+        def _proxy(self, path: str) -> None:
+            req = self._read_json()
+            if req is None:
+                return
+            try:
+                self._rid = _request_id(req, self.headers)
+            except _BadRequest as e:
+                self._json({"error": str(e)}, 400)
+                return
+            qos = self._tenant()
+            if qos is None:
+                return
+            tenant, tier = qos
+            if req.get("stream"):
+                # SSE pass-through needs chunked relay plumbing the thin
+                # front door doesn't have yet; a streaming client can
+                # speak to a worker directly
+                state.shed("stream_unsupported")
+                self._json(
+                    {"error": "stream_unsupported",
+                     "detail": "the fleet router does not proxy SSE; "
+                               "POST without stream or address a worker "
+                               "directly"}, 501,
+                )
+                return
+            shed_reason = state.admit(tenant)
+            if shed_reason is not None:
+                self._shed(shed_reason,
+                           503 if shed_reason == "shutdown" else 429)
+                return
+            # root of the stitched fleet trace: the router's own span ring
+            # records the proxy hop(s); workers nest under it via the
+            # X-Parent-Span header the dispatch forwards
+            trace = (state.obs.start_request(self._rid)
+                     if state.obs is not None else None)
+            self._trace_status = "ok"
+            try:
+                self._dispatch(path, req, tenant, tier, trace)
+            finally:
+                state.release_admission()
+                if state.obs is not None:
+                    state.obs.finish_request(trace, self._trace_status)
+
+        def _journal_accepts(self, path: str, req: dict, tenant: str,
+                             tier: str) -> list[str]:
+            """ACCEPT every prompt of this request into the GLOBAL ledger
+            before any dispatch — the handoff/replay source. Fan-out
+            children get ``rid#N`` names in prompt order, matching the
+            worker-side naming so the two ledgers correlate."""
+            if state.journal is None:
+                return []
+            try:
+                max_new_tokens = _number(req, "max_new_tokens", int,
+                                         integer=True)
+                config = _gen_config_from(req)
+                deadline = _deadline_from(req, state.default_deadline_s)
+            except _BadRequest:
+                # the worker owns field validation and will answer the
+                # typed 400 — nothing journaled for a rejected body
+                return []
+            if path == "/v1/summarize":
+                reqs = [_RouterRequest(
+                    trace_id=self._rid, prompt=req.get("text", ""),
+                    max_new_tokens=max_new_tokens, deadline=deadline,
+                    tenant=tenant, tier=tier,
+                    approach=req.get("approach", "mapreduce"),
+                )]
+            else:
+                prompts = req.get("prompts")
+                if not isinstance(prompts, list):
+                    prompts = [req.get("prompt", "")]
+                refs = req.get("references")
+                if not isinstance(refs, list):
+                    refs = [req.get("reference")] * len(prompts)
+                hints = req.get("cache_hints")
+                if not isinstance(hints, list):
+                    hints = [req.get("cache_hint")] * len(prompts)
+                reqs = [
+                    _RouterRequest(
+                        trace_id=self._rid, prompt=p,
+                        max_new_tokens=max_new_tokens, config=config,
+                        reference=refs[i] if i < len(refs) else None,
+                        cache_hint=hints[i] if i < len(hints) else None,
+                        deadline=deadline, tenant=tenant, tier=tier,
+                    )
+                    for i, p in enumerate(prompts)
+                ]
+            return [state.journal.accept(r) for r in reqs]
+
+        def _dispatch(self, path: str, req: dict, tenant: str,
+                      tier: str, trace=None) -> None:
+            t_acc = time.monotonic()
+            rids = self._journal_accepts(path, req, tenant, tier)
+            if trace is not None:
+                trace.add("journal_accept", t_acc,
+                          time.monotonic() - t_acc, rids=len(rids))
+            # attached while this thread owns the client's answer: a
+            # worker's handoff leaves these rids to the inline failover
+            with state._lock:
+                state._attached.update(rids)
+            try:
+                self._route(path, req, tenant, rids, trace)
+            finally:
+                with state._lock:
+                    state._attached.difference_update(rids)
+                    # a round trip that raised past the failover (not an
+                    # OSError) leaves its rids assigned: the handoff the
+                    # attachment held off takes them now
+                    left = {state._assigned[r] for r in rids
+                            if r in state._assigned and r not in state._claimed}
+                for w in state.workers:
+                    if w.name in left:
+                        state._spawn_handoff(w, "proxy_error")
+
+        def _route(self, path: str, req: dict, tenant: str,
+                   rids: list[str], trace) -> None:
+            affinity = (
+                req.get("cache_hint")
+                or next((h for h in (req.get("cache_hints") or [])
+                         if h), None)
+                or tenant or None
+            )
+            body = {**req, "request_id": self._rid}
+            fwd_headers = {"X-Request-Id": self._rid,
+                           "X-Parent-Span": f"router:{self._rid}"}
+            if tenant:
+                fwd_headers["X-Tenant"] = tenant
+            tried: set[str] = set()
+            claimed_by_me = False
+            attempts = max(2, len(state.workers) + 1)
+            for _attempt in range(attempts):
+                w = state.pick(affinity, exclude=tried)
+                if w is None and _attempt + 1 < attempts:
+                    # a kill/mark-down window can leave zero routable
+                    # workers for a probe beat; wait one out (and forget
+                    # exclusions — a marked-up worker is fair game again)
+                    # before shedding the client
+                    tried.clear()
+                    time.sleep(min(0.25, state.probe_interval_s * 2))
+                    continue
+                if w is None:
+                    for rid in rids:
+                        state.journal.fail(rid, "shed:no_worker",
+                                           "no routable worker")
+                        state._release(rid)
+                    self._trace_status = "shed"
+                    self._shed("no_worker", 503)
+                    return
+                state.assign(rids, w)
+                state.recorder.record("route", rid=self._rid,
+                                      worker=w.name, path=path)
+                for rid in rids:
+                    state.journal.start(rid) if state.journal else None
+                t_req = time.monotonic()
+                try:
+                    status, resp = state._worker_http(
+                        w, "POST", path, body=body, headers=fwd_headers,
+                        timeout=state.proxy_timeout_s,
+                    )
+                except OSError as e:
+                    # inline failover: the client is still on the line —
+                    # claim the rids (so the probe-loop handoff skips
+                    # them) and re-dispatch onto a survivor ourselves. The
+                    # claim is checked ONCE: on a later hop (a second
+                    # worker dying under the same request) we already own
+                    # the claim and must keep retrying, not mistake our
+                    # own claim for a concurrent handoff and orphan the
+                    # rids non-terminal
+                    if trace is not None:
+                        # the PRE-failover half: this span and the
+                        # re-dispatch onto a survivor share one trace id,
+                        # which is what joins them in the merged trace
+                        trace.add("proxy", t_req,
+                                  time.monotonic() - t_req,
+                                  worker=w.name, outcome="failover")
+                    already = False
+                    with state._lock:
+                        w.inflight -= 1
+                        w.fail_streak += 1
+                        w.ok_streak = 0
+                        if not claimed_by_me:
+                            if any(r in state._claimed for r in rids):
+                                already = True
+                            else:
+                                state._claimed.update(rids)
+                                claimed_by_me = True
+                        if not already:
+                            w.failovers += len(rids) or 1
+                    state.recorder.record("failover", rid=self._rid,
+                                          worker=w.name,
+                                          error=str(e)[:120])
+                    state.incidents.trigger(
+                        "failover", detail=f"{w.name}: {e}"
+                    )
+                    if already:
+                        # a probe-loop handoff owns these rids; the result
+                        # lands in the ledger — point the client at it
+                        self._trace_status = "failover_in_progress"
+                        self._json(
+                            {"error": "failover_in_progress",
+                             "detail": f"poll /v1/requests/{self._rid}"},
+                            503, {"Retry-After": "1"},
+                        )
+                        return
+                    tried.add(w.name)
+                    logger.warning("proxy to %s failed (%s) — inline "
+                                   "failover", w.name, e)
+                    continue
+                if trace is not None:
+                    trace.add("proxy", t_req, time.monotonic() - t_req,
+                              worker=w.name, status=status)
+                if status != 200:
+                    self._trace_status = f"http_{status}"
+                self._settle(path, rids, w, status, resp)
+                return
+            for rid in rids:
+                state.journal.fail(rid, "failover:exhausted",
+                                   "inline retries exhausted")
+                state._release(rid)
+            self._trace_status = "failover_exhausted"
+            self._shed("no_worker", 503)
+
+        def _settle(self, path: str, rids: list[str], w: Worker,
+                    status: int, resp: dict | None) -> None:
+            """Fold the worker's answer into the global ledger, then relay
+            it verbatim — the client sees exactly what the worker said
+            (plus the router's X-Request-Id echo)."""
+            state.unassign(rids, w)
+            if state.journal is not None:
+                if status == 200:
+                    if path == "/v1/summarize":
+                        state._journal_success(rids[0], path, resp)
+                    else:
+                        comps = (resp or {}).get("completions") or []
+                        for i, rid in enumerate(rids):
+                            c = comps[i] if i < len(comps) else {}
+                            state.journal.complete(
+                                rid, c.get("text", ""),
+                                (c.get("record") or {}).get(
+                                    "generated_tokens", 0
+                                ),
+                            )
+                else:
+                    reason = (
+                        f"shed:{(resp or {}).get('reason', status)}"
+                        if status in (429, 503)
+                        else f"http:{status}"
+                    )
+                    detail = json.dumps(resp)[:200] if resp else ""
+                    for rid in rids:
+                        state.journal.fail(rid, reason, detail)
+            headers = {}
+            if isinstance(resp, dict) and "retry_after_s" in resp:
+                headers["Retry-After"] = str(
+                    max(1, int(round(resp["retry_after_s"])))
+                )
+            self._json(resp if isinstance(resp, dict) else
+                       {"error": f"worker answered {status}"},
+                       status, headers)
+
+        # -- poll + cancel ------------------------------------------------
+
+        def _request_status(self, raw_rid: str) -> None:
+            import urllib.parse
+
+            rid = urllib.parse.unquote(raw_rid)
+            if state.journal is None:
+                self._json(
+                    {"error": "journaling disabled (--journal-dir unset)"},
+                    404,
+                )
+                return
+            entries = state.journal.lookup(rid)
+            if not entries:
+                self._json(
+                    {"error": f"unknown or expired request id {rid!r}"},
+                    404,
+                )
+                return
+            self._json({
+                "request_id": rid,
+                "status": aggregate_status(entries),
+                "entries": [e.to_dict() for e in entries],
+            })
+
+        def _cancel(self, raw_rid: str) -> None:
+            import urllib.parse
+
+            rid = urllib.parse.unquote(raw_rid)
+            self._rid = rid
+            w = state.assigned_worker(rid)
+            if w is not None:
+                try:
+                    status, resp = state._worker_http(
+                        w, "DELETE", f"/v1/requests/{raw_rid}",
+                        timeout=30.0,
+                    )
+                # lint-allow[swallowed-exception]: status=None routes to the ledger-side cancel fallback below, which always answers the client
+                except OSError:
+                    # the worker died under the cancel: the ledger closes
+                    # the entries directly (idempotent against a handoff
+                    # completing them first)
+                    status, resp = None, None
+                if status is not None:
+                    if state.journal is not None:
+                        for e in state.journal.lookup(rid):
+                            if not e.terminal:
+                                state.journal.cancel(e.rid, "api")
+                    self._json(resp if isinstance(resp, dict) else
+                               {"status": "cancelled"}, status)
+                    return
+            if state.journal is None:
+                self._json(
+                    {"error": "journaling disabled (--journal-dir unset)"},
+                    404,
+                )
+                return
+            entries = state.journal.lookup(rid)
+            if not entries:
+                self._json(
+                    {"error": f"unknown or expired request id {rid!r}"},
+                    404,
+                )
+                return
+            cancelled = 0
+            for e in entries:
+                if not e.terminal:
+                    state.journal.cancel(e.rid, "api")
+                    cancelled += 1
+            entries = state.journal.lookup(rid)
+            self._json({
+                "request_id": rid,
+                "cancelled_queued": cancelled,
+                "cancel_pending": False,
+                "status": aggregate_status(entries),
+            })
+
+        def log_message(self, fmt: str, *args) -> None:
+            logger.info("%s %s", self.address_string(), fmt % args)
+
+    return Handler
+
+
+class _RouterServer(ThreadingHTTPServer):
+    # same rationale as serve/server.py's _Server: the kernel should queue
+    # connect bursts, not clients retransmitting SYNs
+    request_queue_size = 128
+    daemon_threads = True
+
+
+def make_router_server(
+    state: RouterState, host: str = "127.0.0.1", port: int = 8900
+) -> ThreadingHTTPServer:
+    return _RouterServer((host, port), make_router_handler(state))
+
+
+# -- CLI ----------------------------------------------------------------------
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(prog="vnsum-serve-router")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8900)
+    p.add_argument("--workers", default=None,
+                   help="comma-separated host:port endpoints of externally "
+                        "managed workers (mutually exclusive with "
+                        "--spawn-workers)")
+    p.add_argument("--spawn-workers", type=int, default=0,
+                   help="spawn N engine workers as subprocesses under "
+                        "--fleet-dir (the router owns their lifecycle: "
+                        "crash respawn + rolling restarts)")
+    p.add_argument("--fleet-dir", default=None,
+                   help="fleet state directory: per-worker journal subdirs "
+                        "plus the router's own journal at <fleet>/router")
+    # the port's entry points run on the card unless the caller asks
+    # otherwise: workers get --backend torch (on --device cuda, the
+    # server's default) unless --backend names another
+    p.add_argument("--backend", default="torch",
+                   help="backend flag forwarded to spawned workers (torch: "
+                        "the port's engine, on the card unless --worker-args "
+                        "names --device cpu; fake for hermetic fleets)")
+    p.add_argument("--worker-args", default="",
+                   help="extra flags forwarded verbatim to every spawned "
+                        "worker (shlex-split)")
+    p.add_argument("--journal-dir", default=None,
+                   help="router journal directory (default: "
+                        "<fleet-dir>/router when --fleet-dir is set)")
+    p.add_argument("--journal-fsync-ms", type=float, default=50.0)
+    p.add_argument("--probe-interval-ms", type=float, default=250.0)
+    p.add_argument("--probe-timeout-ms", type=float, default=2000.0)
+    p.add_argument("--down-after", type=int, default=2,
+                   help="consecutive probe failures before mark-down")
+    p.add_argument("--up-after", type=int, default=1,
+                   help="consecutive probe successes before mark-up")
+    p.add_argument("--max-inflight", type=int, default=256,
+                   help="global front-door admission cap (typed 429 past "
+                        "it)")
+    p.add_argument("--proxy-timeout-s", type=float, default=120.0)
+    p.add_argument("--default-deadline-ms", type=float, default=0.0)
+    p.add_argument("--tenants", default=None,
+                   help="QoS table (name:weight:token_rate[:tier],...): "
+                        "validated at the front door and forwarded to "
+                        "spawned workers")
+    p.add_argument("--no-restart-crashed", action="store_true",
+                   help="do not respawn crashed spawned workers (handoff "
+                        "still replays their unfinished work)")
+    p.add_argument("--no-probe-slo-burn", action="store_true",
+                   help="ignore worker SLO burn verdicts in the mark-down "
+                        "hysteresis")
+    p.add_argument("--federation-interval-ms", type=float, default=1000.0,
+                   help="fleet federation scrape cadence (worker "
+                        "/debug/obs/snapshot JSON); rollups re-export on "
+                        "the router /metrics as vnsum_serve_fleet_*")
+    p.add_argument("--no-federation", action="store_true",
+                   help="disable the federation scrape loop: no fleet "
+                        "rollups, fleet /debug/slo and /v1/usage answer "
+                        "404, /debug/trace carries router spans only")
+    p.add_argument("--incident-dir", default=None,
+                   help="incident bundle directory (default: "
+                        "<fleet-dir>/incidents when --fleet-dir is set); "
+                        "unset without --fleet-dir = incident capture off")
+    p.add_argument("--incident-min-interval-s", type=float, default=30.0,
+                   help="per-trigger-reason incident capture throttle")
+    p.add_argument("--drain-timeout-s", type=float, default=30.0)
+    args = p.parse_args(argv)
+
+    if bool(args.workers) == bool(args.spawn_workers):
+        p.error("exactly one of --workers / --spawn-workers is required")
+    if args.spawn_workers and not args.fleet_dir:
+        p.error("--spawn-workers requires --fleet-dir")
+
+    tenants = None
+    if args.tenants:
+        from .qos import parse_tenant_specs
+
+        tenants = {name: spec.tier
+                   for name, spec in parse_tenant_specs(args.tenants).items()}
+
+    workers: list[Worker] = []
+    if args.spawn_workers:
+        from .worker import build_fleet
+
+        fleet_dir = Path(args.fleet_dir)
+        fleet_dir.mkdir(parents=True, exist_ok=True)
+        worker_args = ["--backend", args.backend,
+                       *shlex.split(args.worker_args)]
+        if args.tenants:
+            worker_args += ["--tenants", args.tenants]
+        for h in build_fleet(args.spawn_workers, str(fleet_dir),
+                             extra_args=worker_args):
+            h.start()
+            workers.append(Worker(h.name, h.host, h.port, handle=h))
+        if args.journal_dir is None:
+            args.journal_dir = str(fleet_dir / "router")
+        if args.incident_dir is None:
+            args.incident_dir = str(fleet_dir / "incidents")
+    else:
+        for i, ep in enumerate(
+            s.strip() for s in args.workers.split(",") if s.strip()
+        ):
+            host, _, port = ep.rpartition(":")
+            workers.append(Worker(f"worker-{i}", host or "127.0.0.1",
+                                  int(port)))
+
+    state = RouterState(
+        workers,
+        journal_dir=args.journal_dir,
+        journal_fsync_s=args.journal_fsync_ms / 1000.0,
+        probe_interval_s=args.probe_interval_ms / 1000.0,
+        probe_timeout_s=args.probe_timeout_ms / 1000.0,
+        down_after=args.down_after,
+        up_after=args.up_after,
+        max_inflight=args.max_inflight,
+        proxy_timeout_s=args.proxy_timeout_s,
+        default_deadline_s=(
+            args.default_deadline_ms / 1000.0
+            if args.default_deadline_ms else None
+        ),
+        tenants=tenants,
+        restart_crashed=not args.no_restart_crashed,
+        probe_slo_burn=not args.no_probe_slo_burn,
+        federate=not args.no_federation,
+        federation_interval_s=args.federation_interval_ms / 1000.0,
+        incident_dir=args.incident_dir,
+        incident_min_interval_s=args.incident_min_interval_s,
+    )
+    state.start()
+    server = make_router_server(state, args.host, args.port)
+    logger.info("router listening on %s:%d over %d worker(s)%s",
+                args.host, args.port, len(workers),
+                " (spawned)" if args.spawn_workers else "")
+
+    def _graceful(signum, frame) -> None:
+        logger.info("signal %d: shutting down router", signum)
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
+
+    def _operator_incident(signum, frame) -> None:
+        # operator-triggered correlated capture: mint an incident and fan
+        # the dump out off the signal frame (capture does worker HTTP)
+        threading.Thread(
+            target=state.incidents.trigger,
+            kwargs={"reason": "operator", "detail": "SIGUSR1",
+                    "sync": True},
+            name="operator-incident", daemon=True,
+        ).start()
+
+    if hasattr(signal, "SIGUSR1"):
+        signal.signal(signal.SIGUSR1, _operator_incident)
+    try:
+        server.serve_forever()
+    finally:
+        state.close(args.drain_timeout_s)
+        server.server_close()
+    logger.info("router shut down cleanly")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

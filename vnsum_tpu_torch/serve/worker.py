@@ -1,0 +1,206 @@
+"""Engine-worker process lifecycle for the replica fleet.
+
+A *worker* is the single-process server (serve/server.py) run behind the
+front-door router (serve/router.py): a full engine with its own journal
+subdirectory, its own ``/healthz`` + ``/readyz``, and the unchanged
+``/v1/*`` surface — the fleet layer adds process topology, it does not
+fork the protocol. This module provides the pieces that make a server a
+*managed* worker:
+
+- :func:`main` — ``python -m vnsum_tpu_torch.serve.worker``: a thin wrapper
+  over ``serve.server.main`` that names the process for logs and forwards
+  every other flag unchanged, so the worker IS the server and the HTTP
+  surface needs no second implementation.
+- :class:`WorkerHandle` — spawn / readiness-probe / drain / restart
+  control of ONE worker subprocess. Exit codes are part of the contract:
+  ``0`` is a graceful drain + journal seal, ``WATCHDOG_EXIT_CODE`` (86)
+  is the watchdog's seal-and-exit — both leave a replayable journal
+  behind, which is exactly what the router's journal-handoff failover
+  consumes. Anything else is a crash (so is SIGKILL), and the journal's
+  torn-tail recovery covers those too.
+- :func:`build_fleet` — N handles under one fleet directory, each with a
+  per-worker journal subdir and an OS-assigned port.
+
+Nothing here runs an engine in-process: the handle's whole job is being
+the process-manager half of the drain-one-restart-one deploy story.
+
+Copy of ``vnsum_tpu/serve/worker.py``. Two lines differ: ``argv()`` names
+this package's worker module (a string no import check sees: a router of
+the port must never spawn the JAX package's workers), and ``start()`` sets
+no ``JAX_PLATFORMS``. A worker runs the port's server, whose ``--backend``
+defaults to ``torch`` on ``--device cuda``: with no card it exits at
+startup, which the router's probe loop reports.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+from ..core.logging import get_logger
+from ..testing.chaos import free_port, http_json
+from .watchdog import WATCHDOG_EXIT_CODE
+
+logger = get_logger("vnsum.serve.worker")
+
+
+class WorkerHandle:
+    """One engine-worker subprocess: spawn, probe, drain, restart.
+
+    Single-threaded ownership contract: exactly one manager (the router's
+    probe loop, a rolling-restart thread that has taken the worker out of
+    rotation first, or a test) drives a handle at a time — the handle
+    itself holds no lock.
+    """
+
+    def __init__(self, name: str, port: int, *, journal_dir: str,
+                 host: str = "127.0.0.1",
+                 extra_args: list[str] | None = None,
+                 env: dict | None = None) -> None:
+        self.name = name
+        self.host = host
+        self.port = port
+        self.journal_dir = str(journal_dir)
+        self.extra_args = list(extra_args or [])
+        self.env = env
+        self.proc: subprocess.Popen | None = None
+        self.generation = 0  # bumped by every start() — deploy bookkeeping
+        self.last_rc: int | None = None
+
+    def argv(self) -> list[str]:
+        return [
+            sys.executable, "-m", "vnsum_tpu_torch.serve.worker",
+            "--name", self.name,
+            "--host", self.host,
+            "--port", str(self.port),
+            "--journal-dir", self.journal_dir,
+            *self.extra_args,
+        ]
+
+    def start(self) -> None:
+        env = dict(os.environ)
+        if self.env:
+            env.update(self.env)
+        self.generation += 1
+        self.proc = subprocess.Popen(
+            self.argv(), env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        )
+        logger.info("spawned worker %s (pid %d, :%d, gen %d)",
+                    self.name, self.proc.pid, self.port, self.generation)
+
+    @property
+    def pid(self) -> int | None:
+        return self.proc.pid if self.proc is not None else None
+
+    @property
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def poll(self) -> int | None:
+        """Exit code if the process has died, else None (running or never
+        started). Records the last observed code for deploy bookkeeping."""
+        if self.proc is None:
+            return None
+        rc = self.proc.poll()
+        if rc is not None:
+            self.last_rc = rc
+        return rc
+
+    @property
+    def sealed_exit(self) -> bool:
+        """Did the last death look journal-sealed? (graceful drain or the
+        watchdog's seal-and-exit — either way replay is clean, not torn)."""
+        return self.last_rc in (0, WATCHDOG_EXIT_CODE)
+
+    def wait_ready(self, timeout_s: float = 30.0) -> None:
+        """Poll ``/readyz`` until 200 — the worker is routable (journal
+        replay finished, not draining, not browned out)."""
+        t_end = time.monotonic() + timeout_s
+        while time.monotonic() < t_end:
+            rc = self.poll()
+            if rc is not None:
+                raise RuntimeError(
+                    f"worker {self.name} exited during startup (rc={rc})"
+                )
+            try:
+                status, _ = http_json("GET", self.host, self.port,
+                                      "/readyz", timeout=2.0)
+                if status == 200:
+                    return
+            # lint-allow[swallowed-exception]: a refused connect during bring-up is the expected state this loop polls through; the deadline below resolves a worker that never comes up
+            except OSError:
+                pass
+            time.sleep(0.05)
+        raise TimeoutError(
+            f"worker {self.name} on :{self.port} never became ready"
+        )
+
+    def sigterm(self) -> None:
+        if self.alive:
+            self.proc.terminate()
+
+    def sigkill(self) -> None:
+        if self.alive:
+            self.proc.kill()
+
+    def wait_exit(self, timeout_s: float = 30.0) -> int:
+        rc = self.proc.wait(timeout=timeout_s)
+        self.last_rc = rc
+        return rc
+
+    def drain(self, timeout_s: float = 30.0) -> int:
+        """The graceful half of drain-one-restart-one: SIGTERM (worker
+        drains its queue, seals its journal) and wait. Escalates to
+        SIGKILL only if the drain deadline passes — the journal makes even
+        that safe, just not clean."""
+        if not self.alive:
+            return self.poll() if self.proc is not None else -1
+        self.sigterm()
+        try:
+            return self.wait_exit(timeout_s)
+        except subprocess.TimeoutExpired:
+            logger.warning("worker %s ignored SIGTERM for %.1fs — killing",
+                           self.name, timeout_s)
+            self.sigkill()
+            return self.wait_exit(10.0)
+
+
+def build_fleet(n: int, fleet_dir: str, *,
+                extra_args: list[str] | None = None,
+                env: dict | None = None,
+                host: str = "127.0.0.1") -> list[WorkerHandle]:
+    """N worker handles under one fleet directory: ``<fleet>/<name>`` as
+    each worker's journal subdir, OS-assigned ports. Handles are built,
+    not started — the router starts them so a crash-looping worker is
+    *its* probe loop's problem from the first breath."""
+    handles = []
+    for i in range(int(n)):
+        name = f"worker-{i}"
+        handles.append(WorkerHandle(
+            name, free_port(),
+            journal_dir=os.path.join(fleet_dir, name),
+            host=host, extra_args=extra_args, env=env,
+        ))
+    return handles
+
+
+def main(argv: list[str] | None = None) -> int:
+    """``python -m vnsum_tpu_torch.serve.worker``: name the process, then hand
+    every remaining flag to ``serve.server.main`` unchanged."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog="vnsum-serve-worker",
+                                     add_help=False)
+    parser.add_argument("--name", default=None)
+    args, rest = parser.parse_known_args(argv)
+    name = args.name or f"worker-{os.getpid()}"
+    logger.info("engine worker %s starting", name)
+    from .server import main as server_main
+
+    return server_main(rest)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -20,10 +20,10 @@ deterministically:
 Like the rest of this package, nothing here imports torch or the serving
 layer — the server under test lives in its own process.
 
-Copy of ``vnsum_tpu/testing/chaos.py`` without ``RouterProcess``, the
-fleet router's subprocess handle, which comes with the fleet (ROADMAP
-A15b-3). ``ServerProcess`` starts the port's server (``--backend fake``
-unless ``extra_args`` names another backend).
+Copy of ``vnsum_tpu/testing/chaos.py``. ``ServerProcess`` starts the port's
+server and ``RouterProcess`` the port's fleet router
+(``python -m vnsum_tpu_torch.serve.router``), each with ``--backend fake``
+unless ``extra_args`` names another backend.
 """
 from __future__ import annotations
 
@@ -206,6 +206,80 @@ class ServerProcess:
 
     def wait_exit(self, timeout_s: float = 30.0) -> int:
         return self.proc.wait(timeout=timeout_s)
+
+
+class RouterProcess(ServerProcess):
+    """One fleet-router subprocess (serve/router.py) under chaos control:
+    the router spawns and owns its N engine workers, so killing a worker
+    means SIGKILLing a pid read off the router's ``/healthz`` worker
+    table, not a handle we hold. Readiness is the router's ``/readyz``
+    (typed 503 until a worker is routable), not ``/healthz`` liveness.
+
+    As ``ServerProcess``, it asks for ``--backend fake`` unless
+    ``extra_args`` names another (``--backend torch``: the router's own
+    default)."""
+
+    def __init__(self, port: int, *, fleet_dir: str, spawn_workers: int = 3,
+                 extra_args: list[str] | None = None,
+                 env: dict | None = None) -> None:
+        super().__init__(port, journal_dir=os.path.join(fleet_dir, "router"),
+                         extra_args=extra_args, env=env)
+        self.fleet_dir = fleet_dir
+        self.spawn_workers = spawn_workers
+
+    def start(self) -> None:
+        argv = [
+            sys.executable, "-m", "vnsum_tpu_torch.serve.router",
+            "--port", str(self.port),
+            "--spawn-workers", str(self.spawn_workers),
+            "--fleet-dir", self.fleet_dir,
+            "--backend", "fake",
+            *self.extra_args,
+        ]
+        env = dict(os.environ)
+        if self.env:
+            env.update(self.env)
+        self.proc = subprocess.Popen(
+            argv, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        )
+
+    def wait_ready(self, timeout_s: float = 60.0) -> None:
+        """Poll the router's /readyz until 200 — replay done, >=1 worker
+        routable. Startup is slower than a bare server: N worker
+        subprocesses must come up first."""
+        t_end = time.monotonic() + timeout_s
+        while time.monotonic() < t_end:
+            if not self.alive:
+                raise RuntimeError(
+                    f"router exited during startup (rc={self.proc.poll()})"
+                )
+            try:
+                status, _ = http_json(
+                    "GET", "127.0.0.1", self.port, "/readyz", timeout=2.0
+                )
+                if status == 200:
+                    return
+            except OSError:
+                pass
+            time.sleep(0.05)
+        raise TimeoutError(f"router on :{self.port} never became ready")
+
+    def worker_pids(self) -> dict[str, int]:
+        """Live worker name -> pid off the router's /healthz table — the
+        kill-target surface for fleet chaos."""
+        _, payload = http_json(
+            "GET", "127.0.0.1", self.port, "/healthz", timeout=5.0
+        )
+        return {w["name"]: w["pid"] for w in (payload or {}).get("workers", [])
+                if w.get("pid")}
+
+    def kill_worker(self, name: str) -> int:
+        """SIGKILL one spawned worker by name (the crash under test: no
+        drain, no seal — the router's handoff owes its unfinished work)."""
+        pid = self.worker_pids()[name]
+        os.kill(pid, signal.SIGKILL)
+        return pid
 
 
 @dataclass(frozen=True)
