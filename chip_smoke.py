@@ -146,20 +146,20 @@ Phases, each raising on failure (so any failure exits non-zero):
    built with cuda_graphs=False (every step eager) must write
    byte-identical summaries; [int8] (c) and (d): the same with --quantize
    and with --quantize --quantize-act (W8A8 prefill), the weights quantized
-   on the card, the model cut to INT8_LAYERS = 7 of its 28 layers: K1 = 7 x
-   prefill forwards, K2 = 7 x decode steps and GEMV launches = 29 x decode
+   on the card, the model cut to INT8_LAYERS = 4 of its 28 layers: K1 = 4 x
+   prefill forwards, K2 = 4 x decode steps and GEMV launches = 17 x decode
    steps (q/k/v, wo, gate/up and w_down a layer, and the head) + one per
-   prefill forward (its head; and 28 more where B x S <= 128 without
+   prefill forward (its head; and 16 more where B x S <= 128 without
    W8A8) exactly, K2p = K3 = 0, and
    summaries byte-identical to an eager run;
 6a. gemma3: the CLI's map-reduce over data/vi_eval with --models gemma3-4b
-   (Gemma3-4B at its published width, cut to GEMMA_LAYERS = 12 of its 34
-   layers (its globals at 5 and 11) to keep the run under 600 s: dim 2560,
+   (Gemma3-4B at its published width, cut to GEMMA_LAYERS = 8 of its 34
+   layers (its global at 5) to keep the run under 600 s: dim 2560,
    8/4 heads, head_dim 256, vocab 262,208, tied head, a 1024-slot window on
    the layers where (i + 1) % 6 != 0; random bf16 weights from seed 0, byte
    tokenizer, int8 KV cache, greedy), decode steps captured: every document
-   ok, ROUGE and the embedding metrics computed, K1 = 12 x prefill
-   forwards and K2 = 12 x decode steps exactly, K2p = K3 = GEMV = 0, every
+   ok, ROUGE and the embedding metrics computed, K1 = 8 x prefill
+   forwards and K2 = 8 x decode steps exactly, K2p = K3 = GEMV = 0, every
    batch one of phase 3's GEMMA_SHAPES; an eager control through
    PipelineRunner byte-identical; then the map batch's last-position logits
    through K1 (int8 and bf16 cache) against the dense windowed forward on a
@@ -172,17 +172,17 @@ Phases, each raising on failure (so any failure exits non-zero):
    drafts), the one-step K3-against-K2 gate (STEP_KERNEL_RTOL) and path
    (b) (the slot loop over the map prompts in two waves at fused_segments
    4), at GEMMA_PATH_NEW new tokens, each with K1, K2 and K3 launches
-   exactly 12 x the engine record's prefill forwards, decode steps and
+   exactly 8 x the engine record's prefill forwards, decode steps and
    verify steps; wall, prefill and decode seconds and steps, peak memory
    on ``[gemma3]`` lines, the paths on ``[gemma3 spec]`` and ``[gemma3
    slot]`` lines;
 6b. phi4: Phi-4-14B at its published width (dim 5120, 40/10 heads: GQA
    group 4, head_dim 128, intermediate 17,920, vocab 100,352, untied head),
-   cut to PHI4_LAYERS = 12 of its 40 layers (registry_depth); random bf16
+   cut to PHI4_LAYERS = 4 of its 40 layers (registry_depth); random bf16
    weights from seed 0, byte tokenizer, FAMILY_NEW = 64 new tokens: the
    CLI's map-reduce with --models phi4:14b, decode steps captured, and an
-   eager control byte-identical to it, K1 = 12 x prefill forwards and K2 =
-   12 x decode steps exactly, K2p
+   eager control byte-identical to it, K1 = 4 x prefill forwards and K2 =
+   4 x decode steps exactly, K2p
    = K3 = GEMV = 0, every batch one phase 3 checked; the dense logits gate
    (a row at a time) within LOGITS_GATE_RTOL, its planted fault (every
    row's first 512 keys left out) over it; one captured decode step
@@ -198,9 +198,9 @@ Phases, each raising on failure (so any failure exits non-zero):
    host memory logged;
 6c. qwen3: Qwen3-8B at its published width (dim 4096, 32/8 heads: GQA
    group 4, head_dim 128, QK norm, intermediate 12,288, vocab 151,936),
-   cut to QWEN3_LAYERS = 12 of its 36 layers (registry_depth); random bf16
-   weights, FAMILY_NEW new tokens): the CLI's map-reduce captured, K1 = 12
-   x prefill forwards and K2 = 12 x decode steps exactly, every batch one
+   cut to QWEN3_LAYERS = 6 of its 36 layers (registry_depth); random bf16
+   weights, FAMILY_NEW new tokens): the CLI's map-reduce captured, K1 = 6
+   x prefill forwards and K2 = 6 x decode steps exactly, every batch one
    phase 3 checked, and the dense logits gate;
 6d. weights: the pipeline phase's own weights (init_model(llama32_3b(), 0))
    written as an HF checkpoint (save_hf_checkpoint: 28 layers in four bf16
@@ -418,6 +418,26 @@ Phases, each raising on failure (so any failure exits non-zero):
    one answered 200, each worker drained (rc 0, journal sealed), restarted
    one generation on and back in rotation, its seconds out of rotation
    logged. The workers' launches are counted in their own processes;
+9f. checks (ROADMAP A14): (a) on the spec phase's Llama-3.2-3B under
+   VNSUM_SANITIZERS=transfer (CUDA's sync debug mode at "error" inside the
+   engine's dispatch loops): generate on the 7 map prompts (captured
+   decode), the spec path at CHECKS_SPEC_NEW new tokens with the one-shot
+   outputs as references, one slot-loop admit and step, score_choices on
+   two prompts, each byte-identical to the same call without the guard,
+   the guard armed and the mode back at 0 after each, launches exact; a
+   planted .item() inside the guard must raise and pass inside an
+   acknowledged section; (b) the trained fixture behind the port's
+   supervised schedulers with each VNSUM_FAULTS plan of CHECKS_PLANS
+   armed (engine.dispatch raise, engine.slot_step resource, an
+   engine.dispatch poison matching one prompt, engine.slot_admit raise):
+   exactly the firings, failure classes and rung the JAX engine gives in
+   the same scenario, the poisoned request failed POISON and quarantined
+   alone, every other answer byte-identical to the unfaulted run's; (c)
+   ``python -m vnsum_tpu_torch.analysis vnsum_tpu_torch`` as a subprocess
+   exits 0 with no finding; (d) the pipeline phase's results.tracing holds
+   the runner's spans (RUNNER_SPANS, names and counts; every CLI run's
+   results are held to them), and phase 11 holds the engine's annotate
+   ranges and the captured step's wall;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -442,7 +462,12 @@ Phases, each raising on failure (so any failure exits non-zero):
    run, and the kernels that take most of the time; one replay of each
    captured step must show 28 K2 (K2p) kernels of each pass in the trace;
    [int8] (f): the captured decode step on the same model's int8 copy, its
-   113 GEMV kernels and their device time.
+   113 GEMV kernels and their device time; 9f (d): the captured decode
+   step's wall against its earlier runs' (CAPTURED_STEP_MS, failed past
+   CAPTURED_STEP_MARGIN times their top), and one engine generate on the
+   map batch under torch.profiler whose trace holds the host ranges
+   generate[B=8,S=4096], prefill[B=8,S=4096] and decode_seg[B=8,S=4096]
+   once each.
 
 Every PipelineRunner and CLI run (pipeline, eager control, weights,
 strategies, spec, long context) must report finite sentence cosine (mean,
@@ -2519,6 +2544,10 @@ def captured_and_eager(torch, name: str, config_fn, label: str, max_new: int = 1
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         res = json.loads(next((Path(tmp) / "results").glob("pipeline_results_*.json")).read_text())
         rec, summaries = check_run(res["results"], docs, Path(tmp) / "gen", model=name)
+        # phase 9f (d): the runner's Tracer spans in the results JSON
+        check_tracing(f"{label} results.tracing", res["results"]["tracing"])
+        if label == "pipeline":
+            PIPELINE_TRACING.update(res["results"]["tracing"])
         rouge = res["results"]["evaluation"][name]["rouge_scores"]
         eng = res["results"]["engine"][name]
         check_captured(label, eng)
@@ -2697,14 +2726,18 @@ def gemma_k2p_raises(torch) -> None:
 # card machines: with the serve phase the run took 554 s on one machine and
 # 649-659 s on others; the cuts saved 27 s and 22 s of host-bound eager
 # controls and captured runs (PERF.md §4)
-GEMMA_LAYERS = 12
-INT8_LAYERS = 7
+GEMMA_LAYERS = 8
+INT8_LAYERS = 4
 # and of the Phi-4-14B phase (6b), whose 40 layers took 60-69 s of a run
 # that the serve phase's tenant arms took past 600 s on a slower machine
-PHI4_LAYERS = 12
+PHI4_LAYERS = 4
 # and of the Qwen3-8B phase (6c), 11.2 s at its 36 layers, when the fleet
 # phase (9e, ~97 s) took the run past 600 s again
-QWEN3_LAYERS = 12
+QWEN3_LAYERS = 6
+# the checks phase (9f, ~15 s with its profile trace) took Gemma3 from 12
+# layers to 8 (one global layer, at 5; at 6 its planted every-layer-global
+# fault read 1.1x the gate's limit), Phi-4 from 12 to 4, Qwen3-8B from 12
+# to 6 and the int8 and W8A8 pipelines from 7 to 4 (PERF.md §4)
 
 
 def llama_int8_cut():
@@ -6861,6 +6894,367 @@ def phase_fleet(torch, serve_ref: tuple) -> None:
         f"libraries unchanged (the workers loaded phase 2's builds)")
 
 
+# -- phase 9f -----------------------------------------------------------------
+
+# the checks around the engine (ROADMAP A14): (a) the transfer guard
+# (VNSUM_SANITIZERS=transfer: CUDA's sync debug mode at "error" inside the
+# engine's dispatch loops) on the spec phase's Llama-3.2-3B, each call's
+# output byte for byte the same call's without the guard; (b) the engine's
+# fault sites through the port's schedulers on the trained fixture; (c) the
+# port's lint as a subprocess; (d) the pipeline phase's results.tracing
+# (the profile phase holds the engine's annotate ranges and the captured
+# step's wall).
+CHECKS_SPEC_NEW = 32
+CHECKS_SLOT_SEGMENT = 8
+CHECKS_CHOICE_BYTES = 900    # score_choices' two prompts: S = 1024, C = S
+# (b): 7 map prompts of the fixture, each a tagged head of its chunk
+CHECKS_FAULT_TAG = "Tài-liệu-{}.\n"  # no space: the plan format splits on it
+CHECKS_FAULT_CHARS = 1200
+CHECKS_FAULT_NEW = 128
+CHECKS_FAULT_SEGMENT = 8     # slot steps a segment: requests span many steps
+CHECKS_POISON = 3
+CHECKS_POLICY = dict(max_attempts=2, backoff_base_s=0.005, backoff_max_s=0.05, jitter=0.0)
+# (name, scheduler, VNSUM_FAULTS plan, the firings it must make as (site,
+# kind, call), the supervisor's failure classes counted, the ladder's rung
+# after): the JAX engine's schedule and outcomes in the same scenario
+# (tests/test_torch_engine_faults.py holds the JAX scheduler over TpuBackend
+# to these on the CPU)
+CHECKS_PLANS = (
+    ("dispatch raise", "batch", "engine.dispatch:raise@on_call=1",
+     (("engine.dispatch", "raise", 1),), {"transient": 1}, 0),
+    ("slot step resource", "inflight", "engine.slot_step:resource@on_call=2",
+     (("engine.slot_step", "resource", 2),), {"resource_exhausted": 1}, 0),
+    ("dispatch poison", "batch",
+     f"engine.dispatch:poison@match={CHECKS_FAULT_TAG.format(CHECKS_POISON).strip()}",
+     (("engine.dispatch", "poison", 1), ("engine.dispatch", "poison", 2),
+      ("engine.dispatch", "poison", 4), ("engine.dispatch", "poison", 5),
+      ("engine.dispatch", "poison", 6)), {"transient": 5}, 0),
+    ("slot admit raise", "inflight", "engine.slot_admit:raise@on_call=1",
+     (("engine.slot_admit", "raise", 1),), {"transient": 1}, 0),
+)
+# (d): the runner's spans (core/profiling.Tracer) on the pipeline phase's
+# run, with their counts: the JAX runner's on the same run
+RUNNER_SPANS = {"analyze": 1, "summarize": 1, "summarize/batch": 1, "evaluate": 1,
+                "evaluate/embedder_init": 1, "evaluate/embed": 1, "evaluate/bertscore": 1,
+                "evaluate/rouge": 7}
+PIPELINE_TRACING: dict = {}
+# the profile phase: the captured decode step's wall in earlier runs (ms,
+# PERF.md), and the margin over it that fails the run
+CAPTURED_STEP_MS = (7.72, 8.09)
+CAPTURED_STEP_MARGIN = 1.15
+
+
+@contextlib.contextmanager
+def sanitizers_env(value: str):
+    """VNSUM_SANITIZERS set to ``value`` while open."""
+    old = os.environ.get("VNSUM_SANITIZERS")
+    os.environ["VNSUM_SANITIZERS"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("VNSUM_SANITIZERS", None)
+        else:
+            os.environ["VNSUM_SANITIZERS"] = old
+
+
+@contextlib.contextmanager
+def mode_log(torch):
+    """Every value the sync debug mode is set to while open, in order."""
+    seen: list = []
+    real = torch.cuda.set_sync_debug_mode
+
+    def record(mode):
+        seen.append(mode)
+        real(mode)
+
+    torch.cuda.set_sync_debug_mode = record
+    try:
+        yield seen
+    finally:
+        torch.cuda.set_sync_debug_mode = real
+
+
+def check_guard_log(name: str, seen: list, mode_after) -> None:
+    """The guard armed (the mode set to "error") and left the mode at 0."""
+    if "error" not in seen:
+        raise AssertionError(f"checks (a) {name}: the guard never armed (modes set: {seen})")
+    if mode_after != 0:
+        raise AssertionError(f"checks (a) {name}: the sync debug mode is {mode_after} after "
+                             "the call, not 0")
+
+
+def guarded(torch, name: str, fn):
+    """``fn()`` under VNSUM_SANITIZERS=transfer: (its result, wall s)."""
+    with sanitizers_env("transfer"), mode_log(torch) as seen:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+    check_guard_log(name, seen, torch.cuda.get_sync_debug_mode())
+    return out, wall
+
+
+def planted_sync(torch, sanitizers, dev, planted) -> str:
+    """The planted fault of arm (a): ``planted()``, an unacknowledged sync,
+    must raise inside the guard and pass inside ``acknowledged()``, and the
+    mode must come back to 0. Returns the error's text."""
+    with sanitizers_env("transfer"):
+        try:
+            with sanitizers.hot_path_transfer_guard(dev):
+                try:
+                    with sanitizers.acknowledged():
+                        planted()
+                except RuntimeError as e:
+                    raise AssertionError(f"checks (a) planted: the sync raised inside "
+                                         f"acknowledged(): {e}") from e
+                planted()
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("checks (a) planted: an unacknowledged sync inside the "
+                                 "guard did not raise: the guard is not live")
+    if "synchroniz" not in msg:
+        raise AssertionError(f"checks (a) planted: raised, but not as a sync: {msg}")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("checks (a) planted: the mode was not restored")
+    return msg
+
+
+def checks_guard(torch, backend, prompts: list, oneshot: list) -> dict:
+    """Arm (a) on the spec phase's backend (Llama-3.2-3B, full width and
+    depth, int8 cache): generate on the 7 map prompts (captured decode: K1,
+    K2) against the same backend's unguarded run of the spec phase; the
+    spec path at CHECKS_SPEC_NEW new tokens with the one-shot outputs as
+    references (K3 at Sq = 9); one slot-loop admit and step (K1, K3 at Sq =
+    1) on a backend of the same model with CHECKS_SLOT_SEGMENT steps a
+    segment; score_choices on two prompts (K1 at C = S). Each guarded call
+    byte-identical to its unguarded twin, the guard armed and the mode back
+    at 0 after it; then the planted sync. Returns the arm's launches, exact
+    against the engine records."""
+    from vnsum_tpu_torch.analysis import sanitizers
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+
+    dev = backend.device
+    n_layers = backend.cfg.n_layers
+    slot_b = TorchBackend(model=backend.model, batch_size=8, max_new_tokens=128,
+                          segment_tokens=CHECKS_SLOT_SEGMENT, device="cuda")
+    st, sst = backend.stats, slot_b.stats
+    before = (st.prefill_forwards, st.decode_steps, st.spec_verify_steps,
+              sst.prefill_forwards, sst.decode_steps)
+    reset_launches()
+    walls = {}
+    got, walls["generate"] = guarded(torch, "generate", lambda: backend.generate(prompts))
+    if got != oneshot:
+        raise AssertionError("checks (a) generate: guarded outputs differ from the unguarded "
+                             f"run's: {agreement(got, oneshot)}")
+
+    def spec():
+        return backend.generate(prompts, references=oneshot, max_new_tokens=CHECKS_SPEC_NEW)
+
+    t0 = time.perf_counter()
+    want = spec()
+    plain = {"spec": time.perf_counter() - t0}
+    steps0 = st.spec_verify_steps
+    got, walls["spec"] = guarded(torch, "spec", spec)
+    if got != want:
+        raise AssertionError(f"checks (a) spec: guarded outputs differ: {agreement(got, want)}")
+    if st.spec_verify_steps == steps0:
+        raise AssertionError("checks (a) spec: the guarded call ran no verify step")
+
+    def slot_once():
+        loop = slot_b.start_slot_loop(8, prompt_tokens=max(s for _b, s in PIPELINE_SHAPES))
+        try:
+            adm, rejected = loop.admit([(i, p, None) for i, p in enumerate(prompts)])
+            res = loop.step()
+            return (len(adm), rejected, res.new_tokens, loop._out_snap.tolist(),
+                    loop._t_host.tolist(), [(c.key, c.text) for c in res.completions])
+        finally:
+            loop.close()
+
+    t0 = time.perf_counter()
+    want = slot_once()
+    plain["slot"] = time.perf_counter() - t0
+    slot, walls["slot"] = guarded(torch, "slot loop", slot_once)
+    if slot != want or slot[0] != len(prompts):
+        raise AssertionError(f"checks (a) slot loop: guarded admit + step differ "
+                             f"({slot[:3]} against {want[:3]})")
+
+    short = [p.encode()[:CHECKS_CHOICE_BYTES].decode("utf-8", "ignore") for p in prompts[:2]]
+    t0 = time.perf_counter()
+    want = backend.score_choices(short, CHOICE_DIGITS)
+    plain["score_choices"] = time.perf_counter() - t0
+    got, walls["score_choices"] = guarded(
+        torch, "score_choices", lambda: backend.score_choices(short, CHOICE_DIGITS))
+    if got != want:
+        raise AssertionError(f"checks (a) score_choices: guarded picks {got} against {want}")
+    launches = read_launches()
+    after = (st.prefill_forwards, st.decode_steps, st.spec_verify_steps,
+             sst.prefill_forwards, sst.decode_steps)
+    d = [a - b for a, b in zip(after, before)]
+    check_exact("checks (a) guarded and unguarded calls", launches, {
+        "prefill": n_layers * (d[0] + d[3]), "decode": n_layers * d[1],
+        "verify": n_layers * (d[2] + d[4])}, ("prefill", "decode", "verify"))
+    msg = planted_sync(torch, sanitizers, dev, lambda: torch.ones(1, device=dev).item())
+    log(f"[checks] (a) guard on Llama-3.2-3B, guarded (unguarded twin, run first): "
+        f"generate (7 map prompts, captured decode) {walls['generate']:.3f}s, spec at "
+        f"{CHECKS_SPEC_NEW} new tokens {walls['spec']:.3f}s ({plain['spec']:.3f}s), slot "
+        f"admit + step ({slot[0]} joins, {slot[2]} tokens) {walls['slot']:.3f}s "
+        f"({plain['slot']:.3f}s), score_choices (2 prompts) {walls['score_choices']:.3f}s "
+        f"({plain['score_choices']:.3f}s): each byte-identical to its twin, the mode 0 after "
+        f"each; the planted .item() raised: {msg.splitlines()[0][:100]}")
+    del slot_b
+    return launches
+
+
+def fault_prompts(docs) -> list:
+    """Arm (b)'s prompts: the map template over each document's first
+    CHECKS_FAULT_CHARS characters, tagged with its index (the poison
+    plan's match)."""
+    from vnsum_tpu_torch.strategies.prompts import MAPREDUCE_MAP
+
+    return [MAPREDUCE_MAP.format(content=CHECKS_FAULT_TAG.format(i) + d[:CHECKS_FAULT_CHARS])
+            for i, d in enumerate(docs)]
+
+
+def fault_outcomes(serve, faults, backend, prompts: list, kind: str, plan_text: str | None,
+                   timeout: float = 600.0) -> dict:
+    """One fault plan through a supervised scheduler of ``serve`` (a
+    package's serve module: the port's here, the JAX package's too in the
+    CPU test) over ``backend``: ``kind`` "batch" (MicroBatchScheduler) or
+    "inflight" (InflightScheduler), CHECKS_POLICY's retries, every prompt
+    submitted at once. Returns the firings, each request's outcome ("ok",
+    text) or ("failed", class), the failures by class, retries, bisects,
+    quarantined and the ladder's rung."""
+    sup = serve.EngineSupervisor(serve.RetryPolicy(**CHECKS_POLICY))
+    cls = serve.MicroBatchScheduler if kind == "batch" else serve.InflightScheduler
+    sched = cls(backend, max_batch=8, max_wait_s=0.2, supervisor=sup)
+    plan = faults.parse_plan(plan_text) if plan_text else None
+    outcomes = []
+    try:
+        with faults.injected(plan) if plan else contextlib.nullcontext():
+            futs = [sched.submit(p) for p in prompts]
+            for f in futs:
+                try:
+                    outcomes.append(("ok", f.result(timeout=timeout).text))
+                except serve.RequestFailed as e:
+                    outcomes.append(("failed", e.failure_class.value))
+        snap = sched.metrics.snapshot()
+    finally:
+        sched.close()
+    return {"fired": [tuple(f) for f in plan.fired] if plan else [], "outcomes": outcomes,
+            "failures": dict(snap.failures), "retries": snap.retries, "bisects": snap.bisects,
+            "quarantined": snap.quarantined, "rung": int(sup.rung)}
+
+
+def check_plan(name: str, got: dict, fired, failures: dict, rung: int, base: list,
+               poison: int | None) -> None:
+    """One plan's gate: exactly the firings expected, the failure classes
+    and rung expected, the poisoned request (if any) failed POISON and
+    every other answer byte for byte the unfaulted run's."""
+    if got["fired"] != [tuple(f) for f in fired]:
+        raise AssertionError(f"checks (b) {name}: fired {got['fired']}, expected {list(fired)}")
+    if got["failures"] != failures or got["rung"] != rung:
+        raise AssertionError(f"checks (b) {name}: failures {got['failures']} at rung "
+                             f"{got['rung']}, expected {failures} at rung {rung}")
+    want = [("failed", "poison") if i == poison else ("ok", t) for i, t in enumerate(base)]
+    if got["outcomes"] != want:
+        bad = [i for i, (g, w) in enumerate(zip(got["outcomes"], want)) if g != w]
+        raise AssertionError(f"checks (b) {name}: requests {bad} differ from the unfaulted "
+                             f"run's ({[got['outcomes'][i][0] for i in bad]})")
+    if poison is not None and got["quarantined"] != 1:
+        raise AssertionError(f"checks (b) {name}: {got['quarantined']} quarantined, not 1")
+
+
+def checks_faults(torch, device: str = "cuda") -> dict:
+    """Arm (b): the trained fixture (its own tokenizer, int8 cache on the
+    card) behind the port's supervised schedulers, each plan of
+    CHECKS_PLANS armed in turn (check_plan), against the backend's
+    unfaulted generate. Returns the arm's launches and its seconds a plan."""
+    from vnsum_tpu_torch import serve
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models.convert import load_hf_checkpoint
+    from vnsum_tpu_torch.testing import faults
+
+    model = load_hf_checkpoint(str(FIXTURE_DIR), device=device)[1]
+    backend = TorchBackend(model=model, tokenizer=f"hf:{FIXTURE_DIR}", batch_size=8,
+                           max_new_tokens=CHECKS_FAULT_NEW, segment_tokens=CHECKS_FAULT_SEGMENT,
+                           seed=0, device=device)
+    docs = [p.read_text(encoding="utf-8")
+            for p in sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))]
+    prompts = fault_prompts(docs)
+    reset_launches()
+    base = backend.generate(prompts)
+    if not all(base):
+        raise AssertionError(f"checks (b): the unfaulted run has empty answers: {base}")
+    walls = {}
+    for name, kind, plan, fired, failures, rung in CHECKS_PLANS:
+        t0 = time.perf_counter()
+        got = fault_outcomes(serve, faults, backend, prompts, kind, plan)
+        walls[name] = time.perf_counter() - t0
+        poison = CHECKS_POISON if "poison" in plan else None
+        check_plan(name, got, fired, failures, rung, base, poison)
+        log(f"[checks] (b) {name} ({kind}, {plan}): fired {got['fired']}, failures "
+            f"{got['failures']}, retries {got['retries']}, bisects {got['bisects']}, "
+            f"quarantined {got['quarantined']}, rung {got['rung']}; "
+            f"{sum(o[0] == 'ok' for o in got['outcomes'])}/{len(prompts)} answers byte-"
+            f"identical to the unfaulted run's, {walls[name]:.2f}s")
+    launches = read_launches()
+    if not (launches["prefill"] and launches["decode"] and launches["verify"]) \
+            and device == "cuda":
+        raise AssertionError(f"checks (b): launches {launches}: a kernel of the path never ran")
+    del backend, model
+    return launches
+
+
+def checks_lint() -> str:
+    """Arm (c): ``python -m vnsum_tpu_torch.analysis vnsum_tpu_torch`` as a
+    subprocess from the checkout's root must exit 0 with no finding."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vnsum_tpu_torch.analysis", "vnsum_tpu_torch"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or proc.stdout.strip() != "ok: no findings":
+        raise AssertionError(f"checks (c): the lint exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    have = {m: importlib.util.find_spec(m) is not None for m in ("jax", "transformers")}
+    return f"exit 0, ok: no findings, {wall:.2f}s (importable here: {have})"
+
+
+def check_tracing(label: str, tracing: dict) -> None:
+    """Arm (d): a pipeline run's ``results.tracing``: the runner's spans,
+    RUNNER_SPANS' names and counts."""
+    spans = tracing.get("spans", {})
+    counts = {k: v["count"] for k, v in spans.items()}
+    if counts != RUNNER_SPANS or not all(v["total_s"] >= 0 for v in spans.values()):
+        raise AssertionError(f"{label}: results.tracing spans {counts}, expected "
+                             f"{RUNNER_SPANS}")
+
+
+def phase_checks(torch, backend, prompts: list, oneshot: list) -> dict:
+    """Phase 9f: arms (a)-(d) (see above). Returns the phase's launches."""
+    total = dict.fromkeys(COUNTERS, 0)
+    t0 = time.perf_counter()
+    a = checks_guard(torch, backend, prompts, oneshot)
+    ta = time.perf_counter() - t0
+    b = checks_faults(torch)
+    tb = time.perf_counter() - t0 - ta
+    lint = checks_lint()
+    log(f"[checks] (c) python -m vnsum_tpu_torch.analysis vnsum_tpu_torch: {lint}")
+    check_tracing("checks (d) the pipeline phase", PIPELINE_TRACING)
+    log("[checks] (d) the pipeline phase's results.tracing: "
+        + ", ".join(f"{k} x{v['count']} {v['total_s']:.3f}s"
+                    for k, v in PIPELINE_TRACING["spans"].items()))
+    for k in total:
+        total[k] = a[k] + b[k]
+    log(f"[checks] arms: (a) {ta:.1f}s, (b) {tb:.1f}s, (c) + (d) "
+        f"{time.perf_counter() - t0 - ta - tb:.1f}s")
+    log("[launches] checks phase: " + ", ".join(f"{k} {v}" for k, v in total.items()))
+    torch.cuda.empty_cache()
+    return total
+
+
 # -- phase 10 -----------------------------------------------------------------
 
 ONE_CARD_CEILING = 16384  # Llama-3.2-3B's max_seq_len: the one-card engine's cut
@@ -7172,6 +7566,64 @@ def profile_call(torch, name: str, fn, n: int, n_layers: int, captured: bool,
         f"{busy_txt}, {count} device ops, decode kernel passes {passes}{gemv_txt}; "
         f"card (SM clock, power, limit reasons) {card}; top: "
         + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+    return wall
+
+
+def check_step_wall(wall: float) -> None:
+    """Phase 9f (d): the captured decode step's wall against its earlier
+    runs' (CAPTURED_STEP_MS): logged in or out of that range, failed past
+    CAPTURED_STEP_MARGIN times its top (the annotate ranges open none a
+    replayed step)."""
+    lo, hi = CAPTURED_STEP_MS
+    inside = "inside" if lo <= wall <= hi else "outside"
+    if wall > hi * CAPTURED_STEP_MARGIN:
+        raise AssertionError(f"profile: the captured decode step took {wall:.3f} ms, past "
+                             f"{CAPTURED_STEP_MARGIN} x the earlier runs' {hi} ms")
+    log(f"[checks] (d) captured decode step {wall:.3f} ms, {inside} the earlier runs' "
+        f"{lo}-{hi} ms (limit {hi * CAPTURED_STEP_MARGIN:.2f} ms)")
+
+
+PROFILE_RANGE_NEW = 2         # step 0 eager, then one capture and one replay
+
+
+def profile_ranges(torch, model) -> None:
+    """Phase 9f (d): one engine generate on the map batch (B=8, S=4096,
+    PROFILE_RANGE_NEW new tokens, captured decode) under torch.profiler:
+    the trace holds the engine's annotate ranges generate[B=8,S=4096],
+    prefill[B=8,S=4096] and decode_seg[B=8,S=4096] once each (one a group,
+    none a replayed step) around its kernels, and no other range of the
+    engine."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+
+    engine = TorchBackend(model=model, batch_size=8, max_new_tokens=PROFILE_RANGE_NEW,
+                          device="cuda")
+    prompts, _hint = map_batch(engine)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.generate(prompts)
+        torch.cuda.synchronize()
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    # each range is a host event; the trace also draws it on the device's
+    # timeline (gpu_user_annotation), once per stream it spans
+    names = Counter(e.name for e in events if e.device_type == cpu)
+    on_device = Counter(e.name for e in events if e.device_type != cpu)
+    want = {f"{r}[B=8,S=4096]": 1 for r in ("generate", "prefill", "decode_seg")}
+    got = {k: names.get(k, 0) for k in want}
+    other = sorted(k for k in names if k.startswith(("spec_", "choice[")))
+    if got != want or other:
+        raise AssertionError(f"profile: the engine's ranges in the trace {got} (and "
+                             f"{other}), expected {want}")
+    kernels = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"[checks] (d) torch.profiler trace of one generate (B=8, S=4096, "
+        f"{PROFILE_RANGE_NEW} new tokens, {engine.stats.captured_steps} replayed): host "
+        f"ranges {got}, drawn on the device timeline {dict((k, on_device[k]) for k in want)}, "
+        f"{kernels} device events; {time.perf_counter() - t0:.1f}s with the trace's "
+        "processing")
 
 
 def phase_profile(torch) -> None:
@@ -7311,10 +7763,16 @@ def phase_profile(torch) -> None:
                 del cache
                 torch.cuda.empty_cache()
                 long_setup()
-            profile_call(torch, name, fn, n, cfg.n_layers,
-                         fn in (captured_decode, captured_int8_decode, captured_long_decode),
-                         4 * cfg.n_layers + 1 if fn is captured_int8_decode else 0)
-    del model, long, graphs
+            wall = profile_call(torch, name, fn, n, cfg.n_layers,
+                                fn in (captured_decode, captured_int8_decode,
+                                       captured_long_decode),
+                                4 * cfg.n_layers + 1 if fn is captured_int8_decode else 0)
+            if fn is captured_decode:
+                check_step_wall(wall)
+    del long, graphs
+    torch.cuda.empty_cache()
+    profile_ranges(torch, model)
+    del model
     torch.cuda.empty_cache()
 
 
@@ -7363,6 +7821,7 @@ def main() -> int:
         "prefix cache", phase_prefix_cache, torch, backend.model, plain_summaries)
     serve_launches, serve_resume, serve_ref = timed("serve", phase_serve, torch, backend.model)
     resume_launches += serve_resume
+    checks_launches = timed("checks", phase_checks, torch, backend, prompts, oneshot)
     del backend
     fixture_launches = timed("fixture", phase_fixture, torch)
     # the fleet's launches are its workers', counted in their processes
@@ -7370,8 +7829,8 @@ def main() -> int:
     long_launches = timed("long context", phase_long_context, torch)
     launches = {k: launches[k] + int8_launches[k] + w8a8_launches[k] + weights_launches[k]
                 + strategy_launches[k] + judge_launches[k] + spec_launches[k] + slot_launches[k]
-                + cache_launches[k] + serve_launches[k] + fixture_launches[k]
-                + long_launches[k] for k in launches}
+                + cache_launches[k] + serve_launches[k] + checks_launches[k]
+                + fixture_launches[k] + long_launches[k] for k in launches}
     timed("profile", phase_profile, torch)
     kernels = []
     for key, meta in KERNELS.items():

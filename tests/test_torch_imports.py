@@ -42,7 +42,10 @@ def test_sources_found():
             "vnsum_tpu_torch/obs/trace.py", "vnsum_tpu_torch/testing/faults.py",
             "vnsum_tpu_torch/analysis/sanitizers.py", "vnsum_tpu_torch/core/profiling.py",
             "vnsum_tpu_torch/serve/journal.py", "vnsum_tpu_torch/testing/chaos.py",
-            "vnsum_tpu_torch/serve/qos.py", "vnsum_tpu_torch/serve/slo.py"} <= names
+            "vnsum_tpu_torch/serve/qos.py", "vnsum_tpu_torch/serve/slo.py",
+            "vnsum_tpu_torch/analysis/core.py", "vnsum_tpu_torch/analysis/__main__.py",
+            "vnsum_tpu_torch/analysis/rules/host_sync.py",
+            "vnsum_tpu_torch/analysis/rules/device_pinning.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -295,9 +295,10 @@ def test_chrome_trace_has_request_and_batch_tracks():
 
 
 def test_device_profile_writes_a_chrome_trace(tmp_path):
-    """core/profiling.device_profile (the pipeline Tracer is ROADMAP A14):
-    the block runs under torch.profiler and one trace-event JSON lands in
-    the directory; a second capture never overwrites the first."""
+    """core/profiling.device_profile (the pipeline Tracer beside it:
+    tests/test_torch_core_profiling.py): the block runs under
+    torch.profiler and one trace-event JSON lands in the directory; a
+    second capture never overwrites the first."""
     import torch
 
     from vnsum_tpu_torch.core.profiling import device_profile

@@ -1,10 +1,11 @@
-"""Runtime sanitizer: lockdep-style lock-order detection.
+"""Runtime sanitizers: lockdep-style lock-order detection + transfer guard.
 
-Copy of the lock half of ``vnsum_tpu/analysis/sanitizers.py``. It is
-**opt-in via the ``VNSUM_SANITIZERS`` env var** and constructed away when
-off: :func:`make_lock` returns a plain ``threading.Lock`` (zero wrapper,
-zero extra acquisitions). Values: ``1``/``all`` enables everything, or a
-comma list holding ``lock``.
+Copy of ``vnsum_tpu/analysis/sanitizers.py``, its transfer guard rebuilt on
+CUDA's sync debug mode. Both are **opt-in via the ``VNSUM_SANITIZERS`` env
+var** and constructed away when off: :func:`make_lock` returns a plain
+``threading.Lock`` (zero wrapper, zero extra acquisitions) and
+:func:`hot_path_transfer_guard` a ``nullcontext``. Values: ``1``/``all``
+enables everything, or a comma list of ``lock`` / ``transfer``.
 
 **Lock order.** Deadlocks in a queue -> scheduler -> engine -> cache stack
 are ordering bugs long before they are hangs: thread A holds the queue lock
@@ -22,10 +23,39 @@ cannot wait, so it cannot deadlock — and Condition's ``_is_owned`` probe
 must not self-edge. The wrapper satisfies ``threading.Condition``'s lock
 protocol, so the RequestQueue's Condition-over-Lock works unchanged.
 
-The JAX package's hot-loop transfer guard is not ported (ROADMAP A14).
+**Transfer guard.** The static half of the hot-loop contract is the
+``host-sync-in-hot-path`` lint (every acknowledged sync is an explicit
+:func:`device_get` or :func:`device_sync` carrying a reasoned suppression);
+this is the runtime half. :func:`hot_path_transfer_guard` wraps the
+engine's dispatch loops (``generate``, ``score_choices``, the slot loop's
+``admit`` and ``step``) in ``torch.cuda.set_sync_debug_mode("error")``, so
+any *implicit* sync with the card (a stray ``.item()``, ``.cpu()`` or
+``bool(tensor)``, a host-to-device copy from pageable memory) raises instead
+of silently serializing the pipeline, while :func:`device_get` and
+:func:`device_sync` switch the check off around the one read or sync they
+make. It differs from the JAX guard in three ways:
+
+- CUDA's mode is one setting of the process, not of a thread: while any
+  guard is open every thread's syncs raise (the server's HTTP threads
+  included), and while any acknowledged read runs none do. The guards and
+  reads count themselves under one lock, the first guard to open saves the
+  mode and the last to close puts it back, on exceptions too;
+- it covers host-to-device copies as well, which CUDA makes synchronous
+  from pageable memory: the port's uploads of host arrays go through
+  :func:`to_device`, a copy that does not block the host;
+- it arms only for a CUDA device. On the CPU there is nothing to sync with
+  and the guard is a ``nullcontext``; the CPU tests hold the guarded paths
+  to the unguarded ones and check the mode's bookkeeping with the setter
+  replaced.
+
+A CUDA graph's recording runs under an acknowledged section
+(:func:`acknowledged`): CUDA refuses every sync inside a capture whatever
+the mode, the mode is host-side state that changes nothing recorded, and
+``torch.cuda.graph`` synchronizes the device before it begins.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 
@@ -43,6 +73,10 @@ def _enabled(kind: str) -> bool:
 
 def lock_sanitizer_enabled() -> bool:
     return _enabled("lock")
+
+
+def transfer_sanitizer_enabled() -> bool:
+    return _enabled("transfer")
 
 
 class LockOrderError(RuntimeError):
@@ -186,3 +220,106 @@ def make_lock(name: str) -> "threading.Lock | TrackedLock":
 
 def lock_order_violations() -> list[str]:
     return list(_GRAPH.violations)
+
+
+# -- transfer guard ----------------------------------------------------------
+
+# the counts of every thread's open guards and running acknowledged reads,
+# and the mode the first guard found: read and written under _SYNC_LOCK
+_SYNC_LOCK = threading.Lock()
+_guards = 0
+_reads = 0
+_saved_mode = 0
+
+
+def _apply_mode_locked() -> None:
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error" if _guards and not _reads else _saved_mode)
+
+
+class _TransferGuard:
+    """One open transfer guard (see :func:`hot_path_transfer_guard`)."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_TransferGuard":
+        global _guards, _saved_mode
+        import torch
+
+        with _SYNC_LOCK:
+            if _guards == 0:
+                _saved_mode = torch.cuda.get_sync_debug_mode()
+            _guards += 1
+            _apply_mode_locked()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _guards
+        with _SYNC_LOCK:
+            _guards -= 1
+            _apply_mode_locked()
+
+
+def hot_path_transfer_guard(device):
+    """Context manager for the engine's dispatch loops on ``device``:
+    ``nullcontext`` normally and on the CPU; under the transfer sanitizer on
+    a CUDA device, implicit syncs with the card raise while the
+    acknowledged ones (:func:`device_get`, :func:`device_sync`) pass."""
+    if not transfer_sanitizer_enabled() or getattr(device, "type", device) != "cuda":
+        return contextlib.nullcontext()
+    return _TransferGuard()
+
+
+@contextlib.contextmanager
+def acknowledged():
+    """The guard's check off for the enclosed block, in every thread; a
+    no-op while no guard is open."""
+    global _reads
+    if not _guards:
+        yield
+        return
+    with _SYNC_LOCK:
+        _reads += 1
+        _apply_mode_locked()
+    try:
+        yield
+    finally:
+        with _SYNC_LOCK:
+            _reads -= 1
+            _apply_mode_locked()
+
+
+def device_get(x):
+    """The acknowledged device-to-host read, counterpart of
+    ``jax.device_get``: a tensor comes back as a numpy array (``.cpu()
+    .numpy()``), a tuple or list of tensors as a tuple of them. It syncs
+    with the card, and under the transfer guard it is the sync that
+    passes."""
+    with acknowledged():
+        if isinstance(x, (tuple, list)):
+            return tuple(t.cpu().numpy() for t in x)
+        return x.cpu().numpy()
+
+
+def device_sync(device) -> None:
+    """``torch.cuda.synchronize(device)`` as an acknowledged sync; nothing
+    on the CPU."""
+    if getattr(device, "type", device) != "cuda":
+        return
+    import torch
+
+    with acknowledged():
+        torch.cuda.synchronize(device)
+
+
+def to_device(array, device):
+    """A host numpy array as a tensor on ``device``, copied without blocking
+    the host: CUDA stages a pageable source before the call returns, so the
+    array may be reused at once, and the copy is ordered on the current
+    stream before every later kernel that reads it. Under the transfer
+    guard this upload passes, where a blocking ``.to(device)`` from pageable
+    memory is a sync and raises."""
+    import torch
+
+    return torch.from_numpy(array).to(device, non_blocking=True)

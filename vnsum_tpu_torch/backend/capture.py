@@ -18,6 +18,12 @@ steps. The steps after every row is done emit pad, so where the loop stops
 never changes an output. A group's graph holds the addresses of its KV
 cache and buffers, so it lives only as long as its loop.
 
+Under the transfer guard (``analysis/sanitizers.py``) the all-done read is
+an acknowledged ``device_get``, and a graph is recorded inside an
+acknowledged section: CUDA refuses a sync inside a capture whatever the
+sync debug mode says, and ``torch.cuda.graph`` synchronizes the device
+before it begins, so the mode changes nothing that is recorded.
+
 The kernel wrappers count a launch when Python calls them, which a replay
 does not. :class:`CapturedStep` takes back what the capture counted and adds
 it once per replay, so the counts stay those of the steps that ran.
@@ -28,6 +34,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..analysis.sanitizers import acknowledged, device_get
 from ..ops import decode_attention, flash_attention, int8_matmul, verify_attention
 
 # decode steps between host reads of the all-done flag (each read syncs)
@@ -56,7 +63,7 @@ def _set_launches(counts: dict[str, int]) -> None:
 def record_cuda_graph(step: Callable[[], None]) -> torch.cuda.CUDAGraph:
     """Record one call of ``step`` into a new CUDA graph; nothing runs."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with acknowledged(), torch.cuda.graph(graph):
         step()
     return graph
 
@@ -153,6 +160,7 @@ class LoopRun(NamedTuple):
     replays: int    # steps run as replays
 
 
+# hot path
 def decode_loop(
     step: Callable[[int], None],
     done: torch.Tensor,
@@ -170,7 +178,8 @@ def decode_loop(
     graph = None
     steps = 0
     for t in range(max_new):
-        if t % DONE_CHECK_INTERVAL == 0 and bool(done.all()):
+        # lint-allow[host-sync-in-hot-path]: the all-done check every DONE_CHECK_INTERVAL steps, the on-device while_loop's exit in JAX
+        if t % DONE_CHECK_INTERVAL == 0 and bool(device_get(done.all())):
             break
         if graph is not None:
             graph.replay()

@@ -58,7 +58,18 @@ engine's spans (``tokenize``, ``cache_lookup``, ``cache_gather``,
 ``prefill``, ``decode_seg``, ``dispatch``, ``cache_insert``,
 ``detokenize``, ``spec_prefill``, ``spec_step``); each span that times
 device work ends at a sync the path already pays, and with no collector
-nothing is timed or read.
+nothing is timed or read. The JAX engine's ``annotate`` ranges
+(``core/profiling.py``: ``generate``, ``prefill``, ``decode_seg``,
+``spec_prefill``, ``spec_step``, ``choice``, each with ``[B=..,S=..]``)
+name the same phases in a ``torch.profiler`` trace: one a group, segment
+or verify step, none a replayed decode step.
+
+The checks of the JAX engine (``analysis/``, ``testing/faults.py``):
+``generate`` fires the ``engine.dispatch`` fault site after its argument
+checks; ``generate`` and ``score_choices`` run their dispatch loops under
+the transfer guard (``VNSUM_SANITIZERS=transfer`` on the card: an implicit
+sync raises), where every host read is an acknowledged ``device_get`` and
+every upload of a host array a ``to_device`` copy.
 
 Not ported yet: the continuous scheduler and meshes.
 """
@@ -71,9 +82,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..analysis.sanitizers import device_get, device_sync, hot_path_transfer_guard, to_device
 from ..cache import PrefixCache
 from ..core.config import GenerationConfig
 from ..core.logging import get_logger
+from ..core.profiling import annotate
 from ..models.llama import (
     LlamaConfig,
     LlamaModel,
@@ -94,6 +107,7 @@ from ..ops.decode_attention import flash_decode_attention
 from ..ops.flash_attention import B4, flash_prefill_attention, supports_flash, supports_verify
 from ..ops.verify_attention import flash_spec_verify_attention
 from ..spec import NO_TOKEN, SpecRecord, encode_references, propose_drafts
+from ..testing.faults import fault
 from ..text.tokenizer import Tokenizer, get_tokenizer
 from .base import (
     fold_seed,
@@ -332,8 +346,7 @@ class TorchBackend:
     # -- pieces of one generation batch -----------------------------------
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        device_sync(self.device)
 
     def _next_seed(self, gen: GenerationConfig) -> int:
         s = fold_seed(gen.seed, self._seed, self._dispatch)
@@ -344,11 +357,11 @@ class TorchBackend:
         """(eos ids tensor, vocab limit, restrict fn): never sample a token
         the tokenizer cannot render, but keep every terminator sampleable."""
         terminators = terminator_ids(self.tok, gen)
-        eos = torch.tensor(terminators, dtype=torch.long, device=self.device)
+        eos = to_device(np.asarray(terminators, dtype=np.int64), self.device)
         vocab_limit, allowed = sampling_vocab(
             self.tok, self.cfg.vocab_size, terminators
         )
-        allowed_dev = None if allowed is None else torch.from_numpy(allowed).to(self.device)
+        allowed_dev = None if allowed is None else to_device(allowed, self.device)
 
         def restrict(row_logits):  # [B, vocab_limit]
             return mask_unsampleable(row_logits, allowed_dev)
@@ -469,7 +482,7 @@ class TorchBackend:
         cache, pad_lens [B] int32, done [B])."""
         dev = self.device
         _, vocab_limit, restrict = self._sampling_setup(gen)
-        pad_lens = torch.from_numpy(pad_np).to(dev)
+        pad_lens = to_device(pad_np, dev)
         if resume is None:
             start = 0
             cache = init_kv_cache(self.cfg, len(pad_np), C, quantized=self.quantize_kv,
@@ -477,7 +490,7 @@ class TorchBackend:
         else:
             start, cache = resume
         logits = self._prefill_forward(
-            torch.from_numpy(tokens_np).to(dev), pad_lens, len(pad_np), S, C, cache, start
+            to_device(tokens_np, dev), pad_lens, len(pad_np), S, C, cache, start
         )
         first = self._sample(logits, seed, list(uids), 0, gen, vocab_limit, restrict)
         return first, cache, pad_lens, pad_lens == S
@@ -521,10 +534,11 @@ class TorchBackend:
 
         t_pre = time.time()
         t_pre_m = time.monotonic()
-        cur, cache, pad_lens, done = self._prefill_group(
-            tokens_np, pad_np, S, C, gen, seed, range(B), resume
-        )
-        self._sync()
+        with annotate(f"prefill[B={B},S={S}]"):
+            cur, cache, pad_lens, done = self._prefill_group(
+                tokens_np, pad_np, S, C, gen, seed, range(B), resume
+            )
+            self._sync()
         prefill_s = time.time() - t_pre
         self.stats.add_phase("prefill", prefill_s)
         if tracing:
@@ -533,18 +547,22 @@ class TorchBackend:
         t_dec = time.time()
         t_dec_m = time.monotonic()
         buffers = decode_buffers(cur, done, max_new, self.tok.pad_id)
-        run = decode_loop(
-            self._decode_step(buffers, cache, pad_lens, S, C, gen, seed, sampling), done,
-            max_new, capture=captures(gen, self.cuda_graphs, self._graphs_required),
-        )
-        out_h = buffers["out"].cpu().numpy()  # synchronizes
+        # one range for the group's decode loop, its replays included
+        with annotate(f"decode_seg[B={B},S={S}]"):
+            run = decode_loop(
+                self._decode_step(buffers, cache, pad_lens, S, C, gen, seed, sampling), done,
+                max_new, capture=captures(gen, self.cuda_graphs, self._graphs_required),
+            )
+            # lint-allow[host-sync-in-hot-path]: final result fetch: the group's decode is over, detok needs the tokens
+            out_h = device_get(buffers["out"])
         decode_s = time.time() - t_dec
         if tracing:
             # the out fetch above synced: a true device time. One span for
             # the group's decode loop (the JAX engine's continuous path
             # emits one a segment)
-            emit("decode_seg", t_dec_m, decode_s, B=B, S=S, steps=run.steps,
-                 live=int((~buffers["done"]).sum()),
+            # lint-allow[host-sync-in-hot-path]: traced runs only, after the out fetch synced
+            live = int(device_get((~buffers["done"]).sum()))
+            emit("decode_seg", t_dec_m, decode_s, B=B, S=S, steps=run.steps, live=live,
                  kv_frac=round((S + run.steps) / (S + max_new), 4))
         self.stats.decode_steps += run.steps
         self.stats.graph_captures += run.captures
@@ -658,10 +676,12 @@ class TorchBackend:
 
         t_pre = time.time()
         t_pre_m = time.monotonic()
-        cur, cache, pad_lens, done = self._prefill_group(
-            tokens_np, pads_np, S, C, gen, seed, range(B)
-        )
-        prev_done = done.cpu().numpy()  # seeds the host loop's exit condition
+        with annotate(f"spec_prefill[B={B},S={S}]"):
+            cur, cache, pad_lens, done = self._prefill_group(
+                tokens_np, pads_np, S, C, gen, seed, range(B)
+            )
+            # lint-allow[host-sync-in-hot-path]: the prefill's done mask seeds the host loop's exit condition
+            prev_done = device_get(done)
         self.stats.add_phase("prefill", time.time() - t_pre)
         if tracing:
             emit("spec_prefill", t_pre_m, time.time() - t_pre, B=B, S=S,
@@ -674,8 +694,8 @@ class TorchBackend:
             "e": torch.zeros((B,), dtype=torch.long, device=dev),
             "e_host": np.zeros((B,), dtype=np.int64),
             "out": torch.full((B, max_new + k1), self.tok.pad_id, dtype=torch.long, device=dev),
-            "ref": torch.from_numpy(ref_full).to(dev),
-            "ref_lens": torch.from_numpy(lens_full).to(dev),
+            "ref": to_device(ref_full, dev),
+            "ref_lens": to_device(lens_full, dev),
         }
         drafted = np.zeros((B,), dtype=np.int64)
         accepted = np.zeros((B,), dtype=np.int64)
@@ -683,12 +703,12 @@ class TorchBackend:
         t_dec = time.time()
         while not prev_done.all():
             t_step = time.monotonic() if tracing else 0.0
-            n_draft, acc = self._spec_step(state, gen, seed, S, C, max_new)
-            # ONE fetch per verify step: draft/accept counts feed the stats,
-            # done drives the loop's exit
-            nd_h, acc_h, done_h = torch.stack(
-                [n_draft, acc, state["done"].long()]
-            ).cpu().numpy()
+            with annotate(f"spec_step[B={B},S={S},k={gen.spec_k}]"):
+                n_draft, acc = self._spec_step(state, gen, seed, S, C, max_new)
+                # ONE fetch per verify step: draft/accept counts feed the
+                # stats, done drives the loop's exit
+                # lint-allow[host-sync-in-hot-path]: per-step nd/acc/done fetch is the verify loop's control dependency
+                nd_h, acc_h, done_h = device_get(torch.stack([n_draft, acc, state["done"].long()]))
             live = ~prev_done
             steps_live += live
             drafted += nd_h
@@ -699,14 +719,19 @@ class TorchBackend:
             self.stats.spec_verify_steps += 1
             if tracing:
                 # the nd/acc/done fetch above is the sync the loop already pays
+                # lint-allow[host-sync-in-hot-path]: numpy host arrays fetched above, no device read
+                live, nd, na = int((~prev_done).sum()), int(nd_h.sum()), int(acc_h.sum())
                 emit("spec_step", t_step, time.monotonic() - t_step, B=B,
-                     k=gen.spec_k, live=int((~prev_done).sum()),
-                     drafted=int(nd_h.sum()), accepted=int(acc_h.sum()))
+                     k=gen.spec_k, live=live, drafted=nd, accepted=na)
         self.stats.add_phase("spec_decode", time.time() - t_dec)
-        self.stats.spec_draft_tokens += int(drafted[: len(group)].sum())
-        self.stats.spec_accepted_tokens += int(accepted[: len(group)].sum())
+        n = len(group)
+        # lint-allow[host-sync-in-hot-path]: numpy host counters, no device read
+        nd, na = int(drafted[:n].sum()), int(accepted[:n].sum())
+        self.stats.spec_draft_tokens += nd
+        self.stats.spec_accepted_tokens += na
 
-        out_h = state["out"].cpu().numpy()[:, :max_new]
+        # lint-allow[host-sync-in-hot-path]: final result fetch: detok needs the emitted tokens
+        out_h = device_get(state["out"])[:, :max_new]
         for row, i in enumerate(group):
             results[i] = self._detok(out_h[row], tuple(gen.eos_ids))
             report[i] = SpecRecord(
@@ -736,7 +761,8 @@ class TorchBackend:
         eos, vocab_limit, restrict = self._sampling_setup(gen)
         ran = 0
         for k in range(steps):
-            if k % DONE_CHECK_INTERVAL == 0 and bool(st["done"].all()):
+            # lint-allow[host-sync-in-hot-path]: the all-done check every DONE_CHECK_INTERVAL steps, the on-device while_loop's exit in JAX
+            if k % DONE_CHECK_INTERVAL == 0 and bool(device_get(st["done"].all())):
                 break
             t, cur, done, out = st["t"], st["cur"], st["done"], st["out"]
             # emit BEFORE sampling; a done row keeps its out row (its stale
@@ -747,7 +773,8 @@ class TorchBackend:
             logits = self._verify_forward(cur[:, None], st["pads"], S + t, st["cache"], C)
             seeds = []
             if gen.temperature > 0:
-                seeds = [row_seed(seed, u, tt + 1) for u, tt in zip(uids, t.tolist())]
+                # lint-allow[host-sync-in-hot-path]: sampled rows key their host-seeded generators on t, one read a step
+                seeds = [row_seed(seed, u, tt + 1) for u, tt in zip(uids, device_get(t).tolist())]
             nxt = sample_logits_rows(
                 restrict(logits[:, -1, :vocab_limit]), seeds,
                 gen.temperature, gen.top_k, gen.top_p,
@@ -766,13 +793,15 @@ class TorchBackend:
         state into the resident slot batch at ``slot_idx``, in place. The
         targets are distinct free slots (the loop caps the join bucket at
         the free-slot count), so the order of the writes never matters."""
-        idx = torch.as_tensor(slot_idx, dtype=torch.long, device=self.device)
+        idx = to_device(np.asarray(slot_idx, dtype=np.int64), self.device)
         for name, buf in st["cache"].items():
             buf.index_copy_(1, idx, join_cache[name])
         st["cur"][idx] = first
         st["done"][idx] = done0
-        st["t"][idx] = 0
-        st["out"][idx] = self.tok.pad_id
+        # fills with a Python scalar: an index_put_ of one would copy it to
+        # the card first, a sync the transfer guard refuses
+        st["t"].index_fill_(0, idx, 0)
+        st["out"].index_fill_(0, idx, self.tok.pad_id)
         st["pads"][idx] = join_pads
 
     def start_slot_loop(
@@ -969,8 +998,8 @@ class TorchBackend:
 
     # -- public API --------------------------------------------------------
 
-    # hot path
     @torch.inference_mode()
+    # hot path
     def generate(
         self,
         prompts: list[str],
@@ -1003,6 +1032,10 @@ class TorchBackend:
                 f"cache_hints must align with prompts: got {len(cache_hints)} "
                 f"for {len(prompts)}"
             )
+        # seeded fault injection (testing/faults.py): one global None-check
+        # when disarmed; after the argument checks, so injected faults
+        # exercise dispatch recovery, not the checks
+        fault("engine.dispatch", prompts=prompts)
         spec_on = gen.spec_k > 0 and references is not None and any(references)
         spec_report: list = [None] * len(prompts) if spec_on else []
         self.stats.calls += 1
@@ -1050,48 +1083,54 @@ class TorchBackend:
         results: list[str | None] = [None] * len(encoded)
         t0 = time.time()
         try:
-            for start in range(0, len(order), self.batch_size):
-                group = order[start : start + self.batch_size]
-                seed = self._next_seed(gen)
-                # per-group routing: a group whose prompts carry no reference
-                # would pay the (k+1)-wide verify forward to retire one token
-                # a step, so it takes the plain path (same greedy output)
-                if spec_on and any(references[i] for i in group):
-                    self._run_group_spec(
-                        group, encoded, references, max_new, gen, results, spec_report, seed,
-                        tracing,
+            # sanitizer hook (analysis/sanitizers.py): nullcontext normally;
+            # under VNSUM_SANITIZERS=transfer on the card an implicit sync
+            # inside the dispatch loop raises, the acknowledged device_get
+            # reads pass
+            with hot_path_transfer_guard(self.device):
+                for start in range(0, len(order), self.batch_size):
+                    group = order[start : start + self.batch_size]
+                    seed = self._next_seed(gen)
+                    # per-group routing: a group whose prompts carry no reference
+                    # would pay the (k+1)-wide verify forward to retire one token
+                    # a step, so it takes the plain path (same greedy output)
+                    if spec_on and any(references[i] for i in group):
+                        self._run_group_spec(
+                            group, encoded, references, max_new, gen, results, spec_report, seed,
+                            tracing,
+                        )
+                        continue
+                    tokens, pad_lens, B, S = self._pack_group(group, encoded, max_new)
+                    resume = None
+                    if use_cache:
+                        resume = self._prepare_resume(group, encoded, matches, pad_lens, B, S,
+                                                      max_new, tracing)
+                        if resume is not None:
+                            for row, i in enumerate(group):
+                                cache_report[i] = resume[2][row]
+                    steps = self.stats.decode_steps
+                    t_disp = time.monotonic() if tracing else 0.0
+                    with annotate(f"generate[B={B},S={S}]"):
+                        out, cache = self._run_group(tokens, pad_lens, B, S, max_new, gen, seed,
+                                                     resume and resume[:2], len(group), tracing)
+                    if tracing:
+                        # the group's whole device call, its result fetched
+                        emit("dispatch", t_disp, time.monotonic() - t_disp, B=B, S=S,
+                             occupancy=len(group), max_new=max_new)
+                    self.stats.batches += 1
+                    self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
+                    self.stats.steps_by_bucket[(B, S)] = (
+                        self.stats.steps_by_bucket.get((B, S), 0) + self.stats.decode_steps - steps
                     )
-                    continue
-                tokens, pad_lens, B, S = self._pack_group(group, encoded, max_new)
-                resume = None
-                if use_cache:
-                    resume = self._prepare_resume(group, encoded, matches, pad_lens, B, S,
-                                                  max_new, tracing)
-                    if resume is not None:
-                        for row, i in enumerate(group):
-                            cache_report[i] = resume[2][row]
-                steps = self.stats.decode_steps
-                t_disp = time.monotonic() if tracing else 0.0
-                out, cache = self._run_group(tokens, pad_lens, B, S, max_new, gen, seed,
-                                             resume and resume[:2], len(group), tracing)
-                if tracing:
-                    # the group's whole device call, its result fetched
-                    emit("dispatch", t_disp, time.monotonic() - t_disp, B=B, S=S,
-                         occupancy=len(group), max_new=max_new)
-                self.stats.batches += 1
-                self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
-                self.stats.steps_by_bucket[(B, S)] = (
-                    self.stats.steps_by_bucket.get((B, S), 0) + self.stats.decode_steps - steps
-                )
-                if use_cache:
-                    self._cache_insert(cache, group, encoded, matches, cache_hints, pad_lens,
-                                       tracing)
-                del cache  # freed before the next group allocates its own
-                t_detok = time.monotonic() if tracing else 0.0
-                for row, i in enumerate(group):
-                    results[i] = self._detok(out[row], tuple(gen.eos_ids))
-                if tracing:
-                    emit("detokenize", t_detok, time.monotonic() - t_detok, rows=len(group))
+                    if use_cache:
+                        self._cache_insert(cache, group, encoded, matches, cache_hints, pad_lens,
+                                           tracing)
+                    del cache  # freed before the next group allocates its own
+                    t_detok = time.monotonic() if tracing else 0.0
+                    for row, i in enumerate(group):
+                        results[i] = self._detok(out[row], tuple(gen.eos_ids))
+                    if tracing:
+                        emit("detokenize", t_detok, time.monotonic() - t_detok, rows=len(group))
         finally:
             if matches is not None:
                 for m in matches:
@@ -1116,13 +1155,12 @@ class TorchBackend:
         dev = self.device
         B = len(pad_np)
         cache = init_kv_cache(self.cfg, B, S, quantized=self.quantize_kv, device=dev)
-        logits = self._prefill_forward(
-            torch.from_numpy(tokens_np).to(dev), torch.from_numpy(pad_np).to(dev), B, S, S, cache
-        )
+        logits = self._prefill_forward(to_device(tokens_np, dev), to_device(pad_np, dev), B, S, S,
+                                       cache)
         return logits[:, -1, :].index_select(-1, choice_ids)
 
-    # hot path
     @torch.inference_mode()
+    # hot path
     def score_choices(self, prompts: list[str], choices: list[str]) -> list[int]:
         """For each prompt, the index of the choice whose FIRST token has the
         highest next-token logit after prefilling the prompt.
@@ -1139,7 +1177,8 @@ class TorchBackend:
             ids.append(enc[0])
         if len(set(ids)) != len(ids):
             raise ValueError("choices must differ in their first token")
-        choice_dev = torch.tensor(ids, dtype=torch.long, device=self.device)
+        # lint-allow[host-sync-in-hot-path]: host list -> host array for the upload, no device sync
+        choice_dev = to_device(np.asarray(ids, dtype=np.int64), self.device)
 
         self.stats.calls += 1
         self.stats.prompts += len(prompts)
@@ -1155,19 +1194,23 @@ class TorchBackend:
 
         order = sorted(range(len(encoded)), key=lambda i: len(encoded[i]))
         results: list[int] = [0] * len(encoded)
-        for start in range(0, len(order), self.batch_size):
-            group = order[start : start + self.batch_size]
-            # no decode budget: the whole context is prompt space; the
-            # bucketing and padding rules are generate()'s
-            tokens, pad_lens, B, S = self._pack_group(group, encoded, 0)
-            t_disp = time.time()
-            idx = self._choice_logits(tokens, pad_lens, S, choice_dev).argmax(dim=-1)
-            idx_h = idx.cpu().numpy()  # the group's one host read
-            self.stats.add_phase("choice", time.time() - t_disp)
-            self.stats.batches += 1
-            self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
-            for row, i in enumerate(group):
-                results[i] = int(idx_h[row])
+        # sanitizer hook: as generate's
+        with hot_path_transfer_guard(self.device):
+            for start in range(0, len(order), self.batch_size):
+                group = order[start : start + self.batch_size]
+                # no decode budget: the whole context is prompt space; the
+                # bucketing and padding rules are generate()'s
+                tokens, pad_lens, B, S = self._pack_group(group, encoded, 0)
+                t_disp = time.time()
+                with annotate(f"choice[B={B},S={S}]"):
+                    idx = self._choice_logits(tokens, pad_lens, S, choice_dev).argmax(dim=-1)
+                # lint-allow[host-sync-in-hot-path]: result fetch: the group's one host read, which makes the choice timing real
+                idx_h = device_get(idx)
+                self.stats.add_phase("choice", time.time() - t_disp)
+                self.stats.batches += 1
+                self.stats.by_bucket[(B, S)] = self.stats.by_bucket.get((B, S), 0) + 1
+                for row, i in enumerate(group):
+                    results[i] = int(idx_h[row])
         return results
 
     def take_spec_report(self) -> list[SpecRecord]:

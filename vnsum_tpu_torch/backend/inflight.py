@@ -19,8 +19,12 @@ randomness does not depend on its slot, its join segment or its companions.
 The loop is driven from ONE thread; nothing here locks. With a trace
 collector installed (``obs/trace.py``) each join emits a ``prefill`` span
 and each dispatch a ``decode_seg`` span, both ending at syncs the loop
-already pays. Not ported: the engine's fault sites and the transfer guard
-(ROADMAP A14).
+already pays. ``admit`` and ``step`` fire the JAX loop's fault sites
+(``engine.slot_admit``, ``engine.slot_step``, with the same ``prompts=``
+payloads) and run their device work under the transfer guard
+(``analysis/sanitizers.py``), where the join's TTFT read is an acknowledged
+``device_get`` and the boundary fetch lands in pinned buffers with
+non-blocking copies.
 """
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..analysis.sanitizers import device_get, hot_path_transfer_guard
 from ..obs.trace import current_collector, emit
+from ..testing.faults import fault
 from .base import left_pad_batch
 
 
@@ -171,6 +177,9 @@ class TorchSlotLoop:
         items = list(items)
         if not items or not self.free:
             return [], []
+        # seeded fault injection (testing/faults.py); a no-op unless a plan
+        # is armed. A raise propagates before any chain is matched (below)
+        fault("engine.slot_admit", prompts=[it[1] for it in items])
         keys = [it[0] for it in items]
         prompts = [it[1] for it in items]
         hints = [it[2] for it in items]
@@ -210,20 +219,22 @@ class TorchSlotLoop:
             self._uid_next += len(take)
             uids_row = uids + [0] * (Bj - len(take))
             t_pre = time.monotonic()
-            first, join_cache, join_pads, done0 = b._prefill_group(
-                tokens, pad_lens, self.S, self.S + self.max_new, self.gen, self.seed, uids_row,
-                resume and resume[:2],
-            )
-            if pc is not None:
-                # insertion reads the join cache's prefix slots before the
-                # adopt scatters it into the resident batch
-                b._cache_insert(join_cache, list(range(len(take))), group_ids, group_matches,
-                                [hints[i] for i in take], pad_lens, tracing)
-            # the joiners' first token is their TTFT: bound the prefill with
-            # the cheapest output so the anchor is honest
-            done0.cpu()
-            prefill_end = time.monotonic()
-            b._adopt(self._st, join_cache, first, done0, join_pads, free_slots[:Bj])
+            with hot_path_transfer_guard(b.device):
+                first, join_cache, join_pads, done0 = b._prefill_group(
+                    tokens, pad_lens, self.S, self.S + self.max_new, self.gen, self.seed,
+                    uids_row, resume and resume[:2],
+                )
+                if pc is not None:
+                    # insertion reads the join cache's prefix slots before
+                    # the adopt scatters it into the resident batch
+                    b._cache_insert(join_cache, list(range(len(take))), group_ids,
+                                    group_matches, [hints[i] for i in take], pad_lens, tracing)
+                # the joiners' first token is their TTFT: bound the prefill
+                # with the cheapest output so the anchor is honest
+                # lint-allow[host-sync-in-hot-path]: sync makes the per-joiner TTFT anchor real, one [Bj] bool fetch per admit
+                device_get(done0)
+                prefill_end = time.monotonic()
+                b._adopt(self._st, join_cache, first, done0, join_pads, free_slots[:Bj])
         finally:
             if matches is not None:
                 for m in matches.values():
@@ -295,16 +306,20 @@ class TorchSlotLoop:
         res = SegmentResult(live=self.active)
         if not res.live:
             return res
+        fault("engine.slot_step", prompts=[p for p in self._prompts if p is not None])
         b = self.backend
         tracing = current_collector() is not None
         t0 = time.monotonic()
         self._out_snap = None
         st = self._st
-        self.decode_steps += b._slot_segment(
-            st, self.S, self.max_new, self.gen, self.seed, self._uids,
-            b.segment_tokens * self.fused_segments,
-        )
-        done_h, t_h, out_h = self._retire((st["done"], st["t"], st["out"]))
+        with hot_path_transfer_guard(b.device):
+            self.decode_steps += b._slot_segment(
+                st, self.S, self.max_new, self.gen, self.seed, self._uids,
+                b.segment_tokens * self.fused_segments,
+            )
+            # ONE fetch for the whole boundary: done, t and out together,
+            # non-blocking copies into pinned buffers behind a polled event
+            done_h, t_h, out_h = self._retire((st["done"], st["t"], st["out"]))
         finished = [s for s, k in enumerate(self._keys) if k is not None and done_h[s]]
         res.seconds = time.monotonic() - t0
         deltas = [

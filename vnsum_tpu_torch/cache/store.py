@@ -33,6 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..analysis.sanitizers import to_device
+
 from .radix import Match, RadixIndex
 
 
@@ -88,8 +90,9 @@ class BlockStore:
         return sum(v.numel() * v.element_size() for v in self.pool.values())
 
     def _index(self, values: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(values, dtype=np.int64)).to(
-            self.pool["k"].device)
+        # a copy that does not block the host (sanitizers.to_device), so the
+        # engine's transfer guard passes the gather and the insert
+        return to_device(np.ascontiguousarray(values, dtype=np.int64), self.pool["k"].device)
 
     # -- insertion -------------------------------------------------------
 

@@ -13,8 +13,8 @@ renamed over the target — a reader sees the old file or the new file, never
 a prefix.
 
 The ``# durable`` markers name the functions that carry the full
-write+flush+fsync+replace sequence (the JAX package's ``durable-write``
-lint checks its own copy; the port's lint is ROADMAP A14).
+write+flush+fsync+replace sequence; the ``durable-write`` rule of
+``python -m vnsum_tpu_torch.analysis`` checks them.
 """
 from __future__ import annotations
 

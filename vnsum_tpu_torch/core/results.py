@@ -246,6 +246,8 @@ class PipelineResults:
     document_stats: dict = field(default_factory=dict)
     summarization: dict[str, Any] = field(default_factory=dict)
     evaluation: dict[str, Any] = field(default_factory=dict)
+    # the runner's Tracer.to_dict(): wall-clock spans by name
+    tracing: dict[str, Any] = field(default_factory=dict)
     engine: dict[str, Any] = field(default_factory=dict)
 
     def add_summarization(self, record: ModelRunRecord) -> None:
@@ -270,6 +272,7 @@ class PipelineResults:
                 "document_stats": self.document_stats,
                 "summarization": self.summarization,
                 "evaluation": self.evaluation,
+                "tracing": self.tracing,
                 "engine": self.engine,
             },
         }

@@ -7,6 +7,7 @@ Counterpart of ``vnsum_tpu/eval/semantic.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 from pathlib import Path
 
@@ -54,12 +55,20 @@ class SemanticEvaluator:
         use_stemmer: bool = True,
         include_llm_eval: bool = False,
         llm_judge=None,
+        tracer=None,
     ) -> None:
         self.embedder = embedding_model or EmbeddingModel()
         self.rouge = RougeScorer(["rouge1", "rouge2", "rougeL"], use_stemmer)
         self.include_llm_eval = include_llm_eval
         # an eval.LLMJudge; the llm_scores block needs both
         self.llm_judge = llm_judge
+        # a core.profiling.Tracer: the embed, bertscore and rouge spans
+        self.tracer = tracer
+
+    def _span(self, name: str):
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name)
 
     def evaluate_pairs(
         self,
@@ -73,16 +82,19 @@ class SemanticEvaluator:
         ref_texts = [references[f] for f in common]
 
         # one batched embedding pass per side, not one per pair
-        sims = cosine_similarities(
-            self.embedder.sentence_embeddings(gen_texts),
-            self.embedder.sentence_embeddings(ref_texts),
-        )
-        bert = bert_scores(self.embedder, gen_texts, ref_texts)
+        with self._span("embed"):
+            sims = cosine_similarities(
+                self.embedder.sentence_embeddings(gen_texts),
+                self.embedder.sentence_embeddings(ref_texts),
+            )
+        with self._span("bertscore"):
+            bert = bert_scores(self.embedder, gen_texts, ref_texts)
 
         detailed = []
         r1, r2, rl = [], [], []
         for fname, g, r, sim in zip(common, gen_texts, ref_texts, sims):
-            scores = self.rouge.score(r, g)
+            with self._span("rouge"):
+                scores = self.rouge.score(r, g)
             r1.append(scores["rouge1"].fmeasure)
             r2.append(scores["rouge2"].fmeasure)
             rl.append(scores["rougeL"].fmeasure)

@@ -11,6 +11,13 @@ checkpoint, ``weights_dir``, either with int8 weights, ``quantize``, and
 W8A8 prefill with ``quantize_act``), ``ollama`` (a local server) or
 ``fake`` (the test double).
 
+The run keeps one ``core.profiling.Tracer``, as the JAX runner does: the
+``analyze``, ``summarize`` (with ``batch`` under it), ``embedder_init`` and
+``evaluate`` spans (with the evaluator's ``embed``, ``bertscore`` and
+``rouge`` under it) land in the results JSON as ``results.tracing``, and
+with ``VNSUM_PROFILE_DIR`` set the first document group runs under
+``device_profile`` and the span timeline is written there as a Chrome trace.
+
 Failure containment differs from the JAX package in one way: device errors
 (``RuntimeError``) are never retried (core/faults.py), and
 :func:`PipelineRunner.run` reports every failed document and model in
@@ -18,6 +25,7 @@ Failure containment differs from the JAX package in one way: device errors
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import traceback
@@ -30,6 +38,7 @@ from ..backend.engine import TorchBackend, resolve_device
 from ..core.config import PipelineConfig
 from ..core.faults import call_with_retries, is_retryable
 from ..core.logging import get_logger, setup_run_logging
+from ..core.profiling import Tracer, device_profile
 from ..core.results import DocumentRecord, ModelRunRecord, PipelineResults
 from ..data import DocumentDataset, analyze_documents
 from ..eval import EmbeddingModel, LLMJudge, SemanticEvaluator
@@ -82,6 +91,7 @@ class PipelineRunner:
         # EvalConfig by _build_llm_judge
         self.llm_judge = llm_judge
         self.results = PipelineResults(config=config.to_dict())
+        self.tracer = Tracer()
         self.failures: list[str] = []
         self.log_path = setup_run_logging(config.logs_dir)
         logger.info("pipeline configured: approach=%s backend=%s models=%s device=%s",
@@ -188,24 +198,28 @@ class PipelineRunner:
         for start in range(0, len(pending), group_size):
             group = pending[start : start + group_size]
             batch_t0 = time.time()
+            # profiler windows stay short: the first group only. The cms are
+            # built inside run_batch, so a retry gets fresh ones
+            make_profile_cm = device_profile if start == 0 else contextlib.nullcontext
 
             def run_batch():
-                if tree is None:
-                    texts = [ds.read_doc(n) for n in group]
-                    return list(zip(group, strategy.summarize_batch(texts)))
-                # hierarchical over trees: documents with a tree collapse
-                # it bottom-up; the rest wrap their plain text
-                roots = [(n, tree.get(n)) for n in group]
-                with_tree = [(n, r) for n, r in roots if r is not None]
-                fallback = [n for n, r in roots if r is None]
-                results = []
-                if with_tree:
-                    results += zip([n for n, _ in with_tree],
-                                   strategy.summarize_tree_batch([r for _, r in with_tree]))
-                if fallback:
-                    results += zip(fallback, strategy.summarize_batch(
-                        [ds.read_doc(n) for n in fallback]))
-                return results
+                with self.tracer.span("batch"), make_profile_cm():
+                    if tree is None:
+                        texts = [ds.read_doc(n) for n in group]
+                        return list(zip(group, strategy.summarize_batch(texts)))
+                    # hierarchical over trees: documents with a tree collapse
+                    # it bottom-up; the rest wrap their plain text
+                    roots = [(n, tree.get(n)) for n in group]
+                    with_tree = [(n, r) for n, r in roots if r is not None]
+                    fallback = [n for n, r in roots if r is None]
+                    results = []
+                    if with_tree:
+                        results += zip([n for n, _ in with_tree],
+                                       strategy.summarize_tree_batch([r for _, r in with_tree]))
+                    if fallback:
+                        results += zip(fallback, strategy.summarize_batch(
+                            [ds.read_doc(n) for n in fallback]))
+                    return results
 
             try:
                 results = call_with_retries(
@@ -260,15 +274,17 @@ class PipelineRunner:
         cfg = self.config
         if self.embedding_model is None:
             ev = cfg.evaluation
-            self.embedding_model = (
-                EmbeddingModel.from_hf(ev.embedding_dir, batch_size=ev.bert_batch_size,
-                                       device=self.device)
-                if ev.embedding_dir
-                else EmbeddingModel(batch_size=ev.bert_batch_size, device=self.device)
-            )
+            with self.tracer.span("embedder_init"):
+                self.embedding_model = (
+                    EmbeddingModel.from_hf(ev.embedding_dir, batch_size=ev.bert_batch_size,
+                                           device=self.device)
+                    if ev.embedding_dir
+                    else EmbeddingModel(batch_size=ev.bert_batch_size, device=self.device)
+                )
         judge = self._build_llm_judge() if cfg.evaluation.include_llm_eval else None
         evaluator = SemanticEvaluator(
-            self.embedding_model, include_llm_eval=judge is not None, llm_judge=judge)
+            self.embedding_model, include_llm_eval=judge is not None, llm_judge=judge,
+            tracer=self.tracer)
         out_path = Path(cfg.results_dir) / f"{model_name_safe(model)}_results.json"
         results = evaluator.evaluate_folders(
             self._output_dir(model), cfg.summary_dir,
@@ -337,10 +353,12 @@ class PipelineRunner:
     # -- orchestration -----------------------------------------------------
 
     def run(self) -> PipelineResults:
-        self.analyze()
+        with self.tracer.span("analyze"):
+            self.analyze()
         for model in self.config.models:
             try:
-                self.run_summarization_for_model(model)
+                with self.tracer.span("summarize"):
+                    self.run_summarization_for_model(model)
             except Exception as e:
                 logger.error("model %s summarization failed: %s", model, e)
                 logger.debug("%s", traceback.format_exc())
@@ -351,13 +369,26 @@ class PipelineRunner:
                 self.failures.append(f"{model}: summarization failed: {e}")
                 continue
             try:
-                self.run_evaluation_for_model(model)
+                with self.tracer.span("evaluate"):
+                    self.run_evaluation_for_model(model)
             except Exception as e:
                 logger.error("model %s evaluation failed: %s", model, e)
                 self.results.add_evaluation(model, {"status": "failed", "error": str(e)})
                 self.failures.append(f"{model}: evaluation failed: {e}")
+        self.results.tracing = self.tracer.to_dict()
         path = self.results.save(self.config.results_dir)
         logger.info("results saved to %s", path)
+        # with device profiling armed (VNSUM_PROFILE_DIR), the host span
+        # timeline goes into the same directory as a Chrome trace, so the
+        # pipeline's wall-clock phases open in Perfetto next to the
+        # torch.profiler trace
+        profile_dir = os.environ.get("VNSUM_PROFILE_DIR")
+        if profile_dir:
+            from ..obs.export import save_timestamped_trace
+
+            tp = save_timestamped_trace(self.tracer.chrome_trace("pipeline"), profile_dir,
+                                        "pipeline")
+            logger.info("host span timeline saved to %s", tp)
         self.report()
         return self.results
 

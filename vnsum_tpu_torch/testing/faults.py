@@ -17,6 +17,9 @@ site                  fires
                       held — the pin-leak-on-crash site
 ``fake.slot_admit``   FakeSlotLoop.admit entry (in-flight join)
 ``fake.slot_step``    FakeSlotLoop.step entry (in-flight decode segment)
+``engine.dispatch``   TorchBackend.generate entry
+``engine.slot_admit`` TorchSlotLoop.admit entry
+``engine.slot_step``  TorchSlotLoop.step entry
 ``journal.fsync``     RequestJournal group-commit fsync — fires INSIDE the
                       journal lock on the scheduler thread (the mid-fsync
                       wedge the watchdog classifies as a lock stall)
