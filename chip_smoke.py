@@ -57,7 +57,12 @@ Phases, each raising on failure (so any failure exits non-zero):
    28), run over the whole sequence and held to its plain version on four
    512-query slices (its first 512 queries see no key and must be 0);
    K1 and K2 at the fleet phase's batches (Llama's map batch and one map
-   prompt a request at C = S + 64, int8);
+   prompt a request at C = S + 64, int8); K1 and K2 on a tensor-parallel
+   shard of the map batch (phase 9g: KV 4 and H 12 a rank at model = 2,
+   KV 2 and H 6 at model = 4, int8, C = S + 128, and at model = 2 C = S +
+   MESH_TP_NEW, fills S and C - 1), timed on their own (a ``[phase3]``
+   line); K1 and K3 at the spec calls of CHECKS_SPEC_NEW new tokens (C = S
+   + 32 + 9, int8);
    the fixture phase's shape (FIXTURE_KV = 1, FIXTURE_G = 2, head_dim 128):
    K1 and K2 at its map and reduce batches (FIXTURE_SHAPES, C = S + 128),
    bf16 and int8, K3 at its spec step (Sq = 9: 18 rows, C = S + 137) and
@@ -99,7 +104,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    modes of one source and share both its passes, so the two count as one
    family, and each of its faults must fail every K2 and K2p case; every K1,
    K2 and K3 fault sits in code the head_dim-256 kernels run too, and must
-   fail their cases as well;
+   fail their cases as well. The copies are made and their builds started
+   right after phase 2, so they compile while phase 3 runs; they run four
+   at a time, each as soon as its build is done and a place is free; each
+   copy's build and run seconds and its model-shard cases' seconds are
+   logged;
 5. timing at the main path's shapes (Llama-3.2-3B: L=28, H=24, KV=8,
    hd=128; prefill B=8 S=4096 C=4224, decode B=8 C=4224 fill=4200; verify
    B=8 Sq=9 C=4233 and B=8 Sq=1 C=4224; K1 at the prefix cache's resume
@@ -226,11 +235,12 @@ Phases, each raising on failure (so any failure exits non-zero):
 7. strategies: the other four approaches (mapreduce_critique, iterative,
    mapreduce_hierarchical at max_depth 2 over a tree JSON the phase writes,
    skeleton), each through PipelineRunner with the CLI's configuration
-   (chunk_size 1024, 128 new tokens; critique at token_max 16, which must
-   take at least one collapse round and the token_max // 2 context pass)
-   on Llama-3.2-3B at full width and depth, hierarchical at full width and
-   4 of its 28 layers (HIERARCHICAL_LAYERS; random bf16 weights from seed
-   0), batch 8, int8 KV cache, decode steps captured: every document ok,
+   (chunk_size 1024, 128 new tokens; critique at CRITIQUE_TOKEN_MAX = 4,
+   which must take at least one collapse round and the token_max // 2
+   context pass) on Llama-3.2-3B at full width (critique, iterative and
+   skeleton at STRATEGY_CUT_LAYERS = 4 of 28 layers, hierarchical at 2,
+   HIERARCHICAL_LAYERS; random bf16 weights from seed 0), batch 8, int8
+   KV cache, decode steps captured: every document ok,
    ROUGE computed, K1 launches = n_layers x prefill forwards and K2
    launches = n_layers x decode steps exactly, K2p and K3 not
    launched, every batch at a (B, S) whose K1 and K2 phase 3 checked, the
@@ -438,6 +448,27 @@ Phases, each raising on failure (so any failure exits non-zero):
    the runner's spans (RUNNER_SPANS, names and counts; every CLI run's
    results are held to them), and phase 11 holds the engine's annotate
    ranges and the captured step's wall;
+9g. mesh (ROADMAP A10a): (a) init_distributed forms a world-1 NCCL group
+   from MASTER_ADDR / MASTER_PORT (an all-reduce checked); on the spec
+   phase's Llama-3.2-3B, TorchBackend(mesh=make_mesh({})) (the 1x1 shard
+   shares the model's tensors) runs the map batch (B=8, S=4096, 128 new
+   tokens, captured steps) byte-identical (texts and id rows) to the spec
+   phase's unmeshed one-shot run, then the spec path (spec_k 8,
+   MESH_SPEC_NEW new tokens, the chunks as references) byte-identical to
+   the unmeshed engine's; K1, K2 and K3 launches exact, and the mesh
+   wrappers' calls (ops/sharded.py) equal to K1's and K2's. (c) two ranks
+   spawned on the one card at the phase's start (they start up while (a)
+   runs) form a gloo group; a probe all-reduces a bf16
+   CUDA tensor; init_distributed accepts the group; each runs a model = 2
+   mesh's engine (Llama-3.2-3B at full width and MESH_TP_LAYERS = 4 of
+   its 28 layers from seed 0, sharded by the engine, int8 cache, eager)
+   on the map batch at MESH_TP_NEW new tokens, while this process runs the
+   unsharded engine on the same weights: each rank's K1 and K2 launches
+   and wrapper calls exact, the two ranks' logits and texts equal, the
+   prefill's and the first MESH_GATE_STEPS decode steps' logits within
+   MESH_TP_RTOL of the unsharded engine's and a fault planted in rank 1's
+   own process (its all-reduce of layer 1's w_down partial left out) past
+   it; greedy agreement logged, not gated;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -482,12 +513,14 @@ replay of a captured step adds the launches its capture counted
 steps run. The
 line before the last is a JSON object with one entry per kernel (K1, K2
 and K3 at head_dim 256 and at GQA group 4, K1 at the prefix cache's
-resume shape, and the GEMV at Phi-4's widths, entries of their own), whose
+resume shape, K1 and K2 on a model = 2 shard, and the GEMV at Phi-4's
+widths, entries of their own), whose
 ``launches`` sums the path phases (the head_dim-256 entries: the Gemma3
 phase's; the group-4 and Phi-4 ones: the Phi-4 and Qwen3-8B phases'; the
 resume entry: K1's launches in the resumed prefill forwards of phases
-9b and 9c; K1, K2, K3 and the GEMV entries also count phase 9d's at the
-fixture's shape); the last line
+9b and 9c; the model = 2 shard ones: phase 9g (c)'s two ranks', read
+from their processes; K1, K2, K3 and the GEMV entries also count phase
+9d's at the fixture's shape and phase 9g (a)'s); the last line
 is the device record. A ``[phase]`` line after each phase gives its
 seconds and the run's so far.
 Without a card the script exits non-zero and prints neither.
@@ -744,6 +777,21 @@ KERNELS = {
         "route": "cuda",
         "source": "vnsum_tpu_torch/ops/csrc/flash_verify.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:510",
+    },
+    # K1 and K2 on a tensor-parallel shard (model = 2: 12 query heads on 4
+    # KV heads a rank), the same kernels at other shapes: times at the map
+    # batch (C=4224), launches those of phase 9g (c)'s two ranks (C=4112)
+    "prefill_tp": {
+        "name": "flash_prefill_attention (model=2 shard)",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_prefill.cu",
+        "replaces": "vnsum_tpu/ops/flash_attention.py:313",
+    },
+    "decode_tp": {
+        "name": "flash_decode_attention (model=2 shard)",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
+        "replaces": "vnsum_tpu/ops/decode_attention.py:381",
     },
     # K1 at the prefix cache's resume shape (B=8, Sq=512 at q_offset 3584,
     # C=4224, int8): the kernel of the "prefill" entry at another shape;
@@ -1046,7 +1094,8 @@ def phase_correctness(torch) -> dict:
     worst = {"prefill": 0.0, "decode": 0.0, "verify": 0.0, "partials": 0.0, "gemv": 0.0,
              "prefill_hd256": 0.0, "decode_hd256": 0.0, "verify_hd256": 0.0,
              "prefill_resume": 0.0,
-             "prefill_g4": 0.0, "decode_g4": 0.0, "verify_g4": 0.0, "gemv_phi4": 0.0}
+             "prefill_g4": 0.0, "decode_g4": 0.0, "verify_g4": 0.0, "gemv_phi4": 0.0,
+             "prefill_tp": 0.0, "decode_tp": 0.0}
 
     def pads_of(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
@@ -1112,6 +1161,26 @@ def phase_correctness(torch) -> dict:
                 decode(f"int8={quantized} B={B} C={C} fill={fill} layer={layer} "
                        "(pipeline batch)", qd, cache, layer, pads, fill, 0)
             del cache, q, qd
+    # a tensor-parallel shard's map batch (phase 9g): Llama-3.2-3B over a
+    # model axis of m ranks holds KV / m KV heads and H / m query heads a
+    # rank (12/4 at m = 2, 6/2 at m = 4), the pipeline's pads and its
+    # all-pad filler row, int8 (the path's cache) at C = S + 128 and, at
+    # m = 2, at 9g (c)'s C = S + MESH_TP_NEW; decode at the first and the
+    # last step. Timed on their own: each planted-fault copy runs them too
+    t_shard = time.perf_counter()
+    S, pads_h = 4096, [0, 37, 400, 1000, 2500, 3000, 4095, 4096]
+    for m, C in ((2, S + 128), (2, S + MESH_TP_NEW), (4, S + 128)):
+        kv = KV // m
+        cache = make_cache(torch, 2, 8, kv, C, hd, True, 170 + m + C, dev)
+        prefill(f"int8=True B=8 S={S} C={C} KV={kv} H={kv * G} layer=1 (model={m} shard)",
+                rand_q(torch, (8, S, kv * G, hd), 171 + m, dev), cache, 1, pads_of(pads_h), 0,
+                0, empty_row=7, key="prefill_tp")
+        for fill in (S, C - 1):
+            decode(f"int8=True B=8 C={C} KV={kv} fill={fill} layer=1 (model={m} shard)",
+                   rand_q(torch, (8, 1, kv * G, hd), 172 + fill + m, dev), cache, 1,
+                   pads_of(pads_h), fill, 0, key="decode_tp")
+        del cache
+    log(f"[phase3] model-shard cases: {time.perf_counter() - t_shard:.2f}s")
     # the prefix cache's resumed prefill (phase 9b): the map batch's S - K
     # queries at q_offset K over a cache whose slots [0, K) hold seeded
     # values (the gathered blocks), at each of RESUME_OFFSETS, bf16 and
@@ -1333,6 +1402,21 @@ def phase_correctness(torch) -> dict:
                    "(spec path)", q, cache, layer, v_pads, v_fills, window,
                    blind=((5, slice(0, 3)),))
         del cache, q
+    # the spec calls at CHECKS_SPEC_NEW (= MESH_SPEC_NEW) new tokens (phases
+    # 9f (a) and 9g (a)): C = S + 32 + 9, int8, K1 over the cache (its
+    # scale rows no multiple of 16 bytes apart) and K3 with the same kinds
+    # of rows at fills S + e, e <= 32
+    C = S + CHECKS_SPEC_NEW + Sq
+    cache = make_cache(torch, 3, 8, KV, C, hd, True, 43, dev)
+    prefill(f"int8=True B=8 S={S} C={C} layer=2 (spec path, {CHECKS_SPEC_NEW} new tokens)",
+            rand_q(torch, (8, S, H, hd), 44, dev), cache, 2,
+            pads_of([0, 37, 400, 1000, 2500, 3000, 4095, 4096]), 0, 0, empty_row=7)
+    verify(f"int8=True B=8 Sq={Sq} C={C} window=0 layer=2 (spec path, {CHECKS_SPEC_NEW} new "
+           "tokens)", rand_q(torch, (8, Sq, H, hd), 45, dev), cache, 2,
+           [0, 37, 400, 1000, 2500, 4113, 4095, 4096],
+           [4088, 4090, 4100, 4127, 4096 + CHECKS_SPEC_NEW, 4110, 4096, 4111], 0,
+           blind=((5, slice(0, 3)),))
+    del cache
     # K3 at the slot segment's shape: Sq=1, C = 4096 + 128, fills S + t_b
     # all different, row 6 a free slot (pad = S), row 7 parked at limit C
     C = 4096 + 128
@@ -1709,56 +1793,100 @@ def cache_v_amax(cache, layer):
 # -- phase 4 ------------------------------------------------------------------
 
 
-def phase_mutants(n_cases: int) -> None:
+def start_mutant_builds() -> dict:
+    """Phase 4's first half, started right after phase 2 so that its
+    compiles (nvcc alone, no card) run while phase 3 holds the card: one
+    temporary copy of the package per planted fault of MUTANTS, its fault
+    planted, each copy's build started at once. Each copy starts from the
+    kernels phase 2 built, so it compiles only the source its fault is
+    planted in. Returns the copies and their builds for phase_mutants."""
+    root = Path(tempfile.mkdtemp(prefix="vnsum_mutants_"))
+    copies = []
+    for i, (what, kernel, source, text, replacement) in enumerate(MUTANTS):
+        tmp = root / str(i)
+        shutil.copytree(ROOT / "vnsum_tpu_torch", tmp / "vnsum_tpu_torch",
+                        ignore=shutil.ignore_patterns("*.tmp", "__pycache__"))
+        shutil.copy(ROOT / "chip_smoke.py", tmp)
+        cu = tmp / "vnsum_tpu_torch" / "ops" / "csrc" / source
+        code = cu.read_text()
+        if code.count(text) != 1:
+            shutil.rmtree(root)
+            raise AssertionError(f"planted fault '{what}': its text is not once in {source}")
+        cu.write_text(code.replace(text, replacement))
+        copies.append(tmp)
+    env = [{**os.environ, "PYTHONPATH": str(tmp)} for tmp in copies]
+    builds = {i: subprocess.Popen(
+        [sys.executable, "-c", "from vnsum_tpu_torch.ops import kernels; kernels.build_all()"],
+        cwd=tmp, env=env[i], stdout=open(tmp / "build.log", "w"), stderr=subprocess.STDOUT)
+        for i, tmp in enumerate(copies)}
+    return {"root": root, "copies": copies, "env": env, "builds": builds,
+            "t0": time.perf_counter()}
+
+
+def phase_mutants(n_cases: int, started: dict) -> None:
     """Each planted fault of MUTANTS, built into a temporary copy of the
-    package, must run all ``n_cases`` cases of phase 3 there, fail every
-    case of its kernel and leave the cases of kernels outside its family
-    passing: the limits see a kernel that leaves out one cache slot in 512
-    (decode, verify), one in 128 away from the causal diagonal (prefill, up
-    to path (c)'s 32768 slots), the 512-slot split that holds the fill
-    (decode's merge, down to the fill's one slot where a row sees little
-    else), the last warp's 128 slots of a split's o (decode, verify) or a
-    tile read from the wrong stage of the ring (prefill). The
-    copies build and run four at a time: each holds 10-15 GB of caches at
-    its peak, and with five at once one copy stopped short of its last
-    cases in one run. Each copy starts from the kernels phase 2 built, so
-    it compiles only the source its fault is planted in; all copies compile
-    at once (nvcc alone, no card) before the first runs."""
-    results = []
-    with tempfile.TemporaryDirectory() as root:
-        copies = []
-        for i, (what, kernel, source, text, replacement) in enumerate(MUTANTS):
-            tmp = Path(root) / str(i)
-            shutil.copytree(ROOT / "vnsum_tpu_torch", tmp / "vnsum_tpu_torch",
-                            ignore=shutil.ignore_patterns("*.tmp", "__pycache__"))
-            shutil.copy(ROOT / "chip_smoke.py", tmp)
-            cu = tmp / "vnsum_tpu_torch" / "ops" / "csrc" / source
-            code = cu.read_text()
-            if code.count(text) != 1:
-                raise AssertionError(f"planted fault '{what}': its text is not once in {source}")
-            cu.write_text(code.replace(text, replacement))
-            copies.append(tmp)
-        builds = [subprocess.Popen(
-            [sys.executable, "-c", "from vnsum_tpu_torch.ops import kernels; kernels.build_all()"],
-            cwd=tmp, env={**os.environ, "PYTHONPATH": str(tmp)},
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for tmp in copies]
-        for (what, *_), p in zip(MUTANTS, builds):
-            out = p.communicate(timeout=600)[0]
-            if p.returncode != 0:
-                raise AssertionError(f"planted fault '{what}' did not build:\n{out[-4000:]}")
-        procs = []
-        for tmp in copies:
-            if len(procs) == 4:
-                results += [p.communicate(timeout=600) + (p.returncode,) for p in procs]
-                procs = []
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", "import torch, chip_smoke as c; "
-                 "c.phase_environment(torch); c.phase_build(); c.phase_correctness(torch)"],
-                cwd=tmp, env={**os.environ, "PYTHONPATH": str(tmp)},
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            ))
-        results += [p.communicate(timeout=600) + (p.returncode,) for p in procs]
-    for (what, kernel, *_), (out, err, rc) in zip(MUTANTS, results):
+    package (start_mutant_builds), must run all ``n_cases`` cases of phase 3
+    there, fail every case of its kernel and leave the cases of kernels
+    outside its family passing: the limits see a kernel that leaves out one
+    cache slot in 512 (decode, verify), one in 128 away from the causal
+    diagonal (prefill, up to path (c)'s 32768 slots), the 512-slot split
+    that holds the fill (decode's merge, down to the fill's one slot where a
+    row sees little else), the last warp's 128 slots of a split's o
+    (decode, verify) or a tile read from the wrong stage of the ring
+    (prefill). The copies run four at a time: each holds 10-15 GB of caches
+    at its peak, and with five at once one copy stopped short of its last
+    cases in one run. A copy's run starts as soon as its build is done and
+    fewer than four runs are under way, so one copy's start-up (the
+    interpreter, torch, the card's context) overlaps the others' cases.
+    Output goes to files: a run is never blocked on a full pipe. Logs each
+    copy's build and run seconds, and how long each copy's phase 3 spent
+    on the model-shard cases (``[phase3]`` lines)."""
+    results = {}
+    root, copies, env, builds = (started[k] for k in ("root", "copies", "env", "builds"))
+    t0 = started["t0"]
+    built, span = {}, {}
+    running: dict = {}
+    deadline = time.monotonic() + 1200
+    try:
+        while builds or running:
+            for i, p in list(builds.items()):
+                if len(running) == 4 or p.poll() is None:
+                    continue
+                del builds[i]
+                built[i] = time.perf_counter() - t0
+                if p.returncode != 0:
+                    out = (copies[i] / "build.log").read_text()
+                    raise AssertionError(f"planted fault '{MUTANTS[i][0]}' did not "
+                                         f"build:\n{out[-4000:]}")
+                span[i] = [time.perf_counter() - t0, None]
+                running[i] = subprocess.Popen(
+                    [sys.executable, "-c", "import torch, chip_smoke as c; "
+                     "c.phase_environment(torch); c.phase_build(); "
+                     "c.phase_correctness(torch)"],
+                    cwd=copies[i], env=env[i], stdout=open(copies[i] / "out.log", "w"),
+                    stderr=open(copies[i] / "err.log", "w"))
+            for i, p in list(running.items()):
+                if p.poll() is not None:
+                    del running[i]
+                    span[i][1] = time.perf_counter() - t0
+                    results[i] = ((copies[i] / "out.log").read_text(),
+                                  (copies[i] / "err.log").read_text(), p.returncode)
+            if time.monotonic() > deadline:
+                raise AssertionError("planted faults: the copies did not finish in 1200 s")
+            time.sleep(0.2)
+    finally:
+        for p in [*builds.values(), *running.values()]:
+            p.kill()
+            p.wait(10)
+        shutil.rmtree(root, ignore_errors=True)
+    log("[mutant] copies (seconds since their builds started, during phase 3): "
+        + "; ".join(f"{i}: built {built[i]:.1f}, ran {span[i][0]:.1f}-{span[i][1]:.1f}"
+                    for i in sorted(span)))
+    shard_s = []
+    for i, (what, kernel, *_) in enumerate(MUTANTS):
+        out, err, rc = results[i]
+        shard_s += [float(ln.split()[-1][:-1]) for ln in out.splitlines()
+                    if ln.startswith("[phase3] model-shard cases:")]
         checks = [ln[len("[check] "):] for ln in out.splitlines() if ln.startswith("[check] ")]
         for line in checks:
             log(f"[mutant] {what}: {line}")
@@ -1776,6 +1904,12 @@ def phase_mutants(n_cases: int) -> None:
                 + (out + err)[-4000:])
         log(f"[mutant] {what}: over the limit in all {len(mine)} {'/'.join(family)} cases "
             f"and in none of the {len(checks) - len(mine)} outside them, as it must be")
+    if len(shard_s) != len(MUTANTS):
+        raise AssertionError(f"planted faults: {len(shard_s)} copies timed their model-shard "
+                             f"cases, of {len(MUTANTS)}")
+    log(f"[mutant] the model-shard cases (phase 9g's, in phase 3): {min(shard_s):.2f}-"
+        f"{max(shard_s):.2f}s a copy, {sum(shard_s):.2f}s over the {len(MUTANTS)} copies, "
+        f"four at a time: ~{sum(shard_s) / 4:.1f}s of the phase's wall")
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -1874,6 +2008,7 @@ def phase_timing(torch, worst) -> dict:
     out["gemv"] = time_gemv(torch, worst)
     out.update(time_gemma_kernels(torch, worst))
     out.update(time_group4_kernels(torch, worst))
+    out.update(time_shard_kernels(torch, worst))
     # a Phi-4-14B decode step's launches: 40 x (q/k/v grouped, wo, gate/up
     # grouped, w_down) + the head; 8 layers of weights in turn keep each
     # call cold in L2
@@ -1915,7 +2050,8 @@ def time_prefill_decode(torch, worst, tag: str, cache, lib, q, qd, pads_h, fill,
         dec_mask = dec_mask & (kpos > fill - window)
     pre_mask, dec_mask = pre_mask[:, None], dec_mask[:, None, None, :]
     qt, qdt = q.transpose(1, 2), qd.transpose(1, 2)
-    case = (f"{tag.replace('_hd', 'hd=').replace('_g', 'G=') + ' ' if tag else ''}int8=True B={B}"
+    label = "model=2 shard" if tag == "_tp" else tag.replace("_hd", "hd=").replace("_g", "G=")
+    case = (f"{label + ' ' if tag else ''}int8=True B={B}"
             + (f" window={window}" if window else ""))
     # prefill: query q of row b sees min(q - pad_b + 1, window) slots
     pairs = sum(min(qq - p + 1, window or S) for p in pads_h for qq in range(p, S))
@@ -2077,6 +2213,28 @@ def time_group4_kernels(torch, worst) -> dict:
         del cache, lib
         torch.cuda.empty_cache()
     return out
+
+
+def time_shard_kernels(torch, worst) -> dict:
+    """K1 and K2 on a model = 2 shard of Llama-3.2-3B's map batch (12 query
+    heads on 4 KV heads a rank, head_dim 128): B=8, S=4096, C=4224, an int8
+    cache of 28 layers, pads 64 b, K2 at fill 4200, through
+    time_prefill_decode. Returns the two records."""
+    dev = torch.device("cuda")
+    L, B, KV, G, hd, S = 28, 8, 8 // 2, 3, 128, 4096
+    pads_h = [64 * i for i in range(B)]
+    cache = make_cache(torch, L, B, KV, S + 128, hd, True, 25, dev)
+    lib = library_kv(torch, cache, 4, G)
+    pre, dec = time_prefill_decode(
+        torch, worst, "_tp", cache, lib, rand_q(torch, (B, S, KV * G, hd), 26, dev),
+        rand_q(torch, (B, 1, KV * G, hd), 27, dev), pads_h, 4200, G, 0)
+    for name, rec in (("prefill", pre), ("decode", dec)):
+        log(f"[time] {name} model=2 shard (KV={KV}, H={KV * G}, C={S + 128}): kernel "
+            f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+            f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms")
+    del cache, lib
+    torch.cuda.empty_cache()
+    return {"prefill_tp": pre, "decode_tp": dec}
 
 
 def graph_ms(torch, fn, n: int, reps: int = 5) -> float:
@@ -3546,14 +3704,21 @@ def critique_spy(get_strategy, seen: dict):
     return make
 
 
-# the hierarchical runs' model: Llama-3.2-3B at full width and 4 of its
+# the hierarchical runs' model: Llama-3.2-3B at full width and 2 of its
 # 28 layers. At full depth the eager control alone took ~88 s of the run
-# (1808 host-bound steps), at 14 layers 49.5 s; the cut keeps the whole run
-# under half its time limit with Phi-4-14B's, Qwen3-8B's and the prefix
-# cache's phases in it (646 s of command with 14 layers, PERF.md). The
-# other three runs keep full depth: at 14 layers the random model's
-# summaries are too short for critique's collapse round
-HIERARCHICAL_LAYERS = 4
+# (1808 host-bound steps), at 14 layers 49.5 s, at 4 layers 22.1 s (~1.5 ms
+# a layer and ~6 ms a step besides); the cuts keep the whole run near half
+# its time limit with Phi-4-14B's, Qwen3-8B's, the prefix cache's and the
+# mesh's phases in it (PERF.md). The other three runs kept full depth until
+# phase 9g's seconds had to be paid for. They run STRATEGY_CUT_LAYERS: at
+# 14 layers the random model's summaries were too short for critique's
+# collapse round at token_max 16, so critique's token_max is
+# CRITIQUE_TOKEN_MAX, where a probe at 4 layers took collapse rounds
+# [2, 1, 0, 0, 1, 1, 1] and the context pass in 5.4 s (at 28 layers and 16:
+# [0, 0, 0, 0, 0, 1, 0] in 15.4 s; PERF.md)
+HIERARCHICAL_LAYERS = 2
+STRATEGY_CUT_LAYERS = 4
+CRITIQUE_TOKEN_MAX = 4
 
 
 def phase_strategies(torch) -> dict:
@@ -3561,9 +3726,9 @@ def phase_strategies(torch) -> dict:
     hierarchical on its own model cut to HIERARCHICAL_LAYERS layers),
     captured, each held to K1 = n_layers x prefill forwards and K2 =
     n_layers x decode steps exactly and no K2p or K3 launch, every batch at
-    a shape phase 3 checked; critique at token_max 16, which must take a
-    collapse round and
-    the context pass; then hierarchical, whose batches vary most in (B, S),
+    a shape phase 3 checked; critique at CRITIQUE_TOKEN_MAX, which must
+    take a collapse round and the context pass; then hierarchical, whose
+    batches vary most in (B, S),
     on a backend built with cuda_graphs=False, whose summaries must be
     byte-identical. Logs the four captured runs' launches by kernel shape
     and returns the launches of the five runs."""
@@ -3576,14 +3741,14 @@ def phase_strategies(torch) -> dict:
 
     docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
     dev = torch.device("cuda")
-    models = {"full": init_model(llama32_3b(), 0, dev),
-              "hierarchical": init_model(llama32_3b(n_layers=HIERARCHICAL_LAYERS), 0, dev)}
+    models = {"hierarchical": init_model(llama32_3b(n_layers=HIERARCHICAL_LAYERS), 0, dev),
+              "cut": init_model(llama32_3b(n_layers=STRATEGY_CUT_LAYERS), 0, dev)}
     total = dict.fromkeys(COUNTERS, 0)
     by_shape = {"prefill": {}, "decode": {}}
     checked = set(PIPELINE_SHAPES) | set(STRATEGY_SHAPES)
 
     def run(approach: str, out: Path, trees: Path, cuda_graphs="auto"):
-        model = models["hierarchical" if approach == "mapreduce_hierarchical" else "full"]
+        model = models["hierarchical" if approach == "mapreduce_hierarchical" else "cut"]
         n_layers = model.cfg.n_layers
         argv = [
             "--approach", approach, "--models", "llama3.2:3b",
@@ -3596,8 +3761,8 @@ def phase_strategies(torch) -> dict:
         if approach == "mapreduce_hierarchical":
             argv += ["--tree-json", str(trees), "--max-depth", "2"]
         if approach == "mapreduce_critique":
-            # the random model's summaries count ~5 whitespace tokens each
-            argv += ["--token-max", "16"]
+            # the random model's summaries count a few whitespace tokens each
+            argv += ["--token-max", str(CRITIQUE_TOKEN_MAX)]
         cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
         backends = []
 
@@ -3639,7 +3804,8 @@ def phase_strategies(torch) -> dict:
             context = seen["passes"] - max(rounds, default=0) - 1
             if len(rounds) != len(docs) or max(rounds) < 1 or context != 1:
                 raise AssertionError(f"{path}: collapse rounds {rounds}, context passes "
-                                     f"{context}; token_max 16 must take both")
+                                     f"{context}; token_max {CRITIQUE_TOKEN_MAX} must take "
+                                     "both")
             log(f"[strategy] {path}: collapse rounds per document {rounds}, "
                 f"the token_max // 2 context pass ran")
         for k in total:
@@ -4159,6 +4325,7 @@ def spec_path(torch, label: str, name: str, backend_kw: dict, max_new: int, base
     steps0, acc0 = st.spec_verify_steps, st.spec_accepted_tokens
     with recorded_rows() as rows:
         oneshot = backend.generate(prompts)
+    ONESHOT_ROWS[:] = rows
     if len(rows) != len(prompts):
         raise AssertionError(f"{label} oracle: {len(rows)} generated rows for {len(prompts)} "
                              "prompts")
@@ -4193,6 +4360,11 @@ def spec_path(torch, label: str, name: str, backend_kw: dict, max_new: int, base
         f"one-shot outputs: {agreement(oracle, oneshot)}")
     total = {k: launches[k] + oracle_launches[k] for k in launches}
     return total, backend, prompts, oneshot
+
+
+# the spec phase's one-shot map batch (128 new tokens, batch 8, captured
+# steps): its generated id rows, the unmeshed reference of phase 9g (a)
+ONESHOT_ROWS: list = []
 
 
 def phase_spec_pipeline(torch, plain_summaries: dict):
@@ -7255,6 +7427,384 @@ def phase_checks(torch, backend, prompts: list, oneshot: list) -> dict:
     return total
 
 
+# -- phase 9g -----------------------------------------------------------------
+
+# phase 9g (ROADMAP A10a): (a) the 1x1 mesh on the spec phase's model, the
+# one-shot map batch at 128 new tokens and the spec path at MESH_SPEC_NEW;
+# (c) two ranks on the one card, a model = 2 mesh over gloo, Llama-3.2-3B
+# at full width and MESH_TP_LAYERS of its 28 layers, the map batch at
+# MESH_TP_NEW new tokens, eager
+MESH_SPEC_NEW = CHECKS_SPEC_NEW
+MESH_TP_LAYERS = 4
+MESH_TP_NEW = 16
+MESH_TP_JOIN_S = 300
+# the decode steps after the prefill whose logits (c) gates
+MESH_GATE_STEPS = 4
+# (c)'s gate: the model = 2 forward's logits against the unsharded
+# engine's on the same weights, as max |tp - one| over the document rows
+# (a decode step: the rows whose greedy ids so far agree) and the vocab,
+# divided by the largest |one| logit. The two run the same bf16 weights
+# through the same kernels on the local heads; they differ where the
+# shards sum: each rank rounds its partial products of wo and w_down to
+# bf16 (2^-9 relative) before the all-reduce adds them in bf16, where the
+# unsharded GEMM rounds once, two such roundings a layer carried through
+# 4 layers and the final norm; the embedding's and the logits' all-reduces
+# are exact (one contributor an element). The spec and dense gates hold
+# roundings of this order carried through 28 layers to 0.1: so does this
+# one. The planted fault must exceed it: rank 1 leaves out its all-reduce
+# of w_down's partial product on layer 1 (it issues the collective on a
+# copy and keeps its own partial, so the two ranks stay in step), a
+# monkeypatch in its own process; rank 1's activations from there on miss
+# rank 0's half of that MLP, and so does its half of the vocab's logits.
+MESH_TP_RTOL = 0.1
+# the collectives of one forward of the model = 2 engine, in order: the
+# embedding's, wo's and w_down's on each layer, the logits'; the fault
+# leaves out layer 1's w_down (index 4)
+MESH_FAULT_CALL = 4
+
+
+class SkipOneAllReduce:
+    """A ``model`` group stand-in for one rank: the all-reduce at
+    ``index`` of every ``per_forward`` calls is issued on a copy and its
+    result dropped (the rank keeps its own partial sum); everything else
+    goes to ``group``."""
+
+    def __init__(self, group, index: int, per_forward: int) -> None:
+        self.group, self.index, self.per_forward, self.calls = group, index, per_forward, 0
+
+    def __getattr__(self, name):
+        return getattr(self.group, name)
+
+    def all_reduce_sum(self, t):
+        k = self.calls % self.per_forward
+        self.calls += 1
+        if k == self.index:
+            self.group.all_reduce_sum(t.clone())
+            return t
+        return self.group.all_reduce_sum(t)
+
+
+@contextlib.contextmanager
+def sampled_logits(steps: int):
+    """While open, TorchBackend's sampler records (logits of each row's
+    last position, f32 on the host; the ids it picks) for its first
+    ``steps`` calls: the prefill's, then the decode steps'."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+
+    seen: list = []
+    sample = TorchBackend._sample
+
+    def spy(self, logits, *args, **kw):
+        ids = sample(self, logits, *args, **kw)
+        if len(seen) < steps:
+            seen.append((logits[:, -1, :].float().cpu(), ids.cpu()))
+        return ids
+
+    TorchBackend._sample = spy
+    try:
+        yield seen
+    finally:
+        TorchBackend._sample = sample
+
+
+def reset_calls() -> None:
+    from vnsum_tpu_torch.ops import sharded
+
+    sharded.prefill_calls = sharded.decode_calls = 0
+
+
+def map_batch_chunks(backend) -> tuple[list, list]:
+    """The map batch's prompts and their chunks (the spec path's
+    references), as the pipeline builds them."""
+    from vnsum_tpu_torch.core.config import PipelineConfig
+    from vnsum_tpu_torch.strategies import get_strategy
+
+    docs = sorted((ROOT / "data/vi_eval/doc").glob("*.txt"))
+    cfg = PipelineConfig(approach="mapreduce", models=["llama3.2:3b"], max_new_tokens=128)
+    strategy = get_strategy("mapreduce", backend, cfg)
+    chunks = [c for d in docs for c in strategy.splitter.split_text(d.read_text(encoding="utf-8"))]
+    return [strategy.map_prompt.format(content=c) for c in chunks], chunks
+
+
+def mesh_one_by_one(torch, model, oneshot: list) -> dict:
+    """(a): init_distributed forms a world-1 NCCL group from MASTER_ADDR /
+    MASTER_PORT; TorchBackend(mesh=make_mesh({})) shares ``model`` and runs
+    the map batch (B=8, S=4096, 128 new tokens, int8 cache, captured
+    steps) and the spec path (spec_k 8, MESH_SPEC_NEW new tokens, the
+    chunks as references), each byte-identical (texts and generated id
+    rows) to the unmeshed engine's on the same weights and prompts: the
+    spec phase's one-shot run (``oneshot``, ONESHOT_ROWS) and a spec run
+    here. K1, K2 and K3 launches and the mesh wrappers' calls exact.
+    Returns the launches."""
+    import torch.distributed as dist
+
+    from vnsum_tpu_torch.backend import capture
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.core.config import GenerationConfig
+    from vnsum_tpu_torch.parallel import init_distributed, make_mesh
+    from vnsum_tpu_torch.testing.chaos import free_port
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    t0 = time.perf_counter()
+    if not init_distributed():
+        raise AssertionError("mesh (a): init_distributed() stayed in local mode")
+    probe = torch.ones(4, device="cuda")
+    dist.all_reduce(probe)
+    log(f"[mesh] (a) init_distributed: {dist.get_backend()} group of {dist.get_world_size()} "
+        f"in {time.perf_counter() - t0:.2f}s, an all-reduce {probe.tolist()}")
+    if dist.get_backend() != "nccl" or probe.tolist() != [1.0] * 4:
+        raise AssertionError("mesh (a): the world-1 group is not NCCL or its all-reduce is wrong")
+    total = dict.fromkeys(COUNTERS, 0)
+    try:
+        mesh = make_mesh({})
+        n_layers = model.cfg.n_layers
+        for what, max_new, gen_kw in (("one-shot", 128, {}), ("spec", MESH_SPEC_NEW,
+                                                            {"spec_k": 8})):
+            kw = dict(batch_size=8, max_new_tokens=max_new, generation=GenerationConfig(**gen_kw),
+                      device="cuda")
+            meshed = TorchBackend(model=model, mesh=mesh, **kw)
+            if meshed.model.embed.data_ptr() != model.embed.data_ptr():
+                raise AssertionError("mesh (a): the 1x1 shard copied the model")
+            prompts, chunks = map_batch_chunks(meshed)
+            refs = {"references": chunks} if gen_kw else {}
+            t0 = time.perf_counter()
+            if gen_kw:
+                with recorded_rows() as want_rows:
+                    want = TorchBackend(model=model, **kw).generate(prompts, **refs)
+            else:
+                want, want_rows = oneshot, ONESHOT_ROWS
+            plain_s = time.perf_counter() - t0
+            reset_launches()
+            reset_calls()
+            t0 = time.perf_counter()
+            with recorded_rows() as got_rows:
+                got = meshed.generate(prompts, **refs)
+            wall = time.perf_counter() - t0
+            launches, calls = read_launches(), capture.read_calls()
+            st = meshed.stats
+            need = {"prefill": n_layers * st.prefill_forwards,
+                    "decode": n_layers * st.decode_steps,
+                    "verify": n_layers * st.spec_verify_steps}
+            check_exact(f"mesh (a) 1x1 {what}", launches, need,
+                        ("prefill", "verify") if gen_kw else ("prefill", "decode"))
+            if calls != {"sharded_prefill": need["prefill"], "sharded_decode": need["decode"]}:
+                raise AssertionError(f"mesh (a) {what}: the mesh wrappers' calls {calls}, the "
+                                     f"engine record implies K1 {need['prefill']}, K2 "
+                                     f"{need['decode']}")
+            if got != want or got_rows != want_rows or not got_rows:
+                raise AssertionError(f"mesh (a) {what}: the 1x1 mesh's outputs differ from the "
+                                     f"unmeshed engine's: {agreement(got, want)}")
+            if gen_kw and st.spec_verify_steps == 0:
+                raise AssertionError("mesh (a) spec: no verify step ran")
+            if not gen_kw:
+                check_captured("mesh (a) one-shot", st.to_dict())
+            for k in total:
+                total[k] += launches[k]
+            log(f"[mesh] (a) 1x1 {what}: {len(prompts)} map prompts byte-identical to the "
+                f"unmeshed engine ({sum(map(len, got))} chars, {len(got_rows)} id rows equal), "
+                f"wall {wall:.2f}s ("
+                + (f"unmeshed {plain_s:.2f}s" if gen_kw else "the spec phase's unmeshed run")
+                + f"), prefill forwards "
+                f"{st.prefill_forwards}, decode steps {st.decode_steps} ({st.captured_steps} "
+                f"replays), verify steps {st.spec_verify_steps}; the wrappers' calls {calls}")
+            del meshed
+    finally:
+        dist.destroy_process_group()
+        for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            os.environ.pop(var, None)
+    torch.cuda.empty_cache()
+    return total
+
+
+def mesh_rank(rank: int, init_file: str, out_dir: str) -> None:
+    """(c)'s rank ``rank`` of 2, in a process of its own on card 0: the
+    probe (gloo all-reduces a bf16 CUDA tensor), then init_distributed
+    accepting the group this process formed, a model = 2 mesh over it, and
+    the engine on Llama-3.2-3B at MESH_TP_LAYERS layers (the whole model
+    from seed 0, sharded by the engine): generate on the map batch with
+    its sampler's logits recorded, launches read; then rank 1's planted
+    fault and the generate again. Saves what it saw; a failure is saved as
+    its traceback."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    out: dict = {}
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=MESH_TP_JOIN_S - 60))
+    try:
+        from vnsum_tpu_torch.backend import capture
+        from vnsum_tpu_torch.backend.engine import TorchBackend
+        from vnsum_tpu_torch.models import llama32_3b
+        from vnsum_tpu_torch.models.llama import init_model
+        from vnsum_tpu_torch.parallel import init_distributed, make_mesh
+
+        probe = torch.full((8,), float(rank + 1), dtype=torch.bfloat16, device="cuda")
+        dist.all_reduce(probe)
+        out["probe"] = probe.float().tolist()
+        out["accepted"] = init_distributed(device="cuda")
+        mesh = make_mesh({"model": 2})
+        out["coords"], out["capturable"] = dict(mesh.coords), mesh.captures_collectives()
+        engine = TorchBackend(model=init_model(llama32_3b(n_layers=MESH_TP_LAYERS), 0, "cuda"),
+                              mesh=mesh, batch_size=8, max_new_tokens=MESH_TP_NEW,
+                              cuda_graphs=False, device="cuda")
+        out["local_heads"] = (tuple(engine.model.layers["wq"].shape),
+                              tuple(engine.model.layers["wk"].shape))
+        prompts, _ = map_batch_chunks(engine)
+        reset_launches()
+        reset_calls()
+        t0 = time.perf_counter()
+        with sampled_logits(MESH_GATE_STEPS + 1) as seen, recorded_rows() as rows:
+            out["texts"] = engine.generate(prompts)
+        out["wall"] = time.perf_counter() - t0
+        st = engine.stats
+        out.update(launches=read_launches(), calls=capture.read_calls(), rows=rows,
+                   logits=seen, forwards=st.prefill_forwards, steps=st.decode_steps,
+                   prefill_s=st.phase_seconds.get("prefill", 0.0),
+                   decode_s=st.phase_seconds.get("decode", 0.0))
+        # the planted fault: rank 1 leaves out layer 1's w_down all-reduce
+        if rank == 1:
+            engine.model.tp = SkipOneAllReduce(engine.model.tp, MESH_FAULT_CALL,
+                                               2 * MESH_TP_LAYERS + 2)
+        with sampled_logits(1) as seen:
+            engine.generate(prompts)
+        out["fault_logits"] = seen
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def logits_measure(torch, tp: list, one: list, n_rows: int) -> list:
+    """Per sampler call, max |tp - one| / max |one| over the first
+    ``n_rows`` rows (the documents'), a decode step's over the rows whose
+    sampled ids so far agree; and the rows each call compared."""
+    out, agree = [], torch.ones(n_rows, dtype=torch.bool)
+    for (lt, it), (lo, io) in zip(tp, one):
+        rows = agree.nonzero()[:, 0]
+        if len(rows):
+            a, b = lt[rows], lo[rows]
+            out.append((float((a - b).abs().max() / b.abs().max()), len(rows)))
+        agree = agree & (it[:n_rows] == io[:n_rows])
+    return out
+
+
+def mesh_two_ranks(torch, procs: list, tmp: str, t0: float) -> dict:
+    """(c): the two ranks (mesh_rank), spawned on the one card at the
+    phase's start (``procs``, saving into ``tmp``), while this process
+    runs the unsharded engine on the same weights and prompts; then the
+    probe, each rank's launches (exact), the gate and its planted fault,
+    and greedy agreement (not gated: random weights give near-ties).
+    Returns each kernel's launches, summed over the ranks."""
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models import llama32_3b
+    from vnsum_tpu_torch.models.llama import init_model
+
+    one = TorchBackend(model=init_model(llama32_3b(n_layers=MESH_TP_LAYERS), 0, "cuda"),
+                       batch_size=8, max_new_tokens=MESH_TP_NEW, cuda_graphs=False,
+                       device="cuda")
+    prompts, _ = map_batch_chunks(one)
+    with sampled_logits(MESH_GATE_STEPS + 1) as want, recorded_rows() as want_rows:
+        want_texts = one.generate(prompts)
+    del one
+    torch.cuda.empty_cache()
+    for p in procs:
+        p.join(max(MESH_TP_JOIN_S - (time.perf_counter() - t0), 1.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    if hung:
+        raise AssertionError(f"mesh (c): ranks {hung} did not finish within {MESH_TP_JOIN_S} s")
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        path = Path(tmp) / f"rank{r}.pt"
+        if not path.is_file():
+            raise AssertionError(f"mesh (c): rank {r} saved nothing (exit {procs[r].exitcode})")
+        ranks.append(torch.load(path, weights_only=False))
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            raise AssertionError(f"mesh (c) rank {r}:\n{res['error']}")
+    if [res["probe"] for res in ranks] != [[3.0] * 8] * 2:
+        raise AssertionError(f"mesh (c): the probe's all-reduce gave {ranks[0]['probe']}")
+    log("[mesh] (c) probe: two gloo ranks on the one card all-reduce a bf16 CUDA tensor "
+        "(1 + 2 = 3 on both)")
+    total = dict.fromkeys(COUNTERS, 0)
+    for r, res in enumerate(ranks):
+        n = MESH_TP_LAYERS
+        if not res["accepted"] or res["coords"] != {"data": 0, "model": r, "seq": 0}:
+            raise AssertionError(f"mesh (c) rank {r}: accepted {res['accepted']}, coords "
+                                 f"{res['coords']}")
+        if res["capturable"]:
+            raise AssertionError(f"mesh (c) rank {r}: a gloo mesh reads as capturable")
+        need = {"prefill": n * res["forwards"], "decode": n * res["steps"]}
+        check_exact(f"mesh (c) rank {r}", res["launches"], need, ("prefill", "decode"))
+        if res["calls"] != {"sharded_prefill": need["prefill"], "sharded_decode": need["decode"]}:
+            raise AssertionError(f"mesh (c) rank {r}: the mesh wrappers' calls {res['calls']}")
+        for k in total:
+            total[k] += res["launches"][k]
+        log(f"[mesh] (c) rank {r}: wq {res['local_heads'][0]}, wk {res['local_heads'][1]}, "
+            f"generate wall {res['wall']:.2f}s (prefill {res['prefill_s']:.3f}s, decode "
+            f"{res['decode_s']:.3f}s, {res['steps']} eager steps)")
+    # the all-reduced logits are the same bits on both ranks
+    for (a, ia), (b, ib) in zip(ranks[0]["logits"], ranks[1]["logits"]):
+        if not torch.equal(a, b) or not torch.equal(ia, ib):
+            raise AssertionError("mesh (c): the two ranks' logits or picks differ")
+    if ranks[0]["texts"] != ranks[1]["texts"]:
+        raise AssertionError("mesh (c): the two ranks returned different texts")
+    n_docs = len(prompts)
+    sound = logits_measure(torch, ranks[0]["logits"], want, n_docs)
+    fault = logits_measure(torch, ranks[0]["fault_logits"], want[:1], n_docs)
+    worst = max(m for m, _ in sound)
+    log(f"[mesh] (c) gate, model = 2 against the unsharded engine: per call (the prefill, then "
+        f"decode steps: rows compared) "
+        + ", ".join(f"{m:.3e} ({n})" for m, n in sound)
+        + f"; the planted fault (rank 1 leaves out layer 1's w_down all-reduce) "
+        f"{fault[0][0]:.3e}; limit {MESH_TP_RTOL}")
+    if worst > MESH_TP_RTOL or fault[0][0] <= MESH_TP_RTOL or len(sound) != MESH_GATE_STEPS + 1:
+        raise AssertionError(f"mesh (c): gate {worst:.3e}, planted fault {fault[0][0]:.3e}, "
+                             f"limit {MESH_TP_RTOL}")
+    log(f"[mesh] (c) greedy agreement with the unsharded engine (not gated: random weights "
+        f"give near-ties): texts {agreement(ranks[0]['texts'], want_texts)}, id rows "
+        f"{sum(a == b for a, b in zip(ranks[0]['rows'], want_rows))}/{len(want_rows)} equal; "
+        f"the two ranks' texts equal; wall {wall:.1f}s since the ranks started")
+    log("[launches] mesh (c), both ranks: " + ", ".join(f"{k} {v}" for k, v in total.items()))
+    return total
+
+
+def phase_mesh(torch, model, oneshot: list) -> tuple[dict, dict]:
+    """Phase 9g: (c)'s two ranks spawned first, so that they start up while
+    (a) runs on ``model`` (mesh_one_by_one); then the rest of (c)
+    (mesh_two_ranks). Stops both ranks whatever happens. Returns ((a)'s
+    launches, (c)'s)."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="vnsum_mesh_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, str(Path(tmp) / "rendezvous"), tmp))
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        a = mesh_one_by_one(torch, model, oneshot)
+        ta = time.perf_counter() - t0
+        c = mesh_two_ranks(torch, procs, tmp, t0)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[mesh] arms: (a) {ta:.1f}s, then (c) {time.perf_counter() - t0 - ta:.1f}s (its ranks "
+        "started with (a))")
+    log("[launches] mesh (a): " + ", ".join(f"{k} {v}" for k, v in a.items()))
+    return a, c
+
+
 # -- phase 10 -----------------------------------------------------------------
 
 ONE_CARD_CEILING = 16384  # Llama-3.2-3B's max_seq_len: the one-card engine's cut
@@ -7796,9 +8346,18 @@ def main() -> int:
 
     phase_environment(torch)
     timed("build", phase_build)
-    errs = timed("correctness", phase_correctness, torch)
-    phase_w8a8(torch)
-    timed("planted faults", phase_mutants, len(CHECKED))
+    mutants = start_mutant_builds()
+    try:
+        errs = timed("correctness", phase_correctness, torch)
+        phase_w8a8(torch)
+    except BaseException:
+        for p in mutants["builds"].values():
+            p.kill()
+            p.wait(10)
+        shutil.rmtree(mutants["root"], ignore_errors=True)
+        raise
+    torch.cuda.empty_cache()
+    timed("planted faults", phase_mutants, len(CHECKED), mutants)
     timing = timed("timing", phase_timing, torch, errs)
     time_evaluation()
     launches, plain_summaries = timed("pipeline", phase_pipeline, torch)
@@ -7822,6 +8381,7 @@ def main() -> int:
     serve_launches, serve_resume, serve_ref = timed("serve", phase_serve, torch, backend.model)
     resume_launches += serve_resume
     checks_launches = timed("checks", phase_checks, torch, backend, prompts, oneshot)
+    mesh_launches, mesh_tp_launches = timed("mesh", phase_mesh, torch, backend.model, oneshot)
     del backend
     fixture_launches = timed("fixture", phase_fixture, torch)
     # the fleet's launches are its workers', counted in their processes
@@ -7830,7 +8390,7 @@ def main() -> int:
     launches = {k: launches[k] + int8_launches[k] + w8a8_launches[k] + weights_launches[k]
                 + strategy_launches[k] + judge_launches[k] + spec_launches[k] + slot_launches[k]
                 + cache_launches[k] + serve_launches[k] + checks_launches[k]
-                + fixture_launches[k] + long_launches[k] for k in launches}
+                + mesh_launches[k] + fixture_launches[k] + long_launches[k] for k in launches}
     timed("profile", phase_profile, torch)
     kernels = []
     for key, meta in KERNELS.items():
@@ -7842,6 +8402,8 @@ def main() -> int:
             n = group4_launches[key.rsplit("_", 1)[0]]
         elif key == "prefill_resume":
             n = resume_launches
+        elif key.endswith("_tp"):
+            n = mesh_tp_launches[key[:-3]]
         else:
             n = launches[key]
         kernels.append({**meta, "launches": n, "max_abs_err": errs[key], **timing[key]})

@@ -26,7 +26,8 @@ before it begins, so the mode changes nothing that is recorded.
 
 The kernel wrappers count a launch when Python calls them, which a replay
 does not. :class:`CapturedStep` takes back what the capture counted and adds
-it once per replay, so the counts stay those of the steps that ran.
+it once per replay, so the counts stay those of the steps that ran; the
+mesh wrappers' call counters (``ops/sharded.py``, :func:`read_calls`) alike.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..analysis.sanitizers import acknowledged, device_get
-from ..ops import decode_attention, flash_attention, int8_matmul, verify_attention
+from ..ops import decode_attention, flash_attention, int8_matmul, sharded, verify_attention
 
 # decode steps between host reads of the all-done flag (each read syncs)
 DONE_CHECK_INTERVAL = 16
@@ -50,13 +51,25 @@ _COUNTERS = {
 }
 
 
+# call counter name -> (module, attribute) of the mesh's K1/K2 wrappers
+_CALLS = {
+    "sharded_prefill": (sharded, "prefill_calls"),
+    "sharded_decode": (sharded, "decode_calls"),
+}
+
+
 def read_launches() -> dict[str, int]:
     """Every kernel wrapper's launch count."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
-def _set_launches(counts: dict[str, int]) -> None:
-    for name, (mod, attr) in _COUNTERS.items():
+def read_calls() -> dict[str, int]:
+    """The mesh wrappers' call counts."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _CALLS.items()}
+
+
+def _set_launches(counts: dict[str, int], table=_COUNTERS) -> None:
+    for name, (mod, attr) in table.items():
         setattr(mod, attr, counts[name])
 
 
@@ -77,16 +90,19 @@ class CapturedStep:
     def __init__(self, step: Callable[[], None]) -> None:
         # the graph reads the buffers ``step`` closes over: keep them alive
         self.step = step
-        before = read_launches()
+        before, calls = read_launches(), read_calls()
         self.graph = record_cuda_graph(step)
-        after = read_launches()
+        after, calls_after = read_launches(), read_calls()
         self.launches = {k: after[k] - before[k] for k in before}
+        self.calls = {k: calls_after[k] - calls[k] for k in calls}
         _set_launches(before)
+        _set_launches(calls, _CALLS)
         self.replays = 0
 
     def replay(self) -> None:
         self.graph.replay()
         _set_launches({k: v + self.launches[k] for k, v in read_launches().items()})
+        _set_launches({k: v + self.calls[k] for k, v in read_calls().items()}, _CALLS)
         self.replays += 1
 
 

@@ -71,7 +71,23 @@ the transfer guard (``VNSUM_SANITIZERS=transfer`` on the card: an implicit
 sync raises), where every host read is an acknowledged ``device_get`` and
 every upload of a host array a ``to_device`` copy.
 
-Not ported yet: the continuous scheduler and meshes.
+``mesh=`` (``parallel/mesh.py``) runs the one-shot path, whole and chunked
+prefill, the prefix cache's resume and the spec path, on one rank's shard,
+every rank of the mesh running the same ``generate`` on the same prompts
+(SPMD, one process per card). The parameters are sharded
+(``parallel/sharding.py``; the forward's collectives are
+``models/llama.py``'s), each ``data`` rank prefills and decodes its B / d
+rows through K1 and K2 on its local heads (``ops/sharded.py``), and the
+greedy ids are gathered over ``data`` at the end, so every rank returns
+the whole list. A row's sampling stream is keyed on its global row index.
+The batch buckets from the ``data`` size upward. Under a ``model`` axis
+above 1 the spec path degrades to plain decode, as the JAX engine's does;
+under a data-only mesh it runs K3 on each rank's rows. The pool of the
+prefix cache shards its KV heads over ``model`` and is replicated over
+``data``. The engine's stats count this rank's work. The slot loop under a
+mesh is ROADMAP A10c.
+
+Not ported yet: the continuous scheduler.
 """
 from __future__ import annotations
 
@@ -105,7 +121,9 @@ from ..models.sampling import draft_acceptance_rows, row_seed, sample_logits_row
 from ..obs.trace import current_collector, emit
 from ..ops.decode_attention import flash_decode_attention
 from ..ops.flash_attention import B4, flash_prefill_attention, supports_flash, supports_verify
+from ..ops.sharded import sharded_flash_decode, sharded_flash_prefill
 from ..ops.verify_attention import flash_spec_verify_attention
+from ..parallel.seq import SeqGroup
 from ..spec import NO_TOKEN, SpecRecord, encode_references, propose_drafts
 from ..testing.faults import fault
 from ..text.tokenizer import Tokenizer, get_tokenizer
@@ -237,9 +255,16 @@ class TorchBackend:
         cuda_graphs: str | bool = "auto",
         cache_blocks: int = 0,
         cache_block_tokens: int = 64,
+        mesh=None,
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
+        # this rank's view of the mesh (parallel/mesh.py), or None: one card
+        self.mesh = mesh
+        self._data = mesh.group("data") if mesh is not None else SeqGroup()
+        model_size = mesh.shape.get("model", 1) if mesh is not None else 1
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"this rank's mesh device is {mesh.device}, the engine's {self.device}")
         self.cfg = model.cfg if model is not None else (model_config or llama32_3b())
         if quantize_act:
             # W8A8 prefill (models/llama.py): s8 x s8 products on multi-token
@@ -280,6 +305,15 @@ class TorchBackend:
                 "cuda_graphs=True needs a CUDA device and the attention kernels "
                 "(flash on, head_dim 128 or 256)"
             )
+        # a decode step under a model axis above 1 holds its all-reduces: a
+        # graph captures NCCL's, never gloo's
+        if mesh is not None and not mesh.captures_collectives():
+            if cuda_graphs is True:
+                raise ValueError(
+                    "cuda_graphs=True under a mesh whose model axis runs over gloo: "
+                    "a CUDA graph cannot capture gloo's collectives"
+                )
+            cuda_graphs = False
         self.cuda_graphs = bool(cuda_graphs)
         self.tok = get_tokenizer(tokenizer) if isinstance(tokenizer, str) else tokenizer
         self.batch_size = batch_size
@@ -300,6 +334,7 @@ class TorchBackend:
         # decode steps per slot-loop segment (backend/inflight.py)
         self.segment_tokens = max(int(segment_tokens), 1)
         self._spec_report: list = []
+        self._warned_spec_fallback = False
         self.stats = EngineStats()
         self._seed = seed
         self._dispatch = 0
@@ -316,8 +351,24 @@ class TorchBackend:
             model = quantize_model(model, self.cfg)
             logger.info("int8-quantized params in %.1fs", time.time() - t0)
         elif model.cfg != self.cfg:
-            model = LlamaModel(self.cfg, model.tree())
+            model = LlamaModel(self.cfg, model.tree(), tp=model.tp)
+        if mesh is not None:
+            if model.tp.world == 1:
+                from ..parallel.sharding import shard_params
+
+                model = shard_params(model, mesh)
+            elif model.tp.world != model_size:
+                raise ValueError(
+                    f"the model is a shard over {model.tp.world} ranks, the mesh's "
+                    f"model axis has {model_size}"
+                )
+            if batch_size % mesh.shape.get("data", 1):
+                raise ValueError("batch_size must be divisible by mesh data axis")
+        elif model.tp.world != 1:
+            raise ValueError("a model shard needs the mesh it was sharded over (mesh=)")
         self.model = model
+        # this rank's KV heads: the cache shards them over model
+        self._kv_heads = self.cfg.n_kv_heads // model_size
         # radix prefix KV cache: cache_blocks > 0 keeps prefix KV blocks on
         # the device after prefill, and later groups resume prefill from
         # the matched prefix, computing only the suffix
@@ -337,6 +388,7 @@ class TorchBackend:
                 cache_blocks, cache_block_tokens, n_layers=self.cfg.n_layers,
                 n_kv_heads=self.cfg.n_kv_heads, head_dim=self.cfg.head_dim,
                 dtype=self.cfg.dtype, quantized=self.quantize_kv, device=self.device,
+                mesh=mesh,
             )
             logger.info(
                 "prefix KV cache: %d blocks x %d tokens (%.1f MB)",
@@ -347,6 +399,29 @@ class TorchBackend:
 
     def _sync(self) -> None:
         device_sync(self.device)
+
+    def _new_cache(self, B: int, C: int) -> dict:
+        """A zeroed cache of this rank's B rows and KV heads, C slots."""
+        return init_kv_cache(self.cfg, B, C, quantized=self.quantize_kv, device=self.device,
+                             kv_heads=self._kv_heads)
+
+    def _rows(self, B: int) -> tuple[int, int]:
+        """This rank's rows [lo, hi) of a packed batch of B rows: the data
+        ranks split it in order (B is a multiple of their count)."""
+        n = B // self._data.world
+        return self._data.rank * n, (self._data.rank + 1) * n
+
+    def _gather_rows(self, local: torch.Tensor, B: int) -> torch.Tensor:
+        """The [B, ...] batch of this rank's rows ``local`` and the other
+        data ranks': each rank places its rows in a zeroed buffer and the
+        buffers are summed over ``data``, exact since each element has one
+        contributor."""
+        if self._data.world == 1:
+            return local
+        lo, hi = self._rows(B)
+        full = local.new_zeros((B,) + tuple(local.shape[1:]))
+        full[lo:hi] = local
+        return self._data.all_reduce_sum(full)
 
     def _next_seed(self, gen: GenerationConfig) -> int:
         s = fold_seed(gen.seed, self._seed, self._dispatch)
@@ -380,9 +455,13 @@ class TorchBackend:
         window; None on the dense path."""
         if not self.use_kernels:
             return None
-        q_per_kv, windows = self.cfg.q_per_kv, self.windows
+        q_per_kv, windows, mesh = self.cfg.q_per_kv, self.windows, self.mesh
 
         def stacked_fn(q, cache, layer_idx):
+            if mesh is not None:
+                return sharded_flash_prefill(
+                    mesh, q, cache, layer_idx, pad_lens, q_per_kv, windows[layer_idx], q_offset
+                )
             return flash_prefill_attention(
                 q, cache, layer_idx, pad_lens, q_per_kv, windows[layer_idx], q_offset
             )
@@ -422,9 +501,13 @@ class TorchBackend:
         fixed in a captured step. None on the dense path."""
         if not self.use_kernels:
             return None
-        q_per_kv, windows = self.cfg.q_per_kv, self.windows
+        q_per_kv, windows, mesh = self.cfg.q_per_kv, self.windows, self.mesh
 
         def stacked_fn(q, cache, layer_idx):
+            if mesh is not None:
+                return sharded_flash_decode(
+                    mesh, q, cache, layer_idx, pad_lens, fill, q_per_kv, windows[layer_idx]
+                )
             return flash_decode_attention(
                 q, cache, layer_idx, pad_lens, fill, q_per_kv, windows[layer_idx]
             )
@@ -478,15 +561,18 @@ class TorchBackend:
         does not depend on when it joined or with whom. All-pad filler rows
         start done, else they would hold off the early exit. ``resume`` =
         (K, seeded cache of C slots) from ``_prepare_resume`` runs the
-        forward over slots [K, S) of that cache only. Returns (first [B],
-        cache, pad_lens [B] int32, done [B])."""
+        forward over slots [K, S) of that cache only. Under a mesh the
+        arguments are the whole batch's and this rank runs its rows
+        (``_rows``; ``resume``'s cache holds them already). Returns (first
+        [B], cache, pad_lens [B] int32, done [B]), of this rank's rows."""
         dev = self.device
         _, vocab_limit, restrict = self._sampling_setup(gen)
+        lo, hi = self._rows(len(pad_np))
+        tokens_np, pad_np, uids = tokens_np[lo:hi], pad_np[lo:hi], list(uids)[lo:hi]
         pad_lens = to_device(pad_np, dev)
         if resume is None:
             start = 0
-            cache = init_kv_cache(self.cfg, len(pad_np), C, quantized=self.quantize_kv,
-                                  device=dev)
+            cache = self._new_cache(len(pad_np), C)
         else:
             start, cache = resume
         logits = self._prefill_forward(
@@ -496,15 +582,17 @@ class TorchBackend:
         return first, cache, pad_lens, pad_lens == S
 
     # hot path
-    def _decode_step(self, buffers, cache, pads, S: int, C: int, gen, seed: int, sampling):
+    def _decode_step(self, buffers, cache, pads, S: int, C: int, gen, seed: int, sampling,
+                     uids=None):
         """The one-token decode step of a packed group over its
         ``capture.decode_buffers``, as ``step(t_host)``
         (``capture.token_step``): the forward writes the cache at ``S + t``
         for every row (``cache_write``'s tensor branch) and K2 reads its
         fill ``S + t`` on the device, so the step also runs as a captured
-        graph. Sampled rows key step ``t_host + 1``."""
+        graph. Sampled rows key step ``t_host + 1`` on their ``uids``
+        (default: the row indices)."""
         eos, vocab_limit, restrict = sampling
-        uids = list(range(pads.shape[0]))
+        uids = list(range(pads.shape[0])) if uids is None else list(uids)
 
         def forward(cur, t):
             fill = t + S                                                    # [1]
@@ -528,7 +616,9 @@ class TorchBackend:
         Decode writes only slots >= S, so the returned cache holds the
         prompt's prefix KV as the prefill wrote it. With ``tracing`` the
         ``prefill`` and ``decode_seg`` spans end at the syncs the group
-        already pays (the prefill sync is the batch's TTFT anchor)."""
+        already pays (the prefill sync is the batch's TTFT anchor). Under a
+        mesh the cache and the decode are this rank's rows', and ``out``
+        is the whole batch's, gathered over ``data``."""
         C = S + max_new
         sampling = self._sampling_setup(gen)
 
@@ -547,14 +637,16 @@ class TorchBackend:
         t_dec = time.time()
         t_dec_m = time.monotonic()
         buffers = decode_buffers(cur, done, max_new, self.tok.pad_id)
+        lo, hi = self._rows(B)
         # one range for the group's decode loop, its replays included
         with annotate(f"decode_seg[B={B},S={S}]"):
             run = decode_loop(
-                self._decode_step(buffers, cache, pad_lens, S, C, gen, seed, sampling), done,
+                self._decode_step(buffers, cache, pad_lens, S, C, gen, seed, sampling,
+                                  range(lo, hi)), done,
                 max_new, capture=captures(gen, self.cuda_graphs, self._graphs_required),
             )
             # lint-allow[host-sync-in-hot-path]: final result fetch: the group's decode is over, detok needs the tokens
-            out_h = device_get(buffers["out"])
+            out_h = device_get(self._gather_rows(buffers["out"], B))
         decode_s = time.time() - t_dec
         if tracing:
             # the out fetch above synced: a true device time. One span for
@@ -616,8 +708,8 @@ class TorchBackend:
         seeds = None
         if gen.temperature > 0:
             seeds = [
-                [row_seed(seed, u, int(state["e_host"][u]) + i + 1) for i in range(k1)]
-                for u in range(B)
+                [row_seed(seed, u, int(state["e_host"][r]) + i + 1) for i in range(k1)]
+                for r, u in enumerate(state["uids"])
             ]
         m, nxt = draft_acceptance_rows(
             logits, drafts, n_draft, seeds, gen.temperature, gen.top_k, gen.top_p
@@ -662,6 +754,10 @@ class TorchBackend:
         k1 = gen.spec_k + 1
         tokens_np, pads_np, B, S = self._pack_group(group, encoded, max_new)
         C = S + max_new + k1
+        # under a data mesh: this rank's rows (the whole batch's are gathered
+        # at the end); a model axis above 1 never reaches here
+        lo, hi = self._rows(B)
+        Bl = hi - lo
 
         # per-row reference buffers, R bucketed to a power of two
         refs_group = [references[i] for i in group]
@@ -674,6 +770,7 @@ class TorchBackend:
         lens_full = np.zeros((B,), dtype=np.int64)
         lens_full[: len(group)] = ref_lens_np
 
+        ref_full, lens_full = ref_full[lo:hi], lens_full[lo:hi]
         t_pre = time.time()
         t_pre_m = time.monotonic()
         with annotate(f"spec_prefill[B={B},S={S}]"):
@@ -691,15 +788,16 @@ class TorchBackend:
 
         state = {
             "sampling": self._sampling_setup(gen), "cur": cur, "done": done, "cache": cache, "pads": pad_lens,
-            "e": torch.zeros((B,), dtype=torch.long, device=dev),
-            "e_host": np.zeros((B,), dtype=np.int64),
-            "out": torch.full((B, max_new + k1), self.tok.pad_id, dtype=torch.long, device=dev),
+            "e": torch.zeros((Bl,), dtype=torch.long, device=dev),
+            "e_host": np.zeros((Bl,), dtype=np.int64),
+            "uids": range(lo, hi),
+            "out": torch.full((Bl, max_new + k1), self.tok.pad_id, dtype=torch.long, device=dev),
             "ref": to_device(ref_full, dev),
             "ref_lens": to_device(lens_full, dev),
         }
-        drafted = np.zeros((B,), dtype=np.int64)
-        accepted = np.zeros((B,), dtype=np.int64)
-        steps_live = np.zeros((B,), dtype=np.int64)
+        drafted = np.zeros((Bl,), dtype=np.int64)
+        accepted = np.zeros((Bl,), dtype=np.int64)
+        steps_live = np.zeros((Bl,), dtype=np.int64)
         t_dec = time.time()
         while not prev_done.all():
             t_step = time.monotonic() if tracing else 0.0
@@ -724,6 +822,11 @@ class TorchBackend:
                 emit("spec_step", t_step, time.monotonic() - t_step, B=B,
                      k=gen.spec_k, live=live, drafted=nd, accepted=na)
         self.stats.add_phase("spec_decode", time.time() - t_dec)
+        if self._data.world > 1:
+            # every row's counters, gathered with the emitted tokens
+            counts = to_device(np.stack([drafted, accepted, steps_live], axis=1), dev)
+            # lint-allow[host-sync-in-hot-path]: numpy host counters of every data rank's rows, one fetch after the loop
+            drafted, accepted, steps_live = device_get(self._gather_rows(counts, B)).T
         n = len(group)
         # lint-allow[host-sync-in-hot-path]: numpy host counters, no device read
         nd, na = int(drafted[:n].sum()), int(accepted[:n].sum())
@@ -731,7 +834,7 @@ class TorchBackend:
         self.stats.spec_accepted_tokens += na
 
         # lint-allow[host-sync-in-hot-path]: final result fetch: detok needs the emitted tokens
-        out_h = device_get(state["out"])[:, :max_new]
+        out_h = device_get(self._gather_rows(state["out"], B))[:, :max_new]
         for row, i in enumerate(group):
             results[i] = self._detok(out_h[row], tuple(gen.eos_ids))
             report[i] = SpecRecord(
@@ -823,6 +926,11 @@ class TorchBackend:
         coarsen to that cadence, greedy outputs stay identical."""
         from .inflight import TorchSlotLoop
 
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the slot loop under a mesh is ROADMAP A10c (its join rows and their "
+                "target slots can sit on different data ranks)"
+            )
         self._require_verify_kernel("the slot loop")
         n_slots = slots or self.batch_size
         gen = config or self.gen_cfg
@@ -845,12 +953,13 @@ class TorchBackend:
 
     def _pack_group(self, group, encoded, max_new: int):
         """Pack one prompt group into a fixed-shape left-padded batch; the
-        batch dim buckets to a power of two so a trailing partial group
-        does not pay for all-pad rows up to the full batch_size."""
+        batch dim buckets to the ``data`` size times a power of two, so a
+        trailing partial group does not pay for all-pad rows up to the full
+        batch_size and every data rank gets as many rows."""
         t_pack = time.time()
         max_input = self.cfg.max_seq_len - max_new
         S = _bucket_len(max(len(encoded[i]) for i in group), max_input)
-        B = 1
+        B = self._data.world
         while B < len(group):
             B *= 2
         B = min(B, self.batch_size)
@@ -904,9 +1013,10 @@ class TorchBackend:
         ids = np.full((B, nb_max), pc.store.scratch_id, dtype=np.int64)
         for row, blocks in enumerate(ids_rows):
             ids[row, : len(blocks)] = blocks
-        cache = init_kv_cache(self.cfg, B, S + max_new, quantized=self.quantize_kv,
-                              device=self.device)
-        pc.gather(cache, ids, pad_lens)
+        # this rank's rows of the batch (the pool is the same on every data rank)
+        lo, hi = self._rows(B)
+        cache = self._new_cache(hi - lo, S + max_new)
+        pc.gather(cache, ids[lo:hi], pad_lens[lo:hi])
         self._sync()
         self.stats.add_phase("cache_gather", time.time() - t0)
         skipped = [max(K - int(pad_lens[row]), 0) for row in range(len(group))]
@@ -922,7 +1032,9 @@ class TorchBackend:
         its hint-covered prefix (template headers, carried-forward
         summaries) so unique content tails do not churn the pool; without
         one the whole prompt (minus its last token) is insertable and LRU
-        manages it. Returns the number of new blocks."""
+        manages it. Under a data mesh ``cache`` holds this rank's rows and
+        the pool copies each block from its row's rank (``cache/store.py``).
+        Returns the number of new blocks."""
         pc = self.prefix_cache
         if not self.cache_inserts_enabled:
             return 0
@@ -1037,6 +1149,19 @@ class TorchBackend:
         # exercise dispatch recovery, not the checks
         fault("engine.dispatch", prompts=prompts)
         spec_on = gen.spec_k > 0 and references is not None and any(references)
+        if spec_on and self.mesh is not None and self.mesh.shape.get("model", 1) > 1:
+            # the JAX engine's rule: data-only meshes run spec (here K3 on
+            # each rank's rows); model-sharded ones decode plainly (the same
+            # greedy output, one token a step)
+            if not self._warned_spec_fallback:
+                self._warned_spec_fallback = True
+                logger.warning(
+                    "spec_k=%d requested under a model-sharded mesh; the "
+                    "spec verify step is data-parallel only — falling back "
+                    "to plain decode",
+                    gen.spec_k,
+                )
+            spec_on = False
         spec_report: list = [None] * len(prompts) if spec_on else []
         self.stats.calls += 1
         self.stats.prompts += len(prompts)
@@ -1153,10 +1278,11 @@ class TorchBackend:
         decode budget: the cache only serves the forward), then the last
         position's logits gathered at ``choice_ids``: [B, K] f32."""
         dev = self.device
-        B = len(pad_np)
-        cache = init_kv_cache(self.cfg, B, S, quantized=self.quantize_kv, device=dev)
-        logits = self._prefill_forward(to_device(tokens_np, dev), to_device(pad_np, dev), B, S, S,
-                                       cache)
+        lo, hi = self._rows(len(pad_np))
+        B = hi - lo
+        cache = self._new_cache(B, S)
+        logits = self._prefill_forward(to_device(tokens_np[lo:hi], dev),
+                                       to_device(pad_np[lo:hi], dev), B, S, S, cache)
         return logits[:, -1, :].index_select(-1, choice_ids)
 
     @torch.inference_mode()
@@ -1203,7 +1329,8 @@ class TorchBackend:
                 tokens, pad_lens, B, S = self._pack_group(group, encoded, 0)
                 t_disp = time.time()
                 with annotate(f"choice[B={B},S={S}]"):
-                    idx = self._choice_logits(tokens, pad_lens, S, choice_dev).argmax(dim=-1)
+                    idx = self._gather_rows(
+                        self._choice_logits(tokens, pad_lens, S, choice_dev).argmax(dim=-1), B)
                 # lint-allow[host-sync-in-hot-path]: result fetch: the group's one host read, which makes the choice timing real
                 idx_h = device_get(idx)
                 self.stats.add_phase("choice", time.time() - t_disp)

@@ -27,6 +27,14 @@ Both keep the JAX package's semantics, which are those of a sequence of
 ``dynamic_slice`` / ``dynamic_update_slice`` calls: a slab's start is
 clamped to [0, C - BLK] (a padded write past the cache lands at C - BLK,
 never raises), and where two writes meet the later one wins.
+
+Under a ``mesh`` the pool holds this rank's KV heads (``model`` shards
+them, as ``cache_specs`` shards the batch cache) and is replicated over
+``data``: a block is position-contiguous KV that any later row may match,
+on any data rank. The radix index is host state, the same on every rank,
+since every rank runs the same program on the same prompts. A block
+written from a batch row on data rank r is copied into r's pool and then
+broadcast from r over the ``data`` group.
 """
 from __future__ import annotations
 
@@ -68,9 +76,23 @@ class BlockStore:
         dtype,
         quantized: bool = False,
         device="cuda",
+        mesh=None,
     ) -> None:
         self.block_tokens = block_tokens
         self.scratch_id = num_blocks
+        self.data = None
+        if mesh is not None:
+            from ..parallel.mesh import AXES
+
+            model_size = mesh.shape.get(AXES.model, 1)
+            if n_kv_heads % max(model_size, 1):
+                raise ValueError(
+                    f"n_kv_heads={n_kv_heads} is not divisible by mesh axis "
+                    f"'{AXES.model}' ({model_size}); shrink that axis or "
+                    "pick a TP-compatible model config"
+                )
+            n_kv_heads //= model_size
+            self.data = mesh.group(AXES.data)
         shape = (num_blocks + 1, n_layers, n_kv_heads, block_tokens, head_dim)
         if quantized:
             self.pool = {
@@ -104,13 +126,33 @@ class BlockStore:
         ids = np.asarray(block_ids, dtype=np.int64)
         if ids.size == 0:
             return
-        BLK = self.block_tokens
         C = cache["k"].shape[3]
         keep = _last_writes(ids)
-        rows_t = self._index(np.asarray(rows, dtype=np.int64)[keep])[:, None]
-        starts = np.clip(np.asarray(slots, dtype=np.int64)[keep], 0, C - BLK)
-        slots_t = self._index(starts[:, None] + np.arange(BLK))
-        ids_t = self._index(ids[keep])
+        rows = np.asarray(rows, dtype=np.int64)[keep]
+        starts = np.clip(np.asarray(slots, dtype=np.int64)[keep], 0, C - self.block_tokens)
+        ids = ids[keep]
+        if self.data is None or self.data.world == 1:
+            self._copy_in(cache, rows, starts, ids)
+            return
+        # rows are global batch rows; data rank r holds rows [r Bl, (r+1) Bl)
+        Bl = cache["k"].shape[1]
+        owner = rows // Bl
+        for src in range(self.data.world):
+            sel = owner == src
+            if not sel.any():
+                continue
+            if src == self.data.rank:
+                self._copy_in(cache, rows[sel] - src * Bl, starts[sel], ids[sel])
+            ids_t = self._index(ids[sel])
+            for buf in self.pool.values():
+                buf[ids_t] = self.data.broadcast(buf[ids_t], src)
+
+    def _copy_in(self, cache: dict, rows, starts, ids) -> None:
+        """Pool block ``ids[i]`` = the [starts[i], + BLK) slab of batch row
+        ``rows[i]``; ids distinct."""
+        rows_t = self._index(rows)[:, None]
+        slots_t = self._index(starts[:, None] + np.arange(self.block_tokens))
+        ids_t = self._index(ids)
         for name, buf in cache.items():
             # advanced indices on dims 1 and 3 of [L, B, KV, C(, hd)] come
             # first: [P, BLK, L, KV(, hd)] -> the pool's [P, L, KV, BLK(, hd)]
@@ -170,12 +212,13 @@ class PrefixCache:
         dtype,
         quantized: bool = False,
         device="cuda",
+        mesh=None,
     ) -> None:
         self.block_tokens = block_tokens
         self.index = RadixIndex(num_blocks, block_tokens)
         self.store = BlockStore(
             num_blocks, block_tokens, n_layers=n_layers, n_kv_heads=n_kv_heads,
-            head_dim=head_dim, dtype=dtype, quantized=quantized, device=device,
+            head_dim=head_dim, dtype=dtype, quantized=quantized, device=device, mesh=mesh,
         )
 
     def match(self, ids, max_tokens: int | None = None) -> Match:

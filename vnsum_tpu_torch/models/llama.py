@@ -25,6 +25,23 @@ Python loop over layers that indexes the stacks (views, no copies).
 ``forward`` takes a ``stacked_attention_fn(q, cache, layer_idx)`` that reads
 the whole stacked cache (the prefill and decode kernels); without one it runs
 dense attention over the layer's dequantized cache.
+
+A model built with ``tp``, a :class:`..parallel.seq.SeqGroup` of the mesh's
+``model`` axis (``parallel/sharding.py`` ``shard_params``), holds one rank's
+shard (the JAX package's ``param_specs``): heads, the MLP hidden and the
+vocab split over the group. Its forward runs on the local heads, with the
+collectives GSPMD inserts in the JAX package written out, all of them
+all-reduce sums over the group:
+
+- the embedding: a masked lookup of the rank's vocab rows, then the sum
+  (exact: each token has one owner);
+- ``wo``'s and ``w_down``'s partial products, before the sandwich norms
+  and the residual adds, two a layer;
+- the logits: the rank's vocab slice placed in a zeroed full-vocab buffer,
+  then the sum (exact: each element has one contributor).
+
+Every rank of the group ends a forward with bitwise equal activations and
+logits, so they take the same host decisions.
 """
 from __future__ import annotations
 
@@ -38,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_matmul import int8_head, int8_linear, int8_linear_group
+from ..parallel.seq import SeqGroup
 from .quant import _CONTRACT_AXES, stored_shapes, to_stored
 
 
@@ -168,10 +186,12 @@ def tiny_llama(**kw) -> LlamaConfig:
 _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
 
 
-def _param_shapes(cfg: LlamaConfig) -> dict:
+def _param_shapes(cfg: LlamaConfig, m: int = 1) -> dict:
+    """Leaf shapes in the JAX package's layout; with ``m`` > 1 those of one
+    shard over a ``model`` axis of m ranks (heads, hidden and vocab / m)."""
     L, D, H, KV, hd, I = (
-        cfg.n_layers, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-        cfg.intermediate,
+        cfg.n_layers, cfg.dim, cfg.n_heads // m, cfg.n_kv_heads // m, cfg.head_dim,
+        cfg.intermediate // m,
     )
     layers = {
         "attn_norm": (L, D), "wq": (L, D, H, hd), "wk": (L, D, KV, hd),
@@ -184,9 +204,10 @@ def _param_shapes(cfg: LlamaConfig) -> dict:
     if cfg.sandwich_norms:
         layers["post_attn_norm"] = (L, D)
         layers["post_ffw_norm"] = (L, D)
-    shapes = {"embed": (cfg.vocab_size, D), "layers": layers, "final_norm": (D,)}
+    V = cfg.vocab_size // m
+    shapes = {"embed": (V, D), "layers": layers, "final_norm": (D,)}
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = (D, cfg.vocab_size)
+        shapes["lm_head"] = (D, V)
     return shapes
 
 
@@ -216,12 +237,16 @@ class LlamaModel(nn.Module):
     A matmul weight may instead be an int8 ``{"q", "s"}`` leaf in the
     stored layout of ``models/quant.py``: ``q`` is kept as int8 and ``s``
     as f32 (in ``scales``, under the weight's name), never cast to the
-    model dtype."""
+    model dtype.
 
-    def __init__(self, cfg: LlamaConfig, tree: dict) -> None:
+    ``tp``: the ``model`` group whose rank's shard ``tree`` is (the shapes
+    of ``_param_shapes(cfg, tp.world)``); one rank by default."""
+
+    def __init__(self, cfg: LlamaConfig, tree: dict, tp: SeqGroup | None = None) -> None:
         super().__init__()
         self.cfg = cfg
-        shapes = _param_shapes(cfg)
+        self.tp = tp or SeqGroup()
+        shapes = _param_shapes(cfg, self.tp.world)
         self.scales = nn.ParameterDict()
 
         def param(name, t, shape):
@@ -301,7 +326,7 @@ class LlamaModel(nn.Module):
         cfg = self.cfg
         if stacked_attention_fn is None and mask is None:
             raise ValueError("dense attention needs a mask")
-        x = embed_lookup(self.embed, self.scales.get("embed"), tokens, cfg.dtype)
+        x = embed_lookup(self.embed, self.scales.get("embed"), tokens, cfg.dtype, self.tp)
         if cfg.embed_scale:
             # sqrt(dim) rounded through the model dtype, as the JAX package
             x = x * dtype_scalar(cfg.dim ** 0.5, cfg.dtype)
@@ -332,23 +357,31 @@ class LlamaModel(nn.Module):
         x = rmsnorm(x, self.final_norm, cfg.norm_eps, cfg.norm_plus_one)
         name = "embed" if cfg.tie_embeddings else "lm_head"
         return lm_head_logits(x, getattr(self, name), transposed=cfg.tie_embeddings,
-                              scale=self.scales.get(name))
+                              scale=self.scales.get(name), tp=self.tp)
 
     def _block(self, x, li, cos, sin, mask, cache, write_index, stacked_fn):
         cfg = self.cfg
         p = self.layers
         B, S, D = x.shape
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        hd = cfg.head_dim
+        tp = self.tp
         # W8A8 only on multi-token forwards at one write slot (prefill): a
         # decode step, the spec verify forward and the slot segment (per-row
         # slots) stay on the exact int8-weight path, as in the JAX package
         aq = cfg.w8a8_prefill and S > 1 and not isinstance(write_index, tuple)
 
-        def proj(t, name):
+        def proj(t, name, amax_reduce=None):
             s = self.scales.get(name)
             if s is None:  # [K, ...] bf16 in the JAX layout
                 return torch.matmul(t, p[name][li].reshape(t.shape[-1], -1))
-            return int8_linear(t, p[name][li], s[li], aq)
+            return int8_linear(t, p[name][li], s[li], aq, amax_reduce)
+
+        def row_proj(t, name):
+            # a product whose contraction is split over the model group: the
+            # rank's partial sum, then the sum over the group. W8A8 takes
+            # each token's activation scale over the whole contraction
+            reduce = tp.all_reduce_max if tp.world > 1 else None
+            return tp.all_reduce_sum(proj(t, name, reduce))
 
         def projs(t, names):
             # projections of one input: int8 leaves share one GEMV launch
@@ -360,9 +393,10 @@ class LlamaModel(nn.Module):
         P1 = cfg.norm_plus_one
         h = rmsnorm(x, p["attn_norm"][li], cfg.norm_eps, P1)
         q, k, v = projs(h, ("wq", "wk", "wv"))
-        q = q.view(B, S, H, hd)
-        k = k.view(B, S, KV, hd)
-        v = v.view(B, S, KV, hd)
+        # the shard's own head counts (all heads on one rank)
+        q = q.view(B, S, -1, hd)
+        k = k.view(B, S, -1, hd)
+        v = v.view(B, S, -1, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, p["q_norm"][li], cfg.norm_eps, P1)
             k = rmsnorm(k, p["k_norm"][li], cfg.norm_eps, P1)
@@ -390,26 +424,28 @@ class LlamaModel(nn.Module):
         else:
             k_c, v_c = dequantize_cache_layer(cache, li)
             attn = attention(q, k_c.to(q.dtype), v_c.to(q.dtype), mask, cfg.q_per_kv)
-        attn_out = proj(attn.reshape(B, S, H * hd), "wo")
+        attn_out = row_proj(attn.reshape(B, S, -1), "wo")
         if cfg.sandwich_norms:
             attn_out = rmsnorm(attn_out, p["post_attn_norm"][li], cfg.norm_eps, P1)
         x = x + attn_out
 
         h = rmsnorm(x, p["mlp_norm"][li], cfg.norm_eps, P1)
         gate, up = projs(h, ("w_gate", "w_up"))
-        mlp_out = proj(mlp_act(gate, cfg.act) * up, "w_down")
+        mlp_out = row_proj(mlp_act(gate, cfg.act) * up, "w_down")
         if cfg.sandwich_norms:
             mlp_out = rmsnorm(mlp_out, p["post_ffw_norm"][li], cfg.norm_eps, P1)
         return x + mlp_out
 
 
-def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> LlamaModel:
+def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda", mesh=None) -> LlamaModel:
     """Build the port's model from a JAX parameter tree converted to numpy
     (``jax.tree.map(np.asarray, params)``), leaf for leaf. Int8 ``{"q",
     "s"}`` leaves of the JAX package's ``quantize_params`` go into the
     stored layout (``models/quant.py``), their values int8 and their scales
     f32; a malformed one (an int8 norm, values that are not int8, scales
-    that do not match the weight's output channels) raises ValueError."""
+    that do not match the weight's output channels) raises ValueError.
+    With a ``mesh`` the result is this rank's shard of the carried model
+    (``parallel/sharding.py`` ``shard_params``)."""
     shapes = _param_shapes(cfg)
     shapes.update(shapes["layers"])
 
@@ -442,7 +478,12 @@ def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> LlamaModel
 
     out = {k: conv(k, v) for k, v in tree.items() if k != "layers"}
     out["layers"] = {k: conv(k, v) for k, v in tree["layers"].items()}
-    return LlamaModel(cfg, out)
+    model = LlamaModel(cfg, out)
+    if mesh is None:
+        return model
+    from ..parallel.sharding import shard_params
+
+    return shard_params(model, mesh)
 
 
 def init_model(cfg: LlamaConfig, seed: int = 0, device="cuda") -> LlamaModel:
@@ -457,13 +498,14 @@ def init_model(cfg: LlamaConfig, seed: int = 0, device="cuda") -> LlamaModel:
 
 def init_kv_cache(
     cfg: LlamaConfig, batch: int, cache_len: int, *, quantized: bool = False,
-    device="cuda",
+    device="cuda", kv_heads: int | None = None,
 ) -> dict:
     """Stacked cache [L, B, KV, C, hd] — KV heads before the sequence dim.
     ``quantized=True`` stores K/V as int8 with per-(token, head) f32 scales
     ``ks``/``vs`` [L, B, KV, C]. Zero-filled: slots not yet written must be
-    finite, since masked slots still meet a zero probability in PV."""
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
+    finite, since masked slots still meet a zero probability in PV.
+    ``kv_heads``: a shard's KV heads (default all of the config's)."""
+    shape = (cfg.n_layers, batch, kv_heads or cfg.n_kv_heads, cache_len, cfg.head_dim)
     if not quantized:
         return {
             "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -540,22 +582,43 @@ def dequantize_cache_layer(cache: dict, layer_idx: int):
 # -- building blocks --------------------------------------------------------
 
 
-def embed_lookup(embed: torch.Tensor, scale, tokens: torch.Tensor, dtype) -> torch.Tensor:
+def embed_lookup(embed: torch.Tensor, scale, tokens: torch.Tensor, dtype,
+                 tp: SeqGroup | None = None) -> torch.Tensor:
     """Rows of the embedding; an int8 one (``scale`` [V]) gathers rows and
-    scales, multiplies them in f32 and casts to ``dtype``."""
-    if scale is None:
-        return F.embedding(tokens.long(), embed)
+    scales, multiplies them in f32 and casts to ``dtype``. With a ``tp``
+    group of more than one rank, ``embed`` is the rank's vocab rows: tokens
+    it does not own look up zeros, and the sum over the group is exact."""
     idx = tokens.long()
-    return (embed[idx].float() * scale[idx][..., None]).to(dtype)
+    own = None
+    if tp is not None and tp.world > 1:
+        V = embed.shape[0]
+        idx = idx - tp.rank * V
+        own = (idx >= 0) & (idx < V)
+        idx = idx.clamp(0, V - 1)
+    if scale is None:
+        rows = F.embedding(idx, embed)
+    else:
+        rows = (embed[idx].float() * scale[idx][..., None]).to(dtype)
+    if own is None:
+        return rows
+    return tp.all_reduce_sum(rows.masked_fill(~own[..., None], 0))
 
 
 def lm_head_logits(x: torch.Tensor, w: torch.Tensor, *, transposed: bool,
-                   scale: torch.Tensor | None = None) -> torch.Tensor:
+                   scale: torch.Tensor | None = None, tp: SeqGroup | None = None) -> torch.Tensor:
     """Final projection with f32 logits. ``transposed``: w is [V, D] (the
     tied embedding), else [D, V]. A bf16 model on the card multiplies in
     bf16 with an f32 result, as the JAX package's preferred_element_type.
     An int8 head (``scale`` [V]) is stored [V, D] either way: the f32
-    product times the scale (``ops/int8_matmul.int8_head``)."""
+    product times the scale (``ops/int8_matmul.int8_head``). With a ``tp``
+    group of more than one rank, ``w`` holds the rank's vocab slice: its
+    logits go into a zeroed full-vocab buffer summed over the group."""
+    if tp is not None and tp.world > 1:
+        part = lm_head_logits(x, w, transposed=transposed, scale=scale)
+        Vl = part.shape[-1]
+        full = part.new_zeros(part.shape[:-1] + (Vl * tp.world,))
+        full[..., tp.rank * Vl:(tp.rank + 1) * Vl] = part
+        return tp.all_reduce_sum(full)
     B, S, D = x.shape
     x2 = x.reshape(B * S, D)
     if scale is not None:

@@ -47,9 +47,11 @@ _CONTRACT_AXES = {
 _EMBED_ROWS = 16384
 
 
-def _quantize(w: torch.Tensor, contract_axes: tuple[int, ...]) -> dict:
+def _quantize(w: torch.Tensor, contract_axes: tuple[int, ...], amax_reduce=None) -> dict:
     w32 = w.float()
     amax = w32.abs().amax(dim=contract_axes, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
     scale = amax.clamp_min(1e-8) / 127.0
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     s = scale
@@ -58,10 +60,10 @@ def _quantize(w: torch.Tensor, contract_axes: tuple[int, ...]) -> dict:
     return {"q": q, "s": s}
 
 
-def _quantize_stack(w: torch.Tensor, contract_axes: tuple[int, ...]) -> dict:
+def _quantize_stack(w: torch.Tensor, contract_axes: tuple[int, ...], amax_reduce=None) -> dict:
     """A layer stack [L, ...] quantized one layer at a time (the f32
     temporaries stay one layer's size); ``contract_axes`` are per layer."""
-    parts = [_quantize(w[li], contract_axes) for li in range(w.shape[0])]
+    parts = [_quantize(w[li], contract_axes, amax_reduce) for li in range(w.shape[0])]
     return {"q": torch.stack([p["q"] for p in parts]), "s": torch.stack([p["s"] for p in parts])}
 
 
@@ -70,9 +72,17 @@ def _quantize_embed(e: torch.Tensor) -> dict:
     return {"q": torch.cat([p["q"] for p in parts]), "s": torch.cat([p["s"] for p in parts])}
 
 
-def _quantize_leaf(name: str, w):
+# the weights whose contraction a tensor-parallel shard splits over the
+# model group (parallel/sharding.py): their per-channel max spans the ranks
+_ROW_SHARDED = ("wo", "w_down")
+
+
+def _quantize_leaf(name: str, w, tp=None):
     """One leaf of a params tree (the JAX package's layout) quantized, or
-    returned as it is: a norm, or a leaf that is int8 already."""
+    returned as it is: a norm, or a leaf that is int8 already. ``tp``: the
+    model group of a shard, whose row-sharded leaves take each channel's
+    max over the whole contraction, so the shard quantizes as its slice of
+    the whole model would."""
     if isinstance(w, dict):
         return w
     if name == "embed":
@@ -80,7 +90,10 @@ def _quantize_leaf(name: str, w):
     if name == "lm_head":
         return _quantize(w, (0,))  # scale [V]
     if name in _CONTRACT_AXES:
-        return _quantize_stack(w, _CONTRACT_AXES[name])
+        reduce = None
+        if tp is not None and tp.world > 1 and name in _ROW_SHARDED:
+            reduce = tp.all_reduce_max
+        return _quantize_stack(w, _CONTRACT_AXES[name], reduce)
     return w  # norms
 
 
@@ -187,14 +200,16 @@ def quantize_model(model, cfg=None):
     matmul weights quantized into the stored layout on the model's device,
     one leaf at a time (its f32 temporaries one layer's size); norms and
     leaves that are int8 already are shared, not copied. ``cfg`` (default
-    ``model.cfg``) is the new model's config."""
+    ``model.cfg``) is the new model's config. A tensor-parallel shard
+    (``model.tp``) gives the shard of the quantized whole: collective over
+    its model group."""
     from .llama import LlamaModel
 
     def leaf(name, w):
-        q = _quantize_leaf(name, w)
+        q = _quantize_leaf(name, w, model.tp)
         return to_stored(name, q) if q is not w else w
 
     tree = model.tree()
     out = {k: leaf(k, v) for k, v in tree.items() if k != "layers"}
     out["layers"] = {k: leaf(k, v) for k, v in tree["layers"].items()}
-    return LlamaModel(cfg or model.cfg, out)
+    return LlamaModel(cfg or model.cfg, out, tp=model.tp)

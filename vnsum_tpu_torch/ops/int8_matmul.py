@@ -173,14 +173,20 @@ def int8_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, head: bool = Fa
     return int8_gemv_group(x, [(q, s)], head)[0]
 
 
-def w8a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+def w8a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                amax_reduce=None) -> torch.Tensor:
     """W8A8 (``act_quant``): x [M, K] quantized per token (absmax over K,
     ``s_x = max(amax, 1e-8) / 127``, ``clip(round(x / s_x), -127, 127)``),
     the exact s32 product with q [N, K], then ``(f32(y) * s_x) * s``, cast
     to x's dtype. On the card ``torch._int_mm`` needs more than 16 rows:
-    fewer are padded with zero rows."""
+    fewer are padded with zero rows. ``amax_reduce`` (in place) takes each
+    token's absmax over a contraction split across ranks (a tensor-parallel
+    shard's ``wo`` and ``w_down``)."""
     x32 = x.float()
-    sx = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    sx = amax.clamp_min(1e-8) / 127.0
     qx = torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8)
     M = qx.shape[0]
     if qx.is_cuda and M <= 16:
@@ -189,14 +195,16 @@ def w8a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
     return ((y.float() * sx) * s).to(x.dtype)
 
 
-def int8_linear(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, act_quant: bool = False):
+def int8_linear(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, act_quant: bool = False,
+                amax_reduce=None):
     """x [..., K] against the int8 weight q [N, K], s [N] -> [..., N] in
-    x's dtype: W8A8 with ``act_quant``, else the GEMV for M <= MAX_M rows
-    and a dequantized ``torch.matmul`` above."""
+    x's dtype: W8A8 with ``act_quant`` (``amax_reduce`` as
+    :func:`w8a8_matmul`'s), else the GEMV for M <= MAX_M rows and a
+    dequantized ``torch.matmul`` above."""
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     if act_quant:
-        y = w8a8_matmul(x2, q, s)
+        y = w8a8_matmul(x2, q, s, amax_reduce)
     elif x2.shape[0] <= MAX_M:
         y = int8_gemv(x2.contiguous(), q, s)
     else:

@@ -9,8 +9,11 @@ itself: max and sum all-reduce, and a ring shift to the next rank.
 
 A group of one rank needs no process group, and every collective is then
 the identity. Larger groups run over gloo on the CPU and over NCCL on
-cards, one card per rank. The ``data`` and ``model`` axes are not ported
-yet.
+cards, one card per rank. The class serves every mesh axis: a
+:class:`..parallel.mesh.Mesh` holds one for each of its ``data``, ``model``
+and ``seq`` axes, whose process group is the mesh's group along that axis;
+its ranks are then the axis coordinates, and the collectives map them to
+the global ranks ``torch.distributed`` addresses.
 """
 from __future__ import annotations
 
@@ -78,6 +81,11 @@ class SeqGroup:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return t
 
+    def _global(self, rank: int) -> int:
+        """The global rank of this group's ``rank``, which is what the
+        collectives' ``src`` and peer arguments name."""
+        return dist.get_global_rank(self.group, rank)
+
     def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
         """Send ``t`` to the next rank and return the previous rank's
         (``ppermute`` with perm j -> j + 1 mod world)."""
@@ -85,9 +93,10 @@ class SeqGroup:
             return t
         send = t.contiguous()
         recv = torch.empty_like(send)
+        nxt, prv = (self.rank + 1) % self.world, (self.rank - 1) % self.world
         ops = [
-            dist.P2POp(dist.isend, send, (self.rank + 1) % self.world, self.group),
-            dist.P2POp(dist.irecv, recv, (self.rank - 1) % self.world, self.group),
+            dist.P2POp(dist.isend, send, self._global(nxt), self.group),
+            dist.P2POp(dist.irecv, recv, self._global(prv), self.group),
         ]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -96,7 +105,7 @@ class SeqGroup:
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank; in place, returned."""
         if self.world > 1:
-            dist.broadcast(t, src=src, group=self.group)
+            dist.broadcast(t, src=self._global(src), group=self.group)
         return t
 
     def close(self) -> None:
