@@ -35,7 +35,11 @@ Phases, each raising on failure (so any failure exits non-zero):
    partials (K2p) at the long path's shape (B=2, C=32768, fill C-1, bf16
    and int8, layers 0 and 27 of 28, pads 0 and 12000 and a row whose pad
    is C, which must come out exactly m = -1e30, l = 0, o = 0), with o, m
-   and l each held to its own limit and o / l to K2's output; K1, K2 and
+   and l each held to its own limit and o / l to K2's output, and at a
+   seq = 2 shard of that cache (C = LONG_MESH_SHARD = 12,800, fill C - 1,
+   phase 9h's KV 8 / H 24 bf16 and a model = 2 shard's KV 4 / H 12 bf16
+   and int8, a shard's pads: both rows past them, none, a row whose pad
+   covers the shard); K1, K2 and
    K2p at G=2 (Qwen3-0.6B) and G=8 (the decode kernels' largest); K1 and K2
    at head_dim 256 (Gemma3-4B: KV=4, G=2) at the Gemma3 phase's batches
    (GEMMA_SHAPES: map B=8 S=4096 and reduce B=8 S=512, C = S + 128), window
@@ -122,7 +126,8 @@ Phases, each raising on failure (so any failure exits non-zero):
    bf16 cache; timed here only, never used by the port); one output of
    each is held against the other as in phase 3; the prefill kernel
    alone at the pipeline's default long bucket (S=15360, C=16384); and K2p
-   at the long path's shape (B=2, C=32768, bf16 and int8), whose library
+   at the long path's shape (B=2, C=32768, bf16 and int8) and at phase
+   9h's seq = 2 shard (B=2, C=12800, bf16), whose library
    call is scaled_dot_product_attention on the same cache expanded to 24
    heads, computing the normalised output (no public torch call returns
    the partials); [int8] (e): the GEMV at each shape of phase 3 (the
@@ -469,6 +474,25 @@ Phases, each raising on failure (so any failure exits non-zero):
    MESH_TP_RTOL of the unsharded engine's and a fault planted in rank 1's
    own process (its all-reduce of layer 1's w_down partial left out) past
    it; greedy agreement logged, not gated;
+9h. long mesh (ROADMAP A10b): the pipeline CLI's whole-document launch,
+   ``--approach truncated --long-context --mesh seq=2 --max-context
+   24576 --max-new-tokens 32 --batch-size 2 --device cuda``, in two
+   ranks on the one card (spawned at 9f's start, waiting for 9h's go),
+   each forming a gloo group first, as torchrun's processes would on two
+   cards; path (c)'s two documents, Llama-3.2-3B at full width and
+   LONG_MESH_LAYERS = 4 of its 28 layers (registry_depth in each rank):
+   a 25,600-slot bucket, 12,800 slots a rank, the ring prefill (plain
+   torch) and K2p over each shard merged across seq. Gates: (i)
+   init_distributed accepts the group, the mesh reads {data 1, model 1,
+   seq 2}; (ii) the prefill's and the first 4 decode steps' logits within
+   LONG_MESH_RTOL (0.1, 9g (c)'s measure) of a one-rank backend's on the
+   same weights and prompts, the two ranks' bits equal; (iii) a planted
+   fault (rank 1 keeps its own K2p partial of o on every layer) past it;
+   (iv) rank 0 wrote both summaries, one results JSON (ROUGE, the
+   embedding metrics, the runner's spans) and one log, rank 1 nothing (an
+   audit hook); (v) each rank's K2p launches exactly 4 x its decode steps
+   (256 over both at 32 steps), no other kernel. Greedy agreement, each
+   rank's prefill and decode seconds and peak memory logged;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -479,11 +503,10 @@ Phases, each raising on failure (so any failure exits non-zero):
    K1 launches = 28 per prefill forward, K2p launches = 28 x decode steps,
    K2 and K3 not launched, steps replayed; then the same with an int8
    prefill cache; then the bf16 run with cuda_graphs=False, whose summaries
-   must equal the captured bf16 run's byte for byte; then, not gated, the
-   one-card
-   engine with max_seq_len 40960 on the same weights and prompts; then,
-   gated, the long path's logits (the prefill's last position and the
-   first decode steps) against that engine's on the same tokens, at the
+   must equal the captured bf16 run's byte for byte; then, gated, the
+   long path's logits (the prefill's last position and the first decode
+   steps) against the one-card engine's (max_seq_len 40960, the same
+   weights) on the same tokens, at the
    path's shape and a short one, each within its LONG_LOGITS_RTOL, with two
    faults planted in the script's own calls that must exceed it at both;
 11. profile: one prefill forward, one decode step (eager and captured) and
@@ -513,13 +536,13 @@ replay of a captured step adds the launches its capture counted
 steps run. The
 line before the last is a JSON object with one entry per kernel (K1, K2
 and K3 at head_dim 256 and at GQA group 4, K1 at the prefix cache's
-resume shape, K1 and K2 on a model = 2 shard, and the GEMV at Phi-4's
-widths, entries of their own), whose
+resume shape, K1 and K2 on a model = 2 shard, K2p on a seq = 2 shard, and
+the GEMV at Phi-4's widths, entries of their own), whose
 ``launches`` sums the path phases (the head_dim-256 entries: the Gemma3
 phase's; the group-4 and Phi-4 ones: the Phi-4 and Qwen3-8B phases'; the
 resume entry: K1's launches in the resumed prefill forwards of phases
 9b and 9c; the model = 2 shard ones: phase 9g (c)'s two ranks', read
-from their processes; K1, K2, K3 and the GEMV entries also count phase
+from their processes; the seq = 2 shard one: phase 9h's two ranks'; K1, K2, K3 and the GEMV entries also count phase
 9d's at the fixture's shape and phase 9g (a)'s); the last line
 is the device record. A ``[phase]`` line after each phase gives its
 seconds and the run's so far.
@@ -793,6 +816,15 @@ KERNELS = {
         "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "vnsum_tpu/ops/decode_attention.py:381",
     },
+    # K2p on a seq = 2 shard of the long path's prefill cache (C = 12,800
+    # slots of a 25,600-slot bucket): times at that shape, launches those
+    # of phase 9h's two ranks
+    "partials_shard": {
+        "name": "flash_decode_partials (seq=2 shard)",
+        "route": "cuda",
+        "source": "vnsum_tpu_torch/ops/csrc/flash_decode.cu",
+        "replaces": "vnsum_tpu/ops/decode_attention.py:381",
+    },
     # K1 at the prefix cache's resume shape (B=8, Sq=512 at q_offset 3584,
     # C=4224, int8): the kernel of the "prefill" entry at another shape;
     # launches those of the resumed prefill forwards (phase 9b)
@@ -942,11 +974,12 @@ def compare(torch, name, case, got, want, worst) -> None:
         + (" OVER THE LIMIT" if bad else ""))
 
 
-def compare_partials(torch, case, got, want, k2_out, vmax, worst) -> None:
+def compare_partials(torch, case, got, want, k2_out, vmax, worst, key="partials") -> None:
     """Holds K2p's (o, m, l) against its plain version's, each at its own
     limit, and o / max(l, 1e-30) against K2's output on the same cache at
     K2's limit; logs one line for the case with the largest err/limit of
-    the four. ``vmax`` is the largest |v| of the layer."""
+    the four (kept in ``worst[key]``). ``vmax`` is the largest |v| of the
+    layer."""
     torch.cuda.synchronize()
     (o, m, l), (wo, wm, wl) = got, want
     lw = wl[..., None]
@@ -964,8 +997,8 @@ def compare_partials(torch, case, got, want, k2_out, vmax, worst) -> None:
         bad = bad or bool((diff > limit).any())
         used = max(used, float((diff / limit.clamp_min(1e-30)).max()))
         errs.append(f"{name} {float(diff.max()):.3e}")
-    worst["partials"] = max(worst["partials"], float(parts["o"][0].max()),
-                            float(parts["m"][0].max()), float(parts["l"][0].max()))
+    worst[key] = max(worst[key], float(parts["o"][0].max()), float(parts["m"][0].max()),
+                     float(parts["l"][0].max()))
     if bad:
         FAILED.append(case)
     CHECKED.append(case)
@@ -1095,7 +1128,7 @@ def phase_correctness(torch) -> dict:
              "prefill_hd256": 0.0, "decode_hd256": 0.0, "verify_hd256": 0.0,
              "prefill_resume": 0.0,
              "prefill_g4": 0.0, "decode_g4": 0.0, "verify_g4": 0.0, "gemv_phi4": 0.0,
-             "prefill_tp": 0.0, "decode_tp": 0.0}
+             "prefill_tp": 0.0, "decode_tp": 0.0, "partials_shard": 0.0}
 
     def pads_of(values):
         return torch.tensor(values, dtype=torch.int32, device=dev)
@@ -1564,6 +1597,7 @@ def phase_correctness(torch) -> dict:
     torch.cuda.empty_cache()
 
     partials_cases(torch, worst)
+    shard_partials_cases(torch, worst)
     gemv_cases(torch, worst)
     gemv_cases(torch, worst, PHI4_GEMV_SHAPES, PHI4_GEMV_GROUPS, "gemv_phi4", seed=500)
     gemv_cases(torch, worst, FIXTURE_GEMV_SHAPES, FIXTURE_GEMV_GROUPS, seed=700)
@@ -1710,16 +1744,42 @@ def partials_cases(torch, worst, dev="cuda") -> None:
         torch.cuda.empty_cache()
 
 
-def check_partials(torch, worst, case, q, cache, layer, pads, fill, G, inert_rows=()) -> None:
+def shard_partials_cases(torch, worst, dev="cuda") -> None:
+    """K2p at a shard of the long path's prefill cache, C = LONG_MESH_SHARD
+    slots (a 25,600-slot bucket over two seq ranks): phase 9h's (KV 8, H
+    24, bf16) and a model = 2 shard's (KV 4, H 12, bf16 and int8), fill
+    C - 1, LONG_MESH_LAYERS layers (0 and the last drawn); the pads as a
+    seq rank sees them: rank 0 both rows past their pads (9h's two
+    prompts'), rank 1 none, and a row whose pad covers the shard (exactly
+    inert)."""
+    L, B, G, hd, C = LONG_MESH_LAYERS, 2, 3, 128, LONG_MESH_SHARD
+    for KV, quantized in ((8, False), (4, False), (4, True)):
+        cache = long_cache(torch, L, B, KV, C, hd, quantized, (0, L - 1), 80 + KV + quantized,
+                           dev)
+        for layer, pads_h in ((0, [800, 5300]), (L - 1, [0, 0]), (L - 1, [C, 4000])):
+            q = rand_q(torch, (B, 1, KV * G, hd), 81 + layer + pads_h[1] + KV, dev)
+            pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
+            check_partials(
+                torch, worst, f"partials int8={quantized} B={B} KV={KV} H={KV * G} C={C} "
+                f"fill={C - 1} pads={pads_h} layer={layer} (a seq = 2 shard"
+                + (", model = 2)" if KV == 4 else ", phase 9h)"), q, cache, layer, pads,
+                C - 1, G, inert_rows=[row for row, pad in enumerate(pads_h) if pad >= C],
+                key="partials_shard")
+        del cache
+    torch.cuda.empty_cache()
+
+
+def check_partials(torch, worst, case, q, cache, layer, pads, fill, G, inert_rows=(),
+                   key="partials") -> None:
     """K2p against its plain version, and o / l against K2, on one input
-    (``compare_partials``); each of ``inert_rows`` sees no key and must come
-    out exactly m = -1e30, l = 0, o = 0."""
+    (``compare_partials``, ``worst[key]``); each of ``inert_rows`` sees no
+    key and must come out exactly m = -1e30, l = 0, o = 0."""
     from vnsum_tpu_torch.ops import decode_attention as da
 
     got = da.flash_decode_partials(q, cache, layer, pads, fill, G)
     want = da.flash_decode_partials_ref(q, cache, layer, pads, fill, G)
     k2 = da.flash_decode_attention(q, cache, layer, pads, fill, G)
-    compare_partials(torch, case, got, want, k2, float(cache_v_amax(cache, layer)), worst)
+    compare_partials(torch, case, got, want, k2, float(cache_v_amax(cache, layer)), worst, key)
     for row in inert_rows:
         o, m, l = (t[row] for t in got)
         if not (bool((m == -1e30).all()) and not l.any() and not o.any()):
@@ -2005,6 +2065,13 @@ def phase_timing(torch, worst) -> dict:
         log(f"[time] partials int8={quantized} B=2 C=32768: kernel {rec['ms']:.4f} ms, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain {rec['plain_ms']:.4f} ms, "
             f"library {rec['library_ms']:.4f} ms (normalised output)")
+    # K2p at phase 9h's seq = 2 shard: C = LONG_MESH_SHARD, rank 0's pads
+    rec = out["partials_shard"] = time_partials(
+        torch, worst, False, C=LONG_MESH_SHARD, pads_h=(800, 5300), key="partials_shard",
+        seed=90)
+    log(f"[time] partials at a seq = 2 shard B=2 KV=8 C={LONG_MESH_SHARD}: kernel "
+        f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+        f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms (normalised output)")
     out["gemv"] = time_gemv(torch, worst)
     out.update(time_gemma_kernels(torch, worst))
     out.update(time_group4_kernels(torch, worst))
@@ -2368,10 +2435,12 @@ def time_gemv(torch, worst, shapes=GEMV_SHAPES, groups=GEMV_GROUPS, layers=28,
     return rec
 
 
-def time_partials(torch, worst, quantized: bool) -> dict:
+def time_partials(torch, worst, quantized: bool, KV: int = 8, C: int = 32768,
+                  pads_h=(0, 12000), key: str = "partials", seed: int = 70) -> dict:
     """K2p, its plain version and the library call at the long path's
     decode: B=2, the whole one-rank prefill cache of C=32768 slots read
-    (fill = C - 1), pads 0 and 12000. The library call computes the
+    (fill = C - 1), pads 0 and 12000 (or another KV, C and pads: a
+    shard's; one output held into ``worst[key]``). The library call computes the
     normalised output from a bf16 copy of the cache expanded to 24 heads.
     The bound counts each row's visible K/V slots (and int8 scales) read
     once, q read and (o, m, l) written once, and, on bf16 tensor cores, 2
@@ -2381,10 +2450,10 @@ def time_partials(torch, worst, quantized: bool) -> dict:
     from vnsum_tpu_torch.ops import decode_attention as da
 
     dev = torch.device("cuda")
-    L, B, KV, G, hd, C = 4, 2, 8, 3, 128, 32768
+    L, B, G, hd = 4, 2, 3, 128
     H = KV * G
-    cache = long_cache(torch, L, B, KV, C, hd, quantized, range(L), 70 + quantized, dev)
-    pads_h = [0, 12000]
+    cache = long_cache(torch, L, B, KV, C, hd, quantized, range(L), seed + quantized, dev)
+    pads_h = list(pads_h)
     pads = torch.tensor(pads_h, dtype=torch.int32, device=dev)
     q = rand_q(torch, (B, 1, H, hd), 71, dev)
     visible = sum(C - p for p in pads_h)
@@ -2394,7 +2463,7 @@ def time_partials(torch, worst, quantized: bool) -> dict:
               + B * H * (hd + 2) * 4)
     ms = time_ms(torch, lambda i: da.flash_decode_partials(q, cache, i % L, pads, C - 1, G),
                  n=4 * L)
-    decode_passes(torch, f"partials int8={quantized} B={B} C={C}", ms,
+    decode_passes(torch, f"partials int8={quantized} B={B} KV={KV} C={C}", ms,
                   lambda i: da.flash_decode_partials(q, cache, i % L, pads, C - 1, G), 4 * L)
     plain = time_ms(torch, lambda i: da.flash_decode_partials_ref(
         q, cache, i % L, pads, C - 1, G), n=L)
@@ -2406,11 +2475,11 @@ def time_partials(torch, worst, quantized: bool) -> dict:
         qt, k_lib[i % L], v_lib[i % L], attn_mask=mask), n=4 * L)
     layer = L - 1
     compare_partials(
-        torch, f"partials int8={quantized} B={B} C={C} pads={pads_h} layer={layer} "
+        torch, f"partials int8={quantized} B={B} KV={KV} C={C} pads={pads_h} layer={layer} "
         "(timing inputs)", da.flash_decode_partials(q, cache, layer, pads, C - 1, G),
         da.flash_decode_partials_ref(q, cache, layer, pads, C - 1, G),
         da.flash_decode_attention(q, cache, layer, pads, C - 1, G),
-        float(cache_v_amax(cache, layer)), worst)
+        float(cache_v_amax(cache, layer)), worst, key)
     del cache, k_lib, v_lib
     torch.cuda.empty_cache()
     return timing_record(ms, plain, library, flops, bytes_, PEAK_BF16_FLOPS)
@@ -7805,6 +7874,336 @@ def phase_mesh(torch, model, oneshot: list) -> tuple[dict, dict]:
     return a, c
 
 
+# -- phase 9h -----------------------------------------------------------------
+
+# phase 9h (ROADMAP A10b): the pipeline CLI's whole-document launch as
+# torchrun starts it, one process a card, here two ranks sharing the one
+# card over gloo: --approach truncated --long-context --mesh seq=2 on
+# Llama-3.2-3B at full width and LONG_MESH_LAYERS of its 28 layers, over
+# path (c)'s two documents (both past the one-card ceiling), at
+# LONG_MESH_NEW new tokens. max_context LONG_MESH_CONTEXT gives the
+# backend max_total_tokens = max_context + 1024 = LONG_MESH_BUCKET, the
+# bucket of the longer prompt: LONG_MESH_SHARD slots a rank
+LONG_MESH_LAYERS = 4
+LONG_MESH_NEW = 32
+LONG_MESH_CONTEXT = 24576
+LONG_MESH_BUCKET = LONG_MESH_CONTEXT + 1024
+LONG_MESH_SHARD = LONG_MESH_BUCKET // 2
+LONG_MESH_JOIN_S = 300
+LONG_MESH_GATE_STEPS = 4
+# the gate: the two ranks' logits against a one-rank backend's on the same
+# weights and prompts, 9g (c)'s measure and limit (max |mesh - one| over
+# the rows whose greedy ids so far agree and the vocab, over the largest
+# |one| logit). They differ by bf16 rounding and by the prefill's
+# attention: the plain f32 ring over two shards against K1 (which rounds p
+# to bf16 before PV); the decode's K2p partials over two shards, merged,
+# against one over the whole cache. The planted fault must exceed it: rank
+# 1 issues its seq all-reduce of the K2p partials' o on a copy and keeps
+# its own partial, on every layer (SkipOneAllReduce), so its attention
+# misses rank 0's half of the prompt
+LONG_MESH_RTOL = 0.1
+# the planted fault runs on the prompts' first LONG_MESH_FAULT_BYTES bytes
+# (a 4096-slot bucket) at 2 new tokens: what it breaks is the decode's
+# merge, which any prompt length shows, and its prefill costs ~1/40 of the
+# whole prompts'
+LONG_MESH_FAULT_BYTES = 4000
+
+
+def long_mesh_fault_prompts(prompts: list) -> list:
+    return [p.encode()[:LONG_MESH_FAULT_BYTES].decode("utf-8", "ignore") for p in prompts]
+
+
+def long_mesh_cut():
+    from vnsum_tpu_torch.models import llama32_3b
+
+    return llama32_3b(n_layers=LONG_MESH_LAYERS)
+
+
+def long_mesh_argv(root: Path) -> list:
+    """The CLI's argv, the same on both ranks, as torchrun would pass it."""
+    argv = ["--approach", "truncated", "--long-context", "--mesh", "seq=2",
+            "--max-context", str(LONG_MESH_CONTEXT), "--max-new-tokens", str(LONG_MESH_NEW),
+            "--batch-size", "2", "--device", "cuda", "--models", "llama3.2:3b",
+            "--docs-dir", str(root / "corpus/doc"), "--summary-dir", str(root / "corpus/summary")]
+    for name in ("generated_summaries_dir", "results_dir", "logs_dir"):
+        argv += ["--" + name.replace("_", "-"), str(root / "run" / name)]
+    return argv
+
+
+@contextlib.contextmanager
+def long_sampler(steps: int):
+    """While open, the long path's sampler records (its logits, f32 on the
+    host with the unsampleable ids' float32-min set to 0; the ids it picks)
+    for its first ``steps`` calls: the prefill's, then the decode steps'."""
+    from vnsum_tpu_torch.backend import long_context as lc
+
+    seen: list = []
+    sample = lc.sample_logits_rows
+
+    def spy(rows, *args, **kw):
+        ids = sample(rows, *args, **kw)
+        if len(seen) < steps:
+            seen.append((rows.float().masked_fill(rows <= -1e30, 0.0).cpu(), ids.cpu()))
+        return ids
+
+    lc.sample_logits_rows = spy
+    try:
+        yield seen
+    finally:
+        lc.sample_logits_rows = sample
+
+
+def long_mesh_rank(rank: int, init_file: str, root: str) -> None:
+    """9h's rank ``rank`` of 2, a process of its own on card 0, its output
+    in its own log: the gloo group, init_distributed accepting it, then,
+    once the parent's "go" file appears, the CLI (registry_depth applied
+    here: the parent's patch does not reach a child process) with the
+    sampler's logits and the launches read, rank 1's writes watched; then
+    the planted fault on the backend the CLI built, over the prompts'
+    first LONG_MESH_FAULT_BYTES bytes at 2 new tokens. Saves what it saw;
+    a failure is saved as its traceback."""
+    import datetime
+    import traceback
+
+    root_p = Path(root)
+    log_f = open(root_p / f"rank{rank}.log", "w", buffering=1)
+    os.dup2(log_f.fileno(), 1)
+    os.dup2(log_f.fileno(), 2)
+    sys.stdout = sys.stderr = log_f
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    out: dict = {}
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=LONG_MESH_JOIN_S))
+    try:
+        from vnsum_tpu_torch.backend import long_context as lc
+        from vnsum_tpu_torch.parallel import init_distributed
+        from vnsum_tpu_torch.pipeline import cli
+        from vnsum_tpu_torch.pipeline import runner as pr
+        from vnsum_tpu_torch.testing.writes import WriteWatch
+
+        out["accepted"] = init_distributed(device="cuda")
+        time_evaluation()
+        watch = WriteWatch(str(root_p / "run")) if rank else None
+        t0 = time.perf_counter()
+        while not (root_p / "go").exists():
+            if time.perf_counter() - t0 > 2 * LONG_MESH_JOIN_S:
+                raise TimeoutError("the parent never started phase 9h")
+            time.sleep(0.05)
+        out["waited"] = time.perf_counter() - t0
+        runners, calls = [], []
+        run, generate = pr.PipelineRunner.run, lc.TorchLongContextBackend.generate
+
+        def run_spy(self):
+            runners.append(self)
+            return run(self)
+
+        def generate_spy(self, prompts, **kw):
+            calls.append((self, list(prompts)))
+            return generate(self, prompts, **kw)
+
+        pr.PipelineRunner.run = run_spy
+        lc.TorchLongContextBackend.generate = generate_spy
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with registry_depth(long_mesh_cut, "llama3.2:3b"), \
+                long_sampler(LONG_MESH_GATE_STEPS + 1) as seen:
+            if watch:
+                watch.on = True
+            out["rc"] = cli.main(long_mesh_argv(root_p))
+            if watch:
+                watch.on = False
+        out["wall"] = time.perf_counter() - t0
+        out["launches"], out["eval_seconds"] = read_launches(), dict(EVAL_SECONDS)
+        runner, (backend, prompts) = runners[-1], calls[-1]
+        st = backend.stats
+        out.update(
+            failures=runner.failures, primary=runner.primary, mesh=dict(runner.mesh.shape),
+            coords=dict(runner.mesh.coords), calls=len(calls), prompts=prompts,
+            forwards=st.prefill_forwards, steps=st.decode_steps, captured=st.captured_steps,
+            by_bucket=dict(st.by_bucket), prompt_tokens=st.prompt_tokens,
+            prefill_s=st.phase_seconds.get("prefill", 0.0),
+            decode_s=st.phase_seconds.get("decode", 0.0),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9, logits=seen,
+            writes=None if watch is None else list(watch.seen))
+        # the planted fault: rank 1 leaves out its share of every layer's
+        # seq sum of o (index 1 of the two sums a layer: l, then o)
+        if rank == 1:
+            backend.group = SkipOneAllReduce(backend.group, 1, 2)
+        with long_sampler(2) as seen:
+            backend.generate(long_mesh_fault_prompts(prompts), max_new_tokens=2)
+        out["fault_logits"] = seen
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        torch.save(out, root_p / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def start_long_mesh() -> dict:
+    """9h's two ranks, spawned at phase 9f's start so that they start up
+    (the interpreter, torch, the card's context, the group) while 9f runs;
+    they wait for phase 9h's "go" file. Path (c)'s corpus goes under a
+    temporary root they share."""
+    import multiprocessing
+
+    root = Path(tempfile.mkdtemp(prefix="vnsum_long_mesh_"))
+    long_corpus(root / "corpus")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=long_mesh_rank, args=(r, str(root / "rendezvous"), str(root)),
+                         daemon=True) for r in range(2)]
+    for p in procs:
+        p.start()
+    return {"root": root, "procs": procs, "t0": time.perf_counter()}
+
+
+def stop_long_mesh(started: dict) -> None:
+    for p in started["procs"]:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    shutil.rmtree(started["root"], ignore_errors=True)
+
+
+def phase_long_mesh(torch, started: dict) -> dict:
+    """Phase 9h: "go" to the two ranks (start_long_mesh), then, while they
+    run, the one-rank reference on the same weights and prompts (eager, so
+    that the sampler sees every step; and on the planted fault's prompts),
+    then the gates: (i) init_distributed accepted
+    the gloo group and the mesh reads {data 1, model 1, seq 2}; (ii) the
+    prefill's and the first LONG_MESH_GATE_STEPS decode steps' logits
+    within LONG_MESH_RTOL of the reference's, the two ranks' bits equal;
+    (iii) the planted fault past it; (iv) rank 0 wrote both summaries, one
+    results JSON and one log, rank 1 nothing; (v) each rank's K2p launches
+    exactly LONG_MESH_LAYERS x its decode steps, K1, K2, K3 and the GEMV
+    none (the ring prefill is plain torch). Greedy agreement, each rank's
+    prefill and decode seconds and peak memory logged, not gated. Stops
+    both ranks whatever happens. Returns the launches, summed over the
+    ranks."""
+    from vnsum_tpu_torch.backend.long_context import TorchLongContextBackend
+    from vnsum_tpu_torch.strategies import TruncatedStrategy
+    from vnsum_tpu_torch.strategies.prompts import TRUNCATED
+
+    root, procs = started["root"], started["procs"]
+    try:
+        docs = sorted((root / "corpus/doc").glob("*.txt"))
+        one = TorchLongContextBackend(
+            model_config=long_mesh_cut(), batch_size=2, max_new_tokens=LONG_MESH_NEW,
+            max_total_tokens=LONG_MESH_BUCKET, cuda_graphs=False, device="cuda")
+        strategy = TruncatedStrategy(one, max_context=LONG_MESH_CONTEXT,
+                                     max_new_tokens=LONG_MESH_NEW)
+        prompts = [TRUNCATED.format(text=strategy._truncate(d.read_text(encoding="utf-8")))
+                   for d in docs]
+        (root / "go").write_text("go")
+        t_go = time.perf_counter()
+        with long_sampler(LONG_MESH_GATE_STEPS + 1) as want:
+            want_texts = one.generate(prompts)
+        ref_s = time.perf_counter() - t_go
+        ref = dict(one.stats.phase_seconds, steps=one.stats.decode_steps)
+        with long_sampler(2) as want_fault:
+            one.generate(long_mesh_fault_prompts(prompts), max_new_tokens=2)
+        del one
+        torch.cuda.empty_cache()
+        for p in procs:
+            p.join(max(LONG_MESH_JOIN_S - (time.perf_counter() - t_go), 1.0))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        if hung:
+            raise AssertionError(f"long mesh: ranks {hung} did not finish within "
+                                 f"{LONG_MESH_JOIN_S} s")
+        wall = time.perf_counter() - t_go
+        ranks = []
+        for r in range(2):
+            path = root / f"rank{r}.pt"
+            if not path.is_file():
+                raise AssertionError(f"long mesh: rank {r} saved nothing (exit "
+                                     f"{procs[r].exitcode}):\n"
+                                     + (root / f"rank{r}.log").read_text()[-4000:])
+            ranks.append(torch.load(path, weights_only=False))
+        for r, res in enumerate(ranks):
+            if "error" in res:
+                raise AssertionError(f"long mesh rank {r}:\n{res['error']}\n"
+                                     + (root / f"rank{r}.log").read_text()[-4000:])
+        total = dict.fromkeys(COUNTERS, 0)
+        for r, res in enumerate(ranks):
+            # (i)
+            if (not res["accepted"] or res["mesh"] != {"seq": 2, "data": 1, "model": 1}
+                    or res["coords"]["seq"] != r or res["primary"] != (r == 0)):
+                raise AssertionError(f"long mesh rank {r}: accepted {res['accepted']}, mesh "
+                                     f"{res['mesh']}, coords {res['coords']}, primary "
+                                     f"{res['primary']}")
+            if res["rc"] != 0 or res["failures"] or res["calls"] != 1:
+                raise AssertionError(f"long mesh rank {r}: exit {res['rc']}, failures "
+                                     f"{res['failures']}, {res['calls']} generate calls")
+            if res["prompts"] != prompts or res["by_bucket"] != {(2, LONG_MESH_BUCKET): 1}:
+                raise AssertionError(f"long mesh rank {r}: batches {res['by_bucket']}; its "
+                                     "prompts equal the reference's: "
+                                     f"{res['prompts'] == prompts}")
+            # (v)
+            need = {"partials": LONG_MESH_LAYERS * res["steps"]}
+            check_exact(f"long mesh rank {r}", res["launches"], need, ("partials",))
+            if res["captured"]:
+                raise AssertionError(f"long mesh rank {r}: {res['captured']} steps replayed")
+            for k in total:
+                total[k] += res["launches"][k]
+            log(f"[long mesh] rank {r}: mesh {res['mesh']}, coords {res['coords']}, CLI wall "
+                f"{res['wall']:.2f}s (started up during phase 9f, waited {res['waited']:.1f}s), "
+                f"prefill {res['prefill_s']:.3f}s ({res['forwards']} ring forward at "
+                f"S={LONG_MESH_BUCKET}, {LONG_MESH_SHARD} slots a rank), decode "
+                f"{res['decode_s']:.3f}s ({res['steps']} eager steps, "
+                f"{1e3 * res['decode_s'] / max(res['steps'], 1):.1f} ms a step), prompt tokens "
+                f"{res['prompt_tokens']}, peak memory {res['peak_gb']:.2f} GB")
+        # (ii) and (iii)
+        for (a, ia), (b, ib) in zip(ranks[0]["logits"], ranks[1]["logits"]):
+            if not torch.equal(a, b) or not torch.equal(ia, ib):
+                raise AssertionError("long mesh: the two ranks' logits or picks differ")
+        sound = logits_measure(torch, ranks[0]["logits"], want, 2)
+        fault = logits_measure(torch, ranks[1]["fault_logits"], want_fault, 2)
+        worst, planted = max(m for m, _ in sound), max(m for m, _ in fault)
+        log(f"[long mesh] gate, seq = 2 against one rank (reference {ref_s:.2f}s, run while "
+            f"the ranks ran: prefill "
+            f"{ref.get('prefill', 0.0):.3f}s through K1, decode "
+            f"{ref.get('decode', 0.0):.3f}s, {ref['steps']} eager steps): per "
+            "call (the prefill, then decode steps: rows compared) "
+            + ", ".join(f"{m:.3e} ({n})" for m, n in sound)
+            + "; the planted fault (rank 1 keeps its own K2p partial of o on every layer; "
+            f"the prompts' first {LONG_MESH_FAULT_BYTES} bytes) "
+            + ", ".join(f"{m:.3e} ({n})" for m, n in fault) + f"; limit {LONG_MESH_RTOL}")
+        if (worst > LONG_MESH_RTOL or planted <= LONG_MESH_RTOL
+                or len(sound) != LONG_MESH_GATE_STEPS + 1):
+            raise AssertionError(f"long mesh: gate {worst:.3e}, planted fault {planted:.3e}, "
+                                 f"limit {LONG_MESH_RTOL}")
+        # (iv)
+        run = root / "run"
+        if ranks[1]["writes"]:
+            raise AssertionError(f"long mesh: rank 1 wrote {ranks[1]['writes']}")
+        results = sorted((run / "results_dir").glob("pipeline_results_*.json"))
+        logs = sorted((run / "logs_dir").glob("*"))
+        if len(results) != 1 or len(logs) != 1:
+            raise AssertionError(f"long mesh: results JSON {results}, logs {logs}")
+        res0 = json.loads(results[0].read_text(encoding="utf-8"))["results"]
+        EVAL_SECONDS.update(ranks[0]["eval_seconds"])  # rank 0 ran the evaluation
+        _, summaries = check_run(res0, docs, run / "generated_summaries_dir",
+                                 approach="truncated")
+        spans = {k: v["count"] for k, v in res0["tracing"]["spans"].items()}
+        if spans != {**RUNNER_SPANS, "evaluate/rouge": len(docs)}:
+            raise AssertionError(f"long mesh: results.tracing spans {spans}")
+        texts = [summaries[d.name] for d in docs]
+        log(f"[long mesh] rank 0 wrote {len(summaries)} summaries, 1 results JSON, 1 log; rank "
+            f"1 wrote nothing (audit hook); rouge "
+            f"{json.dumps(res0['evaluation']['llama3.2:3b']['rouge_scores'])}")
+        log(f"[long mesh] greedy agreement with one rank (not gated: bf16 near-ties): "
+            f"{agreement(texts, want_texts)}; wall "
+            f"{wall:.1f}s from go to both ranks joined")
+        log("[launches] long mesh, both ranks: " + ", ".join(f"{k} {v}" for k, v in total.items()))
+        return total
+    finally:
+        stop_long_mesh(started)
+
+
 # -- phase 10 -----------------------------------------------------------------
 
 ONE_CARD_CEILING = 16384  # Llama-3.2-3B's max_seq_len: the one-card engine's cut
@@ -7839,9 +8238,9 @@ def phase_long_context(torch) -> dict:
     documents past the one-card ceiling, on TorchLongContextBackend (one
     rank), its decode steps captured, with a bf16 and then an int8 prefill
     cache; then a bf16 run with cuda_graphs=False, whose summaries must be
-    byte-identical to the captured bf16 run's; then the one-card engine on
-    the same weights and prompts as a control (not gated). Returns the
-    launches of the three gated runs."""
+    byte-identical to the captured bf16 run's; then the long path's logits
+    against the one-card engine's on the same weights and prompts
+    (long_logits_gate). Returns the launches of the three gated runs."""
     import dataclasses
 
     from vnsum_tpu_torch.backend.engine import TorchBackend
@@ -7852,7 +8251,6 @@ def phase_long_context(torch) -> dict:
     from vnsum_tpu_torch.pipeline.runner import PipelineRunner
     from vnsum_tpu_torch.strategies import TruncatedStrategy
     from vnsum_tpu_torch.strategies.prompts import TRUNCATED
-    from vnsum_tpu_torch.text import clean_thinking_tokens
 
     cfg = llama32_3b()
     n_layers = cfg.n_layers
@@ -7945,20 +8343,15 @@ def phase_long_context(torch) -> dict:
         log(f"[long] int8 prefill cache against bf16: "
             f"{agreement(texts[True, 'auto'], texts[False, 'auto'])} (not gated)")
 
-        # control: the one-card engine, its ceiling raised to 40960 on the
-        # same weights, bf16 cache, on the same prompts
+        # the logits gate's reference: the one-card engine, its ceiling
+        # raised to 40960 on the same weights, bf16 cache. Its ungated
+        # generate over the same prompts (texts against the long path's)
+        # went to pay for phase 9h's seconds
         big = LlamaModel(dataclasses.replace(cfg, max_seq_len=40960), {
             "embed": model.embed.data, "final_norm": model.final_norm.data,
             "layers": {n: p_.data for n, p_ in model.layers.items()}})
         engine = TorchBackend(model=big, batch_size=2, max_new_tokens=max_new,
                               quantize_kv=False, device="cuda")
-        t0 = time.perf_counter()
-        control = [clean_thinking_tokens(t) for t in engine.generate(prompts)]
-        wall = time.perf_counter() - t0
-        log(f"[long] control: one-card engine at max_seq_len 40960 (batches "
-            f"{engine.stats.to_dict()['by_bucket']}, wall {wall:.2f}s) against the long "
-            f"path's bf16 run: {agreement(control, texts[False, 'auto'])} (not gated: bf16 "
-            "near-ties)")
         long_logits_gate(torch, model, engine, prompts)
     del model, big, engine
     torch.cuda.empty_cache()
@@ -8380,9 +8773,17 @@ def main() -> int:
         "prefix cache", phase_prefix_cache, torch, backend.model, plain_summaries)
     serve_launches, serve_resume, serve_ref = timed("serve", phase_serve, torch, backend.model)
     resume_launches += serve_resume
-    checks_launches = timed("checks", phase_checks, torch, backend, prompts, oneshot)
-    mesh_launches, mesh_tp_launches = timed("mesh", phase_mesh, torch, backend.model, oneshot)
+    # 9h's ranks start up while 9f runs (9g's own ranks start with 9g)
+    long_mesh = start_long_mesh()
+    try:
+        checks_launches = timed("checks", phase_checks, torch, backend, prompts, oneshot)
+        mesh_launches, mesh_tp_launches = timed("mesh", phase_mesh, torch, backend.model,
+                                                oneshot)
+    except BaseException:
+        stop_long_mesh(long_mesh)
+        raise
     del backend
+    long_mesh_launches = timed("long mesh", phase_long_mesh, torch, long_mesh)
     fixture_launches = timed("fixture", phase_fixture, torch)
     # the fleet's launches are its workers', counted in their processes
     timed("fleet", phase_fleet, torch, serve_ref)
@@ -8404,6 +8805,8 @@ def main() -> int:
             n = resume_launches
         elif key.endswith("_tp"):
             n = mesh_tp_launches[key[:-3]]
+        elif key == "partials_shard":
+            n = long_mesh_launches["partials"]
         else:
             n = launches[key]
         kernels.append({**meta, "launches": n, "max_abs_err": errs[key], **timing[key]})

@@ -47,6 +47,13 @@ FLAG_SETS = {
     "quantize": ["--quantize", "--quantize-act"],
     "judge": ["--judge-backend", "ollama:qwen3:8b", "--ollama-url", "http://h:1"],
     "llm_eval": ["--include-llm-eval", "--backend", "fake"],
+    "mesh": ["--mesh", "data=2,model=4"],
+    "long_context": ["--long-context", "--quantize", "--mesh", "data=2,seq=4",
+                     "--max-context", "65536"],
+    # --quantize-kv-long needs --long-context in both configs (each raises
+    # alike without it: tests/test_torch_pipeline_mesh.py)
+    "quantize_kv_long": ["--quantize-kv-long", "--long-context", "--mesh", "seq=2",
+                         "--allow-cpu-mesh"],
 }
 
 
@@ -59,12 +66,14 @@ def common(cfg) -> dict:
 
 
 def test_approaches_match_jax():
+    """Both configs have the same fields, the mesh's and the long launch's
+    among them; ``backend`` differs only in its default."""
     assert APPROACHES == JAX_APPROACHES
     assert set(STRATEGY_REGISTRY) == set(JAX_REGISTRY) == set(APPROACHES)
-    assert {f.name for f in dataclasses.fields(JaxPipelineConfig)} - set(COMMON) >= {
-        "backend", "mesh_shape"}
+    assert {f.name for f in dataclasses.fields(JaxPipelineConfig)} - set(COMMON) == {"backend"}
     assert {"iterative_chunk_size", "iterative_chunk_overlap", "max_critique_iterations",
-            "max_depth", "tree_json_path", "quantize", "quantize_act"} <= set(COMMON)
+            "max_depth", "tree_json_path", "quantize", "quantize_act", "mesh_shape",
+            "allow_cpu_mesh", "long_context", "long_context_quantize_kv"} <= set(COMMON)
 
 
 @pytest.mark.parametrize("approach", JAX_APPROACHES)

@@ -124,6 +124,7 @@ from ..ops.flash_attention import B4, flash_prefill_attention, supports_flash, s
 from ..ops.sharded import sharded_flash_decode, sharded_flash_prefill
 from ..ops.verify_attention import flash_spec_verify_attention
 from ..parallel.seq import SeqGroup
+from ..parallel.sharding import data_rows, gather_rows
 from ..spec import NO_TOKEN, SpecRecord, encode_references, propose_drafts
 from ..testing.faults import fault
 from ..text.tokenizer import Tokenizer, get_tokenizer
@@ -406,22 +407,12 @@ class TorchBackend:
                              kv_heads=self._kv_heads)
 
     def _rows(self, B: int) -> tuple[int, int]:
-        """This rank's rows [lo, hi) of a packed batch of B rows: the data
-        ranks split it in order (B is a multiple of their count)."""
-        n = B // self._data.world
-        return self._data.rank * n, (self._data.rank + 1) * n
+        """This rank's rows [lo, hi) of a packed batch of B rows."""
+        return data_rows(self._data, B)
 
     def _gather_rows(self, local: torch.Tensor, B: int) -> torch.Tensor:
-        """The [B, ...] batch of this rank's rows ``local`` and the other
-        data ranks': each rank places its rows in a zeroed buffer and the
-        buffers are summed over ``data``, exact since each element has one
-        contributor."""
-        if self._data.world == 1:
-            return local
-        lo, hi = self._rows(B)
-        full = local.new_zeros((B,) + tuple(local.shape[1:]))
-        full[lo:hi] = local
-        return self._data.all_reduce_sum(full)
+        """The [B, ...] batch of every data rank's rows."""
+        return gather_rows(self._data, local, B)
 
     def _next_seed(self, gen: GenerationConfig) -> int:
         s = fold_seed(gen.seed, self._seed, self._dispatch)

@@ -34,8 +34,21 @@ backend does: the long decode's projections and LM head (B rows) go through
 the int8-weight GEMV kernel, the prefill's through a dequantized
 ``torch.matmul``.
 
-Not ported yet: the ``data`` and ``model`` mesh axes, and the pipeline
-CLI's multi-rank launch.
+Under a mesh (``mesh=``, ``parallel/mesh.py``) the backend runs on the
+``data``, ``model`` and ``seq`` axes, one process a card, every rank calling
+``generate`` with the same prompts (SPMD), as the JAX backend's
+``P(data, seq)`` and ``P(data, model, seq)`` shardings place it:
+
+- ``seq``: the split above, over the mesh's seq group;
+- ``model``: the weights are this rank's shard (``shard_params``), the
+  forward runs the tensor-parallel collectives, and the ring, K2p and the
+  decode-cache partial run on the local heads (H/model and KV/model);
+- ``data``: a batch starts at ``data`` rows and ``batch_size`` rounds to a
+  multiple of it, as in JAX; each data rank runs its own rows, and the
+  generated ids are gathered over ``data`` so that every rank returns the
+  same texts. A sampled row draws from ``row_seed(seed, u, step)`` with
+  ``u`` its row in the whole batch, so a row's stream does not depend on
+  the ``data`` size.
 """
 from __future__ import annotations
 
@@ -61,6 +74,8 @@ from ..models.sampling import row_seed, sample_logits_rows
 from ..ops.decode_attention import flash_decode_partials
 from ..ops.flash_attention import NEG, flash_prefill_attention
 from ..parallel import SeqGroup, ring_attention
+from ..parallel.mesh import AXES
+from ..parallel.sharding import data_rows, gather_rows, shard_params
 from ..text.tokenizer import Tokenizer, get_tokenizer
 from .base import (
     fold_seed,
@@ -94,7 +109,8 @@ def long_prefill(
     """One forward over the full prompt, each rank on its S/N positions.
 
     Returns (last_logits [B, V] f32, the same on every rank; this rank's
-    prefill cache {"k","v": [L, B, KV, S/N, hd]} in the model dtype)."""
+    prefill cache {"k","v": [L, B, KV, S/N, hd]} in the model dtype, KV
+    the model shard's local KV heads)."""
     group = group or SeqGroup()
     cfg = model.cfg
     B, S = tokens.shape
@@ -105,7 +121,8 @@ def long_prefill(
     lo = r * S_loc
     G = cfg.q_per_kv
     positions = prefill_positions(pad_lens, S)[:, lo : lo + S_loc]
-    cache = init_kv_cache(cfg, B, S_loc, device=model.device)
+    cache = init_kv_cache(cfg, B, S_loc, device=model.device,
+                          kv_heads=cfg.n_kv_heads // model.tp.world)
     if n == 1:
         # the ring at one rank: causal attention over the whole cache, K1
         # (its plain version for CPU tensors; on the card it raises for a
@@ -261,11 +278,13 @@ def generate_long_tokens(
     vocab_allowed=None,
     stats: EngineStats | None = None,
     cuda_graphs: bool = False,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """Prefill, then the decode loop; returns the emitted ids [B, max_new].
 
-    Row ``b``'s sampled token at step ``t`` draws from ``row_seed(seed, b,
-    t)`` (step 0 is the prefill's token). ``quantize_kv`` stores the frozen
+    Row ``b``'s sampled token at step ``t`` draws from ``row_seed(seed,
+    row_offset + b, t)`` (step 0 is the prefill's token): ``row_offset`` is
+    this data rank's first row in the whole batch. ``quantize_kv`` stores the frozen
     prefill cache int8. ``cuda_graphs`` replays the greedy decode step as a
     captured CUDA graph (one rank on the card). ``stats`` collects the
     prefill and decode seconds (each ended by a synchronize), forwards,
@@ -279,7 +298,8 @@ def generate_long_tokens(
     allowed = None if vocab_allowed is None else torch.as_tensor(vocab_allowed, device=dev)
 
     def sample(rows, step):  # rows [B, vocab] f32
-        seeds = [row_seed(seed, u, step) for u in range(B)] if temperature > 0 else []
+        seeds = ([row_seed(seed, row_offset + u, step) for u in range(B)]
+                 if temperature > 0 else [])
         return sample_logits_rows(
             mask_unsampleable(rows[:, :V], allowed), seeds, temperature, top_k, top_p
         )
@@ -302,9 +322,10 @@ def generate_long_tokens(
         raise ValueError("a captured long decode needs greedy rows and one seq rank")
     attention = make_long_decode_attention(prefill_cache, pad_lens, cfg.q_per_kv, group)
     buffers = decode_buffers(cur, done, max_new, pad_id)
+    decode_cache = init_kv_cache(cfg, B, max_new, device=dev,
+                                 kv_heads=cfg.n_kv_heads // model.tp.world)
     step = long_decode_step(
-        model, attention, buffers, init_kv_cache(cfg, B, max_new, device=dev), pad_lens,
-        S, eos, pad_id, sample,
+        model, attention, buffers, decode_cache, pad_lens, S, eos, pad_id, sample,
     )
     run = decode_loop(step, done, max_new, capture=cuda_graphs)
     _sync(dev)
@@ -322,9 +343,11 @@ class TorchLongContextBackend:
     strategy (``max_context`` set to the long limit) it summarizes whole
     VN-LongSum documents in one shot.
 
-    Every rank of ``group`` calls ``generate`` with the same prompts and
-    gets the same texts. ``references`` and ``cache_hints`` are accepted and
-    unused, as in the JAX backend."""
+    The ranks come from ``mesh`` (its ``seq`` group, and its ``data`` and
+    ``model`` axes) or, without one, from ``group``, a seq group alone;
+    passing both raises. Every rank calls ``generate`` with the same
+    prompts and gets the same texts. ``references`` and ``cache_hints``
+    are accepted and unused, as in the JAX backend."""
 
     name = "torch"
 
@@ -343,6 +366,7 @@ class TorchLongContextBackend:
         quantize: bool = False,
         quantize_kv: bool = False,
         cuda_graphs: str | bool = "auto",
+        mesh=None,
         device="cuda",
     ) -> None:
         self.device = resolve_device(device)
@@ -352,19 +376,40 @@ class TorchLongContextBackend:
                 "TorchLongContextBackend runs ring attention (global K/V "
                 "streaming); sliding-window configs are one-card-engine only"
             )
-        self.group = group or SeqGroup()
-        # captured greedy decode steps: on by default at one rank on the
-        # card (the all-reduces of more ranks are not captured); True raises
+        if mesh is not None and group is not None:
+            raise ValueError("pass mesh= or group=, not both: the mesh holds the seq group")
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"this rank's mesh device is {mesh.device}, the backend's "
+                             f"{self.device}")
+        # this rank's view of the mesh (parallel/mesh.py), or None
+        self.mesh = mesh
+        self.group = mesh.group(AXES.seq) if mesh is not None else (group or SeqGroup())
+        self._data = mesh.group(AXES.data) if mesh is not None else SeqGroup()
+        model_size = mesh.shape.get(AXES.model, 1) if mesh is not None else 1
+        # captured greedy decode steps: on by default at one seq rank on the
+        # card, where the mesh's model collectives can be captured (NCCL's;
+        # the seq all-reduces of more ranks are not captured); True raises
         # where they cannot apply
-        can_capture = self.device.type == "cuda" and self.group.world == 1
+        can_capture = (self.device.type == "cuda" and self.group.world == 1
+                       and (mesh is None or mesh.captures_collectives()))
         if cuda_graphs is True and not can_capture:
-            raise ValueError("cuda_graphs=True needs a CUDA device and one seq rank")
+            raise ValueError("cuda_graphs=True needs a CUDA device, one seq rank and, under a "
+                             "mesh, model collectives a graph can capture (NCCL's)")
         self._graphs_required = cuda_graphs is True
         self.cuda_graphs = can_capture if cuda_graphs == "auto" else bool(cuda_graphs)
         self.tok = get_tokenizer(tokenizer) if isinstance(tokenizer, str) else tokenizer
         # prompts here are near the memory ceiling by definition: one row
-        # at a time unless the caller's memory budget allows more
-        self.batch_size = max(int(batch_size), 1)
+        # at a time unless the caller's memory budget allows more. Rounded
+        # down to a multiple of the data axis (the value is the caller's
+        # memory high-water mark), but at least one row a data rank
+        data_size = self._data.world
+        self.batch_size = max(data_size, (max(int(batch_size), 1) // data_size) * data_size)
+        if data_size > 1 and self.batch_size != batch_size:
+            logger.warning(
+                "batch_size adjusted %d -> %d (mesh data axis %d needs a "
+                "divisible row count); per-dispatch memory scales with it",
+                batch_size, self.batch_size, data_size,
+            )
         self.max_new_tokens = max_new_tokens
         # the long path ignores cfg.max_seq_len (the one-card ceiling)
         self.max_total_tokens = max_total_tokens or self.cfg.max_seq_len * self.group.world
@@ -387,7 +432,22 @@ class TorchLongContextBackend:
             raise ValueError(f"model lives on {model.device}, backend on {self.device}")
         if quantize and not model.quantized:
             model = quantize_model(model)
+        if mesh is not None:
+            if model.tp.world == 1:
+                model = shard_params(model, mesh)
+            elif model.tp.world != model_size:
+                raise ValueError(
+                    f"the model is a shard over {model.tp.world} ranks, the mesh's "
+                    f"model axis has {model_size}"
+                )
+        elif model.tp.world != 1:
+            raise ValueError("a model shard needs the mesh it was sharded over (mesh=)")
         self.model = model
+
+    def _gather_rows(self, local: torch.Tensor, B: int) -> torch.Tensor:
+        """The [B, ...] batch of every data rank's rows (gathered over
+        ``data``, as the engine gathers them)."""
+        return gather_rows(self._data, local, B)
 
     def _bucket(self, n: int) -> int:
         """Round S up to a multiple of (ranks x 128), doubling, capped at
@@ -441,23 +501,29 @@ class TorchLongContextBackend:
         for start in range(0, len(order), self.batch_size):
             group = order[start : start + self.batch_size]
             S = self._bucket(max(len(encoded[i]) for i in group))
-            B = 1
+            # at least one row a data rank; batch_size is the caller's memory
+            # high-water mark, never exceeded to reach a power of two (it is
+            # a multiple of the data axis, so the clamp stays divisible)
+            B = self._data.world
             while B < len(group):
                 B *= 2
             B = min(B, self.batch_size)
             tokens, pad_lens = left_pad_batch(
                 [encoded[i] for i in group], B, S, self.tok.pad_id
             )
+            lo, hi = data_rows(self._data, B)
             t_group = time.time()
-            out = generate_long_tokens(
-                self.model, torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(pad_lens).to(self.device), max_new,
+            local = generate_long_tokens(
+                self.model, torch.from_numpy(tokens[lo:hi]).to(self.device),
+                torch.from_numpy(pad_lens[lo:hi]).to(self.device), max_new,
                 eos_ids=eos_ids, pad_id=self.tok.pad_id, group=self.group,
                 temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
                 seed=self._next_seed(gen), quantize_kv=self.quantize_kv,
                 vocab_limit=vocab_limit, vocab_allowed=vocab_allowed, stats=self.stats,
                 cuda_graphs=captures(gen, self.cuda_graphs, self._graphs_required),
-            ).cpu().numpy()
+                row_offset=lo,
+            )
+            out = self._gather_rows(local, B).cpu().numpy()
             logger.info(
                 "long generate: B=%d S=%d new=%d in %.1fs", B, S, max_new, time.time() - t_group
             )

@@ -2,12 +2,14 @@
 
 Copy of ``vnsum_tpu/core/config.py`` cut to what the port runs today: the
 six approaches, with speculative decoding, HF checkpoints, int8 weights
-(and W8A8 prefill), the embedding metrics, the G-Eval judge and the
-backend choice (``torch``, ``ollama``, ``fake``). Knob names and defaults
+(and W8A8 prefill), the embedding metrics, the G-Eval judge, the
+backend choice (``torch``, ``ollama``, ``fake``), the mesh (``mesh_shape``)
+and the whole-document launch (``long_context``). Knob names and defaults
 are the JAX package's (themselves the reference's,
 run_full_evaluation_pipeline.py: 973-1027), except ``backend``, whose
-default is the port's engine, ``"torch"``; meshes and the long-context
-launch return with the slices that port them.
+default is the port's engine, ``"torch"``, and the meaning of
+``allow_cpu_mesh``: it is recorded and never moves a run off the card
+(``pipeline/runner.py``).
 """
 from __future__ import annotations
 
@@ -124,6 +126,22 @@ class PipelineConfig:
     # documents submitted to the strategy per round; 0 = auto (4x batch_size)
     doc_group_size: int = 0
     tokenizer: str = "byte"  # byte | hf:<name-or-path>
+    # {axis: size} over the ranks of the run, one process a card (e.g.
+    # {"data": 2, "model": 2}); empty = one card, no process group
+    mesh_shape: dict[str, int] = field(default_factory=dict)
+    # the JAX package's opt-in to rebuild an oversized mesh on host CPU
+    # devices. Recorded here and never acted on: a cuda run whose mesh
+    # cannot form raises; a CPU mesh is a gloo mesh asked for with device cpu
+    allow_cpu_mesh: bool = False
+    # ring-attention prefill + seq-sharded decode (backend/long_context.py):
+    # prompts run untruncated up to seq ranks x the one-card limit; requires
+    # backend=torch and a mesh with a seq axis > 1
+    long_context: bool = False
+    # int8-quantize the long-context prefill KV cache. Lossy (per-position
+    # int8 round-trip on cached K/V) but halves the long decode's cache
+    # reads. Off by default because ``quantize`` alone promises exact
+    # weight-only quantization
+    long_context_quantize_kv: bool = False
     # prefill in slices of this many tokens (0 = whole prompt)
     prefill_chunk_tokens: int = 0
     # int8 weight-only quantization (per-output-channel scales, exact with
@@ -146,6 +164,12 @@ class PipelineConfig:
         if self.approach not in APPROACHES:
             raise ValueError(
                 f"unknown approach {self.approach!r}; expected one of {APPROACHES}"
+            )
+        if self.long_context_quantize_kv and not self.long_context:
+            raise ValueError(
+                "long_context_quantize_kv requires long_context=True — the "
+                "one-chip engine ignores it, so the run would claim an int8 "
+                "prefill cache while using the exact one"
             )
         if self.chunk_overlap >= self.chunk_size:
             raise ValueError("chunk_overlap must be smaller than chunk_size")
@@ -176,6 +200,23 @@ class PipelineConfig:
                 "quantize_act (W8A8 prefill) requires quantize=True — "
                 "without int8 weights there is no s8xs8 matmul to run"
             )
+        if self.quantize_act and self.long_context:
+            raise ValueError(
+                "quantize_act is one-chip-engine only; the long-context "
+                "ring prefill would silently run weight-only while the run "
+                "record claims W8A8"
+            )
+        if self.long_context:
+            if self.backend != "torch":
+                raise ValueError(
+                    f"long_context requires backend='torch' (got {self.backend!r})"
+                )
+            if self.mesh_shape.get("seq", 1) < 2:
+                raise ValueError(
+                    "long_context requires a mesh with a seq axis > 1 "
+                    "(e.g. --mesh seq=4,data=2) — the seq axis is what "
+                    "multiplies the context ceiling"
+                )
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

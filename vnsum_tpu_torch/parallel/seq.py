@@ -88,9 +88,14 @@ class SeqGroup:
 
     def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
         """Send ``t`` to the next rank and return the previous rank's
-        (``ppermute`` with perm j -> j + 1 mod world)."""
+        (``ppermute`` with perm j -> j + 1 mod world). gloo's point-to-point
+        ops take host tensors only (its collectives copy CUDA tensors
+        themselves), so a CUDA tensor goes through the host there: ranks
+        sharing one card over gloo."""
         if self.world == 1:
             return t
+        if t.is_cuda and dist.get_backend(self.group) == "gloo":
+            return self.ring_shift(t.cpu()).to(t.device)
         send = t.contiguous()
         recv = torch.empty_like(send)
         nxt, prv = (self.rank + 1) % self.world, (self.rank - 1) % self.world

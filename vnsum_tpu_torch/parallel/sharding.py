@@ -12,7 +12,10 @@ from __future__ import annotations
 
 from typing import Any
 
+import torch
+
 from .mesh import AXES, Mesh
+from .seq import SeqGroup
 
 _D, _M, _F = AXES.data, AXES.model, AXES.fsdp
 
@@ -90,6 +93,27 @@ def cache_specs(quantized: bool = False) -> dict[str, Any]:
 def batch_spec() -> tuple:
     """[B, S] token batches shard over data."""
     return (_D, None)
+
+
+def data_rows(data: SeqGroup, B: int) -> tuple[int, int]:
+    """This data rank's rows [lo, hi) of a batch of B rows, as
+    :func:`batch_spec` splits it: the data ranks take it in order (B is a
+    multiple of their count)."""
+    n = B // data.world
+    return data.rank * n, (data.rank + 1) * n
+
+
+def gather_rows(data: SeqGroup, local: torch.Tensor, B: int) -> torch.Tensor:
+    """The [B, ...] batch of this rank's rows ``local`` and the other data
+    ranks': each rank places its rows in a zeroed buffer and the buffers
+    are summed over ``data``, exact since each element has one
+    contributor."""
+    if data.world == 1:
+        return local
+    lo, hi = data_rows(data, B)
+    full = local.new_zeros((B,) + tuple(local.shape[1:]))
+    full[lo:hi] = local
+    return data.all_reduce_sum(full)
 
 
 def _leaves(tree: dict, specs: dict, path=()):

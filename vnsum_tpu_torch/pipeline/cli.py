@@ -12,6 +12,17 @@ where a document has none) and collapses down from ``--max-depth``.
 ``--quantize`` runs int8 weights (the int8-weight GEMV kernel on every
 small-batch forward); ``--quantize-act`` adds W8A8 prefill.
 
+``--mesh data=2,model=2`` runs one process a card over a mesh of the
+ranks of the run (``parallel/mesh.py``); ``--long-context`` with a ``seq``
+axis above 1 runs whole documents through the ring prefill and the
+seq-sharded decode. Launched by torchrun, one process a card:
+
+    torchrun --nproc-per-node 2 -m vnsum_tpu_torch.pipeline.cli \\
+        --approach truncated --long-context --mesh seq=2 --max-context 24576
+
+With ``--device cpu`` the ranks join over gloo. Rank 0 alone writes the
+summaries, the results JSON and the log file.
+
 ``--backend`` picks the summarizer: ``torch`` (the port's engine, the
 default), ``ollama`` (a local server at ``--ollama-url``) or ``fake`` (the
 test double). ``--include-llm-eval`` adds the G-Eval judge's scores;
@@ -32,6 +43,7 @@ from __future__ import annotations
 import argparse
 
 from ..core.config import APPROACHES, BACKENDS, PipelineConfig, approach_defaults
+from ..parallel.mesh import parse_mesh_spec
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,6 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tokenizer", default="byte", help="byte or hf:<name-or-path>")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument(
+        "--mesh", default="", help='device mesh over the ranks of the run, e.g. "data=2,model=4"'
+    )
+    p.add_argument(
+        "--allow-cpu-mesh", action="store_true",
+        help="recorded in the run's config for parity with the JAX CLI; a cuda "
+        "run never moves to the CPU (a mesh that cannot form on the cards "
+        "raises: pass --device cpu for a gloo mesh of CPU processes)",
+    )
+    p.add_argument(
         "--quantize", action="store_true",
         help="int8 weight-only quantization (halves the decode step's weight "
         "bytes); the KV cache quantizes whenever the attention kernels run, "
@@ -74,6 +95,22 @@ def build_parser() -> argparse.ArgumentParser:
         help="W8A8 prefill: int8-quantize activations (per-token absmax) into "
         "the int8-weight prefill matmuls. LOSSY (activation rounding); A/B "
         "against --quantize alone for quality runs. Requires --quantize",
+    )
+    p.add_argument(
+        "--quantize-kv-long", action="store_true",
+        help="int8-quantize the long-context prefill KV cache (halves the "
+        "long decode's cache reads a step). LOSSY: cached K/V round-trip "
+        "through per-(position, head) int8, so logits drift slightly from "
+        "the exact cache and greedy summaries can differ in late tokens; "
+        "quality-gate runs should A/B it",
+    )
+    p.add_argument(
+        "--long-context", action="store_true",
+        help="ring-attention prefill + seq-sharded decode: prompts run "
+        "untruncated up to seq ranks x the one-card limit (requires "
+        "--backend torch and --mesh with seq>1); pair with --approach "
+        "truncated --max-context <long limit> for one-shot whole-document "
+        "summaries",
     )
     p.add_argument(
         "--weights-dir", default=None,
@@ -101,7 +138,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--max-context", type=int, default=None,
         help="truncated and skeleton: context budget in tokens (ref default "
-        "16384); hierarchical clamps its chunks to 75%% of it",
+        "16384); hierarchical clamps its chunks to 75%% of it; with "
+        "--long-context it may exceed the one-card limit",
     )
     p.add_argument(
         "--prefill-chunk-tokens", type=int, default=0,
@@ -148,6 +186,10 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         max_samples=args.max_samples,
         batch_size=args.batch_size,
         tokenizer=args.tokenizer,
+        mesh_shape=parse_mesh_spec(args.mesh),
+        allow_cpu_mesh=args.allow_cpu_mesh,
+        long_context=args.long_context,
+        long_context_quantize_kv=args.quantize_kv_long,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
         tree_json_path=args.tree_json,
         max_depth=args.max_depth,

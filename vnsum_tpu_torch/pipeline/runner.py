@@ -22,6 +22,30 @@ Failure containment differs from the JAX package in one way: device errors
 (``RuntimeError``) are never retried (core/faults.py), and
 :func:`PipelineRunner.run` reports every failed document and model in
 ``failures`` so the CLI can exit non-zero.
+
+With ``mesh_shape`` set the run is SPMD: one process a card (torchrun, or
+ranks that formed a process group before building the runner), each
+running this same runner. The runner joins the group
+(``parallel.init_distributed``), builds the mesh (``parallel.make_mesh``)
+and gives it to ``TorchBackend(mesh=)`` or, with ``long_context``, to
+``TorchLongContextBackend(mesh=)``. The JAX runner needs no rank gate: it
+is one controller driving every device. Its SPMD counterpart here keeps
+the ranks in step and the files single:
+
+- rank 0 builds the list of pending documents (the resume-by-file scan)
+  and broadcasts it, and every rank runs exactly that list, since every
+  ``generate`` call is collective;
+- only rank 0 writes the summaries, the results JSON and the log file,
+  and only rank 0 runs the evaluation; the other ranks write nothing;
+- a batch's outcome is agreed on by all ranks (an all-reduce after each
+  attempt): a batch that failed on one rank fails on every rank, and is
+  retried on every rank or on none;
+- all ranks meet at a barrier before :meth:`PipelineRunner.run` returns.
+
+``allow_cpu_mesh`` is recorded and never acted on, unlike the JAX
+runner's, which rebuilds an oversized mesh on host CPU devices: a cuda run
+whose mesh cannot form raises, naming ``--device cpu``, the way to ask for
+a gloo mesh of CPU processes.
 """
 from __future__ import annotations
 
@@ -32,6 +56,7 @@ import traceback
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..backend.base import Backend, get_backend
 from ..backend.engine import TorchBackend, resolve_device
@@ -44,6 +69,7 @@ from ..data import DocumentDataset, analyze_documents
 from ..eval import EmbeddingModel, LLMJudge, SemanticEvaluator
 from ..models import MODEL_REGISTRY
 from ..models.convert import load_hf_checkpoint
+from ..parallel import barrier, init_distributed, is_primary, make_mesh
 from ..strategies import get_strategy
 from ..text import DocumentTree, clean_thinking_tokens
 
@@ -72,6 +98,16 @@ def torch_model_args(model: str, weights_dir: str | None, tokenizer: str, dtype:
     return {"model_config": MODEL_REGISTRY[model](), "tokenizer": tokenizer}
 
 
+class RankBatchFailure(Exception):
+    """A document batch that failed on at least one rank of the mesh, as
+    every rank raises it: ``retryable`` is the decision all ranks take
+    together (a retry only where every failing rank's error allows one)."""
+
+    def __init__(self, message: str, retryable: bool) -> None:
+        super().__init__(message)
+        self.retryable = retryable
+
+
 class PipelineRunner:
     def __init__(
         self,
@@ -83,7 +119,13 @@ class PipelineRunner:
     ) -> None:
         self.config = config
         # a run asked to use the card raises here when none is visible
-        self.device = resolve_device(device)
+        self.device = self._mesh_step(config, device, lambda: resolve_device(device))
+        # this rank's view of the mesh (mesh_shape), formed with the group
+        self.mesh = None
+        if config.mesh_shape and config.backend == "torch":
+            self.mesh = self._mesh_step(config, device, self._form_mesh)
+        # rank 0 of a mesh, or the one process of a run without one
+        self.primary = self.mesh is None or is_primary()
         self.backend_factory = backend_factory or self._default_backend_factory
         # built on first use, then reused across the models of the run
         self.embedding_model = embedding_model
@@ -93,11 +135,60 @@ class PipelineRunner:
         self.results = PipelineResults(config=config.to_dict())
         self.tracer = Tracer()
         self.failures: list[str] = []
-        self.log_path = setup_run_logging(config.logs_dir)
-        logger.info("pipeline configured: approach=%s backend=%s models=%s device=%s",
-                    config.approach, config.backend, config.models, self.device)
+        # rank 0 alone writes the run's log file
+        self.log_path = setup_run_logging(config.logs_dir) if self.primary else None
+        logger.info("pipeline configured: approach=%s backend=%s models=%s device=%s mesh=%s",
+                    config.approach, config.backend, config.models, self.device,
+                    None if self.mesh is None else self.mesh.shape)
         if clean_thinking_tokens("<think>x</think>ok") != "ok":
             raise RuntimeError("thinking-token cleaner self-check failed")
+
+    # -- mesh --------------------------------------------------------------
+
+    @staticmethod
+    def _mesh_step(config: PipelineConfig, device, step):
+        """``step()``; under a mesh on the card, a failure names the way to
+        a CPU mesh: a cuda run never moves to the CPU, whatever
+        ``allow_cpu_mesh`` says."""
+        try:
+            return step()
+        except (RuntimeError, ValueError) as e:
+            if not config.mesh_shape or torch.device(device).type != "cuda":
+                raise
+            raise RuntimeError(
+                f"mesh {config.mesh_shape} cannot form: {e}. A cuda run never moves to "
+                "the CPU (allow_cpu_mesh is recorded, not acted on); pass --device cpu "
+                "for a gloo mesh of CPU processes"
+            ) from e
+
+    def _form_mesh(self):
+        """Join the process group (or accept one formed before the runner)
+        and build this rank's view of ``mesh_shape`` over it; a mesh that
+        does not cover the ranks raises."""
+        init_distributed(device=self.device)
+        return make_mesh(dict(self.config.mesh_shape), device=self.device)
+
+    def _world(self) -> int:
+        """Ranks of the run: the mesh covers every rank of the group."""
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _broadcast(self, obj):
+        """Rank 0's ``obj`` on every rank of the run (one rank: itself)."""
+        if self._world() == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _agree(self, err: Exception | None):
+        """(failed on some rank, every failing rank's error retryable): the
+        batch outcome all ranks share, from one max all-reduce over the
+        ranks of the mesh."""
+        flags = torch.tensor([err is not None, err is not None and not is_retryable(err)],
+                             dtype=torch.int32, device=self.device)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+        failed, permanent = (bool(x) for x in flags.tolist())
+        return failed, failed and not permanent
 
     # -- backend -----------------------------------------------------------
 
@@ -110,6 +201,25 @@ class PipelineRunner:
             )
         if cfg.backend == "fake":
             return get_backend("fake")
+        if cfg.backend == "torch" and cfg.long_context:
+            from ..backend.long_context import TorchLongContextBackend
+
+            return TorchLongContextBackend(
+                **self._resolve_model(model),
+                mesh=self.mesh,
+                batch_size=cfg.batch_size,
+                max_new_tokens=cfg.max_new_tokens,
+                # the truncated strategy cuts the document to max_context -
+                # max_new and then wraps it in a prompt template; the
+                # headroom keeps the closing instruction of a cap-length
+                # prompt
+                max_total_tokens=cfg.max_context + 1024 if cfg.approach == "truncated" else None,
+                quantize=cfg.quantize,
+                # quantize alone promises exact weight-only quantization; the
+                # lossy int8 prefill cache has its own opt-in
+                quantize_kv=cfg.long_context_quantize_kv,
+                device=self.device,
+            )
         if cfg.backend == "torch":
             return TorchBackend(
                 **self._resolve_model(model),
@@ -118,6 +228,7 @@ class PipelineRunner:
                 prefill_chunk_tokens=cfg.prefill_chunk_tokens,
                 quantize=cfg.quantize,
                 quantize_act=cfg.quantize_act,
+                mesh=self.mesh,
                 device=self.device,
             )
         raise ValueError(f"unknown backend {cfg.backend!r}")
@@ -170,7 +281,8 @@ class PipelineRunner:
 
         ds = DocumentDataset(cfg.docs_dir, cfg.summary_dir)
         out_dir = self._output_dir(model)
-        out_dir.mkdir(parents=True, exist_ok=True)
+        if self.primary:
+            out_dir.mkdir(parents=True, exist_ok=True)
 
         tree = None
         if cfg.approach == "mapreduce_hierarchical":
@@ -184,14 +296,17 @@ class PipelineRunner:
                 )
 
         pending: list[str] = []
-        for name in ds.filenames(cfg.max_samples):
-            if (out_dir / name).is_file():  # resume-by-file (ref :422-431)
-                logger.info("  %s: already exists, skipping", name)
-                continue
-            if cfg.summary_dir and not ds.has_reference(name):
-                logger.warning("  %s: no reference summary, skipping", name)
-                continue
-            pending.append(name)
+        if self.primary:
+            for name in ds.filenames(cfg.max_samples):
+                if (out_dir / name).is_file():  # resume-by-file (ref :422-431)
+                    logger.info("  %s: already exists, skipping", name)
+                    continue
+                if cfg.summary_dir and not ds.has_reference(name):
+                    logger.warning("  %s: no reference summary, skipping", name)
+                    continue
+                pending.append(name)
+        # every generate call is collective: every rank runs rank 0's list
+        pending = self._broadcast(pending)
         logger.info("model %s: %d docs pending", model, len(pending))
 
         group_size = cfg.doc_group_size or 4 * max(cfg.batch_size, 1)
@@ -200,7 +315,8 @@ class PipelineRunner:
             batch_t0 = time.time()
             # profiler windows stay short: the first group only. The cms are
             # built inside run_batch, so a retry gets fresh ones
-            make_profile_cm = device_profile if start == 0 else contextlib.nullcontext
+            make_profile_cm = (device_profile if start == 0 and self.primary
+                               else contextlib.nullcontext)
 
             def run_batch():
                 with self.tracer.span("batch"), make_profile_cm():
@@ -221,12 +337,28 @@ class PipelineRunner:
                             [ds.read_doc(n) for n in fallback]))
                     return results
 
+            def agreed_batch(run_batch=run_batch):
+                """run_batch, its outcome shared by every rank: a failure on
+                one rank raises RankBatchFailure on all of them."""
+                err = None
+                try:
+                    results = run_batch()
+                except Exception as e:
+                    err = e
+                failed, retryable = self._agree(err)
+                if not failed:
+                    return results
+                raise RankBatchFailure(
+                    f"{type(err).__name__}: {err}" if err is not None
+                    else "failed on another rank of the mesh", retryable) from err
+
             try:
                 results = call_with_retries(
-                    run_batch,
+                    run_batch if self._world() == 1 else agreed_batch,
                     max_retries=cfg.max_batch_retries,
                     backoff=cfg.retry_backoff,
-                    should_retry=is_retryable,
+                    should_retry=(is_retryable if self._world() == 1
+                                  else lambda e: getattr(e, "retryable", False)),
                     what=f"batch of {len(group)} docs",
                 )
             except Exception as e:
@@ -248,7 +380,8 @@ class PipelineRunner:
             per_doc_time = batch_time / max(len(results), 1)
             for name, res in results:
                 summary = clean_thinking_tokens(res.summary)  # ref :560-561
-                (out_dir / name).write_text(summary, encoding="utf-8")
+                if self.primary:
+                    (out_dir / name).write_text(summary, encoding="utf-8")
                 record.total_documents += 1
                 record.successful += 1
                 record.total_chunks += res.num_chunks
@@ -368,6 +501,8 @@ class PipelineRunner:
                 ))
                 self.failures.append(f"{model}: summarization failed: {e}")
                 continue
+            if not self.primary:
+                continue
             try:
                 with self.tracer.span("evaluate"):
                     self.run_evaluation_for_model(model)
@@ -376,20 +511,23 @@ class PipelineRunner:
                 self.results.add_evaluation(model, {"status": "failed", "error": str(e)})
                 self.failures.append(f"{model}: evaluation failed: {e}")
         self.results.tracing = self.tracer.to_dict()
-        path = self.results.save(self.config.results_dir)
-        logger.info("results saved to %s", path)
+        if self.primary:
+            path = self.results.save(self.config.results_dir)
+            logger.info("results saved to %s", path)
         # with device profiling armed (VNSUM_PROFILE_DIR), the host span
         # timeline goes into the same directory as a Chrome trace, so the
         # pipeline's wall-clock phases open in Perfetto next to the
         # torch.profiler trace
         profile_dir = os.environ.get("VNSUM_PROFILE_DIR")
-        if profile_dir:
+        if profile_dir and self.primary:
             from ..obs.export import save_timestamped_trace
 
             tp = save_timestamped_trace(self.tracer.chrome_trace("pipeline"), profile_dir,
                                         "pipeline")
             logger.info("host span timeline saved to %s", tp)
         self.report()
+        if self._world() > 1:
+            barrier()
         return self.results
 
     def report(self) -> str:
