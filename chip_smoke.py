@@ -270,9 +270,10 @@ Phases, each raising on failure (so any failure exits non-zero):
    constrained=True)) over data/vi_eval: 7/7 successful, 0 failed, finite
    means, its summaries the pipeline phase's and its judge prompts (a)'s,
    launches exact. (c) the CLI with --judge-backend torch:llama3.2-3b (a
-   second random 3B model, free decode of up to 256 new tokens, captured):
-   7 cases processed, K1 and K2 launches exactly 28 x the two engines'
-   prefill forwards and decode steps, summaries the pipeline phase's.
+   second random 3B model at full width and JUDGE_CLI_LAYERS = 4 of its 28
+   layers, free decode of up to 256 new tokens, captured): 7 cases
+   processed, K1 and K2 launches exactly each engine's depth x its prefill
+   forwards and decode steps, summaries the pipeline phase's.
    ``[judge]`` lines log the score_choices wall a call and a prompt token,
    the prefill seconds, the wall a judged file, the peak device memory with
    the second model and the margin counts;
@@ -473,7 +474,8 @@ Phases, each raising on failure (so any failure exits non-zero):
    prefill's and the first MESH_GATE_STEPS decode steps' logits within
    MESH_TP_RTOL of the unsharded engine's and a fault planted in rank 1's
    own process (its all-reduce of layer 1's w_down partial left out) past
-   it; greedy agreement logged, not gated;
+   it; greedy agreement logged, not gated; the ranks then build phase 9i
+   (c)'s trainers while 9h runs and train at 9i's "go";
 9h. long mesh (ROADMAP A10b): the pipeline CLI's whole-document launch,
    ``--approach truncated --long-context --mesh seq=2 --max-context
    24576 --max-new-tokens 32 --batch-size 2 --device cuda``, in two
@@ -493,6 +495,26 @@ Phases, each raising on failure (so any failure exits non-zero):
    audit hook); (v) each rank's K2p launches exactly 4 x its decode steps
    (256 over both at 32 steps), no other kernel. Greedy agreement, each
    rank's prefill and decode seconds and peak memory logged;
+9i. train (ROADMAP A12a): the probe of whether ``aten::mm.dtype`` has a
+   derivative (logged); (a) one card, Llama-3.2-3B at full width and
+   TRAIN_LAYERS = 4 of its 28 layers, bf16, a Trainer over a one-rank mesh
+   with remat, a B=2 S=1024 batch from a seeded generator: (i)
+   forward_train's logits within TRAIN_LOGITS_RTOL (0.1 of the largest
+   logit) of the cached forward's through K1 on the same tokens; (ii)
+   every leaf's bf16 gradient within TRAIN_GRAD_RTOL (relative L2) of an
+   f32 copy's, the worst leaf logged; (iii) TRAIN_STEPS = 8 steps at lr
+   1e-4, finite, the last loss below the first; (iv) a TrainCheckpointer
+   save after step 2, restored into a trainer of another seed: every
+   parameter and moment bit-equal, its next loss the saved trainer's bit
+   for bit; the steps launch no kernel (every counter exactly 0). (c) the
+   model = 2 step of phase 9g (c)'s two ranks on the same weights and
+   batch: the gathered gradients of wq, w_down, embed and attn_norm and
+   the loss within TRAIN_GRAD_RTOL of (a)'s one-rank ones, the two ranks'
+   losses equal, no kernel launched (the ranks train while (a) runs
+   here), and a fault planted in rank 1 (its
+   f, ``copy_to_group``, skips its backward all-reduce) past the limit on
+   wq and attn_norm. (b), not gated: the full 28 layers, 3 steps at B=2
+   S=2048, step seconds, tokens/s and peak memory logged;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -3945,6 +3967,17 @@ CHOICE_DIGITS = ["1", "2", "3", "4", "5"]
 # among the five exceeds the limit: inside it, bf16 near-ties decide, and
 # such picks are counted and logged.
 JUDGE_LOGITS_RTOL = 0.1
+# (c)'s judge model, a second random Llama-3.2-3B at full width whose free
+# decode shows the CLI's plumbing only (its verdicts rarely parse): cut to
+# JUDGE_CLI_LAYERS of its 28 layers to pay for phase 9i, its summarizer at
+# full depth (its summaries must equal the pipeline phase's)
+JUDGE_CLI_LAYERS = 4
+
+
+def judge_cli_cut():
+    from vnsum_tpu_torch.models import llama32_3b
+
+    return llama32_3b(n_layers=JUDGE_CLI_LAYERS)
 
 
 def judge_prompts(summaries: dict) -> list:
@@ -4135,8 +4168,9 @@ def phase_judge(torch, plain_summaries: dict) -> dict:
     int8 cache, batch 8): (a) score_choices on the 14 judge prompts, bf16
     and on the model's int8 copy (choices_path); (b) the constrained judge
     end to end through PipelineRunner over data/vi_eval; (c) the CLI's own
-    judge, --judge-backend torch:llama3.2-3b, free decode of up to 256 new
-    tokens (LLMJudge's budget), captured. Returns the launches of (a)-(c)."""
+    judge, --judge-backend torch:llama3.2-3b (at JUDGE_CLI_LAYERS layers),
+    free decode of up to 256 new tokens (LLMJudge's budget), captured.
+    Returns the launches of (a)-(c)."""
     import gc
 
     from vnsum_tpu_torch.backend.engine import TorchBackend
@@ -4262,7 +4296,8 @@ def phase_judge(torch, plain_summaries: dict) -> dict:
         reset_launches()
         t0 = time.perf_counter()
         try:
-            rc = cli.main(cli_args(Path(tmp) / "c") + ["--judge-backend", "torch:llama3.2-3b"])
+            with registry_depth(judge_cli_cut, "llama3.2-3b"):
+                rc = cli.main(cli_args(Path(tmp) / "c") + ["--judge-backend", "torch:llama3.2-3b"])
         finally:
             runner_mod.get_backend = get_backend
         wall = time.perf_counter() - t0
@@ -4278,8 +4313,10 @@ def phase_judge(torch, plain_summaries: dict) -> dict:
         (jst,) = [b.stats for b in made]
         jdict = jst.to_dict()
         check_captured("CLI judge", jdict)
-        need = {"prefill": n_layers * (summarizer["prefill_forwards"] + jst.prefill_forwards),
-                "decode": n_layers * (summarizer["decode_steps"] + jst.decode_steps),
+        need = {"prefill": n_layers * summarizer["prefill_forwards"]
+                + JUDGE_CLI_LAYERS * jst.prefill_forwards,
+                "decode": n_layers * summarizer["decode_steps"]
+                + JUDGE_CLI_LAYERS * jst.decode_steps,
                 "verify": 0, "partials": 0, "gemv": 0}
         steps = {b: n / jst.by_bucket[b] for b, n in jst.steps_by_bucket.items()}
         if (launches != need or made[0].max_new_tokens != 64
@@ -4298,7 +4335,7 @@ def phase_judge(torch, plain_summaries: dict) -> dict:
             total[k] += launches[k]
     log(f"[launches] CLI judge run: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + " (each exactly as the two engine records imply)")
-    log(f"[judge] CLI judge (c) --judge-backend torch:llama3.2-3b: "
+    log(f"[judge] CLI judge (c) --judge-backend torch:llama3.2-3b at {JUDGE_CLI_LAYERS} layers: "
         f"{scores['llm_successful_cases']} successful, {scores['llm_failed_cases']} failed of "
         f"{len(docs)}; judge generate calls {jst.calls}, batches {jdict['by_bucket']}, decode "
         f"steps {jst.decode_steps} ({jst.graph_captures} captures, {jst.captured_steps} "
@@ -7693,8 +7730,10 @@ def mesh_rank(rank: int, init_file: str, out_dir: str) -> None:
     the engine on Llama-3.2-3B at MESH_TP_LAYERS layers (the whole model
     from seed 0, sharded by the engine): generate on the map batch with
     its sampler's logits recorded, launches read; then rank 1's planted
-    fault and the generate again. Saves what it saw; a failure is saved as
-    its traceback."""
+    fault and the generate again. Publishes what it saw (rank{r}.pt; a
+    failure as its traceback), then runs phase 9i (c)'s training step
+    (train_rank), which waits for phase 9i's "go" file, and publishes that
+    (train{r}.pt)."""
     import datetime
     import traceback
 
@@ -7706,47 +7745,72 @@ def mesh_rank(rank: int, init_file: str, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=2, rank=rank,
                             timeout=datetime.timedelta(seconds=MESH_TP_JOIN_S - 60))
     try:
-        from vnsum_tpu_torch.backend import capture
-        from vnsum_tpu_torch.backend.engine import TorchBackend
-        from vnsum_tpu_torch.models import llama32_3b
-        from vnsum_tpu_torch.models.llama import init_model
-        from vnsum_tpu_torch.parallel import init_distributed, make_mesh
-
-        probe = torch.full((8,), float(rank + 1), dtype=torch.bfloat16, device="cuda")
-        dist.all_reduce(probe)
-        out["probe"] = probe.float().tolist()
-        out["accepted"] = init_distributed(device="cuda")
-        mesh = make_mesh({"model": 2})
-        out["coords"], out["capturable"] = dict(mesh.coords), mesh.captures_collectives()
-        engine = TorchBackend(model=init_model(llama32_3b(n_layers=MESH_TP_LAYERS), 0, "cuda"),
-                              mesh=mesh, batch_size=8, max_new_tokens=MESH_TP_NEW,
-                              cuda_graphs=False, device="cuda")
-        out["local_heads"] = (tuple(engine.model.layers["wq"].shape),
-                              tuple(engine.model.layers["wk"].shape))
-        prompts, _ = map_batch_chunks(engine)
-        reset_launches()
-        reset_calls()
-        t0 = time.perf_counter()
-        with sampled_logits(MESH_GATE_STEPS + 1) as seen, recorded_rows() as rows:
-            out["texts"] = engine.generate(prompts)
-        out["wall"] = time.perf_counter() - t0
-        st = engine.stats
-        out.update(launches=read_launches(), calls=capture.read_calls(), rows=rows,
-                   logits=seen, forwards=st.prefill_forwards, steps=st.decode_steps,
-                   prefill_s=st.phase_seconds.get("prefill", 0.0),
-                   decode_s=st.phase_seconds.get("decode", 0.0))
-        # the planted fault: rank 1 leaves out layer 1's w_down all-reduce
-        if rank == 1:
-            engine.model.tp = SkipOneAllReduce(engine.model.tp, MESH_FAULT_CALL,
-                                               2 * MESH_TP_LAYERS + 2)
-        with sampled_logits(1) as seen:
-            engine.generate(prompts)
-        out["fault_logits"] = seen
-    except Exception:
-        out["error"] = traceback.format_exc()
+        try:
+            out, mesh = mesh_rank_generate(torch, rank)
+        except Exception:
+            out["error"] = traceback.format_exc()
+        publish(torch, out, Path(out_dir) / f"rank{rank}.pt")
+        if "error" not in out:
+            try:
+                train = train_rank(torch, rank, mesh, Path(out_dir) / "go")
+            except Exception:
+                train = {"error": traceback.format_exc()}
+            publish(torch, train, Path(out_dir) / f"train{rank}.pt")
     finally:
-        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
+
+
+def publish(torch, obj, path: Path) -> None:
+    """torch.save ``obj`` to ``path`` whole: written beside it, then renamed."""
+    tmp = path.with_suffix(".part")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def mesh_rank_generate(torch, rank: int) -> tuple[dict, object]:
+    """mesh_rank's inference gates: (what it saw, its mesh)."""
+    import torch.distributed as dist
+
+    from vnsum_tpu_torch.backend import capture
+    from vnsum_tpu_torch.backend.engine import TorchBackend
+    from vnsum_tpu_torch.models import llama32_3b
+    from vnsum_tpu_torch.models.llama import init_model
+    from vnsum_tpu_torch.parallel import init_distributed, make_mesh
+
+    out: dict = {}
+    probe = torch.full((8,), float(rank + 1), dtype=torch.bfloat16, device="cuda")
+    dist.all_reduce(probe)
+    out["probe"] = probe.float().tolist()
+    out["accepted"] = init_distributed(device="cuda")
+    mesh = make_mesh({"model": 2})
+    out["coords"], out["capturable"] = dict(mesh.coords), mesh.captures_collectives()
+    engine = TorchBackend(model=init_model(llama32_3b(n_layers=MESH_TP_LAYERS), 0, "cuda"),
+                          mesh=mesh, batch_size=8, max_new_tokens=MESH_TP_NEW,
+                          cuda_graphs=False, device="cuda")
+    out["local_heads"] = (tuple(engine.model.layers["wq"].shape),
+                          tuple(engine.model.layers["wk"].shape))
+    prompts, _ = map_batch_chunks(engine)
+    reset_launches()
+    reset_calls()
+    t0 = time.perf_counter()
+    with sampled_logits(MESH_GATE_STEPS + 1) as seen, recorded_rows() as rows:
+        out["texts"] = engine.generate(prompts)
+    out["wall"] = time.perf_counter() - t0
+    st = engine.stats
+    out.update(launches=read_launches(), calls=capture.read_calls(), rows=rows,
+               logits=seen, forwards=st.prefill_forwards, steps=st.decode_steps,
+               prefill_s=st.phase_seconds.get("prefill", 0.0),
+               decode_s=st.phase_seconds.get("decode", 0.0))
+    # the planted fault: rank 1 leaves out layer 1's w_down all-reduce
+    if rank == 1:
+        engine.model.tp = SkipOneAllReduce(engine.model.tp, MESH_FAULT_CALL,
+                                           2 * MESH_TP_LAYERS + 2)
+    with sampled_logits(1) as seen:  # the prefill's logits: one new token does
+        engine.generate(prompts, max_new_tokens=1)
+    out["fault_logits"] = seen
+    del engine
+    torch.cuda.empty_cache()
+    return out, mesh
 
 
 def logits_measure(torch, tp: list, one: list, n_rows: int) -> list:
@@ -7763,13 +7827,30 @@ def logits_measure(torch, tp: list, one: list, n_rows: int) -> list:
     return out
 
 
+def collect(torch, procs: list, paths: list, deadline: float, what: str) -> list:
+    """What each rank published at ``paths`` (its process still running or
+    done), once every file is there; raises when a rank exits without its
+    file or ``deadline`` (perf_counter) passes."""
+    while not all(p.is_file() for p in paths):
+        gone = [r for r, (proc, path) in enumerate(zip(procs, paths))
+                if not proc.is_alive() and not path.is_file()]
+        if gone:
+            raise AssertionError(f"{what}: ranks {gone} exited without saving "
+                                 f"(exit {[procs[r].exitcode for r in gone]})")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what}: ranks did not save in time")
+        time.sleep(0.05)
+    return [torch.load(p, weights_only=False) for p in paths]
+
+
 def mesh_two_ranks(torch, procs: list, tmp: str, t0: float) -> dict:
     """(c): the two ranks (mesh_rank), spawned on the one card at the
-    phase's start (``procs``, saving into ``tmp``), while this process
+    phase's start (``procs``, publishing into ``tmp``), while this process
     runs the unsharded engine on the same weights and prompts; then the
     probe, each rank's launches (exact), the gate and its planted fault,
     and greedy agreement (not gated: random weights give near-ties).
-    Returns each kernel's launches, summed over the ranks."""
+    The ranks go on to phase 9i's training step. Returns each kernel's
+    launches, summed over the ranks."""
     from vnsum_tpu_torch.backend.engine import TorchBackend
     from vnsum_tpu_torch.models import llama32_3b
     from vnsum_tpu_torch.models.llama import init_model
@@ -7782,18 +7863,9 @@ def mesh_two_ranks(torch, procs: list, tmp: str, t0: float) -> dict:
         want_texts = one.generate(prompts)
     del one
     torch.cuda.empty_cache()
-    for p in procs:
-        p.join(max(MESH_TP_JOIN_S - (time.perf_counter() - t0), 1.0))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    if hung:
-        raise AssertionError(f"mesh (c): ranks {hung} did not finish within {MESH_TP_JOIN_S} s")
+    ranks = collect(torch, procs, [Path(tmp) / f"rank{r}.pt" for r in range(2)],
+                    t0 + MESH_TP_JOIN_S, "mesh (c)")
     wall = time.perf_counter() - t0
-    ranks = []
-    for r in range(2):
-        path = Path(tmp) / f"rank{r}.pt"
-        if not path.is_file():
-            raise AssertionError(f"mesh (c): rank {r} saved nothing (exit {procs[r].exitcode})")
-        ranks.append(torch.load(path, weights_only=False))
     for r, res in enumerate(ranks):
         if "error" in res:
             raise AssertionError(f"mesh (c) rank {r}:\n{res['error']}")
@@ -7844,34 +7916,33 @@ def mesh_two_ranks(torch, procs: list, tmp: str, t0: float) -> dict:
     return total
 
 
-def phase_mesh(torch, model, oneshot: list) -> tuple[dict, dict]:
+def phase_mesh(torch, model, oneshot: list) -> tuple[dict, dict, dict]:
     """Phase 9g: (c)'s two ranks spawned first, so that they start up while
     (a) runs on ``model`` (mesh_one_by_one); then the rest of (c)
-    (mesh_two_ranks). Stops both ranks whatever happens. Returns ((a)'s
-    launches, (c)'s)."""
+    (mesh_two_ranks). Returns ((a)'s launches, (c)'s, the ranks: still
+    running, they build their trainers while phase 9h runs and train at
+    phase 9i's "go"; stop_ranks stops them). Stops them if it fails."""
     import multiprocessing
 
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="vnsum_mesh_")
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank, args=(r, str(Path(tmp) / "rendezvous"), tmp))
-             for r in range(2)]
+    started = {"root": Path(tmp), "t0": t0, "procs": [
+        ctx.Process(target=mesh_rank, args=(r, str(Path(tmp) / "rendezvous"), tmp), daemon=True)
+        for r in range(2)]}
     try:
-        for p in procs:
+        for p in started["procs"]:
             p.start()
         a = mesh_one_by_one(torch, model, oneshot)
         ta = time.perf_counter() - t0
-        c = mesh_two_ranks(torch, procs, tmp, t0)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-        shutil.rmtree(tmp, ignore_errors=True)
+        c = mesh_two_ranks(torch, started["procs"], tmp, t0)
+    except BaseException:
+        stop_ranks(started)
+        raise
     log(f"[mesh] arms: (a) {ta:.1f}s, then (c) {time.perf_counter() - t0 - ta:.1f}s (its ranks "
         "started with (a))")
     log("[launches] mesh (a): " + ", ".join(f"{k} {v}" for k, v in a.items()))
-    return a, c
+    return a, c, started
 
 
 # -- phase 9h -----------------------------------------------------------------
@@ -8061,7 +8132,8 @@ def start_long_mesh() -> dict:
     return {"root": root, "procs": procs, "t0": time.perf_counter()}
 
 
-def stop_long_mesh(started: dict) -> None:
+def stop_ranks(started: dict) -> None:
+    """Stops a phase's rank processes and removes their shared root."""
     for p in started["procs"]:
         if p.is_alive():
             p.kill()
@@ -8201,7 +8273,360 @@ def phase_long_mesh(torch, started: dict) -> dict:
         log("[launches] long mesh, both ranks: " + ", ".join(f"{k} {v}" for k, v in total.items()))
         return total
     finally:
-        stop_long_mesh(started)
+        stop_ranks(started)
+
+
+# -- phase 9i -----------------------------------------------------------------
+
+# phase 9i (ROADMAP A12a): training on the card. (a) one card, Llama-3.2-3B
+# at full width and TRAIN_LAYERS of its 28 layers, bf16, remat on, a
+# TRAIN_BATCH batch drawn from a seeded numpy generator; (b) the full 28
+# layers, not gated; (c) phase 9g (c)'s two ranks' model = 2 step on the
+# same weights and batch, compared here with (a)'s one-rank gradients.
+TRAIN_LAYERS = MESH_TP_LAYERS  # (c)'s ranks' depth: (a)'s gradients are (c)'s reference
+TRAIN_BATCH = (2, 1024)
+TRAIN_SEED = 29
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 8
+TRAIN_SAVE_AT = 2
+# (a)(i): forward_train's logits against the cached forward through K1 on
+# the same tokens, as max |train - K1| over the largest |K1| logit, the
+# measure and limit of 9g and 9h: the same bf16 weights, attention dense
+# (p rounded to bf16 against the row's max) against K1's tiles
+TRAIN_LOGITS_RTOL = 0.1
+# (a)(ii) and (c): a gradient against its reference as ||g - ref|| / ||ref||
+# (relative L2). (ii) holds the bf16 model's every leaf to an f32 copy's
+# (bf16 rounding of each activation and product, ~2^-9 relative, summed
+# over 4 layers); (c) the model = 2 ranks' to (a)'s one-rank bf16 ones
+# (partial products rounded to bf16 before each sum)
+TRAIN_GRAD_RTOL = 0.1
+# (c)'s leaves: a head-sharded and a hidden-sharded weight, the
+# vocab-sharded embedding (tied: the head's gradient too), a replicated norm
+TRAIN_TP_LEAVES = ("layers/wq", "layers/w_down", "embed", "layers/attn_norm")
+# the planted fault (rank 1's f skips its backward all-reduce) must exceed
+# TRAIN_GRAD_RTOL on these
+TRAIN_FAULT_LEAVES = ("layers/wq", "layers/attn_norm")
+# (b): the full depth, B x S, steps
+TRAIN_FULL_BATCH = (2, 2048)
+TRAIN_FULL_STEPS = 3
+# (c): how long 9g (c)'s ranks wait for phase 9i's "go" (phase 9h runs
+# meanwhile), and how long 9i waits for their step after it
+TRAIN_GO_S = 600.0
+TRAIN_RANKS_S = 240.0
+
+
+def train_batch(shape=TRAIN_BATCH):
+    """Token ids [B, S] over Llama-3's vocabulary from a seeded generator."""
+    import numpy as np
+
+    return np.random.default_rng(TRAIN_SEED).integers(0, 128_256, size=shape, dtype=np.int32)
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def mm_dtype_derivative(torch) -> str:
+    """Whether ``aten::mm.dtype`` (``torch.mm(..., out_dtype=)``, the bf16
+    head's product) has a derivative in this torch, on the card."""
+    x = torch.randn(8, 8, dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    try:
+        torch.mm(x, x.detach(), out_dtype=torch.float32).sum().backward()
+    except (RuntimeError, NotImplementedError) as e:
+        return f"absent ({type(e).__name__}: {str(e).splitlines()[0][:160]})"
+    return "present"
+
+
+def train_rank(torch, rank: int, mesh, go: Path) -> dict:
+    """9i (c) in 9g (c)'s rank ``rank``, after its inference gates: a Trainer
+    over its model = 2 mesh on (a)'s weights (Llama-3.2-3B at
+    MESH_TP_LAYERS from seed 0) and batch, built while phase 9h runs;
+    then, at phase 9i's ``go`` file, one backward with the planted fault
+    (rank 1's f, ``copy_to_group``, skips its backward all-reduce, issued
+    on a copy so that the ranks stay in step), the local gradients of
+    TRAIN_FAULT_LEAVES read, and one Trainer.step, sound, its loss and the
+    local gradients of TRAIN_TP_LEAVES read as they accumulate. The launch
+    counters must stay 0."""
+    from vnsum_tpu_torch.models import llama32_3b
+    from vnsum_tpu_torch.models.llama import init_model
+    from vnsum_tpu_torch.parallel import autograd
+    from vnsum_tpu_torch.train import TrainConfig, Trainer, lm_loss
+
+    cfg = llama32_3b(n_layers=MESH_TP_LAYERS)
+    seconds = {}
+    t0 = time.perf_counter()
+    whole = init_model(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    seconds["init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, mesh, TrainConfig(learning_rate=TRAIN_LR, remat=True), params=whole)
+    del whole
+    torch.cuda.synchronize()
+    seconds["build"] = time.perf_counter() - t0
+    tokens = torch.from_numpy(train_batch()).to("cuda")
+    leaves = {"/".join(path): p for path, p, _ in tr.leaves() if "/".join(path) in TRAIN_TP_LEAVES}
+    t0 = time.perf_counter()
+    while not go.exists():
+        if time.perf_counter() - t0 > TRAIN_GO_S:
+            raise TimeoutError("the parent never started phase 9i")
+        time.sleep(0.05)
+    seconds["waited"] = time.perf_counter() - t0
+    reset_launches()
+    real = autograd._CopyToGroup.backward
+
+    def skipped(ctx, grad):
+        autograd._summed(grad, ctx.group)  # issued and dropped
+        return grad, None
+
+    if rank == 1:
+        autograd._CopyToGroup.backward = staticmethod(skipped)
+    t0 = time.perf_counter()
+    try:
+        lm_loss(tr.model, tokens, torch.ones_like(tokens, dtype=torch.bool), remat=True).backward()
+    finally:
+        autograd._CopyToGroup.backward = staticmethod(real)
+    fault = {k: leaves[k].grad.cpu() for k in TRAIN_FAULT_LEAVES}
+    seconds["fault"] = time.perf_counter() - t0
+    tr.optimizer.zero_grad(set_to_none=True)
+    grads = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, k=k: grads.__setitem__(k, p.grad.cpu())) for k, p in leaves.items()]
+    t0 = time.perf_counter()
+    loss = tr.step(tokens)
+    seconds["step"] = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    return {"loss": loss, "grads": grads, "fault_grads": fault, "launches": read_launches(),
+            "seconds": seconds, "shapes": {k: tuple(p.shape) for k, p in leaves.items()}}
+
+
+def train_one_card(torch, cfg, tokens) -> tuple[dict, float]:
+    """9i (a) on one card. Returns ((a)'s bf16 gradients of TRAIN_TP_LEAVES
+    at the initial weights, the loss there): (c)'s reference."""
+    import dataclasses
+
+    from vnsum_tpu_torch.models.llama import (
+        LlamaModel, forward_train, init_kv_cache, prefill_positions,
+    )
+    from vnsum_tpu_torch.ops.flash_attention import flash_prefill_attention
+    from vnsum_tpu_torch.parallel import make_mesh
+    from vnsum_tpu_torch.train import TrainCheckpointer, TrainConfig, Trainer, lm_loss
+    from vnsum_tpu_torch.train.trainer import model_leaves
+
+    mesh = make_mesh({}, device="cuda")
+    tc = TrainConfig(learning_rate=TRAIN_LR, remat=True)
+    B, S = tokens.shape
+    ones = torch.ones_like(tokens, dtype=torch.bool)
+    t0 = time.perf_counter()
+    a = Trainer(cfg, mesh, tc, seed=0)
+    torch.cuda.synchronize()
+    log(f"[train] (a) Trainer: Llama-3.2-3B at {cfg.n_layers} of 28 layers, bf16, remat, "
+        f"B={B} S={S}, built in {time.perf_counter() - t0:.2f}s")
+
+    # (i) the training forward against the cached forward through K1
+    pads = torch.zeros(B, dtype=torch.int32, device="cuda")
+    reset_launches()
+    with torch.no_grad():
+        cache = init_kv_cache(cfg, B, S, device="cuda")
+        want = a.model(tokens, prefill_positions(pads, S), cache, 0, None,
+                       stacked_attention_fn=lambda q, c, li: flash_prefill_attention(
+                           q, c, li, pads, cfg.q_per_kv, 0, 0))
+        got = forward_train(a.model, tokens)
+    k1 = read_launches()
+    err = float((got - want).abs().max() / want.abs().max())
+    del cache, want, got
+    log(f"[train] (a)(i) forward_train's logits against the cached forward through K1 "
+        f"({k1['prefill']} K1 launches): {err:.3e} of the largest logit; limit "
+        f"{TRAIN_LOGITS_RTOL}")
+    if not err <= TRAIN_LOGITS_RTOL or k1 != dict(dict.fromkeys(COUNTERS, 0),
+                                                   prefill=cfg.n_layers):
+        raise AssertionError(f"train (a)(i): {err:.3e}, launches {k1}")
+
+    # (ii) every leaf's bf16 gradient against an f32 copy's
+    t0 = time.perf_counter()
+    loss16 = lm_loss(a.model, tokens, ones)
+    loss16.backward()
+    g16 = {"/".join(path): p.grad for path, p, _ in a.leaves()}
+    a.optimizer.zero_grad(set_to_none=True)
+    tree = {k: v.float() for k, v in a.params.items() if k != "layers"}
+    tree["layers"] = {k: v.float() for k, v in a.params["layers"].items()}
+    f32 = LlamaModel(dataclasses.replace(cfg, dtype=torch.float32), tree, trainable=True)
+    del tree
+    loss32 = lm_loss(f32, tokens, ones)
+    loss32.backward()
+    errs = {"/".join(path): rel_l2(g16["/".join(path)], p.grad) for path, p in model_leaves(f32)}
+    worst = max(errs, key=errs.get)
+    ref = {k: g16[k] for k in TRAIN_TP_LEAVES}
+    ref_loss = float(loss16.detach())
+    del f32, g16, loss32
+    torch.cuda.empty_cache()
+    log(f"[train] (a)(ii) bf16 gradients against an f32 copy's (relative L2), "
+        f"{time.perf_counter() - t0:.2f}s: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; worst {worst} {errs[worst]:.3e}, limit {TRAIN_GRAD_RTOL}; loss bf16 {ref_loss:.6f}")
+    if not errs[worst] <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train (a)(ii): {worst} {errs[worst]:.3e}")
+
+    # (iii) TRAIN_STEPS steps on the batch, (iv) a save after TRAIN_SAVE_AT
+    reset_launches()
+    losses, walls = [], []
+
+    def step(t):
+        t0 = time.perf_counter()
+        loss = t.step(tokens)
+        walls.append(time.perf_counter() - t0)
+        return loss
+
+    for _ in range(TRAIN_SAVE_AT):
+        losses.append(step(a))
+    root = tempfile.mkdtemp(prefix="vnsum_train_")
+    try:
+        ckpt = TrainCheckpointer(root)
+        t0 = time.perf_counter()
+        ckpt.save(a)
+        saved_s = time.perf_counter() - t0
+        b = Trainer(cfg, mesh, tc, seed=1)
+        differed = not torch.equal(b.params["layers"]["wq"], a.params["layers"]["wq"])
+        t0 = time.perf_counter()
+        ckpt.restore(b)
+        restored_s = time.perf_counter() - t0
+        same = b.step_count == a.step_count and all(
+            torch.equal(p, q) and torch.equal(a.optimizer.state[p]["mu"],
+                                                     b.optimizer.state[q]["mu"])
+            and torch.equal(a.optimizer.state[p]["nu"], b.optimizer.state[q]["nu"])
+            for (_, p, _), (_, q, _) in zip(a.leaves(), b.leaves()))
+        losses.append(step(a))
+        resumed = b.step(tokens)
+        del b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    while len(losses) < TRAIN_STEPS:
+        losses.append(step(a))
+    launches = read_launches()
+    del a
+    torch.cuda.empty_cache()
+    log(f"[train] (a)(iii) {TRAIN_STEPS} steps at lr {TRAIN_LR}: losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; step s " + ", ".join(f"{w:.3f}" for w in walls)
+        + f" ({B * S / statistics.median(walls[1:]):.0f} tokens/s at the median after the first)")
+    log(f"[train] (a)(iv) save after step {TRAIN_SAVE_AT} {saved_s:.2f}s, restore into a "
+        f"seed-1 trainer {restored_s:.2f}s (its weights differed before: {differed}); every "
+        f"parameter and moment bit-equal: {same}; step {TRAIN_SAVE_AT + 1} loss "
+        f"{losses[TRAIN_SAVE_AT]!r} saved, {resumed!r} restored")
+    log("[launches] train (a) steps: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train (a)(iii): losses {losses}")
+    if not (differed and same and resumed == losses[TRAIN_SAVE_AT]):
+        raise AssertionError(f"train (a)(iv): differed {differed}, equal {same}, "
+                             f"losses {losses[TRAIN_SAVE_AT]!r} / {resumed!r}")
+    if any(launches.values()):
+        raise AssertionError(f"train (a): the steps launched kernels: {launches}")
+    return ref, ref_loss
+
+
+def train_two_ranks(torch, ranks: list, ref: dict, ref_loss: float) -> None:
+    """9i (c): phase 9g (c)'s two ranks' model = 2 step against (a)'s
+    one-rank gradients and loss at the same weights: each sharded leaf's
+    gathered shards and each rank's replicated leaf within
+    TRAIN_GRAD_RTOL, the planted fault past it, no kernel launched."""
+    from vnsum_tpu_torch.parallel.sharding import param_specs
+
+    specs = param_specs(True)
+
+    def whole(key: str, field: str, rank: int):
+        """The leaf's gradient on the card: the ranks' shards in order, or
+        rank ``rank``'s replicated one."""
+        path = key.split("/")
+        spec = specs[path[0]] if len(path) == 1 else specs[path[0]][path[1]]
+        if "model" not in spec:
+            return ranks[rank][field][key].to(ref[key].device)
+        return torch.cat([r[field][key] for r in ranks], dim=spec.index("model")).to(ref[key].device)
+
+    sound = {k: max(rel_l2(whole(k, "grads", r), ref[k]) for r in range(2))
+             for k in TRAIN_TP_LEAVES}
+    fault = {k: max(rel_l2(whole(k, "fault_grads", r), ref[k]) for r in range(2))
+             for k in TRAIN_FAULT_LEAVES}
+    loss_err = abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss)
+    log(f"[train] (c) model = 2 over 9g (c)'s gloo ranks against (a) at one rank (relative L2, "
+        "gathered shards): " + ", ".join(f"{k} {v:.3e}" for k, v in sound.items())
+        + f"; loss {ranks[0]['loss']:.6f} against {ref_loss:.6f} ({loss_err:.3e}); the planted "
+        "fault (rank 1's f skips its backward all-reduce): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in fault.items())
+        + f"; limit {TRAIN_GRAD_RTOL}; each rank's seconds "
+        + " / ".join(", ".join(f"{k} {v:.2f}" for k, v in r["seconds"].items()) for r in ranks)
+        + "; local shapes "
+        + ", ".join(f"{k} {v}" for k, v in ranks[0]["shapes"].items()))
+    if ranks[0]["loss"] != ranks[1]["loss"]:
+        raise AssertionError(f"train (c): the ranks' losses differ: {ranks[0]['loss']!r}, "
+                             f"{ranks[1]['loss']!r}")
+    if any(any(r["launches"].values()) for r in ranks):
+        raise AssertionError(f"train (c): the ranks launched kernels: "
+                             f"{[r['launches'] for r in ranks]}")
+    if (max(sound.values()) > TRAIN_GRAD_RTOL or loss_err > TRAIN_GRAD_RTOL
+            or min(fault.values()) <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"train (c): gradients {sound}, loss {loss_err:.3e}, fault {fault}")
+
+
+def train_full_depth(torch) -> None:
+    """9i (b), not gated: Llama-3.2-3B at its 28 layers, TRAIN_FULL_STEPS
+    steps at TRAIN_FULL_BATCH: step seconds, tokens/s, peak memory."""
+    from vnsum_tpu_torch.models import llama32_3b
+    from vnsum_tpu_torch.parallel import make_mesh
+    from vnsum_tpu_torch.train import TrainConfig, Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = Trainer(llama32_3b(), make_mesh({}, device="cuda"),
+                   TrainConfig(learning_rate=TRAIN_LR, remat=True), seed=0)
+    torch.cuda.synchronize()
+    built, built_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    tokens = torch.from_numpy(train_batch(TRAIN_FULL_BATCH)).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(TRAIN_FULL_STEPS):
+        t0 = time.perf_counter()
+        losses.append(full.step(tokens))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    del full
+    torch.cuda.empty_cache()
+    B, S = TRAIN_FULL_BATCH
+    log(f"[train] (b) Llama-3.2-3B, 28 layers, bf16, remat, B={B} S={S}: built in {built:.2f}s "
+        f"(peak {built_peak / 1e9:.2f} GB); step s " + ", ".join(f"{w:.3f}" for w in walls)
+        + "; tokens/s " + ", ".join(f"{B * S / w:.0f}" for w in walls)
+        + f"; peak over the steps {peak / 1e9:.2f} GB; losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + " (not gated)")
+
+
+def phase_train(torch, ranks: dict) -> None:
+    """Phase 9i: the probe of ``aten::mm.dtype``'s derivative; "go" to 9g
+    (c)'s two ranks (phase_mesh's ``ranks``), which train while (a) runs
+    here; then (c), comparing their step with (a)'s, and (b). Stops the
+    ranks whatever happens."""
+    from vnsum_tpu_torch.models import llama32_3b
+
+    try:
+        (ranks["root"] / "go").touch()
+        t0 = time.perf_counter()
+        log(f"[train] aten::mm.dtype derivative on the card: {mm_dtype_derivative(torch)}")
+        tokens = torch.from_numpy(train_batch()).to("cuda")
+        ref, ref_loss = train_one_card(torch, llama32_3b(n_layers=TRAIN_LAYERS), tokens)
+        ta = time.perf_counter() - t0
+        steps = collect(torch, ranks["procs"], [ranks["root"] / f"train{r}.pt" for r in range(2)],
+                        time.perf_counter() + TRAIN_RANKS_S, "train (c)")
+    finally:
+        stop_ranks(ranks)
+    for r, res in enumerate(steps):
+        if "error" in res:
+            raise AssertionError(f"train (c) rank {r}:\n{res['error']}")
+    train_two_ranks(torch, steps, ref, ref_loss)
+    del ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_full_depth(torch)
+    log(f"[train] arms: (a) {ta:.1f}s (beside (c)'s ranks), (b) {time.perf_counter() - t0:.1f}s")
 
 
 # -- phase 10 -----------------------------------------------------------------
@@ -8777,13 +9202,19 @@ def main() -> int:
     long_mesh = start_long_mesh()
     try:
         checks_launches = timed("checks", phase_checks, torch, backend, prompts, oneshot)
-        mesh_launches, mesh_tp_launches = timed("mesh", phase_mesh, torch, backend.model,
-                                                oneshot)
+        mesh_launches, mesh_tp_launches, train_ranks = timed("mesh", phase_mesh, torch,
+                                                             backend.model, oneshot)
     except BaseException:
-        stop_long_mesh(long_mesh)
+        stop_ranks(long_mesh)
         raise
     del backend
-    long_mesh_launches = timed("long mesh", phase_long_mesh, torch, long_mesh)
+    # 9g (c)'s ranks build their trainers while 9h runs, then train in 9i
+    try:
+        long_mesh_launches = timed("long mesh", phase_long_mesh, torch, long_mesh)
+    except BaseException:
+        stop_ranks(train_ranks)
+        raise
+    timed("train", phase_train, torch, train_ranks)
     fixture_launches = timed("fixture", phase_fixture, torch)
     # the fleet's launches are its workers', counted in their processes
     timed("fleet", phase_fleet, torch, serve_ref)

@@ -42,6 +42,11 @@ all-reduce sums over the group:
 
 Every rank of the group ends a forward with bitwise equal activations and
 logits, so they take the same host decisions.
+
+:func:`forward_train` is the training forward (the JAX package's): no
+cache, dense causal attention, each block recomputed in the backward pass,
+and under ``tp`` the same collectives as autograd operators
+(``parallel/autograd.py``). It runs a model built with ``trainable=True``.
 """
 from __future__ import annotations
 
@@ -53,8 +58,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.int8_matmul import int8_head, int8_linear, int8_linear_group
+from ..parallel.autograd import DifferentiableGroup, copy_to_group, reduce_from_group
 from ..parallel.seq import SeqGroup
 from .quant import _CONTRACT_AXES, stored_shapes, to_stored
 
@@ -232,7 +239,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device="cuda") -> 
 
 class LlamaModel(nn.Module):
     """The decoder. Holds the stacked parameters of :func:`init_params` or
-    :func:`params_from_numpy` (frozen: the port does inference only).
+    :func:`params_from_numpy`, frozen unless ``trainable`` (the trainer's
+    copy, ``train/trainer.py``): an inference forward never builds a graph.
+    A trainable model takes bf16 or f32 leaves only, as the JAX trainer does.
 
     A matmul weight may instead be an int8 ``{"q", "s"}`` leaf in the
     stored layout of ``models/quant.py``: ``q`` is kept as int8 and ``s``
@@ -242,7 +251,8 @@ class LlamaModel(nn.Module):
     ``tp``: the ``model`` group whose rank's shard ``tree`` is (the shapes
     of ``_param_shapes(cfg, tp.world)``); one rank by default."""
 
-    def __init__(self, cfg: LlamaConfig, tree: dict, tp: SeqGroup | None = None) -> None:
+    def __init__(self, cfg: LlamaConfig, tree: dict, tp: SeqGroup | None = None,
+                 trainable: bool = False) -> None:
         super().__init__()
         self.cfg = cfg
         self.tp = tp or SeqGroup()
@@ -253,6 +263,9 @@ class LlamaModel(nn.Module):
             if isinstance(t, dict):
                 if name not in _CONTRACT_AXES and name not in ("embed", "lm_head"):
                     raise ValueError(f"{name}: only matmul weights may be int8")
+                if trainable:
+                    raise ValueError(f"{name}: an int8 leaf cannot be trained; train bf16 "
+                                     "or f32 weights")
                 q_shape, s_shape = stored_shapes(name, shape)
                 q, s = t["q"], t["s"]
                 if q.dtype != torch.int8 or tuple(q.shape) != q_shape:
@@ -265,7 +278,7 @@ class LlamaModel(nn.Module):
                 return nn.Parameter(q, requires_grad=False)
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-            return nn.Parameter(t.to(cfg.dtype), requires_grad=False)
+            return nn.Parameter(t.to(cfg.dtype), requires_grad=trainable)
 
         self.embed = param("embed", tree["embed"], shapes["embed"])
         self.final_norm = param("final_norm", tree["final_norm"], shapes["final_norm"])
@@ -362,8 +375,7 @@ class LlamaModel(nn.Module):
     def _block(self, x, li, cos, sin, mask, cache, write_index, stacked_fn):
         cfg = self.cfg
         p = self.layers
-        B, S, D = x.shape
-        hd = cfg.head_dim
+        S = x.shape[1]
         tp = self.tp
         # W8A8 only on multi-token forwards at one write slot (prefill): a
         # decode step, the spec verify forward and the slot segment (per-row
@@ -373,7 +385,7 @@ class LlamaModel(nn.Module):
         def proj(t, name, amax_reduce=None):
             s = self.scales.get(name)
             if s is None:  # [K, ...] bf16 in the JAX layout
-                return torch.matmul(t, p[name][li].reshape(t.shape[-1], -1))
+                return dense_proj(t, p[name][li])
             return int8_linear(t, p[name][li], s[li], aq, amax_reduce)
 
         def row_proj(t, name):
@@ -390,51 +402,170 @@ class LlamaModel(nn.Module):
             return int8_linear_group(
                 t, [(p[name][li], self.scales[name][li]) for name in names], aq)
 
-        P1 = cfg.norm_plus_one
-        h = rmsnorm(x, p["attn_norm"][li], cfg.norm_eps, P1)
-        q, k, v = projs(h, ("wq", "wk", "wv"))
-        # the shard's own head counts (all heads on one rank)
-        q = q.view(B, S, -1, hd)
-        k = k.view(B, S, -1, hd)
-        v = v.view(B, S, -1, hd)
-        if cfg.qk_norm:
-            q = rmsnorm(q, p["q_norm"][li], cfg.norm_eps, P1)
-            k = rmsnorm(k, p["k_norm"][li], cfg.norm_eps, P1)
-        if cfg.query_scale:
-            # a non-default score scale folded into q, so every attention
-            # (dense, kernels) keeps its 1/sqrt(head_dim)
-            q = q * dtype_scalar((hd ** 0.5) / (cfg.query_scale ** 0.5), q.dtype)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-
-        kt = k.transpose(1, 2)  # [B, KV, S, hd] — cache-native
-        vt = v.transpose(1, 2)
-        # written in place; the JAX package returns an updated cache instead
-        if is_quantized_cache(cache):
-            k8, ks = quantize_kv(kt)
-            v8, vs = quantize_kv(vt)
-            for name, val in (("k", k8), ("v", v8), ("ks", ks), ("vs", vs)):
-                cache_write(cache[name][li], val, write_index)
-        else:
-            cache_write(cache["k"][li], kt, write_index)
-            cache_write(cache["v"][li], vt, write_index)
-
-        if stacked_fn is not None:
-            attn = stacked_fn(q, cache, li)
-        else:
+        def attend(q, k, v):
+            kt = k.transpose(1, 2)  # [B, KV, S, hd] — cache-native
+            vt = v.transpose(1, 2)
+            # written in place; the JAX package returns an updated cache instead
+            if is_quantized_cache(cache):
+                k8, ks = quantize_kv(kt)
+                v8, vs = quantize_kv(vt)
+                for name, val in (("k", k8), ("v", v8), ("ks", ks), ("vs", vs)):
+                    cache_write(cache[name][li], val, write_index)
+            else:
+                cache_write(cache["k"][li], kt, write_index)
+                cache_write(cache["v"][li], vt, write_index)
+            if stacked_fn is not None:
+                return stacked_fn(q, cache, li)
             k_c, v_c = dequantize_cache_layer(cache, li)
-            attn = attention(q, k_c.to(q.dtype), v_c.to(q.dtype), mask, cfg.q_per_kv)
-        attn_out = row_proj(attn.reshape(B, S, -1), "wo")
-        if cfg.sandwich_norms:
-            attn_out = rmsnorm(attn_out, p["post_attn_norm"][li], cfg.norm_eps, P1)
-        x = x + attn_out
+            return attention(q, k_c.to(q.dtype), v_c.to(q.dtype), mask, cfg.q_per_kv)
 
-        h = rmsnorm(x, p["mlp_norm"][li], cfg.norm_eps, P1)
-        gate, up = projs(h, ("w_gate", "w_up"))
-        mlp_out = row_proj(mlp_act(gate, cfg.act) * up, "w_down")
-        if cfg.sandwich_norms:
-            mlp_out = rmsnorm(mlp_out, p["post_ffw_norm"][li], cfg.norm_eps, P1)
-        return x + mlp_out
+        return decoder_block(x, cfg, lambda name: p[name][li], projs, row_proj, cos, sin, attend)
+
+
+def dense_proj(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``t`` [..., K] times a bf16 or f32 weight in the JAX layout, whose
+    leading dims contract ([K, ...], or [H, hd, D] for ``wo`` with K = H * hd)."""
+    return torch.matmul(t, w.reshape(t.shape[-1], -1))
+
+
+def decoder_block(x, cfg: LlamaConfig, weight, projs, row_proj, cos, sin, attend):
+    """One decoder layer's math, the ONE copy that the cached forward
+    (:meth:`LlamaModel._block`) and the cache-free one
+    (:func:`cache_free_block`) share, as the JAX package's blocks share
+    theirs. The callers differ only in what they pass:
+
+    - ``weight(name)``: the layer's norm weight ``name``;
+    - ``projs(h, names)``: the products of ``h`` with the named weights,
+      whose output dims a ``model`` shard splits (q/k/v, gate/up);
+    - ``row_proj(t, name)``: the product with a weight whose contraction a
+      shard splits (``wo``, ``w_down``), summed over the ``model`` group;
+    - ``attend(q, k, v)``: attention of the roped q [B, S, H, hd] with k, v
+      [B, S, KV, hd] (the shard's own heads), [B, S, H, hd] back.
+    """
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    P1 = cfg.norm_plus_one
+    h = rmsnorm(x, weight("attn_norm"), cfg.norm_eps, P1)
+    q, k, v = projs(h, ("wq", "wk", "wv"))
+    # the shard's own head counts (all heads on one rank)
+    q = q.view(B, S, -1, hd)
+    k = k.view(B, S, -1, hd)
+    v = v.view(B, S, -1, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, weight("q_norm"), cfg.norm_eps, P1)
+        k = rmsnorm(k, weight("k_norm"), cfg.norm_eps, P1)
+    if cfg.query_scale:
+        # a non-default score scale folded into q, so every attention
+        # (dense, kernels) keeps its 1/sqrt(head_dim)
+        q = q * dtype_scalar((hd ** 0.5) / (cfg.query_scale ** 0.5), q.dtype)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = attend(q, k, v)
+    attn_out = row_proj(attn.reshape(B, S, -1), "wo")
+    if cfg.sandwich_norms:
+        attn_out = rmsnorm(attn_out, weight("post_attn_norm"), cfg.norm_eps, P1)
+    x = x + attn_out
+
+    h = rmsnorm(x, weight("mlp_norm"), cfg.norm_eps, P1)
+    gate, up = projs(h, ("w_gate", "w_up"))
+    mlp_out = row_proj(mlp_act(gate, cfg.act) * up, "w_down")
+    if cfg.sandwich_norms:
+        mlp_out = rmsnorm(mlp_out, weight("post_ffw_norm"), cfg.norm_eps, P1)
+    return x + mlp_out
+
+
+# -- the training forward ----------------------------------------------------
+
+# per-head norm weights: replicated over ``model`` but applied to the local heads
+_HEAD_NORMS = ("q_norm", "k_norm")
+
+
+def dense_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           q_per_kv: int) -> torch.Tensor:
+    """Full causal attention without a cache (the training path): q [B, S,
+    H, hd], k/v projection-shaped [B, S, KV, hd]; [B, S, H, hd] back. Plain
+    torch, as the JAX package's is plain XLA (no kernel)."""
+    S = q.shape[1]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()[None]
+    return attention(q, k.transpose(1, 2), v.transpose(1, 2), mask, q_per_kv)
+
+
+def cache_free_block(x, lp: dict, cos, sin, cfg: LlamaConfig, attention_fn,
+                     tp: SeqGroup | None = None):
+    """One cache-free decoder layer (the JAX package's ``cache_free_block``):
+    returns (x, (k, v)) with k/v projection-shaped [B, S, KV, hd]. ``lp``
+    holds the layer's bf16 or f32 weights by name; ``attention_fn(q, k, v,
+    q_per_kv)`` attends.
+
+    Under a ``tp`` group of more than one rank it runs on the rank's heads
+    and MLP hidden, with the collectives autograd differentiates
+    (``parallel/autograd.py``): *f* on ``h`` before q/k/v and before
+    gate/up and on the per-head norm weights, *g* on ``wo``'s and
+    ``w_down``'s partial products."""
+    tp = tp or SeqGroup()
+    kv = []
+
+    def weight(name):
+        w = lp[name]
+        return copy_to_group(w, tp) if name in _HEAD_NORMS else w
+
+    def projs(t, names):
+        t = copy_to_group(t, tp)
+        return [dense_proj(t, lp[name]) for name in names]
+
+    def row_proj(t, name):
+        return reduce_from_group(dense_proj(t, lp[name]), tp)
+
+    def attend(q, k, v):
+        kv.extend((k, v))
+        return attention_fn(q, k, v, cfg.q_per_kv)
+
+    x = decoder_block(x, cfg, weight, projs, row_proj, cos, sin, attend)
+    return x, tuple(kv)
+
+
+def forward_train(model: LlamaModel, tokens: torch.Tensor, *, attention_fn=None,
+                  remat: bool = True) -> torch.Tensor:
+    """Cache-free causal forward for training (the JAX package's
+    ``forward_train``); returns logits [B, S, V] f32 (the whole vocab on
+    every rank of a ``model`` shard).
+
+    ``attention_fn(q, k, v, q_per_kv)`` is the sequence-parallelism seam
+    (default :func:`dense_causal_attention`). ``remat`` recomputes each
+    block in the backward pass instead of keeping its activations
+    (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
+    Each stacked leaf is split into its layers once (``unbind``), so its
+    gradient is stacked once rather than scattered layer by layer."""
+    cfg = model.cfg
+    B, S = tokens.shape
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "sliding-window (Gemma local) layers are not supported on the "
+            "cache-free train/ring path; use the KV-cache forward"
+        )
+    if model.quantized:
+        raise ValueError("forward_train runs bf16 or f32 weights; this model's are int8")
+    attention_fn = attention_fn or dense_causal_attention
+    tp = model.tp
+    dtp = DifferentiableGroup(tp)
+    x = embed_lookup(model.embed, None, tokens, cfg.dtype, dtp)
+    if cfg.embed_scale:
+        x = x * dtype_scalar(cfg.dim ** 0.5, cfg.dtype)
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    cos, sin = rope_cos_sin(cfg, positions)
+    layers = {name: w.unbind(0) for name, w in model.layers.items()}
+
+    def block(x, lp):
+        return cache_free_block(x, lp, cos, sin, cfg, attention_fn, tp)[0]
+
+    for li in range(cfg.n_layers):
+        lp = {name: ws[li] for name, ws in layers.items()}
+        x = checkpoint(block, x, lp, use_reentrant=False) if remat else block(x, lp)
+    x = rmsnorm(x, model.final_norm, cfg.norm_eps, cfg.norm_plus_one)
+    # the head's vocab slice takes the replicated x: its gradient is partial
+    x = copy_to_group(x, tp)
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    return lm_head_logits(x, getattr(model, name), transposed=cfg.tie_embeddings, tp=dtp)
 
 
 def params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda", mesh=None) -> LlamaModel:
@@ -627,10 +758,31 @@ def lm_head_logits(x: torch.Tensor, w: torch.Tensor, *, transposed: bool,
     if x.dtype == torch.float32:
         y = torch.matmul(x2, wm.float())
     elif x.is_cuda:
-        y = torch.mm(x2, wm, out_dtype=torch.float32)
+        y = Bf16Head.apply(x2, wm)
     else:
         y = torch.matmul(x2.float(), wm.float())
     return y.view(B, S, -1)
+
+
+class Bf16Head(torch.autograd.Function):
+    """x [N, D] bf16 times w [D, V] bf16 with an f32 product, as the JAX
+    package's ``preferred_element_type``: ``torch.mm(..., out_dtype=f32)``,
+    whose ``aten::mm.dtype`` has no derivative in torch. The backward
+    rounds the f32 gradient to bf16 and runs the two bf16 products (f32
+    accumulation) that give bf16 gradients of x and w."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        dx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float, plus_one: bool = False) -> torch.Tensor:
