@@ -495,7 +495,7 @@ Phases, each raising on failure (so any failure exits non-zero):
    audit hook); (v) each rank's K2p launches exactly 4 x its decode steps
    (256 over both at 32 steps), no other kernel. Greedy agreement, each
    rank's prefill and decode seconds and peak memory logged;
-9i. train (ROADMAP A12a): the probe of whether ``aten::mm.dtype`` has a
+9i. train (ROADMAP A12a, A12b): the probe of whether ``aten::mm.dtype`` has a
    derivative (logged); (a) one card, Llama-3.2-3B at full width and
    TRAIN_LAYERS = 4 of its 28 layers, bf16, a Trainer over a one-rank mesh
    with remat, a B=2 S=1024 batch from a seeded generator: (i)
@@ -514,7 +514,17 @@ Phases, each raising on failure (so any failure exits non-zero):
    here), and a fault planted in rank 1 (its
    f, ``copy_to_group``, skips its backward all-reduce) past the limit on
    wq and attn_norm. (b), not gated: the full 28 layers, 3 steps at B=2
-   S=2048, step seconds, tokens/s and peak memory logged;
+   S=2048, step seconds, tokens/s and peak memory logged, while 9g (c)'s
+   two ranks go on to (d) {fsdp: 2}, TrainConfig(fsdp=True), and (e)
+   {seq: 2}, TrainConfig(context_parallel=True), each a second mesh over
+   the same gloo group, one step each on (a)'s weights and batch (512
+   positions a rank under (e)): the gathered gradients of wq, w_down,
+   embed and attn_norm within TRAIN_GRAD_RTOL of (a)'s, the loss within
+   1e-3, the two ranks' losses equal, no kernel launched; under (d) each
+   rank holds half of (a)'s bytes of layer parameters and of moments; the
+   planted faults ((d) rank 1's gather_layer keeps its own share of its
+   layers' gradient, (e) the backward ring leaves dk/dv one shift short of
+   home) past the limit on wq and attn_norm, and on wq;
 10. long context (path c): PipelineRunner(approach="truncated",
    max_context=32768, max_new_tokens=128, batch_size=2) with a factory
    that builds TorchLongContextBackend (one rank, Llama-3.2-3B at full
@@ -7733,7 +7743,8 @@ def mesh_rank(rank: int, init_file: str, out_dir: str) -> None:
     fault and the generate again. Publishes what it saw (rank{r}.pt; a
     failure as its traceback), then runs phase 9i (c)'s training step
     (train_rank), which waits for phase 9i's "go" file, and publishes that
-    (train{r}.pt)."""
+    (train{r}.pt); then 9i (d) and (e) (train_rank_arm), published as
+    arms{r}.pt."""
     import datetime
     import traceback
 
@@ -7755,7 +7766,17 @@ def mesh_rank(rank: int, init_file: str, out_dir: str) -> None:
                 train = train_rank(torch, rank, mesh, Path(out_dir) / "go")
             except Exception:
                 train = {"error": traceback.format_exc()}
+            whole, tokens = train.pop("whole", None), torch.from_numpy(train_batch()).to("cuda")
             publish(torch, train, Path(out_dir) / f"train{rank}.pt")
+            arms = {}
+            if whole is not None:
+                try:
+                    for arm in TRAIN_ARMS:
+                        arms[arm] = train_rank_arm(torch, rank, arm, whole, tokens)
+                except Exception:
+                    arms["error"] = traceback.format_exc()
+            del whole
+            publish(torch, arms, Path(out_dir) / f"arms{rank}.pt")
     finally:
         dist.destroy_process_group()
 
@@ -8278,11 +8299,13 @@ def phase_long_mesh(torch, started: dict) -> dict:
 
 # -- phase 9i -----------------------------------------------------------------
 
-# phase 9i (ROADMAP A12a): training on the card. (a) one card, Llama-3.2-3B
-# at full width and TRAIN_LAYERS of its 28 layers, bf16, remat on, a
-# TRAIN_BATCH batch drawn from a seeded numpy generator; (b) the full 28
-# layers, not gated; (c) phase 9g (c)'s two ranks' model = 2 step on the
-# same weights and batch, compared here with (a)'s one-rank gradients.
+# phase 9i (ROADMAP A12a, A12b): training on the card. (a) one card,
+# Llama-3.2-3B at full width and TRAIN_LAYERS of its 28 layers, bf16, remat
+# on, a TRAIN_BATCH batch drawn from a seeded numpy generator; (b) the full
+# 28 layers, not gated; (c) phase 9g (c)'s two ranks' model = 2 step on the
+# same weights and batch, and then (d) ZeRO-3 over fsdp = 2 and (e) the
+# ring over seq = 2 in the same ranks, compared here with (a)'s one-rank
+# gradients.
 TRAIN_LAYERS = MESH_TP_LAYERS  # (c)'s ranks' depth: (a)'s gradients are (c)'s reference
 TRAIN_BATCH = (2, 1024)
 TRAIN_SEED = 29
@@ -8310,9 +8333,21 @@ TRAIN_FAULT_LEAVES = ("layers/wq", "layers/attn_norm")
 TRAIN_FULL_BATCH = (2, 2048)
 TRAIN_FULL_STEPS = 3
 # (c): how long 9g (c)'s ranks wait for phase 9i's "go" (phase 9h runs
-# meanwhile), and how long 9i waits for their step after it
+# meanwhile), and how long 9i waits for their step after it (and for (d)
+# and (e) after (b))
 TRAIN_GO_S = 600.0
 TRAIN_RANKS_S = 240.0
+# (d) and (e), run in 9g (c)'s ranks after (c): each arm's mesh over the
+# same two ranks and its option
+TRAIN_ARMS = {"d": ({"fsdp": 2}, {"fsdp": True}),
+              "e": ({"seq": 2}, {"context_parallel": True})}
+# (d) and (e): the loss against (a)'s, relative
+TRAIN_ARM_LOSS_RTOL = 1e-3
+# the planted faults must exceed TRAIN_GRAD_RTOL on these: (d) rank 1's
+# gather_layer keeps its own share of its layers' gradient (the layer
+# leaves), (e) the backward ring leaves each block's dk/dv one shift short
+# of home (wk and wv directly, wq through the residual stream below)
+TRAIN_ARM_FAULT_LEAVES = {"d": ("layers/wq", "layers/attn_norm"), "e": ("layers/wq",)}
 
 
 def train_batch(shape=TRAIN_BATCH):
@@ -8328,6 +8363,13 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
+def rel_l2_by_layer(key: str, a, b) -> float:
+    """rel_l2, for a stacked layer leaf the worst of its layers'."""
+    if not key.startswith("layers/"):
+        return rel_l2(a, b)
+    return max(rel_l2(x, y) for x, y in zip(a, b))
+
+
 def mm_dtype_derivative(torch) -> str:
     """Whether ``aten::mm.dtype`` (``torch.mm(..., out_dtype=)``, the bf16
     head's product) has a derivative in this torch, on the card."""
@@ -8339,6 +8381,14 @@ def mm_dtype_derivative(torch) -> str:
     return "present"
 
 
+def layer_bytes(trainer) -> dict:
+    """A trainer's bytes of stacked-layer parameters and of their moments."""
+    ps = [p for path, p, _ in trainer.leaves() if path[0] == "layers"]
+    moments = [trainer.optimizer.state[p][m] for p in ps for m in ("mu", "nu")]
+    return {"params": sum(p.numel() * p.element_size() for p in ps),
+            "moments": sum(m.numel() * m.element_size() for m in moments)}
+
+
 def train_rank(torch, rank: int, mesh, go: Path) -> dict:
     """9i (c) in 9g (c)'s rank ``rank``, after its inference gates: a Trainer
     over its model = 2 mesh on (a)'s weights (Llama-3.2-3B at
@@ -8348,7 +8398,8 @@ def train_rank(torch, rank: int, mesh, go: Path) -> dict:
     on a copy so that the ranks stay in step), the local gradients of
     TRAIN_FAULT_LEAVES read, and one Trainer.step, sound, its loss and the
     local gradients of TRAIN_TP_LEAVES read as they accumulate. The launch
-    counters must stay 0."""
+    counters must stay 0. The whole model stays in the result ("whole")
+    for (d) and (e)."""
     from vnsum_tpu_torch.models import llama32_3b
     from vnsum_tpu_torch.models.llama import init_model
     from vnsum_tpu_torch.parallel import autograd
@@ -8362,7 +8413,6 @@ def train_rank(torch, rank: int, mesh, go: Path) -> dict:
     seconds["init"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     tr = Trainer(cfg, mesh, TrainConfig(learning_rate=TRAIN_LR, remat=True), params=whole)
-    del whole
     torch.cuda.synchronize()
     seconds["build"] = time.perf_counter() - t0
     tokens = torch.from_numpy(train_batch()).to("cuda")
@@ -8399,12 +8449,88 @@ def train_rank(torch, rank: int, mesh, go: Path) -> dict:
     for h in hooks:
         h.remove()
     return {"loss": loss, "grads": grads, "fault_grads": fault, "launches": read_launches(),
-            "seconds": seconds, "shapes": {k: tuple(p.shape) for k, p in leaves.items()}}
+            "seconds": seconds, "shapes": {k: tuple(p.shape) for k, p in leaves.items()},
+            "whole": whole}
 
 
-def train_one_card(torch, cfg, tokens) -> tuple[dict, float]:
+@contextlib.contextmanager
+def planted_arm_fault(arm: str, rank: int):
+    """(d): rank 1's gather_layer backward issues its reduce (so that the
+    ranks stay in step) and keeps its own share where it owns the layer;
+    (e): both ranks' backward ring skips the dk/dv shift home."""
+    import torch
+
+    from vnsum_tpu_torch.parallel import autograd, ring
+
+    real_gather, real_home = autograd._GatherLayer.backward, ring._home
+
+    def kept(ctx, grad):
+        ctx.group.reduce_sum(grad.clone(memory_format=torch.contiguous_format), ctx.owner)
+        return (grad if ctx.group.rank == ctx.owner else None), None, None
+
+    if arm == "d" and rank == 1:
+        autograd._GatherLayer.backward = staticmethod(kept)
+    if arm == "e":
+        ring._home = lambda group, dk, dv: (dk, dv)
+    try:
+        yield
+    finally:
+        autograd._GatherLayer.backward, ring._home = staticmethod(real_gather), real_home
+
+
+def train_rank_arm(torch, rank: int, arm: str, whole, tokens) -> dict:
+    """9i (d) or (e) in 9g (c)'s rank ``rank``, after (c): a Trainer with the
+    arm's option over a second mesh of the same two ranks, on (a)'s weights
+    (``whole``) and batch. One backward with the planted fault
+    (``lm_loss`` alone: this rank's share of the fault leaves' gradients),
+    then the sound step: ``Trainer.backward`` (the gradients of
+    TRAIN_TP_LEAVES read as the update reads them), the update. Reads each
+    rank's bytes of layer parameters and moments, the seconds and the
+    launch counters, which must stay 0."""
+    from vnsum_tpu_torch.parallel import make_mesh
+    from vnsum_tpu_torch.parallel.sharding import batch_rows
+    from vnsum_tpu_torch.train import TrainConfig, Trainer, lm_loss
+
+    shape, option = TRAIN_ARMS[arm]
+    seconds = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = make_mesh(shape, device=tokens.device.type)
+    tr = Trainer(whole.cfg, mesh, TrainConfig(learning_rate=TRAIN_LR, remat=True, **option),
+                 params=whole)
+    torch.cuda.synchronize()
+    seconds["build"] = time.perf_counter() - t0
+    held = layer_bytes(tr)
+    leaves = {"/".join(path): p for path, p, _ in tr.leaves()}
+    reset_launches()
+    rows = (tr.data, tr.fsdp)
+    lo, hi = batch_rows(rows, tokens.shape[0])
+    t0 = time.perf_counter()
+    with planted_arm_fault(arm, rank):
+        lm_loss(tr.model, tokens[lo:hi], torch.ones_like(tokens[lo:hi], dtype=torch.bool),
+                remat=True, data=rows, seq=tr.seq).backward()
+    fault = {k: leaves[k].grad.cpu() for k in TRAIN_ARM_FAULT_LEAVES[arm]}
+    tr.optimizer.zero_grad(set_to_none=True)
+    seconds["fault"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss = tr.backward(tokens)
+    grads = {k: leaves[k].grad.cpu() for k in TRAIN_TP_LEAVES}
+    tr.optimizer.step()
+    tr.optimizer.zero_grad(set_to_none=True)
+    loss = float(loss.detach())
+    seconds["step"] = time.perf_counter() - t0
+    out = {"loss": loss, "grads": grads, "fault_grads": fault, "held": held,
+           "launches": read_launches(), "seconds": seconds, "coords": dict(mesh.coords),
+           "peak": torch.cuda.max_memory_allocated()}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_one_card(torch, cfg, tokens) -> tuple[dict, float, dict]:
     """9i (a) on one card. Returns ((a)'s bf16 gradients of TRAIN_TP_LEAVES
-    at the initial weights, the loss there): (c)'s reference."""
+    at the initial weights, the loss there: (c)'s, (d)'s and (e)'s
+    reference; and its bytes of layer parameters and moments)."""
     import dataclasses
 
     from vnsum_tpu_torch.models.llama import (
@@ -8460,6 +8586,7 @@ def train_one_card(torch, cfg, tokens) -> tuple[dict, float]:
     worst = max(errs, key=errs.get)
     ref = {k: g16[k] for k in TRAIN_TP_LEAVES}
     ref_loss = float(loss16.detach())
+    held = layer_bytes(a)
     del f32, g16, loss32
     torch.cuda.empty_cache()
     log(f"[train] (a)(ii) bf16 gradients against an f32 copy's (relative L2), "
@@ -8523,7 +8650,7 @@ def train_one_card(torch, cfg, tokens) -> tuple[dict, float]:
                              f"losses {losses[TRAIN_SAVE_AT]!r} / {resumed!r}")
     if any(launches.values()):
         raise AssertionError(f"train (a): the steps launched kernels: {launches}")
-    return ref, ref_loss
+    return ref, ref_loss, held
 
 
 def train_two_ranks(torch, ranks: list, ref: dict, ref_loss: float) -> None:
@@ -8569,6 +8696,68 @@ def train_two_ranks(torch, ranks: list, ref: dict, ref_loss: float) -> None:
         raise AssertionError(f"train (c): gradients {sound}, loss {loss_err:.3e}, fault {fault}")
 
 
+def train_arms(torch, ranks: list, ref: dict, ref_loss: float, held: dict) -> None:
+    """9i (d) and (e): each arm's step in 9g (c)'s two ranks against (a)'s
+    one-rank gradients and loss at the same weights: the gradients of
+    TRAIN_TP_LEAVES within TRAIN_GRAD_RTOL, a layer leaf's every layer
+    (under fsdp a layer leaf is the ranks' owned layers in order; a fault
+    in one rank's layers is diluted in the whole leaf's norm), the loss
+    within TRAIN_ARM_LOSS_RTOL,
+    the two ranks' losses equal, the planted fault past the limit on
+    TRAIN_ARM_FAULT_LEAVES, no kernel launched; under fsdp each rank holds
+    half of (a)'s bytes of layer parameters and of moments."""
+    for arm, (shape, option) in TRAIN_ARMS.items():
+        res = [r[arm] for r in ranks]
+        fsdp = bool(option.get("fsdp"))
+
+        def whole(key: str, field: str, rank: int):
+            """The leaf's gradient on the card: under fsdp a layer leaf's
+            owned layers in the fsdp ranks' order; else rank ``rank``'s."""
+            if fsdp and key.startswith("layers/"):
+                parts = sorted(res, key=lambda r: r["coords"]["fsdp"])
+                return torch.cat([r[field][key] for r in parts]).to(ref[key].device)
+            return res[rank][field][key].to(ref[key].device)
+
+        def fault_whole(key: str):
+            """The fault leaf's gradient: the fsdp ranks' owned layers, or
+            the seq ranks' local shares summed."""
+            if fsdp:
+                return whole(key, "fault_grads", 0)
+            return sum(r["fault_grads"][key].float() for r in res).to(ref[key].device)
+
+        sound = {k: max(rel_l2_by_layer(k, whole(k, "grads", r), ref[k]) for r in range(2))
+                 for k in TRAIN_TP_LEAVES}
+        fault = {k: rel_l2_by_layer(k, fault_whole(k), ref[k])
+                 for k in TRAIN_ARM_FAULT_LEAVES[arm]}
+        loss_err = abs(res[0]["loss"] - ref_loss) / abs(ref_loss)
+        what = ("rank 1's gather_layer keeps its own share of its layers' gradient" if fsdp
+                else "the backward ring leaves dk/dv one shift short of home")
+        log(f"[train] ({arm}) {shape} over 9g (c)'s gloo ranks against (a) at one rank "
+            "(relative L2, a layer leaf's worst layer): " + ", ".join(f"{k} {v:.3e}" for k, v in sound.items())
+            + f"; loss {res[0]['loss']:.6f} against {ref_loss:.6f} ({loss_err:.3e}, limit "
+            f"{TRAIN_ARM_LOSS_RTOL}); the planted fault ({what}): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in fault.items())
+            + f"; limit {TRAIN_GRAD_RTOL}; each rank's bytes of layer parameters / moments "
+            + " / ".join(f"{r['held']['params']:,} / {r['held']['moments']:,}" for r in res)
+            + f" against (a)'s {held['params']:,} / {held['moments']:,}; each rank's seconds "
+            + " / ".join(", ".join(f"{k} {v:.2f}" for k, v in r["seconds"].items()) for r in res)
+            + "; peak " + " / ".join(f"{r['peak'] / 1e9:.2f}" for r in res) + " GB")
+        if res[0]["loss"] != res[1]["loss"]:
+            raise AssertionError(f"train ({arm}): the ranks' losses differ: {res[0]['loss']!r}, "
+                                 f"{res[1]['loss']!r}")
+        if any(any(r["launches"].values()) for r in res):
+            raise AssertionError(f"train ({arm}): the ranks launched kernels: "
+                                 f"{[r['launches'] for r in res]}")
+        if fsdp and any(2 * r["held"]["params"] != held["params"]
+                        or 2 * r["held"]["moments"] != held["moments"] for r in res):
+            raise AssertionError(f"train ({arm}): a rank holds {[r['held'] for r in res]}, not "
+                                 f"half of (a)'s {held}")
+        if (max(sound.values()) > TRAIN_GRAD_RTOL or loss_err > TRAIN_ARM_LOSS_RTOL
+                or min(fault.values()) <= TRAIN_GRAD_RTOL):
+            raise AssertionError(f"train ({arm}): gradients {sound}, loss {loss_err:.3e}, "
+                                 f"fault {fault}")
+
+
 def train_full_depth(torch) -> None:
     """9i (b), not gated: Llama-3.2-3B at its 28 layers, TRAIN_FULL_STEPS
     steps at TRAIN_FULL_BATCH: step seconds, tokens/s, peak memory."""
@@ -8603,8 +8792,9 @@ def train_full_depth(torch) -> None:
 def phase_train(torch, ranks: dict) -> None:
     """Phase 9i: the probe of ``aten::mm.dtype``'s derivative; "go" to 9g
     (c)'s two ranks (phase_mesh's ``ranks``), which train while (a) runs
-    here; then (c), comparing their step with (a)'s, and (b). Stops the
-    ranks whatever happens."""
+    here; then (c), comparing their step with (a)'s; (b), while the ranks
+    run (d) and (e); then (d) and (e) against (a). Stops the ranks
+    whatever happens."""
     from vnsum_tpu_torch.models import llama32_3b
 
     try:
@@ -8612,21 +8802,31 @@ def phase_train(torch, ranks: dict) -> None:
         t0 = time.perf_counter()
         log(f"[train] aten::mm.dtype derivative on the card: {mm_dtype_derivative(torch)}")
         tokens = torch.from_numpy(train_batch()).to("cuda")
-        ref, ref_loss = train_one_card(torch, llama32_3b(n_layers=TRAIN_LAYERS), tokens)
+        ref, ref_loss, held = train_one_card(torch, llama32_3b(n_layers=TRAIN_LAYERS), tokens)
         ta = time.perf_counter() - t0
         steps = collect(torch, ranks["procs"], [ranks["root"] / f"train{r}.pt" for r in range(2)],
                         time.perf_counter() + TRAIN_RANKS_S, "train (c)")
+        for r, res in enumerate(steps):
+            if "error" in res:
+                raise AssertionError(f"train (c) rank {r}:\n{res['error']}")
+        train_two_ranks(torch, steps, ref, ref_loss)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train_full_depth(torch)
+        tb = time.perf_counter() - t0
+        arms = collect(torch, ranks["procs"], [ranks["root"] / f"arms{r}.pt" for r in range(2)],
+                       time.perf_counter() + TRAIN_RANKS_S, "train (d), (e)")
+        waited = time.perf_counter() - t0 - tb
     finally:
         stop_ranks(ranks)
-    for r, res in enumerate(steps):
-        if "error" in res:
-            raise AssertionError(f"train (c) rank {r}:\n{res['error']}")
-    train_two_ranks(torch, steps, ref, ref_loss)
+    for r, res in enumerate(arms):
+        if "error" in res or set(res) != set(TRAIN_ARMS):
+            raise AssertionError(f"train (d), (e) rank {r}:\n{res.get('error', sorted(res))}")
+    train_arms(torch, arms, ref, ref_loss, held)
     del ref
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    train_full_depth(torch)
-    log(f"[train] arms: (a) {ta:.1f}s (beside (c)'s ranks), (b) {time.perf_counter() - t0:.1f}s")
+    log(f"[train] arms: (a) {ta:.1f}s (beside (c)'s ranks), (b) {tb:.1f}s (beside (d) and (e) "
+        f"in the ranks), then {waited:.1f}s waiting for (d) and (e)")
 
 
 # -- phase 10 -----------------------------------------------------------------

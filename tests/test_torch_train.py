@@ -299,8 +299,17 @@ def test_fsdp_requires_axis_and_divisibility(shape, match):
 @pytest.mark.parametrize("kw,shape", [(dict(fsdp=True), {"fsdp": 2, "data": 1}),
                                       (dict(context_parallel=True), {"seq": 2})])
 def test_a12b_options_raise_by_name(kw, shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
-        Trainer(tl.tiny_llama(), view(shape), TrainConfig(**kw))
+    """Each option builds on a one-rank view of a mesh with its axis, and
+    its step refuses a shape that does not divide over the axis before any
+    collective: the batch in the JAX trainer's words, the sequence naming
+    its axis."""
+    t = Trainer(tl.tiny_llama(), view(shape), TrainConfig(remat=False, **kw))
+    if kw.get("fsdp"):
+        bad, match = (3, 8), r"batch size 3 must be divisible by data×fsdp mesh axes \(2\)"
+    else:
+        bad, match = (2, 15), r"sequence length 15 must be divisible by the seq mesh axis \(2\)"
+    with pytest.raises(ValueError, match=match):
+        t.step(np.zeros(bad, np.int32))
 
 
 def test_batch_must_divide_over_data():

@@ -46,7 +46,10 @@ logits, so they take the same host decisions.
 :func:`forward_train` is the training forward (the JAX package's): no
 cache, dense causal attention, each block recomputed in the backward pass,
 and under ``tp`` the same collectives as autograd operators
-(``parallel/autograd.py``). It runs a model built with ``trainable=True``.
+(``parallel/autograd.py``). It runs a model built with ``trainable=True``,
+on a ``seq`` rank's slice of the sequence under the ring
+(``parallel/ring.py`` ``ring_attention_fn``) and on a ZeRO-3 shard's
+layers (``fsdp``), each gathered when its block runs.
 """
 from __future__ import annotations
 
@@ -61,7 +64,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.int8_matmul import int8_head, int8_linear, int8_linear_group
-from ..parallel.autograd import DifferentiableGroup, copy_to_group, reduce_from_group
+from ..parallel.autograd import (
+    DifferentiableGroup, copy_to_group, gather_layer, reduce_from_group,
+)
 from ..parallel.seq import SeqGroup
 from .quant import _CONTRACT_AXES, stored_shapes, to_stored
 
@@ -249,14 +254,20 @@ class LlamaModel(nn.Module):
     model dtype.
 
     ``tp``: the ``model`` group whose rank's shard ``tree`` is (the shapes
-    of ``_param_shapes(cfg, tp.world)``); one rank by default."""
+    of ``_param_shapes(cfg, tp.world)``); one rank by default. ``fsdp``:
+    the trainer's ZeRO-3 group, whose rank holds ``n_layers / fsdp.world``
+    of the stacked layers (``parallel/sharding.py`` ``shard_params``);
+    such a shard runs :func:`forward_train` only."""
 
     def __init__(self, cfg: LlamaConfig, tree: dict, tp: SeqGroup | None = None,
-                 trainable: bool = False) -> None:
+                 trainable: bool = False, fsdp: SeqGroup | None = None) -> None:
         super().__init__()
         self.cfg = cfg
         self.tp = tp or SeqGroup()
+        self.fsdp = fsdp or SeqGroup()
         shapes = _param_shapes(cfg, self.tp.world)
+        for k, shape in shapes["layers"].items():
+            shapes["layers"][k] = (shape[0] // self.fsdp.world,) + shape[1:]
         self.scales = nn.ParameterDict()
 
         def param(name, t, shape):
@@ -339,6 +350,9 @@ class LlamaModel(nn.Module):
         cfg = self.cfg
         if stacked_attention_fn is None and mask is None:
             raise ValueError("dense attention needs a mask")
+        if self.fsdp.world > 1:
+            raise ValueError("a ZeRO-3 (fsdp) shard holds some of the layers: it runs "
+                             "forward_train only")
         x = embed_lookup(self.embed, self.scales.get("embed"), tokens, cfg.dtype, self.tp)
         if cfg.embed_scale:
             # sqrt(dim) rounded through the model dtype, as the JAX package
@@ -525,17 +539,24 @@ def cache_free_block(x, lp: dict, cos, sin, cfg: LlamaConfig, attention_fn,
 
 
 def forward_train(model: LlamaModel, tokens: torch.Tensor, *, attention_fn=None,
-                  remat: bool = True) -> torch.Tensor:
+                  remat: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Cache-free causal forward for training (the JAX package's
     ``forward_train``); returns logits [B, S, V] f32 (the whole vocab on
     every rank of a ``model`` shard).
 
     ``attention_fn(q, k, v, q_per_kv)`` is the sequence-parallelism seam
-    (default :func:`dense_causal_attention`). ``remat`` recomputes each
+    (default :func:`dense_causal_attention`): under
+    ``partial(parallel.ring.ring_attention_fn, group=seq)`` ``tokens`` is
+    this ``seq`` rank's slice of the sequence, whose first position is
+    ``q_offset`` (RoPE takes global positions). ``remat`` recomputes each
     block in the backward pass instead of keeping its activations
     (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
     Each stacked leaf is split into its layers once (``unbind``), so its
-    gradient is stacked once rather than scattered layer by layer."""
+    gradient is stacked once rather than scattered layer by layer. On a
+    ZeRO-3 shard (``model.fsdp`` of more than one rank) each block first
+    gathers its layer from the rank that owns it (``gather_layer``),
+    inside the recomputed block, so the backward gathers it again rather
+    than keeping it."""
     cfg = model.cfg
     B, S = tokens.shape
     if cfg.sliding_window:
@@ -551,16 +572,21 @@ def forward_train(model: LlamaModel, tokens: torch.Tensor, *, attention_fn=None,
     x = embed_lookup(model.embed, None, tokens, cfg.dtype, dtp)
     if cfg.embed_scale:
         x = x * dtype_scalar(cfg.dim ** 0.5, cfg.dtype)
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    positions = torch.arange(q_offset, q_offset + S, device=tokens.device)[None, :].expand(B, S)
     cos, sin = rope_cos_sin(cfg, positions)
     layers = {name: w.unbind(0) for name, w in model.layers.items()}
+    fsdp = model.fsdp
+    per = cfg.n_layers // fsdp.world  # layers a rank holds
 
-    def block(x, lp):
+    def block(x, owner, lp):
+        lp = {name: gather_layer(w, owner, fsdp) for name, w in lp.items()}
         return cache_free_block(x, lp, cos, sin, cfg, attention_fn, tp)[0]
 
     for li in range(cfg.n_layers):
-        lp = {name: ws[li] for name, ws in layers.items()}
-        x = checkpoint(block, x, lp, use_reentrant=False) if remat else block(x, lp)
+        lp = {name: ws[li % per] for name, ws in layers.items()}
+        owner = li // per
+        x = (checkpoint(block, x, owner, lp, use_reentrant=False) if remat
+             else block(x, owner, lp))
     x = rmsnorm(x, model.final_norm, cfg.norm_eps, cfg.norm_plus_one)
     # the head's vocab slice takes the replicated x: its gradient is partial
     x = copy_to_group(x, tp)

@@ -25,6 +25,12 @@ On a group of one rank both are the identity and add no autograd node.
 :class:`DifferentiableGroup` hands *g* to the functions that take a group
 and call its ``all_reduce_sum`` (``embed_lookup``, ``lm_head_logits``), so
 the inference forward and the training forward share them.
+
+ZeRO-3 over an ``fsdp`` axis adds a third, :func:`gather_layer`: the
+forward broadcasts one layer's weights from the rank that owns them, the
+backward sums the layer's gradient onto that rank. GSPMD all-gathers the
+layer and reduce-scatters its gradient; with one owner a layer, the
+gather is the owner's broadcast and the scatter a reduce onto it.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ import torch
 
 from .seq import SeqGroup
 
-__all__ = ["DifferentiableGroup", "copy_to_group", "reduce_from_group"]
+__all__ = ["DifferentiableGroup", "copy_to_group", "gather_layer", "reduce_from_group"]
 
 
 def _summed(t: torch.Tensor, group: SeqGroup) -> torch.Tensor:
@@ -76,6 +82,34 @@ def reduce_from_group(x: torch.Tensor, group: SeqGroup) -> torch.Tensor:
     if group.world == 1:
         return x
     return _ReduceFromGroup.apply(x, group)
+
+
+class _GatherLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, owner, group):
+        ctx.owner, ctx.group = owner, group
+        if group.rank == owner:
+            buf = w.clone(memory_format=torch.contiguous_format)
+        else:
+            buf = torch.empty_like(w, memory_format=torch.contiguous_format)
+        return group.broadcast(buf, owner)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = ctx.group.reduce_sum(grad.clone(memory_format=torch.contiguous_format), ctx.owner)
+        # the owner's layer takes the sum; elsewhere ``w`` is another layer
+        return (total if ctx.group.rank == ctx.owner else None), None, None
+
+
+def gather_layer(w: torch.Tensor, owner: int, group: SeqGroup) -> torch.Tensor:
+    """One layer's weight, whole on every rank of the ``fsdp`` ``group``:
+    rank ``owner``'s ``w`` broadcast forward; backward, the gradient summed
+    onto ``owner``, and dropped elsewhere. Every rank passes its own layer
+    at the same local index, which gives the shape and ties the backward
+    in. Collective both ways: every rank of the group runs it."""
+    if group.world == 1:
+        return w
+    return _GatherLayer.apply(w, owner, group)
 
 
 class DifferentiableGroup:

@@ -113,6 +113,17 @@ class SeqGroup:
             dist.broadcast(t, src=self._global(src), group=self.group)
         return t
 
+    def reduce_sum(self, t: torch.Tensor, dst: int) -> torch.Tensor:
+        """Elementwise sum over the group onto rank ``dst``: in place there,
+        returned (elsewhere ``t`` is left undefined). gloo's reduce takes
+        host tensors only, so a CUDA tensor goes through the host there."""
+        if self.world == 1:
+            return t
+        if t.is_cuda and dist.get_backend(self.group) == "gloo":
+            return t.copy_(self.reduce_sum(t.cpu(), dst))
+        dist.reduce(t, dst=self._global(dst), op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
     def close(self) -> None:
         """Leave the group (destroys the default process group)."""
         if self.world > 1 and dist.is_initialized():

@@ -95,12 +95,23 @@ def batch_spec() -> tuple:
     return (_D, None)
 
 
+def batch_rows(groups, B: int) -> tuple[int, int]:
+    """This rank's rows [lo, hi) of a batch of B rows split over the axes
+    of ``groups`` (:class:`SeqGroup` s, in order) as a spec naming the tuple
+    of them splits it: in JAX's order the block index is ``r0 * w1 + r1``
+    for two axes (B is a multiple of the product of their sizes)."""
+    rank, world = 0, 1
+    for g in groups:
+        rank, world = rank * g.world + g.rank, world * g.world
+    n = B // world
+    return rank * n, (rank + 1) * n
+
+
 def data_rows(data: SeqGroup, B: int) -> tuple[int, int]:
     """This data rank's rows [lo, hi) of a batch of B rows, as
     :func:`batch_spec` splits it: the data ranks take it in order (B is a
     multiple of their count)."""
-    n = B // data.world
-    return data.rank * n, (data.rank + 1) * n
+    return batch_rows((data,), B)
 
 
 def gather_rows(data: SeqGroup, local: torch.Tensor, B: int) -> torch.Tensor:
@@ -168,12 +179,17 @@ def _stored_dim(name: str, dim: int, quantized: bool) -> int:
     return 2 if dim - 1 in _CONTRACT_AXES[name] else 1
 
 
-def shard_params(model, mesh: Mesh):
+def shard_params(model, mesh: Mesh, fsdp: bool = False):
     """This rank's shard of ``model`` (a whole :class:`LlamaModel`, bf16 or
     int8) as a :class:`LlamaModel` that runs the tensor-parallel forward
     over the mesh's ``model`` group. Parameters are replicated over
     ``data``. With a ``model`` axis of 1 the shard shares the whole
     model's tensors (no copy).
+
+    With ``fsdp`` (the trainer's ZeRO-3, ``param_specs(fsdp=True)``) every
+    layer leaf also keeps this rank's ``n_layers / fsdp`` stacked layers
+    (the ``fsdp`` axis's rank j holds layers [j L/f, (j + 1) L/f)); the
+    embedding, the head and the final norm stay replicated over ``fsdp``.
 
     Raises a config-level error (which sharded dim, which axis) before
     slicing anything."""
@@ -181,7 +197,7 @@ def shard_params(model, mesh: Mesh):
 
     cfg = model.cfg
     specs = param_specs(
-        cfg.tie_embeddings, model.quantized, qk_norm=cfg.qk_norm,
+        cfg.tie_embeddings, model.quantized, fsdp=fsdp, qk_norm=cfg.qk_norm,
         sandwich_norms=cfg.sandwich_norms,
     )
     for _, shape, spec in _leaves(_jax_layout_tree(model), specs):
@@ -195,27 +211,31 @@ def shard_params(model, mesh: Mesh):
                     f"divisible by mesh axis '{axis}' ({size}); shrink that "
                     "mesh axis or pick a TP-compatible model config"
                 )
-    group = mesh.group(_M)
-    m, j = group.world, group.rank
-    if m == 1:
-        return LlamaModel(cfg, model.tree(), tp=group)
+    tp = mesh.group(_M)
+    layers = mesh.group(_F) if fsdp else SeqGroup()
+    if tp.world == 1 and layers.world == 1:
+        return LlamaModel(cfg, model.tree(), tp=tp)
 
-    def piece(t, dim):
-        n = t.shape[dim] // m
-        return t.narrow(dim, j * n, n).clone()
+    def piece(t, dim, group):
+        if group.world == 1:
+            return t
+        n = t.shape[dim] // group.world
+        return t.narrow(dim, group.rank * n, n).clone()
 
     def leaf(name, t, spec):
-        if isinstance(t, dict):  # int8, in the stored layout
+        if isinstance(t, dict):  # int8, in the stored layout (never trained: no fsdp)
             q, s = t["q"], t["s"]
             if _M in spec["q"]:
-                q = piece(q, _stored_dim(name, spec["q"].index(_M), True))
+                q = piece(q, _stored_dim(name, spec["q"].index(_M), True), tp)
             if _M in spec["s"]:  # a scale follows its output channels: [L, N] or [V]
-                s = piece(s, spec["s"].index(_M))
+                s = piece(s, spec["s"].index(_M), tp)
             return {"q": q, "s": s}
         # a replicated leaf is shared with the whole model
-        return t if _M not in spec else piece(t, spec.index(_M))
+        if _M in spec:
+            t = piece(t, spec.index(_M), tp)
+        return piece(t, 0, layers) if _F in spec else t  # the stacked-layer dim leads
 
     tree = model.tree()
     out = {k: leaf(k, v, specs[k]) for k, v in tree.items() if k != "layers"}
     out["layers"] = {k: leaf(k, v, specs["layers"][k]) for k, v in tree["layers"].items()}
-    return LlamaModel(cfg, out, tp=group)
+    return LlamaModel(cfg, out, tp=tp, fsdp=layers)

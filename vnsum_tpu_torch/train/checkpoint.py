@@ -10,8 +10,9 @@ The format is the port's own (DCP's ``.metadata`` and ``.distcp`` files
 under one directory a step); neither package reads the other's. DCP saves
 a plain tensor as replicated, so two ``model`` ranks' shards of one leaf
 would collide: on a mesh of more than one rank each leaf goes in as a
-``DTensor`` over the mesh's ``DeviceMesh``, ``Shard(dim)`` on ``model``
-where ``param_specs`` shards it and ``Replicate()`` elsewhere. What orbax's
+``DTensor`` over the mesh's ``DeviceMesh``, ``Shard(dim)`` on each mesh
+axis the trainer's ``param_specs`` shards it over (``model``; ``fsdp``,
+the stacked-layer dim, under ZeRO-3) and ``Replicate()`` elsewhere. What orbax's
 ``CheckpointManager`` does for the JAX package is written out here: a step
 is written under a temporary name and renamed by rank 0 once every rank is
 done, and the oldest steps past ``max_to_keep`` are removed.
@@ -26,7 +27,6 @@ import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 
 from ..core.logging import get_logger
-from ..parallel.mesh import AXES
 
 logger = get_logger("vnsum.train.ckpt")
 
@@ -37,16 +37,14 @@ WRITE_THREADS = 4
 
 def _placed(mesh, t: torch.Tensor, spec: tuple):
     """``t`` as DCP should see it: itself on one rank; else a DTensor over
-    the mesh, sharded on ``model`` as ``spec`` says (a view, no copy)."""
+    the mesh, sharded on each axis ``spec`` names (a view, no copy)."""
     if mesh.device_mesh is None:
         return t
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     dm = mesh.device_mesh
-    placements = [
-        Shard(spec.index(AXES.model)) if ax == AXES.model and AXES.model in spec else Replicate()
-        for ax in dm.mesh_dim_names
-    ]
+    placements = [Shard(spec.index(ax)) if ax in spec else Replicate()
+                  for ax in dm.mesh_dim_names]
     return DTensor.from_local(t, dm, placements, run_check=False)
 
 

@@ -14,18 +14,26 @@ instead, one process per card, every rank running the same step:
   and runs the tensor-parallel forward with Megatron's *f* and *g*
   (``parallel/autograd.py``), so every rank computes the same loss and
   its own shard's gradient;
+- ``fsdp`` with ``TrainConfig(fsdp=True)`` (ZeRO-3): each rank holds
+  ``n_layers / fsdp`` of the stacked layers and their moments
+  (``shard_params(fsdp=True)``); each block gathers its layer from the
+  owner and sums the layer's gradient back onto it
+  (``parallel/autograd.py`` ``gather_layer``); the batch's rows shard over
+  ``(data, fsdp)``, so the fsdp ranks also split the compute, as the JAX
+  trainer's do;
+- ``seq`` with ``TrainConfig(context_parallel=True)``: each rank runs its
+  slice of the sequence, attention over the whole of it by the
+  differentiable ring (``parallel/ring.py`` ``ring_attention_fn``), and
+  the gradients are summed over ``seq`` too;
 - the update is optax's ``clip_by_global_norm`` then ``adamw``, in optax's
   order (:class:`AdamW`), on parameters and moments the trainer owns;
 - each block is recomputed in the backward pass (``remat``).
-
-``TrainConfig(fsdp=True)`` (ZeRO-3 over an ``fsdp`` axis) and
-``TrainConfig(context_parallel=True)`` (ring attention over ``seq``) are
-ROADMAP A12b and raise by name.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
@@ -33,8 +41,9 @@ from ..core.logging import get_logger
 from ..models.llama import LlamaConfig, LlamaModel, forward_train, init_params, params_from_numpy
 from ..parallel.autograd import reduce_from_group
 from ..parallel.mesh import AXES, Mesh, mesh_device
+from ..parallel.ring import ring_attention_fn
 from ..parallel.seq import SeqGroup
-from ..parallel.sharding import data_rows, param_specs, shard_params
+from ..parallel.sharding import batch_rows, param_specs, shard_params
 
 logger = get_logger("vnsum.train")
 
@@ -46,28 +55,50 @@ def lm_loss(
     *,
     attention_fn=None,
     remat: bool = True,
-    data: SeqGroup | None = None,
+    data: SeqGroup | tuple[SeqGroup, ...] | None = None,
+    seq: SeqGroup | None = None,
 ) -> torch.Tensor:
     """Next-token cross-entropy, mean over the unmasked positions of the
     whole batch.
 
-    With a ``data`` group of more than one rank, ``tokens`` and
-    ``loss_mask`` are this rank's rows of the batch: the count of unmasked
-    positions is summed over the group, and so is the rank's share of the
-    loss (*g*: the sum forward, the identity backward). Every rank then
-    returns the global mean, and its gradient is its own rows' part of the
-    global mean's gradient, which the trainer sums over ``data``. Averaging
-    each rank's own mean would weigh the ranks' positions unequally
-    whenever their masks hold different counts."""
-    data = data or SeqGroup()
-    logits = forward_train(model, tokens, attention_fn=attention_fn, remat=remat)
-    targets = tokens[:, 1:].long()
-    logits = logits[:, :-1]
-    mask = loss_mask[:, :-1].to(torch.float32)
+    With ``data`` groups of more than one rank (``data``, and ``fsdp``
+    under ZeRO-3), ``tokens`` and ``loss_mask`` are this rank's rows of the
+    batch: the count of unmasked positions is summed over the groups, and
+    so is the rank's share of the loss (*g*: the sum forward, the identity
+    backward). Every rank then returns the global mean, and its gradient
+    is its own rows' part of the global mean's gradient, which the trainer
+    sums over the groups. Averaging each rank's own mean would weigh the
+    ranks' positions unequally whenever their masks hold different counts.
+
+    With a ``seq`` group of more than one rank the rows keep the whole
+    sequence and the rank runs its slice of positions [r S/n, (r + 1)
+    S/n), attending over the whole sequence by the ring
+    (``ring_attention_fn`` over ``seq`` unless ``attention_fn`` is given).
+    Each position's target is the next token of the whole sequence, so a
+    slice's last position reads the next slice's first token and the
+    sequence's last position has none; the count and the share are summed
+    over ``seq`` as over ``data``."""
+    rows = data if isinstance(data, tuple) else (data or SeqGroup(),)
+    seq = seq or SeqGroup()
+    n = tokens.shape[1] // seq.world
+    lo = seq.rank * n
+    if seq.world > 1 and attention_fn is None:
+        attention_fn = partial(ring_attention_fn, group=seq)
+    logits = forward_train(model, tokens[:, lo:lo + n], attention_fn=attention_fn, remat=remat,
+                           q_offset=lo)
+    hi = min(lo + n, tokens.shape[1] - 1)  # the positions with a next token
+    targets = tokens[:, lo + 1:hi + 1].long()
+    logits = logits[:, :hi - lo]
+    mask = loss_mask[:, lo:hi].to(torch.float32)
     logprobs = torch.log_softmax(logits, dim=-1)
     nll = -logprobs.gather(-1, targets[..., None])[..., 0]
-    count = data.all_reduce_sum(mask.sum())
-    return reduce_from_group(torch.sum(nll * mask) / count.clamp_min(1.0), data)
+    count = mask.sum()
+    for g in rows + (seq,):
+        count = g.all_reduce_sum(count)
+    loss = torch.sum(nll * mask) / count.clamp_min(1.0)
+    for g in rows + (seq,):
+        loss = reduce_from_group(loss, g)
+    return loss
 
 
 @dataclass(frozen=True)
@@ -78,9 +109,9 @@ class TrainConfig:
     b2: float = 0.95
     grad_clip: float = 1.0
     remat: bool = True
-    context_parallel: bool = False  # ring attention over the seq axis (A12b)
+    context_parallel: bool = False  # ring attention over the seq axis
     fsdp: bool = False  # shard stacked layers (+ their optimizer state)
-    #                     over the mesh `fsdp` axis, ZeRO-3 style (A12b)
+    #                     over the mesh `fsdp` axis, ZeRO-3 style
 
 
 class AdamW(torch.optim.Optimizer):
@@ -89,9 +120,10 @@ class AdamW(torch.optim.Optimizer):
     order and arithmetic:
 
     1. the global norm of the gradients, their squares summed in f32 (optax
-       sums a bf16 leaf in bf16). Under a ``model`` group of more than one
-       rank, the squares of the leaves in param groups marked ``sharded``
-       are summed over the group and the replicated leaves counted once;
+       sums a bf16 leaf in bf16). A param group's ``axes`` are the mesh
+       axes its leaves' spec names: their squares are summed over each of
+       those axes' ``groups`` (``model``, ``fsdp``), so that every leaf
+       counts once, as optax's norm over the whole unsharded tree;
     2. clipping as optax's ``select``: with ``g_norm >= grad_clip`` every
        gradient becomes ``g / g_norm * grad_clip``, else it is kept
        (``torch.nn.utils.clip_grad_norm_`` scales by ``max / (norm +
@@ -109,11 +141,11 @@ class AdamW(torch.optim.Optimizer):
 
     def __init__(self, params, lr: float = 1e-5, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.01, grad_clip: float = 1.0,
-                 model_group: SeqGroup | None = None) -> None:
-        super().__init__(params, {"sharded": False})
+                 groups: dict[str, SeqGroup] | None = None) -> None:
+        super().__init__(params, {"axes": ()})
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
-        self.model_group = model_group or SeqGroup()
+        self.groups = groups or {}
         self.count = 0
         for group in self.param_groups:
             for p in group["params"]:
@@ -122,14 +154,14 @@ class AdamW(torch.optim.Optimizer):
 
     def global_norm(self) -> torch.Tensor:
         """The gradients' global L2 norm over the whole (unsharded) tree, an
-        f32 device scalar."""
-        parts = {True: [], False: []}
+        f32 device scalar, the same bits on every rank."""
+        total = None
         for group in self.param_groups:
-            parts[group["sharded"]] += [p.grad.float().square().sum() for p in group["params"]]
-        dev = self.param_groups[0]["params"][0].device
-        sharded = torch.stack(parts[True]).sum() if parts[True] else torch.zeros((), device=dev)
-        replicated = torch.stack(parts[False]).sum() if parts[False] else torch.zeros((), device=dev)
-        return (self.model_group.all_reduce_sum(sharded) + replicated).sqrt()
+            part = torch.stack([p.grad.float().square().sum() for p in group["params"]]).sum()
+            for ax in group["axes"]:
+                part = self.groups.get(ax, SeqGroup()).all_reduce_sum(part)
+            total = part if total is None else total + part
+        return total.sqrt()
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -195,7 +227,8 @@ class Trainer:
     ``torch.Generator`` seeded with ``seed`` (not the JAX package's
     threefry bits) and keeps its shard; ``params`` is a whole tree to
     shard. The trainer owns its parameters (``model``, a trainable
-    :class:`LlamaModel` shard) and their AdamW moments."""
+    :class:`LlamaModel` shard) and their AdamW moments; under ``fsdp``
+    only the layers this rank owns, and their moments."""
 
     def __init__(
         self,
@@ -220,36 +253,33 @@ class Trainer:
                     f"n_layers={self.cfg.n_layers} not divisible by the "
                     f"fsdp axis ({mesh.shape[AXES.fsdp]})"
                 )
-            raise NotImplementedError(
-                "TrainConfig.fsdp=True: stacked layers sharded over the 'fsdp' axis "
-                "(ZeRO-3) are ROADMAP A12b, not ported yet")
-        if self.tc.context_parallel:
-            raise NotImplementedError(
-                "TrainConfig.context_parallel=True: ring attention over the 'seq' axis "
-                "is ROADMAP A12b, not ported yet")
         dev = mesh_device(mesh.device)
         self.data = mesh.group(AXES.data)
+        # the option's group, one rank when it is off: the mesh's axis is
+        # then replicated compute, as under GSPMD
+        self.fsdp = mesh.group(AXES.fsdp) if self.tc.fsdp else SeqGroup()
+        self.seq = mesh.group(AXES.seq) if self.tc.context_parallel else SeqGroup()
         whole = _whole_model(self.cfg, params, seed, dev)
-        shard = shard_params(whole, mesh)
+        shard = shard_params(whole, mesh, fsdp=self.tc.fsdp)
         del whole
         own = {k: v.detach().clone() for k, v in shard.tree().items() if k != "layers"}
         own["layers"] = {k: v.detach().clone() for k, v in shard.tree()["layers"].items()}
-        self.model = LlamaModel(self.cfg, own, tp=shard.tp, trainable=True)
+        self.model = LlamaModel(self.cfg, own, tp=shard.tp, trainable=True, fsdp=shard.fsdp)
         del shard, own
-        groups = {True: [], False: []}
+        groups: dict[tuple, list] = {}
         for _, p, spec in self.leaves():
-            groups[AXES.model in spec].append(p)
+            groups.setdefault(tuple(ax for ax in spec if ax), []).append(p)
         self.optimizer = AdamW(
-            [{"params": ps, "sharded": sharded} for sharded, ps in groups.items() if ps],
+            [{"params": ps, "axes": axes} for axes, ps in groups.items()],
             lr=self.tc.learning_rate, b1=self.tc.b1, b2=self.tc.b2,
             weight_decay=self.tc.weight_decay, grad_clip=self.tc.grad_clip,
-            model_group=self.model.tp,
+            groups={AXES.model: self.model.tp, AXES.fsdp: self.fsdp},
         )
 
     def leaves(self) -> list[tuple[tuple[str, ...], torch.nn.Parameter, tuple]]:
         """(path, parameter, spec) of every leaf, in the JAX tree's order."""
-        specs = param_specs(self.cfg.tie_embeddings, qk_norm=self.cfg.qk_norm,
-                            sandwich_norms=self.cfg.sandwich_norms)
+        specs = param_specs(self.cfg.tie_embeddings, fsdp=self.tc.fsdp,
+                            qk_norm=self.cfg.qk_norm, sandwich_norms=self.cfg.sandwich_norms)
         return [(path, p, _spec(specs, path)) for path, p in model_leaves(self.model)]
 
     @property
@@ -269,29 +299,52 @@ class Trainer:
                 node[path[-1]] = self.optimizer.state[p][kind]
         return out
 
-    def step(self, tokens, loss_mask=None) -> float:
-        """One optimizer step on the global batch ``tokens`` [B, S] (int,
-        the same on every rank; this rank takes its ``data`` rows). Returns
-        the global loss, the same float on every rank."""
+    def backward(self, tokens, loss_mask=None) -> torch.Tensor:
+        """The step's loss and gradients on the global batch ``tokens`` [B,
+        S] (int, the same on every rank): this rank takes its rows (over
+        ``data``, and ``fsdp`` with ``fsdp=True``) and, with
+        ``context_parallel=True``, its slice of the sequence. Leaves each
+        parameter's ``grad`` as the update reads it, the whole batch's
+        gradient of this rank's shard. Returns the loss, a device scalar
+        with the same bits on every rank."""
         tokens = torch.as_tensor(tokens).to(torch.int32)
+        B, S = tokens.shape
         batch_div = self.mesh.shape.get(AXES.data, 1)
-        if tokens.shape[0] % batch_div:
+        if self.tc.fsdp:
+            batch_div *= self.mesh.shape.get(AXES.fsdp, 1)
+        if B % batch_div:
             raise ValueError(
-                f"batch size {tokens.shape[0]} must be divisible by "
-                f"data mesh axes ({batch_div}); "
+                f"batch size {B} must be divisible by "
+                f"data{'×fsdp' if self.tc.fsdp else ''} mesh axes ({batch_div}); "
                 "with fsdp=True the batch shards over both axes"
+            )
+        seq_div = self.mesh.shape.get(AXES.seq, 1) if self.tc.context_parallel else 1
+        if S % seq_div:
+            raise ValueError(
+                f"sequence length {S} must be divisible by the seq mesh axis "
+                f"({seq_div}); with context_parallel=True the sequence shards over it"
             )
         if loss_mask is None:
             loss_mask = torch.ones_like(tokens, dtype=torch.bool)
         loss_mask = torch.as_tensor(loss_mask).to(torch.bool)
-        lo, hi = data_rows(self.data, tokens.shape[0])
+        rows = (self.data, self.fsdp)
+        lo, hi = batch_rows(rows, B)
         dev = self.model.device
-        t0 = time.time()
         loss = lm_loss(self.model, tokens[lo:hi].to(dev), loss_mask[lo:hi].to(dev),
-                       remat=self.tc.remat, data=self.data)
+                       remat=self.tc.remat, data=rows, seq=self.seq)
         loss.backward()
-        for p in self.model.parameters():
-            self.data.all_reduce_sum(p.grad)
+        for _, p, spec in self.leaves():
+            # a layer leaf's sum over fsdp is gather_layer's backward
+            for g in (self.data, *(() if AXES.fsdp in spec else (self.fsdp,)), self.seq):
+                g.all_reduce_sum(p.grad)
+        return loss
+
+    def step(self, tokens, loss_mask=None) -> float:
+        """One optimizer step on the global batch ``tokens`` [B, S]
+        (:meth:`backward`, then the update). Returns the global loss, the
+        same float on every rank."""
+        t0 = time.time()
+        loss = self.backward(tokens, loss_mask)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         loss = float(loss.detach())
